@@ -1,0 +1,74 @@
+"""Shared helpers of the ``test_torch_*`` parity tests: the same numpy
+scene, weights and noise go through the JAX package and the PyTorch port."""
+from __future__ import annotations
+
+import copy
+
+import jax
+import numpy as np
+import torch
+
+from trajsde_tpu.config import ExperimentConfig, build_model as jax_build_model
+from trajsde_tpu.data.synthetic import make_scene_batch as jax_make_scene_batch
+from trajsde_tpu_torch.bridge import params_from_flax
+from trajsde_tpu_torch.config import FLAGSHIP, build_model as torch_build_model
+from trajsde_tpu_torch.data.scene import SceneBatch
+
+SCENE_FIELDS = ("x", "y", "positions", "padding_mask", "bos_mask", "rotate_angles",
+                "actor_valid", "agent_index", "av_index", "source", "lane_positions",
+                "lane_paddings", "lane_valid")
+
+
+def small_cfg(D=16, H=2, Tf=12, K=3):
+    """The flagship config at another width / horizon / mode count."""
+    cfg = copy.deepcopy(FLAGSHIP)
+    cfg["encoder"]["kwargs"].update(embed_dim=D, num_heads=H)
+    cfg["aggregator"]["kwargs"].update(embed_dim=D, num_heads=H, num_modes=K)
+    cfg["decoder"]["kwargs"].update(local_channels=D, global_channels=D, num_modes=K,
+                                    future_steps=Tf, max_fut_t=Tf / 10)
+    return cfg
+
+
+def scene_pair(seed, B=2, A=5, L=6, sources=(0, 1)):
+    """A JAX ``SceneBatch`` and the port's copy of the same arrays."""
+    js = jax_make_scene_batch(np.random.default_rng(seed), batch_size=B, num_actors=A,
+                              num_lanes=L, sources=list(sources))
+    ts = SceneBatch.from_numpy(**{f: np.asarray(getattr(js, f)) for f in SCENE_FIELDS})
+    return js, ts
+
+
+def model_pair(cfg, js, seed=0):
+    """(JAX model, its params, port model on the CPU with the same weights)."""
+    jm = jax_build_model(ExperimentConfig(cfg))
+    params = jax.jit(jm.init)({"params": jax.random.key(seed), "sde": jax.random.key(1)}, js)
+    tm = torch_build_model(cfg, device="cpu")
+    tm.load_state_dict(params_from_flax(jax.tree.map(np.asarray, params)))
+    return jm, params, tm
+
+
+def noise_for(cfg, B, A, seed=3):
+    """Unit normals: encoder [Th, B, A+1, D], twin [B, 1, Th, 2],
+    decoder [Tf, B, K, A, D] (float32 numpy)."""
+    enc, dec = cfg["encoder"]["kwargs"], cfg["decoder"]["kwargs"]
+    Th, D, Tf, K = enc["historical_steps"], enc["embed_dim"], dec["future_steps"], dec["num_modes"]
+    r = np.random.default_rng(seed)
+    f = lambda *s: r.standard_normal(s).astype(np.float32)  # noqa: E731
+    return f(Th, B, A + 1, D), f(B, 1, Th, 2), f(Tf, B, K, A, D)
+
+
+def jax_forward(jm, params, js, enc_noise, twin_noise, dec_noise):
+    """The JAX model's forward with every draw pinned."""
+    def fwd(m, scene):
+        local, d_in, d_out, _, _ = m.encoder(scene, True, enc_noise, twin_noise)
+        glob = m.aggregator(scene, local, True)
+        out = m.decoder(scene, local, glob, True, dec_noise)
+        out["y"] = m._rotated_y(scene)
+        out["diff_in"], out["diff_out"] = d_in, d_out
+        return out
+
+    out = jm.apply(params, js, method=fwd)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def t(a):
+    return torch.from_numpy(np.array(a))

@@ -1,0 +1,20 @@
+"""trajsde_tpu_torch — the PyTorch/CUDA port of ``trajsde_tpu``.
+
+A second package beside the JAX one, with the same module names so each
+counterpart is easy to find.  It imports neither JAX nor anything of
+``trajsde_tpu``; the tests hold it against the JAX package on the CPU.
+
+This slice serves the flagship neural-SDE model:
+
+  data/      grid constants, ``SceneBatch``, synthetic scenes, packing
+  models/    encoder / aggregator / decoder / prediction model
+  ops/       kernel wrappers (the decoder rollout, CUDA C++ in ``csrc/``)
+  serving.py the serving forward with the rollout kernel spliced in
+  server.py  the synchronous ``ServingEngine``
+  bridge.py  flax parameter tree <-> ``state_dict``
+  config.py  component registry and the flagship configuration
+
+Entry points run on CUDA unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"

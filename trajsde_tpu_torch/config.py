@@ -1,0 +1,128 @@
+"""Component registry and experiment configuration
+(``trajsde_tpu/registry.py`` and ``trajsde_tpu/config.py``).
+
+The YAML schema of the JAX package resolves through the same
+name -> constructor registry, aliases included, and kwargs a constructor
+does not take are dropped.  ``FLAGSHIP`` holds the model sections of
+``configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec.yml`` as a dict, so a
+machine without PyYAML can build the flagship model.
+"""
+from __future__ import annotations
+
+import inspect
+from typing import Any, Dict
+
+import torch
+from torch import nn
+
+from trajsde_tpu_torch.device import resolve_device
+from trajsde_tpu_torch.models.aggregator import GlobalInteractor
+from trajsde_tpu_torch.models.decoders import SDEDecoder
+from trajsde_tpu_torch.models.layers import GRUUnit
+from trajsde_tpu_torch.models.prediction import PredictionModelSDENet
+from trajsde_tpu_torch.models.sde_encoder import LocalEncoderSDESep
+
+REGISTRY = {cls.__name__: cls for cls in (
+    LocalEncoderSDESep, GlobalInteractor, SDEDecoder, PredictionModelSDENet,
+)}
+# reference module names -> native names
+ALIASES = {"LocalEncoderSDESepPara2": "LocalEncoderSDESep"}
+
+FLAGSHIP: Dict[str, Any] = {
+    "model_specific": {
+        "module_name": "PredictionModelSDENet",
+        "kwargs": {
+            "dataset": "nuScenes", "ref_time": 20, "historical_steps": 21,
+            "future_steps": 60, "num_modes": 10, "rotate": True, "parallel": True,
+            "only_agent": False, "is_gtabs": True,
+        },
+    },
+    "encoder": {
+        "module_name": "LocalEncoderSDESepPara2",
+        "kwargs": {
+            "max_past_t": 2, "historical_steps": 21, "node_dim": 2, "edge_dim": 2,
+            "embed_dim": 64, "num_heads": 8, "dropout": 0.1, "local_radius": 50,
+            "parallel": True, "input_diff": True, "minimum_step": 0.1, "ref_time": 20,
+            "run_backwards": True, "adjoint": False, "rtol": 0.001, "atol": 0.001,
+            "method": "euler", "adaptive": False, "sde_layers": 2,
+        },
+    },
+    "aggregator": {
+        "module_name": "GlobalInteractor",
+        "kwargs": {
+            "historical_steps": 21, "embed_dim": 64, "edge_dim": 2, "num_modes": 10,
+            "num_heads": 8, "num_layers": 3, "dropout": 0.1, "rotate": True,
+        },
+    },
+    "decoder": {
+        "module_name": "SDEDecoder",
+        "kwargs": {
+            "local_channels": 64, "global_channels": 64, "future_steps": 60,
+            "num_modes": 10, "max_fut_t": 6, "uncertain": True, "min_scale": 0.001,
+            "min_stepsize": 0.1, "method": "euler",
+        },
+    },
+}
+
+
+def resolve(name: str):
+    name = ALIASES.get(name, name)
+    if name not in REGISTRY:
+        raise KeyError(f"unknown component {name!r}; known: {sorted(REGISTRY)}")
+    return REGISTRY[name]
+
+
+def build(name: str, kwargs: Dict[str, Any]):
+    """Instantiate a component, dropping kwargs its constructor rejects."""
+    ctor = resolve(name)
+    params = inspect.signature(ctor).parameters
+    return ctor(**{k: v for k, v in kwargs.items() if k in params})
+
+
+def load_config(path: str) -> Dict[str, Any]:
+    import yaml
+
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, seed: int) -> nn.Module:
+    """Seeded init of the JAX package's initialisers: xavier-uniform
+    weights and zero biases, normal(0.1) for the GRU gates, normal(0.02)
+    for the tokens, LayerNorm ones/zeros.  Draws on the CPU, so the
+    weights do not depend on the device."""
+    gen = torch.Generator().manual_seed(int(seed))
+    gru_linears = {id(m) for g in model.modules() if isinstance(g, GRUUnit)
+                   for m in g.modules() if isinstance(m, nn.Linear)}
+    for m in model.modules():
+        if isinstance(m, nn.Linear):
+            w = torch.empty(m.weight.shape)
+            if id(m) in gru_linears:
+                w.normal_(0.0, 0.1, generator=gen)
+            else:
+                fan_out, fan_in = m.weight.shape
+                bound = (6.0 / (fan_in + fan_out)) ** 0.5
+                w.uniform_(-bound, bound, generator=gen)
+            m.weight.copy_(w)
+            m.bias.zero_()
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+    for name, p in model.named_parameters():
+        if name.endswith(("bos_token", "hidden")):
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+    return model
+
+
+def build_model(cfg: Dict[str, Any] = FLAGSHIP, device="cuda", seed: int = 0) -> nn.Module:
+    """The composed prediction model of a config (``FLAGSHIP`` or a loaded
+    YAML dict), initialised from ``seed``, on ``device``, in eval mode."""
+    dev = resolve_device(device)
+    parts = {sec: build(cfg[sec]["module_name"], dict(cfg[sec].get("kwargs", {})))
+             for sec in ("encoder", "aggregator", "decoder")}
+    model_cfg = cfg["model_specific"]
+    model = resolve(model_cfg["module_name"])(
+        rotate=model_cfg.get("kwargs", {}).get("rotate", True), **parts
+    )
+    return init_weights(model, seed).to(dev).eval()

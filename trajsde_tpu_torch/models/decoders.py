@@ -1,0 +1,107 @@
+"""Latent-SDE rollout decoder (``trajsde_tpu/models/decoders.py``).
+
+Layouts: ``local_embed [B, A, D]``, ``global_embed [B, F, A, D]``;
+outputs ``loc [B, F, A, Tf, 4]`` (location + scale), ``pi [B, A, F]``,
+``reg_mask [B, A, Tf]``.  ``fuse`` and ``decode`` are separate so the
+serving path can run the rollout between them through the CUDA kernel
+(:mod:`trajsde_tpu_torch.serving`); ``forward`` rolls out with a loop of
+``SDEStep``.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F_
+from torch import nn
+
+from trajsde_tpu_torch.data.scene import SceneBatch
+from trajsde_tpu_torch.models.layers import layer_norm
+from trajsde_tpu_torch.models.sde import SDEStep, decoder_time_grid
+
+
+class SDEDecoder(nn.Module):
+    """The 60-step Euler-Maruyama rollout over ``linspace(0, max_fut_t,
+    Tf+1)`` on the fused ``[B, F, A, D]`` state; each step's latent decodes
+    to a 2-D location and scale."""
+
+    def __init__(self, local_channels: int, global_channels: int, future_steps: int,
+                 num_modes: int, max_fut_t: float = 6.0, uncertain: bool = True,
+                 min_scale: float = 1e-3, sde_layers: int = 2, method: str = "euler",
+                 dtype=None, fused: bool = False):
+        super().__init__()
+        if method != "euler":
+            raise NotImplementedError(f"SDE method {method!r} is not supported (euler only)")
+        if fused:
+            raise NotImplementedError(
+                "SDEDecoder(fused=True) is the training rollout kernel (with "
+                "its backward), which comes with the training slice of the port"
+            )
+        if dtype not in (None, "float32", torch.float32):
+            raise NotImplementedError(
+                f"dtype={dtype!r}: reduced-precision configs are not ported yet"
+            )
+        D = local_channels
+        self.local_channels = D
+        self.future_steps = future_steps
+        self.num_modes = num_modes
+        self.max_fut_t = float(max_fut_t)
+        self.uncertain = uncertain
+        self.min_scale = min_scale
+        self.aggr_dense = nn.Linear(D + global_channels, D)
+        self.aggr_ln = layer_norm(D)
+        self.sde_rollout = SDEStep(D, sde_layers)
+        heads = {"loc_layers": (D, 2), "pi_layers": (D + global_channels, 1)}
+        if uncertain:
+            heads["scale_layers"] = (D, 2)
+        for name, (din, dout) in heads.items():
+            self.add_module(f"{name}_0", nn.Linear(din, D))
+            self.add_module(f"{name}_1", layer_norm(D))
+            self.add_module(f"{name}_2", nn.Linear(D, dout))
+
+    def _head(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        h = torch.relu(getattr(self, f"{name}_1")(getattr(self, f"{name}_0")(x)))
+        return getattr(self, f"{name}_2")(h)
+
+    def time_grid(self, device=None):
+        return decoder_time_grid(self.future_steps, self.max_fut_t, device=device)
+
+    def fuse(self, scene: SceneBatch, local_embed, global_embed) -> torch.Tensor:
+        """Initial rollout state ``y0 [B, F, A, D]``."""
+        local_exp = local_embed[:, None].expand(global_embed.shape)
+        h = self.aggr_dense(torch.cat([global_embed, local_exp], dim=-1))
+        return torch.relu(self.aggr_ln(h))
+
+    def decode(self, scene: SceneBatch, sol, local_embed, global_embed) -> Dict[str, torch.Tensor]:
+        """Per-step latents ``sol [B, F, A, Tf, D]`` -> output dict."""
+        Tf = self.future_steps
+        local_exp = local_embed[:, None].expand(global_embed.shape)
+        loc = self._head("loc_layers", sol)
+        pi = self._head("pi_layers", torch.cat([local_exp, global_embed], dim=-1))
+        pi = pi[..., 0].permute(0, 2, 1)                        # [B, A, F]
+        if self.uncertain:
+            scale = F_.elu(self._head("scale_layers", sol)) + 1.0 + self.min_scale
+            loc = torch.cat([loc, scale], dim=-1)
+        return {"loc": loc, "pi": pi, "reg_mask": ~scene.padding_mask[:, :, -Tf:]}
+
+    def rollout(self, y0: torch.Tensor, sde_noise: torch.Tensor) -> torch.Tensor:
+        """The plain rollout: ``ys [Tf, *y0.shape]`` from unit normals
+        ``sde_noise [Tf, *y0.shape]``."""
+        t0s, dts = self.time_grid(device=y0.device)
+        ys, y = [], y0
+        for t in range(self.future_steps):
+            y = self.sde_rollout(y, t0s[t], dts[t], sde_noise[t])
+            ys.append(y)
+        return torch.stack(ys)
+
+    def forward(self, scene: SceneBatch, local_embed, global_embed,
+                sde_noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """``sde_noise [Tf, B, F, A, D]`` pins the Brownian unit normals;
+        otherwise they are drawn from ``generator``."""
+        y0 = self.fuse(scene, local_embed, global_embed)
+        if sde_noise is None:
+            sde_noise = torch.randn((self.future_steps,) + y0.shape, generator=generator,
+                                    device=y0.device, dtype=y0.dtype)
+        sol = self.rollout(y0, sde_noise).permute(1, 2, 3, 0, 4)   # [B, F, A, Tf, D]
+        return self.decode(scene, sol, local_embed, global_embed)

@@ -1,0 +1,124 @@
+"""Shared attention / gating primitives (``trajsde_tpu/models/layers.py``).
+
+Submodules carry the flax scope names of the JAX package (``lin_q``,
+``Dense_0``, ``update_gate_0`` ...), so a ``state_dict`` key is the flax
+parameter path with ``kernel``/``scale`` renamed to ``weight``
+(:mod:`trajsde_tpu_torch.bridge`).  Forward passes are inference-mode:
+dropout is the identity, as in the JAX modules with
+``deterministic=True``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+LN_EPS = 1e-5
+
+
+def masked_softmax(logits: torch.Tensor, mask: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Softmax over ``dim`` restricted to ``mask``; all-masked rows give
+    exactly 0 (``torch.softmax`` over an all ``-inf`` row gives NaN)."""
+    big_neg = torch.finfo(logits.dtype).min
+    masked = torch.where(mask, logits, torch.full_like(logits, big_neg))
+    m = masked.amax(dim=dim, keepdim=True)
+    e = torch.exp(masked - m) * mask.to(logits.dtype)
+    s = e.sum(dim=dim, keepdim=True)
+    return e / s.clamp_min(1e-16)
+
+
+def layer_norm(features: int) -> nn.LayerNorm:
+    return nn.LayerNorm(features, eps=LN_EPS)
+
+
+class MlpBlock(nn.Module):
+    """Linear(4D) -> ReLU -> Linear(D)."""
+
+    def __init__(self, embed_dim: int):
+        super().__init__()
+        self.Dense_0 = nn.Linear(embed_dim, embed_dim * 4)
+        self.Dense_1 = nn.Linear(embed_dim * 4, embed_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.Dense_1(torch.relu(self.Dense_0(x)))
+
+
+class EdgeAttention(nn.Module):
+    """Dense masked edge attention with HiVT's gated update.
+
+    center [..., Nq, D], mask [..., Nq, Nk] bool, and either
+    ``kv_pair [..., Nq, Nk, D]`` (pair mode) or ``kv_node [..., Nk, D]`` +
+    ``kv_edge [..., Nq, Nk, D]`` (node+edge mode, whose keys/values are
+    the sum of both projections).  Returns [..., Nq, D].
+    """
+
+    def __init__(self, embed_dim: int, num_heads: int, edge_stream: bool = False):
+        super().__init__()
+        D = embed_dim
+        self.num_heads = num_heads
+        names = ["lin_q", "lin_k", "lin_v", "lin_ih", "lin_hh", "lin_self", "out_proj"]
+        if edge_stream:
+            names += ["lin_k_edge", "lin_v_edge"]
+        for n in names:
+            self.add_module(n, nn.Linear(D, D))
+
+    def forward(
+        self,
+        center: torch.Tensor,
+        mask: torch.Tensor,
+        kv_pair: Optional[torch.Tensor] = None,
+        kv_node: Optional[torch.Tensor] = None,
+        kv_edge: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        D = center.shape[-1]
+        H = self.num_heads
+        hd = D // H
+        q = self.lin_q(center)
+        if kv_pair is not None:
+            k = self.lin_k(kv_pair)
+            v = self.lin_v(kv_pair)
+        else:
+            k = self.lin_k(kv_node).unsqueeze(-3) + self.lin_k_edge(kv_edge)
+            v = self.lin_v(kv_node).unsqueeze(-3) + self.lin_v_edge(kv_edge)
+        q = q.reshape(q.shape[:-1] + (H, hd))
+        k = k.reshape(k.shape[:-1] + (H, hd))
+        v = v.reshape(v.shape[:-1] + (H, hd))
+
+        alpha = torch.einsum("...qhd,...qkhd->...qkh", q, k) / hd ** 0.5
+        alpha = masked_softmax(alpha, mask.unsqueeze(-1), dim=-2)
+        agg = torch.einsum("...qkh,...qkhd->...qhd", alpha, v)
+        agg = agg.reshape(agg.shape[:-2] + (D,))
+
+        gate = torch.sigmoid(self.lin_ih(agg) + self.lin_hh(center))
+        out = agg + gate * (self.lin_self(center) - agg)
+        return self.out_proj(out)
+
+
+class GRUUnit(nn.Module):
+    """Masked GRU cell fusing SDE state with per-step observations.
+
+    Gates are Linear -> tanh -> Linear MLPs.  Update and reset read
+    ``[h, x]`` and pass a sigmoid; the new state reads ``[x, reset * h]``
+    and has no sigmoid.  Rows whose mask is False keep ``h``.
+    """
+
+    def __init__(self, latent_dim: int, n_units: int):
+        super().__init__()
+        din = 2 * latent_dim
+        for gate in ("update_gate", "reset_gate", "new_state"):
+            self.add_module(f"{gate}_0", nn.Linear(din, n_units))
+            self.add_module(f"{gate}_1", nn.Linear(n_units, latent_dim))
+
+    def _net(self, gate: str, x: torch.Tensor) -> torch.Tensor:
+        h = torch.tanh(getattr(self, f"{gate}_0")(x))
+        return getattr(self, f"{gate}_1")(h)
+
+    def forward(self, h_cur: torch.Tensor, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        concat = torch.cat([h_cur, x], dim=-1)
+        update = torch.sigmoid(self._net("update_gate", concat))
+        reset = torch.sigmoid(self._net("reset_gate", concat))
+        new_state = self._net("new_state", torch.cat([x, reset * h_cur], dim=-1))
+        h_next = (1.0 - update) * new_state + update * h_cur
+        m = mask.unsqueeze(-1).to(h_cur.dtype)
+        return m * h_next + (1.0 - m) * h_cur

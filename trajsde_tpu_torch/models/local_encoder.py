@@ -1,0 +1,87 @@
+"""Agent-agent and agent-lane attention encoders
+(``trajsde_tpu/models/local_encoder.py``, dense path).
+
+Time is another batch axis of one dense masked attention, as in the JAX
+package.  The query and key sets may differ (Aq = A + 1 in the SDE
+encoder, whose focal-agent twin is a query row only).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from trajsde_tpu_torch.models.embedding import MultipleInputEmbedding, SingleInputEmbedding
+from trajsde_tpu_torch.models.layers import EdgeAttention, MlpBlock, layer_norm
+
+
+def _not_ported(option: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{option} (the fused AA pair-chain kernel / neighbour cap) is not "
+        "ported yet: it comes with the fused-AA slice of the port"
+    )
+
+
+class AAEncoder(nn.Module):
+    """Per-step agent-agent attention.
+
+    x_q [B, Th, Aq, 2], x_k [B, Th, Ak, 2], rot_q [B, Aq, 2, 2],
+    bos_q [B, Aq, Th], mask [B, Th, Aq, Ak], edge_vec [B, Th, Aq, Ak, 2]
+    -> [B, Th, Aq, D].
+    """
+
+    def __init__(self, historical_steps: int, embed_dim: int, num_heads: int,
+                 node_dim: int = 2, edge_dim: int = 2, fused: bool = False,
+                 neighbor_cap: int = 0):
+        super().__init__()
+        if fused:
+            raise _not_ported("fused=True")
+        if neighbor_cap:
+            raise _not_ported("neighbor_cap > 0")
+        D = embed_dim
+        self.bos_token = nn.Parameter(torch.zeros(historical_steps, D))
+        self.center_embed = SingleInputEmbedding(node_dim, D)
+        self.nbr_embed = MultipleInputEmbedding([node_dim, edge_dim], D)
+        self.attn = EdgeAttention(D, num_heads)
+        self.norm1 = layer_norm(D)
+        self.mlp = MlpBlock(D)
+        self.norm2 = layer_norm(D)
+
+    def forward(self, x_q, x_k, rot_q, bos_q, mask, edge_vec):
+        # centre embedding in each receiver's own frame, bos token substituted
+        x_q_local = torch.einsum("btaj,baji->btai", x_q, rot_q)
+        center = self.center_embed(x_q_local)
+        center = torch.where(
+            bos_q.permute(0, 2, 1).unsqueeze(-1),
+            self.bos_token[None, :, None, :].to(center.dtype),
+            center,
+        )
+        # per-pair neighbour embedding rotated into the RECEIVER frame
+        x_k_local = torch.einsum("btkj,bqji->btqki", x_k, rot_q)
+        edge_local = torch.einsum("btqkj,bqji->btqki", edge_vec, rot_q)
+        nbr = self.nbr_embed([x_k_local, edge_local])
+        center = center + self.attn(self.norm1(center), mask, kv_pair=nbr)
+        return center + self.mlp(self.norm2(center))
+
+
+class ALEncoder(nn.Module):
+    """Lane -> actor cross attention.
+
+    x_actor [B, A, D], lane_feat [B, L, 2], al_vec [B, A, L, 2],
+    mask [B, A, L], rot [B, A, 2, 2] -> [B, A, D].
+    """
+
+    def __init__(self, embed_dim: int, num_heads: int, node_dim: int = 2, edge_dim: int = 2):
+        super().__init__()
+        D = embed_dim
+        self.lane_embed = MultipleInputEmbedding([node_dim, edge_dim], D)
+        self.attn = EdgeAttention(D, num_heads)
+        self.norm1 = layer_norm(D)
+        self.mlp = MlpBlock(D)
+        self.norm2 = layer_norm(D)
+
+    def forward(self, x_actor, lane_feat, al_vec, mask, rot):
+        lane_local = torch.einsum("blj,baji->bali", lane_feat, rot)
+        vec_local = torch.einsum("balj,baji->bali", al_vec, rot)
+        lane_embed = self.lane_embed([lane_local, vec_local])
+        x_actor = x_actor + self.attn(self.norm1(x_actor), mask, kv_pair=lane_embed)
+        return x_actor + self.mlp(self.norm2(x_actor))

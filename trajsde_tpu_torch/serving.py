@@ -1,0 +1,70 @@
+"""Serving forward with the rollout kernel spliced in
+(``trajsde_tpu/serving.py``).
+
+encoder -> aggregator -> ``SDEDecoder.fuse`` -> kernel K1 on the
+``[B*F*A, D]`` f32 rows, in (B, F, A) order -> ``SDEDecoder.decode``.
+The encoder and heads run as plain PyTorch; the 60-step rollout, the
+serving hot loop, is one kernel launch.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from trajsde_tpu_torch.data.scene import SceneBatch
+from trajsde_tpu_torch.device import resolve_device
+from trajsde_tpu_torch.models.decoders import SDEDecoder
+from trajsde_tpu_torch.ops.sde_rollout import rollout_params_from_module, sde_rollout
+
+
+def make_serving_fn(model, device="cuda", increments: str = "rademacher", ood: bool = False):
+    """Move ``model`` to ``device`` and return
+    ``serve(scene, seed, generator=None, noise=None, sde_noise=None,
+    twin_noise=None) -> output dict``.
+
+    ``seed`` seeds the kernel's increments (``'rademacher'`` +-1 by
+    default, or ``'gaussian'``); ``generator`` drives the encoder's draws.
+    Tests pin the draws instead: ``noise [Tf, B*F*A, D]`` for the rollout,
+    ``sde_noise [Th, B, A+1, D]`` and ``twin_noise [B, 1, Th, 2]`` for the
+    encoder.  ``ood=True`` decodes from the encoder's ensemble-mean
+    embedding and attaches ``stds [B, A]``.
+    """
+    dev = resolve_device(device)
+    decoder = model.decoder
+    if not isinstance(decoder, SDEDecoder):
+        raise NotImplementedError(
+            f"the kernel serving path requires SDEDecoder (model has "
+            f"{type(decoder).__name__})"
+        )
+    if ood and not hasattr(model.encoder, "forward_ood"):
+        raise NotImplementedError(
+            f"ood=True needs an encoder with forward_ood; "
+            f"{type(model.encoder).__name__} has none"
+        )
+    model.to(dev).eval()
+    kp = rollout_params_from_module(decoder.sde_rollout)
+    t0s, dts = decoder.time_grid(device=dev)
+    Tf = decoder.future_steps
+
+    @torch.inference_mode()
+    def serve(scene: SceneBatch, seed: int, generator: Optional[torch.Generator] = None,
+              noise=None, sde_noise=None, twin_noise=None):
+        if ood:
+            local, stds = model.encoder.forward_ood(scene, generator=generator)
+        else:
+            local = model.encoder(scene, sde_noise=sde_noise, twin_noise=twin_noise,
+                                  generator=generator)[0]
+        glob = model.aggregator(scene, local)
+        y0 = decoder.fuse(scene, local, glob)
+        B, F, A, D = y0.shape
+        ys = sde_rollout(y0.reshape(-1, D).float().contiguous(), kp, t0s, dts, seed, Tf,
+                         noise=noise, increments=increments)
+        sol = ys.reshape(Tf, B, F, A, D).permute(1, 2, 3, 0, 4)
+        out = decoder.decode(scene, sol, local, glob)
+        out["y"] = model.rotated_y(scene)
+        if ood:
+            out["stds"] = stds
+        return out
+
+    return serve
