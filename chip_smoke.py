@@ -1,42 +1,58 @@
 #!/usr/bin/env python3
-"""Serve the flagship neural-SDE model on one NVIDIA GPU through the
-PyTorch/CUDA port (``trajsde_tpu_torch``) and hold its kernels against
+"""Serve and train the flagship neural-SDE model on one NVIDIA GPU through
+the PyTorch/CUDA port (``trajsde_tpu_torch``) and hold its kernels against
 their plain PyTorch versions.
 
-    python3 chip_smoke.py        # from the repository root, on a machine with a GPU
+    python3 chip_smoke.py   # from the repository root, on a GPU machine
 
 Phases (any failure raises and exits non-zero; nothing falls back):
   1. device: require CUDA, print the card's name and power limit, f32
      matmuls in full precision (TF32 off);
-  2. build: compile every kernel of the path from ``trajsde_tpu_torch/csrc``;
-  3. kernels: the rollout kernel vs its plain version at the row count of
-     each served bucket (1, 8, 128: up to 61,440 rows x 60 steps x 64)
+  2. build: compile every kernel from ``trajsde_tpu_torch/csrc``, one nvcc
+     per source in parallel, and print ptxas's registers and spills;
+  3. kernels: the rollout kernel K1 vs its plain version at the row count
+     of each served bucket (1, 8, 128: up to 61,440 rows x 60 steps x 64)
      with explicit, Rademacher and gaussian increments; CUDA-event
      medians of both at bucket 128;
   4. serve: a full-width ``ServingEngine`` (48 actors, 192 lanes, K=10,
      seeded weights) answers batches of 1, 5 and 128 scenes; outputs are
-     checked and the kernel's launch count must equal the batch count;
+     checked and K1's launch count must equal the batch count;
   5. splice: one served bucket (kernel rollout) vs the model's own
-     forward (plain rollout loop) with the same pinned noise.
-The last two lines are a JSON object per kernel and the device line.
+     forward (plain rollout loop) with the same pinned noise;
+  6. backward kernel: K2 vs its plain version at the training shape
+     (61,440 rows x 60 steps x 64), explicit and in-kernel gaussian
+     increments, per output; two runs bit-equal; CUDA-event medians;
+  7. train: ``FLAGSHIP_TRAIN`` (fused rollout, full width, seeded init)
+     fits one epoch of synthetic batches of both sources, evaluates two
+     batches, takes repeated steps on one batch (the loss must fall), and
+     saves and restores a checkpoint; K1 and K2 must launch once per
+     optimizer step;
+  8. train splice: one step's loss and every gradient of the fused path
+     (K1 + K2, explicit decoder noise) vs autograd through the plain loop.
+The last lines are the card, a JSON object per kernel and the device line.
 """
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from trajsde_tpu_torch.config import FLAGSHIP, build_model
+from trajsde_tpu_torch.config import (FLAGSHIP, FLAGSHIP_TRAIN, build_losses, build_metrics,
+                                      build_model)
 from trajsde_tpu_torch.data.pack import pack_scenes, pick_bucket
 from trajsde_tpu_torch.data.synthetic import make_raw_scene
 from trajsde_tpu_torch.ops import build as kernel_build
 from trajsde_tpu_torch.ops import sde_rollout as K1
 from trajsde_tpu_torch.server import ServingEngine, align_scene
 from trajsde_tpu_torch.serving import make_serving_fn
+from trajsde_tpu_torch.train.checkpoint import CheckpointManager
+from trajsde_tpu_torch.train.loop import Trainer, create_train_state, make_train_step
 
 NUM_ACTORS, NUM_LANES = 48, 192
 BATCHES = (1, 5, 128)
@@ -47,6 +63,19 @@ SEED = 0
 TOL_KERNEL = 1e-4
 # served path vs model forward (loc / pi), same pinned noise, full width
 TOL_SPLICE = 1e-3
+# K2 vs plain, max |kernel - plain| / max |plain| per output: dy0 is a
+# 60-step chain per row; each weight gradient sums 61,440 x 60 row-steps in
+# another order (the kernel per block and tile, the plain version by cuBLAS)
+TOL_K2_DY0, TOL_K2_W = 1e-4, 1e-3
+# fused train step (K1 + K2) vs autograd through the plain loop, full width:
+# loss relative; each gradient leaf max |diff| <= TOL * max |grad| + ATOL (the
+# atol covers leaves whose exact gradient is 0, such as the key biases under
+# the shift-invariant softmax)
+TOL_TRAIN_LOSS, TOL_TRAIN_GRAD, ATOL_TRAIN_GRAD = 1e-5, 1e-3, 1e-6
+TRAIN_BATCHES, VAL_BATCHES, REPEAT_STEPS = 3, 2, 8
+TRAIN_SPLICE_BATCH = 8
+# the flagship YAML's datamodule train_batch_size (it fits the card in f32)
+TRAIN_BATCH = 128
 # H100 SXM published peaks (dense): f32 on CUDA cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -86,13 +115,18 @@ def phase_device() -> str:
     return card
 
 
+KERNELS = ("sde_rollout", "sde_rollout_bwd")
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
-    kernel_build.load("sde_rollout")
-    print(f"[build] sde_rollout ready in {time.perf_counter() - t0:.2f} s", flush=True)
-    for line in kernel_build.build_log.get("sde_rollout", "").splitlines():
-        if "registers" in line or "spill" in line or line.startswith("built"):
-            print(f"[build]   {line.strip()}")
+    kernel_build.load_all(KERNELS)
+    print(f"[build] {', '.join(KERNELS)} ready in {time.perf_counter() - t0:.2f} s", flush=True)
+    for name in KERNELS:
+        for line in kernel_build.build_log.get(name, "").splitlines():
+            if ("registers" in line or "spill" in line or line.startswith("built")
+                    or "Compiling entry" in line):
+                print(f"[build]   {name}: {line.strip()}")
 
 
 def rollout_bound(rows: int, steps: int, dim: int, explicit_noise: bool):
@@ -182,7 +216,7 @@ def phase_serve(engine, model) -> int:
     requests = _requests(rng)
     engine.predict(requests[1])  # warm-up: CUDA context, cuBLAS handles, allocator
 
-    K1.sde_rollout.launches = 0
+    K1.sde_rollout.launches = K1.sde_rollout_bwd.launches = 0
     ms = {}
     for n in BATCHES:
         torch.cuda.synchronize()
@@ -194,6 +228,7 @@ def phase_serve(engine, model) -> int:
     print(f"[serve] sde_rollout launches on the main path: {launches} for {len(BATCHES)} batches",
           flush=True)
     check(launches == len(BATCHES), "the rollout kernel did not run once per served batch")
+    check(K1.sde_rollout_bwd.launches == 0, "serving launched the backward kernel")
 
     for n in BATCHES:  # second pass: allocator and kernels warm
         torch.cuda.synchronize()
@@ -232,18 +267,246 @@ def phase_splice(model) -> None:
         check(err < TOL_SPLICE, f"served {k} disagrees with the model forward")
 
 
+def bwd_bound(rows: int, steps: int, dim: int, explicit_noise: bool):
+    """(bound_ms, bound_by, flops, bytes) of one K2 call: per row-step 4
+    recomputed, 5 input-gradient and 5 weight-gradient dim x dim products
+    plus the three dim-wide dots of the diffusion output; y0, ys[:T-1],
+    ct, the weights and the time table (and explicit noise) read once,
+    dy0 and the weight gradients written once."""
+    flops = rows * steps * (28 * dim * dim + 6 * dim)
+    weights = 5 * dim * dim + 10 * dim + 4
+    nbytes = 4 * (rows * dim + (steps - 1) * rows * dim + steps * rows * dim + weights + 4 * steps
+                  + rows * dim + weights)
+    if explicit_noise:
+        nbytes += 4 * steps * rows * dim
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def phase_backward(model, rows: int) -> dict:
+    """K2 vs its plain version at the training shape, for explicit and for
+    regenerated gaussian increments; bit-equal reruns; timed."""
+    dec = model.decoder
+    T, D = dec.future_steps, dec.local_channels
+    kp = {k: v.contiguous() for k, v in K1.rollout_params_from_module(dec.sde_rollout).items()}
+    w = K1.pack_params(kp)
+    t0s, dts = dec.time_grid(device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    y0 = torch.relu(torch.randn((rows, D), generator=gen, device="cuda"))
+    noise = torch.randn((T, rows, D), generator=gen, device="cuda")
+    ct = torch.randn((T, rows, D), generator=gen, device="cuda")
+    max_abs = 0.0
+    for mode in ("explicit", "gaussian"):
+        kw = _increments(mode, noise)
+        nz, inc = kw.get("noise"), kw["increments"]
+        ys = K1.sde_rollout_packed(y0, w, t0s, dts, 13, T, nz, inc)
+        got = K1.sde_rollout_bwd(y0, ys, ct, w, t0s, dts, 13, T, nz, inc)
+        again = K1.sde_rollout_bwd(y0, ys, ct, w, t0s, dts, 13, T, nz, inc)
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+              f"sde_rollout_bwd ({mode}) is not bit-equal across two runs")
+        want_dy0, want = K1.sde_rollout_bwd_reference(y0, ys, ct, kp, t0s, dts, 13, T, nz, inc)
+        outs = {"dy0": (got[0], want_dy0, TOL_K2_DY0)}
+        outs.update({k: (v, want[k], TOL_K2_W) for k, v in K1.unpack_params(got[1], D).items()})
+        rels = {}
+        for name, (g, p, tol) in outs.items():
+            check(bool(torch.isfinite(g).all()), f"sde_rollout_bwd ({mode}) {name} is not finite")
+            diff = (g - p).abs().max().item()
+            max_abs = max(max_abs, diff)
+            rels[name] = diff / max(p.abs().max().item(), 1e-30)
+            check(rels[name] < tol, f"sde_rollout_bwd ({mode}) {name}: {rels[name]:.3e} >= {tol:g}")
+        print(f"[backward] sde_rollout_bwd {mode} over [{T}, {rows}, {D}]: bit-equal reruns; "
+              f"max|kernel - plain| / max|plain|: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
+              + f" (tol {TOL_K2_DY0:g} dy0, {TOL_K2_W:g} weights)", flush=True)
+        del got, again, want, want_dy0, outs
+    times = {}
+    for mode in ("gaussian", "explicit"):
+        kw = _increments(mode, noise)
+        nz, inc = kw.get("noise"), kw["increments"]
+        ys = K1.sde_rollout_packed(y0, w, t0s, dts, 13, T, nz, inc)
+        times[mode] = cuda_ms(lambda: K1.sde_rollout_bwd(y0, ys, ct, w, t0s, dts, 13, T, nz, inc))
+        bound, by, flops, nbytes = bwd_bound(rows, T, D, mode == "explicit")
+        print(f"[backward] sde_rollout_bwd {mode}: {times[mode]:.3f} ms (median of {TIMED_RUNS}), "
+              f"bound {bound:.3f} ms by {by} ({flops:.3e} flop, {nbytes:.3e} B), "
+              f"{flops / times[mode] / 1e9:.1f} TFLOP/s", flush=True)
+    ys = K1.sde_rollout_packed(y0, w, t0s, dts, 13, T, None, "gaussian")
+    plain_ms = cuda_ms(lambda: K1.sde_rollout_bwd_reference(y0, ys, ct, kp, t0s, dts, 13, T),
+                       runs=5, warmup=1)
+    print(f"[backward] sde_rollout_bwd plain version (gaussian): {plain_ms:.3f} ms (median of 5)",
+          flush=True)
+    bound, by, _, _ = bwd_bound(rows, T, D, False)
+    # the training path draws gaussian increments in the kernel: its numbers
+    return dict(name="sde_rollout_bwd", route="cuda",
+                source="trajsde_tpu_torch/csrc/sde_rollout_bwd.cu",
+                replaces="trajsde_tpu/ops/pallas/sde_rollout.py:290", launches=None,
+                max_abs_err=max_abs, ms=times["gaussian"], plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None)
+
+
+def _train_batch(rng, n):
+    raws = [make_raw_scene(rng, i % 2, num_actors=NUM_ACTORS, num_lanes=NUM_LANES)
+            for i in range(n)]
+    return pack_scenes([align_scene(r)[0] for r in raws], NUM_ACTORS, NUM_LANES)
+
+
+def phase_train(batch: int) -> dict:
+    """Full-width training of FLAGSHIP_TRAIN through the Trainer; returns
+    the kernels' launches on the training path."""
+    cfg = FLAGSHIP_TRAIN
+    model = build_model(cfg, device="cuda", seed=SEED)
+    losses, metrics = build_losses(cfg), build_metrics(cfg)
+    rng = np.random.default_rng(SEED + 3)
+    train = [_train_batch(rng, batch) for _ in range(TRAIN_BATCHES)]
+    val = [_train_batch(rng, batch) for _ in range(VAL_BATCHES)]
+    state = create_train_state(model, cfg["training_specific"], steps_per_epoch=len(train),
+                               seed=SEED)
+    trainer = Trainer(losses, metrics, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+
+    K1.sde_rollout.launches = K1.sde_rollout_bwd.launches = 0
+    trainer.fit(state, lambda: train, lambda: [], max_epochs=1)
+    launches = {"sde_rollout": K1.sde_rollout.launches,
+                "sde_rollout_bwd": K1.sde_rollout_bwd.launches}
+    print(f"[train] launches on the training path: {launches} for {state.step} optimizer steps",
+          flush=True)
+    check(launches == {"sde_rollout": state.step, "sde_rollout_bwd": state.step},
+          "K1 and K2 did not launch once per optimizer step")
+    epoch = trainer.epoch_logs[-1]
+    check(epoch["train/steps_skipped"] == 0.0, "the NaN guard skipped a training step")
+    print(f"[train] epoch of {state.step} steps at batch {batch} (incl. first-step warm-up): "
+          f"{1e3 / epoch['perf/steps_per_s']:.1f} ms/step, {epoch['perf/scenes_per_s']:.1f} "
+          f"scenes/s", flush=True)
+
+    before = K1.sde_rollout.launches
+    results = trainer.evaluate(state, lambda: val)
+    print(f"[train] val over {VAL_BATCHES} batches: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in results.items()), flush=True)
+    check(all(np.isfinite(v) for v in results.values()), "non-finite val metrics")
+    check(K1.sde_rollout.launches == before + VAL_BATCHES and
+          K1.sde_rollout_bwd.launches == launches["sde_rollout_bwd"],
+          "eval did not run K1 once per batch (and K2 never)")
+
+    step = make_train_step(model, state.optimizer, state.scheduler, losses, torch.device("cuda"))
+    totals, times = [], []
+    for _ in range(REPEAT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logs = step(train[0].to("cuda"), state.step, state.seed)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        state.step += 1
+        totals.append(float(logs["train/total"]))
+        check(np.isfinite(totals[-1]) and logs["train/step_skipped"] == 0.0,
+              "non-finite training loss")
+    ms = statistics.median(times[1:])
+    print(f"[train] {REPEAT_STEPS} steps on one batch: loss "
+          + " ".join(f"{x:.4f}" for x in totals), flush=True)
+    check(float(np.mean(totals[-3:])) < totals[0], "the loss did not fall on a repeated batch")
+    print(f"[train] batch {batch}: {ms:.1f} ms/step (median of the last {REPEAT_STEPS - 1}, "
+          f"host clock, synchronized, copy to device included), {batch / ms * 1e3:.1f} scenes/s; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = CheckpointManager(d, save_top_k=1)
+        ckpt.save(state, metric=results["ADE_T"], step=state.step)
+        other = create_train_state(build_model(cfg, device="cuda", seed=SEED + 9),
+                                   cfg["training_specific"], steps_per_epoch=len(train))
+        CheckpointManager(d).restore(other)
+        a, b = state.model.state_dict(), other.model.state_dict()
+        check(other.step == state.step and all(torch.equal(a[k], b[k]) for k in a),
+              "checkpoint restore differs")
+    print(f"[train] checkpoint saved and restored at step {state.step}", flush=True)
+    return {k: v for k, v in launches.items()}
+
+
+def _losses_of(cfg, out):
+    return sum(w * fn(out["y"], out) for _, w, fn in build_losses(cfg))
+
+
+def phase_train_splice() -> None:
+    """One training step's loss and gradients: fused path (K1 + K2, pinned
+    decoder noise) vs the unfused model (autograd through the plain loop)."""
+    cfg = copy.deepcopy(FLAGSHIP_TRAIN)
+    cfg["encoder"]["kwargs"]["dropout"] = cfg["aggregator"]["kwargs"]["dropout"] = 0.0
+    plain_cfg = copy.deepcopy(cfg)
+    plain_cfg["decoder"]["kwargs"]["fused"] = False
+    fused = build_model(cfg, device="cuda", seed=SEED + 5).train()
+    plain = build_model(plain_cfg, device="cuda", seed=SEED + 5).train()
+    rng = np.random.default_rng(SEED + 6)
+    scene = _train_batch(rng, TRAIN_SPLICE_BATCH).to("cuda")
+    enc, dec = fused.encoder, fused.decoder
+    B, A, Th, D = TRAIN_SPLICE_BATCH, NUM_ACTORS, enc.historical_steps, enc.embed_dim
+    Tf, Km = dec.future_steps, dec.num_modes
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    en = torch.randn((Th, B, A + 1, D), generator=gen, device="cuda")
+    tw = torch.randn((B, 1, Th, 2), generator=gen, device="cuda")
+    de = torch.randn((Tf, B, Km, A, D), generator=gen, device="cuda")
+
+    K1.sde_rollout.launches = K1.sde_rollout_bwd.launches = 0
+    local, d_in, d_out, l_in, l_out = enc(scene, sde_noise=en, twin_noise=tw)
+    glob = fused.aggregator(scene, local)
+    y0 = dec.fuse(scene, local, glob)
+    ys = dec.fused_rollout(y0, 0, noise=de.reshape(Tf, -1, D))
+    out = dec.decode(scene, ys.permute(1, 2, 3, 0, 4), local, glob)
+    out.update(y=fused.rotated_y(scene), diff_in=d_in, diff_out=d_out, label_in=l_in,
+               label_out=l_out)
+    loss_f = _losses_of(cfg, out)
+    loss_f.backward()
+    check(K1.sde_rollout.launches == 1 and K1.sde_rollout_bwd.launches == 1,
+          "the fused step did not run K1 and K2 once each")
+    loss_p = _losses_of(plain_cfg, plain(scene, enc_noise=en, twin_noise=tw, dec_noise=de))
+    loss_p.backward()
+    rel_loss = abs(loss_f.item() - loss_p.item()) / abs(loss_p.item())
+    print(f"[train-splice] batch {B}: loss fused {loss_f.item():.6f} plain {loss_p.item():.6f}, "
+          f"relative {rel_loss:.3e} (tol {TOL_TRAIN_LOSS:g})", flush=True)
+    check(rel_loss < TOL_TRAIN_LOSS, "fused and plain training losses disagree")
+    worst, name_w, n = 0.0, "", 0
+    grads_p = dict(plain.named_parameters())
+    for name, p in fused.named_parameters():
+        g, ref = p.grad, grads_p[name].grad
+        if ref is None:   # the pi head gets no gradient from L2 + DiffBCE
+            check(g is None, f"{name}: gradient on the fused path only")
+            continue
+        check(bool(torch.isfinite(g).all()), f"{name}: non-finite gradient")
+        scale = max(ref.abs().max().item(), g.abs().max().item())
+        frac = (g - ref).abs().max().item() / (TOL_TRAIN_GRAD * scale + ATOL_TRAIN_GRAD)
+        n += 1
+        if frac > worst:
+            worst, name_w = frac, name
+    print(f"[train-splice] {n} gradient leaves: worst max|fused - plain| is {worst:.3f} of its "
+          f"tolerance ({TOL_TRAIN_GRAD:g} * max|grad| + {ATOL_TRAIN_GRAD:g}) at {name_w}",
+          flush=True)
+    check(worst <= 1.0, "fused and plain gradients disagree")
+
+
 def main() -> None:
     t_start = time.perf_counter()
-    phase_device()
+    card = phase_device()
     phase_build()
     model = build_model(FLAGSHIP, device="cuda", seed=SEED)
     engine = ServingEngine(model, num_actors=NUM_ACTORS, num_lanes=NUM_LANES, device="cuda",
                            seed=SEED)
-    entry = phase_kernels(model, engine.buckets)
-    entry["launches"] = phase_serve(engine, model)
+    fwd = phase_kernels(model, engine.buckets)
+    served = phase_serve(engine, model)
     phase_splice(model)
-    print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": [entry]}))
+    del engine, model
+    train_model = build_model(FLAGSHIP_TRAIN, device="cuda", seed=SEED)
+    rows = TRAIN_BATCH * train_model.decoder.num_modes * NUM_ACTORS
+    bwd = phase_backward(train_model, rows)
+    del train_model
+    torch.cuda.empty_cache()
+    trained = phase_train(TRAIN_BATCH)
+    phase_train_splice()
+    # launches: the count on the kernel's own main path (serving for K1,
+    # training for K2); launches_by_path: every path's count
+    fwd["launches"], bwd["launches"] = served, trained["sde_rollout_bwd"]
+    fwd["launches_by_path"] = {"serve": served, "train": trained["sde_rollout"]}
+    bwd["launches_by_path"] = {"serve": 0, "train": trained["sde_rollout_bwd"]}
+    print(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches: {served} serving + "
+          f"{trained['sde_rollout']} training; K2 launches: {bwd['launches']} training", flush=True)
+    print(card)
+    print(json.dumps({"kernels": [fwd, bwd]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -54,6 +54,11 @@ def test_flax_torch_round_trip_is_exact(size):
 def test_flagship_dict_equals_yaml():
     raw = tconfig.load_config(os.path.join(REPO, "configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec.yml"))
     assert tconfig.FLAGSHIP == {k: raw[k] for k in tconfig.FLAGSHIP}
+    assert {"training_specific", "losses_module", "loss_weights", "loss_args", "metrics_module",
+            "metric_args"} <= set(tconfig.FLAGSHIP)
+    train = copy.deepcopy(raw)
+    train["decoder"]["kwargs"]["fused"] = True
+    assert tconfig.FLAGSHIP_TRAIN == {k: train[k] for k in tconfig.FLAGSHIP_TRAIN}
 
 
 def test_registry_aliases_filtering_and_guards():
@@ -69,8 +74,12 @@ def test_registry_aliases_filtering_and_guards():
                      ({"method": "milstein"}, NotImplementedError)]:
         with pytest.raises(err):
             tconfig.build("LocalEncoderSDESep", dict(kw, **bad))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tconfig.build("SDEDecoder", dict(cfg["decoder"]["kwargs"], fused=True))
+    # the fused training rollout builds; the JAX package's TPU knobs are dropped
+    dec = tconfig.build("SDEDecoder", dict(cfg["decoder"]["kwargs"], fused=True, rollout_rows=512,
+                                           rollout_unroll=3, scan_unroll=2, packed=True))
+    assert dec.fused
+    with pytest.raises(NotImplementedError, match="sde_layers=2"):
+        tconfig.build("SDEDecoder", dict(cfg["decoder"]["kwargs"], fused=True, sde_layers=3))
     with pytest.raises(KeyError):
         tconfig.resolve("NoSuchModule")
 

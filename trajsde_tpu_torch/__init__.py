@@ -4,15 +4,20 @@ A second package beside the JAX one, with the same module names so each
 counterpart is easy to find.  It imports neither JAX nor anything of
 ``trajsde_tpu``; the tests hold it against the JAX package on the CPU.
 
-This slice serves the flagship neural-SDE model:
+It serves and trains the flagship neural-SDE model:
 
   data/      grid constants, ``SceneBatch``, synthetic scenes, packing
   models/    encoder / aggregator / decoder / prediction model
-  ops/       kernel wrappers (the decoder rollout, CUDA C++ in ``csrc/``)
+  ops/       kernel wrappers (the decoder rollout forward and backward,
+             CUDA C++ in ``csrc/``, built by nvcc at first use)
+  losses.py  L2, DiffBCE, Laplace NLL
+  train/     metrics, AdamW + cosine, train/eval steps, ``Trainer``,
+             checkpoints
   serving.py the serving forward with the rollout kernel spliced in
   server.py  the synchronous ``ServingEngine``
   bridge.py  flax parameter tree <-> ``state_dict``
-  config.py  component registry and the flagship configuration
+  config.py  component registry, the flagship configurations, the loss
+             and metric builders
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """

@@ -3,24 +3,31 @@
 
 The YAML schema of the JAX package resolves through the same
 name -> constructor registry, aliases included, and kwargs a constructor
-does not take are dropped.  ``FLAGSHIP`` holds the model sections of
-``configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec.yml`` as a dict, so a
-machine without PyYAML can build the flagship model.
+does not take are dropped (so the JAX package's TPU knobs, such as the
+decoder's ``rollout_rows``, ``rollout_unroll``, ``scan_unroll`` and
+``packed``, are ignored).  ``FLAGSHIP`` holds the model, training, loss and
+metric sections of ``configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec.yml`` as
+a dict, so a machine without PyYAML can build and train the flagship
+model; ``FLAGSHIP_TRAIN`` is the same model with ``decoder.fused: true``,
+whose rollout runs through kernels K1 and K2.
 """
 from __future__ import annotations
 
+import copy
 import inspect
-from typing import Any, Dict
+from typing import Any, Dict, List, Tuple
 
 import torch
 from torch import nn
 
 from trajsde_tpu_torch.device import resolve_device
+from trajsde_tpu_torch.losses import LOSS_REGISTRY
 from trajsde_tpu_torch.models.aggregator import GlobalInteractor
 from trajsde_tpu_torch.models.decoders import SDEDecoder
 from trajsde_tpu_torch.models.layers import GRUUnit
 from trajsde_tpu_torch.models.prediction import PredictionModelSDENet
 from trajsde_tpu_torch.models.sde_encoder import LocalEncoderSDESep
+from trajsde_tpu_torch.train.metrics import TransferMetric, make_metrics
 
 REGISTRY = {cls.__name__: cls for cls in (
     LocalEncoderSDESep, GlobalInteractor, SDEDecoder, PredictionModelSDENet,
@@ -28,7 +35,13 @@ REGISTRY = {cls.__name__: cls for cls in (
 # reference module names -> native names
 ALIASES = {"LocalEncoderSDESepPara2": "LocalEncoderSDESep"}
 
+_METRIC_ARGS = {"dataset": "nuScenes", "end_idcs": [59, 29], "sources": [0, 1]}
+
 FLAGSHIP: Dict[str, Any] = {
+    "training_specific": {
+        "hivt_optimizer": True, "nodecay": False, "lr": 0.001, "weight_decay": 0.0007,
+        "T_max": 100, "max_epochs": 100,
+    },
     "model_specific": {
         "module_name": "PredictionModelSDENet",
         "kwargs": {
@@ -62,7 +75,15 @@ FLAGSHIP: Dict[str, Any] = {
             "min_stepsize": 0.1, "method": "euler",
         },
     },
+    "losses_module": ["L2", "DiffBCE"],
+    "loss_weights": [1, 1],
+    "loss_args": [{"reduction": "mean"}, {"reduction": "mean"}],
+    "metrics_module": ["ADE_T", "FDE_T", "MR_T"],
+    "metric_args": [dict(_METRIC_ARGS) for _ in range(3)],
 }
+
+FLAGSHIP_TRAIN: Dict[str, Any] = copy.deepcopy(FLAGSHIP)
+FLAGSHIP_TRAIN["decoder"]["kwargs"]["fused"] = True
 
 
 def resolve(name: str):
@@ -126,3 +147,25 @@ def build_model(cfg: Dict[str, Any] = FLAGSHIP, device="cuda", seed: int = 0) ->
         rotate=model_cfg.get("kwargs", {}).get("rotate", True), **parts
     )
     return init_weights(model, seed).to(dev).eval()
+
+
+def build_losses(cfg: Dict[str, Any]) -> List[Tuple[str, float, Any]]:
+    """``[(name, weight, fn)]`` of the config's ``losses_module`` /
+    ``loss_weights`` (``fn(y, output) -> scalar``)."""
+    names = cfg["losses_module"]
+    weights = cfg.get("loss_weights", [1.0] * len(names))
+    if len(weights) != len(names):
+        raise ValueError(f"{len(names)} losses but {len(weights)} loss_weights")
+    unknown = [n for n in names if n not in LOSS_REGISTRY]
+    if unknown:
+        raise KeyError(f"unknown losses {unknown}; known: {sorted(LOSS_REGISTRY)}")
+    return [(n, float(w), LOSS_REGISTRY[n]) for n, w in zip(names, weights)]
+
+
+def build_metrics(cfg: Dict[str, Any]) -> List[TransferMetric]:
+    """The metric accumulators of ``metrics_module`` / ``metric_args``."""
+    names, args = cfg["metrics_module"], cfg["metric_args"]
+    if len(names) != len(args):
+        raise ValueError(f"metrics_module has {len(names)} entries but metric_args has "
+                         f"{len(args)}: the lists must align one-to-one")
+    return make_metrics(names, args)

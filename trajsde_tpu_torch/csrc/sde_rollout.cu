@@ -22,46 +22,14 @@
 // 64->1 output is a shuffle reduction across the 16 threads of a row group.
 // The ragged last tile is bounds-checked instead of padded.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "rollout_common.cuh"
 
 namespace {
 
-constexpr int D = 64;
+using namespace rollout;
+
 constexpr int ROWS = 64;       // rows per block
 constexpr int THREADS = 256;   // 16 row groups x 16 column groups, 4x4 each
-constexpr int MAT = D * D;
-
-// packed weights (floats), matrices stored [in][out]:
-// wf0 wf1 wf2 wg0 wg1 | wf0t[2][D] wg0t[2][D] | bf0 bf1 bf2 bg0 bg1 wgo | bgo (padded to 4)
-constexpr int OFF_WF0 = 0, OFF_WF1 = MAT, OFF_WF2 = 2 * MAT, OFF_WG0 = 3 * MAT, OFF_WG1 = 4 * MAT;
-constexpr int OFF_WF0T = 5 * MAT, OFF_WG0T = OFF_WF0T + 2 * D;
-constexpr int OFF_BF0 = OFF_WG0T + 2 * D, OFF_BF1 = OFF_BF0 + D, OFF_BF2 = OFF_BF1 + D;
-constexpr int OFF_BG0 = OFF_BF2 + D, OFF_BG1 = OFF_BG0 + D, OFF_WGO = OFF_BG1 + D;
-constexpr int OFF_BGO = OFF_WGO + D;
-constexpr int W_FLOATS = OFF_BGO + 4;
-
-enum Mode { EXPLICIT = 0, RADEMACHER = 1, GAUSSIAN = 2 };
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return h;
-}
-
-// 32 random bits for one (row, step, word) counter; k1/k2 derive from the seed
-__device__ __forceinline__ uint32_t draw_bits(uint32_t k1, uint32_t k2, uint64_t counter) {
-  return fmix32(fmix32(static_cast<uint32_t>(counter) ^ k1) ^ k2);
-}
-
-// (0, 1) uniform from the top 24 bits, clipped away from 0 and 1
-__device__ __forceinline__ float uniform24(uint32_t bits) {
-  const float u = static_cast<float>(bits >> 8) * (1.0f / 16777216.0f);
-  return fminf(fmaxf(u, 1.0f / 16777216.0f), 1.0f - 1.0f / 16777216.0f);
-}
 
 // acc[i][j] += sum_k in[r0 + i][k] * W[k][c0 + j]; in and W in shared memory
 __device__ __forceinline__ void mm4x4(const float* __restrict__ in, const float* __restrict__ W,
@@ -204,18 +172,12 @@ rollout_kernel(const float* __restrict__ y0, const float* __restrict__ w,
 #pragma unroll
         for (int j = 0; j < 4; ++j) z[j] = ((bits >> ((c0 + j) & 31)) & 1u) ? 1.0f : -1.0f;
       } else {
-        // pair-output Box-Muller: pair p uses words 2p, 2p+1; lane p takes
-        // r cos(a), lane p + D/2 takes r sin(a)
-        const uint64_t base = (static_cast<uint64_t>(row) * T + t) * D;
+        // pair-output Box-Muller (rollout_common.cuh)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const int p = (c0 + j) % (D / 2);
-          const float u1 = uniform24(draw_bits(k1, k2, base + 2 * p));
-          const float u2 = uniform24(draw_bits(k1, k2, base + 2 * p + 1));
-          const float r = sqrtf(-2.0f * logf(u1));
-          float sn, cs;
-          sincosf(6.283185307179586f * u2, &sn, &cs);
-          z[j] = (c0 + j < D / 2) ? r * cs : r * sn;
+          float zc, zs;
+          gaussian_pair(k1, k2, static_cast<uint64_t>(row), t, T, (c0 + j) % (D / 2), &zc, &zs);
+          z[j] = (c0 + j < D / 2) ? zc : zs;
         }
       }
 #pragma unroll
@@ -250,7 +212,7 @@ extern "C" {
 // floats the packed weight buffer must hold (the wrapper checks its layout)
 int sde_rollout_weight_floats() { return W_FLOATS; }
 
-// ys [T, N, 64] from y0 [N, 64]; w packed as above; tsc [T, 4];
+// ys [T, N, 64] from y0 [N, 64]; w packed as in rollout_common.cuh; tsc [T, 4];
 // noise [T, N, 64] for mode 0, else NULL.  Returns cudaGetLastError().
 int sde_rollout_launch(const float* y0, const float* w, const float* tsc, const float* noise,
                        float* ys, int N, int T, unsigned int k1, unsigned int k2, int mode,

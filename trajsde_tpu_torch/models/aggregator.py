@@ -14,26 +14,26 @@ class GlobalInteractorLayer(nn.Module):
     """Edge-aware attention layer: keys/values are the projected NORMED
     node stream plus the projected edge stream."""
 
-    def __init__(self, embed_dim: int, num_heads: int):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
         super().__init__()
-        self.attn = EdgeAttention(embed_dim, num_heads, edge_stream=True)
+        self.attn = EdgeAttention(embed_dim, num_heads, edge_stream=True, dropout=dropout)
         self.norm1 = layer_norm(embed_dim)
-        self.mlp = MlpBlock(embed_dim)
+        self.mlp = MlpBlock(embed_dim, dropout)
         self.norm2 = layer_norm(embed_dim)
 
-    def forward(self, x, mask, rel_embed):
+    def forward(self, x, mask, rel_embed, generator=None):
         normed = self.norm1(x)
-        x = x + self.attn(normed, mask, kv_node=normed, kv_edge=rel_embed)
-        return x + self.mlp(self.norm2(x))
+        x = x + self.attn(normed, mask, kv_node=normed, kv_edge=rel_embed, generator=generator)
+        return x + self.mlp(self.norm2(x), generator)
 
 
 class GlobalInteractor(nn.Module):
-    """``forward(scene, local_embed [B, A, D])`` -> ``[B, F, A, D]``,
-    F = ``num_modes``."""
+    """``forward(scene, local_embed [B, A, D], generator=None)`` ->
+    ``[B, F, A, D]``, F = ``num_modes``."""
 
     def __init__(self, historical_steps: int, embed_dim: int, num_modes: int,
-                 num_heads: int = 8, num_layers: int = 3, rotate: bool = True,
-                 edge_dim: int = 2, dtype=None):
+                 num_heads: int = 8, num_layers: int = 3, dropout: float = 0.1,
+                 rotate: bool = True, edge_dim: int = 2, dtype=None):
         super().__init__()
         if dtype not in (None, "float32", torch.float32):
             raise NotImplementedError(
@@ -47,11 +47,12 @@ class GlobalInteractor(nn.Module):
         self.rel_embed = (MultipleInputEmbedding([edge_dim, 2], D) if rotate
                           else SingleInputEmbedding(edge_dim, D))
         for i in range(num_layers):
-            self.add_module(f"layer{i}", GlobalInteractorLayer(D, num_heads))
+            self.add_module(f"layer{i}", GlobalInteractorLayer(D, num_heads, dropout))
         self.norm = layer_norm(D)
         self.multihead_proj = nn.Linear(D, num_modes * D)
 
-    def forward(self, scene: SceneBatch, local_embed: torch.Tensor) -> torch.Tensor:
+    def forward(self, scene: SceneBatch, local_embed: torch.Tensor,
+                generator=None) -> torch.Tensor:
         mask, rel_pos, rel_theta = graph.global_edges(scene, self.historical_steps - 1)
         if self.rotate:
             rel_pos_local = torch.einsum("bakj,baji->baki", rel_pos, scene.rotate_mat())
@@ -61,7 +62,7 @@ class GlobalInteractor(nn.Module):
             rel_embed = self.rel_embed(rel_pos)
         x = local_embed
         for i in range(self.num_layers):
-            x = getattr(self, f"layer{i}")(x, mask, rel_embed)
+            x = getattr(self, f"layer{i}")(x, mask, rel_embed, generator)
         x = self.multihead_proj(self.norm(x))
         B, A = x.shape[0], x.shape[1]
         return x.reshape(B, A, self.num_modes, -1).permute(0, 2, 1, 3)

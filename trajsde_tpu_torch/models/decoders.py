@@ -4,8 +4,10 @@ Layouts: ``local_embed [B, A, D]``, ``global_embed [B, F, A, D]``;
 outputs ``loc [B, F, A, Tf, 4]`` (location + scale), ``pi [B, A, F]``,
 ``reg_mask [B, A, Tf]``.  ``fuse`` and ``decode`` are separate so the
 serving path can run the rollout between them through the CUDA kernel
-(:mod:`trajsde_tpu_torch.serving`); ``forward`` rolls out with a loop of
-``SDEStep``.
+(:mod:`trajsde_tpu_torch.serving`).  ``forward`` rolls out with a loop of
+``SDEStep`` (``fused=False``, autograd through the loop) or, with
+``fused=True``, through :class:`~trajsde_tpu_torch.ops.sde_rollout.SDERolloutFn`:
+kernel K1 forward, kernel K2 backward.  Both keep the same parameters.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from torch import nn
 from trajsde_tpu_torch.data.scene import SceneBatch
 from trajsde_tpu_torch.models.layers import layer_norm
 from trajsde_tpu_torch.models.sde import SDEStep, decoder_time_grid
+from trajsde_tpu_torch.ops.sde_rollout import SDERolloutFn, pack_params, rollout_params_from_module
 
 
 class SDEDecoder(nn.Module):
@@ -32,10 +35,10 @@ class SDEDecoder(nn.Module):
         super().__init__()
         if method != "euler":
             raise NotImplementedError(f"SDE method {method!r} is not supported (euler only)")
-        if fused:
+        if fused and sde_layers != 2:
             raise NotImplementedError(
-                "SDEDecoder(fused=True) is the training rollout kernel (with "
-                "its backward), which comes with the training slice of the port"
+                "SDEDecoder(fused=True) hardcodes the sde_layers=2 topology of the "
+                "rollout kernels; use fused=False for other depths"
             )
         if dtype not in (None, "float32", torch.float32):
             raise NotImplementedError(
@@ -48,6 +51,7 @@ class SDEDecoder(nn.Module):
         self.max_fut_t = float(max_fut_t)
         self.uncertain = uncertain
         self.min_scale = min_scale
+        self.fused = fused
         self.aggr_dense = nn.Linear(D + global_channels, D)
         self.aggr_ln = layer_norm(D)
         self.sde_rollout = SDEStep(D, sde_layers)
@@ -94,14 +98,41 @@ class SDEDecoder(nn.Module):
             ys.append(y)
         return torch.stack(ys)
 
+    def fused_rollout(self, y0: torch.Tensor, seed: int,
+                      noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The rollout through the kernels: ``ys [Tf, *y0.shape]`` from the
+        ``[B*F*A, D]`` rows in (B, F, A) order, with gaussian increments
+        drawn in the kernel from ``seed`` or explicit ``noise [Tf, B*F*A,
+        D]``.  Gradients reach ``y0`` and every ``sde_rollout`` weight."""
+        D = y0.shape[-1]
+        w = pack_params(rollout_params_from_module(self.sde_rollout, detach=False))
+        t0s, dts = self.time_grid(device=y0.device)
+        ys = SDERolloutFn.apply(y0.reshape(-1, D).contiguous(), w, t0s, dts, seed,
+                                self.future_steps, noise, "gaussian")
+        return ys.reshape((self.future_steps,) + tuple(y0.shape))
+
     def forward(self, scene: SceneBatch, local_embed, global_embed,
                 sde_noise: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                rollout_seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """``sde_noise [Tf, B, F, A, D]`` pins the Brownian unit normals;
-        otherwise they are drawn from ``generator``."""
+        otherwise they are drawn from ``generator``.  With ``fused=True``
+        the kernel draws them from the host integer ``rollout_seed``, which
+        is required."""
         y0 = self.fuse(scene, local_embed, global_embed)
-        if sde_noise is None:
-            sde_noise = torch.randn((self.future_steps,) + y0.shape, generator=generator,
-                                    device=y0.device, dtype=y0.dtype)
-        sol = self.rollout(y0, sde_noise).permute(1, 2, 3, 0, 4)   # [B, F, A, Tf, D]
+        if self.fused:
+            if sde_noise is not None:
+                raise NotImplementedError(
+                    "explicit sde_noise requires the loop rollout (fused=False); "
+                    "pass noise to fused_rollout instead"
+                )
+            if rollout_seed is None:
+                raise ValueError("SDEDecoder(fused=True) needs rollout_seed, a host integer")
+            ys = self.fused_rollout(y0, rollout_seed)
+        else:
+            if sde_noise is None:
+                sde_noise = torch.randn((self.future_steps,) + y0.shape, generator=generator,
+                                        device=y0.device, dtype=y0.dtype)
+            ys = self.rollout(y0, sde_noise)
+        sol = ys.permute(1, 2, 3, 0, 4)                            # [B, F, A, Tf, D]
         return self.decode(scene, sol, local_embed, global_embed)

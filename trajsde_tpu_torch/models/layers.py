@@ -3,9 +3,10 @@
 Submodules carry the flax scope names of the JAX package (``lin_q``,
 ``Dense_0``, ``update_gate_0`` ...), so a ``state_dict`` key is the flax
 parameter path with ``kernel``/``scale`` renamed to ``weight``
-(:mod:`trajsde_tpu_torch.bridge`).  Forward passes are inference-mode:
-dropout is the identity, as in the JAX modules with
-``deterministic=True``.
+(:mod:`trajsde_tpu_torch.bridge`).  Dropout follows flax: active only in
+``training`` mode, its keep mask drawn from the caller's
+``torch.Generator``; in eval mode (the JAX modules' ``deterministic=True``)
+it is the identity.
 """
 from __future__ import annotations
 
@@ -32,16 +33,29 @@ def layer_norm(features: int) -> nn.LayerNorm:
     return nn.LayerNorm(features, eps=LN_EPS)
 
 
-class MlpBlock(nn.Module):
-    """Linear(4D) -> ReLU -> Linear(D)."""
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's ``nn.Dropout``: keep each element with probability ``1 - rate``
+    and scale the kept ones by ``1 / (1 - rate)``.  ``F.dropout`` takes no
+    generator, so the mask is drawn here."""
+    if not training or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
-    def __init__(self, embed_dim: int):
+
+class MlpBlock(nn.Module):
+    """Linear(4D) -> ReLU -> Dropout -> Linear(D) -> Dropout."""
+
+    def __init__(self, embed_dim: int, dropout: float = 0.0):
         super().__init__()
+        self.rate = dropout
         self.Dense_0 = nn.Linear(embed_dim, embed_dim * 4)
         self.Dense_1 = nn.Linear(embed_dim * 4, embed_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.Dense_1(torch.relu(self.Dense_0(x)))
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = dropout(torch.relu(self.Dense_0(x)), self.rate, self.training, generator)
+        return dropout(self.Dense_1(h), self.rate, self.training, generator)
 
 
 class EdgeAttention(nn.Module):
@@ -50,13 +64,16 @@ class EdgeAttention(nn.Module):
     center [..., Nq, D], mask [..., Nq, Nk] bool, and either
     ``kv_pair [..., Nq, Nk, D]`` (pair mode) or ``kv_node [..., Nk, D]`` +
     ``kv_edge [..., Nq, Nk, D]`` (node+edge mode, whose keys/values are
-    the sum of both projections).  Returns [..., Nq, D].
+    the sum of both projections).  Returns [..., Nq, D].  Dropout acts on
+    the attention weights and on the output.
     """
 
-    def __init__(self, embed_dim: int, num_heads: int, edge_stream: bool = False):
+    def __init__(self, embed_dim: int, num_heads: int, edge_stream: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         D = embed_dim
         self.num_heads = num_heads
+        self.rate = dropout
         names = ["lin_q", "lin_k", "lin_v", "lin_ih", "lin_hh", "lin_self", "out_proj"]
         if edge_stream:
             names += ["lin_k_edge", "lin_v_edge"]
@@ -70,6 +87,7 @@ class EdgeAttention(nn.Module):
         kv_pair: Optional[torch.Tensor] = None,
         kv_node: Optional[torch.Tensor] = None,
         kv_edge: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         D = center.shape[-1]
         H = self.num_heads
@@ -87,12 +105,13 @@ class EdgeAttention(nn.Module):
 
         alpha = torch.einsum("...qhd,...qkhd->...qkh", q, k) / hd ** 0.5
         alpha = masked_softmax(alpha, mask.unsqueeze(-1), dim=-2)
+        alpha = dropout(alpha, self.rate, self.training, generator)
         agg = torch.einsum("...qkh,...qkhd->...qhd", alpha, v)
         agg = agg.reshape(agg.shape[:-2] + (D,))
 
         gate = torch.sigmoid(self.lin_ih(agg) + self.lin_hh(center))
         out = agg + gate * (self.lin_self(center) - agg)
-        return self.out_proj(out)
+        return dropout(self.out_proj(out), self.rate, self.training, generator)
 
 
 class GRUUnit(nn.Module):

@@ -30,8 +30,8 @@ class AAEncoder(nn.Module):
     """
 
     def __init__(self, historical_steps: int, embed_dim: int, num_heads: int,
-                 node_dim: int = 2, edge_dim: int = 2, fused: bool = False,
-                 neighbor_cap: int = 0):
+                 node_dim: int = 2, edge_dim: int = 2, dropout: float = 0.0,
+                 fused: bool = False, neighbor_cap: int = 0):
         super().__init__()
         if fused:
             raise _not_ported("fused=True")
@@ -41,12 +41,12 @@ class AAEncoder(nn.Module):
         self.bos_token = nn.Parameter(torch.zeros(historical_steps, D))
         self.center_embed = SingleInputEmbedding(node_dim, D)
         self.nbr_embed = MultipleInputEmbedding([node_dim, edge_dim], D)
-        self.attn = EdgeAttention(D, num_heads)
+        self.attn = EdgeAttention(D, num_heads, dropout=dropout)
         self.norm1 = layer_norm(D)
-        self.mlp = MlpBlock(D)
+        self.mlp = MlpBlock(D, dropout)
         self.norm2 = layer_norm(D)
 
-    def forward(self, x_q, x_k, rot_q, bos_q, mask, edge_vec):
+    def forward(self, x_q, x_k, rot_q, bos_q, mask, edge_vec, generator=None):
         # centre embedding in each receiver's own frame, bos token substituted
         x_q_local = torch.einsum("btaj,baji->btai", x_q, rot_q)
         center = self.center_embed(x_q_local)
@@ -59,8 +59,8 @@ class AAEncoder(nn.Module):
         x_k_local = torch.einsum("btkj,bqji->btqki", x_k, rot_q)
         edge_local = torch.einsum("btqkj,bqji->btqki", edge_vec, rot_q)
         nbr = self.nbr_embed([x_k_local, edge_local])
-        center = center + self.attn(self.norm1(center), mask, kv_pair=nbr)
-        return center + self.mlp(self.norm2(center))
+        center = center + self.attn(self.norm1(center), mask, kv_pair=nbr, generator=generator)
+        return center + self.mlp(self.norm2(center), generator)
 
 
 class ALEncoder(nn.Module):
@@ -70,18 +70,20 @@ class ALEncoder(nn.Module):
     mask [B, A, L], rot [B, A, 2, 2] -> [B, A, D].
     """
 
-    def __init__(self, embed_dim: int, num_heads: int, node_dim: int = 2, edge_dim: int = 2):
+    def __init__(self, embed_dim: int, num_heads: int, node_dim: int = 2, edge_dim: int = 2,
+                 dropout: float = 0.0):
         super().__init__()
         D = embed_dim
         self.lane_embed = MultipleInputEmbedding([node_dim, edge_dim], D)
-        self.attn = EdgeAttention(D, num_heads)
+        self.attn = EdgeAttention(D, num_heads, dropout=dropout)
         self.norm1 = layer_norm(D)
-        self.mlp = MlpBlock(D)
+        self.mlp = MlpBlock(D, dropout)
         self.norm2 = layer_norm(D)
 
-    def forward(self, x_actor, lane_feat, al_vec, mask, rot):
+    def forward(self, x_actor, lane_feat, al_vec, mask, rot, generator=None):
         lane_local = torch.einsum("blj,baji->bali", lane_feat, rot)
         vec_local = torch.einsum("balj,baji->bali", al_vec, rot)
         lane_embed = self.lane_embed([lane_local, vec_local])
-        x_actor = x_actor + self.attn(self.norm1(x_actor), mask, kv_pair=lane_embed)
-        return x_actor + self.mlp(self.norm2(x_actor))
+        x_actor = x_actor + self.attn(self.norm1(x_actor), mask, kv_pair=lane_embed,
+                                      generator=generator)
+        return x_actor + self.mlp(self.norm2(x_actor), generator)

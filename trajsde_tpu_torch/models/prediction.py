@@ -40,19 +40,21 @@ class PredictionModelSDENet(nn.Module):
         twin_noise: Optional[torch.Tensor] = None,
         dec_noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        rollout_seed: Optional[int] = None,
     ) -> Dict[str, Any]:
         """``enc_noise [Th, B, A+1, D]``, ``twin_noise [B, 1, Th, 2]`` and
         ``dec_noise [Tf, B, F, A, D]`` pin the draws; the rest come from
-        ``generator`` (encoder first, then decoder)."""
+        ``generator`` (encoder, aggregator, then decoder), and a fused
+        decoder seeds its rollout kernel with ``rollout_seed``."""
         if ood:
             local_embed, stds = self.encoder.forward_ood(scene, generator=generator)
         else:
             local_embed, diff_in, diff_out, label_in, label_out = self.encoder(
                 scene, sde_noise=enc_noise, twin_noise=twin_noise, generator=generator
             )
-        global_embed = self.aggregator(scene, local_embed)
+        global_embed = self.aggregator(scene, local_embed, generator)
         out = self.decoder(scene, local_embed, global_embed, sde_noise=dec_noise,
-                           generator=generator)
+                           generator=generator, rollout_seed=rollout_seed)
         out["y"] = self.rotated_y(scene)
         if ood:
             out["stds"] = stds

@@ -12,7 +12,8 @@
 
 Noise is explicit: ``sde_noise [Th, B, A+1, D]`` (iteration order, entry 0
 = newest step) and ``twin_noise [B, 1, Th, 2]``, or drawn from the
-caller's ``torch.Generator`` (twin first, then the SDE draws).
+caller's ``torch.Generator`` (twin first, then the SDE draws, then the
+dropout masks of AA and AL attention in training mode).
 """
 from __future__ import annotations
 
@@ -38,6 +39,11 @@ def gather_actor(arr: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tenso
     sizes[axis] = 1
     index = idx.reshape(shape).expand(sizes)
     return torch.gather(arr, axis, index)
+
+
+def gather_agent(arr: torch.Tensor, agent_index: torch.Tensor, axis: int) -> torch.Tensor:
+    """Select the focal-agent slot per scene along ``axis`` (dropping it)."""
+    return gather_actor(arr, agent_index, axis).squeeze(axis)
 
 
 def gather_eos_outputs(ys, gs, bos_q, ref_time: int, agent_index, num_actors: int):
@@ -72,6 +78,7 @@ class LocalEncoderSDESep(nn.Module):
         historical_steps: int,
         embed_dim: int,
         num_heads: int = 8,
+        dropout: float = 0.1,
         local_radius: float = 50.0,
         ref_time: int = 20,
         max_past_t: float = 2.0,
@@ -134,13 +141,13 @@ class LocalEncoderSDESep(nn.Module):
         self.eval_iter = eval_iter
         self.ood_chunk = ood_chunk
         self.aa_encoder = AAEncoder(historical_steps, embed_dim, num_heads, node_dim,
-                                    edge_dim, fused=fused, neighbor_cap=neighbor_cap)
-        self.al_encoder = ALEncoder(embed_dim, num_heads, node_dim, edge_dim)
+                                    edge_dim, dropout, fused=fused, neighbor_cap=neighbor_cap)
+        self.al_encoder = ALEncoder(embed_dim, num_heads, node_dim, edge_dim, dropout)
         self.sde_rnn = SDEGRUStep(embed_dim, sde_layers, adaptive=adaptive)
         self.hidden = nn.Parameter(torch.zeros(embed_dim))
 
     # ------------------------------------------------------------------
-    def _aa_with_twin(self, scene: SceneBatch, twin_noise: torch.Tensor):
+    def _aa_with_twin(self, scene: SceneBatch, twin_noise: torch.Tensor, generator=None):
         """AA attention over A actors + 1 twin query row -> (aa_out
         [B, Th, A+1, D], bos_q [B, A+1, Th], valid_q [B, A+1, Th],
         nus_row [B, A+1])."""
@@ -158,7 +165,7 @@ class LocalEncoderSDESep(nn.Module):
         mask_q = torch.cat([mask, gather_actor(mask, ai, 2)], dim=2)
         edge_q = torch.cat([edge_vec, gather_actor(edge_vec, ai, 2)], dim=2)
 
-        aa_out = self.aa_encoder(x_q, x_t, rot_q, bos_q, mask_q, edge_q)
+        aa_out = self.aa_encoder(x_q, x_t, rot_q, bos_q, mask_q, edge_q, generator)
 
         pad = scene.padding_mask[:, :, :Th]
         valid_q = ~torch.cat([pad, gather_actor(pad, ai, 1)], dim=1)
@@ -197,7 +204,7 @@ class LocalEncoderSDESep(nn.Module):
         if sde_noise is None:
             sde_noise = torch.randn((Th, B, A + 1, D), generator=generator, device=dev, dtype=dt)
 
-        aa_out, bos_q, valid_q, nus_row = self._aa_with_twin(scene, twin_noise)
+        aa_out, bos_q, valid_q, nus_row = self._aa_with_twin(scene, twin_noise, generator)
         h0 = self.hidden.expand(B, A + 1, D)
         ys, gs = self._run_rnn(h0, aa_out, valid_q, nus_row, sde_noise)
         out, diff_in, diff_out = gather_eos_outputs(
@@ -206,7 +213,7 @@ class LocalEncoderSDESep(nn.Module):
 
         al_mask, al_vec = graph.al_edges(scene, self.ref_time, self.local_radius)
         out = self.al_encoder(out, graph.lane_features(scene), al_vec, al_mask,
-                              scene.rotate_mat())
+                              scene.rotate_mat(), generator)
         label_in = torch.full((B,), REAL_LABEL, device=dev)
         label_out = torch.full((B,), FAKE_LABEL, device=dev)
         return out, diff_in, diff_out, label_in, label_out

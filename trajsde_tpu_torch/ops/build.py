@@ -3,7 +3,8 @@ with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exposes a plain ``extern "C"`` launcher and is
 compiled for Hopper (``sm_90a``) into ``_build/lib<name>.so`` beside the
-package; it is rebuilt when the source is newer than the library.  The
+package; it is rebuilt when the source or a shared ``csrc/*.cuh`` header
+is newer than the library, and several sources build in parallel.  The
 build writes a temporary file and renames it into place, so concurrent
 builders never load a half-written library.  A failed build raises with
 nvcc's output; nothing falls back.
@@ -11,12 +12,13 @@ nvcc's output; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict
+from typing import Dict, Sequence
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -39,34 +41,56 @@ def _nvcc() -> str:
     return path
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` if the library is missing or stale;
-    returns the library's path."""
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    lib = os.path.join(BUILD_DIR, f"lib{name}.so")
-    if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
-        return lib
+def _is_fresh(lib: str, src: str) -> bool:
+    """The library exists and is newer than its source and every shared
+    header in ``csrc/``."""
+    if not os.path.exists(lib):
+        return False
+    deps = [src] + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    return os.path.getmtime(lib) >= max(os.path.getmtime(d) for d in deps)
+
+
+def build_all(names: Sequence[str]) -> Dict[str, str]:
+    """Compile every missing or stale ``csrc/<name>.cu``, one nvcc process
+    per source, all started together; returns each library's path."""
+    libs = {n: os.path.join(BUILD_DIR, f"lib{n}.so") for n in names}
+    srcs = {n: os.path.join(CSRC_DIR, f"{n}.cu") for n in names}
+    stale = [n for n in names if not _is_fresh(libs[n], srcs[n])]
+    if not stale:
+        return libs
+    nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(
-            f"nvcc failed to build {src} (exit {proc.returncode}):\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.rename(tmp, lib)
-    build_log[name] = (f"built {lib} in {time.perf_counter() - t0:.2f} s\n"
-                       f"{proc.stdout}{proc.stderr}")
-    return lib
+    jobs = []
+    for name in stale:
+        src = srcs[name]
+        tmp = f"{libs[name]}.{os.getpid()}.{threading.get_ident()}.tmp"
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, src, tmp, proc, time.perf_counter()))
+    failures = []
+    for name, src, tmp, proc, t0 in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            failures.append(f"nvcc failed to build {src} (exit {proc.returncode}):\n{out}")
+            continue
+        os.rename(tmp, libs[name])
+        build_log[name] = f"built {libs[name]} in {time.perf_counter() - t0:.2f} s\n{out}"
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return libs
+
+
+def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """The loaded libraries of ``names``, the missing ones built in parallel."""
+    with _lock:
+        missing = [n for n in names if n not in _libs]
+        for name, path in build_all(missing).items():
+            _libs[name] = ctypes.CDLL(path)
+        return {n: _libs[n] for n in names}
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu`` (built on first call)."""
-    with _lock:
-        if name not in _libs:
-            _libs[name] = ctypes.CDLL(build(name))
-        return _libs[name]
+    return load_all([name])[name]

@@ -1,10 +1,16 @@
-"""Decoder rollout kernel K1: wrapper, plain PyTorch version, parameters.
+"""Decoder rollout kernels K1 (forward) and K2 (reverse sweep): wrappers,
+plain PyTorch versions, parameters, and the autograd Function over both.
 
-Counterpart of ``trajsde_tpu/ops/pallas/sde_rollout.py::sde_rollout``.
+Counterparts of ``trajsde_tpu/ops/pallas/sde_rollout.py::sde_rollout``
+(K1) and ``_rollout_train_bwd`` / ``sde_rollout_train`` (K2, custom VJP).
 On a CUDA tensor :func:`sde_rollout` launches the hand-written kernel in
-``csrc/sde_rollout.cu`` (built by nvcc at first use, bound with ctypes);
-on a CPU tensor it runs :func:`sde_rollout_reference`, a loop of
-:func:`euler_step`.  Nothing falls back from one to the other.
+``csrc/sde_rollout.cu`` and :func:`sde_rollout_bwd` the one in
+``csrc/sde_rollout_bwd.cu`` (built by nvcc at first use, bound with
+ctypes); on a CPU tensor they run :func:`sde_rollout_reference`, a loop of
+:func:`euler_step`, and :func:`sde_rollout_bwd_reference`, its reverse
+loop.  Nothing falls back from one to the other.  :class:`SDERolloutFn`
+differentiates the packed weight buffer of :func:`pack_params`, so
+gradients reach each ``nn.Linear`` through autograd.
 
 In-kernel noise is a counter-based hash keyed by (seed, global row, step,
 word), so the draws do not depend on the tiling; the plain version
@@ -21,7 +27,7 @@ from typing import Dict, Optional
 
 import torch
 
-# the 14 rollout weights in the kernel's packed layout (csrc/sde_rollout.cu)
+# the 14 rollout weights in the kernels' packed layout (csrc/rollout_common.cuh)
 PARAM_ORDER = ("wf0", "wf1", "wf2", "wg0", "wg1", "wf0t", "wg0t",
                "bf0", "bf1", "bf2", "bg0", "bg1", "wgo", "bgo")
 KERNEL_DIM = 64
@@ -32,18 +38,20 @@ _M32 = 0xFFFFFFFF
 # --------------------------------------------------------------------------
 # parameters
 # --------------------------------------------------------------------------
-def rollout_params_from_module(step) -> Dict[str, torch.Tensor]:
+def rollout_params_from_module(step, detach: bool = True) -> Dict[str, torch.Tensor]:
     """Split an ``SDEStep``'s weights into the kernel layout (matrices
     [in, out], biases [1, out]): ``dense0`` columns ``[:D]`` multiply y,
-    columns ``D`` / ``D+1`` multiply sin t / cos t."""
+    columns ``D`` / ``D+1`` multiply sin t / cos t.  ``detach=False``
+    keeps the slices in the autograd graph (training)."""
     f, g = step.f_func, step.g_func
     if f.num_layers != 2:
         raise NotImplementedError(
             f"the rollout kernel hardcodes sde_layers=2 (decoder has {f.num_layers})"
         )
     D = f.dense1.weight.shape[0]
-    t = lambda lin: lin.weight.detach().t()  # noqa: E731
-    b = lambda lin: lin.bias.detach()[None]  # noqa: E731
+    cut = (lambda x: x.detach()) if detach else (lambda x: x)  # noqa: E731
+    t = lambda lin: cut(lin.weight).t()  # noqa: E731
+    b = lambda lin: cut(lin.bias)[None]  # noqa: E731
     return dict(
         wf0=t(f.dense0)[:D], wf0t=t(f.dense0)[D:], bf0=b(f.dense0),
         wf1=t(f.dense1), bf1=b(f.dense1), wf2=t(f.dense2), bf2=b(f.dense2),
@@ -59,7 +67,7 @@ def time_table(t0s: torch.Tensor, dts: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# counter-based generator (must match csrc/sde_rollout.cu bit for bit)
+# counter-based generator (must match csrc/rollout_common.cuh bit for bit)
 # --------------------------------------------------------------------------
 def _fmix32_int(h: int) -> int:
     h &= _M32
@@ -68,6 +76,18 @@ def _fmix32_int(h: int) -> int:
     h ^= h >> 13
     h = (h * 0xC2B2AE35) & _M32
     return h ^ (h >> 16)
+
+
+def mix_seed(seed: int, counter: int) -> int:
+    """splitmix64-mix (seed, counter) into one well-distributed 31-bit seed."""
+    x = (((seed & 0xFFFFFFFF) << 32) | (counter & 0xFFFFFFFF)) & 0xFFFFFFFFFFFFFFFF
+    x = (x + 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
+    x ^= x >> 30
+    x = (x * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    x ^= x >> 27
+    x = (x * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    x ^= x >> 31
+    return x & 0x7FFFFFFF
 
 
 def seed_keys(seed: int):
@@ -152,23 +172,82 @@ def sde_rollout_reference(y0, params, t0s, dts, seed, num_steps: int,
     return torch.stack(ys)
 
 
+def sde_rollout_bwd_reference(y0, ys, ct, params, t0s, dts, seed, num_steps: int,
+                              noise: Optional[torch.Tensor] = None,
+                              increments: str = "gaussian"):
+    """The reverse sweep of :func:`sde_rollout_reference` in the kernel's
+    arithmetic: ``(dy0 [N, D], {name: grad})`` for the cotangent ``ct``
+    of ``ys``.  Each step recomputes its activations from the pre-step
+    state (``y0`` or ``ys[t-1]``) and redraws its increments."""
+    N, D = y0.shape
+    tsc = time_table(t0s, dts).to(y0.device)
+    keys = seed_keys(seed)
+    rows = torch.arange(N, device=y0.device)
+    p = params
+    grads = {k: torch.zeros_like(v) for k, v in p.items()}
+    lam = torch.zeros_like(y0)
+    for t in reversed(range(num_steps)):
+        s, c, dt, sdt = tsc[t, 0], tsc[t, 1], tsc[t, 2], tsc[t, 3]
+        y = y0 if t == 0 else ys[t - 1]
+        lam = lam + ct[t]
+        z = noise[t] if noise is not None else draw_increments(keys, rows, t, num_steps, D, increments)
+        h1 = torch.tanh(y @ p["wf0"] + (s * p["wf0t"][0] + c * p["wf0t"][1]) + p["bf0"][0])
+        h2 = torch.tanh(h1 @ p["wf1"] + p["bf1"][0])
+        hg1 = torch.tanh(y @ p["wg0"] + (s * p["wg0t"][0] + c * p["wg0t"][1]) + p["bg0"][0])
+        hg2 = torch.tanh(hg1 @ p["wg1"] + p["bg1"][0])
+        g = torch.sigmoid(hg2 @ p["wgo"] + p["bgo"][0])                      # [N, 1]
+        d_f = lam * dt
+        d_a2 = (d_f @ p["wf2"].T) * (1.0 - h2 * h2)
+        d_a1 = (d_a2 @ p["wf1"].T) * (1.0 - h1 * h1)
+        d_o = sdt * (lam * z).sum(-1, keepdim=True) * g * (1.0 - g)           # [N, 1]
+        d_ag2 = (d_o @ p["wgo"].T) * (1.0 - hg2 * hg2)
+        d_ag1 = (d_ag2 @ p["wg1"].T) * (1.0 - hg1 * hg1)
+        for w, b, x, d in (("wf2", "bf2", h2, d_f), ("wf1", "bf1", h1, d_a2),
+                           ("wf0", "bf0", y, d_a1), ("wgo", "bgo", hg2, d_o),
+                           ("wg1", "bg1", hg1, d_ag2), ("wg0", "bg0", y, d_ag1)):
+            grads[w] = grads[w] + x.T @ d
+            grads[b] = grads[b] + d.sum(0, keepdim=True)
+        for wt, d in (("wf0t", d_a1), ("wg0t", d_ag1)):
+            cs = d.sum(0)
+            grads[wt] = grads[wt] + torch.stack([s * cs, c * cs])
+        lam = lam + d_a1 @ p["wf0"].T + d_ag1 @ p["wg0"].T
+    return lam, grads
+
+
 # --------------------------------------------------------------------------
-# kernel
+# kernels
 # --------------------------------------------------------------------------
+def _shapes(D: int):
+    return dict(wf0=(D, D), wf1=(D, D), wf2=(D, D), wg0=(D, D), wg1=(D, D),
+                wf0t=(2, D), wg0t=(2, D), bf0=(1, D), bf1=(1, D), bf2=(1, D),
+                bg0=(1, D), bg1=(1, D), wgo=(D, 1), bgo=(1, 1))
+
+
 def pack_params(params: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """The kernel's flat weight buffer (``bgo`` padded to 4 floats)."""
-    D = KERNEL_DIM
-    shapes = dict(wf0=(D, D), wf1=(D, D), wf2=(D, D), wg0=(D, D), wg1=(D, D),
-                  wf0t=(2, D), wg0t=(2, D), bf0=(1, D), bf1=(1, D), bf2=(1, D),
-                  bg0=(1, D), bg1=(1, D), wgo=(D, 1), bgo=(1, 1))
+    """The kernels' flat weight buffer (``bgo`` padded to 4 floats), built
+    with differentiable ops: gradients of the buffer reach ``params``."""
+    shapes = _shapes(params["wf0"].shape[0])
     parts = []
     for k in PARAM_ORDER:
         if tuple(params[k].shape) != shapes[k]:
             raise ValueError(f"rollout param {k} has shape {tuple(params[k].shape)}, "
                              f"the kernel takes {shapes[k]}")
-        parts.append(params[k].reshape(-1).float())
-    parts.append(params["bgo"].new_zeros(3, dtype=torch.float32))
-    return torch.cat(parts).contiguous()
+        parts.append(params[k].reshape(-1))
+    parts.append(params["bgo"].new_zeros(3))
+    return torch.cat(parts)
+
+
+def unpack_params(w: torch.Tensor, dim: int) -> Dict[str, torch.Tensor]:
+    """Views of a packed buffer as the named weights (inverse of
+    :func:`pack_params`)."""
+    out, at = {}, 0
+    for k, shape in _shapes(dim).items():
+        n = shape[0] * shape[1]
+        out[k] = w[at: at + n].view(shape)
+        at += n
+    if at + 3 != w.numel():
+        raise ValueError(f"packed rollout buffer has {w.numel()} floats, D={dim} needs {at + 3}")
+    return out
 
 
 @functools.cache
@@ -186,6 +265,21 @@ def _library():
     return lib
 
 
+@functools.cache
+def _bwd_library():
+    from trajsde_tpu_torch.ops import build
+
+    lib = build.load("sde_rollout_bwd")
+    lib.sde_rollout_bwd_launch.argtypes = [ctypes.c_void_p] * 9 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    lib.sde_rollout_bwd_launch.restype = ctypes.c_int
+    lib.sde_rollout_bwd_weight_floats.argtypes = []
+    lib.sde_rollout_bwd_weight_floats.restype = ctypes.c_int
+    return lib
+
+
 def _check(name: str, x: torch.Tensor, shape, device) -> None:
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, y0 on {device}")
@@ -197,14 +291,16 @@ def _check(name: str, x: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(y0, params, t0s, dts, seed, num_steps, noise, increments) -> torch.Tensor:
+def _common_checks(y0, w, t0s, dts, num_steps, noise, increments, weight_floats):
+    """Checks shared by both launches -> (mode, time table)."""
     N, D = y0.shape
     if D != KERNEL_DIM:
-        raise ValueError(f"the rollout kernel is specialised to D={KERNEL_DIM}, got D={D}")
+        raise ValueError(f"the rollout kernels are specialised to D={KERNEL_DIM}, got D={D}")
     if N >= 2 ** 31:
-        raise ValueError(f"{N} rows exceed the kernel's int32 row count")
+        raise ValueError(f"{N} rows exceed the kernels' int32 row count")
     dev = y0.device
     _check("y0", y0, (N, D), dev)
+    _check("w", w, (weight_floats,), dev)
     if noise is not None:
         _check("noise", noise, (num_steps, N, D), dev)
         mode = 0
@@ -212,16 +308,20 @@ def _launch(y0, params, t0s, dts, seed, num_steps, noise, increments) -> torch.T
         mode = INCREMENTS[increments]
     else:
         raise ValueError(f"unknown increments {increments!r} (rademacher | gaussian)")
-    w = pack_params({k: v.to(dev) for k, v in params.items()})
     tsc = time_table(t0s, dts).to(dev)
     _check("time table", tsc, (num_steps, 4), dev)
+    return mode, tsc
+
+
+def _launch(y0, w, t0s, dts, seed, num_steps, noise, increments) -> torch.Tensor:
     lib = _library()
-    if w.numel() != lib.sde_rollout_weight_floats():
-        raise RuntimeError("packed weight layout disagrees with the kernel's")
-    ys = torch.empty((num_steps, N, D), device=dev, dtype=torch.float32)
+    mode, tsc = _common_checks(y0, w, t0s, dts, num_steps, noise, increments,
+                               lib.sde_rollout_weight_floats())
+    N, D = y0.shape
+    ys = torch.empty((num_steps, N, D), device=y0.device, dtype=torch.float32)
     k1, k2 = seed_keys(seed)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(y0.device):
+        stream = torch.cuda.current_stream(y0.device).cuda_stream
         err = lib.sde_rollout_launch(
             y0.data_ptr(), w.data_ptr(), tsc.data_ptr(),
             None if noise is None else noise.data_ptr(), ys.data_ptr(),
@@ -246,10 +346,102 @@ def sde_rollout(y0: torch.Tensor, params: Dict[str, torch.Tensor], t0s: torch.Te
     counts its launches; on the CPU the plain version runs.
     """
     if y0.device.type == "cuda":
-        return _launch(y0, params, t0s, dts, seed, num_steps, noise, increments)
+        w = pack_params({k: v.to(y0.device) for k, v in params.items()})
+        return _launch(y0, w, t0s, dts, seed, num_steps, noise, increments)
     if y0.device.type == "cpu":
         return sde_rollout_reference(y0, params, t0s, dts, seed, num_steps, noise, increments)
     raise ValueError(f"sde_rollout runs on cuda (kernel) or cpu (plain), not {y0.device}")
 
 
 sde_rollout.launches = 0
+
+
+def sde_rollout_packed(y0: torch.Tensor, w: torch.Tensor, t0s: torch.Tensor, dts: torch.Tensor,
+                       seed: int, num_steps: int, noise: Optional[torch.Tensor] = None,
+                       increments: str = "gaussian") -> torch.Tensor:
+    """:func:`sde_rollout` on the packed buffer ``w`` of :func:`pack_params`
+    (K1's launches count on ``sde_rollout.launches``)."""
+    if y0.device.type == "cuda":
+        return _launch(y0, w, t0s, dts, seed, num_steps, noise, increments)
+    if y0.device.type == "cpu":
+        return sde_rollout_reference(y0, unpack_params(w, y0.shape[1]), t0s, dts, seed,
+                                     num_steps, noise, increments)
+    raise ValueError(f"sde_rollout runs on cuda (kernel) or cpu (plain), not {y0.device}")
+
+
+def _launch_bwd(y0, ys, ct, w, t0s, dts, seed, num_steps, noise, increments):
+    lib = _bwd_library()
+    mode, tsc = _common_checks(y0, w, t0s, dts, num_steps, noise, increments,
+                               lib.sde_rollout_bwd_weight_floats())
+    N, D = y0.shape
+    _check("ys", ys, (num_steps, N, D), y0.device)
+    _check("ct", ct, (num_steps, N, D), y0.device)
+    # one block per SM walks the 64-row tiles; each writes its partial
+    # weight gradients once, and a second kernel sums them in block order
+    sms = torch.cuda.get_device_properties(y0.device).multi_processor_count
+    grid = min((N + 63) // 64, sms)
+    partial = torch.empty((grid, w.numel()), device=y0.device, dtype=torch.float32)
+    dy0 = torch.empty_like(y0)
+    dw = torch.empty_like(w)
+    k1, k2 = seed_keys(seed)
+    with torch.cuda.device(y0.device):
+        stream = torch.cuda.current_stream(y0.device).cuda_stream
+        err = lib.sde_rollout_bwd_launch(
+            y0.data_ptr(), ys.data_ptr(), ct.data_ptr(), w.data_ptr(), tsc.data_ptr(),
+            None if noise is None else noise.data_ptr(), dy0.data_ptr(), dw.data_ptr(),
+            partial.data_ptr(), N, num_steps, k1, k2, mode, grid, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"sde_rollout_bwd kernel launch failed: cudaError {err}")
+    sde_rollout_bwd.launches += 1
+    return dy0, dw
+
+
+def sde_rollout_bwd(y0: torch.Tensor, ys: torch.Tensor, ct: torch.Tensor, w: torch.Tensor,
+                    t0s: torch.Tensor, dts: torch.Tensor, seed: int, num_steps: int,
+                    noise: Optional[torch.Tensor] = None, increments: str = "gaussian"):
+    """The reverse sweep: ``(dy0 [N, D], dw)`` (``dw`` packed like ``w``)
+    for the cotangent ``ct [T, N, D]`` of the forward's ``ys``, with the
+    forward's own ``seed``/``increments`` or ``noise``.
+
+    On CUDA kernel K2 runs on the current stream without synchronising and
+    ``sde_rollout_bwd.launches`` counts its launches; its weight gradients
+    are summed in a fixed order, so they are the same run after run.  On
+    the CPU the plain version runs.
+    """
+    if y0.device.type == "cuda":
+        return _launch_bwd(y0, ys, ct, w, t0s, dts, seed, num_steps, noise, increments)
+    if y0.device.type == "cpu":
+        dy0, grads = sde_rollout_bwd_reference(y0, ys, ct, unpack_params(w, y0.shape[1]), t0s,
+                                               dts, seed, num_steps, noise, increments)
+        return dy0, pack_params(grads)
+    raise ValueError(f"sde_rollout_bwd runs on cuda (kernel) or cpu (plain), not {y0.device}")
+
+
+sde_rollout_bwd.launches = 0
+
+
+class SDERolloutFn(torch.autograd.Function):
+    """``ys = rollout(y0, w)`` with K1 forward and K2 backward (the port of
+    ``sde_rollout_train``'s custom VJP).
+
+    ``apply(y0, w, t0s, dts, seed, num_steps, noise, increments)``; only
+    ``y0`` and the packed weights ``w`` get gradients: ``t0s``, ``dts``
+    and explicit ``noise`` are constants, as in the JAX package.
+    """
+
+    @staticmethod
+    def forward(ctx, y0, w, t0s, dts, seed, num_steps, noise, increments):
+        ys = sde_rollout_packed(y0, w, t0s, dts, seed, num_steps, noise, increments)
+        ctx.save_for_backward(y0, w, ys, t0s, dts, noise)
+        ctx.seed, ctx.num_steps, ctx.increments = seed, num_steps, increments
+        return ys
+
+    @staticmethod
+    def backward(ctx, ct):
+        y0, w, ys, t0s, dts, noise = ctx.saved_tensors
+        # the decoder's [B, F, A, Tf, D] layout hands ct over as a permuted
+        # view; the kernel reads [T, N, D] rows, so it is copied once here
+        dy0, dw = sde_rollout_bwd(y0, ys, ct.contiguous(), w, t0s, dts, ctx.seed,
+                                  ctx.num_steps, noise, ctx.increments)
+        return dy0, dw, None, None, None, None, None, None

@@ -18,25 +18,11 @@ import torch
 from trajsde_tpu_torch.data.grid import NUS_SCALE, align_to_grid
 from trajsde_tpu_torch.data.pack import pack_scenes, pick_bucket
 from trajsde_tpu_torch.device import resolve_device
-from trajsde_tpu_torch.models.sde_encoder import gather_actor
+from trajsde_tpu_torch.models.sde_encoder import gather_agent
+from trajsde_tpu_torch.ops.sde_rollout import mix_seed
 from trajsde_tpu_torch.serving import make_serving_fn
 
-
-def mix_seed(seed: int, counter: int) -> int:
-    """splitmix64-mix (seed, counter) into one well-distributed 31-bit seed."""
-    x = (((seed & 0xFFFFFFFF) << 32) | (counter & 0xFFFFFFFF)) & 0xFFFFFFFFFFFFFFFF
-    x = (x + 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
-    x ^= x >> 30
-    x = (x * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
-    x ^= x >> 27
-    x = (x * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
-    x ^= x >> 31
-    return x & 0x7FFFFFFF
-
-
-def gather_agent(arr: torch.Tensor, agent_index: torch.Tensor, axis: int) -> torch.Tensor:
-    """Select the focal-agent slot per scene along ``axis`` (dropping it)."""
-    return gather_actor(arr, agent_index, axis).squeeze(axis)
+__all__ = ["ServingEngine", "align_scene", "make_postprocess", "mix_seed"]
 
 
 def make_postprocess(is_gtabs: bool, ref_time: int, slim: bool = False):

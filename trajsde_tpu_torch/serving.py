@@ -29,6 +29,9 @@ def make_serving_fn(model, device="cuda", increments: str = "rademacher", ood: b
     ``sde_noise [Th, B, A+1, D]`` and ``twin_noise [B, 1, Th, 2]`` for the
     encoder.  ``ood=True`` decodes from the encoder's ensemble-mean
     embedding and attaches ``stds [B, A]``.
+
+    The model is put in eval mode here, so dropout never reaches a served
+    answer; ``serve`` raises if the model was switched back to training.
     """
     dev = resolve_device(device)
     decoder = model.decoder
@@ -50,6 +53,9 @@ def make_serving_fn(model, device="cuda", increments: str = "rademacher", ood: b
     @torch.inference_mode()
     def serve(scene: SceneBatch, seed: int, generator: Optional[torch.Generator] = None,
               noise=None, sde_noise=None, twin_noise=None):
+        if model.training:
+            raise RuntimeError("the served model was switched to train mode: call "
+                               "model.eval() (dropout must not reach a served answer)")
         if ood:
             local, stds = model.encoder.forward_ood(scene, generator=generator)
         else:

@@ -1,0 +1,214 @@
+"""Training and evaluation loops (``trajsde_tpu/train/loop.py``).
+
+A train step is one eager forward in training mode, the weighted loss sum,
+one backward and one AdamW + schedule step.  Every step's randomness
+derives on the host from ``(seed, step)`` through ``mix_seed``: a
+``torch.Generator`` on the device seeded with it draws the encoder's noise
+and the dropout masks, and a fused decoder's rollout kernel takes the same
+value as its seed.  So a run resumed from a checkpoint draws what the
+uninterrupted run would have drawn, and no step reads a device scalar to
+seed anything.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from trajsde_tpu_torch.data.scene import SceneBatch
+from trajsde_tpu_torch.device import resolve_device
+from trajsde_tpu_torch.models.decoders import SDEDecoder
+from trajsde_tpu_torch.models.sde_encoder import LocalEncoderSDESep, gather_agent
+from trajsde_tpu_torch.ops.sde_rollout import mix_seed
+from trajsde_tpu_torch.train.optim import build_optimizer
+
+# eval draws derive from (EVAL_SEED, batch index), as the JAX package folds
+# its eval key key(12345) with the batch index
+EVAL_SEED = 12345
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model, its AdamW and schedule, the optimizer-step count, and the
+    seed every step's draws derive from."""
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    scheduler: Any
+    step: int = 0
+    seed: int = 0
+
+
+def create_train_state(model: nn.Module, training_cfg: dict, steps_per_epoch: int,
+                       seed: int = 0) -> TrainState:
+    optimizer, scheduler = build_optimizer(model, training_cfg, steps_per_epoch)
+    return TrainState(model, optimizer, scheduler, 0, int(seed))
+
+
+def step_generator(device, seed: int, counter: int) -> Tuple[torch.Generator, int]:
+    """(a generator on ``device``, the host seed it was seeded with) for
+    draw number ``counter`` of a run seeded ``seed``."""
+    s = mix_seed(seed, counter)
+    return torch.Generator(device=device).manual_seed(s), s
+
+
+def agent_slices(scene: SceneBatch, output: Dict[str, torch.Tensor], is_gtabs: bool = True):
+    """(pred [B, K, Tf, 2], target [B, Tf, 2], reg_mask [B, Tf], source [B]):
+    the focal-agent views the metrics read.  ``is_gtabs=False`` (delta
+    targets) cumsums prediction and target into the agent frame, without
+    undoing the nuScenes grid scaling, as the JAX package does."""
+    pred = gather_agent(output["loc"][..., :2], scene.agent_index, axis=2)
+    target = gather_agent(output["y"], scene.agent_index, axis=1)
+    reg_mask = gather_agent(output["reg_mask"], scene.agent_index, axis=1)
+    if not is_gtabs:
+        pred = torch.cumsum(pred, dim=-2)
+        target = torch.cumsum(target, dim=-2)
+    return pred, target, reg_mask, scene.source
+
+
+def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, scheduler,
+                    losses: List[Tuple[str, float, Callable]], device) -> Callable:
+    """``train_step(scene, step, seed) -> logs``: ``train/<loss>`` values,
+    ``train/total`` and ``train/step_skipped``.
+
+    NaN guard: when the loss or any gradient is non-finite, neither the
+    optimizer nor the schedule steps, so the parameters and the AdamW
+    moments stay as they were, and ``train/step_skipped`` is 1.  Deciding
+    that reads one bool from the device per step.
+    """
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def train_step(scene: SceneBatch, step: int, seed: int) -> Dict[str, Any]:
+        model.train()
+        gen, s = step_generator(device, seed, step)
+        optimizer.zero_grad(set_to_none=True)
+        out = model(scene, generator=gen, rollout_seed=s)
+        total, logs = 0.0, {}
+        for name, weight, fn in losses:
+            value = fn(out["y"], out)
+            total = total + weight * value
+            logs[f"train/{name}"] = value.detach()
+        total.backward()
+        finite = [torch.isfinite(total)] + [torch.isfinite(p.grad).all()
+                                            for p in params if p.grad is not None]
+        ok = bool(torch.stack(finite).all())
+        if ok:
+            optimizer.step()
+            scheduler.step()
+        logs["train/total"] = total.detach()
+        logs["train/step_skipped"] = 0.0 if ok else 1.0
+        return logs
+
+    return train_step
+
+
+def make_eval_step(model: nn.Module, metrics, is_gtabs: bool = True, device="cuda") -> Callable:
+    """``eval_step(scene, batch_idx) -> {metric name: (sum, count)}`` in eval
+    mode without gradients; batch ``i`` draws from ``(EVAL_SEED, i)``."""
+
+    @torch.no_grad()
+    def eval_step(scene: SceneBatch, batch_idx: int):
+        model.eval()
+        gen, s = step_generator(device, EVAL_SEED, batch_idx)
+        out = model(scene, generator=gen, rollout_seed=s)
+        pred, target, reg_mask, source = agent_slices(scene, out, is_gtabs)
+        return {m.name: m.update_fn(pred, target, reg_mask, source) for m in metrics}
+
+    return eval_step
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@dataclasses.dataclass
+class Trainer:
+    """Epoch-driven trainer: ``fit`` trains, evaluates after every epoch and
+    saves a checkpoint per epoch scored by ``monitor``.
+
+    ``logger`` is any object with ``log_scalars(step, dict)``.  Batches are
+    ``SceneBatch``es on the CPU, moved to ``device`` one at a time.
+    """
+    losses: List[Tuple[str, float, Callable]]
+    metrics: List[Any]
+    device: Any = "cuda"
+    logger: Optional[Any] = None
+    checkpointer: Optional[Any] = None
+    monitor: str = "ADE_T"
+    is_gtabs: bool = True
+    log_every: int = 1
+    epoch_logs: List[Dict[str, float]] = dataclasses.field(default_factory=list)
+
+    def _nfe_logs(self, model: nn.Module) -> Dict[str, float]:
+        """Function-evaluation counts per forward (fixed grids: constants)."""
+        logs = {}
+        if isinstance(getattr(model, "encoder", None), LocalEncoderSDESep):
+            steps = float(model.encoder.historical_steps)
+            logs["nfe/encoder_sde_steps"] = steps
+            logs["nfe/encoder_g_evals"] = 2.0 * steps   # both diffusion nets
+        if isinstance(getattr(model, "decoder", None), SDEDecoder):
+            logs["nfe/decoder_sde_steps"] = float(model.decoder.future_steps)
+        return logs
+
+    def fit(self, state: TrainState, train_batches: Callable[[], Iterable[SceneBatch]],
+            val_batches: Callable[[], Iterable[SceneBatch]], max_epochs: int) -> TrainState:
+        if (self.checkpointer is not None and self.metrics
+                and self.monitor not in {m.name for m in self.metrics}):
+            # a typo'd monitor would save every checkpoint unscored, and the
+            # pruner would then delete the real best
+            raise ValueError(f"monitor {self.monitor!r} is not a registered metric "
+                             f"({sorted(m.name for m in self.metrics)})")
+        dev = resolve_device(self.device)
+        train_step = make_train_step(state.model, state.optimizer, state.scheduler,
+                                     self.losses, dev)
+        if self.logger is not None:
+            self.logger.log_scalars(state.step, self._nfe_logs(state.model))
+        for epoch in range(max_epochs):
+            t0 = time.perf_counter()
+            n_steps = scenes = 0
+            skipped = 0.0
+            for scene in train_batches():
+                logs = train_step(scene.to(dev), state.step, state.seed)
+                state.step += 1
+                n_steps += 1
+                scenes += scene.x.shape[0]
+                skipped += logs["train/step_skipped"]
+                if self.logger is not None and state.step % self.log_every == 0:
+                    self.logger.log_scalars(state.step, {k: float(v) for k, v in logs.items()}
+                                            | {"train/steps_skipped_cum": skipped})
+            # the train time closes on a synchronized clock, before the val pass
+            _synchronize(dev)
+            train_dt = time.perf_counter() - t0
+            results = self.evaluate(state, val_batches)
+            record = {f"val/{k}": v for k, v in results.items()} | {
+                "epoch": float(epoch),
+                "epoch_time_s": time.perf_counter() - t0,
+                "perf/steps_per_s": n_steps / max(train_dt, 1e-9),
+                "perf/scenes_per_s": scenes / max(train_dt, 1e-9),
+                "train/steps_skipped": skipped,
+            }
+            self.epoch_logs.append(record)
+            if self.logger is not None:
+                self.logger.log_scalars(state.step, record)
+            if self.checkpointer is not None:
+                metric = results.get(self.monitor)
+                if metric is not None and not math.isfinite(metric):
+                    metric = None   # NaN (an empty split) must not enter the pruner's sort
+                self.checkpointer.save(state, metric=metric, step=state.step)
+        return state
+
+    def evaluate(self, state: TrainState, batches: Callable[[], Iterable[SceneBatch]]
+                 ) -> Dict[str, float]:
+        dev = resolve_device(self.device)
+        eval_step = make_eval_step(state.model, self.metrics, self.is_gtabs, dev)
+        for m in self.metrics:
+            m.reset()
+        for i, scene in enumerate(batches()):
+            contribs = eval_step(scene.to(dev), i)
+            for m in self.metrics:
+                m.accumulate(contribs[m.name])
+        return {m.name: m.compute() for m in self.metrics}
