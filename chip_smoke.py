@@ -16,9 +16,23 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      medians of both at bucket 128;
   4. serve: a full-width ``ServingEngine`` (48 actors, 192 lanes, K=10,
      seeded weights) answers batches of 1, 5 and 128 scenes; outputs are
-     checked and K1's launch count must equal the batch count;
+     checked, K1's launch count must equal the batch count and K3's be 0;
+     peak device memory of the phase;
   5. splice: one served bucket (kernel rollout) vs the model's own
      forward (plain rollout loop) with the same pinned noise;
+  A. fused AA kernel: K3 vs its plain version at the bucket-128 twin
+     shape (128 x 21 x 49 receivers x 48 senders), the bucket-1 shape and
+     the OOD shape (Aq = Ak = 48), with and without a dropout keep mask,
+     for the model's packed weights and for random ones with non-zero
+     off-diagonal blocks, a mask with empty receivers; two runs bit-equal;
+     CUDA-event medians at bucket 128 and the OOD shape;
+  B. fused serving: a full-width ``ServingEngine`` over
+     ``FLAGSHIP_FUSED`` (``encoder.fused: true``, the same seeded weights)
+     answers batches of 1, 5 and 128; K3 and K1 launch once per batch, K2
+     never; times beside phase 4's;
+  C. fused splice: at bucket 8 the fused model's served answer vs the
+     DENSE model's own forward (same weights, pinned noise), and one fused
+     ``forward_ood`` vs the dense one (K3 launches once);
   6. backward kernel: K2 vs its plain version at the training shape
      (61,440 rows x 60 steps x 64), explicit and in-kernel gaussian
      increments, per output; two runs bit-equal; CUDA-event medians;
@@ -26,7 +40,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      fits one epoch of synthetic batches of both sources, evaluates two
      batches, takes repeated steps on one batch (the loss must fall), and
      saves and restores a checkpoint; K1 and K2 must launch once per
-     optimizer step;
+     optimizer step, K3 never;
   8. train splice: one step's loss and every gradient of the fused path
      (K1 + K2, explicit decoder noise) vs autograd through the plain loop.
 The last lines are the card, a JSON object per kernel and the device line.
@@ -43,10 +57,11 @@ import time
 import numpy as np
 import torch
 
-from trajsde_tpu_torch.config import (FLAGSHIP, FLAGSHIP_TRAIN, build_losses, build_metrics,
-                                      build_model)
+from trajsde_tpu_torch.config import (FLAGSHIP, FLAGSHIP_FUSED, FLAGSHIP_TRAIN, build_losses,
+                                      build_metrics, build_model)
 from trajsde_tpu_torch.data.pack import pack_scenes, pick_bucket
 from trajsde_tpu_torch.data.synthetic import make_raw_scene
+from trajsde_tpu_torch.ops import aa_fused as K3
 from trajsde_tpu_torch.ops import build as kernel_build
 from trajsde_tpu_torch.ops import sde_rollout as K1
 from trajsde_tpu_torch.server import ServingEngine, align_scene
@@ -61,8 +76,13 @@ SEED = 0
 # kernel vs plain, 60 f32 steps: tanhf, FMA contraction and cuBLAS
 # summation order differ from the plain version
 TOL_KERNEL = 1e-4
-# served path vs model forward (loc / pi), same pinned noise, full width
+# served path vs model forward (loc / pi), same pinned noise, full width;
+# also the fused encoder's served answer and forward_ood vs the dense ones
 TOL_SPLICE = 1e-3
+# K3 vs plain, max |kernel - plain| / max |plain|: the same f32 chain with
+# FMA contraction, another summation order and an online softmax
+TOL_K3 = 1e-4
+K3_DROPOUT = 0.1
 # K2 vs plain, max |kernel - plain| / max |plain| per output: dy0 is a
 # 60-step chain per row; each weight gradient sums 61,440 x 60 row-steps in
 # another order (the kernel per block and tile, the plain version by cuBLAS)
@@ -115,7 +135,7 @@ def phase_device() -> str:
     return card
 
 
-KERNELS = ("sde_rollout", "sde_rollout_bwd")
+KERNELS = ("sde_rollout", "sde_rollout_bwd", "aa_fused")
 
 
 def phase_build() -> None:
@@ -211,12 +231,22 @@ def _check_results(results, n, model):
         check(abs(float(r["agent_pi"].sum()) - 1.0) < 1e-5, "agent_pi does not sum to 1")
 
 
-def phase_serve(engine, model) -> int:
+def zero_counts() -> None:
+    """Every kernel's launch count to 0 (just before a path is driven)."""
+    K1.sde_rollout.launches = K1.sde_rollout_bwd.launches = K3.fused_pair_attention.launches = 0
+
+
+def phase_serve(engine, model, tag: str = "serve"):
+    """Serve batches of 1, 5 and 128 through ``engine``; K1 launches once
+    per batch, and K3 too when the model's AA encoder is fused (else
+    never).  Returns (K1 launches, K3 launches, {batch: second-call ms})."""
+    fused = model.encoder.aa_encoder.fused
     rng = np.random.default_rng(SEED)
     requests = _requests(rng)
+    torch.cuda.reset_peak_memory_stats()
     engine.predict(requests[1])  # warm-up: CUDA context, cuBLAS handles, allocator
 
-    K1.sde_rollout.launches = K1.sde_rollout_bwd.launches = 0
+    zero_counts()
     ms = {}
     for n in BATCHES:
         torch.cuda.synchronize()
@@ -224,26 +254,31 @@ def phase_serve(engine, model) -> int:
         results = engine.predict(requests[n])
         ms[n] = 1e3 * (time.perf_counter() - t0)
         _check_results(results, n, model)
-    launches = K1.sde_rollout.launches
-    print(f"[serve] sde_rollout launches on the main path: {launches} for {len(BATCHES)} batches",
-          flush=True)
+    launches, k3 = K1.sde_rollout.launches, K3.fused_pair_attention.launches
+    print(f"[{tag}] launches on the main path for {len(BATCHES)} batches: sde_rollout {launches}, "
+          f"aa_fused {k3}", flush=True)
     check(launches == len(BATCHES), "the rollout kernel did not run once per served batch")
+    check(k3 == (len(BATCHES) if fused else 0),
+          "the fused AA kernel did not run once per served batch" if fused
+          else "the dense encoder launched the fused AA kernel")
     check(K1.sde_rollout_bwd.launches == 0, "serving launched the backward kernel")
 
+    warm = {}
     for n in BATCHES:  # second pass: allocator and kernels warm
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         engine.predict(requests[n])
-        warm = 1e3 * (time.perf_counter() - t0)
-        print(f"[serve] batch {n:3d} (bucket {pick_bucket(n, engine.buckets)}): first {ms[n]:.1f} ms, "
-              f"again {warm:.1f} ms, {n / warm * 1e3:.1f} scenes/s", flush=True)
-    print(f"[serve] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+        warm[n] = 1e3 * (time.perf_counter() - t0)
+        print(f"[{tag}] batch {n:3d} (bucket {pick_bucket(n, engine.buckets)}): first {ms[n]:.1f} "
+              f"ms, again {warm[n]:.1f} ms, {n / warm[n] * 1e3:.1f} scenes/s", flush=True)
+    print(f"[{tag}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
-    return launches
+    return launches, k3, warm
 
 
-@torch.inference_mode()
-def phase_splice(model) -> None:
+def _splice_inputs(model):
+    """A bucket-8 scene on the card and pinned encoder, twin and decoder
+    noise (the decoder's laid out as the served rollout's rows)."""
     rng = np.random.default_rng(SEED + 1)
     raws = [make_raw_scene(rng, i % 2, num_actors=NUM_ACTORS, num_lanes=NUM_LANES)
             for i in range(SPLICE_BATCH)]
@@ -255,16 +290,175 @@ def phase_splice(model) -> None:
     enc_noise = torch.randn((Th, B, A + 1, D), generator=gen, device="cuda")
     twin_noise = torch.randn((B, 1, Th, 2), generator=gen, device="cuda")
     dec_noise = torch.randn((Tf, B, Km, A, D), generator=gen, device="cuda")
-    served = make_serving_fn(model, "cuda")(
-        scene, 0, noise=dec_noise.reshape(Tf, B * Km * A, D), sde_noise=enc_noise,
-        twin_noise=twin_noise)
-    plain = model(scene, enc_noise=enc_noise, twin_noise=twin_noise, dec_noise=dec_noise)
+    return scene, enc_noise, twin_noise, dec_noise, dec_noise.reshape(Tf, B * Km * A, D)
+
+
+def _check_splice(tag: str, served, plain, what: str) -> None:
     for k in ("loc", "pi"):
         err = (served[k] - plain[k]).abs().max().item()
-        print(f"[splice] {k}: max |served - forward| = {err:.3e} (tol {TOL_SPLICE:g}) "
+        print(f"[{tag}] {k}: max |served - {what}| = {err:.3e} (tol {TOL_SPLICE:g}) "
               f"over {tuple(plain[k].shape)}", flush=True)
         check(bool(torch.isfinite(served[k]).all()), f"served {k} is not finite")
-        check(err < TOL_SPLICE, f"served {k} disagrees with the model forward")
+        check(err < TOL_SPLICE, f"served {k} disagrees with the {what}")
+
+
+@torch.inference_mode()
+def phase_splice(model) -> None:
+    scene, enc_noise, twin_noise, dec_noise, rows = _splice_inputs(model)
+    served = make_serving_fn(model, "cuda")(scene, 0, noise=rows, sde_noise=enc_noise,
+                                            twin_noise=twin_noise)
+    plain = model(scene, enc_noise=enc_noise, twin_noise=twin_noise, dec_noise=dec_noise)
+    _check_splice("splice", served, plain, "forward")
+
+
+def aa_pair_ops(dim: int, heads: int):
+    """(matmul, elementwise) operations of the AA pair chain per pair, the
+    work the function needs (the packed layout's zero blocks not counted):
+    the two Linear(2 -> D) first layers (2 x 2 x 2 D), the two
+    Linear(D -> D) second layers (2 x 2 D^2), ``wagg`` (2 D^2), ``[k|v]``
+    (4 D^2), the head logits and the weighted sum (2 D each); LayerNorms
+    over 4 D values at 7 operations each, ReLUs over 3 D, the softmax at 5
+    per head."""
+    d = dim
+    matmul = 2 * 2 * 2 * d + 2 * 2 * d * d + 2 * d * d + 4 * d * d + 2 * d + 2 * d
+    return matmul, 7 * 4 * d + 3 * d + 5 * heads
+
+
+def aa_weight_floats(dim: int) -> int:
+    """Floats of the 14 packed pair-chain weights (``pack_aa_params``)."""
+    d = dim
+    return 4 * 2 * d + 2 * d + 2 * (2 * d) + 4 * d * d + 2 * d + 2 * d + d * d + d + 2 * d \
+        + 2 * d * d + 2 * d
+
+
+def aa_fused_bound(B: int, T: int, Aq: int, Ak: int, dim: int, heads: int, with_keep: bool):
+    """(bound_ms, bound_by, flops, bytes) of one K3 call: :func:`aa_pair_ops`
+    per pair; q, u, the f32 mask (and the keep mask), the weights read
+    once, the aggregate written once."""
+    pairs, rows = B * T * Aq * Ak, B * T * Aq
+    flops = pairs * sum(aa_pair_ops(dim, heads))
+    nbytes = 4 * (rows * dim + pairs * 4 + pairs + aa_weight_floats(dim) + rows * dim)
+    if with_keep:
+        nbytes += 4 * pairs * heads
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def _random_aa_weights(gen, like):
+    """Random pair-chain weights shaped as ``like``: matrices N(0, 1/fan_in),
+    LayerNorm scales 1 + N(0, 0.04), other vectors N(0, 0.04); the w1 blocks
+    off the diagonal are not zero, as they are in the model's layout."""
+    out = []
+    for name, w in zip(K3.W_ORDER, like):
+        x = torch.randn(w.shape, generator=gen, device=w.device)
+        if name.startswith("w"):
+            x = x / w.shape[0] ** 0.5
+        else:
+            x = 0.2 * x + (1.0 if name.endswith("s") else 0.0)
+        out.append(x.contiguous())
+    return tuple(out)
+
+
+def _k3_inputs(shape, with_keep: bool, gen):
+    """q, u, the 0/1 mask (every 7th receiver without a sender) and the
+    keep mask or None at ``shape`` = (B, T, Aq, Ak)."""
+    B, T, Aq, Ak = shape
+    D, H = K3.KERNEL_DIM, K3.KERNEL_HEADS
+    q = torch.randn((B, T, Aq, D), generator=gen, device="cuda")
+    u = 5.0 * torch.randn((B, T, Aq, Ak, 4), generator=gen, device="cuda")
+    mask = (torch.rand((B, T, Aq, Ak), generator=gen, device="cuda") < 0.6).float()
+    mask[:, :, ::7] = 0.0
+    keep = None
+    if with_keep:
+        keep = (torch.rand((B, T, Aq, Ak, H), generator=gen, device="cuda") >= K3_DROPOUT).float()
+    return q, u, mask, keep
+
+
+@torch.inference_mode()
+def phase_fused_kernel(model) -> dict:
+    """K3 vs its plain version at the shapes the fused encoder gives it:
+    the twin forward at buckets 128 and 1 (Aq = A + 1) and forward_ood
+    (Aq = Ak = A); bit-equal reruns; timed at bucket 128 and the OOD shape."""
+    Th, A = model.encoder.historical_steps, NUM_ACTORS
+    D, H = K3.KERNEL_DIM, K3.KERNEL_HEADS
+    shapes = {"bucket 128": (128, Th, A + 1, A), "bucket 1": (1, Th, A + 1, A),
+              "ood": (128, Th, A, A)}
+    model_ws = tuple(w.contiguous() for w in
+                     K3.weights_of(K3.pack_aa_params(model.encoder.aa_encoder)))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    weights = {"model": model_ws, "random": _random_aa_weights(gen, model_ws)}
+    max_abs = 0.0
+    for name, shape in shapes.items():
+        for wname, ws in weights.items():
+            for with_keep in (False, True):
+                q, u, mask, keep = _k3_inputs(shape, with_keep, gen)
+                p = K3_DROPOUT if with_keep else 0.0
+                got = K3.fused_pair_attention(q, u, mask, keep, ws, H, p)
+                again = K3.fused_pair_attention(q, u, mask, keep, ws, H, p)
+                torch.cuda.synchronize()
+                kept = f"p={p:g}" if with_keep else "None"
+                case = f"{name} {list(shape)}, {wname} weights, keep {kept}"
+                check(bool(torch.isfinite(got).all()), f"aa_fused ({case}) is not finite")
+                check(torch.equal(got, again), f"aa_fused ({case}) is not bit-equal across two runs")
+                check(bool((got[:, :, ::7] == 0).all()), f"aa_fused ({case}): an empty receiver "
+                      "did not give exactly 0")
+                want = K3.fused_pair_attention_reference(q, u, mask, keep, ws, H, p)
+                diff = (got - want).abs().max().item()
+                rel = diff / want.abs().max().item()
+                max_abs = max(max_abs, diff)
+                print(f"[fused-kernel] aa_fused {case}: bit-equal reruns, max|kernel - plain| "
+                      f"{diff:.3e} = {rel:.3e} of max|plain| (tol {TOL_K3:g})", flush=True)
+                check(rel <= TOL_K3, f"aa_fused ({case}) disagrees with its plain version")
+                del got, again, want, q, u, mask, keep
+    times, bounds = {}, {}
+    for name in ("bucket 128", "ood"):
+        q, u, mask, _ = _k3_inputs(shapes[name], False, gen)
+        times[name] = cuda_ms(lambda: K3.fused_pair_attention(q, u, mask, None, model_ws, H))
+        bounds[name] = aa_fused_bound(*shapes[name], D, H, False)
+        bound, by, flops, nbytes = bounds[name]
+        print(f"[fused-kernel] aa_fused {name} {list(shapes[name])}: {times[name]:.3f} ms (median "
+              f"of {TIMED_RUNS}), bound {bound:.3f} ms by {by} ({flops:.3e} flop, {nbytes:.3e} B), "
+              f"{flops / times[name] / 1e9:.1f} TFLOP/s", flush=True)
+    q, u, mask, _ = _k3_inputs(shapes["bucket 128"], False, gen)
+    plain_ms = cuda_ms(lambda: K3.fused_pair_attention_reference(q, u, mask, None, model_ws, H),
+                       runs=5, warmup=1)
+    print(f"[fused-kernel] aa_fused plain version at bucket 128: {plain_ms:.3f} ms (median of 5)",
+          flush=True)
+    bound, by, _, _ = bounds["bucket 128"]
+    return dict(name="aa_fused", route="cuda", source="trajsde_tpu_torch/csrc/aa_fused.cu",
+                replaces="trajsde_tpu/ops/pallas/aa_fused.py:319", launches=None,
+                max_abs_err=max_abs, ms=times["bucket 128"], plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None)
+
+
+@torch.inference_mode()
+def phase_fused_splice(dense, fused) -> int:
+    """The fused model's served bucket-8 answer vs the dense model's own
+    forward (same weights, pinned noise), then one fused ``forward_ood``
+    vs the dense one (same generator seed); returns K3's OOD launches."""
+    scene, enc_noise, twin_noise, dec_noise, rows = _splice_inputs(fused)
+    zero_counts()
+    served = make_serving_fn(fused, "cuda")(scene, 0, noise=rows, sde_noise=enc_noise,
+                                            twin_noise=twin_noise)
+    check(K3.fused_pair_attention.launches == 1, "the fused served batch did not launch K3 once")
+    plain = dense(scene, enc_noise=enc_noise, twin_noise=twin_noise, dec_noise=dec_noise)
+    _check_splice("fused-splice", served, plain, "dense forward")
+
+    zero_counts()
+    emb_f, std_f = fused.encoder.forward_ood(
+        scene, generator=torch.Generator(device="cuda").manual_seed(SEED + 11))
+    ood = K3.fused_pair_attention.launches
+    emb_d, std_d = dense.encoder.forward_ood(
+        scene, generator=torch.Generator(device="cuda").manual_seed(SEED + 11))
+    for name, a, b in (("embedding", emb_f, emb_d), ("stds", std_f, std_d)):
+        err = (a - b).abs().max().item()
+        print(f"[fused-splice] forward_ood {name}: max |fused - dense| = {err:.3e} "
+              f"(tol {TOL_SPLICE:g}) over {tuple(b.shape)}", flush=True)
+        check(bool(torch.isfinite(a).all()), f"fused forward_ood {name} is not finite")
+        check(err < TOL_SPLICE, f"fused forward_ood {name} disagrees with the dense one")
+    print(f"[fused-splice] forward_ood launched aa_fused {ood} time(s)", flush=True)
+    check(ood == 1, "forward_ood did not launch K3 once")
+    return ood
 
 
 def bwd_bound(rows: int, steps: int, dim: int, explicit_noise: bool):
@@ -364,14 +558,15 @@ def phase_train(batch: int) -> dict:
     trainer = Trainer(losses, metrics, device="cuda")
     torch.cuda.reset_peak_memory_stats()
 
-    K1.sde_rollout.launches = K1.sde_rollout_bwd.launches = 0
+    zero_counts()
     trainer.fit(state, lambda: train, lambda: [], max_epochs=1)
     launches = {"sde_rollout": K1.sde_rollout.launches,
-                "sde_rollout_bwd": K1.sde_rollout_bwd.launches}
+                "sde_rollout_bwd": K1.sde_rollout_bwd.launches,
+                "aa_fused": K3.fused_pair_attention.launches}
     print(f"[train] launches on the training path: {launches} for {state.step} optimizer steps",
           flush=True)
-    check(launches == {"sde_rollout": state.step, "sde_rollout_bwd": state.step},
-          "K1 and K2 did not launch once per optimizer step")
+    check(launches == {"sde_rollout": state.step, "sde_rollout_bwd": state.step, "aa_fused": 0},
+          "K1 and K2 did not launch once per optimizer step (and K3 never)")
     epoch = trainer.epoch_logs[-1]
     check(epoch["train/steps_skipped"] == 0.0, "the NaN guard skipped a training step")
     print(f"[train] epoch of {state.step} steps at batch {batch} (incl. first-step warm-up): "
@@ -443,7 +638,7 @@ def phase_train_splice() -> None:
     tw = torch.randn((B, 1, Th, 2), generator=gen, device="cuda")
     de = torch.randn((Tf, B, Km, A, D), generator=gen, device="cuda")
 
-    K1.sde_rollout.launches = K1.sde_rollout_bwd.launches = 0
+    zero_counts()
     local, d_in, d_out, l_in, l_out = enc(scene, sde_noise=en, twin_noise=tw)
     glob = fused.aggregator(scene, local)
     y0 = dec.fuse(scene, local, glob)
@@ -488,9 +683,20 @@ def main() -> None:
     engine = ServingEngine(model, num_actors=NUM_ACTORS, num_lanes=NUM_LANES, device="cuda",
                            seed=SEED)
     fwd = phase_kernels(model, engine.buckets)
-    served = phase_serve(engine, model)
+    served, dense_k3, dense_ms = phase_serve(engine, model)
     phase_splice(model)
-    del engine, model
+    # the same seeded weights with encoder.fused: true (one parameter tree)
+    fused_model = build_model(FLAGSHIP_FUSED, device="cuda", seed=SEED)
+    k3 = phase_fused_kernel(fused_model)
+    fused_engine = ServingEngine(fused_model, num_actors=NUM_ACTORS, num_lanes=NUM_LANES,
+                                 device="cuda", seed=SEED)
+    served_fused, k3_served, fused_ms = phase_serve(fused_engine, fused_model, "serve-fused")
+    print("[serve-fused] second calls, fused vs dense encoder (phase 4, this run): "
+          + "; ".join(f"batch {n} {fused_ms[n]:.1f} vs {dense_ms[n]:.1f} ms" for n in BATCHES),
+          flush=True)
+    k3_ood = phase_fused_splice(model, fused_model)
+    del engine, model, fused_engine, fused_model
+    torch.cuda.empty_cache()
     train_model = build_model(FLAGSHIP_TRAIN, device="cuda", seed=SEED)
     rows = TRAIN_BATCH * train_model.decoder.num_modes * NUM_ACTORS
     bwd = phase_backward(train_model, rows)
@@ -499,14 +705,19 @@ def main() -> None:
     trained = phase_train(TRAIN_BATCH)
     phase_train_splice()
     # launches: the count on the kernel's own main path (serving for K1,
-    # training for K2); launches_by_path: every path's count
-    fwd["launches"], bwd["launches"] = served, trained["sde_rollout_bwd"]
-    fwd["launches_by_path"] = {"serve": served, "train": trained["sde_rollout"]}
-    bwd["launches_by_path"] = {"serve": 0, "train": trained["sde_rollout_bwd"]}
+    # training for K2, fused serving for K3); launches_by_path: every path's
+    fwd["launches"], bwd["launches"], k3["launches"] = served, trained["sde_rollout_bwd"], k3_served
+    fwd["launches_by_path"] = {"serve": served, "serve_fused": served_fused,
+                               "train": trained["sde_rollout"]}
+    bwd["launches_by_path"] = {"serve": 0, "serve_fused": 0, "train": trained["sde_rollout_bwd"]}
+    k3["launches_by_path"] = {"serve_fused": k3_served, "ood": k3_ood, "serve": dense_k3,
+                              "train": trained["aa_fused"]}
     print(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches: {served} serving + "
-          f"{trained['sde_rollout']} training; K2 launches: {bwd['launches']} training", flush=True)
+          f"{served_fused} fused serving + {trained['sde_rollout']} training; K2 launches: "
+          f"{bwd['launches']} training; K3 launches: {k3_served} fused serving + {k3_ood} OOD",
+          flush=True)
     print(card)
-    print(json.dumps({"kernels": [fwd, bwd]}))
+    print(json.dumps({"kernels": [fwd, bwd, k3]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

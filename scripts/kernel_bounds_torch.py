@@ -11,14 +11,11 @@ follow the kernels' arithmetic (``trajsde_tpu/ops/pallas/``):
 * K1 ``sde_rollout`` / K2 ``_rollout_train_bwd``: the formulas of
   ``chip_smoke.py`` (``rollout_bound``, ``bwd_bound``) at 61,440 rows
   (bucket 128 x 10 modes x 48 actors) x 60 steps x 64.
-* K3 ``aa_fused._fwd_call`` (``pair_chain``), per (receiver, sender) pair,
-  the work the function needs (the TPU kernel multiplies the zero blocks
-  of its packed layout too): the two ``Dense(2 -> D)`` first layers
-  (2 x 2 x 2 D), the two ``Dense(D -> D)`` second layers (2 x 2 D^2),
-  ``wagg`` (2 D^2), ``[k|v]`` (4 D^2), the head logits and the weighted
-  sum (2 D each), LayerNorms over 4 D values at 7 operations each, ReLUs
-  over 3 D and the softmax (5 per head).  Inputs q [B,T,Aq,D],
-  u [B,T*Aq,Ak,4] and the f32 mask; output the [B,T,Aq,D] aggregate.
+* K3 ``aa_fused._fwd_call`` (``pair_chain``): ``chip_smoke.aa_fused_bound``,
+  per (receiver, sender) pair the work the function needs
+  (``aa_pair_ops``; the kernels multiply the zero blocks of the packed
+  layout too).  Inputs q [B,T,Aq,D], u [B,T*Aq,Ak,4] and the f32 mask;
+  output the [B,T,Aq,D] aggregate.
 * K4 ``aa_fused._bwd_call``: the forward recomputed, twice the matmul
   operations (input and weight gradients) and twice the elementwise ones;
   reads K3's inputs, the dropout keep mask [B,T,Aq,Ak,H] (training) and
@@ -26,7 +23,8 @@ follow the kernels' arithmetic (``trajsde_tpu/ops/pallas/``):
 * K5 ``aa_attention``: K3's chain plus the per-row q projection (2 D^2 per
   receiver); inputs u, the normed centres and the mask.
 K3-K5 are taken at the serving bucket-128 shape: B = 128, T = 21,
-Aq = 49 (48 actors and the focal agent's twin), Ak = 48, D = 64, H = 8.
+Aq = 49 (48 actors and the focal agent's twin), Ak = 48, D = 64, H = 8;
+K3 also at ``forward_ood``'s shape (Aq = Ak = 48).
 """
 from __future__ import annotations
 
@@ -36,7 +34,8 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import PEAK_BYTES_PER_S, PEAK_F32_FLOPS, bwd_bound, rollout_bound  # noqa: E402
+from chip_smoke import (PEAK_BYTES_PER_S, PEAK_F32_FLOPS, aa_fused_bound,  # noqa: E402
+                        aa_pair_ops, aa_weight_floats, bwd_bound, rollout_bound)
 
 B, T, AQ, AK, D, H = 128, 21, 49, 48, 64, 8
 ROWS, STEPS = 128 * 10 * 48, 60
@@ -47,40 +46,30 @@ def _bound(flops: float, nbytes: float):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def pair_ops(d: int = D, h: int = H):
-    """(matmul, elementwise) operations of the AA pair chain per pair."""
-    matmul = 2 * 2 * 2 * d + 2 * 2 * d * d + 2 * d * d + 4 * d * d + 2 * d + 2 * d
-    elementwise = 7 * 4 * d + 3 * d + 5 * h
-    return matmul, elementwise
-
-
-def aa_weights(d: int = D) -> int:
-    """Floats of the packed pair-chain weights (``pack_aa_params``)."""
-    return 4 * 2 * d + 2 * d + 2 * (2 * d) + 4 * d * d + 2 * d + 2 * d + d * d + d + 2 * d \
-        + 2 * d * d + 2 * d
-
-
 def main() -> None:
     pairs = B * T * AQ * AK
     rows_q = B * T * AQ
-    mm, ew = pair_ops()
-    w = aa_weights()
+    mm, ew = aa_pair_ops(D, H)
+    w = aa_weight_floats(D)
     report = []
     for name, (bound, by, flops, nbytes) in (
             ("K1 sde_rollout", rollout_bound(ROWS, STEPS, D, False)),
             ("K2 sde_rollout_bwd", bwd_bound(ROWS, STEPS, D, False))):
         report.append(dict(kernel=name, shape=f"{ROWS} rows x {STEPS} steps x {D}", flops=flops,
                            bytes=nbytes, bound_ms=bound, bound_by=by))
-    k3_flops = pairs * (mm + ew)
-    k3_bytes = 4 * (rows_q * D + pairs * 4 + pairs + w + rows_q * D)
+    for name, (b, t, aq, ak) in (("K3 aa_fused forward", (B, T, AQ, AK)),
+                                 ("K3 aa_fused forward, forward_ood", (B, T, AK, AK))):
+        bound, by, flops, nbytes = aa_fused_bound(b, t, aq, ak, D, H, False)
+        report.append(dict(kernel=name, shape=f"B={b} T={t} Aq={aq} Ak={ak} D={D} H={H} "
+                           f"({b * t * aq * ak} pairs)", flops=flops, bytes=nbytes,
+                           bound_ms=bound, bound_by=by))
     k4_flops = pairs * (3 * mm + 3 * ew)
     k4_bytes = 4 * (rows_q * D + pairs * 4 + pairs + pairs * H + w + rows_q * D   # inputs
                     + rows_q * D + w)                                              # dq, dw
     k5_flops = pairs * (mm + ew) + rows_q * 2 * D * D
     k5_bytes = 4 * (pairs * 4 + rows_q * D + pairs + w + D * D + D + rows_q * D)
     shape = f"B={B} T={T} Aq={AQ} Ak={AK} D={D} H={H} ({pairs} pairs)"
-    for name, flops, nbytes in (("K3 aa_fused forward", k3_flops, k3_bytes),
-                                ("K4 aa_fused backward", k4_flops, k4_bytes),
+    for name, flops, nbytes in (("K4 aa_fused backward", k4_flops, k4_bytes),
                                 ("K5 aa_attention", k5_flops, k5_bytes)):
         bound, by = _bound(flops, nbytes)
         report.append(dict(kernel=name, shape=shape, flops=flops, bytes=nbytes, bound_ms=bound,

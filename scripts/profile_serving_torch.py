@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Where a served batch's time goes in the PyTorch/CUDA port, on one GPU.
 
-    python scripts/profile_serving_torch.py [--batch 128] [--runs 10]
+    python scripts/profile_serving_torch.py [--batch 128] [--runs 10] [--fused-encoder]
 
-Flagship model at full width (seeded weights), 48 actors / 192 lanes.
+Flagship model at full width (seeded weights), 48 actors / 192 lanes;
+``--fused-encoder`` serves ``FLAGSHIP_FUSED`` instead (``encoder.fused:
+true``: the AA pair chain in kernel K3, the same weights).
 Prints one JSON line: host stages (align, pack, host->device copy,
 result fetch) on the host clock, device stages (encoder AA attention,
 ODE-RNN, AL attention; aggregator; fuse; rollout kernel; heads;
 postprocess) as CUDA-event medians, and, from ``torch.profiler`` over
-whole ``predict`` calls, the device's busy time and idle share.
+whole ``predict`` calls, the device's busy time, idle share and the
+time of its LayerNorm kernels.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from trajsde_tpu_torch.config import FLAGSHIP, build_model  # noqa: E402
+from trajsde_tpu_torch.config import FLAGSHIP, FLAGSHIP_FUSED, build_model  # noqa: E402
 from trajsde_tpu_torch.data.pack import pack_scenes  # noqa: E402
 from trajsde_tpu_torch.data.synthetic import make_raw_scene  # noqa: E402
 from trajsde_tpu_torch.models import graph  # noqa: E402
@@ -66,6 +69,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--runs", type=int, default=10)
+    ap.add_argument("--fused-encoder", action="store_true",
+                    help="serve FLAGSHIP_FUSED (AA pair chain in kernel K3)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
@@ -73,7 +78,7 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     B, R = args.batch, args.runs
-    model = build_model(FLAGSHIP, device="cuda", seed=0)
+    model = build_model(FLAGSHIP_FUSED if args.fused_encoder else FLAGSHIP, device="cuda", seed=0)
     enc, agg, dec = model.encoder, model.aggregator, model.decoder
     rng = np.random.default_rng(0)
     raws = [make_raw_scene(rng, i % 2, num_actors=A, num_lanes=L) for i in range(B)]
@@ -136,17 +141,19 @@ def main() -> None:
             engine.predict(raws)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0) / 3
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / 3
-    top = sorted((e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA),
-                 key=lambda e: -e.self_device_time_total)[:8]
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / 3
+    layer_norm = sum(e.self_device_time_total for e in kernels
+                     if "layer_norm" in e.key.lower()) / 1e3 / 3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     report = {
         "card": card, "batch": B, "actors": A, "lanes": L, "runs": R,
+        "encoder_fused": args.fused_encoder,
         "host_ms": host, "device_ms": device, "predict_ms": predict_ms,
         "profiled_predict_wall_ms": wall,
         "device_busy_ms": busy if busy > 0 else None,
         "device_idle_share": (1.0 - busy / wall) if busy > 0 else None,
+        "layer_norm_ms": layer_norm if busy > 0 else None,
         "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 / 3 for e in top},
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
     }

@@ -66,8 +66,11 @@ def test_registry_aliases_filtering_and_guards():
     enc = tconfig.build(cfg["encoder"]["module_name"], dict(cfg["encoder"]["kwargs"], bogus=1))
     assert type(enc).__name__ == "LocalEncoderSDESep"
     kw = cfg["encoder"]["kwargs"]
-    for bad, err in [({"fused": True}, NotImplementedError),
-                     ({"neighbor_cap": 24}, NotImplementedError),
+    # the fused AA encoder builds; the JAX package's TPU knobs of its kernel are dropped
+    fused = tconfig.build("LocalEncoderSDESep", dict(kw, fused=True, rows_fwd=128, rows_bwd=24,
+                                                     ln_mm=False))
+    assert fused.aa_encoder.fused
+    for bad, err in [({"neighbor_cap": 24}, NotImplementedError),
                      ({"adaptive": True}, NotImplementedError),
                      ({"dtype": "bfloat16"}, NotImplementedError),
                      ({"ref_time": 10}, ValueError),

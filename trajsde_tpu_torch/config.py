@@ -9,7 +9,10 @@ decoder's ``rollout_rows``, ``rollout_unroll``, ``scan_unroll`` and
 metric sections of ``configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec.yml`` as
 a dict, so a machine without PyYAML can build and train the flagship
 model; ``FLAGSHIP_TRAIN`` is the same model with ``decoder.fused: true``,
-whose rollout runs through kernels K1 and K2.
+whose rollout runs through kernels K1 and K2, and ``FLAGSHIP_FUSED`` the
+same model with ``encoder.fused: true``, whose AA pair chain runs through
+kernel K3 (the JAX package's TPU knobs of that path, ``rows_fwd``,
+``rows_bwd`` and ``ln_mm``, are dropped like the decoder's).
 """
 from __future__ import annotations
 
@@ -84,6 +87,9 @@ FLAGSHIP: Dict[str, Any] = {
 
 FLAGSHIP_TRAIN: Dict[str, Any] = copy.deepcopy(FLAGSHIP)
 FLAGSHIP_TRAIN["decoder"]["kwargs"]["fused"] = True
+
+FLAGSHIP_FUSED: Dict[str, Any] = copy.deepcopy(FLAGSHIP)
+FLAGSHIP_FUSED["encoder"]["kwargs"]["fused"] = True
 
 
 def resolve(name: str):

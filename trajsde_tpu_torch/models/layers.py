@@ -107,8 +107,12 @@ class EdgeAttention(nn.Module):
         alpha = masked_softmax(alpha, mask.unsqueeze(-1), dim=-2)
         alpha = dropout(alpha, self.rate, self.training, generator)
         agg = torch.einsum("...qkh,...qkhd->...qhd", alpha, v)
-        agg = agg.reshape(agg.shape[:-2] + (D,))
+        return self.update(center, agg.reshape(agg.shape[:-2] + (D,)), generator)
 
+    def update(self, center: torch.Tensor, agg: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """HiVT's gated update of the aggregate, ``out_proj`` and the output
+        dropout (shared with the fused AA path, whose kernel gives ``agg``)."""
         gate = torch.sigmoid(self.lin_ih(agg) + self.lin_hh(center))
         out = agg + gate * (self.lin_self(center) - agg)
         return dropout(self.out_proj(out), self.rate, self.training, generator)

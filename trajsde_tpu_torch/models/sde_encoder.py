@@ -71,6 +71,9 @@ class LocalEncoderSDESep(nn.Module):
 
     Only the shipped combination (fixed-grid Euler, no adjoint, backwards
     ODE-RNN, one step per segment) is implemented; anything else raises.
+    ``fused=True`` runs the pair chain of both AA calls (the twin forward
+    and ``forward_ood``) through kernel K3; the registry drops the JAX
+    package's knobs of that kernel (``rows_fwd``, ``rows_bwd``, ``ln_mm``).
     """
 
     def __init__(
