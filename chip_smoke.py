@@ -42,7 +42,21 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      saves and restores a checkpoint; K1 and K2 must launch once per
      optimizer step, K3 never;
   8. train splice: one step's loss and every gradient of the fused path
-     (K1 + K2, explicit decoder noise) vs autograd through the plain loop.
+     (K1 + K2, explicit decoder noise) vs autograd through the plain loop;
+  D. fused AA backward kernel: K4 vs its plain version (autograd through
+     the plain chain) at the training twin shape (128 x 21 x 49 x 48) and
+     at batch 1, with and without a dropout keep mask, for the model's
+     packed weights and random ones, a mask with empty receivers and a
+     random cotangent; two runs bit-equal; CUDA-event medians at the
+     training shape with keep;
+  E. fused-encoder training: phase 7 on ``FLAGSHIP_TRAIN_FUSED``
+     (``encoder.fused: true`` as well); K1, K2, K3 and K4 launch once per
+     optimizer step, eval launches K3 and K1 once per batch; times beside
+     phase 7's;
+  F. fused-encoder train splice: one step's loss and every gradient of
+     ``FLAGSHIP_TRAIN_FUSED`` (K3 + K4 + K1 + K2) vs ``FLAGSHIP_TRAIN`` (the
+     dense encoder), same weights, pinned noise; K3 and K4 launch once.
+Phases 4, B, C and 7 check that K4 never launches on their paths.
 The last lines are the card, a JSON object per kernel and the device line.
 """
 from __future__ import annotations
@@ -57,8 +71,9 @@ import time
 import numpy as np
 import torch
 
-from trajsde_tpu_torch.config import (FLAGSHIP, FLAGSHIP_FUSED, FLAGSHIP_TRAIN, build_losses,
-                                      build_metrics, build_model)
+from trajsde_tpu_torch.config import (FLAGSHIP, FLAGSHIP_FUSED, FLAGSHIP_TRAIN,
+                                      FLAGSHIP_TRAIN_FUSED, build_losses, build_metrics,
+                                      build_model)
 from trajsde_tpu_torch.data.pack import pack_scenes, pick_bucket
 from trajsde_tpu_torch.data.synthetic import make_raw_scene
 from trajsde_tpu_torch.ops import aa_fused as K3
@@ -87,6 +102,10 @@ K3_DROPOUT = 0.1
 # 60-step chain per row; each weight gradient sums 61,440 x 60 row-steps in
 # another order (the kernel per block and tile, the plain version by cuBLAS)
 TOL_K2_DY0, TOL_K2_W = 1e-4, 1e-3
+# K4 vs plain, max |kernel - plain| / max |plain|, as K2: dq sums each
+# receiver's senders in another order; each weight gradient sums 6.3 M
+# pairs in another order (per block and chunk, then over blocks)
+TOL_K4_DQ, TOL_K4_W = 1e-4, 1e-3
 # fused train step (K1 + K2) vs autograd through the plain loop, full width:
 # loss relative; each gradient leaf max |diff| <= TOL * max |grad| + ATOL (the
 # atol covers leaves whose exact gradient is 0, such as the key biases under
@@ -135,7 +154,7 @@ def phase_device() -> str:
     return card
 
 
-KERNELS = ("sde_rollout", "sde_rollout_bwd", "aa_fused")
+KERNELS = ("sde_rollout", "sde_rollout_bwd", "aa_fused", "aa_fused_bwd")
 
 
 def phase_build() -> None:
@@ -233,13 +252,15 @@ def _check_results(results, n, model):
 
 def zero_counts() -> None:
     """Every kernel's launch count to 0 (just before a path is driven)."""
-    K1.sde_rollout.launches = K1.sde_rollout_bwd.launches = K3.fused_pair_attention.launches = 0
+    K1.sde_rollout.launches = K1.sde_rollout_bwd.launches = 0
+    K3.fused_pair_attention.launches = K3.fused_pair_attention_bwd.launches = 0
 
 
 def phase_serve(engine, model, tag: str = "serve"):
     """Serve batches of 1, 5 and 128 through ``engine``; K1 launches once
     per batch, and K3 too when the model's AA encoder is fused (else
-    never).  Returns (K1 launches, K3 launches, {batch: second-call ms})."""
+    never); K2 and K4 never.  Returns (K1 launches, K3 launches, K4
+    launches, {batch: second-call ms})."""
     fused = model.encoder.aa_encoder.fused
     rng = np.random.default_rng(SEED)
     requests = _requests(rng)
@@ -261,7 +282,8 @@ def phase_serve(engine, model, tag: str = "serve"):
     check(k3 == (len(BATCHES) if fused else 0),
           "the fused AA kernel did not run once per served batch" if fused
           else "the dense encoder launched the fused AA kernel")
-    check(K1.sde_rollout_bwd.launches == 0, "serving launched the backward kernel")
+    k4 = K3.fused_pair_attention_bwd.launches
+    check(K1.sde_rollout_bwd.launches == 0 and k4 == 0, "serving launched a backward kernel")
 
     warm = {}
     for n in BATCHES:  # second pass: allocator and kernels warm
@@ -273,7 +295,7 @@ def phase_serve(engine, model, tag: str = "serve"):
               f"ms, again {warm[n]:.1f} ms, {n / warm[n] * 1e3:.1f} scenes/s", flush=True)
     print(f"[{tag}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
-    return launches, k3, warm
+    return launches, k3, k4, warm
 
 
 def _splice_inputs(model):
@@ -338,6 +360,22 @@ def aa_fused_bound(B: int, T: int, Aq: int, Ak: int, dim: int, heads: int, with_
     pairs, rows = B * T * Aq * Ak, B * T * Aq
     flops = pairs * sum(aa_pair_ops(dim, heads))
     nbytes = 4 * (rows * dim + pairs * 4 + pairs + aa_weight_floats(dim) + rows * dim)
+    if with_keep:
+        nbytes += 4 * pairs * heads
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def aa_fused_bwd_bound(B: int, T: int, Aq: int, Ak: int, dim: int, heads: int, with_keep: bool):
+    """(bound_ms, bound_by, flops, bytes) of one K4 call: per pair the chain
+    recomputed, then its input and its weight gradients, three times
+    :func:`aa_pair_ops`; K3's inputs (with the keep mask) and the cotangent
+    read once, dq and the weight gradients written once."""
+    pairs, rows = B * T * Aq * Ak, B * T * Aq
+    flops = pairs * 3 * sum(aa_pair_ops(dim, heads))
+    w = aa_weight_floats(dim)
+    nbytes = 4 * (rows * dim + pairs * 4 + pairs + w + rows * dim   # q, u, mask, weights, g
+                  + rows * dim + w)                                   # dq, weight gradients
     if with_keep:
         nbytes += 4 * pairs * heads
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
@@ -435,12 +473,14 @@ def phase_fused_kernel(model) -> dict:
 def phase_fused_splice(dense, fused) -> int:
     """The fused model's served bucket-8 answer vs the dense model's own
     forward (same weights, pinned noise), then one fused ``forward_ood``
-    vs the dense one (same generator seed); returns K3's OOD launches."""
+    vs the dense one (same generator seed); returns K3's and K4's OOD
+    launches."""
     scene, enc_noise, twin_noise, dec_noise, rows = _splice_inputs(fused)
     zero_counts()
     served = make_serving_fn(fused, "cuda")(scene, 0, noise=rows, sde_noise=enc_noise,
                                             twin_noise=twin_noise)
     check(K3.fused_pair_attention.launches == 1, "the fused served batch did not launch K3 once")
+    check(K3.fused_pair_attention_bwd.launches == 0, "the fused served batch launched K4")
     plain = dense(scene, enc_noise=enc_noise, twin_noise=twin_noise, dec_noise=dec_noise)
     _check_splice("fused-splice", served, plain, "dense forward")
 
@@ -458,7 +498,9 @@ def phase_fused_splice(dense, fused) -> int:
         check(err < TOL_SPLICE, f"fused forward_ood {name} disagrees with the dense one")
     print(f"[fused-splice] forward_ood launched aa_fused {ood} time(s)", flush=True)
     check(ood == 1, "forward_ood did not launch K3 once")
-    return ood
+    k4 = K3.fused_pair_attention_bwd.launches
+    check(k4 == 0, "forward_ood launched K4")
+    return ood, k4
 
 
 def bwd_bound(rows: int, steps: int, dim: int, explicit_noise: bool):
@@ -544,10 +586,20 @@ def _train_batch(rng, n):
     return pack_scenes([align_scene(r)[0] for r in raws], NUM_ACTORS, NUM_LANES)
 
 
-def phase_train(batch: int) -> dict:
-    """Full-width training of FLAGSHIP_TRAIN through the Trainer; returns
-    the kernels' launches on the training path."""
-    cfg = FLAGSHIP_TRAIN
+def _counts() -> dict:
+    return {"sde_rollout": K1.sde_rollout.launches,
+            "sde_rollout_bwd": K1.sde_rollout_bwd.launches,
+            "aa_fused": K3.fused_pair_attention.launches,
+            "aa_fused_bwd": K3.fused_pair_attention_bwd.launches}
+
+
+def phase_train(cfg, batch: int, tag: str = "train") -> dict:
+    """Full-width training of ``cfg`` through the Trainer: every kernel of
+    the path (K1 and K2, and K3 and K4 when the AA encoder is fused)
+    launches once per optimizer step, the others never; eval launches the
+    forward kernels once per batch.  Returns the training path's launches
+    and its ms/step, scenes/s and peak memory."""
+    fused_aa = bool(cfg["encoder"]["kwargs"].get("fused", False))
     model = build_model(cfg, device="cuda", seed=SEED)
     losses, metrics = build_losses(cfg), build_metrics(cfg)
     rng = np.random.default_rng(SEED + 3)
@@ -560,30 +612,34 @@ def phase_train(batch: int) -> dict:
 
     zero_counts()
     trainer.fit(state, lambda: train, lambda: [], max_epochs=1)
-    launches = {"sde_rollout": K1.sde_rollout.launches,
-                "sde_rollout_bwd": K1.sde_rollout_bwd.launches,
-                "aa_fused": K3.fused_pair_attention.launches}
-    print(f"[train] launches on the training path: {launches} for {state.step} optimizer steps",
+    launches = _counts()
+    print(f"[{tag}] launches on the training path: {launches} for {state.step} optimizer steps",
           flush=True)
-    check(launches == {"sde_rollout": state.step, "sde_rollout_bwd": state.step, "aa_fused": 0},
-          "K1 and K2 did not launch once per optimizer step (and K3 never)")
+    n_aa = state.step if fused_aa else 0
+    check(launches == {"sde_rollout": state.step, "sde_rollout_bwd": state.step,
+                       "aa_fused": n_aa, "aa_fused_bwd": n_aa},
+          "K1 and K2 (and K3 and K4 with the fused AA encoder, else never) did not launch "
+          "once per optimizer step")
     epoch = trainer.epoch_logs[-1]
     check(epoch["train/steps_skipped"] == 0.0, "the NaN guard skipped a training step")
-    print(f"[train] epoch of {state.step} steps at batch {batch} (incl. first-step warm-up): "
+    print(f"[{tag}] epoch of {state.step} steps at batch {batch} (incl. first-step warm-up): "
           f"{1e3 / epoch['perf/steps_per_s']:.1f} ms/step, {epoch['perf/scenes_per_s']:.1f} "
           f"scenes/s", flush=True)
 
-    before = K1.sde_rollout.launches
     results = trainer.evaluate(state, lambda: val)
-    print(f"[train] val over {VAL_BATCHES} batches: "
+    print(f"[{tag}] val over {VAL_BATCHES} batches: "
           + ", ".join(f"{k} {v:.4f}" for k, v in results.items()), flush=True)
     check(all(np.isfinite(v) for v in results.values()), "non-finite val metrics")
-    check(K1.sde_rollout.launches == before + VAL_BATCHES and
-          K1.sde_rollout_bwd.launches == launches["sde_rollout_bwd"],
-          "eval did not run K1 once per batch (and K2 never)")
+    evals = {k: v - launches[k] for k, v in _counts().items()}
+    print(f"[{tag}] launches in eval: {evals}", flush=True)
+    check(evals == {"sde_rollout": VAL_BATCHES, "sde_rollout_bwd": 0,
+                    "aa_fused": VAL_BATCHES if fused_aa else 0, "aa_fused_bwd": 0},
+          "eval did not run K1 (and K3 with the fused AA encoder) once per batch and the "
+          "backward kernels never")
 
     step = make_train_step(model, state.optimizer, state.scheduler, losses, torch.device("cuda"))
     totals, times = [], []
+    before = _counts()
     for _ in range(REPEAT_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -595,12 +651,16 @@ def phase_train(batch: int) -> dict:
         check(np.isfinite(totals[-1]) and logs["train/step_skipped"] == 0.0,
               "non-finite training loss")
     ms = statistics.median(times[1:])
-    print(f"[train] {REPEAT_STEPS} steps on one batch: loss "
+    repeated = {k: v - before[k] for k, v in _counts().items()}
+    check(repeated == {k: (REPEAT_STEPS if n else 0) for k, n in launches.items()},
+          f"the repeated steps launched {repeated}, not every path kernel once per step")
+    print(f"[{tag}] {REPEAT_STEPS} steps on one batch: loss "
           + " ".join(f"{x:.4f}" for x in totals), flush=True)
     check(float(np.mean(totals[-3:])) < totals[0], "the loss did not fall on a repeated batch")
-    print(f"[train] batch {batch}: {ms:.1f} ms/step (median of the last {REPEAT_STEPS - 1}, "
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[{tag}] batch {batch}: {ms:.1f} ms/step (median of the last {REPEAT_STEPS - 1}, "
           f"host clock, synchronized, copy to device included), {batch / ms * 1e3:.1f} scenes/s; "
-          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+          f"peak device memory {peak:.2f} GiB", flush=True)
 
     with tempfile.TemporaryDirectory() as d:
         ckpt = CheckpointManager(d, save_top_k=1)
@@ -611,68 +671,200 @@ def phase_train(batch: int) -> dict:
         a, b = state.model.state_dict(), other.model.state_dict()
         check(other.step == state.step and all(torch.equal(a[k], b[k]) for k in a),
               "checkpoint restore differs")
-    print(f"[train] checkpoint saved and restored at step {state.step}", flush=True)
-    return {k: v for k, v in launches.items()}
+    print(f"[{tag}] checkpoint saved and restored at step {state.step}", flush=True)
+    return dict(launches=launches, ms=ms, scenes_per_s=batch / ms * 1e3, peak_gib=peak)
 
 
 def _losses_of(cfg, out):
     return sum(w * fn(out["y"], out) for _, w, fn in build_losses(cfg))
 
 
-def phase_train_splice() -> None:
-    """One training step's loss and gradients: fused path (K1 + K2, pinned
-    decoder noise) vs the unfused model (autograd through the plain loop)."""
-    cfg = copy.deepcopy(FLAGSHIP_TRAIN)
-    cfg["encoder"]["kwargs"]["dropout"] = cfg["aggregator"]["kwargs"]["dropout"] = 0.0
-    plain_cfg = copy.deepcopy(cfg)
-    plain_cfg["decoder"]["kwargs"]["fused"] = False
-    fused = build_model(cfg, device="cuda", seed=SEED + 5).train()
-    plain = build_model(plain_cfg, device="cuda", seed=SEED + 5).train()
+def _splice_train_inputs(model):
+    """A batch-8 training scene and pinned encoder, twin and decoder noise."""
     rng = np.random.default_rng(SEED + 6)
     scene = _train_batch(rng, TRAIN_SPLICE_BATCH).to("cuda")
-    enc, dec = fused.encoder, fused.decoder
+    enc, dec = model.encoder, model.decoder
     B, A, Th, D = TRAIN_SPLICE_BATCH, NUM_ACTORS, enc.historical_steps, enc.embed_dim
     Tf, Km = dec.future_steps, dec.num_modes
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     en = torch.randn((Th, B, A + 1, D), generator=gen, device="cuda")
     tw = torch.randn((B, 1, Th, 2), generator=gen, device="cuda")
     de = torch.randn((Tf, B, Km, A, D), generator=gen, device="cuda")
+    return scene, en, tw, de
 
-    zero_counts()
+
+def _fused_decoder_loss(model, cfg, scene, en, tw, de):
+    """One training forward and its loss with the rollout through K1 (K2
+    in the backward) on the pinned decoder noise ``de``."""
+    enc, dec = model.encoder, model.decoder
     local, d_in, d_out, l_in, l_out = enc(scene, sde_noise=en, twin_noise=tw)
-    glob = fused.aggregator(scene, local)
+    glob = model.aggregator(scene, local)
     y0 = dec.fuse(scene, local, glob)
-    ys = dec.fused_rollout(y0, 0, noise=de.reshape(Tf, -1, D))
+    ys = dec.fused_rollout(y0, 0, noise=de.reshape(de.shape[0], -1, y0.shape[-1]))
     out = dec.decode(scene, ys.permute(1, 2, 3, 0, 4), local, glob)
-    out.update(y=fused.rotated_y(scene), diff_in=d_in, diff_out=d_out, label_in=l_in,
+    out.update(y=model.rotated_y(scene), diff_in=d_in, diff_out=d_out, label_in=l_in,
                label_out=l_out)
-    loss_f = _losses_of(cfg, out)
-    loss_f.backward()
-    check(K1.sde_rollout.launches == 1 and K1.sde_rollout_bwd.launches == 1,
-          "the fused step did not run K1 and K2 once each")
-    loss_p = _losses_of(plain_cfg, plain(scene, enc_noise=en, twin_noise=tw, dec_noise=de))
-    loss_p.backward()
-    rel_loss = abs(loss_f.item() - loss_p.item()) / abs(loss_p.item())
-    print(f"[train-splice] batch {B}: loss fused {loss_f.item():.6f} plain {loss_p.item():.6f}, "
-          f"relative {rel_loss:.3e} (tol {TOL_TRAIN_LOSS:g})", flush=True)
-    check(rel_loss < TOL_TRAIN_LOSS, "fused and plain training losses disagree")
+    return _losses_of(cfg, out)
+
+
+def _check_step(tag: str, what: str, loss_a, loss_b, model_a, model_b) -> None:
+    """Loss within TOL_TRAIN_LOSS (relative) and every gradient leaf of
+    ``model_a`` within TOL_TRAIN_GRAD * max|grad| + ATOL_TRAIN_GRAD of
+    ``model_b``'s."""
+    rel_loss = abs(loss_a.item() - loss_b.item()) / abs(loss_b.item())
+    print(f"[{tag}] batch {TRAIN_SPLICE_BATCH}: loss {loss_a.item():.6f} vs {what} "
+          f"{loss_b.item():.6f}, relative {rel_loss:.3e} (tol {TOL_TRAIN_LOSS:g})", flush=True)
+    check(rel_loss < TOL_TRAIN_LOSS, f"the training loss disagrees with the {what}")
     worst, name_w, n = 0.0, "", 0
-    grads_p = dict(plain.named_parameters())
-    for name, p in fused.named_parameters():
-        g, ref = p.grad, grads_p[name].grad
+    grads_b = dict(model_b.named_parameters())
+    for name, p in model_a.named_parameters():
+        g, ref = p.grad, grads_b[name].grad
         if ref is None:   # the pi head gets no gradient from L2 + DiffBCE
-            check(g is None, f"{name}: gradient on the fused path only")
+            check(g is None, f"{name}: gradient on one path only")
             continue
-        check(bool(torch.isfinite(g).all()), f"{name}: non-finite gradient")
+        check(g is not None and bool(torch.isfinite(g).all()), f"{name}: no or non-finite gradient")
         scale = max(ref.abs().max().item(), g.abs().max().item())
         frac = (g - ref).abs().max().item() / (TOL_TRAIN_GRAD * scale + ATOL_TRAIN_GRAD)
         n += 1
         if frac > worst:
             worst, name_w = frac, name
-    print(f"[train-splice] {n} gradient leaves: worst max|fused - plain| is {worst:.3f} of its "
+    print(f"[{tag}] {n} gradient leaves: worst max|diff| from the {what} is {worst:.3f} of its "
           f"tolerance ({TOL_TRAIN_GRAD:g} * max|grad| + {ATOL_TRAIN_GRAD:g}) at {name_w}",
           flush=True)
-    check(worst <= 1.0, "fused and plain gradients disagree")
+    check(worst <= 1.0, f"the gradients disagree with the {what}")
+
+
+def _no_dropout(cfg):
+    cfg = copy.deepcopy(cfg)
+    cfg["encoder"]["kwargs"]["dropout"] = cfg["aggregator"]["kwargs"]["dropout"] = 0.0
+    return cfg
+
+
+def phase_train_splice() -> None:
+    """One training step's loss and gradients: fused path (K1 + K2, pinned
+    decoder noise) vs the unfused model (autograd through the plain loop)."""
+    cfg = _no_dropout(FLAGSHIP_TRAIN)
+    plain_cfg = copy.deepcopy(cfg)
+    plain_cfg["decoder"]["kwargs"]["fused"] = False
+    fused = build_model(cfg, device="cuda", seed=SEED + 5).train()
+    plain = build_model(plain_cfg, device="cuda", seed=SEED + 5).train()
+    scene, en, tw, de = _splice_train_inputs(fused)
+
+    zero_counts()
+    loss_f = _fused_decoder_loss(fused, cfg, scene, en, tw, de)
+    loss_f.backward()
+    check(K1.sde_rollout.launches == 1 and K1.sde_rollout_bwd.launches == 1,
+          "the fused step did not run K1 and K2 once each")
+    loss_p = _losses_of(plain_cfg, plain(scene, enc_noise=en, twin_noise=tw, dec_noise=de))
+    loss_p.backward()
+    _check_step("train-splice", "plain loop", loss_f, loss_p, fused, plain)
+
+
+def phase_fused_backward() -> dict:
+    """K4 vs its plain version (autograd through the plain chain) at the
+    training twin shape and at batch 1, with and without a keep mask, for
+    the model's packed weights and random ones, every 7th receiver without
+    a sender and a random cotangent; bit-equal reruns; K3's output the same
+    bits whether or not it writes the softmax statistics; timed at the
+    training shape with keep."""
+    model = build_model(FLAGSHIP_TRAIN_FUSED, device="cuda", seed=SEED)
+    Th, A = model.encoder.historical_steps, NUM_ACTORS
+    D, H = K3.KERNEL_DIM, K3.KERNEL_HEADS
+    model_ws = tuple(w.contiguous() for w in
+                     K3.weights_of(K3.pack_aa_params(model.encoder.aa_encoder)))
+    del model
+    shapes = {"train": (TRAIN_BATCH, Th, A + 1, A), "batch 1": (1, Th, A + 1, A)}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    weights = {"model": model_ws, "random": _random_aa_weights(gen, model_ws)}
+    max_abs = 0.0
+    for name, shape in shapes.items():
+        for wname, ws in weights.items():
+            for with_keep in (False, True):
+                q, u, mask, keep = _k3_inputs(shape, with_keep, gen)
+                g = torch.randn(q.shape, generator=gen, device="cuda")
+                p = K3_DROPOUT if with_keep else 0.0
+                kept = f"p={p:g}" if with_keep else "None"
+                case = f"{name} {list(shape)}, {wname} weights, keep {kept}"
+                out, stats = K3.fused_pair_attention_fwd(q, u, mask, keep, ws, H, p)
+                served = K3.fused_pair_attention(q, u, mask, keep, ws, H, p)
+                dq, dws = K3.fused_pair_attention_bwd(q, u, mask, keep, ws, g, H, p, out=out,
+                                                      stats=stats)
+                dq2, dws2 = K3.fused_pair_attention_bwd(q, u, mask, keep, ws, g, H, p, out=out,
+                                                        stats=stats)
+                torch.cuda.synchronize()
+                check(torch.equal(out, served), f"aa_fused ({case}): writing the softmax "
+                      "statistics changed the output")
+                check(bool(torch.isfinite(dq).all()) and all(bool(torch.isfinite(d).all())
+                                                             for d in dws),
+                      f"aa_fused_bwd ({case}) is not finite")
+                check(torch.equal(dq, dq2) and all(torch.equal(a, b) for a, b in zip(dws, dws2)),
+                      f"aa_fused_bwd ({case}) is not bit-equal across two runs")
+                check(bool((dq[:, :, ::7] == 0).all()), f"aa_fused_bwd ({case}): an empty "
+                      "receiver did not give exactly 0")
+                del out, stats, served, dq2, dws2
+                want_dq, want = K3.fused_pair_attention_bwd_reference(q, u, mask, keep, ws, g, H,
+                                                                      p)
+                outs = {"dq": (dq, want_dq, TOL_K4_DQ)}
+                outs.update({k: (a, b, TOL_K4_W) for k, a, b in zip(K3.W_ORDER, dws, want)})
+                rels = {}
+                for k, (a, b, tol) in outs.items():
+                    check(a.shape == b.shape, f"aa_fused_bwd ({case}) {k}: shape {tuple(a.shape)}")
+                    diff = (a - b).abs().max().item()
+                    max_abs = max(max_abs, diff)
+                    rels[k] = diff / max(b.abs().max().item(), 1e-30)
+                    check(rels[k] <= tol, f"aa_fused_bwd ({case}) {k}: {rels[k]:.3e} > {tol:g}")
+                print(f"[fused-backward] aa_fused_bwd {case}: bit-equal reruns; max|kernel - "
+                      f"plain| / max|plain|: " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
+                      + f" (tol {TOL_K4_DQ:g} dq, {TOL_K4_W:g} weights)", flush=True)
+                del q, u, mask, keep, g, dq, dws, want_dq, want, outs
+                torch.cuda.empty_cache()
+
+    shape = shapes["train"]
+    q, u, mask, keep = _k3_inputs(shape, True, gen)
+    g = torch.randn(q.shape, generator=gen, device="cuda")
+    out, stats = K3.fused_pair_attention_fwd(q, u, mask, keep, model_ws, H, K3_DROPOUT)
+    ms = cuda_ms(lambda: K3.fused_pair_attention_bwd(q, u, mask, keep, model_ws, g, H, K3_DROPOUT,
+                                                     out=out, stats=stats))
+    bound, by, flops, nbytes = aa_fused_bwd_bound(*shape, D, H, True)
+    print(f"[fused-backward] aa_fused_bwd train {list(shape)}, keep p={K3_DROPOUT:g}: {ms:.3f} ms "
+          f"(median of {TIMED_RUNS}), bound {bound:.3f} ms by {by} ({flops:.3e} flop, "
+          f"{nbytes:.3e} B), {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+    del out, stats
+    torch.cuda.empty_cache()
+    plain_ms = cuda_ms(lambda: K3.fused_pair_attention_bwd_reference(q, u, mask, keep, model_ws,
+                                                                     g, H, K3_DROPOUT),
+                       runs=5, warmup=1)
+    print(f"[fused-backward] aa_fused_bwd plain version at the training shape: {plain_ms:.3f} ms "
+          f"(median of 5)", flush=True)
+    del q, u, mask, keep, g
+    torch.cuda.empty_cache()
+    return dict(name="aa_fused_bwd", route="cuda", source="trajsde_tpu_torch/csrc/aa_fused_bwd.cu",
+                replaces="trajsde_tpu/ops/pallas/aa_fused.py:343", launches=None,
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                library_ms=None)
+
+
+def phase_fused_train_splice() -> None:
+    """One training step of ``FLAGSHIP_TRAIN_FUSED`` (K3 + K4 for the AA
+    block, K1 + K2 for the rollout) vs ``FLAGSHIP_TRAIN`` (the dense
+    encoder's autograd), the same weights, dropout 0 and pinned noise."""
+    cfg = _no_dropout(FLAGSHIP_TRAIN_FUSED)
+    dense_cfg = _no_dropout(FLAGSHIP_TRAIN)
+    fused = build_model(cfg, device="cuda", seed=SEED + 5).train()
+    dense = build_model(dense_cfg, device="cuda", seed=SEED + 5).train()
+    dense.load_state_dict(fused.state_dict())
+    scene, en, tw, de = _splice_train_inputs(fused)
+
+    zero_counts()
+    loss_f = _fused_decoder_loss(fused, cfg, scene, en, tw, de)
+    loss_f.backward()
+    launched = _counts()
+    print(f"[fused-train-splice] launches of the fused-encoder step: {launched}", flush=True)
+    check(launched == {"sde_rollout": 1, "sde_rollout_bwd": 1, "aa_fused": 1, "aa_fused_bwd": 1},
+          "the fused-encoder step did not run K1, K2, K3 and K4 once each")
+    loss_d = _fused_decoder_loss(dense, dense_cfg, scene, en, tw, de)
+    loss_d.backward()
+    _check_step("fused-train-splice", "dense encoder", loss_f, loss_d, fused, dense)
 
 
 def main() -> None:
@@ -683,18 +875,19 @@ def main() -> None:
     engine = ServingEngine(model, num_actors=NUM_ACTORS, num_lanes=NUM_LANES, device="cuda",
                            seed=SEED)
     fwd = phase_kernels(model, engine.buckets)
-    served, dense_k3, dense_ms = phase_serve(engine, model)
+    served, dense_k3, dense_k4, dense_ms = phase_serve(engine, model)
     phase_splice(model)
     # the same seeded weights with encoder.fused: true (one parameter tree)
     fused_model = build_model(FLAGSHIP_FUSED, device="cuda", seed=SEED)
     k3 = phase_fused_kernel(fused_model)
     fused_engine = ServingEngine(fused_model, num_actors=NUM_ACTORS, num_lanes=NUM_LANES,
                                  device="cuda", seed=SEED)
-    served_fused, k3_served, fused_ms = phase_serve(fused_engine, fused_model, "serve-fused")
+    served_fused, k3_served, fused_k4, fused_ms = phase_serve(fused_engine, fused_model,
+                                                              "serve-fused")
     print("[serve-fused] second calls, fused vs dense encoder (phase 4, this run): "
           + "; ".join(f"batch {n} {fused_ms[n]:.1f} vs {dense_ms[n]:.1f} ms" for n in BATCHES),
           flush=True)
-    k3_ood = phase_fused_splice(model, fused_model)
+    k3_ood, k4_ood = phase_fused_splice(model, fused_model)
     del engine, model, fused_engine, fused_model
     torch.cuda.empty_cache()
     train_model = build_model(FLAGSHIP_TRAIN, device="cuda", seed=SEED)
@@ -702,22 +895,41 @@ def main() -> None:
     bwd = phase_backward(train_model, rows)
     del train_model
     torch.cuda.empty_cache()
-    trained = phase_train(TRAIN_BATCH)
+    trained = phase_train(FLAGSHIP_TRAIN, TRAIN_BATCH)
     phase_train_splice()
+    torch.cuda.empty_cache()
+    k4 = phase_fused_backward()
+    trained_fused = phase_train(FLAGSHIP_TRAIN_FUSED, TRAIN_BATCH, "train-fused")
+    print(f"[train-fused] fused vs dense AA encoder (phase 7, this run): "
+          f"{trained_fused['ms']:.1f} vs {trained['ms']:.1f} ms/step, "
+          f"{trained_fused['scenes_per_s']:.1f} vs {trained['scenes_per_s']:.1f} scenes/s, peak "
+          f"{trained_fused['peak_gib']:.2f} vs {trained['peak_gib']:.2f} GiB", flush=True)
+    phase_fused_train_splice()
     # launches: the count on the kernel's own main path (serving for K1,
-    # training for K2, fused serving for K3); launches_by_path: every path's
-    fwd["launches"], bwd["launches"], k3["launches"] = served, trained["sde_rollout_bwd"], k3_served
+    # training for K2, fused serving for K3, fused-encoder training for K4);
+    # launches_by_path: every path's
+    train, train_fused = trained["launches"], trained_fused["launches"]
+    fwd["launches"], bwd["launches"] = served, train["sde_rollout_bwd"]
+    k3["launches"], k4["launches"] = k3_served, train_fused["aa_fused_bwd"]
     fwd["launches_by_path"] = {"serve": served, "serve_fused": served_fused,
-                               "train": trained["sde_rollout"]}
-    bwd["launches_by_path"] = {"serve": 0, "serve_fused": 0, "train": trained["sde_rollout_bwd"]}
+                               "train": train["sde_rollout"],
+                               "train_fused": train_fused["sde_rollout"]}
+    bwd["launches_by_path"] = {"serve": 0, "serve_fused": 0, "train": train["sde_rollout_bwd"],
+                               "train_fused": train_fused["sde_rollout_bwd"]}
     k3["launches_by_path"] = {"serve_fused": k3_served, "ood": k3_ood, "serve": dense_k3,
-                              "train": trained["aa_fused"]}
+                              "train": train["aa_fused"], "train_fused": train_fused["aa_fused"]}
+    k4["launches_by_path"] = {"train_fused": train_fused["aa_fused_bwd"], "serve": dense_k4,
+                              "serve_fused": fused_k4, "ood": k4_ood,
+                              "train": train["aa_fused_bwd"]}
     print(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches: {served} serving + "
-          f"{served_fused} fused serving + {trained['sde_rollout']} training; K2 launches: "
-          f"{bwd['launches']} training; K3 launches: {k3_served} fused serving + {k3_ood} OOD",
+          f"{served_fused} fused serving + {train['sde_rollout']} training + "
+          f"{train_fused['sde_rollout']} fused-encoder training; K2 launches: "
+          f"{bwd['launches']} training + {train_fused['sde_rollout_bwd']} fused-encoder training; "
+          f"K3 launches: {k3_served} fused serving + {k3_ood} OOD + {train_fused['aa_fused']} "
+          f"fused-encoder training; K4 launches: {k4['launches']} fused-encoder training",
           flush=True)
     print(card)
-    print(json.dumps({"kernels": [fwd, bwd, k3]}))
+    print(json.dumps({"kernels": [fwd, bwd, k3, k4]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

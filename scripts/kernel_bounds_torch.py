@@ -16,10 +16,11 @@ follow the kernels' arithmetic (``trajsde_tpu/ops/pallas/``):
   (``aa_pair_ops``; the kernels multiply the zero blocks of the packed
   layout too).  Inputs q [B,T,Aq,D], u [B,T*Aq,Ak,4] and the f32 mask;
   output the [B,T,Aq,D] aggregate.
-* K4 ``aa_fused._bwd_call``: the forward recomputed, twice the matmul
-  operations (input and weight gradients) and twice the elementwise ones;
-  reads K3's inputs, the dropout keep mask [B,T,Aq,Ak,H] (training) and
-  the cotangent, writes dq and the weight gradients.
+* K4 ``aa_fused._bwd_call``: ``chip_smoke.aa_fused_bwd_bound``, the
+  forward recomputed, twice the matmul operations (input and weight
+  gradients) and twice the elementwise ones; reads K3's inputs, the
+  dropout keep mask [B,T,Aq,Ak,H] (training) and the cotangent, writes dq
+  and the weight gradients.
 * K5 ``aa_attention``: K3's chain plus the per-row q projection (2 D^2 per
   receiver); inputs u, the normed centres and the mask.
 K3-K5 are taken at the serving bucket-128 shape: B = 128, T = 21,
@@ -35,7 +36,8 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import (PEAK_BYTES_PER_S, PEAK_F32_FLOPS, aa_fused_bound,  # noqa: E402
-                        aa_pair_ops, aa_weight_floats, bwd_bound, rollout_bound)
+                        aa_fused_bwd_bound, aa_pair_ops, aa_weight_floats, bwd_bound,
+                        rollout_bound)
 
 B, T, AQ, AK, D, H = 128, 21, 49, 48, 64, 8
 ROWS, STEPS = 128 * 10 * 48, 60
@@ -57,23 +59,21 @@ def main() -> None:
             ("K2 sde_rollout_bwd", bwd_bound(ROWS, STEPS, D, False))):
         report.append(dict(kernel=name, shape=f"{ROWS} rows x {STEPS} steps x {D}", flops=flops,
                            bytes=nbytes, bound_ms=bound, bound_by=by))
-    for name, (b, t, aq, ak) in (("K3 aa_fused forward", (B, T, AQ, AK)),
-                                 ("K3 aa_fused forward, forward_ood", (B, T, AK, AK))):
-        bound, by, flops, nbytes = aa_fused_bound(b, t, aq, ak, D, H, False)
+    for name, fn, (b, t, aq, ak), keep in (
+            ("K3 aa_fused forward", aa_fused_bound, (B, T, AQ, AK), False),
+            ("K3 aa_fused forward, forward_ood", aa_fused_bound, (B, T, AK, AK), False),
+            ("K4 aa_fused backward (training, keep mask)", aa_fused_bwd_bound, (B, T, AQ, AK),
+             True)):
+        bound, by, flops, nbytes = fn(b, t, aq, ak, D, H, keep)
         report.append(dict(kernel=name, shape=f"B={b} T={t} Aq={aq} Ak={ak} D={D} H={H} "
                            f"({b * t * aq * ak} pairs)", flops=flops, bytes=nbytes,
                            bound_ms=bound, bound_by=by))
-    k4_flops = pairs * (3 * mm + 3 * ew)
-    k4_bytes = 4 * (rows_q * D + pairs * 4 + pairs + pairs * H + w + rows_q * D   # inputs
-                    + rows_q * D + w)                                              # dq, dw
     k5_flops = pairs * (mm + ew) + rows_q * 2 * D * D
     k5_bytes = 4 * (pairs * 4 + rows_q * D + pairs + w + D * D + D + rows_q * D)
-    shape = f"B={B} T={T} Aq={AQ} Ak={AK} D={D} H={H} ({pairs} pairs)"
-    for name, flops, nbytes in (("K4 aa_fused backward", k4_flops, k4_bytes),
-                                ("K5 aa_attention", k5_flops, k5_bytes)):
-        bound, by = _bound(flops, nbytes)
-        report.append(dict(kernel=name, shape=shape, flops=flops, bytes=nbytes, bound_ms=bound,
-                           bound_by=by))
+    bound, by = _bound(k5_flops, k5_bytes)
+    report.append(dict(kernel="K5 aa_attention",
+                       shape=f"B={B} T={T} Aq={AQ} Ak={AK} D={D} H={H} ({pairs} pairs)",
+                       flops=k5_flops, bytes=k5_bytes, bound_ms=bound, bound_by=by))
     for row in report:
         print(json.dumps(row))
 

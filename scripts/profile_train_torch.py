@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Where a training step's time goes in the PyTorch/CUDA port, on one GPU.
 
-    python scripts/profile_train_torch.py [--batch 128] [--runs 5] [--unfused]
+    python scripts/profile_train_torch.py [--batch 128] [--runs 5] [--unfused | --fused-encoder]
 
 ``FLAGSHIP_TRAIN`` (fused decoder rollout: kernel K1 forward, K2 backward;
-``--unfused`` trains through the plain rollout loop instead) at full width
+``--unfused`` trains through the plain rollout loop instead;
+``--fused-encoder`` trains ``FLAGSHIP_TRAIN_FUSED``, whose AA pair chain
+runs through kernel K3 forward and K4 backward) at full width
 with seeded weights, 48 actors / 192 lanes, synthetic scenes of both
 sources.  Prints one JSON line: the host's pack and host->device copy, the
 device stages as CUDA-event medians (encoder, aggregator and decoder
 forward with autograd recording, the losses, the whole backward, the AdamW
 step, the whole ``train_step``), and, from ``torch.profiler`` over three
-steps, the device's busy time, its idle share, the top kernels, K1's and
-K2's device time and the peak memory.
+steps, the device's busy time, its idle share, the top kernels, K1's to
+K4's device time, the LayerNorm kernels' time and the peak memory.
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from trajsde_tpu_torch.config import FLAGSHIP_TRAIN, build_losses, build_model  # noqa: E402
+from trajsde_tpu_torch.config import (FLAGSHIP_TRAIN, FLAGSHIP_TRAIN_FUSED,  # noqa: E402
+                                      build_losses, build_model)
 from trajsde_tpu_torch.data.pack import pack_scenes  # noqa: E402
 from trajsde_tpu_torch.data.synthetic import make_raw_scene  # noqa: E402
 from trajsde_tpu_torch.server import align_scene  # noqa: E402
@@ -67,7 +70,9 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--runs", type=int, default=5)
-    ap.add_argument("--unfused", action="store_true")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--unfused", action="store_true")
+    mode.add_argument("--fused-encoder", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
@@ -75,7 +80,7 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     B, R = args.batch, args.runs
-    cfg = copy.deepcopy(FLAGSHIP_TRAIN)
+    cfg = copy.deepcopy(FLAGSHIP_TRAIN_FUSED if args.fused_encoder else FLAGSHIP_TRAIN)
     cfg["decoder"]["kwargs"]["fused"] = not args.unfused
     model = build_model(cfg, device="cuda", seed=0).train()
     losses = build_losses(cfg)
@@ -142,12 +147,15 @@ def main() -> None:
     report = {
         "card": card, "batch": B, "actors": A, "lanes": L, "runs": R,
         "decoder": "unfused loop" if args.unfused else "fused (K1 + K2)",
+        "aa_encoder": "fused (K3 + K4)" if args.fused_encoder else "dense",
         "host_ms": host, "device_ms": device,
         "train_step_host_ms": step_ms, "scenes_per_s": B / step_ms * 1e3,
         "profiled_step_wall_ms": wall,
         "device_busy_ms": busy if busy > 0 else None,
         "device_idle_share": (1.0 - busy / wall) if busy > 0 else None,
         "k1_rollout_ms": named("rollout_kernel"), "k2_rollout_bwd_ms": named("rollout_bwd_kernel"),
+        "k3_aa_fused_ms": named("aa_fused_kernel"), "k4_aa_fused_bwd_ms": named("aa_fused_bwd"),
+        "layer_norm_ms": named("layer_norm"),
         "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 / 3 for e in top},
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
     }

@@ -72,3 +72,19 @@ def jax_forward(jm, params, js, enc_noise, twin_noise, dec_noise):
 
 def t(a):
     return torch.from_numpy(np.array(a))
+
+
+def check_leaves(got, want):
+    """Every gradient leaf: max|diff| <= 2e-3 * leaf scale + 1e-6
+    (``tests/test_reference_grad_parity.py``'s criterion).  A leaf the loss
+    does not reach (the pi head under L2 + DiffBCE) has no torch grad; JAX
+    gives it zeros."""
+    failures = []
+    for name, w in want.items():
+        w = w.numpy().astype(np.float64)
+        g = np.zeros_like(w) if got[name] is None else got[name].numpy().astype(np.float64)
+        scale = max(np.abs(w).max(), np.abs(g).max(), 1e-12)
+        diff = np.abs(g - w).max()
+        if diff > 2e-3 * scale + 1e-6:
+            failures.append((name, float(diff), float(scale)))
+    assert not failures, failures[:10]

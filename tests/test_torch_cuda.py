@@ -7,7 +7,8 @@ contraction and cuBLAS summation order differ from the plain version);
 K2 1e-4 of each output's largest magnitude for ``dy0`` and 1e-3 for the
 weight gradients, which sum every row's contribution in another order;
 K3 1e-4 of the largest magnitude (the same f32 chain with FMA contraction,
-another summation order and an online softmax).
+another summation order and an online softmax); K4 as K2: 1e-4 of the
+largest magnitude for ``dq`` and 1e-3 for the weight gradients.
 """
 import pytest
 import torch
@@ -122,20 +123,75 @@ def test_aa_fused_kernel_matches_plain(cuda, shape, with_keep):
     assert ((got - want).abs().max() / want.abs().max()).item() < TOL
 
 
+def _k4_case(cuda, shape, with_keep):
+    """K3's test inputs (a receiver with no sender, w1 off-diagonal blocks
+    filled in) plus a random cotangent."""
+    B, T, Aq, Ak = shape
+    gen = torch.Generator().manual_seed(sum(shape) + 2 * with_keep + 1)
+    packed = K3.pack_aa_params(_aa_encoder(Ak + 1))
+    packed["w1"] = packed["w1"] + 0.1 * torch.randn(packed["w1"].shape, generator=gen)
+    ws = tuple(w.contiguous().to(cuda) for w in K3.weights_of(packed))
+    q = torch.randn((B, T, Aq, 64), generator=gen).to(cuda)
+    u = (5.0 * torch.randn((B, T, Aq, Ak, 4), generator=gen)).to(cuda)
+    mask = (torch.rand((B, T, Aq, Ak), generator=gen) < 0.6).float()
+    mask[0, 0, 0] = 0.0
+    mask[0, 0, -1, 0] = 1.0
+    mask = mask.to(cuda)
+    keep, p = None, 0.0
+    if with_keep:
+        keep, p = (torch.rand((B, T, Aq, Ak, 8), generator=gen) >= 0.1).float().to(cuda), 0.1
+    g = torch.randn((B, T, Aq, 64), generator=gen).to(cuda)
+    return q, u, mask, keep, ws, g, p
+
+
 @pytest.mark.gpu
-def test_aa_fused_kernel_raises_when_gradients_are_needed(cuda):
-    enc = _aa_encoder(0).to(cuda)
-    ws = K3.weights_of(K3.pack_aa_params(enc, detach=False))
-    q = torch.randn((1, 2, 3, 64), device=cuda)
-    u = torch.randn((1, 2, 3, 4, 4), device=cuda)
-    mask = torch.ones((1, 2, 3, 4), device=cuda)
-    before = K3.fused_pair_attention.launches
-    with pytest.raises(NotImplementedError, match="K4"):
-        K3.fused_pair_attention(q, u, mask, None, ws, 8)
-    with pytest.raises(NotImplementedError, match="K4"):
-        K3.fused_pair_attention(q.requires_grad_(), u, mask, None,
-                                tuple(w.detach() for w in ws), 8)
-    assert K3.fused_pair_attention.launches == before
-    with torch.no_grad():
-        K3.fused_pair_attention(q, u, mask, None, ws, 8)
-    assert K3.fused_pair_attention.launches == before + 1
+@pytest.mark.parametrize("with_keep", [False, True])
+@pytest.mark.parametrize("shape", [(1, 1, 2, 1), (2, 3, 5, 4), (3, 2, 7, 70), (1, 21, 49, 48)])
+def test_aa_fused_bwd_kernel_matches_plain(cuda, shape, with_keep):
+    """K4 vs autograd through the plain chain: dq within 1e-4 of max|plain|
+    (plus 1e-6: with one sender the exact dq is 0), each weight gradient
+    within 1e-3 of its max|plain| (summed over every pair in another
+    order); bit-equal reruns; an empty receiver gets exactly 0."""
+    q, u, mask, keep, ws, g, p = _k4_case(cuda, shape, with_keep)
+    out, stats = K3.fused_pair_attention_fwd(q, u, mask, keep, ws, 8, p)
+    before = K3.fused_pair_attention_bwd.launches
+    dq, dws = K3.fused_pair_attention_bwd(q, u, mask, keep, ws, g, 8, p, out=out, stats=stats)
+    dq2, dws2 = K3.fused_pair_attention_bwd(q, u, mask, keep, ws, g, 8, p, out=out, stats=stats)
+    torch.cuda.synchronize()
+    assert K3.fused_pair_attention_bwd.launches == before + 2
+    assert torch.equal(dq, dq2) and all(torch.equal(a, b) for a, b in zip(dws, dws2))
+    assert (dq[0, 0, 0] == 0).all()
+    want_dq, want = K3.fused_pair_attention_bwd_reference(q, u, mask, keep, ws, g, 8, p)
+    assert torch.isfinite(dq).all() and all(torch.isfinite(d).all() for d in dws)
+    assert (dq - want_dq).abs().max().item() <= 1e-4 * want_dq.abs().max().item() + 1e-6
+    for name, got, w, x in zip(K3.W_ORDER, dws, want, ws):
+        assert got.shape == x.shape, name
+        assert ((got - w).abs().max() / w.abs().max()).item() < 1e-3, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_keep", [False, True])
+def test_autograd_through_the_fused_op_on_cuda_matches_the_cpu(cuda, with_keep):
+    """``fused_pair_attention`` with gradients on the card (K3 + K4 through
+    ``FusedPairAttentionFn``) vs the same call on the CPU (the plain
+    forward and backward); no gradient reaches u, mask or keep."""
+    q, u, mask, keep, ws, g, p = _k4_case(cuda, (2, 3, 9, 48), with_keep)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        qd = q.detach().to(dev).requires_grad_()
+        wd = tuple(w.detach().to(dev).requires_grad_() for w in ws)
+        ud = u.detach().to(dev).requires_grad_()
+        kd = None if keep is None else keep.to(dev)
+        before = (K3.fused_pair_attention.launches, K3.fused_pair_attention_bwd.launches)
+        out = K3.fused_pair_attention(qd, ud, mask.to(dev), kd, wd, 8, p)
+        out.backward(g.to(dev))
+        launched = (K3.fused_pair_attention.launches - before[0],
+                    K3.fused_pair_attention_bwd.launches - before[1])
+        assert launched == ((1, 1) if dev == "cuda" else (0, 0))
+        assert ud.grad is None
+        grads[dev] = (out.detach().cpu(), qd.grad.cpu(), [w.grad.cpu() for w in wd])
+    rel = lambda a, b: ((a - b).abs().max() / b.abs().max()).item()  # noqa: E731
+    assert rel(grads["cuda"][0], grads["cpu"][0]) < TOL
+    assert rel(grads["cuda"][1], grads["cpu"][1]) < 1e-4
+    for name, a, b in zip(K3.W_ORDER, grads["cuda"][2], grads["cpu"][2]):
+        assert rel(a, b) < 1e-3, name

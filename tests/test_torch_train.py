@@ -43,7 +43,8 @@ from trajsde_tpu_torch.train.loop import (Trainer, TrainState, create_train_stat
                                           make_train_step)
 from trajsde_tpu_torch.train.optim import build_optimizer, decay_mask
 
-from _torch_helpers import model_pair, noise_for, scene_pair, small_cfg, t, torch_build_model
+from _torch_helpers import (check_leaves, model_pair, noise_for, scene_pair, small_cfg, t,
+                            torch_build_model)
 
 torch.set_num_threads(1)
 B, A, L = 2, 5, 6
@@ -243,20 +244,6 @@ def test_fused_decoder_takes_its_seed_from_the_host(tiny):
 # ---------------------------------------------------------------------------
 # one train step vs jax.value_and_grad
 # ---------------------------------------------------------------------------
-def _check_leaves(got, want):
-    """A leaf the loss does not reach (the pi head under L2 + DiffBCE) has
-    no torch grad; JAX gives it zeros."""
-    failures = []
-    for name, w in want.items():
-        w = w.numpy().astype(np.float64)
-        g = np.zeros_like(w) if got[name] is None else got[name].numpy().astype(np.float64)
-        scale = max(np.abs(w).max(), np.abs(g).max(), 1e-12)
-        diff = np.abs(g - w).max()
-        if diff > 2e-3 * scale + 1e-6:
-            failures.append((name, float(diff), float(scale)))
-    assert not failures, failures[:10]
-
-
 @pytest.fixture(scope="module")
 def step_parity():
     cfg = _cfg(drop=0.0)
@@ -295,7 +282,7 @@ def test_train_step_grads_match_jax_unfused(step_parity):
     loss = _port_loss(out, de.shape[0])
     loss.backward()
     np.testing.assert_allclose(loss.item(), sp["loss"], rtol=2e-4)
-    _check_leaves({n: p.grad for n, p in model.named_parameters()}, sp["grads"])
+    check_leaves({n: p.grad for n, p in model.named_parameters()}, sp["grads"])
 
 
 def test_train_step_grads_match_jax_fused(step_parity):
@@ -317,7 +304,7 @@ def test_train_step_grads_match_jax_fused(step_parity):
     loss = _port_loss(out, Tf)
     loss.backward()
     np.testing.assert_allclose(loss.item(), sp["loss"], rtol=2e-4)
-    _check_leaves({n: p.grad for n, p in model.named_parameters()}, sp["grads"])
+    check_leaves({n: p.grad for n, p in model.named_parameters()}, sp["grads"])
 
 
 # ---------------------------------------------------------------------------

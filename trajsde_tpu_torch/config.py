@@ -13,6 +13,9 @@ whose rollout runs through kernels K1 and K2, and ``FLAGSHIP_FUSED`` the
 same model with ``encoder.fused: true``, whose AA pair chain runs through
 kernel K3 (the JAX package's TPU knobs of that path, ``rows_fwd``,
 ``rows_bwd`` and ``ln_mm``, are dropped like the decoder's).
+``FLAGSHIP_TRAIN_FUSED`` is ``FLAGSHIP_TRAIN`` with ``encoder.fused: true``
+as well: its training step runs K3 and K4 for the AA block and K1 and K2
+for the decoder rollout.
 """
 from __future__ import annotations
 
@@ -90,6 +93,9 @@ FLAGSHIP_TRAIN["decoder"]["kwargs"]["fused"] = True
 
 FLAGSHIP_FUSED: Dict[str, Any] = copy.deepcopy(FLAGSHIP)
 FLAGSHIP_FUSED["encoder"]["kwargs"]["fused"] = True
+
+FLAGSHIP_TRAIN_FUSED: Dict[str, Any] = copy.deepcopy(FLAGSHIP_TRAIN)
+FLAGSHIP_TRAIN_FUSED["encoder"]["kwargs"]["fused"] = True
 
 
 def resolve(name: str):

@@ -32,39 +32,22 @@
 // persistent (one block per SM walks the groups), the ragged last chunk
 // and group are bounds-checked, and every output is summed by one thread
 // in a fixed order, so reruns are bit-equal.
+//
+// For training, the launch can also write each (receiver, head)'s softmax
+// statistics -- the running max and the sum of exp at the end of the walk,
+// [2][R][H] -- which the backward kernel K4 (aa_fused_bwd.cu) reads instead
+// of walking the senders twice.  The output does not depend on whether
+// they are written.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "aa_common.cuh"
 
 namespace {
 
-constexpr int D = 64;          // embed width
-constexpr int D2 = 2 * D;      // packed two-branch width
-constexpr int H = 8;           // heads
-constexpr int HD = D / H;      // head width
+using namespace aa;
+
 constexpr int P = 64;          // pairs per chunk
 constexpr int RB = 16;         // receivers per group
 constexpr int THREADS = 256;   // 16 row groups x 16 column groups
-constexpr float LN_EPS = 1e-5f;
-constexpr float SCALE = 0.35355339059327373f;  // 1 / sqrt(HD)
-
-// packed weights (floats) in W_ORDER, matrices [in][out]
-constexpr int OFF_WU = 0;                      // [4][2D]
-constexpr int OFF_BU = OFF_WU + 4 * D2;        // [2D]
-constexpr int OFF_LN0S = OFF_BU + D2;          // [2D]
-constexpr int OFF_LN0B = OFF_LN0S + D2;        // [2D]
-constexpr int OFF_W1 = OFF_LN0B + D2;          // [2D][2D]
-constexpr int OFF_B1 = OFF_W1 + D2 * D2;       // [2D]
-constexpr int OFF_LNA0S = OFF_B1 + D2;         // [D]
-constexpr int OFF_LNA0B = OFF_LNA0S + D;       // [D]
-constexpr int OFF_WAGG = OFF_LNA0B + D;        // [D][D]
-constexpr int OFF_BAGG = OFF_WAGG + D * D;     // [D]
-constexpr int OFF_LNA1S = OFF_BAGG + D;        // [D]
-constexpr int OFF_LNA1B = OFF_LNA1S + D;       // [D]
-constexpr int OFF_WKV = OFF_LNA1B + D;         // [D][2D]
-constexpr int OFF_BKV = OFF_WKV + D * D2;      // [2D]
-constexpr int W_FLOATS = OFF_BKV + D2;
 
 // shared memory (floats)
 constexpr int S_W = 0;
@@ -80,88 +63,14 @@ constexpr int S_L = S_M + RB * D;              // [RB][D] running sum of exp
 constexpr int S_ACC = S_L + RB * D;            // [RB][D] running sum of exp * keep * v
 constexpr int S_FLOATS = S_ACC + RB * D;
 
-static_assert(W_FLOATS % 4 == 0 && S_BUF0 % 4 == 0 && S_Q % 4 == 0, "float4 alignment");
+static_assert(S_BUF0 % 4 == 0 && S_Q % 4 == 0, "float4 alignment");
 static_assert(S_FLOATS * 4 <= 232448, "shared memory of one block");
-
-// sum over the 16 lanes that hold one row (lanes differing in their low 4 bits)
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// LayerNorm of one 64-wide row held as 4 values by each of 16 lanes (columns
-// c0 .. c0+3 of that lane), two-pass variance; optional ReLU
-__device__ __forceinline__ void ln_row(float x[4], const float* __restrict__ scale,
-                                       const float* __restrict__ bias, int c0, bool relu) {
-  const float mean = row_sum16((x[0] + x[1]) + (x[2] + x[3])) * (1.0f / D);
-  float xc[4], ss = 0.0f;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    xc[j] = x[j] - mean;
-    ss = fmaf(xc[j], xc[j], ss);
-  }
-  const float inv = 1.0f / sqrtf(row_sum16(ss) * (1.0f / D) + LN_EPS);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float y = fmaf(xc[j] * inv, scale[c0 + j], bias[c0 + j]);
-    x[j] = relu ? fmaxf(y, 0.0f) : y;
-  }
-}
-
-// acc[i][j] += sum_k A[r0 + i][k] * W[k][c0 + j] for j < 4, and when TWO
-// also acc[i][4 + j] += ... W[k][D + c0 + j]; A and W in shared memory
-template <int K, int LDA, int LDW, bool TWO>
-__device__ __forceinline__ void mm(const float* __restrict__ A, const float* __restrict__ W,
-                                   int r0, int c0, float acc[4][8]) {
-#pragma unroll 2
-  for (int k = 0; k < K; k += 4) {
-    float a[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 v = *reinterpret_cast<const float4*>(A + (r0 + i) * LDA + k);
-      a[i][0] = v.x; a[i][1] = v.y; a[i][2] = v.z; a[i][3] = v.w;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float4 w = *reinterpret_cast<const float4*>(W + (k + kk) * LDW + c0);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][0] = fmaf(a[i][kk], w.x, acc[i][0]);
-        acc[i][1] = fmaf(a[i][kk], w.y, acc[i][1]);
-        acc[i][2] = fmaf(a[i][kk], w.z, acc[i][2]);
-        acc[i][3] = fmaf(a[i][kk], w.w, acc[i][3]);
-      }
-      if (TWO) {
-        const float4 w2 = *reinterpret_cast<const float4*>(W + (k + kk) * LDW + D + c0);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][4] = fmaf(a[i][kk], w2.x, acc[i][4]);
-          acc[i][5] = fmaf(a[i][kk], w2.y, acc[i][5]);
-          acc[i][6] = fmaf(a[i][kk], w2.z, acc[i][6]);
-          acc[i][7] = fmaf(a[i][kk], w2.w, acc[i][7]);
-        }
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void zero(float acc[4][8]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-}
-
-__device__ __forceinline__ void store4(float* dst, const float v[4]) {
-  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-}
 
 __global__ void __launch_bounds__(THREADS, 1)
 aa_fused_kernel(const float* __restrict__ q, const float* __restrict__ u,
                 const float* __restrict__ mask, const float* __restrict__ keep,
                 const float* __restrict__ w, float* __restrict__ out,
-                long long R, int Ak, float keep_scale) {
+                float* __restrict__ stats, long long R, int Ak, float keep_scale) {
   extern __shared__ __align__(16) float smem[];
   float* sw = smem + S_W;
   float* buf0 = smem + S_BUF0;
@@ -238,8 +147,8 @@ aa_fused_kernel(const float* __restrict__ q, const float* __restrict__ u,
       __syncthreads();
 
       // 2. z1 = a0 . w1 + b1; the halves summed, LayerNorm, ReLU -> buf1
-      zero(acc);
-      mm<D2, D2, D2, true>(buf0, sw + OFF_W1, r0, c0, acc);
+      zero<4>(acc);
+      mm<4, D2, D2, D2, true>(buf0, sw + OFF_W1, r0, c0, acc);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float s[4];
@@ -252,8 +161,8 @@ aa_fused_kernel(const float* __restrict__ q, const float* __restrict__ u,
       __syncthreads();
 
       // 3. nbr = LN(a1 . wagg + bagg) -> buf0 (first D columns)
-      zero(acc);
-      mm<D, D, D, false>(buf1, sw + OFF_WAGG, r0, c0, acc);
+      zero<4>(acc);
+      mm<4, D, D, D, false>(buf1, sw + OFF_WAGG, r0, c0, acc);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float s[4];
@@ -265,8 +174,8 @@ aa_fused_kernel(const float* __restrict__ q, const float* __restrict__ u,
       __syncthreads();
 
       // 4. [k | v] = nbr . wkv + bkv; masked head logits -> slg, v -> buf1
-      zero(acc);
-      mm<D, D2, D2, true>(buf0, sw + OFF_WKV, r0, c0, acc);
+      zero<4>(acc);
+      mm<4, D, D2, D2, true>(buf0, sw + OFF_WKV, r0, c0, acc);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int p = r0 + i;
@@ -319,6 +228,14 @@ aa_fused_kernel(const float* __restrict__ q, const float* __restrict__ u,
     // alpha = e / max(sum e, 1e-16): a receiver with no sender gives exactly 0
     for (int i = tid; i < nrecv * D; i += THREADS)
       out[rbase * D + i] = sacc[i] / fmaxf(sl[i], 1e-16f) * keep_scale;
+    // a head's 8 columns saw the same logits in the same order: its first
+    // column's max and sum are the head's
+    if (stats != nullptr)
+      for (int i = tid; i < nrecv * H; i += THREADS) {
+        const int si = (i / H) * D + (i % H) * HD;
+        stats[rbase * H + i] = sm[si];
+        stats[(R + rbase) * H + i] = sl[si];
+      }
   }
 }
 
@@ -334,10 +251,11 @@ int aa_fused_receivers_per_group() { return RB; }
 
 // out [R, 64] from q [R, 64], u [R, Ak, 4], mask [R, Ak] (0/1 f32), keep
 // [R, Ak, 8] (0/1 f32) or NULL, w packed; keep_scale multiplies the output
-// (1 / (1 - p) with keep, else 1).  Returns cudaGetLastError().
+// (1 / (1 - p) with keep, else 1).  stats [2, R, 8] (softmax max, then sum
+// of exp, per receiver and head) or NULL.  Returns cudaGetLastError().
 int aa_fused_launch(const float* q, const float* u, const float* mask, const float* keep,
-                    const float* w, float* out, long long R, int Ak, float keep_scale, int grid,
-                    void* stream) {
+                    const float* w, float* out, float* stats, long long R, int Ak,
+                    float keep_scale, int grid, void* stream) {
   if (R <= 0 || Ak <= 0 || grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = sizeof(float) * S_FLOATS;
   cudaError_t err = cudaFuncSetAttribute(aa_fused_kernel,
@@ -345,7 +263,7 @@ int aa_fused_launch(const float* q, const float* u, const float* mask, const flo
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   aa_fused_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, u, mask, keep, w, out, R, Ak, keep_scale);
+      q, u, mask, keep, w, out, stats, R, Ak, keep_scale);
   return static_cast<int>(cudaGetLastError());
 }
 

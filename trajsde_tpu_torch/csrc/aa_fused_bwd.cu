@@ -1,0 +1,703 @@
+// Fused AA pair chain, backward (kernel K4): the VJP of K3 (aa_fused.cu)
+// for training with encoder.fused: true.
+//
+// Replaces the TPU kernel trajsde_tpu/ops/pallas/aa_fused.py::_bwd_call
+// (pallas_call body _bwd_kernel, which recomputes pair_chain under jax.vjp).
+// Given the cotangent g [R, 64] of K3's output out, it returns dq [R, 64]
+// and the gradients of the 14 packed weights; u, mask and keep get none
+// (u is a function of the scene only, as in the JAX op).  Per pair (r, j),
+// with keep' = keep / (1 - p) (or 1) and K3's softmax statistics (max m,
+// sum l) of receiver r and head h:
+//   recompute the chain: a0, xhat/1-over-std of the three LayerNorms, a1,
+//     nbr, k, v (K3's own helpers, aa_common.cuh);
+//   alpha = exp(q.k / sqrt(hd) - m) / l   (0 for a masked pair or empty receiver)
+//   dlogit = alpha (keep' g.v - g.out)     (flash-attention identity:
+//            sum_j alpha keep' g.v_j = g.out, so one pass suffices)
+//   dk = dlogit q / sqrt(hd),  dv = alpha keep' g,  dq += dlogit k / sqrt(hd)
+//   dnbr = [dk|dv] wkv^T -> LN VJP -> dy3;  da1 = dy3 wagg^T -> ReLU, LN VJP
+//   -> dz;  dz1 = [dz | dz];  da0 = dz1 w1^T -> ReLU, the two per-branch LN
+//   VJPs -> dh;  and the weight gradients nbr^T dkv, a1^T dy3, a0^T dz1,
+//   u^T dh, the column sums for the biases and LayerNorm parameters.
+// The full [2D, 2D] dw1 is returned (its two column halves are equal, as
+// dz1 is), since the JAX op holds for any weights.
+//
+// Bound on an H100 SXM at the training twin shape (B 128, T 21, Aq 49, Ak 48,
+// D 64, H 8: 6.32 M pairs): three times K3's matrix and elementwise
+// operations per pair (recompute, input gradients, weight gradients),
+// 8.3e11 f32 operations, 12.4 ms at the 67 TFLOP/s CUDA-core peak; the
+// inputs (with the keep mask) and dq are 0.6 GB, 0.2 ms at 3.35 TB/s.
+// K4 is bound by arithmetic.
+//
+// Design.  As K3: a persistent grid (one 256-thread block per SM) walks
+// groups of 8 receivers with all their senders, in chunks of 32 pairs.
+//   * The softmax needs no second walk: K3 wrote each (receiver, head)'s max
+//     and sum, and g.out per (receiver, head) is read once per group.
+//   * Shared memory: the weights, staged once per block with padded row
+//     strides (132, 68 floats) so the transposed products (dX W^T) read rows
+//     of W as conflict-free float4s (124,672 B); nine chunk tiles (a0, k|v
+//     then dk|dv, the LayerNorms' xhat, a1, nbr and three gradient tiles,
+//     90,112 B); the group's q, g, dq and statistics; the vector gradients.
+//     229,248 B in all, one block per SM.  A weight gradient accumulator
+//     beside the weights would not fit, so:
+//   * the three matrix gradients (a0^T dz: 128 x 64, nbr^T dkv: 64 x 128,
+//     a1^T dy3: 64 x 64) are 8x4, 4x8 and 4x4 register tiles of every
+//     thread (80 floats), accumulated over one receiver group's pairs; the
+//     vector gradients (1,408 floats) likewise in shared memory, each
+//     column summed by one thread in pair order;
+//   * at the end of each group the block adds them into its own slice of a
+//     [grid, W_FLOATS] workspace in device memory (15.9 MB at 132 blocks,
+//     L2-resident); reduce_partials then sums the slices in block order.
+//     So no f32 sum runs over more than a group's 384 pairs, a block's
+//     groups or the blocks (one serial sum over a block's 48 k pairs at the
+//     training shape doubled the error of the deeper gradients), no float
+//     atomics are used, and reruns are bit-equal (as K2).
+// Each thread owns 2 rows of a chunk: columns c0..c0+3 (and D + c0..) of the
+// forward products, as K3, and the strided columns cg + 16 m of the
+// transposed ones; a row's columns sit in 16 lanes of one warp, so the
+// LayerNorm VJPs' row sums are shuffles.  dq is summed per (receiver,
+// column) by one thread in pair order.  f32 FMAs throughout (no TF32).
+// The ragged last chunk and group are bounds-checked: dead rows carry zero
+// cotangents and add exact zeros.  Pair offsets are 64-bit.
+
+#include "aa_common.cuh"
+
+namespace {
+
+using namespace aa;
+
+constexpr int P = 32;          // pairs per chunk
+constexpr int RB = 8;          // receivers per group
+constexpr int THREADS = 256;   // 16 row groups (2 rows each) x 16 column groups
+constexpr int NR = 2;          // rows per thread
+constexpr int LW1 = D2 + 4;    // padded row strides of the staged matrices
+constexpr int LWKV = D2 + 4;
+constexpr int LWAGG = D + 4;
+
+// staged weights (floats): the packed layout with padded matrix rows
+constexpr int S_WU = 0;                        // wu, bu, ln0s, ln0b as packed
+constexpr int S_BU = S_WU + (OFF_BU - OFF_WU);
+constexpr int S_LN0S = S_WU + (OFF_LN0S - OFF_WU);
+constexpr int S_LN0B = S_WU + (OFF_LN0B - OFF_WU);
+constexpr int S_W1 = S_WU + (OFF_W1 - OFF_WU);  // [2D][LW1]
+constexpr int S_B1 = S_W1 + D2 * LW1;           // b1, lna0s, lna0b as packed
+constexpr int S_LNA0S = S_B1 + (OFF_LNA0S - OFF_B1);
+constexpr int S_LNA0B = S_B1 + (OFF_LNA0B - OFF_B1);
+constexpr int S_WAGG = S_B1 + (OFF_WAGG - OFF_B1);  // [D][LWAGG]
+constexpr int S_BAGG = S_WAGG + D * LWAGG;      // bagg, lna1s, lna1b as packed
+constexpr int S_LNA1S = S_BAGG + (OFF_LNA1S - OFF_BAGG);
+constexpr int S_LNA1B = S_BAGG + (OFF_LNA1B - OFF_BAGG);
+constexpr int S_WKV = S_BAGG + (OFF_WKV - OFF_BAGG);  // [D][LWKV]
+constexpr int S_BKV = S_WKV + D * LWKV;
+constexpr int SW_FLOATS = S_BKV + D2;
+
+// chunk tiles
+constexpr int T_A0 = SW_FLOATS;                // [P][2D] a0, then dh
+constexpr int T_KV = T_A0 + P * D2;            // [P][2D] k|v, then dk|dv, then dpre0
+constexpr int T_XB = T_KV + P * D2;            // [P][D] xhat of LN(a1 wagg + bagg)
+constexpr int T_NB = T_XB + P * D;             // [P][D] nbr   (T_XB..T_NB: [P][2D] xhat0)
+constexpr int T_X0 = T_XB;
+constexpr int T_XA = T_NB + P * D;             // [P][D] xhat of LN(z1[:D] + z1[D:])
+constexpr int T_A1 = T_XA + P * D;             // [P][D] a1
+constexpr int T_DN = T_A1 + P * D;             // [P][D] dnbr, then d(pre-ReLU a1)
+constexpr int T_DY = T_DN + P * D;             // [P][D] dy3
+constexpr int T_DZ = T_DY + P * D;             // [P][D] dz
+constexpr int S_U = T_DZ + P * D;              // [P][4]
+constexpr int S_MASK = S_U + P * 4;            // [P]
+constexpr int S_DL = S_MASK + P;               // [P][H] dlogit
+constexpr int S_INVA = S_DL + P * H;           // [P]
+constexpr int S_INVB = S_INVA + P;             // [P]
+// group state
+constexpr int S_Q = S_INVB + P;                // [RB][D]
+constexpr int S_G = S_Q + RB * D;              // [RB][D]
+constexpr int S_DQ = S_G + RB * D;             // [RB][D]
+constexpr int S_SM = S_DQ + RB * D;            // [RB][H] softmax max (K3)
+constexpr int S_SL = S_SM + RB * H;            // [RB][H] softmax sum (K3)
+constexpr int S_DELTA = S_SL + RB * H;         // [RB][H] g . out per head
+// block-private vector gradients: wu, bu, ln0s, ln0b as packed, then the
+// shared half of b1, lna0s, lna0b, bagg, lna1s, lna1b, bkv
+constexpr int V_WU = 0, V_BU = OFF_BU, V_LN0S = OFF_LN0S, V_LN0B = OFF_LN0B;
+constexpr int V_B1 = OFF_LN0B + D2;
+constexpr int V_LNA0S = V_B1 + D, V_LNA0B = V_LNA0S + D;
+constexpr int V_BAGG = V_LNA0B + D, V_LNA1S = V_BAGG + D, V_LNA1B = V_LNA1S + D;
+constexpr int V_BKV = V_LNA1B + D;
+constexpr int V_FLOATS = V_BKV + D2;
+constexpr int S_VG = S_DELTA + RB * H;
+constexpr int S_FLOATS = S_VG + V_FLOATS;
+
+static_assert(OFF_WU == 0 && V_B1 == OFF_W1, "the packed layout starts wu bu ln0s ln0b");
+static_assert(S_W1 % 4 == 0 && S_WAGG % 4 == 0 && S_WKV % 4 == 0 && T_A0 % 4 == 0 &&
+              S_Q % 4 == 0, "float4 alignment");
+static_assert(S_FLOATS * 4 <= 232448, "shared memory of one block");
+
+// shared-memory index of packed weight float i
+__device__ __forceinline__ int staged(int i) {
+  if (i < OFF_W1) return S_WU + i;
+  if (i < OFF_B1) return S_W1 + ((i - OFF_W1) / D2) * LW1 + (i - OFF_W1) % D2;
+  if (i < OFF_WAGG) return S_B1 + (i - OFF_B1);
+  if (i < OFF_BAGG) return S_WAGG + ((i - OFF_WAGG) / D) * LWAGG + (i - OFF_WAGG) % D;
+  if (i < OFF_WKV) return S_BAGG + (i - OFF_BAGG);
+  if (i < OFF_BKV) return S_WKV + ((i - OFF_WKV) / D2) * LWKV + (i - OFF_WKV) % D2;
+  return S_BKV + (i - OFF_BKV);
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
+  s = fmaf(a.x, b.x, s);
+  s = fmaf(a.y, b.y, s);
+  s = fmaf(a.z, b.z, s);
+  return fmaf(a.w, b.w, s);
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// *dst = v on a block's first group, else *dst += v (dst: the block's own
+// slice of the workspace, written only by this thread)
+__device__ __forceinline__ void put(float* dst, float v, bool first) {
+  *dst = first ? v : *dst + v;
+}
+
+__device__ __forceinline__ void put4(float* dst, const float v[4], bool first) {
+  float4 o = make_float4(v[0], v[1], v[2], v[3]);
+  if (!first) o = add4(o, ld4(dst));
+  *reinterpret_cast<float4*>(dst) = o;
+}
+
+// read a block-private gradient and zero it for the next group
+__device__ __forceinline__ float take(float* v) {
+  const float x = *v;
+  *v = 0.0f;
+  return x;
+}
+
+// LayerNorm VJP of one row over the 16 lanes that hold it: this lane's NV
+// values dy (cotangent of the output), xhat (normalised input) and the
+// scale at its columns -> dx; inv is the row's 1/std
+template <int NV>
+__device__ __forceinline__ void ln_vjp(const float dy[NV], const float xh[NV], const float sc[NV],
+                                       float inv, float dx[NV]) {
+  float s1 = 0.0f, s2 = 0.0f, dxh[NV];
+#pragma unroll
+  for (int m = 0; m < NV; ++m) {
+    dxh[m] = dy[m] * sc[m];
+    s1 += dxh[m];
+    s2 = fmaf(dxh[m], xh[m], s2);
+  }
+  s1 = row_sum16(s1) * (1.0f / D);
+  s2 = row_sum16(s2) * (1.0f / D);
+#pragma unroll
+  for (int m = 0; m < NV; ++m) dx[m] = inv * (dxh[m] - s1 - xh[m] * s2);
+}
+
+// sum over the chunk's pairs of tile[p * ld + col] (times other[p * ld + col])
+__device__ __forceinline__ float colsum(const float* tile, int ld, int col,
+                                        const float* other = nullptr) {
+  float s = 0.0f;
+#pragma unroll 8
+  for (int p = 0; p < P; ++p)
+    s += other == nullptr ? tile[p * ld + col] : tile[p * ld + col] * other[p * ld + col];
+  return s;
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
+                    const float* __restrict__ mask, const float* __restrict__ keep,
+                    const float* __restrict__ w, const float* __restrict__ g,
+                    const float* __restrict__ out, const float* __restrict__ stats,
+                    float* __restrict__ dq, float* __restrict__ partial, long long R, int Ak,
+                    float keep_scale) {
+  extern __shared__ __align__(16) float smem[];
+  float* sw = smem;
+  float* a0t = smem + T_A0;
+  float* kvt = smem + T_KV;
+  float* xbt = smem + T_XB;
+  float* nbt = smem + T_NB;
+  float* x0t = smem + T_X0;
+  float* xat = smem + T_XA;
+  float* a1t = smem + T_A1;
+  float* dnt = smem + T_DN;
+  float* dyt = smem + T_DY;
+  float* dzt = smem + T_DZ;
+  float* su = smem + S_U;
+  float* smask = smem + S_MASK;
+  float* sdl = smem + S_DL;
+  float* sinva = smem + S_INVA;
+  float* sinvb = smem + S_INVB;
+  float* sq = smem + S_Q;
+  float* sg = smem + S_G;
+  float* sdq = smem + S_DQ;
+  float* ssm = smem + S_SM;
+  float* ssl = smem + S_SL;
+  float* sdelta = smem + S_DELTA;
+  float* vg = smem + S_VG;
+
+  const int tid = threadIdx.x;
+  const int cg = tid & 15;      // column group
+  const int c0 = cg * 4;        // forward products: columns c0 .. c0+3 (and D + ...)
+  const int rg = tid >> 4;      // row group
+  const int r0 = rg * NR;
+
+  for (int i = tid; i < W_FLOATS; i += THREADS) sw[staged(i)] = w[i];
+  for (int i = tid; i < V_FLOATS; i += THREADS) vg[i] = 0.0f;
+
+  float* part = partial + static_cast<size_t>(blockIdx.x) * W_FLOATS;  // this block's slice
+  float gw1[8][4], gkv[4][8], gagg[4][4];  // the group's matrix gradients
+
+  const long long groups = (R + RB - 1) / RB;
+  for (long long grp = blockIdx.x; grp < groups; grp += gridDim.x) {
+    const long long rbase = grp * RB;
+    const int nrecv = static_cast<int>(R - rbase < RB ? R - rbase : RB);
+    const int npairs = nrecv * Ak;
+    const long long pbase = rbase * Ak;
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) gw1[a][b] = 0.0f;
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 8; ++b) gkv[a][b] = 0.0f;
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) gagg[a][b] = 0.0f;
+
+    __syncthreads();  // the previous group's dq is written out
+    for (int i = tid; i < RB * D; i += THREADS) {
+      const int rl = i / D;
+      const long long at = (rbase + rl) * D + (i % D);
+      sq[i] = rl < nrecv ? q[at] : 0.0f;
+      sg[i] = rl < nrecv ? g[at] : 0.0f;
+      sdq[i] = 0.0f;
+    }
+    for (int i = tid; i < RB * H; i += THREADS) {
+      const int rl = i / H;
+      const bool live = rl < nrecv;
+      ssm[i] = live ? stats[rbase * H + i] : 0.0f;
+      ssl[i] = live ? stats[(R + rbase) * H + i] : 0.0f;  // 0: no alpha
+      float s = 0.0f;
+      if (live) {
+        const long long at = (rbase + rl) * D + (i % H) * HD;
+        for (int j = 0; j < HD; ++j) s = fmaf(g[at + j], out[at + j], s);
+      }
+      sdelta[i] = s;
+    }
+
+    for (int cp0 = 0; cp0 < npairs; cp0 += P) {
+      const int pend = min(cp0 + P, npairs);  // group-relative, exclusive
+      const long long gp0 = pbase + cp0;
+
+      __syncthreads();  // the previous chunk's tiles are read out
+      if (tid < P * 4) su[tid] = cp0 + tid / 4 < pend ? u[gp0 * 4 + tid] : 0.0f;
+      if (tid < P) smask[tid] = cp0 + tid < pend ? mask[gp0 + tid] : 0.0f;
+      __syncthreads();
+
+      float acc[NR][8];
+
+      // F1. h = bu + u wu; a0 = relu(LN per branch) -> a0t
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const float* up = su + (r0 + i) * 4;
+        float hv[2][4];
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int col = half * D + c0 + j;
+            float s = up[0] * sw[S_WU + col] + up[1] * sw[S_WU + D2 + col];
+            s += up[2] * sw[S_WU + 2 * D2 + col];
+            s += up[3] * sw[S_WU + 3 * D2 + col];
+            hv[half][j] = sw[S_BU + col] + s;
+          }
+        ln_row(hv[0], sw + S_LN0S, sw + S_LN0B, c0, true);
+        ln_row(hv[1], sw + S_LN0S + D, sw + S_LN0B + D, c0, true);
+        store4(a0t + (r0 + i) * D2 + c0, hv[0]);
+        store4(a0t + (r0 + i) * D2 + D + c0, hv[1]);
+      }
+      __syncthreads();
+
+      // F2. a1 = relu(LN(z1[:D] + z1[D:])) -> a1t, its xhat -> xat
+      zero<NR>(acc);
+      mm<NR, D2, D2, LW1, true>(a0t, sw + S_W1, r0, c0, acc);
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        float s[4], xh[4], inv;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          s[j] = (acc[i][j] + sw[S_B1 + c0 + j]) + (acc[i][4 + j] + sw[S_B1 + D + c0 + j]);
+        ln_row(s, sw + S_LNA0S, sw + S_LNA0B, c0, true, xh, &inv);
+        store4(a1t + (r0 + i) * D + c0, s);
+        store4(xat + (r0 + i) * D + c0, xh);
+        if (cg == 0) sinva[r0 + i] = inv;
+      }
+      __syncthreads();
+
+      // F3. nbr = LN(a1 wagg + bagg) -> nbt, its xhat -> xbt
+      zero<NR>(acc);
+      mm<NR, D, D, LWAGG, false>(a1t, sw + S_WAGG, r0, c0, acc);
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        float s[4], xh[4], inv;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[j] = acc[i][j] + sw[S_BAGG + c0 + j];
+        ln_row(s, sw + S_LNA1S, sw + S_LNA1B, c0, false, xh, &inv);
+        store4(nbt + (r0 + i) * D + c0, s);
+        store4(xbt + (r0 + i) * D + c0, xh);
+        if (cg == 0) sinvb[r0 + i] = inv;
+      }
+      __syncthreads();
+
+      // F4. [k | v]; alpha from K3's statistics; dlogit -> sdl, k -> kvt;
+      // dk and dv stay in registers until the dq update has read k
+      zero<NR>(acc);
+      mm<NR, D, D, LWKV, true>(nbt, sw + S_WKV, r0, c0, acc);
+      float dkv[NR][8];
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const int p = r0 + i;
+        const bool live = cp0 + p < pend;
+        const int rl = live ? (cp0 + p) / Ak : 0;
+        const int h = cg >> 1;
+        float k[4], v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          k[j] = acc[i][j] + sw[S_BKV + c0 + j];
+          v[j] = acc[i][4 + j] + sw[S_BKV + D + c0 + j];
+        }
+        store4(kvt + p * D2 + c0, k);
+        const float4 qv = ld4(sq + rl * D + c0);
+        const float4 gv = ld4(sg + rl * D + c0);
+        float part = qv.x * k[0];
+        part = fmaf(qv.y, k[1], part);
+        part = fmaf(qv.z, k[2], part);
+        part = fmaf(qv.w, k[3], part);
+        float gdv = gv.x * v[0];
+        gdv = fmaf(gv.y, v[1], gdv);
+        gdv = fmaf(gv.z, v[2], gdv);
+        gdv = fmaf(gv.w, v[3], gdv);
+        // a head's 8 columns are the 4 of this lane and the 4 of its neighbour
+        part += __shfl_xor_sync(0xffffffffu, part, 1);
+        gdv += __shfl_xor_sync(0xffffffffu, gdv, 1);
+        float dl = 0.0f, ak = 0.0f;
+        const float lsum = ssl[rl * H + h];
+        if (live && smask[p] > 0.0f && lsum > 0.0f) {
+          const float alpha = expf(part * SCALE - ssm[rl * H + h]) / lsum;
+          const float kp = (keep == nullptr ? 1.0f : keep[(gp0 + p) * H + h]) * keep_scale;
+          ak = alpha * kp;
+          dl = alpha * (kp * gdv - sdelta[rl * H + h]);
+        }
+        if ((cg & 1) == 0) sdl[p * H + h] = dl;
+        const float dls = dl * SCALE;
+        dkv[i][0] = dls * qv.x; dkv[i][1] = dls * qv.y; dkv[i][2] = dls * qv.z; dkv[i][3] = dls * qv.w;
+        dkv[i][4] = ak * gv.x; dkv[i][5] = ak * gv.y; dkv[i][6] = ak * gv.z; dkv[i][7] = ak * gv.w;
+      }
+      __syncthreads();
+
+      // B1. dq[r] += sum_j dlogit_j k_j / sqrt(hd), per (receiver, column)
+      {
+        const int rl_lo = cp0 / Ak;
+        const int nspan = (pend - 1) / Ak - rl_lo + 1;
+        for (int item = tid; item < nspan * D; item += THREADS) {
+          const int rl = rl_lo + item / D;
+          const int c = item % D;
+          const int h = c / HD;
+          const int pa = max(cp0, rl * Ak) - cp0;
+          const int pb = min(pend, (rl + 1) * Ak) - cp0;
+          float s = 0.0f;
+          for (int p = pa; p < pb; ++p) s = fmaf(sdl[p * H + h], kvt[p * D2 + c], s);
+          sdq[rl * D + c] += s * SCALE;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        store4(kvt + (r0 + i) * D2 + c0, dkv[i]);
+        store4(kvt + (r0 + i) * D2 + D + c0, dkv[i] + 4);
+      }
+      __syncthreads();
+
+      // B2. dbkv; dwkv += nbr^T dkv; dnbr = dkv wkv^T -> LN VJP -> dy3
+      if (tid < D2) vg[V_BKV + tid] += colsum(kvt, D2, tid);
+#pragma unroll 4
+      for (int p = 0; p < P; ++p) {
+        const float4 x = ld4(nbt + p * D + rg * 4);
+        const float4 y0 = ld4(kvt + p * D2 + c0), y1 = ld4(kvt + p * D2 + D + c0);
+        const float xv[4] = {x.x, x.y, x.z, x.w};
+        const float yv[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 8; ++b) gkv[a][b] = fmaf(xv[a], yv[b], gkv[a][b]);
+      }
+      {
+        float dn[NR][4];
+#pragma unroll
+        for (int i = 0; i < NR; ++i)
+#pragma unroll
+          for (int m = 0; m < 4; ++m) dn[i][m] = 0.0f;
+#pragma unroll 4
+        for (int c = 0; c < D2; c += 4) {
+          float4 wr[4];
+#pragma unroll
+          for (int m = 0; m < 4; ++m) wr[m] = ld4(sw + S_WKV + (cg + 16 * m) * LWKV + c);
+#pragma unroll
+          for (int i = 0; i < NR; ++i) {
+            const float4 a = ld4(kvt + (r0 + i) * D2 + c);
+#pragma unroll
+            for (int m = 0; m < 4; ++m) dn[i][m] = dot4(a, wr[m], dn[i][m]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          const int p = r0 + i;
+          float xh[4], sc[4], dy[4];
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            xh[m] = xbt[p * D + cg + 16 * m];
+            sc[m] = sw[S_LNA1S + cg + 16 * m];
+          }
+          ln_vjp<4>(dn[i], xh, sc, sinvb[p], dy);
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            dnt[p * D + cg + 16 * m] = dn[i][m];
+            dyt[p * D + cg + 16 * m] = dy[m];
+          }
+        }
+      }
+      __syncthreads();
+
+      // B3. lna1 and bagg gradients; dwagg += a1^T dy3; da1 = dy3 wagg^T ->
+      // ReLU, LN VJP -> dz
+      if (tid < D) vg[V_LNA1B + tid] += colsum(dnt, D, tid);
+      else if (tid < 2 * D) vg[V_LNA1S + tid - D] += colsum(dnt, D, tid - D, xbt);
+      else if (tid < 3 * D) vg[V_BAGG + tid - 2 * D] += colsum(dyt, D, tid - 2 * D);
+#pragma unroll 4
+      for (int p = 0; p < P; ++p) {
+        const float4 x = ld4(a1t + p * D + rg * 4), y = ld4(dyt + p * D + c0);
+        const float xv[4] = {x.x, x.y, x.z, x.w}, yv[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) gagg[a][b] = fmaf(xv[a], yv[b], gagg[a][b]);
+      }
+      float da1[NR][4];
+#pragma unroll
+      for (int i = 0; i < NR; ++i)
+#pragma unroll
+        for (int m = 0; m < 4; ++m) da1[i][m] = 0.0f;
+#pragma unroll 4
+      for (int c = 0; c < D; c += 4) {
+        float4 wr[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) wr[m] = ld4(sw + S_WAGG + (cg + 16 * m) * LWAGG + c);
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          const float4 a = ld4(dyt + (r0 + i) * D + c);
+#pragma unroll
+          for (int m = 0; m < 4; ++m) da1[i][m] = dot4(a, wr[m], da1[i][m]);
+        }
+      }
+      __syncthreads();  // dnt is read above and rewritten below
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const int p = r0 + i;
+        float xh[4], sc[4], dz[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int col = cg + 16 * m;
+          if (!(a1t[p * D + col] > 0.0f)) da1[i][m] = 0.0f;
+          xh[m] = xat[p * D + col];
+          sc[m] = sw[S_LNA0S + col];
+        }
+        ln_vjp<4>(da1[i], xh, sc, sinva[p], dz);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          dnt[p * D + cg + 16 * m] = da1[i][m];
+          dzt[p * D + cg + 16 * m] = dz[m];
+        }
+      }
+      __syncthreads();
+
+      // B4. lna0 and b1 gradients; dw1 += a0^T dz; da0 = dz (w1[:, :D] +
+      // w1[:, D:])^T -> ReLU, the two branch LN VJPs -> dh
+      if (tid < D) vg[V_LNA0B + tid] += colsum(dnt, D, tid);
+      else if (tid < 2 * D) vg[V_LNA0S + tid - D] += colsum(dnt, D, tid - D, xat);
+      else if (tid < 3 * D) vg[V_B1 + tid - 2 * D] += colsum(dzt, D, tid - 2 * D);
+#pragma unroll 2
+      for (int p = 0; p < P; ++p) {
+        const float4 x0 = ld4(a0t + p * D2 + rg * 8), x1 = ld4(a0t + p * D2 + rg * 8 + 4);
+        const float4 y = ld4(dzt + p * D + c0);
+        const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+        const float yv[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+        for (int a = 0; a < 8; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) gw1[a][b] = fmaf(xv[a], yv[b], gw1[a][b]);
+      }
+      float da0[NR][8];
+#pragma unroll
+      for (int i = 0; i < NR; ++i)
+#pragma unroll
+        for (int m = 0; m < 8; ++m) da0[i][m] = 0.0f;
+#pragma unroll 2
+      for (int c = 0; c < D; c += 4) {
+        float4 wr[8];
+#pragma unroll
+        for (int m = 0; m < 8; ++m) {
+          const float* row = sw + S_W1 + (cg + 16 * m) * LW1;
+          wr[m] = add4(ld4(row + c), ld4(row + D + c));
+        }
+#pragma unroll
+        for (int i = 0; i < NR; ++i) {
+          const float4 a = ld4(dzt + (r0 + i) * D + c);
+#pragma unroll
+          for (int m = 0; m < 8; ++m) da0[i][m] = dot4(a, wr[m], da0[i][m]);
+        }
+      }
+      __syncthreads();  // a0t is read above and rewritten below
+#pragma unroll
+      for (int i = 0; i < NR; ++i) {
+        const int p = r0 + i;
+        const float* up = su + p * 4;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          // recompute this branch's LayerNorm input h and its statistics
+          float xh[4], sc[4], dh[4], sum = 0.0f, ss = 0.0f;
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            const int col = cg + 16 * (half * 4 + m);
+            float s = up[0] * sw[S_WU + col] + up[1] * sw[S_WU + D2 + col];
+            s += up[2] * sw[S_WU + 2 * D2 + col];
+            s += up[3] * sw[S_WU + 3 * D2 + col];
+            xh[m] = sw[S_BU + col] + s;
+            sum += xh[m];
+          }
+          const float mean = row_sum16(sum) * (1.0f / D);
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            xh[m] -= mean;
+            ss = fmaf(xh[m], xh[m], ss);
+          }
+          const float inv = 1.0f / sqrtf(row_sum16(ss) * (1.0f / D) + LN_EPS);
+          float* dpre = da0[i] + half * 4;
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            const int col = cg + 16 * (half * 4 + m);
+            xh[m] *= inv;
+            sc[m] = sw[S_LN0S + col];
+            if (!(a0t[p * D2 + col] > 0.0f)) dpre[m] = 0.0f;
+          }
+          ln_vjp<4>(dpre, xh, sc, inv, dh);
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            const int col = cg + 16 * (half * 4 + m);
+            a0t[p * D2 + col] = dh[m];
+            kvt[p * D2 + col] = dpre[m];
+            x0t[p * D2 + col] = xh[m];
+          }
+        }
+      }
+      __syncthreads();
+
+      // B5. ln0, bu and wu gradients
+      for (int item = tid; item < 7 * D2; item += THREADS) {
+        const int c = item % D2;
+        if (item < D2) {
+          vg[V_LN0B + c] += colsum(kvt, D2, c);
+        } else if (item < 2 * D2) {
+          vg[V_LN0S + c] += colsum(kvt, D2, c, x0t);
+        } else if (item < 3 * D2) {
+          vg[V_BU + c] += colsum(a0t, D2, c);
+        } else {
+          const int k = item / D2 - 3;
+          float s = 0.0f;
+#pragma unroll 8
+          for (int p = 0; p < P; ++p) s = fmaf(su[p * 4 + k], a0t[p * D2 + c], s);
+          vg[V_WU + k * D2 + c] += s;
+        }
+      }
+    }
+
+    __syncthreads();
+    for (int i = tid; i < nrecv * D; i += THREADS) dq[rbase * D + i] = sdq[i];
+
+    // the group's weight gradients into this block's slice, in the packed
+    // layout (stored by its first group, added after: a two-level sum, so
+    // no f32 accumulator runs over more than one group's pairs)
+    const bool first = grp == blockIdx.x;
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      float* row = part + OFF_W1 + (rg * 8 + a) * D2;
+      put4(row + c0, gw1[a], first);       // dz1 = [dz | dz]: both column halves
+      put4(row + D + c0, gw1[a], first);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      put4(part + OFF_WKV + (rg * 4 + a) * D2 + c0, gkv[a], first);
+      put4(part + OFF_WKV + (rg * 4 + a) * D2 + D + c0, gkv[a] + 4, first);
+      put4(part + OFF_WAGG + (rg * 4 + a) * D + c0, gagg[a], first);
+    }
+    for (int i = tid; i < V_B1; i += THREADS) put(part + i, take(vg + i), first);  // wu .. ln0b
+    if (tid < D) {
+      const float b1 = take(vg + V_B1 + tid);
+      put(part + OFF_B1 + tid, b1, first);
+      put(part + OFF_B1 + D + tid, b1, first);
+      put(part + OFF_LNA0S + tid, take(vg + V_LNA0S + tid), first);
+      put(part + OFF_LNA0B + tid, take(vg + V_LNA0B + tid), first);
+      put(part + OFF_BAGG + tid, take(vg + V_BAGG + tid), first);
+      put(part + OFF_LNA1S + tid, take(vg + V_LNA1S + tid), first);
+      put(part + OFF_LNA1B + tid, take(vg + V_LNA1B + tid), first);
+    }
+    if (tid < D2) put(part + OFF_BKV + tid, take(vg + V_BKV + tid), first);
+  }
+}
+
+// dw[i] = sum over blocks of partial[b][i], in block order
+__global__ void reduce_partials(const float* __restrict__ partial, int blocks,
+                                float* __restrict__ dw) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= W_FLOATS) return;
+  float s = 0.0f;
+  for (int b = 0; b < blocks; ++b) s += partial[static_cast<size_t>(b) * W_FLOATS + i];
+  dw[i] = s;
+}
+
+}  // namespace
+
+extern "C" {
+
+// floats the packed weight buffer (and its gradient) holds
+int aa_fused_bwd_weight_floats() { return W_FLOATS; }
+
+// receivers one block owns at a time (the wrapper sizes the grid with it)
+int aa_fused_bwd_receivers_per_group() { return RB; }
+
+// dq [R, 64] and dw [W_FLOATS] (packed like w) from K3's inputs q [R, 64],
+// u [R, Ak, 4], mask [R, Ak], keep [R, Ak, 8] or NULL, w; the cotangent
+// g [R, 64]; K3's output out [R, 64] and statistics stats [2, R, 8] of the
+// same inputs.  keep_scale is 1 / (1 - p) with keep, else 1.  partial is a
+// [grid, W_FLOATS] workspace.  Returns cudaGetLastError().
+int aa_fused_bwd_launch(const float* q, const float* u, const float* mask, const float* keep,
+                        const float* w, const float* g, const float* out, const float* stats,
+                        float* dq, float* dw, float* partial, long long R, int Ak,
+                        float keep_scale, int grid, void* stream) {
+  if (R <= 0 || Ak <= 0 || grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = sizeof(float) * S_FLOATS;
+  cudaError_t err = cudaFuncSetAttribute(aa_fused_bwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  aa_fused_bwd_kernel<<<grid, THREADS, smem, s>>>(q, u, mask, keep, w, g, out, stats, dq,
+                                                   partial, R, Ak, keep_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  reduce_partials<<<(W_FLOATS + 255) / 256, 256, 0, s>>>(partial, grid, dw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

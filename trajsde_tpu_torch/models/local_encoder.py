@@ -4,8 +4,8 @@
 Time is another batch axis of one dense masked attention, as in the JAX
 package.  The query and key sets may differ (Aq = A + 1 in the SDE
 encoder, whose focal-agent twin is a query row only).  ``fused=True``
-runs the AA block's pair chain through kernel K3
-(:mod:`trajsde_tpu_torch.ops.aa_fused`) with the same parameters.
+runs the AA block's pair chain through kernel K3, and its gradient through
+kernel K4 (:mod:`trajsde_tpu_torch.ops.aa_fused`), with the same parameters.
 """
 from __future__ import annotations
 
@@ -71,8 +71,8 @@ class AAEncoder(nn.Module):
 
     def _fused_block(self, center, x_k, rot_q, mask, edge_vec, generator):
         """EdgeAttention with its pair stage (neighbour embedding -> k/v ->
-        masked softmax -> aggregate) in kernel K3; the q projection, the
-        gated update and ``out_proj`` stay node-wise."""
+        masked softmax -> aggregate) in kernel K3 (backward K4); the q
+        projection, the gated update and ``out_proj`` stay node-wise."""
         attn = self.attn
         normed = self.norm1(center)
         q = attn.lin_q(normed)
@@ -80,8 +80,8 @@ class AAEncoder(nn.Module):
         if self.training and attn.rate > 0.0:
             keep = (torch.rand(mask.shape + (attn.num_heads,), generator=generator,
                                device=mask.device) >= attn.rate).to(torch.float32)
-        # packed in the graph: on the CPU autograd reaches every Linear
-        # through the plain version; on CUDA a call needing gradients raises
+        # packed in the graph, so the op's weight gradients (K4 on CUDA, the
+        # plain backward on the CPU) reach every Linear and LayerNorm
         agg = fused_aa_aggregate(q, x_k, edge_vec, rot_q, mask,
                                  pack_aa_params(self, detach=False), attn.num_heads,
                                  keep=keep, dropout_rate=attn.rate)

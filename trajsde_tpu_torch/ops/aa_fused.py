@@ -1,8 +1,9 @@
-"""Fused AA pair chain, forward kernel K3: wrapper, plain PyTorch version
-and packed parameters.
+"""Fused AA pair chain: forward kernel K3, backward kernel K4, their
+wrappers and plain PyTorch versions, and the packed parameters.
 
 Counterpart of ``trajsde_tpu/ops/pallas/aa_fused.py::fused_pair_attention``
-(forward: ``_fwd_call`` -> ``_fwd_kernel`` -> ``pair_chain``) and of
+(forward: ``_fwd_call`` -> ``_fwd_kernel`` -> ``pair_chain``; backward, its
+custom VJP: ``_bwd_call`` -> ``_bwd_kernel``) and of
 ``aa_attention.py::pack_aa_params``.  Per (receiver, sender) pair the chain
 embeds the 4 rotated pair features ``u`` through the packed two-branch MLP
 to keys and values, takes a masked per-head softmax over the senders and
@@ -11,9 +12,12 @@ around it (q projection, gating, ``out_proj``) stay in the encoder.
 
 On a CUDA tensor :func:`fused_pair_attention` launches the hand-written
 kernel in ``csrc/aa_fused.cu`` (built by nvcc at first use, bound with
-ctypes); on a CPU tensor it runs :func:`fused_pair_attention_reference`.
-Nothing falls back from one to the other.  The kernel has no backward yet:
-a CUDA call that would need gradients raises.
+ctypes), and when gradients are needed it runs as
+:class:`FusedPairAttentionFn`, whose backward launches ``csrc/aa_fused_bwd.cu``.
+On a CPU tensor the plain versions run.  Nothing falls back from one to
+the other.  Only ``q`` and the 14 packed weights get gradients: ``u``,
+``mask_f`` and ``keep`` are constants of the scene and the dropout draw,
+as in the JAX op (whose zero cotangents for them this ``None`` matches).
 """
 from __future__ import annotations
 
@@ -142,6 +146,23 @@ def fused_pair_attention_reference(q, u, mask_f, keep, ws: Sequence[torch.Tensor
     return out.reshape(B, T, Aq, D)
 
 
+def fused_pair_attention_bwd_reference(q, u, mask_f, keep, ws: Sequence[torch.Tensor],
+                                       g: torch.Tensor, num_heads: int,
+                                       dropout_rate: float = 0.0):
+    """``(dq, dws)`` of :func:`fused_pair_attention_reference` for the
+    cotangent ``g [B, T, Aq, D]``: autograd through the plain chain with
+    ``u``, ``mask_f`` and ``keep`` held constant (``_bwd_kernel``'s
+    ``jax.vjp`` with them closed over).  ``dws`` is shaped like ``ws``."""
+    with torch.enable_grad():
+        qd = q.detach().requires_grad_()
+        wd = [w.detach().requires_grad_() for w in ws]
+        out = fused_pair_attention_reference(qd, u.detach(), mask_f.detach(),
+                                             None if keep is None else keep.detach(), wd,
+                                             num_heads, dropout_rate)
+        grads = torch.autograd.grad(out, [qd, *wd], g)
+    return grads[0], tuple(grads[1:])
+
+
 # --------------------------------------------------------------------------
 # kernel
 # --------------------------------------------------------------------------
@@ -150,7 +171,7 @@ def _library():
     from trajsde_tpu_torch.ops import build
 
     lib = build.load("aa_fused")
-    lib.aa_fused_launch.argtypes = [ctypes.c_void_p] * 6 + [
+    lib.aa_fused_launch.argtypes = [ctypes.c_void_p] * 7 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.aa_fused_launch.restype = ctypes.c_int
@@ -158,6 +179,22 @@ def _library():
     lib.aa_fused_weight_floats.restype = ctypes.c_int
     lib.aa_fused_receivers_per_group.argtypes = []
     lib.aa_fused_receivers_per_group.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _bwd_library():
+    from trajsde_tpu_torch.ops import build
+
+    lib = build.load("aa_fused_bwd")
+    lib.aa_fused_bwd_launch.argtypes = [ctypes.c_void_p] * 11 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.aa_fused_bwd_launch.restype = ctypes.c_int
+    lib.aa_fused_bwd_weight_floats.argtypes = []
+    lib.aa_fused_bwd_weight_floats.restype = ctypes.c_int
+    lib.aa_fused_bwd_receivers_per_group.argtypes = []
+    lib.aa_fused_bwd_receivers_per_group.restype = ctypes.c_int
     return lib
 
 
@@ -172,42 +209,160 @@ def _check(name: str, x: torch.Tensor, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(q, u, mask_f, keep, ws, num_heads, dropout_rate) -> torch.Tensor:
+def _common_checks(q, u, mask_f, keep, ws, num_heads, weight_floats):
+    """Checks shared by K3 and K4 -> (R, Ak, the packed weight buffer)."""
     B, T, Aq, D = q.shape
     Ak = u.shape[3]
     if (D, num_heads) != (KERNEL_DIM, KERNEL_HEADS):
-        raise ValueError(f"the aa_fused kernel is specialised to D={KERNEL_DIM}, "
+        raise ValueError(f"the aa_fused kernels are specialised to D={KERNEL_DIM}, "
                          f"H={KERNEL_HEADS}; got D={D}, H={num_heads}")
     if Ak < 1:
-        raise ValueError("the aa_fused kernel needs at least one sender")
+        raise ValueError("the aa_fused kernels need at least one sender")
     dev = q.device
-    lib = _library()
     _check("q", q, (B, T, Aq, D), dev)
     _check("u", u, (B, T, Aq, Ak, 4), dev)
     _check("mask_f", mask_f, (B, T, Aq, Ak), dev)
     if keep is not None:
         _check("keep", keep, (B, T, Aq, Ak, num_heads), dev)
     w = torch.cat([x.reshape(-1) for x in ws]).contiguous()
-    _check("packed weights", w, (lib.aa_fused_weight_floats(),), dev)
+    _check("packed weights", w, (weight_floats,), dev)
+    return B * T * Aq, Ak, w
+
+
+def _keep_scale(keep, dropout_rate: float) -> float:
+    return 1.0 / (1.0 - dropout_rate) if keep is not None else 1.0
+
+
+def _grid(R: int, receivers_per_group: int, dev) -> int:
+    """A persistent grid: at most one block per SM walks the receiver groups."""
+    groups = -(-R // receivers_per_group)
+    return min(groups, torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
+def _launch(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats: bool = False):
+    """K3 -> (out, stats): ``stats [2, R, H]`` holds each (receiver, head)'s
+    softmax max and sum of exp for K4 when ``with_stats``, else None."""
+    lib = _library()
+    R, Ak, w = _common_checks(q, u, mask_f, keep, ws, num_heads, lib.aa_fused_weight_floats())
+    dev = q.device
     out = torch.empty_like(q)
-    R = B * T * Aq
+    stats = torch.empty((2, R, num_heads), device=dev) if with_stats else None
     if R == 0:
-        return out
-    # a persistent grid: one block per SM walks the receiver groups
-    groups = -(-R // lib.aa_fused_receivers_per_group())
-    grid = min(groups, torch.cuda.get_device_properties(dev).multi_processor_count)
-    keep_scale = 1.0 / (1.0 - dropout_rate) if keep is not None else 1.0
+        return out, stats
+    grid = _grid(R, lib.aa_fused_receivers_per_group(), dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.aa_fused_launch(
             q.data_ptr(), u.data_ptr(), mask_f.data_ptr(),
             None if keep is None else keep.data_ptr(), w.data_ptr(), out.data_ptr(),
-            R, Ak, keep_scale, grid, stream,
+            None if stats is None else stats.data_ptr(),
+            R, Ak, _keep_scale(keep, dropout_rate), grid, stream,
         )
     if err != 0:
         raise RuntimeError(f"aa_fused kernel launch failed: cudaError {err}")
     fused_pair_attention.launches += 1
-    return out
+    return out, stats
+
+
+def _launch_bwd(q, u, mask_f, keep, ws, g, out, stats, num_heads, dropout_rate):
+    lib = _bwd_library()
+    R, Ak, w = _common_checks(q, u, mask_f, keep, ws, num_heads,
+                              lib.aa_fused_bwd_weight_floats())
+    dev = q.device
+    _check("g", g, q.shape, dev)
+    _check("out", out, q.shape, dev)
+    _check("stats", stats, (2, R, num_heads), dev)
+    dq = torch.empty_like(q)
+    dw = torch.empty_like(w)
+    if R == 0:
+        dw.zero_()
+    else:
+        # each block writes its partial weight gradients once; a second
+        # kernel sums them in block order (no atomics, bit-equal reruns)
+        grid = _grid(R, lib.aa_fused_bwd_receivers_per_group(), dev)
+        partial = torch.empty((grid, w.numel()), device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.aa_fused_bwd_launch(
+                q.data_ptr(), u.data_ptr(), mask_f.data_ptr(),
+                None if keep is None else keep.data_ptr(), w.data_ptr(), g.data_ptr(),
+                out.data_ptr(), stats.data_ptr(), dq.data_ptr(), dw.data_ptr(),
+                partial.data_ptr(), R, Ak, _keep_scale(keep, dropout_rate), grid, stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"aa_fused_bwd kernel launch failed: cudaError {err}")
+        fused_pair_attention_bwd.launches += 1
+    dws, off = [], 0
+    for x in ws:
+        dws.append(dw[off:off + x.numel()].view(x.shape))
+        off += x.numel()
+    return dq, tuple(dws)
+
+
+def _device_kind(x: torch.Tensor, what: str) -> str:
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{what} runs on cuda (kernel) or cpu (plain), not {x.device}")
+    return x.device.type
+
+
+def fused_pair_attention_fwd(q, u, mask_f, keep, ws: Sequence[torch.Tensor], num_heads: int,
+                             dropout_rate: float = 0.0):
+    """``(out, stats)``: the forward that a backward needs.  On CUDA, K3
+    with its softmax statistics ``stats [2, B*T*Aq, H]`` (K4's input); on
+    the CPU the plain version and ``stats`` None."""
+    if _device_kind(q, "fused_pair_attention_fwd") == "cuda":
+        return _launch(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats=True)
+    return fused_pair_attention_reference(q, u, mask_f, keep, ws, num_heads, dropout_rate), None
+
+
+def fused_pair_attention_bwd(q, u, mask_f, keep, ws: Sequence[torch.Tensor], g: torch.Tensor,
+                             num_heads: int, dropout_rate: float = 0.0,
+                             out: Optional[torch.Tensor] = None,
+                             stats: Optional[torch.Tensor] = None):
+    """``(dq, dws)`` for the cotangent ``g`` of :func:`fused_pair_attention`'s
+    output, ``dws`` shaped like ``ws``; ``u``, ``mask_f`` and ``keep`` get
+    none.
+
+    On CUDA kernel K4 runs on the current stream without synchronising,
+    reading ``out`` and ``stats`` of :func:`fused_pair_attention_fwd` on
+    the same inputs, and ``fused_pair_attention_bwd.launches`` counts its
+    launches; its weight gradients are summed in a fixed order, so they
+    are the same run after run.  On the CPU the plain version runs (and
+    ``out`` / ``stats`` are not needed).
+    """
+    if _device_kind(q, "fused_pair_attention_bwd") == "cuda":
+        if out is None or stats is None:
+            raise ValueError("K4 reads the forward's output and softmax statistics: pass out "
+                             "and stats of fused_pair_attention_fwd")
+        return _launch_bwd(q, u, mask_f, keep, ws, g, out, stats, num_heads, dropout_rate)
+    return fused_pair_attention_bwd_reference(q, u, mask_f, keep, ws, g, num_heads, dropout_rate)
+
+
+fused_pair_attention_bwd.launches = 0
+
+
+class FusedPairAttentionFn(torch.autograd.Function):
+    """The pre-gating aggregate with K3 forward and K4 backward (the port of
+    ``fused_pair_attention``'s custom VJP); on the CPU the plain forward and
+    the plain backward.
+
+    ``apply(q, u, mask_f, keep, num_heads, dropout_rate, *ws)``; only ``q``
+    and the 14 packed weights get gradients.
+    """
+
+    @staticmethod
+    def forward(ctx, q, u, mask_f, keep, num_heads, dropout_rate, *ws):
+        out, stats = fused_pair_attention_fwd(q, u, mask_f, keep, ws, num_heads, dropout_rate)
+        ctx.save_for_backward(q, u, mask_f, keep, out, stats, *ws)
+        ctx.num_heads, ctx.dropout_rate = num_heads, dropout_rate
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, u, mask_f, keep, out, stats, *ws = ctx.saved_tensors
+        dq, dws = fused_pair_attention_bwd(q, u, mask_f, keep, ws, g.contiguous(), ctx.num_heads,
+                                           ctx.dropout_rate, out=out, stats=stats)
+        return (dq, None, None, None, None, None, *dws)
 
 
 def fused_pair_attention(q: torch.Tensor, u: torch.Tensor, mask_f: torch.Tensor,
@@ -223,22 +378,17 @@ def fused_pair_attention(q: torch.Tensor, u: torch.Tensor, mask_f: torch.Tensor,
 
     Returns [B, T, Aq, D] f32.  On CUDA kernel K3 runs on the current stream
     without synchronising and ``fused_pair_attention.launches`` counts its
-    launches; it computes no gradient, so a call with grad enabled and an
-    input that requires one raises.  On the CPU the plain version runs
-    (differentiable by autograd).
+    launches.  When autograd needs a gradient (of ``q`` or a weight) the
+    call runs as :class:`FusedPairAttentionFn`: K3 also writes its softmax
+    statistics, and the backward launches K4.  Otherwise nothing is saved.
+    On the CPU the plain versions run.
     """
-    if q.device.type == "cuda":
-        if torch.is_grad_enabled() and any(
-                x is not None and x.requires_grad for x in (q, u, mask_f, keep, *ws)):
-            raise NotImplementedError(
-                "the aa_fused CUDA kernel (K3) is forward only: its backward, kernel K4, "
-                "comes with the next slice of the port (training with encoder.fused: true); "
-                "run the fused encoder under torch.no_grad() / torch.inference_mode()"
-            )
-        return _launch(q, u, mask_f, keep, ws, num_heads, dropout_rate)
-    if q.device.type == "cpu":
-        return fused_pair_attention_reference(q, u, mask_f, keep, ws, num_heads, dropout_rate)
-    raise ValueError(f"fused_pair_attention runs on cuda (kernel) or cpu (plain), not {q.device}")
+    kind = _device_kind(q, "fused_pair_attention")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, *ws)):
+        return FusedPairAttentionFn.apply(q, u, mask_f, keep, num_heads, dropout_rate, *ws)
+    if kind == "cuda":
+        return _launch(q, u, mask_f, keep, ws, num_heads, dropout_rate)[0]
+    return fused_pair_attention_reference(q, u, mask_f, keep, ws, num_heads, dropout_rate)
 
 
 fused_pair_attention.launches = 0
