@@ -55,8 +55,21 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      phase 7's;
   F. fused-encoder train splice: one step's loss and every gradient of
      ``FLAGSHIP_TRAIN_FUSED`` (K3 + K4 + K1 + K2) vs ``FLAGSHIP_TRAIN`` (the
-     dense encoder), same weights, pinned noise; K3 and K4 launch once.
-Phases 4, B, C and 7 check that K4 never launches on their paths.
+     dense encoder), same weights, pinned noise; K3 and K4 launch once;
+  G. ``aa_attention`` (K5, the AA chain from positions, with the q
+     projection and the pair features in the kernel): its own path, one
+     call at the twin shape (128 x 21 x 49 x 48), launches K5 once; then
+     K5 vs its plain version and vs K3 fed the same q and u at the
+     ``test_aa_kernel.py`` shape, a ragged one and the twin shape, for the
+     model's packed weights and random ones, a mask with empty receivers;
+     two runs bit-equal; CUDA-event medians at the twin shape;
+  H. the elementwise-rate probe (K6, ``scripts/bench_vpu_dtype_torch.py``):
+     its own path, f32 and bf16 on the JAX probe's [2048, 128] tile, then
+     f32, approximate-tanh f32 and bf16 on a [65536, 128] tile that fills
+     the card, timed; then K6 vs its plain version element by element, in
+     ulps, in every run, and the rates.
+Phases 4, B, C and 7 check that K4 never launches on their paths, and the
+serving and training phases that K5 and K6 never do.
 The last lines are the card, a JSON object per kernel and the device line.
 """
 from __future__ import annotations
@@ -76,9 +89,11 @@ from trajsde_tpu_torch.config import (FLAGSHIP, FLAGSHIP_FUSED, FLAGSHIP_TRAIN,
                                       build_model)
 from trajsde_tpu_torch.data.pack import pack_scenes, pick_bucket
 from trajsde_tpu_torch.data.synthetic import make_raw_scene
+from trajsde_tpu_torch.ops import aa_attention as K5
 from trajsde_tpu_torch.ops import aa_fused as K3
 from trajsde_tpu_torch.ops import build as kernel_build
 from trajsde_tpu_torch.ops import sde_rollout as K1
+from trajsde_tpu_torch.ops import vpu_probe as K6
 from trajsde_tpu_torch.server import ServingEngine, align_scene
 from trajsde_tpu_torch.serving import make_serving_fn
 from trajsde_tpu_torch.train.checkpoint import CheckpointManager
@@ -106,6 +121,12 @@ TOL_K2_DY0, TOL_K2_W = 1e-4, 1e-3
 # receiver's senders in another order; each weight gradient sums 6.3 M
 # pairs in another order (per block and chunk, then over blocks)
 TOL_K4_DQ, TOL_K4_W = 1e-4, 1e-3
+# K5 vs plain and vs K3 (fed q = centre . wq + bq and the same u): TOL_K3,
+# the same f32 chain; the kernel's q is its own FMA product, not cuBLAS's
+# K6 vs plain: per element, by vpu_probe.agreement (in ulps within
+# TOL_ULPS, and a least share of bit-equal elements; its comment gives the
+# reasons)
+K5_SHAPES = {"test": (2, 5, 9, 8), "ragged": (3, 7, 13, 11), "twin": (128, 21, 49, 48)}
 # fused train step (K1 + K2) vs autograd through the plain loop, full width:
 # loss relative; each gradient leaf max |diff| <= TOL * max |grad| + ATOL (the
 # atol covers leaves whose exact gradient is 0, such as the key biases under
@@ -154,7 +175,8 @@ def phase_device() -> str:
     return card
 
 
-KERNELS = ("sde_rollout", "sde_rollout_bwd", "aa_fused", "aa_fused_bwd")
+KERNELS = ("sde_rollout", "sde_rollout_bwd", "aa_fused", "aa_fused_bwd", "aa_attention",
+           "vpu_probe")
 
 
 def phase_build() -> None:
@@ -254,6 +276,7 @@ def zero_counts() -> None:
     """Every kernel's launch count to 0 (just before a path is driven)."""
     K1.sde_rollout.launches = K1.sde_rollout_bwd.launches = 0
     K3.fused_pair_attention.launches = K3.fused_pair_attention_bwd.launches = 0
+    K5.aa_attention.launches = K6.chained_tanh.launches = 0
 
 
 def phase_serve(engine, model, tag: str = "serve"):
@@ -284,6 +307,8 @@ def phase_serve(engine, model, tag: str = "serve"):
           else "the dense encoder launched the fused AA kernel")
     k4 = K3.fused_pair_attention_bwd.launches
     check(K1.sde_rollout_bwd.launches == 0 and k4 == 0, "serving launched a backward kernel")
+    check(K5.aa_attention.launches == 0 and K6.chained_tanh.launches == 0,
+          "serving launched K5 or K6")
 
     warm = {}
     for n in BATCHES:  # second pass: allocator and kernels warm
@@ -590,7 +615,9 @@ def _counts() -> dict:
     return {"sde_rollout": K1.sde_rollout.launches,
             "sde_rollout_bwd": K1.sde_rollout_bwd.launches,
             "aa_fused": K3.fused_pair_attention.launches,
-            "aa_fused_bwd": K3.fused_pair_attention_bwd.launches}
+            "aa_fused_bwd": K3.fused_pair_attention_bwd.launches,
+            "aa_attention": K5.aa_attention.launches,
+            "vpu_probe": K6.chained_tanh.launches}
 
 
 def phase_train(cfg, batch: int, tag: str = "train") -> dict:
@@ -617,9 +644,9 @@ def phase_train(cfg, batch: int, tag: str = "train") -> dict:
           flush=True)
     n_aa = state.step if fused_aa else 0
     check(launches == {"sde_rollout": state.step, "sde_rollout_bwd": state.step,
-                       "aa_fused": n_aa, "aa_fused_bwd": n_aa},
+                       "aa_fused": n_aa, "aa_fused_bwd": n_aa, "aa_attention": 0, "vpu_probe": 0},
           "K1 and K2 (and K3 and K4 with the fused AA encoder, else never) did not launch "
-          "once per optimizer step")
+          "once per optimizer step, or K5 or K6 launched")
     epoch = trainer.epoch_logs[-1]
     check(epoch["train/steps_skipped"] == 0.0, "the NaN guard skipped a training step")
     print(f"[{tag}] epoch of {state.step} steps at batch {batch} (incl. first-step warm-up): "
@@ -633,7 +660,8 @@ def phase_train(cfg, batch: int, tag: str = "train") -> dict:
     evals = {k: v - launches[k] for k, v in _counts().items()}
     print(f"[{tag}] launches in eval: {evals}", flush=True)
     check(evals == {"sde_rollout": VAL_BATCHES, "sde_rollout_bwd": 0,
-                    "aa_fused": VAL_BATCHES if fused_aa else 0, "aa_fused_bwd": 0},
+                    "aa_fused": VAL_BATCHES if fused_aa else 0, "aa_fused_bwd": 0,
+                    "aa_attention": 0, "vpu_probe": 0},
           "eval did not run K1 (and K3 with the fused AA encoder) once per batch and the "
           "backward kernels never")
 
@@ -860,11 +888,177 @@ def phase_fused_train_splice() -> None:
     loss_f.backward()
     launched = _counts()
     print(f"[fused-train-splice] launches of the fused-encoder step: {launched}", flush=True)
-    check(launched == {"sde_rollout": 1, "sde_rollout_bwd": 1, "aa_fused": 1, "aa_fused_bwd": 1},
+    check(launched == {"sde_rollout": 1, "sde_rollout_bwd": 1, "aa_fused": 1, "aa_fused_bwd": 1,
+                       "aa_attention": 0, "vpu_probe": 0},
           "the fused-encoder step did not run K1, K2, K3 and K4 once each")
     loss_d = _fused_decoder_loss(dense, dense_cfg, scene, en, tw, de)
     loss_d.backward()
     _check_step("fused-train-splice", "dense encoder", loss_f, loss_d, fused, dense)
+
+
+def aa_attention_bound(B: int, T: int, Aq: int, Ak: int, dim: int, heads: int):
+    """(bound_ms, bound_by, flops, bytes) of one K5 call: :func:`aa_pair_ops`
+    per pair plus the pair features' 14 (two differences, eight products,
+    four sums) and the q projection's 2 D^2 + D per receiver; the centres,
+    x_k, pos_q, pos_k and rot (f32), the bool mask (1 byte), the weights
+    with wq and bq read once, the aggregate written once."""
+    pairs, rows = B * T * Aq * Ak, B * T * Aq
+    flops = pairs * (sum(aa_pair_ops(dim, heads)) + 14) + rows * (2 * dim * dim + dim)
+    floats = (rows * dim + 2 * B * T * Ak * 2 + rows * 2 + B * Aq * 4
+              + aa_weight_floats(dim) + dim * dim + dim + rows * dim)
+    nbytes = 4 * floats + pairs
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def vpu_probe_bound(n: int, rounds: int, bf16: bool):
+    """(bound_ms, bound_by, flops, bytes) of one K6 call on ``n`` values:
+    3 operations (tanh, multiply, add) per value and round at the f32
+    CUDA-core peak, twice that for bf16 (two values per lane); the input
+    read and the output written once.  tanh runs on the special-function
+    units, so the operation bound is not reachable."""
+    flops = 3 * n * rounds
+    nbytes = 2 * n * (2 if bf16 else 4)
+    t_ops = flops / (PEAK_F32_FLOPS * (2 if bf16 else 1))
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def _k5_inputs(shape, gen):
+    """``test_aa_kernel.py``'s inputs at ``shape`` = (B, T, Aq, Ak): centres
+    and x_k N(0, 1), receivers N(0, 20^2), sender j near receiver j mod Aq
+    (N(0, 5^2) apart), random rotations, a bool mask with every 7th
+    receiver empty."""
+    B, T, Aq, Ak = shape
+    dev = "cuda"
+    center = torch.randn((B, T, Aq, K3.KERNEL_DIM), generator=gen, device=dev)
+    x_k = torch.randn((B, T, Ak, 2), generator=gen, device=dev)
+    pos_q = 20.0 * torch.randn((B, T, Aq, 2), generator=gen, device=dev)
+    near = torch.arange(Ak, device=dev) % Aq
+    pos_k = (pos_q[:, :, near] + 5.0 * torch.randn((B, T, Ak, 2), generator=gen,
+                                                   device=dev)).contiguous()
+    ang = (torch.rand((B, Aq), generator=gen, device=dev) * 2.0 - 1.0) * np.pi
+    c, s = torch.cos(ang), torch.sin(ang)
+    rot = torch.stack([c, -s, s, c], dim=-1).contiguous()
+    mask = torch.rand((B, T, Aq, Ak), generator=gen, device=dev) > 0.4
+    mask[:, :, ::7] = False
+    return center, x_k, pos_q, pos_k, rot, mask
+
+
+@torch.inference_mode()
+def phase_aa_attention(model) -> dict:
+    """K5's own path (one ``aa_attention`` call at the twin shape), then K5
+    vs its plain version and vs K3 on the same q and u at every shape of
+    ``K5_SHAPES``, for the model's packed weights and random ones; bit-equal
+    reruns, empty receivers exactly 0; timed at the twin shape."""
+    t0 = time.perf_counter()
+    D, H = K3.KERNEL_DIM, K3.KERNEL_HEADS
+    packed = {k: v.contiguous() for k, v in K3.pack_aa_params(model.encoder.aa_encoder).items()}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    rand = dict(zip(K3.W_ORDER, _random_aa_weights(gen, K3.weights_of(packed))))
+    rand["wq"] = torch.randn((D, D), generator=gen, device="cuda") / D ** 0.5
+    rand["bq"] = 0.2 * torch.randn((1, D), generator=gen, device="cuda")
+    weights = {"model": packed, "random": rand}
+    twin = _k5_inputs(K5_SHAPES["twin"], gen)
+
+    zero_counts()
+    K5.aa_attention(*twin, packed, H)
+    torch.cuda.synchronize()
+    launches = _counts()
+    print(f"[aa-attention] launches of one aa_attention call: {launches}", flush=True)
+    check(launches == {k: int(k == "aa_attention") for k in launches},
+          "aa_attention did not launch K5 once, and nothing else")
+
+    max_abs = 0.0
+    for name, shape in K5_SHAPES.items():
+        args = twin if name == "twin" else _k5_inputs(shape, gen)
+        center, x_k, pos_q, pos_k, rot, mask = args
+        for wname, ws in weights.items():
+            case = f"{name} {list(shape)}, {wname} weights"
+            got = K5.aa_attention(*args, ws, H)
+            again = K5.aa_attention(*args, ws, H)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got).all()), f"aa_attention ({case}) is not finite")
+            check(torch.equal(got, again), f"aa_attention ({case}) is not bit-equal across two runs")
+            check(bool((got[:, :, ::7] == 0).all()), f"aa_attention ({case}): an empty receiver "
+                  "did not give exactly 0")
+            want = K5.aa_attention_reference(*args, ws, H)
+            q = (center @ ws["wq"] + ws["bq"][0]).contiguous()
+            u = K3.build_pair_features(x_k, pos_k[:, :, None] - pos_q[:, :, :, None],
+                                       rot).contiguous()
+            k3 = K3.fused_pair_attention(q, u, mask.float(), None, K3.weights_of(ws), H)
+            scale = want.abs().max().item()
+            diff = (got - want).abs().max().item()
+            rel, rel_k3 = diff / scale, (got - k3).abs().max().item() / scale
+            max_abs = max(max_abs, diff)
+            print(f"[aa-attention] aa_attention {case}: bit-equal reruns, max|kernel - plain| "
+                  f"{diff:.3e} = {rel:.3e} of max|plain|, max|K5 - K3| {rel_k3:.3e} of it "
+                  f"(tol {TOL_K3:g})", flush=True)
+            check(rel <= TOL_K3, f"aa_attention ({case}) disagrees with its plain version")
+            check(rel_k3 <= TOL_K3, f"aa_attention ({case}) disagrees with K3 on the same q and u")
+            del got, again, want, q, u, k3
+    ms = cuda_ms(lambda: K5.aa_attention(*twin, packed, H))
+    bound, by, flops, nbytes = aa_attention_bound(*K5_SHAPES["twin"], D, H)
+    print(f"[aa-attention] aa_attention twin {list(K5_SHAPES['twin'])}: {ms:.3f} ms (median of "
+          f"{TIMED_RUNS}), bound {bound:.3f} ms by {by} ({flops:.3e} flop, {nbytes:.3e} B), "
+          f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+    plain_ms = cuda_ms(lambda: K5.aa_attention_reference(*twin, packed, H), runs=5, warmup=1)
+    print(f"[aa-attention] aa_attention plain version at the twin shape: {plain_ms:.3f} ms "
+          f"(median of 5)", flush=True)
+    del twin
+    torch.cuda.empty_cache()
+    print(f"[aa-attention] phase G took {time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(name="aa_attention", route="cuda", source="trajsde_tpu_torch/csrc/aa_attention.cu",
+                replaces="trajsde_tpu/ops/pallas/aa_attention.py:201",
+                launches=launches["aa_attention"], max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None)
+
+
+def phase_vpu_probe() -> dict:
+    """K6's own path (the probe script's runs), then K6 vs its plain
+    version element by element in every run, and the plain version's
+    time.  The row's numbers are f32's on the JAX probe's tile; ``runs``
+    holds every run's."""
+    from scripts import bench_vpu_dtype_torch as probe
+
+    t0 = time.perf_counter()
+    zero_counts()
+    runs = [probe.run(variant, rows) for variant, rows in probe.RUNS]
+    launches = _counts()
+    want_launches = len(runs) * (probe.WARMUP + probe.REPS + 1)
+    print(f"[vpu-probe] launches of the probe: {launches}", flush=True)
+    check(launches == {k: want_launches if k == "vpu_probe" else 0 for k in launches},
+          f"the probe did not launch K6 {want_launches} times, and nothing else")
+
+    rows = []
+    for r in runs:
+        variant, x = r["variant"], r["x"]
+        want = K6.chained_tanh_reference(x)
+        agree = K6.agreement(r["y"], want, variant)
+        max_ulps = agree["max_ulps"]
+        diff = (r["y"].float() - want.float()).abs().max().item()
+        plain_us = probe.device_us(lambda: K6.chained_tanh_reference(x), 20)
+        bound, by, _, _ = vpu_probe_bound(x.numel(), K6.ROUNDS, x.dtype == torch.bfloat16)
+        case = f"{variant} {list(x.shape)}"
+        print(f"[vpu-probe] {case} x {K6.ROUNDS} rounds: max|kernel - plain| {max_ulps:g} ulps "
+              f"(tol {K6.TOL_ULPS[variant]}), {diff:.3e}; bit-equal {agree['bit_equal']:.6f} "
+              f"(least {K6.MIN_BIT_EQUAL[variant]}); {r['us']:.3f} us (bound "
+              f"{bound * 1e3:.3f} us by {by}), {r['rate'] / 1e12:.3f} T(tanh.mul.add)/s; plain "
+              f"version {plain_us:.3f} us", flush=True)
+        check(agree["ok"], f"vpu_probe ({case}) disagrees with its plain version")
+        rows.append(dict(variant=variant, rows=r["rows"], max_abs_err=diff, max_ulps=max_ulps,
+                         bit_equal=agree["bit_equal"],
+                         ms=r["us"] / 1e3, plain_ms=plain_us / 1e3, bound_ms=bound, bound_by=by,
+                         rate=r["rate"]))
+    ratios = probe.rate_ratios(runs)
+    print("[vpu-probe] rates: " + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items())
+          + f"; phase H took {time.perf_counter() - t0:.1f} s", flush=True)
+    tile = rows[0]
+    return dict(name="vpu_probe", route="cuda", source="trajsde_tpu_torch/csrc/vpu_probe.cu",
+                replaces="scripts/bench_vpu_dtype.py:34", launches=launches["vpu_probe"],
+                max_abs_err=tile["max_abs_err"], ms=tile["ms"], plain_ms=tile["plain_ms"],
+                bound_ms=tile["bound_ms"], bound_by=tile["bound_by"], library_ms=None,
+                runs=rows, rate_ratios=ratios)
 
 
 def main() -> None:
@@ -888,6 +1082,8 @@ def main() -> None:
           + "; ".join(f"batch {n} {fused_ms[n]:.1f} vs {dense_ms[n]:.1f} ms" for n in BATCHES),
           flush=True)
     k3_ood, k4_ood = phase_fused_splice(model, fused_model)
+    k5 = phase_aa_attention(model)
+    k6 = phase_vpu_probe()
     del engine, model, fused_engine, fused_model
     torch.cuda.empty_cache()
     train_model = build_model(FLAGSHIP_TRAIN, device="cuda", seed=SEED)
@@ -921,15 +1117,23 @@ def main() -> None:
     k4["launches_by_path"] = {"train_fused": train_fused["aa_fused_bwd"], "serve": dense_k4,
                               "serve_fused": fused_k4, "ood": k4_ood,
                               "train": train["aa_fused_bwd"]}
+    # K5 and K6 run on their own paths (the op, the probe); phases 4 and B
+    # checked that serving launches neither
+    k5["launches_by_path"] = {"aa_attention": k5["launches"], "serve": 0, "serve_fused": 0,
+                              "train": train["aa_attention"],
+                              "train_fused": train_fused["aa_attention"]}
+    k6["launches_by_path"] = {"probe": k6["launches"], "serve": 0, "serve_fused": 0,
+                              "train": train["vpu_probe"], "train_fused": train_fused["vpu_probe"]}
     print(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches: {served} serving + "
           f"{served_fused} fused serving + {train['sde_rollout']} training + "
           f"{train_fused['sde_rollout']} fused-encoder training; K2 launches: "
           f"{bwd['launches']} training + {train_fused['sde_rollout_bwd']} fused-encoder training; "
           f"K3 launches: {k3_served} fused serving + {k3_ood} OOD + {train_fused['aa_fused']} "
-          f"fused-encoder training; K4 launches: {k4['launches']} fused-encoder training",
-          flush=True)
+          f"fused-encoder training; K4 launches: {k4['launches']} fused-encoder training; "
+          f"K5 launches: {k5['launches']} on its op's path; K6 launches: {k6['launches']} on "
+          f"the probe's path", flush=True)
     print(card)
-    print(json.dumps({"kernels": [fwd, bwd, k3, k4]}))
+    print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

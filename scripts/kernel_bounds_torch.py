@@ -21,8 +21,19 @@ follow the kernels' arithmetic (``trajsde_tpu/ops/pallas/``):
   gradients) and twice the elementwise ones; reads K3's inputs, the
   dropout keep mask [B,T,Aq,Ak,H] (training) and the cotangent, writes dq
   and the weight gradients.
-* K5 ``aa_attention``: K3's chain plus the per-row q projection (2 D^2 per
-  receiver); inputs u, the normed centres and the mask.
+* K5 ``aa_attention``: ``chip_smoke.aa_attention_bound``, K3's chain plus
+  the pair features' 14 operations per pair (the rotation of x_k and of
+  pos_k - pos_q) and the q projection (2 D^2 + D per receiver); it reads
+  what the function takes: the normed centres, x_k, pos_q, pos_k and rot
+  in f32, the bool mask at 1 byte and the weights with wq / bq; it writes
+  the aggregate.
+* K6, the probe ``scripts/bench_vpu_dtype.py::run``:
+  ``chip_smoke.vpu_probe_bound``, 3 operations (tanh, multiply, add) per
+  value and round over 64 rounds, at the f32 peak (twice it for packed
+  bf16); the tile read and written once.  Every run of
+  ``scripts/bench_vpu_dtype_torch.py``: the JAX probe's [2048, 128] tile
+  and the [65536, 128] one.  tanh runs on the special-function units, so
+  this operation bound is not reachable.
 K3-K5 are taken at the serving bucket-128 shape: B = 128, T = 21,
 Aq = 49 (48 actors and the focal agent's twin), Ak = 48, D = 64, H = 8;
 K3 also at ``forward_ood``'s shape (Aq = Ak = 48).
@@ -33,26 +44,20 @@ import json
 import sys
 from pathlib import Path
 
+import torch
+
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import (PEAK_BYTES_PER_S, PEAK_F32_FLOPS, aa_fused_bound,  # noqa: E402
-                        aa_fused_bwd_bound, aa_pair_ops, aa_weight_floats, bwd_bound,
-                        rollout_bound)
+from chip_smoke import (aa_attention_bound, aa_fused_bound, aa_fused_bwd_bound,  # noqa: E402
+                        bwd_bound, rollout_bound, vpu_probe_bound)
+from scripts.bench_vpu_dtype_torch import RUNS as PROBE_RUNS  # noqa: E402
+from trajsde_tpu_torch.ops.vpu_probe import ROUNDS, VARIANTS  # noqa: E402
 
 B, T, AQ, AK, D, H = 128, 21, 49, 48, 64, 8
 ROWS, STEPS = 128 * 10 * 48, 60
 
 
-def _bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
-
-
 def main() -> None:
-    pairs = B * T * AQ * AK
-    rows_q = B * T * AQ
-    mm, ew = aa_pair_ops(D, H)
-    w = aa_weight_floats(D)
     report = []
     for name, (bound, by, flops, nbytes) in (
             ("K1 sde_rollout", rollout_bound(ROWS, STEPS, D, False)),
@@ -68,12 +73,16 @@ def main() -> None:
         report.append(dict(kernel=name, shape=f"B={b} T={t} Aq={aq} Ak={ak} D={D} H={H} "
                            f"({b * t * aq * ak} pairs)", flops=flops, bytes=nbytes,
                            bound_ms=bound, bound_by=by))
-    k5_flops = pairs * (mm + ew) + rows_q * 2 * D * D
-    k5_bytes = 4 * (pairs * 4 + rows_q * D + pairs + w + D * D + D + rows_q * D)
-    bound, by = _bound(k5_flops, k5_bytes)
+    bound, by, flops, nbytes = aa_attention_bound(B, T, AQ, AK, D, H)
     report.append(dict(kernel="K5 aa_attention",
-                       shape=f"B={B} T={T} Aq={AQ} Ak={AK} D={D} H={H} ({pairs} pairs)",
-                       flops=k5_flops, bytes=k5_bytes, bound_ms=bound, bound_by=by))
+                       shape=f"B={B} T={T} Aq={AQ} Ak={AK} D={D} H={H} ({B * T * AQ * AK} pairs)",
+                       flops=flops, bytes=nbytes, bound_ms=bound, bound_by=by))
+    for variant, rows in PROBE_RUNS:
+        bf16 = VARIANTS[variant][0] == torch.bfloat16
+        bound, by, flops, nbytes = vpu_probe_bound(rows * 128, ROUNDS, bf16)
+        report.append(dict(kernel=f"K6 vpu probe, {variant}",
+                           shape=f"[{rows}, 128] x {ROUNDS} rounds", flops=flops,
+                           bytes=nbytes, bound_ms=bound, bound_by=by))
     for row in report:
         print(json.dumps(row))
 

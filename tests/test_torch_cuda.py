@@ -8,15 +8,19 @@ K2 1e-4 of each output's largest magnitude for ``dy0`` and 1e-3 for the
 weight gradients, which sum every row's contribution in another order;
 K3 1e-4 of the largest magnitude (the same f32 chain with FMA contraction,
 another summation order and an online softmax); K4 as K2: 1e-4 of the
-largest magnitude for ``dq`` and 1e-3 for the weight gradients.
+largest magnitude for ``dq`` and 1e-3 for the weight gradients; K5 as K3;
+K6 per element, by ``vpu_probe.agreement``: in ulps of each plain value
+within ``TOL_ULPS``, and a least share of bit-equal elements.  K4 is also held against its plain version in f64.
 """
 import pytest
 import torch
 
 from trajsde_tpu_torch.models.local_encoder import AAEncoder
 from trajsde_tpu_torch.models.sde import SDEStep, decoder_time_grid
+from trajsde_tpu_torch.ops import aa_attention as K5
 from trajsde_tpu_torch.ops import aa_fused as K3
 from trajsde_tpu_torch.ops import sde_rollout as K
+from trajsde_tpu_torch.ops import vpu_probe as K6
 
 TOL = 1e-4
 
@@ -195,3 +199,135 @@ def test_autograd_through_the_fused_op_on_cuda_matches_the_cpu(cuda, with_keep):
     assert rel(grads["cuda"][1], grads["cpu"][1]) < 1e-4
     for name, a, b in zip(K3.W_ORDER, grads["cuda"][2], grads["cpu"][2]):
         assert rel(a, b) < 1e-3, name
+
+
+def _k5_case(cuda, shape, seed):
+    """``test_aa_kernel.py``'s input scales at ``shape``; every 7th receiver
+    without a sender; the encoder's packed weights with the w1 blocks off
+    the diagonal filled in."""
+    B, T, Aq, Ak = shape
+    gen = torch.Generator().manual_seed(seed)
+    packed = K3.pack_aa_params(_aa_encoder(seed))
+    packed["w1"] = packed["w1"] + 0.1 * torch.randn(packed["w1"].shape, generator=gen)
+    packed = {k: v.contiguous().to(cuda) for k, v in packed.items()}
+    center = torch.randn((B, T, Aq, 64), generator=gen)
+    x_k = torch.randn((B, T, Ak, 2), generator=gen)
+    pos_q = 20.0 * torch.randn((B, T, Aq, 2), generator=gen)
+    pos_k = pos_q[:, :, torch.arange(Ak) % Aq] + 5.0 * torch.randn((B, T, Ak, 2), generator=gen)
+    ang = (torch.rand((B, Aq), generator=gen) * 2.0 - 1.0) * 3.14159
+    rot = torch.stack([ang.cos(), -ang.sin(), ang.sin(), ang.cos()], dim=-1)
+    mask = torch.rand((B, T, Aq, Ak), generator=gen) > 0.4
+    mask[:, :, ::7] = False
+    args = tuple(x.contiguous().to(cuda) for x in (center, x_k, pos_q, pos_k, rot, mask))
+    return args, packed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 1, 2, 1), (2, 5, 9, 8), (3, 7, 13, 11), (2, 3, 5, 70),
+                                   (1, 21, 49, 48)])
+def test_aa_attention_kernel_matches_plain(cuda, shape):
+    """K5 vs its plain version and vs K3 fed the same q and u, within 1e-4 of
+    max|plain| (K3's chain; q by the kernel's own FMAs); ragged groups and
+    chunks, Ak > Aq; bit-equal reruns; empty receivers exactly 0."""
+    args, packed = _k5_case(cuda, shape, sum(shape))
+    before = K5.aa_attention.launches
+    got = K5.aa_attention(*args, packed, 8)
+    again = K5.aa_attention(*args, packed, 8)
+    torch.cuda.synchronize()
+    assert K5.aa_attention.launches == before + 2
+    assert torch.equal(got, again)
+    assert torch.isfinite(got).all()
+    assert (got[:, :, ::7] == 0).all()
+    want = K5.aa_attention_reference(*args, packed, 8)
+    assert ((got - want).abs().max() / want.abs().max()).item() < TOL
+    center, x_k, pos_q, pos_k, rot, mask = args
+    q = (center @ packed["wq"] + packed["bq"][0]).contiguous()
+    u = K3.build_pair_features(x_k, pos_k[:, :, None] - pos_q[:, :, :, None], rot).contiguous()
+    k3 = K3.fused_pair_attention(q, u, mask.float(), None, K3.weights_of(packed), 8)
+    assert ((got - k3).abs().max() / want.abs().max()).item() < TOL
+
+
+@pytest.mark.gpu
+def test_aa_attention_wrapper_rejects(cuda):
+    args, packed = _k5_case(cuda, (1, 2, 3, 4), 5)
+    center, x_k, pos_q, pos_k, rot, mask = args
+    bad = {
+        "mask float": (center, x_k, pos_q, pos_k, rot, mask.float()),
+        "x_k shape": (center, x_k[:, :, :3].contiguous(), pos_q, pos_k, rot, mask),
+        "rot 2x2": (center, x_k, pos_q, pos_k, rot.view(1, 3, 2, 2), mask),
+        "pos_q f64": (center, x_k, pos_q.double(), pos_k, rot, mask),
+        "centre not contiguous": (center.transpose(1, 2).contiguous().transpose(1, 2), x_k,
+                                  pos_q, pos_k, rot, mask),
+        "pos_k on the cpu": (center, x_k, pos_q, pos_k.cpu(), rot, mask),
+        "D 32": (center[..., :32].contiguous(), x_k, pos_q, pos_k, rot, mask),
+    }
+    before = K5.aa_attention.launches
+    for name, case in bad.items():
+        with pytest.raises((ValueError, TypeError)):
+            K5.aa_attention(*case, packed, 8)
+    with pytest.raises(ValueError):
+        K5.aa_attention(*args, packed, 4)                  # H = 4
+    with pytest.raises(NotImplementedError):
+        K5.aa_attention(*args, packed, 8, compute_dtype="bfloat16")
+    assert K5.aa_attention.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", list(K6.VARIANTS))
+@pytest.mark.parametrize("shape", [(2048, 128), (3, 8)])
+def test_vpu_probe_kernel_matches_plain(cuda, variant, shape):
+    """K6 vs its plain version over 64 rounds, per element, by
+    ``agreement`` (its limits' comment gives the reasons)."""
+    dtype, approx = K6.VARIANTS[variant]
+    gen = torch.Generator().manual_seed(shape[0])
+    x = (0.1 * torch.randn(shape, generator=gen)).to(device=cuda, dtype=dtype)
+    before = K6.chained_tanh.launches
+    got = K6.chained_tanh(x, approx)
+    torch.cuda.synchronize()
+    assert K6.chained_tanh.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.isfinite(got.float()).all()
+    assert K6.agreement(got, K6.chained_tanh_reference(x), variant)["ok"]
+
+
+@pytest.mark.gpu
+def test_vpu_probe_wrapper_rejects(cuda):
+    before = K6.chained_tanh.launches
+    with pytest.raises(TypeError):
+        K6.chained_tanh(torch.zeros(64, device=cuda, dtype=torch.float16))
+    with pytest.raises(ValueError):
+        K6.chained_tanh(torch.zeros(12, device=cuda, dtype=torch.bfloat16))   # not 8 | n
+    with pytest.raises(ValueError):
+        K6.chained_tanh(torch.zeros((8, 16), device=cuda).t())                # not contiguous
+    with pytest.raises(ValueError):
+        K6.chained_tanh(torch.zeros(9, device=cuda)[1:])                      # not 16-byte aligned
+    with pytest.raises(ValueError):
+        K6.chained_tanh(torch.zeros(64, device=cuda, dtype=torch.bfloat16), True)  # f32 only
+    assert K6.chained_tanh.launches == before
+
+
+@pytest.mark.gpu
+def test_aa_fused_bwd_kernel_within_the_f64_gradient(cuda):
+    """K4 and the f32 plain backward against the plain backward in f64 at
+    B = 8 of the training twin shape with a keep mask, as a fraction of
+    max|f64| per leaf.  dq and the leaves that no ReLU derivative reaches
+    (wagg and everything after it) are smooth functions of the inputs: K4
+    no more than 2x farther than the f32 plain version (plus 1e-7).  The
+    leaves behind a ReLU's derivative jump where a pre-ReLU value is 0 to
+    within rounding, and an f32 evaluation, K4's or the plain one's, may
+    land on the other side than f64 for a few elements (up to 1.1e-3 of
+    max|f64| seen on an H100 at this shape): both within 2e-3."""
+    q, u, mask, keep, ws, g, p = _k4_case(cuda, (8, 21, 49, 48), True)
+    out, stats = K3.fused_pair_attention_fwd(q, u, mask, keep, ws, 8, p)
+    dq, dws = K3.fused_pair_attention_bwd(q, u, mask, keep, ws, g, 8, p, out=out, stats=stats)
+    del out, stats
+    p_dq, p_dws = K3.fused_pair_attention_bwd_reference(q, u, mask, keep, ws, g, 8, p)
+    o_dq, o_dws = K3.fused_pair_attention_bwd_reference(
+        q.double(), u.double(), mask.double(), keep.double(), [w.double() for w in ws],
+        g.double(), 8, p)
+    rel = lambda a, b: ((a.double() - b).abs().max() / b.abs().max()).item()  # noqa: E731
+    errs = {name: (rel(a, o), rel(b, o)) for name, a, b, o in
+            zip(("dq", *K3.W_ORDER), (dq, *dws), (p_dq, *p_dws), (o_dq, *o_dws))}
+    behind_relu = set(K3.W_ORDER[:K3.W_ORDER.index("wagg")])
+    assert all(max(k4, plain) < 2e-3 if name in behind_relu else k4 <= 2.0 * plain + 1e-7
+               for name, (k4, plain) in errs.items()), errs

@@ -8,14 +8,16 @@ It serves and trains the flagship neural-SDE model:
 
   data/      grid constants, ``SceneBatch``, synthetic scenes, packing
   models/    encoder / aggregator / decoder / prediction model
-  ops/       kernel wrappers (the decoder rollout forward and backward,
+  ops/       kernel wrappers and their plain versions (the decoder
+             rollout forward and backward, the fused AA pair chain forward
+             and backward, ``aa_attention``, the elementwise-rate probe;
              CUDA C++ in ``csrc/``, built by nvcc at first use)
   losses.py  L2, DiffBCE, Laplace NLL
   train/     metrics, AdamW + cosine, train/eval steps, ``Trainer``,
              checkpoints
   serving.py the serving forward with the rollout kernel spliced in
   server.py  the synchronous ``ServingEngine``
-  bridge.py  flax parameter tree <-> ``state_dict``
+  bridge.py  flax parameter tree <-> ``state_dict``; packed AA weights
   config.py  component registry, the flagship configurations, the loss
              and metric builders
 

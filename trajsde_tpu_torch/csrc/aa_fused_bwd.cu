@@ -36,21 +36,36 @@
 //     strides (132, 68 floats) so the transposed products (dX W^T) read rows
 //     of W as conflict-free float4s (124,672 B); nine chunk tiles (a0, k|v
 //     then dk|dv, the LayerNorms' xhat, a1, nbr and three gradient tiles,
-//     90,112 B); the group's q, g, dq and statistics; the vector gradients.
-//     229,248 B in all, one block per SM.  A weight gradient accumulator
-//     beside the weights would not fit, so:
+//     90,112 B); the group's q, g, dq and statistics, the two sums of the
+//     dq correction below; the vector gradients.  231,552 B in all, one
+//     block per SM.  A weight gradient accumulator beside the weights would
+//     not fit, so:
 //   * the three matrix gradients (a0^T dz: 128 x 64, nbr^T dkv: 64 x 128,
 //     a1^T dy3: 64 x 64) are 8x4, 4x8 and 4x4 register tiles of every
 //     thread (80 floats), accumulated over one receiver group's pairs; the
 //     vector gradients (1,408 floats) likewise in shared memory, each
 //     column summed by one thread in pair order;
 //   * at the end of each group the block adds them into its own slice of a
-//     [grid, W_FLOATS] workspace in device memory (15.9 MB at 132 blocks,
-//     L2-resident); reduce_partials then sums the slices in block order.
-//     So no f32 sum runs over more than a group's 384 pairs, a block's
-//     groups or the blocks (one serial sum over a block's 48 k pairs at the
-//     training shape doubled the error of the deeper gradients), no float
-//     atomics are used, and reruns are bit-equal (as K2).
+//     [grid, W_FLOATS] f64 workspace in device memory (31.8 MB at 132
+//     blocks, L2-resident); reduce_partials then sums the slices in block
+//     order, in f64.  So no f32 sum runs over more than a group's 384 pairs
+//     (on an H100 at the training shape, one serial f32 sum over a block's
+//     48 k pairs doubled the error of the deeper gradients, and f32 sums
+//     over a block's groups left lna1s 3x farther from an f64 oracle than
+//     autograd's), no float atomics are used, and reruns are bit-equal (as
+//     K2).
+//   * dq: sum_j dlogit_j is 0 in exact arithmetic, but K4's dlogit uses
+//     g . out from K3's output while alpha is recomputed, and their rounding
+//     leaves sum_j dlogit_j = S != 0; dq = sum_j dlogit_j k_j then carries
+//     S times the mean key, which can be far larger than dq (2.7-6x
+//     autograd's distance from an f64 oracle, on an H100).  So the walk also
+//     sums sum_j alpha_j k_j and S per (receiver, head) and subtracts
+//     S sum_j alpha_j k_j.
+//   * The gradients behind a ReLU's derivative (wu .. lna0b) jump where a
+//     pre-ReLU value is 0 to within rounding: there K4, autograd in f32 and
+//     f64 may fall on different sides, one element's whole contribution
+//     apart, which no summation order changes
+//     (scripts/check_aa_bwd_f64_torch.py counts such elements).
 // Each thread owns 2 rows of a chunk: columns c0..c0+3 (and D + c0..) of the
 // forward products, as K3, and the strided columns cg + 16 m of the
 // transposed ones; a row's columns sit in 16 lanes of one warp, so the
@@ -113,6 +128,9 @@ constexpr int S_DQ = S_G + RB * D;             // [RB][D]
 constexpr int S_SM = S_DQ + RB * D;            // [RB][H] softmax max (K3)
 constexpr int S_SL = S_SM + RB * H;            // [RB][H] softmax sum (K3)
 constexpr int S_DELTA = S_SL + RB * H;         // [RB][H] g . out per head
+constexpr int S_AK = S_DELTA + RB * H;         // [RB][D] sum_j alpha_j k_j
+constexpr int S_DS = S_AK + RB * D;            // [RB][H] sum_j dlogit_j
+constexpr int T_AL = T_DZ;                     // [P][H] alpha, until dz is written
 // block-private vector gradients: wu, bu, ln0s, ln0b as packed, then the
 // shared half of b1, lna0s, lna0b, bagg, lna1s, lna1b, bkv
 constexpr int V_WU = 0, V_BU = OFF_BU, V_LN0S = OFF_LN0S, V_LN0B = OFF_LN0B;
@@ -121,7 +139,7 @@ constexpr int V_LNA0S = V_B1 + D, V_LNA0B = V_LNA0S + D;
 constexpr int V_BAGG = V_LNA0B + D, V_LNA1S = V_BAGG + D, V_LNA1B = V_LNA1S + D;
 constexpr int V_BKV = V_LNA1B + D;
 constexpr int V_FLOATS = V_BKV + D2;
-constexpr int S_VG = S_DELTA + RB * H;
+constexpr int S_VG = S_DS + RB * H;
 constexpr int S_FLOATS = S_VG + V_FLOATS;
 
 static_assert(OFF_WU == 0 && V_B1 == OFF_W1, "the packed layout starts wu bu ln0s ln0b");
@@ -155,16 +173,24 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-// *dst = v on a block's first group, else *dst += v (dst: the block's own
-// slice of the workspace, written only by this thread)
-__device__ __forceinline__ void put(float* dst, float v, bool first) {
-  *dst = first ? v : *dst + v;
+// *dst = v on a block's first group, else *dst += v, in f64 (dst: the
+// block's own slice of the workspace, written only by this thread)
+__device__ __forceinline__ void put(double* dst, float v, bool first) {
+  *dst = first ? static_cast<double>(v) : *dst + static_cast<double>(v);
 }
 
-__device__ __forceinline__ void put4(float* dst, const float v[4], bool first) {
-  float4 o = make_float4(v[0], v[1], v[2], v[3]);
-  if (!first) o = add4(o, ld4(dst));
-  *reinterpret_cast<float4*>(dst) = o;
+__device__ __forceinline__ void put4(double* dst, const float v[4], bool first) {
+  double2* d = reinterpret_cast<double2*>(dst);
+  double2 lo = make_double2(v[0], v[1]), hi = make_double2(v[2], v[3]);
+  if (!first) {
+    const double2 a = d[0], b = d[1];
+    lo.x += a.x;
+    lo.y += a.y;
+    hi.x += b.x;
+    hi.y += b.y;
+  }
+  d[0] = lo;
+  d[1] = hi;
 }
 
 // read a block-private gradient and zero it for the next group
@@ -208,7 +234,7 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
                     const float* __restrict__ mask, const float* __restrict__ keep,
                     const float* __restrict__ w, const float* __restrict__ g,
                     const float* __restrict__ out, const float* __restrict__ stats,
-                    float* __restrict__ dq, float* __restrict__ partial, long long R, int Ak,
+                    float* __restrict__ dq, double* __restrict__ partial, long long R, int Ak,
                     float keep_scale) {
   extern __shared__ __align__(16) float smem[];
   float* sw = smem;
@@ -233,6 +259,9 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
   float* ssm = smem + S_SM;
   float* ssl = smem + S_SL;
   float* sdelta = smem + S_DELTA;
+  float* sak = smem + S_AK;
+  float* sds = smem + S_DS;
+  float* salpha = smem + T_AL;
   float* vg = smem + S_VG;
 
   const int tid = threadIdx.x;
@@ -244,7 +273,7 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
   for (int i = tid; i < W_FLOATS; i += THREADS) sw[staged(i)] = w[i];
   for (int i = tid; i < V_FLOATS; i += THREADS) vg[i] = 0.0f;
 
-  float* part = partial + static_cast<size_t>(blockIdx.x) * W_FLOATS;  // this block's slice
+  double* part = partial + static_cast<size_t>(blockIdx.x) * W_FLOATS;  // this block's slice
   float gw1[8][4], gkv[4][8], gagg[4][4];  // the group's matrix gradients
 
   const long long groups = (R + RB - 1) / RB;
@@ -273,12 +302,14 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
       sq[i] = rl < nrecv ? q[at] : 0.0f;
       sg[i] = rl < nrecv ? g[at] : 0.0f;
       sdq[i] = 0.0f;
+      sak[i] = 0.0f;
     }
     for (int i = tid; i < RB * H; i += THREADS) {
       const int rl = i / H;
       const bool live = rl < nrecv;
       ssm[i] = live ? stats[rbase * H + i] : 0.0f;
       ssl[i] = live ? stats[(R + rbase) * H + i] : 0.0f;  // 0: no alpha
+      sds[i] = 0.0f;
       float s = 0.0f;
       if (live) {
         const long long at = (rbase + rl) * D + (i % H) * HD;
@@ -382,22 +413,26 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
         // a head's 8 columns are the 4 of this lane and the 4 of its neighbour
         part += __shfl_xor_sync(0xffffffffu, part, 1);
         gdv += __shfl_xor_sync(0xffffffffu, gdv, 1);
-        float dl = 0.0f, ak = 0.0f;
+        float dl = 0.0f, ak = 0.0f, al = 0.0f;
         const float lsum = ssl[rl * H + h];
         if (live && smask[p] > 0.0f && lsum > 0.0f) {
-          const float alpha = expf(part * SCALE - ssm[rl * H + h]) / lsum;
+          al = expf(part * SCALE - ssm[rl * H + h]) / lsum;
           const float kp = (keep == nullptr ? 1.0f : keep[(gp0 + p) * H + h]) * keep_scale;
-          ak = alpha * kp;
-          dl = alpha * (kp * gdv - sdelta[rl * H + h]);
+          ak = al * kp;
+          dl = al * (kp * gdv - sdelta[rl * H + h]);
         }
-        if ((cg & 1) == 0) sdl[p * H + h] = dl;
+        if ((cg & 1) == 0) {
+          sdl[p * H + h] = dl;
+          salpha[p * H + h] = al;
+        }
         const float dls = dl * SCALE;
         dkv[i][0] = dls * qv.x; dkv[i][1] = dls * qv.y; dkv[i][2] = dls * qv.z; dkv[i][3] = dls * qv.w;
         dkv[i][4] = ak * gv.x; dkv[i][5] = ak * gv.y; dkv[i][6] = ak * gv.z; dkv[i][7] = ak * gv.w;
       }
       __syncthreads();
 
-      // B1. dq[r] += sum_j dlogit_j k_j / sqrt(hd), per (receiver, column)
+      // B1. dq[r] += sum_j dlogit_j k_j / sqrt(hd), per (receiver, column),
+      // and the sums sum_j alpha_j k_j and sum_j dlogit_j of its correction
       {
         const int rl_lo = cp0 / Ak;
         const int nspan = (pend - 1) / Ak - rl_lo + 1;
@@ -407,9 +442,16 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
           const int h = c / HD;
           const int pa = max(cp0, rl * Ak) - cp0;
           const int pb = min(pend, (rl + 1) * Ak) - cp0;
-          float s = 0.0f;
-          for (int p = pa; p < pb; ++p) s = fmaf(sdl[p * H + h], kvt[p * D2 + c], s);
+          float s = 0.0f, a = 0.0f, sd = 0.0f;
+          for (int p = pa; p < pb; ++p) {
+            const float d = sdl[p * H + h], k = kvt[p * D2 + c];
+            s = fmaf(d, k, s);
+            a = fmaf(salpha[p * H + h], k, a);
+            sd += d;
+          }
           sdq[rl * D + c] += s * SCALE;
+          sak[rl * D + c] += a;
+          if (c % HD == 0) sds[rl * H + h] += sd;
         }
       }
       __syncthreads();
@@ -623,7 +665,12 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
     }
 
     __syncthreads();
-    for (int i = tid; i < nrecv * D; i += THREADS) dq[rbase * D + i] = sdq[i];
+    // sum_j dlogit_j is 0 in exact arithmetic; the rounding of g . out
+    // (K3's output) against the recomputed alpha leaves it at
+    // S = delta_exact - delta, the same for every sender, so dlogit_j is
+    // alpha_j S too large: take sum_j alpha_j S k_j = S sum_j alpha_j k_j off
+    for (int i = tid; i < nrecv * D; i += THREADS)
+      dq[rbase * D + i] = sdq[i] - SCALE * sds[(i / D) * H + (i % D) / HD] * sak[i];
 
     // the group's weight gradients into this block's slice, in the packed
     // layout (stored by its first group, added after: a two-level sum, so
@@ -631,7 +678,7 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
     const bool first = grp == blockIdx.x;
 #pragma unroll
     for (int a = 0; a < 8; ++a) {
-      float* row = part + OFF_W1 + (rg * 8 + a) * D2;
+      double* row = part + OFF_W1 + (rg * 8 + a) * D2;
       put4(row + c0, gw1[a], first);       // dz1 = [dz | dz]: both column halves
       put4(row + D + c0, gw1[a], first);
     }
@@ -656,14 +703,14 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
   }
 }
 
-// dw[i] = sum over blocks of partial[b][i], in block order
-__global__ void reduce_partials(const float* __restrict__ partial, int blocks,
+// dw[i] = sum over blocks of partial[b][i], in block order, in f64
+__global__ void reduce_partials(const double* __restrict__ partial, int blocks,
                                 float* __restrict__ dw) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= W_FLOATS) return;
-  float s = 0.0f;
+  double s = 0.0;
   for (int b = 0; b < blocks; ++b) s += partial[static_cast<size_t>(b) * W_FLOATS + i];
-  dw[i] = s;
+  dw[i] = static_cast<float>(s);
 }
 
 }  // namespace
@@ -680,10 +727,10 @@ int aa_fused_bwd_receivers_per_group() { return RB; }
 // u [R, Ak, 4], mask [R, Ak], keep [R, Ak, 8] or NULL, w; the cotangent
 // g [R, 64]; K3's output out [R, 64] and statistics stats [2, R, 8] of the
 // same inputs.  keep_scale is 1 / (1 - p) with keep, else 1.  partial is a
-// [grid, W_FLOATS] workspace.  Returns cudaGetLastError().
+// [grid, W_FLOATS] f64 workspace.  Returns cudaGetLastError().
 int aa_fused_bwd_launch(const float* q, const float* u, const float* mask, const float* keep,
                         const float* w, const float* g, const float* out, const float* stats,
-                        float* dq, float* dw, float* partial, long long R, int Ak,
+                        float* dq, float* dw, double* partial, long long R, int Ak,
                         float keep_scale, int grid, void* stream) {
   if (R <= 0 || Ak <= 0 || grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

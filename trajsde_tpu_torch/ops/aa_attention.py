@@ -1,0 +1,129 @@
+"""Agent-agent attention from positions: kernel K5, its wrapper and its
+plain PyTorch version.
+
+Counterpart of ``trajsde_tpu/ops/pallas/aa_attention.py::aa_attention``
+(``pallas_call`` body ``_aa_kernel``) and its ``aa_attention_reference``.
+It is the fused AA pair chain of :mod:`trajsde_tpu_torch.ops.aa_fused`
+(kernel K3) with two prologues moved inside: the q projection
+``center_norm . wq + bq``, and the pair features ``u``, built from the
+sender's displacement ``x_k`` and the edge ``pos_k - pos_q``, both rotated
+into the receiver's frame.  Forward only; no dropout.  No model path calls
+it: it is an op of its own, as in the JAX package.
+
+On a CUDA tensor :func:`aa_attention` launches the hand-written kernel in
+``csrc/aa_attention.cu`` (built by nvcc at first use, bound with ctypes);
+on a CPU tensor the plain version runs.  Nothing falls back from one to
+the other.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict
+
+import torch
+
+from trajsde_tpu_torch.ops.aa_fused import (KERNEL_DIM, KERNEL_HEADS, W_ORDER, _check,
+                                            _device_kind, _grid, build_pair_features,
+                                            fused_pair_attention_reference, weights_of)
+
+
+def aa_attention_reference(center_norm, x_k, pos_q, pos_k, rot, mask,
+                           packed: Dict[str, torch.Tensor], num_heads: int) -> torch.Tensor:
+    """The plain version: q = ``center_norm . wq + bq``, the rotated pair
+    features of ``x_k`` and ``pos_k - pos_q``, then K3's plain chain with
+    the 0/1 mask and no keep mask -> [B, T, Aq, D]."""
+    q = center_norm @ packed["wq"] + packed["bq"][0]
+    edge = pos_k[:, :, None, :, :] - pos_q[:, :, :, None, :]
+    u = build_pair_features(x_k, edge, rot)
+    return fused_pair_attention_reference(q, u, mask.to(q.dtype), None, weights_of(packed),
+                                          num_heads)
+
+
+@functools.cache
+def _library():
+    from trajsde_tpu_torch.ops import build
+
+    lib = build.load("aa_attention")
+    lib.aa_attention_launch.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    lib.aa_attention_launch.restype = ctypes.c_int
+    lib.aa_attention_weight_floats.argtypes = []
+    lib.aa_attention_weight_floats.restype = ctypes.c_int
+    lib.aa_attention_receivers_per_group.argtypes = []
+    lib.aa_attention_receivers_per_group.restype = ctypes.c_int
+    return lib
+
+
+def _launch(center_norm, x_k, pos_q, pos_k, rot, mask, packed, num_heads) -> torch.Tensor:
+    lib = _library()
+    B, T, Aq, D = center_norm.shape
+    Ak = x_k.shape[2]
+    if (D, num_heads) != (KERNEL_DIM, KERNEL_HEADS):
+        raise ValueError(f"the aa_attention kernel is specialised to D={KERNEL_DIM}, "
+                         f"H={KERNEL_HEADS}; got D={D}, H={num_heads}")
+    if Ak < 1:
+        raise ValueError("the aa_attention kernel needs at least one sender")
+    dev = center_norm.device
+    _check("center_norm", center_norm, (B, T, Aq, D), dev)
+    _check("x_k", x_k, (B, T, Ak, 2), dev)
+    _check("pos_q", pos_q, (B, T, Aq, 2), dev)
+    _check("pos_k", pos_k, (B, T, Ak, 2), dev)
+    _check("rot", rot, (B, Aq, 4), dev)
+    if mask.device != dev or mask.dtype != torch.bool:
+        raise TypeError(f"mask must be a bool tensor on {dev}, got {mask.dtype} on {mask.device}")
+    if tuple(mask.shape) != (B, T, Aq, Ak) or not mask.is_contiguous():
+        raise ValueError(f"mask must be contiguous [B, T, Aq, Ak] = {(B, T, Aq, Ak)}, "
+                         f"got {tuple(mask.shape)}")
+    w = torch.cat([packed[k].reshape(-1) for k in (*W_ORDER, "wq", "bq")]).contiguous()
+    _check("packed weights", w, (lib.aa_attention_weight_floats(),), dev)
+    out = torch.empty_like(center_norm)
+    R = B * T * Aq
+    if R == 0:
+        return out
+    grid = _grid(R, lib.aa_attention_receivers_per_group(), dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.aa_attention_launch(
+            center_norm.data_ptr(), x_k.data_ptr(), pos_q.data_ptr(), pos_k.data_ptr(),
+            rot.data_ptr(), mask.data_ptr(), w.data_ptr(), out.data_ptr(), R, T, Aq, Ak, grid,
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"aa_attention kernel launch failed: cudaError {err}")
+    aa_attention.launches += 1
+    return out
+
+
+def aa_attention(center_norm: torch.Tensor, x_k: torch.Tensor, pos_q: torch.Tensor,
+                 pos_k: torch.Tensor, rot: torch.Tensor, mask: torch.Tensor,
+                 packed: Dict[str, torch.Tensor], num_heads: int, t_chunk: int = 3,
+                 compute_dtype: str = "float32") -> torch.Tensor:
+    """Pre-gating AA aggregate [B, T, Aq, D] f32.
+
+    center_norm [B, T, Aq, D] f32: the normed centre embeddings
+    x_k         [B, T, Ak, 2] f32: sender displacement features
+    pos_q       [B, T, Aq, 2] f32 and pos_k [B, T, Ak, 2] f32: positions
+    rot         [B, Aq, 4] f32: each receiver's rotation, row-major 2x2
+    mask        [B, T, Aq, Ak] bool adjacency (a receiver with none gives 0)
+    packed      the 14 pair-chain weights of ``pack_aa_params`` plus wq, bq
+
+    ``t_chunk`` is the TPU kernel's tiling and is ignored.  On CUDA kernel
+    K5 runs on the current stream without synchronising and
+    ``aa_attention.launches`` counts its launches; on the CPU the plain
+    version runs.
+    """
+    del t_chunk  # the TPU's tiling of T; the kernel walks receiver groups
+    if compute_dtype == "bfloat16":
+        raise NotImplementedError("aa_attention in bfloat16 waits for the port's bf16 work "
+                                  "(ROADMAP Queue 1 item 6); use compute_dtype='float32'")
+    if compute_dtype != "float32":
+        raise ValueError(f"compute_dtype must be 'float32', got {compute_dtype!r}")
+    if _device_kind(center_norm, "aa_attention") == "cuda":
+        return _launch(center_norm, x_k, pos_q, pos_k, rot, mask, packed, num_heads)
+    return aa_attention_reference(center_norm, x_k, pos_q, pos_k, rot, mask, packed, num_heads)
+
+
+aa_attention.launches = 0

@@ -277,10 +277,11 @@ def _launch_bwd(q, u, mask_f, keep, ws, g, out, stats, num_heads, dropout_rate):
     if R == 0:
         dw.zero_()
     else:
-        # each block writes its partial weight gradients once; a second
-        # kernel sums them in block order (no atomics, bit-equal reruns)
+        # each block adds its groups' weight gradients into its own f64
+        # slice; a second kernel sums the slices in block order (no
+        # atomics, bit-equal reruns)
         grid = _grid(R, lib.aa_fused_bwd_receivers_per_group(), dev)
-        partial = torch.empty((grid, w.numel()), device=dev)
+        partial = torch.empty((grid, w.numel()), device=dev, dtype=torch.float64)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.aa_fused_bwd_launch(
