@@ -136,8 +136,10 @@ TRAIN_BATCHES, VAL_BATCHES, REPEAT_STEPS = 3, 2, 8
 TRAIN_SPLICE_BATCH = 8
 # the flagship YAML's datamodule train_batch_size (it fits the card in f32)
 TRAIN_BATCH = 128
-# H100 SXM published peaks (dense): f32 on CUDA cores, HBM3 bandwidth
+# H100 SXM published peaks (dense): f32 on CUDA cores, TF32 on the tensor
+# cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 TIMED_RUNS, WARMUP = 20, 3
 
@@ -392,10 +394,17 @@ def aa_fused_bound(B: int, T: int, Aq: int, Ak: int, dim: int, heads: int, with_
 
 
 def aa_fused_bwd_bound(B: int, T: int, Aq: int, Ak: int, dim: int, heads: int, with_keep: bool):
-    """(bound_ms, bound_by, flops, bytes) of one K4 call: per pair the chain
-    recomputed, then its input and its weight gradients, three times
-    :func:`aa_pair_ops`; K3's inputs (with the keep mask) and the cotangent
-    read once, dq and the weight gradients written once."""
+    """(bound_ms, bound_by, flops, bytes, route_ms) of one K4 call: per pair
+    the chain recomputed, then its input and its weight gradients, three
+    times :func:`aa_pair_ops`; K3's inputs (with the keep mask) and the
+    cotangent read once, dq and the weight gradients written once.
+    ``bound_ms`` takes every operation at the f32 CUDA-core peak;
+    ``route_ms`` is the bound on the route K4 takes: the six backward
+    products (``20 dim^2`` a pair: the input and weight gradients of
+    ``[k|v]`` 4 dim^2 each, of ``wagg`` 2 dim^2, of the two second layers
+    4 dim^2) on the tensor cores at f32 accuracy, three TF32 products each
+    (``PEAK_TF32_FLOPS / 3``), then the rest at the CUDA-core peak, the two
+    added since both issue from the same warp schedulers."""
     pairs, rows = B * T * Aq * Ak, B * T * Aq
     flops = pairs * 3 * sum(aa_pair_ops(dim, heads))
     w = aa_weight_floats(dim)
@@ -404,7 +413,10 @@ def aa_fused_bwd_bound(B: int, T: int, Aq: int, Ak: int, dim: int, heads: int, w
     if with_keep:
         nbytes += 4 * pairs * heads
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+    tc_flops = pairs * 20 * dim * dim
+    t_route = tc_flops / (PEAK_TF32_FLOPS / 3) + (flops - tc_flops) / PEAK_F32_FLOPS
+    return (1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops,
+            nbytes, 1e3 * max(t_route, t_bytes))
 
 
 def _random_aa_weights(gen, like):
@@ -853,9 +865,10 @@ def phase_fused_backward() -> dict:
     out, stats = K3.fused_pair_attention_fwd(q, u, mask, keep, model_ws, H, K3_DROPOUT)
     ms = cuda_ms(lambda: K3.fused_pair_attention_bwd(q, u, mask, keep, model_ws, g, H, K3_DROPOUT,
                                                      out=out, stats=stats))
-    bound, by, flops, nbytes = aa_fused_bwd_bound(*shape, D, H, True)
+    bound, by, flops, nbytes, route = aa_fused_bwd_bound(*shape, D, H, True)
     print(f"[fused-backward] aa_fused_bwd train {list(shape)}, keep p={K3_DROPOUT:g}: {ms:.3f} ms "
-          f"(median of {TIMED_RUNS}), bound {bound:.3f} ms by {by} ({flops:.3e} flop, "
+          f"(median of {TIMED_RUNS}), bound {route:.3f} ms on its route (3xTF32 products on the "
+          f"tensor cores) and {bound:.3f} ms by {by} on the CUDA cores ({flops:.3e} flop, "
           f"{nbytes:.3e} B), {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
     del out, stats
     torch.cuda.empty_cache()
@@ -868,7 +881,7 @@ def phase_fused_backward() -> dict:
     torch.cuda.empty_cache()
     return dict(name="aa_fused_bwd", route="cuda", source="trajsde_tpu_torch/csrc/aa_fused_bwd.cu",
                 replaces="trajsde_tpu/ops/pallas/aa_fused.py:343", launches=None,
-                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=route, bound_by=by,
                 library_ms=None)
 
 

@@ -20,7 +20,10 @@ follow the kernels' arithmetic (``trajsde_tpu/ops/pallas/``):
   forward recomputed, twice the matmul operations (input and weight
   gradients) and twice the elementwise ones; reads K3's inputs, the
   dropout keep mask [B,T,Aq,Ak,H] (training) and the cotangent, writes dq
-  and the weight gradients.
+  and the weight gradients.  Also ``tensor_route_bound_ms``, the bound on
+  the route the port's kernel takes: its six backward products on the
+  tensor cores at f32 accuracy (3 TF32 products each, 495 / 3 TFLOP/s),
+  the rest at the f32 peak.
 * K5 ``aa_attention``: ``chip_smoke.aa_attention_bound``, K3's chain plus
   the pair features' 14 operations per pair (the rotation of x_k and of
   pos_k - pos_q) and the q projection (2 D^2 + D per receiver); it reads
@@ -69,10 +72,12 @@ def main() -> None:
             ("K3 aa_fused forward, forward_ood", aa_fused_bound, (B, T, AK, AK), False),
             ("K4 aa_fused backward (training, keep mask)", aa_fused_bwd_bound, (B, T, AQ, AK),
              True)):
-        bound, by, flops, nbytes = fn(b, t, aq, ak, D, H, keep)
+        bound, by, flops, nbytes, *route = fn(b, t, aq, ak, D, H, keep)
         report.append(dict(kernel=name, shape=f"B={b} T={t} Aq={aq} Ak={ak} D={D} H={H} "
                            f"({b * t * aq * ak} pairs)", flops=flops, bytes=nbytes,
                            bound_ms=bound, bound_by=by))
+        if route:
+            report[-1]["tensor_route_bound_ms"] = route[0]
     bound, by, flops, nbytes = aa_attention_bound(B, T, AQ, AK, D, H)
     report.append(dict(kernel="K5 aa_attention",
                        shape=f"B={B} T={T} Aq={AQ} Ak={AK} D={D} H={H} ({B * T * AQ * AK} pairs)",

@@ -25,26 +25,52 @@
 // D 64, H 8: 6.32 M pairs): three times K3's matrix and elementwise
 // operations per pair (recompute, input gradients, weight gradients),
 // 8.3e11 f32 operations, 12.4 ms at the 67 TFLOP/s CUDA-core peak; the
-// inputs (with the keep mask) and dq are 0.6 GB, 0.2 ms at 3.35 TB/s.
-// K4 is bound by arithmetic.
+// inputs (with the keep mask), dq and the weight gradients are 0.43 GB,
+// 0.13 ms at 3.35 TB/s.
+// K4 is bound by arithmetic.  On the route it takes, the six backward
+// products below (20 D^2 = 81,920 of the 131,256 operations a pair needs)
+// run on the tensor cores at f32 accuracy, 3 TF32 products each, so at
+// most 495 / 3 = 165 TFLOP/s: 3.1 ms; the rest stays on the CUDA cores,
+// 4.7 ms; 7.8 ms in all, counted one after the other, since mma.sync and
+// the FMAs issue from the same warp schedulers.
 //
 // Design.  As K3: a persistent grid (one 256-thread block per SM) walks
 // groups of 8 receivers with all their senders, in chunks of 32 pairs.
 //   * The softmax needs no second walk: K3 wrote each (receiver, head)'s max
 //     and sum, and g.out per (receiver, head) is read once per group.
+//   * The recompute (F1-F4) is K3's own f32 FMA code (aa_common.cuh's mm and
+//     ln_row), so the logits are bit for bit the ones whose softmax
+//     statistics K3 wrote; a tensor-core recompute would round them
+//     otherwise and leave a larger residue S for the dq correction below.
+//   * The six backward products run on the tensor cores (mma_tf32.cuh:
+//     mma.sync m16n8k8 TF32, each operand split into two TF32 terms, three
+//     products per tile and k-step, two k-steps summed in a fresh fragment
+//     and added to f32 accumulators on the CUDA cores): the input gradients
+//     dnbr = dkv wkv^T (B2), da1 = dy3 wagg^T (B3) and da0 = dz (w1[:, :D]
+//     + w1[:, D:])^T (B4), and the weight gradients nbr^T dkv, a1^T dy3 and
+//     a0^T dz.  One TF32 product alone (about 2^-11 per operand) would move
+//     the smooth leaves 3 orders of magnitude from the f32 gradient
+//     (tests/test_torch_aa_fused_tf32.py emulates both on the CPU).
 //   * Shared memory: the weights, staged once per block with padded row
-//     strides (132, 68 floats) so the transposed products (dX W^T) read rows
-//     of W as conflict-free float4s (124,672 B); nine chunk tiles (a0, k|v
-//     then dk|dv, the LayerNorms' xhat, a1, nbr and three gradient tiles,
-//     90,112 B); the group's q, g, dq and statistics, the two sums of the
-//     dq correction below; the vector gradients.  231,552 B in all, one
-//     block per SM.  A weight gradient accumulator beside the weights would
-//     not fit, so:
+//     strides (132, 68 floats), so the B fragments of X W^T read 8 rows at
+//     one column from 32 banks (124,672 B); nine chunk tiles (a0, k|v then
+//     dk|dv then d(pre-ReLU a0), the LayerNorms' xhat, a1, nbr and three
+//     gradient tiles, 90,112 B); the group's q, g, dq and statistics, the
+//     two sums of the dq correction below; the vector gradients.
+//     231,552 B in all, one block per SM, 896 B to spare: too few to pad
+//     the tiles.  So the four tiles that the tensor cores read or write
+//     (k|v, dnbr, dy3, dz) are swizzled instead (swz: an XOR of each row's
+//     16-byte granules, no bytes), which puts every fragment read of them
+//     in 32 banks and keeps the FMA code's float4s whole.  a0, a1 and nbr
+//     stay unswizzled, since the recompute's mm reads them by plain rows:
+//     their transposed reads (X^T of the weight gradients) are 4-way
+//     bank conflicts.  A weight gradient accumulator beside the weights
+//     would not fit, so:
 //   * the three matrix gradients (a0^T dz: 128 x 64, nbr^T dkv: 64 x 128,
-//     a1^T dy3: 64 x 64) are 8x4, 4x8 and 4x4 register tiles of every
-//     thread (80 floats), accumulated over one receiver group's pairs; the
-//     vector gradients (1,408 floats) likewise in shared memory, each
-//     column summed by one thread in pair order;
+//     a1^T dy3: 64 x 64) are the C fragments of each warp's 16 x 8 tiles,
+//     80 floats a thread, accumulated over one receiver group's pairs; the
+//     vector gradients (1,408 floats) sit in shared memory, each column
+//     summed by one thread in pair order;
 //   * at the end of each group the block adds them into its own slice of a
 //     [grid, W_FLOATS] f64 workspace in device memory (31.8 MB at 132
 //     blocks, L2-resident); reduce_partials then sums the slices in block
@@ -66,15 +92,24 @@
 //     f64 may fall on different sides, one element's whole contribution
 //     apart, which no summation order changes
 //     (scripts/check_aa_bwd_f64_torch.py counts such elements).
-// Each thread owns 2 rows of a chunk: columns c0..c0+3 (and D + c0..) of the
-// forward products, as K3, and the strided columns cg + 16 m of the
-// transposed ones; a row's columns sit in 16 lanes of one warp, so the
-// LayerNorm VJPs' row sums are shuffles.  dq is summed per (receiver,
-// column) by one thread in pair order.  f32 FMAs throughout (no TF32).
+// Each thread owns 2 rows of a chunk for the FMA work: columns c0..c0+3
+// (and D + c0..) of the recompute, as K3, and the strided columns cg + 16 m
+// of the epilogues; a row's columns sit in 16 lanes of one warp, so the
+// LayerNorm VJPs' row sums are shuffles.  An input gradient's tiles are
+// spread over the 8 warps and land in a chunk tile, read back by the
+// epilogue after one barrier.  dq is summed per (receiver, column) by one
+// thread in pair order.  TF32 appears only in the three-term form above.
 // The ragged last chunk and group are bounds-checked: dead rows carry zero
 // cotangents and add exact zeros.  Pair offsets are 64-bit.
+// ptxas (sm_90a): 243 registers, no spills, 231,552 B of shared memory
+// (the product loops unrolled by 4, or a fresh fragment per k-step, spill
+// at 255).  Measured with scripts/compare_aa_bwd_builds_torch.py on an
+// H100: the swizzle saves 1.3-2.2 ms of about 47; with the six products
+// skipped the rest of the kernel takes 31 ms, so the products cost 16 ms
+// on the tensor cores against 19 ms as f32 FMAs.
 
 #include "aa_common.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -158,17 +193,6 @@ __device__ __forceinline__ int staged(int i) {
   return S_BKV + (i - OFF_BKV);
 }
 
-__device__ __forceinline__ float dot4(float4 a, float4 b, float s) {
-  s = fmaf(a.x, b.x, s);
-  s = fmaf(a.y, b.y, s);
-  s = fmaf(a.z, b.z, s);
-  return fmaf(a.w, b.w, s);
-}
-
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-}
-
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -179,18 +203,69 @@ __device__ __forceinline__ void put(double* dst, float v, bool first) {
   *dst = first ? static_cast<double>(v) : *dst + static_cast<double>(v);
 }
 
-__device__ __forceinline__ void put4(double* dst, const float v[4], bool first) {
+__device__ __forceinline__ void put2(double* dst, float v0, float v1, bool first) {
   double2* d = reinterpret_cast<double2*>(dst);
-  double2 lo = make_double2(v[0], v[1]), hi = make_double2(v[2], v[3]);
+  double2 v = make_double2(v0, v1);
   if (!first) {
-    const double2 a = d[0], b = d[1];
-    lo.x += a.x;
-    lo.y += a.y;
-    hi.x += b.x;
-    hi.y += b.y;
+    const double2 a = *d;
+    v.x += a.x;
+    v.y += a.y;
   }
-  d[0] = lo;
-  d[1] = hi;
+  *d = v;
+}
+
+// index of (row, col) in a swizzled chunk tile of row stride ld: the row's
+// 16-byte granules are permuted by an XOR with key(row) = 2 (row mod 4) +
+// (row / 4 mod 2), which takes all 8 values over any 8 rows from a multiple
+// of 8.  So the tensor-core fragment reads fall in 32 different banks: 8
+// rows at one column (the A operand of X W^T), and 4 rows at 8 neighbouring
+// columns (both operands of X^T Y: keys 2t or 2t + 1 against 2 granules).
+// A float4 at a multiple of 4 columns stays whole.
+__device__ __forceinline__ int swz(int row, int col, int ld) {
+  const int key = ((row & 3) << 1) | ((row >> 2) & 1);
+  return row * ld + (col ^ (key << 2));
+}
+
+// operand accessors for mma_tf32.cuh: (row, col) -> the f32 value
+struct Plain {  // a row-major tile or staged matrix
+  const float* p;
+  int ld;
+  __device__ __forceinline__ float operator()(int r, int c) const { return p[r * ld + c]; }
+};
+
+struct Swz {  // a swizzled chunk tile
+  const float* p;
+  int ld;
+  __device__ __forceinline__ float operator()(int r, int c) const { return p[swz(r, c, ld)]; }
+};
+
+struct W1Sum {  // w1[r][c] + w1[r][D + c]: dz1 = [dz | dz] folded into the weight
+  const float* p;
+  __device__ __forceinline__ float operator()(int r, int c) const {
+    return p[r * LW1 + c] + p[r * LW1 + D + c];
+  }
+};
+
+// an input gradient's C fragments (this warp's NT tiles at rows m0.., cols
+// n0 + 8 j) into a swizzled chunk tile
+template <int NT>
+__device__ __forceinline__ void store_tiles(float* tile, int ld, const float acc[1][NT][4],
+                                            int m0, int n0) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    tc::for_fragment(acc[0][j], m0, n0 + 8 * j, [&](int r, int c, float v0, float v1) {
+      *reinterpret_cast<float2*>(tile + swz(r, c, ld)) = make_float2(v0, v1);
+    });
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero_tiles(float acc[MT][NT][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
 }
 
 // read a block-private gradient and zero it for the next group
@@ -219,13 +294,20 @@ __device__ __forceinline__ void ln_vjp(const float dy[NV], const float xh[NV], c
   for (int m = 0; m < NV; ++m) dx[m] = inv * (dxh[m] - s1 - xh[m] * s2);
 }
 
-// sum over the chunk's pairs of tile[p * ld + col] (times other[p * ld + col])
-__device__ __forceinline__ float colsum(const float* tile, int ld, int col,
-                                        const float* other = nullptr) {
+// sum over the chunk's pairs of a(p, col) (times b(p, col))
+template <class A>
+__device__ __forceinline__ float colsum(const A& a, int col) {
   float s = 0.0f;
 #pragma unroll 8
-  for (int p = 0; p < P; ++p)
-    s += other == nullptr ? tile[p * ld + col] : tile[p * ld + col] * other[p * ld + col];
+  for (int p = 0; p < P; ++p) s += a(p, col);
+  return s;
+}
+
+template <class A, class B>
+__device__ __forceinline__ float colsum(const A& a, const B& b, int col) {
+  float s = 0.0f;
+#pragma unroll 8
+  for (int p = 0; p < P; ++p) s += a(p, col) * b(p, col);
   return s;
 }
 
@@ -269,12 +351,18 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
   const int c0 = cg * 4;        // forward products: columns c0 .. c0+3 (and D + ...)
   const int rg = tid >> 4;      // row group
   const int r0 = rg * NR;
+  const int warp = tid >> 5;    // tensor-core products: this warp's tiles
 
   for (int i = tid; i < W_FLOATS; i += THREADS) sw[staged(i)] = w[i];
   for (int i = tid; i < V_FLOATS; i += THREADS) vg[i] = 0.0f;
 
   double* part = partial + static_cast<size_t>(blockIdx.x) * W_FLOATS;  // this block's slice
-  float gw1[8][4], gkv[4][8], gagg[4][4];  // the group's matrix gradients
+  // the group's matrix gradients, C fragments of this warp's 16 x 8 tiles:
+  // a0^T dz [128 x 64] rows 16 warp.., all 8 column tiles; nbr^T dkv
+  // [64 x 128] rows 16 (warp % 4).., columns 64 (warp / 4) + 8 j; a1^T dy3
+  // [64 x 64] rows 16 (warp % 4).., columns 32 (warp / 4) + 8 j
+  float gw1[1][8][4], gkv[1][8][4], gagg[1][4][4];
+  const int wm = 16 * (warp & 3);
 
   const long long groups = (R + RB - 1) / RB;
   for (long long grp = blockIdx.x; grp < groups; grp += gridDim.x) {
@@ -282,18 +370,9 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
     const int nrecv = static_cast<int>(R - rbase < RB ? R - rbase : RB);
     const int npairs = nrecv * Ak;
     const long long pbase = rbase * Ak;
-#pragma unroll
-    for (int a = 0; a < 8; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) gw1[a][b] = 0.0f;
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 8; ++b) gkv[a][b] = 0.0f;
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) gagg[a][b] = 0.0f;
+    zero_tiles<1, 8>(gw1);
+    zero_tiles<1, 8>(gkv);
+    zero_tiles<1, 4>(gagg);
 
     __syncthreads();  // the previous group's dq is written out
     for (int i = tid; i < RB * D; i += THREADS) {
@@ -399,7 +478,7 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
           k[j] = acc[i][j] + sw[S_BKV + c0 + j];
           v[j] = acc[i][4 + j] + sw[S_BKV + D + c0 + j];
         }
-        store4(kvt + p * D2 + c0, k);
+        store4(kvt + swz(p, c0, D2), k);
         const float4 qv = ld4(sq + rl * D + c0);
         const float4 gv = ld4(sg + rl * D + c0);
         float part = qv.x * k[0];
@@ -444,7 +523,7 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
           const int pb = min(pend, (rl + 1) * Ak) - cp0;
           float s = 0.0f, a = 0.0f, sd = 0.0f;
           for (int p = pa; p < pb; ++p) {
-            const float d = sdl[p * H + h], k = kvt[p * D2 + c];
+            const float d = sdl[p * H + h], k = kvt[swz(p, c, D2)];
             s = fmaf(d, k, s);
             a = fmaf(salpha[p * H + h], k, a);
             sd += d;
@@ -457,148 +536,85 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
       __syncthreads();
 #pragma unroll
       for (int i = 0; i < NR; ++i) {
-        store4(kvt + (r0 + i) * D2 + c0, dkv[i]);
-        store4(kvt + (r0 + i) * D2 + D + c0, dkv[i] + 4);
+        store4(kvt + swz(r0 + i, c0, D2), dkv[i]);
+        store4(kvt + swz(r0 + i, D + c0, D2), dkv[i] + 4);
       }
       __syncthreads();
 
-      // B2. dbkv; dwkv += nbr^T dkv; dnbr = dkv wkv^T -> LN VJP -> dy3
-      if (tid < D2) vg[V_BKV + tid] += colsum(kvt, D2, tid);
-#pragma unroll 4
-      for (int p = 0; p < P; ++p) {
-        const float4 x = ld4(nbt + p * D + rg * 4);
-        const float4 y0 = ld4(kvt + p * D2 + c0), y1 = ld4(kvt + p * D2 + D + c0);
-        const float xv[4] = {x.x, x.y, x.z, x.w};
-        const float yv[8] = {y0.x, y0.y, y0.z, y0.w, y1.x, y1.y, y1.z, y1.w};
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 8; ++b) gkv[a][b] = fmaf(xv[a], yv[b], gkv[a][b]);
-      }
+      // B2. dbkv; dwkv += nbr^T dkv; dnbr = dkv wkv^T -> dnt, LN VJP -> dy3
+      if (tid < D2) vg[V_BKV + tid] += colsum(Swz{kvt, D2}, tid);
+      tc::mma_xty<1, 8, P, 2>(Plain{nbt, D}, Swz{kvt, D2}, wm, 64 * (warp >> 2), gkv);
       {
-        float dn[NR][4];
+        float dn[1][2][4];
+        zero_tiles<1, 2>(dn);
+        tc::mma_xwt<1, 2, D2, 2>(Swz{kvt, D2}, Plain{sw + S_WKV, LWKV}, 16 * (warp & 1),
+                                 16 * (warp >> 1), dn);
+        store_tiles<2>(dnt, D, dn, 16 * (warp & 1), 16 * (warp >> 1));
+      }
+      __syncthreads();
 #pragma unroll
-        for (int i = 0; i < NR; ++i)
+      for (int i = 0; i < NR; ++i) {
+        const int p = r0 + i;
+        float dn[4], xh[4], sc[4], dy[4];
 #pragma unroll
-          for (int m = 0; m < 4; ++m) dn[i][m] = 0.0f;
-#pragma unroll 4
-        for (int c = 0; c < D2; c += 4) {
-          float4 wr[4];
-#pragma unroll
-          for (int m = 0; m < 4; ++m) wr[m] = ld4(sw + S_WKV + (cg + 16 * m) * LWKV + c);
-#pragma unroll
-          for (int i = 0; i < NR; ++i) {
-            const float4 a = ld4(kvt + (r0 + i) * D2 + c);
-#pragma unroll
-            for (int m = 0; m < 4; ++m) dn[i][m] = dot4(a, wr[m], dn[i][m]);
-          }
+        for (int m = 0; m < 4; ++m) {
+          dn[m] = dnt[swz(p, cg + 16 * m, D)];
+          xh[m] = xbt[p * D + cg + 16 * m];
+          sc[m] = sw[S_LNA1S + cg + 16 * m];
         }
+        ln_vjp<4>(dn, xh, sc, sinvb[p], dy);
 #pragma unroll
-        for (int i = 0; i < NR; ++i) {
-          const int p = r0 + i;
-          float xh[4], sc[4], dy[4];
-#pragma unroll
-          for (int m = 0; m < 4; ++m) {
-            xh[m] = xbt[p * D + cg + 16 * m];
-            sc[m] = sw[S_LNA1S + cg + 16 * m];
-          }
-          ln_vjp<4>(dn[i], xh, sc, sinvb[p], dy);
-#pragma unroll
-          for (int m = 0; m < 4; ++m) {
-            dnt[p * D + cg + 16 * m] = dn[i][m];
-            dyt[p * D + cg + 16 * m] = dy[m];
-          }
-        }
+        for (int m = 0; m < 4; ++m) dyt[swz(p, cg + 16 * m, D)] = dy[m];
       }
       __syncthreads();
 
-      // B3. lna1 and bagg gradients; dwagg += a1^T dy3; da1 = dy3 wagg^T ->
-      // ReLU, LN VJP -> dz
-      if (tid < D) vg[V_LNA1B + tid] += colsum(dnt, D, tid);
-      else if (tid < 2 * D) vg[V_LNA1S + tid - D] += colsum(dnt, D, tid - D, xbt);
-      else if (tid < 3 * D) vg[V_BAGG + tid - 2 * D] += colsum(dyt, D, tid - 2 * D);
-#pragma unroll 4
-      for (int p = 0; p < P; ++p) {
-        const float4 x = ld4(a1t + p * D + rg * 4), y = ld4(dyt + p * D + c0);
-        const float xv[4] = {x.x, x.y, x.z, x.w}, yv[4] = {y.x, y.y, y.z, y.w};
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) gagg[a][b] = fmaf(xv[a], yv[b], gagg[a][b]);
-      }
-      float da1[NR][4];
-#pragma unroll
-      for (int i = 0; i < NR; ++i)
-#pragma unroll
-        for (int m = 0; m < 4; ++m) da1[i][m] = 0.0f;
-#pragma unroll 4
-      for (int c = 0; c < D; c += 4) {
-        float4 wr[4];
-#pragma unroll
-        for (int m = 0; m < 4; ++m) wr[m] = ld4(sw + S_WAGG + (cg + 16 * m) * LWAGG + c);
-#pragma unroll
-        for (int i = 0; i < NR; ++i) {
-          const float4 a = ld4(dyt + (r0 + i) * D + c);
-#pragma unroll
-          for (int m = 0; m < 4; ++m) da1[i][m] = dot4(a, wr[m], da1[i][m]);
-        }
+      // B3. lna1 and bagg gradients; dwagg += a1^T dy3; da1 = dy3 wagg^T
+      // (into dzt, free since B1) -> ReLU, LN VJP -> dz
+      if (tid < D) vg[V_LNA1B + tid] += colsum(Swz{dnt, D}, tid);
+      else if (tid < 2 * D) vg[V_LNA1S + tid - D] += colsum(Swz{dnt, D}, Plain{xbt, D}, tid - D);
+      else if (tid < 3 * D) vg[V_BAGG + tid - 2 * D] += colsum(Swz{dyt, D}, tid - 2 * D);
+      tc::mma_xty<1, 4, P, 2>(Plain{a1t, D}, Swz{dyt, D}, wm, 32 * (warp >> 2), gagg);
+      {
+        float da[1][2][4];
+        zero_tiles<1, 2>(da);
+        tc::mma_xwt<1, 2, D, 2>(Swz{dyt, D}, Plain{sw + S_WAGG, LWAGG}, 16 * (warp & 1),
+                                16 * (warp >> 1), da);
+        store_tiles<2>(dzt, D, da, 16 * (warp & 1), 16 * (warp >> 1));
       }
       __syncthreads();  // dnt is read above and rewritten below
 #pragma unroll
       for (int i = 0; i < NR; ++i) {
         const int p = r0 + i;
-        float xh[4], sc[4], dz[4];
+        float da1[4], xh[4], sc[4], dz[4];
 #pragma unroll
         for (int m = 0; m < 4; ++m) {
           const int col = cg + 16 * m;
-          if (!(a1t[p * D + col] > 0.0f)) da1[i][m] = 0.0f;
+          da1[m] = a1t[p * D + col] > 0.0f ? dzt[swz(p, col, D)] : 0.0f;
           xh[m] = xat[p * D + col];
           sc[m] = sw[S_LNA0S + col];
         }
-        ln_vjp<4>(da1[i], xh, sc, sinva[p], dz);
+        ln_vjp<4>(da1, xh, sc, sinva[p], dz);
 #pragma unroll
         for (int m = 0; m < 4; ++m) {
-          dnt[p * D + cg + 16 * m] = da1[i][m];
-          dzt[p * D + cg + 16 * m] = dz[m];
+          dnt[swz(p, cg + 16 * m, D)] = da1[m];
+          dzt[swz(p, cg + 16 * m, D)] = dz[m];
         }
       }
       __syncthreads();
 
       // B4. lna0 and b1 gradients; dw1 += a0^T dz; da0 = dz (w1[:, :D] +
-      // w1[:, D:])^T -> ReLU, the two branch LN VJPs -> dh
-      if (tid < D) vg[V_LNA0B + tid] += colsum(dnt, D, tid);
-      else if (tid < 2 * D) vg[V_LNA0S + tid - D] += colsum(dnt, D, tid - D, xat);
-      else if (tid < 3 * D) vg[V_B1 + tid - 2 * D] += colsum(dzt, D, tid - 2 * D);
-#pragma unroll 2
-      for (int p = 0; p < P; ++p) {
-        const float4 x0 = ld4(a0t + p * D2 + rg * 8), x1 = ld4(a0t + p * D2 + rg * 8 + 4);
-        const float4 y = ld4(dzt + p * D + c0);
-        const float xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
-        const float yv[4] = {y.x, y.y, y.z, y.w};
-#pragma unroll
-        for (int a = 0; a < 8; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) gw1[a][b] = fmaf(xv[a], yv[b], gw1[a][b]);
-      }
-      float da0[NR][8];
-#pragma unroll
-      for (int i = 0; i < NR; ++i)
-#pragma unroll
-        for (int m = 0; m < 8; ++m) da0[i][m] = 0.0f;
-#pragma unroll 2
-      for (int c = 0; c < D; c += 4) {
-        float4 wr[8];
-#pragma unroll
-        for (int m = 0; m < 8; ++m) {
-          const float* row = sw + S_W1 + (cg + 16 * m) * LW1;
-          wr[m] = add4(ld4(row + c), ld4(row + D + c));
-        }
-#pragma unroll
-        for (int i = 0; i < NR; ++i) {
-          const float4 a = ld4(dzt + (r0 + i) * D + c);
-#pragma unroll
-          for (int m = 0; m < 8; ++m) da0[i][m] = dot4(a, wr[m], da0[i][m]);
-        }
+      // w1[:, D:])^T (into kvt, free since B2) -> ReLU, the two branch LN
+      // VJPs -> dh
+      if (tid < D) vg[V_LNA0B + tid] += colsum(Swz{dnt, D}, tid);
+      else if (tid < 2 * D) vg[V_LNA0S + tid - D] += colsum(Swz{dnt, D}, Plain{xat, D}, tid - D);
+      else if (tid < 3 * D) vg[V_B1 + tid - 2 * D] += colsum(Swz{dzt, D}, tid - 2 * D);
+      tc::mma_xty<1, 8, P, 2>(Plain{a0t, D2}, Swz{dzt, D}, 16 * warp, 0, gw1);
+      {
+        float da[1][4][4];
+        zero_tiles<1, 4>(da);
+        tc::mma_xwt<1, 4, D, 2>(Swz{dzt, D}, W1Sum{sw + S_W1}, 16 * (warp & 1),
+                                32 * (warp >> 1), da);
+        store_tiles<4>(kvt, D2, da, 16 * (warp & 1), 32 * (warp >> 1));
       }
       __syncthreads();  // a0t is read above and rewritten below
 #pragma unroll
@@ -608,7 +624,7 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           // recompute this branch's LayerNorm input h and its statistics
-          float xh[4], sc[4], dh[4], sum = 0.0f, ss = 0.0f;
+          float xh[4], sc[4], dh[4], dpre[4], sum = 0.0f, ss = 0.0f;
 #pragma unroll
           for (int m = 0; m < 4; ++m) {
             const int col = cg + 16 * (half * 4 + m);
@@ -625,20 +641,19 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
             ss = fmaf(xh[m], xh[m], ss);
           }
           const float inv = 1.0f / sqrtf(row_sum16(ss) * (1.0f / D) + LN_EPS);
-          float* dpre = da0[i] + half * 4;
 #pragma unroll
           for (int m = 0; m < 4; ++m) {
             const int col = cg + 16 * (half * 4 + m);
             xh[m] *= inv;
             sc[m] = sw[S_LN0S + col];
-            if (!(a0t[p * D2 + col] > 0.0f)) dpre[m] = 0.0f;
+            dpre[m] = a0t[p * D2 + col] > 0.0f ? kvt[swz(p, col, D2)] : 0.0f;
           }
           ln_vjp<4>(dpre, xh, sc, inv, dh);
 #pragma unroll
           for (int m = 0; m < 4; ++m) {
             const int col = cg + 16 * (half * 4 + m);
             a0t[p * D2 + col] = dh[m];
-            kvt[p * D2 + col] = dpre[m];
+            kvt[swz(p, col, D2)] = dpre[m];
             x0t[p * D2 + col] = xh[m];
           }
         }
@@ -649,11 +664,11 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
       for (int item = tid; item < 7 * D2; item += THREADS) {
         const int c = item % D2;
         if (item < D2) {
-          vg[V_LN0B + c] += colsum(kvt, D2, c);
+          vg[V_LN0B + c] += colsum(Swz{kvt, D2}, c);
         } else if (item < 2 * D2) {
-          vg[V_LN0S + c] += colsum(kvt, D2, c, x0t);
+          vg[V_LN0S + c] += colsum(Swz{kvt, D2}, Plain{x0t, D2}, c);
         } else if (item < 3 * D2) {
-          vg[V_BU + c] += colsum(a0t, D2, c);
+          vg[V_BU + c] += colsum(Plain{a0t, D2}, c);
         } else {
           const int k = item / D2 - 3;
           float s = 0.0f;
@@ -677,17 +692,22 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
     // no f32 accumulator runs over more than one group's pairs)
     const bool first = grp == blockIdx.x;
 #pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      double* row = part + OFF_W1 + (rg * 8 + a) * D2;
-      put4(row + c0, gw1[a], first);       // dz1 = [dz | dz]: both column halves
-      put4(row + D + c0, gw1[a], first);
+    for (int j = 0; j < 8; ++j) {
+      tc::for_fragment(gw1[0][j], 16 * warp, 8 * j, [&](int r, int c, float v0, float v1) {
+        put2(part + OFF_W1 + r * D2 + c, v0, v1, first);  // dz1 = [dz | dz]: both halves
+        put2(part + OFF_W1 + r * D2 + D + c, v0, v1, first);
+      });
+      tc::for_fragment(gkv[0][j], wm, 64 * (warp >> 2) + 8 * j,
+                       [&](int r, int c, float v0, float v1) {
+                         put2(part + OFF_WKV + r * D2 + c, v0, v1, first);
+                       });
     }
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      put4(part + OFF_WKV + (rg * 4 + a) * D2 + c0, gkv[a], first);
-      put4(part + OFF_WKV + (rg * 4 + a) * D2 + D + c0, gkv[a] + 4, first);
-      put4(part + OFF_WAGG + (rg * 4 + a) * D + c0, gagg[a], first);
-    }
+    for (int j = 0; j < 4; ++j)
+      tc::for_fragment(gagg[0][j], wm, 32 * (warp >> 2) + 8 * j,
+                       [&](int r, int c, float v0, float v1) {
+                         put2(part + OFF_WAGG + r * D + c, v0, v1, first);
+                       });
     for (int i = tid; i < V_B1; i += THREADS) put(part + i, take(vg + i), first);  // wu .. ln0b
     if (tid < D) {
       const float b1 = take(vg + V_B1 + tid);

@@ -182,11 +182,9 @@ def _library():
     return lib
 
 
-@functools.cache
-def _bwd_library():
-    from trajsde_tpu_torch.ops import build
-
-    lib = build.load("aa_fused_bwd")
+def configure_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares K4's C interface on a loaded library (``csrc/aa_fused_bwd.cu``
+    or a copy of it built elsewhere) and returns it."""
     lib.aa_fused_bwd_launch.argtypes = [ctypes.c_void_p] * 11 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
@@ -196,6 +194,13 @@ def _bwd_library():
     lib.aa_fused_bwd_receivers_per_group.argtypes = []
     lib.aa_fused_bwd_receivers_per_group.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _bwd_library():
+    from trajsde_tpu_torch.ops import build
+
+    return configure_bwd(build.load("aa_fused_bwd"))
 
 
 def _check(name: str, x: torch.Tensor, shape, device) -> None:
@@ -264,8 +269,10 @@ def _launch(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats: bool = 
     return out, stats
 
 
-def _launch_bwd(q, u, mask_f, keep, ws, g, out, stats, num_heads, dropout_rate):
-    lib = _bwd_library()
+def _launch_bwd(q, u, mask_f, keep, ws, g, out, stats, num_heads, dropout_rate, lib=None):
+    """K4 -> (dq, dws); ``lib`` is another build of its source
+    (:func:`configure_bwd`), for comparing two builds on the card."""
+    lib = _bwd_library() if lib is None else lib
     R, Ak, w = _common_checks(q, u, mask_f, keep, ws, num_heads,
                               lib.aa_fused_bwd_weight_floats())
     dev = q.device
