@@ -121,6 +121,22 @@ TOL_K2_DY0, TOL_K2_W = 1e-4, 1e-3
 # receiver's senders in another order; each weight gradient sums 6.3 M
 # pairs in another order (per block and chunk, then over blocks)
 TOL_K4_DQ, TOL_K4_W = 1e-4, 1e-3
+# and tighter on the leaves that no ReLU's derivative reaches, so that a
+# build with the tensor-core products at TF32 precision fails: on an H100
+# at the training shape K4 (3xTF32) reads up to 2.8e-6 on them, the FMA
+# build of K4 3.2e-6, and a copy with one TF32 product per term 8.5e-5 to
+# 3.1e-4 on wagg, bagg, lna1s, lna1b and wkv
+# (scripts/compare_aa_bwd_builds_torch.py)
+TOL_K4_SMOOTH = 2e-5
+K4_SMOOTH_LEAVES = ("dq", "wagg", "bagg", "lna1s", "lna1b", "wkv", "bkv")
+
+
+def k4_tol(leaf: str) -> float:
+    """K4's limit on one output (``dq`` or a name of ``W_ORDER``)."""
+    loose = TOL_K4_DQ if leaf == "dq" else TOL_K4_W
+    return min(loose, TOL_K4_SMOOTH) if leaf in K4_SMOOTH_LEAVES else loose
+
+
 # K5 vs plain and vs K3 (fed q = centre . wq + bq and the same u): TOL_K3,
 # the same f32 chain; the kernel's q is its own FMA product, not cuBLAS's
 # K6 vs plain: per element, by vpu_probe.agreement (in ulps within
@@ -394,7 +410,7 @@ def aa_fused_bound(B: int, T: int, Aq: int, Ak: int, dim: int, heads: int, with_
 
 
 def aa_fused_bwd_bound(B: int, T: int, Aq: int, Ak: int, dim: int, heads: int, with_keep: bool):
-    """(bound_ms, bound_by, flops, bytes, route_ms) of one K4 call: per pair
+    """(bound_ms, bound_by, flops, bytes, route_ms, route_by) of one K4 call: per pair
     the chain recomputed, then its input and its weight gradients, three
     times :func:`aa_pair_ops`; K3's inputs (with the keep mask) and the
     cotangent read once, dq and the weight gradients written once.
@@ -403,8 +419,9 @@ def aa_fused_bwd_bound(B: int, T: int, Aq: int, Ak: int, dim: int, heads: int, w
     products (``20 dim^2`` a pair: the input and weight gradients of
     ``[k|v]`` 4 dim^2 each, of ``wagg`` 2 dim^2, of the two second layers
     4 dim^2) on the tensor cores at f32 accuracy, three TF32 products each
-    (``PEAK_TF32_FLOPS / 3``), then the rest at the CUDA-core peak, the two
-    added since both issue from the same warp schedulers."""
+    (``PEAK_TF32_FLOPS / 3``), and the rest on the CUDA cores at their
+    peak, the two pipes running at the same time; ``route_by`` says which
+    of the route's operations and the bytes bounds it."""
     pairs, rows = B * T * Aq * Ak, B * T * Aq
     flops = pairs * 3 * sum(aa_pair_ops(dim, heads))
     w = aa_weight_floats(dim)
@@ -414,9 +431,9 @@ def aa_fused_bwd_bound(B: int, T: int, Aq: int, Ak: int, dim: int, heads: int, w
         nbytes += 4 * pairs * heads
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
     tc_flops = pairs * 20 * dim * dim
-    t_route = tc_flops / (PEAK_TF32_FLOPS / 3) + (flops - tc_flops) / PEAK_F32_FLOPS
+    t_route = max(tc_flops / (PEAK_TF32_FLOPS / 3), (flops - tc_flops) / PEAK_F32_FLOPS)
     return (1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops,
-            nbytes, 1e3 * max(t_route, t_bytes))
+            nbytes, 1e3 * max(t_route, t_bytes), ("operations" if t_route >= t_bytes else "bytes"))
 
 
 def _random_aa_weights(gen, like):
@@ -844,8 +861,8 @@ def phase_fused_backward() -> dict:
                 del out, stats, served, dq2, dws2
                 want_dq, want = K3.fused_pair_attention_bwd_reference(q, u, mask, keep, ws, g, H,
                                                                       p)
-                outs = {"dq": (dq, want_dq, TOL_K4_DQ)}
-                outs.update({k: (a, b, TOL_K4_W) for k, a, b in zip(K3.W_ORDER, dws, want)})
+                outs = {k: (a, b, k4_tol(k)) for k, a, b in
+                        zip(("dq", *K3.W_ORDER), (dq, *dws), (want_dq, *want))}
                 rels = {}
                 for k, (a, b, tol) in outs.items():
                     check(a.shape == b.shape, f"aa_fused_bwd ({case}) {k}: shape {tuple(a.shape)}")
@@ -855,7 +872,8 @@ def phase_fused_backward() -> dict:
                     check(rels[k] <= tol, f"aa_fused_bwd ({case}) {k}: {rels[k]:.3e} > {tol:g}")
                 print(f"[fused-backward] aa_fused_bwd {case}: bit-equal reruns; max|kernel - "
                       f"plain| / max|plain|: " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
-                      + f" (tol {TOL_K4_DQ:g} dq, {TOL_K4_W:g} weights)", flush=True)
+                      + f" (tol {TOL_K4_SMOOTH:g} {', '.join(K4_SMOOTH_LEAVES)}; "
+                      f"{TOL_K4_W:g} the other weights)", flush=True)
                 del q, u, mask, keep, g, dq, dws, want_dq, want, outs
                 torch.cuda.empty_cache()
 
@@ -865,11 +883,11 @@ def phase_fused_backward() -> dict:
     out, stats = K3.fused_pair_attention_fwd(q, u, mask, keep, model_ws, H, K3_DROPOUT)
     ms = cuda_ms(lambda: K3.fused_pair_attention_bwd(q, u, mask, keep, model_ws, g, H, K3_DROPOUT,
                                                      out=out, stats=stats))
-    bound, by, flops, nbytes, route = aa_fused_bwd_bound(*shape, D, H, True)
+    bound, by, flops, nbytes, route, route_by = aa_fused_bwd_bound(*shape, D, H, True)
     print(f"[fused-backward] aa_fused_bwd train {list(shape)}, keep p={K3_DROPOUT:g}: {ms:.3f} ms "
-          f"(median of {TIMED_RUNS}), bound {route:.3f} ms on its route (3xTF32 products on the "
-          f"tensor cores) and {bound:.3f} ms by {by} on the CUDA cores ({flops:.3e} flop, "
-          f"{nbytes:.3e} B), {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+          f"(median of {TIMED_RUNS}), bound {route:.3f} ms by {route_by} on its route (3xTF32 "
+          f"products on the tensor cores) and {bound:.3f} ms by {by} on the CUDA cores "
+          f"({flops:.3e} flop, {nbytes:.3e} B), {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
     del out, stats
     torch.cuda.empty_cache()
     plain_ms = cuda_ms(lambda: K3.fused_pair_attention_bwd_reference(q, u, mask, keep, model_ws,
@@ -881,7 +899,7 @@ def phase_fused_backward() -> dict:
     torch.cuda.empty_cache()
     return dict(name="aa_fused_bwd", route="cuda", source="trajsde_tpu_torch/csrc/aa_fused_bwd.cu",
                 replaces="trajsde_tpu/ops/pallas/aa_fused.py:343", launches=None,
-                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=route, bound_by=by,
+                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=route, bound_by=route_by,
                 library_ms=None)
 
 

@@ -23,9 +23,7 @@ passes it.  The copies are built under ``trajsde_tpu_torch/_build/faults``.
 """
 from __future__ import annotations
 
-import ctypes
 import os
-import subprocess
 import sys
 from pathlib import Path
 
@@ -62,25 +60,17 @@ def build_faults() -> dict:
     source."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     text = SOURCE.read_text()
-    jobs = {}
+    sources = {}
     for name, (_, patches) in FAULTS.items():
         src = text
         for old, new in patches:
             if src.count(old) != 1:
                 raise RuntimeError(f"fault {name}: {old!r} is not in {SOURCE} exactly once")
             src = src.replace(old, new)
-        cu, so = OUT_DIR / f"{name}.cu", OUT_DIR / f"lib{name}.so"
-        cu.write_text(src)
-        jobs[name] = (so, subprocess.Popen([build._nvcc(), *build.NVCC_FLAGS, "-o", str(so),
-                                            str(cu)], stdout=subprocess.PIPE,
-                                           stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, proc) in jobs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on fault {name}:\n{out}")
-        libs[name] = vpu_probe.configure(ctypes.CDLL(os.fspath(so)))
-    return libs
+        sources[name] = os.fspath(OUT_DIR / f"{name}.cu")
+        Path(sources[name]).write_text(src)
+    return {name: vpu_probe.configure(lib)
+            for name, (lib, _) in build.build_copies(sources, os.fspath(OUT_DIR)).items()}
 
 
 def readings(err: torch.Tensor) -> dict:

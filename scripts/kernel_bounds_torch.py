@@ -23,7 +23,8 @@ follow the kernels' arithmetic (``trajsde_tpu/ops/pallas/``):
   and the weight gradients.  Also ``tensor_route_bound_ms``, the bound on
   the route the port's kernel takes: its six backward products on the
   tensor cores at f32 accuracy (3 TF32 products each, 495 / 3 TFLOP/s),
-  the rest at the f32 peak.
+  the rest at the f32 peak on the CUDA cores, the two at the same time
+  (and ``tensor_route_bound_by``).
 * K5 ``aa_attention``: ``chip_smoke.aa_attention_bound``, K3's chain plus
   the pair features' 14 operations per pair (the rotation of x_k and of
   pos_k - pos_q) and the q projection (2 D^2 + D per receiver); it reads
@@ -77,7 +78,7 @@ def main() -> None:
                            f"({b * t * aq * ak} pairs)", flops=flops, bytes=nbytes,
                            bound_ms=bound, bound_by=by))
         if route:
-            report[-1]["tensor_route_bound_ms"] = route[0]
+            report[-1].update(tensor_route_bound_ms=route[0], tensor_route_bound_by=route[1])
     bound, by, flops, nbytes = aa_attention_bound(B, T, AQ, AK, D, H)
     report.append(dict(kernel="K5 aa_attention",
                        shape=f"B={B} T={T} Aq={AQ} Ak={AK} D={D} H={H} ({B * T * AQ * AK} pairs)",

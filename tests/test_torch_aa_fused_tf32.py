@@ -17,9 +17,11 @@ routes ``x @ w`` through :class:`TF32Product`: the exact f32 product
 forward, and ``dY W^T`` and ``X^T dY`` backward by one of ``PRODUCTS``:
 
 * ``3xtf32``: the kernel's arithmetic as above.  Each tensor-core step is
-  modelled as its exact sum rounded toward zero to f32 (the products of
-  TF32 values are exact; earlier cards' tensor cores were measured to
-  truncate their sums).  The input gradient of ``a0 @ w1`` runs over
+  modelled as an H100's tensor cores were measured to sum
+  (``scripts/probe_mma_rounding_torch.py``): the exact products of TF32
+  values and C, each cut toward zero 2 bits below the f32 ulp of the
+  largest, summed, and the sum rounded toward zero to f32.  The input
+  gradient of ``a0 @ w1`` runs over
   ``dz1 = [dz | dz]`` and w1 (K = 128), where the kernel folds w1's two
   halves first (K = 64).
 * ``3xtf32-chained``: the same, but one accumulator carried through the
@@ -46,6 +48,7 @@ import numpy as np
 import pytest
 import torch
 
+from scripts import probe_mma_rounding_torch as probe
 from trajsde_tpu_torch.ops import aa_fused as K3
 
 SHAPE, D, H, P_DROP = (2, 3, 9, 48), 64, 8, 0.1
@@ -75,9 +78,14 @@ def _rz(x: torch.Tensor) -> torch.Tensor:
 
 
 def _mma(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """One tensor-core step: c + a b (a [M, 8], b [8, N] TF32 values, exact
-    products), rounded toward zero to f32."""
-    return _rz(c.double() + a.double() @ b.double())
+    """One tensor-core step: c + a b (a [M, 8], b [8, N] TF32 values), by
+    ``probe_mma_rounding_torch.tensor_core_sum``: the 8 exact products and
+    c cut toward zero to multiples of 2^(e - 25), e the binade of the
+    largest of them, then summed (exactly, in f64) and rounded toward zero."""
+    terms = torch.cat([a.double()[:, None, :] * b.double().t()[None], c.double()[..., None]], 2)
+    _, e = torch.frexp(terms.abs().amax(2, keepdim=True))   # the largest in [2^(e-1), 2^e)
+    q = torch.ldexp(torch.ones_like(terms[..., :1]), e - 26)
+    return _rz((torch.trunc(terms / q) * q).sum(2))
 
 
 STEPS_PER_FRAGMENT = 2               # k-steps summed in one fresh fragment (mma_tf32.cuh)
@@ -269,6 +277,22 @@ def test_emulated_product_is_f32_accurate_and_rounds_toward_zero():
     assert _rz(x).tolist() == [1.0, -1.0]
 
 
+def test_emulated_step_sums_as_the_probe_measured_the_tensor_cores():
+    """``_mma`` gives, on the rounding probe's 128 cases and on random TF32
+    tiles, what the probe's model (which an H100 matched on every case)
+    gives."""
+    a, b, c, _ = probe.cases()
+    got = _mma(torch.from_numpy(c), torch.from_numpy(a), torch.from_numpy(b))
+    assert got.double().numpy().tolist() == probe.model(a, b, c).tolist()
+    r = np.random.default_rng(11)
+    a = rna_tf32(torch.from_numpy((r.standard_normal((16, 8)) * 10.0 ** r.uniform(-3, 3, (16, 8)))
+                                  .astype(np.float32)))
+    b = rna_tf32(torch.from_numpy(r.standard_normal((8, 8)).astype(np.float32)))
+    c = torch.from_numpy(r.standard_normal((16, 8)).astype(np.float32))
+    got = _mma(c, a, b)
+    assert got.double().numpy().tolist() == probe.model(a.numpy(), b.numpy(), c.numpy()).tolist()
+
+
 def test_routing_reaches_exactly_the_three_products_and_keeps_the_forward():
     q, u, mask, keep, ws, g = _case(dense=True)
     calls = []
@@ -290,7 +314,7 @@ def test_3xtf32_backward_is_within_the_f64_criterion(dense):
 def test_other_arithmetic_breaks_the_f64_criterion(dense, mode):
     """The criterion tells the kernel's arithmetic from one TF32 product
     (2^-11 per operand) and from one tensor-core accumulator carried over
-    a whole sum (its sums rounded toward zero, over and over)."""
+    a whole sum (its sums cut and rounded toward zero, over and over)."""
     leaves = distances(dense)
     assert not within_the_f64_criterion(leaves, mode), leaves
 

@@ -31,8 +31,8 @@
 // products below (20 D^2 = 81,920 of the 131,256 operations a pair needs)
 // run on the tensor cores at f32 accuracy, 3 TF32 products each, so at
 // most 495 / 3 = 165 TFLOP/s: 3.1 ms; the rest stays on the CUDA cores,
-// 4.7 ms; 7.8 ms in all, counted one after the other, since mma.sync and
-// the FMAs issue from the same warp schedulers.
+// 4.7 ms.  The two pipes run at the same time (an mma.sync m16n8k8 takes
+// one issue slot for 2,048 flops), so the route's bound is 4.7 ms.
 //
 // Design.  As K3: a persistent grid (one 256-thread block per SM) walks
 // groups of 8 receivers with all their senders, in chunks of 32 pairs.

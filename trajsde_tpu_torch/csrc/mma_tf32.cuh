@@ -53,12 +53,14 @@ __device__ __forceinline__ void mma(float c[4], const uint32_t a[4], const uint3
 // read at their out index k.  acc[i][j] is the C fragment of tile (i, j);
 // K is a multiple of 16.  Each X fragment is split once for all NT tiles.
 // The six products of two k-steps go into a fresh fragment, which is then
-// added to acc on the CUDA cores, rounded to nearest: the tensor cores
-// round their sums otherwise (toward zero, as far as tests on earlier cards
-// show).  One accumulator carried through the tensor cores over a receiver
-// group's 384 pairs put K4's weight gradients at the training shape up to
-// 2.2x farther from the f32 plain version than its FMA build was, on an
-// H100, and failed the f64 test at B = 8.  A fresh fragment per k-step also
+// added to acc on the CUDA cores, rounded to nearest: the tensor cores do
+// not round so.  On an H100 (scripts/probe_mma_rounding_torch.py) an mma
+// cuts each of its addends (the exact products and C) toward zero 2 bits
+// below the f32 ulp of the largest, and rounds their sum toward zero; a
+// term under that cut is lost.  One accumulator carried through the tensor
+// cores over a receiver group's 384 pairs put K4's weight gradients at the
+// training shape up to 2.2x farther from the f32 plain version than its
+// FMA build was, on an H100, and failed the f64 test at B = 8.  A fresh fragment per k-step also
 // passes; one per two k-steps takes fewer registers (no spill in K4) and
 // fewer adds (tests/test_torch_aa_fused_tf32.py models all three).
 template <int MT, int NT, int K, int UNROLL, class AccX, class AccW>

@@ -269,10 +269,11 @@ def _launch(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats: bool = 
     return out, stats
 
 
-def _launch_bwd(q, u, mask_f, keep, ws, g, out, stats, num_heads, dropout_rate, lib=None):
-    """K4 -> (dq, dws); ``lib`` is another build of its source
-    (:func:`configure_bwd`), for comparing two builds on the card."""
-    lib = _bwd_library() if lib is None else lib
+def launch_bwd(lib: ctypes.CDLL, q, u, mask_f, keep, ws, g, out, stats, num_heads,
+               dropout_rate):
+    """Runs ``lib``'s ``aa_fused_bwd_launch`` (K4, or another build of its
+    source configured by :func:`configure_bwd`) on the current stream and
+    returns ``(dq, dws)``; counts nothing (see :func:`fused_pair_attention_bwd`)."""
     R, Ak, w = _common_checks(q, u, mask_f, keep, ws, num_heads,
                               lib.aa_fused_bwd_weight_floats())
     dev = q.device
@@ -299,7 +300,6 @@ def _launch_bwd(q, u, mask_f, keep, ws, g, out, stats, num_heads, dropout_rate, 
             )
         if err != 0:
             raise RuntimeError(f"aa_fused_bwd kernel launch failed: cudaError {err}")
-        fused_pair_attention_bwd.launches += 1
     dws, off = [], 0
     for x in ws:
         dws.append(dw[off:off + x.numel()].view(x.shape))
@@ -342,7 +342,11 @@ def fused_pair_attention_bwd(q, u, mask_f, keep, ws: Sequence[torch.Tensor], g: 
         if out is None or stats is None:
             raise ValueError("K4 reads the forward's output and softmax statistics: pass out "
                              "and stats of fused_pair_attention_fwd")
-        return _launch_bwd(q, u, mask_f, keep, ws, g, out, stats, num_heads, dropout_rate)
+        dq, dws = launch_bwd(_bwd_library(), q, u, mask_f, keep, ws, g, out, stats, num_heads,
+                             dropout_rate)
+        if q.numel():  # no receivers: nothing was launched
+            fused_pair_attention_bwd.launches += 1
+        return dq, dws
     return fused_pair_attention_bwd_reference(q, u, mask_f, keep, ws, g, num_heads, dropout_rate)
 
 

@@ -94,3 +94,29 @@ def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu`` (built on first call)."""
     return load_all([name])[name]
+
+
+def build_copies(sources: Dict[str, str], out_dir: str) -> Dict[str, tuple]:
+    """Builds other sources (variants of a kernel, probes) into
+    ``out_dir/lib<name>.so``, one nvcc process each, all started together,
+    with ``csrc/`` on the include path after each source's own directory;
+    returns name -> (loaded library, nvcc's output).  Always rebuilds."""
+    nvcc = _nvcc()
+    os.makedirs(out_dir, exist_ok=True)
+    jobs = {}
+    for name, src in sources.items():
+        so = os.path.join(out_dir, f"lib{name}.so")
+        jobs[name] = (so, subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-o", so, src],
+                                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                           text=True))
+    libs, failures = {}, []
+    for name, (so, proc) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed to build {sources[name]} "
+                            f"(exit {proc.returncode}):\n{out}")
+            continue
+        libs[name] = (ctypes.CDLL(so), out)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return libs
