@@ -48,7 +48,9 @@ SOURCE = Path(build.CSRC_DIR) / "aa_fused_bwd.cu"
 HEADER = Path(build.CSRC_DIR) / "mma_tf32.cuh"
 OUT_DIR = Path(build.BUILD_DIR) / "compare"
 SWIZZLE_KEY = "  const int key = ((row & 3) << 1) | ((row >> 2) & 1);\n"
-SMALL_TERMS = "          mma(c, xs[h][i], wb[h]);\n          mma(c, xb[h][i], ws[h]);\n"
+# the two small terms of each k-step in mma_tf32.cuh's mma3x2 and mma3x2_apart
+SMALL_TERMS = ("  mma(c, as0, bb0);\n", "  mma(c, ab0, bs0);\n", "  mma(c, as1, bb1);\n",
+               "  mma(c, ab1, bs1);\n")
 # a stand-in for the two product helpers that does nothing
 SKIP = """
 namespace tc {
@@ -58,24 +60,32 @@ __device__ __forceinline__ void skip(const A&, const B&, int, int, float (*)[NT]
 """
 
 
-def _ptxas_lines(text: str) -> list:
+def ptxas_lines(text: str) -> list:
     return [ln.strip() for ln in text.splitlines()
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+
+
+def one_term_header(header: str) -> str:
+    """``mma_tf32.cuh`` with one TF32 product (big * big) per k-step."""
+    for term in SMALL_TERMS:
+        if header.count(term) != 2:
+            raise RuntimeError(f"{term!r} is not in {HEADER}'s two product sums")
+        header = header.replace(term, "")
+    return header
 
 
 def build_variants(bases: dict) -> dict:
     """name -> (configured library, ptxas lines), built in parallel."""
     current, header = SOURCE.read_text(), HEADER.read_text()
     include = '#include "mma_tf32.cuh"\n'
-    for text, key, where in ((current, SWIZZLE_KEY, SOURCE), (current, include, SOURCE),
-                             (header, SMALL_TERMS, HEADER)):
+    for text, key, where in ((current, SWIZZLE_KEY, SOURCE), (current, include, SOURCE)):
         if text.count(key) != 1:
             raise RuntimeError(f"{key!r} is not in {where} exactly once")
     skipped = current.replace(include, include + SKIP)
     skipped = skipped.replace("tc::mma_xty<", "tc::skip<").replace("tc::mma_xwt<", "tc::skip<")
     # one-term's header lies beside its source, so its include finds it first
     (OUT_DIR / "one-term").mkdir(parents=True, exist_ok=True)
-    (OUT_DIR / "one-term" / HEADER.name).write_text(header.replace(SMALL_TERMS, ""))
+    (OUT_DIR / "one-term" / HEADER.name).write_text(one_term_header(header))
     sources = {name: os.fspath(path) for name, path in bases.items()}
     for name, text in (("no-swizzle", current.replace(SWIZZLE_KEY, "  const int key = 0;\n")),
                        ("one-term", current), ("no-products", skipped)):
@@ -83,9 +93,9 @@ def build_variants(bases: dict) -> dict:
         cu.parent.mkdir(parents=True, exist_ok=True)
         cu.write_text(text)
         sources[name] = os.fspath(cu)
-    libs = {"change": (K3._bwd_library(), _ptxas_lines(build.build_log.get("aa_fused_bwd", "")))}
+    libs = {"change": (K3._bwd_library(), ptxas_lines(build.build_log.get("aa_fused_bwd", "")))}
     for name, (lib, out) in build.build_copies(sources, os.fspath(OUT_DIR)).items():
-        libs[name] = (K3.configure_bwd(lib), _ptxas_lines(out))
+        libs[name] = (K3.configure_bwd(lib), ptxas_lines(out))
     return libs
 
 

@@ -10,7 +10,9 @@ follow the kernels' arithmetic (``trajsde_tpu/ops/pallas/``):
 
 * K1 ``sde_rollout`` / K2 ``_rollout_train_bwd``: the formulas of
   ``chip_smoke.py`` (``rollout_bound``, ``bwd_bound``) at 61,440 rows
-  (bucket 128 x 10 modes x 48 actors) x 60 steps x 64.
+  (bucket 128 x 10 modes x 48 actors) x 60 steps x 64; K2 also on its
+  route (``tensor_route_bound_ms``): its 14 products on the tensor cores
+  in 3xTF32, the rest on the CUDA cores, as K4's below.
 * K3 ``aa_fused._fwd_call`` (``pair_chain``): ``chip_smoke.aa_fused_bound``,
   per (receiver, sender) pair the work the function needs
   (``aa_pair_ops``; the kernels multiply the zero blocks of the packed
@@ -63,11 +65,13 @@ ROWS, STEPS = 128 * 10 * 48, 60
 
 def main() -> None:
     report = []
-    for name, (bound, by, flops, nbytes) in (
+    for name, (bound, by, flops, nbytes, *route) in (
             ("K1 sde_rollout", rollout_bound(ROWS, STEPS, D, False)),
             ("K2 sde_rollout_bwd", bwd_bound(ROWS, STEPS, D, False))):
         report.append(dict(kernel=name, shape=f"{ROWS} rows x {STEPS} steps x {D}", flops=flops,
                            bytes=nbytes, bound_ms=bound, bound_by=by))
+        if route:
+            report[-1].update(tensor_route_bound_ms=route[0], tensor_route_bound_by=route[1])
     for name, fn, (b, t, aq, ak), keep in (
             ("K3 aa_fused forward", aa_fused_bound, (B, T, AQ, AK), False),
             ("K3 aa_fused forward, forward_ood", aa_fused_bound, (B, T, AK, AK), False),

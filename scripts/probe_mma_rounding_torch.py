@@ -20,8 +20,9 @@ Prints the card, each deciding case, and one JSON line with the counts
 and the verdict: ``nearest`` or ``toward zero`` if every deciding case
 matched that mode, else ``neither`` (then the cases say what the card
 does).  It also counts the results that :func:`tensor_core_sum` gives, the
-model of the sum that ``tests/test_torch_aa_fused_tf32.py`` emulates K4's
-products with, and exits non-zero if any result differs from it (or the
+model of the sum that ``tests/test_torch_aa_fused_tf32.py`` and
+``tests/test_torch_sde_rollout_tf32.py`` emulate K4's and K2's products with
+(:func:`mma_step`), and exits non-zero if any result differs from it (or the
 probe does not build or run).
 """
 from __future__ import annotations
@@ -122,6 +123,71 @@ def cases():
     exact = [[sum(Fraction(float(v)) for v in a[m]) + Fraction(float(c[m, n]))
               for n in range(8)] for m in range(16)]
     return a, b, c, exact
+
+
+# ---------------------------------------------------------------------------
+# the tensor cores' arithmetic on CPU tensors, for the tests that emulate the
+# kernels' 3xTF32 products (tests/test_torch_aa_fused_tf32.py for K4,
+# tests/test_torch_sde_rollout_tf32.py for K2)
+# ---------------------------------------------------------------------------
+def rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on finite f32 values: round the 23-bit mantissa
+    to 10 bits, to nearest, ties away from zero (on the sign-magnitude bit
+    pattern), the 13 low bits cleared."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    r = (bits + 0x1000) & 0xFFFFE000
+    return torch.where(r >= 2 ** 31, r - 2 ** 32, r).to(torch.int32).view(torch.float32)
+
+
+def split(x: torch.Tensor):
+    """x -> (big, small) = (rna_tf32(x), rna_tf32(x - big))."""
+    big = rna_tf32(x)
+    return big, rna_tf32(x - big)
+
+
+def rz_f32(x: torch.Tensor) -> torch.Tensor:
+    """f64 -> f32, rounded toward zero."""
+    f = x.float()
+    return torch.where(f.double().abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def mma_step(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One tensor-core step: c + a b (a [M, 8], b [8, N] TF32 values), by
+    :func:`tensor_core_sum`: the 8 exact products and c cut toward zero to
+    multiples of 2^(e - 25), e the binade of the largest of them, then
+    summed (exactly, in f64) and rounded toward zero."""
+    terms = torch.cat([a.double()[:, None, :] * b.double().t()[None], c.double()[..., None]], 2)
+    _, e = torch.frexp(terms.abs().amax(2, keepdim=True))   # the largest in [2^(e-1), 2^e)
+    q = torch.ldexp(torch.ones_like(terms[..., :1]), e - 26)
+    return rz_f32((torch.trunc(terms / q) * q).sum(2))
+
+
+STEPS_PER_FRAGMENT = 2               # k-steps summed in one fresh fragment (mma_tf32.cuh)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor, chained: bool,
+              acc: torch.Tensor | None = None, apart: bool = False) -> torch.Tensor:
+    """acc + a [M, K] @ b [K, N], K a multiple of 8, as the kernels' tensor
+    cores do it (``mma_tf32.cuh``): ``STEPS_PER_FRAGMENT`` k-steps per fresh
+    fragment, each added to the f32 ``acc`` (zeros if None) on the CUDA
+    cores (``mma3x2``); with ``apart``, the small terms and big * big go
+    into two fresh fragments, added in that order (``mma3x2_apart``); when
+    ``chained``, ``acc`` is carried through the tensor cores over all of K."""
+    (ab, as_), (bb, bs) = split(a), split(b)
+    acc = torch.zeros((a.shape[0], b.shape[1])) if acc is None else acc
+    zero = torch.zeros_like(acc)
+    c, m = (acc if chained else zero), zero
+    steps = a.shape[1] // 8
+    for step in range(steps):
+        s = slice(8 * step, 8 * step + 8)
+        c = mma_step(mma_step(c, as_[:, s], bb[s]), ab[:, s], bs[s])
+        if apart:
+            m = mma_step(m, ab[:, s], bb[s])
+        else:
+            c = mma_step(c, ab[:, s], bb[s])
+        if not chained and ((step + 1) % STEPS_PER_FRAGMENT == 0 or step + 1 == steps):
+            acc, c, m = (acc + c) + m, zero, zero
+    return c if chained else acc
 
 
 def main() -> None:

@@ -49,62 +49,13 @@ import pytest
 import torch
 
 from scripts import probe_mma_rounding_torch as probe
+from scripts.probe_mma_rounding_torch import mm_3xtf32, mma_step, rna_tf32, rz_f32, split
 from trajsde_tpu_torch.ops import aa_fused as K3
 
 SHAPE, D, H, P_DROP = (2, 3, 9, 48), 64, 8, 0.1
 GROUP_PAIRS = 8 * SHAPE[3]            # K4's receiver group: 8 receivers with all senders
 ROUTED = ("w1", "wagg", "wkv")
 BEHIND_RELU = K3.W_ORDER[:K3.W_ORDER.index("wagg")]
-
-
-def rna_tf32(x: torch.Tensor) -> torch.Tensor:
-    """``cvt.rna.tf32.f32`` on finite f32 values: round the 23-bit mantissa
-    to 10 bits, to nearest, ties away from zero (on the sign-magnitude bit
-    pattern), the 13 low bits cleared."""
-    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    r = (bits + 0x1000) & 0xFFFFE000
-    return torch.where(r >= 2 ** 31, r - 2 ** 32, r).to(torch.int32).view(torch.float32)
-
-
-def split(x: torch.Tensor):
-    big = rna_tf32(x)
-    return big, rna_tf32(x - big)
-
-
-def _rz(x: torch.Tensor) -> torch.Tensor:
-    """f64 -> f32, rounded toward zero."""
-    f = x.float()
-    return torch.where(f.double().abs() > x.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
-
-
-def _mma(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """One tensor-core step: c + a b (a [M, 8], b [8, N] TF32 values), by
-    ``probe_mma_rounding_torch.tensor_core_sum``: the 8 exact products and
-    c cut toward zero to multiples of 2^(e - 25), e the binade of the
-    largest of them, then summed (exactly, in f64) and rounded toward zero."""
-    terms = torch.cat([a.double()[:, None, :] * b.double().t()[None], c.double()[..., None]], 2)
-    _, e = torch.frexp(terms.abs().amax(2, keepdim=True))   # the largest in [2^(e-1), 2^e)
-    q = torch.ldexp(torch.ones_like(terms[..., :1]), e - 26)
-    return _rz((torch.trunc(terms / q) * q).sum(2))
-
-
-STEPS_PER_FRAGMENT = 2               # k-steps summed in one fresh fragment (mma_tf32.cuh)
-
-
-def _mm_3xtf32(a: torch.Tensor, b: torch.Tensor, chained: bool) -> torch.Tensor:
-    """a [M, K] @ b [K, N], K a multiple of 8, as K4's tensor cores do it:
-    ``STEPS_PER_FRAGMENT`` k-steps per fresh fragment, or one fragment for
-    all of K when ``chained``."""
-    (ab, as_), (bb, bs) = split(a), split(b)
-    acc = torch.zeros((a.shape[0], b.shape[1]))
-    c = torch.zeros_like(acc)
-    steps = a.shape[1] // 8
-    for step in range(steps):
-        s = slice(8 * step, 8 * step + 8)
-        c = _mma(_mma(_mma(c, as_[:, s], bb[s]), ab[:, s], bs[s]), ab[:, s], bb[s])
-        if not chained and ((step + 1) % STEPS_PER_FRAGMENT == 0 or step + 1 == steps):
-            acc, c = acc + c, torch.zeros_like(acc)
-    return c if chained else acc
 
 
 def _per_group(mm, x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
@@ -121,10 +72,10 @@ def _per_group(mm, x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
 
 
 PRODUCTS = {  # mode -> (input gradient dy w^T, weight gradient x^T dy)
-    "3xtf32": (lambda dy, w: _mm_3xtf32(dy, w.t(), False),
-               lambda x, dy: _per_group(functools.partial(_mm_3xtf32, chained=False), x, dy)),
-    "3xtf32-chained": (lambda dy, w: _mm_3xtf32(dy, w.t(), True),
-                       lambda x, dy: _per_group(functools.partial(_mm_3xtf32, chained=True),
+    "3xtf32": (lambda dy, w: mm_3xtf32(dy, w.t(), False),
+               lambda x, dy: _per_group(functools.partial(mm_3xtf32, chained=False), x, dy)),
+    "3xtf32-chained": (lambda dy, w: mm_3xtf32(dy, w.t(), True),
+                       lambda x, dy: _per_group(functools.partial(mm_3xtf32, chained=True),
                                                 x, dy)),
     "1xtf32": (lambda dy, w: rna_tf32(dy) @ rna_tf32(w).t(),
                lambda x, dy: _per_group(lambda a, b: rna_tf32(a) @ rna_tf32(b), x, dy)),
@@ -270,26 +221,26 @@ def test_emulated_product_is_f32_accurate_and_rounds_toward_zero():
     a = torch.from_numpy(r.standard_normal((64, 128)).astype(np.float32))
     b = torch.from_numpy(r.standard_normal((128, 32)).astype(np.float32))
     exact = a.double() @ b.double()
-    err = (_mm_3xtf32(a, b, False).double() - exact).abs().max() / exact.abs().max()
+    err = (mm_3xtf32(a, b, False).double() - exact).abs().max() / exact.abs().max()
     assert err.item() < 2e-6
     assert ((rna_tf32(a) @ rna_tf32(b)).double() - exact).abs().max() / exact.abs().max() > 1e-4
     x = torch.tensor([1.0 + 2.0 ** -30, -(1.0 + 2.0 ** -30)], dtype=torch.float64)
-    assert _rz(x).tolist() == [1.0, -1.0]
+    assert rz_f32(x).tolist() == [1.0, -1.0]
 
 
 def test_emulated_step_sums_as_the_probe_measured_the_tensor_cores():
-    """``_mma`` gives, on the rounding probe's 128 cases and on random TF32
+    """``mma_step`` gives, on the rounding probe's 128 cases and on random TF32
     tiles, what the probe's model (which an H100 matched on every case)
     gives."""
     a, b, c, _ = probe.cases()
-    got = _mma(torch.from_numpy(c), torch.from_numpy(a), torch.from_numpy(b))
+    got = mma_step(torch.from_numpy(c), torch.from_numpy(a), torch.from_numpy(b))
     assert got.double().numpy().tolist() == probe.model(a, b, c).tolist()
     r = np.random.default_rng(11)
     a = rna_tf32(torch.from_numpy((r.standard_normal((16, 8)) * 10.0 ** r.uniform(-3, 3, (16, 8)))
                                   .astype(np.float32)))
     b = rna_tf32(torch.from_numpy(r.standard_normal((8, 8)).astype(np.float32)))
     c = torch.from_numpy(r.standard_normal((16, 8)).astype(np.float32))
-    got = _mma(c, a, b)
+    got = mma_step(c, a, b)
     assert got.double().numpy().tolist() == probe.model(a.numpy(), b.numpy(), c.numpy()).tolist()
 
 

@@ -1,0 +1,262 @@
+"""K2's products in 3xTF32, emulated on the CPU.
+
+Kernel K2 (``trajsde_tpu_torch/csrc/sde_rollout_bwd.cu``) runs all 14
+products of the rollout's reverse sweep on the tensor cores
+(``csrc/mma_tf32.cuh``): the 4 recomputed forward products (``y @ wf0``,
+``h1 @ wf1``, ``y @ wg0``, ``hg1 @ wg1``), the 5 input gradients
+(``dY @ W.T``) and the 5 weight gradients (``x.T @ dY``) of wf0, wf1, wf2,
+wg0 and wg1.  Each f32 operand x is split into big = rna_tf32(x) and
+small = rna_tf32(x - big); per k-step of 8 the TF32 products small * big
+and big * small are summed on the tensor cores into one fresh fragment and
+big * big into another, two k-steps each, and the two are added to an f32
+sum on the CUDA cores, the small terms first (``mma3x2_apart``).  A row
+product's sum runs over its 64 columns.  A weight gradient is summed per
+block: each block walks 32-row tiles, and for every tile and step adds the
+fragments of ``x_tile.T @ dY_tile`` (two, over 32 rows) to its own f32
+accumulator, which goes into an f64 sum after each tile; the blocks' sums
+are added in f64 in block order.
+The diffusion output ``hg2 @ wgo``, its outer product ``dO @ wgo.T`` and
+``hg2.T @ dO`` stay on the CUDA cores.
+
+Here the plain reverse sweep (``sde_rollout_bwd_reference``, unedited)
+runs under :class:`KernelProducts`, a ``TorchFunctionMode`` that routes
+those 14 products through one of ``MODES``:
+
+* ``3xtf32``: the kernel's arithmetic as above, each tensor-core step
+  modelled as an H100's tensor cores were measured to sum
+  (``scripts/probe_mma_rounding_torch.py``: each addend cut toward zero 2
+  bits below the f32 ulp of the largest, the sum rounded toward zero);
+* ``3xtf32-mixed``: the three products of a k-step in one fresh fragment,
+  as K4 sums them (``mma3x2``);
+* ``3xtf32-chained``: one accumulator carried through the tensor cores:
+  over a row product's 8 k-steps, and over every tile and step of a block
+  for a weight gradient;
+* ``1xtf32``: one TF32 product (big * big) summed in f32;
+* ``exact``: no TF32 at all: each k-step's products of the f32 operands
+  summed exactly and added to the fragment rounded to nearest, as a tensor
+  core that took f32 and rounded to nearest would, so only the order of
+  the sums differs from the plain version.
+
+The input gradients of lambda's update are returned as products and added
+to lambda by the sweep, where the kernel adds their fragments to lambda
+one by one.  With one block per tile (N = 64 rows, two 32-row tiles),
+T = 60 steps, D = 64, weights, inputs, cotangent and explicit increments
+made with numpy as ``tests/test_torch_sde_rollout_bwd.py`` makes them, and
+the decoder's time grid, every leaf (dy0 and the 14 weight gradients) is
+held against the same sweep in f64, as max|x - f64| / max|f64|, and the
+limit is 2x the f32 plain version's distance on the leaf, or 2x the median
+of its distances over the 15 leaves where that is larger.  The floor is
+there because the plain version lands unusually near f64 on bg1 (4.8e-7
+against about 1e-6 on the others): ``exact`` is 3.0x it there, so no
+arithmetic that sums in another order meets 2x the leaf's own distance.
+``3xtf32`` (at most 1.8x the limit's base) and ``exact`` meet the limit;
+``3xtf32-mixed`` (up to 2.7x, on wf2, wg0, wg0t, bg0 and bg1),
+``3xtf32-chained`` and ``1xtf32`` do not.  So K2 sums its products apart,
+where K4 sums them mixed.
+
+    PYTHONPATH=. python tests/test_torch_sde_rollout_tf32.py   # every leaf's distance, each mode
+"""
+from __future__ import annotations
+
+import functools
+import statistics
+
+import numpy as np
+import pytest
+import torch
+from torch.overrides import TorchFunctionMode
+
+from scripts.probe_mma_rounding_torch import STEPS_PER_FRAGMENT, mm_3xtf32, rna_tf32
+from trajsde_tpu_torch.models.sde import decoder_time_grid
+from trajsde_tpu_torch.ops import sde_rollout as K
+
+N, T, D = 64, 60, 64
+ROWS = K.BWD_TILE_ROWS
+ROUTED = ("wf0", "wf1", "wf2", "wg0", "wg1")
+# the sweep's weight-gradient products in its order, wgo's (hg2.T @ dO) left out
+WGRAD_ORDER = ("wf2", "wf1", "wf0", "wg1", "wg0")
+MODES = ("3xtf32", "3xtf32-mixed", "3xtf32-chained", "1xtf32", "exact")
+_MATMULS = (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__)
+
+
+def _product(mode: str, a: torch.Tensor, b: torch.Tensor, acc=None) -> torch.Tensor:
+    """acc + a @ b in the mode's arithmetic (f32 in, f32 out); ``f32``
+    is the plain f32 product."""
+    if mode == "f32":
+        return a @ b if acc is None else acc + a @ b
+    if mode == "1xtf32":
+        p = rna_tf32(a.contiguous()) @ rna_tf32(b.contiguous())
+        return p if acc is None else acc + p
+    if mode == "exact":
+        acc = torch.zeros((a.shape[0], b.shape[1])) if acc is None else acc
+        for k0 in range(0, a.shape[1], 8 * STEPS_PER_FRAGMENT):
+            c = torch.zeros_like(acc)
+            for k in range(k0, k0 + 8 * STEPS_PER_FRAGMENT, 8):
+                c = (c.double() + a[:, k:k + 8].double() @ b[k:k + 8].double()).float()
+            acc = acc + c
+        return acc
+    return mm_3xtf32(a.contiguous(), b.contiguous(), mode == "3xtf32-chained", acc,
+                     apart=mode == "3xtf32")
+
+
+class KernelProducts(TorchFunctionMode):
+    """Routes the sweep's 14 products through ``mode``.  ``calls`` records
+    each routed product as (kind, weight); ``blocks[w][b]`` is block b's
+    weight-gradient accumulator (one block per 32-row tile)."""
+
+    def __init__(self, params, mode: str, rows: int):
+        super().__init__()
+        self.params, self.mode, self.calls = params, mode, []
+        self.blocks = {w: [torch.zeros((D, D)) for _ in range(-(-rows // ROWS))] for w in ROUTED}
+        self._wgrads = 0
+
+    def _weight(self, b: torch.Tensor):
+        """(kind, name) when b is a routed weight (forward) or its transpose."""
+        for name in ROUTED:
+            w = self.params[name]
+            if b is w:
+                return "forward", name
+            if b._base is w and b.shape == w.shape[::-1] and b.stride() == w.stride()[::-1]:
+                return "input-grad", name
+        return None
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func not in _MATMULS or kwargs or len(args) != 2:
+            return func(*args, **kwargs)
+        a, b = args
+        routed = self._weight(b)
+        if routed is not None:
+            self.calls.append(routed)
+            return _product(self.mode, a, b)
+        if a.dim() == 2 and a.shape[0] == D and b.dim() == 2 and b.shape == (a.shape[1], D) \
+                and a.stride() == (1, D):
+            # x.T @ dY: one block per tile, its fragments added to the block's sum
+            name = WGRAD_ORDER[self._wgrads % len(WGRAD_ORDER)]
+            self._wgrads += 1
+            self.calls.append(("weight-grad", name))
+            for i, acc in enumerate(self.blocks[name]):
+                rows = slice(ROWS * i, ROWS * (i + 1))
+                self.blocks[name][i] = _product(self.mode, a[:, rows], b[rows], acc)
+            return a @ b
+        return func(*args, **kwargs)
+
+    def weight_grads(self) -> dict:
+        """The routed weight gradients: the blocks' sums added in f64 in
+        block order (the kernel adds each tile's to its block's f64 sum)."""
+        out = {}
+        for name, accs in self.blocks.items():
+            s = torch.zeros((D, D), dtype=torch.float64)
+            for acc in accs:
+                s = s + acc.double()
+            out[name] = s.float()
+        return out
+
+
+def _case(seed: int = 0):
+    """y0, ys (the f32 forward), ct, explicit noise, params, t0s, dts."""
+    r = np.random.default_rng(seed)
+    f = lambda *s, sc=1.0: torch.from_numpy((r.standard_normal(s) * sc).astype(np.float32))  # noqa: E731
+    p = dict(wf0=f(D, D, sc=0.3), wf0t=f(2, D, sc=0.3), bf0=f(1, D, sc=0.1),
+             wf1=f(D, D, sc=0.3), bf1=f(1, D, sc=0.1), wf2=f(D, D, sc=0.3), bf2=f(1, D, sc=0.1),
+             wg0=f(D, D, sc=0.3), wg0t=f(2, D, sc=0.3), bg0=f(1, D, sc=0.1),
+             wg1=f(D, D, sc=0.3), bg1=f(1, D, sc=0.1), wgo=f(D, 1, sc=0.3), bgo=f(1, 1, sc=0.1))
+    y0, noise, ct = f(N, D, sc=0.5), f(T, N, D), f(T, N, D)
+    t0s, dts = decoder_time_grid(T, 6.0)
+    ys = K.sde_rollout_reference(y0, p, t0s, dts, 0, T, noise)
+    return y0, ys, ct, noise, p, t0s, dts
+
+
+def routed_bwd(mode: str, calls: list | None = None):
+    """(dy0, grads) of the plain sweep with the 14 products routed."""
+    y0, ys, ct, noise, p, t0s, dts = _case()
+    kp = KernelProducts(p, mode, N)
+    with kp:
+        dy0, grads = K.sde_rollout_bwd_reference(y0, ys, ct, p, t0s, dts, 0, T, noise)
+    if calls is not None:
+        calls.extend(kp.calls)
+    return dy0, {**grads, **kp.weight_grads()}
+
+
+@functools.lru_cache(maxsize=None)
+def distances() -> dict:
+    """leaf -> {plain, and each mode}: max|x - f64| / max|f64|."""
+    y0, ys, ct, noise, p, t0s, dts = _case()
+    oracle = K.sde_rollout_bwd_reference(y0.double(), ys.double(), ct.double(),
+                                         {k: v.double() for k, v in p.items()}, t0s, dts, 0, T,
+                                         noise.double())
+    runs = {"plain": K.sde_rollout_bwd_reference(y0, ys, ct, p, t0s, dts, 0, T, noise)}
+    for mode in MODES:
+        runs[mode] = routed_bwd(mode)
+    leaves = {}
+    for name in ("dy0", *K.PARAM_ORDER):
+        o = oracle[0] if name == "dy0" else oracle[1][name]
+        leaves[name] = {}
+        for run, (dy0, grads) in runs.items():
+            x = dy0 if name == "dy0" else grads[name]
+            leaves[name][run] = ((x.double() - o).abs().max() / o.abs().max()).item()
+    return leaves
+
+
+def within_the_f64_criterion(leaves: dict, run: str, floor: bool = True) -> bool:
+    """Every leaf within 2x the plain version's distance, floored at the
+    median of the plain distances (``floor=False``: the leaf's own)."""
+    median = statistics.median(v["plain"] for v in leaves.values()) if floor else 0.0
+    return all(v[run] <= 2.0 * max(v["plain"], median) for v in leaves.values())
+
+
+def test_routing_reaches_exactly_the_fourteen_products_and_keeps_the_forward():
+    """Per step: the 4 recomputed products, then the input gradients of wf2,
+    wf1 and wg1, the 5 weight gradients, and lambda's two input gradients;
+    wgo's three products stay out.  With f32 products the mode gives the
+    plain sweep's answer."""
+    calls = []
+    routed_bwd("3xtf32", calls)
+    step = ([("forward", w) for w in ("wf0", "wf1", "wg0", "wg1")]
+            + [("input-grad", w) for w in ("wf2", "wf1", "wg1")]
+            + [("weight-grad", w) for w in WGRAD_ORDER]
+            + [("input-grad", w) for w in ("wf0", "wg0")])
+    assert calls == step * T
+    y0, ys, ct, noise, p, t0s, dts = _case()
+    plain = K.sde_rollout_bwd_reference(y0, ys, ct, p, t0s, dts, 0, T, noise)
+    kp = KernelProducts(p, "f32", N)
+    with kp:
+        got = K.sde_rollout_bwd_reference(y0, ys, ct, p, t0s, dts, 0, T, noise)
+    assert torch.equal(got[0], plain[0])
+    for k in K.PARAM_ORDER:
+        if k not in ROUTED:
+            assert torch.equal(got[1][k], plain[1][k]), k
+    for k, g in kp.weight_grads().items():   # the same sums over rows, in other groups
+        assert ((g - plain[1][k]).abs().max() / plain[1][k].abs().max()).item() < 1e-5, k
+
+
+def test_3xtf32_reverse_sweep_is_within_the_f64_criterion():
+    leaves = distances()
+    assert within_the_f64_criterion(leaves, "3xtf32"), leaves
+
+
+def test_exact_products_need_the_floor():
+    """Exact products summed in the kernel's order meet the limit, and miss
+    2x the plain version's own distance on some leaf: the floor."""
+    leaves = distances()
+    assert within_the_f64_criterion(leaves, "exact"), leaves
+    assert not within_the_f64_criterion(leaves, "exact", floor=False), leaves
+
+
+@pytest.mark.parametrize("mode", ["3xtf32-mixed", "3xtf32-chained", "1xtf32"])
+def test_other_arithmetic_breaks_the_f64_criterion(mode):
+    """The criterion tells the kernel's arithmetic from one TF32 product
+    (2^-11 per operand) and from one tensor-core accumulator carried over a
+    whole sum (its sums cut and rounded toward zero, over and over)."""
+    leaves = distances()
+    assert not within_the_f64_criterion(leaves, mode), leaves
+
+
+if __name__ == "__main__":
+    runs = ("plain", *MODES)
+    leaves = distances()
+    print(f"N {N}, T {T}, D {D}, {ROWS}-row tiles: max|x - f64| / max|f64| "
+          f"({', '.join(runs)}); within the criterion: "
+          + ", ".join(f"{m} {within_the_f64_criterion(leaves, m)}" for m in MODES))
+    for name, v in leaves.items():
+        print(f"  {name:5s} " + " ".join(f"{v[m]:.3e}" for m in runs))

@@ -1,5 +1,6 @@
 // Warp-level tensor-core products at f32 accuracy (3xTF32) over operands in
-// shared memory, for the backward products of K4 (aa_fused_bwd.cu).
+// shared memory, for the backward products of K4 (aa_fused_bwd.cu) and
+// all fourteen products of K2 (sde_rollout_bwd.cu).
 //
 // mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 multiplies a 16 x 8
 // tile of A by an 8 x 8 tile of B into a 16 x 8 f32 tile C, one warp at a
@@ -47,6 +48,77 @@ __device__ __forceinline__ void mma(float c[4], const uint32_t a[4], const uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// acc += A B over two k-steps (h = 0, 1) in 3xTF32: the six TF32 products,
+// the small terms first, into a fresh fragment, which is then added to acc
+// on the CUDA cores (see mma_xwt)
+__device__ __forceinline__ void mma3x2(float acc[4], const uint32_t ab0[4], const uint32_t as0[4],
+                                       const uint32_t bb0[2], const uint32_t bs0[2],
+                                       const uint32_t ab1[4], const uint32_t as1[4],
+                                       const uint32_t bb1[2], const uint32_t bs1[2]) {
+  float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma(c, as0, bb0);
+  mma(c, ab0, bs0);
+  mma(c, ab0, bb0);
+  mma(c, as1, bb1);
+  mma(c, ab1, bs1);
+  mma(c, ab1, bb1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += c[e];
+}
+
+// the same six products into two fresh fragments, the small terms in one
+// and big * big in the other, added to acc in that order: the small terms
+// are then not cut to the bits of the running sum, nor big * big's sum to
+// those of a sum carried through four more steps.  K2 sums so: in a CPU
+// model of its reverse sweep (tests/test_torch_sde_rollout_tf32.py) mma3x2
+// put five gradients 2.4-2.7x farther from f64 than the f32 plain version's
+// typical distance, this 1.8x at most.
+__device__ __forceinline__ void mma3x2_apart(float acc[4], const uint32_t ab0[4],
+                                             const uint32_t as0[4], const uint32_t bb0[2],
+                                             const uint32_t bs0[2], const uint32_t ab1[4],
+                                             const uint32_t as1[4], const uint32_t bb1[2],
+                                             const uint32_t bs1[2]) {
+  float c[4] = {0.0f, 0.0f, 0.0f, 0.0f}, m[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma(c, as0, bb0);
+  mma(c, ab0, bs0);
+  mma(c, as1, bb1);
+  mma(c, ab1, bs1);
+  mma(m, ab0, bb0);
+  mma(m, ab1, bb1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] = (acc[e] + c[e]) + m[e];
+}
+
+// one of the two: APART picks mma3x2_apart
+template <bool APART>
+__device__ __forceinline__ void mma3x2_sum(float acc[4], const uint32_t ab0[4],
+                                           const uint32_t as0[4], const uint32_t bb0[2],
+                                           const uint32_t bs0[2], const uint32_t ab1[4],
+                                           const uint32_t as1[4], const uint32_t bb1[2],
+                                           const uint32_t bs1[2]) {
+  if (APART)
+    mma3x2_apart(acc, ab0, as0, bb0, bs0, ab1, as1, bb1, bs1);
+  else
+    mma3x2(acc, ab0, as0, bb0, bs0, ab1, as1, bb1, bs1);
+}
+
+// the A fragments of a k-step pair (k0, k0 + 8) of MT tiles, split
+template <int MT, class AccX>
+__device__ __forceinline__ void split_a(const AccX& x, int m0, int k0, uint32_t xb[2][MT][4],
+                                        uint32_t xs[2][MT][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      const int m = m0 + 16 * i + g, k = k0 + 8 * h;
+      split(x(m, k + t), xb[h][i][0], xs[h][i][0]);
+      split(x(m + 8, k + t), xb[h][i][1], xs[h][i][1]);
+      split(x(m, k + t + 4), xb[h][i][2], xs[h][i][2]);
+      split(x(m + 8, k + t + 4), xb[h][i][3], xs[h][i][3]);
+    }
+}
+
 // acc += X W^T, 3xTF32: acc[i][j] += sum_k x(m0 + 16 i + r, k) w(n0 + 8 j + c, k)
 // for this warp's MT x NT tiles (r < 16, c < 8, k < K), with X [M][K] and
 // W [N][K] by rows: an input gradient dY W^T of y = x W, W's rows [in][out]
@@ -63,23 +135,14 @@ __device__ __forceinline__ void mma(float c[4], const uint32_t a[4], const uint3
 // FMA build was, on an H100, and failed the f64 test at B = 8.  A fresh fragment per k-step also
 // passes; one per two k-steps takes fewer registers (no spill in K4) and
 // fewer adds (tests/test_torch_aa_fused_tf32.py models all three).
-template <int MT, int NT, int K, int UNROLL, class AccX, class AccW>
+template <int MT, int NT, int K, int UNROLL, bool APART = false, class AccX, class AccW>
 __device__ __forceinline__ void mma_xwt(const AccX& x, const AccW& w, int m0, int n0,
                                         float acc[MT][NT][4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll (UNROLL)
   for (int k0 = 0; k0 < K; k0 += 16) {
     uint32_t xb[2][MT][4], xs[2][MT][4];
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int m = m0 + 16 * i + g, k = k0 + 8 * h;
-        split(x(m, k + t), xb[h][i][0], xs[h][i][0]);
-        split(x(m + 8, k + t), xb[h][i][1], xs[h][i][1]);
-        split(x(m, k + t + 4), xb[h][i][2], xs[h][i][2]);
-        split(x(m + 8, k + t + 4), xb[h][i][3], xs[h][i][3]);
-      }
+    split_a<MT>(x, m0, k0, xb, xs);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const int n = n0 + 8 * j + g;
@@ -90,17 +153,8 @@ __device__ __forceinline__ void mma_xwt(const AccX& x, const AccW& w, int m0, in
         split(w(n, k0 + 8 * h + t + 4), wb[h][1], ws[h][1]);
       }
 #pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          mma(c, xs[h][i], wb[h]);
-          mma(c, xb[h][i], ws[h]);
-          mma(c, xb[h][i], wb[h]);
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += c[e];
-      }
+      for (int i = 0; i < MT; ++i) mma3x2_sum<APART>(acc[i][j], xb[0][i], xs[0][i], wb[0], ws[0],
+                                                     xb[1][i], xs[1][i], wb[1], ws[1]);
     }
   }
 }
@@ -113,11 +167,115 @@ struct Trans {
 };
 
 // acc += X^T Y: X [K][M] and Y [K][N] by rows (a weight gradient x^T dY,
-// summed over K rows of pairs)
-template <int MT, int NT, int K, int UNROLL, class AccX, class AccY>
+// summed over K rows of pairs or rows)
+template <int MT, int NT, int K, int UNROLL, bool APART = false, class AccX, class AccY>
 __device__ __forceinline__ void mma_xty(const AccX& x, const AccY& y, int m0, int n0,
                                         float acc[MT][NT][4]) {
-  mma_xwt<MT, NT, K, UNROLL>(Trans<AccX>{x}, Trans<AccY>{y}, m0, n0, acc);
+  mma_xwt<MT, NT, K, UNROLL, APART>(Trans<AccX>{x}, Trans<AccY>{y}, m0, n0, acc);
+}
+
+// acc += X W^T as mma_xwt<..., APART = true>, with W split beforehand: w(n, k) returns the
+// (big, small) TF32 pair of W[n][k] as a uint2, so only X is split here.
+// The NT tiles lie n_step columns apart: tile j covers columns
+// n0 + n_step j .. + 7 (K2's warps take n-tiles j and j + 4).
+template <int MT, int NT, int K, int UNROLL, class AccX, class AccW>
+__device__ __forceinline__ void mma_xwt_split(const AccX& x, const AccW& w, int m0, int n0,
+                                              int n_step, float acc[MT][NT][4]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll (UNROLL)
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    uint32_t xb[2][MT][4], xs[2][MT][4];
+    split_a<MT>(x, m0, k0, xb, xs);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int n = n0 + n_step * j + g;
+      uint32_t wb[2][2], ws[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const uint2 p = w(n, k0 + 8 * h + t + 4 * r);
+          wb[h][r] = p.x;
+          ws[h][r] = p.y;
+        }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) mma3x2_apart(acc[i][j], xb[0][i], xs[0][i], wb[0], ws[0],
+                                                xb[1][i], xs[1][i], wb[1], ws[1]);
+    }
+  }
+}
+
+// two products of mma_xwt_split in one loop, acc1 += X1 W1^T and
+// acc2 += X2 W2^T, so that their fragments interleave; where X1 and X2 are
+// one tile (the same accessor), its fragments are loaded and split once
+template <int MT, int NT, int K, int UNROLL, class AccX1, class AccW1, class AccX2, class AccW2>
+__device__ __forceinline__ void mma_xwt_split2(const AccX1& x1, const AccW1& w1,
+                                               float acc1[MT][NT][4], const AccX2& x2,
+                                               const AccW2& w2, float acc2[MT][NT][4], int m0,
+                                               int n0, int n_step) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll (UNROLL)
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    uint32_t xb1[2][MT][4], xs1[2][MT][4], xb2[2][MT][4], xs2[2][MT][4];
+    split_a<MT>(x1, m0, k0, xb1, xs1);
+    split_a<MT>(x2, m0, k0, xb2, xs2);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int n = n0 + n_step * j + g;
+      uint32_t wb1[2][2], ws1[2][2], wb2[2][2], ws2[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const uint2 p1 = w1(n, k0 + 8 * h + t + 4 * r), p2 = w2(n, k0 + 8 * h + t + 4 * r);
+          wb1[h][r] = p1.x;
+          ws1[h][r] = p1.y;
+          wb2[h][r] = p2.x;
+          ws2[h][r] = p2.y;
+        }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        mma3x2_apart(acc1[i][j], xb1[0][i], xs1[0][i], wb1[0], ws1[0], xb1[1][i], xs1[1][i],
+                     wb1[1], ws1[1]);
+        mma3x2_apart(acc2[i][j], xb2[0][i], xs2[0][i], wb2[0], ws2[0], xb2[1][i], xs2[1][i],
+                     wb2[1], ws2[1]);
+      }
+    }
+  }
+}
+
+// two weight gradients of mma_xty<..., APART = true> in one loop,
+// acc1 += X1^T Y1 and acc2 += X2^T Y2 (X1 and X2 one tile: split once)
+template <int MT, int NT, int K, int UNROLL, class AccX1, class AccY1, class AccX2, class AccY2>
+__device__ __forceinline__ void mma_xty2(const AccX1& x1, const AccY1& y1, float acc1[MT][NT][4],
+                                         const AccX2& x2, const AccY2& y2, float acc2[MT][NT][4],
+                                         int m0, int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll (UNROLL)
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    uint32_t xb1[2][MT][4], xs1[2][MT][4], xb2[2][MT][4], xs2[2][MT][4];
+    split_a<MT>(Trans<AccX1>{x1}, m0, k0, xb1, xs1);
+    split_a<MT>(Trans<AccX2>{x2}, m0, k0, xb2, xs2);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int n = n0 + 8 * j + g;
+      uint32_t yb1[2][2], ys1[2][2], yb2[2][2], ys2[2][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          split(y1(k0 + 8 * h + t + 4 * r, n), yb1[h][r], ys1[h][r]);
+          split(y2(k0 + 8 * h + t + 4 * r, n), yb2[h][r], ys2[h][r]);
+        }
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        mma3x2_apart(acc1[i][j], xb1[0][i], xs1[0][i], yb1[0], ys1[0], xb1[1][i], xs1[1][i],
+                     yb1[1], ys1[1]);
+        mma3x2_apart(acc2[i][j], xb2[0][i], xs2[0][i], yb2[0], ys2[0], xb2[1][i], xs2[1][i],
+                     yb2[1], ys2[1]);
+      }
+    }
+  }
 }
 
 // the C fragment of one tile at rows m0 .. m0 + 15, cols n0 .. n0 + 7:

@@ -21,143 +21,212 @@
 //
 // Bound on an H100 SXM at the training shape (N = 61,440 rows, T = 60, D = 64):
 // per row-step 4 recomputed, 5 input-gradient and 5 weight-gradient 64x64
-// products plus three 64-wide dot products, 28 D^2 + 6 D = 115,072 flop:
-// 4.24e11 f32 flop, 6.3 ms at the 67 TFLOP/s CUDA-core peak; reading ys
-// and ct is 1.9 GB, 0.56 ms at 3.35 TB/s.  K2 is bound by arithmetic.
+// products plus three 64-wide dot products, 28 D^2 + 6 D = 115,072 flop,
+// 4.24e11 in all.  The 14 products run on the tensor cores at f32 accuracy
+// (3xTF32, mma_tf32.cuh): three TF32 products each, 4.23e11 flop at 495 / 3
+// TFLOP/s is 2.56 ms; reading ys and ct is 1.9 GB, 0.56 ms at 3.35 TB/s.  On
+// this route K2 is bound by the tensor cores (6.3 ms with every product on
+// the CUDA cores at 67 TFLOP/s).
 //
-// Design.  A persistent grid (one 256-thread block per SM) walks 64-row
+// Design.  A persistent grid (one 256-thread block per SM) walks 32-row
 // tiles; each tile runs all T steps backwards inside the block (the loop
-// replaces the TPU's reversed step grid axis).  The 14 weights are staged in
-// shared memory once per block, the five matrices with a padded row stride
-// of 68 floats so that the transposed products (dX W^T) read rows of W as
-// conflict-free float4s.  Seven padded activation tiles (y, dF|dA2, h1,
-// hg1, h2|dA1, hg2|dAG2, dAG1) and the per-row dO live in shared memory:
-// 211,728 bytes, one block per SM.
-//   * Each thread owns rows r0..r0+3 and the strided columns cg + 16 j of
-//     every activation (so one thread holds both lanes of its two
-//     Box-Muller pairs), and holds lambda there in registers.
-//   * The five 64x64 weight gradients are block-private and live in
-//     registers: each thread keeps a 4x4 tile (rows k0..k0+3, columns
-//     c0..c0+3) of each, 80 floats, accumulated over every row of every tile
-//     the block walks.  The bias, time-feature and wgo gradients are column
-//     sums over the tile, taken by one 64-thread group each.
-//   * No float atomics.  Each block writes its partial gradients once to a
-//     [grid, W_FLOATS] workspace, and reduce_partials sums them in block
-//     order, so the gradients are the same run after run.
+// replaces the TPU's reversed step grid axis).  32-row tiles give 1,920
+// tiles at the training shape, 15 rounds on 132 SMs with a short last one.
+//   * The five 64 x 64 weights are the same for every row, step and tile,
+//     so they are split into TF32 (big, small) pairs once, when the block
+//     stages them: 5 x 64 x 64 uint2 = 163,840 B of shared memory.  A pair
+//     (r, c) lies at r * 64 + (c ^ 4 (r mod 4)) (8-byte slots): the forward
+//     products read B fragments at W[k = t][n = g] and the input gradients
+//     at W[n = g][k = t], and both are conflict-free under this XOR.
+//   * Seven 32-row f32 activation tiles (57,344 B), XOR-swizzled by
+//     16-byte granule (tile_at), so that the A fragments (X[g][t]), the
+//     weight-gradient operands (X[t][g]) and the float2 stores of C
+//     fragments are conflict-free; the activations change every step and
+//     are split per use.  Slots: y; dF, then dA1; h1; hg1; h2, then dAG1;
+//     dA2; hg2, then dAG2.  The tanh derivatives are taken from the h1 and
+//     hg1 tiles when they are needed, not kept in registers.  With the small weights (2,576 B) and the diffusion
+//     logit's exchange (1,024 B): 224,784 B, one block per SM.
+//   * Each of the 8 warps owns one 16-row m-tile and the n-tiles j and
+//     j + 4 (columns 8 j .. and 8 j + 32 ..) of every row product, so a
+//     thread holds both lanes (p, p + 32) of each Box-Muller pair it draws,
+//     and lambda stays in registers as C fragments for all T steps.
+//   * Every product is a warp-level mma.sync m16n8k8 in 3xTF32: per two
+//     k-steps the small terms go into one fresh fragment and big * big into
+//     another, and both are added to f32 accumulators on the CUDA cores
+//     (mma3x2_apart: the tensor cores truncate their sums, and summed in
+//     one fragment, as K4 does, the gradients of a CPU model of this sweep
+//     fell outside the f64 criterion).  The five weight
+//     gradients are block-private C fragments in registers: each warp owns
+//     a 32 x 16 block of each, 80 floats a thread, summed over every row of
+//     every tile the block walks.
+//   * The bias, time-feature and wgo gradients are column sums: each
+//     thread adds its own elements in registers, and the rows are summed
+//     by warp shuffles and one exchange through shared memory at the end.
+//     The diffusion logit and lambda . z are row sums: shuffles over the
+//     4 lanes of a row, then the 4 warps of an m-tile through shared
+//     memory, in a fixed order.
+//   * The next step's ys[t-2] and ct[t-1] are loaded into registers (16
+//     floats a thread) at the start of a step and written to shared memory
+//     at the start of the next one.
+//   * Six barriers a step: y and dF in (A); h1, hg1 (B); h2, hg2, dA2 and
+//     the logit's partial sums (C); dO, dAG2, dwf2, dwf1, dA1 (D); dwg1,
+//     dAG1 (E); dwf0, dwg0 and lambda (F).  Where a phase has two products
+//     of a kind, one loop runs both (mma_xwt_split2, mma_xty2), so that
+//     their fragments interleave and a shared operand is split once: on an
+//     H100 the pairs took K2 from 16.5 to 15.0 ms.  (Pairing dA1's product
+//     with dAG1's in E instead gave the same time and spilled.)
+//   * After each tile the block adds its weight gradients (registers, f32
+//     over the tile's T steps) to its own row of a [grid, W_FLOATS] f64
+//     workspace, and reduce_partials sums the rows in block order in f64.
+//     So no f32 sum runs over more than one tile, as the f32 plain version
+//     sums each step's products over all rows at once; summed in f32 over
+//     a block's 15 tiles, the weight gradients were 4-8x farther from an
+//     f64 oracle than the plain version's (scripts/check_rollout_bwd_f64_torch.py).
+//     No float atomics: the gradients are the same run after run.
 // The ragged last tile is bounds-checked: rows past N carry zero lambda and
 // contribute nothing, so no padding copy exists.
-// Shared memory is the tight spot (weights 89,616 B + tiles 121,856 B), so
-// the block-private weight gradients live in registers rather than in a
-// second 80 KB of shared memory: ptxas (sm_90a) gives the three
-// instantiations 220 (explicit), 218 (Rademacher) and 222 (gaussian)
-// registers with no spills; one 8-warp block per SM.
+// Registers: 80 for the weight gradients, 8 lambda, 16 prefetch, 11 column
+// sums; ptxas (sm_90a) gives the three instantiations 255 registers and no
+// spills (a 32-byte stack frame in the gaussian one) with the
+// weight-gradient products' k-loop not unrolled (UNROLL_W = 1; unrolled by
+// 2 it spilled 88 bytes).  On an H100 at the training shape K2 takes
+// 14.7 ms (gaussian) against the FMA build's 17.8-18.2, of which 2.8-3.1 ms
+// are the rest with the 14 products skipped
+// (scripts/compare_rollout_bwd_builds_torch.py).
 
+#include "mma_tf32.cuh"
 #include "rollout_common.cuh"
 
 namespace {
 
 using namespace rollout;
 
-constexpr int ROWS = 64;
+constexpr int ROWS = 32;
 constexpr int THREADS = 256;
-constexpr int LD = D + 4;                       // padded row stride (floats)
-constexpr int TILE = ROWS * LD;
-constexpr int SMAT = D * LD;
-constexpr int NSMALL = W_FLOATS - OFF_WF0T;     // wf0t .. bgo, kept unpadded
-constexpr int S_WF0 = 0, S_WF1 = SMAT, S_WF2 = 2 * SMAT, S_WG0 = 3 * SMAT, S_WG1 = 4 * SMAT;
-constexpr int S_SMALL = 5 * SMAT;
-constexpr int SW_FLOATS = S_SMALL + NSMALL;
-constexpr int SMEM_FLOATS = SW_FLOATS + 7 * TILE + ROWS;
-static_assert(NSMALL % 4 == 0 && SW_FLOATS % 4 == 0 && TILE % 4 == 0, "float4 alignment");
+constexpr int TILE = ROWS * D;                  // floats
+constexpr int NSMALL = W_FLOATS - OFF_WF0T;     // wf0t .. bgo, kept in f32
+constexpr int NTILES = 7;
+constexpr int SMEM_BYTES = 5 * MAT * 8 + 4 * (NSMALL + NTILES * TILE + ROWS * 4 * 2);
+constexpr int UNROLL = 2;     // k-loop unrolling of the row products
+constexpr int UNROLL_W = 1;   // and of the weight-gradient products
+enum { WF0, WF1, WF2, WG0, WG1 };   // matrix m at m * MAT in the packed layout
+static_assert(OFF_WF1 == MAT && OFF_WG1 == WG1 * MAT, "packed matrices");
+static_assert(NSMALL % 4 == 0 && SMEM_BYTES <= 232448, "shared memory");
 
-// shared-memory index of a small parameter at packed offset `off`
-__device__ __forceinline__ int small(int off) { return S_SMALL + off - OFF_WF0T; }
+// slot of a split weight pair (r, c) in its 64 x 64 matrix
+__device__ __forceinline__ int w_at(int r, int c) { return r * D + (c ^ ((r & 3) << 2)); }
 
-// acc[i][j] += sum_k in[r0 + i][k] * W[k][cg + 16 j]
-__device__ __forceinline__ void mm_fwd(const float* __restrict__ in, const float* __restrict__ W,
-                                       int r0, int cg, float acc[4][4]) {
-#pragma unroll 2
-  for (int k = 0; k < D; k += 4) {
-    float a[4][4];
+// index of (r, c) in a swizzled activation tile: the row's 16-byte granules
+// permuted by an XOR with 2 (r mod 4) + (r / 4 mod 2)
+__device__ __forceinline__ int tile_at(int r, int c) {
+  return r * D + (c ^ ((((r & 3) << 1) | ((r >> 2) & 1)) << 2));
+}
+
+struct Tile {  // an activation tile, x(row, col)
+  const float* p;
+  __device__ __forceinline__ float operator()(int r, int c) const { return p[tile_at(r, c)]; }
+};
+struct WFwd {  // B of x W: w(n, k) = W[k][n]
+  const uint2* p;
+  __device__ __forceinline__ uint2 operator()(int n, int k) const { return p[w_at(k, n)]; }
+};
+struct WTr {  // B of dY W^T: w(n, k) = W[n][k]
+  const uint2* p;
+  __device__ __forceinline__ uint2 operator()(int n, int k) const { return p[w_at(n, k)]; }
+};
+
+template <int A, int B, int C>
+__device__ __forceinline__ void zero(float (&x)[A][B][C]) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 v = *reinterpret_cast<const float4*>(in + (r0 + i) * LD + k);
-      a[i][0] = v.x; a[i][1] = v.y; a[i][2] = v.z; a[i][3] = v.w;
+  for (int a = 0; a < A; ++a)
+#pragma unroll
+    for (int b = 0; b < B; ++b)
+#pragma unroll
+      for (int c = 0; c < C; ++c) x[a][b][c] = 0.0f;
+}
+
+// the 16 floats of the next step: the tile's 32 x 64 pre-step state, two
+// float4 a thread in row order, and ct at the thread's C-fragment places
+struct Prefetch {
+  float4 y[2];
+  float2 ct[2][2];   // [n-tile][row half]
+};
+
+__device__ __forceinline__ void prefetch(Prefetch& pf, const float* __restrict__ prev,
+                                         const float* __restrict__ ctt, long long row0, int N,
+                                         int tid, int frow, int fcol) {
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int f = tid + THREADS * q;
+    const long long row = row0 + (f >> 4);
+    pf.y[q] = row < N ? __ldg(reinterpret_cast<const float4*>(prev + row * D + 4 * (f & 15)))
+                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long row = row0 + frow + 8 * h;
+      pf.ct[j][h] = row < N ? __ldg(reinterpret_cast<const float2*>(ctt + row * D + fcol + 32 * j))
+                            : make_float2(0.0f, 0.0f);
     }
+}
+
+// a thread's C-fragment values v[j][e] into a swizzled tile (rows frow,
+// frow + 8; columns fcol, fcol + 1 of n-tiles j = 0, 1 at 32 j)
+__device__ __forceinline__ void store_frag(float* tile, const float (&v)[1][2][4], int frow,
+                                           int fcol) {
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float* wr = W + (k + kk) * LD + cg;
-      const float w0 = wr[0], w1 = wr[16], w2 = wr[32], w3 = wr[48];
+  for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][0] = fmaf(a[i][kk], w0, acc[i][0]);
-        acc[i][1] = fmaf(a[i][kk], w1, acc[i][1]);
-        acc[i][2] = fmaf(a[i][kk], w2, acc[i][2]);
-        acc[i][3] = fmaf(a[i][kk], w3, acc[i][3]);
-      }
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(tile + tile_at(frow + 8 * h, fcol + 32 * j)) =
+          make_float2(v[0][j][2 * h], v[0][j][2 * h + 1]);
+}
+
+// the same places of a tile into v
+__device__ __forceinline__ void load_frag(float (&v)[1][2][4], const float* tile, int frow,
+                                          int fcol) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 x = *reinterpret_cast<const float2*>(tile + tile_at(frow + 8 * h, fcol + 32 * j));
+      v[0][j][2 * h] = x.x;
+      v[0][j][2 * h + 1] = x.y;
     }
-  }
 }
 
-// acc[i][m] += sum_j in[r0 + i][j] * W[cg + 16 m][j]   (in times W transposed)
-__device__ __forceinline__ void mm_tr(const float* __restrict__ in, const float* __restrict__ W,
-                                      int r0, int cg, float acc[4][4]) {
-#pragma unroll 2
-  for (int j = 0; j < D; j += 4) {
-    float4 a[4], b[4];
+// v *= 1 - h^2, h at the same places of a tile of tanh outputs
+__device__ __forceinline__ void scale_by_tanh_derivative(float (&v)[1][2][4], const float* tile,
+                                                         int frow, int fcol) {
+  float h[1][2][4];
+  load_frag(h, tile, frow, fcol);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const float4*>(in + (r0 + i) * LD + j);
+  for (int j = 0; j < 2; ++j)
 #pragma unroll
-    for (int m = 0; m < 4; ++m) b[m] = *reinterpret_cast<const float4*>(W + (cg + 16 * m) * LD + j);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        float s = acc[i][m];
-        s = fmaf(a[i].x, b[m].x, s);
-        s = fmaf(a[i].y, b[m].y, s);
-        s = fmaf(a[i].z, b[m].z, s);
-        acc[i][m] = fmaf(a[i].w, b[m].w, s);
-      }
-  }
+    for (int e = 0; e < 4; ++e) v[0][j][e] *= 1.0f - h[0][j][e] * h[0][j][e];
 }
 
-// acc[a][b] += sum_r in[r][k0 + a] * dl[r][c0 + b]   (in transposed times dl)
-__device__ __forceinline__ void mm_wgrad(const float* __restrict__ in, const float* __restrict__ dl,
-                                         int k0, int c0, float acc[4][4]) {
-#pragma unroll 4
-  for (int r = 0; r < ROWS; ++r) {
-    const float4 a = *reinterpret_cast<const float4*>(in + r * LD + k0);
-    const float4 b = *reinterpret_cast<const float4*>(dl + r * LD + c0);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
+// the column sum over a warp's 16 rows of one of a thread's four columns:
+// v's rows frow and frow + 8 are added, then the 8 row lanes (g) reduce
+// and scatter the four columns (lane bits 4 and 3 pick n-tile j and column
+// k of the pair), four shuffles in all.  Every lane gets the sum of column
+// fcol + 32 ((lane >> 4) & 1) + ((lane >> 3) & 1); lanes g and g ^ 1 the same.
+__device__ __forceinline__ float colsum(const float (&v)[1][2][4]) {
+  const int lane = threadIdx.x & 31;
+  const bool hi = lane & 16, odd = lane & 8;
+  float cs[2][2];
 #pragma unroll
-    for (int x = 0; x < 4; ++x)
+  for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int y = 0; y < 4; ++y) acc[x][y] = fmaf(av[x], bv[y], acc[x][y]);
-  }
-}
-
-__device__ __forceinline__ float colsum(const float* __restrict__ tile, int col) {
-  float s = 0.0f;
-#pragma unroll 8
-  for (int r = 0; r < ROWS; ++r) s += tile[r * LD + col];
-  return s;
-}
-
-__device__ __forceinline__ void zero(float acc[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-}
-
-// a 4x4 weight-gradient tile into the packed [in][out] matrix at `dst`
-__device__ __forceinline__ void store_grad(float* dst, const float acc[4][4], int k0, int c0) {
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-    *reinterpret_cast<float4*>(dst + (k0 + a) * D + c0) =
-        make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+    for (int k = 0; k < 2; ++k) cs[j][k] = v[0][j][k] + v[0][j][k + 2];
+  const float a = (hi ? cs[1][0] : cs[0][0]) +
+                  __shfl_xor_sync(0xffffffffu, hi ? cs[0][0] : cs[1][0], 16);
+  const float b = (hi ? cs[1][1] : cs[0][1]) +
+                  __shfl_xor_sync(0xffffffffu, hi ? cs[0][1] : cs[1][1], 16);
+  const float x = (odd ? b : a) + __shfl_xor_sync(0xffffffffu, odd ? a : b, 8);
+  return x + __shfl_xor_sync(0xffffffffu, x, 4);
 }
 
 template <int MODE>
@@ -165,278 +234,324 @@ __global__ void __launch_bounds__(THREADS, 1)
 rollout_bwd_kernel(const float* __restrict__ y0, const float* __restrict__ ys,
                    const float* __restrict__ ct, const float* __restrict__ w,
                    const float* __restrict__ tsc, const float* __restrict__ noise,
-                   float* __restrict__ dy0, float* __restrict__ partial,
+                   float* __restrict__ dy0, double* __restrict__ partial,
                    int N, int T, uint32_t k1, uint32_t k2) {
-  extern __shared__ __align__(16) float smem[];
-  float* sw = smem;                 // weights (padded matrices, then the small ones)
-  float* sY = sw + SW_FLOATS;       // pre-step state y_t
-  float* sDF = sY + TILE;           // lambda dt, then dA2
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint2* sw = reinterpret_cast<uint2*>(smem_raw);                  // split weights
+  float* ssm = reinterpret_cast<float*>(smem_raw + 5 * MAT * 8);  // wf0t .. bgo
+  float* sY = ssm + NSMALL;         // pre-step state y_t
+  float* sDF = sY + TILE;           // lambda dt, then dA1
   float* sH1 = sDF + TILE;          // drift hidden 1
   float* sG1 = sH1 + TILE;          // diffusion hidden 1
-  float* sH2 = sG1 + TILE;          // drift hidden 2, then dA1
-  float* sG2 = sH2 + TILE;          // diffusion hidden 2, then dAG2
-  float* sX = sG2 + TILE;           // dAG1
-  float* sDO = sX + TILE;           // dL/d(diffusion logit) per row
+  float* sH2 = sG1 + TILE;          // drift hidden 2, then dAG1
+  float* sDA2 = sH2 + TILE;         // dA2
+  float* sX = sDA2 + TILE;          // dAG2
+  float2* sO = reinterpret_cast<float2*>(sX + TILE);  // [row][n-group] (logit, lambda . z)
+  float* sDA1 = sDF;
+  float* sDAG1 = sH2;
+  const float* wf0t = ssm;
+  const float* wg0t = ssm + (OFF_WG0T - OFF_WF0T);
+  const float* bf0 = ssm + (OFF_BF0 - OFF_WF0T);
+  const float* bf1 = ssm + (OFF_BF1 - OFF_WF0T);
+  const float* bg0 = ssm + (OFF_BG0 - OFF_WF0T);
+  const float* bg1 = ssm + (OFF_BG1 - OFF_WF0T);
+  const float* wgo = ssm + (OFF_WGO - OFF_WF0T);
 
-  const int tid = threadIdx.x;
-  const int cg = tid & 15, r0 = (tid >> 4) * 4;   // activations: rows r0.., columns cg + 16 j
-  const int c0 = cg * 4, k0 = (tid >> 4) * 4;     // weight grads: rows k0.., columns c0..
-  const int role = tid >> 6, rc = tid & 63;       // column sums: group, column
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int mt = warp >> 2, jn = warp & 3;        // row products: m-tile, n-tiles jn and jn + 4
+  const int frow = 16 * mt + g, fcol = 8 * jn + 2 * t4;   // this thread's C-fragment places
+  const int gm0 = 32 * (warp >> 2), gn0 = 16 * (warp & 3);  // weight gradients: 32 x 16 block
 
-  for (int i = tid; i < 5 * MAT / 4; i += THREADS) {
-    const int e = 4 * i, m = e / MAT, r = (e % MAT) / D, c = e % D;
-    *reinterpret_cast<float4*>(sw + m * SMAT + r * LD + c) = reinterpret_cast<const float4*>(w)[i];
+  for (int i = tid; i < 5 * MAT; i += THREADS) {
+    const int m = i / MAT, r = (i % MAT) / D, c = i % D;
+    uint32_t big, small;
+    tc::split(w[i], big, small);
+    sw[m * MAT + w_at(r, c)] = make_uint2(big, small);
   }
   for (int i = tid; i < NSMALL / 4; i += THREADS)
-    reinterpret_cast<float4*>(sw + S_SMALL)[i] = reinterpret_cast<const float4*>(w + OFF_WF0T)[i];
+    reinterpret_cast<float4*>(ssm)[i] = reinterpret_cast<const float4*>(w + OFF_WF0T)[i];
+  const uint2 *wf0 = sw + WF0 * MAT, *wf1 = sw + WF1 * MAT, *wf2 = sw + WF2 * MAT,
+              *wg0 = sw + WG0 * MAT, *wg1 = sw + WG1 * MAT;
 
-  float dwf0[4][4], dwf1[4][4], dwf2[4][4], dwg0[4][4], dwg1[4][4];
-  zero(dwf0); zero(dwf1); zero(dwf2); zero(dwg0); zero(dwg1);
-  float sm0 = 0.0f, sm1 = 0.0f, sm2 = 0.0f;       // this thread's column sums (see the end)
+  float gw[5][2][2][4];                           // weight gradients, C fragments
+#pragma unroll
+  for (int m = 0; m < 5; ++m) zero(gw[m]);
+  // column sums over this warp's 16 rows of every tile and step, of the
+  // column colsum() gives this lane; and dO summed over rows frow, frow + 8
+  float cbf2 = 0.0f, cwgo = 0.0f, cbf1 = 0.0f, cbg1 = 0.0f;
+  float cbf0 = 0.0f, cwf0s = 0.0f, cwf0c = 0.0f, cbg0 = 0.0f, cwg0s = 0.0f, cwg0c = 0.0f;
+  float cbgo = 0.0f;
+
+  double* part = partial + static_cast<size_t>(blockIdx.x) * W_FLOATS;   // this block's sums
+  constexpr int NQ = 10;
+  const int qoff[NQ] = {OFF_BF2, OFF_WGO, OFF_BF1, OFF_BG1, OFF_BF0, OFF_WF0T, OFF_WF0T + D,
+                        OFF_BG0, OFF_WG0T, OFF_WG0T + D};
+  const int ccol = fcol + 32 * ((lane >> 4) & 1) + ((lane >> 3) & 1);   // colsum()'s column
+  const bool first = (lane & 4) == 0;                 // one of the lanes g, g ^ 1
 
   const int ntiles = (N + ROWS - 1) / ROWS;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const long long row0 = static_cast<long long>(tile) * ROWS + r0;
-    float lam[4][4];
+    const long long row0 = static_cast<long long>(tile) * ROWS;
+    float lam[1][2][4];
     zero(lam);
+    Prefetch pf;
+    prefetch(pf, T == 1 ? y0 : ys + static_cast<long long>(T - 2) * N * D,
+             ct + static_cast<long long>(T - 1) * N * D, row0, N, tid, frow, fcol);
     for (int t = T - 1; t >= 0; --t) {
       const float s = tsc[4 * t], c = tsc[4 * t + 1], dt = tsc[4 * t + 2], sdt = tsc[4 * t + 3];
-      const float* prev = (t == 0) ? y0 : ys + static_cast<long long>(t - 1) * N * D;
 
-      // A: pre-step state; inject ct[t]; dF = lambda dt
+      // A: pre-step state; inject ct[t]; dF = lambda dt; prefetch step t - 1
+      {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const long long row = row0 + i;
-        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (row < N) v = *reinterpret_cast<const float4*>(prev + row * D + c0);
-        *reinterpret_cast<float4*>(sY + (r0 + i) * LD + c0) = v;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = cg + 16 * j;
-          if (row < N) lam[i][j] += ct[(static_cast<long long>(t) * N + row) * D + col];
-          sDF[(r0 + i) * LD + col] = lam[i][j] * dt;
+        for (int q = 0; q < 2; ++q) {
+          const int f = tid + THREADS * q;
+          *reinterpret_cast<float4*>(sY + tile_at(f >> 4, 4 * (f & 15))) = pf.y[q];
         }
+        float df[1][2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            lam[0][j][2 * h] += pf.ct[j][h].x;
+            lam[0][j][2 * h + 1] += pf.ct[j][h].y;
+          }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) df[0][j][e] = lam[0][j][e] * dt;
+        store_frag(sDF, df, frow, fcol);
+        cbf2 += colsum(df);
+        if (t > 0)
+          prefetch(pf, t == 1 ? y0 : ys + static_cast<long long>(t - 2) * N * D,
+                   ct + static_cast<long long>(t - 1) * N * D, row0, N, tid, frow, fcol);
       }
       __syncthreads();
 
       // B: first hidden layers, time features as bias
       {
-        float af[4][4], ag[4][4];
-        zero(af);
-        zero(ag);
-        mm_fwd(sY, sw + S_WF0, r0, cg, af);
-        mm_fwd(sY, sw + S_WG0, r0, cg, ag);
+        float a[1][2][4], b[1][2][4];
+        zero(a);
+        zero(b);
+        tc::mma_xwt_split2<1, 2, D, UNROLL>(Tile{sY}, WFwd{wf0}, a, Tile{sY}, WFwd{wg0}, b,
+                                            16 * mt, 8 * jn, 32);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = cg + 16 * j;
-          const float bf = s * sw[small(OFF_WF0T) + col] + c * sw[small(OFF_WF0T) + D + col] +
-                           sw[small(OFF_BF0) + col];
-          const float bg = s * sw[small(OFF_WG0T) + col] + c * sw[small(OFF_WG0T) + D + col] +
-                           sw[small(OFF_BG0) + col];
+        for (int j = 0; j < 2; ++j)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            sH1[(r0 + i) * LD + col] = tanhf(af[i][j] + bf);
-            sG1[(r0 + i) * LD + col] = tanhf(ag[i][j] + bg);
+          for (int e = 0; e < 4; ++e) {
+            const int col = fcol + 32 * j + (e & 1);
+            const float bf = s * wf0t[col] + c * wf0t[D + col] + bf0[col];
+            const float bg = s * wg0t[col] + c * wg0t[D + col] + bg0[col];
+            a[0][j][e] = tanhf(a[0][j][e] + bf);
+            b[0][j][e] = tanhf(b[0][j][e] + bg);
           }
-        }
+        store_frag(sH1, a, frow, fcol);
+        store_frag(sG1, b, frow, fcol);
       }
       __syncthreads();
 
-      // C: second hidden layers, diffusion g, increments, dO
-      float dO[4];
+      // C: second hidden layers, dA2, the diffusion logit's and lambda . z's
+      // partial row sums
       {
-        float af[4][4], ag[4][4];
-        zero(af);
-        zero(ag);
-        mm_fwd(sH1, sw + S_WF1, r0, cg, af);
-        mm_fwd(sG1, sw + S_WG1, r0, cg, ag);
-        float o[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dg[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float a[1][2][4], g2[1][2][4], d[1][2][4];
+        zero(a);
+        zero(g2);
+        zero(d);
+        tc::mma_xwt_split2<1, 2, D, UNROLL>(Tile{sH1}, WFwd{wf1}, a, Tile{sG1}, WFwd{wg1}, g2,
+                                            16 * mt, 8 * jn, 32);
+        tc::mma_xwt_split<1, 2, D, UNROLL>(Tile{sDF}, WTr{wf2}, 16 * mt, 8 * jn, 32, d);
+        float o[2] = {0.0f, 0.0f}, dg[2] = {0.0f, 0.0f};
+        float z[2][4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = cg + 16 * j;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float h2 = tanhf(af[i][j] + sw[small(OFF_BF1) + col]);
-            const float g2 = tanhf(ag[i][j] + sw[small(OFF_BG1) + col]);
-            sH2[(r0 + i) * LD + col] = h2;
-            sG2[(r0 + i) * LD + col] = g2;
-            o[i] = fmaf(g2, sw[small(OFF_WGO) + col], o[i]);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const long long row = row0 + i;
-          float z[4];
+        for (int h = 0; h < 2; ++h) {
+          const long long row = row0 + frow + 8 * h;
           if (MODE == EXPLICIT) {
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
-              z[j] = (row < N) ? noise[(static_cast<long long>(t) * N + row) * D + cg + 16 * j] : 0.0f;
+            for (int j = 0; j < 2; ++j) {
+              const float2 v = row < N ? __ldg(reinterpret_cast<const float2*>(
+                                             noise + (static_cast<long long>(t) * N + row) * D +
+                                             fcol + 32 * j))
+                                       : make_float2(0.0f, 0.0f);
+              z[j][2 * h] = v.x;
+              z[j][2 * h + 1] = v.y;
+            }
           } else if (MODE == RADEMACHER) {
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
-              z[j] = rademacher(k1, k2, static_cast<uint64_t>(row), t, T, cg + 16 * j);
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int k = 0; k < 2; ++k)
+                z[j][2 * h + k] = rademacher(k1, k2, static_cast<uint64_t>(row), t, T,
+                                             fcol + 32 * j + k);
           } else {
-            // this thread's columns cg, cg + 32 and cg + 16, cg + 48 are both
-            // lanes of the Box-Muller pairs cg and cg + 16
-            gaussian_pair(k1, k2, static_cast<uint64_t>(row), t, T, cg, &z[0], &z[2]);
-            gaussian_pair(k1, k2, static_cast<uint64_t>(row), t, T, cg + 16, &z[1], &z[3]);
-          }
+            // columns p and p + 32 are the two lanes of Box-Muller pair p
 #pragma unroll
-          for (int j = 0; j < 4; ++j) dg[i] = fmaf(lam[i][j], z[j], dg[i]);
+            for (int k = 0; k < 2; ++k)
+              gaussian_pair(k1, k2, static_cast<uint64_t>(row), t, T, fcol + k, &z[0][2 * h + k],
+                            &z[1][2 * h + k]);
+          }
         }
-        // reduce over the 16 column groups of this row group
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int j = 0; j < 2; ++j)
 #pragma unroll
-          for (int off = 8; off > 0; off >>= 1) {
-            o[i] += __shfl_xor_sync(0xffffffffu, o[i], off);
-            dg[i] += __shfl_xor_sync(0xffffffffu, dg[i], off);
+          for (int e = 0; e < 4; ++e) {
+            const int col = fcol + 32 * j + (e & 1);
+            const float h2 = tanhf(a[0][j][e] + bf1[col]);
+            g2[0][j][e] = tanhf(g2[0][j][e] + bg1[col]);
+            a[0][j][e] = h2;
+            d[0][j][e] *= 1.0f - h2 * h2;
+            o[e >> 1] = fmaf(g2[0][j][e], wgo[col], o[e >> 1]);
+            dg[e >> 1] = fmaf(lam[0][j][e], z[j][e], dg[e >> 1]);
           }
-          const float g = 1.0f / (1.0f + expf(-(o[i] + sw[small(OFF_BGO)])));
-          dO[i] = sdt * dg[i] * g * (1.0f - g);
-          if (cg == 0) sDO[r0 + i] = dO[i];
+        store_frag(sH2, a, frow, fcol);
+        store_frag(sX, g2, frow, fcol);   // hg2, until dAG2 replaces it in D
+        store_frag(sDA2, d, frow, fcol);
+        cbf1 += colsum(d);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1) {
+            o[h] += __shfl_xor_sync(0xffffffffu, o[h], off);
+            dg[h] += __shfl_xor_sync(0xffffffffu, dg[h], off);
+          }
+          if (t4 == 0) sO[(frow + 8 * h) * 4 + jn] = make_float2(o[h], dg[h]);
         }
       }
       __syncthreads();
 
-      // D: dwf2 += h2^T dF; dA2 = (dF wf2^T)(1 - h2^2); dbf2, dwgo, dbgo
-      float da2[4][4];
-      zero(da2);
-      mm_wgrad(sH2, sDF, k0, c0, dwf2);
-      mm_tr(sDF, sw + S_WF2, r0, cg, da2);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float h = sH2[(r0 + i) * LD + cg + 16 * j];
-          da2[i][j] *= 1.0f - h * h;
-        }
-      if (role == 0) {
-        float sb = 0.0f, sg = 0.0f;
-#pragma unroll 8
-        for (int r = 0; r < ROWS; ++r) {
-          sb += sDF[r * LD + rc];
-          sg = fmaf(sG2[r * LD + rc], sDO[r], sg);
-        }
-        sm0 += sb;
-        sm1 += sg;
-        if (rc == 0) {
-          float so = 0.0f;
-          for (int r = 0; r < ROWS; ++r) so += sDO[r];
-          sm2 += so;
-        }
-      }
-      __syncthreads();
-      // dA2 replaces dF; dAG2 = dO wgo (1 - hg2^2) replaces hg2 in place
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = cg + 16 * j, at = (r0 + i) * LD + col;
-          sDF[at] = da2[i][j];
-          const float g2 = sG2[at];
-          sG2[at] = dO[i] * sw[small(OFF_WGO) + col] * (1.0f - g2 * g2);
-        }
-      __syncthreads();
-
-      // E: dwf1 += h1^T dA2; dwg1 += hg1^T dAG2; dA1 -> sH2; dAG1 -> sX; dbf1, dbg1
-      mm_wgrad(sH1, sDF, k0, c0, dwf1);
-      mm_wgrad(sG1, sG2, k0, c0, dwg1);
+      // D: dO, dAG2; dwf2 += h2^T dF; dwf1 += h1^T dA2; dA1 = (dA2 wf1^T)(1 - h1^2)
+      float da1[1][2][4];
       {
-        float acc[4][4];
-        zero(acc);
-        mm_tr(sDF, sw + S_WF1, r0, cg, acc);
+        float dO[2];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int h = 0; h < 2; ++h) {
+          const float2* v = sO + (frow + 8 * h) * 4;
+          const float2 v0 = v[0], v1 = v[1], v2 = v[2], v3 = v[3];
+          const float o = ((v0.x + v1.x) + v2.x) + v3.x, dg = ((v0.y + v1.y) + v2.y) + v3.y;
+          const float gs = 1.0f / (1.0f + expf(-(o + ssm[OFF_BGO - OFF_WF0T])));
+          dO[h] = sdt * dg * gs * (1.0f - gs);
+        }
+        cbgo += dO[0] + dO[1];
+        float g2[1][2][4], dag2[1][2][4];
+        load_frag(g2, sX, frow, fcol);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int at = (r0 + i) * LD + cg + 16 * j;
-            const float h = sH1[at];
-            sH2[at] = acc[i][j] * (1.0f - h * h);
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = fcol + 32 * j + (e & 1);
+            const float x = g2[0][j][e], dOr = dO[e >> 1];
+            dag2[0][j][e] = dOr * wgo[col] * (1.0f - x * x);
+            g2[0][j][e] = x * dOr;            // for dwgo
           }
-        zero(acc);
-        mm_tr(sG2, sw + S_WG1, r0, cg, acc);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int at = (r0 + i) * LD + cg + 16 * j;
-            const float h = sG1[at];
-            sX[at] = acc[i][j] * (1.0f - h * h);
-          }
-      }
-      if (role == 1) {
-        sm0 += colsum(sDF, rc);
-        sm1 += colsum(sG2, rc);
+        store_frag(sX, dag2, frow, fcol);
+        cwgo += colsum(g2);
+        cbg1 += colsum(dag2);
+        tc::mma_xty2<2, 2, ROWS, UNROLL_W>(Tile{sH2}, Tile{sDF}, gw[WF2], Tile{sH1}, Tile{sDA2},
+                                           gw[WF1], gm0, gn0);
+        zero(da1);
+        tc::mma_xwt_split<1, 2, D, UNROLL>(Tile{sDA2}, WTr{wf1}, 16 * mt, 8 * jn, 32, da1);
+        scale_by_tanh_derivative(da1, sH1, frow, fcol);
       }
       __syncthreads();
 
-      // F: dwf0 += y^T dA1; dwg0 += y^T dAG1; lambda += dA1 wf0^T + dAG1 wg0^T;
-      // dbf0, dwf0t (role 2) and dbg0, dwg0t (role 3)
-      mm_wgrad(sY, sH2, k0, c0, dwf0);
-      mm_wgrad(sY, sX, k0, c0, dwg0);
-      mm_tr(sH2, sw + S_WF0, r0, cg, lam);
-      mm_tr(sX, sw + S_WG0, r0, cg, lam);
-      if (role >= 2) {
-        const float cs = colsum(role == 2 ? sH2 : sX, rc);
-        sm0 += cs;
-        sm1 = fmaf(s, cs, sm1);
-        sm2 = fmaf(c, cs, sm2);
+      // E: dA1 replaces dF; dwg1 += hg1^T dAG2; dAG1 = (dAG2 wg1^T)(1 - hg1^2)
+      // replaces h2
+      {
+        store_frag(sDA1, da1, frow, fcol);
+        {
+          const float x = colsum(da1);
+          cbf0 += x;
+          cwf0s = fmaf(s, x, cwf0s);
+          cwf0c = fmaf(c, x, cwf0c);
+        }
+        tc::mma_xty<2, 2, ROWS, UNROLL_W, true>(Tile{sG1}, Tile{sX}, gm0, gn0, gw[WG1]);
+        float dag1[1][2][4];
+        zero(dag1);
+        tc::mma_xwt_split<1, 2, D, UNROLL>(Tile{sX}, WTr{wg1}, 16 * mt, 8 * jn, 32, dag1);
+        scale_by_tanh_derivative(dag1, sG1, frow, fcol);
+        store_frag(sDAG1, dag1, frow, fcol);
+        {
+          const float x = colsum(dag1);
+          cbg0 += x;
+          cwg0s = fmaf(s, x, cwg0s);
+          cwg0c = fmaf(c, x, cwg0c);
+        }
       }
+      __syncthreads();
+
+      // F: dwf0 += y^T dA1; dwg0 += y^T dAG1; lambda += dA1 wf0^T + dAG1 wg0^T
+      tc::mma_xty2<2, 2, ROWS, UNROLL_W>(Tile{sY}, Tile{sDA1}, gw[WF0], Tile{sY}, Tile{sDAG1},
+                                         gw[WG0], gm0, gn0);
+      tc::mma_xwt_split2<1, 2, D, UNROLL>(Tile{sDA1}, WTr{wf0}, lam, Tile{sDAG1}, WTr{wg0}, lam,
+                                          16 * mt, 8 * jn, 32);
       __syncthreads();
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long long row = row0 + i;
+    for (int h = 0; h < 2; ++h) {
+      const long long row = row0 + frow + 8 * h;
       if (row < N)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) dy0[row * D + cg + 16 * j] = lam[i][j];
+        for (int j = 0; j < 2; ++j)
+          *reinterpret_cast<float2*>(dy0 + row * D + fcol + 32 * j) =
+              make_float2(lam[0][j][2 * h], lam[0][j][2 * h + 1]);
     }
-  }
 
-  // this block's partial gradients, in the packed layout
-  float* part = partial + static_cast<size_t>(blockIdx.x) * W_FLOATS;
-  store_grad(part + OFF_WF0, dwf0, k0, c0);
-  store_grad(part + OFF_WF1, dwf1, k0, c0);
-  store_grad(part + OFF_WF2, dwf2, k0, c0);
-  store_grad(part + OFF_WG0, dwg0, k0, c0);
-  store_grad(part + OFF_WG1, dwg1, k0, c0);
-  if (role == 0) {
-    part[OFF_BF2 + rc] = sm0;
-    part[OFF_WGO + rc] = sm1;
-    if (rc < 4) part[OFF_BGO + rc] = sm2;   // dbgo at rc 0; the 3 padding floats get 0
-  } else if (role == 1) {
-    part[OFF_BF1 + rc] = sm0;
-    part[OFF_BG1 + rc] = sm1;
-  } else {
-    const int bias = role == 2 ? OFF_BF0 : OFF_BG0, wt = role == 2 ? OFF_WF0T : OFF_WG0T;
-    part[bias + rc] = sm0;
-    part[wt + rc] = sm1;
-    part[wt + D + rc] = sm2;
+    // this tile's weight gradients into the block's f64 sums, in the packed
+    // layout; the first tile stores, the others add
+    const bool first_tile = tile == static_cast<int>(blockIdx.x);
+    auto put = [&](double* d, float v) { *d = first_tile ? v : *d + v; };
+#pragma unroll
+    for (int m = 0; m < 5; ++m) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          tc::for_fragment(gw[m][i][j], gm0 + 16 * i, gn0 + 8 * j,
+                           [&](int r, int col, float v0, float v1) {
+                             double* d = part + m * MAT + r * D + col;   // OFF_WF0 ..
+                             put(d, v0);
+                             put(d + 1, v1);
+                           });
+      zero(gw[m]);
+    }
+    // the column sums: the m-tile 1 warps leave theirs in shared memory (the
+    // h1 tile is free until the next tile's phase B), the m-tile 0 warps add
+    // them to theirs; dbgo over the 8 row lanes by shuffles
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) cbgo += __shfl_xor_sync(0xffffffffu, cbgo, off);
+    float q[NQ] = {cbf2, cwgo, cbf1, cbg1, cbf0, cwf0s, cwf0c, cbg0, cwg0s, cwg0c};
+    if (mt == 1 && first) {
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) sH1[i * D + ccol] = q[i];
+      if (jn == 0 && lane == 0) sH1[NQ * D] = cbgo;
+    }
+    __syncthreads();
+    if (mt == 0 && first) {
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) put(part + qoff[i] + ccol, q[i] + sH1[i * D + ccol]);
+      if (jn == 0 && lane < 4) put(part + OFF_BGO + lane, lane == 0 ? cbgo + sH1[NQ * D] : 0.0f);
+    }
+    cbf2 = cwgo = cbf1 = cbg1 = cbf0 = cwf0s = cwf0c = cbg0 = cwg0s = cwg0c = cbgo = 0.0f;
   }
 }
 
 // dw[i] = sum over blocks of partial[b][i], in block order
-__global__ void reduce_partials(const float* __restrict__ partial, int blocks,
+__global__ void reduce_partials(const double* __restrict__ partial, int blocks,
                                 float* __restrict__ dw) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= W_FLOATS) return;
-  float s = 0.0f;
+  double s = 0.0;
   for (int b = 0; b < blocks; ++b) s += partial[static_cast<size_t>(b) * W_FLOATS + i];
-  dw[i] = s;
+  dw[i] = static_cast<float>(s);
 }
 
 template <int MODE>
 cudaError_t launch(const float* y0, const float* ys, const float* ct, const float* w,
-                   const float* tsc, const float* noise, float* dy0, float* dw, float* partial,
+                   const float* tsc, const float* noise, float* dy0, float* dw, double* partial,
                    int N, int T, uint32_t k1, uint32_t k2, int grid, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * SMEM_FLOATS;
   cudaError_t err = cudaFuncSetAttribute(rollout_bwd_kernel<MODE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  rollout_bwd_kernel<MODE><<<grid, THREADS, smem, stream>>>(y0, ys, ct, w, tsc, noise, dy0,
-                                                            partial, N, T, k1, k2);
+  rollout_bwd_kernel<MODE><<<grid, THREADS, SMEM_BYTES, stream>>>(y0, ys, ct, w, tsc, noise, dy0,
+                                                                  partial, N, T, k1, k2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   reduce_partials<<<(W_FLOATS + 255) / 256, 256, 0, stream>>>(partial, grid, dw);
@@ -451,11 +566,11 @@ int sde_rollout_bwd_weight_floats() { return W_FLOATS; }
 
 // dy0 [N, 64] and dw [W_FLOATS] (packed as in rollout_common.cuh) from
 // y0 [N, 64], the forward's ys [T, N, 64], the cotangent ct [T, N, 64], w, tsc [T, 4] and, in
-// mode 0, noise [T, N, 64].  partial is a [grid, W_FLOATS] workspace; grid
-// blocks walk the 64-row tiles.  Returns cudaGetLastError().
+// mode 0, noise [T, N, 64].  partial is a [grid, W_FLOATS] f64 workspace;
+// grid blocks walk the 32-row tiles.  Returns cudaGetLastError().
 int sde_rollout_bwd_launch(const float* y0, const float* ys, const float* ct, const float* w,
                            const float* tsc, const float* noise, float* dy0, float* dw,
-                           float* partial, int N, int T, unsigned int k1, unsigned int k2,
+                           double* partial, int N, int T, unsigned int k1, unsigned int k2,
                            int mode, int grid, void* stream) {
   if (N <= 0 || T <= 0 || grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -265,11 +265,8 @@ def _library():
     return lib
 
 
-@functools.cache
-def _bwd_library():
-    from trajsde_tpu_torch.ops import build
-
-    lib = build.load("sde_rollout_bwd")
+def configure_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the ctypes signatures of a library built from a K2 source."""
     lib.sde_rollout_bwd_launch.argtypes = [ctypes.c_void_p] * 9 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
@@ -278,6 +275,13 @@ def _bwd_library():
     lib.sde_rollout_bwd_weight_floats.argtypes = []
     lib.sde_rollout_bwd_weight_floats.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _bwd_library():
+    from trajsde_tpu_torch.ops import build
+
+    return configure_bwd(build.load("sde_rollout_bwd"))
 
 
 def _check(name: str, x: torch.Tensor, shape, device) -> None:
@@ -369,18 +373,24 @@ def sde_rollout_packed(y0: torch.Tensor, w: torch.Tensor, t0s: torch.Tensor, dts
     raise ValueError(f"sde_rollout runs on cuda (kernel) or cpu (plain), not {y0.device}")
 
 
-def _launch_bwd(y0, ys, ct, w, t0s, dts, seed, num_steps, noise, increments):
-    lib = _bwd_library()
+BWD_TILE_ROWS = 32  # K2's row tile (ROWS in csrc/sde_rollout_bwd.cu)
+
+
+def launch_bwd(lib: ctypes.CDLL, y0, ys, ct, w, t0s, dts, seed, num_steps, noise, increments):
+    """Launch K2 from ``lib`` (the package's build or another build of its
+    source configured by :func:`configure_bwd`) on the current stream and
+    return ``(dy0, dw)``; counts nothing."""
     mode, tsc = _common_checks(y0, w, t0s, dts, num_steps, noise, increments,
                                lib.sde_rollout_bwd_weight_floats())
     N, D = y0.shape
     _check("ys", ys, (num_steps, N, D), y0.device)
     _check("ct", ct, (num_steps, N, D), y0.device)
-    # one block per SM walks the 64-row tiles; each writes its partial
-    # weight gradients once, and a second kernel sums them in block order
+    # one block per SM walks the row tiles; each adds its weight gradients
+    # to its own f64 row after every tile, and a second kernel sums the rows
+    # in block order
     sms = torch.cuda.get_device_properties(y0.device).multi_processor_count
-    grid = min((N + 63) // 64, sms)
-    partial = torch.empty((grid, w.numel()), device=y0.device, dtype=torch.float32)
+    grid = min(-(-N // BWD_TILE_ROWS), sms)
+    partial = torch.empty((grid, w.numel()), device=y0.device, dtype=torch.float64)
     dy0 = torch.empty_like(y0)
     dw = torch.empty_like(w)
     k1, k2 = seed_keys(seed)
@@ -393,7 +403,6 @@ def _launch_bwd(y0, ys, ct, w, t0s, dts, seed, num_steps, noise, increments):
         )
     if err != 0:
         raise RuntimeError(f"sde_rollout_bwd kernel launch failed: cudaError {err}")
-    sde_rollout_bwd.launches += 1
     return dy0, dw
 
 
@@ -410,7 +419,10 @@ def sde_rollout_bwd(y0: torch.Tensor, ys: torch.Tensor, ct: torch.Tensor, w: tor
     the CPU the plain version runs.
     """
     if y0.device.type == "cuda":
-        return _launch_bwd(y0, ys, ct, w, t0s, dts, seed, num_steps, noise, increments)
+        out = launch_bwd(_bwd_library(), y0, ys, ct, w, t0s, dts, seed, num_steps, noise,
+                         increments)
+        sde_rollout_bwd.launches += 1
+        return out
     if y0.device.type == "cpu":
         dy0, grads = sde_rollout_bwd_reference(y0, ys, ct, unpack_params(w, y0.shape[1]), t0s,
                                                dts, seed, num_steps, noise, increments)
