@@ -8,19 +8,21 @@ on one card (needs a card and nvcc).
 
 Builds, in parallel, each ``--base`` (another version of
 ``trajsde_tpu_torch/csrc/aa_fused_bwd.cu``, compiled where it lies, so
-headers beside it come first, then this tree's) and three copies of the
-current source: ``no-swizzle``, whose tile swizzle is the identity (every
-chunk tile read by plain rows); ``one-term``, whose tensor-core products
-take one TF32 product per term (``mma_tf32.cuh`` without the two small
-terms); and ``no-products``, whose six tensor-core products are skipped
-(wrong gradients: it times the rest of the kernel), beside the current
+headers beside it come first, then this tree's) and four copies of the
+current source: ``no-swizzle``, whose tile swizzle (``aa_common.cuh``'s
+``swz``) is the identity (the swizzled chunk tiles read by plain rows);
+``one-term``, whose tensor-core products take one TF32 product per term
+(``mma_tf32.cuh`` without the two small terms); ``no-products``, whose six backward products are skipped, and
+``no-recompute``, whose recompute's three chain products are (calls to
+``mm<`` or ``tc::mma_xwt_split<``, as ``skip_products`` finds them; both
+give wrong gradients and time the rest of the kernel), beside the current
 build (``change``).  At the training twin shape (B 128, T 21, Aq 49, Ak
 48, D 64, H 8) with a dropout keep mask, the flagship's packed AA weights
 and a random cotangent, it holds the dq and weight gradients of each build
 against the plain backward by ``chip_smoke.k4_tol``: the bases, change
 and no-swizzle must pass and one-term must fail; no-swizzle must give the
 change's bits.  Then it times the builds in the order of the bases,
-change, no-swizzle, no-products, then back (CUDA-event medians of
+change, no-swizzle, no-products, no-recompute, then back (CUDA-event medians of
 ``chip_smoke.TIMED_RUNS``).  It prints ptxas's register and spill lines
 of each build, one line per timing and one JSON line with every number.
 Exits non-zero if a check fails.
@@ -30,6 +32,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -46,6 +49,7 @@ from trajsde_tpu_torch.ops import build  # noqa: E402
 
 SOURCE = Path(build.CSRC_DIR) / "aa_fused_bwd.cu"
 HEADER = Path(build.CSRC_DIR) / "mma_tf32.cuh"
+COMMON_HEADER = Path(build.CSRC_DIR) / "aa_common.cuh"
 OUT_DIR = Path(build.BUILD_DIR) / "compare"
 SWIZZLE_KEY = "  const int key = ((row & 3) << 1) | ((row >> 2) & 1);\n"
 # the two small terms of each k-step in mma_tf32.cuh's mma3x2 and mma3x2_apart
@@ -58,6 +62,30 @@ template <int MT, int NT, int K, int U, class A, class B>
 __device__ __forceinline__ void skip(const A&, const B&, int, int, float (*)[NT][4]) {}
 }  // namespace tc
 """
+
+COMMON = '#include "aa_common.cuh"\n'
+# stand-ins for the chain's product helpers (K3's, and K4's recompute) that
+# do nothing
+SKIP_CHAIN = """
+namespace skipped {
+template <int NR, int K, int LDA, int LDW, bool TWO>
+__device__ __forceinline__ void mm(const float*, const float*, int, int, float (*)[8]) {}
+template <int MT, int NT, int K, int U, class A, class B>
+__device__ __forceinline__ void xwt_split(const A&, const B&, int, int, int, float (*)[NT][4]) {}
+}  // namespace skipped
+"""
+
+
+def skip_products(text: str, where) -> str:
+    """``text`` (a K3 or K4 source) with its chain products' calls to
+    ``mm<`` and ``tc::mma_xwt_split<`` replaced by calls that do nothing."""
+    if text.count(COMMON) != 1:
+        raise RuntimeError(f"{COMMON!r} is not in {where} exactly once")
+    out, n = re.subn(r"\bmm<", "skipped::mm<", text.replace(COMMON, COMMON + SKIP_CHAIN))
+    out, n2 = re.subn(r"\btc::mma_xwt_split<", "skipped::xwt_split<", out)
+    if n + n2 == 0:
+        raise RuntimeError(f"{where} calls no chain product to skip")
+    return out
 
 
 def ptxas_lines(text: str) -> list:
@@ -76,19 +104,22 @@ def one_term_header(header: str) -> str:
 
 def build_variants(bases: dict) -> dict:
     """name -> (configured library, ptxas lines), built in parallel."""
-    current, header = SOURCE.read_text(), HEADER.read_text()
+    current, header, common = SOURCE.read_text(), HEADER.read_text(), COMMON_HEADER.read_text()
     include = '#include "mma_tf32.cuh"\n'
-    for text, key, where in ((current, SWIZZLE_KEY, SOURCE), (current, include, SOURCE)):
+    for text, key, where in ((common, SWIZZLE_KEY, COMMON_HEADER), (current, include, SOURCE)):
         if text.count(key) != 1:
             raise RuntimeError(f"{key!r} is not in {where} exactly once")
     skipped = current.replace(include, include + SKIP)
     skipped = skipped.replace("tc::mma_xty<", "tc::skip<").replace("tc::mma_xwt<", "tc::skip<")
-    # one-term's header lies beside its source, so its include finds it first
-    (OUT_DIR / "one-term").mkdir(parents=True, exist_ok=True)
-    (OUT_DIR / "one-term" / HEADER.name).write_text(one_term_header(header))
+    # a copy's own header lies beside its source, so its include finds it first
+    for name, path, text in (("one-term", HEADER, one_term_header(header)),
+                             ("no-swizzle", COMMON_HEADER,
+                              common.replace(SWIZZLE_KEY, "  const int key = 0;\n"))):
+        (OUT_DIR / name).mkdir(parents=True, exist_ok=True)
+        (OUT_DIR / name / path.name).write_text(text)
     sources = {name: os.fspath(path) for name, path in bases.items()}
-    for name, text in (("no-swizzle", current.replace(SWIZZLE_KEY, "  const int key = 0;\n")),
-                       ("one-term", current), ("no-products", skipped)):
+    for name, text in (("no-swizzle", current), ("one-term", current), ("no-products", skipped),
+                       ("no-recompute", skip_products(current, SOURCE))):
         cu = OUT_DIR / name / SOURCE.name
         cu.parent.mkdir(parents=True, exist_ok=True)
         cu.write_text(text)
@@ -130,7 +161,7 @@ def main() -> None:
     def run(name):
         return K3.launch_bwd(libs[name][0], q, u, mask, keep, ws, g, out, stats, H, K3_DROPOUT)
 
-    got = {name: run(name) for name in libs if name != "no-products"}
+    got = {name: run(name) for name in libs if name not in ("no-products", "no-recompute")}
     want_dq, want = K3.fused_pair_attention_bwd_reference(q, u, mask, keep, ws, g, H, K3_DROPOUT)
     errs, failures = {}, []
     for name, (dq, dws) in got.items():
@@ -158,7 +189,7 @@ def main() -> None:
     del got, want_dq, want
     torch.cuda.empty_cache()
 
-    order = (*bases, "change", "no-swizzle", "no-products")
+    order = (*bases, "change", "no-swizzle", "no-products", "no-recompute")
     order += order[::-1]
     times = []
     for name in order:

@@ -15,18 +15,21 @@ follow the kernels' arithmetic (``trajsde_tpu/ops/pallas/``):
   in 3xTF32, the rest on the CUDA cores, as K4's below.
 * K3 ``aa_fused._fwd_call`` (``pair_chain``): ``chip_smoke.aa_fused_bound``,
   per (receiver, sender) pair the work the function needs
-  (``aa_pair_ops``; the kernels multiply the zero blocks of the packed
-  layout too).  Inputs q [B,T,Aq,D], u [B,T*Aq,Ak,4] and the f32 mask;
-  output the [B,T,Aq,D] aggregate.
+  (``aa_pair_ops``; the port's K3 folds w1's two column halves, so it
+  multiplies none of the packed layout's zero blocks).  Inputs q
+  [B,T,Aq,D], u [B,T*Aq,Ak,4] and the f32 mask; output the [B,T,Aq,D]
+  aggregate.  Also ``tensor_route_bound_ms``: its three products (10 D^2
+  a pair) on the tensor cores in 3xTF32, the rest on the CUDA cores.
 * K4 ``aa_fused._bwd_call``: ``chip_smoke.aa_fused_bwd_bound``, the
   forward recomputed, twice the matmul operations (input and weight
   gradients) and twice the elementwise ones; reads K3's inputs, the
   dropout keep mask [B,T,Aq,Ak,H] (training) and the cotangent, writes dq
   and the weight gradients.  Also ``tensor_route_bound_ms``, the bound on
-  the route the port's kernel takes: its six backward products on the
-  tensor cores at f32 accuracy (3 TF32 products each, 495 / 3 TFLOP/s),
-  the rest at the f32 peak on the CUDA cores, the two at the same time
-  (and ``tensor_route_bound_by``).
+  the route the port's kernel takes: its three recompute products and
+  six backward products (30 D^2 a pair) on the tensor cores at f32
+  accuracy (3 TF32 products each, 495 / 3 TFLOP/s), the rest at the f32
+  peak on the CUDA cores, the two at the same time (and
+  ``tensor_route_bound_by``).
 * K5 ``aa_attention``: ``chip_smoke.aa_attention_bound``, K3's chain plus
   the pair features' 14 operations per pair (the rotation of x_k and of
   pos_k - pos_q) and the q projection (2 D^2 + D per receiver); it reads

@@ -2,6 +2,7 @@
 scene, weights and noise go through the JAX package and the PyTorch port."""
 from __future__ import annotations
 
+import contextlib
 import copy
 
 import jax
@@ -13,6 +14,7 @@ from trajsde_tpu.data.synthetic import make_scene_batch as jax_make_scene_batch
 from trajsde_tpu_torch.bridge import params_from_flax
 from trajsde_tpu_torch.config import FLAGSHIP, build_model as torch_build_model
 from trajsde_tpu_torch.data.scene import SceneBatch
+from trajsde_tpu_torch.ops.aa_fused import W_ORDER
 
 SCENE_FIELDS = ("x", "y", "positions", "padding_mask", "bos_mask", "rotate_angles",
                 "actor_valid", "agent_index", "av_index", "source", "lane_positions",
@@ -88,3 +90,39 @@ def check_leaves(got, want):
         if diff > 2e-3 * scale + 1e-6:
             failures.append((name, float(diff), float(scale)))
     assert not failures, failures[:10]
+
+
+def packed_aa_weights(r: np.random.Generator, dense: bool, D: int = 64):
+    """The 14 packed AA pair-chain weights (``W_ORDER``) at width D, from
+    ``r``: matrices N(0, 1/fan_in), LayerNorm scales 1 + N(0, 0.04), other
+    vectors N(0, 0.04).  ``dense=False`` keeps the model's block-diagonal wu
+    and w1 (two branches); ``dense=True`` fills their off-diagonal blocks."""
+    shapes = dict(wu=(4, 2 * D), bu=(1, 2 * D), ln0s=(1, 2 * D), ln0b=(1, 2 * D),
+                  w1=(2 * D, 2 * D), b1=(1, 2 * D), lna0s=(1, D), lna0b=(1, D), wagg=(D, D),
+                  bagg=(1, D), lna1s=(1, D), lna1b=(1, D), wkv=(D, 2 * D), bkv=(1, 2 * D))
+    ws = {}
+    for k, s in shapes.items():
+        if k[0] == "w":
+            x = r.standard_normal(s) / np.sqrt(s[0] if k != "wu" else 2)
+            if not dense and k in ("wu", "w1"):
+                half = s[0] // 2
+                x[:half, D:] = 0.0
+                x[half:, :D] = 0.0
+        else:
+            x = (1.0 if k.endswith("s") and k.startswith("ln") else 0.0) \
+                + 0.2 * r.standard_normal(s)
+        ws[k] = torch.from_numpy(x.astype(np.float32))
+    return tuple(ws[k] for k in W_ORDER)
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """Run the body on at most ``n`` intra-op threads: the emulated
+    tensor-core products are large f64 element-wise passes that slow to a
+    crawl when several test workers each run them on every core."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(min(n, old))
+    try:
+        yield
+    finally:
+        torch.set_num_threads(old)

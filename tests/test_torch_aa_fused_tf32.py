@@ -29,14 +29,20 @@ forward, and ``dY W^T`` and ``X^T dY`` backward by one of ``PRODUCTS``:
   gradient), as a first build of the kernel did; it failed the f64 test on
   an H100.
 * ``1xtf32``: one TF32 product (big * big), summed in f32.
+* ``3xtf32-recompute``: ``3xtf32``, with the forward (K4's recompute,
+  which is K3's arithmetic) also in 3xTF32: two k-steps per fresh
+  fragment, the small terms and big * big apart (``mma3x2_apart``), and
+  ``a0 @ w1`` taken with w1's two column halves folded into one [2D, D]
+  weight, returned beside zeros (the chain then adds b1 per half, where the
+  kernel adds the folded b1 once: one f32 rounding apart).
 
 At (B, T, Aq, Ak) = (2, 3, 9, 48), D 64, H 8, with a keep mask, the
 gradients are held against the plain backward in f64 by the criterion of
 ``tests/test_torch_cuda.py::test_aa_fused_bwd_kernel_within_the_f64_gradient``,
 as a fraction of max|f64| per leaf: the leaves behind a ReLU's derivative
 (wu .. lna0b) within 2e-3; dq and the others no more than 2x the f32 plain
-version's distance plus 1e-7.  ``3xtf32`` meets it; ``3xtf32-chained`` and
-``1xtf32`` do not.
+version's distance plus 1e-7.  ``3xtf32`` and ``3xtf32-recompute`` meet
+it; ``3xtf32-chained`` and ``1xtf32`` do not.
 
     PYTHONPATH=. python tests/test_torch_aa_fused_tf32.py   # every leaf's distance, each mode
 """
@@ -49,6 +55,7 @@ import pytest
 import torch
 
 from scripts import probe_mma_rounding_torch as probe
+from _torch_helpers import packed_aa_weights, torch_threads
 from scripts.probe_mma_rounding_torch import mm_3xtf32, mma_step, rna_tf32, rz_f32, split
 from trajsde_tpu_torch.ops import aa_fused as K3
 
@@ -80,17 +87,29 @@ PRODUCTS = {  # mode -> (input gradient dy w^T, weight gradient x^T dy)
     "1xtf32": (lambda dy, w: rna_tf32(dy) @ rna_tf32(w).t(),
                lambda x, dy: _per_group(lambda a, b: rna_tf32(a) @ rna_tf32(b), x, dy)),
 }
+PRODUCTS["3xtf32-recompute"] = PRODUCTS["3xtf32"]
+
+
+def _forward(x: torch.Tensor, w: torch.Tensor, mode: str) -> torch.Tensor:
+    """``x @ w`` in f32, or as K3 and K4's recompute take it for
+    ``3xtf32-recompute`` (w1 [2D, 2D] folded, its product beside zeros)."""
+    if mode != "3xtf32-recompute":
+        return x @ w
+    if w.shape == (2 * D, 2 * D):
+        y = mm_3xtf32(x, w[:, :D] + w[:, D:], False, apart=True)
+        return torch.cat([y, torch.zeros_like(y)], 1)
+    return mm_3xtf32(x, w, False, apart=True)
 
 
 class TF32Product(torch.autograd.Function):
-    """``x @ w``: the f32 product forward; backward ``dY w^T`` and
-    ``x^T dY`` by ``PRODUCTS[mode]``."""
+    """``x @ w``: the f32 product forward (or :func:`_forward`'s); backward
+    ``dY w^T`` and ``x^T dY`` by ``PRODUCTS[mode]``."""
 
     @staticmethod
     def forward(ctx, x, w, mode):
         ctx.save_for_backward(x, w)
         ctx.mode = mode
-        return x @ w
+        return _forward(x, w, mode)
 
     @staticmethod
     def backward(ctx, dy):
@@ -117,29 +136,6 @@ class Routed:
         raise TypeError(f"a routed weight is used only as the right operand of @, not in {func}")
 
 
-def _weights(r: np.random.Generator, dense: bool):
-    """The 14 packed weights at D = 64: matrices N(0, 1/fan_in), LayerNorm
-    scales 1 + N(0, 0.04), other vectors N(0, 0.04).  ``dense=False`` keeps
-    the model's block-diagonal wu and w1 (two branches); ``dense=True``
-    fills their off-diagonal blocks, as K4's tests do."""
-    shapes = dict(wu=(4, 2 * D), bu=(1, 2 * D), ln0s=(1, 2 * D), ln0b=(1, 2 * D),
-                  w1=(2 * D, 2 * D), b1=(1, 2 * D), lna0s=(1, D), lna0b=(1, D), wagg=(D, D),
-                  bagg=(1, D), lna1s=(1, D), lna1b=(1, D), wkv=(D, 2 * D), bkv=(1, 2 * D))
-    ws = {}
-    for k, s in shapes.items():
-        if k[0] == "w":
-            x = r.standard_normal(s) / np.sqrt(s[0] if k != "wu" else 2)
-            if not dense and k in ("wu", "w1"):
-                half = s[0] // 2
-                x[:half, D:] = 0.0
-                x[half:, :D] = 0.0
-        else:
-            x = (1.0 if k.endswith("s") and k.startswith("ln") else 0.0) \
-                + 0.2 * r.standard_normal(s)
-        ws[k] = torch.from_numpy(x.astype(np.float32))
-    return tuple(ws[k] for k in K3.W_ORDER)
-
-
 def _case(dense: bool, seed: int = 7):
     """Inputs of one backward: q, u, the mask (a receiver with no sender),
     the keep mask, the weights and a cotangent, from numpy."""
@@ -152,7 +148,7 @@ def _case(dense: bool, seed: int = 7):
     mask[0, 0, 0] = False
     keep = f32(r.uniform(size=(B, T, Aq, Ak, H)) >= P_DROP)
     g = f32(r.standard_normal((B, T, Aq, D)))
-    return q, u, f32(mask), keep, _weights(r, dense), g
+    return q, u, f32(mask), keep, packed_aa_weights(r, dense), g
 
 
 def routed_bwd(q, u, mask, keep, ws, g, mode: str, calls: list):
@@ -170,12 +166,14 @@ def routed_bwd(q, u, mask, keep, ws, g, mode: str, calls: list):
 def distances(dense: bool) -> dict:
     """leaf -> {plain, and each mode of PRODUCTS}: max|x - f64| / max|f64|."""
     q, u, mask, keep, ws, g = _case(dense)
-    oracle = K3.fused_pair_attention_bwd_reference(
-        q.double(), u.double(), mask.double(), keep.double(), [w.double() for w in ws],
-        g.double(), H, P_DROP)
-    runs = {"plain": K3.fused_pair_attention_bwd_reference(q, u, mask, keep, ws, g, H, P_DROP)}
-    for mode in PRODUCTS:
-        runs[mode] = routed_bwd(q, u, mask, keep, ws, g, mode, [])
+    with torch_threads(2):
+        oracle = K3.fused_pair_attention_bwd_reference(
+            q.double(), u.double(), mask.double(), keep.double(), [w.double() for w in ws],
+            g.double(), H, P_DROP)
+        runs = {"plain": K3.fused_pair_attention_bwd_reference(q, u, mask, keep, ws, g, H,
+                                                               P_DROP)}
+        for mode in PRODUCTS:
+            runs[mode] = routed_bwd(q, u, mask, keep, ws, g, mode, [])
     leaves = {}
     for i, name in enumerate(("dq", *K3.W_ORDER)):
         o = oracle[0] if i == 0 else oracle[1][i - 1]
@@ -258,6 +256,15 @@ def test_routing_reaches_exactly_the_three_products_and_keeps_the_forward():
 def test_3xtf32_backward_is_within_the_f64_criterion(dense):
     leaves = distances(dense)
     assert within_the_f64_criterion(leaves, "3xtf32"), leaves
+
+
+@pytest.mark.parametrize("dense", [False, True], ids=["block-diagonal", "dense"])
+def test_3xtf32_backward_with_the_recompute_on_the_tensor_cores_is_within_the_f64_criterion(dense):
+    """K4 with its recompute (F2-F4) in K3's 3xTF32 arithmetic, w1 folded:
+    the logits, LayerNorm statistics and activations its backward reads
+    are K3's, and the gradients still meet the f64 criterion."""
+    leaves = distances(dense)
+    assert within_the_f64_criterion(leaves, "3xtf32-recompute"), leaves
 
 
 @pytest.mark.parametrize("mode", ["3xtf32-chained", "1xtf32"])

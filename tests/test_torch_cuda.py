@@ -6,12 +6,18 @@ Tolerances: K1 1e-4 absolute over 60 f32 steps (``tanhf``, FMA
 contraction and cuBLAS summation order differ from the plain version);
 K2 1e-4 of each output's largest magnitude for ``dy0`` and 1e-3 for the
 weight gradients, which sum every row's contribution in another order;
-K3 1e-4 of the largest magnitude (the same f32 chain with FMA contraction,
-another summation order and an online softmax); K4 as K2: 1e-4 of the
+K3 1e-4 of the largest magnitude (the same chain with its products in
+3xTF32 on the tensor cores, another summation order and an online softmax); K4 as K2: 1e-4 of the
 largest magnitude for ``dq`` and 1e-3 for the weight gradients; K5 as K3;
 K6 per element, by ``vpu_probe.agreement``: in ulps of each plain value
 within ``TOL_ULPS``, and a least share of bit-equal elements.  K4 and K2 are also held against their plain versions in f64.
+K4's recomputed logits are held to K3's bit for bit, through check copies
+of both built to write them.
 """
+import ctypes
+import functools
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -171,6 +177,70 @@ def test_aa_fused_bwd_kernel_matches_plain(cuda, shape, with_keep):
     for name, got, w, x in zip(K3.W_ORDER, dws, want, ws):
         assert got.shape == x.shape, name
         assert ((got - w).abs().max() / w.abs().max()).item() < 1e-3, name
+
+
+@functools.cache
+def _logit_copies():
+    """Check copies of K3 and K4 built with ``AA_WRITE_LOGITS`` defined, so
+    that each writes every pair's head logits ``[R * Ak, H]`` (-inf where
+    masked) to a buffer: K3 the ones its softmax takes, K4 the ones its
+    recompute gives."""
+    from trajsde_tpu_torch.ops import build
+
+    out_dir = Path(build.BUILD_DIR) / "logits"
+    sources = {}
+    for name in ("aa_fused", "aa_fused_bwd"):
+        cu = out_dir / name / f"{name}.cu"
+        cu.parent.mkdir(parents=True, exist_ok=True)
+        source = (Path(build.CSRC_DIR) / f"{name}.cu").read_text()
+        cu.write_text("#define AA_WRITE_LOGITS\n" + source)
+        sources[name] = str(cu)
+    libs = build.build_copies(sources, str(out_dir))
+    fwd, bwd = K3.configure_fwd(libs["aa_fused"][0]), K3.configure_bwd(libs["aa_fused_bwd"][0])
+    fwd.aa_fused_set_logits.argtypes = [ctypes.c_void_p]
+    bwd.aa_fused_bwd_set_logits.argtypes = [ctypes.c_void_p]
+    return fwd, bwd
+
+
+def _logits_of_both(cuda):
+    """At B = 8 of the training twin shape with keep: K3's logits, K4's
+    recomputed ones, K3's output and statistics (from the check copies) and
+    the output of the shipped K3 on the same inputs."""
+    fwd, bwd = _logit_copies()
+    q, u, mask, keep, ws, g, p = _k4_case(cuda, (8, 21, 49, 48), True)
+    rows = q.shape[0] * q.shape[1] * q.shape[2] * u.shape[3]
+    lg3 = torch.full((rows, 8), float("nan"), device=cuda)
+    lg4 = torch.full((rows, 8), float("nan"), device=cuda)
+    assert fwd.aa_fused_set_logits(lg3.data_ptr()) == 0
+    out, stats = K3.launch_fwd(fwd, q, u, mask, keep, ws, 8, p, with_stats=True)
+    assert bwd.aa_fused_bwd_set_logits(lg4.data_ptr()) == 0
+    K3.launch_bwd(bwd, q, u, mask, keep, ws, g, out, stats, 8, p)
+    shipped = K3.fused_pair_attention(q, u, mask, keep, ws, 8, p)
+    torch.cuda.synchronize()
+    return lg3, lg4, out, stats, shipped
+
+
+@pytest.mark.gpu
+def test_aa_fused_bwd_recomputes_k3s_logits_bit_for_bit(cuda):
+    """K4's recompute (F1-F4) takes K3's products and epilogues, so every
+    logit it recomputes is the one K3's softmax took, bit for bit; writing
+    the logits changes nothing else (the check copy's output is the shipped
+    K3's)."""
+    lg3, lg4, out, _, shipped = _logits_of_both(cuda)
+    assert not torch.isnan(lg3).any() and not torch.isnan(lg4).any()   # every pair written
+    assert torch.isinf(lg3).any() and torch.isfinite(lg3).any()
+    assert torch.equal(lg3, lg4)
+    assert torch.equal(out, shipped)
+
+
+@pytest.mark.gpu
+def test_aa_fused_stats_max_is_the_max_of_k4s_recomputed_logits(cuda):
+    """K3's softmax statistics: the running max of each (receiver, head) is
+    the largest of the logits K4 recomputes for it (-inf for a receiver
+    with no sender)."""
+    _, lg4, _, stats, _ = _logits_of_both(cuda)
+    R = stats.shape[1]
+    assert torch.equal(stats[0], lg4.view(R, -1, 8).amax(dim=1))
 
 
 @pytest.mark.gpu

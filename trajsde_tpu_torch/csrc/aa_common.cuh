@@ -1,8 +1,11 @@
 // Shared by the fused AA pair-chain kernels K3 (aa_fused.cu, forward) and
-// K4 (aa_fused_bwd.cu, backward): the widths, the packed weight layout and
-// the register-tile helpers of the chain.  K4 recomputes K3's chain with
-// these same functions, so its logits are the ones whose softmax statistics
-// K3 wrote.
+// K4 (aa_fused_bwd.cu, backward): the widths, the packed weight layout, the
+// swizzled chunk tiles and the epilogues of the chain's products; and by K5
+// (aa_attention.cu), which keeps the f32 FMA register tiles (mm).  K3 and
+// K4's recompute take each product on the tensor cores through
+// mma_tf32.cuh's mma_xwt_split and each epilogue through these functions,
+// so K4's logits are bit for bit the ones whose softmax statistics K3
+// wrote.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -114,6 +117,78 @@ __device__ __forceinline__ void zero(float acc[NR][8]) {
 
 __device__ __forceinline__ void store4(float* dst, const float v[4]) {
   *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void load4(float v[4], const float* src) {
+  const float4 x = *reinterpret_cast<const float4*>(src);
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+}
+
+// index of (row, col) in a swizzled chunk tile of row stride ld (a multiple
+// of 32): the row's 16-byte granules are permuted by an XOR with key(row) =
+// 2 (row mod 4) + (row / 4 mod 2), which takes all 8 values over any 8 rows
+// from a multiple of 8.  So the tensor-core fragment reads fall in 32
+// different banks: 8 rows at one column (the A operand of X W), and 4 rows
+// at 8 neighbouring columns (both operands of X^T Y: keys 2t or 2t + 1
+// against 2 granules); the C fragments' float2 stores do too.  A float4 at
+// a multiple of 4 columns stays whole.
+__device__ __forceinline__ int swz(int row, int col, int ld) {
+  const int key = ((row & 3) << 1) | ((row >> 2) & 1);
+  return row * ld + (col ^ (key << 2));
+}
+
+struct Swz {  // a swizzled chunk tile as an operand accessor, (row, col) -> value
+  const float* p;
+  int ld;
+  __device__ __forceinline__ float operator()(int r, int c) const { return p[swz(r, c, ld)]; }
+};
+
+struct SwzAt {  // (row, col) -> float index in a swizzled tile, for tc::store_c
+  int ld;
+  __device__ __forceinline__ int operator()(int r, int c) const { return swz(r, c, ld); }
+};
+
+// The chain's epilogues, on one row held as 4 values by each of 16 lanes
+// (columns c0 .. c0+3 of that lane): x holds the raw sums of a product
+// (mma_xwt_split over the whole K, from zero), and each adds its bias, then
+// as pair_chain does.  w1 comes folded: z1[:D] + z1[D:] = a0 w1f + b1f with
+// w1f = w1[:, :D] + w1[:, D:] and b1f = b1[:D] + b1[D:] summed once in f32
+// when the weights are staged (exact for the model's block-diagonal w1).
+// a1 = relu(LN(a0 w1f + b1f))
+__device__ __forceinline__ void epi_a1(float x[4], const float* __restrict__ b1f,
+                                       const float* __restrict__ scale,
+                                       const float* __restrict__ bias, int c0,
+                                       float* xhat = nullptr, float* inv = nullptr) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) x[j] += b1f[c0 + j];
+  ln_row(x, scale, bias, c0, true, xhat, inv);
+}
+
+// nbr = LN(a1 wagg + bagg)
+__device__ __forceinline__ void epi_nbr(float x[4], const float* __restrict__ bagg,
+                                        const float* __restrict__ scale,
+                                        const float* __restrict__ bias, int c0,
+                                        float* xhat = nullptr, float* inv = nullptr) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) x[j] += bagg[c0 + j];
+  ln_row(x, scale, bias, c0, false, xhat, inv);
+}
+
+// k or v = nbr wkv + bkv, at columns c0.. of bkv
+__device__ __forceinline__ void epi_bias(float x[4], const float* __restrict__ b, int c0) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) x[j] += b[c0 + j];
+}
+
+// a head's logit q_h . k_h / sqrt(hd) from this lane's 4 key columns and
+// its neighbour's (a head's 8 columns; lanes 2h and 2h + 1 of the row)
+__device__ __forceinline__ float head_logit(const float4 qv, const float k[4]) {
+  float part = qv.x * k[0];
+  part = fmaf(qv.y, k[1], part);
+  part = fmaf(qv.z, k[2], part);
+  part = fmaf(qv.w, k[3], part);
+  part += __shfl_xor_sync(0xffffffffu, part, 1);
+  return __fmul_rn(part, SCALE);  // rounded here: never contracted into a later add
 }
 
 }  // namespace aa

@@ -9,7 +9,7 @@
 // with keep' = keep / (1 - p) (or 1) and K3's softmax statistics (max m,
 // sum l) of receiver r and head h:
 //   recompute the chain: a0, xhat/1-over-std of the three LayerNorms, a1,
-//     nbr, k, v (K3's own helpers, aa_common.cuh);
+//     nbr, k, v (K3's own product and epilogue calls, w1 folded);
 //   alpha = exp(q.k / sqrt(hd) - m) / l   (0 for a masked pair or empty receiver)
 //   dlogit = alpha (keep' g.v - g.out)     (flash-attention identity:
 //            sum_j alpha keep' g.v_j = g.out, so one pass suffices)
@@ -27,45 +27,59 @@
 // 8.3e11 f32 operations, 12.4 ms at the 67 TFLOP/s CUDA-core peak; the
 // inputs (with the keep mask), dq and the weight gradients are 0.43 GB,
 // 0.13 ms at 3.35 TB/s.
-// K4 is bound by arithmetic.  On the route it takes, the six backward
-// products below (20 D^2 = 81,920 of the 131,256 operations a pair needs)
-// run on the tensor cores at f32 accuracy, 3 TF32 products each, so at
-// most 495 / 3 = 165 TFLOP/s: 3.1 ms; the rest stays on the CUDA cores,
-// 4.7 ms.  The two pipes run at the same time (an mma.sync m16n8k8 takes
-// one issue slot for 2,048 flops), so the route's bound is 4.7 ms.
+// K4 is bound by arithmetic.  On the route it takes, the recompute's three
+// products and the six backward products below (30 D^2 = 122,880 of the
+// 131,256 operations a pair needs) run on the tensor cores at f32
+// accuracy, 3 TF32 products each, so at most 495 / 3 = 165 TFLOP/s:
+// 4.7 ms; the rest stays on the CUDA cores, 0.8 ms.  The two pipes run at
+// the same time (an mma.sync m16n8k8 takes one issue slot for 2,048
+// flops), so the route's bound is 4.7 ms.
 //
 // Design.  As K3: a persistent grid (one 256-thread block per SM) walks
 // groups of 8 receivers with all their senders, in chunks of 32 pairs.
 //   * The softmax needs no second walk: K3 wrote each (receiver, head)'s max
 //     and sum, and g.out per (receiver, head) is read once per group.
-//   * The recompute (F1-F4) is K3's own f32 FMA code (aa_common.cuh's mm and
-//     ln_row), so the logits are bit for bit the ones whose softmax
-//     statistics K3 wrote; a tensor-core recompute would round them
-//     otherwise and leave a larger residue S for the dq correction below.
+//   * The recompute (F1-F4) is K3's: its three products go through
+//     mma_tf32.cuh's mma_xwt_split over the same operands (w1 folded when
+//     staged, w1f = w1[:, :D] + w1[:, D:], b1f = b1[:D] + b1[D:]) and its
+//     epilogues through aa_common.cuh's epi_a1, epi_nbr, epi_bias and
+//     head_logit, so every per-row value of the chain and the logits are
+//     bit for bit the ones whose softmax statistics K3 wrote; another
+//     rounding would leave a larger residue S for the dq correction below.
+//     K3 splits its weights once per block; K4 has no room for the split
+//     copies and splits each weight where it reads it (tc::SplitAtUse),
+//     into the same bits.  The tiling differs (K3's and K4's warps own the
+//     same tiles here, but need not): the order of each element's sums
+//     does not.
 //   * The six backward products run on the tensor cores (mma_tf32.cuh:
 //     mma.sync m16n8k8 TF32, each operand split into two TF32 terms, three
 //     products per tile and k-step, two k-steps summed in a fresh fragment
 //     and added to f32 accumulators on the CUDA cores): the input gradients
-//     dnbr = dkv wkv^T (B2), da1 = dy3 wagg^T (B3) and da0 = dz (w1[:, :D]
-//     + w1[:, D:])^T (B4), and the weight gradients nbr^T dkv, a1^T dy3 and
-//     a0^T dz.  One TF32 product alone (about 2^-11 per operand) would move
-//     the smooth leaves 3 orders of magnitude from the f32 gradient
-//     (tests/test_torch_aa_fused_tf32.py emulates both on the CPU).
+//     dnbr = dkv wkv^T (B2), da1 = dy3 wagg^T (B3) and da0 = dz w1f^T (B4,
+//     the staged folded w1: dz1 = [dz | dz]), and the weight gradients
+//     nbr^T dkv, a1^T dy3 and a0^T dz.  One TF32 product alone (about
+//     2^-11 per operand) would move the smooth leaves 3 orders of
+//     magnitude from the f32 gradient (tests/test_torch_aa_fused_tf32.py
+//     emulates both on the CPU).
 //   * Shared memory: the weights, staged once per block with padded row
-//     strides (132, 68 floats), so the B fragments of X W^T read 8 rows at
-//     one column from 32 banks (124,672 B); nine chunk tiles (a0, k|v then
-//     dk|dv then d(pre-ReLU a0), the LayerNorms' xhat, a1, nbr and three
-//     gradient tiles, 90,112 B); the group's q, g, dq and statistics, the
-//     two sums of the dq correction below; the vector gradients.
-//     231,552 B in all, one block per SM, 896 B to spare: too few to pad
-//     the tiles.  So the four tiles that the tensor cores read or write
-//     (k|v, dnbr, dy3, dz) are swizzled instead (swz: an XOR of each row's
-//     16-byte granules, no bytes), which puts every fragment read of them
-//     in 32 banks and keeps the FMA code's float4s whole.  a0, a1 and nbr
-//     stay unswizzled, since the recompute's mm reads them by plain rows:
-//     their transposed reads (X^T of the weight gradients) are 4-way
-//     bank conflicts.  A weight gradient accumulator beside the weights
-//     would not fit, so:
+//     strides (w1f 68, wagg 68, wkv 132 floats), so the B fragments of X W^T
+//     read 8 rows at one column from 32 banks (91,648 B; the forward
+//     products' reads of W[k][n] are 2-way conflicts); nine chunk tiles (a0,
+//     k|v then dk|dv then d(pre-ReLU a0), the LayerNorms' xhat, a1, nbr and
+//     three gradient tiles, 90,112 B); the group's q, g, dq and statistics,
+//     the two sums of the dq correction below; the vector gradients.
+//     200,064 B in all, one block per SM.  The four tiles that only the
+//     backward reads or writes (k|v, dnbr, dy3, dz) are swizzled
+//     (aa_common.cuh's swz: an XOR of each row's 16-byte granules, no
+//     bytes), which puts every fragment read of them in 32 banks and keeps
+//     the epilogues' float4s whole.  The recompute's three (a0, a1, nbr)
+//     have their rows padded by 4 floats instead (132, 68, 68): the A
+//     fragments of its products are read conflict-free, their transposed
+//     reads by the weight gradients are 2-way conflicts (4-way unpadded),
+//     and the simpler index saves the registers that the swizzle's cost
+//     (swizzled, K4 spilled 32-40 B at 255 registers).  The xhat tiles are
+//     read by rows only.
+//     A weight gradient accumulator beside the weights would not fit, so:
 //   * the three matrix gradients (a0^T dz: 128 x 64, nbr^T dkv: 64 x 128,
 //     a1^T dy3: 64 x 64) are the C fragments of each warp's 16 x 8 tiles,
 //     80 floats a thread, accumulated over one receiver group's pairs; the
@@ -92,21 +106,21 @@
 //     f64 may fall on different sides, one element's whole contribution
 //     apart, which no summation order changes
 //     (scripts/check_aa_bwd_f64_torch.py counts such elements).
-// Each thread owns 2 rows of a chunk for the FMA work: columns c0..c0+3
-// (and D + c0..) of the recompute, as K3, and the strided columns cg + 16 m
-// of the epilogues; a row's columns sit in 16 lanes of one warp, so the
-// LayerNorm VJPs' row sums are shuffles.  An input gradient's tiles are
-// spread over the 8 warps and land in a chunk tile, read back by the
-// epilogue after one barrier.  dq is summed per (receiver, column) by one
+// Each thread owns 2 rows of a chunk for the CUDA-core work: columns
+// c0..c0+3 (and D + c0..) of the recompute's epilogues, as K3, and the
+// strided columns cg + 16 m of the backward epilogues; a row's columns sit
+// in 16 lanes of one warp, so the LayerNorm VJPs' row sums are shuffles.
+// An input gradient's tiles are spread over the 8 warps and land in a chunk
+// tile, read back by the epilogue after one barrier; so do the recompute's
+// products, whose epilogues then run per row.  dq is summed per (receiver, column) by one
 // thread in pair order.  TF32 appears only in the three-term form above.
 // The ragged last chunk and group are bounds-checked: dead rows carry zero
 // cotangents and add exact zeros.  Pair offsets are 64-bit.
-// ptxas (sm_90a): 243 registers, no spills, 231,552 B of shared memory
-// (the product loops unrolled by 4, or a fresh fragment per k-step, spill
-// at 255).  Measured with scripts/compare_aa_bwd_builds_torch.py on an
-// H100: the swizzle saves 1.3-2.2 ms of about 47; with the six products
-// skipped the rest of the kernel takes 31 ms, so the products cost 16 ms
-// on the tensor cores against 19 ms as f32 FMAs.
+// ptxas (sm_90a): 254 registers, no spills, 200,064 B of shared memory.
+// Measured with scripts/compare_aa_bwd_builds_torch.py on an H100: 40.2-40.5
+// ms against 46.8-47.1 with the recompute's products as f32 FMAs; the
+// swizzle saves 1.9 ms; with the six backward products skipped the rest
+// takes 26.8-27.0 ms, with the recompute's three skipped 33.0 ms.
 
 #include "aa_common.cuh"
 #include "mma_tf32.cuh"
@@ -119,20 +133,21 @@ constexpr int P = 32;          // pairs per chunk
 constexpr int RB = 8;          // receivers per group
 constexpr int THREADS = 256;   // 16 row groups (2 rows each) x 16 column groups
 constexpr int NR = 2;          // rows per thread
-constexpr int LW1 = D2 + 4;    // padded row strides of the staged matrices
+constexpr int LW1 = D + 4;     // padded row strides of the staged matrices
 constexpr int LWKV = D2 + 4;
 constexpr int LWAGG = D + 4;
 
-// staged weights (floats): the packed layout with padded matrix rows
+// staged weights (floats): the packed layout with padded matrix rows and
+// w1 folded, w1f = w1[:, :D] + w1[:, D:] [2D][D] and b1f = b1[:D] + b1[D:]
 constexpr int S_WU = 0;                        // wu, bu, ln0s, ln0b as packed
 constexpr int S_BU = S_WU + (OFF_BU - OFF_WU);
 constexpr int S_LN0S = S_WU + (OFF_LN0S - OFF_WU);
 constexpr int S_LN0B = S_WU + (OFF_LN0B - OFF_WU);
-constexpr int S_W1 = S_WU + (OFF_W1 - OFF_WU);  // [2D][LW1]
-constexpr int S_B1 = S_W1 + D2 * LW1;           // b1, lna0s, lna0b as packed
-constexpr int S_LNA0S = S_B1 + (OFF_LNA0S - OFF_B1);
-constexpr int S_LNA0B = S_B1 + (OFF_LNA0B - OFF_B1);
-constexpr int S_WAGG = S_B1 + (OFF_WAGG - OFF_B1);  // [D][LWAGG]
+constexpr int S_W1 = S_WU + (OFF_W1 - OFF_WU);  // [2D][LW1] w1f
+constexpr int S_B1 = S_W1 + D2 * LW1;           // [D] b1f, then lna0s, lna0b as packed
+constexpr int S_LNA0S = S_B1 + D;
+constexpr int S_LNA0B = S_LNA0S + D;
+constexpr int S_WAGG = S_LNA0B + D;             // [D][LWAGG]
 constexpr int S_BAGG = S_WAGG + D * LWAGG;      // bagg, lna1s, lna1b as packed
 constexpr int S_LNA1S = S_BAGG + (OFF_LNA1S - OFF_BAGG);
 constexpr int S_LNA1B = S_BAGG + (OFF_LNA1B - OFF_BAGG);
@@ -141,14 +156,16 @@ constexpr int S_BKV = S_WKV + D * LWKV;
 constexpr int SW_FLOATS = S_BKV + D2;
 
 // chunk tiles
-constexpr int T_A0 = SW_FLOATS;                // [P][2D] a0, then dh
-constexpr int T_KV = T_A0 + P * D2;            // [P][2D] k|v, then dk|dv, then dpre0
+constexpr int LA0 = D2 + 4;    // padded row strides of the recompute's tiles
+constexpr int LAC = D + 4;
+constexpr int T_A0 = SW_FLOATS;                // [P][LA0] a0, then dh
+constexpr int T_KV = T_A0 + P * LA0;           // [P][2D] k|v, then dk|dv, then dpre0
 constexpr int T_XB = T_KV + P * D2;            // [P][D] xhat of LN(a1 wagg + bagg)
-constexpr int T_NB = T_XB + P * D;             // [P][D] nbr   (T_XB..T_NB: [P][2D] xhat0)
+constexpr int T_NB = T_XB + P * D;             // [P][LAC] nbr (T_XB..: [P][2D] xhat0)
 constexpr int T_X0 = T_XB;
-constexpr int T_XA = T_NB + P * D;             // [P][D] xhat of LN(z1[:D] + z1[D:])
-constexpr int T_A1 = T_XA + P * D;             // [P][D] a1
-constexpr int T_DN = T_A1 + P * D;             // [P][D] dnbr, then d(pre-ReLU a1)
+constexpr int T_XA = T_NB + P * LAC;           // [P][D] xhat of LN(z1[:D] + z1[D:])
+constexpr int T_A1 = T_XA + P * D;             // [P][LAC] a1
+constexpr int T_DN = T_A1 + P * LAC;           // [P][D] dnbr, then d(pre-ReLU a1)
 constexpr int T_DY = T_DN + P * D;             // [P][D] dy3
 constexpr int T_DZ = T_DY + P * D;             // [P][D] dz
 constexpr int S_U = T_DZ + P * D;              // [P][4]
@@ -182,11 +199,11 @@ static_assert(S_W1 % 4 == 0 && S_WAGG % 4 == 0 && S_WKV % 4 == 0 && T_A0 % 4 == 
               S_Q % 4 == 0, "float4 alignment");
 static_assert(S_FLOATS * 4 <= 232448, "shared memory of one block");
 
-// shared-memory index of packed weight float i
+// shared-memory index of packed weight float i, from wu to ln0b and from
+// lna0s on (w1 and b1 are staged folded)
 __device__ __forceinline__ int staged(int i) {
   if (i < OFF_W1) return S_WU + i;
-  if (i < OFF_B1) return S_W1 + ((i - OFF_W1) / D2) * LW1 + (i - OFF_W1) % D2;
-  if (i < OFF_WAGG) return S_B1 + (i - OFF_B1);
+  if (i < OFF_WAGG) return S_LNA0S + (i - OFF_LNA0S);
   if (i < OFF_BAGG) return S_WAGG + ((i - OFF_WAGG) / D) * LWAGG + (i - OFF_WAGG) % D;
   if (i < OFF_WKV) return S_BAGG + (i - OFF_BAGG);
   if (i < OFF_BKV) return S_WKV + ((i - OFF_WKV) / D2) * LWKV + (i - OFF_WKV) % D2;
@@ -214,49 +231,27 @@ __device__ __forceinline__ void put2(double* dst, float v0, float v1, bool first
   *d = v;
 }
 
-// index of (row, col) in a swizzled chunk tile of row stride ld: the row's
-// 16-byte granules are permuted by an XOR with key(row) = 2 (row mod 4) +
-// (row / 4 mod 2), which takes all 8 values over any 8 rows from a multiple
-// of 8.  So the tensor-core fragment reads fall in 32 different banks: 8
-// rows at one column (the A operand of X W^T), and 4 rows at 8 neighbouring
-// columns (both operands of X^T Y: keys 2t or 2t + 1 against 2 granules).
-// A float4 at a multiple of 4 columns stays whole.
-__device__ __forceinline__ int swz(int row, int col, int ld) {
-  const int key = ((row & 3) << 1) | ((row >> 2) & 1);
-  return row * ld + (col ^ (key << 2));
-}
-
-// operand accessors for mma_tf32.cuh: (row, col) -> the f32 value
-struct Plain {  // a row-major tile or staged matrix
+// operand accessors for mma_tf32.cuh (swizzled tiles: aa_common.cuh's Swz)
+struct Plain {  // a row-major tile or staged matrix, (row, col) -> value
   const float* p;
   int ld;
   __device__ __forceinline__ float operator()(int r, int c) const { return p[r * ld + c]; }
 };
 
-struct Swz {  // a swizzled chunk tile
+struct WFwd {  // B of x W from a staged W [K][N]: w(n, k) = W[k][n], split where read
   const float* p;
   int ld;
-  __device__ __forceinline__ float operator()(int r, int c) const { return p[swz(r, c, ld)]; }
+  __device__ __forceinline__ float operator()(int n, int k) const { return p[k * ld + n]; }
 };
 
-struct W1Sum {  // w1[r][c] + w1[r][D + c]: dz1 = [dz | dz] folded into the weight
-  const float* p;
-  __device__ __forceinline__ float operator()(int r, int c) const {
-    return p[r * LW1 + c] + p[r * LW1 + D + c];
-  }
+struct PadAt {  // (row, col) -> float index in a padded tile, for tc::store_c
+  int ld;
+  __device__ __forceinline__ int operator()(int r, int c) const { return r * ld + c; }
 };
 
-// an input gradient's C fragments (this warp's NT tiles at rows m0.., cols
-// n0 + 8 j) into a swizzled chunk tile
-template <int NT>
-__device__ __forceinline__ void store_tiles(float* tile, int ld, const float acc[1][NT][4],
-                                            int m0, int n0) {
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-    tc::for_fragment(acc[0][j], m0, n0 + 8 * j, [&](int r, int c, float v0, float v1) {
-      *reinterpret_cast<float2*>(tile + swz(r, c, ld)) = make_float2(v0, v1);
-    });
-}
+#ifdef AA_WRITE_LOGITS
+__device__ float* g_logits;  // [R * Ak][H]
+#endif
 
 template <int MT, int NT>
 __device__ __forceinline__ void zero_tiles(float acc[MT][NT][4]) {
@@ -353,7 +348,13 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
   const int r0 = rg * NR;
   const int warp = tid >> 5;    // tensor-core products: this warp's tiles
 
-  for (int i = tid; i < W_FLOATS; i += THREADS) sw[staged(i)] = w[i];
+  for (int i = tid; i < W_FLOATS; i += THREADS)
+    if (i < OFF_W1 || i >= OFF_LNA0S) sw[staged(i)] = w[i];
+  for (int i = tid; i < D2 * D; i += THREADS) {  // w1 folded, as K3 stages it
+    const int r = i / D, c = i % D;
+    sw[S_W1 + r * LW1 + c] = w[OFF_W1 + r * D2 + c] + w[OFF_W1 + r * D2 + D + c];
+  }
+  if (tid < D) sw[S_B1 + tid] = w[OFF_B1 + tid] + w[OFF_B1 + D + tid];
   for (int i = tid; i < V_FLOATS; i += THREADS) vg[i] = 0.0f;
 
   double* part = partial + static_cast<size_t>(blockIdx.x) * W_FLOATS;  // this block's slice
@@ -406,8 +407,6 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
       if (tid < P) smask[tid] = cp0 + tid < pend ? mask[gp0 + tid] : 0.0f;
       __syncthreads();
 
-      float acc[NR][8];
-
       // F1. h = bu + u wu; a0 = relu(LN per branch) -> a0t
 #pragma unroll
       for (int i = 0; i < NR; ++i) {
@@ -425,46 +424,60 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
           }
         ln_row(hv[0], sw + S_LN0S, sw + S_LN0B, c0, true);
         ln_row(hv[1], sw + S_LN0S + D, sw + S_LN0B + D, c0, true);
-        store4(a0t + (r0 + i) * D2 + c0, hv[0]);
-        store4(a0t + (r0 + i) * D2 + D + c0, hv[1]);
+        store4(a0t + (r0 + i) * LA0 + c0, hv[0]);
+        store4(a0t + (r0 + i) * LA0 + D + c0, hv[1]);
       }
       __syncthreads();
 
-      // F2. a1 = relu(LN(z1[:D] + z1[D:])) -> a1t, its xhat -> xat
-      zero<NR>(acc);
-      mm<NR, D2, D2, LW1, true>(a0t, sw + S_W1, r0, c0, acc);
+      // F2. a0 w1f -> a1t; a1 = relu(LN(. + b1f)) in place, its xhat -> xat
+      // (K3's product and epilogue: the same sums in the same order)
+      {
+        float acc[1][2][4] = {};
+        tc::mma_xwt_split<1, 2, D2, 2>(Plain{a0t, LA0}, tc::SplitAtUse<WFwd>{WFwd{sw + S_W1, LW1}},
+                                       16 * (warp & 1), 16 * (warp >> 1), 8, acc);
+        tc::store_c<2>(a1t, PadAt{LAC}, acc, 16 * (warp & 1), 16 * (warp >> 1));
+      }
+      __syncthreads();
 #pragma unroll
       for (int i = 0; i < NR; ++i) {
-        float s[4], xh[4], inv;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          s[j] = (acc[i][j] + sw[S_B1 + c0 + j]) + (acc[i][4 + j] + sw[S_B1 + D + c0 + j]);
-        ln_row(s, sw + S_LNA0S, sw + S_LNA0B, c0, true, xh, &inv);
-        store4(a1t + (r0 + i) * D + c0, s);
+        float x[4], xh[4], inv;
+        load4(x, a1t + (r0 + i) * LAC + c0);
+        epi_a1(x, sw + S_B1, sw + S_LNA0S, sw + S_LNA0B, c0, xh, &inv);
+        store4(a1t + (r0 + i) * LAC + c0, x);
         store4(xat + (r0 + i) * D + c0, xh);
         if (cg == 0) sinva[r0 + i] = inv;
       }
       __syncthreads();
 
-      // F3. nbr = LN(a1 wagg + bagg) -> nbt, its xhat -> xbt
-      zero<NR>(acc);
-      mm<NR, D, D, LWAGG, false>(a1t, sw + S_WAGG, r0, c0, acc);
+      // F3. a1 wagg -> nbt; nbr = LN(. + bagg) in place, its xhat -> xbt
+      {
+        float acc[1][2][4] = {};
+        tc::mma_xwt_split<1, 2, D, 2>(Plain{a1t, LAC}, tc::SplitAtUse<WFwd>{WFwd{sw + S_WAGG, LWAGG}},
+                                      16 * (warp & 1), 16 * (warp >> 1), 8, acc);
+        tc::store_c<2>(nbt, PadAt{LAC}, acc, 16 * (warp & 1), 16 * (warp >> 1));
+      }
+      __syncthreads();
 #pragma unroll
       for (int i = 0; i < NR; ++i) {
-        float s[4], xh[4], inv;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[j] = acc[i][j] + sw[S_BAGG + c0 + j];
-        ln_row(s, sw + S_LNA1S, sw + S_LNA1B, c0, false, xh, &inv);
-        store4(nbt + (r0 + i) * D + c0, s);
+        float x[4], xh[4], inv;
+        load4(x, nbt + (r0 + i) * LAC + c0);
+        epi_nbr(x, sw + S_BAGG, sw + S_LNA1S, sw + S_LNA1B, c0, xh, &inv);
+        store4(nbt + (r0 + i) * LAC + c0, x);
         store4(xbt + (r0 + i) * D + c0, xh);
         if (cg == 0) sinvb[r0 + i] = inv;
       }
       __syncthreads();
 
-      // F4. [k | v]; alpha from K3's statistics; dlogit -> sdl, k -> kvt;
-      // dk and dv stay in registers until the dq update has read k
-      zero<NR>(acc);
-      mm<NR, D, D, LWKV, true>(nbt, sw + S_WKV, r0, c0, acc);
+      // F4. nbr wkv -> kvt; [k | v] + bkv; alpha from K3's statistics;
+      // dlogit -> sdl, k -> kvt; dk and dv stay in registers until the dq
+      // update has read k
+      {
+        float acc[1][4][4] = {};
+        tc::mma_xwt_split<1, 4, D, 2>(Plain{nbt, LAC}, tc::SplitAtUse<WFwd>{WFwd{sw + S_WKV, LWKV}},
+                                      16 * (warp & 1), 32 * (warp >> 1), 8, acc);
+        tc::store_c<4>(kvt, SwzAt{D2}, acc, 16 * (warp & 1), 32 * (warp >> 1));
+      }
+      __syncthreads();
       float dkv[NR][8];
 #pragma unroll
       for (int i = 0; i < NR; ++i) {
@@ -473,29 +486,27 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
         const int rl = live ? (cp0 + p) / Ak : 0;
         const int h = cg >> 1;
         float k[4], v[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          k[j] = acc[i][j] + sw[S_BKV + c0 + j];
-          v[j] = acc[i][4 + j] + sw[S_BKV + D + c0 + j];
-        }
+        load4(k, kvt + swz(p, c0, D2));
+        load4(v, kvt + swz(p, D + c0, D2));
+        epi_bias(k, sw + S_BKV, c0);
+        epi_bias(v, sw + S_BKV + D, c0);
         store4(kvt + swz(p, c0, D2), k);
         const float4 qv = ld4(sq + rl * D + c0);
         const float4 gv = ld4(sg + rl * D + c0);
-        float part = qv.x * k[0];
-        part = fmaf(qv.y, k[1], part);
-        part = fmaf(qv.z, k[2], part);
-        part = fmaf(qv.w, k[3], part);
+        const float lg = head_logit(qv, k);
         float gdv = gv.x * v[0];
         gdv = fmaf(gv.y, v[1], gdv);
         gdv = fmaf(gv.z, v[2], gdv);
         gdv = fmaf(gv.w, v[3], gdv);
         // a head's 8 columns are the 4 of this lane and the 4 of its neighbour
-        part += __shfl_xor_sync(0xffffffffu, part, 1);
         gdv += __shfl_xor_sync(0xffffffffu, gdv, 1);
+#ifdef AA_WRITE_LOGITS
+        if ((cg & 1) == 0 && live) g_logits[(gp0 + p) * H + h] = smask[p] > 0.0f ? lg : -INFINITY;
+#endif
         float dl = 0.0f, ak = 0.0f, al = 0.0f;
         const float lsum = ssl[rl * H + h];
         if (live && smask[p] > 0.0f && lsum > 0.0f) {
-          al = expf(part * SCALE - ssm[rl * H + h]) / lsum;
+          al = expf(lg - ssm[rl * H + h]) / lsum;
           const float kp = (keep == nullptr ? 1.0f : keep[(gp0 + p) * H + h]) * keep_scale;
           ak = al * kp;
           dl = al * (kp * gdv - sdelta[rl * H + h]);
@@ -543,13 +554,13 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
 
       // B2. dbkv; dwkv += nbr^T dkv; dnbr = dkv wkv^T -> dnt, LN VJP -> dy3
       if (tid < D2) vg[V_BKV + tid] += colsum(Swz{kvt, D2}, tid);
-      tc::mma_xty<1, 8, P, 2>(Plain{nbt, D}, Swz{kvt, D2}, wm, 64 * (warp >> 2), gkv);
+      tc::mma_xty<1, 8, P, 2>(Plain{nbt, LAC}, Swz{kvt, D2}, wm, 64 * (warp >> 2), gkv);
       {
         float dn[1][2][4];
         zero_tiles<1, 2>(dn);
         tc::mma_xwt<1, 2, D2, 2>(Swz{kvt, D2}, Plain{sw + S_WKV, LWKV}, 16 * (warp & 1),
                                  16 * (warp >> 1), dn);
-        store_tiles<2>(dnt, D, dn, 16 * (warp & 1), 16 * (warp >> 1));
+        tc::store_c<2>(dnt, SwzAt{D}, dn, 16 * (warp & 1), 16 * (warp >> 1));
       }
       __syncthreads();
 #pragma unroll
@@ -573,13 +584,13 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
       if (tid < D) vg[V_LNA1B + tid] += colsum(Swz{dnt, D}, tid);
       else if (tid < 2 * D) vg[V_LNA1S + tid - D] += colsum(Swz{dnt, D}, Plain{xbt, D}, tid - D);
       else if (tid < 3 * D) vg[V_BAGG + tid - 2 * D] += colsum(Swz{dyt, D}, tid - 2 * D);
-      tc::mma_xty<1, 4, P, 2>(Plain{a1t, D}, Swz{dyt, D}, wm, 32 * (warp >> 2), gagg);
+      tc::mma_xty<1, 4, P, 2>(Plain{a1t, LAC}, Swz{dyt, D}, wm, 32 * (warp >> 2), gagg);
       {
         float da[1][2][4];
         zero_tiles<1, 2>(da);
         tc::mma_xwt<1, 2, D, 2>(Swz{dyt, D}, Plain{sw + S_WAGG, LWAGG}, 16 * (warp & 1),
                                 16 * (warp >> 1), da);
-        store_tiles<2>(dzt, D, da, 16 * (warp & 1), 16 * (warp >> 1));
+        tc::store_c<2>(dzt, SwzAt{D}, da, 16 * (warp & 1), 16 * (warp >> 1));
       }
       __syncthreads();  // dnt is read above and rewritten below
 #pragma unroll
@@ -589,7 +600,7 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
 #pragma unroll
         for (int m = 0; m < 4; ++m) {
           const int col = cg + 16 * m;
-          da1[m] = a1t[p * D + col] > 0.0f ? dzt[swz(p, col, D)] : 0.0f;
+          da1[m] = a1t[p * LAC + col] > 0.0f ? dzt[swz(p, col, D)] : 0.0f;
           xh[m] = xat[p * D + col];
           sc[m] = sw[S_LNA0S + col];
         }
@@ -608,13 +619,13 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
       if (tid < D) vg[V_LNA0B + tid] += colsum(Swz{dnt, D}, tid);
       else if (tid < 2 * D) vg[V_LNA0S + tid - D] += colsum(Swz{dnt, D}, Plain{xat, D}, tid - D);
       else if (tid < 3 * D) vg[V_B1 + tid - 2 * D] += colsum(Swz{dzt, D}, tid - 2 * D);
-      tc::mma_xty<1, 8, P, 2>(Plain{a0t, D2}, Swz{dzt, D}, 16 * warp, 0, gw1);
+      tc::mma_xty<1, 8, P, 2>(Plain{a0t, LA0}, Swz{dzt, D}, 16 * warp, 0, gw1);
       {
         float da[1][4][4];
         zero_tiles<1, 4>(da);
-        tc::mma_xwt<1, 4, D, 2>(Swz{dzt, D}, W1Sum{sw + S_W1}, 16 * (warp & 1),
+        tc::mma_xwt<1, 4, D, 2>(Swz{dzt, D}, Plain{sw + S_W1, LW1}, 16 * (warp & 1),
                                 32 * (warp >> 1), da);
-        store_tiles<4>(kvt, D2, da, 16 * (warp & 1), 32 * (warp >> 1));
+        tc::store_c<4>(kvt, SwzAt{D2}, da, 16 * (warp & 1), 32 * (warp >> 1));
       }
       __syncthreads();  // a0t is read above and rewritten below
 #pragma unroll
@@ -646,13 +657,13 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
             const int col = cg + 16 * (half * 4 + m);
             xh[m] *= inv;
             sc[m] = sw[S_LN0S + col];
-            dpre[m] = a0t[p * D2 + col] > 0.0f ? kvt[swz(p, col, D2)] : 0.0f;
+            dpre[m] = a0t[p * LA0 + col] > 0.0f ? kvt[swz(p, col, D2)] : 0.0f;
           }
           ln_vjp<4>(dpre, xh, sc, inv, dh);
 #pragma unroll
           for (int m = 0; m < 4; ++m) {
             const int col = cg + 16 * (half * 4 + m);
-            a0t[p * D2 + col] = dh[m];
+            a0t[p * LA0 + col] = dh[m];
             kvt[swz(p, col, D2)] = dpre[m];
             x0t[p * D2 + col] = xh[m];
           }
@@ -668,12 +679,12 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
         } else if (item < 2 * D2) {
           vg[V_LN0S + c] += colsum(Swz{kvt, D2}, Plain{x0t, D2}, c);
         } else if (item < 3 * D2) {
-          vg[V_BU + c] += colsum(Plain{a0t, D2}, c);
+          vg[V_BU + c] += colsum(Plain{a0t, LA0}, c);
         } else {
           const int k = item / D2 - 3;
           float s = 0.0f;
 #pragma unroll 8
-          for (int p = 0; p < P; ++p) s = fmaf(su[p * 4 + k], a0t[p * D2 + c], s);
+          for (int p = 0; p < P; ++p) s = fmaf(su[p * 4 + k], a0t[p * LA0 + c], s);
           vg[V_WU + k * D2 + c] += s;
         }
       }
@@ -742,6 +753,13 @@ int aa_fused_bwd_weight_floats() { return W_FLOATS; }
 
 // receivers one block owns at a time (the wrapper sizes the grid with it)
 int aa_fused_bwd_receivers_per_group() { return RB; }
+
+#ifdef AA_WRITE_LOGITS
+// where the next launches write each pair's recomputed head logits, [R * Ak][H]
+int aa_fused_bwd_set_logits(float* p) {
+  return static_cast<int>(cudaMemcpyToSymbol(g_logits, &p, sizeof(p)));
+}
+#endif
 
 // dq [R, 64] and dw [W_FLOATS] (packed like w) from K3's inputs q [R, 64],
 // u [R, Ak, 4], mask [R, Ak], keep [R, Ak, 8] or NULL, w; the cotangent

@@ -1,6 +1,7 @@
 // Warp-level tensor-core products at f32 accuracy (3xTF32) over operands in
-// shared memory, for the backward products of K4 (aa_fused_bwd.cu) and
-// all fourteen products of K2 (sde_rollout_bwd.cu).
+// shared memory, for the products of K3 (aa_fused.cu), all nine of K4
+// (aa_fused_bwd.cu: its recompute is K3's) and all fourteen of K2
+// (sde_rollout_bwd.cu).
 //
 // mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 multiplies a 16 x 8
 // tile of A by an 8 x 8 tile of B into a 16 x 8 f32 tile C, one warp at a
@@ -203,6 +204,35 @@ __device__ __forceinline__ void mma_xwt_split(const AccX& x, const AccW& w, int 
                                                 xb[1][i], xs[1][i], wb[1], ws[1]);
     }
   }
+}
+
+// x's (big, small) pair as a uint2, as mma_xwt_split's weight accessors return it
+__device__ __forceinline__ uint2 split2(float x) {
+  uint32_t big, small;
+  split(x, big, small);
+  return make_uint2(big, small);
+}
+
+// an f32 weight accessor w(n, k) -> float as mma_xwt_split's operand: each
+// value is split where it is read, into the bits a pre-split copy holds
+template <class Acc>
+struct SplitAtUse {
+  Acc w;
+  __device__ __forceinline__ uint2 operator()(int n, int k) const { return split2(w(n, k)); }
+};
+
+// the C fragments of a warp's NT tiles (rows m0 .., cols n0 + 8 j ..) into
+// a chunk tile through at(row, col) -> float index, as float2s
+template <int NT, class At>
+__device__ __forceinline__ void store_c(float* tile, const At& at, const float acc[1][NT][4],
+                                        int m0, int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float2*>(tile + at(m0 + g + 8 * h, n0 + 8 * j + 2 * t)) =
+          make_float2(acc[0][j][2 * h], acc[0][j][2 * h + 1]);
 }
 
 // two products of mma_xwt_split in one loop, acc1 += X1 W1^T and

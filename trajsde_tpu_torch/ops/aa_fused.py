@@ -166,11 +166,9 @@ def fused_pair_attention_bwd_reference(q, u, mask_f, keep, ws: Sequence[torch.Te
 # --------------------------------------------------------------------------
 # kernel
 # --------------------------------------------------------------------------
-@functools.cache
-def _library():
-    from trajsde_tpu_torch.ops import build
-
-    lib = build.load("aa_fused")
+def configure_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares K3's C interface on a loaded library (``csrc/aa_fused.cu``
+    or a copy of it built elsewhere) and returns it."""
     lib.aa_fused_launch.argtypes = [ctypes.c_void_p] * 7 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
@@ -180,6 +178,13 @@ def _library():
     lib.aa_fused_receivers_per_group.argtypes = []
     lib.aa_fused_receivers_per_group.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def _library():
+    from trajsde_tpu_torch.ops import build
+
+    return configure_fwd(build.load("aa_fused"))
 
 
 def configure_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -244,10 +249,13 @@ def _grid(R: int, receivers_per_group: int, dev) -> int:
     return min(groups, torch.cuda.get_device_properties(dev).multi_processor_count)
 
 
-def _launch(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats: bool = False):
-    """K3 -> (out, stats): ``stats [2, R, H]`` holds each (receiver, head)'s
-    softmax max and sum of exp for K4 when ``with_stats``, else None."""
-    lib = _library()
+def launch_fwd(lib: ctypes.CDLL, q, u, mask_f, keep, ws, num_heads, dropout_rate,
+               with_stats: bool = False):
+    """Runs ``lib``'s ``aa_fused_launch`` (K3, or another build of its
+    source configured by :func:`configure_fwd`) on the current stream ->
+    (out, stats): ``stats [2, R, H]`` holds each (receiver, head)'s softmax
+    max and sum of exp for K4 when ``with_stats``, else None.  Counts
+    nothing (see :func:`fused_pair_attention`)."""
     R, Ak, w = _common_checks(q, u, mask_f, keep, ws, num_heads, lib.aa_fused_weight_floats())
     dev = q.device
     out = torch.empty_like(q)
@@ -265,7 +273,15 @@ def _launch(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats: bool = 
         )
     if err != 0:
         raise RuntimeError(f"aa_fused kernel launch failed: cudaError {err}")
-    fused_pair_attention.launches += 1
+    return out, stats
+
+
+def _launch(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats: bool = False):
+    """K3 -> (out, stats), counted in ``fused_pair_attention.launches``."""
+    out, stats = launch_fwd(_library(), q, u, mask_f, keep, ws, num_heads, dropout_rate,
+                            with_stats)
+    if q.numel():  # no receivers: nothing was launched
+        fused_pair_attention.launches += 1
     return out, stats
 
 
