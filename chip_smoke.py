@@ -11,9 +11,11 @@ Phases (any failure raises and exits non-zero; nothing falls back):
   2. build: compile every kernel from ``trajsde_tpu_torch/csrc``, one nvcc
      per source in parallel, and print ptxas's registers and spills;
   3. kernels: the rollout kernel K1 vs its plain version at the row count
-     of each served bucket (1, 8, 128: up to 61,440 rows x 60 steps x 64)
-     with explicit, Rademacher and gaussian increments; CUDA-event
-     medians of both at bucket 128;
+     of each served bucket (1, 8, 128: 480, 3,840 and 61,440 rows x 60
+     steps x 64) with explicit, Rademacher and gaussian increments, within
+     ``TOL_KERNEL`` and ``TOL_K1_TIGHT``; CUDA-event medians of K1 at each
+     row count beside the bound on its route (its products on the tensor
+     cores) and the CUDA-core bound, and of the plain version at bucket 128;
   4. serve: a full-width ``ServingEngine`` (48 actors, 192 lanes, K=10,
      seeded weights) answers batches of 1, 5 and 128 scenes; outputs are
      checked, K1's launch count must equal the batch count and K3's be 0;
@@ -111,6 +113,12 @@ SEED = 0
 # kernel vs plain, 60 f32 steps: tanhf, FMA contraction and cuBLAS
 # summation order differ from the plain version
 TOL_KERNEL = 1e-4
+# K1 vs plain, max |kernel - plain| / max |plain|, tighter, so that a build
+# with the tensor-core products at TF32 precision fails: on an H100 K1 (its
+# five products in 3xTF32) reads 4.2e-7 to 5.8e-7 over this phase's nine
+# cases, the FMA build of K1 3.1e-7 to 5.5e-7, and a copy with one TF32
+# product per term 6.9e-4 to 1.2e-3 (scripts/compare_rollout_fwd_builds_torch.py)
+TOL_K1_TIGHT = 1e-5
 # served path vs model forward (loc / pi), same pinned noise, full width;
 # also the fused encoder's served answer and forward_ood vs the dense ones
 TOL_SPLICE = 1e-3
@@ -234,16 +242,22 @@ def phase_build() -> None:
 
 
 def rollout_bound(rows: int, steps: int, dim: int, explicit_noise: bool):
-    """(bound_ms, bound_by, flops, bytes) of one rollout call: 5 matmuls of
-    2*dim^2 plus the 2*dim diffusion output per row-step; y0, the
-    weights, the time table (and explicit noise) read once, ys written once."""
+    """(bound_ms, bound_by, flops, bytes, route_ms, route_by) of one K1 call:
+    5 products of 2*dim^2 plus the 2*dim diffusion output per row-step; y0,
+    the weights, the time table (and explicit noise) read once, ys written
+    once.  ``bound_ms`` takes every operation at the f32 CUDA-core peak;
+    ``route_ms`` is the bound on the route K1 takes: the five products
+    (``10 dim^2`` a row-step) on the tensor cores at f32 accuracy, three
+    TF32 products each (``PEAK_TF32_FLOPS / 3``), and the rest on the CUDA
+    cores at their peak, the two pipes running at the same time;
+    ``route_by`` says which of the route's operations and the bytes bounds
+    it."""
     flops = rows * steps * (5 * 2 * dim * dim + 2 * dim)
     weights = 5 * dim * dim + 10 * dim + 4
     nbytes = 4 * (rows * dim + weights + 4 * steps + steps * rows * dim)
     if explicit_noise:
         nbytes += 4 * steps * rows * dim
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+    return _route_bounds(flops, rows * steps * 10 * dim * dim, nbytes)
 
 
 def _increments(mode: str, noise: torch.Tensor) -> dict:
@@ -252,7 +266,8 @@ def _increments(mode: str, noise: torch.Tensor) -> dict:
 
 def phase_kernels(model, buckets) -> dict:
     """The rollout kernel vs its plain version at the row count of every
-    bucket the served batches land in; timed at the largest."""
+    bucket the served batches land in, within ``TOL_KERNEL`` and
+    ``TOL_K1_TIGHT``; timed at each."""
     dec = model.decoder
     T, D = dec.future_steps, dec.local_channels
     shapes = sorted({pick_bucket(n, buckets) * dec.num_modes * NUM_ACTORS for n in BATCHES})
@@ -273,28 +288,40 @@ def phase_kernels(model, buckets) -> dict:
             want = K1.sde_rollout_reference(y0_n, kp, t0s, dts, 11, T, **kw)
             check(bool(torch.isfinite(got).all()), f"sde_rollout ({mode}) produced non-finite values")
             errs.append((got - want).abs().max().item())
+            rel = errs[-1] / want.abs().max().item()
             print(f"[kernels] sde_rollout {mode}: max |kernel - plain| = {errs[-1]:.3e} "
-                  f"(tol {TOL_KERNEL:g}) over [{T}, {n}, {D}]", flush=True)
+                  f"(tol {TOL_KERNEL:g}), / max |plain| = {rel:.3e} (tol {TOL_K1_TIGHT:g}) "
+                  f"over [{T}, {n}, {D}]", flush=True)
             check(errs[-1] < TOL_KERNEL, f"sde_rollout ({mode}) disagrees with its plain version")
+            check(rel <= TOL_K1_TIGHT, f"sde_rollout ({mode}): {rel:.3e} > TOL_K1_TIGHT "
+                  f"{TOL_K1_TIGHT:g}")
             del got, want
 
     times = {}
-    for mode in ("rademacher", "gaussian", "explicit"):
-        kw = _increments(mode, noise)
-        times[mode] = cuda_ms(lambda: K1.sde_rollout(y0, kp, t0s, dts, 11, T, **kw))
-        bound, by, flops, nbytes = rollout_bound(rows, T, D, mode == "explicit")
-        print(f"[kernels] sde_rollout {mode}: {times[mode]:.3f} ms (median of {TIMED_RUNS}), "
-              f"bound {bound:.3f} ms by {by} ({flops:.3e} flop, {nbytes:.3e} B), "
-              f"{flops / times[mode] / 1e9:.1f} TFLOP/s", flush=True)
+    for n in shapes:
+        y0_n, noise_n = y0[:n].contiguous(), noise[:, :n].contiguous()
+        times[n] = {}
+        for mode in ("rademacher", "gaussian", "explicit"):
+            kw = _increments(mode, noise_n)
+            times[n][mode] = cuda_ms(lambda: K1.sde_rollout(y0_n, kp, t0s, dts, 11, T, **kw))
+            bound, by, flops, nbytes, route, route_by = rollout_bound(n, T, D, mode == "explicit")
+            print(f"[kernels] sde_rollout {mode} at {n} rows: {times[n][mode]:.3f} ms (median of "
+                  f"{TIMED_RUNS}), bound {route:.3f} ms by {route_by} on its route (3xTF32 "
+                  f"products on the tensor cores) and {bound:.3f} ms by {by} on the CUDA cores "
+                  f"({flops:.3e} flop, {nbytes:.3e} B), "
+                  f"{flops / times[n][mode] / 1e9:.1f} TFLOP/s", flush=True)
+        del y0_n, noise_n
     plain_ms = cuda_ms(lambda: K1.sde_rollout_reference(y0, kp, t0s, dts, 11, T,
                                                         increments="rademacher"), warmup=1)
     print(f"[kernels] sde_rollout plain version (rademacher): {plain_ms:.3f} ms", flush=True)
-    bound, by, _, _ = rollout_bound(rows, T, D, False)
-    # the main path draws Rademacher increments in the kernel: its numbers
+    bound, by, _, _, route, route_by = rollout_bound(rows, T, D, False)
+    # the main path draws Rademacher increments in the kernel: its numbers;
+    # bound_ms is the route's, cuda_core_bound_ms every operation on the CUDA cores
     return dict(name="sde_rollout", route="cuda", source="trajsde_tpu_torch/csrc/sde_rollout.cu",
                 replaces="trajsde_tpu/ops/pallas/sde_rollout.py:452", launches=None,
-                max_abs_err=max(errs), ms=times["rademacher"], plain_ms=plain_ms,
-                bound_ms=bound, bound_by=by, library_ms=None)
+                max_abs_err=max(errs), ms=times[rows]["rademacher"], plain_ms=plain_ms,
+                bound_ms=route, bound_by=route_by, cuda_core_bound_ms=bound,
+                cuda_core_bound_by=by, ms_by_rows=times, library_ms=None)
 
 
 def _requests(rng):

@@ -10,9 +10,9 @@ follow the kernels' arithmetic (``trajsde_tpu/ops/pallas/``):
 
 * K1 ``sde_rollout`` / K2 ``_rollout_train_bwd``: the formulas of
   ``chip_smoke.py`` (``rollout_bound``, ``bwd_bound``) at 61,440 rows
-  (bucket 128 x 10 modes x 48 actors) x 60 steps x 64; K2 also on its
-  route (``tensor_route_bound_ms``): its 14 products on the tensor cores
-  in 3xTF32, the rest on the CUDA cores, as K4's below.
+  (bucket 128 x 10 modes x 48 actors) x 60 steps x 64; both also on their
+  route (``tensor_route_bound_ms``): K1's 5 products and K2's 14 on the
+  tensor cores in 3xTF32, the rest on the CUDA cores, as K4's below.
 * K3 ``aa_fused._fwd_call`` (``pair_chain``): ``chip_smoke.aa_fused_bound``,
   per (receiver, sender) pair the work the function needs
   (``aa_pair_ops``; the port's K3 folds w1's two column halves, so it

@@ -3,7 +3,10 @@
 Imports no JAX, so it runs on a machine that has only the port:
 ``python -m pytest --noconftest -m gpu tests/test_torch_cuda.py``.
 Tolerances: K1 1e-4 absolute over 60 f32 steps (``tanhf``, FMA
-contraction and cuBLAS summation order differ from the plain version);
+contraction and cuBLAS summation order differ from the plain version), and
+``chip_smoke.TOL_K1_TIGHT`` of the largest magnitude (its products in
+3xTF32 on the tensor cores), with its in-kernel increments held to the
+plain version's draws;
 K2 1e-4 of each output's largest magnitude for ``dy0`` and 1e-3 for the
 weight gradients, which sum every row's contribution in another order;
 K3 1e-4 of the largest magnitude (the same chain with its products in
@@ -59,6 +62,79 @@ def test_rollout_kernel_matches_plain(cuda, mode, n):
     want = K.sde_rollout_reference(y0, kp, t0s, dts, 42, 60, noise=noise, increments=inc)
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() < TOL
+
+
+def _rollout_case(cuda, n, seed):
+    """K1's weights, time grid, y0 and explicit noise at ``n`` rows."""
+    gen = torch.Generator().manual_seed(seed)
+    step = SDEStep(64)
+    for p in step.parameters():
+        p.data = torch.randn(p.shape, generator=gen) * 0.2
+    kp = {k: v.contiguous().to(cuda) for k, v in K.rollout_params_from_module(step).items()}
+    t0s, dts = decoder_time_grid(60, 6.0, device=cuda)
+    y0 = torch.randn((n, 64), generator=gen).to(cuda)
+    noise = torch.randn((60, n, 64), generator=gen).to(cuda)
+    return kp, t0s, dts, y0, noise
+
+
+def _increments_kw(mode, noise):
+    return dict(noise=noise, increments="gaussian") if mode == "explicit" else dict(increments=mode)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["explicit", "rademacher", "gaussian"])
+@pytest.mark.parametrize("n", [1, 33, 480, 1000])
+def test_rollout_kernel_within_the_tight_tolerance(cuda, mode, n):
+    """K1 (its five products in 3xTF32) within ``chip_smoke.TOL_K1_TIGHT``
+    of the plain version, as a fraction of max|plain|, which a copy with one
+    TF32 product per term fails: one row, a ragged 32-row tile (33), bucket
+    1's 480 rows (15 tiles) and 1000 (a ragged 32nd tile)."""
+    from chip_smoke import TOL_K1_TIGHT
+
+    kp, t0s, dts, y0, noise = _rollout_case(cuda, n, n + 3)
+    kw = _increments_kw(mode, noise)
+    got = K.sde_rollout(y0, kp, t0s, dts, 42, 60, **kw)
+    torch.cuda.synchronize()
+    want = K.sde_rollout_reference(y0, kp, t0s, dts, 42, 60, **kw)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() < TOL
+    assert ((got - want).abs().max() / want.abs().max()).item() <= TOL_K1_TIGHT
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["explicit", "rademacher", "gaussian"])
+def test_rollout_kernel_runs_are_bit_equal(cuda, mode):
+    kp, t0s, dts, y0, noise = _rollout_case(cuda, 1000, 17)
+    kw = _increments_kw(mode, noise)
+    got = K.sde_rollout(y0, kp, t0s, dts, 42, 60, **kw)
+    again = K.sde_rollout(y0, kp, t0s, dts, 42, 60, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("increments", ["rademacher", "gaussian"])
+def test_rollout_kernel_draws_the_plain_versions_increments(cuda, increments):
+    """With the five matrices, wgo and bf2 zeroed there is no drift and
+    g = sigmoid(bgo) for every row, so from y0 = 0 each step adds
+    g sqrt(dt) z: (ys[t] - ys[t-1]) / (g sqrt(dt)) is the kernel's
+    increment, and at N = 1000 every one equals the plain version's
+    ``draw_increments`` within 1e-5 (the rounding of y and of g)."""
+    kp, t0s, dts, y0, _ = _rollout_case(cuda, 1000, 5)
+    for k in ("wf0", "wf1", "wf2", "wg0", "wg1", "wgo", "bf2"):
+        kp[k] = torch.zeros_like(kp[k])
+    y0 = torch.zeros_like(y0)
+    ys = K.sde_rollout(y0, kp, t0s, dts, 42, 60, increments=increments)
+    torch.cuda.synchronize()
+    g = 1.0 / (1.0 + torch.exp(-kp["bgo"].double()[0, 0]))
+    sdt = K.time_table(t0s, dts)[:, 3].double()
+    prev = torch.cat([y0[None], ys[:-1]]).double()
+    rows = torch.arange(1000, device=cuda)
+    keys = K.seed_keys(42)
+    for t in range(60):
+        z = (ys[t].double() - prev[t]) / (g * sdt[t])
+        want = K.draw_increments(keys, rows, t, 60, 64, increments).double()
+        assert (z - want).abs().max().item() <= 1e-5, t
 
 
 @pytest.mark.gpu
