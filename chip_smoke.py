@@ -74,7 +74,18 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      its own path, f32 and bf16 on the JAX probe's [2048, 128] tile, then
      f32, approximate-tanh f32 and bf16 on a [65536, 128] tile that fills
      the card, timed; then K6 vs its plain version element by element, in
-     ulps, in every run, and the rates.
+     ulps, in every run, and the rates;
+  I. train from files (after F): 4 batches of 128 synthetic scenes of both
+     sources written as per-scene ``.npz`` and converted to shards by the
+     port's ``convert_npz_dir``; ``FLAGSHIP_TRAIN_FUSED`` trains one epoch
+     from each format through ``build_datamodule`` (the YAML's batch of 128,
+     48 / 192, flips on, 2 workers), ``Trainer.fit`` and its feed to the
+     card (pinned buffers, a copy stream); K1-K4 launch once per step, K5
+     and K6 never, no step is skipped, and the loader's first batch, packed
+     in a worker process, equals the pack of its scenes in this process
+     bit for bit; prints the pack time, each format's load time and
+     host-clock ms/step beside phase E's pre-packed step, and the trainer's
+     wait.
 Phases 4, B, C and 7 check that K4 never launches on their paths, and the
 serving and training phases that K5 and K6 never do.
 The last lines are the card, a JSON object per kernel and the device line.
@@ -82,7 +93,9 @@ The last lines are the card, a JSON object per kernel and the device line.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import tempfile
@@ -92,9 +105,10 @@ import numpy as np
 import torch
 
 from trajsde_tpu_torch.config import (FLAGSHIP, FLAGSHIP_FUSED, FLAGSHIP_TRAIN,
-                                      FLAGSHIP_TRAIN_FUSED, build_losses, build_metrics,
-                                      build_model)
+                                      FLAGSHIP_TRAIN_FUSED, build_datamodule, build_losses,
+                                      build_metrics, build_model)
 from trajsde_tpu_torch.data.pack import pack_scenes, pick_bucket
+from trajsde_tpu_torch.data.shards import convert_npz_dir
 from trajsde_tpu_torch.data.synthetic import make_raw_scene
 from trajsde_tpu_torch.ops import aa_attention as K5
 from trajsde_tpu_torch.ops import aa_fused as K3
@@ -182,6 +196,8 @@ K5_SHAPES = {"test": (2, 5, 9, 8), "ragged": (3, 7, 13, 11), "twin": (128, 21, 4
 # the shift-invariant softmax)
 TOL_TRAIN_LOSS, TOL_TRAIN_GRAD, ATOL_TRAIN_GRAD = 1e-5, 1e-3, 1e-6
 TRAIN_BATCHES, VAL_BATCHES, REPEAT_STEPS = 3, 2, 8
+# phase I: batches of TRAIN_BATCH scenes written per format, and pack timings
+FILE_BATCHES, PACK_RUNS = 4, 5
 TRAIN_SPLICE_BATCH = 8
 # the flagship YAML's datamodule train_batch_size (it fits the card in f32)
 TRAIN_BATCH = 128
@@ -820,6 +836,117 @@ def phase_train(cfg, batch: int, tag: str = "train") -> dict:
     return dict(launches=launches, ms=ms, scenes_per_s=batch / ms * 1e3, peak_gib=peak)
 
 
+class _StepClock:
+    """A logger that notes the host clock at each optimizer step's log
+    (each step ends by reading its NaN guard from the device)."""
+
+    def __init__(self):
+        self.times = []
+
+    def log_scalars(self, step, values):
+        if "train/total" in values:
+            self.times.append(time.perf_counter())
+
+
+def _same_batch(a, b) -> bool:
+    """Every field of two ``SceneBatch``es equal (or both None)."""
+    pairs = [(getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a)]
+    return all((u is None and v is None) or (u is not None and v is not None and torch.equal(u, v))
+               for u, v in pairs)
+
+
+def phase_train_from_files(prepacked_ms: float) -> dict:
+    """I. ``FLAGSHIP_TRAIN_FUSED`` trained from scene files: FILE_BATCHES
+    batches of TRAIN_BATCH synthetic scenes of both sources written as
+    per-scene ``.npz`` and converted to shards with ``convert_npz_dir``, then
+    one epoch from each format through ``build_datamodule`` (the YAML's
+    batch, capacities and flips, its default of 2 workers), ``Trainer.fit``
+    and the feed.  K1-K4 launch once per step, K5 and K6 never; no step is
+    skipped; the first batch the loader yields, packed in a worker process,
+    equals the pack of the same scenes in this process bit for bit.  Prints
+    the pack time, the scene load times of each format, and the host-clock
+    ms/step from each format beside phase E's pre-packed step."""
+    cfg = FLAGSHIP_TRAIN_FUSED
+    n = FILE_BATCHES * TRAIN_BATCH
+    with tempfile.TemporaryDirectory() as d:
+        rng = np.random.default_rng(SEED + 11)
+        t0 = time.perf_counter()
+        for name, src in (("nuScenes", 0), ("Argoverse", 1)):
+            os.makedirs(os.path.join(d, "npz", name, "train"))
+            for i in range(n // 2):
+                raw = make_raw_scene(rng, src, num_actors=NUM_ACTORS, num_lanes=NUM_LANES)
+                np.savez(os.path.join(d, "npz", name, "train", f"scene_{i:06d}.npz"), **raw)
+            convert_npz_dir(os.path.join(d, "npz", name, "train"),
+                            os.path.join(d, "shards", name, "train"))
+        print(f"[files] {n} scenes of both sources written as npz and converted to shards in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        out = {}
+        for fmt in ("npz", "shards"):
+            dm = build_datamodule(cfg, seed=SEED, nu_dir=os.path.join(d, fmt, "nuScenes"),
+                                  Argo_dir=os.path.join(d, fmt, "Argoverse"))
+            check(len(dm.train_dataset) == n and dm.train_batch_size == TRAIN_BATCH
+                  and (dm.num_actors, dm.num_lanes) == (NUM_ACTORS, NUM_LANES)
+                  and dm.train_dataset.random_flip and dm.num_workers == 2,
+                  f"the {fmt} datamodule is not the YAML's")
+            ds = dm.train_dataset
+            loader = dm.train_loader()
+            it = iter(loader)
+            first = next(it)
+            it.close()
+            # the scenes of that batch: epoch 1's permutation and flips
+            idx = np.arange(n)
+            np.random.default_rng(np.random.SeedSequence([SEED, 1])).shuffle(idx)
+            load = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                scenes = [ds[int(i)] for i in idx[:TRAIN_BATCH]]
+                load.append(1e3 * (time.perf_counter() - t0))
+            check(_same_batch(first, pack_scenes(scenes, NUM_ACTORS, NUM_LANES)),
+                  f"the loader's first batch from {fmt} differs from the pack of its scenes")
+            pack = []
+            for _ in range(PACK_RUNS):
+                t0 = time.perf_counter()
+                pack_scenes(scenes, NUM_ACTORS, NUM_LANES)
+                pack.append(1e3 * (time.perf_counter() - t0))
+            ds.epoch = 0
+
+            model = build_model(cfg, device="cuda", seed=SEED)
+            state = create_train_state(model, cfg["training_specific"],
+                                       steps_per_epoch=len(loader), seed=SEED)
+            clock = _StepClock()
+            trainer = Trainer(build_losses(cfg), build_metrics(cfg), device="cuda", logger=clock)
+            zero_counts()
+            t0 = time.perf_counter()
+            trainer.fit(state, dm.train_loader, lambda: [], max_epochs=1)
+            launches = _counts()
+            steps = state.step
+            check(steps == FILE_BATCHES, f"{steps} steps from {fmt}, expected {FILE_BATCHES}")
+            check(launches == {"sde_rollout": steps, "sde_rollout_bwd": steps, "aa_fused": steps,
+                               "aa_fused_bwd": steps, "aa_attention": 0, "vpu_probe": 0},
+                  f"training from {fmt} launched {launches}, not K1-K4 once per step and K5 "
+                  "and K6 never")
+            epoch = trainer.epoch_logs[-1]
+            check(epoch["train/steps_skipped"] == 0.0, f"the NaN guard skipped a step ({fmt})")
+            gaps = np.diff([t0] + clock.times) * 1e3
+            out[fmt] = dict(launches=launches, first_step_ms=float(gaps[0]),
+                            ms=float(np.median(gaps[1:])), wait_ms=epoch["perf/batch_wait_ms"],
+                            pack_ms=statistics.median(pack), load_ms=min(load))
+            print(f"[train-files] {fmt}: {steps} steps, launches {launches}; first step "
+                  f"{gaps[0]:.1f} ms (loader start included), then "
+                  + " ".join(f"{g:.1f}" for g in gaps[1:])
+                  + f" ms (median {out[fmt]['ms']:.1f}) vs phase E's pre-packed "
+                  f"{prepacked_ms:.1f} ms/step; the trainer waited "
+                  f"{epoch['perf/batch_wait_ms']:.1f} ms a step for its batch", flush=True)
+            print(f"[train-files] {fmt}: load + align + flip of {TRAIN_BATCH} scenes "
+                  f"{min(load):.1f} ms; pack at {NUM_ACTORS} / {NUM_LANES} "
+                  f"{out[fmt]['pack_ms']:.1f} ms (host clock, median of {PACK_RUNS}); the first "
+                  "batch equals the pack of its scenes bit for bit", flush=True)
+            del model, state, trainer
+            torch.cuda.empty_cache()
+    return out
+
+
 def _losses_of(cfg, out):
     return sum(w * fn(out["y"], out) for _, w, fn in build_losses(cfg))
 
@@ -1219,6 +1346,8 @@ def main() -> None:
           f"{trained_fused['scenes_per_s']:.1f} vs {trained['scenes_per_s']:.1f} scenes/s, peak "
           f"{trained_fused['peak_gib']:.2f} vs {trained['peak_gib']:.2f} GiB", flush=True)
     phase_fused_train_splice()
+    torch.cuda.empty_cache()
+    from_files = phase_train_from_files(trained_fused["ms"])
     # launches: the count on the kernel's own main path (serving for K1,
     # training for K2, fused serving for K3, fused-encoder training for K4);
     # launches_by_path: every path's
@@ -1249,7 +1378,9 @@ def main() -> None:
           f"K3 launches: {k3_served} fused serving + {k3_ood} OOD + {train_fused['aa_fused']} "
           f"fused-encoder training; K4 launches: {k4['launches']} fused-encoder training; "
           f"K5 launches: {k5['launches']} on its op's path; K6 launches: {k6['launches']} on "
-          f"the probe's path", flush=True)
+          f"the probe's path; K1-K4 launches training from files: "
+          + ", ".join(f"{fmt} {r['launches']['aa_fused_bwd']} each"
+                      for fmt, r in from_files.items()), flush=True)
     print(card)
     print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -15,7 +15,8 @@ largest magnitude for ``dq`` and 1e-3 for the weight gradients; K5 as K3;
 K6 per element, by ``vpu_probe.agreement``: in ulps of each plain value
 within ``TOL_ULPS``, and a least share of bit-equal elements.  K4 and K2 are also held against their plain versions in f64.
 K4's recomputed logits are held to K3's bit for bit, through check copies
-of both built to write them.
+of both built to write them.  The feed to the card (``device_prefetch``)
+is held to ``.to("cuda")`` bit for bit: its batches, and a train step.
 """
 import ctypes
 import functools
@@ -517,3 +518,84 @@ def test_rollout_bwd_kernel_within_the_f64_gradient(cuda):
     errs = {k: (rel(got[k], oracle[k]), rel(plain[k], oracle[k])) for k in oracle}
     median = sorted(p for _, p in errs.values())[len(errs) // 2]
     assert all(k2 <= 4.0 * max(p, median) for k2, p in errs.values()), errs
+
+
+def _packed(seed, B, A, L):
+    import numpy as np
+
+    from trajsde_tpu_torch.data.grid import align_to_grid
+    from trajsde_tpu_torch.data.pack import pack_scenes
+    from trajsde_tpu_torch.data.synthetic import make_raw_scene
+
+    rng = np.random.default_rng(seed)
+    return pack_scenes([align_to_grid(make_raw_scene(rng, i % 2, num_actors=A, num_lanes=L))
+                        for i in range(B)], A, L)
+
+
+@pytest.mark.gpu
+def test_device_prefetch_batches_equal_their_cpu_originals(cuda, monkeypatch):
+    """Over 3 x (size + 1) batches of each of two shapes, every batch the
+    feed puts on the card equals ``.to("cuda")`` of its stripped CPU
+    original, read on the compute stream right after it arrives.
+
+    The copy stream lags: each field's copy from its pinned buffer waits
+    behind a 5 ms spin on that stream, while the consumer enqueues its
+    reads without waiting on the host.  So the feed's thread laps the ring
+    within the first batch's copies, and a slot refilled before the event
+    behind all of its copies has completed shows as a batch that differs."""
+    import dataclasses
+
+    from trajsde_tpu_torch.data.scene import strip_for_device
+    from trajsde_tpu_torch.train.loop import device_prefetch
+
+    to = torch.Tensor.to
+
+    def lagging_to(self, *args, **kwargs):
+        if kwargs.get("non_blocking") and self.is_pinned():
+            torch.cuda._sleep(10_000_000)   # on the current (copy) stream
+        return to(self, *args, **kwargs)
+
+    monkeypatch.setattr(torch.Tensor, "to", lagging_to)
+    size = 2
+    bases = [_packed(1, 128, 48, 192), _packed(2, 64, 16, 64)]
+    cpu = []
+    for i in range(2 * 3 * (size + 1)):
+        b = bases[i % 2]
+        cpu.append(dataclasses.replace(b, x=b.x + i, lane_positions=b.lane_positions - i))
+    seen = []
+    for got in device_prefetch(cpu, cuda, size=size):
+        seen.append({f.name: getattr(got, f.name).clone() for f in dataclasses.fields(got)
+                     if getattr(got, f.name) is not None})
+        del got
+    torch.cuda.synchronize()
+    assert len(seen) == len(cpu)
+    for i, (got, want) in enumerate(zip(seen, cpu)):
+        want = strip_for_device(want).to(cuda)
+        for f in dataclasses.fields(want):
+            w = getattr(want, f.name)
+            assert (w is None) == (f.name not in got), (i, f.name)
+            if w is not None:
+                assert got[f.name].is_cuda and torch.equal(got[f.name], w), (i, f.name)
+
+
+@pytest.mark.gpu
+def test_train_step_fed_by_the_prefetcher_equals_one_fed_by_to(cuda):
+    """Two fused-encoder training steps on batches the feed copied equal,
+    bit for bit, the same steps on ``.to("cuda")`` copies (same seeds)."""
+    from trajsde_tpu_torch.config import FLAGSHIP_TRAIN_FUSED, build_losses, build_model
+    from trajsde_tpu_torch.train.loop import (create_train_state, device_prefetch,
+                                              make_train_step)
+
+    cfg = FLAGSHIP_TRAIN_FUSED
+    batches = [_packed(s, 8, 48, 192) for s in (3, 4)]
+    results = []
+    for fed in (True, False):
+        model = build_model(cfg, device=cuda, seed=5)
+        state = create_train_state(model, cfg["training_specific"], steps_per_epoch=2, seed=1)
+        step = make_train_step(model, state.optimizer, state.scheduler, build_losses(cfg), cuda)
+        source = device_prefetch(batches, cuda) if fed else (b.to(cuda) for b in batches)
+        totals = [step(b, k, 1)["train/total"] for k, b in enumerate(source)]
+        results.append((totals, {k: v.clone() for k, v in model.state_dict().items()}))
+    (ta, pa), (tb, pb) = results
+    assert len(ta) == len(tb) == 2 and all(torch.equal(a, b) for a, b in zip(ta, tb))
+    assert all(torch.equal(pa[k], pb[k]) for k in pa)

@@ -6,15 +6,17 @@ counterpart is easy to find.  It imports neither JAX nor anything of
 
 It serves and trains the flagship neural-SDE model:
 
-  data/      grid constants, ``SceneBatch``, synthetic scenes, packing
+  data/      grid constants, ``SceneBatch``, synthetic scenes, flips,
+             packing, packed shards, the dataset, batch loader and
+             datamodule
   models/    encoder / aggregator / decoder / prediction model
   ops/       kernel wrappers and their plain versions (the decoder
              rollout forward and backward, the fused AA pair chain forward
              and backward, ``aa_attention``, the elementwise-rate probe;
              CUDA C++ in ``csrc/``, built by nvcc at first use)
   losses.py  L2, DiffBCE, Laplace NLL
-  train/     metrics, AdamW + cosine, train/eval steps, ``Trainer``,
-             checkpoints
+  train/     metrics, AdamW + cosine, train/eval steps, the pinned
+             prefetch to the card, ``Trainer``, checkpoints
   serving.py the serving forward with the rollout kernel spliced in
   server.py  the synchronous ``ServingEngine``
   bridge.py  flax parameter tree <-> ``state_dict``; packed AA weights

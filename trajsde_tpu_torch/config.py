@@ -5,10 +5,11 @@ The YAML schema of the JAX package resolves through the same
 name -> constructor registry, aliases included, and kwargs a constructor
 does not take are dropped (so the JAX package's TPU knobs, such as the
 decoder's ``rollout_rows``, ``rollout_unroll``, ``scan_unroll`` and
-``packed``, are ignored).  ``FLAGSHIP`` holds the model, training, loss and
-metric sections of ``configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec.yml`` as
-a dict, so a machine without PyYAML can build and train the flagship
-model; ``FLAGSHIP_TRAIN`` is the same model with ``decoder.fused: true``,
+``packed``, are ignored).  ``FLAGSHIP`` holds the model, training, loss,
+metric and datamodule sections of
+``configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec.yml`` as a dict, so a
+machine without PyYAML can build and train the flagship model;
+``FLAGSHIP_TRAIN`` is the same model with ``decoder.fused: true``,
 whose rollout runs through kernels K1 and K2, and ``FLAGSHIP_FUSED`` the
 same model with ``encoder.fused: true``, whose AA pair chain runs through
 kernel K3 (the JAX package's TPU knobs of that path, ``rows_fwd``,
@@ -26,6 +27,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 from torch import nn
 
+from trajsde_tpu_torch.data.loader import DataModuleNuArgoMix
 from trajsde_tpu_torch.device import resolve_device
 from trajsde_tpu_torch.losses import LOSS_REGISTRY
 from trajsde_tpu_torch.models.aggregator import GlobalInteractor
@@ -86,6 +88,20 @@ FLAGSHIP: Dict[str, Any] = {
     "loss_args": [{"reduction": "mean"}, {"reduction": "mean"}],
     "metrics_module": ["ADE_T", "FDE_T", "MR_T"],
     "metric_args": [dict(_METRIC_ARGS) for _ in range(3)],
+    "datamodule_specific": {
+        "module_name": "DataModuleNuArgoMix",
+        "kwargs": {
+            "nu_dir": "data/preprocessed/nuScenes", "Argo_dir": "data/preprocessed/Argoverse",
+            "train_batch_size": 128, "val_batch_size": 128, "num_actors": 48,
+            "num_lanes": 192, "shuffle": True,
+            "tr_dataset_args": {"type": "grid", "nus": True, "Argo": True, "ref_time": 20,
+                                "random_flip": True, "is_gtabs": True},
+            "val_dataset_args": {"type": "grid", "nus": True, "Argo": False, "ref_time": 20,
+                                 "random_flip": False, "is_gtabs": True},
+            "test_dataset_args": {"type": "grid", "nus": True, "Argo": False, "ref_time": 20,
+                                  "random_flip": False, "is_gtabs": True},
+        },
+    },
 }
 
 FLAGSHIP_TRAIN: Dict[str, Any] = copy.deepcopy(FLAGSHIP)
@@ -159,6 +175,21 @@ def build_model(cfg: Dict[str, Any] = FLAGSHIP, device="cuda", seed: int = 0) ->
         rotate=model_cfg.get("kwargs", {}).get("rotate", True), **parts
     )
     return init_weights(model, seed).to(dev).eval()
+
+
+def build_datamodule(cfg: Dict[str, Any], seed: int = 0, **overrides) -> DataModuleNuArgoMix:
+    """The port's ``DataModuleNuArgoMix`` of the config's
+    ``datamodule_specific.kwargs``, with ``train.py``'s precedence: an
+    override that is not None wins over the config, and ``seed`` is a
+    default that a seed in the config wins over."""
+    section = cfg.get("datamodule_specific", {})
+    name = section.get("module_name", "DataModuleNuArgoMix")
+    if name != "DataModuleNuArgoMix":
+        raise KeyError(f"unknown datamodule {name!r}; known: ['DataModuleNuArgoMix']")
+    kwargs = dict(section.get("kwargs", {}))
+    kwargs.update({k: v for k, v in overrides.items() if v is not None})
+    kwargs.setdefault("seed", seed)
+    return DataModuleNuArgoMix(**kwargs)
 
 
 def build_losses(cfg: Dict[str, Any]) -> List[Tuple[str, float, Any]]:

@@ -1,9 +1,9 @@
-"""Packing ragged grid-aligned scenes into dense ``SceneBatch``es (numpy).
+"""Packing ragged grid-aligned scenes into dense ``SceneBatch``es
+(``trajsde_tpu/data/pack.py``).
 
-The numpy path of ``trajsde_tpu/data/pack.py``.  When a scene exceeds
-the padded capacity, actors are kept by distance to the focal agent at the
-reference step (agent and AV always kept) and lanes by the distance of
-their first pose to the agent.
+When a scene exceeds the padded capacity, actors are kept by distance to
+the focal agent at the reference step (agent and AV always kept) and lanes
+by the distance of their first pose to the agent.
 """
 from __future__ import annotations
 
@@ -13,6 +13,9 @@ import numpy as np
 
 from trajsde_tpu_torch.data.grid import REF_TIME, TF, TH
 from trajsde_tpu_torch.data.scene import SceneBatch
+
+ACTOR_BUCKETS = (8, 16, 32, 48, 64, 96, 128)
+LANE_BUCKETS = (32, 64, 128, 192, 256, 384, 512)
 
 
 def pick_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -49,6 +52,20 @@ def _lane_keep_order(scene: Dict[str, np.ndarray]) -> np.ndarray:
     return np.argsort(d, kind="stable")
 
 
+def truncation_stats(
+    scenes: List[Dict[str, np.ndarray]], num_actors: int, num_lanes: int
+) -> Dict[str, int]:
+    """How much a capacity (A, L) would drop from ``scenes``."""
+    actors_dropped = sum(max(0, s["x"].shape[0] - num_actors) for s in scenes)
+    lanes_dropped = sum(max(0, s["lane_positions"].shape[0] - num_lanes) for s in scenes)
+    scenes_truncated = sum(
+        1 for s in scenes
+        if s["x"].shape[0] > num_actors or s["lane_positions"].shape[0] > num_lanes
+    )
+    return dict(actors_dropped=actors_dropped, lanes_dropped=lanes_dropped,
+                scenes_truncated=scenes_truncated)
+
+
 def pack_scenes(
     scenes: List[Dict[str, np.ndarray]],
     num_actors: int,
@@ -73,8 +90,12 @@ def pack_scenes(
     lane_positions = np.zeros((B, L, S, 2), np.float32)
     lane_paddings = np.ones((B, L, S), bool)
     lane_valid = np.zeros((B, L), bool)
-    seq_id = np.zeros((B,), np.int32)
     has_y = any(s.get("y") is not None for s in scenes)
+    # goal-lane labels, kept for parity and submissions
+    has_goals = any(s.get("goal_idcs") is not None for s in scenes)
+    goal_idcs = np.zeros((B, A, L), np.float32) if has_goals else None
+    has_goal = np.zeros((B, A), bool) if has_goals else None
+    seq_id = np.zeros((B,), np.int32)
 
     for b, scene in enumerate(scenes):
         order = _actor_keep_order(scene)[:A]
@@ -101,11 +122,21 @@ def pack_scenes(
         av_index[b] = inv.get(int(scene["av_index"]), 0)
         source[b] = int(scene["source"])
         seq_id[b] = int(scene.get("seq_id", b))
+        if has_goals and scene.get("goal_idcs") is not None:
+            g = np.asarray(scene["goal_idcs"], np.float32)[order][:, lorder]
+            goal_idcs[b, :n, :m] = g
+            hg = scene.get("has_goal")
+            if hg is None:
+                has_goal[b, :n] = g.any(-1)
+            else:
+                # an actor whose goal lane the lane keep-order cut has an
+                # all-zero one-hot row: its flag drops with it
+                has_goal[b, :n] = np.asarray(hg, bool)[order] & g.any(-1)
 
     return SceneBatch.from_numpy(
         x=x, y=y if has_y else None, positions=positions, padding_mask=padding,
         bos_mask=bos, rotate_angles=angles, actor_valid=actor_valid,
         agent_index=agent_index, av_index=av_index, source=source,
         lane_positions=lane_positions, lane_paddings=lane_paddings,
-        lane_valid=lane_valid, seq_id=seq_id,
+        lane_valid=lane_valid, goal_idcs=goal_idcs, has_goal=has_goal, seq_id=seq_id,
     )

@@ -34,18 +34,26 @@ class SceneBatch:
     lane_positions: Optional[torch.Tensor] = None  # [B, L, S, 2]
     lane_paddings: Optional[torch.Tensor] = None   # [B, L, S] bool — True = padded pose
     lane_valid: Optional[torch.Tensor] = None      # [B, L] bool
+    goal_idcs: Optional[torch.Tensor] = None       # [B, A, L] float one-hot goal lane
+    has_goal: Optional[torch.Tensor] = None        # [B, A] bool
     seq_id: Optional[torch.Tensor] = None          # [B] int64
 
     @classmethod
     def from_numpy(cls, **arrays) -> "SceneBatch":
-        """Wrap numpy arrays (None stays None); integer ids become int64
-        so they index directly."""
+        """Wrap numpy arrays (None stays None) without copying them;
+        integer ids become int64 so they index directly, and a read-only
+        array (a view of another framework's buffer, a memmap) is copied,
+        since a tensor over it could be written."""
         out = {}
         for k, v in arrays.items():
             if v is None:
                 out[k] = None
                 continue
-            a = np.array(v, dtype=np.int64 if np.asarray(v).dtype.kind in "iu" else None)
+            a = np.asarray(v)
+            if a.dtype.kind in "iu" and a.dtype != np.int64:
+                a = a.astype(np.int64)
+            elif not a.flags.writeable:
+                a = a.copy()
             out[k] = torch.from_numpy(a)
         return cls(**out)
 
@@ -68,6 +76,29 @@ class SceneBatch:
         row0 = torch.stack([c, -s], dim=-1)
         row1 = torch.stack([s, c], dim=-1)
         return torch.stack([row0, row1], dim=-2)
+
+
+def strip_for_device(batch: SceneBatch) -> SceneBatch:
+    """Shed the bytes no consumer on the device reads, before the copy to
+    the card (``trajsde_tpu/data/scene.py``'s ``strip_for_device``).
+
+    - ``goal_idcs`` and ``has_goal``: no model, loss, metric or serving
+      projection of the port reads them.
+    - ``positions[..., Th:, :]``: the port's consumers read
+      ``positions[:, :, :Th]`` or ``positions[:, :, ref_time]`` with
+      ``ref_time < Th`` (``models/graph.py``, ``server.py``); the targets
+      live in ``y``.
+
+    Exact: it removes bytes, not precision.  Idempotent: a stripped batch
+    comes back as the same object.  The sliced positions are a view.
+    """
+    th = batch.x.shape[-2]
+    pos = batch.positions
+    truncate = pos.shape[-2] != th
+    if not truncate and batch.goal_idcs is None and batch.has_goal is None:
+        return batch
+    return dataclasses.replace(batch, positions=pos[..., :th, :] if truncate else pos,
+                               goal_idcs=None, has_goal=None)
 
 
 def rotate_into(v: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:

@@ -8,18 +8,25 @@ and the dropout masks, and a fused decoder's rollout kernel takes the same
 value as its seed.  So a run resumed from a checkpoint draws what the
 uninterrupted run would have drawn, and no step reads a device scalar to
 seed anything.
+
+``Trainer.fit`` and ``Trainer.evaluate`` take their batches through
+:func:`device_prefetch`, which strips, stages and copies each batch to the
+card on a thread and a stream of its own, ahead of the step.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import queue
+import threading
 import time
-from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
 
-from trajsde_tpu_torch.data.scene import SceneBatch
+from trajsde_tpu_torch.data.scene import SceneBatch, strip_for_device
 from trajsde_tpu_torch.device import resolve_device
 from trajsde_tpu_torch.models.decoders import SDEDecoder
 from trajsde_tpu_torch.models.sde_encoder import LocalEncoderSDESep, gather_agent
@@ -125,13 +132,118 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+class _PinnedStager:
+    """Copies CPU batches to the card on a stream of its own, through
+    pinned host buffers allocated once: a ring of ``slots`` per batch
+    layout (field names, shapes and dtypes).  A slot is written again only
+    after the event recorded behind its last copy has completed, so no
+    copy in flight reads a buffer being refilled."""
+
+    def __init__(self, device: torch.device, slots: int):
+        self.device, self.slots = device, slots
+        self.stream = torch.cuda.Stream(device)
+        self.rings: Dict[tuple, list] = {}
+        self.turn: Dict[tuple, int] = {}
+
+    def __call__(self, batch: SceneBatch) -> Tuple[SceneBatch, torch.cuda.Event]:
+        present = {f.name: getattr(batch, f.name) for f in dataclasses.fields(batch)
+                   if getattr(batch, f.name) is not None}
+        key = tuple((k, tuple(v.shape), v.dtype) for k, v in present.items())
+        if key not in self.rings:
+            self.rings[key] = [[{k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                                 for k, v in present.items()}, None]
+                               for _ in range(self.slots)]
+            self.turn[key] = 0
+        slot = self.rings[key][self.turn[key]]
+        self.turn[key] = (self.turn[key] + 1) % self.slots
+        pinned, last_copy = slot
+        if last_copy is not None:
+            last_copy.synchronize()
+        out = {}
+        with torch.cuda.stream(self.stream):
+            for k, v in present.items():
+                pinned[k].copy_(v)
+                out[k] = pinned[k].to(self.device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        slot[1] = done
+        return dataclasses.replace(batch, **out), done
+
+
+def device_prefetch(batches: Iterable[SceneBatch], device, size: int = 2
+                    ) -> Iterator[SceneBatch]:
+    """The batches of ``batches`` on ``device``, ``size`` ahead of the
+    consumer (``trajsde_tpu/train/loop.py``'s ``device_prefetch``).
+
+    A background thread pulls each CPU batch, sheds what no device consumer
+    reads (:func:`strip_for_device`) and, on CUDA, copies it to the card
+    through pinned buffers on its own stream (:class:`_PinnedStager`, a
+    ring of ``size + 1`` per batch layout).  The consumer's stream waits on
+    the event behind the copy, and every tensor is marked as used on that
+    stream, so the caching allocator does not hand its memory out early.
+    On the CPU the stripped batches pass through.  Errors of the loader or
+    the copy re-raise at the consumer; a consumer that leaves early stops
+    the thread, which closes ``batches``.
+    """
+    dev = torch.device(device)
+    q: queue.Queue = queue.Queue(maxsize=size)
+    stop = threading.Event()
+    end = object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def worker():
+        it = iter(batches)
+        try:
+            stage = _PinnedStager(dev, size + 1) if dev.type == "cuda" else None
+            for batch in it:
+                batch = strip_for_device(batch)
+                if not put(batch if stage is None else stage(batch)):
+                    return
+            put(end)
+        except BaseException as e:  # re-raised at the consumer
+            put(e)
+        finally:
+            if hasattr(it, "close"):
+                it.close()
+
+    threading.Thread(target=worker, daemon=True).start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            if dev.type == "cuda":
+                item, copied = item
+                compute = torch.cuda.current_stream(dev)
+                compute.wait_event(copied)
+                for f in dataclasses.fields(item):
+                    v = getattr(item, f.name)
+                    if v is not None:
+                        v.record_stream(compute)
+            yield item
+    finally:
+        stop.set()
+
+
 @dataclasses.dataclass
 class Trainer:
     """Epoch-driven trainer: ``fit`` trains, evaluates after every epoch and
     saves a checkpoint per epoch scored by ``monitor``.
 
     ``logger`` is any object with ``log_scalars(step, dict)``.  Batches are
-    ``SceneBatch``es on the CPU, moved to ``device`` one at a time.
+    ``SceneBatch``es on the CPU (a list, or a ``BatchLoader``), moved to
+    ``device`` through :func:`device_prefetch`.  ``perf/batch_wait_ms`` is
+    the mean time a step waited for its batch.
     """
     losses: List[Tuple[str, float, Callable]]
     metrics: List[Any]
@@ -170,16 +282,23 @@ class Trainer:
         for epoch in range(max_epochs):
             t0 = time.perf_counter()
             n_steps = scenes = 0
-            skipped = 0.0
-            for scene in train_batches():
-                logs = train_step(scene.to(dev), state.step, state.seed)
-                state.step += 1
-                n_steps += 1
-                scenes += scene.x.shape[0]
-                skipped += logs["train/step_skipped"]
-                if self.logger is not None and state.step % self.log_every == 0:
-                    self.logger.log_scalars(state.step, {k: float(v) for k, v in logs.items()}
-                                            | {"train/steps_skipped_cum": skipped})
+            skipped = wait = 0.0
+            with contextlib.closing(device_prefetch(train_batches(), dev)) as feed:
+                while True:
+                    t_wait = time.perf_counter()
+                    scene = next(feed, None)
+                    wait += time.perf_counter() - t_wait
+                    if scene is None:
+                        break
+                    logs = train_step(scene, state.step, state.seed)
+                    state.step += 1
+                    n_steps += 1
+                    scenes += scene.x.shape[0]
+                    skipped += logs["train/step_skipped"]
+                    if self.logger is not None and state.step % self.log_every == 0:
+                        self.logger.log_scalars(
+                            state.step, {k: float(v) for k, v in logs.items()}
+                            | {"train/steps_skipped_cum": skipped})
             # the train time closes on a synchronized clock, before the val pass
             _synchronize(dev)
             train_dt = time.perf_counter() - t0
@@ -189,6 +308,7 @@ class Trainer:
                 "epoch_time_s": time.perf_counter() - t0,
                 "perf/steps_per_s": n_steps / max(train_dt, 1e-9),
                 "perf/scenes_per_s": scenes / max(train_dt, 1e-9),
+                "perf/batch_wait_ms": 1e3 * wait / max(n_steps, 1),
                 "train/steps_skipped": skipped,
             }
             self.epoch_logs.append(record)
@@ -207,8 +327,9 @@ class Trainer:
         eval_step = make_eval_step(state.model, self.metrics, self.is_gtabs, dev)
         for m in self.metrics:
             m.reset()
-        for i, scene in enumerate(batches()):
-            contribs = eval_step(scene.to(dev), i)
-            for m in self.metrics:
-                m.accumulate(contribs[m.name])
+        with contextlib.closing(device_prefetch(batches(), dev)) as feed:
+            for i, scene in enumerate(feed):
+                contribs = eval_step(scene, i)
+                for m in self.metrics:
+                    m.accumulate(contribs[m.name])
         return {m.name: m.compute() for m in self.metrics}
