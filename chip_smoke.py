@@ -85,7 +85,18 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      in a worker process, equals the pack of its scenes in this process
      bit for bit; prints the pack time, each format's load time and
      host-clock ms/step beside phase E's pre-packed step, and the trainer's
-     wait.
+     wait;
+  J. the command line (after I, on I's npz files and 160 nuScenes
+     validation / test scenes): ``train_torch.main`` on a JSON copy of
+     ``FLAGSHIP_H100`` trains one epoch at batch 128, then resumes from its
+     checkpoint (``--ckpt``) for one more with ``--profile 1``;
+     ``test_torch.main`` evaluates the best checkpoint plain, with ``--ood
+     --only-agent``, ``--submit`` and ``--serving``.  K1-K4 launch once per
+     train step and K1 and K3 once per eval or test batch, K5 and K6 never;
+     the step continues after the resume, the profiler leaves a trace, the
+     metrics are finite, the submission has the scenes' shapes, ids and
+     probabilities that sum to 1; prints the CLI's host-clock ms per step
+     and wait beside phase I's.
 Phases 4, B, C and 7 check that K4 never launches on their paths, and the
 serving and training phases that K5 and K6 never do.
 The last lines are the card, a JSON object per kernel and the device line.
@@ -104,7 +115,7 @@ import time
 import numpy as np
 import torch
 
-from trajsde_tpu_torch.config import (FLAGSHIP, FLAGSHIP_FUSED, FLAGSHIP_TRAIN,
+from trajsde_tpu_torch.config import (FLAGSHIP, FLAGSHIP_FUSED, FLAGSHIP_H100, FLAGSHIP_TRAIN,
                                       FLAGSHIP_TRAIN_FUSED, build_datamodule, build_losses,
                                       build_metrics, build_model)
 from trajsde_tpu_torch.data.pack import pack_scenes, pick_bucket
@@ -198,6 +209,8 @@ TOL_TRAIN_LOSS, TOL_TRAIN_GRAD, ATOL_TRAIN_GRAD = 1e-5, 1e-3, 1e-6
 TRAIN_BATCHES, VAL_BATCHES, REPEAT_STEPS = 3, 2, 8
 # phase I: batches of TRAIN_BATCH scenes written per format, and pack timings
 FILE_BATCHES, PACK_RUNS = 4, 5
+# phase J: nuScenes validation / test scenes (two eval batches: 128 and 32)
+CLI_VAL_SCENES = 160
 TRAIN_SPLICE_BATCH = 8
 # the flagship YAML's datamodule train_batch_size (it fits the card in f32)
 TRAIN_BATCH = 128
@@ -855,7 +868,7 @@ def _same_batch(a, b) -> bool:
                for u, v in pairs)
 
 
-def phase_train_from_files(prepacked_ms: float) -> dict:
+def phase_train_from_files(prepacked_ms: float, d: str) -> dict:
     """I. ``FLAGSHIP_TRAIN_FUSED`` trained from scene files: FILE_BATCHES
     batches of TRAIN_BATCH synthetic scenes of both sources written as
     per-scene ``.npz`` and converted to shards with ``convert_npz_dir``, then
@@ -865,87 +878,209 @@ def phase_train_from_files(prepacked_ms: float) -> dict:
     skipped; the first batch the loader yields, packed in a worker process,
     equals the pack of the same scenes in this process bit for bit.  Prints
     the pack time, the scene load times of each format, and the host-clock
-    ms/step from each format beside phase E's pre-packed step."""
+    ms/step from each format beside phase E's pre-packed step.  The files
+    stay in ``d`` for phase J."""
     cfg = FLAGSHIP_TRAIN_FUSED
     n = FILE_BATCHES * TRAIN_BATCH
-    with tempfile.TemporaryDirectory() as d:
-        rng = np.random.default_rng(SEED + 11)
-        t0 = time.perf_counter()
-        for name, src in (("nuScenes", 0), ("Argoverse", 1)):
-            os.makedirs(os.path.join(d, "npz", name, "train"))
-            for i in range(n // 2):
-                raw = make_raw_scene(rng, src, num_actors=NUM_ACTORS, num_lanes=NUM_LANES)
-                np.savez(os.path.join(d, "npz", name, "train", f"scene_{i:06d}.npz"), **raw)
-            convert_npz_dir(os.path.join(d, "npz", name, "train"),
-                            os.path.join(d, "shards", name, "train"))
-        print(f"[files] {n} scenes of both sources written as npz and converted to shards in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(SEED + 11)
+    t0 = time.perf_counter()
+    for name, src in (("nuScenes", 0), ("Argoverse", 1)):
+        os.makedirs(os.path.join(d, "npz", name, "train"))
+        for i in range(n // 2):
+            raw = make_raw_scene(rng, src, num_actors=NUM_ACTORS, num_lanes=NUM_LANES)
+            np.savez(os.path.join(d, "npz", name, "train", f"scene_{i:06d}.npz"), **raw)
+        convert_npz_dir(os.path.join(d, "npz", name, "train"),
+                        os.path.join(d, "shards", name, "train"))
+    print(f"[files] {n} scenes of both sources written as npz and converted to shards in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-        out = {}
-        for fmt in ("npz", "shards"):
-            dm = build_datamodule(cfg, seed=SEED, nu_dir=os.path.join(d, fmt, "nuScenes"),
-                                  Argo_dir=os.path.join(d, fmt, "Argoverse"))
-            check(len(dm.train_dataset) == n and dm.train_batch_size == TRAIN_BATCH
-                  and (dm.num_actors, dm.num_lanes) == (NUM_ACTORS, NUM_LANES)
-                  and dm.train_dataset.random_flip and dm.num_workers == 2,
-                  f"the {fmt} datamodule is not the YAML's")
-            ds = dm.train_dataset
-            loader = dm.train_loader()
-            it = iter(loader)
-            first = next(it)
-            it.close()
-            # the scenes of that batch: epoch 1's permutation and flips
-            idx = np.arange(n)
-            np.random.default_rng(np.random.SeedSequence([SEED, 1])).shuffle(idx)
-            load = []
-            for _ in range(2):
-                t0 = time.perf_counter()
-                scenes = [ds[int(i)] for i in idx[:TRAIN_BATCH]]
-                load.append(1e3 * (time.perf_counter() - t0))
-            check(_same_batch(first, pack_scenes(scenes, NUM_ACTORS, NUM_LANES)),
-                  f"the loader's first batch from {fmt} differs from the pack of its scenes")
-            pack = []
-            for _ in range(PACK_RUNS):
-                t0 = time.perf_counter()
-                pack_scenes(scenes, NUM_ACTORS, NUM_LANES)
-                pack.append(1e3 * (time.perf_counter() - t0))
-            ds.epoch = 0
-
-            model = build_model(cfg, device="cuda", seed=SEED)
-            state = create_train_state(model, cfg["training_specific"],
-                                       steps_per_epoch=len(loader), seed=SEED)
-            clock = _StepClock()
-            trainer = Trainer(build_losses(cfg), build_metrics(cfg), device="cuda", logger=clock)
-            zero_counts()
+    out = {}
+    for fmt in ("npz", "shards"):
+        dm = build_datamodule(cfg, seed=SEED, nu_dir=os.path.join(d, fmt, "nuScenes"),
+                              Argo_dir=os.path.join(d, fmt, "Argoverse"))
+        check(len(dm.train_dataset) == n and dm.train_batch_size == TRAIN_BATCH
+              and (dm.num_actors, dm.num_lanes) == (NUM_ACTORS, NUM_LANES)
+              and dm.train_dataset.random_flip and dm.num_workers == 2,
+              f"the {fmt} datamodule is not the YAML's")
+        ds = dm.train_dataset
+        loader = dm.train_loader()
+        it = iter(loader)
+        first = next(it)
+        it.close()
+        # the scenes of that batch: epoch 1's permutation and flips
+        idx = np.arange(n)
+        np.random.default_rng(np.random.SeedSequence([SEED, 1])).shuffle(idx)
+        load = []
+        for _ in range(2):
             t0 = time.perf_counter()
-            trainer.fit(state, dm.train_loader, lambda: [], max_epochs=1)
-            launches = _counts()
-            steps = state.step
-            check(steps == FILE_BATCHES, f"{steps} steps from {fmt}, expected {FILE_BATCHES}")
-            check(launches == {"sde_rollout": steps, "sde_rollout_bwd": steps, "aa_fused": steps,
-                               "aa_fused_bwd": steps, "aa_attention": 0, "vpu_probe": 0},
-                  f"training from {fmt} launched {launches}, not K1-K4 once per step and K5 "
-                  "and K6 never")
-            epoch = trainer.epoch_logs[-1]
-            check(epoch["train/steps_skipped"] == 0.0, f"the NaN guard skipped a step ({fmt})")
-            gaps = np.diff([t0] + clock.times) * 1e3
-            out[fmt] = dict(launches=launches, first_step_ms=float(gaps[0]),
-                            ms=float(np.median(gaps[1:])), wait_ms=epoch["perf/batch_wait_ms"],
-                            pack_ms=statistics.median(pack), load_ms=min(load))
-            print(f"[train-files] {fmt}: {steps} steps, launches {launches}; first step "
-                  f"{gaps[0]:.1f} ms (loader start included), then "
-                  + " ".join(f"{g:.1f}" for g in gaps[1:])
-                  + f" ms (median {out[fmt]['ms']:.1f}) vs phase E's pre-packed "
-                  f"{prepacked_ms:.1f} ms/step; the trainer waited "
-                  f"{epoch['perf/batch_wait_ms']:.1f} ms a step for its batch", flush=True)
-            print(f"[train-files] {fmt}: load + align + flip of {TRAIN_BATCH} scenes "
-                  f"{min(load):.1f} ms; pack at {NUM_ACTORS} / {NUM_LANES} "
-                  f"{out[fmt]['pack_ms']:.1f} ms (host clock, median of {PACK_RUNS}); the first "
-                  "batch equals the pack of its scenes bit for bit", flush=True)
-            del model, state, trainer
-            torch.cuda.empty_cache()
+            scenes = [ds[int(i)] for i in idx[:TRAIN_BATCH]]
+            load.append(1e3 * (time.perf_counter() - t0))
+        check(_same_batch(first, pack_scenes(scenes, NUM_ACTORS, NUM_LANES)),
+              f"the loader's first batch from {fmt} differs from the pack of its scenes")
+        pack = []
+        for _ in range(PACK_RUNS):
+            t0 = time.perf_counter()
+            pack_scenes(scenes, NUM_ACTORS, NUM_LANES)
+            pack.append(1e3 * (time.perf_counter() - t0))
+        ds.epoch = 0
+
+        model = build_model(cfg, device="cuda", seed=SEED)
+        state = create_train_state(model, cfg["training_specific"],
+                                   steps_per_epoch=len(loader), seed=SEED)
+        clock = _StepClock()
+        trainer = Trainer(build_losses(cfg), build_metrics(cfg), device="cuda", logger=clock)
+        zero_counts()
+        t0 = time.perf_counter()
+        trainer.fit(state, dm.train_loader, lambda: [], max_epochs=1)
+        launches = _counts()
+        steps = state.step
+        check(steps == FILE_BATCHES, f"{steps} steps from {fmt}, expected {FILE_BATCHES}")
+        check(launches == {"sde_rollout": steps, "sde_rollout_bwd": steps, "aa_fused": steps,
+                           "aa_fused_bwd": steps, "aa_attention": 0, "vpu_probe": 0},
+              f"training from {fmt} launched {launches}, not K1-K4 once per step and K5 "
+              "and K6 never")
+        epoch = trainer.epoch_logs[-1]
+        check(epoch["train/steps_skipped"] == 0.0, f"the NaN guard skipped a step ({fmt})")
+        gaps = np.diff([t0] + clock.times) * 1e3
+        out[fmt] = dict(launches=launches, first_step_ms=float(gaps[0]),
+                        ms=float(np.median(gaps[1:])), wait_ms=epoch["perf/batch_wait_ms"],
+                        pack_ms=statistics.median(pack), load_ms=min(load))
+        print(f"[train-files] {fmt}: {steps} steps, launches {launches}; first step "
+              f"{gaps[0]:.1f} ms (loader start included), then "
+              + " ".join(f"{g:.1f}" for g in gaps[1:])
+              + f" ms (median {out[fmt]['ms']:.1f}) vs phase E's pre-packed "
+              f"{prepacked_ms:.1f} ms/step; the trainer waited "
+              f"{epoch['perf/batch_wait_ms']:.1f} ms a step for its batch", flush=True)
+        print(f"[train-files] {fmt}: load + align + flip of {TRAIN_BATCH} scenes "
+              f"{min(load):.1f} ms; pack at {NUM_ACTORS} / {NUM_LANES} "
+              f"{out[fmt]['pack_ms']:.1f} ms (host clock, median of {PACK_RUNS}); the first "
+              "batch equals the pack of its scenes bit for bit", flush=True)
+        del model, state, trainer
+        torch.cuda.empty_cache()
     return out
 
+
+
+def phase_cli(d: str, from_files: dict, card: str) -> dict:
+    """J. The command line on the card: phase I's npz files and
+    CLI_VAL_SCENES nuScenes validation / test scenes, under a JSON copy of
+    ``FLAGSHIP_H100`` (both fused paths, 2 workers).  ``train_torch.main``
+    trains one epoch, then resumes from its checkpoint with ``--ckpt`` for
+    one more with ``--profile 1``; ``test_torch.main`` evaluates the best
+    checkpoint plain, with ``--ood --only-agent``, ``--submit`` and
+    ``--serving``.  Checks: the step continues after the resume, a trace
+    file, finite metrics, the submission's shapes and probabilities, and
+    the launches of each run (K1-K4 once per train step, K1 and K3 once per
+    eval or test batch, K5 and K6 never).  Prints the host-clock ms per
+    step and the trainer's wait beside phase I's."""
+    import test_torch
+    import train_torch
+
+    rng = np.random.default_rng(SEED + 13)
+    val_dir = os.path.join(d, "npz", "nuScenes", "val")
+    os.makedirs(val_dir)
+    for i in range(CLI_VAL_SCENES):
+        raw = make_raw_scene(rng, 0, num_actors=NUM_ACTORS, num_lanes=NUM_LANES)
+        np.savez(os.path.join(val_dir, f"scene_{i:06d}.npz"), **raw)
+    n_eval = -(-CLI_VAL_SCENES // TRAIN_BATCH)
+    cfg = copy.deepcopy(FLAGSHIP_H100)
+    kw = cfg["datamodule_specific"]["kwargs"]
+    kw.update(nu_dir=os.path.join(d, "npz", "nuScenes"),
+              Argo_dir=os.path.join(d, "npz", "Argoverse"))
+    check(cfg["encoder"]["kwargs"]["fused"] and cfg["decoder"]["kwargs"]["fused"]
+          and kw["train_batch_size"] == TRAIN_BATCH and kw["num_workers"] >= 2,
+          "FLAGSHIP_H100 is not the fused f32 config at batch 128")
+    cfg_path = os.path.join(d, "h100.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    logdir = os.path.join(d, "logs")
+    run_dir = os.path.join(logdir, "cli")
+    common = ["-c", cfg_path, "-n", "cli", "--logdir", logdir, "--epochs", "1",
+              "--seed", str(SEED)]
+    train_want = {"sde_rollout": FILE_BATCHES + n_eval, "sde_rollout_bwd": FILE_BATCHES,
+                  "aa_fused": FILE_BATCHES + n_eval, "aa_fused_bwd": FILE_BATCHES,
+                  "aa_attention": 0, "vpu_probe": 0}
+    out = {}
+    for tag, extra in (("train", []), ("resume", ["--profile", "1"])):
+        if tag == "resume":
+            extra = extra + ["--ckpt", CheckpointManager(os.path.join(run_dir, "checkpoints"))
+                             .latest()["path"]]
+        t0 = time.perf_counter()
+        zero_counts()
+        state, trainer = train_torch.main(common + extra)
+        launches = _counts()
+        wall = time.perf_counter() - t0
+        steps = FILE_BATCHES * (2 if tag == "resume" else 1)
+        check(state.step == steps, f"[cli {tag}] the run ended at step {state.step}, not {steps}")
+        check(launches == train_want, f"[cli {tag}] launched {launches}, not K1-K4 once per train "
+              f"step and K1 and K3 once per eval batch ({train_want})")
+        epoch = trainer.epoch_logs[-1]
+        check(epoch["train/steps_skipped"] == 0.0, f"[cli {tag}] the NaN guard skipped a step")
+        vals = {k: v for k, v in epoch.items() if k.startswith("val/")}
+        check(vals and all(np.isfinite(v) for v in vals.values()),
+              f"[cli {tag}] non-finite val metrics {vals}")
+        with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        times = [r["time"] for r in rows if "train/total" in r][-FILE_BATCHES:]
+        gaps = 1e3 * np.diff(times)
+        out[tag] = dict(launches=launches, ms=float(np.median(gaps)),
+                        wait_ms=epoch["perf/batch_wait_ms"], wall_s=wall, val=vals)
+        print(f"[cli] train_torch.py {tag}: step {state.step}, launches {launches}; host-clock "
+              f"ms between step records " + " ".join(f"{g:.1f}" for g in gaps)
+              + f" (median {out[tag]['ms']:.1f}), waited {epoch['perf/batch_wait_ms']:.1f} ms a "
+              f"step for its batch; val " + ", ".join(f"{k} {v:.4f}" for k, v in vals.items())
+              + f"; {wall:.1f} s in all", flush=True)
+    traces = os.listdir(os.path.join(run_dir, "profile"))
+    check(traces == ["trace_step5.json"], f"--profile 1 on the resumed run left {traces}")
+    trace_mb = os.path.getsize(os.path.join(run_dir, "profile", traces[0])) / 2**20
+    check(os.path.isdir(os.path.join(run_dir, "source_snapshot", "trajsde_tpu_torch")),
+          "no source snapshot in the run directory")
+    npz_i = from_files["npz"]
+    print(f"[cli] {card}: CLI from npz {out['train']['ms']:.1f} ms/step (median of the "
+          f"gaps between step records, after the first), waited {out['train']['wait_ms']:.1f} "
+          f"ms a step; resumed {out['resume']['ms']:.1f} / {out['resume']['wait_ms']:.1f} "
+          f"(profiler on for step 5; trace {trace_mb:.1f} MiB); phase I from npz "
+          f"{npz_i['ms']:.1f} ms/step, waited {npz_i['wait_ms']:.1f}", flush=True)
+
+    best = CheckpointManager(os.path.join(run_dir, "checkpoints")).best()
+    check(best is not None and best["step"] in (FILE_BATCHES, 2 * FILE_BATCHES),
+          f"no scored checkpoint: {best}")
+    # every test_torch.py run: K1 and K3 once per batch (the fused decoder's
+    # or the serving rollout; the fused AA block, also in its OOD form)
+    test_want = {"sde_rollout": n_eval, "sde_rollout_bwd": 0, "aa_fused": n_eval,
+                 "aa_fused_bwd": 0, "aa_attention": 0, "vpu_probe": 0}
+    for flags in ([], ["--ood", "--only-agent"], ["--submit"], ["--serving"]):
+        tag = " ".join(flags) or "plain"
+        zero_counts()
+        t0 = time.perf_counter()
+        results = test_torch.main(["-c", cfg_path, "--ckpt", best["path"], *flags])
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        check(launches == test_want, f"[cli test {tag}] launched {launches}, not {test_want}")
+        check({"ADE_T", "FDE_T", "MR_T"} <= set(results)
+              and all(np.isfinite(v) for v in results.values()),
+              f"[cli test {tag}] metrics {results}")
+        check(("agent_std_mean" in results) == ("--ood" in flags),
+              f"[cli test {tag}] agent_std_mean {'missing' if '--ood' in flags else 'present'}")
+        out["test " + tag] = dict(launches=launches, results=results, wall_s=wall)
+        print(f"[cli] test_torch.py {tag}: launches {launches}; "
+              + ", ".join(f"{k} {v:.4f}" for k, v in results.items()) + f"; {wall:.1f} s",
+              flush=True)
+    stem = os.path.basename(best["path"])
+    sub = np.load(os.path.join(run_dir, "out", f"submission_{stem}.npz"))
+    n = CLI_VAL_SCENES
+    check(sub["trajectories"].shape == (n, 10, 60, 2) and sub["probabilities"].shape == (n, 10)
+          and sub["seq_ids"].shape == (n,) and sub["sources"].shape == (n,),
+          f"submission shapes {[sub[k].shape for k in sub.files]}")
+    check(np.isfinite(sub["trajectories"]).all()
+          and np.allclose(sub["probabilities"].sum(-1), 1.0, atol=1e-5),
+          "the submission's trajectories are not finite or its probabilities do not sum to 1")
+    check(sorted(sub["seq_ids"].tolist()) == list(range(n)), "the submission's seq_ids are not "
+          "the scenes' file numbers")
+    check(os.path.isfile(os.path.join(run_dir, "out", f"result_{stem}.json")), "no result file")
+    print(f"[cli] submission of {n} scenes: trajectories {sub['trajectories'].shape}, "
+          "probabilities sum to 1, seq_ids are the file numbers", flush=True)
+    return out
 
 def _losses_of(cfg, out):
     return sum(w * fn(out["y"], out) for _, w, fn in build_losses(cfg))
@@ -1347,7 +1482,10 @@ def main() -> None:
           f"{trained_fused['peak_gib']:.2f} vs {trained['peak_gib']:.2f} GiB", flush=True)
     phase_fused_train_splice()
     torch.cuda.empty_cache()
-    from_files = phase_train_from_files(trained_fused["ms"])
+    with tempfile.TemporaryDirectory() as d:
+        from_files = phase_train_from_files(trained_fused["ms"], d)
+        torch.cuda.empty_cache()
+        cli = phase_cli(d, from_files, card)
     # launches: the count on the kernel's own main path (serving for K1,
     # training for K2, fused serving for K3, fused-encoder training for K4);
     # launches_by_path: every path's
@@ -1371,6 +1509,11 @@ def main() -> None:
                               "train_fused": train_fused["aa_attention"]}
     k6["launches_by_path"] = {"probe": k6["launches"], "serve": 0, "serve_fused": 0,
                               "train": train["vpu_probe"], "train_fused": train_fused["vpu_probe"]}
+    # phase J: the CLI's own paths (train_torch.py's first run, test_torch.py plain)
+    for entry, name in ((fwd, "sde_rollout"), (bwd, "sde_rollout_bwd"), (k3, "aa_fused"),
+                        (k4, "aa_fused_bwd"), (k5, "aa_attention"), (k6, "vpu_probe")):
+        entry["launches_by_path"]["cli_train"] = cli["train"]["launches"][name]
+        entry["launches_by_path"]["cli_test"] = cli["test plain"]["launches"][name]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches: {served} serving + "
           f"{served_fused} fused serving + {train['sde_rollout']} training + "
           f"{train_fused['sde_rollout']} fused-encoder training; K2 launches: "
@@ -1380,7 +1523,9 @@ def main() -> None:
           f"K5 launches: {k5['launches']} on its op's path; K6 launches: {k6['launches']} on "
           f"the probe's path; K1-K4 launches training from files: "
           + ", ".join(f"{fmt} {r['launches']['aa_fused_bwd']} each"
-                      for fmt, r in from_files.items()), flush=True)
+                      for fmt, r in from_files.items())
+          + f"; the CLI's train_torch.py epoch: {cli['train']['launches']}, test_torch.py: "
+          f"{cli['test plain']['launches']}", flush=True)
     print(card)
     print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

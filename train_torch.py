@@ -1,0 +1,135 @@
+#!/usr/bin/env python3
+"""Training CLI of the PyTorch/CUDA port (``trajsde_tpu_torch``), with
+``train.py``'s flags and meaning.
+
+    python train_torch.py -c configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec_h100.yml -n my_run \\
+        [--ckpt STEP_DIR | --wonly STEP_DIR] [--epochs N] [--logdir logs] [--seed 0] \\
+        [--num-actors A] [--num-lanes L] [--monitor ADE_T] [--profile STEP] [--log-every N] \\
+        [--device cuda|cpu]
+
+Config -> datamodule (``build_datamodule``), model, losses, metrics, AdamW
++ cosine sized by the train loader -> ``Trainer.fit`` under
+``<logdir>/<name>/``: ``checkpoints/`` (best-k by ``--monitor`` and the
+latest), ``metrics.jsonl``, ``source_snapshot/`` and, with ``--profile``,
+``profile/``.  ``--ckpt`` resumes the model, AdamW, the schedule, the step,
+the seed and the data stream; ``--wonly`` loads the weights alone.
+SIGTERM or SIGINT saves an unscored checkpoint and exits cleanly.  The
+run is on the card unless ``--device cpu``.  Configs are YAML, or JSON
+(``*.json``, which needs no PyYAML).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+from typing import Optional, Sequence
+
+# train.py flags of the JAX package that the port does not have yet, and
+# the ROADMAP.md Queue 1 item that ports each
+NOT_PORTED = {
+    "multihost": "item 10 (multi-GPU)",
+    "zero1": "item 10 (multi-GPU)",
+    "accum": "item 5 (training leftovers)",
+    "chain": "item 5 (training leftovers)",
+    "async_ckpt": "item 5 (training leftovers)",
+}
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("-c", "--config", required=True)
+    p.add_argument("-n", "--name", required=True)
+    p.add_argument("--ckpt", default=None, help="resume the full training state")
+    p.add_argument("--wonly", default=None, help="weights-only warm start")
+    p.add_argument("--epochs", type=int, default=None,
+                   help="epochs to run (default: the config's max_epochs)")
+    p.add_argument("--logdir", default="logs")
+    p.add_argument("--monitor", default="ADE_T")
+    p.add_argument("--num-actors", type=int, default=None,
+                   help="actor capacity per scene (overrides the config)")
+    p.add_argument("--num-lanes", type=int, default=None,
+                   help="lane capacity per scene (overrides the config)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="weights, every step's draws, and the data order unless the "
+                   "config sets its own")
+    p.add_argument("--profile", type=int, default=None, metavar="STEP",
+                   help="torch.profiler trace of 5 steps from STEP (<run_dir>/profile)")
+    p.add_argument("--log-every", type=int, default=1, help="train-scalar log cadence")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    for flag in ("multihost", "zero1", "async_ckpt"):
+        p.add_argument("--" + flag.replace("_", "-"), action="store_true",
+                       help=f"not ported: ROADMAP.md Queue 1 {NOT_PORTED[flag]}")
+    for flag in ("accum", "chain"):
+        p.add_argument("--" + flag, type=int, default=None,
+                       help=f"not ported: ROADMAP.md Queue 1 {NOT_PORTED[flag]}")
+    args = p.parse_args(argv)
+    for flag, item in NOT_PORTED.items():
+        if getattr(args, flag) not in (None, False):
+            raise SystemExit(f"--{flag.replace('_', '-')} is not ported to trajsde_tpu_torch "
+                             f"yet: ROADMAP.md Queue 1 {item}")
+    return args
+
+
+def ts_drop_rate(cfg: dict) -> float:
+    """The config's ``ts_drop`` as a rate in [0, 1) (absent or false: 0)."""
+    value = cfg.get("model_specific", {}).get("kwargs", {}).get("ts_drop")
+    if value in (None, False):
+        return 0.0
+    if value is True or not 0.0 <= float(value) < 1.0:
+        # the reference's `rand > (1 - ts_drop)` has the same degeneracy:
+        # rate 1 (or true) deletes the whole history
+        raise SystemExit("config error: ts_drop must be a drop RATE in [0, 1) (e.g. 0.1), "
+                         f"got {value!r}; rate 1.0 would zero every historical step")
+    return float(value)
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    """Train; returns ``(state, trainer)``."""
+    args = parse_args(argv)
+
+    from trajsde_tpu_torch.config import (build_datamodule, build_losses, build_metrics,
+                                          build_model, load_config)
+    from trajsde_tpu_torch.device import resolve_device
+    from trajsde_tpu_torch.train.checkpoint import CheckpointManager
+    from trajsde_tpu_torch.train.logging import ExperimentLogger, ProfilerHook, snapshot_sources
+    from trajsde_tpu_torch.train.loop import Trainer, create_train_state
+
+    cfg = load_config(args.config)
+    rate = ts_drop_rate(cfg)
+    device = resolve_device(args.device)
+    run_dir = os.path.join(args.logdir, args.name)
+    os.makedirs(run_dir, exist_ok=True)
+    snapshot_sources(run_dir)
+
+    datamodule = build_datamodule(cfg, seed=args.seed, num_actors=args.num_actors,
+                                  num_lanes=args.num_lanes)
+    steps_per_epoch = max(1, len(datamodule.train_loader()))
+    model = build_model(cfg, device=device, seed=args.seed)
+    state = create_train_state(model, cfg["training_specific"], steps_per_epoch, seed=args.seed)
+    checkpointer = CheckpointManager(os.path.join(run_dir, "checkpoints"))
+    if args.ckpt:
+        checkpointer.restore(state, args.ckpt)
+        # continue the data stream too: the next epoch's shuffle and flips
+        datamodule.train_dataset.epoch = state.step // steps_per_epoch
+    elif args.wonly:
+        checkpointer.restore_params(state.model, args.wonly)
+
+    val_args = cfg.get("datamodule_specific", {}).get("kwargs", {}).get("val_dataset_args") or {}
+    logger = ExperimentLogger(run_dir)
+    trainer = Trainer(
+        build_losses(cfg), build_metrics(cfg), device=device, logger=logger,
+        checkpointer=checkpointer, monitor=args.monitor,
+        is_gtabs=val_args.get("is_gtabs", True), log_every=max(1, args.log_every),
+        ts_drop_rate=rate,
+        profiler=ProfilerHook(run_dir, args.profile) if args.profile is not None else None,
+    )
+    epochs = (args.epochs if args.epochs is not None
+              else cfg["training_specific"].get("max_epochs", 1))
+    try:
+        trainer.fit(state, datamodule.train_loader, datamodule.val_loader, max_epochs=epochs)
+    finally:
+        logger.close()
+    return state, trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -16,12 +16,16 @@ kernel K3 (the JAX package's TPU knobs of that path, ``rows_fwd``,
 ``rows_bwd`` and ``ln_mm``, are dropped like the decoder's).
 ``FLAGSHIP_TRAIN_FUSED`` is ``FLAGSHIP_TRAIN`` with ``encoder.fused: true``
 as well: its training step runs K3 and K4 for the AA block and K1 and K2
-for the decoder rollout.
+for the decoder rollout.  ``FLAGSHIP_H100`` is
+``configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec_h100.yml``, the config the
+CLIs train and evaluate on one H100 (the file's comments give the
+measurements behind each choice).
 """
 from __future__ import annotations
 
 import copy
 import inspect
+import json
 from typing import Any, Dict, List, Tuple
 
 import torch
@@ -113,6 +117,11 @@ FLAGSHIP_FUSED["encoder"]["kwargs"]["fused"] = True
 FLAGSHIP_TRAIN_FUSED: Dict[str, Any] = copy.deepcopy(FLAGSHIP_TRAIN)
 FLAGSHIP_TRAIN_FUSED["encoder"]["kwargs"]["fused"] = True
 
+# the shipped model in f32 with both fused paths (K1-K4) and the loader's
+# worker count, as configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec_h100.yml
+FLAGSHIP_H100: Dict[str, Any] = copy.deepcopy(FLAGSHIP_TRAIN_FUSED)
+FLAGSHIP_H100["datamodule_specific"]["kwargs"]["num_workers"] = 2
+
 
 def resolve(name: str):
     name = ALIASES.get(name, name)
@@ -129,9 +138,13 @@ def build(name: str, kwargs: Dict[str, Any]):
 
 
 def load_config(path: str) -> Dict[str, Any]:
-    import yaml
-
+    """A config file as a dict: ``.json`` through ``json`` (no PyYAML
+    needed), anything else through PyYAML."""
     with open(path) as f:
+        if path.endswith(".json"):
+            return json.load(f)
+        import yaml
+
         return yaml.safe_load(f)
 
 

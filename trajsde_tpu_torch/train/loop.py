@@ -11,7 +11,10 @@ seed anything.
 
 ``Trainer.fit`` and ``Trainer.evaluate`` take their batches through
 :func:`device_prefetch`, which strips, stages and copies each batch to the
-card on a thread and a stream of its own, ahead of the step.
+card on a thread and a stream of its own, ahead of the step.  ``fit``
+turns SIGTERM and SIGINT into a checkpoint and a clean return
+(preemption), and runs an optional ``ProfilerHook`` over a window of
+steps.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import contextlib
 import dataclasses
 import math
 import queue
+import signal
 import threading
 import time
 from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tuple
@@ -27,6 +31,7 @@ import torch
 from torch import nn
 
 from trajsde_tpu_torch.data.scene import SceneBatch, strip_for_device
+from trajsde_tpu_torch.data.transforms import ts_drop
 from trajsde_tpu_torch.device import resolve_device
 from trajsde_tpu_torch.models.decoders import SDEDecoder
 from trajsde_tpu_torch.models.sde_encoder import LocalEncoderSDESep, gather_agent
@@ -77,9 +82,16 @@ def agent_slices(scene: SceneBatch, output: Dict[str, torch.Tensor], is_gtabs: b
 
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, scheduler,
-                    losses: List[Tuple[str, float, Callable]], device) -> Callable:
+                    losses: List[Tuple[str, float, Callable]], device,
+                    ts_drop_rate: float = 0.0) -> Callable:
     """``train_step(scene, step, seed) -> logs``: ``train/<loss>`` values,
     ``train/total`` and ``train/step_skipped``.
+
+    ``ts_drop_rate > 0`` drops historical steps (:func:`ts_drop`) with a
+    mask drawn on the device from a generator of its own, seeded with
+    ``mix_seed(s, 1)`` of the step's seed ``s`` (the JAX package folds the
+    dropout key with 1), so the encoder's noise and the dropout masks draw
+    what they draw without it.
 
     NaN guard: when the loss or any gradient is non-finite, neither the
     optimizer nor the schedule steps, so the parameters and the AdamW
@@ -91,6 +103,9 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, schedule
     def train_step(scene: SceneBatch, step: int, seed: int) -> Dict[str, Any]:
         model.train()
         gen, s = step_generator(device, seed, step)
+        if ts_drop_rate:
+            scene = ts_drop(scene, ts_drop_rate,
+                            torch.Generator(device=device).manual_seed(mix_seed(s, 1)))
         optimizer.zero_grad(set_to_none=True)
         out = model(scene, generator=gen, rollout_seed=s)
         total, logs = 0.0, {}
@@ -183,7 +198,7 @@ def device_prefetch(batches: Iterable[SceneBatch], device, size: int = 2
     stream, so the caching allocator does not hand its memory out early.
     On the CPU the stripped batches pass through.  Errors of the loader or
     the copy re-raise at the consumer; a consumer that leaves early stops
-    the thread, which closes ``batches``.
+    the thread, which closes ``batches``, and waits for it.
     """
     dev = torch.device(device)
     q: queue.Queue = queue.Queue(maxsize=size)
@@ -214,7 +229,8 @@ def device_prefetch(batches: Iterable[SceneBatch], device, size: int = 2
             if hasattr(it, "close"):
                 it.close()
 
-    threading.Thread(target=worker, daemon=True).start()
+    thread = threading.Thread(target=worker, daemon=True)
+    thread.start()
     try:
         while True:
             item = q.get()
@@ -232,7 +248,10 @@ def device_prefetch(batches: Iterable[SceneBatch], device, size: int = 2
                         v.record_stream(compute)
             yield item
     finally:
+        # a consumer that leaves early (preemption) waits for the thread to
+        # close ``batches``, which shuts a loader's worker processes down
         stop.set()
+        thread.join(timeout=60)
 
 
 @dataclasses.dataclass
@@ -240,10 +259,24 @@ class Trainer:
     """Epoch-driven trainer: ``fit`` trains, evaluates after every epoch and
     saves a checkpoint per epoch scored by ``monitor``.
 
-    ``logger`` is any object with ``log_scalars(step, dict)``.  Batches are
-    ``SceneBatch``es on the CPU (a list, or a ``BatchLoader``), moved to
-    ``device`` through :func:`device_prefetch`.  ``perf/batch_wait_ms`` is
-    the mean time a step waited for its batch.
+    ``logger`` is any object with ``log_scalars(step, dict)``; one that also
+    has ``log_scalars_async`` (``ExperimentLogger``) gets the per-step
+    records as device tensors.  Batches are ``SceneBatch``es on the CPU (a
+    list, or a ``BatchLoader``), moved to ``device`` through
+    :func:`device_prefetch`.  ``perf/batch_wait_ms`` is the mean time a step
+    waited for its batch.  ``profiler`` (a ``ProfilerHook``) hears of each
+    step before it runs.
+
+    Preemption: SIGTERM or SIGINT sets a flag; the
+    step in flight finishes, then ``fit`` saves an unscored checkpoint,
+    logs ``preempted`` and returns, so a ``--ckpt`` resume loses at most a
+    step.  A signal during the val pass ends it and saves unscored rather
+    than score a partial pass.  A second SIGINT raises
+    ``KeyboardInterrupt``.  The handlers are installed only from the main
+    thread and restored on the way out.  The loader's worker processes
+    inherit the handler, so SIGINT sets a flag in their copy of the
+    trainer; SIGTERM ends them (PyTorch's worker handler), and a loader
+    error after the signal ends the pass like the signal itself.
     """
     losses: List[Tuple[str, float, Callable]]
     metrics: List[Any]
@@ -253,7 +286,10 @@ class Trainer:
     monitor: str = "ADE_T"
     is_gtabs: bool = True
     log_every: int = 1
+    ts_drop_rate: float = 0.0
+    profiler: Optional[Any] = None
     epoch_logs: List[Dict[str, float]] = dataclasses.field(default_factory=list)
+    preempted: bool = dataclasses.field(default=False, init=False)
 
     def _nfe_logs(self, model: nn.Module) -> Dict[str, float]:
         """Function-evaluation counts per forward (fixed grids: constants)."""
@@ -266,6 +302,48 @@ class Trainer:
             logs["nfe/decoder_sde_steps"] = float(model.decoder.future_steps)
         return logs
 
+    def _install_preempt_handlers(self) -> Dict[int, Any]:
+        if threading.current_thread() is not threading.main_thread():
+            return {}
+
+        def handler(signum, frame):
+            if self.preempted and signum == signal.SIGINT:
+                raise KeyboardInterrupt
+            self.preempted = True
+
+        return {sig: signal.signal(sig, handler) for sig in (signal.SIGTERM, signal.SIGINT)}
+
+    @staticmethod
+    def _restore_handlers(previous: Dict[int, Any]) -> None:
+        for sig, old in previous.items():
+            # None: the handler was not installed from Python
+            signal.signal(sig, signal.SIG_DFL if old is None else old)
+
+    def _log_step(self, step: int, logs: Dict[str, Any]) -> None:
+        log_async = getattr(self.logger, "log_scalars_async", None)
+        if log_async is not None:
+            log_async(step, logs)
+        else:
+            self.logger.log_scalars(step, {k: float(v) for k, v in logs.items()})
+
+    def _next(self, feed: Iterator[SceneBatch]) -> Optional[SceneBatch]:
+        """The feed's next batch; None at its end, and when the loader fails
+        after a preemption signal (a signal to the process group reaches
+        the loader's workers too)."""
+        try:
+            return next(feed, None)
+        except Exception:
+            if self.preempted:
+                return None
+            raise
+
+    def _emergency_stop(self, state: TrainState) -> TrainState:
+        if self.checkpointer is not None:
+            self.checkpointer.save(state, metric=None, step=state.step)
+        if self.logger is not None:
+            self.logger.log_scalars(state.step, {"preempted": 1.0})
+        return state
+
     def fit(self, state: TrainState, train_batches: Callable[[], Iterable[SceneBatch]],
             val_batches: Callable[[], Iterable[SceneBatch]], max_epochs: int) -> TrainState:
         if (self.checkpointer is not None and self.metrics
@@ -276,60 +354,78 @@ class Trainer:
                              f"({sorted(m.name for m in self.metrics)})")
         dev = resolve_device(self.device)
         train_step = make_train_step(state.model, state.optimizer, state.scheduler,
-                                     self.losses, dev)
+                                     self.losses, dev, ts_drop_rate=self.ts_drop_rate)
         if self.logger is not None:
             self.logger.log_scalars(state.step, self._nfe_logs(state.model))
-        for epoch in range(max_epochs):
-            t0 = time.perf_counter()
-            n_steps = scenes = 0
-            skipped = wait = 0.0
-            with contextlib.closing(device_prefetch(train_batches(), dev)) as feed:
-                while True:
-                    t_wait = time.perf_counter()
-                    scene = next(feed, None)
-                    wait += time.perf_counter() - t_wait
-                    if scene is None:
-                        break
-                    logs = train_step(scene, state.step, state.seed)
-                    state.step += 1
-                    n_steps += 1
-                    scenes += scene.x.shape[0]
-                    skipped += logs["train/step_skipped"]
-                    if self.logger is not None and state.step % self.log_every == 0:
-                        self.logger.log_scalars(
-                            state.step, {k: float(v) for k, v in logs.items()}
-                            | {"train/steps_skipped_cum": skipped})
-            # the train time closes on a synchronized clock, before the val pass
-            _synchronize(dev)
-            train_dt = time.perf_counter() - t0
-            results = self.evaluate(state, val_batches)
-            record = {f"val/{k}": v for k, v in results.items()} | {
-                "epoch": float(epoch),
-                "epoch_time_s": time.perf_counter() - t0,
-                "perf/steps_per_s": n_steps / max(train_dt, 1e-9),
-                "perf/scenes_per_s": scenes / max(train_dt, 1e-9),
-                "perf/batch_wait_ms": 1e3 * wait / max(n_steps, 1),
-                "train/steps_skipped": skipped,
-            }
-            self.epoch_logs.append(record)
-            if self.logger is not None:
-                self.logger.log_scalars(state.step, record)
-            if self.checkpointer is not None:
-                metric = results.get(self.monitor)
-                if metric is not None and not math.isfinite(metric):
-                    metric = None   # NaN (an empty split) must not enter the pruner's sort
-                self.checkpointer.save(state, metric=metric, step=state.step)
+        self.preempted = False   # a stale flag must not stop a resumed fit
+        previous = self._install_preempt_handlers()
+        try:
+            for epoch in range(max_epochs):
+                t0 = time.perf_counter()
+                n_steps = scenes = 0
+                skipped = wait = 0.0
+                with contextlib.closing(device_prefetch(train_batches(), dev)) as feed:
+                    while True:
+                        t_wait = time.perf_counter()
+                        scene = self._next(feed)
+                        wait += time.perf_counter() - t_wait
+                        if scene is None:
+                            break
+                        if self.profiler is not None:
+                            self.profiler.on_step(state.step + 1)
+                        logs = train_step(scene, state.step, state.seed)
+                        state.step += 1
+                        n_steps += 1
+                        scenes += scene.x.shape[0]
+                        skipped += logs["train/step_skipped"]
+                        if self.logger is not None and state.step % self.log_every == 0:
+                            self._log_step(state.step,
+                                           logs | {"train/steps_skipped_cum": skipped})
+                        if self.preempted:
+                            return self._emergency_stop(state)
+                # the train time closes on a synchronized clock, before the val pass
+                _synchronize(dev)
+                train_dt = time.perf_counter() - t0
+                if self.preempted:
+                    return self._emergency_stop(state)
+                results = self.evaluate(state, val_batches)
+                if self.preempted:   # a partial val pass is not a score
+                    return self._emergency_stop(state)
+                record = {f"val/{k}": v for k, v in results.items()} | {
+                    "epoch": float(epoch),
+                    "epoch_time_s": time.perf_counter() - t0,
+                    "perf/steps_per_s": n_steps / max(train_dt, 1e-9),
+                    "perf/scenes_per_s": scenes / max(train_dt, 1e-9),
+                    "perf/batch_wait_ms": 1e3 * wait / max(n_steps, 1),
+                    "train/steps_skipped": skipped,
+                }
+                self.epoch_logs.append(record)
+                if self.logger is not None:
+                    self.logger.log_scalars(state.step, record)
+                if self.checkpointer is not None:
+                    metric = results.get(self.monitor)
+                    if metric is not None and not math.isfinite(metric):
+                        metric = None   # NaN (an empty split) must not enter the pruner's sort
+                    self.checkpointer.save(state, metric=metric, step=state.step)
+        finally:
+            self._restore_handlers(previous)
+            if self.profiler is not None:
+                self.profiler.stop()
         return state
 
     def evaluate(self, state: TrainState, batches: Callable[[], Iterable[SceneBatch]]
                  ) -> Dict[str, float]:
+        """The metrics over ``batches``; a preemption signal ends the pass
+        early (``fit`` then saves unscored)."""
         dev = resolve_device(self.device)
         eval_step = make_eval_step(state.model, self.metrics, self.is_gtabs, dev)
         for m in self.metrics:
             m.reset()
         with contextlib.closing(device_prefetch(batches(), dev)) as feed:
-            for i, scene in enumerate(feed):
+            i = 0
+            while (scene := self._next(feed)) is not None and not self.preempted:
                 contribs = eval_step(scene, i)
                 for m in self.metrics:
                     m.accumulate(contribs[m.name])
+                i += 1
         return {m.name: m.compute() for m in self.metrics}
