@@ -97,6 +97,25 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      metrics are finite, the submission has the scenes' shapes, ids and
      probabilities that sum to 1; prints the CLI's host-clock ms per step
      and wait beside phase I's.
+  K. the serving engine (after J): a ``FLAGSHIP_FUSED`` engine at full
+     width (seeded weights, the default buckets, max_batch 128) warms all
+     8 buckets, timed, recording nothing; pipelined and serial ``predict``
+     of 512 scenes on two engines of one seed agree within
+     ``TOL_PIPELINE`` (bit-equal or not is printed) and are timed in 4
+     alternating rounds (scenes/s), with the device's idle share across
+     one pipelined and one serial ``predict`` under ``torch.profiler``; 256
+     scenes submitted from 16 threads at ``max_wait_ms`` 5 all resolve,
+     ``mean_batch`` > 1,
+     K1 and K3 launch once per recorded batch and K2, K4, K5 and K6 never
+     (p50 / p99 printed); 20 single scenes submitted one at a time give
+     bucket 1's p50 / p99; 8 concurrent HTTP ``POST /predict`` on
+     127.0.0.1 (half JSON, half ``Accept: application/x-npz``) answer 200
+     with the engine's fields, ``/stats`` counts them and, after
+     ``close()``, a POST answers 503; ``serve_torch.py`` in batch mode on
+     J's checkpoint and validation scenes under ``FLAGSHIP_H100`` writes one
+     ``*_pred.npz`` per scene with the right shapes and probabilities that
+     sum to 1, and a stats line (K1 and K3 once per batch and warmup
+     bucket).
 Phases 4, B, C and 7 check that K4 never launches on their paths, and the
 serving and training phases that K5 and K6 never do.
 The last lines are the card, a JSON object per kernel and the device line.
@@ -105,12 +124,15 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import io
 import json
 import os
 import statistics
 import subprocess
 import tempfile
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -212,6 +234,16 @@ FILE_BATCHES, PACK_RUNS = 4, 5
 # phase J: nuScenes validation / test scenes (two eval batches: 128 and 32)
 CLI_VAL_SCENES = 160
 TRAIN_SPLICE_BATCH = 8
+# phase K: scenes of each predict (4 batches of 128), timed rounds (the two
+# modes alternate), scenes submitted and the threads that submit them,
+# single requests, HTTP requests, and how long a future may take
+ENGINE_SCENES, ENGINE_ROUNDS = 512, 4
+SUBMITTED, SUBMIT_THREADS, SINGLES, HTTP_POSTS = 256, 16, 20, 8
+FUTURE_TIMEOUT_S = 300
+# pipelined vs serial predict, max |pipelined - serial| / max |serial| per
+# scene and field: the same kernels on the same inputs and draws, so 0 is
+# expected
+TOL_PIPELINE = 1e-5
 # the flagship YAML's datamodule train_batch_size (it fits the card in f32)
 TRAIN_BATCH = 128
 # H100 SXM published peaks (dense): f32 on CUDA cores, TF32 on the tensor
@@ -1082,6 +1114,251 @@ def phase_cli(d: str, from_files: dict, card: str) -> dict:
           "probabilities sum to 1, seq_ids are the file numbers", flush=True)
     return out
 
+
+def _results_distance(got, want) -> tuple:
+    """(max over the result fields of max |got - want| / max |want|, and
+    whether every array is bit-equal) over two lists of served results."""
+    worst, equal = 0.0, True
+    for g, w in zip(got, want, strict=True):
+        for k in ("agent_world", "agent_pi", "loc", "pi"):
+            a, b = np.asarray(g[k], np.float64), np.asarray(w[k], np.float64)
+            equal = equal and np.array_equal(g[k], w[k])
+            worst = max(worst, float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)))
+    return worst, equal
+
+
+def _post(url: str, body: bytes, headers: dict):
+    """(status, content type, body) of one POST; an HTTP error's too."""
+    req = urllib.request.Request(url, data=body, headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=FUTURE_TIMEOUT_S) as r:
+            return r.status, r.headers["Content-Type"], r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers["Content-Type"], e.read()
+
+
+def phase_engine(d: str, card: str) -> dict:
+    """K. The serving engine beyond ``predict`` at full width: a
+    ``FLAGSHIP_FUSED`` engine (seeded weights, 48 / 192, K = 10, the default
+    buckets, max_batch 128) warms all 8 buckets (timed); pipelined and
+    serial ``predict`` of ENGINE_SCENES scenes on two engines of one seed
+    agree within ``TOL_PIPELINE``, and are timed in ENGINE_ROUNDS
+    alternating rounds, with the device's idle share across one pipelined
+    and one serial ``predict`` under ``torch.profiler``; SUBMITTED scenes submitted from
+    SUBMIT_THREADS threads all resolve, with ``mean_batch`` > 1 and K1 and K3
+    once per recorded batch (K2, K4, K5, K6 never); SINGLES scenes
+    submitted one at a time give bucket 1's p50 / p99; HTTP_POSTS concurrent
+    ``POST /predict`` (half a JSON body and reply, half npz bytes with
+    ``Accept: application/x-npz``) answer 200, ``/stats`` counts them, and
+    after ``close()`` a POST answers 503; last ``serve_torch.py`` in batch
+    mode on phase J's checkpoint and validation scenes under
+    ``FLAGSHIP_H100`` writes one prediction per scene."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import serve_torch
+    from trajsde_tpu_torch import httpd
+
+    t_phase = time.perf_counter()
+    model = build_model(FLAGSHIP_FUSED, device="cuda", seed=SEED)
+    rng = np.random.default_rng(SEED + 17)
+    raws = [make_raw_scene(rng, i % 2, num_actors=NUM_ACTORS, num_lanes=NUM_LANES)
+            for i in range(ENGINE_SCENES)]
+    piped, serial = (ServingEngine(model, num_actors=NUM_ACTORS, num_lanes=NUM_LANES,
+                                   device="cuda", seed=SEED, max_batch=TRAIN_BATCH)
+                     for _ in range(2))
+    out = {}
+    server = None
+    try:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        piped.warmup(raws[0])
+        torch.cuda.synchronize()
+        out["warmup_s"] = time.perf_counter() - t0
+        n_buckets = len(piped.buckets)
+        check(n_buckets == 8 and piped.stats()["served"] == 0,
+              f"warmup ran {piped.buckets} and recorded {piped.stats()}")
+        check(_counts()["sde_rollout"] == _counts()["aa_fused"] == n_buckets,
+              f"warmup launched {_counts()}")
+        print(f"[engine] warmup of buckets {piped.buckets}: {out['warmup_s']:.2f} s, nothing "
+              "recorded", flush=True)
+        serial.warmup(raws[0])   # its counter moves as piped's did
+
+        got = piped.predict(raws)
+        want = serial.predict(raws, pipeline=False)
+        _check_results(got, ENGINE_SCENES, model)
+        out["pipeline_rel"], out["pipeline_bit_equal"] = _results_distance(got, want)
+        print(f"[engine] pipelined vs serial predict of {ENGINE_SCENES} scenes (engines of one "
+              f"seed): max |pipelined - serial| / max |serial| = {out['pipeline_rel']:.3e} (tol "
+              f"{TOL_PIPELINE:g}); bit-equal: {out['pipeline_bit_equal']}", flush=True)
+        check(out["pipeline_rel"] <= TOL_PIPELINE, "the pipelined predict disagrees with serial")
+        del got, want
+
+        times = {"pipelined": [], "serial": []}
+        for r in range(ENGINE_ROUNDS):
+            for mode in (("pipelined", "serial") if r % 2 == 0 else ("serial", "pipelined")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                piped.predict(raws, pipeline=mode == "pipelined")
+                times[mode].append(time.perf_counter() - t0)
+        for mode, ts in times.items():
+            out[f"{mode}_scenes_per_s"] = ENGINE_SCENES / statistics.median(ts)
+            out[f"{mode}_rounds_s"] = ts
+        print(f"[engine] {card}: {ENGINE_SCENES} scenes a predict, {ENGINE_ROUNDS} alternating "
+              f"rounds, medians: pipelined {out['pipelined_scenes_per_s']:.1f} scenes/s, serial "
+              f"{out['serial_scenes_per_s']:.1f}; rounds (s) pipelined "
+              + " ".join(f"{t:.3f}" for t in times["pipelined"]) + ", serial "
+              + " ".join(f"{t:.3f}" for t in times["serial"]), flush=True)
+
+        for mode in ("pipelined", "serial"):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                piped.predict(raws, pipeline=mode == "pipelined")
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t0)
+            busy = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+            out[f"{mode}_profiled"] = dict(wall_ms=wall, busy_ms=busy,
+                                           idle_share=1.0 - busy / wall if busy > 0 else None)
+            print(f"[engine] one {mode} predict of {ENGINE_SCENES} under torch.profiler: "
+                  f"{wall:.1f} ms, device busy {busy:.1f} ms, idle share "
+                  + (f"{1.0 - busy / wall:.3f}" if busy > 0 else "not measured (no device events)"),
+                  flush=True)
+
+        piped.reset_stats()
+        futs, lock = [], threading.Lock()
+
+        def send(chunk):
+            for raw in chunk:
+                f = piped.submit(raw)
+                with lock:
+                    futs.append(f)
+
+        per = SUBMITTED // SUBMIT_THREADS
+        threads = [threading.Thread(target=send, args=(raws[i * per:(i + 1) * per],))
+                   for i in range(SUBMIT_THREADS)]
+        zero_counts()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=FUTURE_TIMEOUT_S)
+        results = [f.result(timeout=FUTURE_TIMEOUT_S) for f in futs]
+        launches = _counts()
+        st = piped.stats()
+        batches = len(piped._batch_sizes)
+        _check_results(results, SUBMITTED, model)
+        out["submit"] = dict(stats=st, batches=batches, launches=launches)
+        print(f"[engine] {SUBMITTED} scenes submitted from {SUBMIT_THREADS} threads at max_wait_ms "
+              f"{piped.max_wait_ms:g}: served {st['served']} in {batches} batches (mean "
+              f"{st['mean_batch']:.2f}), p50 {st['p50_ms']:.1f} ms, p99 {st['p99_ms']:.1f} ms, "
+              f"{st['scenes_per_sec']:.1f} scenes/s; launches {launches}", flush=True)
+        check(st["served"] == SUBMITTED and st["mean_batch"] > 1.0, f"micro-batcher stats {st}")
+        check(launches == {"sde_rollout": batches, "sde_rollout_bwd": 0, "aa_fused": batches,
+                           "aa_fused_bwd": 0, "aa_attention": 0, "vpu_probe": 0},
+              f"submitted batches launched {launches}, not K1 and K3 once per batch ({batches})")
+        del results, futs
+
+        piped.reset_stats()
+        for raw in raws[:SINGLES]:
+            piped.submit(raw).result(timeout=FUTURE_TIMEOUT_S)
+        st1 = piped.stats()
+        out["single"] = st1
+        check(st1["served"] == SINGLES and st1["mean_batch"] == 1.0, f"single requests {st1}")
+        print(f"[engine] {SINGLES} single scenes submitted one at a time (bucket 1): p50 "
+              f"{st1['p50_ms']:.2f} ms, p99 {st1['p99_ms']:.2f} ms", flush=True)
+
+        npz_dir = os.path.join(d, "engine_npz")
+        os.makedirs(npz_dir)
+        bodies = []
+        for i in range(HTTP_POSTS):
+            path = os.path.join(npz_dir, f"scene_{i}.npz")
+            np.savez(path, **raws[i])
+            with open(path, "rb") as f:
+                bodies.append((path, f.read()))
+        piped.reset_stats()
+        server, port = httpd.run_http_server(piped, "127.0.0.1", 0)
+        url = f"http://127.0.0.1:{port}"
+
+        def post(i):
+            path, raw = bodies[i]
+            if i % 2 == 0:
+                return _post(f"{url}/predict", json.dumps({"npz": path}).encode(),
+                             {"Content-Type": "application/json"})
+            return _post(f"{url}/predict", raw, {"Content-Type": "application/octet-stream",
+                                                 "Accept": "application/x-npz"})
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(HTTP_POSTS) as ex:
+            replies = list(ex.map(post, range(HTTP_POSTS)))
+        http_s = time.perf_counter() - t0
+        replied = []
+        for i, (code, ctype, body) in enumerate(replies):
+            check(code == 200, f"POST /predict {i} answered {code}: {body[:300]!r}")
+            if i % 2 == 0:
+                check(ctype == "application/json", f"reply {i} is {ctype}")
+                replied.append({k: np.asarray(v, np.float32) for k, v in json.loads(body).items()
+                                if k != "seq_id"})
+            else:
+                check(ctype == "application/x-npz", f"reply {i} is {ctype}")
+                with np.load(io.BytesIO(body)) as z:
+                    replied.append({k: z[k] for k in z.files if k != "seq_id"})
+        _check_results(replied, HTTP_POSTS, model)
+        with urllib.request.urlopen(f"{url}/stats", timeout=FUTURE_TIMEOUT_S) as r:
+            http_stats = json.loads(r.read())
+        check(http_stats["served"] == HTTP_POSTS, f"/stats after {HTTP_POSTS} posts: {http_stats}")
+        piped.close()
+        closed = post(1)[0]
+        check(closed == 503, f"a POST after close() answered {closed}, not 503")
+        out["http"] = dict(stats=http_stats, s=http_s)
+        print(f"[engine] HTTP: {HTTP_POSTS} concurrent POST /predict (half JSON, half npz) all "
+              f"200 in {http_s:.2f} s; /stats served {http_stats['served']} in mean batch "
+              f"{http_stats['mean_batch']:.2f}; after close() a POST answers {closed}", flush=True)
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        piped.close()
+        serial.close()
+    del piped, serial, raws
+    torch.cuda.empty_cache()
+
+    # serve_torch.py batch mode on phase J's checkpoint and validation scenes
+    run_dir = os.path.join(d, "logs", "cli")
+    best = CheckpointManager(os.path.join(run_dir, "checkpoints")).best()["path"]
+    val_dir = os.path.join(d, "npz", "nuScenes", "val")
+    preds = os.path.join(d, "serve_preds")
+    zero_counts()
+    t0 = time.perf_counter()
+    stats = serve_torch.main(["-c", os.path.join(d, "h100.json"), "--ckpt", best, "--input-dir",
+                              val_dir, "--output-dir", preds, "--max-batch", str(TRAIN_BATCH),
+                              "--warmup"])
+    cli_s = time.perf_counter() - t0
+    launches = _counts()
+    batches = round(stats["served"] / stats["mean_batch"])
+    check(stats["served"] == CLI_VAL_SCENES, f"serve_torch.py served {stats}")
+    check(launches == {"sde_rollout": 8 + batches, "sde_rollout_bwd": 0, "aa_fused": 8 + batches,
+                       "aa_fused_bwd": 0, "aa_attention": 0, "vpu_probe": 0},
+          f"serve_torch.py launched {launches}, not K1 and K3 once per batch and warmup bucket")
+    names = sorted(os.listdir(preds))
+    check(names == sorted(f.replace(".npz", "_pred.npz") for f in os.listdir(val_dir)),
+          f"serve_torch.py wrote {len(names)} predictions for {CLI_VAL_SCENES} scenes")
+    written = []
+    for name in names:
+        with np.load(os.path.join(preds, name)) as z:
+            written.append({k: z[k] for k in z.files})
+    _check_results(written, CLI_VAL_SCENES, model)   # FLAGSHIP_H100 has the same K and Tf
+    out["serve_cli"] = dict(stats=stats, launches=launches, s=cli_s)
+    print(f"[engine] serve_torch.py batch mode (FLAGSHIP_H100, phase J's checkpoint): "
+          f"{len(names)} predictions for {CLI_VAL_SCENES} scenes, shapes and probabilities "
+          f"checked; stats {stats}; launches {launches}; {cli_s:.1f} s", flush=True)
+    print(f"[engine] phase K took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def _losses_of(cfg, out):
     return sum(w * fn(out["y"], out) for _, w, fn in build_losses(cfg))
 
@@ -1465,6 +1742,8 @@ def main() -> None:
     k3_ood, k4_ood = phase_fused_splice(model, fused_model)
     k5 = phase_aa_attention(model)
     k6 = phase_vpu_probe()
+    engine.close()
+    fused_engine.close()
     del engine, model, fused_engine, fused_model
     torch.cuda.empty_cache()
     train_model = build_model(FLAGSHIP_TRAIN, device="cuda", seed=SEED)
@@ -1486,6 +1765,8 @@ def main() -> None:
         from_files = phase_train_from_files(trained_fused["ms"], d)
         torch.cuda.empty_cache()
         cli = phase_cli(d, from_files, card)
+        torch.cuda.empty_cache()
+        engine_k = phase_engine(d, card)
     # launches: the count on the kernel's own main path (serving for K1,
     # training for K2, fused serving for K3, fused-encoder training for K4);
     # launches_by_path: every path's
@@ -1514,6 +1795,9 @@ def main() -> None:
                         (k4, "aa_fused_bwd"), (k5, "aa_attention"), (k6, "vpu_probe")):
         entry["launches_by_path"]["cli_train"] = cli["train"]["launches"][name]
         entry["launches_by_path"]["cli_test"] = cli["test plain"]["launches"][name]
+        # phase K: the micro-batcher's submitted scenes, and serve_torch.py
+        entry["launches_by_path"]["engine_submit"] = engine_k["submit"]["launches"][name]
+        entry["launches_by_path"]["serve_cli"] = engine_k["serve_cli"]["launches"][name]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches: {served} serving + "
           f"{served_fused} fused serving + {train['sde_rollout']} training + "
           f"{train_fused['sde_rollout']} fused-encoder training; K2 launches: "
@@ -1525,7 +1809,9 @@ def main() -> None:
           + ", ".join(f"{fmt} {r['launches']['aa_fused_bwd']} each"
                       for fmt, r in from_files.items())
           + f"; the CLI's train_torch.py epoch: {cli['train']['launches']}, test_torch.py: "
-          f"{cli['test plain']['launches']}", flush=True)
+          f"{cli['test plain']['launches']}; the engine's {SUBMITTED} submitted scenes: "
+          f"{engine_k['submit']['launches']} for {engine_k['submit']['batches']} batches; "
+          f"serve_torch.py: {engine_k['serve_cli']['launches']}", flush=True)
     print(card)
     print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

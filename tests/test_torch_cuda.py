@@ -599,3 +599,60 @@ def test_train_step_fed_by_the_prefetcher_equals_one_fed_by_to(cuda):
     (ta, pa), (tb, pb) = results
     assert len(ta) == len(tb) == 2 and all(torch.equal(a, b) for a, b in zip(ta, tb))
     assert all(torch.equal(pa[k], pb[k]) for k in pa)
+
+
+@pytest.mark.gpu
+def test_engine_predict_and_submit_equal_a_plain_copy_path(cuda, monkeypatch):
+    """The serving engine's pinned copies in and out, on the card: pipelined
+    ``predict`` of 44 scenes at max_batch 8 (five batches of bucket 8, one
+    of bucket 4) equals, bit for bit, the same serve function fed by
+    ``.to("cuda")`` and read back by ``.cpu()`` with the same ``(seed,
+    counter)`` draws; so does the serial path, and one ``submit``.  Each
+    copy from a pinned buffer waits behind a 5 ms spin on the copy stream,
+    so a slot refilled early, or a batch read before its copy, shows."""
+    import numpy as np
+
+    from trajsde_tpu_torch.config import FLAGSHIP_FUSED, build_model
+    from trajsde_tpu_torch.data.pack import pack_scenes, pick_bucket
+    from trajsde_tpu_torch.data.synthetic import make_raw_scene
+    from trajsde_tpu_torch.server import ServingEngine, align_scene, mix_seed
+
+    rng = np.random.default_rng(8)
+    raws = [make_raw_scene(rng, i % 2, num_actors=48, num_lanes=192) for i in range(44)]
+    model = build_model(FLAGSHIP_FUSED, device=cuda, seed=6)
+    engines = [ServingEngine(model, num_actors=48, num_lanes=192, device=cuda, max_batch=8,
+                             seed=3) for _ in range(3)]
+    to = torch.Tensor.to
+
+    def lagging_to(self, *args, **kwargs):
+        if kwargs.get("non_blocking") and self.is_pinned():
+            torch.cuda._sleep(10_000_000)   # on the current (copy) stream
+        return to(self, *args, **kwargs)
+
+    try:
+        monkeypatch.setattr(torch.Tensor, "to", lagging_to)
+        piped = engines[0].predict(raws)
+        serial = engines[1].predict(raws, pipeline=False)
+        submitted = engines[2].submit(raws[0]).result(timeout=300)
+        monkeypatch.undo()
+    finally:
+        for e in engines:
+            e.close()
+    def plain(chunk, counter):
+        aligned = [align_scene(r)[0] for r in chunk]
+        bucket = pick_bucket(len(aligned), engines[0].buckets)
+        scene = pack_scenes(aligned + [aligned[-1]] * (bucket - len(aligned)), 48, 192).to(cuda)
+        seed = mix_seed(3, counter)
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        with torch.inference_mode():
+            post = engines[0]._post(scene, engines[0]._serve(scene, seed, generator=gen))
+        post = {k: v.cpu().numpy() for k, v in post.items()}
+        return [{"agent_world": post["agent_world"][j], "agent_pi": post["agent_pi"][j],
+                 "loc": post["loc"][j], "pi": post["pi_all"][j]} for j in range(len(chunk))]
+
+    want = [r for i in range(0, len(raws), 8) for r in plain(raws[i:i + 8], i // 8 + 1)]
+    assert len(piped) == len(serial) == len(want) == 44
+    for got, ref in ((piped, want), (serial, want), ([submitted], plain(raws[:1], 1))):
+        for g, w in zip(got, ref):
+            for k in w:
+                assert np.array_equal(g[k], w[k]), k

@@ -185,6 +185,20 @@ class _PinnedStager:
         return dataclasses.replace(batch, **out), done
 
 
+def wait_for_copy(batch: SceneBatch, copied: torch.cuda.Event, device) -> SceneBatch:
+    """``batch`` from a :class:`_PinnedStager`, made safe to use on the
+    current stream: the stream waits on the event behind the copy, and
+    every tensor is marked as used on it, so the caching allocator does not
+    hand its memory to the copy stream early."""
+    compute = torch.cuda.current_stream(device)
+    compute.wait_event(copied)
+    for f in dataclasses.fields(batch):
+        v = getattr(batch, f.name)
+        if v is not None:
+            v.record_stream(compute)
+    return batch
+
+
 def device_prefetch(batches: Iterable[SceneBatch], device, size: int = 2
                     ) -> Iterator[SceneBatch]:
     """The batches of ``batches`` on ``device``, ``size`` ahead of the
@@ -239,13 +253,7 @@ def device_prefetch(batches: Iterable[SceneBatch], device, size: int = 2
             if isinstance(item, BaseException):
                 raise item
             if dev.type == "cuda":
-                item, copied = item
-                compute = torch.cuda.current_stream(dev)
-                compute.wait_event(copied)
-                for f in dataclasses.fields(item):
-                    v = getattr(item, f.name)
-                    if v is not None:
-                        v.record_stream(compute)
+                item = wait_for_copy(*item, dev)
             yield item
     finally:
         # a consumer that leaves early (preemption) waits for the thread to
