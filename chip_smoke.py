@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Serve and train the flagship neural-SDE model on one NVIDIA GPU through
-the PyTorch/CUDA port (``trajsde_tpu_torch``) and hold its kernels against
-their plain PyTorch versions.
+"""Serve and train the flagship neural-SDE model, and the HiVT baseline, on
+one NVIDIA GPU through the PyTorch/CUDA port (``trajsde_tpu_torch``) and
+hold its kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py   # from the repository root, on a GPU machine
 
@@ -41,7 +41,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      (61,440 rows x 60 steps x 64), explicit and in-kernel gaussian
      increments, per output within ``k2_tol``; two runs bit-equal;
      CUDA-event medians beside the bound on K2's route (its products on
-     the tensor cores) and the CUDA-core bound;
+     the f64 tensor cores) and the CUDA-core bound;
   7. train: ``FLAGSHIP_TRAIN`` (fused rollout, full width, seeded init)
      fits one epoch of synthetic batches of both sources, evaluates two
      batches, takes repeated steps on one batch (the loss must fall), and
@@ -116,6 +116,18 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      ``*_pred.npz`` per scene with the right shapes and probabilities that
      sum to 1, and a stats line (K1 and K3 once per batch and warmup
      bucket).
+  L. the HiVT baseline (after K): ``BASELINE`` at the published widths
+     (embed 64, 4 heads, 4 temporal and 3 global layers, K = 10, 60 steps,
+     48 / 192) with seeded weights, on one batch of 128 synthetic scenes.
+     ``BASELINE_TRAIN`` (``encoder.fused: true``) must refuse on the card
+     with no launch: K3 and K4 are specialised to the flagship's 8 heads
+     (ROADMAP Queue 1 item 8b).  The dense forward (finite, shaped) and
+     three train steps (dropout live; finite and falling loss) launch no
+     kernel; CUDA-event times, scenes/s and peak memory of each; then the
+     scan engine (``engine="auto"`` picks ``scan``): pipelined and serial
+     ``predict`` of BASELINE_SCENES scenes agree within ``TOL_PIPELINE``,
+     timed in alternating rounds, and BASELINE_SINGLES single scenes
+     submitted one at a time give p50 / p99.
 Phases 4, B, C and 7 check that K4 never launches on their paths, and the
 serving and training phases that K5 and K6 never do.
 The last lines are the card, a JSON object per kernel and the device line.
@@ -137,9 +149,9 @@ import urllib.request
 import numpy as np
 import torch
 
-from trajsde_tpu_torch.config import (FLAGSHIP, FLAGSHIP_FUSED, FLAGSHIP_H100, FLAGSHIP_TRAIN,
-                                      FLAGSHIP_TRAIN_FUSED, build_datamodule, build_losses,
-                                      build_metrics, build_model)
+from trajsde_tpu_torch.config import (BASELINE, BASELINE_TRAIN, FLAGSHIP, FLAGSHIP_FUSED,
+                                      FLAGSHIP_H100, FLAGSHIP_TRAIN, FLAGSHIP_TRAIN_FUSED,
+                                      build_datamodule, build_losses, build_metrics, build_model)
 from trajsde_tpu_torch.data.pack import pack_scenes, pick_bucket
 from trajsde_tpu_torch.data.shards import convert_npz_dir
 from trajsde_tpu_torch.data.synthetic import make_raw_scene
@@ -186,9 +198,10 @@ K3_DROPOUT = 0.1
 TOL_K2_DY0, TOL_K2_W = 1e-4, 1e-3
 # and tighter on every output (no K2 output sits behind a ReLU), so that a
 # build with the tensor-core products at TF32 precision fails: on an H100 at
-# the training shape K2 (3xTF32) reads up to 1.4e-6, the FMA build of K2
-# 4.3e-6, and a copy with one TF32 product per term 1.8e-4 to 7.0e-4 on
-# every output (scripts/compare_rollout_bwd_builds_torch.py)
+# the training shape K2 (its products on the f64 tensor cores) reads up to
+# 6.8e-7, its 3xTF32 build 1.4e-6, the FMA build of K2 4.3e-6, and a copy
+# with each operand rounded to TF32 1.8e-4 to 6.6e-4 on every output
+# (scripts/compare_rollout_bwd_builds_torch.py)
 TOL_K2_TIGHT = 2e-5
 
 
@@ -246,10 +259,14 @@ FUTURE_TIMEOUT_S = 300
 TOL_PIPELINE = 1e-5
 # the flagship YAML's datamodule train_batch_size (it fits the card in f32)
 TRAIN_BATCH = 128
-# H100 SXM published peaks (dense): f32 on CUDA cores, TF32 on the tensor
-# cores, HBM3 bandwidth
+# phase L: train steps a baseline path takes, scenes of its engine's
+# predict, single submitted scenes
+BASELINE_STEPS, BASELINE_SCENES, BASELINE_SINGLES = 3, 512, 20
+# H100 SXM published peaks (dense): f32 on CUDA cores, TF32 and f64 on the
+# tensor cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_F64_TC_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 TIMED_RUNS, WARMUP = 20, 3
 
@@ -509,15 +526,16 @@ def aa_weight_floats(dim: int) -> int:
         + 2 * d * d + 2 * d
 
 
-def _route_bounds(flops: float, tc_flops: float, nbytes: float):
+def _route_bounds(flops: float, tc_flops: float, nbytes: float,
+                  tc_rate: float = PEAK_TF32_FLOPS / 3):
     """(bound_ms, bound_by, flops, bytes, route_ms, route_by): every operation
     at the f32 CUDA-core peak, or the bytes at the memory rate, whichever is
     longer; and on a kernel's route, ``tc_flops`` of its operations on the
-    tensor cores at f32 accuracy (three TF32 products each,
-    ``PEAK_TF32_FLOPS / 3``) and the rest on the CUDA cores at their peak,
-    the two pipes running at the same time."""
+    tensor cores at ``tc_rate`` (by default f32 accuracy in three TF32
+    products each, ``PEAK_TF32_FLOPS / 3``) and the rest on the CUDA cores
+    at their peak, the two pipes running at the same time."""
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    t_route = max(tc_flops / (PEAK_TF32_FLOPS / 3), (flops - tc_flops) / PEAK_F32_FLOPS)
+    t_route = max(tc_flops / tc_rate, (flops - tc_flops) / PEAK_F32_FLOPS)
     return (1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops,
             nbytes, 1e3 * max(t_route, t_bytes), ("operations" if t_route >= t_bytes else "bytes"))
 
@@ -693,7 +711,8 @@ def phase_fused_splice(dense, fused) -> int:
     return ood, k4
 
 
-def bwd_bound(rows: int, steps: int, dim: int, explicit_noise: bool):
+def bwd_bound(rows: int, steps: int, dim: int, explicit_noise: bool,
+              tc_rate: float = PEAK_F64_TC_FLOPS):
     """(bound_ms, bound_by, flops, bytes, route_ms, route_by) of one K2 call:
     per row-step 4 recomputed, 5 input-gradient and 5 weight-gradient
     dim x dim products plus the three dim-wide dots of the diffusion output;
@@ -701,17 +720,19 @@ def bwd_bound(rows: int, steps: int, dim: int, explicit_noise: bool):
     read once, dy0 and the weight gradients written once.  ``bound_ms``
     takes every operation at the f32 CUDA-core peak; ``route_ms`` is the
     bound on the route K2 takes: the 14 products (``28 dim^2`` a row-step)
-    on the tensor cores at f32 accuracy, three TF32 products each
-    (``PEAK_TF32_FLOPS / 3``), and the rest on the CUDA cores at their peak,
-    the two pipes running at the same time; ``route_by`` says which of the
-    route's operations and the bytes bounds it."""
+    on the f64 tensor cores (``tc_rate``, by default ``PEAK_F64_TC_FLOPS``;
+    ``PEAK_TF32_FLOPS / 3`` gives the 3xTF32 route K2 took before, the
+    fastest f32-accurate arithmetic the card has), and the rest on the CUDA
+    cores at their peak, the two pipes running at the same time;
+    ``route_by`` says which of the route's operations and the bytes bounds
+    it."""
     flops = rows * steps * (28 * dim * dim + 6 * dim)
     weights = 5 * dim * dim + 10 * dim + 4
     nbytes = 4 * (rows * dim + (steps - 1) * rows * dim + steps * rows * dim + weights + 4 * steps
                   + rows * dim + weights)
     if explicit_noise:
         nbytes += 4 * steps * rows * dim
-    return _route_bounds(flops, rows * steps * 28 * dim * dim, nbytes)
+    return _route_bounds(flops, rows * steps * 28 * dim * dim, nbytes, tc_rate)
 
 
 def train_rows(model) -> int:
@@ -764,7 +785,7 @@ def phase_backward(model, rows: int) -> dict:
         times[mode] = cuda_ms(lambda: K1.sde_rollout_bwd(y0, ys, ct, w, t0s, dts, 13, T, nz, inc))
         bound, by, flops, nbytes, route, route_by = bwd_bound(rows, T, D, mode == "explicit")
         print(f"[backward] sde_rollout_bwd {mode}: {times[mode]:.3f} ms (median of {TIMED_RUNS}), "
-              f"bound {route:.3f} ms by {route_by} on its route (3xTF32 products on the tensor "
+              f"bound {route:.3f} ms by {route_by} on its route (products on the f64 tensor "
               f"cores) and {bound:.3f} ms by {by} on the CUDA cores ({flops:.3e} flop, "
               f"{nbytes:.3e} B), {flops / times[mode] / 1e9:.1f} TFLOP/s", flush=True)
     ys = K1.sde_rollout_packed(y0, w, t0s, dts, 13, T, None, "gaussian")
@@ -773,14 +794,20 @@ def phase_backward(model, rows: int) -> dict:
     print(f"[backward] sde_rollout_bwd plain version (gaussian): {plain_ms:.3f} ms (median of 5)",
           flush=True)
     bound, by, _, _, route, route_by = bwd_bound(rows, T, D, False)
+    tf32_route = bwd_bound(rows, T, D, False, PEAK_TF32_FLOPS / 3)[4]
+    print(f"[backward] sde_rollout_bwd: with its 14 products in 3xTF32 on the TF32 tensor "
+          f"cores the bound would be {tf32_route:.3f} ms, the card's floor at f32 accuracy",
+          flush=True)
     # the training path draws gaussian increments in the kernel: its numbers;
-    # bound_ms is the route's, cuda_core_bound_ms every operation on the CUDA cores
+    # bound_ms is the route's (f64 tensor cores), tf32x3_bound_ms the same
+    # work with the products in 3xTF32, cuda_core_bound_ms every operation on
+    # the CUDA cores
     return dict(name="sde_rollout_bwd", route="cuda",
                 source="trajsde_tpu_torch/csrc/sde_rollout_bwd.cu",
                 replaces="trajsde_tpu/ops/pallas/sde_rollout.py:290", launches=None,
                 max_abs_err=max_abs, ms=times["gaussian"], plain_ms=plain_ms, bound_ms=route,
-                bound_by=route_by, cuda_core_bound_ms=bound, cuda_core_bound_by=by,
-                library_ms=None)
+                bound_by=route_by, tf32x3_bound_ms=tf32_route, cuda_core_bound_ms=bound,
+                cuda_core_bound_by=by, library_ms=None)
 
 
 def _train_batch(rng, n):
@@ -1719,6 +1746,146 @@ def phase_vpu_probe() -> dict:
                 runs=rows, rate_ratios=ratios)
 
 
+def baseline_train_steps(model, cfg, scene, steps: int):
+    """``steps`` train steps of the baseline ``model`` (built from ``cfg``)
+    on ``scene``, dropout live: (each step's ms by CUDA events, each step's
+    total loss, the peak device memory in GiB).  Phase L's steps, and
+    ``scripts/baseline_step_torch.py``'s at other batches."""
+    state = create_train_state(model, cfg["training_specific"], steps_per_epoch=1, seed=SEED)
+    step = make_train_step(model, state.optimizer, state.scheduler, build_losses(cfg),
+                           torch.device("cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    totals, times = [], []
+    for i in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        logs = step(scene, i, state.seed)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        totals.append(float(logs["train/total"]))
+        check(np.isfinite(totals[-1]) and logs["train/step_skipped"] == 0.0,
+              "non-finite baseline training loss")
+    return times, totals, torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_baseline(card: str) -> dict:
+    """L. The HiVT baseline at the published widths (see the module's
+    docstring).  Returns the dense forward's and train step's times,
+    scenes/s, peak memory and launches, and the engine's numbers."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 23)
+    scene = _train_batch(rng, TRAIN_BATCH).to("cuda")
+    zero = {k: 0 for k in _counts()}
+    out = {}
+
+    # the fused path refuses: K3 and K4 are specialised to the flagship's 8
+    # heads, and the baseline has 4; nothing falls back to the plain chain
+    fused = build_model(BASELINE_TRAIN, device="cuda", seed=SEED)
+    zero_counts()
+    try:
+        with torch.no_grad():
+            fused(scene)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "H=8" in refused and _counts() == zero,
+          f"the fused baseline (4 heads) did not refuse on the card: {refused!r}, {_counts()}")
+    out["fused_refused"] = refused
+    print(f"[baseline] the fused baseline refuses on the card: {refused}; launches {_counts()}",
+          flush=True)
+    del fused
+
+    model = build_model(BASELINE, device="cuda", seed=SEED)
+    with torch.no_grad():
+        model(scene)   # warm-up
+        zero_counts()
+        pred = model(scene)
+        launches = _counts()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: model(scene), runs=5)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    K, Tf = model.decoder.num_modes, model.decoder.future_steps
+    check(pred["loc"].shape == (TRAIN_BATCH, K, NUM_ACTORS, Tf, 4)
+          and pred["pi"].shape == (TRAIN_BATCH, NUM_ACTORS, K), "baseline output shapes")
+    check(all(bool(torch.isfinite(pred[k]).all()) for k in ("loc", "pi")),
+          "non-finite baseline output")
+    check(launches == zero, f"the dense baseline's forward launched {launches}")
+    del pred
+    out.update(forward_ms=ms, forward_scenes_per_s=TRAIN_BATCH / ms * 1e3, forward_peak_gib=peak,
+               forward_launches=launches)
+    print(f"[baseline] {card}: dense forward at batch {TRAIN_BATCH}: {ms:.2f} ms (CUDA events, "
+          f"median of 5), {TRAIN_BATCH / ms * 1e3:.1f} scenes/s, peak {peak:.2f} GiB; launches "
+          f"{launches}", flush=True)
+
+    zero_counts()
+    times, totals, peak = baseline_train_steps(model, BASELINE, scene, BASELINE_STEPS)
+    launches = _counts()
+    ms = statistics.median(times[1:])
+    out.update(train_ms=ms, train_step_ms=times, train_scenes_per_s=TRAIN_BATCH / ms * 1e3,
+               train_peak_gib=peak, train_losses=totals, train_launches=launches)
+    print(f"[baseline] {card}: dense train step at batch {TRAIN_BATCH}: "
+          + " ".join(f"{t:.1f}" for t in times) + f" ms (CUDA events; median of the last "
+          f"{BASELINE_STEPS - 1} {ms:.1f}), {TRAIN_BATCH / ms * 1e3:.1f} scenes/s, peak "
+          f"{peak:.2f} GiB; loss " + " ".join(f"{x:.4f}" for x in totals)
+          + f"; launches {launches}", flush=True)
+    check(launches == zero, f"the dense baseline's train steps launched {launches}")
+    check(totals[-1] < totals[0], "the baseline's loss did not fall")
+    model.eval()
+
+    raws = [make_raw_scene(rng, i % 2, num_actors=NUM_ACTORS, num_lanes=NUM_LANES)
+            for i in range(BASELINE_SCENES)]
+    piped, serial = (ServingEngine(model, num_actors=NUM_ACTORS, num_lanes=NUM_LANES,
+                                   device="cuda", seed=SEED, max_batch=TRAIN_BATCH)
+                     for _ in range(2))
+    try:
+        check(piped.engine == serial.engine == "scan", f"auto chose {piped.engine}")
+        piped.warmup(raws[0])
+        serial.warmup(raws[0])
+        zero_counts()
+        got = piped.predict(raws)
+        launches = _counts()
+        want = serial.predict(raws, pipeline=False)
+        _check_results(got, BASELINE_SCENES, model)
+        check(launches == zero, f"the scan engine launched {launches}")
+        rel, equal = _results_distance(got, want)
+        print(f"[baseline] scan engine: pipelined vs serial predict of {BASELINE_SCENES} scenes: "
+              f"max rel. difference {rel:.3e} (tol {TOL_PIPELINE:g}), bit-equal {equal}; "
+              f"launches {launches}", flush=True)
+        check(rel <= TOL_PIPELINE, "the scan engine's pipelined predict disagrees with serial")
+        del got, want
+        times = {"pipelined": [], "serial": []}
+        for r in range(2):
+            for mode in (("pipelined", "serial") if r % 2 == 0 else ("serial", "pipelined")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                piped.predict(raws, pipeline=mode == "pipelined")
+                times[mode].append(time.perf_counter() - t0)
+        engine = {f"{m}_scenes_per_s": BASELINE_SCENES / statistics.median(t)
+                  for m, t in times.items()}
+        engine.update(pipeline_rel=rel, pipeline_bit_equal=equal, launches=launches)
+        piped.reset_stats()
+        for raw in raws[:BASELINE_SINGLES]:
+            piped.submit(raw).result(timeout=FUTURE_TIMEOUT_S)
+        st = piped.stats()
+        check(st["served"] == BASELINE_SINGLES and st["mean_batch"] == 1.0,
+              f"single requests {st}")
+        engine["single"] = st
+        out["engine"] = engine
+        print(f"[baseline] {card}: scan engine, {BASELINE_SCENES} scenes a predict in batches "
+              f"of {TRAIN_BATCH}, 2 alternating rounds (host clock): pipelined "
+              f"{engine['pipelined_scenes_per_s']:.1f} scenes/s, serial "
+              f"{engine['serial_scenes_per_s']:.1f}; {BASELINE_SINGLES} single scenes: p50 "
+              f"{st['p50_ms']:.2f} ms, p99 {st['p99_ms']:.2f} ms", flush=True)
+    finally:
+        piped.close()
+        serial.close()
+    print(f"[baseline] phase L: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
@@ -1767,6 +1934,8 @@ def main() -> None:
         cli = phase_cli(d, from_files, card)
         torch.cuda.empty_cache()
         engine_k = phase_engine(d, card)
+    torch.cuda.empty_cache()
+    baseline = phase_baseline(card)
     # launches: the count on the kernel's own main path (serving for K1,
     # training for K2, fused serving for K3, fused-encoder training for K4);
     # launches_by_path: every path's
@@ -1798,6 +1967,10 @@ def main() -> None:
         # phase K: the micro-batcher's submitted scenes, and serve_torch.py
         entry["launches_by_path"]["engine_submit"] = engine_k["submit"]["launches"][name]
         entry["launches_by_path"]["serve_cli"] = engine_k["serve_cli"]["launches"][name]
+        # phase L: the baseline's forward, train steps and scan engine
+        entry["launches_by_path"]["baseline_forward"] = baseline["forward_launches"][name]
+        entry["launches_by_path"]["baseline_train"] = baseline["train_launches"][name]
+        entry["launches_by_path"]["baseline_engine"] = baseline["engine"]["launches"][name]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches: {served} serving + "
           f"{served_fused} fused serving + {train['sde_rollout']} training + "
           f"{train_fused['sde_rollout']} fused-encoder training; K2 launches: "
@@ -1811,7 +1984,9 @@ def main() -> None:
           + f"; the CLI's train_torch.py epoch: {cli['train']['launches']}, test_torch.py: "
           f"{cli['test plain']['launches']}; the engine's {SUBMITTED} submitted scenes: "
           f"{engine_k['submit']['launches']} for {engine_k['submit']['batches']} batches; "
-          f"serve_torch.py: {engine_k['serve_cli']['launches']}", flush=True)
+          f"serve_torch.py: {engine_k['serve_cli']['launches']}; the baseline's forward, "
+          f"{BASELINE_STEPS} train steps and scan engine: {baseline['forward_launches']}, "
+          f"{baseline['train_launches']}, {baseline['engine']['launches']}", flush=True)
     print(card)
     print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,7 +2,8 @@
 """How K2's distance from an f64 oracle depends on the forward states it is
 given (needs a card and nvcc).
 
-    python scripts/check_rollout_bwd_f64_inputs_torch.py [--k1-base NAME=PATH ...] [--seeds 21 22 23]
+    python scripts/check_rollout_bwd_f64_inputs_torch.py [--k1-base NAME=PATH ...] \
+        [--k2-base NAME=PATH ...] [--seeds 21 22 23]
 
 ``tests/test_torch_cuda.py::test_rollout_bwd_kernel_within_the_f64_gradient``
 holds K2 (``sde_rollout_bwd``) to the f64 plain backward at 2,048 rows x 60
@@ -13,11 +14,14 @@ the f32 plain backward and the f64 oracle all read the same ``ys``, so
 check for each seed and each source of ``ys``: this tree's K1, each
 ``--k1-base`` (another version of ``csrc/sde_rollout.cu``, built as
 ``scripts/compare_rollout_fwd_builds_torch.py`` builds it) and the f32
-plain forward (``sde_rollout_reference``).  Per case it prints every
-leaf's ratio of K2's distance to the plain version's, floored at the
-median of the plain distances over the 15 leaves (the test's measure; its
-bar is 4), the worst leaf, and one JSON line with every number.  The exit
-code is 0 once the check has run.
+plain forward (``sde_rollout_reference``), and for each source this tree's
+K2 (``k2``) and each ``--k2-base`` (another version of
+``csrc/sde_rollout_bwd.cu``, built where it lies, so headers beside it come
+first, then this tree's).  Per case it prints every leaf's ratio of the K2
+build's distance to the plain version's, floored at the median of the
+plain distances over the 15 leaves (the test's measure; its bar is 4), the
+worst leaf, and one JSON line with every number.  The exit code is 0 once
+the check has run.
 """
 from __future__ import annotations
 
@@ -48,6 +52,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--k1-base", action="append", default=[], metavar="NAME=PATH",
                     help="another version of csrc/sde_rollout.cu and its name")
+    ap.add_argument("--k2-base", action="append", default=[], metavar="NAME=PATH",
+                    help="another version of csrc/sde_rollout_bwd.cu and its name")
     ap.add_argument("--seeds", type=int, nargs="+", default=[21, 22, 23])
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -60,6 +66,10 @@ def main() -> None:
     bases = dict(b.split("=", 1) for b in args.k1_base)
     libs = {name: configure(lib) for name, (lib, _) in build.build_copies(
         bases, os.path.join(build.BUILD_DIR, "check_rollout_inputs")).items()}
+    k2_libs = {"k2": None}
+    k2_libs.update({name: K.configure_bwd(lib) for name, (lib, _) in build.build_copies(
+        dict(b.split("=", 1) for b in args.k2_base),
+        os.path.join(build.BUILD_DIR, "check_rollout_inputs_k2")).items()})
     cuda = torch.device("cuda")
     report = []
     for seed in args.seeds:
@@ -79,22 +89,28 @@ def main() -> None:
                                    K.INCREMENTS["gaussian"])
         sources["plain"] = K.sde_rollout_reference(y0, kp, t0s, dts, 42, STEPS)
         for source, ys in sources.items():
-            dy0, dw = K.sde_rollout_bwd(y0, ys, ct, w, t0s, dts, 42, STEPS)
-            got = {"dy0": dy0, **K.unpack_params(dw, 64)}
             p_dy0, p_g = K.sde_rollout_bwd_reference(y0, ys, ct, kp, t0s, dts, 42, STEPS)
             o_dy0, o_g = K.sde_rollout_bwd_reference(
                 y0.double(), ys.double(), ct.double(), {k: v.double() for k, v in kp.items()},
                 t0s, dts, 42, STEPS)
             plain, oracle = {"dy0": p_dy0, **p_g}, {"dy0": o_dy0, **o_g}
-            errs = {k: (rel(got[k], oracle[k]), rel(plain[k], oracle[k])) for k in oracle}
-            median = sorted(p for _, p in errs.values())[len(errs) // 2]
-            ratios = {k: k2 / max(p, median) for k, (k2, p) in errs.items()}
-            worst = max(ratios, key=ratios.get)
-            report.append(dict(seed=seed, ys=source, worst=worst, worst_ratio=ratios[worst],
-                               within_bar=ratios[worst] <= BAR, ratios=ratios, errs=errs))
-            print(f"[check] {card}: seed {seed}, ys from {source}: worst {worst} "
-                  f"{ratios[worst]:.2f}x (bar {BAR:g}); "
-                  + " ".join(f"{k} {v:.2f}" for k, v in ratios.items()), flush=True)
+            for k2, lib in k2_libs.items():
+                if lib is None:
+                    dy0, dw = K.sde_rollout_bwd(y0, ys, ct, w, t0s, dts, 42, STEPS)
+                else:
+                    dy0, dw = K.launch_bwd(lib, y0, ys, ct, w, t0s, dts, 42, STEPS, None,
+                                           "gaussian")
+                got = {"dy0": dy0, **K.unpack_params(dw, 64)}
+                errs = {k: (rel(got[k], oracle[k]), rel(plain[k], oracle[k])) for k in oracle}
+                median = sorted(p for _, p in errs.values())[len(errs) // 2]
+                ratios = {k: v / max(p, median) for k, (v, p) in errs.items()}
+                worst = max(ratios, key=ratios.get)
+                report.append(dict(seed=seed, ys=source, k2=k2, worst=worst,
+                                   worst_ratio=ratios[worst], within_bar=ratios[worst] <= BAR,
+                                   ratios=ratios, errs=errs))
+                print(f"[check] {card}: seed {seed}, ys from {source}, {k2}: worst {worst} "
+                      f"{ratios[worst]:.2f}x (bar {BAR:g}); "
+                      + " ".join(f"{k} {v:.2f}" for k, v in ratios.items()), flush=True)
     print(json.dumps({"card": card, "rows": ROWS, "steps": STEPS, "bar": BAR,
                       "cases": report}), flush=True)
 

@@ -9,20 +9,21 @@ turns on one card (needs a card and nvcc).
 Builds, in parallel, each ``--base`` (another version of
 ``trajsde_tpu_torch/csrc/sde_rollout_bwd.cu``, compiled where it lies, so
 headers beside it come first, then this tree's) and two copies of the
-current source: ``one-term``, whose tensor-core products take one TF32
-product per term (``mma_tf32.cuh`` without the two small terms), and
-``no-products``, whose fourteen tensor-core products are skipped (wrong
-gradients: it times the rest of the kernel), beside the current build
-(``change``).  A base whose name ends in ``no-products`` is timed but
-not checked.  At the training shape (61,440 rows x 60 steps x 64) with
-the flagship decoder's rollout weights, a random cotangent, and gaussian
-(regenerated) and explicit increments, it holds dy0 and the 14 weight
-gradients of each build against the plain backward by
-``chip_smoke.k2_tol``: the bases and change must pass and one-term must
-fail.  Then it times the builds in the order of the bases, change,
-no-products, then back (CUDA-event medians of ``chip_smoke.TIMED_RUNS``),
-for each kind of increments.  It prints ptxas's register and spill lines
-of each build, one line per timing and one JSON line with every number.
+current source: ``one-term``, whose products round each operand to TF32
+before the f64 tensor cores multiply it (``mma_f64.cuh`` with one TF32
+product per term), and ``no-products``, whose fourteen tensor-core
+products are skipped (wrong gradients: it times the rest of the kernel),
+beside the current build (``change``).  A base whose name ends in
+``no-products`` is timed but not checked.  At the training shape (61,440
+rows x 60 steps x 64) with the flagship decoder's rollout weights, a
+random cotangent, and gaussian (regenerated) and explicit increments, it
+holds dy0 and the 14 weight gradients of each build against the plain
+backward by ``chip_smoke.k2_tol``: the bases and change must pass and
+one-term must fail.  Then it times the builds in the order of the bases,
+change, no-products, then back (CUDA-event medians of
+``chip_smoke.TIMED_RUNS``), for each kind of increments.  It prints
+ptxas's register and spill lines of each build, one line per timing and
+one JSON line with every number.
 Exits non-zero if a check fails.
 """
 from __future__ import annotations
@@ -39,30 +40,52 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import SEED, _increments, bwd_bound, cuda_ms, k2_tol, train_rows  # noqa: E402
-from scripts.compare_aa_bwd_builds_torch import ptxas_lines, one_term_header  # noqa: E402
+from scripts.compare_aa_bwd_builds_torch import ptxas_lines  # noqa: E402
 from trajsde_tpu_torch.config import FLAGSHIP_TRAIN, build_model  # noqa: E402
 from trajsde_tpu_torch.ops import build  # noqa: E402
 from trajsde_tpu_torch.ops import sde_rollout as K1  # noqa: E402
 
 SOURCE = Path(build.CSRC_DIR) / "sde_rollout_bwd.cu"
-HEADER = Path(build.CSRC_DIR) / "mma_tf32.cuh"
+HEADER = Path(build.CSRC_DIR) / "mma_f64.cuh"
 OUT_DIR = Path(build.BUILD_DIR) / "compare_rollout"
-INCLUDE = '#include "mma_tf32.cuh"\n'
-# stand-ins for the two product helpers that do nothing
+INCLUDE = '#include "mma_f64.cuh"\n'
+# stand-ins for the four product helpers that do nothing
 SKIP = """
-namespace tc {
-template <int MT, int NT, int K, int U, bool P, class A, class B>
-__device__ __forceinline__ void skip(const A&, const B&, int, int, float (*)[NT][4]) {}
+namespace dtc {
+template <int MT, int NT, int K, int U, class A, class B, class V>
+__device__ __forceinline__ void skip_xwt(const A&, const B&, int, int, int, V (*)[NT][4]) {}
+template <int MT, int NT, int K, int U, class A, class B, class C, class E, class V>
+__device__ __forceinline__ void skip_xwt2(const A&, const B&, V (*)[NT][4], const C&,
+                                          const E&, V (*)[NT][4], int, int, int) {}
 template <int MT, int NT, int K, int U, class A, class B>
-__device__ __forceinline__ void skip_split(const A&, const B&, int, int, int, float (*)[NT][4]) {}
+__device__ __forceinline__ void skip_xty(const A&, const B&, int, int, float (*)[NT][4]) {}
 template <int MT, int NT, int K, int U, class A, class B, class C, class E>
-__device__ __forceinline__ void skip2(const A&, const B&, float (*)[NT][4], const C&, const E&,
-                                      float (*)[NT][4], int, int) {}
-template <int MT, int NT, int K, int U, class A, class B, class C, class E>
-__device__ __forceinline__ void skip_split2(const A&, const B&, float (*)[NT][4], const C&,
-                                            const E&, float (*)[NT][4], int, int, int) {}
-}  // namespace tc
+__device__ __forceinline__ void skip_xty2(const A&, const B&, float (*)[NT][4], const C&,
+                                          const E&, float (*)[NT][4], int, int) {}
+}  // namespace dtc
 """
+# one-term: each operand rounded to TF32 where the f64 product reads it
+OPERANDS = '      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));\n'
+ONE_TERM = """
+__device__ __forceinline__ double tf32r(double x) {
+  unsigned int r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(static_cast<float>(x)));
+  return __uint_as_float(r);
+}
+"""
+
+
+def one_term_header(header: str) -> str:
+    """``mma_f64.cuh`` whose f64 product takes each operand rounded to TF32."""
+    anchor = "namespace dtc {\n"
+    if header.count(OPERANDS) != 1 or header.count(anchor) != 1:
+        raise RuntimeError(f"{HEADER}'s f64 mma operands are not where one-term expects them")
+    rounded = OPERANDS
+    for v in ("a[0]", "a[1]", "a[2]", "a[3]", "b[0]", "b[1]"):
+        rounded = rounded.replace(f'"d"({v})', f'"d"(tf32r({v}))')
+    return header.replace(OPERANDS, rounded).replace(anchor, anchor + ONE_TERM)
+
+
 MODES = ("gaussian", "explicit")
 
 
@@ -72,9 +95,8 @@ def build_variants(bases: dict) -> dict:
     if current.count(INCLUDE) != 1:
         raise RuntimeError(f"{INCLUDE!r} is not in {SOURCE} exactly once")
     skipped = current.replace(INCLUDE, INCLUDE + SKIP)
-    for helper, stand_in in (("mma_xty", "skip"), ("mma_xwt_split", "skip_split"),
-                             ("mma_xty2", "skip2"), ("mma_xwt_split2", "skip_split2")):
-        skipped = skipped.replace(f"tc::{helper}<", f"tc::{stand_in}<")
+    for helper in ("mma_xwt", "mma_xwt2", "mma_xty", "mma_xty2"):
+        skipped = skipped.replace(f"dtc::{helper}<", f"dtc::skip_{helper[4:]}<")
     # one-term's header lies beside its source, so its include finds it first
     (OUT_DIR / "one-term").mkdir(parents=True, exist_ok=True)
     (OUT_DIR / "one-term" / HEADER.name).write_text(one_term_header(HEADER.read_text()))

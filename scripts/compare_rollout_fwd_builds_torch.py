@@ -45,7 +45,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (NUM_ACTORS, SEED, TOL_K1_TIGHT, _increments, cuda_ms,  # noqa: E402
                         rollout_bound)
 from scripts.compare_aa_bwd_builds_torch import one_term_header, ptxas_lines  # noqa: E402
-from scripts.compare_rollout_bwd_builds_torch import SKIP  # noqa: E402
 from trajsde_tpu_torch.config import FLAGSHIP, build_model  # noqa: E402
 from trajsde_tpu_torch.ops import build  # noqa: E402
 from trajsde_tpu_torch.ops import sde_rollout as K1  # noqa: E402
@@ -54,6 +53,16 @@ SOURCE = Path(build.CSRC_DIR) / "sde_rollout.cu"
 HEADER = Path(build.CSRC_DIR) / "mma_tf32.cuh"
 OUT_DIR = Path(build.BUILD_DIR) / "compare_rollout_fwd"
 INCLUDE = '#include "mma_tf32.cuh"\n'
+# stand-ins for the two product helpers that do nothing
+SKIP = """
+namespace tc {
+template <int MT, int NT, int K, int U, class A, class B>
+__device__ __forceinline__ void skip_split(const A&, const B&, int, int, int, float (*)[NT][4]) {}
+template <int MT, int NT, int K, int U, class A, class B, class C, class E>
+__device__ __forceinline__ void skip_split2(const A&, const B&, float (*)[NT][4], const C&,
+                                            const E&, float (*)[NT][4], int, int, int) {}
+}  // namespace tc
+"""
 BUCKETS = (1, 8, 128)
 MODES = ("rademacher", "gaussian", "explicit")
 

@@ -43,7 +43,6 @@ NOT_PORTED = {
     "export": "item 11 (deployment artifact)",
     "from_export": "item 11 (deployment artifact)",
 }
-SCAN_ENGINE = "item 8 (baseline family)"
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -59,8 +58,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "concurrent requests share batches through the micro-batcher")
     p.add_argument("--host", default="127.0.0.1", help="bind address for --http")
     p.add_argument("--engine", choices=["auto", "kernel", "scan"], default="auto",
-                   help=f"kernel (auto); scan is not ported: ROADMAP.md Queue 1 {SCAN_ENGINE}")
-    p.add_argument("--increments", choices=["rademacher", "gaussian"], default="rademacher")
+                   help="kernel: the rollout kernel (SDE decoders); scan: the model's own "
+                        "forward (any model, the baseline's only engine); auto: kernel for "
+                        "an SDE decoder, else scan")
+    p.add_argument("--increments", choices=["rademacher", "gaussian"], default="rademacher",
+                   help="the rollout kernel's increments (kernel engine)")
     p.add_argument("--max-batch", type=int, default=32)
     p.add_argument("--max-wait-ms", type=float, default=5.0)
     p.add_argument("--num-actors", type=int, default=None)
@@ -83,9 +85,6 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         if getattr(args, flag) not in (None, False):
             raise SystemExit(f"--{flag.replace('_', '-')} is not ported to trajsde_tpu_torch "
                              f"yet: ROADMAP.md Queue 1 {item}")
-    if args.engine == "scan":
-        raise SystemExit("--engine scan is not ported to trajsde_tpu_torch yet: ROADMAP.md "
-                         f"Queue 1 {SCAN_ENGINE}")
     modes = [args.daemon, args.input_dir is not None, args.http is not None]
     if sum(map(bool, modes)) > 1:
         p.error("--input-dir, --daemon and --http are mutually exclusive")
@@ -142,7 +141,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
         model,
         num_actors=args.num_actors or int(dm.get("num_actors", 48)),
         num_lanes=args.num_lanes or int(dm.get("num_lanes", 192)),
-        device=device, increments=args.increments, max_batch=args.max_batch,
+        device=device, engine=args.engine, increments=args.increments,
+        max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms,
         is_gtabs=(dm.get("test_dataset_args") or {}).get("is_gtabs", True),
         ref_time=int(model_kwargs.get("ref_time", 20)), ood=args.ood, slim=args.slim,

@@ -65,6 +65,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from trajsde_tpu_torch.data.transforms import (leave_only_agent, leave_only_agent_output,
                                                    take_per_scene)
     from trajsde_tpu_torch.device import resolve_device
+    from trajsde_tpu_torch.models.decoders import SDEDecoder
     from trajsde_tpu_torch.models.sde_encoder import gather_agent
     from trajsde_tpu_torch.server import make_postprocess
     from trajsde_tpu_torch.serving import make_serving_fn
@@ -86,9 +87,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     test_args = cfg.get("datamodule_specific", {}).get("kwargs", {}).get("test_dataset_args") or {}
     is_gtabs = test_args.get("is_gtabs", True)
     post_fn = make_postprocess(is_gtabs, model_kwargs.get("ref_time", 20)) if args.submit else None
+    if args.ood and not hasattr(model.encoder, "forward_ood"):
+        raise SystemExit(f"--ood needs an encoder with forward_ood (OOD ensemble scoring); "
+                         f"this config's {type(model.encoder).__name__} has none")
+    if args.serving and not isinstance(model.decoder, SDEDecoder):
+        raise SystemExit("--serving requires the SDE decoder (the fused rollout engine); "
+                         "this config's decoder has no rollout")
     # with --ood the encoder scores through its ensemble, the rollout stays K1
     serve = (make_serving_fn(model, device, increments=args.serving_increments, ood=args.ood)
              if args.serving else None)
+    ood_kwargs = {"ood": True} if args.ood else {}   # the baseline's forward takes no ood
 
     for m in metrics:
         m.reset()
@@ -101,7 +109,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             if serve is not None:
                 out = serve(scene, seed, generator=gen)
             else:
-                out = model(scene, ood=args.ood, generator=gen, rollout_seed=seed)
+                out = model(scene, generator=gen, rollout_seed=seed, **ood_kwargs)
             if only_agent:
                 if "stds" in out:
                     out["stds"] = take_per_scene(out["stds"], scene.agent_index, axis=1)

@@ -12,7 +12,7 @@ import torch
 from trajsde_tpu.config import ExperimentConfig, build_model as jax_build_model
 from trajsde_tpu.data.synthetic import make_scene_batch as jax_make_scene_batch
 from trajsde_tpu_torch.bridge import params_from_flax
-from trajsde_tpu_torch.config import FLAGSHIP, build_model as torch_build_model
+from trajsde_tpu_torch.config import BASELINE, FLAGSHIP, build_model as torch_build_model
 from trajsde_tpu_torch.data.scene import SceneBatch
 from trajsde_tpu_torch.ops.aa_fused import W_ORDER
 
@@ -28,6 +28,18 @@ def small_cfg(D=16, H=2, Tf=12, K=3):
     cfg["aggregator"]["kwargs"].update(embed_dim=D, num_heads=H, num_modes=K)
     cfg["decoder"]["kwargs"].update(local_channels=D, global_channels=D, num_modes=K,
                                     future_steps=Tf, max_fut_t=Tf / 10)
+    return cfg
+
+
+def small_baseline_cfg(D=32, H=2, layers=2, Tf=12, K=3, drop=0.1, fused=False):
+    """The HiVT baseline config at another width / depth / horizon / mode
+    count, its AA pair chain dense or fused (K3 / K4)."""
+    cfg = copy.deepcopy(BASELINE)
+    cfg["encoder"]["kwargs"].update(embed_dim=D, num_heads=H, num_temporal_layers=layers,
+                                    dropout=drop, fused=fused)
+    cfg["aggregator"]["kwargs"].update(embed_dim=D, num_heads=H, num_modes=K, dropout=drop)
+    cfg["decoder"]["kwargs"].update(local_channels=D, global_channels=D, num_modes=K,
+                                    future_steps=Tf)
     return cfg
 
 

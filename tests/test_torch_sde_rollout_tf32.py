@@ -36,6 +36,19 @@ those 14 products through one of ``MODES``:
   summed exactly and added to the fragment rounded to nearest, as a tensor
   core that took f32 and rounded to nearest would, so only the order of
   the sums differs from the plain version.
+* ``f64tc``: the products on the FP64 tensor cores (``csrc/mma_f64.cuh``):
+  the f32 operands widened exactly, the products of two k-steps summed in
+  f64 in a fresh fragment, rounded to nearest f32 once and added to the
+  f32 sum in K2's order.  It differs from ``exact``, which rounds the
+  fragment to f32 after each k-step;
+* ``f64tc-lambda``: K2's arithmetic: ``f64tc``, and lambda carried in f64.
+  Lambda's two input gradients (``dA1 @ wf0.T``, ``dAG1 @ wg0.T``) come
+  back as exact f64 products, which the sweep adds to lambda, so lambda
+  turns f64 after the first step, as K2 adds their fragments to it as the
+  f64 mma's C; ``lambda * dt`` and ``lambda * z`` take lambda rounded to
+  f32, as K2's dF and lambda . z do;
+* ``f64tc-grads``: ``f64tc`` for the 10 gradient products and ``3xtf32``
+  for the 4 recomputed forward products.
 
 The input gradients of lambda's update are returned as products and added
 to lambda by the sweep, where the kernel adds their fragments to lambda
@@ -54,6 +67,23 @@ arithmetic that sums in another order meets 2x the leaf's own distance.
 ``3xtf32-chained`` and ``1xtf32`` do not.  So K2 sums its products apart,
 where K4 sums them mixed.
 
+With bgo and bg1 summed in K2's order in f32, ``f64tc-grads`` misses the
+limit at seeds 20, 24 and 27 (wg0 3.2x, dy0 3.0x, bgo 4.2x): the 3xTF32
+forward recompute alone keeps K2 past the bar, so K2 runs all 14 products
+on the FP64 tensor cores.  ``f64tc`` meets the limit at seeds 0 and 20-27
+but misses it at seed 11 on bgo (2.8x, 3.1x with ``ys`` from K1): bgo
+sums sqrt(dt) (lambda . z) g (1 - g) over every row and step, terms that
+cancel, so lambda's own f32 rounding over the 60 steps reaches it.  On an
+H100 the kernel with those products read bgo at 7.6x the plain distance
+(its bar 4x) at one of the sixteen inputs of
+``scripts/check_rollout_bwd_f64_inputs_torch.py`` (seed 25, ``ys`` from
+K1).  ``f64tc-lambda`` meets the limit at seeds 0 and 1-30, with ``ys``
+from the f32 plain forward and from K1's 3xTF32 forward
+(``_case(seed, "k1")``, emulated as
+``tests/test_torch_sde_rollout_fwd_tf32.py`` does), so K2 carries lambda
+in f64.  :func:`check_inputs` runs the f64 modes on the check script's
+own inputs (2,048 rows, its generator and increments).
+
 K2's bias gradients bgo and bg1 are column sums that it keeps per thread:
 each lane adds its rows' terms over a tile's 60 steps in an f32 register,
 the row lanes and the two m-tile warps are added in f32, and only the
@@ -68,8 +98,10 @@ bgo) and other leaves miss it too (bg0 4.7 at seed 20), where exact
 products in the same order meet it: K2's products, not its f32 bias sums,
 put it past.
 
-    # each leaf, each mode; then the seed sweep (default 20-27)
+    # each leaf, each mode; then the seed sweeps (default 20-27)
     PYTHONPATH=. python tests/test_torch_sde_rollout_tf32.py [SEED ...]
+    # the f64 modes on the check script's inputs (minutes a seed)
+    PYTHONPATH=. python tests/test_torch_sde_rollout_tf32.py --check-inputs 25
 """
 from __future__ import annotations
 
@@ -90,7 +122,11 @@ ROWS = K.BWD_TILE_ROWS
 ROUTED = ("wf0", "wf1", "wf2", "wg0", "wg1")
 # the sweep's weight-gradient products in its order, wgo's (hg2.T @ dO) left out
 WGRAD_ORDER = ("wf2", "wf1", "wf0", "wg1", "wg0")
-MODES = ("3xtf32", "3xtf32-mixed", "3xtf32-chained", "1xtf32", "exact")
+# FP64 tensor cores: all 14 products (K2's), or the 10 gradient products
+# with the 4 recomputed forward products left in 3xtf32; their bgo and bg1
+# are summed in K2's order with f32 accumulators (kernel_bias_sums)
+F64_MODES = ("f64tc", "f64tc-lambda", "f64tc-grads")
+MODES = ("3xtf32", "3xtf32-mixed", "3xtf32-chained", "1xtf32", "exact", *F64_MODES)
 _MATMULS = (torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__)
 # the sweep's bias column sums (``d.sum(0, keepdim=True)``) in its order per step
 BIAS_ORDER = ("bf2", "bf1", "bf0", "bgo", "bg1", "bg0")
@@ -98,11 +134,20 @@ BIAS_ORDER = ("bf2", "bf1", "bf0", "bgo", "bg1", "bg0")
 KERNEL_SUMMED = ("bgo", "bg1")
 # 3xtf32 with bgo and bg1 summed in K2's order, the accumulators in f32 or f64
 SUM_RUNS = {"3xtf32+f32-sums": torch.float32, "3xtf32+f64-sums": torch.float64}
+# lambda's two input gradients (dA1 wf0^T, dAG1 wg0^T), which f64tc-lambda
+# adds to an f64 lambda unrounded
+LAMBDA_PRODUCTS = ("wf0", "wg0")
 
 
-def _product(mode: str, a: torch.Tensor, b: torch.Tensor, acc=None) -> torch.Tensor:
-    """acc + a @ b in the mode's arithmetic (f32 in, f32 out); ``f32``
-    is the plain f32 product."""
+def _product(mode: str, a: torch.Tensor, b: torch.Tensor, acc=None,
+             kind: str = "forward") -> torch.Tensor:
+    """acc + a @ b in the mode's arithmetic (f32 in, f32 out) for a product
+    of ``kind`` (forward, input-grad or weight-grad); ``f32`` is the plain
+    f32 product."""
+    if mode == "f64tc-grads":
+        mode = "3xtf32" if kind == "forward" else "f64tc"
+    if mode == "f64tc-lambda":
+        mode = "f64tc"
     if mode == "f32":
         return a @ b if acc is None else acc + a @ b
     if mode == "1xtf32":
@@ -115,6 +160,12 @@ def _product(mode: str, a: torch.Tensor, b: torch.Tensor, acc=None) -> torch.Ten
             for k in range(k0, k0 + 8 * STEPS_PER_FRAGMENT, 8):
                 c = (c.double() + a[:, k:k + 8].double() @ b[k:k + 8].double()).float()
             acc = acc + c
+        return acc
+    if mode == "f64tc":
+        acc = torch.zeros((a.shape[0], b.shape[1])) if acc is None else acc
+        for k0 in range(0, a.shape[1], 8 * STEPS_PER_FRAGMENT):
+            k = slice(k0, k0 + 8 * STEPS_PER_FRAGMENT)
+            acc = acc + (a[:, k].double() @ b[k].double()).float()
         return acc
     return mm_3xtf32(a.contiguous(), b.contiguous(), mode == "3xtf32-chained", acc,
                      apart=mode == "3xtf32")
@@ -145,6 +196,10 @@ class KernelProducts(TorchFunctionMode):
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if func in (torch.Tensor.mul, torch.Tensor.__mul__) and self.mode == "f64tc-lambda" \
+                and args[0].dtype == torch.float64:
+            # lambda dt and lambda * z: from lambda rounded to f32
+            return func(args[0].float(), *args[1:])
         if func is torch.Tensor.sum and args[1:] == (0,) and kwargs == {"keepdim": True}:
             name = BIAS_ORDER[self._biases % len(BIAS_ORDER)]
             self._biases += 1
@@ -157,7 +212,10 @@ class KernelProducts(TorchFunctionMode):
         routed = self._weight(b)
         if routed is not None:
             self.calls.append(routed)
-            return _product(self.mode, a, b)
+            if self.mode == "f64tc-lambda" and routed[0] == "input-grad" \
+                    and routed[1] in LAMBDA_PRODUCTS:
+                return a.double() @ b.double()
+            return _product(self.mode, a, b, kind=routed[0])
         if a.dim() == 2 and a.shape[0] == D and b.dim() == 2 and b.shape == (a.shape[1], D) \
                 and a.stride() == (1, D):
             # x.T @ dY: one block per tile, its fragments added to the block's sum
@@ -166,7 +224,8 @@ class KernelProducts(TorchFunctionMode):
             self.calls.append(("weight-grad", name))
             for i, acc in enumerate(self.blocks[name]):
                 rows = slice(ROWS * i, ROWS * (i + 1))
-                self.blocks[name][i] = _product(self.mode, a[:, rows], b[rows], acc)
+                self.blocks[name][i] = _product(self.mode, a[:, rows], b[rows], acc,
+                                                kind="weight-grad")
             return a @ b
         return func(*args, **kwargs)
 
@@ -231,8 +290,11 @@ def kernel_bias_sums(terms: dict, acc: torch.dtype) -> dict:
     return out
 
 
-def _case(seed: int = 0):
-    """y0, ys (the f32 forward), ct, explicit noise, params, t0s, dts."""
+def _case(seed: int = 0, ys_from: str = "plain"):
+    """y0, ys, ct, explicit noise, params, t0s, dts; ``ys`` is the f32
+    plain forward, or with ``ys_from="k1"`` K1's 3xTF32 forward as
+    ``tests/test_torch_sde_rollout_fwd_tf32.py`` emulates it (the states
+    that K2 reads in training)."""
     r = np.random.default_rng(seed)
     f = lambda *s, sc=1.0: torch.from_numpy((r.standard_normal(s) * sc).astype(np.float32))  # noqa: E731
     p = dict(wf0=f(D, D, sc=0.3), wf0t=f(2, D, sc=0.3), bf0=f(1, D, sc=0.1),
@@ -241,30 +303,44 @@ def _case(seed: int = 0):
              wg1=f(D, D, sc=0.3), bg1=f(1, D, sc=0.1), wgo=f(D, 1, sc=0.3), bgo=f(1, 1, sc=0.1))
     y0, noise, ct = f(N, D, sc=0.5), f(T, N, D), f(T, N, D)
     t0s, dts = decoder_time_grid(T, 6.0)
-    ys = K.sde_rollout_reference(y0, p, t0s, dts, 0, T, noise)
+    if ys_from == "k1":
+        from test_torch_sde_rollout_fwd_tf32 import KernelProducts as K1Products
+
+        with K1Products(p, "3xtf32"):
+            ys = K.sde_rollout_reference(y0, p, t0s, dts, 0, T, noise)
+    else:
+        ys = K.sde_rollout_reference(y0, p, t0s, dts, 0, T, noise)
     return y0, ys, ct, noise, p, t0s, dts
 
 
-def routed_bwd(mode: str, calls: list | None = None, seed: int = 0, sums: dict | None = None):
+def _sum_runs(mode: str) -> dict:
+    """The runs that sum bgo and bg1 in K2's order, and their accumulators:
+    ``SUM_RUNS`` for 3xtf32, and an f64 mode itself in f32, as K2 sums."""
+    return SUM_RUNS if mode == "3xtf32" else {mode: torch.float32}
+
+
+def routed_bwd(mode: str, calls: list | None = None, seed: int = 0, sums: dict | None = None,
+               ys_from: str = "plain"):
     """(dy0, grads) of the plain sweep with the 14 products routed; with
-    ``sums``, also {run of ``SUM_RUNS``: grads with bgo and bg1 summed in
-    K2's order}."""
-    y0, ys, ct, noise, p, t0s, dts = _case(seed)
+    ``sums``, also {run of ``_sum_runs(mode)``: grads with bgo and bg1
+    summed in K2's order}."""
+    y0, ys, ct, noise, p, t0s, dts = _case(seed, ys_from)
     kp = KernelProducts(p, mode, N)
     with kp:
         dy0, grads = K.sde_rollout_bwd_reference(y0, ys, ct, p, t0s, dts, 0, T, noise)
+    dy0 = dy0.float()   # f64tc-lambda's lambda is f64, as K2's
     if calls is not None:
         calls.extend(kp.calls)
     grads = {**grads, **kp.weight_grads()}
     if sums is not None:
-        for run, acc in SUM_RUNS.items():
+        for run, acc in _sum_runs(mode).items():
             sums[run] = dy0, {**grads, **kernel_bias_sums(kp.bias_terms, acc)}
     return dy0, grads
 
 
 @functools.lru_cache(maxsize=None)
-def _oracle_and_plain(seed: int):
-    y0, ys, ct, noise, p, t0s, dts = _case(seed)
+def _oracle_and_plain(seed: int, ys_from: str = "plain"):
+    y0, ys, ct, noise, p, t0s, dts = _case(seed, ys_from)
     oracle = K.sde_rollout_bwd_reference(y0.double(), ys.double(), ct.double(),
                                          {k: v.double() for k, v in p.items()}, t0s, dts, 0, T,
                                          noise.double())
@@ -272,19 +348,26 @@ def _oracle_and_plain(seed: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _routed_runs(seed: int, mode: str) -> dict:
-    """{mode: (dy0, grads)}, and for 3xtf32 each of ``SUM_RUNS`` too."""
-    sums = {} if mode == "3xtf32" else None
-    return {mode: routed_bwd(mode, seed=seed, sums=sums), **(sums or {})}
+def _routed_runs(seed: int, mode: str, ys_from: str = "plain") -> dict:
+    """{mode: (dy0, grads)}, and for 3xtf32 each of ``SUM_RUNS`` too; an
+    f64 mode's bgo and bg1 are summed in K2's order in f32."""
+    sums = {} if mode in ("3xtf32", *F64_MODES) else None
+    runs = {mode: routed_bwd(mode, seed=seed, sums=sums, ys_from=ys_from)}
+    return {**runs, **(sums or {})}
 
 
-def distances(seed: int = 0, modes: tuple = MODES) -> dict:
+def distances(seed: int = 0, modes: tuple = MODES, ys_from: str = "plain") -> dict:
     """leaf -> {plain, each of ``modes`` and, with 3xtf32, each of
-    ``SUM_RUNS``}: max|x - f64| / max|f64|, on ``_case(seed)``."""
-    oracle, plain = _oracle_and_plain(seed)
+    ``SUM_RUNS``}: max|x - f64| / max|f64|, on ``_case(seed, ys_from)``."""
+    oracle, plain = _oracle_and_plain(seed, ys_from)
     runs = {"plain": plain}
     for mode in modes:
-        runs.update(_routed_runs(seed, mode))
+        runs.update(_routed_runs(seed, mode, ys_from))
+    return _leaves(oracle, runs)
+
+
+def _leaves(oracle, runs: dict) -> dict:
+    """leaf -> {run: max|x - f64| / max|f64|} for runs {name: (dy0, grads)}."""
     leaves = {}
     for name in ("dy0", *K.PARAM_ORDER):
         o = oracle[0] if name == "dy0" else oracle[1][name]
@@ -387,9 +470,103 @@ def test_k2_misses_the_f64_criterion_by_its_products_not_its_bias_sums(seed):
     assert within_the_f64_criterion(leaves, "exact"), leaves
 
 
-if __name__ == "__main__":
-    import sys
 
+@pytest.mark.parametrize("seed", [0, 20, 27])
+def test_k2_f64_products_meet_the_f64_criterion(seed):
+    """K2's routing: the 14 products on the FP64 tensor cores, bgo and bg1
+    summed in K2's order in f32, within the limit on every leaf."""
+    leaves = distances(seed, ("f64tc",))
+    assert within_the_f64_criterion(leaves, "f64tc"), leaves
+
+
+@pytest.mark.parametrize("seed", [20, 27])
+def test_f64_gradient_products_alone_miss_the_f64_criterion(seed):
+    """The cheaper routing, f64 for the 10 gradient products and 3xTF32 for
+    the 4 recomputed forward products, misses the limit here: so K2 takes
+    f64 for all 14."""
+    leaves = distances(seed, ("f64tc-grads",))
+    assert not within_the_f64_criterion(leaves, "f64tc-grads"), leaves
+
+@pytest.mark.parametrize("seed", [0, 20, 27])
+def test_k2_f64_lambda_meets_the_f64_criterion(seed):
+    """K2's arithmetic: the 14 products on the FP64 tensor cores and lambda
+    carried in f64 (its two input gradients added unrounded, read rounded
+    to f32), bgo and bg1 summed in K2's order in f32: within the limit on
+    every leaf, with ys from the f32 plain forward and from K1's 3xTF32
+    forward (the states K2 reads in training)."""
+    for ys_from in ("plain", "k1"):
+        leaves = distances(seed, ("f64tc-lambda",), ys_from)
+        assert within_the_f64_criterion(leaves, "f64tc-lambda"), (ys_from, leaves)
+
+
+@pytest.mark.parametrize("ys_from", ["plain", "k1"])
+def test_f32_lambda_puts_bgo_past_the_f64_criterion(ys_from):
+    """At seed 11 f64 products with lambda kept in f32 put bgo past the bar,
+    and lambda carried in f64 brings every leaf within it.  bgo sums
+    sqrt(dt) (lambda . z) g (1 - g) over every row and step, terms that
+    cancel, so lambda's own f32 rounding over the 60 steps reaches it."""
+    leaves = distances(11, ("f64tc", "f64tc-lambda"), ys_from)
+    assert _ratios(leaves, "f64tc")["bgo"] > 2.0, leaves
+    assert within_the_f64_criterion(leaves, "f64tc-lambda"), leaves
+
+
+def check_inputs(seed: int, rows: int = 2048, modes: tuple = ("f64tc", "f64tc-lambda")) -> dict:
+    """ys source -> the leaves of :func:`distances` on the inputs of
+    ``scripts/check_rollout_bwd_f64_inputs_torch.py`` and of the ``gpu``
+    test of K2 against f64 at ``seed``: ``rows`` x 60 steps, weights, y0
+    and the cotangent from a ``torch.Generator``, increments regenerated
+    (gaussian, key 42), ``ys`` from the f32 plain forward and from the
+    emulated 3xTF32 K1; each mode's bgo and bg1 summed in K2's order in
+    f32.  A few minutes a source at 2,048 rows."""
+    from test_torch_sde_rollout_fwd_tf32 import KernelProducts as K1Products
+    from trajsde_tpu_torch.models.sde import SDEStep
+
+    gen = torch.Generator().manual_seed(seed)
+    step = SDEStep(D)
+    for prm in step.parameters():
+        prm.data = torch.randn(prm.shape, generator=gen) * 0.2
+    p = {k: v.contiguous() for k, v in K.rollout_params_from_module(step).items()}
+    t0s, dts = decoder_time_grid(T, 6.0)
+    y0 = torch.randn((rows, D), generator=gen)
+    ct = torch.randn((T, rows, D), generator=gen)
+    ys = {"plain": K.sde_rollout_reference(y0, p, t0s, dts, 42, T)}
+    with K1Products(p, "3xtf32"):
+        ys["k1"] = K.sde_rollout_reference(y0, p, t0s, dts, 42, T)
+    out = {}
+    for source, y in ys.items():
+        oracle = K.sde_rollout_bwd_reference(y0.double(), y.double(), ct.double(),
+                                             {k: v.double() for k, v in p.items()}, t0s, dts,
+                                             42, T)
+        runs = {"plain": K.sde_rollout_bwd_reference(y0, y, ct, p, t0s, dts, 42, T)}
+        for mode in modes:
+            kp = KernelProducts(p, mode, rows)
+            with kp:
+                dy0, grads = K.sde_rollout_bwd_reference(y0, y, ct, p, t0s, dts, 42, T)
+            runs[mode] = dy0.float(), {**grads, **kp.weight_grads(),
+                                       **kernel_bias_sums(kp.bias_terms, torch.float32)}
+        out[source] = _leaves(oracle, runs)
+    return out
+
+
+if __name__ == "__main__":
+    import argparse
+
+    ap = argparse.ArgumentParser(description="K2's arithmetic emulated: each leaf's distance "
+                                 "from f64, then the seed sweeps")
+    ap.add_argument("seeds", type=int, nargs="*", default=list(range(20, 28)))
+    ap.add_argument("--check-inputs", type=int, nargs="+", default=[], metavar="SEED",
+                    help="only the f64 modes on the check script's inputs (2,048 rows)")
+    args = ap.parse_args()
+    for seed in args.check_inputs:
+        for source, leaves in check_inputs(seed).items():
+            median = statistics.median(v["plain"] for v in leaves.values())
+            print(f"check inputs, seed {seed}, ys from {source}: plain bgo "
+                  f"{leaves['bgo']['plain']:.3e}, median {median:.3e}; " + "; ".join(
+                      f"{m} bgo {leaves['bgo'][m]:.3e}, ratios " + " ".join(
+                          f"{k} {v:.2f}" for k, v in _ratios(leaves, m).items())
+                      for m in ("f64tc", "f64tc-lambda")), flush=True)
+    if args.check_inputs:
+        raise SystemExit(0)
     runs = ("plain", *MODES, *SUM_RUNS)
     leaves = distances()
     print(f"N {N}, T {T}, D {D}, {ROWS}-row tiles: max|x - f64| / max|f64| "
@@ -399,7 +576,7 @@ if __name__ == "__main__":
         print(f"  {name:5s} " + " ".join(f"{v[m]:.3e}" for m in runs))
     # the seed sweep: bgo and bg1 over the criterion's base, summed in the
     # plain order, then in K2's with f32 and with f64 accumulators
-    seeds = [int(a) for a in sys.argv[1:]] or list(range(20, 28))
+    seeds = args.seeds
     for seed in seeds:
         leaves = distances(seed, ("3xtf32",))
         r = {run: _ratios(leaves, run) for run in ("3xtf32", *SUM_RUNS)}
@@ -407,3 +584,12 @@ if __name__ == "__main__":
         print(f"seed {seed}: " + "; ".join(
             f"{run} bgo {x['bgo']:.2f} bg1 {x['bg1']:.2f} worst {worst[run]} "
             f"{x[worst[run]]:.2f}" for run, x in r.items()))
+    # the f64 modes over seed 0 and the sweep, ys from the plain forward and
+    # from the emulated K1: each mode's worst leaf over the criterion's base
+    for seed in (0, *seeds):
+        for source in ("plain", "k1"):
+            leaves = distances(seed, F64_MODES, source)
+            r = {m: _ratios(leaves, m) for m in F64_MODES}
+            print(f"seed {seed}, ys from {source}: " + "; ".join(
+                f"{m} {within_the_f64_criterion(leaves, m)}, bgo {x['bgo']:.2f}, worst "
+                f"{max(x, key=x.get)} {max(x.values()):.2f}" for m, x in r.items()), flush=True)

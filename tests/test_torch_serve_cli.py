@@ -132,8 +132,7 @@ def test_refuses_to_start_without_a_card(setup, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--engine", "scan"], "item 8"), (["--shard"], "item 10"), (["--export", "d"], "item 11"),
-    (["--from-export", "d"], "item 11")])
+    (["--shard"], "item 10"), (["--export", "d"], "item 11"), (["--from-export", "d"], "item 11")])
 def test_flags_not_ported_exit_naming_their_item(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {item}"):
         serve_torch.parse_args(["-c", "c.yml", "--ckpt", "x", "--http", "0", *flags])

@@ -19,7 +19,13 @@ as well: its training step runs K3 and K4 for the AA block and K1 and K2
 for the decoder rollout.  ``FLAGSHIP_H100`` is
 ``configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec_h100.yml``, the config the
 CLIs train and evaluate on one H100 (the file's comments give the
-measurements behind each choice).
+measurements behind each choice).  ``BASELINE`` is the paper's HiVT
+baseline, ``configs/nusargo/hivt_nuSArgo_trmenc_mlpdec.yml`` (a transformer
+temporal encoder and a one-shot MLP decoder, no SDE), and
+``BASELINE_TRAIN`` the same with ``encoder.fused: true`` (K3 and K4, whose
+CUDA kernels take the flagship's 8 heads only: on the card they refuse the
+baseline's 4, ROADMAP.md Queue 1 item 8b; on the CPU their plain versions
+run it).
 """
 from __future__ import annotations
 
@@ -35,14 +41,16 @@ from trajsde_tpu_torch.data.loader import DataModuleNuArgoMix
 from trajsde_tpu_torch.device import resolve_device
 from trajsde_tpu_torch.losses import LOSS_REGISTRY
 from trajsde_tpu_torch.models.aggregator import GlobalInteractor
-from trajsde_tpu_torch.models.decoders import SDEDecoder
+from trajsde_tpu_torch.models.decoders import MLPDecoder, SDEDecoder
 from trajsde_tpu_torch.models.layers import GRUUnit
-from trajsde_tpu_torch.models.prediction import PredictionModelSDENet
+from trajsde_tpu_torch.models.local_encoder import LocalEncoder
+from trajsde_tpu_torch.models.prediction import PredictionModel, PredictionModelSDENet
 from trajsde_tpu_torch.models.sde_encoder import LocalEncoderSDESep
 from trajsde_tpu_torch.train.metrics import TransferMetric, make_metrics
 
 REGISTRY = {cls.__name__: cls for cls in (
     LocalEncoderSDESep, GlobalInteractor, SDEDecoder, PredictionModelSDENet,
+    LocalEncoder, MLPDecoder, PredictionModel,
 )}
 # reference module names -> native names
 ALIASES = {"LocalEncoderSDESepPara2": "LocalEncoderSDESep"}
@@ -123,6 +131,58 @@ FLAGSHIP_H100: Dict[str, Any] = copy.deepcopy(FLAGSHIP_TRAIN_FUSED)
 FLAGSHIP_H100["datamodule_specific"]["kwargs"]["num_workers"] = 2
 
 
+# the HiVT baseline (transformer temporal encoder, one-shot MLP decoder):
+# configs/nusargo/hivt_nuSArgo_trmenc_mlpdec.yml as a dict
+BASELINE: Dict[str, Any] = {
+    "training_specific": {
+        "hivt_optimizer": True, "nodecay": True, "lr": 0.0005, "weight_decay": 0.0001,
+        "T_max": 64, "max_epochs": 64,
+    },
+    "model_specific": {
+        "module_name": "PredictionModel",
+        "kwargs": {
+            "dataset": "nuScenes", "ref_time": 20, "historical_steps": 21,
+            "future_steps": 60, "num_modes": 10, "rotate": True, "parallel": True,
+            "only_agent": False, "is_gtabs": True, "ts_drop": False,
+        },
+    },
+    "encoder": {
+        "module_name": "LocalEncoder",
+        "kwargs": {
+            "historical_steps": 21, "node_dim": 2, "edge_dim": 2, "embed_dim": 64,
+            "num_heads": 4, "dropout": 0.1, "num_temporal_layers": 4, "local_radius": 50,
+            "parallel": True, "input_diff": True,
+        },
+    },
+    "aggregator": {
+        "module_name": "GlobalInteractor",
+        "kwargs": {
+            "historical_steps": 21, "embed_dim": 64, "edge_dim": 2, "num_modes": 10,
+            "num_heads": 4, "num_layers": 3, "dropout": 0.1, "rotate": True,
+        },
+    },
+    "decoder": {
+        "module_name": "MLPDecoder",
+        "kwargs": {
+            "local_channels": 64, "global_channels": 64, "future_steps": 60,
+            "num_modes": 10, "uncertain": True, "min_scale": 0.001,
+        },
+    },
+    "losses_module": ["L2"],
+    "loss_weights": [1],
+    "loss_args": [{"reduction": "mean"}],
+    "metrics_module": ["ADE_T", "FDE_T", "MR_T"],
+    "metric_args": [dict(_METRIC_ARGS) for _ in range(3)],
+    "datamodule_specific": copy.deepcopy(FLAGSHIP["datamodule_specific"]),
+}
+BASELINE["datamodule_specific"]["kwargs"].update(train_batch_size=512, val_batch_size=512)
+
+# the baseline with its AA pair chain through K3 (forward) and K4 (backward):
+# their plain versions on the CPU; on the card the kernels refuse 4 heads
+BASELINE_TRAIN: Dict[str, Any] = copy.deepcopy(BASELINE)
+BASELINE_TRAIN["encoder"]["kwargs"]["fused"] = True
+
+
 def resolve(name: str):
     name = ALIASES.get(name, name)
     if name not in REGISTRY:
@@ -152,7 +212,7 @@ def load_config(path: str) -> Dict[str, Any]:
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
     """Seeded init of the JAX package's initialisers: xavier-uniform
     weights and zero biases, normal(0.1) for the GRU gates, normal(0.02)
-    for the tokens, LayerNorm ones/zeros.  Draws on the CPU, so the
+    for the tokens and the position embedding, LayerNorm ones/zeros.  Draws on the CPU, so the
     weights do not depend on the device."""
     gen = torch.Generator().manual_seed(int(seed))
     gru_linears = {id(m) for g in model.modules() if isinstance(g, GRUUnit)
@@ -172,14 +232,15 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
             m.weight.fill_(1.0)
             m.bias.zero_()
     for name, p in model.named_parameters():
-        if name.endswith(("bos_token", "hidden")):
+        if name.endswith(("bos_token", "hidden", "padding_token", "cls_token", "pos_embed")):
             p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
     return model
 
 
 def build_model(cfg: Dict[str, Any] = FLAGSHIP, device="cuda", seed: int = 0) -> nn.Module:
-    """The composed prediction model of a config (``FLAGSHIP`` or a loaded
-    YAML dict), initialised from ``seed``, on ``device``, in eval mode."""
+    """The composed prediction model of a config (``FLAGSHIP``, ``BASELINE``
+    or a loaded YAML dict), initialised from ``seed``, on ``device``, in
+    eval mode."""
     dev = resolve_device(device)
     parts = {sec: build(cfg[sec]["module_name"], dict(cfg[sec].get("kwargs", {})))
              for sec in ("encoder", "aggregator", "decoder")}

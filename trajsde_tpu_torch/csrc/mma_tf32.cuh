@@ -1,7 +1,8 @@
 // Warp-level tensor-core products at f32 accuracy (3xTF32) over operands in
-// shared memory, for the products of K3 (aa_fused.cu), all nine of K4
-// (aa_fused_bwd.cu: its recompute is K3's) and all fourteen of K2
-// (sde_rollout_bwd.cu).
+// shared memory, for the products of K1 (sde_rollout.cu), K3 (aa_fused.cu)
+// and all nine of K4 (aa_fused_bwd.cu: its recompute is K3's).  K2
+// (sde_rollout_bwd.cu) ran its fourteen here too, until they moved to the
+// FP64 tensor cores (mma_f64.cuh).
 //
 // mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 multiplies a 16 x 8
 // tile of A by an 8 x 8 tile of B into a 16 x 8 f32 tile C, one warp at a
@@ -70,7 +71,8 @@ __device__ __forceinline__ void mma3x2(float acc[4], const uint32_t ab0[4], cons
 // the same six products into two fresh fragments, the small terms in one
 // and big * big in the other, added to acc in that order: the small terms
 // are then not cut to the bits of the running sum, nor big * big's sum to
-// those of a sum carried through four more steps.  K2 sums so: in a CPU
+// those of a sum carried through four more steps.  K1 sums so, as K2 did
+// in 3xTF32: in a CPU
 // model of its reverse sweep (tests/test_torch_sde_rollout_tf32.py) mma3x2
 // put five gradients 2.4-2.7x farther from f64 than the f32 plain version's
 // typical distance, this 1.8x at most.
@@ -88,19 +90,6 @@ __device__ __forceinline__ void mma3x2_apart(float acc[4], const uint32_t ab0[4]
   mma(m, ab1, bb1);
 #pragma unroll
   for (int e = 0; e < 4; ++e) acc[e] = (acc[e] + c[e]) + m[e];
-}
-
-// one of the two: APART picks mma3x2_apart
-template <bool APART>
-__device__ __forceinline__ void mma3x2_sum(float acc[4], const uint32_t ab0[4],
-                                           const uint32_t as0[4], const uint32_t bb0[2],
-                                           const uint32_t bs0[2], const uint32_t ab1[4],
-                                           const uint32_t as1[4], const uint32_t bb1[2],
-                                           const uint32_t bs1[2]) {
-  if (APART)
-    mma3x2_apart(acc, ab0, as0, bb0, bs0, ab1, as1, bb1, bs1);
-  else
-    mma3x2(acc, ab0, as0, bb0, bs0, ab1, as1, bb1, bs1);
 }
 
 // the A fragments of a k-step pair (k0, k0 + 8) of MT tiles, split
@@ -136,7 +125,7 @@ __device__ __forceinline__ void split_a(const AccX& x, int m0, int k0, uint32_t 
 // FMA build was, on an H100, and failed the f64 test at B = 8.  A fresh fragment per k-step also
 // passes; one per two k-steps takes fewer registers (no spill in K4) and
 // fewer adds (tests/test_torch_aa_fused_tf32.py models all three).
-template <int MT, int NT, int K, int UNROLL, bool APART = false, class AccX, class AccW>
+template <int MT, int NT, int K, int UNROLL, class AccX, class AccW>
 __device__ __forceinline__ void mma_xwt(const AccX& x, const AccW& w, int m0, int n0,
                                         float acc[MT][NT][4]) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -154,8 +143,8 @@ __device__ __forceinline__ void mma_xwt(const AccX& x, const AccW& w, int m0, in
         split(w(n, k0 + 8 * h + t + 4), wb[h][1], ws[h][1]);
       }
 #pragma unroll
-      for (int i = 0; i < MT; ++i) mma3x2_sum<APART>(acc[i][j], xb[0][i], xs[0][i], wb[0], ws[0],
-                                                     xb[1][i], xs[1][i], wb[1], ws[1]);
+      for (int i = 0; i < MT; ++i) mma3x2(acc[i][j], xb[0][i], xs[0][i], wb[0], ws[0],
+                                          xb[1][i], xs[1][i], wb[1], ws[1]);
     }
   }
 }
@@ -169,16 +158,17 @@ struct Trans {
 
 // acc += X^T Y: X [K][M] and Y [K][N] by rows (a weight gradient x^T dY,
 // summed over K rows of pairs or rows)
-template <int MT, int NT, int K, int UNROLL, bool APART = false, class AccX, class AccY>
+template <int MT, int NT, int K, int UNROLL, class AccX, class AccY>
 __device__ __forceinline__ void mma_xty(const AccX& x, const AccY& y, int m0, int n0,
                                         float acc[MT][NT][4]) {
-  mma_xwt<MT, NT, K, UNROLL, APART>(Trans<AccX>{x}, Trans<AccY>{y}, m0, n0, acc);
+  mma_xwt<MT, NT, K, UNROLL>(Trans<AccX>{x}, Trans<AccY>{y}, m0, n0, acc);
 }
 
-// acc += X W^T as mma_xwt<..., APART = true>, with W split beforehand: w(n, k) returns the
-// (big, small) TF32 pair of W[n][k] as a uint2, so only X is split here.
+// acc += X W^T as mma_xwt, but summed as mma3x2_apart and with W split
+// beforehand: w(n, k) returns the (big, small) TF32 pair of W[n][k] as a
+// uint2, so only X is split here.
 // The NT tiles lie n_step columns apart: tile j covers columns
-// n0 + n_step j .. + 7 (K2's warps take n-tiles j and j + 4).
+// n0 + n_step j .. + 7 (K1's warps take n-tiles j and j + 4).
 template <int MT, int NT, int K, int UNROLL, class AccX, class AccW>
 __device__ __forceinline__ void mma_xwt_split(const AccX& x, const AccW& w, int m0, int n0,
                                               int n_step, float acc[MT][NT][4]) {
@@ -269,40 +259,6 @@ __device__ __forceinline__ void mma_xwt_split2(const AccX1& x1, const AccW1& w1,
                      wb1[1], ws1[1]);
         mma3x2_apart(acc2[i][j], xb2[0][i], xs2[0][i], wb2[0], ws2[0], xb2[1][i], xs2[1][i],
                      wb2[1], ws2[1]);
-      }
-    }
-  }
-}
-
-// two weight gradients of mma_xty<..., APART = true> in one loop,
-// acc1 += X1^T Y1 and acc2 += X2^T Y2 (X1 and X2 one tile: split once)
-template <int MT, int NT, int K, int UNROLL, class AccX1, class AccY1, class AccX2, class AccY2>
-__device__ __forceinline__ void mma_xty2(const AccX1& x1, const AccY1& y1, float acc1[MT][NT][4],
-                                         const AccX2& x2, const AccY2& y2, float acc2[MT][NT][4],
-                                         int m0, int n0) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll (UNROLL)
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t xb1[2][MT][4], xs1[2][MT][4], xb2[2][MT][4], xs2[2][MT][4];
-    split_a<MT>(Trans<AccX1>{x1}, m0, k0, xb1, xs1);
-    split_a<MT>(Trans<AccX2>{x2}, m0, k0, xb2, xs2);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int n = n0 + 8 * j + g;
-      uint32_t yb1[2][2], ys1[2][2], yb2[2][2], ys2[2][2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          split(y1(k0 + 8 * h + t + 4 * r, n), yb1[h][r], ys1[h][r]);
-          split(y2(k0 + 8 * h + t + 4 * r, n), yb2[h][r], ys2[h][r]);
-        }
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        mma3x2_apart(acc1[i][j], xb1[0][i], xs1[0][i], yb1[0], ys1[0], xb1[1][i], xs1[1][i],
-                     yb1[1], ys1[1]);
-        mma3x2_apart(acc2[i][j], xb2[0][i], xs2[0][i], yb2[0], ys2[0], xb2[1][i], xs2[1][i],
-                     yb2[1], ys2[1]);
       }
     }
   }

@@ -22,27 +22,27 @@
 // Bound on an H100 SXM at the training shape (N = 61,440 rows, T = 60, D = 64):
 // per row-step 4 recomputed, 5 input-gradient and 5 weight-gradient 64x64
 // products plus three 64-wide dot products, 28 D^2 + 6 D = 115,072 flop,
-// 4.24e11 in all.  The 14 products run on the tensor cores at f32 accuracy
-// (3xTF32, mma_tf32.cuh): three TF32 products each, 4.23e11 flop at 495 / 3
-// TFLOP/s is 2.56 ms; reading ys and ct is 1.9 GB, 0.56 ms at 3.35 TB/s.  On
-// this route K2 is bound by the tensor cores (6.3 ms with every product on
-// the CUDA cores at 67 TFLOP/s).
+// 4.24e11 in all.  The 14 products run on the FP64 tensor cores
+// (mma_f64.cuh): 4.23e11 flop at 67 TFLOP/s is 6.3 ms; reading ys and ct is
+// 1.9 GB, 0.56 ms at 3.35 TB/s.  So K2 is bound by the FP64 tensor cores.
+// (In 3xTF32 on the TF32 tensor cores, three products each at 495 TFLOP/s,
+// the bound was 2.56 ms; see "Every product" below for why they are f64.)
 //
 // Design.  A persistent grid (one 256-thread block per SM) walks 32-row
 // tiles; each tile runs all T steps backwards inside the block (the loop
 // replaces the TPU's reversed step grid axis).  32-row tiles give 1,920
 // tiles at the training shape, 15 rounds on 132 SMs with a short last one.
 //   * The five 64 x 64 weights are the same for every row, step and tile,
-//     so they are split into TF32 (big, small) pairs once, when the block
-//     stages them: 5 x 64 x 64 uint2 = 163,840 B of shared memory.  A pair
-//     (r, c) lies at r * 64 + (c ^ 4 (r mod 4)) (8-byte slots): the forward
-//     products read B fragments at W[k = t][n = g] and the input gradients
-//     at W[n = g][k = t], and both are conflict-free under this XOR.
+//     so they are widened to f64 once, when the block stages them:
+//     5 x 64 x 64 doubles = 163,840 B of shared memory.  Entry (r, c) lies
+//     at r * 64 + (c ^ 4 (r mod 4)) (8-byte slots): the forward products
+//     read B fragments at W[k = t][n = g] and the input gradients at
+//     W[n = g][k = t], and both are conflict-free under this XOR.
 //   * Seven 32-row f32 activation tiles (57,344 B), XOR-swizzled by
 //     16-byte granule (tile_at), so that the A fragments (X[g][t]), the
 //     weight-gradient operands (X[t][g]) and the float2 stores of C
 //     fragments are conflict-free; the activations change every step and
-//     are split per use.  Slots: y; dF, then dA1; h1; hg1; h2, then dAG1;
+//     are widened per use.  Slots: y; dF, then dA1; h1; hg1; h2, then dAG1;
 //     dA2; hg2, then dAG2.  The tanh derivatives are taken from the h1 and
 //     hg1 tiles when they are needed, not kept in registers.  With the small weights (2,576 B) and the diffusion
 //     logit's exchange (1,024 B): 224,784 B, one block per SM.
@@ -50,12 +50,28 @@
 //     j + 4 (columns 8 j .. and 8 j + 32 ..) of every row product, so a
 //     thread holds both lanes (p, p + 32) of each Box-Muller pair it draws,
 //     and lambda stays in registers as C fragments for all T steps.
-//   * Every product is a warp-level mma.sync m16n8k8 in 3xTF32: per two
-//     k-steps the small terms go into one fresh fragment and big * big into
-//     another, and both are added to f32 accumulators on the CUDA cores
-//     (mma3x2_apart: the tensor cores truncate their sums, and summed in
-//     one fragment, as K4 does, the gradients of a CPU model of this sweep
-//     fell outside the f64 criterion).  The five weight
+//   * lambda is carried in f64: ct[t] is added in f64, and its two input
+//     gradients (dA1 wf0^T, dAG1 wg0^T) go into it as the f64 mma's own C,
+//     unrounded; dF = lambda dt, lambda . z and dy0 read it rounded to f32.
+//     bgo's gradient sums sqrt(dt) (lambda . z) g (1 - g) over every row
+//     and step, terms that cancel, so lambda's own f32 rounding over the
+//     T steps reached it: with lambda in f32, K2 read bgo at 7.6x the f32
+//     plain version's distance from an f64 oracle at one of sixteen
+//     inputs (scripts/check_rollout_bwd_f64_inputs_torch.py), and the CPU
+//     model misses 2x at seed 11 the same way, where f64 meets it.
+//   * Every product is a warp-level f64 mma.sync m16n8k8 of the widened
+//     f32 operands: per two k-steps the exact products are summed in f64
+//     in a fresh fragment, rounded to nearest f32 once and added to f32
+//     accumulators on the CUDA cores (mma_f64.cuh).  In 3xTF32, as K3 and
+//     K4 sum, the TF32 tensor cores cut each addend toward zero, and over
+//     61,440 rows x 60 steps that one-sided cut added up to a bias on sums
+//     that cancel: K2 read up to 7.8x the f32 plain version's distance from
+//     an f64 oracle on bg1 and bgo.  A CPU model of this sweep
+//     (tests/test_torch_sde_rollout_tf32.py, mode f64tc-lambda) meets 2x at
+//     seeds 0 and 1-30 with these products and an f64 lambda, ys from the
+//     plain forward and from K1's, where f64 products for the 10 gradients
+//     alone (the 4 recomputed forward products left in 3xTF32) miss it at
+//     three of seeds 20-27.  The five weight
 //     gradients are block-private C fragments in registers: each warp owns
 //     a 32 x 16 block of each, 80 floats a thread, summed over every row of
 //     every tile the block walks.
@@ -71,10 +87,10 @@
 //   * Six barriers a step: y and dF in (A); h1, hg1 (B); h2, hg2, dA2 and
 //     the logit's partial sums (C); dO, dAG2, dwf2, dwf1, dA1 (D); dwg1,
 //     dAG1 (E); dwf0, dwg0 and lambda (F).  Where a phase has two products
-//     of a kind, one loop runs both (mma_xwt_split2, mma_xty2), so that
-//     their fragments interleave and a shared operand is split once: on an
-//     H100 the pairs took K2 from 16.5 to 15.0 ms.  (Pairing dA1's product
-//     with dAG1's in E instead gave the same time and spilled.)
+//     of a kind, one loop runs both (mma_xwt2, mma_xty2), so that their
+//     fragments interleave: on an H100, in 3xTF32, the pairs took K2 from
+//     16.5 to 15.0 ms.  (Pairing dA1's product with dAG1's in E instead
+//     gave the same time and spilled.)
 //   * After each tile the block adds its weight gradients (registers, f32
 //     over the tile's T steps) to its own row of a [grid, W_FLOATS] f64
 //     workspace, and reduce_partials sums the rows in block order in f64.
@@ -85,16 +101,17 @@
 //     No float atomics: the gradients are the same run after run.
 // The ragged last tile is bounds-checked: rows past N carry zero lambda and
 // contribute nothing, so no padding copy exists.
-// Registers: 80 for the weight gradients, 8 lambda, 16 prefetch, 11 column
-// sums; ptxas (sm_90a) gives the three instantiations 255 registers and no
-// spills (a 32-byte stack frame in the gaussian one) with the
-// weight-gradient products' k-loop not unrolled (UNROLL_W = 1; unrolled by
-// 2 it spilled 88 bytes).  On an H100 at the training shape K2 takes
-// 14.7 ms (gaussian) against the FMA build's 17.8-18.2, of which 2.8-3.1 ms
-// are the rest with the 14 products skipped
-// (scripts/compare_rollout_bwd_builds_torch.py).
+// Registers: 80 for the weight gradients, 16 lambda, 16 prefetch, 11 column
+// sums; ptxas (sm_90a) gives the three instantiations 255 registers and
+// 12-36 bytes of spills with the weight-gradient products' k-loop not
+// unrolled (UNROLL_W = 1).  On an H100 at the training shape K2 takes
+// 12.8-13.4 ms (explicit and gaussian increments) against 14.9-15.2 for
+// its 3xTF32 build and 12.7-13.2 with lambda in f32, timed in turns, of
+// which 3.2-3.3 ms are the rest with the 14 products skipped
+// (scripts/compare_rollout_bwd_builds_torch.py): one f64 mma in place of
+// six TF32 ones and no split of the activations.
 
-#include "mma_tf32.cuh"
+#include "mma_f64.cuh"
 #include "rollout_common.cuh"
 
 namespace {
@@ -113,7 +130,7 @@ enum { WF0, WF1, WF2, WG0, WG1 };   // matrix m at m * MAT in the packed layout
 static_assert(OFF_WF1 == MAT && OFF_WG1 == WG1 * MAT, "packed matrices");
 static_assert(NSMALL % 4 == 0 && SMEM_BYTES <= 232448, "shared memory");
 
-// slot of a split weight pair (r, c) in its 64 x 64 matrix
+// slot of a weight (r, c) in its 64 x 64 matrix
 __device__ __forceinline__ int w_at(int r, int c) { return r * D + (c ^ ((r & 3) << 2)); }
 
 // index of (r, c) in a swizzled activation tile: the row's 16-byte granules
@@ -127,22 +144,22 @@ struct Tile {  // an activation tile, x(row, col)
   __device__ __forceinline__ float operator()(int r, int c) const { return p[tile_at(r, c)]; }
 };
 struct WFwd {  // B of x W: w(n, k) = W[k][n]
-  const uint2* p;
-  __device__ __forceinline__ uint2 operator()(int n, int k) const { return p[w_at(k, n)]; }
+  const double* p;
+  __device__ __forceinline__ double operator()(int n, int k) const { return p[w_at(k, n)]; }
 };
 struct WTr {  // B of dY W^T: w(n, k) = W[n][k]
-  const uint2* p;
-  __device__ __forceinline__ uint2 operator()(int n, int k) const { return p[w_at(n, k)]; }
+  const double* p;
+  __device__ __forceinline__ double operator()(int n, int k) const { return p[w_at(n, k)]; }
 };
 
-template <int A, int B, int C>
-__device__ __forceinline__ void zero(float (&x)[A][B][C]) {
+template <class V, int A, int B, int C>
+__device__ __forceinline__ void zero(V (&x)[A][B][C]) {
 #pragma unroll
   for (int a = 0; a < A; ++a)
 #pragma unroll
     for (int b = 0; b < B; ++b)
 #pragma unroll
-      for (int c = 0; c < C; ++c) x[a][b][c] = 0.0f;
+      for (int c = 0; c < C; ++c) x[a][b][c] = V(0);
 }
 
 // the 16 floats of the next step: the tile's 32 x 64 pre-step state, two
@@ -237,7 +254,7 @@ rollout_bwd_kernel(const float* __restrict__ y0, const float* __restrict__ ys,
                    float* __restrict__ dy0, double* __restrict__ partial,
                    int N, int T, uint32_t k1, uint32_t k2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint2* sw = reinterpret_cast<uint2*>(smem_raw);                  // split weights
+  double* sw = reinterpret_cast<double*>(smem_raw);                // weights, widened
   float* ssm = reinterpret_cast<float*>(smem_raw + 5 * MAT * 8);  // wf0t .. bgo
   float* sY = ssm + NSMALL;         // pre-step state y_t
   float* sDF = sY + TILE;           // lambda dt, then dA1
@@ -264,13 +281,11 @@ rollout_bwd_kernel(const float* __restrict__ y0, const float* __restrict__ ys,
 
   for (int i = tid; i < 5 * MAT; i += THREADS) {
     const int m = i / MAT, r = (i % MAT) / D, c = i % D;
-    uint32_t big, small;
-    tc::split(w[i], big, small);
-    sw[m * MAT + w_at(r, c)] = make_uint2(big, small);
+    sw[m * MAT + w_at(r, c)] = static_cast<double>(w[i]);
   }
   for (int i = tid; i < NSMALL / 4; i += THREADS)
     reinterpret_cast<float4*>(ssm)[i] = reinterpret_cast<const float4*>(w + OFF_WF0T)[i];
-  const uint2 *wf0 = sw + WF0 * MAT, *wf1 = sw + WF1 * MAT, *wf2 = sw + WF2 * MAT,
+  const double *wf0 = sw + WF0 * MAT, *wf1 = sw + WF1 * MAT, *wf2 = sw + WF2 * MAT,
               *wg0 = sw + WG0 * MAT, *wg1 = sw + WG1 * MAT;
 
   float gw[5][2][2][4];                           // weight gradients, C fragments
@@ -292,7 +307,7 @@ rollout_bwd_kernel(const float* __restrict__ y0, const float* __restrict__ ys,
   const int ntiles = (N + ROWS - 1) / ROWS;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const long long row0 = static_cast<long long>(tile) * ROWS;
-    float lam[1][2][4];
+    double lam[1][2][4];   // f64: see "lambda" in the design notes
     zero(lam);
     Prefetch pf;
     prefetch(pf, T == 1 ? y0 : ys + static_cast<long long>(T - 2) * N * D,
@@ -318,7 +333,7 @@ rollout_bwd_kernel(const float* __restrict__ y0, const float* __restrict__ ys,
 #pragma unroll
         for (int j = 0; j < 2; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) df[0][j][e] = lam[0][j][e] * dt;
+          for (int e = 0; e < 4; ++e) df[0][j][e] = static_cast<float>(lam[0][j][e]) * dt;
         store_frag(sDF, df, frow, fcol);
         cbf2 += colsum(df);
         if (t > 0)
@@ -332,7 +347,7 @@ rollout_bwd_kernel(const float* __restrict__ y0, const float* __restrict__ ys,
         float a[1][2][4], b[1][2][4];
         zero(a);
         zero(b);
-        tc::mma_xwt_split2<1, 2, D, UNROLL>(Tile{sY}, WFwd{wf0}, a, Tile{sY}, WFwd{wg0}, b,
+        dtc::mma_xwt2<1, 2, D, UNROLL>(Tile{sY}, WFwd{wf0}, a, Tile{sY}, WFwd{wg0}, b,
                                             16 * mt, 8 * jn, 32);
 #pragma unroll
         for (int j = 0; j < 2; ++j)
@@ -356,9 +371,9 @@ rollout_bwd_kernel(const float* __restrict__ y0, const float* __restrict__ ys,
         zero(a);
         zero(g2);
         zero(d);
-        tc::mma_xwt_split2<1, 2, D, UNROLL>(Tile{sH1}, WFwd{wf1}, a, Tile{sG1}, WFwd{wg1}, g2,
+        dtc::mma_xwt2<1, 2, D, UNROLL>(Tile{sH1}, WFwd{wf1}, a, Tile{sG1}, WFwd{wg1}, g2,
                                             16 * mt, 8 * jn, 32);
-        tc::mma_xwt_split<1, 2, D, UNROLL>(Tile{sDF}, WTr{wf2}, 16 * mt, 8 * jn, 32, d);
+        dtc::mma_xwt<1, 2, D, UNROLL>(Tile{sDF}, WTr{wf2}, 16 * mt, 8 * jn, 32, d);
         float o[2] = {0.0f, 0.0f}, dg[2] = {0.0f, 0.0f};
         float z[2][4];
 #pragma unroll
@@ -399,7 +414,7 @@ rollout_bwd_kernel(const float* __restrict__ y0, const float* __restrict__ ys,
             a[0][j][e] = h2;
             d[0][j][e] *= 1.0f - h2 * h2;
             o[e >> 1] = fmaf(g2[0][j][e], wgo[col], o[e >> 1]);
-            dg[e >> 1] = fmaf(lam[0][j][e], z[j][e], dg[e >> 1]);
+            dg[e >> 1] = fmaf(static_cast<float>(lam[0][j][e]), z[j][e], dg[e >> 1]);
           }
         store_frag(sH2, a, frow, fcol);
         store_frag(sX, g2, frow, fcol);   // hg2, until dAG2 replaces it in D
@@ -444,10 +459,10 @@ rollout_bwd_kernel(const float* __restrict__ y0, const float* __restrict__ ys,
         store_frag(sX, dag2, frow, fcol);
         cwgo += colsum(g2);
         cbg1 += colsum(dag2);
-        tc::mma_xty2<2, 2, ROWS, UNROLL_W>(Tile{sH2}, Tile{sDF}, gw[WF2], Tile{sH1}, Tile{sDA2},
+        dtc::mma_xty2<2, 2, ROWS, UNROLL_W>(Tile{sH2}, Tile{sDF}, gw[WF2], Tile{sH1}, Tile{sDA2},
                                            gw[WF1], gm0, gn0);
         zero(da1);
-        tc::mma_xwt_split<1, 2, D, UNROLL>(Tile{sDA2}, WTr{wf1}, 16 * mt, 8 * jn, 32, da1);
+        dtc::mma_xwt<1, 2, D, UNROLL>(Tile{sDA2}, WTr{wf1}, 16 * mt, 8 * jn, 32, da1);
         scale_by_tanh_derivative(da1, sH1, frow, fcol);
       }
       __syncthreads();
@@ -462,10 +477,10 @@ rollout_bwd_kernel(const float* __restrict__ y0, const float* __restrict__ ys,
           cwf0s = fmaf(s, x, cwf0s);
           cwf0c = fmaf(c, x, cwf0c);
         }
-        tc::mma_xty<2, 2, ROWS, UNROLL_W, true>(Tile{sG1}, Tile{sX}, gm0, gn0, gw[WG1]);
+        dtc::mma_xty<2, 2, ROWS, UNROLL_W>(Tile{sG1}, Tile{sX}, gm0, gn0, gw[WG1]);
         float dag1[1][2][4];
         zero(dag1);
-        tc::mma_xwt_split<1, 2, D, UNROLL>(Tile{sX}, WTr{wg1}, 16 * mt, 8 * jn, 32, dag1);
+        dtc::mma_xwt<1, 2, D, UNROLL>(Tile{sX}, WTr{wg1}, 16 * mt, 8 * jn, 32, dag1);
         scale_by_tanh_derivative(dag1, sG1, frow, fcol);
         store_frag(sDAG1, dag1, frow, fcol);
         {
@@ -478,9 +493,9 @@ rollout_bwd_kernel(const float* __restrict__ y0, const float* __restrict__ ys,
       __syncthreads();
 
       // F: dwf0 += y^T dA1; dwg0 += y^T dAG1; lambda += dA1 wf0^T + dAG1 wg0^T
-      tc::mma_xty2<2, 2, ROWS, UNROLL_W>(Tile{sY}, Tile{sDA1}, gw[WF0], Tile{sY}, Tile{sDAG1},
+      dtc::mma_xty2<2, 2, ROWS, UNROLL_W>(Tile{sY}, Tile{sDA1}, gw[WF0], Tile{sY}, Tile{sDAG1},
                                          gw[WG0], gm0, gn0);
-      tc::mma_xwt_split2<1, 2, D, UNROLL>(Tile{sDA1}, WTr{wf0}, lam, Tile{sDAG1}, WTr{wg0}, lam,
+      dtc::mma_xwt2<1, 2, D, UNROLL>(Tile{sDA1}, WTr{wf0}, lam, Tile{sDAG1}, WTr{wg0}, lam,
                                           16 * mt, 8 * jn, 32);
       __syncthreads();
     }
@@ -491,7 +506,8 @@ rollout_bwd_kernel(const float* __restrict__ y0, const float* __restrict__ ys,
 #pragma unroll
         for (int j = 0; j < 2; ++j)
           *reinterpret_cast<float2*>(dy0 + row * D + fcol + 32 * j) =
-              make_float2(lam[0][j][2 * h], lam[0][j][2 * h + 1]);
+              make_float2(static_cast<float>(lam[0][j][2 * h]),
+                          static_cast<float>(lam[0][j][2 * h + 1]));
     }
 
     // this tile's weight gradients into the block's f64 sums, in the packed
@@ -504,7 +520,7 @@ rollout_bwd_kernel(const float* __restrict__ y0, const float* __restrict__ ys,
       for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int j = 0; j < 2; ++j)
-          tc::for_fragment(gw[m][i][j], gm0 + 16 * i, gn0 + 8 * j,
+          dtc::for_fragment(gw[m][i][j], gm0 + 16 * i, gn0 + 8 * j,
                            [&](int r, int col, float v0, float v1) {
                              double* d = part + m * MAT + r * D + col;   // OFF_WF0 ..
                              put(d, v0);

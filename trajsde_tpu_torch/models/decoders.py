@@ -1,4 +1,5 @@
-"""Latent-SDE rollout decoder (``trajsde_tpu/models/decoders.py``).
+"""Trajectory decoders: the baseline's one-shot MLP and the latent-SDE
+rollout (``trajsde_tpu/models/decoders.py``).
 
 Layouts: ``local_embed [B, A, D]``, ``global_embed [B, F, A, D]``;
 outputs ``loc [B, F, A, Tf, 4]`` (location + scale), ``pi [B, A, F]``,
@@ -21,6 +22,65 @@ from trajsde_tpu_torch.data.scene import SceneBatch
 from trajsde_tpu_torch.models.layers import layer_norm
 from trajsde_tpu_torch.models.sde import SDEStep, decoder_time_grid
 from trajsde_tpu_torch.ops.sde_rollout import SDERolloutFn, pack_params, rollout_params_from_module
+
+
+def _mlp_head(parent: nn.Module, prefix: str, din: int, dims) -> None:
+    """Register ``{prefix}_dense{i}`` Linear layers of widths ``dims``
+    (input ``din``), each but the last followed by ``{prefix}_ln{i}``."""
+    for i, d in enumerate(dims):
+        parent.add_module(f"{prefix}_dense{i}", nn.Linear(din, d))
+        if i < len(dims) - 1:
+            parent.add_module(f"{prefix}_ln{i}", layer_norm(d))
+        din = d
+
+
+def _apply_head(parent: nn.Module, prefix: str, depth: int, x: torch.Tensor) -> torch.Tensor:
+    """Dense -> LayerNorm -> ReLU for each hidden layer of a ``depth``-layer
+    head, then the plain last Dense."""
+    for i in range(depth - 1):
+        x = torch.relu(getattr(parent, f"{prefix}_ln{i}")(getattr(parent, f"{prefix}_dense{i}")(x)))
+    return getattr(parent, f"{prefix}_dense{depth - 1}")(x)
+
+
+class MLPDecoder(nn.Module):
+    """The baseline's one-shot decoder: the mode scores from [local,
+    global], and every mode's ``Tf`` locations (and scales) at once from
+    ``relu(aggr_ln(aggr_dense([global, local])))``."""
+
+    def __init__(self, local_channels: int, global_channels: int, future_steps: int,
+                 num_modes: int, uncertain: bool = True, min_scale: float = 1e-3, dtype=None):
+        super().__init__()
+        if dtype not in (None, "float32", torch.float32):
+            raise NotImplementedError(
+                f"dtype={dtype!r}: reduced-precision configs are not ported yet "
+                "(ROADMAP.md Queue 1 item 6)"
+            )
+        D = local_channels
+        self.future_steps = future_steps
+        self.num_modes = num_modes
+        self.uncertain = uncertain
+        self.min_scale = min_scale
+        _mlp_head(self, "pi", D + global_channels, [D, D, 1])
+        self.aggr_dense = nn.Linear(D + global_channels, D)
+        self.aggr_ln = layer_norm(D)
+        _mlp_head(self, "loc", D, [D, future_steps * 2])
+        if uncertain:
+            _mlp_head(self, "scale", D, [D, future_steps * 2])
+
+    def forward(self, scene: SceneBatch, local_embed, global_embed,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """No draws: ``generator`` is accepted for the composition's call."""
+        B, F, A = global_embed.shape[:3]
+        Tf = self.future_steps
+        local_exp = local_embed[:, None].expand(global_embed.shape)
+        pi = _apply_head(self, "pi", 3, torch.cat([local_exp, global_embed], dim=-1))
+        pi = pi[..., 0].permute(0, 2, 1)                        # [B, A, F]
+        h = torch.relu(self.aggr_ln(self.aggr_dense(torch.cat([global_embed, local_exp], -1))))
+        loc = _apply_head(self, "loc", 2, h).reshape(B, F, A, Tf, 2)
+        if self.uncertain:
+            scale = _apply_head(self, "scale", 2, h).reshape(B, F, A, Tf, 2)
+            loc = torch.cat([loc, F_.elu(scale) + 1.0 + self.min_scale], dim=-1)
+        return {"loc": loc, "pi": pi, "reg_mask": ~scene.padding_mask[:, :, -Tf:]}
 
 
 class SDEDecoder(nn.Module):

@@ -118,6 +118,38 @@ class EdgeAttention(nn.Module):
         return dropout(self.out_proj(out), self.rate, self.training, generator)
 
 
+class MultiheadSelfAttention(nn.Module):
+    """Plain multi-head self-attention over a sequence axis with an additive
+    mask (the temporal transformer's).
+
+    x [..., S, D], attn_mask [..., S, S] (added to the logits, the head
+    axis inserted in front of its last two axes, so a batched mask cannot
+    broadcast against the heads) -> [..., S, D].  ``in_proj`` is one
+    [D, 3D] projection split into q, k, v; dropout acts on the attention
+    weights.  Written in tensor ops, not ``scaled_dot_product_attention``,
+    so the mask's ``finfo.min`` and the dropout draws are the JAX
+    package's.
+    """
+
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
+        super().__init__()
+        self.num_heads = num_heads
+        self.rate = dropout
+        self.in_proj = nn.Linear(embed_dim, 3 * embed_dim)
+        self.out_proj = nn.Linear(embed_dim, embed_dim)
+
+    def forward(self, x: torch.Tensor, attn_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        D, H = x.shape[-1], self.num_heads
+        hd = D // H
+        q, k, v = (t.reshape(t.shape[:-1] + (H, hd)) for t in self.in_proj(x).chunk(3, dim=-1))
+        logits = torch.einsum("...qhd,...khd->...hqk", q, k) / hd ** 0.5
+        logits = logits + attn_mask[..., None, :, :]
+        w = dropout(torch.softmax(logits, dim=-1), self.rate, self.training, generator)
+        out = torch.einsum("...hqk,...khd->...qhd", w, v)
+        return self.out_proj(out.reshape(out.shape[:-2] + (D,)))
+
+
 class GRUUnit(nn.Module):
     """Masked GRU cell fusing SDE state with per-step observations.
 

@@ -1,4 +1,5 @@
-"""Agent-agent and agent-lane attention encoders
+"""Agent-agent and agent-lane attention encoders, the temporal
+transformer and the baseline's ``LocalEncoder``
 (``trajsde_tpu/models/local_encoder.py``).
 
 Time is another batch axis of one dense masked attention, as in the JAX
@@ -9,11 +10,16 @@ kernel K4 (:mod:`trajsde_tpu_torch.ops.aa_fused`), with the same parameters.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
+from trajsde_tpu_torch.data.scene import SceneBatch
+from trajsde_tpu_torch.models import graph
 from trajsde_tpu_torch.models.embedding import MultipleInputEmbedding, SingleInputEmbedding
-from trajsde_tpu_torch.models.layers import EdgeAttention, MlpBlock, layer_norm
+from trajsde_tpu_torch.models.layers import (EdgeAttention, MlpBlock, MultiheadSelfAttention,
+                                             dropout, layer_norm)
 from trajsde_tpu_torch.ops.aa_fused import fused_aa_aggregate, pack_aa_params
 
 
@@ -26,12 +32,13 @@ class AAEncoder(nn.Module):
 
     ``fused=True`` keeps the parameter tree of the dense path (the
     ``nbr_embed`` / ``attn`` / ``norm1`` submodules), so weights and
-    checkpoints serve both paths.
+    checkpoints serve both paths.  ``input_diff=False`` keeps the centre
+    embedding where ``bos_q`` is set instead of substituting the bos token.
     """
 
     def __init__(self, historical_steps: int, embed_dim: int, num_heads: int,
                  node_dim: int = 2, edge_dim: int = 2, dropout: float = 0.0,
-                 fused: bool = False, neighbor_cap: int = 0):
+                 fused: bool = False, neighbor_cap: int = 0, input_diff: bool = True):
         super().__init__()
         if fused and neighbor_cap:
             raise NotImplementedError("neighbor_cap applies to the dense pair chain (fused=False)")
@@ -41,6 +48,7 @@ class AAEncoder(nn.Module):
             )
         D = embed_dim
         self.fused = fused
+        self.input_diff = input_diff
         self.bos_token = nn.Parameter(torch.zeros(historical_steps, D))
         self.center_embed = SingleInputEmbedding(node_dim, D)
         self.nbr_embed = MultipleInputEmbedding([node_dim, edge_dim], D)
@@ -53,11 +61,12 @@ class AAEncoder(nn.Module):
         # centre embedding in each receiver's own frame, bos token substituted
         x_q_local = torch.einsum("btaj,baji->btai", x_q, rot_q)
         center = self.center_embed(x_q_local)
-        center = torch.where(
-            bos_q.permute(0, 2, 1).unsqueeze(-1),
-            self.bos_token[None, :, None, :].to(center.dtype),
-            center,
-        )
+        if self.input_diff:
+            center = torch.where(
+                bos_q.permute(0, 2, 1).unsqueeze(-1),
+                self.bos_token[None, :, None, :].to(center.dtype),
+                center,
+            )
         if self.fused:
             center = center + self._fused_block(center, x_k, rot_q, mask, edge_vec, generator)
         else:
@@ -112,3 +121,110 @@ class ALEncoder(nn.Module):
         x_actor = x_actor + self.attn(self.norm1(x_actor), mask, kv_pair=lane_embed,
                                       generator=generator)
         return x_actor + self.mlp(self.norm2(x_actor), generator)
+
+
+class TemporalEncoderLayer(nn.Module):
+    """Pre-LN transformer layer: x + attn(norm1(x)), then + mlp(norm2(x))."""
+
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
+        super().__init__()
+        self.rate = dropout
+        self.norm1 = layer_norm(embed_dim)
+        self.self_attn = MultiheadSelfAttention(embed_dim, num_heads, dropout)
+        self.norm2 = layer_norm(embed_dim)
+        self.mlp = MlpBlock(embed_dim, dropout)
+
+    def forward(self, x: torch.Tensor, attn_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = self.self_attn(self.norm1(x), attn_mask, generator)
+        x = x + dropout(h, self.rate, self.training, generator)
+        return x + self.mlp(self.norm2(x), generator)
+
+
+class TemporalEncoder(nn.Module):
+    """Causal temporal transformer with a cls token.
+
+    x [B, A, Th, D], padding_mask [B, A, Th] -> the cls output [B, A, D]:
+    padded steps take ``padding_token``, the cls token is appended last (so
+    under the causal mask it sees every step), ``pos_embed [Th + 1, D]`` is
+    added, then the layers and a final LayerNorm."""
+
+    def __init__(self, historical_steps: int, embed_dim: int, num_heads: int,
+                 num_layers: int = 4, dropout: float = 0.0):
+        super().__init__()
+        T, D = historical_steps, embed_dim
+        self.padding_token = nn.Parameter(torch.zeros(T, D))
+        self.cls_token = nn.Parameter(torch.zeros(1, D))
+        self.pos_embed = nn.Parameter(torch.zeros(T + 1, D))
+        for i in range(num_layers):
+            self.add_module(f"layer{i}", TemporalEncoderLayer(D, num_heads, dropout))
+        self.num_layers = num_layers
+        self.norm = layer_norm(D)
+
+    def forward(self, x: torch.Tensor, padding_mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        D = x.shape[-1]
+        x = torch.where(padding_mask[..., None], self.padding_token.to(x.dtype), x)
+        cls = self.cls_token.to(x.dtype).expand(x.shape[:2] + (1, D))
+        x = torch.cat([x, cls], dim=2) + self.pos_embed.to(x.dtype)
+        # causal: position q attends to k <= q
+        idx = torch.arange(x.shape[2], device=x.device)
+        attn_mask = torch.where(idx[None, :] <= idx[:, None], 0.0,
+                                torch.finfo(x.dtype).min).to(x.dtype)[None]
+        for i in range(self.num_layers):
+            x = getattr(self, f"layer{i}")(x, attn_mask, generator)
+        return self.norm(x)[:, :, -1, :]
+
+
+class LocalEncoder(nn.Module):
+    """The baseline's local encoder: AA attention per step (dense, or with
+    ``fused=True`` through kernels K3 and K4), the temporal transformer over
+    each actor's steps, then lane -> actor attention.  ``forward(scene)``
+    -> local_embed [B, A, D].
+
+    Of the JAX module's knobs, ``rows_fwd`` / ``rows_bwd`` / ``ln_mm``
+    (TPU tiling) and ``parallel`` (which means nothing there either) are
+    dropped by the config's builder; ``remat``, a reduced ``dtype`` and
+    ``neighbor_cap`` raise."""
+
+    def __init__(self, historical_steps: int, embed_dim: int, num_heads: int = 4,
+                 dropout: float = 0.1, num_temporal_layers: int = 4,
+                 local_radius: float = 50.0, input_diff: bool = True, node_dim: int = 2,
+                 edge_dim: int = 2, remat: bool = False, dtype=None, fused: bool = False,
+                 neighbor_cap: int = 0):
+        super().__init__()
+        if remat:
+            raise NotImplementedError(
+                "remat=True: the port has no rematerialization of the AA / AL pair "
+                "tensors; leave remat unset (the published config does)"
+            )
+        if dtype not in (None, "float32", torch.float32):
+            raise NotImplementedError(
+                f"dtype={dtype!r}: reduced-precision configs are not ported yet "
+                "(ROADMAP.md Queue 1 item 6)"
+            )
+        if neighbor_cap:
+            raise NotImplementedError(
+                "neighbor_cap > 0 (the neighbour-capped AA gather) is not ported yet "
+                "(ROADMAP.md Queue 1 item 7)"
+            )
+        self.historical_steps = historical_steps
+        self.local_radius = float(local_radius)
+        self.aa_encoder = AAEncoder(historical_steps, embed_dim, num_heads, node_dim, edge_dim,
+                                    dropout, fused=fused, input_diff=input_diff)
+        self.temporal_encoder = TemporalEncoder(historical_steps, embed_dim, num_heads,
+                                                num_temporal_layers, dropout)
+        self.al_encoder = ALEncoder(embed_dim, num_heads, node_dim, edge_dim, dropout)
+
+    def forward(self, scene: SceneBatch,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        Th = self.historical_steps
+        rot = scene.rotate_mat()
+        x_t = scene.x.permute(0, 2, 1, 3)                      # [B, Th, A, 2]
+        aa_out = self.aa_encoder(x_t, x_t, rot, scene.bos_mask,
+                                 graph.aa_masks(scene, self.local_radius),
+                                 graph.aa_edge_vectors(scene), generator)
+        out = self.temporal_encoder(aa_out.permute(0, 2, 1, 3),
+                                    scene.padding_mask[:, :, :Th], generator)
+        al_mask, al_vec = graph.al_edges(scene, Th - 1, self.local_radius)
+        return self.al_encoder(out, graph.lane_features(scene), al_vec, al_mask, rot, generator)

@@ -1,5 +1,5 @@
 """Model composition: encoder -> aggregator -> decoder (+ target rotation)
-(``trajsde_tpu/models/prediction.py``, SDE family)."""
+(``trajsde_tpu/models/prediction.py``): the baseline and the SDE family."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
@@ -10,14 +10,11 @@ from torch import nn
 from trajsde_tpu_torch.data.scene import SceneBatch, rotate_into
 
 
-class PredictionModelSDENet(nn.Module):
-    """Registry name ``PredictionModelSDENet``.
-
-    ``forward`` returns the decoder's dict plus ``y`` (future targets
-    rotated into each actor's frame) and the encoder's diffusion
-    discrimination tensors; ``ood=True`` routes through
-    ``encoder.forward_ood`` and attaches per-actor ``stds`` instead.
-    """
+class PredictionModel(nn.Module):
+    """The baseline composition (registry name ``PredictionModel``):
+    ``forward`` returns the decoder's dict plus ``y``, the future targets
+    rotated into each actor's frame.  It has no OOD ensemble, so it takes
+    no ``ood``."""
 
     def __init__(self, encoder: nn.Module, aggregator: nn.Module, decoder: nn.Module,
                  rotate: bool = True):
@@ -31,6 +28,27 @@ class PredictionModelSDENet(nn.Module):
         if scene.y is None or not self.rotate:
             return scene.y
         return rotate_into(scene.y, scene.rotate_mat()[:, :, None])
+
+    def forward(self, scene: SceneBatch, generator: Optional[torch.Generator] = None,
+                rollout_seed: Optional[int] = None) -> Dict[str, Any]:
+        """Dropout draws from ``generator`` (encoder, aggregator, then
+        decoder); ``rollout_seed`` is taken, as every model's forward takes
+        it from the trainer, and unused: nothing here rolls out."""
+        local_embed = self.encoder(scene, generator=generator)
+        global_embed = self.aggregator(scene, local_embed, generator)
+        out = self.decoder(scene, local_embed, global_embed, generator=generator)
+        out["y"] = self.rotated_y(scene)
+        return out
+
+
+class PredictionModelSDENet(PredictionModel):
+    """Registry name ``PredictionModelSDENet``.
+
+    ``forward`` returns the decoder's dict plus ``y`` (future targets
+    rotated into each actor's frame) and the encoder's diffusion
+    discrimination tensors; ``ood=True`` routes through
+    ``encoder.forward_ood`` and attaches per-actor ``stds`` instead.
+    """
 
     def forward(
         self,

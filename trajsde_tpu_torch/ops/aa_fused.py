@@ -225,7 +225,8 @@ def _common_checks(q, u, mask_f, keep, ws, num_heads, weight_floats):
     Ak = u.shape[3]
     if (D, num_heads) != (KERNEL_DIM, KERNEL_HEADS):
         raise ValueError(f"the aa_fused kernels are specialised to D={KERNEL_DIM}, "
-                         f"H={KERNEL_HEADS}; got D={D}, H={num_heads}")
+                         f"H={KERNEL_HEADS}; got D={D}, H={num_heads} (the baseline's 4 heads: "
+                         "ROADMAP.md Queue 1 item 8b)")
     if Ak < 1:
         raise ValueError("the aa_fused kernels need at least one sender")
     dev = q.device

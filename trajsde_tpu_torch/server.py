@@ -1,5 +1,13 @@
 """Serving engine (``trajsde_tpu/server.py``): bucketed micro-batching
-over the kernel serving forward on one card.
+over a serving forward on one card.
+
+``engine="kernel"`` serves through the rollout kernel
+(:func:`~trajsde_tpu_torch.serving.make_serving_fn`, SDE decoders only);
+``engine="scan"`` through the model's own forward in eval mode
+(:func:`~trajsde_tpu_torch.serving.make_scan_fn`, any model: the HiVT
+baseline serves so); ``"auto"`` picks ``kernel`` for an ``SDEDecoder`` and
+``scan`` otherwise.  ``scan`` is never a fallback: an explicit ``kernel``
+that fails raises.
 
 ``ServingEngine.predict(raw_scenes)`` grid-aligns preprocessor-output
 scene dicts, packs them into padded batch buckets (the last scene repeats
@@ -38,9 +46,10 @@ import torch
 from trajsde_tpu_torch.data.grid import NUS_SCALE, align_to_grid
 from trajsde_tpu_torch.data.pack import pack_scenes, pick_bucket
 from trajsde_tpu_torch.device import resolve_device
+from trajsde_tpu_torch.models.decoders import SDEDecoder
 from trajsde_tpu_torch.models.sde_encoder import gather_agent
 from trajsde_tpu_torch.ops.sde_rollout import mix_seed
-from trajsde_tpu_torch.serving import make_serving_fn
+from trajsde_tpu_torch.serving import make_scan_fn, make_serving_fn
 from trajsde_tpu_torch.train.loop import _PinnedStager, wait_for_copy
 
 __all__ = ["EngineClosed", "ServingEngine", "align_scene", "make_postprocess", "mix_seed"]
@@ -121,8 +130,9 @@ def align_scene(raw: Dict[str, np.ndarray], is_gtabs: bool = True) -> Tuple[Dict
 
 
 class ServingEngine:
-    """Bucketed serving of an SDE-decoder model on ``device``: ``predict``
-    for a caller's list of scenes, ``submit`` for concurrent producers."""
+    """Bucketed serving of a model on ``device`` through ``engine``:
+    ``predict`` for a caller's list of scenes, ``submit`` for concurrent
+    producers."""
 
     def __init__(
         self,
@@ -131,6 +141,7 @@ class ServingEngine:
         num_actors: int,
         num_lanes: int,
         device="cuda",
+        engine: str = "auto",
         increments: str = "rademacher",
         batch_buckets: Sequence[int] = (1, 2, 4, 8, 16, 32, 64, 128),
         max_batch=None,
@@ -141,6 +152,12 @@ class ServingEngine:
         ood: bool = False,
         slim: bool = False,
     ) -> None:
+        if engine == "auto":
+            # other decoders have no latent rollout for the kernel to take
+            engine = "kernel" if isinstance(model.decoder, SDEDecoder) else "scan"
+        if engine not in ("kernel", "scan"):
+            raise ValueError(f"unknown serving engine {engine!r}: auto, kernel or scan")
+        self.engine = engine
         self.device = resolve_device(device)
         self.buckets = tuple(b for b in sorted(batch_buckets)
                              if max_batch is None or b <= max_batch)
@@ -157,7 +174,8 @@ class ServingEngine:
         self._seed = int(seed)
         self._counter = 0
         self._lock = threading.Lock()
-        self._serve = make_serving_fn(model, self.device, increments=increments, ood=ood)
+        self._serve = (make_serving_fn(model, self.device, increments=increments, ood=ood)
+                       if engine == "kernel" else make_scan_fn(model, self.device, ood=ood))
         self._post = make_postprocess(is_gtabs, ref_time, slim=slim)
         self._stage = _PinnedStager(self.device, 2) if self.device.type == "cuda" else None
         self._stage_lock = threading.Lock()

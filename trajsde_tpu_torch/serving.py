@@ -1,10 +1,13 @@
-"""Serving forward with the rollout kernel spliced in
-(``trajsde_tpu/serving.py``).
+"""Serving forwards (``trajsde_tpu/serving.py``, and the engines of
+``trajsde_tpu/server.py``).
 
-encoder -> aggregator -> ``SDEDecoder.fuse`` -> kernel K1 on the
-``[B*F*A, D]`` f32 rows, in (B, F, A) order -> ``SDEDecoder.decode``.
-The encoder and heads run as plain PyTorch; the 60-step rollout, the
-serving hot loop, is one kernel launch.
+:func:`make_serving_fn`, the ``kernel`` engine: encoder -> aggregator ->
+``SDEDecoder.fuse`` -> kernel K1 on the ``[B*F*A, D]`` f32 rows, in
+(B, F, A) order -> ``SDEDecoder.decode``.  The encoder and heads run as
+plain PyTorch; the 60-step rollout, the serving hot loop, is one kernel
+launch.  :func:`make_scan_fn`, the ``scan`` engine: the model's own
+forward in eval mode, for any model (the baseline has no rollout for a
+kernel to take).
 """
 from __future__ import annotations
 
@@ -38,13 +41,9 @@ def make_serving_fn(model, device="cuda", increments: str = "rademacher", ood: b
     if not isinstance(decoder, SDEDecoder):
         raise NotImplementedError(
             f"the kernel serving path requires SDEDecoder (model has "
-            f"{type(decoder).__name__})"
+            f"{type(decoder).__name__}); serve it with the scan engine"
         )
-    if ood and not hasattr(model.encoder, "forward_ood"):
-        raise NotImplementedError(
-            f"ood=True needs an encoder with forward_ood; "
-            f"{type(model.encoder).__name__} has none"
-        )
+    _check_ood(model, ood)
     model.to(dev).eval()
     kp = rollout_params_from_module(decoder.sde_rollout)
     t0s, dts = decoder.time_grid(device=dev)
@@ -72,5 +71,35 @@ def make_serving_fn(model, device="cuda", increments: str = "rademacher", ood: b
         if ood:
             out["stds"] = stds
         return out
+
+    return serve
+
+
+def _check_ood(model, ood: bool) -> None:
+    if ood and not hasattr(model.encoder, "forward_ood"):
+        raise NotImplementedError(
+            f"ood=True needs an encoder with forward_ood (OOD ensemble scoring); "
+            f"{type(model.encoder).__name__} has none"
+        )
+
+
+def make_scan_fn(model, device="cuda", ood: bool = False):
+    """Move ``model`` to ``device`` and return ``serve(scene, seed,
+    generator=None) -> output dict``: the model's own forward in eval mode,
+    ``generator`` driving its draws (an SDE model's noise) and ``seed``
+    going to a fused SDE decoder's rollout kernel.  ``ood=True`` (SDE family
+    only) scores through the encoder's ensemble and attaches ``stds``.
+    ``serve`` raises if the model was switched back to training."""
+    dev = resolve_device(device)
+    _check_ood(model, ood)
+    model.to(dev).eval()
+    kwargs = {"ood": True} if ood else {}
+
+    @torch.inference_mode()
+    def serve(scene: SceneBatch, seed: int, generator: Optional[torch.Generator] = None):
+        if model.training:
+            raise RuntimeError("the served model was switched to train mode: call "
+                               "model.eval() (dropout must not reach a served answer)")
+        return model(scene, generator=generator, rollout_seed=seed, **kwargs)
 
     return serve
