@@ -116,18 +116,29 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      ``*_pred.npz`` per scene with the right shapes and probabilities that
      sum to 1, and a stats line (K1 and K3 once per batch and warmup
      bucket).
-  L. the HiVT baseline (after K): ``BASELINE`` at the published widths
-     (embed 64, 4 heads, 4 temporal and 3 global layers, K = 10, 60 steps,
-     48 / 192) with seeded weights, on one batch of 128 synthetic scenes.
-     ``BASELINE_TRAIN`` (``encoder.fused: true``) must refuse on the card
-     with no launch: K3 and K4 are specialised to the flagship's 8 heads
-     (ROADMAP Queue 1 item 8b).  The dense forward (finite, shaped) and
-     three train steps (dropout live; finite and falling loss) launch no
-     kernel; CUDA-event times, scenes/s and peak memory of each; then the
-     scan engine (``engine="auto"`` picks ``scan``): pipelined and serial
-     ``predict`` of BASELINE_SCENES scenes agree within ``TOL_PIPELINE``,
+  L. the HiVT baseline (after K): ``BASELINE`` (dense AA chain) and
+     ``BASELINE_TRAIN`` (``encoder.fused: true``, the same weights) at the
+     published widths (embed 64, 4 heads, 4 temporal and 3 global layers,
+     K = 10, 60 steps, 48 / 192) with seeded weights, on one batch of 128
+     synthetic scenes.  First K3 and K4 at 4 heads at the baseline's shape
+     (128 x 21 x 48 receivers x 48 senders): K3 vs its plain version for
+     the model's packed weights without a keep mask and random ones with
+     one, within ``TOL_K3_TIGHT``, which a copy of K3 with one TF32
+     product per term must fail; K4 vs autograd through the plain chain
+     by ``k4_tol``; bit-equal reruns; K4's recomputed logits equal to
+     K3's bit for bit, and K3's softmax max their max (check copies built
+     with ``AA_WRITE_LOGITS``); CUDA-event medians of both beside their
+     bounds.  Then, dense and fused: the forward (finite, shaped; the
+     fused one within ``TOL_SPLICE`` of the dense one) and three train
+     steps (dropout live; finite and falling loss), CUDA-event times,
+     scenes/s and peak memory of each; the dense paths launch no kernel,
+     the fused forward K3 once and each fused train step K3 and K4 once;
+     then a scan engine over each (``engine="auto"`` picks ``scan``):
+     pipelined and serial ``predict`` of BASELINE_SCENES scenes agree
+     within ``TOL_PIPELINE`` (the fused one launches K3 once per batch),
      timed in alternating rounds, and BASELINE_SINGLES single scenes
-     submitted one at a time give p50 / p99.
+     submitted one at a time give p50 / p99.  K1, K2, K5 and K6 never
+     launch on the baseline's paths.
 Phases 4, B, C and 7 check that K4 never launches on their paths, and the
 serving and training phases that K5 and K6 never do.
 The last lines are the card, a JSON object per kernel and the device line.
@@ -135,6 +146,7 @@ The last lines are the card, a JSON object per kernel and the device line.
 from __future__ import annotations
 
 import copy
+import ctypes
 import dataclasses
 import io
 import json
@@ -269,6 +281,20 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_F64_TC_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 TIMED_RUNS, WARMUP = 20, 3
+
+
+# the two small terms of each k-step in mma_tf32.cuh's mma3x2 and mma3x2_apart
+SMALL_TERMS = ("  mma(c, as0, bb0);\n", "  mma(c, ab0, bs0);\n", "  mma(c, as1, bb1);\n",
+               "  mma(c, ab1, bs1);\n")
+
+
+def one_term_header(header: str) -> str:
+    """``mma_tf32.cuh`` with one TF32 product (big * big) per k-step."""
+    for term in SMALL_TERMS:
+        if header.count(term) != 2:
+            raise RuntimeError(f"{term!r} is not in mma_tf32.cuh's two product sums")
+        header = header.replace(term, "")
+    return header
 
 
 def check(cond: bool, msg: str) -> None:
@@ -598,11 +624,11 @@ def _random_aa_weights(gen, like):
     return tuple(out)
 
 
-def _k3_inputs(shape, with_keep: bool, gen):
+def _k3_inputs(shape, with_keep: bool, gen, heads: int = K3.KERNEL_HEADS):
     """q, u, the 0/1 mask (every 7th receiver without a sender) and the
-    keep mask or None at ``shape`` = (B, T, Aq, Ak)."""
+    keep mask [.., heads] or None at ``shape`` = (B, T, Aq, Ak)."""
     B, T, Aq, Ak = shape
-    D, H = K3.KERNEL_DIM, K3.KERNEL_HEADS
+    D, H = K3.KERNEL_DIM, heads
     q = torch.randn((B, T, Aq, D), generator=gen, device="cuda")
     u = 5.0 * torch.randn((B, T, Aq, Ak, 4), generator=gen, device="cuda")
     mask = (torch.rand((B, T, Aq, Ak), generator=gen, device="cuda") < 0.6).float()
@@ -1771,72 +1797,170 @@ def baseline_train_steps(model, cfg, scene, steps: int):
     return times, totals, torch.cuda.max_memory_allocated() / 2**30
 
 
-def phase_baseline(card: str) -> dict:
-    """L. The HiVT baseline at the published widths (see the module's
-    docstring).  Returns the dense forward's and train step's times,
-    scenes/s, peak memory and launches, and the engine's numbers."""
-    t_phase = time.perf_counter()
-    rng = np.random.default_rng(SEED + 23)
-    scene = _train_batch(rng, TRAIN_BATCH).to("cuda")
-    zero = {k: 0 for k in _counts()}
-    out = {}
+def build_check_copies() -> dict:
+    """Phase L's check copies of K3 and K4, built in parallel under the build
+    directory's ``checks/``: ``logits_fwd`` and ``logits_bwd`` with
+    ``AA_WRITE_LOGITS`` defined (each writes every pair's head logits, -inf
+    where masked, to the buffer its ``*_set_logits`` names: K3 the ones its
+    softmax takes, K4 the ones its recompute gives), and ``one_term``, K3
+    with one TF32 product per term (``mma_tf32.cuh`` without its two small
+    terms, beside the copy).  Returns name -> configured library."""
+    out_dir = os.path.join(kernel_build.BUILD_DIR, "checks")
 
-    # the fused path refuses: K3 and K4 are specialised to the flagship's 8
-    # heads, and the baseline has 4; nothing falls back to the plain chain
-    fused = build_model(BASELINE_TRAIN, device="cuda", seed=SEED)
-    zero_counts()
-    try:
+    def source(name: str) -> str:
+        with open(os.path.join(kernel_build.CSRC_DIR, name)) as f:
+            return f.read()
+
+    def write(path: str, text: str) -> str:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(text)
+        return path
+
+    logits = "#define AA_WRITE_LOGITS\n"
+    sources = {
+        "logits_fwd": write(os.path.join(out_dir, "logits_fwd", "aa_fused.cu"),
+                            logits + source("aa_fused.cu")),
+        "logits_bwd": write(os.path.join(out_dir, "logits_bwd", "aa_fused_bwd.cu"),
+                            logits + source("aa_fused_bwd.cu")),
+        "one_term": write(os.path.join(out_dir, "one_term", "aa_fused.cu"), source("aa_fused.cu")),
+    }
+    # the copy's own header lies beside it, so its include finds that first
+    write(os.path.join(out_dir, "one_term", "mma_tf32.cuh"),
+          one_term_header(source("mma_tf32.cuh")))
+    libs = {name: lib for name, (lib, _) in kernel_build.build_copies(sources, out_dir).items()}
+    fwd, bwd = K3.configure_fwd(libs["logits_fwd"]), K3.configure_bwd(libs["logits_bwd"])
+    fwd.aa_fused_set_logits.argtypes = [ctypes.c_void_p]
+    bwd.aa_fused_bwd_set_logits.argtypes = [ctypes.c_void_p]
+    return {"logits_fwd": fwd, "logits_bwd": bwd, "one_term": K3.configure_fwd(libs["one_term"])}
+
+
+def phase_baseline_kernels(fused, checks: dict) -> tuple:
+    """K3 and K4 at the baseline's heads and shape (see the module's
+    docstring, phase L); returns the ``h4_*`` numbers of K3's and K4's
+    kernels lines."""
+    enc = fused.encoder
+    Th, A, D, H = enc.historical_steps, NUM_ACTORS, K3.KERNEL_DIM, enc.aa_encoder.attn.num_heads
+    shape = (TRAIN_BATCH, Th, A, A)
+    model_ws = tuple(w.contiguous() for w in K3.weights_of(K3.pack_aa_params(enc.aa_encoder)))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 24)
+    cases = {"model weights, keep None": (model_ws, False),
+             f"random weights, keep p={K3_DROPOUT:g}": (_random_aa_weights(gen, model_ws), True)}
+    k3_abs = k4_abs = 0.0
+    one_term = []
+    for case, (ws, with_keep) in cases.items():
+        q, u, mask, keep = _k3_inputs(shape, with_keep, gen, H)
+        g = torch.randn(q.shape, generator=gen, device="cuda")
+        p = K3_DROPOUT if with_keep else 0.0
+        what = f"{H} heads, {list(shape)}, {case}"
         with torch.no_grad():
-            fused(scene)
-        refused = None
-    except ValueError as e:
-        refused = str(e)
-    check(refused is not None and "H=8" in refused and _counts() == zero,
-          f"the fused baseline (4 heads) did not refuse on the card: {refused!r}, {_counts()}")
-    out["fused_refused"] = refused
-    print(f"[baseline] the fused baseline refuses on the card: {refused}; launches {_counts()}",
-          flush=True)
-    del fused
+            got = K3.fused_pair_attention(q, u, mask, keep, ws, H, p)
+            again = K3.fused_pair_attention(q, u, mask, keep, ws, H, p)
+            coarse = K3.launch_fwd(checks["one_term"], q, u, mask, keep, ws, H, p)[0]
+            want = K3.fused_pair_attention_reference(q, u, mask, keep, ws, H, p)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"aa_fused ({what}) is not finite")
+        check(torch.equal(got, again), f"aa_fused ({what}) is not bit-equal across two runs")
+        check(bool((got[:, :, ::7] == 0).all()), f"aa_fused ({what}): an empty receiver did not "
+              "give exactly 0")
+        diff = (got - want).abs().max().item()
+        rel = diff / want.abs().max().item()
+        one_term.append(((coarse - want).abs().max() / want.abs().max()).item())
+        k3_abs = max(k3_abs, diff)
+        print(f"[baseline-kernels] aa_fused {what}: bit-equal reruns, max|kernel - plain| "
+              f"{diff:.3e} = {rel:.3e} of max|plain| (tight {TOL_K3_TIGHT:g}); the one-term copy "
+              f"{one_term[-1]:.3e}", flush=True)
+        check(rel <= TOL_K3_TIGHT, f"aa_fused ({what}): {rel:.3e} > TOL_K3_TIGHT")
+        del got, again, coarse, want
 
-    model = build_model(BASELINE, device="cuda", seed=SEED)
+        out, stats = K3.fused_pair_attention_fwd(q, u, mask, keep, ws, H, p)
+        dq, dws = K3.fused_pair_attention_bwd(q, u, mask, keep, ws, g, H, p, out=out, stats=stats)
+        dq2, dws2 = K3.fused_pair_attention_bwd(q, u, mask, keep, ws, g, H, p, out=out,
+                                                stats=stats)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(dq).all()) and all(bool(torch.isfinite(d).all()) for d in dws),
+              f"aa_fused_bwd ({what}) is not finite")
+        check(torch.equal(dq, dq2) and all(torch.equal(a, b) for a, b in zip(dws, dws2)),
+              f"aa_fused_bwd ({what}) is not bit-equal across two runs")
+        check(bool((dq[:, :, ::7] == 0).all()), f"aa_fused_bwd ({what}): an empty receiver did "
+              "not give exactly 0")
+        del dq2, dws2
+        if with_keep:  # K4's recomputed logits against K3's, from the check copies
+            rows = q.shape[0] * q.shape[1] * q.shape[2] * u.shape[3]
+            lg3 = torch.full((rows, H), float("nan"), device="cuda")
+            lg4 = torch.full((rows, H), float("nan"), device="cuda")
+            check(checks["logits_fwd"].aa_fused_set_logits(lg3.data_ptr()) == 0, "set_logits")
+            out3, stats3 = K3.launch_fwd(checks["logits_fwd"], q, u, mask, keep, ws, H, p,
+                                         with_stats=True)
+            check(checks["logits_bwd"].aa_fused_bwd_set_logits(lg4.data_ptr()) == 0, "set_logits")
+            K3.launch_bwd(checks["logits_bwd"], q, u, mask, keep, ws, g, out3, stats3, H, p)
+            torch.cuda.synchronize()
+            check(not bool(torch.isnan(lg3).any()) and not bool(torch.isnan(lg4).any()),
+                  "a pair's logits were not written")
+            check(torch.equal(lg3, lg4), f"K4's recomputed logits ({what}) are not K3's")
+            check(torch.equal(out3, out) and torch.equal(stats3, stats),
+                  "the logits check copy of K3 gave other outputs than K3")
+            check(torch.equal(stats[0], lg4.view(stats.shape[1], -1, H).amax(dim=1)),
+                  "K3's softmax max is not the max of K4's recomputed logits")
+            print(f"[baseline-kernels] aa_fused_bwd {what}: its recomputed logits are K3's bit "
+                  f"for bit ({rows * H} logits), K3's softmax max their max", flush=True)
+            del lg3, lg4, out3, stats3
+        del out, stats
+        want_dq, want = K3.fused_pair_attention_bwd_reference(q, u, mask, keep, ws, g, H, p)
+        rels = {}
+        for k, a, b in zip(("dq", *K3.W_ORDER), (dq, *dws), (want_dq, *want)):
+            diff = (a - b).abs().max().item()
+            k4_abs = max(k4_abs, diff)
+            rels[k] = diff / max(b.abs().max().item(), 1e-30)
+            check(rels[k] <= k4_tol(k), f"aa_fused_bwd ({what}) {k}: {rels[k]:.3e} > {k4_tol(k):g}")
+        print(f"[baseline-kernels] aa_fused_bwd {what}: bit-equal reruns; max|kernel - plain| / "
+              f"max|plain|: " + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
+              + f" (tol {TOL_K4_SMOOTH:g} {', '.join(K4_SMOOTH_LEAVES)}; {TOL_K4_W:g} the other "
+              "weights)", flush=True)
+        del q, u, mask, keep, g, dq, dws, want_dq, want
+        torch.cuda.empty_cache()
+    check(max(one_term) > TOL_K3_TIGHT, f"the one-term copy of K3 passes TOL_K3_TIGHT at {H} "
+          f"heads ({max(one_term):.3e})")
+
+    # timed: K3 as the fused forward calls it (model weights, no keep), K4
+    # as a fused train step does (keep)
+    q, u, mask, keep = _k3_inputs(shape, True, gen, H)
+    g = torch.randn(q.shape, generator=gen, device="cuda")
     with torch.no_grad():
-        model(scene)   # warm-up
-        zero_counts()
-        pred = model(scene)
-        launches = _counts()
-        torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(lambda: model(scene), runs=5)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    K, Tf = model.decoder.num_modes, model.decoder.future_steps
-    check(pred["loc"].shape == (TRAIN_BATCH, K, NUM_ACTORS, Tf, 4)
-          and pred["pi"].shape == (TRAIN_BATCH, NUM_ACTORS, K), "baseline output shapes")
-    check(all(bool(torch.isfinite(pred[k]).all()) for k in ("loc", "pi")),
-          "non-finite baseline output")
-    check(launches == zero, f"the dense baseline's forward launched {launches}")
-    del pred
-    out.update(forward_ms=ms, forward_scenes_per_s=TRAIN_BATCH / ms * 1e3, forward_peak_gib=peak,
-               forward_launches=launches)
-    print(f"[baseline] {card}: dense forward at batch {TRAIN_BATCH}: {ms:.2f} ms (CUDA events, "
-          f"median of 5), {TRAIN_BATCH / ms * 1e3:.1f} scenes/s, peak {peak:.2f} GiB; launches "
-          f"{launches}", flush=True)
+        k3_ms = cuda_ms(lambda: K3.fused_pair_attention(q, u, mask, None, model_ws, H))
+        k3_plain = cuda_ms(lambda: K3.fused_pair_attention_reference(q, u, mask, None, model_ws,
+                                                                     H), runs=5, warmup=1)
+    out, stats = K3.fused_pair_attention_fwd(q, u, mask, keep, model_ws, H, K3_DROPOUT)
+    k4_ms = cuda_ms(lambda: K3.fused_pair_attention_bwd(q, u, mask, keep, model_ws, g, H,
+                                                        K3_DROPOUT, out=out, stats=stats))
+    del out, stats
+    torch.cuda.empty_cache()
+    k4_plain = cuda_ms(lambda: K3.fused_pair_attention_bwd_reference(q, u, mask, keep, model_ws, g,
+                                                                     H, K3_DROPOUT),
+                       runs=5, warmup=1)
+    del q, u, mask, keep, g
+    torch.cuda.empty_cache()
+    lines = []
+    for name, ms, plain, bound, abs_err in (
+            ("aa_fused", k3_ms, k3_plain, aa_fused_bound(*shape, D, H, False), k3_abs),
+            ("aa_fused_bwd", k4_ms, k4_plain, aa_fused_bwd_bound(*shape, D, H, True), k4_abs)):
+        cores, cores_by, flops, nbytes, route, route_by = bound
+        print(f"[baseline-kernels] {name} at {H} heads, {list(shape)}: {ms:.3f} ms (median of "
+              f"{TIMED_RUNS}), bound {route:.3f} ms by {route_by} on its route (3xTF32 products "
+              f"on the tensor cores) and {cores:.3f} ms by {cores_by} on the CUDA cores "
+              f"({flops:.3e} flop, {nbytes:.3e} B), {flops / ms / 1e9:.1f} TFLOP/s; plain "
+              f"{plain:.3f} ms (median of 5)", flush=True)
+        lines.append(dict(h4_shape=list(shape), h4_ms=ms, h4_plain_ms=plain, h4_bound_ms=route,
+                          h4_bound_by=route_by, h4_cuda_core_bound_ms=cores,
+                          h4_max_abs_err=abs_err))
+    lines[0]["h4_one_term_max_rel_err"] = max(one_term)
+    return lines[0], lines[1]
 
-    zero_counts()
-    times, totals, peak = baseline_train_steps(model, BASELINE, scene, BASELINE_STEPS)
-    launches = _counts()
-    ms = statistics.median(times[1:])
-    out.update(train_ms=ms, train_step_ms=times, train_scenes_per_s=TRAIN_BATCH / ms * 1e3,
-               train_peak_gib=peak, train_losses=totals, train_launches=launches)
-    print(f"[baseline] {card}: dense train step at batch {TRAIN_BATCH}: "
-          + " ".join(f"{t:.1f}" for t in times) + f" ms (CUDA events; median of the last "
-          f"{BASELINE_STEPS - 1} {ms:.1f}), {TRAIN_BATCH / ms * 1e3:.1f} scenes/s, peak "
-          f"{peak:.2f} GiB; loss " + " ".join(f"{x:.4f}" for x in totals)
-          + f"; launches {launches}", flush=True)
-    check(launches == zero, f"the dense baseline's train steps launched {launches}")
-    check(totals[-1] < totals[0], "the baseline's loss did not fall")
-    model.eval()
 
-    raws = [make_raw_scene(rng, i % 2, num_actors=NUM_ACTORS, num_lanes=NUM_LANES)
-            for i in range(BASELINE_SCENES)]
+def _baseline_engine(model, raws, card: str, tag: str) -> dict:
+    """A scan engine over ``model``: pipelined vs serial ``predict`` of
+    ``raws`` (launches counted across the pipelined one), timed in 2
+    alternating rounds, then BASELINE_SINGLES single scenes."""
     piped, serial = (ServingEngine(model, num_actors=NUM_ACTORS, num_lanes=NUM_LANES,
                                    device="cuda", seed=SEED, max_batch=TRAIN_BATCH)
                      for _ in range(2))
@@ -1848,13 +1972,13 @@ def phase_baseline(card: str) -> dict:
         got = piped.predict(raws)
         launches = _counts()
         want = serial.predict(raws, pipeline=False)
-        _check_results(got, BASELINE_SCENES, model)
-        check(launches == zero, f"the scan engine launched {launches}")
+        _check_results(got, len(raws), model)
         rel, equal = _results_distance(got, want)
-        print(f"[baseline] scan engine: pipelined vs serial predict of {BASELINE_SCENES} scenes: "
+        print(f"[baseline] {tag} scan engine: pipelined vs serial predict of {len(raws)} scenes: "
               f"max rel. difference {rel:.3e} (tol {TOL_PIPELINE:g}), bit-equal {equal}; "
               f"launches {launches}", flush=True)
-        check(rel <= TOL_PIPELINE, "the scan engine's pipelined predict disagrees with serial")
+        check(rel <= TOL_PIPELINE, f"the {tag} scan engine's pipelined predict disagrees with "
+              "serial")
         del got, want
         times = {"pipelined": [], "serial": []}
         for r in range(2):
@@ -1863,8 +1987,7 @@ def phase_baseline(card: str) -> dict:
                 t0 = time.perf_counter()
                 piped.predict(raws, pipeline=mode == "pipelined")
                 times[mode].append(time.perf_counter() - t0)
-        engine = {f"{m}_scenes_per_s": BASELINE_SCENES / statistics.median(t)
-                  for m, t in times.items()}
+        engine = {f"{m}_scenes_per_s": len(raws) / statistics.median(t) for m, t in times.items()}
         engine.update(pipeline_rel=rel, pipeline_bit_equal=equal, launches=launches)
         piped.reset_stats()
         for raw in raws[:BASELINE_SINGLES]:
@@ -1873,8 +1996,7 @@ def phase_baseline(card: str) -> dict:
         check(st["served"] == BASELINE_SINGLES and st["mean_batch"] == 1.0,
               f"single requests {st}")
         engine["single"] = st
-        out["engine"] = engine
-        print(f"[baseline] {card}: scan engine, {BASELINE_SCENES} scenes a predict in batches "
+        print(f"[baseline] {card}: {tag} scan engine, {len(raws)} scenes a predict in batches "
               f"of {TRAIN_BATCH}, 2 alternating rounds (host clock): pipelined "
               f"{engine['pipelined_scenes_per_s']:.1f} scenes/s, serial "
               f"{engine['serial_scenes_per_s']:.1f}; {BASELINE_SINGLES} single scenes: p50 "
@@ -1882,6 +2004,86 @@ def phase_baseline(card: str) -> dict:
     finally:
         piped.close()
         serial.close()
+    return engine
+
+
+def phase_baseline(card: str) -> dict:
+    """L. The HiVT baseline at the published widths (see the module's
+    docstring).  Returns K3's and K4's numbers at 4 heads, and for the
+    dense and the fused model the forward's and the train step's times,
+    scenes/s, peak memory and launches, and the engine's numbers."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 23)
+    scene = _train_batch(rng, TRAIN_BATCH).to("cuda")
+    zero = {k: 0 for k in _counts()}
+    models = {"dense": build_model(BASELINE, device="cuda", seed=SEED),
+              "fused": build_model(BASELINE_TRAIN, device="cuda", seed=SEED)}
+    models["fused"].load_state_dict(models["dense"].state_dict())
+    out = {}
+    out["k3"], out["k4"] = phase_baseline_kernels(models["fused"], build_check_copies())
+
+    preds = {}
+    for tag, model in models.items():
+        with torch.no_grad():
+            model(scene)   # warm-up
+            zero_counts()
+            preds[tag] = model(scene)
+            launches = _counts()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: model(scene), runs=5)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        pred = preds[tag]
+        K, Tf = model.decoder.num_modes, model.decoder.future_steps
+        check(pred["loc"].shape == (TRAIN_BATCH, K, NUM_ACTORS, Tf, 4)
+              and pred["pi"].shape == (TRAIN_BATCH, NUM_ACTORS, K), f"{tag} baseline output shapes")
+        check(all(bool(torch.isfinite(pred[k]).all()) for k in ("loc", "pi")),
+              f"non-finite {tag} baseline output")
+        want = zero if tag == "dense" else dict(zero, aa_fused=1)
+        check(launches == want, f"the {tag} baseline's forward launched {launches}")
+        out[tag] = dict(forward_ms=ms, forward_scenes_per_s=TRAIN_BATCH / ms * 1e3,
+                        forward_peak_gib=peak, forward_launches=launches)
+        print(f"[baseline] {card}: {tag} forward at batch {TRAIN_BATCH}: {ms:.2f} ms (CUDA events, "
+              f"median of 5), {TRAIN_BATCH / ms * 1e3:.1f} scenes/s, peak {peak:.2f} GiB; "
+              f"launches {launches}", flush=True)
+    for k in ("loc", "pi"):
+        err = (preds["fused"][k] - preds["dense"][k]).abs().max().item()
+        print(f"[baseline] fused vs dense forward, {k}: max |fused - dense| = {err:.3e} "
+              f"(tol {TOL_SPLICE:g}) over {tuple(preds['dense'][k].shape)}", flush=True)
+        check(err < TOL_SPLICE, f"the fused baseline's {k} disagrees with the dense one")
+        out["fused"][f"vs_dense_{k}"] = err
+    del preds
+
+    for tag, cfg in (("dense", BASELINE), ("fused", BASELINE_TRAIN)):
+        zero_counts()
+        times, totals, peak = baseline_train_steps(models[tag], cfg, scene, BASELINE_STEPS)
+        launches = _counts()
+        ms = statistics.median(times[1:])
+        out[tag].update(train_ms=ms, train_step_ms=times, train_scenes_per_s=TRAIN_BATCH / ms * 1e3,
+                        train_peak_gib=peak, train_losses=totals, train_launches=launches)
+        print(f"[baseline] {card}: {tag} train step at batch {TRAIN_BATCH}: "
+              + " ".join(f"{t:.1f}" for t in times) + f" ms (CUDA events; median of the last "
+              f"{BASELINE_STEPS - 1} {ms:.1f}), {TRAIN_BATCH / ms * 1e3:.1f} scenes/s, peak "
+              f"{peak:.2f} GiB; loss " + " ".join(f"{x:.4f}" for x in totals)
+              + f"; launches {launches}", flush=True)
+        want = zero if tag == "dense" else dict(zero, aa_fused=BASELINE_STEPS,
+                                                aa_fused_bwd=BASELINE_STEPS)
+        check(launches == want, f"the {tag} baseline's train steps launched {launches}")
+        check(totals[-1] < totals[0], f"the {tag} baseline's loss did not fall")
+        models[tag].eval()
+    print(f"[baseline] {card}: fused vs dense, batch {TRAIN_BATCH}: forward "
+          f"{out['fused']['forward_ms']:.2f} vs {out['dense']['forward_ms']:.2f} ms, train step "
+          f"{out['fused']['train_ms']:.1f} vs {out['dense']['train_ms']:.1f} ms, peak "
+          f"{out['fused']['train_peak_gib']:.2f} vs {out['dense']['train_peak_gib']:.2f} GiB",
+          flush=True)
+
+    raws = [make_raw_scene(rng, i % 2, num_actors=NUM_ACTORS, num_lanes=NUM_LANES)
+            for i in range(BASELINE_SCENES)]
+    batches = -(-BASELINE_SCENES // TRAIN_BATCH)
+    for tag, model in models.items():
+        engine = _baseline_engine(model, raws, card, tag)
+        want = zero if tag == "dense" else dict(zero, aa_fused=batches)
+        check(engine["launches"] == want, f"the {tag} scan engine launched {engine['launches']}")
+        out[tag]["engine"] = engine
     print(f"[baseline] phase L: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
 
@@ -1936,6 +2138,8 @@ def main() -> None:
         engine_k = phase_engine(d, card)
     torch.cuda.empty_cache()
     baseline = phase_baseline(card)
+    k3.update(baseline["k3"])
+    k4.update(baseline["k4"])
     # launches: the count on the kernel's own main path (serving for K1,
     # training for K2, fused serving for K3, fused-encoder training for K4);
     # launches_by_path: every path's
@@ -1967,10 +2171,12 @@ def main() -> None:
         # phase K: the micro-batcher's submitted scenes, and serve_torch.py
         entry["launches_by_path"]["engine_submit"] = engine_k["submit"]["launches"][name]
         entry["launches_by_path"]["serve_cli"] = engine_k["serve_cli"]["launches"][name]
-        # phase L: the baseline's forward, train steps and scan engine
-        entry["launches_by_path"]["baseline_forward"] = baseline["forward_launches"][name]
-        entry["launches_by_path"]["baseline_train"] = baseline["train_launches"][name]
-        entry["launches_by_path"]["baseline_engine"] = baseline["engine"]["launches"][name]
+        # phase L: the baseline's forward, train steps and scan engine, dense and fused
+        for tag, prefix in (("dense", "baseline"), ("fused", "baseline_fused")):
+            paths, b = entry["launches_by_path"], baseline[tag]
+            paths[f"{prefix}_forward"] = b["forward_launches"][name]
+            paths[f"{prefix}_train"] = b["train_launches"][name]
+            paths[f"{prefix}_engine"] = b["engine"]["launches"][name]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches: {served} serving + "
           f"{served_fused} fused serving + {train['sde_rollout']} training + "
           f"{train_fused['sde_rollout']} fused-encoder training; K2 launches: "
@@ -1984,9 +2190,11 @@ def main() -> None:
           + f"; the CLI's train_torch.py epoch: {cli['train']['launches']}, test_torch.py: "
           f"{cli['test plain']['launches']}; the engine's {SUBMITTED} submitted scenes: "
           f"{engine_k['submit']['launches']} for {engine_k['submit']['batches']} batches; "
-          f"serve_torch.py: {engine_k['serve_cli']['launches']}; the baseline's forward, "
-          f"{BASELINE_STEPS} train steps and scan engine: {baseline['forward_launches']}, "
-          f"{baseline['train_launches']}, {baseline['engine']['launches']}", flush=True)
+          f"serve_torch.py: {engine_k['serve_cli']['launches']}; "
+          + "; ".join(f"the {tag} baseline's forward, {BASELINE_STEPS} train steps and scan "
+                      f"engine: {b['forward_launches']}, {b['train_launches']}, "
+                      f"{b['engine']['launches']}"
+                      for tag, b in ((t, baseline[t]) for t in ("dense", "fused"))), flush=True)
     print(card)
     print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

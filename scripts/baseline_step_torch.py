@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Train steps of the HiVT baseline at the YAML's own batch (needs a card).
 
-    python scripts/baseline_step_torch.py [--batch 512]
+    python scripts/baseline_step_torch.py [--batch 512] [--fused]
 
 Builds ``BASELINE`` (``configs/nusargo/hivt_nuSArgo_trmenc_mlpdec.yml``, the
-dense AA pair chain) at the published widths from ``chip_smoke.SEED``, packs
-``--batch`` synthetic scenes of both sources (48 actors, 192 lanes) and
-takes ``chip_smoke.BASELINE_STEPS`` train steps on them through phase L's
-own ``chip_smoke.baseline_train_steps``.  Prints the card's name and power
+dense AA pair chain), or with ``--fused`` ``BASELINE_TRAIN`` (the pair
+chain through kernels K3 and K4), at the published widths from
+``chip_smoke.SEED``, packs ``--batch`` synthetic scenes of both sources
+(48 actors, 192 lanes) and takes ``chip_smoke.BASELINE_STEPS`` train steps
+on them through phase L's own ``chip_smoke.baseline_train_steps``.  Prints the card's name and power
 limit, each step's CUDA-event time, the median of all but the first,
 scenes/s and the peak device memory, then one JSON line with every number.
 A batch that does not fit prints the out-of-memory error in the JSON line
@@ -28,12 +29,14 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import BASELINE_STEPS, SEED, _train_batch, baseline_train_steps  # noqa: E402
-from trajsde_tpu_torch.config import BASELINE, build_model  # noqa: E402
+from trajsde_tpu_torch.config import BASELINE, BASELINE_TRAIN, build_model  # noqa: E402
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, default=512)
+    ap.add_argument("--fused", action="store_true",
+                    help="BASELINE_TRAIN: the AA pair chain through K3 and K4")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the steps run on the card")
@@ -43,19 +46,20 @@ def main() -> None:
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
     scene = _train_batch(np.random.default_rng(SEED + 23), args.batch).to("cuda")
-    model = build_model(BASELINE, device="cuda", seed=SEED)
-    report = dict(card=card, batch=args.batch)
+    cfg, path = (BASELINE_TRAIN, "fused") if args.fused else (BASELINE, "dense")
+    model = build_model(cfg, device="cuda", seed=SEED)
+    report = dict(card=card, batch=args.batch, path=path)
     try:
-        times, losses, peak = baseline_train_steps(model, BASELINE, scene, BASELINE_STEPS)
+        times, losses, peak = baseline_train_steps(model, cfg, scene, BASELINE_STEPS)
     except torch.cuda.OutOfMemoryError as e:
         report.update(oom=str(e).splitlines()[0],
                       peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-        print(f"[baseline-step] {card}: batch {args.batch}: {report['oom']}", flush=True)
+        print(f"[baseline-step] {card}: batch {args.batch}, {path}: {report['oom']}", flush=True)
     else:
         ms = statistics.median(times[1:])
         report.update(steps_ms=times, losses=losses, peak_gib=peak, ms=ms,
                       scenes_per_s=args.batch / ms * 1e3)
-        print(f"[baseline-step] {card}: batch {args.batch}, dense: steps "
+        print(f"[baseline-step] {card}: batch {args.batch}, {path}: steps "
               + " ".join(f"{t:.1f}" for t in times) + f" ms (CUDA events), median after the "
               f"first {ms:.1f} ms, {report['scenes_per_s']:.1f} scenes/s, peak {peak:.2f} GiB, "
               "loss " + " ".join(f"{x:.4f}" for x in losses), flush=True)

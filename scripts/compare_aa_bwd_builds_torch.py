@@ -2,13 +2,16 @@
 """K4 (the fused AA backward) as it is against other builds, timed in turns
 on one card (needs a card and nvcc).
 
-    git show HEAD~1:trajsde_tpu_torch/csrc/aa_fused_bwd.cu > _checkouts/aa_fused_bwd.base.cu
-    python scripts/compare_aa_bwd_builds_torch.py --base parent=_checkouts/aa_fused_bwd.base.cu \
-        [--base NAME=PATH ...]
+    mkdir -p _checkouts/parent
+    git show HEAD~1:trajsde_tpu_torch/csrc/aa_fused_bwd.cu > _checkouts/parent/aa_fused_bwd.cu
+    git show HEAD~1:trajsde_tpu_torch/csrc/aa_common.cuh > _checkouts/parent/aa_common.cuh
+    python scripts/compare_aa_bwd_builds_torch.py --base parent=_checkouts/parent/aa_fused_bwd.cu \
+        [--base NAME=PATH ...] [--heads 8|4] [--same-bits]
 
 Builds, in parallel, each ``--base`` (another version of
 ``trajsde_tpu_torch/csrc/aa_fused_bwd.cu``, compiled where it lies, so
-headers beside it come first, then this tree's) and four copies of the
+headers beside it come first, then this tree's: a base whose headers
+differ from this tree's needs them beside it) and four copies of the
 current source: ``no-swizzle``, whose tile swizzle (``aa_common.cuh``'s
 ``swz``) is the identity (the swizzled chunk tiles read by plain rows);
 ``one-term``, whose tensor-core products take one TF32 product per term
@@ -16,16 +19,22 @@ current source: ``no-swizzle``, whose tile swizzle (``aa_common.cuh``'s
 ``no-recompute``, whose recompute's three chain products are (calls to
 ``mm<`` or ``tc::mma_xwt_split<``, as ``skip_products`` finds them; both
 give wrong gradients and time the rest of the kernel), beside the current
-build (``change``).  At the training twin shape (B 128, T 21, Aq 49, Ak
-48, D 64, H 8) with a dropout keep mask, the flagship's packed AA weights
-and a random cotangent, it holds the dq and weight gradients of each build
-against the plain backward by ``chip_smoke.k4_tol``: the bases, change
-and no-swizzle must pass and one-term must fail; no-swizzle must give the
-change's bits.  Then it times the builds in the order of the bases,
-change, no-swizzle, no-products, no-recompute, then back (CUDA-event medians of
+build (``change``).  With ``--heads 8`` (the default) at the flagship's
+training twin shape (B 128, T 21, Aq 49, Ak 48, D 64, H 8), with
+``--heads 4`` at the HiVT baseline's (B 128, T 21, Aq = Ak = 48, H 4),
+with a dropout keep mask, the model's packed AA weights and a random
+cotangent, it holds the dq and weight gradients of each build that has
+entry points for those heads against the plain backward by
+``chip_smoke.k4_tol``: the bases, change and no-swizzle must pass and
+one-term must fail; no-swizzle must give the change's bits.  At 8 heads
+and the flagship's shape it also says whether the change gives each
+base's outputs bit for bit, and with ``--same-bits`` fails if not.  Then
+it times the builds in the order of the bases, change, no-swizzle,
+no-products, no-recompute, then back (CUDA-event medians of
 ``chip_smoke.TIMED_RUNS``).  It prints ptxas's register and spill lines
-of each build, one line per timing and one JSON line with every number.
-Exits non-zero if a check fails.
+of each build (one set per head count the build has), one line per
+timing and one JSON line with every number.  Exits non-zero if a check
+fails.
 """
 from __future__ import annotations
 
@@ -42,8 +51,9 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import (K3_DROPOUT, NUM_ACTORS, SEED, TRAIN_BATCH, _k3_inputs,  # noqa: E402
-                        aa_fused_bwd_bound, cuda_ms, k4_tol)
-from trajsde_tpu_torch.config import FLAGSHIP_TRAIN_FUSED, build_model  # noqa: E402
+                        aa_fused_bwd_bound, cuda_ms, k4_tol, one_term_header)
+from trajsde_tpu_torch.config import (BASELINE_TRAIN, FLAGSHIP_TRAIN_FUSED,  # noqa: E402
+                                      build_model)
 from trajsde_tpu_torch.ops import aa_fused as K3  # noqa: E402
 from trajsde_tpu_torch.ops import build  # noqa: E402
 
@@ -52,9 +62,6 @@ HEADER = Path(build.CSRC_DIR) / "mma_tf32.cuh"
 COMMON_HEADER = Path(build.CSRC_DIR) / "aa_common.cuh"
 OUT_DIR = Path(build.BUILD_DIR) / "compare"
 SWIZZLE_KEY = "  const int key = ((row & 3) << 1) | ((row >> 2) & 1);\n"
-# the two small terms of each k-step in mma_tf32.cuh's mma3x2 and mma3x2_apart
-SMALL_TERMS = ("  mma(c, as0, bb0);\n", "  mma(c, ab0, bs0);\n", "  mma(c, as1, bb1);\n",
-               "  mma(c, ab1, bs1);\n")
 # a stand-in for the two product helpers that does nothing
 SKIP = """
 namespace tc {
@@ -93,15 +100,6 @@ def ptxas_lines(text: str) -> list:
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
 
 
-def one_term_header(header: str) -> str:
-    """``mma_tf32.cuh`` with one TF32 product (big * big) per k-step."""
-    for term in SMALL_TERMS:
-        if header.count(term) != 2:
-            raise RuntimeError(f"{term!r} is not in {HEADER}'s two product sums")
-        header = header.replace(term, "")
-    return header
-
-
 def build_variants(bases: dict) -> dict:
     """name -> (configured library, ptxas lines), built in parallel."""
     current, header, common = SOURCE.read_text(), HEADER.read_text(), COMMON_HEADER.read_text()
@@ -130,10 +128,22 @@ def build_variants(bases: dict) -> dict:
     return libs
 
 
+def aa_weights(cfg) -> tuple:
+    """(historical steps, the packed AA weights) of ``cfg``'s seeded model."""
+    model = build_model(cfg, device="cuda", seed=SEED)
+    enc = model.encoder
+    return enc.historical_steps, tuple(
+        w.contiguous() for w in K3.weights_of(K3.pack_aa_params(enc.aa_encoder)))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--base", action="append", required=True, metavar="NAME=PATH",
                     help="another version of csrc/aa_fused_bwd.cu and its name")
+    ap.add_argument("--heads", type=int, choices=K3.KERNEL_HEAD_COUNTS, default=K3.KERNEL_HEADS,
+                    help="check and time at the flagship's 8 heads or the baseline's 4")
+    ap.add_argument("--same-bits", action="store_true",
+                    help="fail unless the change's 8-head outputs are each base's bits")
     args = ap.parse_args()
     bases = dict((name, Path(path)) for name, path in (b.split("=", 1) for b in args.base))
     if not torch.cuda.is_available():
@@ -147,23 +157,44 @@ def main() -> None:
     for name, (_, lines) in libs.items():
         for line in lines:
             print(f"[build] {name}: {line}", flush=True)
-
-    model = build_model(FLAGSHIP_TRAIN_FUSED, device="cuda", seed=SEED)
-    Th, D, H = model.encoder.historical_steps, K3.KERNEL_DIM, K3.KERNEL_HEADS
-    ws = tuple(w.contiguous() for w in K3.weights_of(K3.pack_aa_params(model.encoder.aa_encoder)))
-    del model
-    shape = (TRAIN_BATCH, Th, NUM_ACTORS + 1, NUM_ACTORS)
+    D, H = K3.KERNEL_DIM, args.heads
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    failures = []
+
+    # the change against each base at 8 heads, the flagship's shape, bit for bit
+    Th, ws = aa_weights(FLAGSHIP_TRAIN_FUSED)
+    shape = (TRAIN_BATCH, Th, NUM_ACTORS + 1, NUM_ACTORS)
     q, u, mask, keep = _k3_inputs(shape, True, gen)
     g = torch.randn(q.shape, generator=gen, device="cuda")
+    out, stats = K3.fused_pair_attention_fwd(q, u, mask, keep, ws, 8, K3_DROPOUT)
+    ref = K3.launch_bwd(libs["change"][0], q, u, mask, keep, ws, g, out, stats, 8, K3_DROPOUT)
+    same_bits = {}
+    for name in bases:
+        dq, dws = K3.launch_bwd(libs[name][0], q, u, mask, keep, ws, g, out, stats, 8, K3_DROPOUT)
+        same_bits[name] = (torch.equal(dq, ref[0])
+                           and all(torch.equal(a, b) for a, b in zip(dws, ref[1])))
+    print(f"[check] at 8 heads, {list(shape)}: the change's dq and weight gradients are each "
+          f"base's bits: {same_bits}", flush=True)
+    if args.same_bits and not all(same_bits.values()):
+        failures.append(f"the change's 8-head outputs differ from a base's: {same_bits}")
+    del q, u, mask, keep, g, out, stats, ref
+    torch.cuda.empty_cache()
+
+    if H != 8:
+        Th, ws = aa_weights(BASELINE_TRAIN)
+        shape = (TRAIN_BATCH, Th, NUM_ACTORS, NUM_ACTORS)
+    q, u, mask, keep = _k3_inputs(shape, True, gen, H)
+    g = torch.randn(q.shape, generator=gen, device="cuda")
     out, stats = K3.fused_pair_attention_fwd(q, u, mask, keep, ws, H, K3_DROPOUT)
+    at_heads = [n for n in libs if K3.has_heads(libs[n][0], "aa_fused_bwd", H)]
+    print(f"[check] builds with {H}-head entry points: {', '.join(at_heads)}", flush=True)
 
     def run(name):
         return K3.launch_bwd(libs[name][0], q, u, mask, keep, ws, g, out, stats, H, K3_DROPOUT)
 
-    got = {name: run(name) for name in libs if name not in ("no-products", "no-recompute")}
+    got = {name: run(name) for name in at_heads if name not in ("no-products", "no-recompute")}
     want_dq, want = K3.fused_pair_attention_bwd_reference(q, u, mask, keep, ws, g, H, K3_DROPOUT)
-    errs, failures = {}, []
+    errs = {}
     for name, (dq, dws) in got.items():
         rels = {}
         over = []
@@ -184,24 +215,23 @@ def main() -> None:
     print(f"[check] no-swizzle gives the change's bits: {same}", flush=True)
     if not same:
         failures.append("no-swizzle differs from change")
-    dq_same = {name: torch.equal(got[name][0], got["change"][0]) for name in bases}
-    print(f"[check] change's dq is each base's bits: {dq_same}", flush=True)
     del got, want_dq, want
     torch.cuda.empty_cache()
 
-    order = (*bases, "change", "no-swizzle", "no-products", "no-recompute")
+    order = tuple(n for n in (*bases, "change", "no-swizzle", "no-products", "no-recompute")
+                  if n in at_heads)
     order += order[::-1]
     times = []
     for name in order:
         ms = cuda_ms(lambda: run(name))
         times.append((name, ms))
-        print(f"[time] {name}: {ms:.3f} ms", flush=True)
+        print(f"[time] {H} heads {list(shape)}: {name}: {ms:.3f} ms", flush=True)
     bound = aa_fused_bwd_bound(*shape, D, H, True)
-    print(json.dumps({"card": card, "shape": list(shape), "keep_p": K3_DROPOUT,
+    print(json.dumps({"card": card, "heads": H, "shape": list(shape), "keep_p": K3_DROPOUT,
                       "times_ms": times, "bound_ms": bound[0], "tensor_route_bound_ms": bound[4],
                       "tensor_route_bound_by": bound[5],
                       "ptxas": {k: v[1] for k, v in libs.items()}, "max_rel_err_vs_plain": errs,
-                      "dq_equals_change": dq_same}),
+                      "same_bits_at_8_heads": same_bits}),
           flush=True)
     if failures:
         raise SystemExit("checks failed: " + "; ".join(failures))

@@ -43,8 +43,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import (NUM_ACTORS, SEED, TOL_K1_TIGHT, _increments, cuda_ms,  # noqa: E402
-                        rollout_bound)
-from scripts.compare_aa_bwd_builds_torch import one_term_header, ptxas_lines  # noqa: E402
+                        one_term_header, rollout_bound)
+from scripts.compare_aa_bwd_builds_torch import ptxas_lines  # noqa: E402
 from trajsde_tpu_torch.config import FLAGSHIP, build_model  # noqa: E402
 from trajsde_tpu_torch.ops import build  # noqa: E402
 from trajsde_tpu_torch.ops import sde_rollout as K1  # noqa: E402

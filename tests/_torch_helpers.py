@@ -127,6 +127,23 @@ def packed_aa_weights(r: np.random.Generator, dense: bool, D: int = 64):
     return tuple(ws[k] for k in W_ORDER)
 
 
+def kernel_head_logits(qh: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``aa_fused._head_logits`` in K3's order (``aa_common.cuh``'s
+    ``head_logit``, which K4's recompute shares): per lane of 4 columns
+    q0 k0 rounded, then three FMAs (each exact in f64, then rounded once to
+    f32), the lanes of a head summed pairwise in f32 by the butterfly (2
+    lanes at 8 heads; (l0 + l1) + (l2 + l3) at 4), times 1/sqrt(hd)."""
+    R, Ak, H, hd = k.shape
+    q4 = qh.expand_as(k).reshape(R, Ak, H, hd // 4, 4).double()
+    k4 = k.reshape(R, Ak, H, hd // 4, 4).double()
+    part = (q4[..., 0] * k4[..., 0]).float()
+    for c in range(1, 4):
+        part = (q4[..., c] * k4[..., c] + part.double()).float()
+    while part.shape[-1] > 1:   # xor 1, then xor 2
+        part = part[..., 0::2] + part[..., 1::2]
+    return part[..., 0] * (1.0 / hd ** 0.5)
+
+
 @contextlib.contextmanager
 def torch_threads(n: int):
     """Run the body on at most ``n`` intra-op threads: the emulated

@@ -2,8 +2,10 @@
 ``encoder.fused: true`` path vs the JAX package on the CPU.
 
 The JAX side runs as ``tests/test_aa_fused.py`` runs it: the Pallas op in
-interpret mode.  Tolerances: the packed weights are exact (the same
-numbers moved); ``build_pair_features`` 1e-6 (four f32 products);
+interpret mode; the plain K3 at the JAX tests' width (D 16, 4 heads) and
+the kernels' own (D 64 at 8 and 4 heads).  Tolerances: the packed weights
+are exact (the same numbers moved); ``build_pair_features`` 1e-6 (four
+f32 products);
 the plain K3 rtol 1e-5 / atol 1e-6 (the same f32 chain, summed in another
 order); one ``AAEncoder`` 1e-5; the SDE encoder and the whole model 1e-4
 (21 ODE-RNN and 60 rollout steps; LayerNorm statistics by matmul in the
@@ -114,12 +116,18 @@ def test_build_pair_features_matches_jax():
 # --------------------------------------------------------------------------
 # the plain K3
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("with_keep", [False, True])
-@pytest.mark.parametrize("weights", ["model", "random"])
-def test_plain_k3_matches_jax(weights, with_keep):
+# (weights, with_keep, D, H): the JAX tests' width (D 16, 4 heads), then
+# the kernels' own, D 64 at the flagship's 8 heads and the baseline's 4
+CHAIN_CASES = [pytest.param(w, k, d, h, id=f"{w}-{k}" + ("" if d == 16 else f"-D{d}-H{h}"))
+               for d, h in ((16, 4), (64, 8), (64, 4))
+               for w in ("model", "random") for k in (False, True)]
+
+
+@pytest.mark.parametrize("weights,with_keep,D,H", CHAIN_CASES)
+def test_plain_k3_matches_jax(weights, with_keep, D, H):
     """Aq != Ak, T*Aq = 15 rows padded to two tiles of 8 by JAX, one empty
     receiver; the model's block-diagonal weights and fully random ones."""
-    B, T, Aq, Ak, D, H, p = 2, 3, 5, 4, 16, 4, 0.1
+    B, T, Aq, Ak, p = 2, 3, 5, 4, 0.1
     r = np.random.default_rng(2)
     if weights == "model":
         _, params, _, _ = _encoders(D, H, T)

@@ -3,16 +3,20 @@
 the JAX package on the CPU.
 
 The JAX side runs as ``tests/test_aa_fused.py`` runs it: the Pallas op and
-its custom VJP (``_bwd_call``) in interpret mode.  Tolerances: the plain K4
-rtol 1e-4 / atol 1e-5 for ``dq`` and 1e-4 / 1e-4 for the weight gradients
-(``tests/test_aa_fused.py``'s, the same f32 chain differentiated in another
-order); one ``AAEncoder``'s gradients rtol 1e-3 / atol 1e-4 (1e-5 for
-``x_q``), as ``tests/test_aa_fused.py`` holds the fused encoder to the dense
-one; one whole train step: the loss rtol 2e-4 and every gradient leaf
-max|diff| <= 2e-3 x leaf scale + 1e-6 (``tests/test_torch_train.py``'s).
+its custom VJP (``_bwd_call``) in interpret mode, at the JAX tests' width
+(D 16, 4 heads) and the kernels' own (D 64 at 8 and 4 heads).
+Tolerances: the plain K4 rtol 1e-4 / atol 1e-5 for ``dq`` and 1e-4 / 1e-4
+for the weight gradients (``tests/test_aa_fused.py``'s, the same f32 chain
+differentiated in another order); one ``AAEncoder``'s gradients rtol 1e-3
+/ atol 1e-4 (1e-5 for ``x_q``), as ``tests/test_aa_fused.py`` holds the
+fused encoder to the dense one; one whole train step: the loss rtol 2e-4
+and every gradient leaf max|diff| <= 2e-3 x leaf scale + 1e-6
+(``tests/test_torch_train.py``'s).
 """
 import copy
+import ctypes
 import math
+import types
 
 import jax
 import jax.numpy as jnp
@@ -75,11 +79,11 @@ def _random_ws(r, D=16):
                  .astype(np.float32) for k in K3.W_ORDER)
 
 
-def _op_case(weights, with_keep, seed=2):
+def _op_case(weights, with_keep, seed=2, D=16, H=4):
     """Aq != Ak, T*Aq = 15 rows in backward tiles of 4 (the last one
     padded by JAX), a receiver with no sender; numpy inputs, the cotangent
     and the JAX op's (dq, dws) from ``jax.vjp`` of the interpret-mode op."""
-    Bq, T, Aq, Ak, D, H, p = 2, 3, 5, 4, 16, 4, 0.1
+    Bq, T, Aq, Ak, p = 2, 3, 5, 4, 0.1
     r = np.random.default_rng(seed)
     ws = _model_ws(D, H, T) if weights == "model" else _random_ws(r, D)
     q = r.standard_normal((Bq, T, Aq, D)).astype(np.float32)
@@ -111,10 +115,16 @@ def _assert_grads(dq, dws, want, ws):
 # --------------------------------------------------------------------------
 # (a) the plain K4 vs the JAX backward
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("with_keep", [False, True])
-@pytest.mark.parametrize("weights", ["model", "random"])
-def test_plain_k4_matches_jax_vjp(weights, with_keep):
-    (q, u, mask, keep, ws), g, H, p, want = _op_case(weights, with_keep)
+# (weights, with_keep, D, H): the JAX tests' width (D 16, 4 heads), then
+# the kernels' own, D 64 at the flagship's 8 heads and the baseline's 4
+CHAIN_CASES = [pytest.param(w, k, d, h, id=f"{w}-{k}" + ("" if d == 16 else f"-D{d}-H{h}"))
+               for d, h in ((16, 4), (64, 8), (64, 4))
+               for w in ("model", "random") for k in (False, True)]
+
+
+@pytest.mark.parametrize("weights,with_keep,D,H", CHAIN_CASES)
+def test_plain_k4_matches_jax_vjp(weights, with_keep, D, H):
+    (q, u, mask, keep, ws), g, H, p, want = _op_case(weights, with_keep, D=D, H=H)
     dq, dws = K3.fused_pair_attention_bwd_reference(q, u, mask, keep, ws, g, H, p)
     _assert_grads(dq, dws, want, ws)
     assert torch.all(dq[1, 2, 4] == 0.0)          # no sender: no gradient, not NaN
@@ -175,6 +185,50 @@ def test_kernel_checks_raise_before_any_launch(bad):
         keep, err = torch.ones(1, 2, 3, 4, 2), ValueError
     with pytest.raises(err):
         K3._common_checks(q, u, mask, keep, ws, H, sum(w.numel() for w in ws))
+
+
+@pytest.mark.parametrize("D,H,ok", [(64, 8, True), (64, 4, True), (64, 2, False),
+                                    (32, 4, False), (16, 4, False)])
+def test_kernel_checks_take_the_kernels_widths_only(D, H, ok):
+    """K3 and K4 take D 64 at the flagship's 8 heads and the baseline's 4;
+    any other width is refused before a launch, naming the widths."""
+    r = np.random.default_rng(3)
+    ws = tuple(map(t, _random_ws(r, D)))
+    q, u = torch.zeros(1, 2, 3, D), torch.zeros(1, 2, 3, 4, 4)
+    mask, keep = torch.ones(1, 2, 3, 4), torch.ones(1, 2, 3, 4, H)
+    floats = sum(w.numel() for w in ws)
+    if ok:
+        R, Ak, w = K3._common_checks(q, u, mask, keep, ws, H, floats)
+        assert (R, Ak, w.numel()) == (6, 4, floats)
+    else:
+        with pytest.raises(ValueError, match=r"D=64 at H in \(8, 4\)"):
+            K3._common_checks(q, u, mask, keep, ws, H, floats)
+
+
+def test_kernel_entry_points_are_picked_by_head_count():
+    """The 8-head entry points keep the flagship's names, the 4-head ones
+    have their own; a build without a head count's entry points (of an
+    older source) is declared for the others and refused for it."""
+    class Fn:  # stands in for a C function: takes argtypes and restype
+        pass
+
+    lib = types.SimpleNamespace(_name="libold.so", aa_fused_weight_floats=Fn(),
+                                aa_fused_launch=Fn(), aa_fused_receivers_per_group=Fn())
+    K3.configure_fwd(lib)
+    assert lib.aa_fused_launch.restype is ctypes.c_int and len(lib.aa_fused_launch.argtypes) == 12
+    assert K3.has_heads(lib, "aa_fused", 8) and not K3.has_heads(lib, "aa_fused", 4)
+    assert K3._entry(lib, "aa_fused", "launch", 8) is lib.aa_fused_launch
+    with pytest.raises(ValueError, match="no 4-head entry point aa_fused_h4_launch"):
+        K3._entry(lib, "aa_fused", "receivers_per_group", 4)
+    lib.aa_fused_h4_launch, lib.aa_fused_h4_receivers_per_group = Fn(), Fn()
+    K3.configure_fwd(lib)
+    assert K3._entry(lib, "aa_fused", "launch", 4) is lib.aa_fused_h4_launch
+    assert lib.aa_fused_h4_receivers_per_group.restype is ctypes.c_int
+    bwd = types.SimpleNamespace(_name="libaa_fused_bwd.so", aa_fused_bwd_weight_floats=Fn(),
+                                **{f"aa_fused_bwd{s}_{w}": Fn() for s in ("", "_h4")
+                                   for w in ("launch", "receivers_per_group")})
+    K3.configure_bwd(bwd)
+    assert len(K3._entry(bwd, "aa_fused_bwd", "launch", 4).argtypes) == 16
 
 
 # --------------------------------------------------------------------------

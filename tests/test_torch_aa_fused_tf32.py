@@ -34,10 +34,12 @@ forward, and ``dY W^T`` and ``X^T dY`` backward by one of ``PRODUCTS``:
   fragment, the small terms and big * big apart (``mma3x2_apart``), and
   ``a0 @ w1`` taken with w1's two column halves folded into one [2D, D]
   weight, returned beside zeros (the chain then adds b1 per half, where the
-  kernel adds the folded b1 once: one f32 rounding apart).
+  kernel adds the folded b1 once: one f32 rounding apart), and the head
+  logits in K3's order (``_torch_helpers.kernel_head_logits``).
 
-At (B, T, Aq, Ak) = (2, 3, 9, 48), D 64, H 8, with a keep mask, the
-gradients are held against the plain backward in f64 by the criterion of
+At (B, T, Aq, Ak) = (2, 3, 9, 48), D 64, at the flagship's 8 heads and
+the HiVT baseline's 4, with a keep mask, the gradients are held against
+the plain backward in f64 by the criterion of
 ``tests/test_torch_cuda.py::test_aa_fused_bwd_kernel_within_the_f64_gradient``,
 as a fraction of max|f64| per leaf: the leaves behind a ReLU's derivative
 (wu .. lna0b) within 2e-3; dq and the others no more than 2x the f32 plain
@@ -48,18 +50,20 @@ it; ``3xtf32-chained`` and ``1xtf32`` do not.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+from unittest import mock
 
 import numpy as np
 import pytest
 import torch
 
 from scripts import probe_mma_rounding_torch as probe
-from _torch_helpers import packed_aa_weights, torch_threads
+from _torch_helpers import kernel_head_logits, packed_aa_weights, torch_threads
 from scripts.probe_mma_rounding_torch import mm_3xtf32, mma_step, rna_tf32, rz_f32, split
 from trajsde_tpu_torch.ops import aa_fused as K3
 
-SHAPE, D, H, P_DROP = (2, 3, 9, 48), 64, 8, 0.1
+SHAPE, D, P_DROP = (2, 3, 9, 48), 64, 0.1
 GROUP_PAIRS = 8 * SHAPE[3]            # K4's receiver group: 8 receivers with all senders
 ROUTED = ("w1", "wagg", "wkv")
 BEHIND_RELU = K3.W_ORDER[:K3.W_ORDER.index("wagg")]
@@ -136,7 +140,7 @@ class Routed:
         raise TypeError(f"a routed weight is used only as the right operand of @, not in {func}")
 
 
-def _case(dense: bool, seed: int = 7):
+def _case(dense: bool, H: int, seed: int = 7):
     """Inputs of one backward: q, u, the mask (a receiver with no sender),
     the keep mask, the weights and a cotangent, from numpy."""
     r = np.random.default_rng(seed)
@@ -151,9 +155,12 @@ def _case(dense: bool, seed: int = 7):
     return q, u, f32(mask), keep, packed_aa_weights(r, dense), g
 
 
-def routed_bwd(q, u, mask, keep, ws, g, mode: str, calls: list):
-    """(dq, dws) of the plain chain with w1, wagg and wkv routed."""
-    with torch.enable_grad():
+def routed_bwd(q, u, mask, keep, ws, g, mode: str, calls: list, H: int = 8):
+    """(dq, dws) of the plain chain with w1, wagg and wkv routed; for
+    ``3xtf32-recompute`` also the head logits in K3's order."""
+    logits = (mock.patch.object(K3, "_head_logits", kernel_head_logits)
+              if mode == "3xtf32-recompute" else contextlib.nullcontext())
+    with torch.enable_grad(), logits:
         qd = q.clone().requires_grad_()
         wd = [w.clone().requires_grad_() for w in ws]
         chain = [Routed(w, mode, calls) if k in ROUTED else w for k, w in zip(K3.W_ORDER, wd)]
@@ -163,9 +170,9 @@ def routed_bwd(q, u, mask, keep, ws, g, mode: str, calls: list):
 
 
 @functools.lru_cache(maxsize=None)
-def distances(dense: bool) -> dict:
+def distances(dense: bool, H: int = 8) -> dict:
     """leaf -> {plain, and each mode of PRODUCTS}: max|x - f64| / max|f64|."""
-    q, u, mask, keep, ws, g = _case(dense)
+    q, u, mask, keep, ws, g = _case(dense, H)
     with torch_threads(2):
         oracle = K3.fused_pair_attention_bwd_reference(
             q.double(), u.double(), mask.double(), keep.double(), [w.double() for w in ws],
@@ -173,7 +180,7 @@ def distances(dense: bool) -> dict:
         runs = {"plain": K3.fused_pair_attention_bwd_reference(q, u, mask, keep, ws, g, H,
                                                                P_DROP)}
         for mode in PRODUCTS:
-            runs[mode] = routed_bwd(q, u, mask, keep, ws, g, mode, [])
+            runs[mode] = routed_bwd(q, u, mask, keep, ws, g, mode, [], H)
     leaves = {}
     for i, name in enumerate(("dq", *K3.W_ORDER)):
         o = oracle[0] if i == 0 else oracle[1][i - 1]
@@ -243,7 +250,8 @@ def test_emulated_step_sums_as_the_probe_measured_the_tensor_cores():
 
 
 def test_routing_reaches_exactly_the_three_products_and_keeps_the_forward():
-    q, u, mask, keep, ws, g = _case(dense=True)
+    H = 8
+    q, u, mask, keep, ws, g = _case(dense=True, H=H)
     calls = []
     chain = [Routed(w, "3xtf32", calls) if k in ROUTED else w for k, w in zip(K3.W_ORDER, ws)]
     got = K3.fused_pair_attention_reference(q, u, mask, keep, chain, H, P_DROP)
@@ -252,35 +260,42 @@ def test_routing_reaches_exactly_the_three_products_and_keeps_the_forward():
     assert torch.equal(got, K3.fused_pair_attention_reference(q, u, mask, keep, ws, H, P_DROP))
 
 
-@pytest.mark.parametrize("dense", [False, True], ids=["block-diagonal", "dense"])
-def test_3xtf32_backward_is_within_the_f64_criterion(dense):
-    leaves = distances(dense)
+# (dense weights, heads): the flagship's 8 heads, then the baseline's 4
+CASES = [pytest.param(dense, h, id=("dense" if dense else "block-diagonal")
+                      + ("" if h == 8 else f"-{h}-heads"))
+         for h in (8, 4) for dense in (False, True)]
+
+
+@pytest.mark.parametrize("dense,H", CASES)
+def test_3xtf32_backward_is_within_the_f64_criterion(dense, H):
+    leaves = distances(dense, H)
     assert within_the_f64_criterion(leaves, "3xtf32"), leaves
 
 
-@pytest.mark.parametrize("dense", [False, True], ids=["block-diagonal", "dense"])
-def test_3xtf32_backward_with_the_recompute_on_the_tensor_cores_is_within_the_f64_criterion(dense):
+@pytest.mark.parametrize("dense,H", CASES)
+def test_3xtf32_backward_with_the_recompute_on_the_tensor_cores_is_within_the_f64_criterion(
+        dense, H):
     """K4 with its recompute (F2-F4) in K3's 3xTF32 arithmetic, w1 folded:
     the logits, LayerNorm statistics and activations its backward reads
     are K3's, and the gradients still meet the f64 criterion."""
-    leaves = distances(dense)
+    leaves = distances(dense, H)
     assert within_the_f64_criterion(leaves, "3xtf32-recompute"), leaves
 
 
 @pytest.mark.parametrize("mode", ["3xtf32-chained", "1xtf32"])
-@pytest.mark.parametrize("dense", [False, True], ids=["block-diagonal", "dense"])
-def test_other_arithmetic_breaks_the_f64_criterion(dense, mode):
+@pytest.mark.parametrize("dense,H", CASES)
+def test_other_arithmetic_breaks_the_f64_criterion(dense, H, mode):
     """The criterion tells the kernel's arithmetic from one TF32 product
     (2^-11 per operand) and from one tensor-core accumulator carried over
     a whole sum (its sums cut and rounded toward zero, over and over)."""
-    leaves = distances(dense)
+    leaves = distances(dense, H)
     assert not within_the_f64_criterion(leaves, mode), leaves
 
 
 if __name__ == "__main__":
     runs = ("plain", *PRODUCTS)
-    for dense in (False, True):
-        leaves = distances(dense)
+    for dense, H in (c.values for c in CASES):
+        leaves = distances(dense, H)
         print(f"{'dense' if dense else 'block-diagonal'} weights, {SHAPE} D {D} H {H}, keep "
               f"p={P_DROP}: max|x - f64| / max|f64| ({', '.join(runs)}); within the criterion: "
               + ", ".join(f"{m} {within_the_f64_criterion(leaves, m)}" for m in PRODUCTS))

@@ -15,7 +15,8 @@ largest magnitude for ``dq`` and 1e-3 for the weight gradients; K5 as K3;
 K6 per element, by ``vpu_probe.agreement``: in ulps of each plain value
 within ``TOL_ULPS``, and a least share of bit-equal elements.  K4 and K2 are also held against their plain versions in f64.
 K4's recomputed logits are held to K3's bit for bit, through check copies
-of both built to write them.  The feed to the card (``device_prefetch``)
+of both built to write them.  K3 and K4 are tested at both of their head
+counts, the flagship's 8 and the HiVT baseline's 4.  The feed to the card (``device_prefetch``)
 is held to ``.to("cuda")`` bit for bit: its batches, and a train step.
 """
 import ctypes
@@ -168,25 +169,30 @@ def test_rollout_bwd_kernel_matches_plain(cuda, mode, n):
         assert rel(got[k], want[k]) < 1e-3, k
 
 
-def _aa_encoder(seed):
+# the fused kernels' head counts: the flagship's 8 and the HiVT baseline's 4
+HEADS = [8, 4]
+
+
+def _aa_encoder(seed, heads):
     gen = torch.Generator().manual_seed(seed)
-    enc = AAEncoder(21, 64, 8, fused=True)
+    enc = AAEncoder(21, 64, heads, fused=True)
     for p in enc.parameters():
         p.data = torch.randn(p.shape, generator=gen) * 0.3
     return enc
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("heads", HEADS)
 @pytest.mark.parametrize("with_keep", [False, True])
 @pytest.mark.parametrize("shape", [(1, 1, 2, 1), (2, 3, 5, 4), (3, 2, 7, 70), (1, 21, 49, 48)])
-def test_aa_fused_kernel_matches_plain(cuda, shape, with_keep):
+def test_aa_fused_kernel_matches_plain(cuda, shape, with_keep, heads):
     """Ragged chunks and receiver groups, Aq != Ak, a receiver with no
     sender (and the last with one); the encoder's packed weights with the
     w1 blocks off the diagonal filled in, so the full [2D, 2D] product
     counts."""
     B, T, Aq, Ak = shape
     gen = torch.Generator().manual_seed(sum(shape) + with_keep)
-    packed = K3.pack_aa_params(_aa_encoder(Ak))
+    packed = K3.pack_aa_params(_aa_encoder(Ak, heads))
     packed["w1"] = packed["w1"] + 0.1 * torch.randn(packed["w1"].shape, generator=gen)
     ws = tuple(w.contiguous().to(cuda) for w in K3.weights_of(packed))
     q = torch.randn((B, T, Aq, 64), generator=gen).to(cuda)
@@ -197,25 +203,25 @@ def test_aa_fused_kernel_matches_plain(cuda, shape, with_keep):
     mask = mask.to(cuda)
     keep, p = None, 0.0
     if with_keep:
-        keep, p = (torch.rand((B, T, Aq, Ak, 8), generator=gen) >= 0.1).float().to(cuda), 0.1
+        keep, p = (torch.rand((B, T, Aq, Ak, heads), generator=gen) >= 0.1).float().to(cuda), 0.1
     before = K3.fused_pair_attention.launches
-    got = K3.fused_pair_attention(q, u, mask, keep, ws, 8, p)
-    again = K3.fused_pair_attention(q, u, mask, keep, ws, 8, p)
+    got = K3.fused_pair_attention(q, u, mask, keep, ws, heads, p)
+    again = K3.fused_pair_attention(q, u, mask, keep, ws, heads, p)
     torch.cuda.synchronize()
     assert K3.fused_pair_attention.launches == before + 2
     assert torch.equal(got, again)
     assert torch.isfinite(got).all()
     assert (got[0, 0, 0] == 0).all()                     # no sender: exactly 0
-    want = K3.fused_pair_attention_reference(q, u, mask, keep, ws, 8, p)
+    want = K3.fused_pair_attention_reference(q, u, mask, keep, ws, heads, p)
     assert ((got - want).abs().max() / want.abs().max()).item() < TOL
 
 
-def _k4_case(cuda, shape, with_keep):
+def _k4_case(cuda, shape, with_keep, heads):
     """K3's test inputs (a receiver with no sender, w1 off-diagonal blocks
     filled in) plus a random cotangent."""
     B, T, Aq, Ak = shape
     gen = torch.Generator().manual_seed(sum(shape) + 2 * with_keep + 1)
-    packed = K3.pack_aa_params(_aa_encoder(Ak + 1))
+    packed = K3.pack_aa_params(_aa_encoder(Ak + 1, heads))
     packed["w1"] = packed["w1"] + 0.1 * torch.randn(packed["w1"].shape, generator=gen)
     ws = tuple(w.contiguous().to(cuda) for w in K3.weights_of(packed))
     q = torch.randn((B, T, Aq, 64), generator=gen).to(cuda)
@@ -226,29 +232,32 @@ def _k4_case(cuda, shape, with_keep):
     mask = mask.to(cuda)
     keep, p = None, 0.0
     if with_keep:
-        keep, p = (torch.rand((B, T, Aq, Ak, 8), generator=gen) >= 0.1).float().to(cuda), 0.1
+        keep, p = (torch.rand((B, T, Aq, Ak, heads), generator=gen) >= 0.1).float().to(cuda), 0.1
     g = torch.randn((B, T, Aq, 64), generator=gen).to(cuda)
     return q, u, mask, keep, ws, g, p
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("heads", HEADS)
 @pytest.mark.parametrize("with_keep", [False, True])
 @pytest.mark.parametrize("shape", [(1, 1, 2, 1), (2, 3, 5, 4), (3, 2, 7, 70), (1, 21, 49, 48)])
-def test_aa_fused_bwd_kernel_matches_plain(cuda, shape, with_keep):
+def test_aa_fused_bwd_kernel_matches_plain(cuda, shape, with_keep, heads):
     """K4 vs autograd through the plain chain: dq within 1e-4 of max|plain|
     (plus 1e-6: with one sender the exact dq is 0), each weight gradient
     within 1e-3 of its max|plain| (summed over every pair in another
     order); bit-equal reruns; an empty receiver gets exactly 0."""
-    q, u, mask, keep, ws, g, p = _k4_case(cuda, shape, with_keep)
-    out, stats = K3.fused_pair_attention_fwd(q, u, mask, keep, ws, 8, p)
+    q, u, mask, keep, ws, g, p = _k4_case(cuda, shape, with_keep, heads)
+    out, stats = K3.fused_pair_attention_fwd(q, u, mask, keep, ws, heads, p)
     before = K3.fused_pair_attention_bwd.launches
-    dq, dws = K3.fused_pair_attention_bwd(q, u, mask, keep, ws, g, 8, p, out=out, stats=stats)
-    dq2, dws2 = K3.fused_pair_attention_bwd(q, u, mask, keep, ws, g, 8, p, out=out, stats=stats)
+    dq, dws = K3.fused_pair_attention_bwd(q, u, mask, keep, ws, g, heads, p, out=out,
+                                          stats=stats)
+    dq2, dws2 = K3.fused_pair_attention_bwd(q, u, mask, keep, ws, g, heads, p, out=out,
+                                            stats=stats)
     torch.cuda.synchronize()
     assert K3.fused_pair_attention_bwd.launches == before + 2
     assert torch.equal(dq, dq2) and all(torch.equal(a, b) for a, b in zip(dws, dws2))
     assert (dq[0, 0, 0] == 0).all()
-    want_dq, want = K3.fused_pair_attention_bwd_reference(q, u, mask, keep, ws, g, 8, p)
+    want_dq, want = K3.fused_pair_attention_bwd_reference(q, u, mask, keep, ws, g, heads, p)
     assert torch.isfinite(dq).all() and all(torch.isfinite(d).all() for d in dws)
     assert (dq - want_dq).abs().max().item() <= 1e-4 * want_dq.abs().max().item() + 1e-6
     for name, got, w, x in zip(K3.W_ORDER, dws, want, ws):
@@ -279,31 +288,34 @@ def _logit_copies():
     return fwd, bwd
 
 
-def _logits_of_both(cuda):
-    """At B = 8 of the training twin shape with keep: K3's logits, K4's
+def _logits_of_both(cuda, heads):
+    """With keep, at B = 8 of the flagship's training twin shape (8 heads)
+    or of the baseline's (4 heads, Aq = Ak = 48): K3's logits, K4's
     recomputed ones, K3's output and statistics (from the check copies) and
     the output of the shipped K3 on the same inputs."""
     fwd, bwd = _logit_copies()
-    q, u, mask, keep, ws, g, p = _k4_case(cuda, (8, 21, 49, 48), True)
+    shape = (8, 21, 49, 48) if heads == 8 else (8, 21, 48, 48)
+    q, u, mask, keep, ws, g, p = _k4_case(cuda, shape, True, heads)
     rows = q.shape[0] * q.shape[1] * q.shape[2] * u.shape[3]
-    lg3 = torch.full((rows, 8), float("nan"), device=cuda)
-    lg4 = torch.full((rows, 8), float("nan"), device=cuda)
+    lg3 = torch.full((rows, heads), float("nan"), device=cuda)
+    lg4 = torch.full((rows, heads), float("nan"), device=cuda)
     assert fwd.aa_fused_set_logits(lg3.data_ptr()) == 0
-    out, stats = K3.launch_fwd(fwd, q, u, mask, keep, ws, 8, p, with_stats=True)
+    out, stats = K3.launch_fwd(fwd, q, u, mask, keep, ws, heads, p, with_stats=True)
     assert bwd.aa_fused_bwd_set_logits(lg4.data_ptr()) == 0
-    K3.launch_bwd(bwd, q, u, mask, keep, ws, g, out, stats, 8, p)
-    shipped = K3.fused_pair_attention(q, u, mask, keep, ws, 8, p)
+    K3.launch_bwd(bwd, q, u, mask, keep, ws, g, out, stats, heads, p)
+    shipped = K3.fused_pair_attention(q, u, mask, keep, ws, heads, p)
     torch.cuda.synchronize()
     return lg3, lg4, out, stats, shipped
 
 
 @pytest.mark.gpu
-def test_aa_fused_bwd_recomputes_k3s_logits_bit_for_bit(cuda):
+@pytest.mark.parametrize("heads", HEADS)
+def test_aa_fused_bwd_recomputes_k3s_logits_bit_for_bit(cuda, heads):
     """K4's recompute (F1-F4) takes K3's products and epilogues, so every
     logit it recomputes is the one K3's softmax took, bit for bit; writing
     the logits changes nothing else (the check copy's output is the shipped
     K3's)."""
-    lg3, lg4, out, _, shipped = _logits_of_both(cuda)
+    lg3, lg4, out, _, shipped = _logits_of_both(cuda, heads)
     assert not torch.isnan(lg3).any() and not torch.isnan(lg4).any()   # every pair written
     assert torch.isinf(lg3).any() and torch.isfinite(lg3).any()
     assert torch.equal(lg3, lg4)
@@ -311,22 +323,24 @@ def test_aa_fused_bwd_recomputes_k3s_logits_bit_for_bit(cuda):
 
 
 @pytest.mark.gpu
-def test_aa_fused_stats_max_is_the_max_of_k4s_recomputed_logits(cuda):
+@pytest.mark.parametrize("heads", HEADS)
+def test_aa_fused_stats_max_is_the_max_of_k4s_recomputed_logits(cuda, heads):
     """K3's softmax statistics: the running max of each (receiver, head) is
     the largest of the logits K4 recomputes for it (-inf for a receiver
     with no sender)."""
-    _, lg4, _, stats, _ = _logits_of_both(cuda)
+    _, lg4, _, stats, _ = _logits_of_both(cuda, heads)
     R = stats.shape[1]
-    assert torch.equal(stats[0], lg4.view(R, -1, 8).amax(dim=1))
+    assert torch.equal(stats[0], lg4.view(R, -1, heads).amax(dim=1))
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("heads", HEADS)
 @pytest.mark.parametrize("with_keep", [False, True])
-def test_autograd_through_the_fused_op_on_cuda_matches_the_cpu(cuda, with_keep):
+def test_autograd_through_the_fused_op_on_cuda_matches_the_cpu(cuda, with_keep, heads):
     """``fused_pair_attention`` with gradients on the card (K3 + K4 through
     ``FusedPairAttentionFn``) vs the same call on the CPU (the plain
     forward and backward); no gradient reaches u, mask or keep."""
-    q, u, mask, keep, ws, g, p = _k4_case(cuda, (2, 3, 9, 48), with_keep)
+    q, u, mask, keep, ws, g, p = _k4_case(cuda, (2, 3, 9, 48), with_keep, heads)
     grads = {}
     for dev in ("cuda", "cpu"):
         qd = q.detach().to(dev).requires_grad_()
@@ -334,7 +348,7 @@ def test_autograd_through_the_fused_op_on_cuda_matches_the_cpu(cuda, with_keep):
         ud = u.detach().to(dev).requires_grad_()
         kd = None if keep is None else keep.to(dev)
         before = (K3.fused_pair_attention.launches, K3.fused_pair_attention_bwd.launches)
-        out = K3.fused_pair_attention(qd, ud, mask.to(dev), kd, wd, 8, p)
+        out = K3.fused_pair_attention(qd, ud, mask.to(dev), kd, wd, heads, p)
         out.backward(g.to(dev))
         launched = (K3.fused_pair_attention.launches - before[0],
                     K3.fused_pair_attention_bwd.launches - before[1])
@@ -354,7 +368,7 @@ def _k5_case(cuda, shape, seed):
     the diagonal filled in."""
     B, T, Aq, Ak = shape
     gen = torch.Generator().manual_seed(seed)
-    packed = K3.pack_aa_params(_aa_encoder(seed))
+    packed = K3.pack_aa_params(_aa_encoder(seed, 8))
     packed["w1"] = packed["w1"] + 0.1 * torch.randn(packed["w1"].shape, generator=gen)
     packed = {k: v.contiguous().to(cuda) for k, v in packed.items()}
     center = torch.randn((B, T, Aq, 64), generator=gen)
@@ -454,9 +468,11 @@ def test_vpu_probe_wrapper_rejects(cuda):
 
 
 @pytest.mark.gpu
-def test_aa_fused_bwd_kernel_within_the_f64_gradient(cuda):
+@pytest.mark.parametrize("heads", HEADS)
+def test_aa_fused_bwd_kernel_within_the_f64_gradient(cuda, heads):
     """K4 and the f32 plain backward against the plain backward in f64 at
-    B = 8 of the training twin shape with a keep mask, as a fraction of
+    B = 8 of the flagship's training twin shape (8 heads) or the baseline's
+    (4 heads, Aq = Ak = 48) with a keep mask, as a fraction of
     max|f64| per leaf.  dq and the leaves that no ReLU derivative reaches
     (wagg and everything after it) are smooth functions of the inputs: K4
     no more than 2x farther than the f32 plain version (plus 1e-7).  The
@@ -464,14 +480,16 @@ def test_aa_fused_bwd_kernel_within_the_f64_gradient(cuda):
     within rounding, and an f32 evaluation, K4's or the plain one's, may
     land on the other side than f64 for a few elements (up to 1.1e-3 of
     max|f64| seen on an H100 at this shape): both within 2e-3."""
-    q, u, mask, keep, ws, g, p = _k4_case(cuda, (8, 21, 49, 48), True)
-    out, stats = K3.fused_pair_attention_fwd(q, u, mask, keep, ws, 8, p)
-    dq, dws = K3.fused_pair_attention_bwd(q, u, mask, keep, ws, g, 8, p, out=out, stats=stats)
+    shape = (8, 21, 49, 48) if heads == 8 else (8, 21, 48, 48)
+    q, u, mask, keep, ws, g, p = _k4_case(cuda, shape, True, heads)
+    out, stats = K3.fused_pair_attention_fwd(q, u, mask, keep, ws, heads, p)
+    dq, dws = K3.fused_pair_attention_bwd(q, u, mask, keep, ws, g, heads, p, out=out,
+                                          stats=stats)
     del out, stats
-    p_dq, p_dws = K3.fused_pair_attention_bwd_reference(q, u, mask, keep, ws, g, 8, p)
+    p_dq, p_dws = K3.fused_pair_attention_bwd_reference(q, u, mask, keep, ws, g, heads, p)
     o_dq, o_dws = K3.fused_pair_attention_bwd_reference(
         q.double(), u.double(), mask.double(), keep.double(), [w.double() for w in ws],
-        g.double(), 8, p)
+        g.double(), heads, p)
     rel = lambda a, b: ((a.double() - b).abs().max() / b.abs().max()).item()  # noqa: E731
     errs = {name: (rel(a, o), rel(b, o)) for name, a, b, o in
             zip(("dq", *K3.W_ORDER), (dq, *dws), (p_dq, *p_dws), (o_dq, *o_dws))}

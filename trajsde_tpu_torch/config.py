@@ -22,10 +22,8 @@ CLIs train and evaluate on one H100 (the file's comments give the
 measurements behind each choice).  ``BASELINE`` is the paper's HiVT
 baseline, ``configs/nusargo/hivt_nuSArgo_trmenc_mlpdec.yml`` (a transformer
 temporal encoder and a one-shot MLP decoder, no SDE), and
-``BASELINE_TRAIN`` the same with ``encoder.fused: true`` (K3 and K4, whose
-CUDA kernels take the flagship's 8 heads only: on the card they refuse the
-baseline's 4, ROADMAP.md Queue 1 item 8b; on the CPU their plain versions
-run it).
+``BASELINE_TRAIN`` the same with ``encoder.fused: true`` (K3 and K4 at the
+baseline's 4 heads on the card; their plain versions on the CPU).
 """
 from __future__ import annotations
 
@@ -177,8 +175,8 @@ BASELINE: Dict[str, Any] = {
 }
 BASELINE["datamodule_specific"]["kwargs"].update(train_batch_size=512, val_batch_size=512)
 
-# the baseline with its AA pair chain through K3 (forward) and K4 (backward):
-# their plain versions on the CPU; on the card the kernels refuse 4 heads
+# the baseline with its AA pair chain through K3 (forward) and K4 (backward)
+# at 4 heads on the card, their plain versions on the CPU
 BASELINE_TRAIN: Dict[str, Any] = copy.deepcopy(BASELINE)
 BASELINE_TRAIN["encoder"]["kwargs"]["fused"] = True
 

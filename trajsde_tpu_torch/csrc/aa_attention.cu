@@ -47,6 +47,9 @@ namespace {
 
 using namespace aa;
 
+constexpr int H = 8;           // heads: the flagship's only (ops/aa_attention.py checks)
+constexpr int HD = Heads<H>::HD;
+constexpr float SCALE = Heads<H>::SCALE;
 constexpr int P = 64;          // pairs per chunk
 constexpr int RB = 16;         // receivers per group
 constexpr int THREADS = 256;   // 16 row groups x 16 column groups

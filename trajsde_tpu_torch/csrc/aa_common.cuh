@@ -1,11 +1,11 @@
 // Shared by the fused AA pair-chain kernels K3 (aa_fused.cu, forward) and
-// K4 (aa_fused_bwd.cu, backward): the widths, the packed weight layout, the
-// swizzled chunk tiles and the epilogues of the chain's products; and by K5
-// (aa_attention.cu), which keeps the f32 FMA register tiles (mm).  K3 and
-// K4's recompute take each product on the tensor cores through
-// mma_tf32.cuh's mma_xwt_split and each epilogue through these functions,
-// so K4's logits are bit for bit the ones whose softmax statistics K3
-// wrote.
+// K4 (aa_fused_bwd.cu, backward): the widths (D 64; 8 or 4 heads), the
+// packed weight layout, the swizzled chunk tiles and the epilogues of the
+// chain's products; and by K5 (aa_attention.cu, 8 heads), which keeps the
+// f32 FMA register tiles (mm).  K3 and K4's recompute take each product on
+// the tensor cores through mma_tf32.cuh's mma_xwt_split and each epilogue
+// through these functions, so K4's logits are bit for bit the ones whose
+// softmax statistics K3 wrote.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -16,10 +16,18 @@ namespace aa {
 
 constexpr int D = 64;          // embed width
 constexpr int D2 = 2 * D;      // packed two-branch width
-constexpr int H = 8;           // heads
-constexpr int HD = D / H;      // head width
 constexpr float LN_EPS = 1e-5f;
-constexpr float SCALE = 0.35355339059327373f;  // 1 / sqrt(HD)
+
+// The head count is a template parameter of K3 and K4: the flagship's 8
+// heads and the HiVT baseline's 4.  A row's 64 columns lie in 16 lanes, 4
+// columns a lane, so a head lies in LANES = HD / 4 neighbouring lanes.
+template <int H>
+struct Heads {
+  static_assert(H == 8 || H == 4, "the AA kernels take 8 or 4 heads");
+  static constexpr int HD = D / H;      // head width
+  static constexpr int LANES = HD / 4;  // lanes that hold one head of a row
+  static constexpr float SCALE = H == 8 ? 0.35355339059327373f : 0.25f;  // 1 / sqrt(HD)
+};
 
 // packed weights (floats) in W_ORDER, matrices [in][out]
 constexpr int OFF_WU = 0;                      // [4][2D]
@@ -180,15 +188,28 @@ __device__ __forceinline__ void epi_bias(float x[4], const float* __restrict__ b
   for (int j = 0; j < 4; ++j) x[j] += b[c0 + j];
 }
 
+// the sum of one value per lane over the Heads<H>::LANES lanes that hold a
+// head (lanes differing in their low bits), as a butterfly: xor 1 at 8
+// heads; xor 1, then xor 2 at 4, so ((l0 + l1) + (l2 + l3)).  Every lane of
+// the group gets the same bits (each add has the same two operands).
+template <int H>
+__device__ __forceinline__ float head_sum(float v) {
+#pragma unroll
+  for (int off = 1; off < Heads<H>::LANES; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
 // a head's logit q_h . k_h / sqrt(hd) from this lane's 4 key columns and
-// its neighbour's (a head's 8 columns; lanes 2h and 2h + 1 of the row)
+// those of the other lanes of its head (lanes 2h, 2h + 1 at 8 heads; 4h ..
+// 4h + 3 at 4)
+template <int H>
 __device__ __forceinline__ float head_logit(const float4 qv, const float k[4]) {
   float part = qv.x * k[0];
   part = fmaf(qv.y, k[1], part);
   part = fmaf(qv.z, k[2], part);
   part = fmaf(qv.w, k[3], part);
-  part += __shfl_xor_sync(0xffffffffu, part, 1);
-  return __fmul_rn(part, SCALE);  // rounded here: never contracted into a later add
+  part = head_sum<H>(part);
+  return __fmul_rn(part, Heads<H>::SCALE);  // rounded here: never contracted into a later add
 }
 
 }  // namespace aa

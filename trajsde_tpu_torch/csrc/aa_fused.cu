@@ -26,7 +26,8 @@
 // time; the inputs and output are 0.19 GB, 0.06 ms at 3.35 TB/s.  (Every
 // operation on the CUDA cores at 67 TFLOP/s: 4.1 ms.)  What the kernel keeps
 // out of device memory are the pair tensors (each [P, 128] activation would
-// be 3.2 GB).
+// be 3.2 GB).  At the HiVT baseline's shape (B 128, T 21, Aq = Ak = 48, H 4:
+// 6.19 M pairs) the same count gives 1.54 ms on the route.
 //
 // Design.  A persistent grid (one 512-thread block per SM) walks groups of
 // 8 receivers with all their senders, in chunks of 64 pairs.
@@ -73,6 +74,14 @@
 //     may have), no spills, with the nbr . wkv k-loop not unrolled
 //     (unrolled by 2 it spills 32 B and is no faster).  Eleven barriers a
 //     chunk.
+//   * Heads: the kernel is a template on the head count H, 8 (the
+//     flagship's) or 4 (the HiVT baseline's), with an entry point each.  A
+//     head's HD = 64 / H columns lie in HD / 4 neighbouring lanes of a row,
+//     whose partial dot products head_logit sums by a butterfly
+//     (aa_common.cuh); S1's lanes and S3's items follow H, and the [.][H]
+//     tiles shrink with it.  S2 takes one (pair, head) a thread, so at 4
+//     heads half the block waits there.  Nothing in the products depends
+//     on H.
 //   Measured on an H100 (scripts/compare_aa_fwd_builds_torch.py, PERF.md):
 //   32-pair chunks with 8 warps took 14.6-14.9 ms at the serving shape,
 //   64-pair chunks with 8 warps 12.1-12.4, with 16 warps 11.4-11.8, against
@@ -127,21 +136,27 @@ constexpr int T0B = T0 + P * D;                //   (v: the second [P][D] half)
 constexpr int T1 = T0 + P * D2;                // [P][D] a1, then k
 constexpr int S_U = T1 + P * D;                // [P][4]
 constexpr int S_MASK = S_U + P * 4;            // [P]
-constexpr int S_LG = S_MASK + P;               // [P][H] masked logits (-inf: no edge), then e
-constexpr int S_KEEP = S_LG + P * H;           // [P][H]
-constexpr int S_EK = S_KEEP + P * H;           // [P][H] e * keep
-constexpr int S_Q = S_EK + P * H;              // [RB][D]
-constexpr int S_ACC = S_Q + RB * D;            // [RB][D] running sum of e * keep * v
-constexpr int S_M = S_ACC + RB * D;            // [RB][H] running max
-constexpr int S_L = S_M + RB * H;              // [RB][H] running sum of e
-constexpr int S_MNEW = S_L + RB * H;           // [RB][H] this chunk's max (-inf: no edge)
-constexpr int S_CORR = S_MNEW + RB * H;        // [RB][H] exp(old max - new max)
-constexpr int S_FLOATS = S_CORR + RB * H;
 
-static_assert(T0 % 4 == 0 && S_Q % 4 == 0 && S_WU % 4 == 0, "float4 alignment");
-static_assert(S_FLOATS * 4 <= 232448, "shared memory of one block");
-static_assert(P * H == THREADS && P * 4 <= THREADS && NR * 32 == P && RB * H * 8 <= THREADS,
-              "thread layout");
+// the rest of the layout, per head count H
+template <int H>
+struct Smem {
+  static constexpr int S_LG = S_MASK + P;      // [P][H] masked logits (-inf: no edge), then e
+  static constexpr int S_KEEP = S_LG + P * H;  // [P][H]
+  static constexpr int S_EK = S_KEEP + P * H;  // [P][H] e * keep
+  static constexpr int S_Q = S_EK + P * H;     // [RB][D]
+  static constexpr int S_ACC = S_Q + RB * D;   // [RB][D] running sum of e * keep * v
+  static constexpr int S_M = S_ACC + RB * D;   // [RB][H] running max
+  static constexpr int S_L = S_M + RB * H;     // [RB][H] running sum of e
+  static constexpr int S_MNEW = S_L + RB * H;  // [RB][H] this chunk's max (-inf: no edge)
+  static constexpr int S_CORR = S_MNEW + RB * H;  // [RB][H] exp(old max - new max)
+  static constexpr int S_FLOATS = S_CORR + RB * H;
+
+  static_assert(T0 % 4 == 0 && S_Q % 4 == 0 && S_WU % 4 == 0, "float4 alignment");
+  static_assert(S_FLOATS * 4 <= 232448, "shared memory of one block");
+  // S2 takes one (pair, head) a thread: all of them at 8 heads, half at 4
+  static_assert(P * H <= THREADS && P * 4 <= THREADS && NR * 32 == P && RB * H * 8 <= THREADS,
+                "thread layout");
+};
 
 // slot of the split pair (r, c) of a matrix of row length ld
 __device__ __forceinline__ int w_at(int r, int c, int ld) { return r * ld + (c ^ ((r & 3) << 2)); }
@@ -156,11 +171,15 @@ struct WSplit {  // B of x W from a pre-split W [K][N]: w(n, k) = the pair of W[
 __device__ float* g_logits;  // [R * Ak][H]
 #endif
 
+template <int H>
 __global__ void __launch_bounds__(THREADS, 1)
 aa_fused_kernel(const float* __restrict__ q, const float* __restrict__ u,
                 const float* __restrict__ mask, const float* __restrict__ keep,
                 const float* __restrict__ w, float* __restrict__ out,
                 float* __restrict__ stats, long long R, int Ak, float keep_scale) {
+  using L = Smem<H>;
+  constexpr int HD = Heads<H>::HD;
+  constexpr int HL = Heads<H>::LANES;
   extern __shared__ __align__(16) float smem[];
   uint2* sw2 = reinterpret_cast<uint2*>(smem);
   float* sw = smem;
@@ -169,15 +188,15 @@ aa_fused_kernel(const float* __restrict__ q, const float* __restrict__ u,
   float* t1 = smem + T1;
   float* su = smem + S_U;
   float* smask = smem + S_MASK;
-  float* slg = smem + S_LG;
-  float* skeep = smem + S_KEEP;
-  float* sek = smem + S_EK;
-  float* sq = smem + S_Q;
-  float* sacc = smem + S_ACC;
-  float* sm = smem + S_M;
-  float* sl = smem + S_L;
-  float* smnew = smem + S_MNEW;
-  float* scorr = smem + S_CORR;
+  float* slg = smem + L::S_LG;
+  float* skeep = smem + L::S_KEEP;
+  float* sek = smem + L::S_EK;
+  float* sq = smem + L::S_Q;
+  float* sacc = smem + L::S_ACC;
+  float* sm = smem + L::S_M;
+  float* sl = smem + L::S_L;
+  float* smnew = smem + L::S_MNEW;
+  float* scorr = smem + L::S_CORR;
 
   const int tid = threadIdx.x;
   const int cg = tid & 15;      // epilogue column group: columns c0 .. c0+3 (and D + ...)
@@ -233,7 +252,8 @@ aa_fused_kernel(const float* __restrict__ q, const float* __restrict__ u,
       __syncthreads();  // the previous chunk's softmax update is done
       if (tid < P * 4) su[tid] = cp0 + tid / 4 < pend ? u[gp0 * 4 + tid] : 0.0f;
       if (tid < P) smask[tid] = cp0 + tid < pend ? mask[gp0 + tid] : 0.0f;
-      skeep[tid] = keep == nullptr ? 1.0f : (cp0 + tid / H < pend ? keep[gp0 * H + tid] : 0.0f);
+      if (P * H == THREADS || tid < P * H)
+        skeep[tid] = keep == nullptr ? 1.0f : (cp0 + tid / H < pend ? keep[gp0 * H + tid] : 0.0f);
       __syncthreads();
 
       // F1. four rank-1 products, LayerNorm per D-wide branch, ReLU -> a0 (t0)
@@ -311,12 +331,12 @@ aa_fused_kernel(const float* __restrict__ q, const float* __restrict__ u,
         load4(v, t0b + swz(p, c0, D));
         epi_bias(k, sw + S_BKV, c0);
         epi_bias(v, sw + S_BKV + D, c0);
-        const float lg = head_logit(*reinterpret_cast<const float4*>(sq + rl * D + c0), k);
-        if ((cg & 1) == 0) {
+        const float lg = head_logit<H>(*reinterpret_cast<const float4*>(sq + rl * D + c0), k);
+        if (cg % HL == 0) {  // the head's first lane
           const float masked = (live && smask[p] > 0.0f) ? lg : -INFINITY;
-          slg[p * H + (cg >> 1)] = masked;
+          slg[p * H + cg / HL] = masked;
 #ifdef AA_WRITE_LOGITS
-          if (live) g_logits[(gp0 + p) * H + (cg >> 1)] = masked;
+          if (live) g_logits[(gp0 + p) * H + cg / HL] = masked;
 #endif
         }
         store4(t0b + swz(p, c0, D), v);
@@ -359,7 +379,7 @@ aa_fused_kernel(const float* __restrict__ q, const float* __restrict__ u,
       // place of the logit, and e keep
       {
         const int p = tid / H, h = tid % H;
-        if (cp0 + p < pend) {
+        if ((P * H == THREADS || tid < P * H) && cp0 + p < pend) {
           const float m_new = smnew[((cp0 + p) / Ak) * H + h];
           if (m_new != -INFINITY) {
             const float e = expf(slg[tid] - m_new);
@@ -407,8 +427,27 @@ aa_fused_kernel(const float* __restrict__ q, const float* __restrict__ u,
   }
 }
 
+// K3 at H heads on the stream; returns cudaGetLastError()
+template <int H>
+int launch(const float* q, const float* u, const float* mask, const float* keep, const float* w,
+           float* out, float* stats, long long R, int Ak, float keep_scale, int grid,
+           void* stream) {
+  if (R <= 0 || Ak <= 0 || grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * Smem<H>::S_FLOATS;
+  cudaError_t err = cudaFuncSetAttribute(aa_fused_kernel<H>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  aa_fused_kernel<H><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      q, u, mask, keep, w, out, stats, R, Ak, keep_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// One set of entry points per head count: aa_fused_* at the flagship's 8
+// heads, aa_fused_h4_* at the HiVT baseline's 4 (ops/aa_fused.py picks by
+// the head count and refuses any other).
 extern "C" {
 
 // floats the packed weight buffer must hold (W_ORDER, flattened)
@@ -416,6 +455,7 @@ int aa_fused_weight_floats() { return W_FLOATS; }
 
 // receivers one block owns at a time (the wrapper sizes the grid with it)
 int aa_fused_receivers_per_group() { return RB; }
+int aa_fused_h4_receivers_per_group() { return RB; }
 
 #ifdef AA_WRITE_LOGITS
 // where the next launches write each pair's head logits, [R * Ak][H]
@@ -425,21 +465,20 @@ int aa_fused_set_logits(float* p) {
 #endif
 
 // out [R, 64] from q [R, 64], u [R, Ak, 4], mask [R, Ak] (0/1 f32), keep
-// [R, Ak, 8] (0/1 f32) or NULL, w packed; keep_scale multiplies the output
-// (1 / (1 - p) with keep, else 1).  stats [2, R, 8] (softmax max, then sum
-// of exp, per receiver and head) or NULL.  Returns cudaGetLastError().
+// [R, Ak, H] (0/1 f32) or NULL, w packed; keep_scale multiplies the output
+// (1 / (1 - p) with keep, else 1).  stats [2, R, H] (softmax max, then sum
+// of exp, per receiver and head) or NULL.  H is 8 here and 4 in
+// aa_fused_h4_launch.  Returns cudaGetLastError().
 int aa_fused_launch(const float* q, const float* u, const float* mask, const float* keep,
                     const float* w, float* out, float* stats, long long R, int Ak,
                     float keep_scale, int grid, void* stream) {
-  if (R <= 0 || Ak <= 0 || grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * S_FLOATS;
-  cudaError_t err = cudaFuncSetAttribute(aa_fused_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  aa_fused_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, u, mask, keep, w, out, stats, R, Ak, keep_scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch<8>(q, u, mask, keep, w, out, stats, R, Ak, keep_scale, grid, stream);
+}
+
+int aa_fused_h4_launch(const float* q, const float* u, const float* mask, const float* keep,
+                       const float* w, float* out, float* stats, long long R, int Ak,
+                       float keep_scale, int grid, void* stream) {
+  return launch<4>(q, u, mask, keep, w, out, stats, R, Ak, keep_scale, grid, stream);
 }
 
 }  // extern "C"

@@ -26,7 +26,8 @@
 // operations per pair (recompute, input gradients, weight gradients),
 // 8.3e11 f32 operations, 12.4 ms at the 67 TFLOP/s CUDA-core peak; the
 // inputs (with the keep mask), dq and the weight gradients are 0.43 GB,
-// 0.13 ms at 3.35 TB/s.
+// 0.13 ms at 3.35 TB/s.  (At the HiVT baseline's shape, B 128, T 21,
+// Aq = Ak = 48, H 4: 6.19 M pairs, 12.1 ms and 4.6 ms on the route.)
 // K4 is bound by arithmetic.  On the route it takes, the recompute's three
 // products and the six backward products below (30 D^2 = 122,880 of the
 // 131,256 operations a pair needs) run on the tensor cores at f32
@@ -106,6 +107,11 @@
 //     f64 may fall on different sides, one element's whole contribution
 //     apart, which no summation order changes
 //     (scripts/check_aa_bwd_f64_torch.py counts such elements).
+// Heads: as K3, a template on the head count H (8, the flagship's; 4, the
+// HiVT baseline's) with an entry point each; a head's HD = 64 / H columns
+// lie in HD / 4 lanes of a row, over which head_logit and g.v are summed
+// by aa_common.cuh's butterfly (head_sum), and the head's first lane
+// writes dlogit and alpha.  The products and their tiles do not depend on H.
 // Each thread owns 2 rows of a chunk for the CUDA-core work: columns
 // c0..c0+3 (and D + c0..) of the recompute's epilogues, as K3, and the
 // strided columns cg + 16 m of the backward epilogues; a row's columns sit
@@ -170,18 +176,6 @@ constexpr int T_DY = T_DN + P * D;             // [P][D] dy3
 constexpr int T_DZ = T_DY + P * D;             // [P][D] dz
 constexpr int S_U = T_DZ + P * D;              // [P][4]
 constexpr int S_MASK = S_U + P * 4;            // [P]
-constexpr int S_DL = S_MASK + P;               // [P][H] dlogit
-constexpr int S_INVA = S_DL + P * H;           // [P]
-constexpr int S_INVB = S_INVA + P;             // [P]
-// group state
-constexpr int S_Q = S_INVB + P;                // [RB][D]
-constexpr int S_G = S_Q + RB * D;              // [RB][D]
-constexpr int S_DQ = S_G + RB * D;             // [RB][D]
-constexpr int S_SM = S_DQ + RB * D;            // [RB][H] softmax max (K3)
-constexpr int S_SL = S_SM + RB * H;            // [RB][H] softmax sum (K3)
-constexpr int S_DELTA = S_SL + RB * H;         // [RB][H] g . out per head
-constexpr int S_AK = S_DELTA + RB * H;         // [RB][D] sum_j alpha_j k_j
-constexpr int S_DS = S_AK + RB * D;            // [RB][H] sum_j dlogit_j
 constexpr int T_AL = T_DZ;                     // [P][H] alpha, until dz is written
 // block-private vector gradients: wu, bu, ln0s, ln0b as packed, then the
 // shared half of b1, lna0s, lna0b, bagg, lna1s, lna1b, bkv
@@ -191,13 +185,31 @@ constexpr int V_LNA0S = V_B1 + D, V_LNA0B = V_LNA0S + D;
 constexpr int V_BAGG = V_LNA0B + D, V_LNA1S = V_BAGG + D, V_LNA1B = V_LNA1S + D;
 constexpr int V_BKV = V_LNA1B + D;
 constexpr int V_FLOATS = V_BKV + D2;
-constexpr int S_VG = S_DS + RB * H;
-constexpr int S_FLOATS = S_VG + V_FLOATS;
 
 static_assert(OFF_WU == 0 && V_B1 == OFF_W1, "the packed layout starts wu bu ln0s ln0b");
-static_assert(S_W1 % 4 == 0 && S_WAGG % 4 == 0 && S_WKV % 4 == 0 && T_A0 % 4 == 0 &&
-              S_Q % 4 == 0, "float4 alignment");
-static_assert(S_FLOATS * 4 <= 232448, "shared memory of one block");
+
+// the rest of the layout, per head count H
+template <int H>
+struct Smem {
+  static constexpr int S_DL = S_MASK + P;        // [P][H] dlogit
+  static constexpr int S_INVA = S_DL + P * H;    // [P]
+  static constexpr int S_INVB = S_INVA + P;      // [P]
+  // group state
+  static constexpr int S_Q = S_INVB + P;         // [RB][D]
+  static constexpr int S_G = S_Q + RB * D;       // [RB][D]
+  static constexpr int S_DQ = S_G + RB * D;      // [RB][D]
+  static constexpr int S_SM = S_DQ + RB * D;     // [RB][H] softmax max (K3)
+  static constexpr int S_SL = S_SM + RB * H;     // [RB][H] softmax sum (K3)
+  static constexpr int S_DELTA = S_SL + RB * H;  // [RB][H] g . out per head
+  static constexpr int S_AK = S_DELTA + RB * H;  // [RB][D] sum_j alpha_j k_j
+  static constexpr int S_DS = S_AK + RB * D;     // [RB][H] sum_j dlogit_j
+  static constexpr int S_VG = S_DS + RB * H;     // [V_FLOATS] vector gradients
+  static constexpr int S_FLOATS = S_VG + V_FLOATS;
+
+  static_assert(S_W1 % 4 == 0 && S_WAGG % 4 == 0 && S_WKV % 4 == 0 && T_A0 % 4 == 0 &&
+                S_Q % 4 == 0, "float4 alignment");
+  static_assert(S_FLOATS * 4 <= 232448, "shared memory of one block");
+};
 
 // shared-memory index of packed weight float i, from wu to ln0b and from
 // lna0s on (w1 and b1 are staged folded)
@@ -306,6 +318,7 @@ __device__ __forceinline__ float colsum(const A& a, const B& b, int col) {
   return s;
 }
 
+template <int H>
 __global__ void __launch_bounds__(THREADS, 1)
 aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
                     const float* __restrict__ mask, const float* __restrict__ keep,
@@ -313,6 +326,10 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
                     const float* __restrict__ out, const float* __restrict__ stats,
                     float* __restrict__ dq, double* __restrict__ partial, long long R, int Ak,
                     float keep_scale) {
+  using L = Smem<H>;
+  constexpr int HD = Heads<H>::HD;
+  constexpr int HL = Heads<H>::LANES;
+  constexpr float SCALE = Heads<H>::SCALE;
   extern __shared__ __align__(16) float smem[];
   float* sw = smem;
   float* a0t = smem + T_A0;
@@ -327,19 +344,19 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
   float* dzt = smem + T_DZ;
   float* su = smem + S_U;
   float* smask = smem + S_MASK;
-  float* sdl = smem + S_DL;
-  float* sinva = smem + S_INVA;
-  float* sinvb = smem + S_INVB;
-  float* sq = smem + S_Q;
-  float* sg = smem + S_G;
-  float* sdq = smem + S_DQ;
-  float* ssm = smem + S_SM;
-  float* ssl = smem + S_SL;
-  float* sdelta = smem + S_DELTA;
-  float* sak = smem + S_AK;
-  float* sds = smem + S_DS;
+  float* sdl = smem + L::S_DL;
+  float* sinva = smem + L::S_INVA;
+  float* sinvb = smem + L::S_INVB;
+  float* sq = smem + L::S_Q;
+  float* sg = smem + L::S_G;
+  float* sdq = smem + L::S_DQ;
+  float* ssm = smem + L::S_SM;
+  float* ssl = smem + L::S_SL;
+  float* sdelta = smem + L::S_DELTA;
+  float* sak = smem + L::S_AK;
+  float* sds = smem + L::S_DS;
   float* salpha = smem + T_AL;
-  float* vg = smem + S_VG;
+  float* vg = smem + L::S_VG;
 
   const int tid = threadIdx.x;
   const int cg = tid & 15;      // column group
@@ -484,7 +501,7 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
         const int p = r0 + i;
         const bool live = cp0 + p < pend;
         const int rl = live ? (cp0 + p) / Ak : 0;
-        const int h = cg >> 1;
+        const int h = cg / HL;
         float k[4], v[4];
         load4(k, kvt + swz(p, c0, D2));
         load4(v, kvt + swz(p, D + c0, D2));
@@ -493,15 +510,15 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
         store4(kvt + swz(p, c0, D2), k);
         const float4 qv = ld4(sq + rl * D + c0);
         const float4 gv = ld4(sg + rl * D + c0);
-        const float lg = head_logit(qv, k);
+        const float lg = head_logit<H>(qv, k);
         float gdv = gv.x * v[0];
         gdv = fmaf(gv.y, v[1], gdv);
         gdv = fmaf(gv.z, v[2], gdv);
         gdv = fmaf(gv.w, v[3], gdv);
-        // a head's 8 columns are the 4 of this lane and the 4 of its neighbour
-        gdv += __shfl_xor_sync(0xffffffffu, gdv, 1);
+        // a head's columns are the 4 of this lane and those of the others of its head
+        gdv = head_sum<H>(gdv);
 #ifdef AA_WRITE_LOGITS
-        if ((cg & 1) == 0 && live) g_logits[(gp0 + p) * H + h] = smask[p] > 0.0f ? lg : -INFINITY;
+        if (cg % HL == 0 && live) g_logits[(gp0 + p) * H + h] = smask[p] > 0.0f ? lg : -INFINITY;
 #endif
         float dl = 0.0f, ak = 0.0f, al = 0.0f;
         const float lsum = ssl[rl * H + h];
@@ -511,7 +528,7 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
           ak = al * kp;
           dl = al * (kp * gdv - sdelta[rl * H + h]);
         }
-        if ((cg & 1) == 0) {
+        if (cg % HL == 0) {  // the head's first lane
           sdl[p * H + h] = dl;
           salpha[p * H + h] = al;
         }
@@ -744,8 +761,32 @@ __global__ void reduce_partials(const double* __restrict__ partial, int blocks,
   dw[i] = static_cast<float>(s);
 }
 
+// K4 at H heads, then the sum of the blocks' slices, on the stream;
+// returns cudaGetLastError()
+template <int H>
+int launch(const float* q, const float* u, const float* mask, const float* keep, const float* w,
+           const float* g, const float* out, const float* stats, float* dq, float* dw,
+           double* partial, long long R, int Ak, float keep_scale, int grid, void* stream) {
+  if (R <= 0 || Ak <= 0 || grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = sizeof(float) * Smem<H>::S_FLOATS;
+  cudaError_t err = cudaFuncSetAttribute(aa_fused_bwd_kernel<H>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  aa_fused_bwd_kernel<H><<<grid, THREADS, smem, s>>>(q, u, mask, keep, w, g, out, stats, dq,
+                                                      partial, R, Ak, keep_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  reduce_partials<<<(W_FLOATS + 255) / 256, 256, 0, s>>>(partial, grid, dw);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// One set of entry points per head count: aa_fused_bwd_* at the flagship's
+// 8 heads, aa_fused_bwd_h4_* at the HiVT baseline's 4 (ops/aa_fused.py
+// picks by the head count and refuses any other).
 extern "C" {
 
 // floats the packed weight buffer (and its gradient) holds
@@ -753,6 +794,7 @@ int aa_fused_bwd_weight_floats() { return W_FLOATS; }
 
 // receivers one block owns at a time (the wrapper sizes the grid with it)
 int aa_fused_bwd_receivers_per_group() { return RB; }
+int aa_fused_bwd_h4_receivers_per_group() { return RB; }
 
 #ifdef AA_WRITE_LOGITS
 // where the next launches write each pair's recomputed head logits, [R * Ak][H]
@@ -762,27 +804,25 @@ int aa_fused_bwd_set_logits(float* p) {
 #endif
 
 // dq [R, 64] and dw [W_FLOATS] (packed like w) from K3's inputs q [R, 64],
-// u [R, Ak, 4], mask [R, Ak], keep [R, Ak, 8] or NULL, w; the cotangent
-// g [R, 64]; K3's output out [R, 64] and statistics stats [2, R, 8] of the
+// u [R, Ak, 4], mask [R, Ak], keep [R, Ak, H] or NULL, w; the cotangent
+// g [R, 64]; K3's output out [R, 64] and statistics stats [2, R, H] of the
 // same inputs.  keep_scale is 1 / (1 - p) with keep, else 1.  partial is a
-// [grid, W_FLOATS] f64 workspace.  Returns cudaGetLastError().
+// [grid, W_FLOATS] f64 workspace.  H is 8 here and 4 in
+// aa_fused_bwd_h4_launch.  Returns cudaGetLastError().
 int aa_fused_bwd_launch(const float* q, const float* u, const float* mask, const float* keep,
                         const float* w, const float* g, const float* out, const float* stats,
                         float* dq, float* dw, double* partial, long long R, int Ak,
                         float keep_scale, int grid, void* stream) {
-  if (R <= 0 || Ak <= 0 || grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = sizeof(float) * S_FLOATS;
-  cudaError_t err = cudaFuncSetAttribute(aa_fused_bwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  aa_fused_bwd_kernel<<<grid, THREADS, smem, s>>>(q, u, mask, keep, w, g, out, stats, dq,
-                                                   partial, R, Ak, keep_scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  reduce_partials<<<(W_FLOATS + 255) / 256, 256, 0, s>>>(partial, grid, dw);
-  return static_cast<int>(cudaGetLastError());
+  return launch<8>(q, u, mask, keep, w, g, out, stats, dq, dw, partial, R, Ak, keep_scale, grid,
+                   stream);
+}
+
+int aa_fused_bwd_h4_launch(const float* q, const float* u, const float* mask, const float* keep,
+                           const float* w, const float* g, const float* out, const float* stats,
+                           float* dq, float* dw, double* partial, long long R, int Ak,
+                           float keep_scale, int grid, void* stream) {
+  return launch<4>(q, u, mask, keep, w, g, out, stats, dq, dw, partial, R, Ak, keep_scale, grid,
+                   stream);
 }
 
 }  // extern "C"

@@ -178,9 +178,9 @@ class TemporalEncoder(nn.Module):
 
 class LocalEncoder(nn.Module):
     """The baseline's local encoder: AA attention per step (dense, or with
-    ``fused=True`` through kernels K3 and K4), the temporal transformer over
-    each actor's steps, then lane -> actor attention.  ``forward(scene)``
-    -> local_embed [B, A, D].
+    ``fused=True`` through kernels K3 and K4, at 4 heads on the card), the
+    temporal transformer over each actor's steps, then lane -> actor
+    attention.  ``forward(scene)`` -> local_embed [B, A, D].
 
     Of the JAX module's knobs, ``rows_fwd`` / ``rows_bwd`` / ``ln_mm``
     (TPU tiling) and ``parallel`` (which means nothing there either) are

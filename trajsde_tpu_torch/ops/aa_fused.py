@@ -14,7 +14,9 @@ On a CUDA tensor :func:`fused_pair_attention` launches the hand-written
 kernel in ``csrc/aa_fused.cu`` (built by nvcc at first use, bound with
 ctypes), and when gradients are needed it runs as
 :class:`FusedPairAttentionFn`, whose backward launches ``csrc/aa_fused_bwd.cu``.
-On a CPU tensor the plain versions run.  Nothing falls back from one to
+Both kernels take D 64 at the flagship's 8 heads and the HiVT baseline's
+4 (``KERNEL_HEAD_COUNTS``) and raise on any other width.  On a CPU tensor
+the plain versions run, at any width.  Nothing falls back from one to
 the other.  Only ``q`` and the 14 packed weights get gradients: ``u``,
 ``mask_f`` and ``keep`` are constants of the scene and the dropout draw,
 as in the JAX op (whose zero cotangents for them this ``None`` matches).
@@ -35,8 +37,11 @@ W_ORDER = (
     "lna0s", "lna0b", "wagg", "bagg", "lna1s", "lna1b",
     "wkv", "bkv",
 )
-# the kernel's widths (csrc/aa_fused.cu)
+# the kernels' widths (csrc/aa_fused.cu, csrc/aa_fused_bwd.cu): D 64 at the
+# head counts they are built for, the flagship's 8 (KERNEL_HEADS) and the
+# HiVT baseline's 4, each with C entry points of its own
 KERNEL_DIM, KERNEL_HEADS = 64, 8
+KERNEL_HEAD_COUNTS = (8, 4)
 
 
 # --------------------------------------------------------------------------
@@ -110,6 +115,12 @@ def _ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tenso
     return xc * torch.rsqrt(v + LN_EPS) * scale + bias
 
 
+def _head_logits(qh: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Each head's logit q_h . k_h / sqrt(hd): qh [R, 1, H, hd] and k
+    [R, Ak, H, hd] -> [R, Ak, H]."""
+    return (k * qh).sum(-1) * (1.0 / k.shape[-1] ** 0.5)
+
+
 def fused_pair_attention_reference(q, u, mask_f, keep, ws: Sequence[torch.Tensor],
                                    num_heads: int, dropout_rate: float = 0.0) -> torch.Tensor:
     """``pair_chain`` over the whole batch as one tile: q [B, T, Aq, D],
@@ -134,8 +145,7 @@ def fused_pair_attention_reference(q, u, mask_f, keep, ws: Sequence[torch.Tensor
 
     k = kv[:, :D].reshape(R, Ak, H, hd)
     v = kv[:, D:].reshape(R, Ak, H, hd)
-    qh = q.reshape(R, 1, H, hd)
-    lg = (k * qh).sum(-1) * (1.0 / hd ** 0.5)                 # [R, Ak, H]
+    lg = _head_logits(q.reshape(R, 1, H, hd), k)              # [R, Ak, H]
     m3 = mask_f.reshape(R, Ak, 1)
     lg = torch.where(m3 > 0, lg, torch.full_like(lg, NEG))
     e = torch.exp(lg - lg.amax(dim=1, keepdim=True)) * m3
@@ -166,18 +176,48 @@ def fused_pair_attention_bwd_reference(q, u, mask_f, keep, ws: Sequence[torch.Te
 # --------------------------------------------------------------------------
 # kernel
 # --------------------------------------------------------------------------
+def _entry_name(kernel: str, what: str, num_heads: int) -> str:
+    """The C function ``what`` of ``kernel`` (``"aa_fused"`` or
+    ``"aa_fused_bwd"``) at ``num_heads`` heads: ``aa_fused_launch`` at 8,
+    ``aa_fused_h4_launch`` at 4."""
+    return f"{kernel}{'' if num_heads == KERNEL_HEADS else f'_h{num_heads}'}_{what}"
+
+
+def has_heads(lib: ctypes.CDLL, kernel: str, num_heads: int) -> bool:
+    """Whether a build of ``kernel``'s source has entry points for
+    ``num_heads`` (a build of an older source may have the 8 heads' only)."""
+    return hasattr(lib, _entry_name(kernel, "launch", num_heads))
+
+
+def _entry(lib: ctypes.CDLL, kernel: str, what: str, num_heads: int):
+    if not has_heads(lib, kernel, num_heads):
+        raise ValueError(f"{lib._name} has no {num_heads}-head entry point "
+                         f"{_entry_name(kernel, 'launch', num_heads)}")
+    return getattr(lib, _entry_name(kernel, what, num_heads))
+
+
+def _declare(lib: ctypes.CDLL, kernel: str, launch_pointers: int) -> ctypes.CDLL:
+    """Declares ``kernel``'s C interface, at every head count the build
+    has, on a loaded library and returns it."""
+    getattr(lib, f"{kernel}_weight_floats").argtypes = []
+    getattr(lib, f"{kernel}_weight_floats").restype = ctypes.c_int
+    for h in KERNEL_HEAD_COUNTS:
+        if not has_heads(lib, kernel, h):
+            continue
+        fn = getattr(lib, _entry_name(kernel, "launch", h))
+        fn.argtypes = [ctypes.c_void_p] * launch_pointers + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, _entry_name(kernel, "receivers_per_group", h))
+        fn.argtypes, fn.restype = [], ctypes.c_int
+    return lib
+
+
 def configure_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declares K3's C interface on a loaded library (``csrc/aa_fused.cu``
     or a copy of it built elsewhere) and returns it."""
-    lib.aa_fused_launch.argtypes = [ctypes.c_void_p] * 7 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.aa_fused_launch.restype = ctypes.c_int
-    lib.aa_fused_weight_floats.argtypes = []
-    lib.aa_fused_weight_floats.restype = ctypes.c_int
-    lib.aa_fused_receivers_per_group.argtypes = []
-    lib.aa_fused_receivers_per_group.restype = ctypes.c_int
-    return lib
+    return _declare(lib, "aa_fused", 7)
 
 
 @functools.cache
@@ -190,15 +230,7 @@ def _library():
 def configure_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declares K4's C interface on a loaded library (``csrc/aa_fused_bwd.cu``
     or a copy of it built elsewhere) and returns it."""
-    lib.aa_fused_bwd_launch.argtypes = [ctypes.c_void_p] * 11 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.aa_fused_bwd_launch.restype = ctypes.c_int
-    lib.aa_fused_bwd_weight_floats.argtypes = []
-    lib.aa_fused_bwd_weight_floats.restype = ctypes.c_int
-    lib.aa_fused_bwd_receivers_per_group.argtypes = []
-    lib.aa_fused_bwd_receivers_per_group.restype = ctypes.c_int
-    return lib
+    return _declare(lib, "aa_fused_bwd", 11)
 
 
 @functools.cache
@@ -223,10 +255,9 @@ def _common_checks(q, u, mask_f, keep, ws, num_heads, weight_floats):
     """Checks shared by K3 and K4 -> (R, Ak, the packed weight buffer)."""
     B, T, Aq, D = q.shape
     Ak = u.shape[3]
-    if (D, num_heads) != (KERNEL_DIM, KERNEL_HEADS):
-        raise ValueError(f"the aa_fused kernels are specialised to D={KERNEL_DIM}, "
-                         f"H={KERNEL_HEADS}; got D={D}, H={num_heads} (the baseline's 4 heads: "
-                         "ROADMAP.md Queue 1 item 8b)")
+    if D != KERNEL_DIM or num_heads not in KERNEL_HEAD_COUNTS:
+        raise ValueError(f"the aa_fused kernels are built for D={KERNEL_DIM} at "
+                         f"H in {KERNEL_HEAD_COUNTS}; got D={D}, H={num_heads}")
     if Ak < 1:
         raise ValueError("the aa_fused kernels need at least one sender")
     dev = q.device
@@ -263,10 +294,11 @@ def launch_fwd(lib: ctypes.CDLL, q, u, mask_f, keep, ws, num_heads, dropout_rate
     stats = torch.empty((2, R, num_heads), device=dev) if with_stats else None
     if R == 0:
         return out, stats
-    grid = _grid(R, lib.aa_fused_receivers_per_group(), dev)
+    grid = _grid(R, _entry(lib, "aa_fused", "receivers_per_group", num_heads)(), dev)
+    launch = _entry(lib, "aa_fused", "launch", num_heads)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.aa_fused_launch(
+        err = launch(
             q.data_ptr(), u.data_ptr(), mask_f.data_ptr(),
             None if keep is None else keep.data_ptr(), w.data_ptr(), out.data_ptr(),
             None if stats is None else stats.data_ptr(),
@@ -305,11 +337,12 @@ def launch_bwd(lib: ctypes.CDLL, q, u, mask_f, keep, ws, g, out, stats, num_head
         # each block adds its groups' weight gradients into its own f64
         # slice; a second kernel sums the slices in block order (no
         # atomics, bit-equal reruns)
-        grid = _grid(R, lib.aa_fused_bwd_receivers_per_group(), dev)
+        grid = _grid(R, _entry(lib, "aa_fused_bwd", "receivers_per_group", num_heads)(), dev)
+        launch = _entry(lib, "aa_fused_bwd", "launch", num_heads)
         partial = torch.empty((grid, w.numel()), device=dev, dtype=torch.float64)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.aa_fused_bwd_launch(
+            err = launch(
                 q.data_ptr(), u.data_ptr(), mask_f.data_ptr(),
                 None if keep is None else keep.data_ptr(), w.data_ptr(), g.data_ptr(),
                 out.data_ptr(), stats.data_ptr(), dq.data_ptr(), dw.data_ptr(),
