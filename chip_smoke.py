@@ -8,7 +8,8 @@ hold its kernels against their plain PyTorch versions.
 Phases (any failure raises and exits non-zero; nothing falls back):
   1. device: require CUDA, print the card's name and power limit, f32
      matmuls in full precision (TF32 off);
-  2. build: compile every kernel from ``trajsde_tpu_torch/csrc``, one nvcc
+  2. build: compile every kernel from ``trajsde_tpu_torch/csrc`` and the
+     check copies of phases G and L (:func:`build_check_copies`), one nvcc
      per source in parallel, and print ptxas's registers and spills;
   3. kernels: the rollout kernel K1 vs its plain version at the row count
      of each served bucket (1, 8, 128: 480, 3,840 and 61,440 rows x 60
@@ -64,17 +65,27 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      ``FLAGSHIP_TRAIN_FUSED`` (K3 + K4 + K1 + K2) vs ``FLAGSHIP_TRAIN`` (the
      dense encoder), same weights, pinned noise; K3 and K4 launch once;
   G. ``aa_attention`` (K5, the AA chain from positions, with the q
-     projection and the pair features in the kernel): its own path, one
-     call at the twin shape (128 x 21 x 49 x 48), launches K5 once; then
-     K5 vs its plain version and vs K3 fed the same q and u at the
-     ``test_aa_kernel.py`` shape, a ragged one and the twin shape, for the
-     model's packed weights and random ones, a mask with empty receivers;
-     two runs bit-equal; CUDA-event medians at the twin shape;
+     projection and the pair features in the kernel; K3's products and
+     softmax): its own path, one call at the twin shape (128 x 21 x 49 x
+     48, 8 heads) and one at the baseline's (128 x 21 x 48 x 48, 4 heads),
+     launches K5 twice; then K5 vs its plain version and vs K3 fed the
+     same q and u within ``TOL_K3_TIGHT``, which a copy of K5 with one
+     TF32 product per term must fail, at the ``test_aa_kernel.py`` shape,
+     a ragged one and the twin shape at 8 heads, and at the first two and
+     the baseline's shape at 4, for the model's packed weights (the
+     flagship's, the baseline's) and random ones, a mask with empty
+     receivers; two runs bit-equal; CUDA-event medians at the twin shape
+     and the baseline's, beside the bounds on K5's route and on the CUDA
+     cores;
   H. the elementwise-rate probe (K6, ``scripts/bench_vpu_dtype_torch.py``):
-     its own path, f32 and bf16 on the JAX probe's [2048, 128] tile, then
-     f32, approximate-tanh f32 and bf16 on a [65536, 128] tile that fills
-     the card, timed; then K6 vs its plain version element by element, in
-     ulps, in every run, and the rates;
+     the MUFU instructions per value and round of each variant, read from
+     the built library's SASS (``scripts/vpu_probe_sass_torch.py``), equal
+     to ``K6_MUFU``; its own path, f32 and bf16 on the JAX probe's [2048,
+     128] tile, then f32, approximate-tanh f32 and bf16 on a [65536, 128]
+     tile that fills the card, timed beside the bound (the special-function
+     units' time for those instructions, the CUDA cores' for the multiply
+     and add, or the bytes, whichever is longest); then K6 vs its plain
+     version element by element, in ulps, in every run, and the rates;
   I. train from files (after F): 4 batches of 128 synthetic scenes of both
      sources written as per-scene ``.npz`` and converted to shards by the
      port's ``convert_npz_dir``; ``FLAGSHIP_TRAIN_FUSED`` trains one epoch
@@ -127,7 +138,7 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      product per term must fail; K4 vs autograd through the plain chain
      by ``k4_tol``; bit-equal reruns; K4's recomputed logits equal to
      K3's bit for bit, and K3's softmax max their max (check copies built
-     with ``AA_WRITE_LOGITS``); CUDA-event medians of both beside their
+     with ``AA_WRITE_LOGITS`` in phase 2); CUDA-event medians of both beside their
      bounds.  Then, dense and fused: the forward (finite, shaped; the
      fused one within ``TOL_SPLICE`` of the dense one) and three train
      steps (dropout live; finite and falling loss), CUDA-event times,
@@ -145,6 +156,7 @@ The last lines are the card, a JSON object per kernel and the device line.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import ctypes
 import dataclasses
@@ -242,12 +254,16 @@ def k4_tol(leaf: str) -> float:
     return min(loose, TOL_K4_SMOOTH) if leaf in K4_SMOOTH_LEAVES else loose
 
 
-# K5 vs plain and vs K3 (fed q = centre . wq + bq and the same u): TOL_K3,
-# the same f32 chain; the kernel's q is its own FMA product, not cuBLAS's
+# K5 vs plain and vs K3 (fed q = centre . wq + bq and the same u):
+# TOL_K3_TIGHT, K3's chain and products; the kernel's q is its own FMA
+# product, not cuBLAS's, and a copy of K5 with one TF32 product per term
+# must fail it
 # K6 vs plain: per element, by vpu_probe.agreement (in ulps within
 # TOL_ULPS, and a least share of bit-equal elements; its comment gives the
 # reasons)
 K5_SHAPES = {"test": (2, 5, 9, 8), "ragged": (3, 7, 13, 11), "twin": (128, 21, 49, 48)}
+# and at the HiVT baseline's 4 heads in place of the twin shape
+K5_BASELINE_SHAPE = (128, 21, 48, 48)
 # fused train step (K1 + K2) vs autograd through the plain loop, full width:
 # loss relative; each gradient leaf max |diff| <= TOL * max |grad| + ATOL (the
 # atol covers leaves whose exact gradient is 0, such as the key biases under
@@ -280,6 +296,16 @@ PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_F64_TC_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# the special-function units of an H100 SXM: 16 results a clock per SM for
+# sm_90 (CUDA C++ Programming Guide, "Arithmetic Instructions": reciprocal,
+# exponential, sine, ...; one MUFU instruction each) x 132 SMs x 1.98 GHz
+PEAK_SFU_PER_S = 132 * 16 * 1.98e9
+# K6's MUFU instructions per value and round in each variant, read from
+# cuobjdump -sass of the built library (scripts/vpu_probe_sass_torch.py,
+# which phase H runs and holds to these counts): tanhf takes MUFU.EX2 and
+# MUFU.RCP, tanh.approx.f32 one MUFU.TANH, and tanh.approx.bf16x2 one
+# MUFU.TANH.BF16 for each of its two halves
+K6_MUFU = {"float32": 2, "float32-approx": 1, "bfloat16": 1}
 TIMED_RUNS, WARMUP = 20, 3
 
 
@@ -334,15 +360,22 @@ KERNELS = ("sde_rollout", "sde_rollout_bwd", "aa_fused", "aa_fused_bwd", "aa_att
            "vpu_probe")
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Builds every kernel and, at the same time, the check copies
+    (:func:`build_check_copies`), one nvcc per source; returns the copies."""
     t0 = time.perf_counter()
-    kernel_build.load_all(KERNELS)
-    print(f"[build] {', '.join(KERNELS)} ready in {time.perf_counter() - t0:.2f} s", flush=True)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        copies = pool.submit(build_check_copies)
+        kernel_build.load_all(KERNELS)
+        checks = copies.result()
+    print(f"[build] {', '.join(KERNELS)} and the check copies {', '.join(checks)} ready in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name in KERNELS:
         for line in kernel_build.build_log.get(name, "").splitlines():
             if ("registers" in line or "spill" in line or line.startswith("built")
                     or "Compiling entry" in line):
                 print(f"[build]   {name}: {line.strip()}")
+    return checks
 
 
 def rollout_bound(rows: int, steps: int, dim: int, explicit_noise: bool):
@@ -1608,31 +1641,42 @@ def phase_fused_train_splice() -> None:
 
 
 def aa_attention_bound(B: int, T: int, Aq: int, Ak: int, dim: int, heads: int):
-    """(bound_ms, bound_by, flops, bytes) of one K5 call: :func:`aa_pair_ops`
-    per pair plus the pair features' 14 (two differences, eight products,
-    four sums) and the q projection's 2 D^2 + D per receiver; the centres,
-    x_k, pos_q, pos_k and rot (f32), the bool mask (1 byte), the weights
-    with wq and bq read once, the aggregate written once."""
+    """(bound_ms, bound_by, flops, bytes, route_ms, route_by) of one K5
+    call: :func:`aa_pair_ops` per pair plus the pair features' 14 (two
+    differences, eight products, four sums) and the q projection's
+    2 D^2 + D per receiver; the centres, x_k, pos_q, pos_k and rot (f32),
+    the bool mask (1 byte), the weights with wq and bq read once, the
+    aggregate written once.  ``bound_ms`` takes every operation at the f32
+    CUDA-core peak; ``route_ms`` is the bound on K5's route, K3's: its three
+    chain products (``10 dim^2`` a pair) on the tensor cores at f32
+    accuracy, the rest on the CUDA cores at the same time (see
+    :func:`_route_bounds`)."""
     pairs, rows = B * T * Aq * Ak, B * T * Aq
     flops = pairs * (sum(aa_pair_ops(dim, heads)) + 14) + rows * (2 * dim * dim + dim)
     floats = (rows * dim + 2 * B * T * Ak * 2 + rows * 2 + B * Aq * 4
               + aa_weight_floats(dim) + dim * dim + dim + rows * dim)
     nbytes = 4 * floats + pairs
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+    return _route_bounds(flops, pairs * 10 * dim * dim, nbytes)
 
 
-def vpu_probe_bound(n: int, rounds: int, bf16: bool):
-    """(bound_ms, bound_by, flops, bytes) of one K6 call on ``n`` values:
-    3 operations (tanh, multiply, add) per value and round at the f32
-    CUDA-core peak, twice that for bf16 (two values per lane); the input
-    read and the output written once.  tanh runs on the special-function
-    units, so the operation bound is not reachable."""
-    flops = 3 * n * rounds
+def vpu_probe_bound(n: int, rounds: int, variant: str):
+    """(bound_ms, bound_by, flops, bytes) of one K6 call on ``n`` values of
+    ``variant``: the longest of three times.  The multiply and add of each
+    value and round, 2 operations at the f32 CUDA-core peak (twice it for
+    bf16, two values per lane); the tanh on the special-function units,
+    ``K6_MUFU[variant]`` instructions per value and round at
+    ``PEAK_SFU_PER_S``; the input read and the output written once.
+    ``bound_by`` names the longest: ``operations`` (CUDA cores),
+    ``special-function units`` or ``bytes``.  ``flops`` counts the 3
+    operations (tanh, multiply, add) of each value and round."""
+    bf16 = variant == "bfloat16"
+    t_fma = 2 * n * rounds / (PEAK_F32_FLOPS * (2 if bf16 else 1))
+    t_sfu = K6_MUFU[variant] * n * rounds / PEAK_SFU_PER_S
     nbytes = 2 * n * (2 if bf16 else 4)
-    t_ops = flops / (PEAK_F32_FLOPS * (2 if bf16 else 1))
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+    times = {"operations": t_fma, "special-function units": t_sfu, "bytes": t_bytes}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by, 3 * n * rounds, nbytes
 
 
 def _k5_inputs(shape, gen):
@@ -1656,73 +1700,113 @@ def _k5_inputs(shape, gen):
     return center, x_k, pos_q, pos_k, rot, mask
 
 
-@torch.inference_mode()
-def phase_aa_attention(model) -> dict:
-    """K5's own path (one ``aa_attention`` call at the twin shape), then K5
-    vs its plain version and vs K3 on the same q and u at every shape of
-    ``K5_SHAPES``, for the model's packed weights and random ones; bit-equal
-    reruns, empty receivers exactly 0; timed at the twin shape."""
-    t0 = time.perf_counter()
-    D, H = K3.KERNEL_DIM, K3.KERNEL_HEADS
+def _k5_packed(model, gen) -> dict:
+    """``model``'s packed AA weights with wq / bq (``model``) and random ones
+    (``random``, the w1 blocks off the diagonal filled in)."""
+    D = K3.KERNEL_DIM
     packed = {k: v.contiguous() for k, v in K3.pack_aa_params(model.encoder.aa_encoder).items()}
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
     rand = dict(zip(K3.W_ORDER, _random_aa_weights(gen, K3.weights_of(packed))))
     rand["wq"] = torch.randn((D, D), generator=gen, device="cuda") / D ** 0.5
     rand["bq"] = 0.2 * torch.randn((1, D), generator=gen, device="cuda")
-    weights = {"model": packed, "random": rand}
-    twin = _k5_inputs(K5_SHAPES["twin"], gen)
+    return {"model": packed, "random": rand}
+
+
+@torch.inference_mode()
+def phase_aa_attention(model, one_term) -> dict:
+    """K5's own path (one ``aa_attention`` call at each head count), then
+    K5 vs its plain version and vs K3 on the same q and u within
+    ``TOL_K3_TIGHT``, which the ``one_term`` copy of K5 must fail, at every
+    shape of ``K5_SHAPES`` at 8 heads (the flagship's weights) and at 4
+    (the baseline's, ``K5_BASELINE_SHAPE`` for the twin), for the model's
+    packed weights and random ones; bit-equal reruns, empty receivers
+    exactly 0; timed at the twin shape (8 heads) and the baseline's (4)."""
+    t0 = time.perf_counter()
+    D = K3.KERNEL_DIM
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    baseline = build_model(BASELINE_TRAIN, device="cuda", seed=SEED)
+    weights = {8: _k5_packed(model, gen), 4: _k5_packed(baseline, gen)}
+    del baseline
+    shapes = {8: K5_SHAPES, 4: dict(K5_SHAPES, twin=K5_BASELINE_SHAPE)}
+    timed = {h: _k5_inputs(shapes[h]["twin"], gen) for h in shapes}
 
     zero_counts()
-    K5.aa_attention(*twin, packed, H)
+    for h, args in timed.items():
+        K5.aa_attention(*args, weights[h]["model"], h)
     torch.cuda.synchronize()
     launches = _counts()
-    print(f"[aa-attention] launches of one aa_attention call: {launches}", flush=True)
-    check(launches == {k: int(k == "aa_attention") for k in launches},
-          "aa_attention did not launch K5 once, and nothing else")
+    print(f"[aa-attention] launches of one aa_attention call at 8 and one at 4 heads: "
+          f"{launches}", flush=True)
+    check(launches == {k: 2 * int(k == "aa_attention") for k in launches},
+          "aa_attention did not launch K5 once a call, and nothing else")
 
-    max_abs = 0.0
-    for name, shape in K5_SHAPES.items():
-        args = twin if name == "twin" else _k5_inputs(shape, gen)
-        center, x_k, pos_q, pos_k, rot, mask = args
-        for wname, ws in weights.items():
-            case = f"{name} {list(shape)}, {wname} weights"
-            got = K5.aa_attention(*args, ws, H)
-            again = K5.aa_attention(*args, ws, H)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(got).all()), f"aa_attention ({case}) is not finite")
-            check(torch.equal(got, again), f"aa_attention ({case}) is not bit-equal across two runs")
-            check(bool((got[:, :, ::7] == 0).all()), f"aa_attention ({case}): an empty receiver "
-                  "did not give exactly 0")
-            want = K5.aa_attention_reference(*args, ws, H)
-            q = (center @ ws["wq"] + ws["bq"][0]).contiguous()
-            u = K3.build_pair_features(x_k, pos_k[:, :, None] - pos_q[:, :, :, None],
-                                       rot).contiguous()
-            k3 = K3.fused_pair_attention(q, u, mask.float(), None, K3.weights_of(ws), H)
-            scale = want.abs().max().item()
-            diff = (got - want).abs().max().item()
-            rel, rel_k3 = diff / scale, (got - k3).abs().max().item() / scale
-            max_abs = max(max_abs, diff)
-            print(f"[aa-attention] aa_attention {case}: bit-equal reruns, max|kernel - plain| "
-                  f"{diff:.3e} = {rel:.3e} of max|plain|, max|K5 - K3| {rel_k3:.3e} of it "
-                  f"(tol {TOL_K3:g})", flush=True)
-            check(rel <= TOL_K3, f"aa_attention ({case}) disagrees with its plain version")
-            check(rel_k3 <= TOL_K3, f"aa_attention ({case}) disagrees with K3 on the same q and u")
-            del got, again, want, q, u, k3
-    ms = cuda_ms(lambda: K5.aa_attention(*twin, packed, H))
-    bound, by, flops, nbytes = aa_attention_bound(*K5_SHAPES["twin"], D, H)
-    print(f"[aa-attention] aa_attention twin {list(K5_SHAPES['twin'])}: {ms:.3f} ms (median of "
-          f"{TIMED_RUNS}), bound {bound:.3f} ms by {by} ({flops:.3e} flop, {nbytes:.3e} B), "
-          f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
-    plain_ms = cuda_ms(lambda: K5.aa_attention_reference(*twin, packed, H), runs=5, warmup=1)
-    print(f"[aa-attention] aa_attention plain version at the twin shape: {plain_ms:.3f} ms "
-          f"(median of 5)", flush=True)
-    del twin
+    max_abs = {8: 0.0, 4: 0.0}
+    one_term_rel = {8: [], 4: []}
+    for H, at_heads in shapes.items():
+        for name, shape in at_heads.items():
+            args = timed[H] if name == "twin" else _k5_inputs(shape, gen)
+            center, x_k, pos_q, pos_k, rot, mask = args
+            for wname, ws in weights[H].items():
+                case = f"{H} heads, {name} {list(shape)}, {wname} weights"
+                got = K5.aa_attention(*args, ws, H)
+                again = K5.aa_attention(*args, ws, H)
+                coarse = K5.launch(one_term, *args, ws, H)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(got).all()), f"aa_attention ({case}) is not finite")
+                check(torch.equal(got, again),
+                      f"aa_attention ({case}) is not bit-equal across two runs")
+                check(bool((got[:, :, ::7] == 0).all()), f"aa_attention ({case}): an empty "
+                      "receiver did not give exactly 0")
+                want = K5.aa_attention_reference(*args, ws, H)
+                q = (center @ ws["wq"] + ws["bq"][0]).contiguous()
+                u = K3.build_pair_features(x_k, pos_k[:, :, None] - pos_q[:, :, :, None],
+                                           rot).contiguous()
+                k3 = K3.fused_pair_attention(q, u, mask.float(), None, K3.weights_of(ws), H)
+                scale = want.abs().max().item()
+                diff = (got - want).abs().max().item()
+                rel, rel_k3 = diff / scale, (got - k3).abs().max().item() / scale
+                one_term_rel[H].append((coarse - want).abs().max().item() / scale)
+                max_abs[H] = max(max_abs[H], diff)
+                print(f"[aa-attention] aa_attention {case}: bit-equal reruns, max|kernel - "
+                      f"plain| {diff:.3e} = {rel:.3e} of max|plain|, max|K5 - K3| {rel_k3:.3e} "
+                      f"of it (tight {TOL_K3_TIGHT:g}); the one-term copy "
+                      f"{one_term_rel[H][-1]:.3e}", flush=True)
+                check(rel <= TOL_K3_TIGHT, f"aa_attention ({case}): {rel:.3e} > TOL_K3_TIGHT "
+                      "against its plain version")
+                check(rel_k3 <= TOL_K3_TIGHT, f"aa_attention ({case}): {rel_k3:.3e} > "
+                      "TOL_K3_TIGHT against K3 on the same q and u")
+                del got, again, coarse, want, q, u, k3
+        check(max(one_term_rel[H]) > TOL_K3_TIGHT, f"the one-term copy of K5 passes "
+              f"TOL_K3_TIGHT at {H} heads ({max(one_term_rel[H]):.3e})")
+        torch.cuda.empty_cache()
+
+    row = {}
+    for H, args in timed.items():
+        packed = weights[H]["model"]
+        ms = cuda_ms(lambda: K5.aa_attention(*args, packed, H))
+        plain_ms = cuda_ms(lambda: K5.aa_attention_reference(*args, packed, H), runs=5, warmup=1)
+        shape = shapes[H]["twin"]
+        bound, by, flops, nbytes, route, route_by = aa_attention_bound(*shape, D, H)
+        print(f"[aa-attention] aa_attention at {H} heads, {list(shape)}: {ms:.3f} ms (median of "
+              f"{TIMED_RUNS}), bound {route:.3f} ms by {route_by} on its route (3xTF32 products "
+              f"on the tensor cores) and {bound:.3f} ms by {by} on the CUDA cores ({flops:.3e} "
+              f"flop, {nbytes:.3e} B), {flops / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.3f} ms "
+              f"(median of 5)", flush=True)
+        prefix = "" if H == 8 else "h4_"
+        row.update({f"{prefix}max_abs_err": max_abs[H], f"{prefix}ms": ms,
+                    f"{prefix}plain_ms": plain_ms, f"{prefix}bound_ms": route,
+                    f"{prefix}bound_by": route_by, f"{prefix}cuda_core_bound_ms": bound,
+                    f"{prefix}cuda_core_bound_by": by,
+                    f"{prefix}one_term_max_rel_err": max(one_term_rel[H])})
+        torch.cuda.empty_cache()
+    del timed
     torch.cuda.empty_cache()
     print(f"[aa-attention] phase G took {time.perf_counter() - t0:.1f} s", flush=True)
+    # bound_ms is the route's, cuda_core_bound_ms every operation on the CUDA
+    # cores (8 heads, the twin shape); h4_* at 4 heads, the baseline's shape
     return dict(name="aa_attention", route="cuda", source="trajsde_tpu_torch/csrc/aa_attention.cu",
                 replaces="trajsde_tpu/ops/pallas/aa_attention.py:201",
-                launches=launches["aa_attention"], max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=by, library_ms=None)
+                launches=launches["aa_attention"], library_ms=None,
+                h4_shape=list(K5_BASELINE_SHAPE), **row)
 
 
 def phase_vpu_probe() -> dict:
@@ -1731,8 +1815,12 @@ def phase_vpu_probe() -> dict:
     time.  The row's numbers are f32's on the JAX probe's tile; ``runs``
     holds every run's."""
     from scripts import bench_vpu_dtype_torch as probe
+    from scripts.vpu_probe_sass_torch import mufu_per_value
 
     t0 = time.perf_counter()
+    mufu = mufu_per_value()
+    check(mufu == K6_MUFU, f"the built probe's MUFU instructions per value and round {mufu} are "
+          f"not K6_MUFU {K6_MUFU}: its bound would be wrong")
     zero_counts()
     runs = [probe.run(variant, rows) for variant, rows in probe.RUNS]
     launches = _counts()
@@ -1749,7 +1837,7 @@ def phase_vpu_probe() -> dict:
         max_ulps = agree["max_ulps"]
         diff = (r["y"].float() - want.float()).abs().max().item()
         plain_us = probe.device_us(lambda: K6.chained_tanh_reference(x), 20)
-        bound, by, _, _ = vpu_probe_bound(x.numel(), K6.ROUNDS, x.dtype == torch.bfloat16)
+        bound, by, _, _ = vpu_probe_bound(x.numel(), K6.ROUNDS, variant)
         case = f"{variant} {list(x.shape)}"
         print(f"[vpu-probe] {case} x {K6.ROUNDS} rounds: max|kernel - plain| {max_ulps:g} ulps "
               f"(tol {K6.TOL_ULPS[variant]}), {diff:.3e}; bit-equal {agree['bit_equal']:.6f} "
@@ -1798,13 +1886,14 @@ def baseline_train_steps(model, cfg, scene, steps: int):
 
 
 def build_check_copies() -> dict:
-    """Phase L's check copies of K3 and K4, built in parallel under the build
-    directory's ``checks/``: ``logits_fwd`` and ``logits_bwd`` with
-    ``AA_WRITE_LOGITS`` defined (each writes every pair's head logits, -inf
-    where masked, to the buffer its ``*_set_logits`` names: K3 the ones its
-    softmax takes, K4 the ones its recompute gives), and ``one_term``, K3
-    with one TF32 product per term (``mma_tf32.cuh`` without its two small
-    terms, beside the copy).  Returns name -> configured library."""
+    """The check copies of phases G and L, built in parallel under the build
+    directory's ``checks/``: ``logits_fwd`` and ``logits_bwd``, K3 and K4
+    with ``AA_WRITE_LOGITS`` defined (each writes every pair's head logits,
+    -inf where masked, to the buffer its ``*_set_logits`` names: K3 the ones
+    its softmax takes, K4 the ones its recompute gives), and ``one_term`` and
+    ``one_term_k5``, K3 and K5 with one TF32 product per term
+    (``mma_tf32.cuh`` without its two small terms, beside the copies).
+    Returns name -> configured library."""
     out_dir = os.path.join(kernel_build.BUILD_DIR, "checks")
 
     def source(name: str) -> str:
@@ -1824,6 +1913,8 @@ def build_check_copies() -> dict:
         "logits_bwd": write(os.path.join(out_dir, "logits_bwd", "aa_fused_bwd.cu"),
                             logits + source("aa_fused_bwd.cu")),
         "one_term": write(os.path.join(out_dir, "one_term", "aa_fused.cu"), source("aa_fused.cu")),
+        "one_term_k5": write(os.path.join(out_dir, "one_term", "aa_attention.cu"),
+                             source("aa_attention.cu")),
     }
     # the copy's own header lies beside it, so its include finds that first
     write(os.path.join(out_dir, "one_term", "mma_tf32.cuh"),
@@ -1832,7 +1923,8 @@ def build_check_copies() -> dict:
     fwd, bwd = K3.configure_fwd(libs["logits_fwd"]), K3.configure_bwd(libs["logits_bwd"])
     fwd.aa_fused_set_logits.argtypes = [ctypes.c_void_p]
     bwd.aa_fused_bwd_set_logits.argtypes = [ctypes.c_void_p]
-    return {"logits_fwd": fwd, "logits_bwd": bwd, "one_term": K3.configure_fwd(libs["one_term"])}
+    return {"logits_fwd": fwd, "logits_bwd": bwd, "one_term": K3.configure_fwd(libs["one_term"]),
+            "one_term_k5": K5.configure(libs["one_term_k5"])}
 
 
 def phase_baseline_kernels(fused, checks: dict) -> tuple:
@@ -2007,7 +2099,7 @@ def _baseline_engine(model, raws, card: str, tag: str) -> dict:
     return engine
 
 
-def phase_baseline(card: str) -> dict:
+def phase_baseline(card: str, checks: dict) -> dict:
     """L. The HiVT baseline at the published widths (see the module's
     docstring).  Returns K3's and K4's numbers at 4 heads, and for the
     dense and the fused model the forward's and the train step's times,
@@ -2020,7 +2112,7 @@ def phase_baseline(card: str) -> dict:
               "fused": build_model(BASELINE_TRAIN, device="cuda", seed=SEED)}
     models["fused"].load_state_dict(models["dense"].state_dict())
     out = {}
-    out["k3"], out["k4"] = phase_baseline_kernels(models["fused"], build_check_copies())
+    out["k3"], out["k4"] = phase_baseline_kernels(models["fused"], checks)
 
     preds = {}
     for tag, model in models.items():
@@ -2091,7 +2183,7 @@ def phase_baseline(card: str) -> dict:
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
-    phase_build()
+    checks = phase_build()
     model = build_model(FLAGSHIP, device="cuda", seed=SEED)
     engine = ServingEngine(model, num_actors=NUM_ACTORS, num_lanes=NUM_LANES, device="cuda",
                            seed=SEED)
@@ -2109,7 +2201,7 @@ def main() -> None:
           + "; ".join(f"batch {n} {fused_ms[n]:.1f} vs {dense_ms[n]:.1f} ms" for n in BATCHES),
           flush=True)
     k3_ood, k4_ood = phase_fused_splice(model, fused_model)
-    k5 = phase_aa_attention(model)
+    k5 = phase_aa_attention(model, checks["one_term_k5"])
     k6 = phase_vpu_probe()
     engine.close()
     fused_engine.close()
@@ -2137,7 +2229,7 @@ def main() -> None:
         torch.cuda.empty_cache()
         engine_k = phase_engine(d, card)
     torch.cuda.empty_cache()
-    baseline = phase_baseline(card)
+    baseline = phase_baseline(card, checks)
     k3.update(baseline["k3"])
     k4.update(baseline["k4"])
     # launches: the count on the kernel's own main path (serving for K1,

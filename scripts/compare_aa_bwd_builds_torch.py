@@ -28,7 +28,8 @@ entry points for those heads against the plain backward by
 ``chip_smoke.k4_tol``: the bases, change and no-swizzle must pass and
 one-term must fail; no-swizzle must give the change's bits.  At 8 heads
 and the flagship's shape it also says whether the change gives each
-base's outputs bit for bit, and with ``--same-bits`` fails if not.  Then
+base's outputs bit for bit (with ``--heads 4`` also at 4 heads, for the
+bases that have them), and with ``--same-bits`` fails if not.  Then
 it times the builds in the order of the bases, change, no-swizzle,
 no-products, no-recompute, then back (CUDA-event medians of
 ``chip_smoke.TIMED_RUNS``).  It prints ptxas's register and spill lines
@@ -193,6 +194,16 @@ def main() -> None:
         return K3.launch_bwd(libs[name][0], q, u, mask, keep, ws, g, out, stats, H, K3_DROPOUT)
 
     got = {name: run(name) for name in at_heads if name not in ("no-products", "no-recompute")}
+    if H != 8:  # the change against each base that has these heads, bit for bit
+        for name in bases:
+            if name in got:
+                same_bits[f"{name} at {H} heads"] = (
+                    torch.equal(got[name][0], got["change"][0])
+                    and all(torch.equal(a, b) for a, b in zip(got[name][1], got["change"][1])))
+        print(f"[check] at {H} heads, {list(shape)}: the change's dq and weight gradients are "
+              f"each base's bits: {same_bits}", flush=True)
+        if args.same_bits and not all(same_bits.values()):
+            failures.append(f"the change's {H}-head outputs differ from a base's: {same_bits}")
     want_dq, want = K3.fused_pair_attention_bwd_reference(q, u, mask, keep, ws, g, H, K3_DROPOUT)
     errs = {}
     for name, (dq, dws) in got.items():

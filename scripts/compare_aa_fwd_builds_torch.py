@@ -21,7 +21,8 @@ source calls ``mm<`` (the f32 FMA tiles of ``aa_common.cuh``) or
 ``tc::mma_xwt_split<`` (the tensor cores).  First, at 8 heads and the
 serving bucket-128 shape (B 128, T 21, Aq 49, Ak 48, D 64), it says
 whether the change gives each base's output bit for bit in both cases
-below, and with ``--same-bits`` fails if not.  Then, with ``--heads 8``
+below (with ``--heads 4`` also at 4 heads, for the bases that have
+them), and with ``--same-bits`` fails if not.  Then, with ``--heads 8``
 (the default) at that shape, with ``--heads 4`` at the HiVT baseline's
 (B 128, T 21, Aq = Ak = 48), it holds the output of each build that has
 entry points for those heads against the plain version, as max|build -
@@ -157,10 +158,22 @@ def main() -> None:
         q, u, mask, keep = _k3_inputs(first, with_keep, gen, H)
         p = K3_DROPOUT if with_keep else 0.0
         want = K3.fused_pair_attention_reference(q, u, mask, keep, ws, H, p)
+        got = {name: K3.launch_fwd(libs[name][0], q, u, mask, keep, ws, H, p)[0]
+               for name in checked}
         for name in checked:
-            got = K3.launch_fwd(libs[name][0], q, u, mask, keep, ws, H, p)[0]
-            errs[name][case] = ((got - want).abs().max() / want.abs().max()).item()
-        del q, u, mask, keep, want
+            errs[name][case] = ((got[name] - want).abs().max() / want.abs().max()).item()
+        if H != 8:  # the change against each base that has these heads, bit for bit
+            for name in bases:
+                if name in got:
+                    key = f"{name} at {H} heads"
+                    same_bits[key] = same_bits.get(key, True) and torch.equal(got[name],
+                                                                             got["change"])
+        del q, u, mask, keep, want, got
+    if H != 8:
+        print(f"[check] at {H} heads, {list(first)}: the change's output is each base's bits: "
+              f"{same_bits}", flush=True)
+        if args.same_bits and not all(same_bits.values()):
+            failures.append(f"the change's {H}-head output differs from a base's: {same_bits}")
     for name, rels in errs.items():
         worst = max(rels.values())
         if name == "one-term":

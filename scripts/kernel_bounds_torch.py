@@ -5,7 +5,7 @@ shape the port's main paths give it, on an NVIDIA H100 SXM.
     python scripts/kernel_bounds_torch.py     # one JSON line per kernel; needs no GPU
 
 bound = max(operations / 67 TFLOP/s f32, bytes / 3.35 TB/s HBM3): every
-input read once and every output written once.  The operation counts
+input read once and every output written once (K6: see below).  The operation counts
 follow the kernels' arithmetic (``trajsde_tpu/ops/pallas/``):
 
 * K1 ``sde_rollout`` / K2 ``_rollout_train_bwd``: the formulas of
@@ -35,17 +35,20 @@ follow the kernels' arithmetic (``trajsde_tpu/ops/pallas/``):
   pos_k - pos_q) and the q projection (2 D^2 + D per receiver); it reads
   what the function takes: the normed centres, x_k, pos_q, pos_k and rot
   in f32, the bool mask at 1 byte and the weights with wq / bq; it writes
-  the aggregate.
+  the aggregate.  Also ``tensor_route_bound_ms``: K3's three products on
+  the tensor cores in 3xTF32, the rest on the CUDA cores, as K3's.
 * K6, the probe ``scripts/bench_vpu_dtype.py::run``:
-  ``chip_smoke.vpu_probe_bound``, 3 operations (tanh, multiply, add) per
-  value and round over 64 rounds, at the f32 peak (twice it for packed
-  bf16); the tile read and written once.  Every run of
-  ``scripts/bench_vpu_dtype_torch.py``: the JAX probe's [2048, 128] tile
-  and the [65536, 128] one.  tanh runs on the special-function units, so
-  this operation bound is not reachable.
+  ``chip_smoke.vpu_probe_bound``, the longest of the multiply and add of
+  each value and round at the f32 peak (twice it for packed bf16), the
+  tanh's MUFU instructions (``chip_smoke.K6_MUFU``, read from the built
+  library's SASS by ``scripts/vpu_probe_sass_torch.py``) at the
+  special-function units' 16 a clock per SM, and the tile read and
+  written once.  Every run of ``scripts/bench_vpu_dtype_torch.py``: the
+  JAX probe's [2048, 128] tile and the [65536, 128] one.
 K3-K5 are taken at the serving bucket-128 shape: B = 128, T = 21,
 Aq = 49 (48 actors and the focal agent's twin), Ak = 48, D = 64, H = 8;
-K3 also at ``forward_ood``'s shape (Aq = Ak = 48).
+K3 also at ``forward_ood``'s shape (Aq = Ak = 48), and K5 at the HiVT
+baseline's 4 heads and shape (Aq = Ak = 48).
 """
 from __future__ import annotations
 
@@ -53,14 +56,12 @@ import json
 import sys
 from pathlib import Path
 
-import torch
-
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import (aa_attention_bound, aa_fused_bound, aa_fused_bwd_bound,  # noqa: E402
                         bwd_bound, rollout_bound, vpu_probe_bound)
 from scripts.bench_vpu_dtype_torch import RUNS as PROBE_RUNS  # noqa: E402
-from trajsde_tpu_torch.ops.vpu_probe import ROUNDS, VARIANTS  # noqa: E402
+from trajsde_tpu_torch.ops.vpu_probe import ROUNDS  # noqa: E402
 
 B, T, AQ, AK, D, H = 128, 21, 49, 48, 64, 8
 ROWS, STEPS = 128 * 10 * 48, 60
@@ -86,13 +87,15 @@ def main() -> None:
                            bound_ms=bound, bound_by=by))
         if route:
             report[-1].update(tensor_route_bound_ms=route[0], tensor_route_bound_by=route[1])
-    bound, by, flops, nbytes = aa_attention_bound(B, T, AQ, AK, D, H)
-    report.append(dict(kernel="K5 aa_attention",
-                       shape=f"B={B} T={T} Aq={AQ} Ak={AK} D={D} H={H} ({B * T * AQ * AK} pairs)",
-                       flops=flops, bytes=nbytes, bound_ms=bound, bound_by=by))
+    for name, (aq, heads) in (("K5 aa_attention", (AQ, H)),
+                              ("K5 aa_attention, the HiVT baseline's 4 heads", (AK, 4))):
+        bound, by, flops, nbytes, route, route_by = aa_attention_bound(B, T, aq, AK, D, heads)
+        report.append(dict(kernel=name, shape=f"B={B} T={T} Aq={aq} Ak={AK} D={D} H={heads} "
+                           f"({B * T * aq * AK} pairs)", flops=flops, bytes=nbytes,
+                           bound_ms=bound, bound_by=by, tensor_route_bound_ms=route,
+                           tensor_route_bound_by=route_by))
     for variant, rows in PROBE_RUNS:
-        bf16 = VARIANTS[variant][0] == torch.bfloat16
-        bound, by, flops, nbytes = vpu_probe_bound(rows * 128, ROUNDS, bf16)
+        bound, by, flops, nbytes = vpu_probe_bound(rows * 128, ROUNDS, variant)
         report.append(dict(kernel=f"K6 vpu probe, {variant}",
                            shape=f"[{rows}, 128] x {ROUNDS} rounds", flops=flops,
                            bytes=nbytes, bound_ms=bound, bound_by=by))

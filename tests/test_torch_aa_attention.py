@@ -43,11 +43,11 @@ def _inputs(rng, B=2, T=5, Aq=9, Ak=8):
     return center, x_k, pos_q, pos_k.astype(np.float32), rot, mask
 
 
-def _linen_tree():
+def _linen_tree(heads=H):
     """The linen ``MultipleInputEmbedding`` + ``EdgeAttention`` pair's params."""
     p_mie = MultipleInputEmbedding(D).init(jax.random.key(3), [jnp.ones((1, 2)),
                                                                jnp.ones((1, 2))])
-    p_attn = EdgeAttention(D, H, dropout=0.0).init(
+    p_attn = EdgeAttention(D, heads, dropout=0.0).init(
         jax.random.key(4), jnp.ones((1, D)), jnp.ones((1, 1), bool), kv_pair=jnp.ones((1, 1, D)))
     tree = {"nbr_embed": p_mie["params"], "attn": p_attn["params"]}
     return jax.tree.map(np.asarray, tree)
@@ -66,10 +66,10 @@ def _random_packed(rng):
             {k: torch.from_numpy(v) for k, v in ws.items()})
 
 
-def _packed(weights):
+def _packed(weights, heads=H):
     if weights == "random":
         return _random_packed(np.random.default_rng(11))
-    tree = _linen_tree()
+    tree = _linen_tree(heads)
     return jax_k5.pack_aa_params(tree), aa_packed_from_flax(tree)
 
 
@@ -116,6 +116,28 @@ def test_aa_attention_matches_jax_at_other_shapes(shape, weights):
     got = K5.aa_attention(*(torch.from_numpy(a) for a in args), tpacked, H).numpy()
     np.testing.assert_allclose(got, want, **TOL)
     assert (got[:, :, ::7] == 0).all()
+
+
+@pytest.mark.parametrize("jax_side", ["reference", "interpret"])
+@pytest.mark.parametrize("shape,weights", [((2, 5, 9, 8), "linen"), ((2, 4, 12, 5), "random")])
+def test_aa_attention_matches_jax_at_the_baselines_4_heads(jax_side, shape, weights):
+    """At the HiVT baseline's 4 heads (the kernel's other head count):
+    ``test_aa_kernel.py``'s shape with linen weights built at 4 heads, and
+    Aq > Ak with random weights, against JAX's reference and the
+    interpret-mode Pallas op at ``num_heads=4``."""
+    heads = 4
+    args = _inputs(np.random.default_rng(sum(shape) + heads), *shape)
+    jpacked, tpacked = _packed(weights, heads)
+    jargs = tuple(jnp.asarray(a) for a in args)
+    if jax_side == "reference":
+        want = np.asarray(jax_k5.aa_attention_reference(*jargs, jpacked, heads))
+    else:
+        want = np.asarray(jax_k5.aa_attention(*jargs, jpacked, num_heads=heads, interpret=True))
+    got = K5.aa_attention(*(torch.from_numpy(a) for a in args), tpacked, heads).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    assert (got[:, :, ::7] == 0).all()
+    assert not np.allclose(got, K5.aa_attention(*(torch.from_numpy(a) for a in args), tpacked,
+                                                H).numpy(), **TOL)  # the head count matters
 
 
 def test_aa_attention_on_cpu_launches_nothing_and_ignores_t_chunk(rng):

@@ -362,13 +362,13 @@ def test_autograd_through_the_fused_op_on_cuda_matches_the_cpu(cuda, with_keep, 
         assert rel(a, b) < 1e-3, name
 
 
-def _k5_case(cuda, shape, seed):
+def _k5_case(cuda, shape, seed, heads=8):
     """``test_aa_kernel.py``'s input scales at ``shape``; every 7th receiver
     without a sender; the encoder's packed weights with the w1 blocks off
     the diagonal filled in."""
     B, T, Aq, Ak = shape
     gen = torch.Generator().manual_seed(seed)
-    packed = K3.pack_aa_params(_aa_encoder(seed, 8))
+    packed = K3.pack_aa_params(_aa_encoder(seed, heads))
     packed["w1"] = packed["w1"] + 0.1 * torch.randn(packed["w1"].shape, generator=gen)
     packed = {k: v.contiguous().to(cuda) for k, v in packed.items()}
     center = torch.randn((B, T, Aq, 64), generator=gen)
@@ -384,28 +384,32 @@ def _k5_case(cuda, shape, seed):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("heads", HEADS)
 @pytest.mark.parametrize("shape", [(1, 1, 2, 1), (2, 5, 9, 8), (3, 7, 13, 11), (2, 3, 5, 70),
                                    (1, 21, 49, 48)])
-def test_aa_attention_kernel_matches_plain(cuda, shape):
-    """K5 vs its plain version and vs K3 fed the same q and u, within 1e-4 of
-    max|plain| (K3's chain; q by the kernel's own FMAs); ragged groups and
-    chunks, Ak > Aq; bit-equal reruns; empty receivers exactly 0."""
-    args, packed = _k5_case(cuda, shape, sum(shape))
+def test_aa_attention_kernel_matches_plain(cuda, shape, heads):
+    """K5 vs its plain version and vs K3 fed the same q and u, within
+    ``chip_smoke.TOL_K3_TIGHT`` of max|plain| (K3's chain and products; q by
+    the kernel's own FMAs); ragged groups and chunks, Ak > Aq; bit-equal
+    reruns; empty receivers exactly 0."""
+    from chip_smoke import TOL_K3_TIGHT
+
+    args, packed = _k5_case(cuda, shape, sum(shape), heads)
     before = K5.aa_attention.launches
-    got = K5.aa_attention(*args, packed, 8)
-    again = K5.aa_attention(*args, packed, 8)
+    got = K5.aa_attention(*args, packed, heads)
+    again = K5.aa_attention(*args, packed, heads)
     torch.cuda.synchronize()
     assert K5.aa_attention.launches == before + 2
     assert torch.equal(got, again)
     assert torch.isfinite(got).all()
     assert (got[:, :, ::7] == 0).all()
-    want = K5.aa_attention_reference(*args, packed, 8)
-    assert ((got - want).abs().max() / want.abs().max()).item() < TOL
+    want = K5.aa_attention_reference(*args, packed, heads)
+    assert ((got - want).abs().max() / want.abs().max()).item() <= TOL_K3_TIGHT
     center, x_k, pos_q, pos_k, rot, mask = args
     q = (center @ packed["wq"] + packed["bq"][0]).contiguous()
     u = K3.build_pair_features(x_k, pos_k[:, :, None] - pos_q[:, :, :, None], rot).contiguous()
-    k3 = K3.fused_pair_attention(q, u, mask.float(), None, K3.weights_of(packed), 8)
-    assert ((got - k3).abs().max() / want.abs().max()).item() < TOL
+    k3 = K3.fused_pair_attention(q, u, mask.float(), None, K3.weights_of(packed), heads)
+    assert ((got - k3).abs().max() / want.abs().max()).item() <= TOL_K3_TIGHT
 
 
 @pytest.mark.gpu
@@ -427,7 +431,9 @@ def test_aa_attention_wrapper_rejects(cuda):
         with pytest.raises((ValueError, TypeError)):
             K5.aa_attention(*case, packed, 8)
     with pytest.raises(ValueError):
-        K5.aa_attention(*args, packed, 4)                  # H = 4
+        K5.aa_attention(*args, packed, 2)                  # H = 2: built for 8 and 4 only
+    with pytest.raises(ValueError):
+        K5.aa_attention(*bad["D 32"], packed, 4)           # D 32 at 4 heads
     with pytest.raises(NotImplementedError):
         K5.aa_attention(*args, packed, 8, compute_dtype="bfloat16")
     assert K5.aa_attention.launches == before

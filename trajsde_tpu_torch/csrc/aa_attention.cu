@@ -1,8 +1,9 @@
 // Agent-agent attention from positions, forward (kernel K5).
 //
 // Replaces the TPU kernel trajsde_tpu/ops/pallas/aa_attention.py::aa_attention
-// (pallas_call body _aa_kernel).  It computes the fused AA pair chain of K3
-// (aa_fused.cu) with the chain's two prologues inside the kernel:
+// (pallas_call body _aa_kernel, with the pair features that the JAX op builds
+// before the call, build_pair_features).  It computes the fused AA pair
+// chain of K3 (aa_fused.cu) with the chain's two prologues inside the kernel:
 //   q[r]    = center[r] . wq + bq                    (per receiver r = (b, t, i))
 //   u[r, j] = (R_bi^T x_k[b,t,j], R_bi^T (pos_k[b,t,j] - pos_q[b,t,i]))
 // with rot[b, i] = (r0, r1, r2, r3) row-major and the JAX index convention
@@ -14,98 +15,182 @@
 // sender gives exactly 0) and out[r] = sum_j alpha v.  No dropout.
 //
 // Bound on an H100 SXM at the twin shape (B 128, T 21, Aq 49, Ak 48, D 64,
-// H 8: 6.32 M pairs): K3's 4.4e4 f32 operations per pair, the u build's 14
-// and the q projection's 2 D^2 per receiver, 2.8e11 in all, about 4.15 ms at
-// the 67 TFLOP/s CUDA-core peak, against 0.08 GB of inputs and output (the
-// centres, positions, rotations, the byte mask, the aggregate: 0.02 ms at
-// 3.35 TB/s).  K5 is bound by arithmetic.  Against K3 it reads no u (101 MB
-// at this shape) and no q, and writes no pair tensor.
+// H 8: 6.32 M pairs): K3's 4.4e4 operations per pair, the u build's 14 and
+// the q projection's 2 D^2 per receiver, 2.8e11 in all.  The three chain
+// products (10 D^2 a pair) run on the tensor cores at f32 accuracy (3 TF32
+// products each, at most 495 / 3 = 165 TFLOP/s): 1.57 ms; the rest on the
+// CUDA cores 0.31 ms, at the same time.  The inputs and output (the
+// centres, positions, rotations, the byte mask, the aggregate) are 0.08 GB,
+// 0.02 ms at 3.35 TB/s.  (Every operation on the CUDA cores at 67 TFLOP/s:
+// 4.15 ms.)  Against K3 it reads no u (101 MB at this shape) and no q.
 //
 // Design: K3's (aa_fused.cu, which this kernel leaves untouched so that K3's
-// output bits cannot move; steps 1-5 below are K3's).  One persistent
-// 256-thread block per SM owns groups of 16 receivers with all their
-// senders and walks their pairs in chunks of 64 through two shared-memory
-// tiles, with an online softmax per (receiver, column); f32 FMA register
-// tiles (no TF32), shuffle LayerNorms and head dots.  Three differences:
-//   * wq [64 x 64] and bq are staged once beside the 14 chain weights
-//     (16,640 B more; 206,464 B in all, one block per SM): the projection
-//     is 2 D^2 per receiver against the chain's 4.4e4 per pair, so reading
-//     wq from L2 instead would save nothing that shows.  At each group's
-//     start the group's centre rows are staged in the first chunk tile and
-//     q is computed into the group's q tile, one row per 16 threads.
-//   * The group's receiver positions and rotations are staged once; at
-//     each chunk 64 threads build one pair's 4 features each from x_k and
-//     pos_k (1 MB each at the twin shape, read through L2).
-//   * No keep mask and no softmax statistics (forward only).
-// Reruns are bit-equal: every output is summed by one thread in a fixed
-// order.  The ragged last chunk and group are bounds-checked; pair offsets
-// are 64-bit.
+// and K4's bits cannot move), with its products, epilogues and softmax:
+//   * A persistent grid (one 512-thread block per SM) walks groups of 8
+//     receivers with all their senders, in chunks of 64 pairs.
+//   * a0 . w1f (w1 folded, K 128), a1 . wagg and nbr . wkv run on the
+//     tensor cores through mma_tf32.cuh's mma_xwt_split (3xTF32, the small
+//     terms summed apart, mma3x2_apart); the weights are split once per
+//     block into swizzled (big, small) pairs, the activations where they
+//     are read.  tests/test_torch_aa_attention_tf32.py models this
+//     arithmetic on the CPU.
+//   * The epilogues run per row, 16 lanes a row, through aa_common.cuh's
+//     ln_row, epi_a1, epi_nbr, epi_bias and head_logit<H>.
+//   * The softmax is online, once per (receiver, head): K3's S1-S3 without
+//     the keep mask and without writing the statistics.
+//   * Heads: a template on the head count (Heads<H>), with an entry point
+//     at 8 (the flagship's) and at 4 (the HiVT baseline's).
+// The prologues:
+//   * q: at each group's start wq (16,384 B) is staged into the first chunk
+//     tile and the group's centre rows into the second; each thread then
+//     projects one (receiver, column) of q in f32 FMAs into the group's q
+//     slot, and the first chunk overwrites both tiles.  The projection is
+//     2 D^2 = 8,192 operations a receiver against about 2.1 M for its 48
+//     pairs; wq does not fit beside the split weights (16 KB in f32, 32 KB
+//     split).
+//   * u: the group's receiver positions and rotations are staged at its
+//     start; at each chunk 64 threads build one pair's 4 features each from
+//     x_k and pos_k (1 MB each at the twin shape, read through L2).
+//   * Shared memory: K3's split weights, vectors and tiles, with bq, the
+//     positions and rotations where K3 keeps its keep and e keep tiles:
+//     227,520 B at 8 heads, one block per SM.
+// The ragged last chunk and group are bounds-checked, and every output is
+// summed by one thread in a fixed order, so reruns are bit-equal.
 
 #include "aa_common.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
 using namespace aa;
 
-constexpr int H = 8;           // heads: the flagship's only (ops/aa_attention.py checks)
-constexpr int HD = Heads<H>::HD;
-constexpr float SCALE = Heads<H>::SCALE;
 constexpr int P = 64;          // pairs per chunk
-constexpr int RB = 16;         // receivers per group
-constexpr int THREADS = 256;   // 16 row groups x 16 column groups
+constexpr int RB = 8;          // receivers per group
+constexpr int THREADS = 512;   // epilogues: 32 row groups (2 rows each) x 16 column groups
+constexpr int NR = 2;          // rows per thread in the epilogues
+constexpr int UNROLL = 2;      // k-loop unrolling of a0 . w1f and a1 . wagg
+constexpr int UNROLL_KV = 1;   // and of nbr . wkv (K3's)
 
 // the packed buffer: the 14 chain weights in W_ORDER, then wq [D][D], bq [D]
 constexpr int OFF_WQ = W_FLOATS;
 constexpr int OFF_BQ = OFF_WQ + D * D;
 constexpr int WQ_FLOATS = OFF_BQ + D;
 
-// shared memory (floats)
-constexpr int S_W = 0;
-constexpr int S_BUF0 = S_W + WQ_FLOATS;        // [P][2D]: the group's centre rows, a0, nbr
-constexpr int S_BUF1 = S_BUF0 + P * D2;        // [P][D]: a1, then v
-constexpr int S_U = S_BUF1 + P * D;            // [P][4]
+// split weights (uint2 slots): w1f [2D][D], wagg [D][D], wkv [D][2D]
+constexpr int W_W1 = 0;
+constexpr int W_AGG = W_W1 + D2 * D;
+constexpr int W_KV = W_AGG + D * D;
+constexpr int W_SLOTS = W_KV + D * D2;
+
+// f32 shared memory (floats), after the split weights
+constexpr int S_WU = 2 * W_SLOTS;              // wu, bu, ln0s, ln0b as packed
+constexpr int S_BU = S_WU + (OFF_BU - OFF_WU);
+constexpr int S_LN0S = S_WU + (OFF_LN0S - OFF_WU);
+constexpr int S_LN0B = S_WU + (OFF_LN0B - OFF_WU);
+constexpr int S_B1F = S_WU + (OFF_W1 - OFF_WU);  // [D]
+constexpr int S_LNA0S = S_B1F + D;
+constexpr int S_LNA0B = S_LNA0S + D;
+constexpr int S_BAGG = S_LNA0B + D;
+constexpr int S_LNA1S = S_BAGG + D;
+constexpr int S_LNA1B = S_LNA1S + D;
+constexpr int S_BKV = S_LNA1B + D;             // [2D]
+constexpr int S_BQ = S_BKV + D2;               // [D]
+constexpr int T0 = S_BQ + D;                   // [P][2D] wq, then a0; then [P][D] nbr and [P][D] v
+constexpr int T0B = T0 + P * D;                //   (v: the second [P][D] half)
+constexpr int T1 = T0 + P * D2;                // [P][D] the group's centres, then a1, then k
+constexpr int S_U = T1 + P * D;                // [P][4]
 constexpr int S_MASK = S_U + P * 4;            // [P]
-constexpr int S_LG = S_MASK + P;               // [P][H] masked logits (-inf: no edge)
-constexpr int S_Q = S_LG + P * H;              // [RB][D]
-constexpr int S_M = S_Q + RB * D;              // [RB][D] running max
-constexpr int S_L = S_M + RB * D;              // [RB][D] running sum of exp
-constexpr int S_ACC = S_L + RB * D;            // [RB][D] running sum of exp * v
-constexpr int S_PQ = S_ACC + RB * D;           // [RB][2] receiver positions
+constexpr int S_PQ = S_MASK + P;               // [RB][2] receiver positions
 constexpr int S_ROT = S_PQ + RB * 2;           // [RB][4] receiver rotations
-constexpr int S_FLOATS = S_ROT + RB * 4;
 
-static_assert(WQ_FLOATS % 4 == 0 && S_BUF0 % 4 == 0 && S_U % 4 == 0 && S_Q % 4 == 0,
-              "float4 alignment");
-static_assert(RB * D <= P * D2, "the centre rows fit the first chunk tile");
-static_assert(S_FLOATS * 4 <= 232448, "shared memory of one block");
+// the rest of the layout, per head count H
+template <int H>
+struct Smem {
+  static constexpr int S_LG = S_ROT + RB * 4;  // [P][H] masked logits (-inf: no edge), then e
+  static constexpr int S_Q = S_LG + P * H;     // [RB][D]
+  static constexpr int S_ACC = S_Q + RB * D;   // [RB][D] running sum of e * v
+  static constexpr int S_M = S_ACC + RB * D;   // [RB][H] running max
+  static constexpr int S_L = S_M + RB * H;     // [RB][H] running sum of e
+  static constexpr int S_MNEW = S_L + RB * H;  // [RB][H] this chunk's max (-inf: no edge)
+  static constexpr int S_CORR = S_MNEW + RB * H;  // [RB][H] exp(old max - new max)
+  static constexpr int S_FLOATS = S_CORR + RB * H;
 
+  static_assert(T0 % 4 == 0 && T1 % 4 == 0 && S_U % 4 == 0 && S_Q % 4 == 0 && S_WU % 4 == 0,
+                "float4 alignment");
+  static_assert(S_FLOATS * 4 <= 232448, "shared memory of one block");
+  static_assert(D * D <= P * D2 && RB * D <= P * D && RB * D == THREADS,
+                "wq and the centres fit the chunk tiles; one q element a thread");
+  // S2 takes one (pair, head) a thread: all of them at 8 heads, half at 4
+  static_assert(P * H <= THREADS && P * 4 <= THREADS && NR * 32 == P && RB * H * 8 <= THREADS,
+                "thread layout");
+};
+
+// slot of the split pair (r, c) of a matrix of row length ld
+__device__ __forceinline__ int w_at(int r, int c, int ld) { return r * ld + (c ^ ((r & 3) << 2)); }
+
+struct WSplit {  // B of x W from a pre-split W [K][N]: w(n, k) = the pair of W[k][n]
+  const uint2* p;
+  int ld;
+  __device__ __forceinline__ uint2 operator()(int n, int k) const { return p[w_at(k, n, ld)]; }
+};
+
+template <int H>
 __global__ void __launch_bounds__(THREADS, 1)
 aa_attention_kernel(const float* __restrict__ center, const float* __restrict__ x_k,
                     const float* __restrict__ pos_q, const float* __restrict__ pos_k,
                     const float* __restrict__ rot, const unsigned char* __restrict__ mask,
                     const float* __restrict__ w, float* __restrict__ out, long long R, int T,
                     int Aq, int Ak) {
+  using L = Smem<H>;
+  constexpr int HD = Heads<H>::HD;
+  constexpr int HL = Heads<H>::LANES;
   extern __shared__ __align__(16) float smem[];
-  float* sw = smem + S_W;
-  float* buf0 = smem + S_BUF0;
-  float* buf1 = smem + S_BUF1;
+  uint2* sw2 = reinterpret_cast<uint2*>(smem);
+  float* sw = smem;
+  float* t0 = smem + T0;
+  float* t0b = smem + T0B;
+  float* t1 = smem + T1;
   float* su = smem + S_U;
   float* smask = smem + S_MASK;
-  float* slg = smem + S_LG;
-  float* sq = smem + S_Q;
-  float* sm = smem + S_M;
-  float* sl = smem + S_L;
-  float* sacc = smem + S_ACC;
   float* spq = smem + S_PQ;
   float* srot = smem + S_ROT;
+  float* slg = smem + L::S_LG;
+  float* sq = smem + L::S_Q;
+  float* sacc = smem + L::S_ACC;
+  float* sm = smem + L::S_M;
+  float* sl = smem + L::S_L;
+  float* smnew = smem + L::S_MNEW;
+  float* scorr = smem + L::S_CORR;
 
   const int tid = threadIdx.x;
-  const int cg = tid & 15;      // column group
+  const int cg = tid & 15;      // epilogue column group: columns c0 .. c0+3 (and D + ...)
   const int c0 = cg * 4;
-  const int r0 = (tid >> 4) * 4;
+  const int r0 = (tid >> 4) * NR;
+  const int warp = tid >> 5;    // products: m-tile warp % 4, column quarter warp / 4
+  const int wm = 16 * (warp & 3);
+  const int wn = warp >> 2;
 
-  for (int i = tid; i < WQ_FLOATS / 4; i += THREADS)
-    reinterpret_cast<float4*>(sw)[i] = reinterpret_cast<const float4*>(w)[i];
+  // stage the weights: the three matrices split (w1 folded), the vectors in f32
+  for (int i = tid; i < D2 * D; i += THREADS) {
+    const int r = i / D, c = i % D;
+    sw2[W_W1 + w_at(r, c, D)] =
+        tc::split2(w[OFF_W1 + r * D2 + c] + w[OFF_W1 + r * D2 + D + c]);
+  }
+  for (int i = tid; i < D * D; i += THREADS)
+    sw2[W_AGG + w_at(i / D, i % D, D)] = tc::split2(w[OFF_WAGG + i]);
+  for (int i = tid; i < D * D2; i += THREADS)
+    sw2[W_KV + w_at(i / D2, i % D2, D2)] = tc::split2(w[OFF_WKV + i]);
+  for (int i = tid; i < OFF_W1; i += THREADS) sw[S_WU + i] = w[OFF_WU + i];
+  if (tid < D) {
+    sw[S_B1F + tid] = w[OFF_B1 + tid] + w[OFF_B1 + D + tid];
+    sw[S_LNA0S + tid] = w[OFF_LNA0S + tid];
+    sw[S_LNA0B + tid] = w[OFF_LNA0B + tid];
+    sw[S_BAGG + tid] = w[OFF_BAGG + tid];
+    sw[S_LNA1S + tid] = w[OFF_LNA1S + tid];
+    sw[S_LNA1B + tid] = w[OFF_LNA1B + tid];
+    sw[S_BQ + tid] = w[OFF_BQ + tid];
+  }
+  if (tid < D2) sw[S_BKV + tid] = w[OFF_BKV + tid];
 
   const long long groups = (R + RB - 1) / RB;
   for (long long g = blockIdx.x; g < groups; g += gridDim.x) {
@@ -114,13 +199,21 @@ aa_attention_kernel(const float* __restrict__ center, const float* __restrict__ 
     const int npairs = nrecv * Ak;
     const long long pbase = rbase * Ak;  // the group's first pair
 
-    __syncthreads();  // the previous group's outputs are read out
-    for (int i = tid; i < RB * D; i += THREADS) {
-      const int rl = i / D;
-      buf0[i] = rl < nrecv ? center[(rbase + rl) * D + (i % D)] : 0.0f;
-      sm[i] = -INFINITY;
-      sl[i] = 0.0f;
-      sacc[i] = 0.0f;
+    __syncthreads();  // the previous group's outputs and tiles are read out
+    // Q1. stage wq [D][D] (t0, by rows), the group's centre rows [RB][D]
+    // (t1), its receivers' positions and rotations; reset the softmax
+    for (int i = tid; i < D * D / 4; i += THREADS)
+      reinterpret_cast<float4*>(t0)[i] = reinterpret_cast<const float4*>(w + OFF_WQ)[i];
+    if (tid < RB * D / 4) {
+      const int rl = tid / (D / 4);
+      reinterpret_cast<float4*>(t1)[tid] =
+          rl < nrecv ? reinterpret_cast<const float4*>(center + rbase * D)[tid]
+                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    sacc[tid] = 0.0f;  // RB * D == THREADS
+    if (tid < RB * H) {
+      sm[tid] = -INFINITY;
+      sl[tid] = 0.0f;
     }
     if (tid < RB) {
       const long long r = rbase + tid;
@@ -133,15 +226,13 @@ aa_attention_kernel(const float* __restrict__ center, const float* __restrict__ 
     }
     __syncthreads();
 
-    // q = center . wq + bq: row tid / 16, columns c0 .. c0+3
+    // Q2. q = center . wq + bq, one (receiver, column) a thread, k in order
     {
-      float acc[1][8];
-      zero<1>(acc);
-      mm<1, D, D, D, false>(buf0, sw + OFF_WQ, tid >> 4, c0, acc);
-      float qv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) qv[j] = acc[0][j] + sw[OFF_BQ + c0 + j];
-      store4(sq + (tid >> 4) * D + c0, qv);
+      const int rl = tid / D, c = tid % D;
+      float acc = 0.0f;
+#pragma unroll 8
+      for (int k = 0; k < D; ++k) acc = fmaf(t1[rl * D + k], t0[k * D + c], acc);
+      sq[tid] = acc + sw[S_BQ + c];
     }
 
     for (int cp0 = 0; cp0 < npairs; cp0 += P) {
@@ -149,7 +240,7 @@ aa_attention_kernel(const float* __restrict__ center, const float* __restrict__ 
 
       __syncthreads();  // the previous chunk's softmax update (or q) is done
       if (tid < P) {
-        // pair (receiver rl, sender j): its 4 rotated features and mask bit
+        // U. pair (receiver rl, sender j): its 4 rotated features and mask bit
         const int p = cp0 + tid;
         float f[4] = {0.0f, 0.0f, 0.0f, 0.0f};
         float live_edge = 0.0f;
@@ -173,11 +264,9 @@ aa_attention_kernel(const float* __restrict__ center, const float* __restrict__ 
       }
       __syncthreads();
 
-      float acc[4][8];
-
-      // 1. four rank-1 products, LayerNorm per D-wide branch, ReLU -> buf0
+      // F1. four rank-1 products, LayerNorm per D-wide branch, ReLU -> a0 (t0)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < NR; ++i) {
         const float* up = su + (r0 + i) * 4;
         float hv[2][4];
 #pragma unroll
@@ -185,105 +274,175 @@ aa_attention_kernel(const float* __restrict__ center, const float* __restrict__ 
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
             const int col = half * D + c0 + j;
-            float s = up[0] * sw[OFF_WU + col] + up[1] * sw[OFF_WU + D2 + col];
-            s += up[2] * sw[OFF_WU + 2 * D2 + col];
-            s += up[3] * sw[OFF_WU + 3 * D2 + col];
-            hv[half][j] = sw[OFF_BU + col] + s;
+            float s = up[0] * sw[S_WU + col] + up[1] * sw[S_WU + D2 + col];
+            s += up[2] * sw[S_WU + 2 * D2 + col];
+            s += up[3] * sw[S_WU + 3 * D2 + col];
+            hv[half][j] = sw[S_BU + col] + s;
           }
-        ln_row(hv[0], sw + OFF_LN0S, sw + OFF_LN0B, c0, true);
-        ln_row(hv[1], sw + OFF_LN0S + D, sw + OFF_LN0B + D, c0, true);
-        store4(buf0 + (r0 + i) * D2 + c0, hv[0]);
-        store4(buf0 + (r0 + i) * D2 + D + c0, hv[1]);
+        ln_row(hv[0], sw + S_LN0S, sw + S_LN0B, c0, true);
+        ln_row(hv[1], sw + S_LN0S + D, sw + S_LN0B + D, c0, true);
+        store4(t0 + swz(r0 + i, c0, D2), hv[0]);
+        store4(t0 + swz(r0 + i, D + c0, D2), hv[1]);
       }
       __syncthreads();
 
-      // 2. z1 = a0 . w1 + b1; the halves summed, LayerNorm, ReLU -> buf1
-      zero<4>(acc);
-      mm<4, D2, D2, D2, true>(buf0, sw + OFF_W1, r0, c0, acc);
+      // F2. a0 . w1f -> t1; a1 = relu(LN(. + b1f)) in place
+      {
+        float acc[1][2][4] = {};
+        tc::mma_xwt_split<1, 2, D2, UNROLL>(Swz{t0, D2}, WSplit{sw2 + W_W1, D}, wm, 16 * wn, 8,
+                                            acc);
+        tc::store_c<2>(t1, SwzAt{D}, acc, wm, 16 * wn);
+      }
+      __syncthreads();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float s[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          s[j] = (acc[i][j] + sw[OFF_B1 + c0 + j]) + (acc[i][4 + j] + sw[OFF_B1 + D + c0 + j]);
-        ln_row(s, sw + OFF_LNA0S, sw + OFF_LNA0B, c0, true);
-        store4(buf1 + (r0 + i) * D + c0, s);
+      for (int i = 0; i < NR; ++i) {
+        float x[4];
+        load4(x, t1 + swz(r0 + i, c0, D));
+        epi_a1(x, sw + S_B1F, sw + S_LNA0S, sw + S_LNA0B, c0);
+        store4(t1 + swz(r0 + i, c0, D), x);
       }
       __syncthreads();
 
-      // 3. nbr = LN(a1 . wagg + bagg) -> buf0 (first D columns)
-      zero<4>(acc);
-      mm<4, D, D, D, false>(buf1, sw + OFF_WAGG, r0, c0, acc);
+      // F3. a1 . wagg -> t0 (a0 is read out); nbr = LN(. + bagg) in place
+      {
+        float acc[1][2][4] = {};
+        tc::mma_xwt_split<1, 2, D, UNROLL>(Swz{t1, D}, WSplit{sw2 + W_AGG, D}, wm, 16 * wn, 8,
+                                           acc);
+        tc::store_c<2>(t0, SwzAt{D}, acc, wm, 16 * wn);
+      }
+      __syncthreads();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float s[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[j] = acc[i][j] + sw[OFF_BAGG + c0 + j];
-        ln_row(s, sw + OFF_LNA1S, sw + OFF_LNA1B, c0, false);
-        store4(buf0 + (r0 + i) * D2 + c0, s);
+      for (int i = 0; i < NR; ++i) {
+        float x[4];
+        load4(x, t0 + swz(r0 + i, c0, D));
+        epi_nbr(x, sw + S_BAGG, sw + S_LNA1S, sw + S_LNA1B, c0);
+        store4(t0 + swz(r0 + i, c0, D), x);
       }
       __syncthreads();
 
-      // 4. [k | v] = nbr . wkv + bkv; masked head logits -> slg, v -> buf1
-      zero<4>(acc);
-      mm<4, D, D2, D2, true>(buf0, sw + OFF_WKV, r0, c0, acc);
+      // F4. nbr . wkv: k -> t1 (a1 is read out), v -> t0b; + bkv; masked
+      // head logits
+      {
+        float acc[1][4][4] = {};
+        tc::mma_xwt_split<1, 4, D, UNROLL_KV>(Swz{t0, D}, WSplit{sw2 + W_KV, D2}, wm, 32 * wn,
+                                              8, acc);
+        tc::store_c<4>(wn < 2 ? t1 : t0b, SwzAt{D}, acc, wm, 32 * (wn & 1));
+      }
+      __syncthreads();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < NR; ++i) {
         const int p = r0 + i;
         const bool live = cp0 + p < pend;
         const int rl = live ? (cp0 + p) / Ak : 0;
-        const float4 qv = *reinterpret_cast<const float4*>(sq + rl * D + c0);
-        float part = qv.x * (acc[i][0] + sw[OFF_BKV + c0]);
-        part = fmaf(qv.y, acc[i][1] + sw[OFF_BKV + c0 + 1], part);
-        part = fmaf(qv.z, acc[i][2] + sw[OFF_BKV + c0 + 2], part);
-        part = fmaf(qv.w, acc[i][3] + sw[OFF_BKV + c0 + 3], part);
-        // a head's 8 columns are the 4 of this lane and the 4 of its neighbour
-        part += __shfl_xor_sync(0xffffffffu, part, 1);
-        if ((cg & 1) == 0)
-          slg[p * H + (cg >> 1)] = (live && smask[p] > 0.0f) ? part * SCALE : -INFINITY;
-        float v[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v[j] = acc[i][4 + j] + sw[OFF_BKV + D + c0 + j];
-        store4(buf1 + p * D + c0, v);
+        float k[4], v[4];
+        load4(k, t1 + swz(p, c0, D));
+        load4(v, t0b + swz(p, c0, D));
+        epi_bias(k, sw + S_BKV, c0);
+        epi_bias(v, sw + S_BKV + D, c0);
+        const float lg = head_logit<H>(*reinterpret_cast<const float4*>(sq + rl * D + c0), k);
+        if (cg % HL == 0)  // the head's first lane
+          slg[p * H + cg / HL] = (live && smask[p] > 0.0f) ? lg : -INFINITY;
+        store4(t0b + swz(p, c0, D), v);
       }
       __syncthreads();
 
-      // 5. online softmax over the chunk's senders, per (receiver, column)
+      // S1. per (receiver, head), 8 lanes each: the chunk's largest logit
+      // (a max: the same in any order), the new running max and the
+      // rescale of the running sums
       const int rl_lo = cp0 / Ak;
       const int nspan = (pend - 1) / Ak - rl_lo + 1;
-      for (int item = tid; item < nspan * D; item += THREADS) {
-        const int rl = rl_lo + item / D;
-        const int c = item % D;
-        const int h = c / HD;
+      {
+        const int item = tid >> 3;
+        const int rl = rl_lo + item / H;
+        const int h = item % H;
+        float cmax = -INFINITY;
+        if (item < nspan * H) {
+          const int pa = max(cp0, rl * Ak) - cp0;
+          const int pb = min(pend, (rl + 1) * Ak) - cp0;
+          for (int p = pa + (tid & 7); p < pb; p += 8) cmax = fmaxf(cmax, slg[p * H + h]);
+        }
+#pragma unroll
+        for (int off = 4; off > 0; off >>= 1)
+          cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, off));
+        const int si = rl * H + h;
+        if (item < nspan * H && (tid & 7) == 0) {
+          if (cmax == -INFINITY) {
+            smnew[si] = -INFINITY;  // no edge of this receiver in the chunk
+          } else {
+            const float m_new = fmaxf(sm[si], cmax);
+            scorr[si] = expf(sm[si] - m_new);  // 0 while nothing was seen
+            smnew[si] = m_new;
+            sm[si] = m_new;
+          }
+        }
+      }
+      __syncthreads();
+
+      // S2. per (pair, head): e = exp(logit - max) (0 for a masked pair), in
+      // place of the logit
+      {
+        const int p = tid / H, h = tid % H;
+        if ((P * H == THREADS || tid < P * H) && cp0 + p < pend) {
+          const float m_new = smnew[((cp0 + p) / Ak) * H + h];
+          if (m_new != -INFINITY) slg[tid] = expf(slg[tid] - m_new);
+        }
+      }
+      __syncthreads();
+
+      // S3. per (receiver, column): the running sum of e v in pair order;
+      // per (receiver, head): the running sum of e
+      for (int item = tid; item < nspan * (D + H); item += THREADS) {
+        const bool col = item < nspan * D;
+        const int j = col ? item : item - nspan * D;
+        const int rl = rl_lo + (col ? j / D : j / H);
+        const int h = col ? (j % D) / HD : j % H;
+        const int si = rl * H + h;
+        if (smnew[si] == -INFINITY) continue;
         const int pa = max(cp0, rl * Ak) - cp0;
         const int pb = min(pend, (rl + 1) * Ak) - cp0;
-        float cmax = -INFINITY;
-        for (int p = pa; p < pb; ++p) cmax = fmaxf(cmax, slg[p * H + h]);
-        if (cmax == -INFINITY) continue;  // no edge of this receiver in the chunk
-        const int si = rl * D + c;
-        const float m_new = fmaxf(sm[si], cmax);
-        const float corr = expf(sm[si] - m_new);  // 0 while nothing was seen
-        float l = sl[si] * corr, a = sacc[si] * corr;
-        for (int p = pa; p < pb; ++p) {
-          const float e = expf(slg[p * H + h] - m_new);  // 0 for a masked pair
-          l += e;
-          a = fmaf(e, buf1[p * D + c], a);
+        const float corr = scorr[si];
+        if (col) {
+          const int c = j % D;
+          float a = sacc[rl * D + c] * corr;
+          for (int p = pa; p < pb; ++p) a = fmaf(slg[p * H + h], t0b[swz(p, c, D)], a);
+          sacc[rl * D + c] = a;
+        } else {
+          float l = sl[si] * corr;
+          for (int p = pa; p < pb; ++p) l += slg[p * H + h];
+          sl[si] = l;
         }
-        sm[si] = m_new;
-        sl[si] = l;
-        sacc[si] = a;
       }
     }
 
     __syncthreads();
     // alpha = e / max(sum e, 1e-16): a receiver with no sender gives exactly 0
     for (int i = tid; i < nrecv * D; i += THREADS)
-      out[rbase * D + i] = sacc[i] / fmaxf(sl[i], 1e-16f);
+      out[rbase * D + i] = sacc[i] / fmaxf(sl[(i / D) * H + (i % D) / HD], 1e-16f);
   }
+}
+
+// K5 at H heads on the stream; returns cudaGetLastError()
+template <int H>
+int launch(const float* center, const float* x_k, const float* pos_q, const float* pos_k,
+           const float* rot, const unsigned char* mask, const float* w, float* out, long long R,
+           int T, int Aq, int Ak, int grid, void* stream) {
+  if (R <= 0 || T <= 0 || Aq <= 0 || Ak <= 0 || grid <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * Smem<H>::S_FLOATS;
+  cudaError_t err = cudaFuncSetAttribute(aa_attention_kernel<H>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  aa_attention_kernel<H><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      center, x_k, pos_q, pos_k, rot, mask, w, out, R, T, Aq, Ak);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// One set of entry points per head count: aa_attention_* at the flagship's
+// 8 heads, aa_attention_h4_* at the HiVT baseline's 4 (ops/aa_attention.py
+// picks by the head count and refuses any other).
 extern "C" {
 
 // floats the packed weight buffer must hold (W_ORDER, then wq and bq)
@@ -291,25 +450,24 @@ int aa_attention_weight_floats() { return WQ_FLOATS; }
 
 // receivers one block owns at a time (the wrapper sizes the grid with it)
 int aa_attention_receivers_per_group() { return RB; }
+int aa_attention_h4_receivers_per_group() { return RB; }
 
 // out [R, 64] (R = B T Aq, receivers in (b, t, i) order) from center
 // [R, 64], x_k [B, T, Ak, 2], pos_q [R, 2], pos_k [B, T, Ak, 2], rot
 // [B, Aq, 4], mask [R, Ak] (bytes, 0 = no edge) and the packed weights w.
-// Returns cudaGetLastError().
+// H is 8 here and 4 in aa_attention_h4_launch.  Returns cudaGetLastError().
 int aa_attention_launch(const float* center, const float* x_k, const float* pos_q,
                         const float* pos_k, const float* rot, const unsigned char* mask,
                         const float* w, float* out, long long R, int T, int Aq, int Ak, int grid,
                         void* stream) {
-  if (R <= 0 || T <= 0 || Aq <= 0 || Ak <= 0 || grid <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * S_FLOATS;
-  cudaError_t err = cudaFuncSetAttribute(aa_attention_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  aa_attention_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      center, x_k, pos_q, pos_k, rot, mask, w, out, R, T, Aq, Ak);
-  return static_cast<int>(cudaGetLastError());
+  return launch<8>(center, x_k, pos_q, pos_k, rot, mask, w, out, R, T, Aq, Ak, grid, stream);
+}
+
+int aa_attention_h4_launch(const float* center, const float* x_k, const float* pos_q,
+                           const float* pos_k, const float* rot, const unsigned char* mask,
+                           const float* w, float* out, long long R, int T, int Aq, int Ak,
+                           int grid, void* stream) {
+  return launch<4>(center, x_k, pos_q, pos_k, rot, mask, w, out, R, T, Aq, Ak, grid, stream);
 }
 
 }  // extern "C"

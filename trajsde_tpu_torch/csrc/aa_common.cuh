@@ -1,9 +1,9 @@
-// Shared by the fused AA pair-chain kernels K3 (aa_fused.cu, forward) and
-// K4 (aa_fused_bwd.cu, backward): the widths (D 64; 8 or 4 heads), the
+// Shared by the fused AA pair-chain kernels K3 (aa_fused.cu, forward), K4
+// (aa_fused_bwd.cu, backward) and K5 (aa_attention.cu, the chain with its
+// q projection and pair features): the widths (D 64; 8 or 4 heads), the
 // packed weight layout, the swizzled chunk tiles and the epilogues of the
-// chain's products; and by K5 (aa_attention.cu, 8 heads), which keeps the
-// f32 FMA register tiles (mm).  K3 and K4's recompute take each product on
-// the tensor cores through mma_tf32.cuh's mma_xwt_split and each epilogue
+// chain's products.  K3, K4's recompute and K5 take each product on the
+// tensor cores through mma_tf32.cuh's mma_xwt_split and each epilogue
 // through these functions, so K4's logits are bit for bit the ones whose
 // softmax statistics K3 wrote.
 #pragma once
@@ -18,7 +18,7 @@ constexpr int D = 64;          // embed width
 constexpr int D2 = 2 * D;      // packed two-branch width
 constexpr float LN_EPS = 1e-5f;
 
-// The head count is a template parameter of K3 and K4: the flagship's 8
+// The head count is a template parameter of K3, K4 and K5: the flagship's 8
 // heads and the HiVT baseline's 4.  A row's 64 columns lie in 16 lanes, 4
 // columns a lane, so a head lies in LANES = HD / 4 neighbouring lanes.
 template <int H>
@@ -76,51 +76,6 @@ __device__ __forceinline__ void ln_row(float x[4], const float* __restrict__ sca
     x[j] = relu ? fmaxf(y, 0.0f) : y;
   }
   if (inv_out != nullptr) *inv_out = inv;
-}
-
-// acc[i][j] += sum_k A[r0 + i][k] * W[k][c0 + j] for i < NR, j < 4, and when
-// TWO also acc[i][4 + j] += ... W[k][D + c0 + j]; A and W in shared memory
-template <int NR, int K, int LDA, int LDW, bool TWO>
-__device__ __forceinline__ void mm(const float* __restrict__ A, const float* __restrict__ W,
-                                   int r0, int c0, float acc[NR][8]) {
-#pragma unroll 2
-  for (int k = 0; k < K; k += 4) {
-    float a[NR][4];
-#pragma unroll
-    for (int i = 0; i < NR; ++i) {
-      const float4 v = *reinterpret_cast<const float4*>(A + (r0 + i) * LDA + k);
-      a[i][0] = v.x; a[i][1] = v.y; a[i][2] = v.z; a[i][3] = v.w;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float4 w = *reinterpret_cast<const float4*>(W + (k + kk) * LDW + c0);
-#pragma unroll
-      for (int i = 0; i < NR; ++i) {
-        acc[i][0] = fmaf(a[i][kk], w.x, acc[i][0]);
-        acc[i][1] = fmaf(a[i][kk], w.y, acc[i][1]);
-        acc[i][2] = fmaf(a[i][kk], w.z, acc[i][2]);
-        acc[i][3] = fmaf(a[i][kk], w.w, acc[i][3]);
-      }
-      if (TWO) {
-        const float4 w2 = *reinterpret_cast<const float4*>(W + (k + kk) * LDW + D + c0);
-#pragma unroll
-        for (int i = 0; i < NR; ++i) {
-          acc[i][4] = fmaf(a[i][kk], w2.x, acc[i][4]);
-          acc[i][5] = fmaf(a[i][kk], w2.y, acc[i][5]);
-          acc[i][6] = fmaf(a[i][kk], w2.z, acc[i][6]);
-          acc[i][7] = fmaf(a[i][kk], w2.w, acc[i][7]);
-        }
-      }
-    }
-  }
-}
-
-template <int NR>
-__device__ __forceinline__ void zero(float acc[NR][8]) {
-#pragma unroll
-  for (int i = 0; i < NR; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
 }
 
 __device__ __forceinline__ void store4(float* dst, const float v[4]) {

@@ -97,7 +97,10 @@
 // senders twice.  The output does not depend on whether they are written.
 // Built with -DAA_WRITE_LOGITS (a check copy, tests/test_torch_cuda.py) it
 // also writes every pair's head logits (-inf where masked) to the buffer
-// given by aa_fused_set_logits.
+// given by aa_fused_set_logits; built with -DAA_WRITE_PRERELU (a check copy,
+// scripts/check_aa_bwd_f64_torch.py), every pair's a0 and a1 before their
+// ReLUs to the buffer given by aa_fused_set_prerelu.  Neither changes the
+// outputs, and the normal build compiles none of it.
 
 #include "aa_common.cuh"
 #include "mma_tf32.cuh"
@@ -169,6 +172,22 @@ struct WSplit {  // B of x W from a pre-split W [K][N]: w(n, k) = the pair of W[
 
 #ifdef AA_WRITE_LOGITS
 __device__ float* g_logits;  // [R * Ak][H]
+#endif
+
+#ifdef AA_WRITE_PRERELU
+__device__ float* g_prerelu;  // [R * Ak][3 D]: a0 before its ReLU (2 D), then a1's (D)
+
+// columns col .. col + 3 of the chunk's pair p (group-relative cp0 + p)
+// before their ReLU, if the pair is live
+__device__ __forceinline__ void write_prerelu(long long gp0, int cp0, int pend, int p, int col,
+                                              const float x[4]) {
+  if (cp0 + p < pend) store4(g_prerelu + (gp0 + p) * (3 * D) + col, x);
+}
+
+__device__ __forceinline__ void relu4(float x[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) x[j] = fmaxf(x[j], 0.0f);
+}
 #endif
 
 template <int H>
@@ -271,8 +290,17 @@ aa_fused_kernel(const float* __restrict__ q, const float* __restrict__ u,
             s += up[3] * sw[S_WU + 3 * D2 + col];
             hv[half][j] = sw[S_BU + col] + s;
           }
+#ifdef AA_WRITE_PRERELU
+        ln_row(hv[0], sw + S_LN0S, sw + S_LN0B, c0, false);
+        ln_row(hv[1], sw + S_LN0S + D, sw + S_LN0B + D, c0, false);
+        write_prerelu(gp0, cp0, pend, r0 + i, c0, hv[0]);
+        write_prerelu(gp0, cp0, pend, r0 + i, D + c0, hv[1]);
+        relu4(hv[0]);
+        relu4(hv[1]);
+#else
         ln_row(hv[0], sw + S_LN0S, sw + S_LN0B, c0, true);
         ln_row(hv[1], sw + S_LN0S + D, sw + S_LN0B + D, c0, true);
+#endif
         store4(t0 + swz(r0 + i, c0, D2), hv[0]);
         store4(t0 + swz(r0 + i, D + c0, D2), hv[1]);
       }
@@ -290,7 +318,16 @@ aa_fused_kernel(const float* __restrict__ q, const float* __restrict__ u,
       for (int i = 0; i < NR; ++i) {
         float x[4];
         load4(x, t1 + swz(r0 + i, c0, D));
+#ifdef AA_WRITE_PRERELU
+        // epi_a1 with the ReLU after the write
+#pragma unroll
+        for (int j = 0; j < 4; ++j) x[j] += sw[S_B1F + c0 + j];
+        ln_row(x, sw + S_LNA0S, sw + S_LNA0B, c0, false);
+        write_prerelu(gp0, cp0, pend, r0 + i, D2 + c0, x);
+        relu4(x);
+#else
         epi_a1(x, sw + S_B1F, sw + S_LNA0S, sw + S_LNA0B, c0);
+#endif
         store4(t1 + swz(r0 + i, c0, D), x);
       }
       __syncthreads();
@@ -461,6 +498,14 @@ int aa_fused_h4_receivers_per_group() { return RB; }
 // where the next launches write each pair's head logits, [R * Ak][H]
 int aa_fused_set_logits(float* p) {
   return static_cast<int>(cudaMemcpyToSymbol(g_logits, &p, sizeof(p)));
+}
+#endif
+
+#ifdef AA_WRITE_PRERELU
+// where the next launches write each pair's a0 and a1 before their ReLUs,
+// [R * Ak][3 * 64]
+int aa_fused_set_prerelu(float* p) {
+  return static_cast<int>(cudaMemcpyToSymbol(g_prerelu, &p, sizeof(p)));
 }
 #endif
 

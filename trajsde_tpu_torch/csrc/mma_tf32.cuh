@@ -1,6 +1,7 @@
 // Warp-level tensor-core products at f32 accuracy (3xTF32) over operands in
-// shared memory, for the products of K1 (sde_rollout.cu), K3 (aa_fused.cu)
-// and all nine of K4 (aa_fused_bwd.cu: its recompute is K3's).  K2
+// shared memory, for the products of K1 (sde_rollout.cu), K3 (aa_fused.cu),
+// all nine of K4 (aa_fused_bwd.cu: its recompute is K3's) and K5's three
+// (aa_attention.cu).  K2
 // (sde_rollout_bwd.cu) ran its fourteen here too, until they moved to the
 // FP64 tensor cores (mma_f64.cuh).
 //

@@ -11,9 +11,11 @@ into the receiver's frame.  Forward only; no dropout.  No model path calls
 it: it is an op of its own, as in the JAX package.
 
 On a CUDA tensor :func:`aa_attention` launches the hand-written kernel in
-``csrc/aa_attention.cu`` (built by nvcc at first use, bound with ctypes);
-on a CPU tensor the plain version runs.  Nothing falls back from one to
-the other.
+``csrc/aa_attention.cu`` (built by nvcc at first use, bound with ctypes),
+which takes D 64 at the flagship's 8 heads and the HiVT baseline's 4
+(``KERNEL_HEAD_COUNTS``, an entry point each) and raises on any other
+width; on a CPU tensor the plain version runs, at any width.  Nothing
+falls back from one to the other.
 """
 from __future__ import annotations
 
@@ -23,9 +25,10 @@ from typing import Dict
 
 import torch
 
-from trajsde_tpu_torch.ops.aa_fused import (KERNEL_DIM, KERNEL_HEADS, W_ORDER, _check,
-                                            _device_kind, _grid, build_pair_features,
-                                            fused_pair_attention_reference, weights_of)
+from trajsde_tpu_torch.ops.aa_fused import (KERNEL_DIM, KERNEL_HEAD_COUNTS, W_ORDER, _check,
+                                            _device_kind, _entry, _entry_name, _grid,
+                                            build_pair_features, fused_pair_attention_reference,
+                                            has_heads, weights_of)
 
 
 def aa_attention_reference(center_norm, x_k, pos_q, pos_k, rot, mask,
@@ -40,30 +43,43 @@ def aa_attention_reference(center_norm, x_k, pos_q, pos_k, rot, mask,
                                           num_heads)
 
 
+def configure(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares K5's C interface, at every head count the build has, on a
+    loaded library (``csrc/aa_attention.cu`` or a copy of it built
+    elsewhere) and returns it."""
+    lib.aa_attention_weight_floats.argtypes = []
+    lib.aa_attention_weight_floats.restype = ctypes.c_int
+    for h in KERNEL_HEAD_COUNTS:
+        if not has_heads(lib, "aa_attention", h):
+            continue
+        fn = getattr(lib, _entry_name("aa_attention", "launch", h))
+        fn.argtypes = [ctypes.c_void_p] * 8 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        fn = getattr(lib, _entry_name("aa_attention", "receivers_per_group", h))
+        fn.argtypes, fn.restype = [], ctypes.c_int
+    return lib
+
+
 @functools.cache
 def _library():
     from trajsde_tpu_torch.ops import build
 
-    lib = build.load("aa_attention")
-    lib.aa_attention_launch.argtypes = [ctypes.c_void_p] * 8 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    lib.aa_attention_launch.restype = ctypes.c_int
-    lib.aa_attention_weight_floats.argtypes = []
-    lib.aa_attention_weight_floats.restype = ctypes.c_int
-    lib.aa_attention_receivers_per_group.argtypes = []
-    lib.aa_attention_receivers_per_group.restype = ctypes.c_int
-    return lib
+    return configure(build.load("aa_attention"))
 
 
-def _launch(center_norm, x_k, pos_q, pos_k, rot, mask, packed, num_heads) -> torch.Tensor:
-    lib = _library()
+def launch(lib: ctypes.CDLL, center_norm, x_k, pos_q, pos_k, rot, mask, packed,
+           num_heads) -> torch.Tensor:
+    """Runs ``lib``'s K5 (``csrc/aa_attention.cu``, or another build of its
+    source configured by :func:`configure`) at ``num_heads`` on the current
+    stream; counts nothing (see :func:`aa_attention`)."""
     B, T, Aq, D = center_norm.shape
     Ak = x_k.shape[2]
-    if (D, num_heads) != (KERNEL_DIM, KERNEL_HEADS):
-        raise ValueError(f"the aa_attention kernel is specialised to D={KERNEL_DIM}, "
-                         f"H={KERNEL_HEADS}; got D={D}, H={num_heads}")
+    if D != KERNEL_DIM or num_heads not in KERNEL_HEAD_COUNTS:
+        raise ValueError(f"the aa_attention kernel is built for D={KERNEL_DIM} at H in "
+                         f"{KERNEL_HEAD_COUNTS}; got D={D}, H={num_heads}")
     if Ak < 1:
         raise ValueError("the aa_attention kernel needs at least one sender")
     dev = center_norm.device
@@ -83,17 +99,23 @@ def _launch(center_norm, x_k, pos_q, pos_k, rot, mask, packed, num_heads) -> tor
     R = B * T * Aq
     if R == 0:
         return out
-    grid = _grid(R, lib.aa_attention_receivers_per_group(), dev)
+    grid = _grid(R, _entry(lib, "aa_attention", "receivers_per_group", num_heads)(), dev)
+    fn = _entry(lib, "aa_attention", "launch", num_heads)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.aa_attention_launch(
-            center_norm.data_ptr(), x_k.data_ptr(), pos_q.data_ptr(), pos_k.data_ptr(),
-            rot.data_ptr(), mask.data_ptr(), w.data_ptr(), out.data_ptr(), R, T, Aq, Ak, grid,
-            stream,
-        )
+        err = fn(center_norm.data_ptr(), x_k.data_ptr(), pos_q.data_ptr(), pos_k.data_ptr(),
+                 rot.data_ptr(), mask.data_ptr(), w.data_ptr(), out.data_ptr(), R, T, Aq, Ak,
+                 grid, stream)
     if err != 0:
         raise RuntimeError(f"aa_attention kernel launch failed: cudaError {err}")
-    aa_attention.launches += 1
+    return out
+
+
+def _launch(center_norm, x_k, pos_q, pos_k, rot, mask, packed, num_heads) -> torch.Tensor:
+    """K5, counted in ``aa_attention.launches``."""
+    out = launch(_library(), center_norm, x_k, pos_q, pos_k, rot, mask, packed, num_heads)
+    if center_norm.numel():  # no receivers: nothing was launched
+        aa_attention.launches += 1
     return out
 
 
@@ -111,7 +133,7 @@ def aa_attention(center_norm: torch.Tensor, x_k: torch.Tensor, pos_q: torch.Tens
     packed      the 14 pair-chain weights of ``pack_aa_params`` plus wq, bq
 
     ``t_chunk`` is the TPU kernel's tiling and is ignored.  On CUDA kernel
-    K5 runs on the current stream without synchronising and
+    K5 (D 64, ``num_heads`` 8 or 4) runs on the current stream without synchronising and
     ``aa_attention.launches`` counts its launches; on the CPU the plain
     version runs.
     """
