@@ -150,6 +150,24 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      timed in alternating rounds, and BASELINE_SINGLES single scenes
      submitted one at a time give p50 / p99.  K1, K2, K5 and K6 never
      launch on the baseline's paths.
+  M. training as ``train.py`` does (after L).  M1: ``FLAGSHIP_CAPPED`` (the
+     ``_tpu_fast`` YAML in f32: ``neighbor_cap: 24`` on the dense AA
+     block) with the fused decoder, batch 128: at the batch's largest
+     in-radius degree (below Ak) nothing drops and the forward with pinned
+     encoder and twin noise is the dense model's within ``TOL_CAPPED`` of
+     max|dense|; at cap 24 ``aa_overflow_edges`` equals numpy's count from
+     the masks and is above 0 (the share dropped printed), one train step
+     is finite and launches K1 and K2 once and K3-K6 never; the forward
+     and the step, capped and dense, in turns (CUDA events) with their
+     peak memory.  M2: one accum-2 update of ``FLAGSHIP_TRAIN_FUSED`` on
+     two batches of 64, dropout live: its gradients are (g1 + g2) / 2 of
+     the micro-batches run alone with the same seeds, bit for bit, K1-K4
+     once per micro-batch; its peak memory beside one step of 128; the
+     time ``save`` blocks, synchronous and asynchronous, in turns; then
+     ``train_torch.main`` on a JSON copy of ``FLAGSHIP_H100`` at batch 64
+     with ``--accum 2 --async-ckpt`` on I's npz files: K1-K4 once per
+     micro-batch, ceil(batches / 2) updates, the checkpoint on the board
+     after the run, and ``--ckpt`` resumes it for one more epoch.
 Phases 4, B, C and 7 check that K4 never launches on their paths, and the
 serving and training phases that K5 and K6 never do.
 The last lines are the card, a JSON object per kernel and the device line.
@@ -173,12 +191,14 @@ import urllib.request
 import numpy as np
 import torch
 
-from trajsde_tpu_torch.config import (BASELINE, BASELINE_TRAIN, FLAGSHIP, FLAGSHIP_FUSED,
-                                      FLAGSHIP_H100, FLAGSHIP_TRAIN, FLAGSHIP_TRAIN_FUSED,
-                                      build_datamodule, build_losses, build_metrics, build_model)
+from trajsde_tpu_torch.config import (BASELINE, BASELINE_TRAIN, FLAGSHIP, FLAGSHIP_CAPPED,
+                                      FLAGSHIP_FUSED, FLAGSHIP_H100, FLAGSHIP_TRAIN,
+                                      FLAGSHIP_TRAIN_FUSED, build_datamodule, build_losses,
+                                      build_metrics, build_model)
 from trajsde_tpu_torch.data.pack import pack_scenes, pick_bucket
 from trajsde_tpu_torch.data.shards import convert_npz_dir
 from trajsde_tpu_torch.data.synthetic import make_raw_scene
+from trajsde_tpu_torch.models import graph
 from trajsde_tpu_torch.ops import aa_attention as K5
 from trajsde_tpu_torch.ops import aa_fused as K3
 from trajsde_tpu_torch.ops import build as kernel_build
@@ -187,7 +207,8 @@ from trajsde_tpu_torch.ops import vpu_probe as K6
 from trajsde_tpu_torch.server import ServingEngine, align_scene
 from trajsde_tpu_torch.serving import make_serving_fn
 from trajsde_tpu_torch.train.checkpoint import CheckpointManager
-from trajsde_tpu_torch.train.loop import Trainer, create_train_state, make_train_step
+from trajsde_tpu_torch.train.loop import (Trainer, create_train_state, make_train_step,
+                                          micro_seeds)
 
 NUM_ACTORS, NUM_LANES = 48, 192
 BATCHES = (1, 5, 128)
@@ -290,6 +311,13 @@ TRAIN_BATCH = 128
 # phase L: train steps a baseline path takes, scenes of its engine's
 # predict, single submitted scenes
 BASELINE_STEPS, BASELINE_SCENES, BASELINE_SINGLES = 3, 512, 20
+# phase M: the _tpu_fast recipe's cap, M1(a)'s limit on max|capped - dense| /
+# max|dense| (the same chain over the gathered senders, summed in another
+# order, then 60 rollout steps), the rounds of M1's turns, M2's micro-batch
+# and the rounds of its save timing
+CAP = 24
+TOL_CAPPED = 1e-5
+CAPPED_ROUNDS, ACCUM_BATCH, SAVE_ROUNDS = 2, 64, 3
 # H100 SXM published peaks (dense): f32 on CUDA cores, TF32 and f64 on the
 # tensor cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -2179,6 +2207,283 @@ def phase_baseline(card: str, checks: dict) -> dict:
     print(f"[baseline] phase L: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
 
+def _capped_models():
+    """M1's models: ``FLAGSHIP_CAPPED`` (the ``_tpu_fast`` YAML in f32, cap
+    24) with ``decoder.fused: true``, as the H100 config rolls out through
+    K1 / K2, and the same weights uncapped (the dense AA block)."""
+    cfg = copy.deepcopy(FLAGSHIP_CAPPED)
+    cfg["decoder"]["kwargs"]["fused"] = True
+    check(cfg["encoder"]["kwargs"]["neighbor_cap"] == CAP
+          and not cfg["encoder"]["kwargs"].get("fused", False),
+          "FLAGSHIP_CAPPED is not the dense AA block at cap 24")
+    dense_cfg = copy.deepcopy(cfg)
+    dense_cfg["encoder"]["kwargs"]["neighbor_cap"] = 0
+    capped = build_model(cfg, device="cuda", seed=SEED)
+    dense = build_model(dense_cfg, device="cuda", seed=SEED)
+    dense.load_state_dict(capped.state_dict())
+    return cfg, capped, dense
+
+
+def numpy_overflow(scene, radius: float, cap: int) -> tuple:
+    """(edges past ``cap`` summed over every receiver row, in-radius edges,
+    the largest in-radius degree) of the flagship's AA block on ``scene``,
+    from its masks in numpy: the A actors' rows and the twin's (the focal
+    agent's row again)."""
+    mask = graph.aa_masks(scene, radius).cpu().numpy()
+    agent = scene.agent_index.cpu().numpy()
+    twin = mask[np.arange(mask.shape[0]), :, agent][:, :, None]
+    deg = np.concatenate([mask, twin], axis=2).sum(-1)
+    return int(np.maximum(deg - cap, 0).sum()), int(deg.sum()), int(deg.max())
+
+
+def phase_capped(card: str) -> dict:
+    """M1. ``neighbor_cap`` on the dense AA path at full width, batch 128:
+    (a) at the batch's largest in-radius degree (below Ak) the gather drops
+    nothing and the forward (pinned encoder and twin noise, the same
+    rollout seed) is the dense model's within ``TOL_CAPPED`` of max|dense|;
+    (b) at cap 24 ``aa_overflow_edges`` is numpy's count from the masks and
+    above 0, one train step is finite and launches K1 and K2 once and K3 /
+    K4 never; then the forward and the step of the capped and the dense
+    model in turns (CUDA events) with their peak memory.  Returns the
+    step's launches and the numbers."""
+    t_phase = time.perf_counter()
+    cfg, capped, dense = _capped_models()
+    enc = capped.encoder
+    rng = np.random.default_rng(SEED + 31)
+    scene = _train_batch(rng, TRAIN_BATCH).to("cuda")
+    B, A, Th, D = TRAIN_BATCH, NUM_ACTORS, enc.historical_steps, enc.embed_dim
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    en = torch.randn((Th, B, A + 1, D), generator=gen, device="cuda")
+    tw = torch.randn((B, 1, Th, 2), generator=gen, device="cuda")
+    radius = enc.local_radius
+    overflow_np, edges, max_deg = numpy_overflow(scene, radius, CAP)
+    check(max_deg < A, f"the batch's largest in-radius degree {max_deg} is not below Ak {A}")
+    out = {"max_degree": max_deg, "in_radius_edges": edges}
+
+    exact = copy.deepcopy(capped)
+    exact.encoder.aa_encoder.neighbor_cap = max_deg
+    with torch.no_grad():
+        for m in (capped, dense, exact):
+            m.eval()
+        want = dense(scene, enc_noise=en, twin_noise=tw, rollout_seed=SEED)
+        got = exact(scene, enc_noise=en, twin_noise=tw, rollout_seed=SEED)
+        check(int(exact.encoder.aa_encoder.aa_overflow_edges) == 0,
+              f"the cap at the largest degree {max_deg} dropped edges")
+        for k in ("loc", "pi"):
+            rel = ((got[k] - want[k]).abs().max() / want[k].abs().max()).item()
+            out[f"exact_vs_dense_{k}"] = rel
+            print(f"[capped] cap {max_deg} (the batch's largest in-radius degree, Ak {A}) vs "
+                  f"dense, {k}: max|capped - dense| / max|dense| = {rel:.3e} "
+                  f"(tol {TOL_CAPPED:g})", flush=True)
+            check(rel <= TOL_CAPPED, f"the capped forward's {k} at cap {max_deg} is not the dense "
+                  "one")
+        del exact, got, want
+        capped_out = capped(scene, enc_noise=en, twin_noise=tw, rollout_seed=SEED)
+        counted = int(capped.encoder.aa_encoder.aa_overflow_edges)
+    check(all(bool(torch.isfinite(capped_out[k]).all()) for k in ("loc", "pi")),
+          "non-finite capped forward")
+    print(f"[capped] cap {CAP}: aa_overflow_edges {counted}, numpy's count from the masks "
+          f"{overflow_np}; {edges} in-radius edges (the twin row's included), "
+          f"{100.0 * overflow_np / edges:.2f}% dropped", flush=True)
+    check(counted == overflow_np, "aa_overflow_edges is not numpy's count")
+    check(counted > 0, f"the batch does not overflow at cap {CAP}")
+    out.update(overflow_edges=counted, dropped_share=overflow_np / edges)
+
+    losses = build_losses(cfg)
+    steps = {}
+    for tag, model in (("capped", capped), ("dense", dense)):
+        state = create_train_state(model, cfg["training_specific"], steps_per_epoch=1, seed=SEED)
+        steps[tag] = make_train_step(model, state.optimizer, state.scheduler, losses,
+                                     torch.device("cuda"))
+    zero_counts()
+    logs = steps["capped"](scene, 0, SEED)
+    launches = _counts()
+    total = float(logs["train/total"])
+    print(f"[capped] one train step at cap {CAP}: loss {total:.4f}, launches {launches}, "
+          f"aa_overflow_edges {int(capped.encoder.aa_encoder.aa_overflow_edges)}", flush=True)
+    check(np.isfinite(total) and logs["train/step_skipped"] == 0.0, "non-finite capped step")
+    check(launches == {"sde_rollout": 1, "sde_rollout_bwd": 1, "aa_fused": 0, "aa_fused_bwd": 0,
+                       "aa_attention": 0, "vpu_probe": 0},
+          "the capped train step did not launch K1 and K2 once and K3-K6 never")
+    check(int(capped.encoder.aa_encoder.aa_overflow_edges) == overflow_np,
+          "the train step's overflow count is not numpy's")
+    out["step_launches"] = launches
+
+    times = {tag: {"forward": [], "step": []} for tag in steps}
+    peaks = {tag: {} for tag in steps}
+    counter = [1]
+
+    def step_once(tag):
+        steps[tag](scene, counter[0], SEED)
+        counter[0] += 1
+
+    for _ in range(CAPPED_ROUNDS):
+        for tag, model in (("capped", capped), ("dense", dense)):
+            model.eval()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.no_grad():
+                times[tag]["forward"].append(
+                    cuda_ms(lambda: model(scene, rollout_seed=SEED), runs=3, warmup=1))
+            peaks[tag]["forward"] = torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+            times[tag]["step"].append(cuda_ms(lambda: step_once(tag), runs=3, warmup=1))
+            peaks[tag]["step"] = torch.cuda.max_memory_allocated() / 2**30
+    for tag in steps:
+        print(f"[capped] {card}: {tag} at batch {TRAIN_BATCH}: forward "
+              + ", ".join(f"{t:.2f}" for t in times[tag]["forward"]) + " ms, train step "
+              + ", ".join(f"{t:.2f}" for t in times[tag]["step"])
+              + f" ms (CUDA events, medians of 3, {CAPPED_ROUNDS} rounds in turns); peak "
+              f"{peaks[tag]['forward']:.2f} GiB forward, {peaks[tag]['step']:.2f} GiB step",
+              flush=True)
+    out.update(times=times, peaks=peaks)
+    del capped, dense, steps, capped_out
+    torch.cuda.empty_cache()
+    print(f"[capped] phase M1: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+def _micro_alone(model, losses, scene, s: int) -> None:
+    """One micro-batch's forward, loss and backward as the train step runs it."""
+    out = model(scene, generator=torch.Generator(device="cuda").manual_seed(s), rollout_seed=s)
+    total = 0.0
+    for _, w, fn in losses:
+        total = total + w * fn(out["y"], out)
+    total.backward()
+
+
+def phase_accum(d: str, card: str) -> dict:
+    """M2. Gradient accumulation and asynchronous checkpoints at full width:
+    the splice (one accum-2 update of ``FLAGSHIP_TRAIN_FUSED`` on two fixed
+    batches of ACCUM_BATCH, dropout live: its gradients are (g1 + g2) / 2 of
+    the micro-batches run alone with the same seeds, bit for bit; K1-K4 once
+    per micro-batch), the peak memory of that update beside one step of
+    TRAIN_BATCH, the time ``save`` blocks, synchronous against
+    asynchronous, in turns, then ``train_torch.main`` with ``--accum 2
+    --async-ckpt`` at ACCUM_BATCH on phase I's npz files (K1-K4 once per
+    micro-batch, ceil(batches / 2) updates, the checkpoint on the board
+    after the run, ``--ckpt`` resumes it)."""
+    import train_torch
+
+    t_phase = time.perf_counter()
+    cfg = FLAGSHIP_TRAIN_FUSED
+    losses = build_losses(cfg)
+    rng = np.random.default_rng(SEED + 33)
+    micro = [_train_batch(rng, ACCUM_BATCH).to("cuda") for _ in range(2)]
+    model = build_model(cfg, device="cuda", seed=SEED).train()
+    state = create_train_state(model, cfg["training_specific"], steps_per_epoch=1, seed=SEED)
+    step = make_train_step(model, state.optimizer, state.scheduler, losses, torch.device("cuda"))
+    seeds = micro_seeds(K1.mix_seed(SEED, 0), 2)
+    alone = []
+    for scene, s in zip(micro, seeds):
+        model.zero_grad(set_to_none=True)
+        _micro_alone(model, losses, scene, s)
+        alone.append({n: p.grad.clone() for n, p in model.named_parameters()
+                      if p.grad is not None})
+    zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logs = step(micro, 0, SEED)
+    accum_peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = _counts()
+    check(logs["train/step_skipped"] == 0.0, "the NaN guard skipped the accumulated update")
+    check(launches == {"sde_rollout": 2, "sde_rollout_bwd": 2, "aa_fused": 2, "aa_fused_bwd": 2,
+                       "aa_attention": 0, "vpu_probe": 0},
+          f"the accum-2 update launched {launches}, not K1-K4 once per micro-batch")
+    unequal = [n for n, p in model.named_parameters() if p.grad is not None
+               and not torch.equal(p.grad, (alone[0][n] + alone[1][n]) / 2)]
+    named = {n for n, p in model.named_parameters() if p.grad is not None}
+    check(named == set(alone[0]) == set(alone[1]), "the leaves with a gradient differ")
+    print(f"[accum] splice: accum-2 update of two batches of {ACCUM_BATCH} "
+          f"(FLAGSHIP_TRAIN_FUSED, dropout live), launches {launches}; {len(named)} gradient "
+          f"leaves, {len(named) - len(unequal)} equal to (g1 + g2) / 2 of the micro-batches "
+          "alone bit for bit", flush=True)
+    check(not unequal, f"accumulated gradients differ from (g1 + g2) / 2 at {unequal[:5]}")
+    del alone
+    big = _train_batch(rng, TRAIN_BATCH).to("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(big, 1, SEED)
+    full_peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[accum] {card}: peak device memory of the accum 2 x {ACCUM_BATCH} update "
+          f"{accum_peak:.2f} GiB, of one step of {TRAIN_BATCH} {full_peak:.2f} GiB", flush=True)
+    del big, micro
+
+    # the time the epoch loop spends in save(), in turns
+    state.step = 2
+    blocked = {"sync": [], "async": []}
+    landed = []
+    with tempfile.TemporaryDirectory() as ck:
+        managers = {"sync": CheckpointManager(os.path.join(ck, "sync")),
+                    "async": CheckpointManager(os.path.join(ck, "async"), async_save=True)}
+        for r in range(SAVE_ROUNDS):
+            for mode, mgr in managers.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mgr.save(state, metric=float(r), step=r)
+                blocked[mode].append(1e3 * (time.perf_counter() - t0))
+                if mode == "async":
+                    mgr.wait()
+                    landed.append(1e3 * (time.perf_counter() - t0))
+        size_mb = os.path.getsize(os.path.join(mgr.latest()["path"], "state.pt")) / 2**20
+    print(f"[accum] {card}: save() of the FLAGSHIP_TRAIN_FUSED state ({size_mb:.1f} MiB) "
+          "blocks the epoch loop: synchronous " + ", ".join(f"{t:.2f}" for t in blocked["sync"])
+          + " ms; asynchronous " + ", ".join(f"{t:.2f}" for t in blocked["async"])
+          + " ms (landed after " + ", ".join(f"{t:.2f}" for t in landed) + " ms; host clock, "
+          f"{SAVE_ROUNDS} rounds in turns)", flush=True)
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    n_train = FILE_BATCHES * TRAIN_BATCH // ACCUM_BATCH
+    updates = -(-n_train // 2)
+    n_eval = -(-CLI_VAL_SCENES // TRAIN_BATCH)
+    raw = copy.deepcopy(FLAGSHIP_H100)
+    kw = raw["datamodule_specific"]["kwargs"]
+    kw.update(train_batch_size=ACCUM_BATCH, nu_dir=os.path.join(d, "npz", "nuScenes"),
+              Argo_dir=os.path.join(d, "npz", "Argoverse"))
+    cfg_path = os.path.join(d, "h100_accum.json")
+    with open(cfg_path, "w") as f:
+        json.dump(raw, f)
+    logdir = os.path.join(d, "logs")
+    common = ["-c", cfg_path, "-n", "accum", "--logdir", logdir, "--epochs", "1", "--seed",
+              str(SEED), "--accum", "2", "--async-ckpt"]
+    want = {"sde_rollout": n_train + n_eval, "sde_rollout_bwd": n_train,
+            "aa_fused": n_train + n_eval, "aa_fused_bwd": n_train, "aa_attention": 0,
+            "vpu_probe": 0}
+    out = {"splice_launches": launches, "accum_peak_gib": accum_peak, "full_peak_gib": full_peak,
+           "save_blocked_ms": blocked, "save_landed_ms": landed}
+    for tag, extra in (("train", []), ("resume", None)):
+        if extra is None:
+            board = CheckpointManager(os.path.join(logdir, "accum", "checkpoints"))
+            extra = ["--ckpt", board.latest()["path"]]
+        zero_counts()
+        t0 = time.perf_counter()
+        state, trainer = train_torch.main(common + extra)
+        wall = time.perf_counter() - t0
+        cli = _counts()
+        steps = updates * (2 if tag == "resume" else 1)
+        epoch = trainer.epoch_logs[-1]
+        check(state.step == steps, f"[accum cli {tag}] the run ended at step {state.step}, not "
+              f"{steps} (ceil({n_train} / 2) an epoch)")
+        check(cli == want, f"[accum cli {tag}] launched {cli}, not K1-K4 once per micro-batch "
+              f"and K1 and K3 once per eval batch ({want})")
+        check(epoch["train/steps_skipped"] == 0.0, f"[accum cli {tag}] a step was skipped")
+        latest = trainer.checkpointer.latest()
+        check(trainer.checkpointer.async_save and latest is not None and latest["step"] == steps
+              and os.path.isfile(os.path.join(latest["path"], "state.pt")),
+              f"[accum cli {tag}] the checkpoint of step {steps} is not on the board")
+        vals = {k: v for k, v in epoch.items() if k.startswith("val/")}
+        check(vals and all(np.isfinite(v) for v in vals.values()),
+              f"[accum cli {tag}] non-finite val metrics {vals}")
+        out[f"cli_{tag}"] = dict(launches=cli, steps=state.step, wall_s=wall)
+        print(f"[accum] train_torch.py --accum 2 --async-ckpt {tag} at batch {ACCUM_BATCH}: "
+              f"{n_train} micro-batches, step {state.step}, launches {cli}, checkpoint "
+              f"{os.path.basename(latest['path'])} on the board; val "
+              + ", ".join(f"{k} {v:.4f}" for k, v in vals.items()) + f"; {wall:.1f} s",
+              flush=True)
+    print(f"[accum] phase M2: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
 
 def main() -> None:
     t_start = time.perf_counter()
@@ -2228,8 +2533,11 @@ def main() -> None:
         cli = phase_cli(d, from_files, card)
         torch.cuda.empty_cache()
         engine_k = phase_engine(d, card)
-    torch.cuda.empty_cache()
-    baseline = phase_baseline(card, checks)
+        torch.cuda.empty_cache()
+        baseline = phase_baseline(card, checks)
+        torch.cuda.empty_cache()
+        capped = phase_capped(card)
+        accum = phase_accum(d, card)
     k3.update(baseline["k3"])
     k4.update(baseline["k4"])
     # launches: the count on the kernel's own main path (serving for K1,
@@ -2269,6 +2577,9 @@ def main() -> None:
             paths[f"{prefix}_forward"] = b["forward_launches"][name]
             paths[f"{prefix}_train"] = b["train_launches"][name]
             paths[f"{prefix}_engine"] = b["engine"]["launches"][name]
+        # phase M: a train step at cap 24, and the --accum 2 --async-ckpt CLI's epoch
+        entry["launches_by_path"]["capped_train"] = capped["step_launches"][name]
+        entry["launches_by_path"]["accum_cli_train"] = accum["cli_train"]["launches"][name]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches: {served} serving + "
           f"{served_fused} fused serving + {train['sde_rollout']} training + "
           f"{train_fused['sde_rollout']} fused-encoder training; K2 launches: "
@@ -2286,7 +2597,9 @@ def main() -> None:
           + "; ".join(f"the {tag} baseline's forward, {BASELINE_STEPS} train steps and scan "
                       f"engine: {b['forward_launches']}, {b['train_launches']}, "
                       f"{b['engine']['launches']}"
-                      for tag, b in ((t, baseline[t]) for t in ("dense", "fused"))), flush=True)
+                      for tag, b in ((t, baseline[t]) for t in ("dense", "fused")))
+          + f"; a train step at cap {CAP}: {capped['step_launches']}; the --accum 2 CLI's "
+          f"epoch: {accum['cli_train']['launches']}", flush=True)
     print(card)
     print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

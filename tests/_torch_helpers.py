@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import json
 
 import jax
 import numpy as np
@@ -14,6 +15,7 @@ from trajsde_tpu.data.synthetic import make_scene_batch as jax_make_scene_batch
 from trajsde_tpu_torch.bridge import params_from_flax
 from trajsde_tpu_torch.config import BASELINE, FLAGSHIP, build_model as torch_build_model
 from trajsde_tpu_torch.data.scene import SceneBatch
+from trajsde_tpu_torch.data.synthetic import make_raw_scene
 from trajsde_tpu_torch.ops.aa_fused import W_ORDER
 
 SCENE_FIELDS = ("x", "y", "positions", "padding_mask", "bos_mask", "rotate_angles",
@@ -155,3 +157,29 @@ def torch_threads(n: int):
         yield
     finally:
         torch.set_num_threads(old)
+
+
+def write_run(tmp_path, n_train=6, batch=4, actors=6, lanes=8):
+    """npz scenes of both sources (train) and nuScenes (val), written from
+    the port's synthetic scenes under ``tmp_path``, and a JSON config of the
+    small flagship (both fused paths, their plain versions on the CPU) over
+    them at ``batch``; returns the config's path."""
+    rng = np.random.default_rng(0)
+    root = tmp_path / "scenes"
+    for name, src in (("nuScenes", 0), ("Argoverse", 1)):
+        for split, n in (("train", n_train), ("val", 4 if src == 0 else 0)):
+            d = root / name / split
+            d.mkdir(parents=True)
+            for i in range(n):
+                raw = make_raw_scene(rng, src, num_actors=int(rng.integers(3, actors + 1)),
+                                     num_lanes=int(rng.integers(4, lanes + 1)))
+                np.savez(d / f"scene_{i:06d}.npz", **raw)
+    cfg = small_cfg(Tf=60)
+    for sec in ("encoder", "decoder"):
+        cfg[sec]["kwargs"]["fused"] = True
+    cfg["datamodule_specific"]["kwargs"].update(
+        train_batch_size=batch, val_batch_size=batch, num_actors=actors, num_lanes=lanes,
+        num_workers=1, nu_dir=str(root / "nuScenes"), Argo_dir=str(root / "Argoverse"))
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(cfg))
+    return str(path)

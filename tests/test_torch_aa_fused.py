@@ -216,8 +216,7 @@ def test_fused_aa_encoder_train_mode_draws_keep_from_the_generator():
 def test_fused_with_neighbor_cap_raises():
     with pytest.raises(NotImplementedError, match="dense pair chain"):
         AAEncoder(21, 64, 8, fused=True, neighbor_cap=24)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        AAEncoder(21, 64, 8, neighbor_cap=24)
+    assert AAEncoder(21, 64, 8, neighbor_cap=24).neighbor_cap == 24   # the dense path takes it
     kw = dict(FLAGSHIP["encoder"]["kwargs"], fused=True, neighbor_cap=24)
     with pytest.raises(NotImplementedError, match="dense pair chain"):
         tconfig.build("LocalEncoderSDESepPara2", kw)

@@ -70,7 +70,7 @@ def test_registry_aliases_filtering_and_guards():
     fused = tconfig.build("LocalEncoderSDESep", dict(kw, fused=True, rows_fwd=128, rows_bwd=24,
                                                      ln_mm=False))
     assert fused.aa_encoder.fused
-    for bad, err in [({"neighbor_cap": 24}, NotImplementedError),
+    for bad, err in [({"neighbor_cap": 24, "fused": True}, NotImplementedError),
                      ({"adaptive": True}, NotImplementedError),
                      ({"dtype": "bfloat16"}, NotImplementedError),
                      ({"ref_time": 10}, ValueError),

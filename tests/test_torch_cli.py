@@ -354,8 +354,7 @@ def test_train_torch_wonly_and_config_guards(data, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--multihost"], "item 10"), (["--zero1"], "item 10"), (["--accum", "2"], "item 5"),
-    (["--chain", "2"], "item 5"), (["--async-ckpt"], "item 5")])
+    (["--multihost"], "item 10"), (["--zero1"], "item 10"), (["--chain", "2"], "item 5")])
 def test_flags_not_ported_exit_naming_their_item(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {item}"):
         train_torch.main(["-c", "x.yml", "-n", "x", *flags])

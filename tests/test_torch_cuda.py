@@ -706,3 +706,86 @@ def test_engine_predict_and_submit_equal_a_plain_copy_path(cuda, monkeypatch):
         for g, w in zip(got, ref):
             for k in w:
                 assert np.array_equal(g[k], w[k]), k
+
+
+@pytest.mark.gpu
+def test_capped_dense_aa_at_the_largest_degree_equals_dense_and_counts_overflow(cuda):
+    """``FLAGSHIP_CAPPED`` (``neighbor_cap``, the dense AA path) on the card
+    at batch 16, 48 actors: at the batch's largest in-radius degree the
+    forward (pinned encoder and twin noise, the same rollout seed) is the
+    uncapped model's within ``chip_smoke.TOL_CAPPED`` of max|dense|; at cap 24
+    ``aa_overflow_edges`` is numpy's count from the masks; a train step
+    launches K1 and K2 once and K3 / K4 never."""
+    import copy
+
+    import numpy as np
+
+    from chip_smoke import CAP, TOL_CAPPED, numpy_overflow
+    from trajsde_tpu_torch.config import FLAGSHIP_CAPPED, build_losses, build_model
+    from trajsde_tpu_torch.train.loop import create_train_state, make_train_step
+
+    cfg = copy.deepcopy(FLAGSHIP_CAPPED)
+    cfg["decoder"]["kwargs"]["fused"] = True
+    capped = build_model(cfg, device=cuda, seed=7)
+    dense_cfg = copy.deepcopy(cfg)
+    dense_cfg["encoder"]["kwargs"]["neighbor_cap"] = 0
+    dense = build_model(dense_cfg, device=cuda, seed=7)
+    scene = _packed(9, 16, 48, 192).to(cuda)
+    overflow, _, max_deg = numpy_overflow(scene, 50.0, CAP)
+    assert overflow > 0 and max_deg < 48
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    en = torch.randn((21, 16, 49, 64), generator=gen, device=cuda)
+    tw = torch.randn((16, 1, 21, 2), generator=gen, device=cuda)
+    exact = copy.deepcopy(capped)
+    exact.encoder.aa_encoder.neighbor_cap = max_deg
+    with torch.no_grad():
+        want = dense(scene, enc_noise=en, twin_noise=tw, rollout_seed=4)
+        got = exact(scene, enc_noise=en, twin_noise=tw, rollout_seed=4)
+        assert int(exact.encoder.aa_encoder.aa_overflow_edges) == 0
+        for k in ("loc", "pi"):
+            assert (got[k] - want[k]).abs().max() <= TOL_CAPPED * want[k].abs().max(), k
+        capped(scene, enc_noise=en, twin_noise=tw, rollout_seed=4)
+    assert int(capped.encoder.aa_encoder.aa_overflow_edges) == overflow
+    state = create_train_state(capped, cfg["training_specific"], steps_per_epoch=1)
+    step = make_train_step(capped, state.optimizer, state.scheduler, build_losses(cfg), cuda)
+    before = (K.sde_rollout.launches, K.sde_rollout_bwd.launches,
+              K3.fused_pair_attention.launches, K3.fused_pair_attention_bwd.launches)
+    logs = step(scene, 0, 0)
+    after = (K.sde_rollout.launches, K.sde_rollout_bwd.launches,
+             K3.fused_pair_attention.launches, K3.fused_pair_attention_bwd.launches)
+    assert np.isfinite(float(logs["train/total"])) and logs["train/step_skipped"] == 0.0
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 0, 0)
+
+
+@pytest.mark.gpu
+def test_accum_update_grads_are_the_mean_of_the_micro_batches_alone_bit_for_bit(cuda):
+    """One accum-2 update of ``FLAGSHIP_TRAIN_FUSED`` (K1-K4, dropout live) on
+    two batches of 8 at 48 actors: its gradients are (g1 + g2) / 2 of the two
+    micro-batches run alone with the same seeds, bit for bit (K2's and K4's
+    weight gradients add into ``.grad``), and K1-K4 launch once per
+    micro-batch."""
+    from chip_smoke import _micro_alone
+    from trajsde_tpu_torch.config import FLAGSHIP_TRAIN_FUSED, build_losses, build_model
+    from trajsde_tpu_torch.train.loop import create_train_state, make_train_step, micro_seeds
+
+    cfg = FLAGSHIP_TRAIN_FUSED
+    losses = build_losses(cfg)
+    micro = [_packed(s, 8, 48, 192).to(cuda) for s in (11, 12)]
+    model = build_model(cfg, device=cuda, seed=8).train()
+    alone = []
+    for scene, s in zip(micro, micro_seeds(K.mix_seed(3, 5), 2)):
+        model.zero_grad(set_to_none=True)
+        _micro_alone(model, losses, scene, s)
+        alone.append({n: p.grad.clone() for n, p in model.named_parameters()
+                      if p.grad is not None})
+    state = create_train_state(model, cfg["training_specific"], steps_per_epoch=1, seed=3)
+    step = make_train_step(model, state.optimizer, state.scheduler, losses, cuda)
+    counters = (K.sde_rollout, K.sde_rollout_bwd, K3.fused_pair_attention,
+                K3.fused_pair_attention_bwd)
+    before = [c.launches for c in counters]
+    step(micro, 5, 3)
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 2, 2, 2]
+    got = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+    assert set(got) == set(alone[0]) == set(alone[1])
+    for n in got:
+        assert torch.equal(got[n], (alone[0][n] + alone[1][n]) / 2), n

@@ -5,7 +5,7 @@
     python train_torch.py -c configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec_h100.yml -n my_run \\
         [--ckpt STEP_DIR | --wonly STEP_DIR] [--epochs N] [--logdir logs] [--seed 0] \\
         [--num-actors A] [--num-lanes L] [--monitor ADE_T] [--profile STEP] [--log-every N] \\
-        [--device cuda|cpu]
+        [--accum K] [--async-ckpt] [--device cuda|cpu]
 
 Config -> datamodule (``build_datamodule``), model, losses, metrics, AdamW
 + cosine sized by the train loader -> ``Trainer.fit`` under
@@ -13,7 +13,11 @@ Config -> datamodule (``build_datamodule``), model, losses, metrics, AdamW
 latest), ``metrics.jsonl``, ``source_snapshot/`` and, with ``--profile``,
 ``profile/``.  ``--ckpt`` resumes the model, AdamW, the schedule, the step,
 the seed and the data stream; ``--wonly`` loads the weights alone.
-SIGTERM or SIGINT saves an unscored checkpoint and exits cleanly.  The
+``--accum K`` takes one optimizer update per K loader batches (the mean
+gradient; the schedule counts updates, ``ceil(batches / K)`` an epoch);
+``--async-ckpt`` writes each epoch's checkpoint on a thread while the next
+epoch trains.  SIGTERM or SIGINT saves an unscored checkpoint
+(synchronously) and exits cleanly.  The
 run is on the card unless ``--device cpu``.  Configs are YAML, or JSON
 (``*.json``, which needs no PyYAML).
 """
@@ -28,9 +32,7 @@ from typing import Optional, Sequence
 NOT_PORTED = {
     "multihost": "item 10 (multi-GPU)",
     "zero1": "item 10 (multi-GPU)",
-    "accum": "item 5 (training leftovers)",
     "chain": "item 5 (training leftovers)",
-    "async_ckpt": "item 5 (training leftovers)",
 }
 
 
@@ -55,12 +57,16 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="torch.profiler trace of 5 steps from STEP (<run_dir>/profile)")
     p.add_argument("--log-every", type=int, default=1, help="train-scalar log cadence")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    for flag in ("multihost", "zero1", "async_ckpt"):
-        p.add_argument("--" + flag.replace("_", "-"), action="store_true",
+    p.add_argument("--accum", type=int, default=1,
+                   help="gradient accumulation: K loader batches per optimizer update")
+    p.add_argument("--async-ckpt", action="store_true",
+                   help="write checkpoints on a thread while training goes on (preemption "
+                   "saves stay synchronous)")
+    for flag in ("multihost", "zero1"):
+        p.add_argument("--" + flag, action="store_true",
                        help=f"not ported: ROADMAP.md Queue 1 {NOT_PORTED[flag]}")
-    for flag in ("accum", "chain"):
-        p.add_argument("--" + flag, type=int, default=None,
-                       help=f"not ported: ROADMAP.md Queue 1 {NOT_PORTED[flag]}")
+    p.add_argument("--chain", type=int, default=None,
+                   help=f"not ported: ROADMAP.md Queue 1 {NOT_PORTED['chain']}")
     args = p.parse_args(argv)
     for flag, item in NOT_PORTED.items():
         if getattr(args, flag) not in (None, False):
@@ -102,14 +108,19 @@ def main(argv: Optional[Sequence[str]] = None):
 
     datamodule = build_datamodule(cfg, seed=args.seed, num_actors=args.num_actors,
                                   num_lanes=args.num_lanes)
-    steps_per_epoch = max(1, len(datamodule.train_loader()))
+    accum = max(1, args.accum)
+    # the schedule advances once per optimizer update: ceil(batches / K) an
+    # epoch (train.py; a bucketing loader's partial groups may add a few)
+    updates_per_epoch = -(-max(1, len(datamodule.train_loader())) // accum)
     model = build_model(cfg, device=device, seed=args.seed)
-    state = create_train_state(model, cfg["training_specific"], steps_per_epoch, seed=args.seed)
-    checkpointer = CheckpointManager(os.path.join(run_dir, "checkpoints"))
+    state = create_train_state(model, cfg["training_specific"], updates_per_epoch,
+                               seed=args.seed)
+    checkpointer = CheckpointManager(os.path.join(run_dir, "checkpoints"),
+                                     async_save=args.async_ckpt)
     if args.ckpt:
         checkpointer.restore(state, args.ckpt)
         # continue the data stream too: the next epoch's shuffle and flips
-        datamodule.train_dataset.epoch = state.step // steps_per_epoch
+        datamodule.train_dataset.epoch = state.step // updates_per_epoch
     elif args.wonly:
         checkpointer.restore_params(state.model, args.wonly)
 
@@ -119,7 +130,7 @@ def main(argv: Optional[Sequence[str]] = None):
         build_losses(cfg), build_metrics(cfg), device=device, logger=logger,
         checkpointer=checkpointer, monitor=args.monitor,
         is_gtabs=val_args.get("is_gtabs", True), log_every=max(1, args.log_every),
-        ts_drop_rate=rate,
+        ts_drop_rate=rate, accum_steps=accum,
         profiler=ProfilerHook(run_dir, args.profile) if args.profile is not None else None,
     )
     epochs = (args.epochs if args.epochs is not None

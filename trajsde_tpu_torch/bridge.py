@@ -5,12 +5,14 @@ the flax path joined by dots, with two renames: a Dense ``kernel [in, out]``
 becomes ``Linear.weight [out, in]`` and a LayerNorm ``scale`` becomes its
 ``weight``.  Tokens (``bos_token``, ``hidden``) and biases keep their
 names and layouts.  The round trip is exact.  :func:`aa_packed_from_flax`
-packs a flax agent-agent subtree for the ``aa_attention`` op.
+packs a flax agent-agent subtree for the ``aa_attention`` op, and
+:func:`adamw_state_from_optax` turns the JAX package's optax AdamW state
+into the port's.
 """
 from __future__ import annotations
 
 from types import SimpleNamespace
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -56,6 +58,67 @@ def aa_packed_from_flax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     attn = EdgeAttention(D, 1)  # the head count shapes no parameter
     attn.load_state_dict(params_from_flax(tree["attn"]))
     return pack_aa_params(SimpleNamespace(nbr_embed=nbr, attn=attn))
+
+
+def _optax_states(node: Any):
+    """The states of an optax chain, depth first (plain tuples are chains,
+    named tuples states; ``MaskedState`` nests its own under
+    ``inner_state``)."""
+    if isinstance(node, tuple) and not hasattr(node, "_fields"):
+        for child in node:
+            yield from _optax_states(child)
+        return
+    yield node
+    inner = getattr(node, "inner_state", None)
+    if inner is not None:
+        yield from _optax_states(inner)
+
+
+def adamw_state_from_optax(opt_state: Any, model: torch.nn.Module,
+                           optimizer: torch.optim.Optimizer) -> Tuple[dict, int]:
+    """The JAX package's ``optax.adamw`` state
+    (``trajsde_tpu/train/optim.py``: ``scale_by_adam``, the masked or plain
+    weight decay, ``scale_by_learning_rate`` over the cosine schedule; its
+    named tuples with numpy or array leaves) -> (a ``state_dict`` for
+    ``optimizer``, the schedule's position for its ``LambdaLR``'s
+    ``last_epoch``).
+
+    ``ScaleByAdamState``'s ``mu`` / ``nu`` become each parameter's
+    ``exp_avg`` / ``exp_avg_sq`` (flax kernels transposed, as
+    :func:`params_from_flax` does) and its ``count`` the ``step``; the
+    schedule's ``count`` is the position (the adam count when the chain
+    keeps none).  The weight-decay mask carries no numbers: ``optimizer``,
+    built by ``train/optim.py`` from the same config, holds it in its
+    groups, whose hyperparameters are kept."""
+    adam = sched = None
+    for node in _optax_states(opt_state):
+        fields = getattr(node, "_fields", ())   # a named tuple's, not tuple.count
+        if "mu" in fields and "nu" in fields:
+            adam = node
+        elif "count" in fields:
+            sched = node
+    if adam is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in the optax state")
+    count = int(np.asarray(adam.count))
+    mu, nu = params_from_flax(adam.mu), params_from_flax(adam.nu)
+    names = {id(p): n for n, p in model.named_parameters()}
+    out = optimizer.state_dict()
+    state, i = {}, 0
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            name = names[id(p)]
+            if tuple(mu[name].shape) != tuple(p.shape):
+                raise ValueError(f"optax moment of {name!r} has shape {tuple(mu[name].shape)}, "
+                                 f"the parameter {tuple(p.shape)}")
+            state[i] = {"step": torch.tensor(float(count)),
+                        "exp_avg": mu[name].to(p.dtype), "exp_avg_sq": nu[name].to(p.dtype)}
+            i += 1
+    missing = set(mu) - set(names.values())
+    if missing:
+        raise ValueError(f"optax moments without a parameter in the model: {sorted(missing)}")
+    out["state"] = state
+    position = count if sched is None else int(np.asarray(sched.count))
+    return out, position
 
 
 def params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:

@@ -24,6 +24,9 @@ baseline, ``configs/nusargo/hivt_nuSArgo_trmenc_mlpdec.yml`` (a transformer
 temporal encoder and a one-shot MLP decoder, no SDE), and
 ``BASELINE_TRAIN`` the same with ``encoder.fused: true`` (K3 and K4 at the
 baseline's 4 heads on the card; their plain versions on the CPU).
+``FLAGSHIP_CAPPED`` is ``configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec_tpu_fast.yml``
+(the dense AA block with ``neighbor_cap: 24``) with its three
+``dtype: bfloat16`` set to ``float32``.
 """
 from __future__ import annotations
 
@@ -127,6 +130,13 @@ FLAGSHIP_TRAIN_FUSED["encoder"]["kwargs"]["fused"] = True
 # worker count, as configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec_h100.yml
 FLAGSHIP_H100: Dict[str, Any] = copy.deepcopy(FLAGSHIP_TRAIN_FUSED)
 FLAGSHIP_H100["datamodule_specific"]["kwargs"]["num_workers"] = 2
+
+# the _tpu_fast recipe in f32: each receiver's 24 nearest in-radius senders
+# on the dense AA path (bf16 is not ported yet: ROADMAP.md Queue 1 item 6)
+FLAGSHIP_CAPPED: Dict[str, Any] = copy.deepcopy(FLAGSHIP)
+FLAGSHIP_CAPPED["encoder"]["kwargs"].update(dtype="float32", neighbor_cap=24)
+FLAGSHIP_CAPPED["aggregator"]["kwargs"]["dtype"] = "float32"
+FLAGSHIP_CAPPED["decoder"]["kwargs"]["dtype"] = "float32"
 
 
 # the HiVT baseline (transformer temporal encoder, one-shot MLP decoder):

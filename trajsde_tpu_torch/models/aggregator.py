@@ -37,7 +37,8 @@ class GlobalInteractor(nn.Module):
         super().__init__()
         if dtype not in (None, "float32", torch.float32):
             raise NotImplementedError(
-                f"dtype={dtype!r}: reduced-precision configs are not ported yet"
+                f"dtype={dtype!r}: reduced-precision configs are not ported yet "
+                "(ROADMAP.md Queue 1 item 6)"
             )
         D = embed_dim
         self.historical_steps = historical_steps

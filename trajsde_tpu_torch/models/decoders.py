@@ -102,7 +102,8 @@ class SDEDecoder(nn.Module):
             )
         if dtype not in (None, "float32", torch.float32):
             raise NotImplementedError(
-                f"dtype={dtype!r}: reduced-precision configs are not ported yet"
+                f"dtype={dtype!r}: reduced-precision configs are not ported yet "
+                "(ROADMAP.md Queue 1 item 6)"
             )
         D = local_channels
         self.local_channels = D

@@ -7,6 +7,8 @@ package.  The query and key sets may differ (Aq = A + 1 in the SDE
 encoder, whose focal-agent twin is a query row only).  ``fused=True``
 runs the AA block's pair chain through kernel K3, and its gradient through
 kernel K4 (:mod:`trajsde_tpu_torch.ops.aa_fused`), with the same parameters.
+``neighbor_cap=K`` gathers each receiver's K nearest in-radius senders
+before the dense pair chain, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -34,6 +36,16 @@ class AAEncoder(nn.Module):
     ``nbr_embed`` / ``attn`` / ``norm1`` submodules), so weights and
     checkpoints serve both paths.  ``input_diff=False`` keeps the centre
     embedding where ``bos_q`` is set instead of substituting the bos token.
+
+    ``0 < neighbor_cap < Ak`` (dense path only) gathers each receiver's
+    ``neighbor_cap`` nearest in-radius senders into [B, Th, Aq, K] before
+    the pair chain: exact while no receiver has more in-radius senders
+    than the cap, else the farthest extras drop.  Of equally far senders
+    the lower index is kept, as ``lax.top_k`` keeps it.  Each capped
+    forward sets ``aa_overflow_edges``, the dropped edges as a 0-dim
+    tensor on the device (JAX sows it to ``diagnostics``); an uncapped
+    forward leaves it None.  Nothing reads it on the host unless the
+    caller does.
     """
 
     def __init__(self, historical_steps: int, embed_dim: int, num_heads: int,
@@ -42,12 +54,10 @@ class AAEncoder(nn.Module):
         super().__init__()
         if fused and neighbor_cap:
             raise NotImplementedError("neighbor_cap applies to the dense pair chain (fused=False)")
-        if neighbor_cap:
-            raise NotImplementedError(
-                "neighbor_cap > 0 (the neighbour-capped AA gather) is not ported yet"
-            )
         D = embed_dim
         self.fused = fused
+        self.neighbor_cap = int(neighbor_cap)
+        self.aa_overflow_edges: Optional[torch.Tensor] = None
         self.input_diff = input_diff
         self.bos_token = nn.Parameter(torch.zeros(historical_steps, D))
         self.center_embed = SingleInputEmbedding(node_dim, D)
@@ -67,16 +77,37 @@ class AAEncoder(nn.Module):
                 self.bos_token[None, :, None, :].to(center.dtype),
                 center,
             )
+        self.aa_overflow_edges = None
         if self.fused:
             center = center + self._fused_block(center, x_k, rot_q, mask, edge_vec, generator)
         else:
+            if 0 < self.neighbor_cap < mask.shape[-1]:
+                x_k_per_q, mask, edge_vec = self._nearest(x_k, mask, edge_vec)
+                x_k_local = torch.einsum("btqkj,bqji->btqki", x_k_per_q, rot_q)
+            else:
+                x_k_local = torch.einsum("btkj,bqji->btqki", x_k, rot_q)
             # per-pair neighbour embedding rotated into the RECEIVER frame
-            x_k_local = torch.einsum("btkj,bqji->btqki", x_k, rot_q)
             edge_local = torch.einsum("btqkj,bqji->btqki", edge_vec, rot_q)
             nbr = self.nbr_embed([x_k_local, edge_local])
             center = center + self.attn(self.norm1(center), mask, kv_pair=nbr,
                                         generator=generator)
         return center + self.mlp(self.norm2(center), generator)
+
+    def _nearest(self, x_k, mask, edge_vec):
+        """Each receiver's ``neighbor_cap`` nearest in-radius senders:
+        (x_k [B, Th, Aq, K, 2], mask [B, Th, Aq, K], edge_vec
+        [B, Th, Aq, K, 2]); sets ``aa_overflow_edges``.  A stable
+        descending sort keeps the lower index among equal scores, which is
+        ``lax.top_k``'s order (``torch.topk`` promises none)."""
+        K = self.neighbor_cap
+        d2 = (edge_vec * edge_vec).sum(-1)
+        score = torch.where(mask, -d2, torch.full_like(d2, -torch.inf))
+        idx = torch.sort(score, dim=-1, descending=True, stable=True)[1][..., :K]
+        self.aa_overflow_edges = (mask.sum(-1) - K).clamp_min(0).sum()
+        pair = idx[..., None].expand(idx.shape + (2,))
+        B, Th, Aq = mask.shape[:3]
+        x_k_per_q = torch.gather(x_k[:, :, None].expand(B, Th, Aq, -1, 2), 3, pair)
+        return x_k_per_q, torch.gather(mask, 3, idx), torch.gather(edge_vec, 3, pair)
 
     def _fused_block(self, center, x_k, rot_q, mask, edge_vec, generator):
         """EdgeAttention with its pair stage (neighbour embedding -> k/v ->
@@ -184,8 +215,8 @@ class LocalEncoder(nn.Module):
 
     Of the JAX module's knobs, ``rows_fwd`` / ``rows_bwd`` / ``ln_mm``
     (TPU tiling) and ``parallel`` (which means nothing there either) are
-    dropped by the config's builder; ``remat``, a reduced ``dtype`` and
-    ``neighbor_cap`` raise."""
+    dropped by the config's builder; ``remat`` and a reduced ``dtype``
+    raise.  ``neighbor_cap`` caps the dense AA block (:class:`AAEncoder`)."""
 
     def __init__(self, historical_steps: int, embed_dim: int, num_heads: int = 4,
                  dropout: float = 0.1, num_temporal_layers: int = 4,
@@ -203,15 +234,11 @@ class LocalEncoder(nn.Module):
                 f"dtype={dtype!r}: reduced-precision configs are not ported yet "
                 "(ROADMAP.md Queue 1 item 6)"
             )
-        if neighbor_cap:
-            raise NotImplementedError(
-                "neighbor_cap > 0 (the neighbour-capped AA gather) is not ported yet "
-                "(ROADMAP.md Queue 1 item 7)"
-            )
         self.historical_steps = historical_steps
         self.local_radius = float(local_radius)
         self.aa_encoder = AAEncoder(historical_steps, embed_dim, num_heads, node_dim, edge_dim,
-                                    dropout, fused=fused, input_diff=input_diff)
+                                    dropout, fused=fused, neighbor_cap=neighbor_cap,
+                                    input_diff=input_diff)
         self.temporal_encoder = TemporalEncoder(historical_steps, embed_dim, num_heads,
                                                 num_temporal_layers, dropout)
         self.al_encoder = ALEncoder(embed_dim, num_heads, node_dim, edge_dim, dropout)

@@ -134,7 +134,8 @@ class LocalEncoderSDESep(nn.Module):
             )
         if dtype not in (None, "float32", torch.float32):
             raise NotImplementedError(
-                f"dtype={dtype!r}: reduced-precision configs are not ported yet"
+                f"dtype={dtype!r}: reduced-precision configs are not ported yet "
+                "(ROADMAP.md Queue 1 item 6)"
             )
         self.historical_steps = historical_steps
         self.embed_dim = embed_dim

@@ -7,22 +7,44 @@ temporary directory that is renamed into place, so a crash never leaves a
 half-written checkpoint under its final name.  ``leaderboard.json`` keeps
 the entries; pruning keeps the ``save_top_k`` best by the monitored metric
 (``mode`` min or max) and, with ``keep_last``, the newest.
+
+``async_save=True`` overlaps the file write with training: ``save`` copies
+the state to host memory (``state_dict()`` hands out the live tensors,
+which the next ``optimizer.step()`` changes in place) and returns, and a
+writer thread writes and renames the directory.  Its board entry lands
+only once the write has: the next save, ``wait()``, ``best()``,
+``latest()`` and the restores land it first, so the board never lists a
+directory still being written and ``_prune`` never deletes one.  A save
+with ``wait=True`` (the trainer's preemption save) is synchronous.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
-from typing import Optional
+import threading
+from typing import Any, Optional
 
 import torch
 
 STATE_FILE = "state.pt"
 
 
+def host_copy(obj: Any) -> Any:
+    """``obj`` with every tensor copied to host memory (a new tensor even
+    when it is on the CPU already), dicts, lists and tuples rebuilt."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(host_copy(v) for v in obj)
+    return obj
+
+
 class CheckpointManager:
     def __init__(self, directory: str, save_top_k: int = 5, mode: str = "min",
-                 keep_last: bool = True):
+                 keep_last: bool = True, async_save: bool = False):
         if mode not in ("min", "max"):
             raise ValueError(f"mode must be 'min' or 'max', got {mode!r}")
         self.directory = os.path.abspath(directory)
@@ -30,6 +52,9 @@ class CheckpointManager:
         self.save_top_k = save_top_k
         self.mode = mode
         self.keep_last = keep_last
+        self.async_save = async_save
+        # (writer thread, board entry, [the writer's error]) of the save in flight
+        self._pending: Optional[tuple] = None
         self._board_path = os.path.join(self.directory, "leaderboard.json")
         self._board = self._load_board()
         # an interrupted prune (rmtree before the board rewrite) can leave
@@ -55,30 +80,70 @@ class CheckpointManager:
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"step_{step:08d}")
 
-    def save(self, state, metric: Optional[float], step: int) -> str:
+    def save(self, state, metric: Optional[float], step: int, wait: bool = False) -> str:
         """Write ``state`` (a ``TrainState``) as step ``step`` with its
-        monitored ``metric`` (None: unscored), then prune."""
+        monitored ``metric`` (None: unscored), then prune; with
+        ``async_save`` and not ``wait``, the write and the board entry
+        follow on the writer thread (see the module's docstring)."""
+        self._flush_pending()
         path = self._path(step)
-        tmp = f"{path}.tmp"
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        torch.save({
+        payload = host_copy({
             "model": state.model.state_dict(),
             "optimizer": state.optimizer.state_dict(),
             "scheduler": state.scheduler.state_dict(),
             "step": int(state.step),
             "seed": int(state.seed),
-        }, os.path.join(tmp, STATE_FILE))
+        })
+        entry = {"step": int(step), "metric": metric, "path": path}
+        if wait or not self.async_save:
+            self._write(payload, path)
+            self._land(entry)
+            return path
+        error: list = []
+
+        def writer():
+            try:
+                self._write(payload, path)
+            except BaseException as e:  # re-raised where the save lands
+                error.append(e)
+
+        thread = threading.Thread(target=writer, name="checkpoint-writer")
+        thread.start()
+        self._pending = (thread, entry, error)
+        return path
+
+    @staticmethod
+    def _write(payload: dict, path: str) -> None:
+        tmp = f"{path}.tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save(payload, os.path.join(tmp, STATE_FILE))
         if os.path.exists(path):
-            # re-reaching a step (a resumed run) replaces the stale save and
-            # its entry: its metric belongs to other weights
+            # re-reaching a step (a resumed run) replaces the stale save
             shutil.rmtree(path)
-            self._board = [e for e in self._board if e["path"] != path]
         os.rename(tmp, path)
-        self._board.append({"step": int(step), "metric": metric, "path": path})
+
+    def _land(self, entry: dict) -> None:
+        # a stale entry of the same directory goes: its metric belongs to
+        # other weights
+        self._board = [e for e in self._board if e["path"] != entry["path"]]
+        self._board.append(entry)
         self._prune()
         self._write_board()
-        return path
+
+    def _flush_pending(self) -> None:
+        if self._pending is None:
+            return
+        thread, entry, error = self._pending
+        thread.join()
+        self._pending = None
+        if error:
+            raise error[0]
+        self._land(entry)
+
+    def wait(self) -> None:
+        """Block until an asynchronous save has landed, board entry included."""
+        self._flush_pending()
 
     def _prune(self) -> None:
         scored = [e for e in self._board if e["metric"] is not None]
@@ -92,12 +157,14 @@ class CheckpointManager:
                 shutil.rmtree(entry["path"], ignore_errors=True)
 
     def best(self) -> Optional[dict]:
+        self._flush_pending()
         scored = [e for e in self._board if e["metric"] is not None]
         if not scored:
             return None
         return (min if self.mode == "min" else max)(scored, key=lambda e: e["metric"])
 
     def latest(self) -> Optional[dict]:
+        self._flush_pending()
         return self._board[-1] if self._board else None
 
     @staticmethod
@@ -110,6 +177,7 @@ class CheckpointManager:
     def restore(self, state, path: Optional[str] = None):
         """Full resume: model, optimizer, scheduler, step and seed of the
         checkpoint at ``path`` (default: the latest) into ``state``."""
+        self._flush_pending()   # the save of this path may be in flight
         if path is None:
             entry = self.latest()
             if entry is None:
@@ -128,6 +196,7 @@ class CheckpointManager:
         """Weights-only warm start: the checkpoint's model weights into
         ``model``; a leaf of another shape raises instead of being
         reinterpreted."""
+        self._flush_pending()
         weights = self._read(path, next(model.parameters()).device)["model"]
         own = model.state_dict()
         for name, value in weights.items():

@@ -1,13 +1,14 @@
 """Training and evaluation loops (``trajsde_tpu/train/loop.py``).
 
 A train step is one eager forward in training mode, the weighted loss sum,
-one backward and one AdamW + schedule step.  Every step's randomness
-derives on the host from ``(seed, step)`` through ``mix_seed``: a
-``torch.Generator`` on the device seeded with it draws the encoder's noise
-and the dropout masks, and a fused decoder's rollout kernel takes the same
-value as its seed.  So a run resumed from a checkpoint draws what the
-uninterrupted run would have drawn, and no step reads a device scalar to
-seed anything.
+one backward and one AdamW + schedule step; with gradient accumulation it
+is a forward and a backward per micro-batch, then one update on the mean
+gradient.  Every step's randomness derives on the host from
+``(seed, step)`` through ``mix_seed``: a ``torch.Generator`` on the device
+seeded with it draws the encoder's noise and the dropout masks, and a
+fused decoder's rollout kernel takes the same value as its seed.  So a
+run resumed from a checkpoint draws what the uninterrupted run would have
+drawn, and no step reads a device scalar to seed anything.
 
 ``Trainer.fit`` and ``Trainer.evaluate`` take their batches through
 :func:`device_prefetch`, which strips, stages and copies each batch to the
@@ -25,7 +26,7 @@ import queue
 import signal
 import threading
 import time
-from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -81,50 +82,103 @@ def agent_slices(scene: SceneBatch, output: Dict[str, torch.Tensor], is_gtabs: b
     return pred, target, reg_mask, scene.source
 
 
+def micro_seeds(s: int, n: int) -> List[int]:
+    """The seeds of the ``n`` micro-batches of an update whose seed is
+    ``s``: ``s`` itself for one, else ``mix_seed(s, 2 + i)`` for micro-batch
+    ``i`` (past the 1 that ``ts_drop`` folds in), as the JAX package folds
+    the micro index into the step's keys."""
+    return [s] if n == 1 else [mix_seed(s, 2 + i) for i in range(n)]
+
+
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, scheduler,
                     losses: List[Tuple[str, float, Callable]], device,
                     ts_drop_rate: float = 0.0) -> Callable:
-    """``train_step(scene, step, seed) -> logs``: ``train/<loss>`` values,
+    """``train_step(scenes, step, seed) -> logs``: ``train/<loss>`` values,
     ``train/total`` and ``train/step_skipped``.
+
+    ``scenes`` is a ``SceneBatch``, or a sequence of them: the micro-batches
+    of one gradient-accumulation group (``trajsde_tpu/train/loop.py``'s
+    ``accum_steps``).  Each micro-batch runs its own forward and backward
+    into ``.grad``, so activation memory is one micro-batch's; then the
+    gradients are scaled by one over the group's size, and the optimizer
+    and the schedule step once.  The loss and the logs are the mean over
+    the micro-batches.  Micro-batch ``i`` draws from its own seed
+    (:func:`micro_seeds`).
 
     ``ts_drop_rate > 0`` drops historical steps (:func:`ts_drop`) with a
     mask drawn on the device from a generator of its own, seeded with
-    ``mix_seed(s, 1)`` of the step's seed ``s`` (the JAX package folds the
-    dropout key with 1), so the encoder's noise and the dropout masks draw
-    what they draw without it.
+    ``mix_seed(s, 1)`` of the micro-batch's seed ``s`` (the JAX package
+    folds the dropout key with 1), so the encoder's noise and the dropout
+    masks draw what they draw without it.
 
     NaN guard: when the loss or any gradient is non-finite, neither the
     optimizer nor the schedule steps, so the parameters and the AdamW
     moments stay as they were, and ``train/step_skipped`` is 1.  Deciding
-    that reads one bool from the device per step.
+    that reads one bool from the device per update.
     """
     params = [p for p in model.parameters() if p.requires_grad]
 
-    def train_step(scene: SceneBatch, step: int, seed: int) -> Dict[str, Any]:
-        model.train()
-        gen, s = step_generator(device, seed, step)
+    def micro_loss(scene: SceneBatch, s: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        gen = torch.Generator(device=device).manual_seed(s)
         if ts_drop_rate:
             scene = ts_drop(scene, ts_drop_rate,
                             torch.Generator(device=device).manual_seed(mix_seed(s, 1)))
-        optimizer.zero_grad(set_to_none=True)
         out = model(scene, generator=gen, rollout_seed=s)
         total, logs = 0.0, {}
         for name, weight, fn in losses:
             value = fn(out["y"], out)
             total = total + weight * value
             logs[f"train/{name}"] = value.detach()
-        total.backward()
+        return total, logs
+
+    def train_step(scenes: Union[SceneBatch, Sequence[SceneBatch]], step: int,
+                   seed: int) -> Dict[str, Any]:
+        micro = [scenes] if isinstance(scenes, SceneBatch) else list(scenes)
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        totals, micro_logs = [], []
+        for scene, s in zip(micro, micro_seeds(mix_seed(seed, step), len(micro))):
+            total, logs = micro_loss(scene, s)
+            total.backward()
+            totals.append(total.detach())
+            micro_logs.append(logs)
+        if len(micro) > 1:
+            inv = 1.0 / len(micro)   # the group's actual size: a trailing group may be short
+            for p in params:
+                if p.grad is not None:
+                    p.grad.mul_(inv)
+            total = torch.stack(totals).mean()
+            logs = {k: torch.stack([m[k] for m in micro_logs]).mean() for k in micro_logs[0]}
+        else:
+            total, logs = totals[0], micro_logs[0]
         finite = [torch.isfinite(total)] + [torch.isfinite(p.grad).all()
                                             for p in params if p.grad is not None]
         ok = bool(torch.stack(finite).all())
         if ok:
             optimizer.step()
             scheduler.step()
-        logs["train/total"] = total.detach()
+        logs["train/total"] = total
         logs["train/step_skipped"] = 0.0 if ok else 1.0
         return logs
 
     return train_step
+
+
+def group_microbatches(batches: Iterable[SceneBatch], k: int) -> Iterator[List[SceneBatch]]:
+    """``k`` batches of one layout at a time (``trajsde_tpu/train/loop.py``'s
+    ``group_microbatches``): batches are buffered by the shape of every
+    field, so a bucketing loader's mixed (A, L) shapes group with their own
+    kind, and a group is yielded when it is full; at the end each partial
+    group still trains.  The port keeps a group as a list (each micro-batch
+    runs its own forward), where JAX stacks it on a leading axis."""
+    buffers: Dict[tuple, List[SceneBatch]] = {}
+    for batch in batches:
+        key = tuple(None if (v := getattr(batch, f.name)) is None else tuple(v.shape)
+                    for f in dataclasses.fields(batch))
+        buffers.setdefault(key, []).append(batch)
+        if len(buffers[key]) == k:
+            yield buffers.pop(key)
+    yield from buffers.values()
 
 
 def make_eval_step(model: nn.Module, metrics, is_gtabs: bool = True, device="cuda") -> Callable:
@@ -275,8 +329,16 @@ class Trainer:
     waited for its batch.  ``profiler`` (a ``ProfilerHook``) hears of each
     step before it runs.
 
+    ``accum_steps = K > 1`` accumulates gradients: the batches the feed
+    brings are grouped K at a time by :func:`group_microbatches`, and each
+    group is one optimizer update (``state.step`` counts updates; size the
+    schedule on ``ceil(batches / K)`` updates an epoch).  Checkpoints go
+    through ``checkpointer.save``; an asynchronous one
+    (``CheckpointManager(async_save=True)``) has landed when ``fit``
+    returns.
+
     Preemption: SIGTERM or SIGINT sets a flag; the
-    step in flight finishes, then ``fit`` saves an unscored checkpoint,
+    update in flight finishes, then ``fit`` saves an unscored checkpoint,
     logs ``preempted`` and returns, so a ``--ckpt`` resume loses at most a
     step.  A signal during the val pass ends it and saves unscored rather
     than score a partial pass.  A second SIGINT raises
@@ -296,6 +358,7 @@ class Trainer:
     log_every: int = 1
     ts_drop_rate: float = 0.0
     profiler: Optional[Any] = None
+    accum_steps: int = 1
     epoch_logs: List[Dict[str, float]] = dataclasses.field(default_factory=list)
     preempted: bool = dataclasses.field(default=False, init=False)
 
@@ -345,9 +408,14 @@ class Trainer:
                 return None
             raise
 
+    def _feed(self, feed: Iterator[SceneBatch]) -> Iterator[SceneBatch]:
+        while (scene := self._next(feed)) is not None:
+            yield scene
+
     def _emergency_stop(self, state: TrainState) -> TrainState:
         if self.checkpointer is not None:
-            self.checkpointer.save(state, metric=None, step=state.step)
+            # synchronous: the process is about to end
+            self.checkpointer.save(state, metric=None, step=state.step, wait=True)
         if self.logger is not None:
             self.logger.log_scalars(state.step, {"preempted": 1.0})
         return state
@@ -373,18 +441,19 @@ class Trainer:
                 n_steps = scenes = 0
                 skipped = wait = 0.0
                 with contextlib.closing(device_prefetch(train_batches(), dev)) as feed:
+                    groups = group_microbatches(self._feed(feed), max(1, self.accum_steps))
                     while True:
                         t_wait = time.perf_counter()
-                        scene = self._next(feed)
+                        group = next(groups, None)
                         wait += time.perf_counter() - t_wait
-                        if scene is None:
+                        if group is None:
                             break
                         if self.profiler is not None:
                             self.profiler.on_step(state.step + 1)
-                        logs = train_step(scene, state.step, state.seed)
+                        logs = train_step(group, state.step, state.seed)
                         state.step += 1
                         n_steps += 1
-                        scenes += scene.x.shape[0]
+                        scenes += sum(scene.x.shape[0] for scene in group)
                         skipped += logs["train/step_skipped"]
                         if self.logger is not None and state.step % self.log_every == 0:
                             self._log_step(state.step,
@@ -419,6 +488,8 @@ class Trainer:
             self._restore_handlers(previous)
             if self.profiler is not None:
                 self.profiler.stop()
+            if self.checkpointer is not None:
+                self.checkpointer.wait()   # land an asynchronous save
         return state
 
     def evaluate(self, state: TrainState, batches: Callable[[], Iterable[SceneBatch]]
