@@ -168,6 +168,20 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      with ``--accum 2 --async-ckpt`` on I's npz files: K1-K4 once per
      micro-batch, ceil(batches / 2) updates, the checkpoint on the board
      after the run, and ``--ckpt`` resumes it for one more epoch.
+  N. bf16 mixed precision (after M), batch 128, 48 / 192, seeded weights
+     shared with the f32 models.  N1: ``FLAGSHIP_BF16``
+     (``configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec_tpu.yml``) served
+     through ``engine="kernel"`` at bucket 128 launches K1 once (the bf16
+     fuse cast to f32 rows); loc and pi are finite f32 and mean|pi| is
+     within ``TOL_BF16_PI`` of ``FLAGSHIP``'s; the bf16 loc's distance from
+     the f32 one with pinned noise is printed.  N2: ``FLAGSHIP_BF16`` with
+     the fused decoder takes BF16_STEPS train steps, K1 and K2 once each
+     per step, finite losses, every parameter, gradient and AdamW moment
+     f32.  N3: ``FLAGSHIP_BF16_CAPPED`` (the ``_tpu_fast`` YAML as written,
+     cap 24) with the fused decoder on M1's scenes: ``aa_overflow_edges``
+     equals M1's count, then its train steps as N2's.  Each path is timed
+     in turns with its f32 counterpart (``FLAGSHIP``, ``FLAGSHIP_TRAIN``,
+     ``FLAGSHIP_CAPPED`` with the fused decoder), with peak memory.
 Phases 4, B, C and 7 check that K4 never launches on their paths, and the
 serving and training phases that K5 and K6 never do.
 The last lines are the card, a JSON object per kernel and the device line.
@@ -191,10 +205,11 @@ import urllib.request
 import numpy as np
 import torch
 
-from trajsde_tpu_torch.config import (BASELINE, BASELINE_TRAIN, FLAGSHIP, FLAGSHIP_CAPPED,
-                                      FLAGSHIP_FUSED, FLAGSHIP_H100, FLAGSHIP_TRAIN,
-                                      FLAGSHIP_TRAIN_FUSED, build_datamodule, build_losses,
-                                      build_metrics, build_model)
+from trajsde_tpu_torch.config import (BASELINE, BASELINE_TRAIN, FLAGSHIP, FLAGSHIP_BF16,
+                                      FLAGSHIP_BF16_CAPPED, FLAGSHIP_CAPPED, FLAGSHIP_FUSED,
+                                      FLAGSHIP_H100, FLAGSHIP_TRAIN, FLAGSHIP_TRAIN_FUSED,
+                                      build_datamodule, build_losses, build_metrics,
+                                      build_model)
 from trajsde_tpu_torch.data.pack import pack_scenes, pick_bucket
 from trajsde_tpu_torch.data.shards import convert_npz_dir
 from trajsde_tpu_torch.data.synthetic import make_raw_scene
@@ -318,6 +333,12 @@ BASELINE_STEPS, BASELINE_SCENES, BASELINE_SINGLES = 3, 512, 20
 CAP = 24
 TOL_CAPPED = 1e-5
 CAPPED_ROUNDS, ACCUM_BATCH, SAVE_ROUNDS = 2, 64, 3
+# phase N: bf16 mean|pi| against the f32 model's on the same weights and
+# scenes, relative (the JAX package's own statistic for its bf16 model,
+# tests/test_models_forward.py), the train steps each bf16 path takes, and
+# the rounds of its turns against f32
+TOL_BF16_PI = 0.15
+BF16_STEPS, BF16_ROUNDS = 3, 3
 # H100 SXM published peaks (dense): f32 on CUDA cores, TF32 and f64 on the
 # tensor cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -2485,6 +2506,206 @@ def phase_accum(d: str, card: str) -> dict:
     return out
 
 
+def _fused_decoder(cfg):
+    cfg = copy.deepcopy(cfg)
+    cfg["decoder"]["kwargs"]["fused"] = True
+    return cfg
+
+
+def _bf16_pair(cfg16, cfg32):
+    """The bf16 model of ``cfg16`` and the f32 model of ``cfg32``, one
+    seeded init (parameters are f32 in both)."""
+    m16 = build_model(cfg16, device="cuda", seed=SEED)
+    m32 = build_model(cfg32, device="cuda", seed=SEED)
+    a, b = m16.state_dict(), m32.state_dict()
+    check(list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
+          and all(v.dtype == torch.float32 for v in a.values()),
+          "the bf16 and the f32 model do not share one f32 parameter tree")
+    check(m16.encoder.compute_dtype is torch.bfloat16 and m32.encoder.compute_dtype is None,
+          "the models' compute dtypes are not bf16 and f32")
+    return m16, m32
+
+
+def _in_turns(fns: dict, runs: int = 3) -> tuple:
+    """CUDA-event medians of each of ``fns`` in BF16_ROUNDS alternating
+    rounds, and each one's peak device memory (GiB)."""
+    times, peaks = {k: [] for k in fns}, {}
+    for _ in range(BF16_ROUNDS):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times[k].append(cuda_ms(fn, runs=runs, warmup=1))
+            peaks[k] = torch.cuda.max_memory_allocated() / 2**30
+    return times, peaks
+
+
+def _print_turns(card: str, what: str, times: dict, peaks: dict) -> None:
+    print(f"[bf16] {card}: {what}: " + "; ".join(
+        f"{k} " + ", ".join(f"{t:.2f}" for t in v) + f" ms, peak {peaks[k]:.2f} GiB"
+        for k, v in times.items()) + f" (CUDA events, medians of 3, {BF16_ROUNDS} rounds in "
+        "turns)", flush=True)
+
+
+def _all_f32(model, optimizer) -> bool:
+    moments = [v for st in optimizer.state.values() for k, v in st.items()
+               if k in ("exp_avg", "exp_avg_sq")]
+    return bool(moments) and all(m.dtype == torch.float32 for m in moments) and all(
+        p.dtype == torch.float32 and (p.grad is None or p.grad.dtype == torch.float32)
+        for p in model.parameters())
+
+
+def _bf16_steps(tag: str, cfg, model, scene) -> tuple:
+    """BF16_STEPS train steps of ``model`` on ``scene``: K1 and K2 once per
+    step and K3-K6 never, finite losses, every parameter, gradient and AdamW
+    moment f32.  Returns (the first step's launches, the step function)."""
+    state = create_train_state(model, cfg["training_specific"], steps_per_epoch=1, seed=SEED)
+    step = make_train_step(model, state.optimizer, state.scheduler, build_losses(cfg),
+                           torch.device("cuda"))
+    want = {"sde_rollout": 1, "sde_rollout_bwd": 1, "aa_fused": 0, "aa_fused_bwd": 0,
+            "aa_attention": 0, "vpu_probe": 0}
+    totals, first = [], None
+    for i in range(BF16_STEPS):
+        zero_counts()
+        logs = step(scene, i, SEED)
+        launches = _counts()
+        first = first or launches
+        totals.append(float(logs["train/total"]))
+        check(launches == want, f"[{tag}] train step {i} launched {launches}, not K1 and K2 once")
+        check(np.isfinite(totals[-1]) and logs["train/step_skipped"] == 0.0,
+              f"[{tag}] non-finite train step {i}")
+    check(_all_f32(model, state.optimizer),
+          f"[{tag}] a parameter, gradient or AdamW moment is not f32 after the steps")
+    print(f"[{tag}] {BF16_STEPS} train steps at batch {TRAIN_BATCH}: loss "
+          + " ".join(f"{x:.4f}" for x in totals) + f", launches each {first}; every parameter, "
+          "gradient and AdamW moment f32", flush=True)
+    counter = [BF16_STEPS]
+
+    def again():
+        step(scene, counter[0], SEED)
+        counter[0] += 1
+
+    return first, again
+
+
+def phase_bf16(card: str, capped_overflow: int) -> dict:
+    """N. bf16 mixed precision at the published widths, batch 128, 48 / 192.
+    N1: ``FLAGSHIP_BF16`` (``configs/nusargo/*_tpu.yml``) served through
+    ``engine="kernel"`` at bucket 128: K1 once per batch (the bf16 fuse cast
+    to f32 rows), loc and pi f32 and finite, mean|pi| within TOL_BF16_PI of
+    ``FLAGSHIP``'s on the same weights, scenes and draws; the bf16 loc's distance
+    from the f32 one with pinned noise through the models' own forward (the
+    scan engine's); served bucket 128 in turns against f32.  N2:
+    ``FLAGSHIP_BF16`` with the fused decoder, BF16_STEPS train steps: K1 and
+    K2 once each per step, finite losses, parameters, gradients and AdamW
+    moments f32; the step in turns against ``FLAGSHIP_TRAIN``'s.  N3:
+    ``FLAGSHIP_BF16_CAPPED`` as written (cap 24, dense AA) with the fused
+    decoder on phase M1's scenes: ``aa_overflow_edges`` equals M1's count
+    (the cap's scores are f32 geometry in both), then the forward and the
+    train steps, each in turns against ``FLAGSHIP_CAPPED``'s."""
+    t_phase = time.perf_counter()
+    out = {}
+    # N1: serving
+    m16, m32 = _bf16_pair(FLAGSHIP_BF16, FLAGSHIP)
+    engine = ServingEngine(m16, num_actors=NUM_ACTORS, num_lanes=NUM_LANES, device="cuda",
+                           engine="kernel", seed=SEED)
+    requests = _requests(np.random.default_rng(SEED))[TRAIN_BATCH]
+    engine.predict(requests[:1])
+    zero_counts()
+    results = engine.predict(requests)
+    served = _counts()
+    engine.close()
+    _check_results(results, TRAIN_BATCH, m16)
+    check(served == {"sde_rollout": 1, "sde_rollout_bwd": 0, "aa_fused": 0, "aa_fused_bwd": 0,
+                     "aa_attention": 0, "vpu_probe": 0},
+          f"the bf16 engine's bucket {TRAIN_BATCH} launched {served}, not K1 once")
+    scene = _train_batch(np.random.default_rng(SEED + 41), TRAIN_BATCH).to("cuda")
+    serve16, serve32 = make_serving_fn(m16, "cuda"), make_serving_fn(m32, "cuda")
+    # one generator state for both encoders' draws (bf16 draws them in bf16)
+    o16, o32 = (serve(scene, SEED, generator=torch.Generator(device="cuda").manual_seed(SEED + 43))
+                for serve in (serve16, serve32))
+    for k in ("loc", "pi"):
+        check(o16[k].dtype == torch.float32 and bool(torch.isfinite(o16[k]).all()),
+              f"the bf16 model's served {k} is not finite f32")
+    pi16, pi32 = float(o16["pi"].abs().mean()), float(o32["pi"].abs().mean())
+    pi_rel = abs(pi16 - pi32) / pi32
+    print(f"[bf16] N1 FLAGSHIP_BF16 through the kernel engine at bucket {TRAIN_BATCH}: "
+          f"launches {served}; mean|pi| {pi16:.5f} vs {pi32:.5f} in f32, relative {pi_rel:.4f} "
+          f"(tol {TOL_BF16_PI})", flush=True)
+    check(pi_rel <= TOL_BF16_PI, "the bf16 model's mean|pi| is not the f32 model's")
+    B, Th, D = TRAIN_BATCH, m16.encoder.historical_steps, m16.encoder.embed_dim
+    K, Tf = m16.decoder.num_modes, m16.decoder.future_steps
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    en = torch.randn((Th, B, NUM_ACTORS + 1, D), generator=gen, device="cuda")
+    tw = torch.randn((B, 1, Th, 2), generator=gen, device="cuda")
+    de = torch.randn((Tf, B, K, NUM_ACTORS, D), generator=gen, device="cuda")
+    with torch.inference_mode():
+        p16 = m16(scene, enc_noise=en, twin_noise=tw, dec_noise=de)
+        p32 = m32(scene, enc_noise=en, twin_noise=tw, dec_noise=de)
+    valid = ~scene.padding_mask[:, None, :, -Tf:, None].expand_as(p32["loc"])
+    d = (p16["loc"] - p32["loc"])[valid].abs()
+    ref = p32["loc"][valid].abs()
+    loc_max, loc_mean = float(d.max() / ref.max()), float(d.mean() / ref.mean())
+    print(f"[bf16] N1 pinned noise, the models' own forward (the scan engine's): bf16 loc vs "
+          f"f32, max|diff| / max|f32| {loc_max:.3e}, mean|diff| / mean|f32| {loc_mean:.3e} "
+          "over the valid steps", flush=True)
+    times, peaks = _in_turns({"bf16": lambda: serve16(scene, SEED),
+                              "f32": lambda: serve32(scene, SEED)})
+    _print_turns(card, f"served bucket {TRAIN_BATCH} (FLAGSHIP_BF16 vs FLAGSHIP, K1)", times,
+                 peaks)
+    out["serve"] = dict(launches=served, pi_rel=pi_rel, loc_max=loc_max, loc_mean=loc_mean,
+                        ms=times, peak_gib=peaks)
+    del engine, m16, m32, serve16, serve32, o16, o32, p16, p32
+    torch.cuda.empty_cache()
+
+    # N2: training with the fused decoder
+    m16, m32 = _bf16_pair(_fused_decoder(FLAGSHIP_BF16), FLAGSHIP_TRAIN)
+    batch = _train_batch(np.random.default_rng(SEED + 3), TRAIN_BATCH).to("cuda")
+    launches, step16 = _bf16_steps("bf16 train", _fused_decoder(FLAGSHIP_BF16), m16, batch)
+    _, step32 = _bf16_steps("f32 train", FLAGSHIP_TRAIN, m32, batch)
+    times, peaks = _in_turns({"bf16": step16, "f32": step32})
+    _print_turns(card, f"train step at batch {TRAIN_BATCH} (FLAGSHIP_BF16 + fused decoder vs "
+                 "FLAGSHIP_TRAIN, K1 + K2)", times, peaks)
+    out["train"] = dict(launches=launches, ms=times, peak_gib=peaks)
+    del m16, m32, step16, step32
+    torch.cuda.empty_cache()
+
+    # N3: the _tpu_fast YAML as written, on phase M1's scenes
+    cfg16 = _fused_decoder(FLAGSHIP_BF16_CAPPED)
+    m16, m32 = _bf16_pair(cfg16, _fused_decoder(FLAGSHIP_CAPPED))
+    scene = _train_batch(np.random.default_rng(SEED + 31), TRAIN_BATCH).to("cuda")
+    for m in (m16, m32):
+        m.eval()
+    with torch.no_grad():
+        f16 = m16(scene, rollout_seed=SEED)
+    counted = int(m16.encoder.aa_encoder.aa_overflow_edges)
+    check(all(f16[k].dtype == torch.float32 and bool(torch.isfinite(f16[k]).all())
+              for k in ("loc", "pi")), "non-finite bf16 capped forward")
+    print(f"[bf16] N3 FLAGSHIP_BF16_CAPPED (cap {CAP}, bf16): aa_overflow_edges {counted}, "
+          f"phase M1's count in f32 on the same scenes {capped_overflow}", flush=True)
+    check(counted == capped_overflow, "the bf16 cap dropped other edges than the f32 one")
+    launches_c, step16 = _bf16_steps("bf16 capped train", cfg16, m16, scene)
+    _, step32 = _bf16_steps("f32 capped train", _fused_decoder(FLAGSHIP_CAPPED), m32, scene)
+
+    def forward(m):
+        m.eval()
+        with torch.no_grad():
+            m(scene, rollout_seed=SEED)
+
+    times, peaks = _in_turns({"bf16 forward": lambda: forward(m16),
+                              "f32 forward": lambda: forward(m32)})
+    _print_turns(card, f"cap {CAP} forward at batch {TRAIN_BATCH} (FLAGSHIP_BF16_CAPPED vs "
+                 "FLAGSHIP_CAPPED, fused decoder)", times, peaks)
+    stimes, speaks = _in_turns({"bf16 step": lambda: (m16.train(), step16()),
+                                "f32 step": lambda: (m32.train(), step32())})
+    _print_turns(card, f"cap {CAP} train step at batch {TRAIN_BATCH}", stimes, speaks)
+    out["capped"] = dict(launches=launches_c, overflow_edges=counted,
+                         ms=dict(times, **stimes), peak_gib=dict(peaks, **speaks))
+    del m16, m32, step16, step32
+    torch.cuda.empty_cache()
+    print(f"[bf16] phase N: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
@@ -2538,6 +2759,8 @@ def main() -> None:
         torch.cuda.empty_cache()
         capped = phase_capped(card)
         accum = phase_accum(d, card)
+        torch.cuda.empty_cache()
+        bf16 = phase_bf16(card, capped["overflow_edges"])
     k3.update(baseline["k3"])
     k4.update(baseline["k4"])
     # launches: the count on the kernel's own main path (serving for K1,
@@ -2580,6 +2803,10 @@ def main() -> None:
         # phase M: a train step at cap 24, and the --accum 2 --async-ckpt CLI's epoch
         entry["launches_by_path"]["capped_train"] = capped["step_launches"][name]
         entry["launches_by_path"]["accum_cli_train"] = accum["cli_train"]["launches"][name]
+        # phase N: bf16 served at bucket 128, a bf16 train step, a bf16 step at cap 24
+        entry["launches_by_path"]["bf16_serve"] = bf16["serve"]["launches"][name]
+        entry["launches_by_path"]["bf16_train"] = bf16["train"]["launches"][name]
+        entry["launches_by_path"]["bf16_capped_train"] = bf16["capped"]["launches"][name]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches: {served} serving + "
           f"{served_fused} fused serving + {train['sde_rollout']} training + "
           f"{train_fused['sde_rollout']} fused-encoder training; K2 launches: "
@@ -2599,7 +2826,9 @@ def main() -> None:
                       f"{b['engine']['launches']}"
                       for tag, b in ((t, baseline[t]) for t in ("dense", "fused")))
           + f"; a train step at cap {CAP}: {capped['step_launches']}; the --accum 2 CLI's "
-          f"epoch: {accum['cli_train']['launches']}", flush=True)
+          f"epoch: {accum['cli_train']['launches']}; bf16 bucket {TRAIN_BATCH}, train step and "
+          f"step at cap {CAP}: {bf16['serve']['launches']}, {bf16['train']['launches']}, "
+          f"{bf16['capped']['launches']}", flush=True)
     print(card)
     print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

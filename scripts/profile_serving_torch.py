@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Where a served batch's time goes in the PyTorch/CUDA port, on one GPU.
 
-    python scripts/profile_serving_torch.py [--batch 128] [--runs 10] [--fused-encoder]
+    python scripts/profile_serving_torch.py [--batch 128] [--runs 10] [--fused-encoder | --bf16]
 
 Flagship model at full width (seeded weights), 48 actors / 192 lanes;
 ``--fused-encoder`` serves ``FLAGSHIP_FUSED`` instead (``encoder.fused:
-true``: the AA pair chain in kernel K3, the same weights).
+true``: the AA pair chain in kernel K3, the same weights), ``--bf16``
+``FLAGSHIP_BF16`` (``dtype: bfloat16``, the same weights).
 Prints one JSON line: host stages (align, pack, host->device copy,
 result fetch) on the host clock, device stages (encoder AA attention,
 ODE-RNN, AL attention; aggregator; fuse; rollout kernel; heads;
 postprocess) as CUDA-event medians, and, from ``torch.profiler`` over
-whole ``predict`` calls, the device's busy time, idle share and the
-time of its LayerNorm kernels.
+whole ``predict`` calls, the device's busy time, idle share, the time of
+its LayerNorm kernels and of each kernel group
+(``profile_train_torch.kernel_groups``) and the launches per ``predict``.
 """
 from __future__ import annotations
 
@@ -28,7 +30,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from trajsde_tpu_torch.config import FLAGSHIP, FLAGSHIP_FUSED, build_model  # noqa: E402
+from profile_train_torch import kernel_groups  # noqa: E402
+from trajsde_tpu_torch.config import FLAGSHIP, FLAGSHIP_BF16, FLAGSHIP_FUSED, build_model  # noqa: E402
 from trajsde_tpu_torch.data.pack import pack_scenes  # noqa: E402
 from trajsde_tpu_torch.data.synthetic import make_raw_scene  # noqa: E402
 from trajsde_tpu_torch.models import graph  # noqa: E402
@@ -69,8 +72,10 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--runs", type=int, default=10)
-    ap.add_argument("--fused-encoder", action="store_true",
-                    help="serve FLAGSHIP_FUSED (AA pair chain in kernel K3)")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--fused-encoder", action="store_true",
+                      help="serve FLAGSHIP_FUSED (AA pair chain in kernel K3)")
+    mode.add_argument("--bf16", action="store_true", help="serve FLAGSHIP_BF16")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
@@ -78,7 +83,8 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     B, R = args.batch, args.runs
-    model = build_model(FLAGSHIP_FUSED if args.fused_encoder else FLAGSHIP, device="cuda", seed=0)
+    cfg = FLAGSHIP_FUSED if args.fused_encoder else FLAGSHIP_BF16 if args.bf16 else FLAGSHIP
+    model = build_model(cfg, device="cuda", seed=0)
     enc, agg, dec = model.encoder, model.aggregator, model.decoder
     rng = np.random.default_rng(0)
     raws = [make_raw_scene(rng, i % 2, num_actors=A, num_lanes=L) for i in range(B)]
@@ -97,7 +103,7 @@ def main() -> None:
     tw = torch.randn((B, 1, Th, 2), generator=gen, device="cuda")
     en = torch.randn((Th, B, A + 1, D), generator=gen, device="cuda")
     aa = enc._aa_with_twin(scene, tw)
-    h0 = enc.hidden.expand(B, A + 1, D)
+    h0 = enc.hidden.expand(B, A + 1, D).to(enc.compute_dtype or torch.float32)
     ys, gs = enc._run_rnn(h0, aa[0], aa[2], aa[3], en)
     out, _, _ = gather_eos_outputs(ys, gs, aa[1], enc.ref_time, scene.agent_index, A)
     al_mask, al_vec = graph.al_edges(scene, enc.ref_time, enc.local_radius)
@@ -107,7 +113,7 @@ def main() -> None:
     kp = rollout_params_from_module(dec.sde_rollout)
     t0s, dts = dec.time_grid(device="cuda")
     Tf, K = dec.future_steps, dec.num_modes
-    y0r = y0.reshape(-1, D).contiguous()
+    y0r = y0.reshape(-1, D).float().contiguous()   # K1's f32 rows, as the engine casts them
     sol = sde_rollout(y0r, kp, t0s, dts, 1, Tf, increments="rademacher")
     sol5 = sol.reshape(Tf, B, K, A, D).permute(1, 2, 3, 0, 4)
     res = dec.decode(scene, sol5, local, glob)
@@ -146,14 +152,16 @@ def main() -> None:
     layer_norm = sum(e.self_device_time_total for e in kernels
                      if "layer_norm" in e.key.lower()) / 1e3 / 3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    groups, launches = kernel_groups(kernels, 3)
     report = {
         "card": card, "batch": B, "actors": A, "lanes": L, "runs": R,
-        "encoder_fused": args.fused_encoder,
+        "encoder_fused": args.fused_encoder, "dtype": "bfloat16" if args.bf16 else "float32",
         "host_ms": host, "device_ms": device, "predict_ms": predict_ms,
         "profiled_predict_wall_ms": wall,
         "device_busy_ms": busy if busy > 0 else None,
         "device_idle_share": (1.0 - busy / wall) if busy > 0 else None,
         "layer_norm_ms": layer_norm if busy > 0 else None,
+        "kernel_groups_ms": groups, "kernel_launches_per_predict": launches,
         "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 / 3 for e in top},
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
     }

@@ -2,19 +2,23 @@
 """Where a training step's time goes in the PyTorch/CUDA port, on one GPU.
 
     python scripts/profile_train_torch.py [--batch 128] [--runs 5] [--unfused | --fused-encoder]
-                                          [--loader {npz,shards} ...] [--rounds 4]
+                                          [--bf16] [--loader {npz,shards} ...] [--rounds 4]
 
 ``FLAGSHIP_TRAIN`` (fused decoder rollout: kernel K1 forward, K2 backward;
 ``--unfused`` trains through the plain rollout loop instead;
 ``--fused-encoder`` trains ``FLAGSHIP_TRAIN_FUSED``, whose AA pair chain
-runs through kernel K3 forward and K4 backward) at full width
+runs through kernel K3 forward and K4 backward; ``--bf16`` sets
+``dtype: bfloat16`` on the encoder, the aggregator and the decoder, as
+``FLAGSHIP_BF16`` does, on the dense AA path) at full width
 with seeded weights, 48 actors / 192 lanes, synthetic scenes of both
 sources.  Prints one JSON line: the host's pack and host->device copy, the
 device stages as CUDA-event medians (encoder, aggregator and decoder
 forward with autograd recording, the losses, the whole backward, the AdamW
 step, the whole ``train_step``), and, from ``torch.profiler`` over three
 steps, the device's busy time, its idle share, the top kernels, K1's to
-K4's device time, the LayerNorm kernels' time and the peak memory.
+K4's device time, the LayerNorm kernels' time, the device time of the
+kernel groups (``kernel_groups``) and the kernel launches per step, and the
+peak memory.
 
 ``--loader npz shards`` also writes ``runs + 1`` batches of synthetic
 scenes of both sources as per-scene ``.npz``, converts them to shards, and
@@ -102,6 +106,24 @@ def profiled(fn, steps=3):
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     return wall, busy, kernels
+
+
+# kernel groups by a word of the kernel's name, the first that matches
+KERNEL_GROUPS = (("matmul", ("gemm", "cutlass", "xmma", "cublas")), ("layer_norm", ("layer_norm",)),
+                 ("reduction", ("reduce_kernel",)), ("copy_or_cast", ("copy_kernel",)),
+                 ("elementwise", ("elementwise_kernel",)))
+
+
+def kernel_groups(kernels, calls: int) -> tuple:
+    """(device ms per call of each of KERNEL_GROUPS and "other", kernel
+    launches per call) of the profiler's CUDA kernel averages over ``calls``
+    calls."""
+    ms = dict.fromkeys([g for g, _ in KERNEL_GROUPS] + ["other"], 0.0)
+    for e in kernels:
+        key = e.key.lower()
+        group = next((g for g, words in KERNEL_GROUPS if any(w in key for w in words)), "other")
+        ms[group] += e.self_device_time_total / 1e3 / calls
+    return ms, sum(e.count for e in kernels) / calls
 
 
 def write_scene_files(root: str, n: int) -> None:
@@ -224,10 +246,14 @@ def main() -> None:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--unfused", action="store_true")
     mode.add_argument("--fused-encoder", action="store_true")
+    ap.add_argument("--bf16", action="store_true",
+                    help="dtype: bfloat16 on the three components (FLAGSHIP_BF16's)")
     ap.add_argument("--loader", nargs="+", choices=("npz", "shards"), default=[],
                     help="also train from files of these formats, in turns with pre-packed batches")
     ap.add_argument("--rounds", type=int, default=4)
     args = ap.parse_args()
+    if args.bf16 and args.fused_encoder:
+        ap.error("--bf16 runs the dense AA path (bf16 in K3 / K4 is not ported)")
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -236,6 +262,9 @@ def main() -> None:
     B, R = args.batch, args.runs
     cfg = copy.deepcopy(FLAGSHIP_TRAIN_FUSED if args.fused_encoder else FLAGSHIP_TRAIN)
     cfg["decoder"]["kwargs"]["fused"] = not args.unfused
+    if args.bf16:
+        for sec in ("encoder", "aggregator", "decoder"):
+            cfg[sec]["kwargs"]["dtype"] = "bfloat16"
     model = build_model(cfg, device="cuda", seed=0).train()
     losses = build_losses(cfg)
     state = create_train_state(model, cfg["training_specific"], steps_per_epoch=100)
@@ -284,6 +313,7 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     wall, busy, kernels = profiled(lambda: step(cpu_scene.to("cuda"), next(counter), 0))
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    groups, launches = kernel_groups(kernels, 3)
 
     def named(word):
         return sum(e.self_device_time_total for e in kernels if word in e.key) / 1e3 / 3
@@ -292,6 +322,7 @@ def main() -> None:
         "card": card, "batch": B, "actors": A, "lanes": L, "runs": R,
         "decoder": "unfused loop" if args.unfused else "fused (K1 + K2)",
         "aa_encoder": "fused (K3 + K4)" if args.fused_encoder else "dense",
+        "dtype": "bfloat16" if args.bf16 else "float32",
         "host_ms": host, "device_ms": device,
         "train_step_host_ms": step_ms, "scenes_per_s": B / step_ms * 1e3,
         "profiled_step_wall_ms": wall,
@@ -300,6 +331,7 @@ def main() -> None:
         "k1_rollout_ms": named("rollout_kernel"), "k2_rollout_bwd_ms": named("rollout_bwd_kernel"),
         "k3_aa_fused_ms": named("aa_fused_kernel"), "k4_aa_fused_bwd_ms": named("aa_fused_bwd"),
         "layer_norm_ms": named("layer_norm"),
+        "kernel_groups_ms": groups, "kernel_launches_per_step": launches,
         "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3 / 3 for e in top},
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
     }

@@ -183,3 +183,66 @@ def write_run(tmp_path, n_train=6, batch=4, actors=6, lanes=8):
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps(cfg))
     return str(path)
+
+
+# ---------------------------------------------------------------------------
+# bf16 mixed precision (``dtype: bfloat16``)
+# ---------------------------------------------------------------------------
+def bf16_cfg(cfg):
+    """``cfg`` with ``dtype: bfloat16`` on the encoder, the aggregator and the
+    decoder, as ``configs/nusargo/*_tpu.yml`` set it."""
+    cfg = copy.deepcopy(cfg)
+    for sec in ("encoder", "aggregator", "decoder"):
+        cfg[sec]["kwargs"]["dtype"] = "bfloat16"
+    return cfg
+
+
+def jit_exact(fn, *args):
+    """``jax.jit(fn)`` compiled for ``args`` with XLA's excess precision off.
+    On the CPU XLA may otherwise keep a bf16 intermediate in f32 inside a
+    fusion (an ``exp`` before a division, a tanh before a product), so the
+    program flax writes, each op rounded to its dtype, is what the port is
+    held to."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})
+
+
+def bf16_distance(got, want):
+    """(max|got - want| / max|want|, mean|got - want| / mean|want|), in f64."""
+    g = np.asarray(got.float().numpy() if isinstance(got, torch.Tensor) else got, np.float64)
+    w = np.asarray(want, np.float32).astype(np.float64)
+    assert g.shape == w.shape, (g.shape, w.shape)
+    d = np.abs(g - w)
+    return float(d.max() / max(np.abs(w).max(), 1e-30)), \
+        float(d.mean() / max(np.abs(w).mean(), 1e-30))
+
+
+def check_bf16(got, want, bar, what=""):
+    """Hold ``got`` to ``want`` within ``bar = (max_rel, mean_rel)`` (see
+    :func:`bf16_distance`); returns the two distances."""
+    dist = bf16_distance(got, want)
+    assert dist[0] <= bar[0] and dist[1] <= bar[1], f"{what}: {dist} past {bar}"
+    return dist
+
+
+def check_grads_bf16(got, want, leaf_rel, floor, l2_rel):
+    """bf16 gradient leaves: each within ``leaf_rel`` x its leaf's scale plus
+    ``floor`` x the largest leaf's scale (a leaf whose true gradient is 0,
+    such as a key bias under a softmax, is bf16 noise), and the whole
+    gradient within ``l2_rel`` in relative L2.  Returns (the worst leaf's
+    distance over its scale, the relative L2 distance)."""
+    top = max(float(np.abs(w.numpy()).max()) for w in want.values())
+    failures, worst, num, den = [], 0.0, 0.0, 0.0
+    for name, w in want.items():
+        w = w.numpy().astype(np.float64)
+        g = np.zeros_like(w) if got[name] is None else got[name].numpy().astype(np.float64)
+        scale = max(np.abs(w).max(), 1e-30)
+        diff = np.abs(g - w).max()
+        worst = max(worst, diff / scale)
+        num += float(((g - w) ** 2).sum())
+        den += float((w ** 2).sum())
+        if diff > leaf_rel * scale + floor * top:
+            failures.append((name, float(diff), float(scale)))
+    l2 = (num / den) ** 0.5
+    assert not failures and l2 <= l2_rel, (failures[:10], l2)
+    return worst, l2

@@ -111,7 +111,7 @@ def test_baseline_is_the_yaml_and_builds_at_the_published_widths():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(dtype="bfloat16"), "item 6"), (dict(remat=True), "rematerialization")])
+    (dict(dtype="bfloat16", fused=True), "item 6b"), (dict(remat=True), "rematerialization")])
 def test_local_encoder_refuses_what_is_not_ported(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         LocalEncoder(21, 32, 2, **kwargs)

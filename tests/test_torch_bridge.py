@@ -72,7 +72,9 @@ def test_registry_aliases_filtering_and_guards():
     assert fused.aa_encoder.fused
     for bad, err in [({"neighbor_cap": 24, "fused": True}, NotImplementedError),
                      ({"adaptive": True}, NotImplementedError),
-                     ({"dtype": "bfloat16"}, NotImplementedError),
+                     ({"dtype": "bfloat16", "fused": True}, NotImplementedError),
+                     ({"dtype": "float16"}, ValueError),
+                     ({"remat": True}, NotImplementedError),
                      ({"ref_time": 10}, ValueError),
                      ({"method": "milstein"}, NotImplementedError)]:
         with pytest.raises(err):

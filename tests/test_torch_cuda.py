@@ -789,3 +789,36 @@ def test_accum_update_grads_are_the_mean_of_the_micro_batches_alone_bit_for_bit(
     assert set(got) == set(alone[0]) == set(alone[1])
     for n in got:
         assert torch.equal(got[n], (alone[0][n] + alone[1][n]) / 2), n
+
+
+@pytest.mark.gpu
+def test_bf16_flagship_train_step_launches_k1_k2_once_and_stays_f32(cuda):
+    """``FLAGSHIP_BF16`` (``configs/nusargo/*_tpu.yml``) with the fused
+    decoder at batch 8, 48 actors: each of two train steps launches K1 and K2
+    once (on the f32 rows the bf16 fuse is cast to) and K3 / K4 never, the
+    loss is finite, and every parameter, gradient and AdamW moment is f32."""
+    import copy
+
+    import numpy as np
+
+    from trajsde_tpu_torch.config import FLAGSHIP_BF16, build_losses, build_model
+    from trajsde_tpu_torch.train.loop import create_train_state, make_train_step
+
+    cfg = copy.deepcopy(FLAGSHIP_BF16)
+    cfg["decoder"]["kwargs"]["fused"] = True
+    model = build_model(cfg, device=cuda, seed=5)
+    state = create_train_state(model, cfg["training_specific"], steps_per_epoch=2)
+    step = make_train_step(model, state.optimizer, state.scheduler, build_losses(cfg), cuda)
+    scene = _packed(13, 8, 48, 192).to(cuda)
+    counters = (K.sde_rollout, K.sde_rollout_bwd, K3.fused_pair_attention,
+                K3.fused_pair_attention_bwd)
+    for i in range(2):
+        before = [c.launches for c in counters]
+        logs = step(scene, i, 0)
+        assert [c.launches - b for c, b in zip(counters, before)] == [1, 1, 0, 0]
+        assert np.isfinite(float(logs["train/total"])) and logs["train/step_skipped"] == 0.0
+    moments = [v for s in state.optimizer.state.values() for k, v in s.items()
+               if k in ("exp_avg", "exp_avg_sq")]
+    assert moments and all(m.dtype == torch.float32 for m in moments)
+    for p in model.parameters():
+        assert p.dtype == torch.float32 and (p.grad is None or p.grad.dtype == torch.float32)

@@ -249,8 +249,8 @@ def test_flagship_capped_is_the_tpu_fast_yaml_in_f32():
         REPO, "configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec_tpu_fast.yml"))
     for sec in ("encoder", "aggregator", "decoder"):
         assert raw[sec]["kwargs"]["dtype"] == "bfloat16"
-        with pytest.raises(NotImplementedError, match="item 6"):
-            tconfig.build(raw[sec]["module_name"], raw[sec]["kwargs"])
+        module = tconfig.build(raw[sec]["module_name"], raw[sec]["kwargs"])
+        assert module.compute_dtype is torch.bfloat16
         raw[sec]["kwargs"]["dtype"] = "float32"
     assert tconfig.FLAGSHIP_CAPPED == raw
     model = tconfig.build_model(raw, device="cpu")

@@ -24,9 +24,13 @@ baseline, ``configs/nusargo/hivt_nuSArgo_trmenc_mlpdec.yml`` (a transformer
 temporal encoder and a one-shot MLP decoder, no SDE), and
 ``BASELINE_TRAIN`` the same with ``encoder.fused: true`` (K3 and K4 at the
 baseline's 4 heads on the card; their plain versions on the CPU).
-``FLAGSHIP_CAPPED`` is ``configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec_tpu_fast.yml``
-(the dense AA block with ``neighbor_cap: 24``) with its three
-``dtype: bfloat16`` set to ``float32``.
+``FLAGSHIP_BF16`` is ``configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec_tpu.yml``:
+the flagship with ``dtype: bfloat16`` on the encoder, the aggregator and the
+decoder (bf16 compute over f32 parameters; the rollout kernels still run in
+f32).  ``FLAGSHIP_BF16_CAPPED`` is
+``configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec_tpu_fast.yml`` as written (the
+same with ``neighbor_cap: 24`` on the dense AA block), and
+``FLAGSHIP_CAPPED`` the same recipe with its three dtypes set to ``float32``.
 """
 from __future__ import annotations
 
@@ -131,12 +135,21 @@ FLAGSHIP_TRAIN_FUSED["encoder"]["kwargs"]["fused"] = True
 FLAGSHIP_H100: Dict[str, Any] = copy.deepcopy(FLAGSHIP_TRAIN_FUSED)
 FLAGSHIP_H100["datamodule_specific"]["kwargs"]["num_workers"] = 2
 
-# the _tpu_fast recipe in f32: each receiver's 24 nearest in-radius senders
-# on the dense AA path (bf16 is not ported yet: ROADMAP.md Queue 1 item 6)
-FLAGSHIP_CAPPED: Dict[str, Any] = copy.deepcopy(FLAGSHIP)
-FLAGSHIP_CAPPED["encoder"]["kwargs"].update(dtype="float32", neighbor_cap=24)
-FLAGSHIP_CAPPED["aggregator"]["kwargs"]["dtype"] = "float32"
-FLAGSHIP_CAPPED["decoder"]["kwargs"]["dtype"] = "float32"
+# configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec_tpu.yml: the flagship in bf16
+# mixed precision on its three components
+FLAGSHIP_BF16: Dict[str, Any] = copy.deepcopy(FLAGSHIP)
+for _sec in ("encoder", "aggregator", "decoder"):
+    FLAGSHIP_BF16[_sec]["kwargs"]["dtype"] = "bfloat16"
+
+# configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec_tpu_fast.yml as written: each
+# receiver's 24 nearest in-radius senders on the dense AA path, in bf16
+FLAGSHIP_BF16_CAPPED: Dict[str, Any] = copy.deepcopy(FLAGSHIP_BF16)
+FLAGSHIP_BF16_CAPPED["encoder"]["kwargs"]["neighbor_cap"] = 24
+
+# the _tpu_fast recipe in f32, the cap's f32 record beside the bf16 one
+FLAGSHIP_CAPPED: Dict[str, Any] = copy.deepcopy(FLAGSHIP_BF16_CAPPED)
+for _sec in ("encoder", "aggregator", "decoder"):
+    FLAGSHIP_CAPPED[_sec]["kwargs"]["dtype"] = "float32"
 
 
 # the HiVT baseline (transformer temporal encoder, one-shot MLP decoder):

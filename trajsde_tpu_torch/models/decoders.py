@@ -9,6 +9,10 @@ serving path can run the rollout between them through the CUDA kernel
 ``SDEStep`` (``fused=False``, autograd through the loop) or, with
 ``fused=True``, through :class:`~trajsde_tpu_torch.ops.sde_rollout.SDERolloutFn`:
 kernel K1 forward, kernel K2 backward.  Both keep the same parameters.
+``dtype`` is the compute dtype of every Linear and LayerNorm (flax's mixed
+precision): with bf16 the rollout state is bf16 on the loop path, the
+kernels take it in f32 and hand it back in bf16, and ``loc`` / ``pi`` /
+the scales are cast back to f32.
 """
 from __future__ import annotations
 
@@ -19,18 +23,18 @@ import torch.nn.functional as F_
 from torch import nn
 
 from trajsde_tpu_torch.data.scene import SceneBatch
-from trajsde_tpu_torch.models.layers import layer_norm
+from trajsde_tpu_torch.models.layers import Linear, compute_dtype, layer_norm
 from trajsde_tpu_torch.models.sde import SDEStep, decoder_time_grid
 from trajsde_tpu_torch.ops.sde_rollout import SDERolloutFn, pack_params, rollout_params_from_module
 
 
-def _mlp_head(parent: nn.Module, prefix: str, din: int, dims) -> None:
+def _mlp_head(parent: nn.Module, prefix: str, din: int, dims, dtype=None) -> None:
     """Register ``{prefix}_dense{i}`` Linear layers of widths ``dims``
     (input ``din``), each but the last followed by ``{prefix}_ln{i}``."""
     for i, d in enumerate(dims):
-        parent.add_module(f"{prefix}_dense{i}", nn.Linear(din, d))
+        parent.add_module(f"{prefix}_dense{i}", Linear(din, d, dtype))
         if i < len(dims) - 1:
-            parent.add_module(f"{prefix}_ln{i}", layer_norm(d))
+            parent.add_module(f"{prefix}_ln{i}", layer_norm(d, dtype))
         din = d
 
 
@@ -50,22 +54,18 @@ class MLPDecoder(nn.Module):
     def __init__(self, local_channels: int, global_channels: int, future_steps: int,
                  num_modes: int, uncertain: bool = True, min_scale: float = 1e-3, dtype=None):
         super().__init__()
-        if dtype not in (None, "float32", torch.float32):
-            raise NotImplementedError(
-                f"dtype={dtype!r}: reduced-precision configs are not ported yet "
-                "(ROADMAP.md Queue 1 item 6)"
-            )
         D = local_channels
+        self.compute_dtype = compute_dtype(dtype)
         self.future_steps = future_steps
         self.num_modes = num_modes
         self.uncertain = uncertain
         self.min_scale = min_scale
-        _mlp_head(self, "pi", D + global_channels, [D, D, 1])
-        self.aggr_dense = nn.Linear(D + global_channels, D)
-        self.aggr_ln = layer_norm(D)
-        _mlp_head(self, "loc", D, [D, future_steps * 2])
+        _mlp_head(self, "pi", D + global_channels, [D, D, 1], dtype)
+        self.aggr_dense = Linear(D + global_channels, D, dtype)
+        self.aggr_ln = layer_norm(D, dtype)
+        _mlp_head(self, "loc", D, [D, future_steps * 2], dtype)
         if uncertain:
-            _mlp_head(self, "scale", D, [D, future_steps * 2])
+            _mlp_head(self, "scale", D, [D, future_steps * 2], dtype)
 
     def forward(self, scene: SceneBatch, local_embed, global_embed,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
@@ -74,11 +74,11 @@ class MLPDecoder(nn.Module):
         Tf = self.future_steps
         local_exp = local_embed[:, None].expand(global_embed.shape)
         pi = _apply_head(self, "pi", 3, torch.cat([local_exp, global_embed], dim=-1))
-        pi = pi[..., 0].permute(0, 2, 1)                        # [B, A, F]
+        pi = pi[..., 0].permute(0, 2, 1).float()                # [B, A, F]
         h = torch.relu(self.aggr_ln(self.aggr_dense(torch.cat([global_embed, local_exp], -1))))
-        loc = _apply_head(self, "loc", 2, h).reshape(B, F, A, Tf, 2)
+        loc = _apply_head(self, "loc", 2, h).reshape(B, F, A, Tf, 2).float()
         if self.uncertain:
-            scale = _apply_head(self, "scale", 2, h).reshape(B, F, A, Tf, 2)
+            scale = _apply_head(self, "scale", 2, h).reshape(B, F, A, Tf, 2).float()
             loc = torch.cat([loc, F_.elu(scale) + 1.0 + self.min_scale], dim=-1)
         return {"loc": loc, "pi": pi, "reg_mask": ~scene.padding_mask[:, :, -Tf:]}
 
@@ -100,12 +100,8 @@ class SDEDecoder(nn.Module):
                 "SDEDecoder(fused=True) hardcodes the sde_layers=2 topology of the "
                 "rollout kernels; use fused=False for other depths"
             )
-        if dtype not in (None, "float32", torch.float32):
-            raise NotImplementedError(
-                f"dtype={dtype!r}: reduced-precision configs are not ported yet "
-                "(ROADMAP.md Queue 1 item 6)"
-            )
         D = local_channels
+        self.compute_dtype = compute_dtype(dtype)
         self.local_channels = D
         self.future_steps = future_steps
         self.num_modes = num_modes
@@ -113,16 +109,16 @@ class SDEDecoder(nn.Module):
         self.uncertain = uncertain
         self.min_scale = min_scale
         self.fused = fused
-        self.aggr_dense = nn.Linear(D + global_channels, D)
-        self.aggr_ln = layer_norm(D)
-        self.sde_rollout = SDEStep(D, sde_layers)
+        self.aggr_dense = Linear(D + global_channels, D, dtype)
+        self.aggr_ln = layer_norm(D, dtype)
+        self.sde_rollout = SDEStep(D, sde_layers, dtype)
         heads = {"loc_layers": (D, 2), "pi_layers": (D + global_channels, 1)}
         if uncertain:
             heads["scale_layers"] = (D, 2)
         for name, (din, dout) in heads.items():
-            self.add_module(f"{name}_0", nn.Linear(din, D))
-            self.add_module(f"{name}_1", layer_norm(D))
-            self.add_module(f"{name}_2", nn.Linear(D, dout))
+            self.add_module(f"{name}_0", Linear(din, D, dtype))
+            self.add_module(f"{name}_1", layer_norm(D, dtype))
+            self.add_module(f"{name}_2", Linear(D, dout, dtype))
 
     def _head(self, name: str, x: torch.Tensor) -> torch.Tensor:
         h = torch.relu(getattr(self, f"{name}_1")(getattr(self, f"{name}_0")(x)))
@@ -138,14 +134,15 @@ class SDEDecoder(nn.Module):
         return torch.relu(self.aggr_ln(h))
 
     def decode(self, scene: SceneBatch, sol, local_embed, global_embed) -> Dict[str, torch.Tensor]:
-        """Per-step latents ``sol [B, F, A, Tf, D]`` -> output dict."""
+        """Per-step latents ``sol [B, F, A, Tf, D]`` (f32 or the compute
+        dtype) -> output dict, in f32."""
         Tf = self.future_steps
         local_exp = local_embed[:, None].expand(global_embed.shape)
-        loc = self._head("loc_layers", sol)
+        loc = self._head("loc_layers", sol).float()
         pi = self._head("pi_layers", torch.cat([local_exp, global_embed], dim=-1))
-        pi = pi[..., 0].permute(0, 2, 1)                        # [B, A, F]
+        pi = pi[..., 0].permute(0, 2, 1).float()                # [B, A, F]
         if self.uncertain:
-            scale = F_.elu(self._head("scale_layers", sol)) + 1.0 + self.min_scale
+            scale = F_.elu(self._head("scale_layers", sol).float()) + 1.0 + self.min_scale
             loc = torch.cat([loc, scale], dim=-1)
         return {"loc": loc, "pi": pi, "reg_mask": ~scene.padding_mask[:, :, -Tf:]}
 
@@ -164,13 +161,15 @@ class SDEDecoder(nn.Module):
         """The rollout through the kernels: ``ys [Tf, *y0.shape]`` from the
         ``[B*F*A, D]`` rows in (B, F, A) order, with gaussian increments
         drawn in the kernel from ``seed`` or explicit ``noise [Tf, B*F*A,
-        D]``.  Gradients reach ``y0`` and every ``sde_rollout`` weight."""
+        D]``.  Gradients reach ``y0`` and every ``sde_rollout`` weight.  The
+        kernels run in f32: a bf16 ``y0`` is cast up for them and ``ys``
+        comes back in ``y0``'s dtype, as in the JAX decoder."""
         D = y0.shape[-1]
         w = pack_params(rollout_params_from_module(self.sde_rollout, detach=False))
         t0s, dts = self.time_grid(device=y0.device)
-        ys = SDERolloutFn.apply(y0.reshape(-1, D).contiguous(), w, t0s, dts, seed,
+        ys = SDERolloutFn.apply(y0.reshape(-1, D).float().contiguous(), w, t0s, dts, seed,
                                 self.future_steps, noise, "gaussian")
-        return ys.reshape((self.future_steps,) + tuple(y0.shape))
+        return ys.reshape((self.future_steps,) + tuple(y0.shape)).to(y0.dtype)
 
     def forward(self, scene: SceneBatch, local_embed, global_embed,
                 sde_noise: Optional[torch.Tensor] = None,

@@ -7,15 +7,102 @@ parameter path with ``kernel``/``scale`` renamed to ``weight``
 ``training`` mode, its keep mask drawn from the caller's
 ``torch.Generator``; in eval mode (the JAX modules' ``deterministic=True``)
 it is the identity.
+
+Mixed precision follows flax's ``dtype=``: a module built with
+``dtype="bfloat16"`` keeps its parameters in f32 and computes in bf16.
+:class:`Linear` casts its input, weight and bias to bf16 and rounds the
+product before adding the bias, as ``nn.Dense`` does (``F.linear`` would
+round once); :class:`LayerNorm` normalizes in f32 as flax does and rounds
+only its output.  The casts are explicit, not ``torch.autocast``, which would
+return LayerNorm in f32 and leave other elementwise ops in whatever dtype
+they arrive in.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 LN_EPS = 1e-5
+
+
+def compute_dtype(dtype) -> Optional[torch.dtype]:
+    """A module's ``dtype`` argument as its compute dtype: None (f32, the
+    plain path) for None / ``"float32"`` / ``torch.float32``, bf16 for
+    ``"bfloat16"`` / ``torch.bfloat16``; anything else raises."""
+    if dtype in (None, "float32", torch.float32):
+        return None
+    if dtype in ("bfloat16", torch.bfloat16):
+        return torch.bfloat16
+    raise ValueError(f"dtype={dtype!r}: the port computes in float32 or bfloat16")
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with flax ``nn.Dense``'s compute dtype: in bf16 the
+    input, weight and bias are cast, the product is rounded to bf16 and the
+    bias added in bf16 (two roundings, as flax's ``dot_general`` then
+    ``y += bias``).  The ``state_dict`` keys are ``nn.Linear``'s."""
+
+    def __init__(self, in_features: int, out_features: int, dtype=None):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = compute_dtype(dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        if cd is None:
+            return F.linear(x, self.weight, self.bias)
+        return torch.matmul(x.to(cd), self.weight.to(cd).t()) + self.bias.to(cd)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with flax ``nn.LayerNorm``'s compute dtype: the
+    statistics and the normalization run in f32 with f32 scale and bias,
+    and only the output is cast (flax's ``force_float32_reductions``).  In a
+    reduced dtype the f32 steps are flax's own, the variance as E[x^2] -
+    E[x]^2 and ``(x - mean) * (rsqrt(var + eps) * scale) + bias``:
+    ``F.layer_norm``'s two-pass variance and folded affine land about one
+    bf16 output in 1,500 on the other side of a rounding, and the attention
+    after it spreads that ulp.  f32 keeps ``F.layer_norm``, within 1e-6 of
+    flax's."""
+
+    def __init__(self, features: int, dtype=None):
+        super().__init__(features, eps=LN_EPS)
+        self.compute_dtype = compute_dtype(dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        if cd is None:
+            return super().forward(x)
+        x = x.float()
+        mean = x.mean(-1, keepdim=True)
+        var = (x.square().mean(-1, keepdim=True) - mean.square()).clamp_min(0.0)
+        return ((x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias).to(cd)
+
+
+def weak(value: float, dtype: torch.dtype) -> float:
+    """A Python constant as JAX combines it with an array of ``dtype``: a
+    weakly typed scalar takes the array's dtype, so in bf16 ``x / sqrt(8)``
+    divides by 2.828125."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``torch.sigmoid`` in f32; in a reduced dtype flax's ``nn.sigmoid``
+    as XLA evaluates it there, ``1 / (1 + exp(-x))`` rounded at each op."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``torch.softmax`` in f32; in a reduced dtype ``jax.nn.softmax``'s
+    steps (``exp(x - max)`` over its sum), each rounded to the dtype."""
+    if x.dtype == torch.float32:
+        return torch.softmax(x, dim=dim)
+    e = torch.exp(x - x.amax(dim=dim, keepdim=True))
+    return e / e.sum(dim=dim, keepdim=True)
 
 
 def masked_softmax(logits: torch.Tensor, mask: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -29,8 +116,8 @@ def masked_softmax(logits: torch.Tensor, mask: torch.Tensor, dim: int = -1) -> t
     return e / s.clamp_min(1e-16)
 
 
-def layer_norm(features: int) -> nn.LayerNorm:
-    return nn.LayerNorm(features, eps=LN_EPS)
+def layer_norm(features: int, dtype=None) -> LayerNorm:
+    return LayerNorm(features, dtype)
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
@@ -41,17 +128,17 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     if not training or rate == 0.0:
         return x
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+    return torch.where(keep, x / weak(1.0 - rate, x.dtype), torch.zeros_like(x))
 
 
 class MlpBlock(nn.Module):
     """Linear(4D) -> ReLU -> Dropout -> Linear(D) -> Dropout."""
 
-    def __init__(self, embed_dim: int, dropout: float = 0.0):
+    def __init__(self, embed_dim: int, dropout: float = 0.0, dtype=None):
         super().__init__()
         self.rate = dropout
-        self.Dense_0 = nn.Linear(embed_dim, embed_dim * 4)
-        self.Dense_1 = nn.Linear(embed_dim * 4, embed_dim)
+        self.Dense_0 = Linear(embed_dim, embed_dim * 4, dtype)
+        self.Dense_1 = Linear(embed_dim * 4, embed_dim, dtype)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = dropout(torch.relu(self.Dense_0(x)), self.rate, self.training, generator)
@@ -69,7 +156,7 @@ class EdgeAttention(nn.Module):
     """
 
     def __init__(self, embed_dim: int, num_heads: int, edge_stream: bool = False,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, dtype=None):
         super().__init__()
         D = embed_dim
         self.num_heads = num_heads
@@ -78,7 +165,7 @@ class EdgeAttention(nn.Module):
         if edge_stream:
             names += ["lin_k_edge", "lin_v_edge"]
         for n in names:
-            self.add_module(n, nn.Linear(D, D))
+            self.add_module(n, Linear(D, D, dtype))
 
     def forward(
         self,
@@ -103,7 +190,7 @@ class EdgeAttention(nn.Module):
         k = k.reshape(k.shape[:-1] + (H, hd))
         v = v.reshape(v.shape[:-1] + (H, hd))
 
-        alpha = torch.einsum("...qhd,...qkhd->...qkh", q, k) / hd ** 0.5
+        alpha = torch.einsum("...qhd,...qkhd->...qkh", q, k) / weak(hd ** 0.5, q.dtype)
         alpha = masked_softmax(alpha, mask.unsqueeze(-1), dim=-2)
         alpha = dropout(alpha, self.rate, self.training, generator)
         agg = torch.einsum("...qkh,...qkhd->...qhd", alpha, v)
@@ -113,7 +200,7 @@ class EdgeAttention(nn.Module):
                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """HiVT's gated update of the aggregate, ``out_proj`` and the output
         dropout (shared with the fused AA path, whose kernel gives ``agg``)."""
-        gate = torch.sigmoid(self.lin_ih(agg) + self.lin_hh(center))
+        gate = sigmoid(self.lin_ih(agg) + self.lin_hh(center))
         out = agg + gate * (self.lin_self(center) - agg)
         return dropout(self.out_proj(out), self.rate, self.training, generator)
 
@@ -131,21 +218,21 @@ class MultiheadSelfAttention(nn.Module):
     package's.
     """
 
-    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0, dtype=None):
         super().__init__()
         self.num_heads = num_heads
         self.rate = dropout
-        self.in_proj = nn.Linear(embed_dim, 3 * embed_dim)
-        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        self.in_proj = Linear(embed_dim, 3 * embed_dim, dtype)
+        self.out_proj = Linear(embed_dim, embed_dim, dtype)
 
     def forward(self, x: torch.Tensor, attn_mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         D, H = x.shape[-1], self.num_heads
         hd = D // H
         q, k, v = (t.reshape(t.shape[:-1] + (H, hd)) for t in self.in_proj(x).chunk(3, dim=-1))
-        logits = torch.einsum("...qhd,...khd->...hqk", q, k) / hd ** 0.5
+        logits = torch.einsum("...qhd,...khd->...hqk", q, k) / weak(hd ** 0.5, q.dtype)
         logits = logits + attn_mask[..., None, :, :]
-        w = dropout(torch.softmax(logits, dim=-1), self.rate, self.training, generator)
+        w = dropout(softmax(logits, dim=-1), self.rate, self.training, generator)
         out = torch.einsum("...hqk,...khd->...qhd", w, v)
         return self.out_proj(out.reshape(out.shape[:-2] + (D,)))
 
@@ -158,12 +245,12 @@ class GRUUnit(nn.Module):
     and has no sigmoid.  Rows whose mask is False keep ``h``.
     """
 
-    def __init__(self, latent_dim: int, n_units: int):
+    def __init__(self, latent_dim: int, n_units: int, dtype=None):
         super().__init__()
         din = 2 * latent_dim
         for gate in ("update_gate", "reset_gate", "new_state"):
-            self.add_module(f"{gate}_0", nn.Linear(din, n_units))
-            self.add_module(f"{gate}_1", nn.Linear(n_units, latent_dim))
+            self.add_module(f"{gate}_0", Linear(din, n_units, dtype))
+            self.add_module(f"{gate}_1", Linear(n_units, latent_dim, dtype))
 
     def _net(self, gate: str, x: torch.Tensor) -> torch.Tensor:
         h = torch.tanh(getattr(self, f"{gate}_0")(x))
@@ -171,8 +258,8 @@ class GRUUnit(nn.Module):
 
     def forward(self, h_cur: torch.Tensor, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         concat = torch.cat([h_cur, x], dim=-1)
-        update = torch.sigmoid(self._net("update_gate", concat))
-        reset = torch.sigmoid(self._net("reset_gate", concat))
+        update = sigmoid(self._net("update_gate", concat))
+        reset = sigmoid(self._net("reset_gate", concat))
         new_state = self._net("new_state", torch.cat([x, reset * h_cur], dim=-1))
         h_next = (1.0 - update) * new_state + update * h_cur
         m = mask.unsqueeze(-1).to(h_cur.dtype)

@@ -8,7 +8,10 @@ encoder, whose focal-agent twin is a query row only).  ``fused=True``
 runs the AA block's pair chain through kernel K3, and its gradient through
 kernel K4 (:mod:`trajsde_tpu_torch.ops.aa_fused`), with the same parameters.
 ``neighbor_cap=K`` gathers each receiver's K nearest in-radius senders
-before the dense pair chain, as the JAX package does.
+before the dense pair chain, as the JAX package does.  ``dtype`` is the
+compute dtype of every Linear and LayerNorm (flax's mixed precision,
+:mod:`trajsde_tpu_torch.models.layers`); geometry (rotations, edge
+vectors, the cap's distances) stays f32.
 """
 from __future__ import annotations
 
@@ -21,8 +24,14 @@ from trajsde_tpu_torch.data.scene import SceneBatch
 from trajsde_tpu_torch.models import graph
 from trajsde_tpu_torch.models.embedding import MultipleInputEmbedding, SingleInputEmbedding
 from trajsde_tpu_torch.models.layers import (EdgeAttention, MlpBlock, MultiheadSelfAttention,
-                                             dropout, layer_norm)
+                                             compute_dtype, dropout, layer_norm)
 from trajsde_tpu_torch.ops.aa_fused import fused_aa_aggregate, pack_aa_params
+
+
+REMAT_NOT_PORTED = (
+    "remat=True: the port has no rematerialization of the AA / AL pair tensors "
+    "(ROADMAP.md Queue 1 item 14); leave remat unset (the published configs do)"
+)
 
 
 class AAEncoder(nn.Module):
@@ -50,22 +59,28 @@ class AAEncoder(nn.Module):
 
     def __init__(self, historical_steps: int, embed_dim: int, num_heads: int,
                  node_dim: int = 2, edge_dim: int = 2, dropout: float = 0.0,
-                 fused: bool = False, neighbor_cap: int = 0, input_diff: bool = True):
+                 fused: bool = False, neighbor_cap: int = 0, input_diff: bool = True,
+                 dtype=None):
         super().__init__()
         if fused and neighbor_cap:
             raise NotImplementedError("neighbor_cap applies to the dense pair chain (fused=False)")
+        if fused and compute_dtype(dtype) is not None:
+            raise NotImplementedError(
+                f"fused=True with dtype={dtype!r}: kernels K3 / K4 compute in f32; bf16 in "
+                "the fused AA chain is ROADMAP.md Queue 1 item 6b (use fused=False)"
+            )
         D = embed_dim
         self.fused = fused
         self.neighbor_cap = int(neighbor_cap)
         self.aa_overflow_edges: Optional[torch.Tensor] = None
         self.input_diff = input_diff
         self.bos_token = nn.Parameter(torch.zeros(historical_steps, D))
-        self.center_embed = SingleInputEmbedding(node_dim, D)
-        self.nbr_embed = MultipleInputEmbedding([node_dim, edge_dim], D)
-        self.attn = EdgeAttention(D, num_heads, dropout=dropout)
-        self.norm1 = layer_norm(D)
-        self.mlp = MlpBlock(D, dropout)
-        self.norm2 = layer_norm(D)
+        self.center_embed = SingleInputEmbedding(node_dim, D, dtype)
+        self.nbr_embed = MultipleInputEmbedding([node_dim, edge_dim], D, dtype)
+        self.attn = EdgeAttention(D, num_heads, dropout=dropout, dtype=dtype)
+        self.norm1 = layer_norm(D, dtype)
+        self.mlp = MlpBlock(D, dropout, dtype)
+        self.norm2 = layer_norm(D, dtype)
 
     def forward(self, x_q, x_k, rot_q, bos_q, mask, edge_vec, generator=None):
         # centre embedding in each receiver's own frame, bos token substituted
@@ -136,14 +151,14 @@ class ALEncoder(nn.Module):
     """
 
     def __init__(self, embed_dim: int, num_heads: int, node_dim: int = 2, edge_dim: int = 2,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, dtype=None):
         super().__init__()
         D = embed_dim
-        self.lane_embed = MultipleInputEmbedding([node_dim, edge_dim], D)
-        self.attn = EdgeAttention(D, num_heads, dropout=dropout)
-        self.norm1 = layer_norm(D)
-        self.mlp = MlpBlock(D, dropout)
-        self.norm2 = layer_norm(D)
+        self.lane_embed = MultipleInputEmbedding([node_dim, edge_dim], D, dtype)
+        self.attn = EdgeAttention(D, num_heads, dropout=dropout, dtype=dtype)
+        self.norm1 = layer_norm(D, dtype)
+        self.mlp = MlpBlock(D, dropout, dtype)
+        self.norm2 = layer_norm(D, dtype)
 
     def forward(self, x_actor, lane_feat, al_vec, mask, rot, generator=None):
         lane_local = torch.einsum("blj,baji->bali", lane_feat, rot)
@@ -157,13 +172,13 @@ class ALEncoder(nn.Module):
 class TemporalEncoderLayer(nn.Module):
     """Pre-LN transformer layer: x + attn(norm1(x)), then + mlp(norm2(x))."""
 
-    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0):
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0, dtype=None):
         super().__init__()
         self.rate = dropout
-        self.norm1 = layer_norm(embed_dim)
-        self.self_attn = MultiheadSelfAttention(embed_dim, num_heads, dropout)
-        self.norm2 = layer_norm(embed_dim)
-        self.mlp = MlpBlock(embed_dim, dropout)
+        self.norm1 = layer_norm(embed_dim, dtype)
+        self.self_attn = MultiheadSelfAttention(embed_dim, num_heads, dropout, dtype)
+        self.norm2 = layer_norm(embed_dim, dtype)
+        self.mlp = MlpBlock(embed_dim, dropout, dtype)
 
     def forward(self, x: torch.Tensor, attn_mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -181,16 +196,16 @@ class TemporalEncoder(nn.Module):
     added, then the layers and a final LayerNorm."""
 
     def __init__(self, historical_steps: int, embed_dim: int, num_heads: int,
-                 num_layers: int = 4, dropout: float = 0.0):
+                 num_layers: int = 4, dropout: float = 0.0, dtype=None):
         super().__init__()
         T, D = historical_steps, embed_dim
         self.padding_token = nn.Parameter(torch.zeros(T, D))
         self.cls_token = nn.Parameter(torch.zeros(1, D))
         self.pos_embed = nn.Parameter(torch.zeros(T + 1, D))
         for i in range(num_layers):
-            self.add_module(f"layer{i}", TemporalEncoderLayer(D, num_heads, dropout))
+            self.add_module(f"layer{i}", TemporalEncoderLayer(D, num_heads, dropout, dtype))
         self.num_layers = num_layers
-        self.norm = layer_norm(D)
+        self.norm = layer_norm(D, dtype)
 
     def forward(self, x: torch.Tensor, padding_mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -215,8 +230,9 @@ class LocalEncoder(nn.Module):
 
     Of the JAX module's knobs, ``rows_fwd`` / ``rows_bwd`` / ``ln_mm``
     (TPU tiling) and ``parallel`` (which means nothing there either) are
-    dropped by the config's builder; ``remat`` and a reduced ``dtype``
-    raise.  ``neighbor_cap`` caps the dense AA block (:class:`AAEncoder`)."""
+    dropped by ``config.build``; ``remat`` raises, and so does a bf16
+    ``dtype`` with ``fused=True``.  ``neighbor_cap`` caps the dense AA block
+    (:class:`AAEncoder`).  The output is f32 in either dtype."""
 
     def __init__(self, historical_steps: int, embed_dim: int, num_heads: int = 4,
                  dropout: float = 0.1, num_temporal_layers: int = 4,
@@ -225,23 +241,16 @@ class LocalEncoder(nn.Module):
                  neighbor_cap: int = 0):
         super().__init__()
         if remat:
-            raise NotImplementedError(
-                "remat=True: the port has no rematerialization of the AA / AL pair "
-                "tensors; leave remat unset (the published config does)"
-            )
-        if dtype not in (None, "float32", torch.float32):
-            raise NotImplementedError(
-                f"dtype={dtype!r}: reduced-precision configs are not ported yet "
-                "(ROADMAP.md Queue 1 item 6)"
-            )
+            raise NotImplementedError(REMAT_NOT_PORTED)
+        self.compute_dtype = compute_dtype(dtype)
         self.historical_steps = historical_steps
         self.local_radius = float(local_radius)
         self.aa_encoder = AAEncoder(historical_steps, embed_dim, num_heads, node_dim, edge_dim,
                                     dropout, fused=fused, neighbor_cap=neighbor_cap,
-                                    input_diff=input_diff)
+                                    input_diff=input_diff, dtype=dtype)
         self.temporal_encoder = TemporalEncoder(historical_steps, embed_dim, num_heads,
-                                                num_temporal_layers, dropout)
-        self.al_encoder = ALEncoder(embed_dim, num_heads, node_dim, edge_dim, dropout)
+                                                num_temporal_layers, dropout, dtype)
+        self.al_encoder = ALEncoder(embed_dim, num_heads, node_dim, edge_dim, dropout, dtype)
 
     def forward(self, scene: SceneBatch,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -254,4 +263,5 @@ class LocalEncoder(nn.Module):
         out = self.temporal_encoder(aa_out.permute(0, 2, 1, 3),
                                     scene.padding_mask[:, :, :Th], generator)
         al_mask, al_vec = graph.al_edges(scene, Th - 1, self.local_radius)
-        return self.al_encoder(out, graph.lane_features(scene), al_vec, al_mask, rot, generator)
+        out = self.al_encoder(out, graph.lane_features(scene), al_vec, al_mask, rot, generator)
+        return out.float()

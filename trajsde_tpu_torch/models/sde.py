@@ -11,14 +11,16 @@
 
 The JAX package evaluates these MLPs horizontally packed; that is the
 same math, so the port computes them one by one.  Brownian draws are
-explicit unit normals (``eps``) supplied by the caller.
+explicit unit normals (``eps``) supplied by the caller.  With a bf16
+``dtype`` the state is bf16, and ``dt`` and ``eps`` are cast to it, as in
+the JAX steps: ``dt`` 0.1 becomes 0.10009765625.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from trajsde_tpu_torch.models.layers import GRUUnit
+from trajsde_tpu_torch.models.layers import GRUUnit, Linear, sigmoid
 
 
 def time_feats(t: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -32,13 +34,13 @@ def time_feats(t: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 class FFunc(nn.Module):
     """Posterior drift MLP."""
 
-    def __init__(self, embed_dim: int, num_layers: int = 2):
+    def __init__(self, embed_dim: int, num_layers: int = 2, dtype=None):
         super().__init__()
         D = embed_dim
         self.num_layers = num_layers
-        self.dense0 = nn.Linear(D + 2, D)
+        self.dense0 = Linear(D + 2, D, dtype)
         for i in range(num_layers):
-            self.add_module(f"dense{i + 1}", nn.Linear(D, D))
+            self.add_module(f"dense{i + 1}", Linear(D, D, dtype))
 
     def forward(self, t: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         h = self.dense0(time_feats(t, y))
@@ -50,20 +52,20 @@ class FFunc(nn.Module):
 class GFunc(nn.Module):
     """Diffusion magnitude MLP -> scalar sigmoid, [..., 1]."""
 
-    def __init__(self, embed_dim: int, num_layers: int = 2):
+    def __init__(self, embed_dim: int, num_layers: int = 2, dtype=None):
         super().__init__()
         D = embed_dim
         self.num_layers = num_layers
-        self.dense0 = nn.Linear(D + 2, D)
+        self.dense0 = Linear(D + 2, D, dtype)
         for i in range(num_layers - 1):
-            self.add_module(f"dense{i + 1}", nn.Linear(D, D))
-        self.dense_out = nn.Linear(D, 1)
+            self.add_module(f"dense{i + 1}", Linear(D, D, dtype))
+        self.dense_out = Linear(D, 1, dtype)
 
     def forward(self, t: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         h = self.dense0(time_feats(t, y))
         for i in range(self.num_layers - 1):
             h = getattr(self, f"dense{i + 1}")(torch.tanh(h))
-        return torch.sigmoid(self.dense_out(torch.tanh(h)))
+        return sigmoid(self.dense_out(torch.tanh(h)))
 
 
 class SDEGRUStep(nn.Module):
@@ -74,19 +76,21 @@ class SDEGRUStep(nn.Module):
     encoder gathers for the discrimination head.
     """
 
-    def __init__(self, embed_dim: int, sde_layers: int = 2, adaptive: bool = False):
+    def __init__(self, embed_dim: int, sde_layers: int = 2, adaptive: bool = False,
+                 dtype=None):
         super().__init__()
         if adaptive:
             raise NotImplementedError(
                 "adaptive=True (step-doubling SDE integration) is not ported "
                 "yet; the fixed-grid Euler path is the shipped configuration"
             )
-        self.f_func = FFunc(embed_dim, sde_layers)
-        self.g_nus = GFunc(embed_dim, sde_layers)
-        self.g_argo = GFunc(embed_dim, sde_layers)
-        self.gru = GRUUnit(embed_dim, embed_dim)
+        self.f_func = FFunc(embed_dim, sde_layers, dtype)
+        self.g_nus = GFunc(embed_dim, sde_layers, dtype)
+        self.g_argo = GFunc(embed_dim, sde_layers, dtype)
+        self.gru = GRUUnit(embed_dim, embed_dim, dtype)
 
     def forward(self, h, nus_mask, obs, obs_mask, t0, dt, eps):
+        dt, eps = dt.to(h.dtype), eps.to(h.dtype)
         f = self.f_func(t0, h)
         g = torch.where(nus_mask.unsqueeze(-1), self.g_nus(t0, h), self.g_argo(t0, h))
         y1 = h + f * dt + g * (torch.sqrt(dt) * eps)
@@ -96,12 +100,13 @@ class SDEGRUStep(nn.Module):
 class SDEStep(nn.Module):
     """One plain Euler-Maruyama step: ``y + f dt + g sqrt(dt) eps``."""
 
-    def __init__(self, embed_dim: int, sde_layers: int = 2):
+    def __init__(self, embed_dim: int, sde_layers: int = 2, dtype=None):
         super().__init__()
-        self.f_func = FFunc(embed_dim, sde_layers)
-        self.g_func = GFunc(embed_dim, sde_layers)
+        self.f_func = FFunc(embed_dim, sde_layers, dtype)
+        self.g_func = GFunc(embed_dim, sde_layers, dtype)
 
     def forward(self, y, t0, dt, eps):
+        dt, eps = dt.to(y.dtype), eps.to(y.dtype)
         f = self.f_func(t0, y)
         g = self.g_func(t0, y)
         return y + f * dt + g * (torch.sqrt(dt) * eps)

@@ -13,7 +13,9 @@
 Noise is explicit: ``sde_noise [Th, B, A+1, D]`` (iteration order, entry 0
 = newest step) and ``twin_noise [B, 1, Th, 2]``, or drawn from the
 caller's ``torch.Generator`` (twin first, then the SDE draws, then the
-dropout masks of AA and AL attention in training mode).
+dropout masks of AA and AL attention in training mode).  With a bf16
+``dtype`` the ODE-RNN state, its draws and the embeddings are bf16, and
+every output is cast back to f32, as in the JAX module.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ from torch import nn
 
 from trajsde_tpu_torch.data.scene import SceneBatch
 from trajsde_tpu_torch.models import graph
-from trajsde_tpu_torch.models.local_encoder import AAEncoder, ALEncoder
+from trajsde_tpu_torch.models.layers import compute_dtype
+from trajsde_tpu_torch.models.local_encoder import REMAT_NOT_PORTED, AAEncoder, ALEncoder
 from trajsde_tpu_torch.models.sde import SDEGRUStep, encoder_time_grid
 
 REAL_LABEL = 0.0
@@ -74,6 +77,8 @@ class LocalEncoderSDESep(nn.Module):
     ``fused=True`` runs the pair chain of both AA calls (the twin forward
     and ``forward_ood``) through kernel K3; the registry drops the JAX
     package's knobs of that kernel (``rows_fwd``, ``rows_bwd``, ``ln_mm``).
+    ``remat=True`` raises (not ported), and so does a bf16 ``dtype`` with
+    ``fused=True``.
     """
 
     def __init__(
@@ -95,6 +100,7 @@ class LocalEncoderSDESep(nn.Module):
         adjoint: bool = False,
         method: str = "euler",
         adaptive: bool = False,
+        remat: bool = False,
         dtype=None,
         fused: bool = False,
         ood_chunk: int = 0,
@@ -132,11 +138,9 @@ class LocalEncoderSDESep(nn.Module):
                 f"({seg:g}) would take several Euler substeps per segment; "
                 "this encoder integrates one step per segment"
             )
-        if dtype not in (None, "float32", torch.float32):
-            raise NotImplementedError(
-                f"dtype={dtype!r}: reduced-precision configs are not ported yet "
-                "(ROADMAP.md Queue 1 item 6)"
-            )
+        if remat:
+            raise NotImplementedError(REMAT_NOT_PORTED)
+        self.compute_dtype = compute_dtype(dtype)
         self.historical_steps = historical_steps
         self.embed_dim = embed_dim
         self.local_radius = float(local_radius)
@@ -145,9 +149,10 @@ class LocalEncoderSDESep(nn.Module):
         self.eval_iter = eval_iter
         self.ood_chunk = ood_chunk
         self.aa_encoder = AAEncoder(historical_steps, embed_dim, num_heads, node_dim,
-                                    edge_dim, dropout, fused=fused, neighbor_cap=neighbor_cap)
-        self.al_encoder = ALEncoder(embed_dim, num_heads, node_dim, edge_dim, dropout)
-        self.sde_rnn = SDEGRUStep(embed_dim, sde_layers, adaptive=adaptive)
+                                    edge_dim, dropout, fused=fused, neighbor_cap=neighbor_cap,
+                                    dtype=dtype)
+        self.al_encoder = ALEncoder(embed_dim, num_heads, node_dim, edge_dim, dropout, dtype)
+        self.sde_rnn = SDEGRUStep(embed_dim, sde_layers, adaptive=adaptive, dtype=dtype)
         self.hidden = nn.Parameter(torch.zeros(embed_dim))
 
     # ------------------------------------------------------------------
@@ -203,13 +208,15 @@ class LocalEncoderSDESep(nn.Module):
         B, A = scene.x.shape[0], scene.x.shape[1]
         Th, D = self.historical_steps, self.embed_dim
         dev, dt = scene.x.device, scene.x.dtype
+        state_dt = self.compute_dtype or dt
         if twin_noise is None:
             twin_noise = torch.randn((B, 1, Th, 2), generator=generator, device=dev, dtype=dt)
         if sde_noise is None:
-            sde_noise = torch.randn((Th, B, A + 1, D), generator=generator, device=dev, dtype=dt)
+            sde_noise = torch.randn((Th, B, A + 1, D), generator=generator, device=dev,
+                                    dtype=state_dt)
 
         aa_out, bos_q, valid_q, nus_row = self._aa_with_twin(scene, twin_noise, generator)
-        h0 = self.hidden.expand(B, A + 1, D)
+        h0 = self.hidden.expand(B, A + 1, D).to(state_dt)
         ys, gs = self._run_rnn(h0, aa_out, valid_q, nus_row, sde_noise)
         out, diff_in, diff_out = gather_eos_outputs(
             ys, gs, bos_q, self.ref_time, scene.agent_index, A
@@ -220,7 +227,7 @@ class LocalEncoderSDESep(nn.Module):
                               scene.rotate_mat(), generator)
         label_in = torch.full((B,), REAL_LABEL, device=dev)
         label_out = torch.full((B,), FAKE_LABEL, device=dev)
-        return out, diff_in, diff_out, label_in, label_out
+        return out.float(), diff_in.float(), diff_out.float(), label_in, label_out
 
     # ------------------------------------------------------------------
     def forward_ood(
@@ -247,7 +254,8 @@ class LocalEncoderSDESep(nn.Module):
         tile = lambda a: torch.cat([a] * chunk, dim=0)  # noqa: E731
         picked = []
         for _ in range(E // chunk):
-            h0 = torch.zeros((chunk * B, A, D), device=scene.x.device, dtype=scene.x.dtype)
+            h0 = torch.zeros((chunk * B, A, D), device=scene.x.device,
+                             dtype=self.compute_dtype or scene.x.dtype)
             noise = torch.randn((Th,) + h0.shape, generator=generator,
                                 device=h0.device, dtype=h0.dtype)
             ys, _ = self._run_rnn(h0, tile(aa_out), tile(valid), tile(nus_row), noise)
@@ -260,4 +268,4 @@ class LocalEncoderSDESep(nn.Module):
 
         al_mask, al_vec = graph.al_edges(scene, self.ref_time, self.local_radius)
         out = self.al_encoder(out, graph.lane_features(scene), al_vec, al_mask, rot)
-        return out, actors_std
+        return out.float(), actors_std.float()

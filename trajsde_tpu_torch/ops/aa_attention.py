@@ -139,8 +139,8 @@ def aa_attention(center_norm: torch.Tensor, x_k: torch.Tensor, pos_q: torch.Tens
     """
     del t_chunk  # the TPU's tiling of T; the kernel walks receiver groups
     if compute_dtype == "bfloat16":
-        raise NotImplementedError("aa_attention in bfloat16 waits for the port's bf16 work "
-                                  "(ROADMAP Queue 1 item 6); use compute_dtype='float32'")
+        raise NotImplementedError("aa_attention in bfloat16: bf16 inside the AA kernels is "
+                                  "ROADMAP.md Queue 1 item 6b; use compute_dtype='float32'")
     if compute_dtype != "float32":
         raise ValueError(f"compute_dtype must be 'float32', got {compute_dtype!r}")
     if _device_kind(center_norm, "aa_attention") == "cuda":
