@@ -182,6 +182,24 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      equals M1's count, then its train steps as N2's.  Each path is timed
      in turns with its f32 counterpart (``FLAGSHIP``, ``FLAGSHIP_TRAIN``,
      ``FLAGSHIP_CAPPED`` with the fused decoder), with peak memory.
+  O. the adaptive solver (after N; ``encoder.adaptive: true``, step
+     doubling in each ODE-RNN segment, no kernel of its own).  O1: a
+     Brownian tree at [6,272, 64] (bucket 128's twin rows), depth 8, on the
+     card: additive within ``TOL_TREE``, var W(t) within 5% of t, the same
+     bits whatever the query order, and within ``TOL_TREE`` of the port's
+     CPU tree on the same nodes.  O2: ``sdeint_adaptive`` on the card
+     reproduces the Ornstein-Uhlenbeck mean and variance (JAX's own case),
+     with the CPU run's counts on the same nodes.  O3: the adaptive
+     ``FLAGSHIP_FUSED`` encoder on the card vs the port's CPU run on
+     ADAPTIVE_SCENES scenes, the same weights, twin noise and tree nodes,
+     within ``TOL_ADAPTIVE_CPU`` of max|CPU|.  O4: ``ServingEngine.predict``
+     at bucket 128 over the adaptive ``FLAGSHIP_FUSED`` launches K3 and K1
+     once and the rest never, finite answers; the served bucket and the
+     encoder alone, adaptive and fixed grid, in turns (CUDA events, peak
+     memory).  O5: ``FLAGSHIP_TRAIN_FUSED`` with ``adaptive: true`` takes
+     ADAPTIVE_STEPS train steps at batch 128: K1-K4 once per step, finite
+     losses, finite non-zero gradients on ``f_func``, ``g_nus`` and
+     ``g_argo``; the step in turns against the fixed grid's.
 Phases 4, B, C and 7 check that K4 never launches on their paths, and the
 serving and training phases that K5 and K6 never do.
 The last lines are the card, a JSON object per kernel and the device line.
@@ -214,11 +232,14 @@ from trajsde_tpu_torch.data.pack import pack_scenes, pick_bucket
 from trajsde_tpu_torch.data.shards import convert_npz_dir
 from trajsde_tpu_torch.data.synthetic import make_raw_scene
 from trajsde_tpu_torch.models import graph
+from trajsde_tpu_torch.models.sde import ADAPTIVE_DEPTH
 from trajsde_tpu_torch.ops import aa_attention as K5
 from trajsde_tpu_torch.ops import aa_fused as K3
 from trajsde_tpu_torch.ops import build as kernel_build
 from trajsde_tpu_torch.ops import sde_rollout as K1
 from trajsde_tpu_torch.ops import vpu_probe as K6
+from trajsde_tpu_torch.ops.brownian import BrownianTree
+from trajsde_tpu_torch.ops.sdeint import ou_moments, sdeint_adaptive
 from trajsde_tpu_torch.server import ServingEngine, align_scene
 from trajsde_tpu_torch.serving import make_serving_fn
 from trajsde_tpu_torch.train.checkpoint import CheckpointManager
@@ -339,6 +360,15 @@ CAPPED_ROUNDS, ACCUM_BATCH, SAVE_ROUNDS = 2, 64, 3
 # the rounds of its turns against f32
 TOL_BF16_PI = 0.15
 BF16_STEPS, BF16_ROUNDS = 3, 3
+# phase O: the tree's rows (bucket 128 x 49 twin-forward rows) and its
+# limits (f32 bridge arithmetic, the CUDA cores' FMA against the CPU's);
+# the encoder on the card vs the CPU, max|diff| / max|CPU| (21 segments of
+# step doubling and K3 against its plain version); the scenes of that
+# comparison and the train steps (its turns take BF16_ROUNDS rounds)
+ADAPTIVE_ROWS = 128 * 49
+TOL_TREE = 1e-6
+TOL_ADAPTIVE_CPU = 1e-4
+ADAPTIVE_SCENES, ADAPTIVE_STEPS = 4, 3
 # H100 SXM published peaks (dense): f32 on CUDA cores, TF32 and f64 on the
 # tensor cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -2539,8 +2569,8 @@ def _in_turns(fns: dict, runs: int = 3) -> tuple:
     return times, peaks
 
 
-def _print_turns(card: str, what: str, times: dict, peaks: dict) -> None:
-    print(f"[bf16] {card}: {what}: " + "; ".join(
+def _print_turns(card: str, what: str, times: dict, peaks: dict, tag: str = "bf16") -> None:
+    print(f"[{tag}] {card}: {what}: " + "; ".join(
         f"{k} " + ", ".join(f"{t:.2f}" for t in v) + f" ms, peak {peaks[k]:.2f} GiB"
         for k, v in times.items()) + f" (CUDA events, medians of 3, {BF16_ROUNDS} rounds in "
         "turns)", flush=True)
@@ -2706,6 +2736,206 @@ def phase_bf16(card: str, capped_overflow: int) -> dict:
     return out
 
 
+def _adaptive(cfg):
+    cfg = copy.deepcopy(cfg)
+    cfg["encoder"]["kwargs"]["adaptive"] = True
+    return cfg
+
+
+def _tree_checks() -> dict:
+    """O1: the Brownian tree on the card at bucket 128's twin rows."""
+    D = FLAGSHIP["encoder"]["kwargs"]["embed_dim"]
+    shape = (ADAPTIVE_ROWS, D)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    nodes = torch.randn((2 ** ADAPTIVE_DEPTH,) + shape, generator=gen, device="cuda")
+    tree, again = (BrownianTree(0.0, 1.0, shape, ADAPTIVE_DEPTH, nodes) for _ in range(2))
+
+    def at(x):
+        return torch.full((), x, device="cuda")
+
+    additive = max(float((tree.increment(at(s), at(u)) + tree.increment(at(u), at(v))
+                          - tree.increment(at(s), at(v))).abs().max())
+                   for s, u, v in ((0.0, 0.5, 1.0), (0.125, 0.25, 0.75), (0.3, 0.41, 0.97),
+                                   (0.0, 0.0625, 0.125)))
+    var = {x: float(tree(at(x)).double().var()) / x for x in (0.25, 0.5, 1.0)}
+    qs = (0.75, 0.25, 1.0, 0.5, 0.0, 0.33)
+    first = [tree(at(x)) for x in qs]
+    order = all(torch.equal(a, b) for a, b in zip(first, [again(at(x)) for x in qs[::-1]][::-1]))
+    cpu = BrownianTree(0.0, 1.0, shape, ADAPTIVE_DEPTH, nodes.cpu())
+    vs_cpu = float((tree.leaves.cpu() - cpu.leaves).abs().max())
+    print(f"[adaptive] O1 tree {shape}, depth {ADAPTIVE_DEPTH}, on the card: additivity "
+          f"{additive:.3e} (tol {TOL_TREE:g}), var W(t) / t " + ", ".join(
+              f"t={x}: {v:.4f}" for x, v in var.items()) + f", query order bit-equal {order}, "
+          f"max|card - CPU| over the {cpu.leaves.shape[0]} leaves {vs_cpu:.3e} (tol "
+          f"{TOL_TREE:g})", flush=True)
+    check(additive <= TOL_TREE, "the tree on the card is not additive")
+    check(all(abs(v - 1.0) <= 0.05 for v in var.values()), "var W(t) is not t within 5%")
+    check(order, "the tree's values depend on the order of the queries")
+    check(vs_cpu <= TOL_TREE, "the tree on the card is not the CPU's on the same nodes")
+    return dict(additivity=additive, var_over_t=var, order_bit_equal=order, vs_cpu=vs_cpu)
+
+
+def _ou_check() -> dict:
+    """O2: JAX's Ornstein-Uhlenbeck case (tests/test_adaptive.py) on the
+    card, and the CPU on the same nodes."""
+    theta, mu, sigma, n = 1.0, 0.3, 0.5, 8192
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 52)
+    nodes = torch.randn((2 ** 10, n, 1), generator=gen, device="cuda")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        ys, st = sdeint_adaptive(lambda t, y: theta * (mu - y),
+                                 lambda t, y: torch.full_like(y, sigma),
+                                 torch.full((n, 1), 1.5, device=dev),
+                                 torch.tensor([0.0, 1.0], device=dev), dt0=0.05, rtol=2e-3,
+                                 atol=2e-3, max_steps=128, depth=10, nodes=nodes.to(dev))
+        runs[dev] = (ys, {k: float(v) for k, v in st.items()})
+    ys, st = runs["cuda"]
+    ms = cuda_ms(lambda: sdeint_adaptive(
+        lambda t, y: theta * (mu - y), lambda t, y: torch.full_like(y, sigma),
+        torch.full((n, 1), 1.5, device="cuda"), torch.tensor([0.0, 1.0], device="cuda"),
+        dt0=0.05, rtol=2e-3, atol=2e-3, max_steps=128, depth=10, nodes=nodes), runs=3, warmup=1)
+    mean_ref, var_ref = (float(v) for v in ou_moments(1.5, theta, mu, sigma, 1.0))
+    samples = ys[0, :, 0].double()
+    mean, var = float(samples.mean()), float(samples.var(unbiased=False))
+    vs_cpu = float((ys.cpu() - runs["cpu"][0]).abs().max())
+    print(f"[adaptive] O2 OU on the card, {n} paths, depth 10: accepted {st['n_accepted']:.0f}, "
+          f"rejected {st['n_rejected']:.0f}, converged {bool(st['converged'])}, final dt "
+          f"{st['final_dt']:.4g}; mean {mean:.4f} (analytic {mean_ref:.4f}, tol 0.03), var "
+          f"{var:.4f} (analytic {var_ref:.4f}, rtol 0.15); the CPU on the same nodes: counts "
+          f"{runs['cpu'][1]}, max|card - CPU| {vs_cpu:.3e}; {ms:.2f} ms a solve (CUDA events, "
+          f"128 iterations)", flush=True)
+    check(bool(st["converged"]), "the OU solve did not reach t = 1")
+    check(abs(mean - mean_ref) <= 0.03 and abs(var / var_ref - 1.0) <= 0.15,
+          "the OU moments are off")
+    return dict(stats=st, cpu_stats=runs["cpu"][1], mean=mean, var=var, vs_cpu=vs_cpu, ms=ms)
+
+
+@torch.inference_mode()
+def _encoder_vs_cpu() -> dict:
+    """O3: the adaptive fused encoder on the card vs the port on the CPU."""
+    cfg = _adaptive(FLAGSHIP_FUSED)
+    card_model = build_model(cfg, device="cuda", seed=SEED)
+    cpu_model = build_model(cfg, device="cpu", seed=SEED)
+    enc = cpu_model.encoder
+    B, Th, D = ADAPTIVE_SCENES, enc.historical_steps, enc.embed_dim
+    scene = _train_batch(np.random.default_rng(SEED + 53), B)
+    gen = torch.Generator().manual_seed(SEED + 54)
+    tw = torch.randn((B, 1, Th, 2), generator=gen)
+    nodes = torch.randn((Th, 2 ** ADAPTIVE_DEPTH, B, NUM_ACTORS + 1, D), generator=gen)
+    zero_counts()
+    got = card_model.encoder(scene.to("cuda"), twin_noise=tw.cuda(), sde_nodes=nodes.cuda())
+    launches = _counts()
+    want = enc(scene, twin_noise=tw, sde_nodes=nodes)
+    errs = {k: float((g.cpu() - w).abs().max() / w.abs().max().clamp_min(1e-30))
+            for k, g, w in zip(("local", "diff_in", "diff_out"), got, want)}
+    print(f"[adaptive] O3 the adaptive FLAGSHIP_FUSED encoder on the card vs the CPU, {B} scenes, "
+          f"pinned twin noise and tree nodes: max|card - CPU| / max|CPU| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tol {TOL_ADAPTIVE_CPU:g}); launches on the card {launches}", flush=True)
+    check(all(v <= TOL_ADAPTIVE_CPU for v in errs.values()),
+          "the adaptive encoder on the card disagrees with the CPU")
+    check(launches["aa_fused"] == 1, "the adaptive encoder did not launch K3 once")
+    return errs
+
+
+def _adaptive_steps(tag: str, cfg, model, scene) -> tuple:
+    """ADAPTIVE_STEPS train steps of ``model`` on ``scene``: K1-K4 once per
+    step and K5 / K6 never, finite losses, finite non-zero gradients on the
+    three SDE nets of the ODE-RNN.  Returns (the first step's launches, the
+    losses, the step function)."""
+    state = create_train_state(model, cfg["training_specific"], steps_per_epoch=1, seed=SEED)
+    step = make_train_step(model, state.optimizer, state.scheduler, build_losses(cfg),
+                           torch.device("cuda"))
+    want = {"sde_rollout": 1, "sde_rollout_bwd": 1, "aa_fused": 1, "aa_fused_bwd": 1,
+            "aa_attention": 0, "vpu_probe": 0}
+    rnn = model.encoder.sde_rnn
+    totals, first = [], None
+    for i in range(ADAPTIVE_STEPS):
+        zero_counts()
+        logs = step(scene, i, SEED)
+        launches = _counts()
+        first = first or launches
+        totals.append(float(logs["train/total"]))
+        check(launches == want, f"[{tag}] train step {i} launched {launches}, not K1-K4 once")
+        check(np.isfinite(totals[-1]) and logs["train/step_skipped"] == 0.0,
+              f"[{tag}] non-finite train step {i}")
+        for name in ("f_func", "g_nus", "g_argo"):
+            grads = [p.grad for p in getattr(rnn, name).parameters()]
+            check(all(g is not None and bool(torch.isfinite(g).all()) for g in grads)
+                  and any(float(g.abs().max()) > 0 for g in grads),
+                  f"[{tag}] step {i}: the gradient of {name} is missing, non-finite or 0")
+    print(f"[{tag}] {ADAPTIVE_STEPS} train steps at batch {TRAIN_BATCH}: loss "
+          + " ".join(f"{x:.4f}" for x in totals) + f", launches each {first}; f_func, g_nus and "
+          "g_argo gradients finite and non-zero", flush=True)
+    counter = [ADAPTIVE_STEPS]
+
+    def again():
+        step(scene, counter[0], SEED)
+        counter[0] += 1
+
+    return first, totals, again
+
+
+def phase_adaptive(card: str) -> dict:
+    """O. ``encoder.adaptive: true`` on the card: the tree (O1), the solver
+    (O2), the encoder vs the CPU (O3), serving (O4) and training (O5); see
+    the module docstring."""
+    t_phase = time.perf_counter()
+    out = {"tree": _tree_checks(), "ou": _ou_check(), "encoder_vs_cpu": _encoder_vs_cpu()}
+    torch.cuda.empty_cache()
+
+    # O4: serving at bucket 128
+    ada = build_model(_adaptive(FLAGSHIP_FUSED), device="cuda", seed=SEED)
+    fix = build_model(FLAGSHIP_FUSED, device="cuda", seed=SEED)
+    engine = ServingEngine(ada, num_actors=NUM_ACTORS, num_lanes=NUM_LANES, device="cuda",
+                           seed=SEED)
+    requests = _requests(np.random.default_rng(SEED))[TRAIN_BATCH]
+    engine.predict(requests[:1])
+    zero_counts()
+    results = engine.predict(requests)
+    served = _counts()
+    engine.close()
+    _check_results(results, TRAIN_BATCH, ada)
+    check(served == {"sde_rollout": 1, "sde_rollout_bwd": 0, "aa_fused": 1, "aa_fused_bwd": 0,
+                     "aa_attention": 0, "vpu_probe": 0},
+          f"the adaptive engine's bucket {TRAIN_BATCH} launched {served}, not K3 and K1 once")
+    print(f"[adaptive] O4 ServingEngine.predict over the adaptive FLAGSHIP_FUSED at bucket "
+          f"{TRAIN_BATCH}: launches {served}; loc and pi finite", flush=True)
+    scene = _train_batch(np.random.default_rng(SEED + 55), TRAIN_BATCH).to("cuda")
+    serve_a, serve_f = make_serving_fn(ada, "cuda"), make_serving_fn(fix, "cuda")
+
+    def encode(m):
+        with torch.inference_mode():
+            m.encoder(scene)
+
+    times, peaks = _in_turns({"adaptive": lambda: serve_a(scene, SEED),
+                              "fixed": lambda: serve_f(scene, SEED),
+                              "adaptive encoder": lambda: encode(ada),
+                              "fixed encoder": lambda: encode(fix)})
+    _print_turns(card, f"served bucket {TRAIN_BATCH} (FLAGSHIP_FUSED, adaptive vs fixed grid, "
+                 "K3 + K1) and its encoder alone", times, peaks, "adaptive")
+    out["serve"] = dict(launches=served, ms=times, peak_gib=peaks)
+    del engine, ada, fix, serve_a, serve_f
+    torch.cuda.empty_cache()
+
+    # O5: training with both fused paths
+    cfg_a = _adaptive(FLAGSHIP_TRAIN_FUSED)
+    ada = build_model(cfg_a, device="cuda", seed=SEED)
+    fix = build_model(FLAGSHIP_TRAIN_FUSED, device="cuda", seed=SEED)
+    batch = _train_batch(np.random.default_rng(SEED + 3), TRAIN_BATCH).to("cuda")
+    launches, losses, step_a = _adaptive_steps("adaptive train", cfg_a, ada, batch)
+    _, fixed_losses, step_f = _adaptive_steps("fixed train", FLAGSHIP_TRAIN_FUSED, fix, batch)
+    times, peaks = _in_turns({"adaptive": step_a, "fixed": step_f})
+    _print_turns(card, f"train step at batch {TRAIN_BATCH} (FLAGSHIP_TRAIN_FUSED, adaptive vs "
+                 "fixed grid, K1-K4)", times, peaks, "adaptive")
+    out["train"] = dict(launches=launches, losses=losses, fixed_losses=fixed_losses, ms=times,
+                        peak_gib=peaks)
+    del ada, fix, step_a, step_f
+    torch.cuda.empty_cache()
+    print(f"[adaptive] phase O: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
@@ -2761,6 +2991,7 @@ def main() -> None:
         accum = phase_accum(d, card)
         torch.cuda.empty_cache()
         bf16 = phase_bf16(card, capped["overflow_edges"])
+    adaptive = phase_adaptive(card)
     k3.update(baseline["k3"])
     k4.update(baseline["k4"])
     # launches: the count on the kernel's own main path (serving for K1,
@@ -2807,6 +3038,9 @@ def main() -> None:
         entry["launches_by_path"]["bf16_serve"] = bf16["serve"]["launches"][name]
         entry["launches_by_path"]["bf16_train"] = bf16["train"]["launches"][name]
         entry["launches_by_path"]["bf16_capped_train"] = bf16["capped"]["launches"][name]
+        # phase O: adaptive: true served at bucket 128, and an adaptive train step
+        entry["launches_by_path"]["adaptive_serve"] = adaptive["serve"]["launches"][name]
+        entry["launches_by_path"]["adaptive_train"] = adaptive["train"]["launches"][name]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches: {served} serving + "
           f"{served_fused} fused serving + {train['sde_rollout']} training + "
           f"{train_fused['sde_rollout']} fused-encoder training; K2 launches: "
@@ -2828,7 +3062,8 @@ def main() -> None:
           + f"; a train step at cap {CAP}: {capped['step_launches']}; the --accum 2 CLI's "
           f"epoch: {accum['cli_train']['launches']}; bf16 bucket {TRAIN_BATCH}, train step and "
           f"step at cap {CAP}: {bf16['serve']['launches']}, {bf16['train']['launches']}, "
-          f"{bf16['capped']['launches']}", flush=True)
+          f"{bf16['capped']['launches']}; adaptive bucket {TRAIN_BATCH} and train step: "
+          f"{adaptive['serve']['launches']}, {adaptive['train']['launches']}", flush=True)
     print(card)
     print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

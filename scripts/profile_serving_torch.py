@@ -2,11 +2,14 @@
 """Where a served batch's time goes in the PyTorch/CUDA port, on one GPU.
 
     python scripts/profile_serving_torch.py [--batch 128] [--runs 10] [--fused-encoder | --bf16]
+                                            [--adaptive]
 
 Flagship model at full width (seeded weights), 48 actors / 192 lanes;
 ``--fused-encoder`` serves ``FLAGSHIP_FUSED`` instead (``encoder.fused:
 true``: the AA pair chain in kernel K3, the same weights), ``--bf16``
-``FLAGSHIP_BF16`` (``dtype: bfloat16``, the same weights).
+``FLAGSHIP_BF16`` (``dtype: bfloat16``, the same weights); ``--adaptive``
+sets ``encoder.adaptive: true`` on that config (the ODE-RNN's segments by
+step doubling, each segment's Brownian-tree nodes drawn on the card).
 Prints one JSON line: host stages (align, pack, host->device copy,
 result fetch) on the host clock, device stages (encoder AA attention,
 ODE-RNN, AL attention; aggregator; fuse; rollout kernel; heads;
@@ -18,6 +21,7 @@ its LayerNorm kernels and of each kernel group
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import statistics
 import subprocess
@@ -76,6 +80,8 @@ def main() -> None:
     mode.add_argument("--fused-encoder", action="store_true",
                       help="serve FLAGSHIP_FUSED (AA pair chain in kernel K3)")
     mode.add_argument("--bf16", action="store_true", help="serve FLAGSHIP_BF16")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="with encoder.adaptive: true (step-doubling ODE-RNN)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA device")
@@ -83,7 +89,9 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     B, R = args.batch, args.runs
-    cfg = FLAGSHIP_FUSED if args.fused_encoder else FLAGSHIP_BF16 if args.bf16 else FLAGSHIP
+    cfg = copy.deepcopy(FLAGSHIP_FUSED if args.fused_encoder else FLAGSHIP_BF16 if args.bf16
+                        else FLAGSHIP)
+    cfg["encoder"]["kwargs"]["adaptive"] = args.adaptive
     model = build_model(cfg, device="cuda", seed=0)
     enc, agg, dec = model.encoder, model.aggregator, model.decoder
     rng = np.random.default_rng(0)
@@ -101,7 +109,8 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     Th, D = enc.historical_steps, enc.embed_dim
     tw = torch.randn((B, 1, Th, 2), generator=gen, device="cuda")
-    en = torch.randn((Th, B, A + 1, D), generator=gen, device="cuda")
+    # the fixed grid's pinned draws; the adaptive step draws its trees' nodes
+    en = None if args.adaptive else torch.randn((Th, B, A + 1, D), generator=gen, device="cuda")
     aa = enc._aa_with_twin(scene, tw)
     h0 = enc.hidden.expand(B, A + 1, D).to(enc.compute_dtype or torch.float32)
     ys, gs = enc._run_rnn(h0, aa[0], aa[2], aa[3], en)
@@ -156,6 +165,7 @@ def main() -> None:
     report = {
         "card": card, "batch": B, "actors": A, "lanes": L, "runs": R,
         "encoder_fused": args.fused_encoder, "dtype": "bfloat16" if args.bf16 else "float32",
+        "encoder_adaptive": args.adaptive,
         "host_ms": host, "device_ms": device, "predict_ms": predict_ms,
         "profiled_predict_wall_ms": wall,
         "device_busy_ms": busy if busy > 0 else None,

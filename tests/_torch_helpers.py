@@ -246,3 +246,67 @@ def check_grads_bf16(got, want, leaf_rel, floor, l2_rel):
     l2 = (num / den) ** 0.5
     assert not failures and l2 <= l2_rel, (failures[:10], l2)
     return worst, l2
+
+
+# ---------------------------------------------------------------------------
+# the adaptive solver's noise (``adaptive: true``)
+# ---------------------------------------------------------------------------
+def tree_nodes(key, shape, depth):
+    """The node normals JAX's ``BrownianTree(key, ..., shape, depth=depth)``
+    draws, node c = 1 .. 2**depth at row c - 1: ``normal(fold_in(key, c))``
+    in f32 (a JAX array)."""
+    import jax.numpy as jnp
+
+    counters = jnp.arange(1, 2 ** depth + 1)
+    return jax.vmap(lambda c: jax.random.normal(jax.random.fold_in(key, c), tuple(shape),
+                                                jnp.float32))(counters)
+
+
+class AdaptiveNodes:
+    """Records the tree nodes of every ``sdeint_adaptive`` call the JAX
+    package makes while installed (:func:`capture_adaptive_nodes`): the
+    wrapper draws them from the call's key with :func:`tree_nodes` and sends
+    them out through ``jax.debug.callback``, tagged by the trace that made
+    the call (one per ``nn.scan`` of the encoder) and the segment's start."""
+
+    def __init__(self):
+        self.records = {}
+        self.traces = 0
+
+    def wrap(self, original):
+        def sdeint_adaptive(f, g, y0, ts, key, **kw):
+            tag = self.traces
+            self.traces += 1
+            nodes = tree_nodes(key, y0.shape, kw.get("depth", 12))
+
+            def record(n, t0):
+                self.records[(tag, float(t0))] = np.asarray(n)
+
+            jax.debug.callback(record, nodes, ts[0])
+            return original(f, g, y0, ts, key, **kw)
+
+        return sdeint_adaptive
+
+    def stacked(self):
+        """The nodes of every recorded call in (trace, start) order, one
+        trace's calls (the segments of one ODE-RNN run) per entry:
+        ``[[Th, 2**depth, ...], ...]``."""
+        tags = sorted({tag for tag, _ in self.records})
+        return [np.stack([self.records[k] for k in sorted(self.records) if k[0] == tag])
+                for tag in tags]
+
+
+@contextlib.contextmanager
+def capture_adaptive_nodes():
+    """Patch ``trajsde_tpu.ops.sdeint.sdeint_adaptive`` (the JAX step
+    imports it at call time) with a recording wrapper; yields the
+    :class:`AdaptiveNodes`."""
+    import trajsde_tpu.ops.sdeint as jax_sdeint
+
+    rec = AdaptiveNodes()
+    original = jax_sdeint.sdeint_adaptive
+    jax_sdeint.sdeint_adaptive = rec.wrap(original)
+    try:
+        yield rec
+    finally:
+        jax_sdeint.sdeint_adaptive = original

@@ -70,8 +70,15 @@ def test_registry_aliases_filtering_and_guards():
     fused = tconfig.build("LocalEncoderSDESep", dict(kw, fused=True, rows_fwd=128, rows_bwd=24,
                                                      ln_mm=False))
     assert fused.aa_encoder.fused
+    # adaptive: true builds with the config's rtol / atol, and refuses explicit sde_noise
+    adaptive = tconfig.build("LocalEncoderSDESep", dict(kw, adaptive=True))
+    assert adaptive.sde_rnn.adaptive and (adaptive.sde_rnn.rtol, adaptive.sde_rnn.atol) == (
+        kw["rtol"], kw["atol"])
+    _, scene = scene_pair(0, B=1, A=3, L=4)
+    Th, D = kw["historical_steps"], kw["embed_dim"]
+    with pytest.raises(NotImplementedError, match="sde_noise"):
+        adaptive(scene, sde_noise=torch.zeros(Th, 1, 4, D))
     for bad, err in [({"neighbor_cap": 24, "fused": True}, NotImplementedError),
-                     ({"adaptive": True}, NotImplementedError),
                      ({"dtype": "bfloat16", "fused": True}, NotImplementedError),
                      ({"dtype": "float16"}, ValueError),
                      ({"remat": True}, NotImplementedError),

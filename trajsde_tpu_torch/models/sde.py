@@ -6,12 +6,15 @@
 * ``GFunc``: Linear(D+2 -> D), (num_layers - 1) x (tanh, Linear), then
   tanh, Linear(D -> 1), sigmoid: one diffusion magnitude per row.
 * ``SDEGRUStep``: one Euler-Maruyama segment with the diffusion net picked
-  per row by the nuScenes mask, then the masked GRU fusion.
+  per row by the nuScenes mask, then the masked GRU fusion; with
+  ``adaptive=True`` the segment is integrated by bounded step doubling
+  (:func:`trajsde_tpu_torch.ops.sdeint.sdeint_adaptive`).
 * ``SDEStep``: one plain Euler-Maruyama step (the decoder rollout).
 
 The JAX package evaluates these MLPs horizontally packed; that is the
 same math, so the port computes them one by one.  Brownian draws are
-explicit unit normals (``eps``) supplied by the caller.  With a bf16
+explicit unit normals (``eps``) supplied by the caller, or, in the adaptive
+step, the node normals of the segment's Brownian tree (``nodes``).  With a bf16
 ``dtype`` the state is bf16, and ``dt`` and ``eps`` are cast to it, as in
 the JAX steps: ``dt`` 0.1 becomes 0.10009765625.
 """
@@ -21,6 +24,12 @@ import torch
 from torch import nn
 
 from trajsde_tpu_torch.models.layers import GRUUnit, Linear, sigmoid
+from trajsde_tpu_torch.ops.sdeint import sdeint_adaptive
+
+# levels of the adaptive step's Brownian tree: 2**8 node normals a segment
+ADAPTIVE_DEPTH = 8
+NOISE_NEEDS_FIXED_GRID = ("explicit sde_noise requires the fixed-grid path (adaptive=False); "
+                          "the adaptive branch draws from its own BrownianTree")
 
 
 def time_feats(t: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -71,29 +80,52 @@ class GFunc(nn.Module):
 class SDEGRUStep(nn.Module):
     """One ODE-RNN step: Euler-Maruyama segment + masked GRU fusion.
 
-    ``forward(h, nus_mask, obs, obs_mask, t0, dt, eps)`` returns
-    ``(h_next, g)`` with ``g [...]`` the diffusion magnitude tap that the
-    encoder gathers for the discrimination head.
+    ``forward(h, nus_mask, obs, obs_mask, t0, dt, eps=None, nodes=None)``
+    returns ``(h_next, g)`` with ``g [...]`` the diffusion magnitude tap that
+    the encoder gathers for the discrimination head.  The fixed grid takes
+    one step with the unit normals ``eps`` and taps ``g`` at the segment's
+    start.  ``adaptive=True`` integrates ``[t0, t0 + dt]`` by step doubling
+    (``dt0 = dt / 2``, ``dt_min = dt / 64``, ``adaptive_max_steps``
+    iterations, a depth-8 Brownian tree on the node normals ``nodes
+    [256, *h.shape]``), the state in f32 inside the solver, and taps ``g``
+    at the segment's end state.  ``dt`` is cast to the state's dtype first
+    in both.
     """
 
     def __init__(self, embed_dim: int, sde_layers: int = 2, adaptive: bool = False,
-                 dtype=None):
+                 dtype=None, rtol: float = 1e-3, atol: float = 1e-3,
+                 adaptive_max_steps: int = 8):
         super().__init__()
-        if adaptive:
-            raise NotImplementedError(
-                "adaptive=True (step-doubling SDE integration) is not ported "
-                "yet; the fixed-grid Euler path is the shipped configuration"
-            )
+        self.adaptive = adaptive
+        self.rtol, self.atol = float(rtol), float(atol)
+        self.adaptive_max_steps = adaptive_max_steps
         self.f_func = FFunc(embed_dim, sde_layers, dtype)
         self.g_nus = GFunc(embed_dim, sde_layers, dtype)
         self.g_argo = GFunc(embed_dim, sde_layers, dtype)
         self.gru = GRUUnit(embed_dim, embed_dim, dtype)
 
-    def forward(self, h, nus_mask, obs, obs_mask, t0, dt, eps):
-        dt, eps = dt.to(h.dtype), eps.to(h.dtype)
-        f = self.f_func(t0, h)
-        g = torch.where(nus_mask.unsqueeze(-1), self.g_nus(t0, h), self.g_argo(t0, h))
-        y1 = h + f * dt + g * (torch.sqrt(dt) * eps)
+    def forward(self, h, nus_mask, obs, obs_mask, t0, dt, eps=None, nodes=None):
+        dt = dt.to(h.dtype)
+        mask = nus_mask.unsqueeze(-1)
+
+        def g_fn(t, y):
+            return torch.where(mask, self.g_nus(t, y), self.g_argo(t, y))
+
+        if self.adaptive:
+            if eps is not None:
+                raise NotImplementedError(NOISE_NEEDS_FIXED_GRID)
+            ts = torch.stack([t0.float(), (t0 + dt).float()])
+            ys, _ = sdeint_adaptive(self.f_func, g_fn, h, ts, dt0=dt / 2.0, rtol=self.rtol,
+                                    atol=self.atol, dt_min=dt / 64.0,
+                                    max_steps=self.adaptive_max_steps, depth=ADAPTIVE_DEPTH,
+                                    nodes=nodes)
+            y1 = ys[-1].to(h.dtype)
+            g = g_fn(t0 + dt, y1)
+        else:
+            eps = eps.to(h.dtype)
+            f = self.f_func(t0, h)
+            g = g_fn(t0, h)
+            y1 = h + f * dt + g * (torch.sqrt(dt) * eps)
         return self.gru(y1, obs, obs_mask), g[..., 0]
 
 

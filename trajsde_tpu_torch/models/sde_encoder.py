@@ -16,6 +16,17 @@ caller's ``torch.Generator`` (twin first, then the SDE draws, then the
 dropout masks of AA and AL attention in training mode).  With a bf16
 ``dtype`` the ODE-RNN state, its draws and the embeddings are bf16, and
 every output is cast back to f32, as in the JAX module.
+
+``adaptive=True`` integrates each segment by bounded step doubling
+(``SDEGRUStep``), with ``rtol`` / ``atol``.  Its noise is one depth-8
+Brownian tree per segment, whose 256 node normals (f32, the state's shape)
+are pinned as ``sde_nodes [Th, 256, B, A+1, D]`` (iteration order) or drawn
+from the generator: the twin first, then the AA dropout masks (training
+mode), then each segment's nodes in iteration order, just before the
+segment runs, then the AL dropout masks.  Only one segment's nodes are
+alive at a time.  ``sde_noise`` with ``adaptive`` raises, as in JAX.  The
+error that sizes the steps is one RMS over the whole batch, so every row
+of a batch, padding rows included, shares its steps.
 """
 from __future__ import annotations
 
@@ -28,7 +39,8 @@ from trajsde_tpu_torch.data.scene import SceneBatch
 from trajsde_tpu_torch.models import graph
 from trajsde_tpu_torch.models.layers import compute_dtype
 from trajsde_tpu_torch.models.local_encoder import REMAT_NOT_PORTED, AAEncoder, ALEncoder
-from trajsde_tpu_torch.models.sde import SDEGRUStep, encoder_time_grid
+from trajsde_tpu_torch.models.sde import (ADAPTIVE_DEPTH, NOISE_NEEDS_FIXED_GRID, SDEGRUStep,
+                                          encoder_time_grid)
 
 REAL_LABEL = 0.0
 FAKE_LABEL = 1.0
@@ -72,8 +84,8 @@ def gather_eos_outputs(ys, gs, bos_q, ref_time: int, agent_index, num_actors: in
 class LocalEncoderSDESep(nn.Module):
     """Registry name ``LocalEncoderSDESepPara2`` (config-compatible kwargs).
 
-    Only the shipped combination (fixed-grid Euler, no adjoint, backwards
-    ODE-RNN, one step per segment) is implemented; anything else raises.
+    Euler only (fixed grid, one step per segment, or ``adaptive`` step
+    doubling), no adjoint, backwards ODE-RNN; anything else raises.
     ``fused=True`` runs the pair chain of both AA calls (the twin forward
     and ``forward_ood``) through kernel K3; the registry drops the JAX
     package's knobs of that kernel (``rows_fwd``, ``rows_bwd``, ``ln_mm``).
@@ -100,6 +112,8 @@ class LocalEncoderSDESep(nn.Module):
         adjoint: bool = False,
         method: str = "euler",
         adaptive: bool = False,
+        rtol: float = 1e-3,
+        atol: float = 1e-3,
         remat: bool = False,
         dtype=None,
         fused: bool = False,
@@ -152,7 +166,9 @@ class LocalEncoderSDESep(nn.Module):
                                     edge_dim, dropout, fused=fused, neighbor_cap=neighbor_cap,
                                     dtype=dtype)
         self.al_encoder = ALEncoder(embed_dim, num_heads, node_dim, edge_dim, dropout, dtype)
-        self.sde_rnn = SDEGRUStep(embed_dim, sde_layers, adaptive=adaptive, dtype=dtype)
+        self.adaptive = adaptive
+        self.sde_rnn = SDEGRUStep(embed_dim, sde_layers, adaptive=adaptive, dtype=dtype,
+                                  rtol=rtol, atol=atol)
         self.hidden = nn.Parameter(torch.zeros(embed_dim))
 
     # ------------------------------------------------------------------
@@ -181,19 +197,34 @@ class LocalEncoderSDESep(nn.Module):
         nus_row = (scene.source == 0)[:, None].expand(B, A + 1)
         return aa_out, bos_q, valid_q, nus_row
 
-    def _run_rnn(self, h, aa_out, valid_q, nus_row, sde_noise):
+    def _run_rnn(self, h, aa_out, valid_q, nus_row, sde_noise=None, sde_nodes=None,
+                 generator=None):
         """Run the ODE-RNN newest -> oldest (iteration k consumes time step
-        Th-1-k); returns iteration-ordered ys [Th, B, N, D], gs [Th, B, N]."""
+        Th-1-k); returns iteration-ordered ys [Th, B, N, D], gs [Th, B, N].
+        The fixed grid takes ``sde_noise [Th, B, N, D]``; the adaptive step
+        takes ``sde_nodes [Th, 256, B, N, D]`` or draws each segment's nodes
+        from ``generator`` just before the segment."""
         Th = self.historical_steps
         t0s, dts = encoder_time_grid(Th, self.max_past_t, device=h.device)
         ys, gs = [], []
         for k in range(Th):
             t = Th - 1 - k
-            h, g = self.sde_rnn(h, nus_row, aa_out[:, t], valid_q[:, :, t],
-                                t0s[k], dts[k], sde_noise[k])
+            step = (h, nus_row, aa_out[:, t], valid_q[:, :, t], t0s[k], dts[k])
+            if self.adaptive:
+                h, g = self.sde_rnn(*step, nodes=self._nodes(h, sde_nodes, k, generator))
+            else:
+                h, g = self.sde_rnn(*step, eps=sde_noise[k])
             ys.append(h)
             gs.append(g)
         return torch.stack(ys), torch.stack(gs)
+
+    @staticmethod
+    def _nodes(h, sde_nodes, k: int, generator) -> torch.Tensor:
+        """Segment ``k``'s tree nodes, [256, *h.shape] in f32."""
+        if sde_nodes is not None:
+            return sde_nodes[k]
+        return torch.randn((2 ** ADAPTIVE_DEPTH,) + tuple(h.shape), generator=generator,
+                           device=h.device, dtype=torch.float32)
 
     # ------------------------------------------------------------------
     def forward(
@@ -202,22 +233,24 @@ class LocalEncoderSDESep(nn.Module):
         sde_noise: Optional[torch.Tensor] = None,
         twin_noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        sde_nodes: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, ...]:
         """(local_embed [B, A, D], diff_in [B], diff_out [B], label_in [B],
-        label_out [B])."""
+        label_out [B]).  ``sde_nodes`` pins the adaptive step's trees."""
         B, A = scene.x.shape[0], scene.x.shape[1]
         Th, D = self.historical_steps, self.embed_dim
         dev, dt = scene.x.device, scene.x.dtype
         state_dt = self.compute_dtype or dt
+        self._check_noise(sde_noise, sde_nodes)
         if twin_noise is None:
             twin_noise = torch.randn((B, 1, Th, 2), generator=generator, device=dev, dtype=dt)
-        if sde_noise is None:
+        if sde_noise is None and not self.adaptive:
             sde_noise = torch.randn((Th, B, A + 1, D), generator=generator, device=dev,
                                     dtype=state_dt)
 
         aa_out, bos_q, valid_q, nus_row = self._aa_with_twin(scene, twin_noise, generator)
         h0 = self.hidden.expand(B, A + 1, D).to(state_dt)
-        ys, gs = self._run_rnn(h0, aa_out, valid_q, nus_row, sde_noise)
+        ys, gs = self._run_rnn(h0, aa_out, valid_q, nus_row, sde_noise, sde_nodes, generator)
         out, diff_in, diff_out = gather_eos_outputs(
             ys, gs, bos_q, self.ref_time, scene.agent_index, A
         )
@@ -230,12 +263,24 @@ class LocalEncoderSDESep(nn.Module):
         return out.float(), diff_in.float(), diff_out.float(), label_in, label_out
 
     # ------------------------------------------------------------------
+    def _check_noise(self, sde_noise, sde_nodes) -> None:
+        if self.adaptive and sde_noise is not None:
+            raise NotImplementedError(NOISE_NEEDS_FIXED_GRID + " (pin it with sde_nodes)")
+        if sde_nodes is not None and not self.adaptive:
+            raise ValueError("sde_nodes pins the adaptive step's Brownian trees; this encoder "
+                             "integrates on the fixed grid (pin sde_noise instead)")
+
+    # ------------------------------------------------------------------
     def forward_ood(
-        self, scene: SceneBatch, generator: Optional[torch.Generator] = None
+        self, scene: SceneBatch, generator: Optional[torch.Generator] = None,
+        sde_nodes: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """OOD scoring -> (local_embed [B, A, D], actors_std [B, A]): the
-        ensemble of ``eval_iter`` re-runs is folded into the batch, at most
-        ``ood_chunk`` members at a time (0 = all)."""
+        ensemble of ``eval_iter`` re-runs is folded into the batch (member
+        ``e``'s rows at ``e * B``), at most ``ood_chunk`` members at a time
+        (0 = all).  The adaptive step's nodes are pinned as ``sde_nodes
+        [Th, 256, eval_iter * B, A, D]`` or drawn per chunk and segment."""
+        self._check_noise(None, sde_nodes)
         B, A = scene.x.shape[0], scene.x.shape[1]
         Th, D = self.historical_steps, self.embed_dim
         rot = scene.rotate_mat()
@@ -253,12 +298,18 @@ class LocalEncoderSDESep(nn.Module):
             raise ValueError(f"ood_chunk {chunk} must divide eval_iter {E}")
         tile = lambda a: torch.cat([a] * chunk, dim=0)  # noqa: E731
         picked = []
-        for _ in range(E // chunk):
+        for c in range(E // chunk):
             h0 = torch.zeros((chunk * B, A, D), device=scene.x.device,
                              dtype=self.compute_dtype or scene.x.dtype)
-            noise = torch.randn((Th,) + h0.shape, generator=generator,
-                                device=h0.device, dtype=h0.dtype)
-            ys, _ = self._run_rnn(h0, tile(aa_out), tile(valid), tile(nus_row), noise)
+            noise = nodes = None
+            if not self.adaptive:
+                noise = torch.randn((Th,) + h0.shape, generator=generator,
+                                    device=h0.device, dtype=h0.dtype)
+            elif sde_nodes is not None:
+                rows = slice(c * chunk * B, (c + 1) * chunk * B)
+                nodes = sde_nodes[:, :, rows]
+            ys, _ = self._run_rnn(h0, tile(aa_out), tile(valid), tile(nus_row), noise, nodes,
+                                  generator)
             ys_bn = ys.permute(1, 2, 0, 3)                       # [chunk*B, A, Th, D]
             idx = tile(eos)[:, :, None, None].expand(-1, -1, 1, D)
             picked.append(torch.gather(ys_bn, 2, idx)[:, :, 0, :])
