@@ -200,6 +200,20 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      ADAPTIVE_STEPS train steps at batch 128: K1-K4 once per step, finite
      losses, finite non-zero gradients on ``f_func``, ``g_nus`` and
      ``g_argo``; the step in turns against the fixed grid's.
+  P. rematerialization (after O; ``encoder.remat: true``: the AA and AL
+     blocks run again in the backward, no kernel of its own).  For each of
+     ``FLAGSHIP_TRAIN`` (dense AA, K1 + K2), ``FLAGSHIP_TRAIN_FUSED`` (K1-K4),
+     ``BASELINE_TRAIN`` (K3 + K4 at 4 heads) and ``BASELINE`` (dense, no
+     kernel) at batch 128 with seeded weights shared with the plain build:
+     one train step of each, dropout live and every draw from a CUDA
+     generator of one seed: the loss and every gradient by phase F's bar
+     (bit-equal or not is printed), the generator left where the plain step
+     leaves it, K3 twice and K4 once in a fused remat step, K1 and K2 once
+     on the flagship, nothing else; one eval batch bit-equal to the plain
+     one (K3 once on the fused builds, K1 once on the flagship); then
+     REMAT_STEPS steps of each through ``make_train_step`` with the same
+     launches, and the step in turns against the plain one (CUDA events,
+     peak memory).
 Phases 4, B, C and 7 check that K4 never launches on their paths, and the
 serving and training phases that K5 and K6 never do.
 The last lines are the card, a JSON object per kernel and the device line.
@@ -369,6 +383,12 @@ ADAPTIVE_ROWS = 128 * 49
 TOL_TREE = 1e-6
 TOL_ADAPTIVE_CPU = 1e-4
 ADAPTIVE_SCENES, ADAPTIVE_STEPS = 4, 3
+# phase P: the builds that train with encoder.remat: true (each against its
+# plain build on the same weights), and the train steps of each before its
+# turns (BF16_ROUNDS rounds)
+REMAT_BUILDS = {"flagship": FLAGSHIP_TRAIN, "flagship fused": FLAGSHIP_TRAIN_FUSED,
+                "baseline fused": BASELINE_TRAIN, "baseline": BASELINE}
+REMAT_STEPS = 2
 # H100 SXM published peaks (dense): f32 on CUDA cores, TF32 and f64 on the
 # tensor cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -1556,12 +1576,13 @@ def _fused_decoder_loss(model, cfg, scene, en, tw, de):
     return _losses_of(cfg, out)
 
 
-def _check_step(tag: str, what: str, loss_a, loss_b, model_a, model_b) -> None:
+def _check_step(tag: str, what: str, loss_a, loss_b, model_a, model_b,
+                batch: int = TRAIN_SPLICE_BATCH) -> None:
     """Loss within TOL_TRAIN_LOSS (relative) and every gradient leaf of
     ``model_a`` within TOL_TRAIN_GRAD * max|grad| + ATOL_TRAIN_GRAD of
     ``model_b``'s."""
     rel_loss = abs(loss_a.item() - loss_b.item()) / abs(loss_b.item())
-    print(f"[{tag}] batch {TRAIN_SPLICE_BATCH}: loss {loss_a.item():.6f} vs {what} "
+    print(f"[{tag}] batch {batch}: loss {loss_a.item():.6f} vs {what} "
           f"{loss_b.item():.6f}, relative {rel_loss:.3e} (tol {TOL_TRAIN_LOSS:g})", flush=True)
     check(rel_loss < TOL_TRAIN_LOSS, f"the training loss disagrees with the {what}")
     worst, name_w, n = 0.0, "", 0
@@ -2936,6 +2957,131 @@ def phase_adaptive(card: str) -> dict:
     return out
 
 
+def _remat(cfg):
+    cfg = copy.deepcopy(cfg)
+    cfg["encoder"]["kwargs"]["remat"] = True
+    return cfg
+
+
+def _launches(k1: bool, k3: int, k4: int, k2: bool = None) -> dict:
+    k2 = k1 if k2 is None else k2
+    return {"sde_rollout": int(k1), "sde_rollout_bwd": int(k2), "aa_fused": k3,
+            "aa_fused_bwd": k4, "aa_attention": 0, "vpu_probe": 0}
+
+
+def _remat_compare(tag: str, cfg, plain, remat, scene) -> dict:
+    """One train step of each model on ``scene``, dropout live, every draw
+    from a CUDA generator of one seed (the decoder's rollout from one seed
+    too): the loss and every gradient by phase F's bar, the generators left
+    in one state, and the remat step's launches.  Then one eval batch of
+    each, bit for bit, with its launches."""
+    fused = bool(cfg["encoder"]["kwargs"].get("fused", False))
+    sde = bool(cfg["decoder"]["kwargs"].get("fused", False))    # K1 / K2 roll it out
+    outs, gens, launched = {}, {}, {}
+    for name, model in (("plain", plain), ("remat", remat)):
+        gens[name] = torch.Generator(device="cuda").manual_seed(SEED + 43)
+        model.zero_grad(set_to_none=True)
+        zero_counts()
+        loss = _losses_of(cfg, model(scene, generator=gens[name], rollout_seed=SEED + 44))
+        loss.backward()
+        torch.cuda.synchronize()
+        launched[name] = _counts()
+        outs[name] = loss.detach()
+    print(f"[remat] {tag}: launches of one train step, remat {launched['remat']}, plain "
+          f"{launched['plain']}", flush=True)
+    check(launched["remat"] == _launches(sde, 2 if fused else 0, int(fused)),
+          f"{tag}: the remat step did not launch K3 twice and K4 once (fused AA), K1 and K2 "
+          "once (the SDE decoder), and nothing else")
+    check(launched["plain"] == _launches(sde, int(fused), int(fused)),
+          f"{tag}: the plain step's launches changed")
+    _check_step(f"remat {tag}", "plain step", outs["remat"], outs["plain"], remat, plain,
+                batch=TRAIN_BATCH)
+    bits = all(torch.equal(a.grad, b.grad) if a.grad is not None else b.grad is None
+               for a, b in zip(remat.parameters(), plain.parameters()))
+    same_gen = torch.equal(gens["remat"].get_state(), gens["plain"].get_state())
+    print(f"[remat] {tag}: gradients bit-equal to the plain step's: {bits}; loss bit-equal: "
+          f"{torch.equal(outs['remat'], outs['plain'])}; the generator where the plain step "
+          f"left it: {same_gen}", flush=True)
+    check(same_gen, f"{tag}: the remat step left its generator elsewhere than the plain step")
+
+    evals, ev = {}, {}
+    for name, model in (("plain", plain), ("remat", remat)):
+        model.eval()
+        zero_counts()
+        with torch.no_grad():
+            out = model(scene, generator=torch.Generator(device="cuda").manual_seed(SEED + 45),
+                        rollout_seed=SEED + 46)
+        torch.cuda.synchronize()
+        ev[name] = _counts()
+        evals[name] = {k: v for k, v in out.items() if isinstance(v, torch.Tensor)}
+        model.train()
+    check(ev["remat"] == ev["plain"] == _launches(sde, int(fused), 0, k2=False),
+          f"{tag}: an eval batch launched {ev['remat']} (plain {ev['plain']}), not K3 (fused "
+          "AA) and K1 (SDE decoder) once")
+    check(evals["remat"].keys() == evals["plain"].keys() and all(
+        torch.equal(evals["remat"][k], evals["plain"][k]) for k in evals["plain"]),
+        f"{tag}: the remat model's eval batch differs from the plain one")
+    print(f"[remat] {tag}: eval batch of {TRAIN_BATCH} bit-equal to the plain build's, launches "
+          f"{ev['remat']}", flush=True)
+    return dict(step_launches=launched["remat"], plain_step_launches=launched["plain"],
+                grads_bit_equal=bits, eval_launches=ev["remat"])
+
+
+def _remat_steps(tag: str, cfg, model, scene, want: dict) -> tuple:
+    """REMAT_STEPS train steps of ``model`` through ``make_train_step``, each
+    launching ``want``, finite; returns (the losses, the step function)."""
+    state = create_train_state(model, cfg["training_specific"], steps_per_epoch=1, seed=SEED)
+    step = make_train_step(model, state.optimizer, state.scheduler, build_losses(cfg),
+                           torch.device("cuda"))
+    totals = []
+    for i in range(REMAT_STEPS):
+        zero_counts()
+        logs = step(scene, i, SEED)
+        launches = _counts()
+        totals.append(float(logs["train/total"]))
+        check(launches == want, f"[{tag}] train step {i} launched {launches}, not {want}")
+        check(np.isfinite(totals[-1]) and logs["train/step_skipped"] == 0.0,
+              f"[{tag}] non-finite train step {i}")
+    counter = [REMAT_STEPS]
+
+    def again():
+        step(scene, counter[0], SEED)
+        counter[0] += 1
+
+    return totals, again
+
+
+def phase_remat(card: str) -> dict:
+    """P. ``encoder.remat: true`` (the AA and AL blocks rematerialized in the
+    backward) on each of REMAT_BUILDS at batch 128, against the plain build
+    on the same seeded weights; see the module docstring."""
+    t_phase = time.perf_counter()
+    scene = _train_batch(np.random.default_rng(SEED + 61), TRAIN_BATCH).to("cuda")
+    out = {}
+    for tag, cfg in REMAT_BUILDS.items():
+        plain = build_model(cfg, device="cuda", seed=SEED + 41).train()
+        remat = build_model(_remat(cfg), device="cuda", seed=SEED + 41).train()
+        remat.load_state_dict(plain.state_dict())
+        check(remat.encoder.remat and not plain.encoder.remat, f"{tag}: remat did not build")
+        res = _remat_compare(tag, cfg, plain, remat, scene)
+        want = res["step_launches"]
+        losses_r, step_r = _remat_steps(f"remat {tag}", _remat(cfg), remat, scene, want)
+        losses_p, step_p = _remat_steps(f"plain {tag}", cfg, plain, scene,
+                                        res["plain_step_launches"])
+        print(f"[remat] {tag}: {REMAT_STEPS} train steps through make_train_step, losses remat "
+              + " ".join(f"{x:.4f}" for x in losses_r) + ", plain "
+              + " ".join(f"{x:.4f}" for x in losses_p) + f"; launches each {want}", flush=True)
+        times, peaks = _in_turns({"remat": step_r, "plain": step_p})
+        _print_turns(card, f"train step at batch {TRAIN_BATCH} ({tag}, remat vs plain)", times,
+                     peaks, "remat")
+        res.update(ms=times, peak_gib=peaks, losses=losses_r, plain_losses=losses_p)
+        out[tag] = res
+        del plain, remat, step_r, step_p
+        torch.cuda.empty_cache()
+    print(f"[remat] phase P: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
@@ -2992,6 +3138,8 @@ def main() -> None:
         torch.cuda.empty_cache()
         bf16 = phase_bf16(card, capped["overflow_edges"])
     adaptive = phase_adaptive(card)
+    torch.cuda.empty_cache()
+    remat = phase_remat(card)
     k3.update(baseline["k3"])
     k4.update(baseline["k4"])
     # launches: the count on the kernel's own main path (serving for K1,
@@ -3041,6 +3189,10 @@ def main() -> None:
         # phase O: adaptive: true served at bucket 128, and an adaptive train step
         entry["launches_by_path"]["adaptive_serve"] = adaptive["serve"]["launches"][name]
         entry["launches_by_path"]["adaptive_train"] = adaptive["train"]["launches"][name]
+        # phase P: a remat train step of each build
+        for tag, r in remat.items():
+            entry["launches_by_path"][f"remat_{tag.replace(' ', '_')}_train"] = \
+                r["step_launches"][name]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches: {served} serving + "
           f"{served_fused} fused serving + {train['sde_rollout']} training + "
           f"{train_fused['sde_rollout']} fused-encoder training; K2 launches: "
@@ -3063,7 +3215,9 @@ def main() -> None:
           f"epoch: {accum['cli_train']['launches']}; bf16 bucket {TRAIN_BATCH}, train step and "
           f"step at cap {CAP}: {bf16['serve']['launches']}, {bf16['train']['launches']}, "
           f"{bf16['capped']['launches']}; adaptive bucket {TRAIN_BATCH} and train step: "
-          f"{adaptive['serve']['launches']}, {adaptive['train']['launches']}", flush=True)
+          f"{adaptive['serve']['launches']}, {adaptive['train']['launches']}; a remat train "
+          f"step: " + ", ".join(f"{tag} {r['step_launches']}" for tag, r in remat.items()),
+          flush=True)
     print(card)
     print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Train steps of the HiVT baseline at the YAML's own batch (needs a card).
 
-    python scripts/baseline_step_torch.py [--batch 512] [--fused]
+    python scripts/baseline_step_torch.py [--batch 512] [--fused] [--remat]
 
 Builds ``BASELINE`` (``configs/nusargo/hivt_nuSArgo_trmenc_mlpdec.yml``, the
 dense AA pair chain), or with ``--fused`` ``BASELINE_TRAIN`` (the pair
-chain through kernels K3 and K4), at the published widths from
+chain through kernels K3 and K4), with ``--remat`` as ``encoder.remat: true``
+(the AA and AL blocks rematerialized in the backward), at the published widths from
 ``chip_smoke.SEED``, packs ``--batch`` synthetic scenes of both sources
 (48 actors, 192 lanes) and takes ``chip_smoke.BASELINE_STEPS`` train steps
 on them through phase L's own ``chip_smoke.baseline_train_steps``.  Prints the card's name and power
@@ -28,7 +29,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import BASELINE_STEPS, SEED, _train_batch, baseline_train_steps  # noqa: E402
+from chip_smoke import (BASELINE_STEPS, SEED, _remat, _train_batch,  # noqa: E402
+                        baseline_train_steps)
 from trajsde_tpu_torch.config import BASELINE, BASELINE_TRAIN, build_model  # noqa: E402
 
 
@@ -37,6 +39,8 @@ def main() -> None:
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--fused", action="store_true",
                     help="BASELINE_TRAIN: the AA pair chain through K3 and K4")
+    ap.add_argument("--remat", action="store_true",
+                    help="encoder.remat: true, the AA and AL blocks recomputed in the backward")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the steps run on the card")
@@ -47,6 +51,8 @@ def main() -> None:
     print(card, flush=True)
     scene = _train_batch(np.random.default_rng(SEED + 23), args.batch).to("cuda")
     cfg, path = (BASELINE_TRAIN, "fused") if args.fused else (BASELINE, "dense")
+    if args.remat:
+        cfg, path = _remat(cfg), path + " remat"
     model = build_model(cfg, device="cuda", seed=SEED)
     report = dict(card=card, batch=args.batch, path=path)
     try:

@@ -110,11 +110,26 @@ def test_baseline_is_the_yaml_and_builds_at_the_published_widths():
     assert [k for k in fused.state_dict()] == [k for k in model.state_dict()]
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(dtype="bfloat16", fused=True), "item 6b"), (dict(remat=True), "rematerialization")])
+@pytest.mark.parametrize("kwargs,match", [(dict(dtype="bfloat16", fused=True), "item 6b")])
 def test_local_encoder_refuses_what_is_not_ported(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         LocalEncoder(21, 32, 2, **kwargs)
+
+
+def test_local_encoder_builds_with_remat_and_rematerializes():
+    """``remat=True`` (once refused) wraps the AA and AL calls, not the
+    modules: the parameter names stay, and a training backward runs each
+    block's forward again (``tests/test_torch_remat.py`` holds it to the
+    plain step)."""
+    enc = tconfig.build("LocalEncoder", dict(historical_steps=21, embed_dim=32, num_heads=2,
+                                             remat=True))
+    assert enc.remat and list(enc.state_dict()) == list(LocalEncoder(21, 32, 2).state_dict())
+    _, scene = scene_pair(3, B, A, L)
+    calls = []
+    for block in (enc.aa_encoder, enc.al_encoder):
+        block.register_forward_pre_hook(lambda *_: calls.append(1))
+    enc.train()(scene, generator=torch.Generator().manual_seed(0)).square().sum().backward()
+    assert len(calls) == 4
 
 
 # ---------------------------------------------------------------------------

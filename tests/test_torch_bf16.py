@@ -400,13 +400,20 @@ def test_a_fused_encoder_in_bf16_raises_naming_item_6b(cls, kwargs):
 
 
 @pytest.mark.parametrize("cls", ["LocalEncoderSDESep", "LocalEncoder"])
-def test_remat_raises_on_either_encoder_naming_item_14(cls):
+def test_remat_builds_on_either_encoder_and_rematerializes(cls):
     """``config.build`` drops the kwargs a constructor does not take, so the
-    SDE encoder once built a model without rematerialization, silently."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 14"):
-        tconfig.build(cls, dict(FLAGSHIP["encoder"]["kwargs"], remat=True))
-    assert not hasattr(tconfig.build(cls, dict(FLAGSHIP["encoder"]["kwargs"], remat=False)),
-                       "remat")
+    SDE encoder once built a model without rematerialization, silently;
+    then ``remat`` raised.  Now it reaches both constructors, in bf16 too,
+    and a training backward runs the AA block's forward again."""
+    kw = dict(FLAGSHIP["encoder"]["kwargs"], embed_dim=D, num_heads=2, dtype="bfloat16")
+    enc = tconfig.build(cls, dict(kw, remat=True))
+    assert enc.remat and not tconfig.build(cls, dict(kw, remat=False)).remat
+    calls = []
+    enc.aa_encoder.register_forward_pre_hook(lambda *_: calls.append(1))
+    _, scene = scene_pair(0, B=2, A=3, L=4)
+    out = enc.train()(scene, generator=torch.Generator().manual_seed(0))
+    (out[0] if isinstance(out, tuple) else out).float().square().sum().backward()
+    assert len(calls) == 2
 
 
 @pytest.mark.parametrize("name,path", [

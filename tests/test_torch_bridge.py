@@ -81,11 +81,14 @@ def test_registry_aliases_filtering_and_guards():
     for bad, err in [({"neighbor_cap": 24, "fused": True}, NotImplementedError),
                      ({"dtype": "bfloat16", "fused": True}, NotImplementedError),
                      ({"dtype": "float16"}, ValueError),
-                     ({"remat": True}, NotImplementedError),
                      ({"ref_time": 10}, ValueError),
                      ({"method": "milstein"}, NotImplementedError)]:
         with pytest.raises(err):
             tconfig.build("LocalEncoderSDESep", dict(kw, **bad))
+    # remat: true builds (the AA and AL calls rematerialize) with the plain keys
+    remat = tconfig.build("LocalEncoderSDESep", dict(kw, remat=True))
+    assert remat.remat and list(remat.state_dict()) == list(
+        tconfig.build("LocalEncoderSDESep", kw).state_dict())
     # the fused training rollout builds; the JAX package's TPU knobs are dropped
     dec = tconfig.build("SDEDecoder", dict(cfg["decoder"]["kwargs"], fused=True, rollout_rows=512,
                                            rollout_unroll=3, scan_unroll=2, packed=True))

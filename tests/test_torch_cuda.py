@@ -18,6 +18,8 @@ K4's recomputed logits are held to K3's bit for bit, through check copies
 of both built to write them.  K3 and K4 are tested at both of their head
 counts, the flagship's 8 and the HiVT baseline's 4.  The feed to the card (``device_prefetch``)
 is held to ``.to("cuda")`` bit for bit: its batches, and a train step.
+A fused build's ``remat`` train step launches K3 twice and K4 once and
+equals the plain build's step bit for bit.
 """
 import ctypes
 import functools
@@ -822,3 +824,39 @@ def test_bf16_flagship_train_step_launches_k1_k2_once_and_stays_f32(cuda):
     assert moments and all(m.dtype == torch.float32 for m in moments)
     for p in model.parameters():
         assert p.dtype == torch.float32 and (p.grad is None or p.grad.dtype == torch.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["FLAGSHIP_TRAIN_FUSED", "BASELINE_TRAIN"])
+def test_remat_fused_step_runs_k3_twice_and_k4_once_and_is_the_plain_step(cuda, name):
+    """``encoder.remat: true`` on a fused build at batch 8, 48 actors,
+    dropout live: one train step launches K3 twice (the forward and the
+    recompute) and K4 once, and its loss, gradients and CUDA generator end
+    where the plain build's step leaves them, bit for bit."""
+    import copy
+
+    from trajsde_tpu_torch import config as tconfig
+
+    cfg = getattr(tconfig, name)
+    remat_cfg = copy.deepcopy(cfg)
+    remat_cfg["encoder"]["kwargs"]["remat"] = True
+    losses = tconfig.build_losses(cfg)
+    scene = _packed(14, 8, 48, 192).to(cuda)
+    results = {}
+    for r, c in ((False, cfg), (True, remat_cfg)):
+        model = tconfig.build_model(c, device=cuda, seed=6).train()
+        gen = torch.Generator(device=cuda).manual_seed(9)
+        before = (K3.fused_pair_attention.launches, K3.fused_pair_attention_bwd.launches)
+        out = model(scene, generator=gen, rollout_seed=4)
+        loss = sum(w * fn(out["y"], out) for _, w, fn in losses)
+        loss.backward()
+        torch.cuda.synchronize()
+        after = (K3.fused_pair_attention.launches, K3.fused_pair_attention_bwd.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == ((2, 1) if r else (1, 1))
+        results[r] = (loss.detach(), {n: p.grad for n, p in model.named_parameters()},
+                      gen.get_state())
+    (loss_r, grads_r, gen_r), (loss_p, grads_p, gen_p) = results[True], results[False]
+    assert torch.equal(loss_r, loss_p) and torch.equal(gen_r, gen_p)
+    for n, g in grads_p.items():
+        assert (g is None) == (grads_r[n] is None), n
+        assert g is None or torch.equal(grads_r[n], g), n

@@ -25,13 +25,8 @@ from trajsde_tpu_torch.models import graph
 from trajsde_tpu_torch.models.embedding import MultipleInputEmbedding, SingleInputEmbedding
 from trajsde_tpu_torch.models.layers import (EdgeAttention, MlpBlock, MultiheadSelfAttention,
                                              compute_dtype, dropout, layer_norm)
+from trajsde_tpu_torch.models.remat import call_block
 from trajsde_tpu_torch.ops.aa_fused import fused_aa_aggregate, pack_aa_params
-
-
-REMAT_NOT_PORTED = (
-    "remat=True: the port has no rematerialization of the AA / AL pair tensors "
-    "(ROADMAP.md Queue 1 item 14); leave remat unset (the published configs do)"
-)
 
 
 class AAEncoder(nn.Module):
@@ -230,9 +225,12 @@ class LocalEncoder(nn.Module):
 
     Of the JAX module's knobs, ``rows_fwd`` / ``rows_bwd`` / ``ln_mm``
     (TPU tiling) and ``parallel`` (which means nothing there either) are
-    dropped by ``config.build``; ``remat`` raises, and so does a bf16
-    ``dtype`` with ``fused=True``.  ``neighbor_cap`` caps the dense AA block
-    (:class:`AAEncoder`).  The output is f32 in either dtype."""
+    dropped by ``config.build``; a bf16 ``dtype`` with ``fused=True``
+    raises.  ``neighbor_cap`` caps the dense AA block (:class:`AAEncoder`).
+    ``remat=True`` rematerializes the AA and AL blocks in a training
+    backward (:func:`~trajsde_tpu_torch.models.remat.call_block`), as JAX's
+    ``nn.remat`` of both; the parameter names stay.  The output is f32 in
+    either dtype."""
 
     def __init__(self, historical_steps: int, embed_dim: int, num_heads: int = 4,
                  dropout: float = 0.1, num_temporal_layers: int = 4,
@@ -240,8 +238,7 @@ class LocalEncoder(nn.Module):
                  edge_dim: int = 2, remat: bool = False, dtype=None, fused: bool = False,
                  neighbor_cap: int = 0):
         super().__init__()
-        if remat:
-            raise NotImplementedError(REMAT_NOT_PORTED)
+        self.remat = remat
         self.compute_dtype = compute_dtype(dtype)
         self.historical_steps = historical_steps
         self.local_radius = float(local_radius)
@@ -257,11 +254,12 @@ class LocalEncoder(nn.Module):
         Th = self.historical_steps
         rot = scene.rotate_mat()
         x_t = scene.x.permute(0, 2, 1, 3)                      # [B, Th, A, 2]
-        aa_out = self.aa_encoder(x_t, x_t, rot, scene.bos_mask,
-                                 graph.aa_masks(scene, self.local_radius),
-                                 graph.aa_edge_vectors(scene), generator)
+        aa_out = call_block(self.aa_encoder, x_t, x_t, rot, scene.bos_mask,
+                            graph.aa_masks(scene, self.local_radius),
+                            graph.aa_edge_vectors(scene), generator=generator, remat=self.remat)
         out = self.temporal_encoder(aa_out.permute(0, 2, 1, 3),
                                     scene.padding_mask[:, :, :Th], generator)
         al_mask, al_vec = graph.al_edges(scene, Th - 1, self.local_radius)
-        out = self.al_encoder(out, graph.lane_features(scene), al_vec, al_mask, rot, generator)
+        out = call_block(self.al_encoder, out, graph.lane_features(scene), al_vec, al_mask, rot,
+                         generator=generator, remat=self.remat)
         return out.float()

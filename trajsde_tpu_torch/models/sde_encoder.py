@@ -38,7 +38,8 @@ from torch import nn
 from trajsde_tpu_torch.data.scene import SceneBatch
 from trajsde_tpu_torch.models import graph
 from trajsde_tpu_torch.models.layers import compute_dtype
-from trajsde_tpu_torch.models.local_encoder import REMAT_NOT_PORTED, AAEncoder, ALEncoder
+from trajsde_tpu_torch.models.local_encoder import AAEncoder, ALEncoder
+from trajsde_tpu_torch.models.remat import call_block
 from trajsde_tpu_torch.models.sde import (ADAPTIVE_DEPTH, NOISE_NEEDS_FIXED_GRID, SDEGRUStep,
                                           encoder_time_grid)
 
@@ -89,8 +90,11 @@ class LocalEncoderSDESep(nn.Module):
     ``fused=True`` runs the pair chain of both AA calls (the twin forward
     and ``forward_ood``) through kernel K3; the registry drops the JAX
     package's knobs of that kernel (``rows_fwd``, ``rows_bwd``, ``ln_mm``).
-    ``remat=True`` raises (not ported), and so does a bf16 ``dtype`` with
-    ``fused=True``.
+    ``remat=True`` rematerializes both AA calls and both AL calls in a
+    training backward (:func:`~trajsde_tpu_torch.models.remat.call_block`),
+    as JAX's ``nn.remat`` of both blocks; the ODE-RNN, and the adaptive
+    tree's nodes drawn in it, stay outside.  A bf16 ``dtype`` with
+    ``fused=True`` raises.
     """
 
     def __init__(
@@ -152,8 +156,7 @@ class LocalEncoderSDESep(nn.Module):
                 f"({seg:g}) would take several Euler substeps per segment; "
                 "this encoder integrates one step per segment"
             )
-        if remat:
-            raise NotImplementedError(REMAT_NOT_PORTED)
+        self.remat = remat
         self.compute_dtype = compute_dtype(dtype)
         self.historical_steps = historical_steps
         self.embed_dim = embed_dim
@@ -190,7 +193,8 @@ class LocalEncoderSDESep(nn.Module):
         mask_q = torch.cat([mask, gather_actor(mask, ai, 2)], dim=2)
         edge_q = torch.cat([edge_vec, gather_actor(edge_vec, ai, 2)], dim=2)
 
-        aa_out = self.aa_encoder(x_q, x_t, rot_q, bos_q, mask_q, edge_q, generator)
+        aa_out = call_block(self.aa_encoder, x_q, x_t, rot_q, bos_q, mask_q, edge_q,
+                            generator=generator, remat=self.remat)
 
         pad = scene.padding_mask[:, :, :Th]
         valid_q = ~torch.cat([pad, gather_actor(pad, ai, 1)], dim=1)
@@ -256,8 +260,8 @@ class LocalEncoderSDESep(nn.Module):
         )
 
         al_mask, al_vec = graph.al_edges(scene, self.ref_time, self.local_radius)
-        out = self.al_encoder(out, graph.lane_features(scene), al_vec, al_mask,
-                              scene.rotate_mat(), generator)
+        out = call_block(self.al_encoder, out, graph.lane_features(scene), al_vec, al_mask,
+                         scene.rotate_mat(), generator=generator, remat=self.remat)
         label_in = torch.full((B,), REAL_LABEL, device=dev)
         label_out = torch.full((B,), FAKE_LABEL, device=dev)
         return out.float(), diff_in.float(), diff_out.float(), label_in, label_out
@@ -285,9 +289,9 @@ class LocalEncoderSDESep(nn.Module):
         Th, D = self.historical_steps, self.embed_dim
         rot = scene.rotate_mat()
         x_t = scene.x.permute(0, 2, 1, 3)
-        aa_out = self.aa_encoder(x_t, x_t, rot, scene.bos_mask,
-                                 graph.aa_masks(scene, self.local_radius),
-                                 graph.aa_edge_vectors(scene))
+        aa_out = call_block(self.aa_encoder, x_t, x_t, rot, scene.bos_mask,
+                            graph.aa_masks(scene, self.local_radius),
+                            graph.aa_edge_vectors(scene), remat=self.remat)
         valid = ~scene.padding_mask[:, :, :Th]
         nus_row = (scene.source == 0)[:, None].expand(B, A)
         eos = self.ref_time - torch.argmax(scene.bos_mask.to(torch.int32), dim=-1)
@@ -318,5 +322,6 @@ class LocalEncoderSDESep(nn.Module):
         out = stacked.mean(0)
 
         al_mask, al_vec = graph.al_edges(scene, self.ref_time, self.local_radius)
-        out = self.al_encoder(out, graph.lane_features(scene), al_vec, al_mask, rot)
+        out = call_block(self.al_encoder, out, graph.lane_features(scene), al_vec, al_mask, rot,
+                         remat=self.remat)
         return out.float(), actors_std.float()
