@@ -214,6 +214,26 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      REMAT_STEPS steps of each through ``make_train_step`` with the same
      launches, and the step in turns against the plain one (CUDA events,
      peak memory).
+  Q. data-parallel training (after N, on J's files; ``trajsde_tpu_torch/
+     parallel/mesh.py``, no kernel of its own).  Q1: one NCCL rank on this
+     card runs ``train_torch.main --multihost --zero1`` on J's config for
+     one epoch: K1-K4 once per update and K1 / K3 once per eval batch, and
+     its checkpoint (weights, AdamW moments, schedule) bit-equal to J's
+     plain first epoch (a world of one changes nothing); the checkpoint
+     restores into a plain single-process AdamW bit for bit; then the
+     data-parallel ZeRO-1 step against the plain one at TRAIN_BATCH, in
+     turns (CUDA events and host clock).  Q2: two ranks, each in a process
+     of its own (:func:`multi_rank_worker`), over gloo sharing this card
+     (NCCL refuses two ranks on one device), or over NCCL one card each
+     when the machine has two (printed): ``FLAGSHIP_TRAIN_FUSED`` with
+     dropout 0 at MULTI_BATCH global scenes and ``_splice_train_inputs``'
+     pinned noise, each rank its slice.  One step's global loss and every
+     all-reduced gradient against the single-process step on the whole
+     batch by phase F's bar; after MULTI_STEPS AdamW updates the ZeRO-1
+     parameters bit-equal across the ranks and within rtol 1e-5 / atol 1e-7
+     of the replicated run; K1-K4 once per update on each rank; a rank
+     that fails or outlives RANK_TIMEOUT_S fails the phase; the ZeRO-1
+     step's times, marked as gloo on one card.
 Phases 4, B, C and 7 check that K4 never launches on their paths, and the
 serving and training phases that K5 and K6 never do.
 The last lines are the card, a JSON object per kernel and the device line.
@@ -229,6 +249,7 @@ import json
 import os
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 import urllib.error
@@ -254,6 +275,7 @@ from trajsde_tpu_torch.ops import sde_rollout as K1
 from trajsde_tpu_torch.ops import vpu_probe as K6
 from trajsde_tpu_torch.ops.brownian import BrownianTree
 from trajsde_tpu_torch.ops.sdeint import ou_moments, sdeint_adaptive
+from trajsde_tpu_torch.parallel import mesh
 from trajsde_tpu_torch.server import ServingEngine, align_scene
 from trajsde_tpu_torch.serving import make_serving_fn
 from trajsde_tpu_torch.train.checkpoint import CheckpointManager
@@ -389,6 +411,11 @@ ADAPTIVE_SCENES, ADAPTIVE_STEPS = 4, 3
 REMAT_BUILDS = {"flagship": FLAGSHIP_TRAIN, "flagship fused": FLAGSHIP_TRAIN_FUSED,
                 "baseline fused": BASELINE_TRAIN, "baseline": BASELINE}
 REMAT_STEPS = 2
+# phase Q: Q2's global batch (half a rank), its AdamW updates, the timed
+# ZeRO-1 steps after them, the rounds of Q1's turns, and how long a rank or
+# a collective may take before the phase fails
+MULTI_BATCH, MULTI_STEPS, MULTI_TIMED, MULTI_ROUNDS = 128, 3, 6, 3
+RANK_TIMEOUT_S = 240
 # H100 SXM published peaks (dense): f32 on CUDA cores, TF32 and f64 on the
 # tensor cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -1548,12 +1575,13 @@ def _losses_of(cfg, out):
     return sum(w * fn(out["y"], out) for _, w, fn in build_losses(cfg))
 
 
-def _splice_train_inputs(model):
-    """A batch-8 training scene and pinned encoder, twin and decoder noise."""
+def _splice_train_inputs(model, batch: int = TRAIN_SPLICE_BATCH):
+    """A training scene of ``batch`` (default 8) scenes and pinned encoder,
+    twin and decoder noise, on the current card."""
     rng = np.random.default_rng(SEED + 6)
-    scene = _train_batch(rng, TRAIN_SPLICE_BATCH).to("cuda")
+    scene = _train_batch(rng, batch).to("cuda")
     enc, dec = model.encoder, model.decoder
-    B, A, Th, D = TRAIN_SPLICE_BATCH, NUM_ACTORS, enc.historical_steps, enc.embed_dim
+    B, A, Th, D = batch, NUM_ACTORS, enc.historical_steps, enc.embed_dim
     Tf, Km = dec.future_steps, dec.num_modes
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     en = torch.randn((Th, B, A + 1, D), generator=gen, device="cuda")
@@ -1562,18 +1590,31 @@ def _splice_train_inputs(model):
     return scene, en, tw, de
 
 
+class _PinnedFused(torch.nn.Module):
+    """``model``'s training forward with the rollout through K1 (K2 in the
+    backward) on the pinned decoder noise ``de`` and the encoder on ``en``
+    / ``tw``; every draw the forward's arguments would seed is pinned."""
+
+    def __init__(self, model, en, tw, de):
+        super().__init__()
+        self.model, self.noise = model, (en, tw, de)
+
+    def forward(self, scene, generator=None, rollout_seed=None):
+        model, (en, tw, de) = self.model, self.noise
+        enc, dec = model.encoder, model.decoder
+        local, d_in, d_out, l_in, l_out = enc(scene, sde_noise=en, twin_noise=tw)
+        glob = model.aggregator(scene, local)
+        y0 = dec.fuse(scene, local, glob)
+        ys = dec.fused_rollout(y0, 0, noise=de.reshape(de.shape[0], -1, y0.shape[-1]))
+        out = dec.decode(scene, ys.permute(1, 2, 3, 0, 4), local, glob)
+        out.update(y=model.rotated_y(scene), diff_in=d_in, diff_out=d_out, label_in=l_in,
+                   label_out=l_out)
+        return out
+
+
 def _fused_decoder_loss(model, cfg, scene, en, tw, de):
-    """One training forward and its loss with the rollout through K1 (K2
-    in the backward) on the pinned decoder noise ``de``."""
-    enc, dec = model.encoder, model.decoder
-    local, d_in, d_out, l_in, l_out = enc(scene, sde_noise=en, twin_noise=tw)
-    glob = model.aggregator(scene, local)
-    y0 = dec.fuse(scene, local, glob)
-    ys = dec.fused_rollout(y0, 0, noise=de.reshape(de.shape[0], -1, y0.shape[-1]))
-    out = dec.decode(scene, ys.permute(1, 2, 3, 0, 4), local, glob)
-    out.update(y=model.rotated_y(scene), diff_in=d_in, diff_out=d_out, label_in=l_in,
-               label_out=l_out)
-    return _losses_of(cfg, out)
+    """One training forward (:class:`_PinnedFused`) and its loss."""
+    return _losses_of(cfg, _PinnedFused(model, en, tw, de)(scene))
 
 
 def _check_step(tag: str, what: str, loss_a, loss_b, model_a, model_b,
@@ -1581,14 +1622,22 @@ def _check_step(tag: str, what: str, loss_a, loss_b, model_a, model_b,
     """Loss within TOL_TRAIN_LOSS (relative) and every gradient leaf of
     ``model_a`` within TOL_TRAIN_GRAD * max|grad| + ATOL_TRAIN_GRAD of
     ``model_b``'s."""
-    rel_loss = abs(loss_a.item() - loss_b.item()) / abs(loss_b.item())
-    print(f"[{tag}] batch {batch}: loss {loss_a.item():.6f} vs {what} "
-          f"{loss_b.item():.6f}, relative {rel_loss:.3e} (tol {TOL_TRAIN_LOSS:g})", flush=True)
+    _check_grads(tag, what, loss_a.item(), loss_b.item(),
+                 {n: p.grad for n, p in model_a.named_parameters()},
+                 {n: p.grad for n, p in model_b.named_parameters()}, batch)
+
+
+def _check_grads(tag: str, what: str, loss_a: float, loss_b: float, grads_a: dict,
+                 grads_b: dict, batch: int) -> None:
+    """:func:`_check_step` on losses and {name: gradient or None} dicts."""
+    rel_loss = abs(loss_a - loss_b) / abs(loss_b)
+    print(f"[{tag}] batch {batch}: loss {loss_a:.6f} vs {what} "
+          f"{loss_b:.6f}, relative {rel_loss:.3e} (tol {TOL_TRAIN_LOSS:g})", flush=True)
     check(rel_loss < TOL_TRAIN_LOSS, f"the training loss disagrees with the {what}")
     worst, name_w, n = 0.0, "", 0
-    grads_b = dict(model_b.named_parameters())
-    for name, p in model_a.named_parameters():
-        g, ref = p.grad, grads_b[name].grad
+    check(set(grads_a) == set(grads_b), f"the leaves differ from the {what}'s")
+    for name, g in grads_a.items():
+        ref = grads_b[name]
         if ref is None:   # the pi head gets no gradient from L2 + DiffBCE
             check(g is None, f"{name}: gradient on one path only")
             continue
@@ -3081,6 +3130,287 @@ def phase_remat(card: str) -> dict:
     print(f"[remat] phase P: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
 
+def _step_turns(fns: dict, rounds: int = MULTI_ROUNDS, runs: int = 3) -> dict:
+    """Each of ``fns`` (a train step that ends by reading its NaN guard)
+    after one warm-up call, ``runs`` calls a round in alternating rounds:
+    {name: {"cuda": [ms], "host": [ms]}}, CUDA events and the host clock
+    around each synchronized call."""
+    for fn in fns.values():
+        fn()
+    out = {k: {"cuda": [], "host": []} for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            for _ in range(runs):
+                out[k]["cuda"].append(0.0)
+                out[k]["host"].append(0.0)
+                out[k]["cuda"][-1], out[k]["host"][-1] = _timed(fn)
+    return out
+
+
+def _timed(fn) -> tuple:
+    """(CUDA-event ms, host-clock ms) of one synchronized call of ``fn``."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), 1e3 * (time.perf_counter() - t0)
+
+
+def _same_state(a: dict, b: dict) -> bool:
+    """Two ``state.pt`` payloads equal bit for bit: weights, AdamW moments
+    and param groups, schedule, step and seed."""
+    if a.keys() != b.keys() or a["model"].keys() != b["model"].keys():
+        return False
+    if not all(torch.equal(a["model"][k], b["model"][k]) for k in a["model"]):
+        return False
+    sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
+    if sa.keys() != sb.keys() or any(sa[i].keys() != sb[i].keys() for i in sa):
+        return False
+    if not all(torch.equal(sa[i][k], sb[i][k]) for i in sa for k in sa[i]):
+        return False
+    return (a["optimizer"]["param_groups"] == b["optimizer"]["param_groups"]
+            and a["scheduler"] == b["scheduler"] and (a["step"], a["seed"]) == (b["step"], b["seed"]))
+
+
+def _multi_one_rank(d: str, card: str) -> dict:
+    """Q1. One NCCL rank on the card: ``train_torch.main --multihost --zero1``
+    on phase J's config and npz files for one epoch, against phase J's plain
+    first epoch; then its step against the plain one, in turns."""
+    import train_torch
+    from torch.distributed.optim import ZeroRedundancyOptimizer
+
+    cfg_path, logdir = os.path.join(d, "h100.json"), os.path.join(d, "logs")
+    stem = f"step_{FILE_BATCHES:08d}"
+    plain_file = os.path.join(logdir, "cli", "checkpoints", stem, "state.pt")
+    check(os.path.isfile(plain_file), f"phase J's checkpoint {stem} is gone")
+    cfg, losses = FLAGSHIP_TRAIN_FUSED, build_losses(FLAGSHIP_TRAIN_FUSED)
+    scene = _train_batch(np.random.default_rng(SEED + 71), TRAIN_BATCH).to("cuda")
+
+    def stepper(zero1: bool):
+        """A train step at TRAIN_BATCH: its collectives skipped outside the
+        group (plain), one NCCL rank's all-reduces inside it (and ZeRO-1)."""
+        model = build_model(cfg, device="cuda", seed=SEED)
+        state = create_train_state(model, cfg["training_specific"], steps_per_epoch=100,
+                                   seed=SEED, zero1=zero1)
+        step = make_train_step(model, state.optimizer, state.scheduler, losses,
+                               torch.device("cuda"))
+
+        def run():
+            logs = step(scene, state.step, SEED)
+            state.step += 1
+            check(logs["train/step_skipped"] == 0.0, "the NaN guard skipped a timed step")
+        return run
+
+    plain = stepper(False)
+    n_eval = -(-CLI_VAL_SCENES // TRAIN_BATCH)
+    want = {"sde_rollout": FILE_BATCHES + n_eval, "sde_rollout_bwd": FILE_BATCHES,
+            "aa_fused": FILE_BATCHES + n_eval, "aa_fused_bwd": FILE_BATCHES,
+            "aa_attention": 0, "vpu_probe": 0}
+    env = {"TRAJSDE_COORDINATOR": f"file://{os.path.join(d, 'rdzv_q1')}",
+           "TRAJSDE_NUM_PROCESSES": "1", "TRAJSDE_PROCESS_ID": "0"}
+    os.environ.update(env)
+    try:
+        world = mesh.init_multihost(timeout_s=RANK_TIMEOUT_S)
+        backend = torch.distributed.get_backend()
+        check(world == 1 and backend == "nccl", f"a group of {world} over {backend}, not one "
+              "NCCL rank")
+        zero_counts()
+        t0 = time.perf_counter()
+        state, trainer = train_torch.main(["-c", cfg_path, "-n", "multi", "--logdir", logdir,
+                                           "--epochs", "1", "--seed", str(SEED), "--multihost",
+                                           "--zero1"])
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        print(f"[multi] Q1 train_torch.py --multihost --zero1, one NCCL rank: step {state.step}, "
+              f"launches {launches}; {wall:.1f} s", flush=True)
+        check(isinstance(state.optimizer, ZeroRedundancyOptimizer), "--zero1 built no ZeRO-1")
+        check(state.step == FILE_BATCHES and launches == want,
+              f"[multi] launched {launches} in {state.step} steps, not K1-K4 once per update "
+              f"and K1 and K3 once per eval batch ({want})")
+        check(trainer.epoch_logs[-1]["train/steps_skipped"] == 0.0, "[multi] a step was skipped")
+        mine_file = os.path.join(logdir, "multi", "checkpoints", stem, "state.pt")
+        mine = torch.load(mine_file, map_location="cpu", weights_only=True)
+        same = _same_state(mine, torch.load(plain_file, map_location="cpu", weights_only=True))
+        print(f"[multi] Q1 checkpoint {stem} against phase J's plain run: weights, AdamW moments, "
+              f"schedule {'bit-equal' if same else 'DIFFER'}", flush=True)
+        check(same, "a world of one changed the training: the --multihost --zero1 checkpoint "
+              "differs from the plain run's")
+        times = _step_turns({"plain": plain, "one NCCL rank": stepper(False),
+                             "one NCCL rank + ZeRO-1": stepper(True)})
+    finally:
+        mesh.shutdown()
+        for k in env:
+            os.environ.pop(k, None)
+    # the ZeRO-1 checkpoint resumes in a plain (single-process) state
+    other = create_train_state(build_model(FLAGSHIP_H100, device="cuda", seed=SEED + 9),
+                               FLAGSHIP_H100["training_specific"], steps_per_epoch=FILE_BATCHES)
+    CheckpointManager(os.path.join(logdir, "multi", "checkpoints")).restore(
+        other, os.path.dirname(mine_file))
+    resumed = CheckpointManager(os.path.join(d, "resumed"))
+    resumed.save(other, None, other.step)
+    back = torch.load(os.path.join(resumed.latest()["path"], "state.pt"), map_location="cpu",
+                      weights_only=True)
+    check(_same_state(back, mine), "the ZeRO-1 checkpoint does not resume in a plain run")
+    print(f"[multi] Q1 the checkpoint resumes in a plain AdamW at step {other.step}, bit for bit",
+          flush=True)
+    print(f"[multi] {card}: train step at batch {TRAIN_BATCH} (FLAGSHIP_TRAIN_FUSED), plain vs "
+          "one NCCL rank (the step's all-reduces of one rank) and with ZeRO-1 (and ZeRO's "
+          "bookkeeping): "
+          + "; ".join(f"{k} CUDA events " + ", ".join(f"{t:.1f}" for t in v["cuda"])
+                      + " ms, host clock " + ", ".join(f"{t:.1f}" for t in v["host"]) + " ms"
+                      for k, v in times.items())
+          + f" ({MULTI_ROUNDS} rounds of 3 in turns)", flush=True)
+    return dict(launches=launches, wall_s=wall, ms=times)
+
+
+def multi_rank_worker(rank: int, world: int, work: str, backend: str) -> None:
+    """One rank of phase Q2, in a process of its own: ``FLAGSHIP_TRAIN_FUSED``
+    (dropout 0) at MULTI_BATCH global scenes with ``_splice_train_inputs``'
+    pinned noise, this rank's slice of each.  One AdamW update (its loss and
+    the all-reduced gradients kept), MULTI_STEPS - 1 more, then MULTI_STEPS
+    ZeRO-1 updates of a fresh copy (K1-K4 counted over both runs), then
+    MULTI_TIMED more, timed.  Writes ``<work>/rank<rank>.pt``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernel_build.load_all(KERNELS)
+    mesh.init_multihost(backend=backend, timeout_s=RANK_TIMEOUT_S)
+    try:
+        cfg = _no_dropout(FLAGSHIP_TRAIN_FUSED)
+        losses = build_losses(cfg)
+        models = [build_model(cfg, device="cuda", seed=SEED + 5).train() for _ in range(2)]
+        scene, *noise = _splice_train_inputs(models[0], MULTI_BATCH)
+        scene = mesh.shard_batch(scene, rank, world)
+        en, tw, de = (mesh.shard_batch(n, rank, world, ax).contiguous()
+                      for n, ax in zip(noise, (1, 0, 1)))
+        del noise
+        out = {"device": str(torch.cuda.current_device()), "scenes": int(scene.x.shape[0])}
+        zero_counts()
+        for zero1, model in zip((False, True), models):
+            state = create_train_state(model, cfg["training_specific"], steps_per_epoch=100,
+                                       seed=SEED, zero1=zero1)
+            step = make_train_step(_PinnedFused(model, en, tw, de), state.optimizer,
+                                   state.scheduler, losses, torch.device("cuda"))
+            for k in range(MULTI_STEPS):
+                logs = step(scene, k, SEED)
+                check(logs["train/step_skipped"] == 0.0, f"rank {rank}: a step was skipped")
+                if k == 0 and not zero1:
+                    out["total"] = float(logs["train/total"])
+                    out["grads"] = {n: None if p.grad is None else p.grad.cpu()
+                                    for n, p in model.named_parameters()}
+            out["zero1" if zero1 else "replicated"] = {
+                n: p.detach().cpu() for n, p in model.named_parameters()}
+        out["launches"] = _counts()
+        times = [_timed(lambda: step(scene, MULTI_STEPS, SEED)) for _ in range(MULTI_TIMED)]
+        out["ms_cuda"], out["ms_host"] = [t[0] for t in times], [t[1] for t in times]
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+        torch.distributed.barrier()
+    finally:
+        mesh.shutdown()
+
+
+def _multi_two_ranks(card: str) -> dict:
+    """Q2. Two ranks in processes of their own: over gloo, both on this
+    card (NCCL refuses two ranks on one device), or over NCCL, one card
+    each, when the machine has two; see :func:`multi_rank_worker`."""
+    t0 = time.perf_counter()
+    cfg = _no_dropout(FLAGSHIP_TRAIN_FUSED)
+    model = build_model(cfg, device="cuda", seed=SEED + 5).train()
+    scene, en, tw, de = _splice_train_inputs(model, MULTI_BATCH)
+    state = create_train_state(model, cfg["training_specific"], steps_per_epoch=100, seed=SEED)
+    step = make_train_step(_PinnedFused(model, en, tw, de), state.optimizer, state.scheduler,
+                           build_losses(cfg), torch.device("cuda"))
+    total = float(step(scene, 0, SEED)["train/total"])
+    grads = {n: None if p.grad is None else p.grad.cpu() for n, p in model.named_parameters()}
+    del model, state, step, scene, en, tw, de
+    torch.cuda.empty_cache()
+
+    n_cards = torch.cuda.device_count()
+    backend, world = ("nccl" if n_cards >= 2 else "gloo"), 2
+    how = (f"NCCL, one rank per card (cards 0 and 1 of {n_cards})" if backend == "nccl" else
+           "gloo, both ranks on card 0 (a figure of gloo on one card: it says nothing of NCCL "
+           "across cards)")
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as work:
+        logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(world)]
+        procs = []
+        for r in range(world):
+            env = dict(os.environ, TRAJSDE_COORDINATOR=f"file://{os.path.join(work, 'rdzv')}",
+                       TRAJSDE_NUM_PROCESSES=str(world), TRAJSDE_PROCESS_ID=str(r),
+                       LOCAL_RANK=str(r if backend == "nccl" else 0))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", "import chip_smoke; chip_smoke.multi_rank_worker("
+                 f"{r}, {world}, {work!r}, {backend!r})"],
+                cwd=here, env=env, stdout=logs[r], stderr=subprocess.STDOUT))
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, RANK_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                with open(os.path.join(work, f"rank{r}.log")) as f:
+                    print(f.read()[-6000:], flush=True)
+            check(p.returncode == 0, f"[multi] Q2 rank {r} failed or hung (exit {p.returncode}) "
+                  f"within {RANK_TIMEOUT_S} s")
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=True)
+                 for r in range(world)]
+    print(f"[multi] Q2 two ranks over {how}: {ranks[0]['scenes']} + {ranks[1]['scenes']} scenes "
+          f"on cards {ranks[0]['device']} and {ranks[1]['device']}", flush=True)
+    grads_equal = all((a is None and b is None) or torch.equal(a, b)
+                      for a, b in zip(ranks[0]["grads"].values(), ranks[1]["grads"].values()))
+    print(f"[multi] Q2 the all-reduced gradients of the two ranks are "
+          f"{'bit-equal' if grads_equal else 'NOT bit-equal'}", flush=True)
+    _check_grads("multi", "single-process step on the whole batch", ranks[0]["total"], total,
+                 ranks[0]["grads"], grads, MULTI_BATCH)
+    zero, rep = ranks[0]["zero1"], ranks[0]["replicated"]
+    check(all(torch.equal(zero[k], ranks[1]["zero1"][k]) for k in zero),
+          f"[multi] after {MULTI_STEPS} ZeRO-1 updates the ranks' parameters differ")
+    far = [k for k in zero if not torch.allclose(zero[k], rep[k], rtol=1e-5, atol=1e-7)]
+    worst = max(float(((zero[k] - rep[k]).abs() / (1e-7 + 1e-5 * rep[k].abs())).max())
+                for k in zero)
+    same = all(torch.equal(zero[k], rep[k]) for k in zero)
+    print(f"[multi] Q2 after {MULTI_STEPS} AdamW updates: ZeRO-1 parameters bit-equal across the "
+          f"ranks; against the replicated run the worst |diff| is {worst:.3f} of 1e-7 + 1e-5 "
+          f"|replicated| ({'bit-equal' if same else 'not bit-equal'})", flush=True)
+    check(not far, f"[multi] ZeRO-1 is off the replicated run at {far[:5]}")
+    want = {"sde_rollout": 2 * MULTI_STEPS, "sde_rollout_bwd": 2 * MULTI_STEPS,
+            "aa_fused": 2 * MULTI_STEPS, "aa_fused_bwd": 2 * MULTI_STEPS,
+            "aa_attention": 0, "vpu_probe": 0}
+    for r, res in enumerate(ranks):
+        print(f"[multi] Q2 rank {r} launches over {2 * MULTI_STEPS} updates: {res['launches']}",
+              flush=True)
+        check(res["launches"] == want, f"[multi] rank {r} launched {res['launches']}, not "
+              f"K1-K4 once per update ({want})")
+    print(f"[multi] {card}: Q2 ZeRO-1 step at {MULTI_BATCH // world} scenes a rank over {how}: "
+          + "; ".join(f"rank {r} CUDA events " + ", ".join(f"{t:.1f}" for t in res["ms_cuda"])
+                      + " ms, host clock " + ", ".join(f"{t:.1f}" for t in res["ms_host"])
+                      + " ms" for r, res in enumerate(ranks))
+          + f"; {time.perf_counter() - t0:.1f} s in all", flush=True)
+    return dict(backend=backend, launches=ranks[0]["launches"],
+                ms_cuda=[r["ms_cuda"] for r in ranks], ms_host=[r["ms_host"] for r in ranks],
+                grads_bit_equal=grads_equal, zero1_bit_equal=same)
+
+
+def phase_multigpu(d: str, card: str) -> dict:
+    """Q. Data-parallel training (``--multihost``, ``--zero1``); see the
+    module docstring."""
+    t_phase = time.perf_counter()
+    out = {"one_rank": _multi_one_rank(d, card)}
+    torch.cuda.empty_cache()
+    out["two_ranks"] = _multi_two_ranks(card)
+    print(f"[multi] phase Q: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
 
 def main() -> None:
     t_start = time.perf_counter()
@@ -3137,6 +3467,8 @@ def main() -> None:
         accum = phase_accum(d, card)
         torch.cuda.empty_cache()
         bf16 = phase_bf16(card, capped["overflow_edges"])
+        torch.cuda.empty_cache()
+        multi = phase_multigpu(d, card)
     adaptive = phase_adaptive(card)
     torch.cuda.empty_cache()
     remat = phase_remat(card)
@@ -3193,6 +3525,11 @@ def main() -> None:
         for tag, r in remat.items():
             entry["launches_by_path"][f"remat_{tag.replace(' ', '_')}_train"] = \
                 r["step_launches"][name]
+        # phase Q: train_torch.py --multihost --zero1 on one NCCL rank, and rank 0
+        # of the two-rank run
+        entry["launches_by_path"]["multi_cli_train"] = multi["one_rank"]["launches"][name]
+        entry["launches_by_path"]["multi_two_ranks_rank0"] = \
+            multi["two_ranks"]["launches"][name]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches: {served} serving + "
           f"{served_fused} fused serving + {train['sde_rollout']} training + "
           f"{train_fused['sde_rollout']} fused-encoder training; K2 launches: "
@@ -3216,8 +3553,10 @@ def main() -> None:
           f"step at cap {CAP}: {bf16['serve']['launches']}, {bf16['train']['launches']}, "
           f"{bf16['capped']['launches']}; adaptive bucket {TRAIN_BATCH} and train step: "
           f"{adaptive['serve']['launches']}, {adaptive['train']['launches']}; a remat train "
-          f"step: " + ", ".join(f"{tag} {r['step_launches']}" for tag, r in remat.items()),
-          flush=True)
+          f"step: " + ", ".join(f"{tag} {r['step_launches']}" for tag, r in remat.items())
+          + f"; --multihost --zero1 on one rank: {multi['one_rank']['launches']}; each of two "
+          f"ranks ({multi['two_ranks']['backend']}) over {2 * MULTI_STEPS} updates: "
+          f"{multi['two_ranks']['launches']}", flush=True)
     print(card)
     print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -39,7 +39,7 @@ from typing import Optional, Sequence
 # serve.py flags that the port does not have yet, and the ROADMAP.md
 # Queue 1 item that ports each
 NOT_PORTED = {
-    "shard": "item 10 (multi-GPU)",
+    "shard": "item 10b (the engine's shard=True)",
     "export": "item 11 (deployment artifact)",
     "from_export": "item 11 (deployment artifact)",
 }

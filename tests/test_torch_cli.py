@@ -353,10 +353,23 @@ def test_train_torch_wonly_and_config_guards(data, tmp_path):
             _train(str(tmp_path / "bad.json"), tmp_path, "bad")
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--multihost"], "item 10"), (["--zero1"], "item 10"), (["--chain", "2"], "item 5")])
+@pytest.mark.parametrize("flags,item", [(["--chain", "2"], "item 5")])
 def test_flags_not_ported_exit_naming_their_item(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {item}"):
+        train_torch.main(["-c", "x.yml", "-n", "x", *flags])
+
+
+@pytest.mark.parametrize("flags", [["--multihost"], ["--multihost", "--zero1"], ["--zero1"]])
+def test_multihost_and_zero1_parse_and_need_a_rendezvous(flags, monkeypatch):
+    """Both flags parse; ``--multihost`` with no rendezvous in the
+    environment, and ``--zero1`` without ``--multihost``, exit saying what
+    is missing before anything is loaded."""
+    args = train_torch.parse_args(["-c", "x.yml", "-n", "x", *flags])
+    assert (args.multihost, args.zero1) == ("--multihost" in flags, "--zero1" in flags)
+    for var in ("TRAJSDE_COORDINATOR", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(var, raising=False)
+    want = "needs a rendezvous" if "--multihost" in flags else "add --multihost"
+    with pytest.raises(SystemExit, match=want):
         train_torch.main(["-c", "x.yml", "-n", "x", *flags])
 
 

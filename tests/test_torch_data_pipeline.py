@@ -7,6 +7,7 @@ through both packages; every field must be equal (floats bit for bit,
 integer ids by value: int32 in JAX, int64 in the port).
 """
 import dataclasses
+import gc
 import os
 import subprocess
 import sys
@@ -341,6 +342,52 @@ def test_first_batch_has_no_side_effects(tree):
     assert b.x.shape == (4, 16, 21, 2) and isinstance(b.x, torch.Tensor)
     assert dm.train_dataset.epoch == 0 and threading.active_count() == baseline
     assert loader.stats == dict(actors_dropped=0, lanes_dropped=0, scenes_truncated=0)
+
+
+class _Collecting:
+    """A dataset that runs a full garbage collection before each scene
+    load (in the loader's worker processes)."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, i):
+        gc.collect()
+        return self.dataset[i]
+
+
+class _Witness:
+    """A cycle that only a collection frees; it writes down the pid of the
+    process that frees it."""
+
+    def __init__(self, path):
+        self.path, self.me = path, self
+
+    def __del__(self):
+        with open(self.path, "a") as f:
+            f.write(f"{os.getpid()}\n")
+
+
+def test_loader_workers_leave_the_parents_garbage_alone(tree, tmp_path):
+    """The workers fork from a process whose garbage may hold CUDA tensors,
+    which a forked child cannot free: a cycle left in the parent is
+    collected in the parent, never in a worker that collects."""
+    dm = tloader.DataModuleNuArgoMix(**_dm_kwargs(tree, "npz", 2, False))
+    loader = dm.train_loader()
+    loader.dataset = _Collecting(loader.dataset)
+    log = tmp_path / "freed_by"
+    gc.disable()
+    try:
+        _Witness(str(log))
+        assert len(list(loader)) == len(loader) > 0
+        assert not log.exists()
+    finally:
+        gc.enable()
+    gc.collect()
+    assert log.read_text().split() == [str(os.getpid())]
 
 
 @pytest.mark.parametrize("workers", [1, 3])

@@ -5,7 +5,9 @@
     python train_torch.py -c configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec_h100.yml -n my_run \\
         [--ckpt STEP_DIR | --wonly STEP_DIR] [--epochs N] [--logdir logs] [--seed 0] \\
         [--num-actors A] [--num-lanes L] [--monitor ADE_T] [--profile STEP] [--log-every N] \\
-        [--accum K] [--async-ckpt] [--device cuda|cpu]
+        [--accum K] [--async-ckpt] [--device cuda|cpu] [--multihost [--zero1]]
+
+    torchrun --nproc-per-node N train_torch.py --multihost [--zero1] -c ... -n my_run
 
 Config -> datamodule (``build_datamodule``), model, losses, metrics, AdamW
 + cosine sized by the train loader -> ``Trainer.fit`` under
@@ -20,6 +22,16 @@ epoch trains.  SIGTERM or SIGINT saves an unscored checkpoint
 (synchronously) and exits cleanly.  The
 run is on the card unless ``--device cpu``.  Configs are YAML, or JSON
 (``*.json``, which needs no PyYAML).
+
+``--multihost`` trains data-parallel, one process per GPU (``cuda:LOCAL_RANK``;
+gloo over the CPU with ``--device cpu``): launch it through torchrun, or
+start N processes with ``TRAJSDE_COORDINATOR`` (host:port or a ``file://``
+URL), ``TRAJSDE_NUM_PROCESSES`` and ``TRAJSDE_PROCESS_ID`` set.  The
+config's batch size is the global batch, which the process count must
+divide; each rank trains on its slice, and every update applies the
+global batch's gradient on every rank.  Rank 0 alone writes the run
+directory.  ``--zero1`` partitions AdamW's moments over the ranks; its
+checkpoints resume with or without it, on any number of ranks.
 """
 from __future__ import annotations
 
@@ -30,8 +42,6 @@ from typing import Optional, Sequence
 # train.py flags of the JAX package that the port does not have yet, and
 # the ROADMAP.md Queue 1 item that ports each
 NOT_PORTED = {
-    "multihost": "item 10 (multi-GPU)",
-    "zero1": "item 10 (multi-GPU)",
     "chain": "item 5 (training leftovers)",
 }
 
@@ -62,9 +72,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--async-ckpt", action="store_true",
                    help="write checkpoints on a thread while training goes on (preemption "
                    "saves stay synchronous)")
-    for flag in ("multihost", "zero1"):
-        p.add_argument("--" + flag, action="store_true",
-                       help=f"not ported: ROADMAP.md Queue 1 {NOT_PORTED[flag]}")
+    p.add_argument("--multihost", action="store_true",
+                   help="data-parallel over processes, one per GPU: join the process group "
+                   "named by torchrun or TRAJSDE_COORDINATOR / TRAJSDE_NUM_PROCESSES / "
+                   "TRAJSDE_PROCESS_ID")
+    p.add_argument("--zero1", action="store_true",
+                   help="ZeRO-1: partition AdamW's moments over the --multihost ranks")
     p.add_argument("--chain", type=int, default=None,
                    help=f"not ported: ROADMAP.md Queue 1 {NOT_PORTED['chain']}")
     args = p.parse_args(argv)
@@ -91,6 +104,19 @@ def ts_drop_rate(cfg: dict) -> float:
 def main(argv: Optional[Sequence[str]] = None):
     """Train; returns ``(state, trainer)``."""
     args = parse_args(argv)
+    from trajsde_tpu_torch.parallel import mesh
+
+    if args.zero1 and not args.multihost:
+        raise SystemExit("--zero1 partitions AdamW over the ranks of --multihost; add "
+                         "--multihost (one process per GPU)")
+    if args.multihost:
+        if mesh.coordinator_from_env() is None:
+            raise SystemExit("--multihost needs a rendezvous: launch through torchrun "
+                             "--nproc-per-node N, or set TRAJSDE_COORDINATOR (host:port or "
+                             "file:///path), TRAJSDE_NUM_PROCESSES and TRAJSDE_PROCESS_ID")
+        world = mesh.init_multihost(
+            backend="gloo" if args.device.startswith("cpu") else None)
+        print(f"multihost: rank {mesh.rank()} of {world}", flush=True)
 
     from trajsde_tpu_torch.config import (build_datamodule, build_losses, build_metrics,
                                           build_model, load_config)
@@ -101,20 +127,25 @@ def main(argv: Optional[Sequence[str]] = None):
 
     cfg = load_config(args.config)
     rate = ts_drop_rate(cfg)
-    device = resolve_device(args.device)
+    device = resolve_device(mesh.local_device(args.device))
+    # only rank 0 owns the run directory's side effects (train.py's rule)
+    primary = mesh.is_primary()
     run_dir = os.path.join(args.logdir, args.name)
-    os.makedirs(run_dir, exist_ok=True)
-    snapshot_sources(run_dir)
+    if primary:
+        os.makedirs(run_dir, exist_ok=True)
+        snapshot_sources(run_dir)
 
     datamodule = build_datamodule(cfg, seed=args.seed, num_actors=args.num_actors,
-                                  num_lanes=args.num_lanes)
+                                  num_lanes=args.num_lanes, rank=mesh.rank(),
+                                  world=mesh.world())
+    mesh.ranks_for_batch(datamodule.train_batch_size, mesh.world())
     accum = max(1, args.accum)
     # the schedule advances once per optimizer update: ceil(batches / K) an
     # epoch (train.py; a bucketing loader's partial groups may add a few)
     updates_per_epoch = -(-max(1, len(datamodule.train_loader())) // accum)
     model = build_model(cfg, device=device, seed=args.seed)
     state = create_train_state(model, cfg["training_specific"], updates_per_epoch,
-                               seed=args.seed)
+                               seed=args.seed, zero1=args.zero1)
     checkpointer = CheckpointManager(os.path.join(run_dir, "checkpoints"),
                                      async_save=args.async_ckpt)
     if args.ckpt:
@@ -125,22 +156,29 @@ def main(argv: Optional[Sequence[str]] = None):
         checkpointer.restore_params(state.model, args.wonly)
 
     val_args = cfg.get("datamodule_specific", {}).get("kwargs", {}).get("val_dataset_args") or {}
-    logger = ExperimentLogger(run_dir)
+    logger = ExperimentLogger(run_dir) if primary else None
     trainer = Trainer(
         build_losses(cfg), build_metrics(cfg), device=device, logger=logger,
         checkpointer=checkpointer, monitor=args.monitor,
         is_gtabs=val_args.get("is_gtabs", True), log_every=max(1, args.log_every),
         ts_drop_rate=rate, accum_steps=accum,
-        profiler=ProfilerHook(run_dir, args.profile) if args.profile is not None else None,
+        profiler=(ProfilerHook(run_dir, args.profile)
+                  if args.profile is not None and primary else None),
     )
     epochs = (args.epochs if args.epochs is not None
               else cfg["training_specific"].get("max_epochs", 1))
     try:
         trainer.fit(state, datamodule.train_loader, datamodule.val_loader, max_epochs=epochs)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
     return state, trainer
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        from trajsde_tpu_torch.parallel.mesh import shutdown
+
+        shutdown()

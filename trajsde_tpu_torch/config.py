@@ -289,7 +289,8 @@ def build_datamodule(cfg: Dict[str, Any], seed: int = 0, **overrides) -> DataMod
 
 def build_losses(cfg: Dict[str, Any]) -> List[Tuple[str, float, Any]]:
     """``[(name, weight, fn)]`` of the config's ``losses_module`` /
-    ``loss_weights`` (``fn(y, output) -> scalar``)."""
+    ``loss_weights`` (``fn(y, output, counts=None) -> scalar``, ``counts`` the
+    global batch's normalizers under data parallelism)."""
     names = cfg["losses_module"]
     weights = cfg.get("loss_weights", [1.0] * len(names))
     if len(weights) != len(names):

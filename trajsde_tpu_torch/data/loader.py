@@ -13,9 +13,15 @@ Shuffles and flips follow the JAX loader draw for draw: the permutation of
 an epoch comes from ``SeedSequence([seed, epoch])`` and a scene's flips
 from ``SeedSequence([seed, epoch, index])``, so a batch's content depends
 only on (seed, epoch, indices), whatever the threads' timing.
+
+Under data parallelism (``rank`` / ``world``) every rank draws the same
+global batches and packs its own contiguous slice of each
+(``mesh.shard_bounds``), at the capacity the whole global batch picks
+when bucketing: the tensors are that slice of the global batch's pack.
 """
 from __future__ import annotations
 
+import gc
 import logging
 import os
 from typing import Dict, Iterator, List, Optional
@@ -33,6 +39,7 @@ from trajsde_tpu_torch.data.pack import (
     truncation_stats,
 )
 from trajsde_tpu_torch.data.shards import ShardFile, list_shards
+from trajsde_tpu_torch.parallel.mesh import shard_bounds
 
 SPLIT_NAME = {
     "nuScenes": {"train": "train", "val": "val", "test": "val"},
@@ -132,9 +139,9 @@ class NuArgoDataset:
 
 
 class _PackBatches(torch.utils.data.Dataset):
-    """Batch ``i`` of an epoch: its scenes loaded, aligned, flipped and
-    packed, with the truncation counts of that pack.  Runs in a worker
-    process."""
+    """Batch ``i`` of an epoch: this rank's scenes of it loaded, aligned,
+    flipped and packed, with the truncation counts of that pack.  Runs in a
+    worker process."""
 
     def __init__(self, loader: "BatchLoader", batches: List[np.ndarray]):
         self.loader, self.batches = loader, batches
@@ -143,15 +150,22 @@ class _PackBatches(torch.utils.data.Dataset):
         return len(self.batches)
 
     def __getitem__(self, i: int):
-        scenes = [self.loader.dataset[int(j)] for j in self.batches[i]]
-        A, L = self.loader._capacity(scenes)
+        ld = self.loader
+        mine = shard_bounds(len(self.batches[i]), ld.rank, ld.world)
+        # a bucketing capacity is the global batch's: load all of its scenes
+        load = slice(None) if ld.bucket else mine
+        scenes = [ld.dataset[int(j)] for j in self.batches[i][load]]
+        A, L = ld._capacity(scenes)
+        if ld.bucket:
+            scenes = scenes[mine]
         return (pack_scenes(scenes, A, L),
                 truncation_stats(scenes, A, L))
 
 
 class BatchLoader:
     """Shuffling, bucketed, prefetching batch iterator -> ``SceneBatch`` of
-    CPU tensors."""
+    CPU tensors; with ``world > 1``, rank ``rank``'s slice of each global
+    batch of ``batch_size`` scenes."""
 
     def __init__(
         self,
@@ -165,8 +179,11 @@ class BatchLoader:
         seed: int = 0,
         bucket: bool = False,
         num_workers: int = 1,
+        rank: int = 0,
+        world: int = 1,
     ):
         self.dataset = dataset
+        self.rank, self.world = rank, world
         self.batch_size = batch_size
         self.num_actors = num_actors
         self.num_lanes = num_lanes
@@ -242,7 +259,15 @@ class BatchLoader:
             num_workers=self.num_workers, multiprocessing_context="fork",
             prefetch_factor=self.prefetch,
         )
-        it = iter(workers)
+        # the workers fork here, from a process whose garbage may hold CUDA
+        # tensors: a child that collected a cycle of them would free them
+        # through a CUDA context it cannot use, and abort.  Frozen objects
+        # are never collected in the children; the parent thaws them.
+        gc.freeze()
+        try:
+            it = iter(workers)
+        finally:
+            gc.unfreeze()
         try:
             for batch, stats in it:
                 for k, v in stats.items():
@@ -289,6 +314,8 @@ class DataModuleNuArgoMix:
         num_workers: int = 2,
         bucket: bool = False,
         seed: int = 0,
+        rank: int = 0,
+        world: int = 1,
         **_unused,
     ):
         def mk(split, args):
@@ -316,25 +343,27 @@ class DataModuleNuArgoMix:
         self.num_workers = num_workers
         self.bucket = bucket
         self.seed = seed
+        # data parallelism: every loader yields this rank's slices
+        self.shard = dict(rank=rank, world=world)
 
     def train_loader(self) -> BatchLoader:
         return BatchLoader(
             self.train_dataset, self.train_batch_size, self.num_actors,
             self.num_lanes, shuffle=self.shuffle,
             num_workers=self.num_workers, bucket=self.bucket,
-            seed=self.seed,
+            seed=self.seed, **self.shard,
         )
 
     def val_loader(self) -> BatchLoader:
         return BatchLoader(
             self.val_dataset, self.val_batch_size, self.num_actors,
             self.num_lanes, shuffle=False, drop_last=False,
-            num_workers=self.num_workers, bucket=self.bucket,
+            num_workers=self.num_workers, bucket=self.bucket, **self.shard,
         )
 
     def test_loader(self) -> BatchLoader:
         return BatchLoader(
             self.test_dataset, self.val_batch_size, self.num_actors,
             self.num_lanes, shuffle=False, drop_last=False,
-            num_workers=self.num_workers, bucket=self.bucket,
+            num_workers=self.num_workers, bucket=self.bucket, **self.shard,
         )

@@ -16,6 +16,13 @@ only once the write has: the next save, ``wait()``, ``best()``,
 ``latest()`` and the restores land it first, so the board never lists a
 directory still being written and ``_prune`` never deletes one.  A save
 with ``wait=True`` (the trainer's preemption save) is synchronous.
+
+In a process group every rank calls ``save``: a ZeRO-1 optimizer first
+gathers its partitioned moments on rank 0 (``consolidate_state_dict``, a
+collective), then rank 0 alone writes the directory and the board (and
+runs the writer thread).  The checkpoint holds the plain AdamW layout, so
+it restores on any number of ranks, with ZeRO-1 or without.  Every rank
+restores.
 """
 from __future__ import annotations
 
@@ -26,6 +33,8 @@ import threading
 from typing import Any, Optional
 
 import torch
+
+from trajsde_tpu_torch.parallel import mesh
 
 STATE_FILE = "state.pt"
 
@@ -43,12 +52,17 @@ def host_copy(obj: Any) -> Any:
 
 
 class CheckpointManager:
+    """Rank 0 of a process group (or the single process) writes; another
+    rank only joins ``save``'s collective and reads."""
+
     def __init__(self, directory: str, save_top_k: int = 5, mode: str = "min",
                  keep_last: bool = True, async_save: bool = False):
         if mode not in ("min", "max"):
             raise ValueError(f"mode must be 'min' or 'max', got {mode!r}")
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        self.primary = mesh.is_primary()
+        if self.primary:
+            os.makedirs(self.directory, exist_ok=True)
         self.save_top_k = save_top_k
         self.mode = mode
         self.keep_last = keep_last
@@ -63,7 +77,8 @@ class CheckpointManager:
         live = [e for e in self._board if os.path.exists(e["path"])]
         if len(live) != len(self._board):
             self._board = live
-            self._write_board()
+            if self.primary:
+                self._write_board()
 
     def _load_board(self):
         if os.path.exists(self._board_path):
@@ -84,9 +99,15 @@ class CheckpointManager:
         """Write ``state`` (a ``TrainState``) as step ``step`` with its
         monitored ``metric`` (None: unscored), then prune; with
         ``async_save`` and not ``wait``, the write and the board entry
-        follow on the writer thread (see the module's docstring)."""
+        follow on the writer thread (see the module's docstring).  Every
+        rank of a process group calls it; only the primary writes."""
         self._flush_pending()
         path = self._path(step)
+        consolidate = getattr(state.optimizer, "consolidate_state_dict", None)
+        if consolidate is not None:   # ZeRO-1: the moments gather on rank 0
+            consolidate(to=0)
+        if not self.primary:
+            return path
         payload = host_copy({
             "model": state.model.state_dict(),
             "optimizer": state.optimizer.state_dict(),

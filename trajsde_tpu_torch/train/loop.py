@@ -16,6 +16,13 @@ card on a thread and a stream of its own, ahead of the step.  ``fit``
 turns SIGTERM and SIGINT into a checkpoint and a clean return
 (preemption), and runs an optional ``ProfilerHook`` over a window of
 steps.
+
+In a process group (:mod:`trajsde_tpu_torch.parallel.mesh`, one process
+per GPU) each rank is fed its slice of every global batch, and the step
+computes what the JAX package's sharded step computes: the gradient of the
+global batch's loss, applied alike on every rank, and the global batch's
+logs and metrics.  Every seed a step derives has the rank folded in
+(``mesh.rank_seed``; nothing changes in a world of one).
 """
 from __future__ import annotations
 
@@ -34,9 +41,12 @@ from torch import nn
 from trajsde_tpu_torch.data.scene import SceneBatch, strip_for_device
 from trajsde_tpu_torch.data.transforms import ts_drop
 from trajsde_tpu_torch.device import resolve_device
+from trajsde_tpu_torch.losses import batch_counts
 from trajsde_tpu_torch.models.decoders import SDEDecoder
 from trajsde_tpu_torch.models.sde_encoder import LocalEncoderSDESep, gather_agent
 from trajsde_tpu_torch.ops.sde_rollout import mix_seed
+from trajsde_tpu_torch.parallel import mesh
+from trajsde_tpu_torch.train.metrics import all_reduce_metrics
 from trajsde_tpu_torch.train.optim import build_optimizer
 
 # eval draws derive from (EVAL_SEED, batch index), as the JAX package folds
@@ -56,8 +66,10 @@ class TrainState:
 
 
 def create_train_state(model: nn.Module, training_cfg: dict, steps_per_epoch: int,
-                       seed: int = 0) -> TrainState:
-    optimizer, scheduler = build_optimizer(model, training_cfg, steps_per_epoch)
+                       seed: int = 0, zero1: bool = False) -> TrainState:
+    """``zero1=True`` partitions AdamW's moments over the process group's
+    ranks (:func:`trajsde_tpu_torch.parallel.mesh.zero1_adamw`)."""
+    optimizer, scheduler = build_optimizer(model, training_cfg, steps_per_epoch, zero1=zero1)
     return TrainState(model, optimizer, scheduler, 0, int(seed))
 
 
@@ -92,18 +104,19 @@ def micro_seeds(s: int, n: int) -> List[int]:
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, scheduler,
                     losses: List[Tuple[str, float, Callable]], device,
-                    ts_drop_rate: float = 0.0) -> Callable:
-    """``train_step(scenes, step, seed) -> logs``: ``train/<loss>`` values,
-    ``train/total`` and ``train/step_skipped``.
+                    ts_drop_rate: float = 0.0, accum_steps: Optional[int] = None) -> Callable:
+    """``train_step(scenes, step, seed, stop=False) -> logs``: ``train/<loss>``
+    values, ``train/total``, ``train/step_skipped``, ``stop`` and ``scenes``.
 
     ``scenes`` is a ``SceneBatch``, or a sequence of them: the micro-batches
     of one gradient-accumulation group (``trajsde_tpu/train/loop.py``'s
-    ``accum_steps``).  Each micro-batch runs its own forward and backward
-    into ``.grad``, so activation memory is one micro-batch's; then the
-    gradients are scaled by one over the group's size, and the optimizer
-    and the schedule step once.  The loss and the logs are the mean over
-    the micro-batches.  Micro-batch ``i`` draws from its own seed
-    (:func:`micro_seeds`).
+    ``accum_steps``, which defaults to the group's length).  Each
+    micro-batch runs its own forward and backward into ``.grad``, so
+    activation memory is one micro-batch's; then the gradients are scaled
+    by one over the number of micro-batches that hold a scene, and the
+    optimizer and the schedule step once.  The loss and the logs are the
+    mean over those micro-batches.  Micro-batch ``i`` draws from its own
+    seed (:func:`micro_seeds`).
 
     ``ts_drop_rate > 0`` drops historical steps (:func:`ts_drop`) with a
     mask drawn on the device from a generator of its own, seeded with
@@ -111,54 +124,98 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, schedule
     folds the dropout key with 1), so the encoder's noise and the dropout
     masks draw what they draw without it.
 
+    Data parallelism: in a process group (:mod:`~trajsde_tpu_torch.parallel.mesh`)
+    every rank calls the step with its slices of the group's micro-batches.
+    A slot may hold no scene on a rank (a batch of no scene, or a list
+    shorter than ``accum_steps``); that rank runs no forward for it.  Two
+    all-reduces an update, none outside a group:
+
+    * before the forward, every slot's normalizers (:func:`batch_counts`),
+      so each loss is its share of the global micro-batch's loss (with a
+      batch's own counts, every loss gives the bits it gives without);
+    * after the backward, every gradient (zeros where this rank has none),
+      which leaves have one, the logs and ``stop``.
+
+    So every rank applies the global batch's gradient and takes the same
+    NaN-guard decision, and the logs are the global batch's: ``stop`` is
+    True when any rank asked to stop, and ``scenes`` counts the update's
+    scenes on every rank.  When no rank has a scene the step returns None
+    and changes nothing (every feed has ended).
+
     NaN guard: when the loss or any gradient is non-finite, neither the
     optimizer nor the schedule steps, so the parameters and the AdamW
     moments stay as they were, and ``train/step_skipped`` is 1.  Deciding
-    that reads one bool from the device per update.
+    that reads the device once per update.
     """
     params = [p for p in model.parameters() if p.requires_grad]
+    names = [f"train/{name}" for name, _, _ in losses] + ["train/total"]
+    pinned = torch.device(device).type == "cuda"
 
-    def micro_loss(scene: SceneBatch, s: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def micro_loss(scene: SceneBatch, s: int, counts: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The micro-batch's loss and its logs' values (its outputs are
+        freed on return, before the backward)."""
         gen = torch.Generator(device=device).manual_seed(s)
         if ts_drop_rate:
             scene = ts_drop(scene, ts_drop_rate,
                             torch.Generator(device=device).manual_seed(mix_seed(s, 1)))
         out = model(scene, generator=gen, rollout_seed=s)
-        total, logs = 0.0, {}
-        for name, weight, fn in losses:
-            value = fn(out["y"], out)
+        total, values = 0.0, []
+        for _, weight, fn in losses:
+            value = fn(out["y"], out, counts=counts)
             total = total + weight * value
-            logs[f"train/{name}"] = value.detach()
-        return total, logs
+            values.append(value.detach())
+        return total, torch.stack(values + [total.detach()])
 
-    def train_step(scenes: Union[SceneBatch, Sequence[SceneBatch]], step: int,
-                   seed: int) -> Dict[str, Any]:
+    def train_step(scenes: Union[SceneBatch, Sequence[SceneBatch]], step: int, seed: int,
+                   stop: bool = False) -> Optional[Dict[str, Any]]:
         micro = [scenes] if isinstance(scenes, SceneBatch) else list(scenes)
+        slots = accum_steps or max(1, len(micro))
+        if len(micro) > slots:
+            raise ValueError(f"a group of {len(micro)} micro-batches; the step was built for "
+                             f"accum_steps={accum_steps}")
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        totals, micro_logs = [], []
-        for scene, s in zip(micro, micro_seeds(mix_seed(seed, step), len(micro))):
-            total, logs = micro_loss(scene, s)
+        mine = [i for i, m in enumerate(micro) if m.x.shape[0]]
+        none = torch.zeros(2, device=device)
+        counts = torch.stack([batch_counts(micro[i]) if i in mine else none
+                              for i in range(slots)])
+        mesh.all_reduce_([counts])
+        if not mine and float(counts[:, 0].sum()) == 0.0:
+            return None
+        seeds = micro_seeds(mesh.rank_seed(mix_seed(seed, step)), len(micro))
+        values = torch.zeros(len(names), device=device)
+        for i in mine:
+            total, logged = micro_loss(micro[i], seeds[i], counts[i])
             total.backward()
-            totals.append(total.detach())
-            micro_logs.append(logs)
-        if len(micro) > 1:
-            inv = 1.0 / len(micro)   # the group's actual size: a trailing group may be short
+            values = values + logged
+        if slots > 1:
+            # over the slots that hold a scene on some rank: a group may be short
+            inv = 1.0 / (counts[:, 0] > 0).sum()
+            values = values * inv
             for p in params:
                 if p.grad is not None:
                     p.grad.mul_(inv)
-            total = torch.stack(totals).mean()
-            logs = {k: torch.stack([m[k] for m in micro_logs]).mean() for k in micro_logs[0]}
-        else:
-            total, logs = totals[0], micro_logs[0]
-        finite = [torch.isfinite(total)] + [torch.isfinite(p.grad).all()
-                                            for p in params if p.grad is not None]
-        ok = bool(torch.stack(finite).all())
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+        # which leaves have a gradient, and the stop flag; copied from pinned
+        # memory, so the host does not wait here for the backward to drain
+        flags = torch.tensor([float(p.grad is not None) for p in params] + [float(stop)])
+        flags = (flags.pin_memory() if pinned else flags).to(device, non_blocking=True)
+        mesh.all_reduce_(grads + [values, flags])
+        finite = torch.stack([torch.isfinite(values[-1])]
+                             + [torch.isfinite(g).all() for g in grads]).all()
+        # one read from the device an update
+        *has_grad, stops, ok, n_scenes = torch.cat([
+            flags, finite[None].float(), counts[:, 0].sum()[None]]).tolist()
+        for p, g, has in zip(params, grads, has_grad):
+            if has:
+                p.grad = g
         if ok:
             optimizer.step()
             scheduler.step()
-        logs["train/total"] = total
-        logs["train/step_skipped"] = 0.0 if ok else 1.0
+        logs = dict(zip(names, values.unbind()))
+        logs.update({"train/step_skipped": 0.0 if ok else 1.0, "stop": stops > 0,
+                     "scenes": int(n_scenes)})
         return logs
 
     return train_step
@@ -183,13 +240,15 @@ def group_microbatches(batches: Iterable[SceneBatch], k: int) -> Iterator[List[S
 
 def make_eval_step(model: nn.Module, metrics, is_gtabs: bool = True, device="cuda") -> Callable:
     """``eval_step(scene, batch_idx) -> {metric name: (sum, count)}`` in eval
-    mode without gradients; batch ``i`` draws from ``(EVAL_SEED, i)``."""
+    mode without gradients; batch ``i`` draws from ``(EVAL_SEED, i)``, with
+    the rank folded in under data parallelism."""
 
     @torch.no_grad()
     def eval_step(scene: SceneBatch, batch_idx: int):
         model.eval()
-        gen, s = step_generator(device, EVAL_SEED, batch_idx)
-        out = model(scene, generator=gen, rollout_seed=s)
+        s = mesh.rank_seed(mix_seed(EVAL_SEED, batch_idx))
+        out = model(scene, generator=torch.Generator(device=device).manual_seed(s),
+                    rollout_seed=s)
         pred, target, reg_mask, source = agent_slices(scene, out, is_gtabs)
         return {m.name: m.update_fn(pred, target, reg_mask, source) for m in metrics}
 
@@ -340,7 +399,10 @@ class Trainer:
     Preemption: SIGTERM or SIGINT sets a flag; the
     update in flight finishes, then ``fit`` saves an unscored checkpoint,
     logs ``preempted`` and returns, so a ``--ckpt`` resume loses at most a
-    step.  A signal during the val pass ends it and saves unscored rather
+    step.  In a process group the flag rides in the step's all-reduce (and
+    in one more at the end of the train and the val pass), so every rank
+    stops after the same update and saves together, whichever rank the
+    signal reached.  A signal during the val pass ends it and saves unscored rather
     than score a partial pass.  A second SIGINT raises
     ``KeyboardInterrupt``.  The handlers are installed only from the main
     thread and restored on the way out.  The loader's worker processes
@@ -412,6 +474,13 @@ class Trainer:
         while (scene := self._next(feed)) is not None:
             yield scene
 
+    @staticmethod
+    def _agree(flag: bool, dev: torch.device) -> bool:
+        """``flag`` on any rank (one all-reduce in a process group)."""
+        t = torch.tensor([float(flag)], device=dev)
+        mesh.all_reduce_([t])
+        return bool(t.item() > 0)
+
     def _emergency_stop(self, state: TrainState) -> TrainState:
         if self.checkpointer is not None:
             # synchronous: the process is about to end
@@ -430,7 +499,8 @@ class Trainer:
                              f"({sorted(m.name for m in self.metrics)})")
         dev = resolve_device(self.device)
         train_step = make_train_step(state.model, state.optimizer, state.scheduler,
-                                     self.losses, dev, ts_drop_rate=self.ts_drop_rate)
+                                     self.losses, dev, ts_drop_rate=self.ts_drop_rate,
+                                     accum_steps=max(1, self.accum_steps))
         if self.logger is not None:
             self.logger.log_scalars(state.step, self._nfe_logs(state.model))
         self.preempted = False   # a stale flag must not stop a resumed fit
@@ -446,27 +516,32 @@ class Trainer:
                         t_wait = time.perf_counter()
                         group = next(groups, None)
                         wait += time.perf_counter() - t_wait
-                        if group is None:
-                            break
-                        if self.profiler is not None:
+                        if self.profiler is not None and group is not None:
                             self.profiler.on_step(state.step + 1)
-                        logs = train_step(group, state.step, state.seed)
+                        # a rank whose feed has ended still joins the others' updates
+                        logs = train_step(group or [], state.step, state.seed,
+                                          stop=self.preempted)
+                        if logs is None:   # every rank's feed has ended
+                            break
+                        stop = logs.pop("stop")
                         state.step += 1
                         n_steps += 1
-                        scenes += sum(scene.x.shape[0] for scene in group)
+                        scenes += logs.pop("scenes")
                         skipped += logs["train/step_skipped"]
                         if self.logger is not None and state.step % self.log_every == 0:
                             self._log_step(state.step,
                                            logs | {"train/steps_skipped_cum": skipped})
-                        if self.preempted:
+                        # one rank has no one to agree with: a signal that came
+                        # during its update stops it after that update
+                        if stop or (self.preempted and mesh.world() == 1):
                             return self._emergency_stop(state)
                 # the train time closes on a synchronized clock, before the val pass
                 _synchronize(dev)
                 train_dt = time.perf_counter() - t0
-                if self.preempted:
+                if self._agree(self.preempted, dev):
                     return self._emergency_stop(state)
                 results = self.evaluate(state, val_batches)
-                if self.preempted:   # a partial val pass is not a score
+                if self._agree(self.preempted, dev):   # a partial val pass is not a score
                     return self._emergency_stop(state)
                 record = {f"val/{k}": v for k, v in results.items()} | {
                     "epoch": float(epoch),
@@ -495,7 +570,9 @@ class Trainer:
     def evaluate(self, state: TrainState, batches: Callable[[], Iterable[SceneBatch]]
                  ) -> Dict[str, float]:
         """The metrics over ``batches``; a preemption signal ends the pass
-        early (``fit`` then saves unscored)."""
+        early (``fit`` then saves unscored).  In a process group each rank
+        evaluates its slices (a slice of no scene runs nothing) and the
+        metrics' (sum, count) pairs are summed over the ranks."""
         dev = resolve_device(self.device)
         eval_step = make_eval_step(state.model, self.metrics, self.is_gtabs, dev)
         for m in self.metrics:
@@ -503,8 +580,10 @@ class Trainer:
         with contextlib.closing(device_prefetch(batches(), dev)) as feed:
             i = 0
             while (scene := self._next(feed)) is not None and not self.preempted:
-                contribs = eval_step(scene, i)
-                for m in self.metrics:
-                    m.accumulate(contribs[m.name])
+                if scene.x.shape[0]:
+                    contribs = eval_step(scene, i)
+                    for m in self.metrics:
+                        m.accumulate(contribs[m.name])
                 i += 1
+        all_reduce_metrics(self.metrics, dev)
         return {m.name: m.compute() for m in self.metrics}

@@ -128,6 +128,19 @@ class TransferMetric:
         return float("nan") if count == 0.0 else float(self._sum) / count
 
 
+def all_reduce_metrics(metrics: Sequence[TransferMetric], device) -> None:
+    """Sum every metric's (sum, count) over the process group's ranks in one
+    all-reduce (the JAX package's ``psum`` under a sharded eval), so each
+    rank's ``compute`` gives the whole eval's value."""
+    from trajsde_tpu_torch.parallel.mesh import all_reduce_
+
+    pairs = [torch.as_tensor(v, dtype=torch.float32, device=device).clone()
+             for m in metrics for v in (m._sum, m._count)]
+    all_reduce_(pairs)
+    for i, m in enumerate(metrics):
+        m._sum, m._count = pairs[2 * i], pairs[2 * i + 1]
+
+
 def make_metrics(names, metric_args) -> list:
     """Metric accumulators; ``per_source: true`` in an args dict adds the
     per-domain variants (``<name>_src0`` / ``<name>_src1``) beside the

@@ -39,12 +39,14 @@ def cosine_factor(k: int, decay_steps: int, alpha: float) -> float:
 
 
 def cosine_adamw(model: nn.Module, lr: float, weight_decay: float, t_max_epochs: int,
-                 steps_per_epoch: int, eta_min: float = 0.0, nodecay: bool = False
-                 ) -> Tuple[torch.optim.AdamW, torch.optim.lr_scheduler.LambdaLR]:
+                 steps_per_epoch: int, eta_min: float = 0.0, nodecay: bool = False,
+                 zero1: bool = False
+                 ) -> Tuple[torch.optim.Optimizer, torch.optim.lr_scheduler.LambdaLR]:
     """AdamW over ``model``'s parameters and its per-step cosine schedule;
     call ``scheduler.step()`` after each ``optimizer.step()``.
     ``nodecay=True`` puts the :func:`decay_mask` leaves in a group without
-    weight decay."""
+    weight decay.  ``zero1=True`` partitions the moments over the process
+    group's ranks (ZeRO-1, :func:`trajsde_tpu_torch.parallel.mesh.zero1_adamw`)."""
     params = dict(model.named_parameters())
     if nodecay:
         mask = decay_mask(model)
@@ -54,7 +56,12 @@ def cosine_adamw(model: nn.Module, lr: float, weight_decay: float, t_max_epochs:
                    "weight_decay": 0.0}]
     else:
         groups = [{"params": list(params.values()), "weight_decay": weight_decay}]
-    optimizer = torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    if zero1:
+        from trajsde_tpu_torch.parallel.mesh import zero1_adamw
+
+        optimizer = zero1_adamw(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    else:
+        optimizer = torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8)
     decay_steps = max(1, t_max_epochs * steps_per_epoch)
     alpha = eta_min / lr if lr else 0.0
     scheduler = torch.optim.lr_scheduler.LambdaLR(
@@ -62,7 +69,8 @@ def cosine_adamw(model: nn.Module, lr: float, weight_decay: float, t_max_epochs:
     return optimizer, scheduler
 
 
-def build_optimizer(model: nn.Module, training_cfg: dict, steps_per_epoch: int):
+def build_optimizer(model: nn.Module, training_cfg: dict, steps_per_epoch: int,
+                    zero1: bool = False):
     """``(optimizer, scheduler)`` from a config's ``training_specific``."""
     return cosine_adamw(
         model,
@@ -71,4 +79,5 @@ def build_optimizer(model: nn.Module, training_cfg: dict, steps_per_epoch: int):
         t_max_epochs=training_cfg.get("T_max", training_cfg.get("max_epochs", 100)),
         steps_per_epoch=steps_per_epoch,
         nodecay=bool(training_cfg.get("nodecay", False)),
+        zero1=zero1,
     )
