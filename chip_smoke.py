@@ -234,6 +234,24 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      of the replicated run; K1-K4 once per update on each rank; a rank
      that fails or outlives RANK_TIMEOUT_S fails the phase; the ZeRO-1
      step's times, marked as gloo on one card.
+  R. the deployment artifact (after Q, on J's files;
+     ``trajsde_tpu_torch/deploy.py``, K1 and K3 as the registered ops
+     ``trajsde::sde_rollout`` and ``trajsde::aa_fused_fwd``).  R1:
+     ``FLAGSHIP_H100`` at full width with seeded weights exported on the
+     card for EXPORT_BUCKETS (1 and 128); the export's seconds and the size
+     on disk printed.  R2: a process of its own that imports no ``models``,
+     ``config`` or ``train`` module (``EXPORT_WORKER``) loads it with
+     ``ServingEngine.from_export`` and serves 1 scene, then 128: K1 and K3
+     once per batch, K2 and K4 never, and the answers within
+     ``TOL_PIPELINE`` of the live scan engine's at the same seed (bit-equal
+     or not printed).  R3: one served batch at buckets 1 and 128, exported
+     against live, in EXPORT_ROUNDS alternating rounds of CUDA-event
+     medians; nothing is claimed from them.  R4: the same model exported on
+     the CPU for ``cpu`` and ``cuda`` and moved to the card at load: K1 and
+     K3 once, within ``TOL_SPLICE`` of the CPU program on pinned encoder
+     draws.  R5: ``serve_torch.py --export`` on J's checkpoint (bucket 1),
+     then ``--from-export`` over J's validation scenes: K1 and K3 once per
+     scene, the predictions checked.
 Phases 4, B, C and 7 check that K4 never launches on their paths, and the
 serving and training phases that K5 and K6 never do.
 The last lines are the card, a JSON object per kernel and the device line.
@@ -276,8 +294,9 @@ from trajsde_tpu_torch.ops import vpu_probe as K6
 from trajsde_tpu_torch.ops.brownian import BrownianTree
 from trajsde_tpu_torch.ops.sdeint import ou_moments, sdeint_adaptive
 from trajsde_tpu_torch.parallel import mesh
-from trajsde_tpu_torch.server import ServingEngine, align_scene
-from trajsde_tpu_torch.serving import make_serving_fn
+from trajsde_tpu_torch.deploy import export_serving, load_serving
+from trajsde_tpu_torch.server import ServingEngine, align_scene, make_postprocess
+from trajsde_tpu_torch.serving import make_scan_fn, make_serving_fn
 from trajsde_tpu_torch.train.checkpoint import CheckpointManager
 from trajsde_tpu_torch.train.loop import (Trainer, create_train_state, make_train_step,
                                           micro_seeds)
@@ -415,6 +434,8 @@ REMAT_STEPS = 2
 # ZeRO-1 steps after them, the rounds of Q1's turns, and how long a rank or
 # a collective may take before the phase fails
 MULTI_BATCH, MULTI_STEPS, MULTI_TIMED, MULTI_ROUNDS = 128, 3, 6, 3
+# phase R: the artifact's buckets, the rounds of exported vs live timing
+EXPORT_BUCKETS, EXPORT_ROUNDS = (1, 128), 4
 RANK_TIMEOUT_S = 240
 # H100 SXM published peaks (dense): f32 on CUDA cores, TF32 and f64 on the
 # tensor cores, HBM3 bandwidth
@@ -3412,6 +3433,196 @@ def phase_multigpu(d: str, card: str) -> dict:
     return out
 
 
+# R's loader: a process of its own that imports no model code (argv: the
+# artifact, the result file, the engine's seed, actors, lanes, the scenes'
+# generator seed, the scene count); it serves one scene, then the rest as
+# one batch, and prints its launches, load time and imported modules
+EXPORT_WORKER = r"""
+import json, sys, time
+import numpy as np
+from trajsde_tpu_torch.data.synthetic import make_raw_scene
+from trajsde_tpu_torch.ops import aa_fused as K3, sde_rollout as K1
+from trajsde_tpu_torch.server import ServingEngine
+art, out = sys.argv[1:3]
+seed, actors, lanes, rng_seed, n = map(int, sys.argv[3:8])
+t0 = time.perf_counter()
+eng = ServingEngine.from_export(art, device="cuda", seed=seed)
+load_s = time.perf_counter() - t0
+rng = np.random.default_rng(rng_seed)
+raws = [make_raw_scene(rng, i % 2, num_actors=actors, num_lanes=lanes) for i in range(n)]
+got = eng.predict(raws[:1]) + eng.predict(raws[1:])
+eng.close()
+np.savez(out, **{f"{i}/{k}": v for i, r in enumerate(got) for k, v in r.items()})
+print(json.dumps({"load_s": load_s, "launches": {
+    "sde_rollout": K1.sde_rollout.launches, "sde_rollout_bwd": K1.sde_rollout_bwd.launches,
+    "aa_fused": K3.fused_pair_attention.launches,
+    "aa_fused_bwd": K3.fused_pair_attention_bwd.launches},
+    "modules": sorted(m for m in sys.modules if m.startswith("trajsde"))}))
+"""
+
+
+def _artifact_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def phase_export(d: str, card: str) -> dict:
+    """R. The deployment artifact (``trajsde_tpu_torch/deploy.py``, after Q,
+    on J's files); see the module docstring."""
+    import serve_torch
+
+    t_phase = time.perf_counter()
+    out = {}
+    rng_seed, n = SEED + 71, 1 + TRAIN_BATCH
+    rng = np.random.default_rng(rng_seed)
+    raws = [make_raw_scene(rng, i % 2, num_actors=NUM_ACTORS, num_lanes=NUM_LANES)
+            for i in range(n)]
+    example = pack_scenes([align_scene(raws[0])[0]], NUM_ACTORS, NUM_LANES)
+    model = build_model(FLAGSHIP_H100, device="cuda", seed=SEED)
+
+    # R1: export at full width, buckets 1 and 128
+    art = os.path.join(d, "artifact")
+    t0 = time.perf_counter()
+    manifest = export_serving(model, example, art, buckets=EXPORT_BUCKETS)
+    out["export_s"], out["artifact_bytes"] = time.perf_counter() - t0, _artifact_bytes(art)
+    check(manifest["ops"] == ["trajsde::aa_fused_fwd", "trajsde::sde_rollout"]
+          and [x["name"] for x in manifest["draws"]] == ["twin_noise", "enc_noise",
+                                                          "rollout_seed"],
+          f"the artifact's ops {manifest['ops']} and draws {manifest['draws']}")
+    print(f"[export] R1 FLAGSHIP_H100 ({NUM_ACTORS} actors, {NUM_LANES} lanes, seeded weights) "
+          f"exported for buckets {manifest['buckets']} on {manifest['platforms']} in "
+          f"{out['export_s']:.1f} s; {out['artifact_bytes'] / 2**20:.1f} MiB on disk; ops "
+          f"{manifest['ops']}", flush=True)
+
+    # R2: a process with no model code serves 1 then 128 scenes; the live
+    # scan engine of the same seed answers the same batches
+    live = ServingEngine(model, num_actors=NUM_ACTORS, num_lanes=NUM_LANES, device="cuda",
+                         engine="scan", batch_buckets=EXPORT_BUCKETS, seed=SEED)
+    try:
+        want = live.predict(raws[:1]) + live.predict(raws[1:])
+    finally:
+        live.close()
+    got_path = os.path.join(d, "exported_answers.npz")
+    root = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, "-c", EXPORT_WORKER, art, got_path, str(SEED),
+                        str(NUM_ACTORS), str(NUM_LANES), str(rng_seed), str(n)],
+                       cwd=root, capture_output=True, text=True, timeout=600,
+                       env=dict(os.environ, PYTHONPATH=root))
+    check(r.returncode == 0, f"the artifact's loader failed:\n{r.stderr[-4000:]}")
+    worker = json.loads(r.stdout.strip().splitlines()[-1])
+    bad = [m for m in worker["modules"] if m.startswith(("trajsde_tpu_torch.models",
+                                                         "trajsde_tpu_torch.config",
+                                                         "trajsde_tpu_torch.train"))]
+    check(not bad, f"the artifact's loader imported model code: {bad}")
+    launches = dict(worker["launches"], aa_attention=0, vpu_probe=0)
+    check(launches["sde_rollout"] == launches["aa_fused"] == 2
+          and launches["sde_rollout_bwd"] == launches["aa_fused_bwd"] == 0,
+          f"two exported batches launched {launches}, not K1 and K3 once each per batch")
+    with np.load(got_path) as z:
+        got = [{k: z[f"{i}/{k}"] for k in want[i]} for i in range(n)]
+    _check_results(got, n, model)
+    out["rel"], out["bit_equal"] = _results_distance(got, want)
+    check(out["rel"] <= TOL_PIPELINE, f"the exported answers are {out['rel']:.3e} of max from "
+          "the live scan engine's")
+    out["launches"], out["load_s"] = launches, worker["load_s"]
+    print(f"[export] R2 a process with no model code ({len(worker['modules'])} trajsde "
+          f"modules, none of models / config / train) loaded the artifact in "
+          f"{worker['load_s']:.1f} s and served 1 + {TRAIN_BATCH} scenes: launches {launches}; "
+          f"max |exported - live scan engine| / max |live| = {out['rel']:.3e} (tol "
+          f"{TOL_PIPELINE:g}); bit-equal: {out['bit_equal']}", flush=True)
+
+    # R3: exported vs live, one served batch each, in turns (CUDA events)
+    exp = load_serving(art, device="cuda")
+    scan, post = make_scan_fn(model, "cuda"), make_postprocess(True, 20)
+    seed = 7
+
+    def live_fn(scene):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        with torch.inference_mode():
+            return post(scene, scan(scene, seed, generator=gen))
+
+    times = {}
+    for b in EXPORT_BUCKETS:
+        scene = pack_scenes([align_scene(x)[0] for x in raws[1:1 + b]], NUM_ACTORS,
+                            NUM_LANES).to("cuda")
+        a, b_ = exp(scene, seed), live_fn(scene)
+        same = all(torch.equal(v, b_[k]) for k, v in a.items())
+        del a, b_
+        ts = {"exported": [], "live": []}
+        for rnd in range(EXPORT_ROUNDS):
+            for mode in (("exported", "live") if rnd % 2 == 0 else ("live", "exported")):
+                fn = (lambda: exp(scene, seed)) if mode == "exported" else \
+                    (lambda: live_fn(scene))
+                ts[mode].append(cuda_ms(fn, runs=5, warmup=1))
+        times[b] = {k: statistics.median(v) for k, v in ts.items()}
+        print(f"[export] R3 {card}: bucket {b}, one served batch (draws, forward, projection), "
+              f"{EXPORT_ROUNDS} alternating rounds of CUDA-event medians: exported "
+              f"{times[b]['exported']:.2f} ms, live scan engine {times[b]['live']:.2f} ms; the "
+              f"two bit-equal here: {same}", flush=True)
+    out["ms"] = times
+    del exp, scan
+
+    # R4: a CPU export for cpu and cuda, moved to the card at load; pinned
+    # encoder draws, the same rollout seed
+    cpu_model = build_model(FLAGSHIP_H100, device="cpu", seed=SEED)
+    art_cpu = os.path.join(d, "artifact_cpu")
+    t0 = time.perf_counter()
+    export_serving(cpu_model, example, art_cpu, buckets=(1,), platforms=["cpu", "cuda"])
+    cpu_export_s = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(SEED + 72)
+    draws = {"twin_noise": torch.randn((1, 1, 21, 2), generator=gen),
+             "enc_noise": torch.randn((21, 1, NUM_ACTORS + 1, 64), generator=gen)}
+    on_cpu = load_serving(art_cpu, device="cpu")(example, seed, draws=draws)
+    zero_counts()
+    on_card = load_serving(art_cpu, device="cuda")(example, seed, draws=draws)
+    moved = _counts()
+    check(moved["sde_rollout"] == moved["aa_fused"] == 1,
+          f"the moved program launched {moved}, not K1 and K3 once")
+    rel = max(((on_card[k].cpu() - v).abs().max() / v.abs().max()).item()
+              for k, v in on_cpu.items())
+    check(rel <= TOL_SPLICE, f"the moved program is {rel:.3e} of max from the CPU's")
+    out["moved_rel"] = rel
+    print(f"[export] R4 FLAGSHIP_H100 exported on the CPU for cpu and cuda (bucket 1, "
+          f"{cpu_export_s:.1f} s), moved to the card at load: K1 and K3 once; max |card - CPU| "
+          f"/ max |CPU| = {rel:.3e} (tol {TOL_SPLICE:g}, K1 and K3 against their plain "
+          "versions, pinned encoder draws)", flush=True)
+    del cpu_model, on_cpu, on_card
+
+    # R5: serve_torch.py --export, then --from-export, on J's checkpoint and
+    # validation scenes (bucket 1)
+    run_dir = os.path.join(d, "logs", "cli")
+    best = CheckpointManager(os.path.join(run_dir, "checkpoints")).best()["path"]
+    val_dir = os.path.join(d, "npz", "nuScenes", "val")
+    art_cli, preds = os.path.join(d, "artifact_cli"), os.path.join(d, "export_preds")
+    t0 = time.perf_counter()
+    done = serve_torch.main(["-c", os.path.join(d, "h100.json"), "--ckpt", best, "--export",
+                             art_cli, "--max-batch", "1"])
+    cli_export_s = time.perf_counter() - t0
+    check(done["buckets"] == [1] and done["platforms"] == ["cuda"], f"--export wrote {done}")
+    zero_counts()
+    t0 = time.perf_counter()
+    stats = serve_torch.main(["--from-export", art_cli, "--input-dir", val_dir, "--output-dir",
+                              preds, "--max-batch", "1"])
+    cli_s = time.perf_counter() - t0
+    cli_launches = _counts()
+    check(stats["served"] == CLI_VAL_SCENES and cli_launches["sde_rollout"] == CLI_VAL_SCENES
+          and cli_launches["aa_fused"] == CLI_VAL_SCENES, f"--from-export served {stats} with "
+          f"{cli_launches}, not K1 and K3 once per scene")
+    written = []
+    for name in sorted(os.listdir(preds)):
+        with np.load(os.path.join(preds, name)) as z:
+            written.append({k: z[k] for k in z.files})
+    _check_results(written, CLI_VAL_SCENES, model)
+    out["cli"] = dict(export_s=cli_export_s, s=cli_s, stats=stats, launches=cli_launches)
+    print(f"[export] R5 serve_torch.py --export (phase J's checkpoint, bucket 1) in "
+          f"{cli_export_s:.1f} s, then --from-export over {CLI_VAL_SCENES} validation scenes in "
+          f"{cli_s:.1f} s: {stats}; launches {cli_launches}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_phase
+    print(f"[export] phase R: {out['s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
@@ -3469,6 +3680,8 @@ def main() -> None:
         bf16 = phase_bf16(card, capped["overflow_edges"])
         torch.cuda.empty_cache()
         multi = phase_multigpu(d, card)
+        torch.cuda.empty_cache()
+        exported = phase_export(d, card)
     adaptive = phase_adaptive(card)
     torch.cuda.empty_cache()
     remat = phase_remat(card)
@@ -3530,6 +3743,10 @@ def main() -> None:
         entry["launches_by_path"]["multi_cli_train"] = multi["one_rank"]["launches"][name]
         entry["launches_by_path"]["multi_two_ranks_rank0"] = \
             multi["two_ranks"]["launches"][name]
+        # phase R: the artifact served 1 + 128 scenes in a process of its own,
+        # and serve_torch.py --from-export
+        entry["launches_by_path"]["exported_serve"] = exported["launches"][name]
+        entry["launches_by_path"]["exported_cli"] = exported["cli"]["launches"][name]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches: {served} serving + "
           f"{served_fused} fused serving + {train['sde_rollout']} training + "
           f"{train_fused['sde_rollout']} fused-encoder training; K2 launches: "
@@ -3556,7 +3773,9 @@ def main() -> None:
           f"step: " + ", ".join(f"{tag} {r['step_launches']}" for tag, r in remat.items())
           + f"; --multihost --zero1 on one rank: {multi['one_rank']['launches']}; each of two "
           f"ranks ({multi['two_ranks']['backend']}) over {2 * MULTI_STEPS} updates: "
-          f"{multi['two_ranks']['launches']}", flush=True)
+          f"{multi['two_ranks']['launches']}; the exported FLAGSHIP_H100 over 1 + "
+          f"{TRAIN_BATCH} scenes and serve_torch.py --from-export over {CLI_VAL_SCENES}: "
+          f"{exported['launches']}, {exported['cli']['launches']}", flush=True)
     print(card)
     print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -26,6 +26,14 @@ focal scalar, also inlined in daemon replies).  The weights are restored
 from a checkpoint of the port's ``CheckpointManager``
 (``train_torch.py``).  The engine runs on the card unless ``--device
 cpu``.  Configs are YAML, or JSON (``*.json``).
+
+``--export DIR`` writes a deployment artifact instead of serving: the
+serving pipeline (the model's forward and the world-frame projection, the
+weights inside) exported with ``torch.export`` once per batch bucket of
+the engine, and a ``manifest.json`` (``trajsde_tpu_torch/deploy.py``);
+``--export-platforms cpu,cuda`` lists where it may be loaded (default the
+``--device``).  ``--from-export DIR`` serves such an artifact in any of the
+three modes, with no ``-c`` / ``--ckpt`` and no model code.
 """
 from __future__ import annotations
 
@@ -40,8 +48,6 @@ from typing import Optional, Sequence
 # Queue 1 item that ports each
 NOT_PORTED = {
     "shard": "item 10b (the engine's shard=True)",
-    "export": "item 11 (deployment artifact)",
-    "from_export": "item 11 (deployment artifact)",
 }
 
 
@@ -77,9 +83,15 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--shard", action="store_true",
                    help=f"not ported: ROADMAP.md Queue 1 {NOT_PORTED['shard']}")
-    for flag in ("export", "from_export"):
-        p.add_argument("--" + flag.replace("_", "-"), default=None,
-                       help=f"not ported: ROADMAP.md Queue 1 {NOT_PORTED[flag]}")
+    p.add_argument("--export", default=None, metavar="DIR",
+                   help="export the serving pipeline (torch.export per batch bucket, weights "
+                        "inside) and exit")
+    p.add_argument("--export-platforms", default=None,
+                   help="comma list (cpu,cuda) of the devices the artifact may be loaded on; "
+                        "default the --device")
+    p.add_argument("--from-export", default=None, metavar="DIR",
+                   help="serve from an --export artifact: no config, checkpoint or model "
+                        "code needed")
     args = p.parse_args(argv)
     for flag, item in NOT_PORTED.items():
         if getattr(args, flag) not in (None, False):
@@ -88,26 +100,33 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     modes = [args.daemon, args.input_dir is not None, args.http is not None]
     if sum(map(bool, modes)) > 1:
         p.error("--input-dir, --daemon and --http are mutually exclusive")
-    if not any(modes):
-        p.error("one of --input-dir, --daemon or --http is required")
-    if args.output_dir is None and args.http is None:
+    if not any(modes) and args.export is None:
+        p.error("one of --input-dir, --daemon, --http or --export is required")
+    if args.output_dir is None and args.http is None and any(modes[:2]):
         p.error("--output-dir is required in batch and daemon modes")
-    if args.config is None or args.ckpt is None:
-        p.error("-c/--config and --ckpt are required")
+    if args.from_export is None and (args.config is None or args.ckpt is None):
+        p.error("-c/--config and --ckpt are required unless --from-export")
+    if args.from_export and args.export:
+        p.error("--export needs the real model; it cannot re-export an artifact")
+    if args.ood and (args.from_export or args.export):
+        p.error("--ood needs the live model (the OOD ensemble is not part of an exported "
+                "pipeline)")
+    if args.slim and (args.from_export or args.export):
+        p.error("--slim cannot shrink an exported pipeline's outputs (the artifact is "
+                "frozen with the full result set); use the scan or kernel engines")
     return args
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
-    """Serve; returns the engine's stats, which it also prints last."""
+    """Serve; returns the engine's stats, which it also prints last (with
+    ``--export``, the line that names the artifact)."""
     args = parse_args(argv)
 
     import numpy as np
 
-    from trajsde_tpu_torch.config import build_model, load_config
     from trajsde_tpu_torch.data.loader import load_scene_npz
     from trajsde_tpu_torch.device import resolve_device
     from trajsde_tpu_torch.server import ServingEngine
-    from trajsde_tpu_torch.train.checkpoint import CheckpointManager
 
     def load_raw(path: str) -> dict:
         if not os.path.exists(path):
@@ -126,27 +145,53 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
             raise SystemExit("daemon mode: no request on stdin")
         first_req = json.loads(first_line)
         example_raw = load_raw(first_req["npz"])
-    else:   # --http: a synthetic scene for --warmup
+    else:   # --http / --export alone: a synthetic scene for --warmup and the template
         from trajsde_tpu_torch.data.synthetic import make_raw_scene
 
         example_raw = make_raw_scene(np.random.default_rng(0), 0, num_actors=4, num_lanes=4)
 
-    cfg = load_config(args.config)
-    dm = cfg.get("datamodule_specific", {}).get("kwargs", {})
-    model_kwargs = cfg.get("model_specific", {}).get("kwargs", {})
-    model = build_model(cfg, device=device)
-    # weights only: whatever optimizer trained the checkpoint
-    CheckpointManager(os.path.dirname(os.path.abspath(args.ckpt))).restore_params(model, args.ckpt)
-    engine = ServingEngine(
-        model,
-        num_actors=args.num_actors or int(dm.get("num_actors", 48)),
-        num_lanes=args.num_lanes or int(dm.get("num_lanes", 192)),
-        device=device, engine=args.engine, increments=args.increments,
-        max_batch=args.max_batch,
-        max_wait_ms=args.max_wait_ms,
-        is_gtabs=(dm.get("test_dataset_args") or {}).get("is_gtabs", True),
-        ref_time=int(model_kwargs.get("ref_time", 20)), ood=args.ood, slim=args.slim,
-    )
+    if args.from_export:
+        engine = ServingEngine.from_export(args.from_export, device=device,
+                                           max_batch=args.max_batch,
+                                           max_wait_ms=args.max_wait_ms)
+    else:
+        from trajsde_tpu_torch.config import build_model, load_config
+        from trajsde_tpu_torch.train.checkpoint import CheckpointManager
+
+        cfg = load_config(args.config)
+        dm = cfg.get("datamodule_specific", {}).get("kwargs", {})
+        model_kwargs = cfg.get("model_specific", {}).get("kwargs", {})
+        model = build_model(cfg, device=device)
+        # weights only: whatever optimizer trained the checkpoint
+        CheckpointManager(os.path.dirname(os.path.abspath(args.ckpt))).restore_params(
+            model, args.ckpt)
+        engine = ServingEngine(
+            model,
+            num_actors=args.num_actors or int(dm.get("num_actors", 48)),
+            num_lanes=args.num_lanes or int(dm.get("num_lanes", 192)),
+            device=device, engine=args.engine, increments=args.increments,
+            max_batch=args.max_batch,
+            max_wait_ms=args.max_wait_ms,
+            is_gtabs=(dm.get("test_dataset_args") or {}).get("is_gtabs", True),
+            ref_time=int(model_kwargs.get("ref_time", 20)), ood=args.ood, slim=args.slim,
+        )
+    if args.export:
+        from trajsde_tpu_torch.data.pack import pack_scenes
+        from trajsde_tpu_torch.deploy import export_serving
+        from trajsde_tpu_torch.server import align_scene
+
+        # the template goes through the engine's own alignment and packer
+        example = pack_scenes([align_scene(example_raw, engine.is_gtabs)[0]],
+                              engine.num_actors, engine.num_lanes)
+        engine.close()
+        manifest = export_serving(
+            model, example, args.export, buckets=engine.buckets, is_gtabs=engine.is_gtabs,
+            ref_time=int(model_kwargs.get("ref_time", 20)),
+            platforms=args.export_platforms.split(",") if args.export_platforms else None)
+        done = {"exported": os.path.abspath(args.export), "buckets": manifest["buckets"],
+                "platforms": manifest["platforms"]}
+        print(json.dumps(done), flush=True)
+        return done
     if args.warmup:
         engine.warmup(example_raw)
 

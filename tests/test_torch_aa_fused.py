@@ -168,6 +168,32 @@ def test_plain_k3_on_cpu_counts_no_launch_and_is_differentiable():
     assert q.grad is not None and all(w.grad is not None for w in ws)
 
 
+@pytest.mark.parametrize("with_stats", [False, True])
+def test_registered_k3_op_on_cpu_is_the_plain_version(with_stats):
+    """``trajsde::aa_fused_fwd`` on CPU tensors gives the plain chain's
+    ``out`` bits and, with ``with_stats``, K3's statistics ``[2, R, H]``:
+    each (receiver, head)'s largest unmasked logit (-inf for a receiver with
+    no sender) and its sum of exp, at least 1 (the largest term) and at
+    most Ak; without, an empty tensor."""
+    B, T, Aq, Ak, H = 1, 2, 3, 4, 4
+    r = np.random.default_rng(5)
+    ws = tuple(map(t, _random_ws(r)))
+    q, u = torch.randn((B, T, Aq, 16)), torch.randn((B, T, Aq, Ak, 4))
+    mask = torch.from_numpy((r.uniform(size=(B, T, Aq, Ak)) < 0.6).astype(np.float32))
+    mask[0, 1, 2] = 0.0
+    out, stats = torch.ops.trajsde.aa_fused_fwd(q, u, mask, None, list(ws), H, 0.0, with_stats)
+    assert torch.equal(out, K3.fused_pair_attention_reference(q, u, mask, None, ws, H))
+    if not with_stats:
+        assert stats.shape == (0,)
+        return
+    assert stats.shape == (2, B * T * Aq, H)
+    empty = mask.reshape(-1, Ak).sum(-1) == 0
+    assert bool(empty[5]) and (stats[0, empty] == -torch.inf).all()
+    assert (stats[1, empty] == 0).all()
+    assert ((stats[1, ~empty] >= 1) & (stats[1, ~empty] <= Ak)).all()
+    assert torch.isfinite(stats[0, ~empty]).all()
+
+
 # --------------------------------------------------------------------------
 # the encoder layers
 # --------------------------------------------------------------------------

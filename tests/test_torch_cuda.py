@@ -19,7 +19,11 @@ of both built to write them.  K3 and K4 are tested at both of their head
 counts, the flagship's 8 and the HiVT baseline's 4.  The feed to the card (``device_prefetch``)
 is held to ``.to("cuda")`` bit for bit: its batches, and a train step.
 A fused build's ``remat`` train step launches K3 twice and K4 once and
-equals the plain build's step bit for bit.
+equals the plain build's step bit for bit.  The registered ops
+``trajsde::sde_rollout`` and ``trajsde::aa_fused_fwd`` give their
+launchers' bits, a fused train step through them is the step through the
+launchers, and a ``FLAGSHIP_H100`` artifact exported on the card answers
+with the live scan engine's bits.
 """
 import ctypes
 import functools
@@ -860,3 +864,116 @@ def test_remat_fused_step_runs_k3_twice_and_k4_once_and_is_the_plain_step(cuda, 
     for n, g in grads_p.items():
         assert (g is None) == (grads_r[n] is None), n
         assert g is None or torch.equal(grads_r[n], g), n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["explicit", "rademacher", "gaussian"])
+def test_rollout_op_on_cuda_is_the_direct_launcher_bit_for_bit(cuda, mode):
+    """``trajsde::sde_rollout`` on CUDA tensors, its seed a 0-d int64 host
+    tensor, launches K1 once and gives the bits of the launcher called with
+    the seed as an int."""
+    kp, t0s, dts, y0, noise = _rollout_case(cuda, 1000, 23)
+    kw = _increments_kw(mode, noise)
+    w = K.pack_params(kp)
+    before = K.sde_rollout.launches
+    got = K.rollout_op(y0, w, t0s, dts, torch.tensor(42), 60, kw["noise"] if "noise" in kw
+                       else None, kw["increments"])
+    torch.cuda.synchronize()
+    assert K.sde_rollout.launches == before + 1
+    want = K._launch(y0, w, t0s, dts, 42, 60, kw.get("noise"), kw["increments"])
+    assert torch.equal(got, want)
+    assert torch.equal(K.sde_rollout(y0, kp, t0s, dts, 42, 60, **kw), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", HEADS)
+@pytest.mark.parametrize("with_stats", [False, True])
+def test_aa_fused_op_on_cuda_is_the_direct_launcher_bit_for_bit(cuda, heads, with_stats):
+    """``trajsde::aa_fused_fwd`` on CUDA tensors launches K3 once and gives
+    the launcher's ``out`` (and ``stats``) bits; without stats it returns an
+    empty tensor in their place."""
+    q, u, mask, keep, ws, _, p = _k4_case(cuda, (2, 3, 5, 4), True, heads)
+    before = K3.fused_pair_attention.launches
+    out, stats = K3.aa_fused_op(q, u, mask, keep, list(ws), heads, p, with_stats)
+    torch.cuda.synchronize()
+    assert K3.fused_pair_attention.launches == before + 1
+    want_out, want_stats = K3.launch_fwd(K3._library(), q, u, mask, keep, ws, heads, p,
+                                         with_stats)
+    assert torch.equal(out, want_out)
+    assert torch.equal(stats, want_stats) if with_stats else stats.numel() == 0
+
+
+@pytest.mark.gpu
+def test_fused_train_step_through_the_ops_is_the_direct_launchers_step(cuda, monkeypatch):
+    """One ``FLAGSHIP_TRAIN_FUSED`` train step at batch 8, dropout live: the
+    loss and every gradient through the registered ops equal, bit for bit,
+    the same step with K1 and K3 called straight from their launchers and
+    the seed an int (the path before the ops); K1-K4 launch once each."""
+    from trajsde_tpu_torch import config as tconfig
+
+    cfg = tconfig.FLAGSHIP_TRAIN_FUSED
+    losses = tconfig.build_losses(cfg)
+    scene = _packed(15, 8, 48, 192).to(cuda)
+
+    def step():
+        model = tconfig.build_model(cfg, device=cuda, seed=6).train()
+        gen = torch.Generator(device=cuda).manual_seed(9)
+        before = (K.sde_rollout.launches, K.sde_rollout_bwd.launches,
+                  K3.fused_pair_attention.launches, K3.fused_pair_attention_bwd.launches)
+        out = model(scene, generator=gen, rollout_seed=4)
+        loss = sum(w * fn(out["y"], out) for _, w, fn in losses)
+        loss.backward()
+        torch.cuda.synchronize()
+        after = (K.sde_rollout.launches, K.sde_rollout_bwd.launches,
+                 K3.fused_pair_attention.launches, K3.fused_pair_attention_bwd.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1, 1)
+        return loss.detach(), {n: p.grad for n, p in model.named_parameters()}
+
+    loss_op, grads_op = step()
+    monkeypatch.setattr(K, "sde_rollout_packed",
+                        lambda y0, w, t0s, dts, seed, n, noise=None, inc="gaussian":
+                        K._launch(y0, w, t0s, dts, int(seed), n, noise, inc))
+    monkeypatch.setattr(K3, "fused_pair_attention_fwd",
+                        lambda q, u, mask, keep, ws, heads, p=0.0:
+                        K3._launch(q, u, mask, keep, ws, heads, p, with_stats=True))
+    loss_direct, grads_direct = step()
+    assert torch.equal(loss_op, loss_direct)
+    for n, g in grads_op.items():
+        assert (g is None) == (grads_direct[n] is None), n
+        assert g is None or torch.equal(grads_direct[n], g), n
+
+
+@pytest.mark.gpu
+def test_exported_fused_flagship_on_cuda_is_the_live_scan_engine(cuda, tmp_path):
+    """``FLAGSHIP_H100`` (K3 and K1 inside) exported on the card at 8 actors
+    and 16 lanes, buckets 1 and 2: ``from_export`` answers three scenes with
+    the live scan engine's bits at the same seed, K1 and K3 once per batch."""
+    import numpy as np
+
+    from trajsde_tpu_torch.config import FLAGSHIP_H100, build_model
+    from trajsde_tpu_torch.data.pack import pack_scenes
+    from trajsde_tpu_torch.data.synthetic import make_raw_scene
+    from trajsde_tpu_torch.deploy import export_serving
+    from trajsde_tpu_torch.server import ServingEngine, align_scene
+
+    rng = np.random.default_rng(3)
+    raws = [make_raw_scene(rng, i % 2, num_actors=6, num_lanes=12) for i in range(3)]
+    model = build_model(FLAGSHIP_H100, device=cuda, seed=2)
+    manifest = export_serving(model, pack_scenes([align_scene(raws[0])[0]], 8, 16),
+                              str(tmp_path), buckets=(1, 2))
+    assert manifest["ops"] == ["trajsde::aa_fused_fwd", "trajsde::sde_rollout"]
+    live = ServingEngine(model, num_actors=8, num_lanes=16, device=cuda, engine="scan",
+                         batch_buckets=(1, 2), seed=4)
+    exported = ServingEngine.from_export(str(tmp_path), device=cuda, seed=4)
+    try:
+        want = live.predict(raws)
+        before = (K.sde_rollout.launches, K3.fused_pair_attention.launches)
+        got = exported.predict(raws)
+        after = (K.sde_rollout.launches, K3.fused_pair_attention.launches)
+    finally:
+        live.close()
+        exported.close()
+    assert tuple(a - b for a, b in zip(after, before)) == (2, 2)
+    for g, w in zip(got, want):
+        for k in w:
+            assert np.array_equal(g[k], w[k]), k

@@ -110,6 +110,8 @@ def test_engine_choice_and_refusals(baseline):
     with pytest.raises(NotImplementedError, match="scan engine"):
         ServingEngine(baseline["tm"], engine="kernel", **KW)
     with pytest.raises(ValueError, match="unknown serving engine"):
+        ServingEngine(baseline["tm"], engine="stablehlo", **KW)
+    with pytest.raises(ValueError, match="serves a loaded artifact"):
         ServingEngine(baseline["tm"], engine="exported", **KW)
     for engine in ("auto", "scan"):
         with pytest.raises(NotImplementedError, match="forward_ood"):

@@ -132,3 +132,23 @@ def test_wrapper_rejects_bad_inputs(ref):
     with pytest.raises(ValueError, match="meta"):
         K.sde_rollout(torch.zeros(4, D, device="meta"), kp, torch.zeros(TF),
                       torch.full((TF,), 0.1), 0, TF)
+
+
+def test_registered_rollout_op_takes_the_seed_as_a_host_tensor(ref):
+    """``trajsde::sde_rollout`` on CPU tensors, its seed a 0-d int64 host
+    tensor, gives the plain version's bits for that seed as an int (the
+    wrappers take either); any other seed tensor is refused."""
+    kp = _tp(ref["kp"])
+    w = K.pack_params(kp)
+    y0 = torch.from_numpy(np.random.default_rng(4).standard_normal((9, D)).astype(np.float32))
+    t0s, dts = torch.from_numpy(ref["t0s"]), torch.from_numpy(ref["dts"])
+    want = K.sde_rollout_reference(y0, kp, t0s, dts, 7, TF, increments="rademacher")
+    got = torch.ops.trajsde.sde_rollout(y0, w, t0s, dts, torch.tensor(7), TF, None, "rademacher")
+    assert torch.equal(got, want)
+    assert torch.equal(K.sde_rollout_packed(y0, w, t0s, dts, torch.tensor(7), TF, None,
+                                            "rademacher"), want)
+    assert not torch.equal(K.sde_rollout_packed(y0, w, t0s, dts, 8, TF, None, "rademacher"),
+                           want)
+    for bad in (torch.tensor([7]), torch.tensor(7, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="0-d int64 tensor on the host"):
+            K.sde_rollout_packed(y0, w, t0s, dts, bad, TF, None, "rademacher")

@@ -1,8 +1,9 @@
 """``serve_torch.py`` on the CPU (JAX's counterpart:
 ``tests/test_server.py::test_serve_cli_batch_and_daemon``): batch and
 daemon modes on a checkpoint written by the port's ``CheckpointManager``,
-the refusal to start without a card, the flags that are not ported yet,
-and the usage lines of its docstring.
+``--export`` and ``--from-export`` (batch, daemon and HTTP modes, and
+``serve.py``'s argument rules), the refusal to start without a card, the
+flag that is not ported yet, and the usage lines of its docstring.
 """
 import json
 import os
@@ -131,11 +132,115 @@ def test_refuses_to_start_without_a_card(setup, tmp_path):
     assert not os.listdir(tmp_path)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--shard"], "item 10"), (["--export", "d"], "item 11"), (["--from-export", "d"], "item 11")])
+@pytest.mark.parametrize("flags,item", [(["--shard"], "item 10")])
 def test_flags_not_ported_exit_naming_their_item(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {item}"):
         serve_torch.parse_args(["-c", "c.yml", "--ckpt", "x", "--http", "0", *flags])
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--export", "d", "--from-export", "e"], "cannot re-export an artifact"),
+    (["--from-export", "e", "--http", "0", "--ood"], "--ood needs the live model"),
+    (["-c", "c.yml", "--ckpt", "x", "--export", "d", "--slim"], "--slim cannot shrink"),
+    (["-c", "c.yml", "--ckpt", "x", "--export", "d", "--ood"], "--ood needs the live model"),
+    (["--export", "d", "-c", "c.yml"], "required unless --from-export"),
+    (["--from-export", "e", "--input-dir", "s"], "--output-dir is required"),
+    (["--from-export", "e"], "one of --input-dir, --daemon, --http or --export"),
+])
+def test_export_flags_follow_serve_pys_rules(argv, message, capsys):
+    with pytest.raises(SystemExit):
+        serve_torch.parse_args(argv)
+    assert message in capsys.readouterr().err
+
+
+def test_from_export_needs_no_config_or_checkpoint():
+    args = serve_torch.parse_args(["--from-export", "art", "--http", "0"])
+    assert args.from_export == "art" and args.config is None and args.ckpt is None
+    args = serve_torch.parse_args(["-c", "c.yml", "--ckpt", "x", "--export", "art",
+                                   "--export-platforms", "cpu,cuda"])
+    assert args.export == "art" and args.export_platforms == "cpu,cuda"
+
+
+@pytest.fixture(scope="module")
+def artifact(setup):
+    """``--export`` of the checkpoint at ``--max-batch 1`` (bucket 1)."""
+    out = str(setup["root"] / "artifact")
+    done = serve_torch.main(_common(setup, "--export", out, "--max-batch", "1"))
+    assert done == {"exported": out, "buckets": [1], "platforms": ["cpu"]}
+    return out
+
+
+def test_export_then_from_export_batch_mode_writes_the_live_engines_predictions(
+        setup, artifact, tmp_path, capsys):
+    """``--from-export`` in batch mode writes, bit for bit, the npz files of
+    the live scan engine over the checkpoint at the same seed (--max-batch
+    1: each scene a batch of its own, in file order; both warm up first)."""
+    assert sorted(os.listdir(artifact)) == ["bucket_1.pt2", "manifest.json"]
+    live, exported = tmp_path / "live", tmp_path / "exported"
+    serve_torch.main(_common(setup, "--engine", "scan", "--input-dir", setup["scenes"],
+                             "--output-dir", str(live), "--max-batch", "1", "--warmup"))
+    capsys.readouterr()
+    stats = serve_torch.main(["--from-export", artifact, "--device", "cpu", "--input-dir",
+                              setup["scenes"], "--output-dir", str(exported), "--max-batch", "1",
+                              "--warmup"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == stats
+    assert stats["served"] == N and stats["mean_batch"] == 1.0
+    names = sorted(os.listdir(live))
+    assert names == sorted(os.listdir(exported)) and len(names) == N
+    for name in names:
+        with np.load(live / name) as w, np.load(exported / name) as g:
+            assert set(g.files) == set(w.files) == {"agent_world", "agent_pi", "seq_id", "loc",
+                                                    "pi"}
+            for k in w.files:
+                np.testing.assert_array_equal(g[k], w[k], err_msg=f"{name} {k}")
+
+
+def test_from_export_daemon_mode(setup, artifact, tmp_path):
+    out = tmp_path / "preds"
+    scenes = sorted(os.listdir(setup["scenes"]))
+    lines = [json.dumps({"id": f"r{i}", "npz": os.path.join(setup["scenes"], s)})
+             for i, s in enumerate(scenes[:2])]
+    r = subprocess.run([sys.executable, "serve_torch.py", "--from-export", artifact, "--device",
+                        "cpu", "--output-dir", str(out), "--daemon"],
+                       input="\n".join(lines) + "\n", cwd=REPO, capture_output=True, text=True,
+                       timeout=WAIT_S)
+    assert r.returncode == 0, r.stderr[-3000:]
+    replies = [json.loads(x) for x in r.stdout.strip().splitlines()]
+    assert replies.pop()["served"] == 2
+    assert sorted(x["id"] for x in replies) == ["r0", "r1"]
+    for reply in replies:
+        with np.load(reply["out"]) as z:
+            assert z["agent_world"].shape == (K, TF, 2) and z["loc"].shape == (K, A, TF, 2)
+
+
+def test_from_export_http_mode(setup, artifact):
+    """``--from-export --http 0``: the first line names the port, a POST is
+    answered with the engine's fields, and SIGINT prints the stats."""
+    import signal
+    import urllib.request
+
+    proc = subprocess.Popen([sys.executable, "serve_torch.py", "--from-export", artifact,
+                             "--device", "cpu", "--http", "0"], cwd=REPO, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    try:
+        first = json.loads(proc.stdout.readline())
+        path = os.path.join(setup["scenes"], sorted(os.listdir(setup["scenes"]))[0])
+        req = urllib.request.Request(f"http://{first['http']}/predict",
+                                     data=json.dumps({"npz": path}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=WAIT_S) as resp:
+            assert resp.status == 200
+            reply = json.loads(resp.read())
+        assert np.asarray(reply["agent_world"]).shape == (K, TF, 2)
+        assert abs(sum(reply["agent_pi"]) - 1.0) < 1e-5
+        proc.send_signal(signal.SIGINT)
+        out, err = proc.communicate(timeout=WAIT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, err[-3000:]
+    assert json.loads(out.strip().splitlines()[-1])["served"] == 1
 
 
 def test_the_usage_lines_parse_as_written():

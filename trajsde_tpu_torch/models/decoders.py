@@ -16,7 +16,7 @@ the scales are cast back to f32.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F_
@@ -156,12 +156,13 @@ class SDEDecoder(nn.Module):
             ys.append(y)
         return torch.stack(ys)
 
-    def fused_rollout(self, y0: torch.Tensor, seed: int,
+    def fused_rollout(self, y0: torch.Tensor, seed: Union[int, torch.Tensor],
                       noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The rollout through the kernels: ``ys [Tf, *y0.shape]`` from the
         ``[B*F*A, D]`` rows in (B, F, A) order, with gaussian increments
-        drawn in the kernel from ``seed`` or explicit ``noise [Tf, B*F*A,
-        D]``.  Gradients reach ``y0`` and every ``sde_rollout`` weight.  The
+        drawn in the kernel from ``seed`` (an int or a 0-d int64 host
+        tensor, the same draws for the same value) or explicit ``noise
+        [Tf, B*F*A, D]``.  Gradients reach ``y0`` and every ``sde_rollout`` weight.  The
         kernels run in f32: a bf16 ``y0`` is cast up for them and ``ys``
         comes back in ``y0``'s dtype, as in the JAX decoder."""
         D = y0.shape[-1]
@@ -174,11 +175,12 @@ class SDEDecoder(nn.Module):
     def forward(self, scene: SceneBatch, local_embed, global_embed,
                 sde_noise: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                rollout_seed: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                rollout_seed: Union[int, torch.Tensor, None] = None) -> Dict[str, torch.Tensor]:
         """``sde_noise [Tf, B, F, A, D]`` pins the Brownian unit normals;
         otherwise they are drawn from ``generator``.  With ``fused=True``
-        the kernel draws them from the host integer ``rollout_seed``, which
-        is required."""
+        the kernel draws them from ``rollout_seed``, which is required: a
+        host integer or a 0-d int64 tensor on the host (an input, not a
+        constant, of an exported program)."""
         y0 = self.fuse(scene, local_embed, global_embed)
         if self.fused:
             if sde_noise is not None:
@@ -187,7 +189,8 @@ class SDEDecoder(nn.Module):
                     "pass noise to fused_rollout instead"
                 )
             if rollout_seed is None:
-                raise ValueError("SDEDecoder(fused=True) needs rollout_seed, a host integer")
+                raise ValueError("SDEDecoder(fused=True) needs rollout_seed, a host integer "
+                                 "or a 0-d int64 host tensor")
             ys = self.fused_rollout(y0, rollout_seed)
         else:
             if sde_noise is None:

@@ -2,7 +2,7 @@
 (``trajsde_tpu/models/prediction.py``): the baseline and the SDE family."""
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import torch
 from torch import nn
@@ -30,7 +30,7 @@ class PredictionModel(nn.Module):
         return rotate_into(scene.y, scene.rotate_mat()[:, :, None])
 
     def forward(self, scene: SceneBatch, generator: Optional[torch.Generator] = None,
-                rollout_seed: Optional[int] = None) -> Dict[str, Any]:
+                rollout_seed: Union[int, torch.Tensor, None] = None) -> Dict[str, Any]:
         """Dropout draws from ``generator`` (encoder, aggregator, then
         decoder); ``rollout_seed`` is taken, as every model's forward takes
         it from the trainer, and unused: nothing here rolls out."""
@@ -58,7 +58,7 @@ class PredictionModelSDENet(PredictionModel):
         twin_noise: Optional[torch.Tensor] = None,
         dec_noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
-        rollout_seed: Optional[int] = None,
+        rollout_seed: Union[int, torch.Tensor, None] = None,
     ) -> Dict[str, Any]:
         """``enc_noise [Th, B, A+1, D]``, ``twin_noise [B, 1, Th, 2]`` and
         ``dec_noise [Tf, B, F, A, D]`` pin the draws; the rest come from

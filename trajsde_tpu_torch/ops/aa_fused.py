@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -122,11 +122,15 @@ def _head_logits(qh: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 
 def fused_pair_attention_reference(q, u, mask_f, keep, ws: Sequence[torch.Tensor],
-                                   num_heads: int, dropout_rate: float = 0.0) -> torch.Tensor:
+                                   num_heads: int, dropout_rate: float = 0.0,
+                                   with_stats: bool = False):
     """``pair_chain`` over the whole batch as one tile: q [B, T, Aq, D],
     u [B, T, Aq, Ak, 4], mask_f [B, T, Aq, Ak] (0/1), keep
     [B, T, Aq, Ak, H] (0/1) or None -> the pre-gating aggregate
-    [B, T, Aq, D].  Holds for any ``ws``, block-diagonal or not."""
+    [B, T, Aq, D].  Holds for any ``ws``, block-diagonal or not.
+    ``with_stats`` returns ``(out, stats [2, B*T*Aq, H])`` as K3 writes
+    them: each (receiver, head)'s largest unmasked logit (-inf without a
+    sender) and its sum of exp."""
     B, T, Aq, D = q.shape
     Ak, H = u.shape[3], num_heads
     hd = D // H
@@ -153,7 +157,12 @@ def fused_pair_attention_reference(q, u, mask_f, keep, ws: Sequence[torch.Tensor
     if keep is not None:
         alpha = alpha * (keep.reshape(R, Ak, H) * (1.0 / (1.0 - dropout_rate)))
     out = (alpha[..., None] * v).sum(dim=1)                   # [R, H, hd]
-    return out.reshape(B, T, Aq, D)
+    out = out.reshape(B, T, Aq, D)
+    if not with_stats:
+        return out
+    has = m3.sum(dim=1) > 0                                   # [R, 1]
+    top = torch.where(has, lg.amax(dim=1), torch.full_like(lg[:, 0], -torch.inf))
+    return out, torch.stack([top, e.sum(dim=1)])
 
 
 def fused_pair_attention_bwd_reference(q, u, mask_f, keep, ws: Sequence[torch.Tensor],
@@ -318,6 +327,32 @@ def _launch(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats: bool = 
     return out, stats
 
 
+@torch.library.custom_op("trajsde::aa_fused_fwd", mutates_args=())
+def aa_fused_op(q: torch.Tensor, u: torch.Tensor, mask_f: torch.Tensor,
+                keep: Optional[torch.Tensor], ws: List[torch.Tensor], num_heads: int,
+                dropout_rate: float, with_stats: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``trajsde::aa_fused_fwd``, the registered op over K3: ``(out, stats)``
+    with ``stats [2, B*T*Aq, H]`` when ``with_stats`` and an empty tensor
+    otherwise.  On a CUDA tensor it launches K3 (counted in
+    ``fused_pair_attention.launches``), on a CPU tensor it runs the plain
+    version; ``torch.export`` records it as one opaque call."""
+    if _device_kind(q, "fused_pair_attention") == "cuda":
+        out, stats = _launch(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats)
+    elif with_stats:
+        out, stats = fused_pair_attention_reference(q, u, mask_f, keep, ws, num_heads,
+                                                    dropout_rate, with_stats=True)
+    else:
+        out, stats = fused_pair_attention_reference(q, u, mask_f, keep, ws, num_heads,
+                                                    dropout_rate), None
+    return out, q.new_empty((0,)) if stats is None else stats
+
+
+@aa_fused_op.register_fake
+def _aa_fused_fake(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats):
+    R = q.shape[0] * q.shape[1] * q.shape[2]
+    return q.new_empty(q.shape), q.new_empty((2, R, num_heads) if with_stats else (0,))
+
+
 def launch_bwd(lib: ctypes.CDLL, q, u, mask_f, keep, ws, g, out, stats, num_heads,
                dropout_rate):
     """Runs ``lib``'s ``aa_fused_bwd_launch`` (K4, or another build of its
@@ -365,12 +400,12 @@ def _device_kind(x: torch.Tensor, what: str) -> str:
 
 def fused_pair_attention_fwd(q, u, mask_f, keep, ws: Sequence[torch.Tensor], num_heads: int,
                              dropout_rate: float = 0.0):
-    """``(out, stats)``: the forward that a backward needs.  On CUDA, K3
-    with its softmax statistics ``stats [2, B*T*Aq, H]`` (K4's input); on
-    the CPU the plain version and ``stats`` None."""
-    if _device_kind(q, "fused_pair_attention_fwd") == "cuda":
-        return _launch(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats=True)
-    return fused_pair_attention_reference(q, u, mask_f, keep, ws, num_heads, dropout_rate), None
+    """``(out, stats)``: the forward that a backward needs, with the
+    softmax statistics ``stats [2, B*T*Aq, H]`` (K4's input): K3 on CUDA,
+    the plain version on the CPU, through :func:`aa_fused_op`."""
+    # checked here: on a meta tensor the op would run its fake and return
+    _device_kind(q, "fused_pair_attention_fwd")
+    return aa_fused_op(q, u, mask_f, keep, list(ws), num_heads, dropout_rate, True)
 
 
 def fused_pair_attention_bwd(q, u, mask_f, keep, ws: Sequence[torch.Tensor], g: torch.Tensor,
@@ -445,12 +480,10 @@ def fused_pair_attention(q: torch.Tensor, u: torch.Tensor, mask_f: torch.Tensor,
     statistics, and the backward launches K4.  Otherwise nothing is saved.
     On the CPU the plain versions run.
     """
-    kind = _device_kind(q, "fused_pair_attention")
+    _device_kind(q, "fused_pair_attention")
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, *ws)):
         return FusedPairAttentionFn.apply(q, u, mask_f, keep, num_heads, dropout_rate, *ws)
-    if kind == "cuda":
-        return _launch(q, u, mask_f, keep, ws, num_heads, dropout_rate)[0]
-    return fused_pair_attention_reference(q, u, mask_f, keep, ws, num_heads, dropout_rate)
+    return aa_fused_op(q, u, mask_f, keep, list(ws), num_heads, dropout_rate, False)[0]
 
 
 fused_pair_attention.launches = 0

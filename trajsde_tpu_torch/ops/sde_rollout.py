@@ -337,40 +337,70 @@ def _launch(y0, w, t0s, dts, seed, num_steps, noise, increments) -> torch.Tensor
     return ys
 
 
+def seed_tensor(seed) -> torch.Tensor:
+    """The rollout seed as :func:`rollout_op` takes it: a 0-d int64 tensor
+    on the host (a Python int is wrapped).  As a tensor it is an input of
+    an exported program, not a constant baked into it."""
+    if isinstance(seed, torch.Tensor):
+        if seed.dim() != 0 or seed.dtype != torch.int64 or seed.device.type != "cpu":
+            raise ValueError(f"the rollout seed must be a 0-d int64 tensor on the host, got "
+                             f"shape {tuple(seed.shape)} {seed.dtype} on {seed.device}")
+        return seed
+    return torch.tensor(int(seed), dtype=torch.int64)
+
+
+@torch.library.custom_op("trajsde::sde_rollout", mutates_args=())
+def rollout_op(y0: torch.Tensor, w: torch.Tensor, t0s: torch.Tensor, dts: torch.Tensor,
+               seed: torch.Tensor, num_steps: int, noise: Optional[torch.Tensor],
+               increments: str) -> torch.Tensor:
+    """``trajsde::sde_rollout``, the registered op over K1: ``ys [T, N, D]``
+    from the packed weights ``w`` and the host seed tensor of
+    :func:`seed_tensor`.  On a CUDA tensor it launches K1 (counted in
+    ``sde_rollout.launches``), on a CPU tensor it runs the plain version;
+    ``torch.export`` records it as one opaque call."""
+    s = int(seed_tensor(seed))
+    if y0.device.type == "cuda":
+        return _launch(y0, w, t0s, dts, s, num_steps, noise, increments)
+    if y0.device.type == "cpu":
+        return sde_rollout_reference(y0, unpack_params(w, y0.shape[1]), t0s, dts, s, num_steps,
+                                     noise, increments)
+    raise ValueError(f"sde_rollout runs on cuda (kernel) or cpu (plain), not {y0.device}")
+
+
+@rollout_op.register_fake
+def _rollout_fake(y0, w, t0s, dts, seed, num_steps, noise, increments):
+    return y0.new_empty((num_steps,) + tuple(y0.shape))
+
+
 def sde_rollout(y0: torch.Tensor, params: Dict[str, torch.Tensor], t0s: torch.Tensor,
-                dts: torch.Tensor, seed: int, num_steps: int,
+                dts: torch.Tensor, seed, num_steps: int,
                 noise: Optional[torch.Tensor] = None,
                 increments: str = "gaussian") -> torch.Tensor:
     """Run the rollout; returns ``ys [T, N, D]`` (post-step states).
 
     ``noise [T, N, D]`` gives explicit unit increments; otherwise they are
     drawn in the kernel (``'gaussian'`` Box-Muller or ``'rademacher'``
-    +-1, one bit per lane) from ``seed``.  On CUDA the kernel runs on the
-    current stream without synchronising and ``sde_rollout.launches``
-    counts its launches; on the CPU the plain version runs.
+    +-1, one bit per lane) from ``seed``, an int or a 0-d int64 host
+    tensor.  On CUDA the kernel runs on the current stream without
+    synchronising and ``sde_rollout.launches`` counts its launches; on the
+    CPU the plain version runs.  Both go through :func:`rollout_op`.
     """
-    if y0.device.type == "cuda":
-        w = pack_params({k: v.to(y0.device) for k, v in params.items()})
-        return _launch(y0, w, t0s, dts, seed, num_steps, noise, increments)
-    if y0.device.type == "cpu":
-        return sde_rollout_reference(y0, params, t0s, dts, seed, num_steps, noise, increments)
-    raise ValueError(f"sde_rollout runs on cuda (kernel) or cpu (plain), not {y0.device}")
+    w = pack_params({k: v.to(y0.device) for k, v in params.items()})
+    return sde_rollout_packed(y0, w, t0s, dts, seed, num_steps, noise, increments)
 
 
 sde_rollout.launches = 0
 
 
 def sde_rollout_packed(y0: torch.Tensor, w: torch.Tensor, t0s: torch.Tensor, dts: torch.Tensor,
-                       seed: int, num_steps: int, noise: Optional[torch.Tensor] = None,
+                       seed, num_steps: int, noise: Optional[torch.Tensor] = None,
                        increments: str = "gaussian") -> torch.Tensor:
     """:func:`sde_rollout` on the packed buffer ``w`` of :func:`pack_params`
     (K1's launches count on ``sde_rollout.launches``)."""
-    if y0.device.type == "cuda":
-        return _launch(y0, w, t0s, dts, seed, num_steps, noise, increments)
-    if y0.device.type == "cpu":
-        return sde_rollout_reference(y0, unpack_params(w, y0.shape[1]), t0s, dts, seed,
-                                     num_steps, noise, increments)
-    raise ValueError(f"sde_rollout runs on cuda (kernel) or cpu (plain), not {y0.device}")
+    # checked here: on a meta tensor the op would run its fake and return
+    if y0.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"sde_rollout runs on cuda (kernel) or cpu (plain), not {y0.device}")
+    return rollout_op(y0, w, t0s, dts, seed_tensor(seed), num_steps, noise, increments)
 
 
 BWD_TILE_ROWS = 32  # K2's row tile (ROWS in csrc/sde_rollout_bwd.cu)

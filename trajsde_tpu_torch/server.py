@@ -9,6 +9,11 @@ baseline serves so); ``"auto"`` picks ``kernel`` for an ``SDEDecoder`` and
 ``scan`` otherwise.  ``scan`` is never a fallback: an explicit ``kernel``
 that fails raises.
 
+``engine="exported"`` serves a :mod:`~trajsde_tpu_torch.deploy` artifact
+(:meth:`ServingEngine.from_export`): the scan engine's forward and the
+postprocess as one exported program per bucket, drawing from the same
+``(seed, counter)`` stream; ``ood`` and ``slim`` need the live model.
+
 ``ServingEngine.predict(raw_scenes)`` grid-aligns preprocessor-output
 scene dicts, packs them into padded batch buckets (the last scene repeats
 to fill a bucket), runs the kernel serving forward and projects the
@@ -22,8 +27,8 @@ up to ``max_batch`` scenes or ``max_wait_ms``, into one batch.
 engine's.
 
 On the card a packed batch goes in through pinned buffers on a copy
-stream (a ring of two per bucket layout, ``train/loop.py``'s
-``_PinnedStager``), and the results come back into pinned host tensors
+stream (a ring of two per bucket layout, ``data/staging.py``'s
+``PinnedStager``), and the results come back into pinned host tensors
 with non-blocking copies behind an event; nothing calls
 ``torch.cuda.synchronize()``.  Every batch's randomness derives on the
 host from ``(seed, counter)``: the encoder draws from a
@@ -45,12 +50,12 @@ import torch
 
 from trajsde_tpu_torch.data.grid import NUS_SCALE, align_to_grid
 from trajsde_tpu_torch.data.pack import pack_scenes, pick_bucket
+from trajsde_tpu_torch.data.staging import PinnedStager, wait_for_copy
 from trajsde_tpu_torch.device import resolve_device
-from trajsde_tpu_torch.models.decoders import SDEDecoder
-from trajsde_tpu_torch.models.sde_encoder import gather_agent
 from trajsde_tpu_torch.ops.sde_rollout import mix_seed
-from trajsde_tpu_torch.serving import make_scan_fn, make_serving_fn
-from trajsde_tpu_torch.train.loop import _PinnedStager, wait_for_copy
+
+# The model code is imported where a live model is served: an engine over
+# an exported artifact (engine="exported") imports none of it.
 
 __all__ = ["EngineClosed", "ServingEngine", "align_scene", "make_postprocess", "mix_seed"]
 
@@ -92,6 +97,8 @@ def make_postprocess(is_gtabs: bool, ref_time: int, slim: bool = False):
     and nuScenes rows scaled back to metres first.  ``slim=True`` drops the
     dense per-actor grids from the result."""
 
+    from trajsde_tpu_torch.models.sde_encoder import gather_agent
+
     def postprocess(scene, out: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         loc = out["loc"][..., :2]
         if not is_gtabs:
@@ -132,7 +139,9 @@ def align_scene(raw: Dict[str, np.ndarray], is_gtabs: bool = True) -> Tuple[Dict
 class ServingEngine:
     """Bucketed serving of a model on ``device`` through ``engine``:
     ``predict`` for a caller's list of scenes, ``submit`` for concurrent
-    producers."""
+    producers.  With ``engine="exported"``, ``model`` is a loaded
+    :class:`~trajsde_tpu_torch.deploy.ExportedServing` and ``device`` is
+    its own (see :meth:`from_export`)."""
 
     def __init__(
         self,
@@ -153,12 +162,29 @@ class ServingEngine:
         slim: bool = False,
     ) -> None:
         if engine == "auto":
+            from trajsde_tpu_torch.models.decoders import SDEDecoder
+
             # other decoders have no latent rollout for the kernel to take
             engine = "kernel" if isinstance(model.decoder, SDEDecoder) else "scan"
-        if engine not in ("kernel", "scan"):
-            raise ValueError(f"unknown serving engine {engine!r}: auto, kernel or scan")
+        if engine not in ("kernel", "scan", "exported"):
+            raise ValueError(f"unknown serving engine {engine!r}: auto, kernel, scan or "
+                             "exported")
+        if engine == "exported":
+            if not hasattr(model, "manifest"):
+                raise ValueError("engine='exported' serves a loaded artifact "
+                                 "(deploy.load_serving / ServingEngine.from_export), "
+                                 f"not a {type(model).__name__}")
+            if ood:
+                raise ValueError(
+                    "ood=True needs the live model (the OOD ensemble is not part "
+                    "of an exported pipeline); use the 'scan'/'kernel' engines")
+            if slim:
+                raise ValueError(
+                    "slim=True cannot shrink a deserialized export artifact's "
+                    "outputs (the exported pipeline is frozen with the full "
+                    "result set); use the 'scan'/'kernel' engines")
         self.engine = engine
-        self.device = resolve_device(device)
+        self.device = model.device if engine == "exported" else resolve_device(device)
         self.buckets = tuple(b for b in sorted(batch_buckets)
                              if max_batch is None or b <= max_batch)
         if not self.buckets:
@@ -174,10 +200,16 @@ class ServingEngine:
         self._seed = int(seed)
         self._counter = 0
         self._lock = threading.Lock()
-        self._serve = (make_serving_fn(model, self.device, increments=increments, ood=ood)
-                       if engine == "kernel" else make_scan_fn(model, self.device, ood=ood))
-        self._post = make_postprocess(is_gtabs, ref_time, slim=slim)
-        self._stage = _PinnedStager(self.device, 2) if self.device.type == "cuda" else None
+        if engine == "exported":
+            # the artifact's program ends with the postprocess
+            self._serve, self._post = model, lambda scene, out: out
+        else:
+            from trajsde_tpu_torch.serving import make_scan_fn, make_serving_fn
+
+            self._serve = (make_serving_fn(model, self.device, increments=increments, ood=ood)
+                           if engine == "kernel" else make_scan_fn(model, self.device, ood=ood))
+            self._post = make_postprocess(is_gtabs, ref_time, slim=slim)
+        self._stage = PinnedStager(self.device, 2) if self.device.type == "cuda" else None
         self._stage_lock = threading.Lock()
 
         # bounded windows: a long-running daemon must not grow without bound
@@ -195,6 +227,20 @@ class ServingEngine:
         self._worker.start()
 
     # ------------------------------------------------------------------ API
+    @classmethod
+    def from_export(cls, path: str, *, device="cuda", max_batch=None,
+                    max_wait_ms: float = 5.0, seed: int = 0) -> "ServingEngine":
+        """Serve from a :mod:`trajsde_tpu_torch.deploy` artifact directory:
+        the buckets, the packing dimensions and the whole pipeline come
+        from the artifact, with no config, checkpoint or model code."""
+        from trajsde_tpu_torch.deploy import load_serving
+
+        exp = load_serving(path, device)
+        return cls(exp, num_actors=exp.num_actors, num_lanes=exp.num_lanes, device=device,
+                   engine="exported", batch_buckets=exp.buckets, max_batch=max_batch,
+                   max_wait_ms=max_wait_ms, is_gtabs=exp.is_gtabs, ref_time=exp.ref_time,
+                   seed=seed)
+
     def predict(self, raw_scenes: List[Dict[str, np.ndarray]],
                 pipeline: bool = True) -> List[Dict]:
         """Batched prediction, ``max_batch`` scenes at a time, each batch
