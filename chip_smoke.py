@@ -252,6 +252,24 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      draws.  R5: ``serve_torch.py --export`` on J's checkpoint (bucket 1),
      then ``--from-export`` over J's validation scenes: K1 and K3 once per
      scene, the predictions checked.
+  S. a converted reference checkpoint over preprocessed scenes (after R, on
+     J's files; ``trajsde_tpu_torch/utils/convert.py``,
+     ``scripts/convert_checkpoint_torch.py``, ``data/preprocess``).  S1: the
+     port's ``argoverse.process_scene`` (numpy, a fake lane provider) writes
+     PREPROCESSED_SCENES Argoverse test scenes, one above the 48-actor and
+     one above the 192-lane capacity, every actor with a goal lane; with J's
+     nuScenes scenes they make the test split of a JSON copy of
+     ``FLAGSHIP_H100``.  S2: the seeded ``FLAGSHIP_H100`` weights written as
+     a reference Lightning checkpoint (``convert.to_reference``, the dead
+     tensors at their reference shapes, two unknown keys).  S3:
+     ``scripts/convert_checkpoint_torch.py`` in a process of its own: its
+     report names every leaf, the dead tensors and the unknown keys, and the
+     converted weights are the seeded ones bit for bit.  S4:
+     ``test_torch.main --serving --ood`` on the card over that split, on the
+     converted checkpoint and on one saved directly from the seeded weights:
+     finite metrics and ``agent_std_mean``, equal bit for bit, K1 and K3
+     once per batch, nothing else.  S5: the phase's and the conversion's
+     seconds beside the card's name and power limit.
 Phases 4, B, C and 7 check that K4 never launches on their paths, and the
 serving and training phases that K5 and K6 never do.
 The last lines are the card, a JSON object per kernel and the device line.
@@ -282,6 +300,7 @@ from trajsde_tpu_torch.config import (BASELINE, BASELINE_TRAIN, FLAGSHIP, FLAGSH
                                       build_datamodule, build_losses, build_metrics,
                                       build_model)
 from trajsde_tpu_torch.data.pack import pack_scenes, pick_bucket
+from trajsde_tpu_torch.data.preprocess import argoverse as argo_pre
 from trajsde_tpu_torch.data.shards import convert_npz_dir
 from trajsde_tpu_torch.data.synthetic import make_raw_scene
 from trajsde_tpu_torch.models import graph
@@ -297,9 +316,10 @@ from trajsde_tpu_torch.parallel import mesh
 from trajsde_tpu_torch.deploy import export_serving, load_serving
 from trajsde_tpu_torch.server import ServingEngine, align_scene, make_postprocess
 from trajsde_tpu_torch.serving import make_scan_fn, make_serving_fn
-from trajsde_tpu_torch.train.checkpoint import CheckpointManager
+from trajsde_tpu_torch.train.checkpoint import CheckpointManager, save_weights
 from trajsde_tpu_torch.train.loop import (Trainer, create_train_state, make_train_step,
                                           micro_seeds)
+from trajsde_tpu_torch.utils.convert import to_reference
 
 NUM_ACTORS, NUM_LANES = 48, 192
 BATCHES = (1, 5, 128)
@@ -436,6 +456,12 @@ REMAT_STEPS = 2
 MULTI_BATCH, MULTI_STEPS, MULTI_TIMED, MULTI_ROUNDS = 128, 3, 6, 3
 # phase R: the artifact's buckets, the rounds of exported vs live timing
 EXPORT_BUCKETS, EXPORT_ROUNDS = (1, 128), 4
+# phase S: the Argoverse test scenes that the port's preprocessor writes,
+# (actors, straight lanes) each; a lane 200 m long makes 19 segments, so the
+# first scene is above the actor capacity and the second above the lane
+# capacity; and the keys planted in the reference checkpoint that no rule reads
+PREPROCESSED_SCENES = ((60, 6), (24, 12), (9, 3))
+PLANTED_UNKNOWN = ("metric.ADE_T.total", "aggregator.some_new_buffer")
 RANK_TIMEOUT_S = 240
 # H100 SXM published peaks (dense): f32 on CUDA cores, TF32 and f64 on the
 # tensor cores, HBM3 bandwidth
@@ -3623,6 +3649,142 @@ def phase_export(d: str, card: str) -> dict:
     return out
 
 
+def _argo_tracks(rng, n_actors: int, n_lanes: int, spacing: float = 3.5):
+    """Argoverse tracks (50 steps at 10 Hz) of ``n_actors`` driving +y on
+    ``n_lanes`` parallel straight lanes, the AV first and the agent second,
+    the others first seen at steps 0-14, and a fake lane provider returning
+    those lanes (200 m each): every actor ends on a lane, heading along it,
+    so it gets a goal lane."""
+    xs = (np.arange(n_lanes) - n_lanes // 2) * spacing
+    obs_steps, obs_xy = [], []
+    for a in range(n_actors):
+        steps = np.arange(0 if a < 2 else int(rng.integers(0, 15)), 50)
+        y = rng.uniform(-30.0, 10.0) + rng.uniform(5.0, 12.0) * 0.1 * steps
+        obs_steps.append(steps)
+        obs_xy.append(np.stack([np.full(len(steps), xs[a % n_lanes]), y], -1).astype(np.float32))
+
+    def lanes(positions, city, radius=80.0):
+        return [np.array([[x, -80.0], [x, 120.0]], np.float32) for x in xs]
+
+    return obs_steps, obs_xy, lanes
+
+
+def _dead_tensors(dim: int) -> dict:
+    """The reference tensors that no live config reads, at HiVT's and
+    TrajSDE's shapes (``trajsde_tpu_torch/utils/convert.py``'s skip lists)."""
+    z = lambda *s: torch.zeros(*s)  # noqa: E731
+    return {"encoder.al_encoder.is_intersection_embed": z(2, dim),
+            "encoder.al_encoder.turn_direction_embed": z(3, dim),
+            "encoder.al_encoder.traffic_control_embed": z(2, dim),
+            "encoder.lsde_func.h_func.theta": torch.ones(1),
+            "encoder.lsde_func.h_func.mu": z(1), "decoder.hidden": z(dim)}
+
+
+def phase_converted(d: str, card: str) -> dict:
+    """S. A reference checkpoint converted and evaluated over preprocessed
+    scenes (after R, on J's files); see the module docstring."""
+    import test_torch
+
+    t_phase = time.perf_counter()
+    root = os.path.join(d, "preprocessed")
+    test_dir = os.path.join(root, "Argoverse", "test_obs")
+    os.makedirs(test_dir)
+    rng = np.random.default_rng(SEED + 81)
+    shapes = []
+    for i, (n_actors, n_lanes) in enumerate(PREPROCESSED_SCENES):
+        obs_steps, obs_xy, lanes = _argo_tracks(rng, n_actors, n_lanes)
+        scene = argo_pre.process_scene(obs_steps, obs_xy, 0, 1, "PIT", lanes)
+        check(scene is not None and bool(scene["has_goal"].all()),
+              f"[converted] preprocessed scene {i} has actors without a goal lane")
+        np.savez(os.path.join(test_dir, f"{i}.npz"), **scene)
+        shapes.append((scene["padding_mask"].shape[0], scene["lane_positions"].shape[0]))
+    check(any(a > NUM_ACTORS for a, _ in shapes) and any(n > NUM_LANES for _, n in shapes),
+          f"[converted] no preprocessed scene above the capacities: (actors, lane segments) "
+          f"{shapes}")
+    cfg = copy.deepcopy(FLAGSHIP_H100)
+    kw = cfg["datamodule_specific"]["kwargs"]
+    kw.update(nu_dir=os.path.join(d, "npz", "nuScenes"), Argo_dir=os.path.join(root, "Argoverse"))
+    kw["test_dataset_args"] = dict(kw["test_dataset_args"], Argo=True)
+    cfg_path = os.path.join(root, "h100_test.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    n_scenes = CLI_VAL_SCENES + len(PREPROCESSED_SCENES)
+    n_eval = -(-n_scenes // TRAIN_BATCH)
+    check(len(build_datamodule(cfg).test_dataset) == n_scenes,
+          f"[converted] the test split does not hold J's {CLI_VAL_SCENES} nuScenes scenes and "
+          f"the {len(PREPROCESSED_SCENES)} preprocessed ones")
+    print(f"[converted] S1 {len(PREPROCESSED_SCENES)} Argoverse test scenes preprocessed by "
+          f"the port (actors, lane segments) {shapes}, every actor with a goal lane, beside "
+          f"phase J's {CLI_VAL_SCENES} nuScenes scenes: {n_eval} test batches", flush=True)
+
+    # S2: the seeded FLAGSHIP_H100 weights as a reference Lightning checkpoint
+    seeded = build_model(FLAGSHIP_H100, device="cpu", seed=SEED).state_dict()
+    dim = FLAGSHIP_H100["encoder"]["kwargs"]["embed_dim"]
+    dead = _dead_tensors(dim)
+    unknown = {k: torch.ones(3) for k in PLANTED_UNKNOWN}
+    ref_path = os.path.join(root, "reference.ckpt")
+    torch.save({"state_dict": {**to_reference(seeded, FLAGSHIP_H100), **dead, **unknown},
+                "epoch": 63, "global_step": 1000}, ref_path)
+
+    # S3: the port's converter, a process of its own
+    ckpts = os.path.join(root, "checkpoints")
+    converted = os.path.join(ckpts, "converted")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join("scripts", "convert_checkpoint_torch.py"),
+                           "-c", cfg_path, "--torch-ckpt", ref_path, "--out", converted],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=300)
+    convert_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"[converted] the converter exited {proc.returncode}:\n"
+          f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(line == {"out": converted, "converted_leaves": len(seeded),
+                   "skipped_dead": sorted(dead), "unused_keys": sorted(unknown)},
+          f"[converted] the converter's report {line}")
+    check("2 unrecognized checkpoint keys" in proc.stderr, "[converted] no warning of the "
+          f"unused keys on stderr: {proc.stderr[-2000:]}")
+    weights = torch.load(os.path.join(converted, "state.pt"), weights_only=True)["model"]
+    check(list(weights) == list(seeded) and all(torch.equal(weights[k], v)
+                                                for k, v in seeded.items()),
+          "[converted] the converted weights are not the seeded ones bit for bit")
+    print(f"[converted] S2-S3 the seeded FLAGSHIP_H100 weights under the reference's names, "
+          f"{len(dead)} dead tensors and {len(unknown)} unknown keys: "
+          f"scripts/convert_checkpoint_torch.py in {convert_s:.1f} s (a process of its own, "
+          f"import included): {line['converted_leaves']} leaves bit-equal to the seeded "
+          f"weights, skipped {len(line['skipped_dead'])}, unused {line['unused_keys']}",
+          flush=True)
+
+    # S4: test_torch.py --serving --ood on the card, converted vs saved directly
+    direct = save_weights(seeded, os.path.join(ckpts, "direct"))
+    want = {"sde_rollout": n_eval, "sde_rollout_bwd": 0, "aa_fused": n_eval,
+            "aa_fused_bwd": 0, "aa_attention": 0, "vpu_probe": 0}
+    runs = {}
+    for tag, path in (("converted", converted), ("direct", direct)):
+        zero_counts()
+        t0 = time.perf_counter()
+        results = test_torch.main(["-c", cfg_path, "--ckpt", path, "--serving", "--ood"])
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        check(launches == want, f"[converted] test_torch.py --serving --ood on the {tag} "
+              f"checkpoint launched {launches}, not K1 and K3 once per batch ({want})")
+        check({"ADE_T", "FDE_T", "MR_T", "agent_std_mean"} <= set(results)
+              and all(np.isfinite(v) for v in results.values()),
+              f"[converted] {tag} metrics {results}")
+        runs[tag] = dict(results=results, launches=launches, wall_s=wall)
+        print(f"[converted] S4 test_torch.py --serving --ood, {tag} checkpoint: launches "
+              f"{launches}; " + ", ".join(f"{k} {v:.6f}" for k, v in results.items())
+              + f"; {wall:.1f} s", flush=True)
+    check(runs["converted"]["results"] == runs["direct"]["results"],
+          "[converted] the converted checkpoint's evaluation differs from the direct one's")
+    out = dict(launches=runs["converted"]["launches"], convert_s=convert_s, runs=runs,
+               shapes=shapes)
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_phase
+    print(f"[converted] S5 {card}: phase S {out['s']:.1f} s, the conversion {convert_s:.1f} s; "
+          "the converted checkpoint's metrics equal the direct one's bit for bit", flush=True)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
@@ -3682,6 +3844,8 @@ def main() -> None:
         multi = phase_multigpu(d, card)
         torch.cuda.empty_cache()
         exported = phase_export(d, card)
+        torch.cuda.empty_cache()
+        converted = phase_converted(d, card)
     adaptive = phase_adaptive(card)
     torch.cuda.empty_cache()
     remat = phase_remat(card)
@@ -3747,6 +3911,8 @@ def main() -> None:
         # and serve_torch.py --from-export
         entry["launches_by_path"]["exported_serve"] = exported["launches"][name]
         entry["launches_by_path"]["exported_cli"] = exported["cli"]["launches"][name]
+        # phase S: test_torch.py --serving --ood on a converted reference checkpoint
+        entry["launches_by_path"]["converted_eval"] = converted["launches"][name]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches: {served} serving + "
           f"{served_fused} fused serving + {train['sde_rollout']} training + "
           f"{train_fused['sde_rollout']} fused-encoder training; K2 launches: "
@@ -3775,7 +3941,8 @@ def main() -> None:
           f"ranks ({multi['two_ranks']['backend']}) over {2 * MULTI_STEPS} updates: "
           f"{multi['two_ranks']['launches']}; the exported FLAGSHIP_H100 over 1 + "
           f"{TRAIN_BATCH} scenes and serve_torch.py --from-export over {CLI_VAL_SCENES}: "
-          f"{exported['launches']}, {exported['cli']['launches']}", flush=True)
+          f"{exported['launches']}, {exported['cli']['launches']}; test_torch.py --serving "
+          f"--ood on the converted checkpoint: {converted['launches']}", flush=True)
     print(card)
     print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

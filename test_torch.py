@@ -4,8 +4,8 @@
 
     python test_torch.py -c configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec_h100.yml \\
         --ckpt logs/my_run/checkpoints/step_XXXXXXXX [--ood] [--only-agent] [--submit] \\
-        [--serving [--serving-increments rademacher|gaussian]] [--num-actors A] \\
-        [--num-lanes L] [--device cuda|cpu]
+        [--serving [--serving-increments rademacher|gaussian]] [--viz-ood [--viz-limit N]] \\
+        [--num-actors A] [--num-lanes L] [--device cuda|cpu]
 
 Runs the test split through the checkpoint's weights and writes
 ``out/result_<ckpt>.json`` beside ``checkpoints/``; the metrics JSON is the
@@ -14,7 +14,9 @@ and adds ``agent_std_mean``; ``--only-agent`` (or the config's
 ``only_agent``) cuts every batch to its focal agents before the metrics;
 ``--submit`` writes the focal agents' world-frame modes to
 ``out/submission_<ckpt>.npz``; ``--serving`` runs the serving forward
-(the rollout in one kernel launch).  Batch ``i`` draws from
+(the rollout in one kernel launch).  ``--viz-ood`` with ``--ood`` draws scene 0
+of each of the first ``--viz-limit`` batches, its actors coloured by their
+OOD std, to ``out/viz_ood/batch<i>.png`` (needs matplotlib).  Batch ``i`` draws from
 ``mix_seed(EVAL_SEED, i)``, as ``Trainer.evaluate`` does.
 """
 from __future__ import annotations
@@ -36,7 +38,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--submit", action="store_true",
                    help="write the focal agents' world-frame predictions for submission")
     p.add_argument("--viz-ood", action="store_true",
-                   help="not ported: ROADMAP.md Queue 1 item 12 (utils/viz.py)")
+                   help="with --ood: draw scene 0 of each batch, its actors coloured by "
+                        "their OOD std, to out/viz_ood/batch<i>.png")
+    p.add_argument("--viz-limit", type=int, default=8,
+                   help="--viz-ood draws the first N batches")
     p.add_argument("--num-actors", type=int, default=None,
                    help="actor capacity (overrides the config)")
     p.add_argument("--num-lanes", type=int, default=None,
@@ -50,8 +55,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = p.parse_args(argv)
     if args.viz_ood:
-        raise SystemExit("--viz-ood is not ported to trajsde_tpu_torch yet: ROADMAP.md "
-                         "Queue 1 item 12 (utils/viz.py)")
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            raise SystemExit("--viz-ood needs matplotlib, which is not installed") from None
     return args
 
 
@@ -71,6 +78,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from trajsde_tpu_torch.serving import make_serving_fn
     from trajsde_tpu_torch.train.checkpoint import CheckpointManager
     from trajsde_tpu_torch.train.loop import EVAL_SEED, agent_slices, device_prefetch, step_generator
+    from trajsde_tpu_torch.utils import viz
 
     cfg = load_config(args.config)
     device = resolve_device(args.device)
@@ -102,6 +110,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         m.reset()
     std_sum, std_cnt = 0.0, 0
     submissions = []
+    viz_dir = os.path.join(os.path.dirname(ckpt_dir), "out", "viz_ood")
     with torch.no_grad(), contextlib.closing(
             device_prefetch(datamodule.test_loader(), device)) as feed:
         for i, scene in enumerate(feed):
@@ -110,6 +119,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 out = serve(scene, seed, generator=gen)
             else:
                 out = model(scene, generator=gen, rollout_seed=seed, **ood_kwargs)
+            # the full-actor stds and batch for --viz-ood, taken before the
+            # only-agent cut; viz_ood reads the history and the lanes alone,
+            # so the stripped batch draws test.py's picture of its host batch
+            stds_full, scene_full = out.get("stds"), scene
             if only_agent:
                 if "stds" in out:
                     out["stds"] = take_per_scene(out["stds"], scene.agent_index, axis=1)
@@ -123,6 +136,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                 agent_std = gather_agent(out["stds"], scene.agent_index, axis=1)
                 std_sum += float(agent_std.sum())
                 std_cnt += agent_std.shape[0]
+            if args.viz_ood and stds_full is not None and i < args.viz_limit:
+                viz.viz_ood(scene_full, stds_full, 0, os.path.join(viz_dir, f"batch{i:04d}.png"))
             if post_fn is not None:
                 post = post_fn(scene, out)
                 seq = (scene.seq_id if scene.seq_id is not None

@@ -15,7 +15,9 @@ from the port's synthetic scenes.
   bias at -1e4 (both packages deterministic): ADE_T / FDE_T / MR_T within
   rtol 1e-4 / atol 1e-6 of JAX's, plain (``make_eval_step``) and
   ``--only-agent`` (``test.py``'s filters); ``--submit`` within 1e-4 of
-  JAX's ``make_postprocess``; ``--ood`` and ``--serving`` finite.
+  JAX's ``make_postprocess``; ``--ood`` and ``--serving`` finite;
+  ``--viz-ood --viz-limit 2`` writes test.py's files from the stds taken
+  before the ``--only-agent`` cut.
 """
 import json
 import math
@@ -373,11 +375,6 @@ def test_multihost_and_zero1_parse_and_need_a_rendezvous(flags, monkeypatch):
         train_torch.main(["-c", "x.yml", "-n", "x", *flags])
 
 
-def test_viz_ood_exits_naming_its_item():
-    with pytest.raises(SystemExit, match="ROADMAP.md Queue 1 item 12"):
-        test_torch.main(["-c", "x.yml", "--ckpt", "x", "--viz-ood"])
-
-
 # ---------------------------------------------------------------------------
 # test_torch.main vs the JAX package
 # ---------------------------------------------------------------------------
@@ -473,6 +470,43 @@ def test_test_torch_submission_matches_jax(evaluated):
     np.testing.assert_allclose(sub["probabilities"].sum(-1), 1.0, rtol=1e-5)
     np.testing.assert_array_equal(sub["seq_ids"], want["seq_id"])
     assert (sub["sources"] == 0).all()
+
+
+def test_viz_ood_draws_the_first_batches_from_the_uncut_stds(evaluated, tmp_path, monkeypatch):
+    """``--viz-ood --viz-limit 2 --only-agent --ood`` over 4 test batches
+    writes test.py's ``batch0000.png`` and ``batch0001.png`` alone, from
+    scene 0 of each batch and the stds of every actor, taken before the
+    only-agent cut: the model's own ``forward_ood`` stds of that batch."""
+    from trajsde_tpu_torch.train.loop import EVAL_SEED, step_generator
+    from trajsde_tpu_torch.utils import viz
+
+    cfg_path, ckpt, _ = evaluated
+    raw = json.loads(open(cfg_path).read())
+    raw["datamodule_specific"]["kwargs"]["val_batch_size"] = 2   # 8 scenes: 4 batches
+    cfg = str(tmp_path / "cfg.json")
+    with open(cfg, "w") as f:
+        json.dump(raw, f)
+    run = tmp_path / "run" / "checkpoints"
+    run.mkdir(parents=True)
+    ckpt_copy = str(run / os.path.basename(ckpt))
+    os.symlink(ckpt, ckpt_copy)
+    drawn, real = [], viz.viz_ood
+    monkeypatch.setattr(viz, "viz_ood", lambda scene, stds, b, path: drawn.append(
+        (scene, stds, b, path)) or real(scene, stds, b, path))
+    got = _test(cfg, ckpt_copy, "--viz-ood", "--viz-limit", "2", "--only-agent", "--ood")
+    assert "agent_std_mean" in got
+    viz_dir = tmp_path / "run" / "out" / "viz_ood"
+    assert sorted(os.listdir(viz_dir)) == ["batch0000.png", "batch0001.png"]
+    assert all(os.path.getsize(viz_dir / f) > 0 for f in os.listdir(viz_dir))
+    assert [os.path.basename(p) for *_, p in drawn] == ["batch0000.png", "batch0001.png"]
+    model = torch_build_model(raw, device="cpu")
+    CheckpointManager(str(run)).restore_params(model, ckpt_copy)
+    for i, (scene, stds, b, _) in enumerate(drawn):
+        assert b == 0 and stds.shape == (2, A) == tuple(scene.actor_valid.shape)
+        with torch.no_grad():
+            _, want = model.encoder.forward_ood(scene, generator=step_generator("cpu", EVAL_SEED,
+                                                                                i)[0])
+        assert torch.equal(stds, want)
 
 
 @pytest.mark.parametrize("flags", [["--ood"], ["--serving"], ["--serving", "--ood", "--only-agent"]])

@@ -23,7 +23,9 @@ equals the plain build's step bit for bit.  The registered ops
 ``trajsde::sde_rollout`` and ``trajsde::aa_fused_fwd`` give their
 launchers' bits, a fused train step through them is the step through the
 launchers, and a ``FLAGSHIP_H100`` artifact exported on the card answers
-with the live scan engine's bits.
+with the live scan engine's bits.  Endpoint K-means on the card gives the
+CPU's assignments, and a converted reference checkpoint restores onto the
+card bit for bit.
 """
 import ctypes
 import functools
@@ -977,3 +979,42 @@ def test_exported_fused_flagship_on_cuda_is_the_live_scan_engine(cuda, tmp_path)
     for g, w in zip(got, want):
         for k in w:
             assert np.array_equal(g[k], w[k]), k
+
+
+@pytest.mark.gpu
+def test_kmeans_endpoints_on_cuda_is_the_cpu_result(cuda):
+    """Endpoint K-means on a CUDA tensor, initial centres pinned: the CPU
+    assignments, and centres within 1e-5 (the cluster sums add in another
+    order on the card)."""
+    from trajsde_tpu_torch.utils.clustering import kmeans_endpoints
+
+    gen = torch.Generator().manual_seed(0)
+    trajs = torch.randn(400, 12, 2, generator=gen) * 5
+    init_idx = torch.randperm(400, generator=gen)[:6]
+    want_assign, want_centers = kmeans_endpoints(trajs, k=6, init_idx=init_idx)
+    assign, centers = kmeans_endpoints(trajs.to(cuda), k=6, init_idx=init_idx)
+    assert assign.device.type == centers.device.type == "cuda"
+    assert torch.equal(assign.cpu(), want_assign)
+    torch.testing.assert_close(centers.cpu(), want_centers, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_converted_checkpoint_loads_onto_the_card_bit_for_bit(cuda, tmp_path):
+    """``FLAGSHIP_H100``'s seeded weights under the reference's names,
+    converted on the CPU and written as a weights-only step, restore into a
+    model on the card with the seeded bits."""
+    from trajsde_tpu_torch.config import FLAGSHIP_H100, build_model
+    from trajsde_tpu_torch.train.checkpoint import CheckpointManager, save_weights
+    from trajsde_tpu_torch.utils.convert import convert_state_dict, to_reference
+
+    seeded = build_model(FLAGSHIP_H100, device="cpu", seed=2).state_dict()
+    ref = to_reference(seeded, FLAGSHIP_H100)
+    weights, report = convert_state_dict(ref, FLAGSHIP_H100,
+                                         build_model(FLAGSHIP_H100, device="cpu"))
+    assert report == {"skipped": [], "unused": []}
+    path = save_weights(weights, str(tmp_path / "step_00000000"))
+    model = build_model(FLAGSHIP_H100, device=cuda, seed=7)
+    CheckpointManager(str(tmp_path)).restore_params(model, path)
+    got = model.state_dict()
+    assert all(got[k].device.type == "cuda" and torch.equal(got[k].cpu(), v)
+               for k, v in seeded.items())

@@ -57,8 +57,8 @@ REGISTRY = {cls.__name__: cls for cls in (
     LocalEncoderSDESep, GlobalInteractor, SDEDecoder, PredictionModelSDENet,
     LocalEncoder, MLPDecoder, PredictionModel,
 )}
-# reference module names -> native names
-ALIASES = {"LocalEncoderSDESepPara2": "LocalEncoderSDESep"}
+# reference module names -> native names (components and losses)
+ALIASES = {"LocalEncoderSDESepPara2": "LocalEncoderSDESep", "LaplaceNLL": "LaplaceNLLLoss"}
 
 _METRIC_ARGS = {"dataset": "nuScenes", "end_idcs": [59, 29], "sources": [0, 1]}
 
@@ -289,21 +289,29 @@ def build_datamodule(cfg: Dict[str, Any], seed: int = 0, **overrides) -> DataMod
 
 def build_losses(cfg: Dict[str, Any]) -> List[Tuple[str, float, Any]]:
     """``[(name, weight, fn)]`` of the config's ``losses_module`` /
-    ``loss_weights`` (``fn(y, output, counts=None) -> scalar``, ``counts`` the
-    global batch's normalizers under data parallelism)."""
-    names = cfg["losses_module"]
+    ``loss_weights`` / ``loss_args`` (``fn(y, output, counts=None) -> scalar``,
+    ``counts`` the global batch's normalizers under data parallelism).  The
+    three lists must align one to one; a reference name (``LaplaceNLL``)
+    resolves through ``ALIASES`` and keeps its listed name.  No loss of the
+    port takes arguments, so ``loss_args`` is checked and not read."""
+    names = cfg.get("losses_module", [])
     weights = cfg.get("loss_weights", [1.0] * len(names))
-    if len(weights) != len(names):
-        raise ValueError(f"{len(names)} losses but {len(weights)} loss_weights")
-    unknown = [n for n in names if n not in LOSS_REGISTRY]
+    args = cfg.get("loss_args", [{}] * len(names))
+    if len(weights) != len(names) or len(args) != len(names):
+        raise ValueError(f"losses_module has {len(names)} entries but loss_weights has "
+                         f"{len(weights)} / loss_args has {len(args)}: the lists must align "
+                         "one-to-one")
+    unknown = [n for n in names if ALIASES.get(n, n) not in LOSS_REGISTRY]
     if unknown:
         raise KeyError(f"unknown losses {unknown}; known: {sorted(LOSS_REGISTRY)}")
-    return [(n, float(w), LOSS_REGISTRY[n]) for n, w in zip(names, weights)]
+    return [(n, float(w), LOSS_REGISTRY[ALIASES.get(n, n)]) for n, w in zip(names, weights)]
 
 
 def build_metrics(cfg: Dict[str, Any]) -> List[TransferMetric]:
-    """The metric accumulators of ``metrics_module`` / ``metric_args``."""
-    names, args = cfg["metrics_module"], cfg["metric_args"]
+    """The metric accumulators of ``metrics_module`` / ``metric_args``; a
+    config without ``metric_args`` gives each metric ``{}``."""
+    names = cfg.get("metrics_module", [])
+    args = cfg.get("metric_args", [{}] * len(names))
     if len(names) != len(args):
         raise ValueError(f"metrics_module has {len(names)} entries but metric_args has "
                          f"{len(args)}: the lists must align one-to-one")

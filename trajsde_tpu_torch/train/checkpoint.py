@@ -51,6 +51,17 @@ def host_copy(obj: Any) -> Any:
     return obj
 
 
+def save_weights(state_dict: dict, path: str) -> str:
+    """A weights-only step directory: ``path/state.pt`` holding
+    ``{"model": state_dict}``, which ``CheckpointManager.restore_params``
+    reads (``test_torch.py --ckpt``, ``train_torch.py --wonly``).  Written as
+    ``save`` writes a step, through a temporary directory renamed into
+    place; no leaderboard entry.  Returns the absolute path."""
+    path = os.path.abspath(path)
+    CheckpointManager._write(host_copy({"model": state_dict}), path)
+    return path
+
+
 class CheckpointManager:
     """Rank 0 of a process group (or the single process) writes; another
     rank only joins ``save``'s collective and reads."""
