@@ -270,6 +270,30 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      finite metrics and ``agent_std_mean``, equal bit for bit, K1 and K3
      once per batch, nothing else.  S5: the phase's and the conversion's
      seconds beside the card's name and power limit.
+  T. bf16 inside the fused AA kernels (after S; K3b and K4b, the bf16
+     forms of K3 and K4 in ``csrc/aa_fused.cu`` and ``csrc/aa_fused_bwd.cu``).
+     T1: K3b against its plain version (``compute_dtype="bfloat16"``, with
+     ``ln_mm``) at the bucket-128 twin shape and the OOD shape at 8 heads
+     and the baseline's at 4, with and without keep, for the model's packed
+     weights and random ones with non-zero off-diagonal w1 blocks, empty
+     receivers exactly 0, within ``TOL_K3B`` (max and mean), which K3 (f32)
+     on the same inputs must fail; bit-equal reruns; with ``ln_mm`` off
+     against its own plain version, and apart from the ``ln_mm`` one; timed
+     at bucket 128 beside K3 in the same call, its bound on its route (bf16
+     products on the tensor cores) and on the CUDA cores.  T2: K4b against
+     its plain version at the training twin shape at BF16_FUSED_BATCH with
+     keep, model and random weights, within ``TOL_K4B`` per output (K4
+     (f32) must fail it on some output), bit-equal reruns, its recomputed
+     logits K3b's bit for bit (the check copies), timed beside K4.  T3: a
+     ``ServingEngine`` over ``FLAGSHIP_BF16_FUSED`` (48 / 192, seeded
+     weights) answers buckets 1 and 128: K3b and K1 once a batch, K3 never;
+     loc and pi finite; mean|pi| within ``TOL_BF16_PI`` of ``FLAGSHIP``'s;
+     the distance from dense ``FLAGSHIP_BF16`` with pinned noise printed.
+     T4: ``FLAGSHIP_BF16_FUSED`` takes BF16_FUSED_STEPS train steps on one
+     batch of BF16_FUSED_BATCH (the decoder as the YAML writes it): the
+     loss falls, K3b and K4b once a step and nothing else; then the step in
+     turns beside dense ``FLAGSHIP_BF16``'s with peak memory, beside the
+     card's name and power limit.
 Phases 4, B, C and 7 check that K4 never launches on their paths, and the
 serving and training phases that K5 and K6 never do.
 The last lines are the card, a JSON object per kernel and the device line.
@@ -295,7 +319,8 @@ import numpy as np
 import torch
 
 from trajsde_tpu_torch.config import (BASELINE, BASELINE_TRAIN, FLAGSHIP, FLAGSHIP_BF16,
-                                      FLAGSHIP_BF16_CAPPED, FLAGSHIP_CAPPED, FLAGSHIP_FUSED,
+                                      FLAGSHIP_BF16_CAPPED, FLAGSHIP_BF16_FUSED,
+                                      FLAGSHIP_CAPPED, FLAGSHIP_FUSED,
                                       FLAGSHIP_H100, FLAGSHIP_TRAIN, FLAGSHIP_TRAIN_FUSED,
                                       build_datamodule, build_losses, build_metrics,
                                       build_model)
@@ -463,10 +488,30 @@ EXPORT_BUCKETS, EXPORT_ROUNDS = (1, 128), 4
 PREPROCESSED_SCENES = ((60, 6), (24, 12), (9, 3))
 PLANTED_UNKNOWN = ("metric.ADE_T.total", "aggregator.some_new_buffer")
 RANK_TIMEOUT_S = 240
-# H100 SXM published peaks (dense): f32 on CUDA cores, TF32 and f64 on the
-# tensor cores, HBM3 bandwidth
+# phase T: bf16 inside the fused AA kernels.  K3b vs its plain version (the
+# same bf16 chain in f32 sums; tests/test_torch_aa_fused_bf16.py holds the
+# plain one to JAX), max|kernel - plain| / max|plain| and mean|kernel -
+# plain| / mean|plain| over the output: the kernel sums each product and
+# LayerNorm in another order, so now and then a value lands on the other
+# side of a bf16 tie and one a0, a1 or nbr element moves one bf16 step
+# (2^-8 of it), which the max sees and the mean hardly does.  On an H100
+# K3b read 9.7e-4 to 2.1e-3 (max) and 5.2e-6 to 8.9e-6 (mean) at bucket 128,
+# K3 (f32) on the same inputs 4.9e-3 to 7.3e-3 and 2.7e-3 to 3.0e-3: K3
+# must fail the bar, which holds the kernel to the bf16 arithmetic
+TOL_K3B = (5e-3, 1e-4)
+# K4b vs its plain version (autograd through the plain bf16 chain), per
+# output, max and mean as TOL_K3B: such a step also moves a pre-ReLU value
+# across 0 now and then, so the leaves behind a ReLU read up to 6.3e-4 in
+# the mean on an H100 at batch 64 (dq and the others up to 6.3e-5), and
+# the max up to 2.5e-3 (dq); K4 (f32) must fail it on some output
+TOL_K4B = (1e-2, 2e-3)
+# T4's batch (the _tpu.yml recipe's memory-bound regime) and steps on it
+BF16_FUSED_BATCH, BF16_FUSED_STEPS = 64, 4
+# H100 SXM published peaks (dense): f32 on CUDA cores, TF32, bf16 and f64
+# on the tensor cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_F64_TC_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # the special-function units of an H100 SXM: 16 results a clock per SM for
@@ -656,6 +701,7 @@ def zero_counts() -> None:
     """Every kernel's launch count to 0 (just before a path is driven)."""
     K1.sde_rollout.launches = K1.sde_rollout_bwd.launches = 0
     K3.fused_pair_attention.launches = K3.fused_pair_attention_bwd.launches = 0
+    K3.fused_pair_attention.bf16_launches = K3.fused_pair_attention_bwd.bf16_launches = 0
     K5.aa_attention.launches = K6.chained_tanh.launches = 0
 
 
@@ -772,7 +818,8 @@ def _route_bounds(flops: float, tc_flops: float, nbytes: float,
             nbytes, 1e3 * max(t_route, t_bytes), ("operations" if t_route >= t_bytes else "bytes"))
 
 
-def aa_fused_bound(B: int, T: int, Aq: int, Ak: int, dim: int, heads: int, with_keep: bool):
+def aa_fused_bound(B: int, T: int, Aq: int, Ak: int, dim: int, heads: int, with_keep: bool,
+                   bf16: bool = False):
     """(bound_ms, bound_by, flops, bytes, route_ms, route_by) of one K3 call:
     :func:`aa_pair_ops` per pair; q, u, the f32 mask (and the keep mask), the
     weights read once, the aggregate written once.  ``bound_ms`` takes every
@@ -782,16 +829,19 @@ def aa_fused_bound(B: int, T: int, Aq: int, Ak: int, dim: int, heads: int, with_
     the tensor cores at f32 accuracy, three TF32 products each
     (``PEAK_TF32_FLOPS / 3``), and the rest on the CUDA cores at their peak,
     the two pipes running at the same time; ``route_by`` says which of the
-    route's operations and the bytes bounds it."""
+    route's operations and the bytes bounds it.  ``bf16``: K3b's route, the
+    products at the bf16 tensor-core rate (``PEAK_BF16_FLOPS``)."""
     pairs, rows = B * T * Aq * Ak, B * T * Aq
     flops = pairs * sum(aa_pair_ops(dim, heads))
     nbytes = 4 * (rows * dim + pairs * 4 + pairs + aa_weight_floats(dim) + rows * dim)
     if with_keep:
         nbytes += 4 * pairs * heads
-    return _route_bounds(flops, pairs * 10 * dim * dim, nbytes)
+    return _route_bounds(flops, pairs * 10 * dim * dim, nbytes,
+                         PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS / 3)
 
 
-def aa_fused_bwd_bound(B: int, T: int, Aq: int, Ak: int, dim: int, heads: int, with_keep: bool):
+def aa_fused_bwd_bound(B: int, T: int, Aq: int, Ak: int, dim: int, heads: int, with_keep: bool,
+                       bf16: bool = False):
     """(bound_ms, bound_by, flops, bytes, route_ms, route_by) of one K4 call: per pair
     the chain recomputed, then its input and its weight gradients, three
     times :func:`aa_pair_ops`; K3's inputs (with the keep mask) and the
@@ -804,7 +854,10 @@ def aa_fused_bwd_bound(B: int, T: int, Aq: int, Ak: int, dim: int, heads: int, w
     tensor cores at f32 accuracy, three TF32 products each
     (``PEAK_TF32_FLOPS / 3``), and the rest on the CUDA cores at their
     peak, the two pipes running at the same time; ``route_by`` says which
-    of the route's operations and the bytes bounds it."""
+    of the route's operations and the bytes bounds it.  ``bf16``: K4b's
+    route, the recompute's products (``10 dim^2``) at the bf16 tensor-core
+    rate and the six backward products (``20 dim^2``, an f32 cotangent
+    against a bf16 operand) at half the TF32 rate, two TF32 products each."""
     pairs, rows = B * T * Aq * Ak, B * T * Aq
     flops = pairs * 3 * sum(aa_pair_ops(dim, heads))
     w = aa_weight_floats(dim)
@@ -812,6 +865,9 @@ def aa_fused_bwd_bound(B: int, T: int, Aq: int, Ak: int, dim: int, heads: int, w
                   + rows * dim + w)                                   # dq, weight gradients
     if with_keep:
         nbytes += 4 * pairs * heads
+    if bf16:  # one rate for the 30 dim^2: the time of both kinds of product over their flops
+        rate = 30 / (10 / PEAK_BF16_FLOPS + 20 / (PEAK_TF32_FLOPS / 2))
+        return _route_bounds(flops, pairs * 30 * dim * dim, nbytes, rate)
     return _route_bounds(flops, pairs * 30 * dim * dim, nbytes)
 
 
@@ -3785,6 +3841,344 @@ def phase_converted(d: str, card: str) -> dict:
     return out
 
 
+def _bf16_counts() -> dict:
+    """K3b's and K4b's launch counts (``_counts`` holds K1-K6's)."""
+    return {"aa_fused_bf16": K3.fused_pair_attention.bf16_launches,
+            "aa_fused_bwd_bf16": K3.fused_pair_attention_bwd.bf16_launches}
+
+
+def _bf16_dist(got, want) -> tuple:
+    """(max|got - want| / max|want|, mean|got - want| / mean|want|)."""
+    d = (got - want).abs()
+    return ((d.max() / want.abs().max().clamp_min(1e-30)).item(),
+            (d.mean() / want.abs().mean().clamp_min(1e-30)).item())
+
+
+def _within(dist: tuple, tol: tuple) -> bool:
+    return dist[0] <= tol[0] and dist[1] <= tol[1]
+
+
+def _packed(model) -> tuple:
+    return tuple(w.contiguous() for w in K3.weights_of(K3.pack_aa_params(model.encoder.aa_encoder)))
+
+
+@torch.inference_mode()
+def _bf16_fused_fwd_kernel(ws8: tuple, ws4: tuple) -> dict:
+    """T1: K3b against its plain version; returns its kernels line."""
+    Th, A, D = FLAGSHIP["encoder"]["kwargs"]["historical_steps"], NUM_ACTORS, K3.KERNEL_DIM
+    shapes = {"bucket 128": ((TRAIN_BATCH, Th, A + 1, A), 8, ws8),
+              "ood": ((TRAIN_BATCH, Th, A, A), 8, ws8),
+              "baseline": ((TRAIN_BATCH, Th, A, A), 4, ws4)}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    max_abs, worst = 0.0, (0.0, 0.0)
+    for name, (shape, H, model_ws) in shapes.items():
+        for wname, ws in (("model", model_ws), ("random", _random_aa_weights(gen, model_ws))):
+            for with_keep in (False, True):
+                q, u, mask, keep = _k3_inputs(shape, with_keep, gen, H)
+                p = K3_DROPOUT if with_keep else 0.0
+                case = (f"{name} {list(shape)}, {H} heads, {wname} weights, keep "
+                        + (f"p={p:g}" if with_keep else "None"))
+                got = K3.fused_pair_attention(q, u, mask, keep, ws, H, p, "bfloat16")
+                again = K3.fused_pair_attention(q, u, mask, keep, ws, H, p, "bfloat16")
+                f32 = K3.fused_pair_attention(q, u, mask, keep, ws, H, p)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(got).all()), f"aa_fused_bf16 ({case}) is not finite")
+                check(torch.equal(got, again), f"aa_fused_bf16 ({case}) is not bit-equal across "
+                      "two runs")
+                check(bool((got[:, :, ::7] == 0).all()), f"aa_fused_bf16 ({case}): an empty "
+                      "receiver did not give exactly 0")
+                want = K3.fused_pair_attention_reference(q, u, mask, keep, ws, H, p,
+                                                         compute_dtype="bfloat16")
+                dist, fdist = _bf16_dist(got, want), _bf16_dist(f32, want)
+                max_abs = max(max_abs, (got - want).abs().max().item())
+                worst = tuple(max(a, b) for a, b in zip(worst, dist))
+                print(f"[bf16-fused] T1 aa_fused_bf16 {case}: bit-equal reruns; max / mean "
+                      f"|kernel - plain| {dist[0]:.3e} / {dist[1]:.3e} of max / mean |plain| (tol "
+                      f"{TOL_K3B[0]:g} / {TOL_K3B[1]:g}); K3 (f32) {fdist[0]:.3e} / "
+                      f"{fdist[1]:.3e}", flush=True)
+                check(_within(dist, TOL_K3B), f"aa_fused_bf16 ({case}) disagrees with its plain "
+                      "version")
+                check(not _within(fdist, TOL_K3B), f"K3 (f32) passes TOL_K3B ({case}): the bar "
+                      "does not hold the kernel to bf16")
+                del got, again, f32, want, q, u, mask, keep
+    # ln_mm off reaches the kernel: against its own plain version, and apart
+    # from the plain version with ln_mm
+    shape = shapes["bucket 128"][0]
+    q, u, mask, _ = _k3_inputs(shape, False, gen)
+    off = K3.fused_pair_attention(q, u, mask, None, ws8, 8, 0.0, "bfloat16", ln_mm=False)
+    d_off = _bf16_dist(off, K3.fused_pair_attention_reference(
+        q, u, mask, None, ws8, 8, compute_dtype="bfloat16", ln_mm=False))
+    d_on = _bf16_dist(off, K3.fused_pair_attention_reference(q, u, mask, None, ws8, 8,
+                                                             compute_dtype="bfloat16"))
+    print(f"[bf16-fused] T1 aa_fused_bf16 bucket 128, ln_mm off: {d_off[0]:.3e} / {d_off[1]:.3e} "
+          f"from its plain version, {d_on[0]:.3e} / {d_on[1]:.3e} from the plain version with "
+          "ln_mm", flush=True)
+    check(_within(d_off, TOL_K3B), "aa_fused_bf16 with ln_mm off disagrees with its plain version")
+    check(not _within(d_on, TOL_K3B), "aa_fused_bf16 with ln_mm off passes the ln_mm plain "
+          "version's bar: the flag does not reach the kernel")
+    del off
+    # timed at bucket 128 (model weights, no keep, as a served batch), K3 in the same call
+    ms = cuda_ms(lambda: K3.fused_pair_attention(q, u, mask, None, ws8, 8, 0.0, "bfloat16"))
+    f32_ms = cuda_ms(lambda: K3.fused_pair_attention(q, u, mask, None, ws8, 8))
+    plain_ms = cuda_ms(lambda: K3.fused_pair_attention_reference(
+        q, u, mask, None, ws8, 8, compute_dtype="bfloat16"), runs=5, warmup=1)
+    cores, cores_by, flops, nbytes, route, route_by = aa_fused_bound(*shape, D, 8, False, True)
+    print(f"[bf16-fused] T1 aa_fused_bf16 bucket 128 {list(shape)}: {ms:.3f} ms (median of "
+          f"{TIMED_RUNS}); K3 (f32) {f32_ms:.3f} ms in this call; bound {route:.3f} ms by "
+          f"{route_by} on its route (bf16 products on the tensor cores) and {cores:.3f} ms by "
+          f"{cores_by} on the CUDA cores ({flops:.3e} flop, {nbytes:.3e} B), "
+          f"{flops / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.3f} ms (median of 5)", flush=True)
+    # and at the baseline's 4 heads and shape
+    shape4 = shapes["baseline"][0]
+    q, u, mask, _ = _k3_inputs(shape4, False, gen, 4)
+    h4_ms = cuda_ms(lambda: K3.fused_pair_attention(q, u, mask, None, ws4, 4, 0.0, "bfloat16"))
+    h4_f32 = cuda_ms(lambda: K3.fused_pair_attention(q, u, mask, None, ws4, 4))
+    h4_cores, _, _, _, h4_route, _ = aa_fused_bound(*shape4, D, 4, False, True)
+    print(f"[bf16-fused] T1 aa_fused_bf16 at 4 heads {list(shape4)}: {h4_ms:.3f} ms (median of "
+          f"{TIMED_RUNS}); K3 (f32) {h4_f32:.3f} ms in this call; bound {h4_route:.3f} ms on its "
+          f"route, {h4_cores:.3f} ms on the CUDA cores", flush=True)
+    return dict(name="aa_fused_bf16", route="cuda", source="trajsde_tpu_torch/csrc/aa_fused.cu",
+                replaces="trajsde_tpu/ops/pallas/aa_fused.py:319", compute_dtype="bfloat16",
+                launches=None, max_abs_err=max_abs, max_rel_err=worst[0], mean_rel_err=worst[1],
+                ms=ms, plain_ms=plain_ms, bound_ms=route, bound_by=route_by, route_ms=route,
+                cuda_core_bound_ms=cores, cuda_core_bound_by=cores_by, f32_kernel_ms=f32_ms,
+                h4_shape=list(shape4), h4_ms=h4_ms, h4_f32_kernel_ms=h4_f32, h4_bound_ms=h4_route,
+                h4_cuda_core_bound_ms=h4_cores, library_ms=None)
+
+
+def _bf16_fused_bwd_kernel(ws8: tuple, checks: dict) -> dict:
+    """T2: K4b against its plain version at the training twin shape at
+    BF16_FUSED_BATCH, with keep; returns its kernels line."""
+    Th, A, D, H = (FLAGSHIP["encoder"]["kwargs"]["historical_steps"], NUM_ACTORS,
+                   K3.KERNEL_DIM, 8)
+    shape = (BF16_FUSED_BATCH, Th, A + 1, A)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 52)
+    p, bf = K3_DROPOUT, dict(compute_dtype="bfloat16")
+    max_abs, worst = 0.0, (0.0, 0.0)
+    for wname, ws in (("model", ws8), ("random", _random_aa_weights(gen, ws8))):
+        q, u, mask, keep = _k3_inputs(shape, True, gen)
+        g = torch.randn(q.shape, generator=gen, device="cuda")
+        case = f"train {list(shape)}, {wname} weights, keep p={p:g}"
+        out, stats = K3.fused_pair_attention_fwd(q, u, mask, keep, ws, H, p, **bf)
+        with torch.no_grad():
+            served = K3.fused_pair_attention(q, u, mask, keep, ws, H, p, **bf)
+        dq, dws = K3.fused_pair_attention_bwd(q, u, mask, keep, ws, g, H, p, out=out,
+                                              stats=stats, **bf)
+        dq2, dws2 = K3.fused_pair_attention_bwd(q, u, mask, keep, ws, g, H, p, out=out,
+                                                stats=stats, **bf)
+        torch.cuda.synchronize()
+        check(torch.equal(out, served), f"aa_fused_bf16 ({case}): writing the softmax statistics "
+              "changed the output")
+        check(bool(torch.isfinite(dq).all()) and all(bool(torch.isfinite(d).all()) for d in dws),
+              f"aa_fused_bwd_bf16 ({case}) is not finite")
+        check(torch.equal(dq, dq2) and all(torch.equal(a, b) for a, b in zip(dws, dws2)),
+              f"aa_fused_bwd_bf16 ({case}) is not bit-equal across two runs")
+        check(bool((dq[:, :, ::7] == 0).all()), f"aa_fused_bwd_bf16 ({case}): an empty receiver "
+              "did not give exactly 0")
+        del served, dq2, dws2
+        # K4b's recomputed logits against K3b's, from the check copies
+        rows = q.shape[0] * q.shape[1] * q.shape[2] * u.shape[3]
+        lg3 = torch.full((rows, H), float("nan"), device="cuda")
+        lg4 = torch.full((rows, H), float("nan"), device="cuda")
+        check(checks["logits_fwd"].aa_fused_set_logits(lg3.data_ptr()) == 0, "set_logits")
+        out3, stats3 = K3.launch_fwd(checks["logits_fwd"], q, u, mask, keep, ws, H, p,
+                                     with_stats=True, **bf)
+        check(checks["logits_bwd"].aa_fused_bwd_set_logits(lg4.data_ptr()) == 0, "set_logits")
+        K3.launch_bwd(checks["logits_bwd"], q, u, mask, keep, ws, g, out3, stats3, H, p, **bf)
+        torch.cuda.synchronize()
+        check(not bool(torch.isnan(lg3).any()) and not bool(torch.isnan(lg4).any()),
+              "a pair's logits were not written")
+        check(torch.equal(lg3, lg4), f"K4b's recomputed logits ({case}) are not K3b's")
+        check(torch.equal(out3, out) and torch.equal(stats3, stats),
+              "the logits check copy of K3b gave other outputs than K3b")
+        del lg3, lg4, out3, stats3
+        out32, stats32 = K3.fused_pair_attention_fwd(q, u, mask, keep, ws, H, p)
+        dq32, dws32 = K3.fused_pair_attention_bwd(q, u, mask, keep, ws, g, H, p, out=out32,
+                                                  stats=stats32)
+        del out, stats, out32, stats32
+        want_dq, want = K3.fused_pair_attention_bwd_reference(q, u, mask, keep, ws, g, H, p, **bf)
+        rels, f32_fails = {}, []
+        for k, a, a32, b in zip(("dq", *K3.W_ORDER), (dq, *dws), (dq32, *dws32),
+                                (want_dq, *want)):
+            dist = _bf16_dist(a, b)
+            rels[k] = dist
+            max_abs = max(max_abs, (a - b).abs().max().item())
+            worst = tuple(max(x, y) for x, y in zip(worst, dist))
+            check(_within(dist, TOL_K4B), f"aa_fused_bwd_bf16 ({case}) {k}: {dist[0]:.3e} / "
+                  f"{dist[1]:.3e} past {TOL_K4B}")
+            if not _within(_bf16_dist(a32, b), TOL_K4B):
+                f32_fails.append(k)
+        print(f"[bf16-fused] T2 aa_fused_bwd_bf16 {case}: bit-equal reruns, its logits K3b's bit "
+              f"for bit; max / mean |kernel - plain| over max / mean |plain|: "
+              + ", ".join(f"{k} {v[0]:.2e} / {v[1]:.2e}" for k, v in rels.items())
+              + f" (tol {TOL_K4B[0]:g} / {TOL_K4B[1]:g}); K4 (f32) fails it on "
+              + (", ".join(f32_fails) or "nothing"), flush=True)
+        check(bool(f32_fails), f"K4 (f32) passes TOL_K4B on every output ({case})")
+        del q, u, mask, g, dq, dws, dq32, dws32, want_dq, want
+        torch.cuda.empty_cache()
+    # timed with keep and the model's weights, as a train step calls it; K4 in the same call
+    q, u, mask, keep = _k3_inputs(shape, True, gen)
+    g = torch.randn(q.shape, generator=gen, device="cuda")
+    out, stats = K3.fused_pair_attention_fwd(q, u, mask, keep, ws8, H, p, **bf)
+    out32, stats32 = K3.fused_pair_attention_fwd(q, u, mask, keep, ws8, H, p)
+    ms = cuda_ms(lambda: K3.fused_pair_attention_bwd(q, u, mask, keep, ws8, g, H, p, out=out,
+                                                     stats=stats, **bf))
+    f32_ms = cuda_ms(lambda: K3.fused_pair_attention_bwd(q, u, mask, keep, ws8, g, H, p,
+                                                         out=out32, stats=stats32))
+    del out, stats, out32, stats32
+    torch.cuda.empty_cache()
+    plain_ms = cuda_ms(lambda: K3.fused_pair_attention_bwd_reference(q, u, mask, keep, ws8, g, H,
+                                                                     p, **bf), runs=5, warmup=1)
+    cores, cores_by, flops, nbytes, route, route_by = aa_fused_bwd_bound(*shape, D, H, True, True)
+    print(f"[bf16-fused] T2 aa_fused_bwd_bf16 train {list(shape)}, keep p={p:g}: {ms:.3f} ms "
+          f"(median of {TIMED_RUNS}); K4 (f32) {f32_ms:.3f} ms in this call; bound {route:.3f} "
+          f"ms by {route_by} on its route (bf16 recompute, 2xTF32 backward products) and "
+          f"{cores:.3f} ms by {cores_by} on the CUDA cores ({flops:.3e} flop, {nbytes:.3e} B), "
+          f"{flops / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.3f} ms (median of 5)", flush=True)
+    del q, u, mask, keep, g
+    torch.cuda.empty_cache()
+    return dict(name="aa_fused_bwd_bf16", route="cuda",
+                source="trajsde_tpu_torch/csrc/aa_fused_bwd.cu",
+                replaces="trajsde_tpu/ops/pallas/aa_fused.py:343", compute_dtype="bfloat16",
+                launches=None, max_abs_err=max_abs, max_rel_err=worst[0], mean_rel_err=worst[1],
+                ms=ms, plain_ms=plain_ms, bound_ms=route, bound_by=route_by, route_ms=route,
+                cuda_core_bound_ms=cores, cuda_core_bound_by=cores_by, f32_kernel_ms=f32_ms,
+                shape=list(shape), library_ms=None)
+
+
+def _bf16_fused_serve(model, card: str) -> dict:
+    """T3: the engine over ``FLAGSHIP_BF16_FUSED`` answers buckets 1 and
+    128: K3b and K1 once a batch, K3 never; mean|pi| against ``FLAGSHIP``'s;
+    the distance from dense ``FLAGSHIP_BF16`` with pinned noise."""
+    engine = ServingEngine(model, num_actors=NUM_ACTORS, num_lanes=NUM_LANES, device="cuda",
+                           engine="kernel", seed=SEED)
+    requests = _requests(np.random.default_rng(SEED + 54))
+    engine.predict(requests[1])
+    zero_counts()
+    results = {n: engine.predict(requests[n]) for n in (1, TRAIN_BATCH)}
+    served, served_bf16 = _counts(), _bf16_counts()
+    engine.close()
+    for n, res in results.items():
+        _check_results(res, n, model)
+    print(f"[bf16-fused] T3 FLAGSHIP_BF16_FUSED through the kernel engine at buckets 1 and "
+          f"{TRAIN_BATCH}: launches {served}, {served_bf16}", flush=True)
+    check(served == {"sde_rollout": 2, "sde_rollout_bwd": 0, "aa_fused": 0, "aa_fused_bwd": 0,
+                     "aa_attention": 0, "vpu_probe": 0}
+          and served_bf16 == {"aa_fused_bf16": 2, "aa_fused_bwd_bf16": 0},
+          "the fused bf16 engine did not launch K3b and K1 once a batch and nothing else")
+    f32 = build_model(FLAGSHIP, device="cuda", seed=SEED)
+    dense = build_model(FLAGSHIP_BF16, device="cuda", seed=SEED)
+    sd, s32 = model.state_dict(), f32.state_dict()
+    check(list(sd) == list(s32) and all(torch.equal(sd[k], s32[k]) for k in sd),
+          "the fused bf16 and the f32 model do not share one parameter tree")
+    scene = _train_batch(np.random.default_rng(SEED + 41), TRAIN_BATCH).to("cuda")
+    o16, o32 = (make_serving_fn(m, "cuda")(
+        scene, SEED, generator=torch.Generator(device="cuda").manual_seed(SEED + 43))
+        for m in (model, f32))
+    for k in ("loc", "pi"):
+        check(o16[k].dtype == torch.float32 and bool(torch.isfinite(o16[k]).all()),
+              f"the fused bf16 model's served {k} is not finite f32")
+    pi16, pi32 = float(o16["pi"].abs().mean()), float(o32["pi"].abs().mean())
+    pi_rel = abs(pi16 - pi32) / pi32
+    B, Th, D = TRAIN_BATCH, model.encoder.historical_steps, model.encoder.embed_dim
+    K, Tf = model.decoder.num_modes, model.decoder.future_steps
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    en = torch.randn((Th, B, NUM_ACTORS + 1, D), generator=gen, device="cuda")
+    tw = torch.randn((B, 1, Th, 2), generator=gen, device="cuda")
+    de = torch.randn((Tf, B, K, NUM_ACTORS, D), generator=gen, device="cuda")
+    with torch.inference_mode():
+        pf = model(scene, enc_noise=en, twin_noise=tw, dec_noise=de)
+        pd = dense(scene, enc_noise=en, twin_noise=tw, dec_noise=de)
+    valid = ~scene.padding_mask[:, None, :, -Tf:, None].expand_as(pd["loc"])
+    d = (pf["loc"] - pd["loc"])[valid].abs()
+    ref = pd["loc"][valid].abs()
+    loc_max, loc_mean = float(d.max() / ref.max()), float(d.mean() / ref.mean())
+    print(f"[bf16-fused] T3 {card}: mean|pi| {pi16:.5f} vs {pi32:.5f} for FLAGSHIP (f32), "
+          f"relative {pi_rel:.4f} (tol {TOL_BF16_PI}); pinned noise, the models' own forward: "
+          f"loc vs dense FLAGSHIP_BF16 max|diff| / max|dense| {loc_max:.3e}, mean|diff| / "
+          f"mean|dense| {loc_mean:.3e} over the valid steps", flush=True)
+    check(pi_rel <= TOL_BF16_PI, "the fused bf16 model's mean|pi| is not the f32 model's")
+    return dict(launches=served, bf16_launches=served_bf16, pi_rel=pi_rel, loc_max=loc_max,
+                loc_mean=loc_mean)
+
+
+def _bf16_fused_train(model, card: str) -> dict:
+    """T4: BF16_FUSED_STEPS train steps of ``FLAGSHIP_BF16_FUSED`` on one
+    batch of BF16_FUSED_BATCH (the decoder as the YAML writes it, its
+    rollout the plain loop): K3b and K4b once a step and nothing else, the
+    loss falls; the step in turns beside dense ``FLAGSHIP_BF16``'s with
+    peak memory."""
+    batch = _train_batch(np.random.default_rng(SEED + 3), BF16_FUSED_BATCH).to("cuda")
+    want = {"sde_rollout": 0, "sde_rollout_bwd": 0, "aa_fused": 0, "aa_fused_bwd": 0,
+            "aa_attention": 0, "vpu_probe": 0}
+    steps, out = {}, {}
+    for tag, cfg, m, bf in (("fused", FLAGSHIP_BF16_FUSED, model, 1),
+                            ("dense", FLAGSHIP_BF16,
+                             build_model(FLAGSHIP_BF16, device="cuda", seed=SEED), 0)):
+        state = create_train_state(m, cfg["training_specific"], steps_per_epoch=1, seed=SEED)
+        step = make_train_step(m, state.optimizer, state.scheduler, build_losses(cfg),
+                               torch.device("cuda"))
+        losses, launched = [], {}
+        for i in range(BF16_FUSED_STEPS):
+            zero_counts()
+            logs = step(batch, i, SEED)
+            launched = {k: launched.get(k, 0) + v for k, v in
+                        dict(_counts(), **_bf16_counts()).items()}
+            losses.append(float(logs["train/total"]))
+            check(np.isfinite(losses[-1]) and logs["train/step_skipped"] == 0.0,
+                  f"[bf16-fused] non-finite {tag} train step {i}")
+        n = BF16_FUSED_STEPS
+        check(launched == dict(want, aa_fused_bf16=n * bf, aa_fused_bwd_bf16=n * bf),
+              f"[bf16-fused] {n} {tag} train steps launched {launched}")
+        check(losses[-1] < losses[0], f"[bf16-fused] the {tag} loss did not fall: {losses}")
+        check(_all_f32(m, state.optimizer), f"[bf16-fused] a {tag} parameter, gradient or AdamW "
+              "moment is not f32")
+        print(f"[bf16-fused] T4 {tag} FLAGSHIP_BF16{'_FUSED' if bf else ''}: {n} train steps on "
+              f"one batch of {BF16_FUSED_BATCH}: loss " + " ".join(f"{x:.4f}" for x in losses)
+              + f"; launches {launched}", flush=True)
+        out[tag] = dict(losses=losses, launches=launched)
+        counter = [n]
+
+        def again(step=step, counter=counter):
+            step(batch, counter[0], SEED)
+            counter[0] += 1
+
+        steps[tag] = again
+    times, peaks = _in_turns(steps)
+    _print_turns(card, f"train step at batch {BF16_FUSED_BATCH} (FLAGSHIP_BF16_FUSED, K3b + K4b, "
+                 "vs dense FLAGSHIP_BF16)", times, peaks, tag="bf16-fused")
+    out.update(ms=times, peak_gib=peaks)
+    return out
+
+
+def phase_bf16_fused(card: str, checks: dict) -> tuple:
+    """T. bf16 inside the fused AA kernels (see the module's docstring);
+    returns (K3b's and K4b's kernels lines, T3's and T4's numbers)."""
+    t_phase = time.perf_counter()
+    model = build_model(FLAGSHIP_BF16_FUSED, device="cuda", seed=SEED)
+    aa = model.encoder.aa_encoder
+    check(aa.fused and aa.chain_dtype == "bfloat16" and aa.ln_mm,
+          "FLAGSHIP_BF16_FUSED's AA encoder is not fused in bf16 with ln_mm")
+    base = build_model(BASELINE_TRAIN, device="cuda", seed=SEED)
+    k3b = _bf16_fused_fwd_kernel(_packed(model), _packed(base))
+    del base
+    k4b = _bf16_fused_bwd_kernel(_packed(model), checks)
+    torch.cuda.empty_cache()
+    serve = _bf16_fused_serve(model, card)
+    torch.cuda.empty_cache()
+    train = _bf16_fused_train(model, card)
+    k3b["launches"] = serve["bf16_launches"]["aa_fused_bf16"]
+    k4b["launches"] = train["fused"]["launches"]["aa_fused_bwd_bf16"]
+    for entry, name in ((k3b, "aa_fused_bf16"), (k4b, "aa_fused_bwd_bf16")):
+        entry["launches_by_path"] = {"bf16_fused_serve": serve["bf16_launches"][name],
+                                     "bf16_fused_train": train["fused"]["launches"][name],
+                                     "bf16_dense_train": train["dense"]["launches"][name]}
+    del model
+    torch.cuda.empty_cache()
+    print(f"[bf16-fused] phase T: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return k3b, k4b, serve, train
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
@@ -3846,6 +4240,9 @@ def main() -> None:
         exported = phase_export(d, card)
         torch.cuda.empty_cache()
         converted = phase_converted(d, card)
+        torch.cuda.empty_cache()
+    k3b, k4b, bf16_serve, bf16_train = phase_bf16_fused(card, checks)
+    torch.cuda.empty_cache()
     adaptive = phase_adaptive(card)
     torch.cuda.empty_cache()
     remat = phase_remat(card)
@@ -3913,6 +4310,11 @@ def main() -> None:
         entry["launches_by_path"]["exported_cli"] = exported["cli"]["launches"][name]
         # phase S: test_torch.py --serving --ood on a converted reference checkpoint
         entry["launches_by_path"]["converted_eval"] = converted["launches"][name]
+        # phase T: FLAGSHIP_BF16_FUSED served at buckets 1 and 128, its train
+        # steps at 64 and dense FLAGSHIP_BF16's
+        entry["launches_by_path"]["bf16_fused_serve"] = bf16_serve["launches"][name]
+        entry["launches_by_path"]["bf16_fused_train"] = bf16_train["fused"]["launches"][name]
+        entry["launches_by_path"]["bf16_dense_train"] = bf16_train["dense"]["launches"][name]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches: {served} serving + "
           f"{served_fused} fused serving + {train['sde_rollout']} training + "
           f"{train_fused['sde_rollout']} fused-encoder training; K2 launches: "
@@ -3942,9 +4344,12 @@ def main() -> None:
           f"{multi['two_ranks']['launches']}; the exported FLAGSHIP_H100 over 1 + "
           f"{TRAIN_BATCH} scenes and serve_torch.py --from-export over {CLI_VAL_SCENES}: "
           f"{exported['launches']}, {exported['cli']['launches']}; test_torch.py --serving "
-          f"--ood on the converted checkpoint: {converted['launches']}", flush=True)
+          f"--ood on the converted checkpoint: {converted['launches']}; FLAGSHIP_BF16_FUSED "
+          f"served at buckets 1 and {TRAIN_BATCH}: {bf16_serve['launches']}, "
+          f"{bf16_serve['bf16_launches']}, and {BF16_FUSED_STEPS} train steps at "
+          f"{BF16_FUSED_BATCH}: {bf16_train['fused']['launches']}", flush=True)
     print(card)
-    print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6]}))
+    print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6, k3b, k4b]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

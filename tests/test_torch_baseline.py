@@ -110,10 +110,17 @@ def test_baseline_is_the_yaml_and_builds_at_the_published_widths():
     assert [k for k in fused.state_dict()] == [k for k in model.state_dict()]
 
 
-@pytest.mark.parametrize("kwargs,match", [(dict(dtype="bfloat16", fused=True), "item 6b")])
-def test_local_encoder_refuses_what_is_not_ported(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        LocalEncoder(21, 32, 2, **kwargs)
+def test_local_encoder_fused_in_bf16_builds_and_takes_ln_mm():
+    """The baseline's encoder with ``fused=True`` in bf16 (once refused)
+    builds; ``ln_mm`` reaches its ``AAEncoder``, directly and through the
+    registry, which once dropped it."""
+    enc = LocalEncoder(21, 32, 2, dtype="bfloat16", fused=True)
+    assert enc.aa_encoder.chain_dtype == "bfloat16" and enc.aa_encoder.ln_mm is True
+    assert LocalEncoder(21, 32, 2, dtype="bfloat16", fused=True,
+                        ln_mm=False).aa_encoder.ln_mm is False
+    built = tconfig.build("LocalEncoder", dict(historical_steps=21, embed_dim=32, num_heads=2,
+                                               dtype="bfloat16", fused=True, ln_mm=False))
+    assert built.aa_encoder.fused and built.aa_encoder.ln_mm is False
 
 
 def test_local_encoder_builds_with_remat_and_rematerializes():

@@ -393,10 +393,17 @@ def test_accepted_dtypes(dtype):
 @pytest.mark.parametrize("cls,kwargs", [
     ("LocalEncoderSDESep", dict(historical_steps=21, embed_dim=D)),
     ("LocalEncoder", dict(historical_steps=21, embed_dim=D))])
-def test_a_fused_encoder_in_bf16_raises_naming_item_6b(cls, kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6b"):
-        tconfig.build(cls, dict(kwargs, fused=True, dtype="bfloat16"))
-    tconfig.build(cls, dict(kwargs, fused=True, dtype="float32"))       # f32 still builds
+def test_a_fused_encoder_in_bf16_builds_and_takes_ln_mm(cls, kwargs):
+    """A fused encoder in bf16 (once refused) builds through the registry;
+    its AA chain computes in bf16, and ``ln_mm`` (the JAX modules'
+    default, True) reaches its ``AAEncoder`` instead of being dropped."""
+    enc = tconfig.build(cls, dict(kwargs, fused=True, dtype="bfloat16"))
+    aa = enc.aa_encoder
+    assert aa.fused and aa.chain_dtype == "bfloat16" and aa.ln_mm is True
+    off = tconfig.build(cls, dict(kwargs, fused=True, dtype="bfloat16", ln_mm=False))
+    assert off.aa_encoder.ln_mm is False
+    f32 = tconfig.build(cls, dict(kwargs, fused=True, dtype="float32"))
+    assert f32.aa_encoder.chain_dtype == "float32" and f32.aa_encoder.ln_mm is True
 
 
 @pytest.mark.parametrize("cls", ["LocalEncoderSDESep", "LocalEncoder"])

@@ -66,10 +66,14 @@ def test_registry_aliases_filtering_and_guards():
     enc = tconfig.build(cfg["encoder"]["module_name"], dict(cfg["encoder"]["kwargs"], bogus=1))
     assert type(enc).__name__ == "LocalEncoderSDESep"
     kw = cfg["encoder"]["kwargs"]
-    # the fused AA encoder builds; the JAX package's TPU knobs of its kernel are dropped
+    # the fused AA encoder builds; the JAX package's tiling knobs of its kernel are
+    # dropped, ln_mm reaches it (it changes the chain's statistics in bf16)
     fused = tconfig.build("LocalEncoderSDESep", dict(kw, fused=True, rows_fwd=128, rows_bwd=24,
                                                      ln_mm=False))
-    assert fused.aa_encoder.fused
+    assert fused.aa_encoder.fused and fused.aa_encoder.ln_mm is False
+    # and in bf16 (once refused): the pair chain computes in bf16 (K3b / K4b)
+    fused16 = tconfig.build("LocalEncoderSDESep", dict(kw, fused=True, dtype="bfloat16"))
+    assert fused16.aa_encoder.chain_dtype == "bfloat16" and fused16.aa_encoder.ln_mm
     # adaptive: true builds with the config's rtol / atol, and refuses explicit sde_noise
     adaptive = tconfig.build("LocalEncoderSDESep", dict(kw, adaptive=True))
     assert adaptive.sde_rnn.adaptive and (adaptive.sde_rnn.rtol, adaptive.sde_rnn.atol) == (
@@ -79,7 +83,6 @@ def test_registry_aliases_filtering_and_guards():
     with pytest.raises(NotImplementedError, match="sde_noise"):
         adaptive(scene, sde_noise=torch.zeros(Th, 1, 4, D))
     for bad, err in [({"neighbor_cap": 24, "fused": True}, NotImplementedError),
-                     ({"dtype": "bfloat16", "fused": True}, NotImplementedError),
                      ({"dtype": "float16"}, ValueError),
                      ({"ref_time": 10}, ValueError),
                      ({"method": "milstein"}, NotImplementedError)]:

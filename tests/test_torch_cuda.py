@@ -25,7 +25,9 @@ launchers' bits, a fused train step through them is the step through the
 launchers, and a ``FLAGSHIP_H100`` artifact exported on the card answers
 with the live scan engine's bits.  Endpoint K-means on the card gives the
 CPU's assignments, and a converted reference checkpoint restores onto the
-card bit for bit.
+card bit for bit.  K3b and K4b, the bf16 forms of K3 and K4, are held to
+their plain versions within ``chip_smoke.TOL_K3B`` / ``TOL_K4B`` (max, and
+mean at the twin shape), and K4b's recomputed logits to K3b's bit for bit.
 """
 import ctypes
 import functools
@@ -273,6 +275,83 @@ def test_aa_fused_bwd_kernel_matches_plain(cuda, shape, with_keep, heads):
         assert ((got - w).abs().max() / w.abs().max()).item() < 1e-3, name
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", HEADS)
+@pytest.mark.parametrize("with_keep", [False, True])
+@pytest.mark.parametrize("shape", [(1, 1, 2, 1), (2, 3, 5, 4), (3, 2, 7, 70), (1, 21, 49, 48)])
+def test_aa_fused_bf16_kernel_matches_plain(cuda, shape, with_keep, heads):
+    """K3b (the bf16 chain, with ln_mm) vs its plain version on K3's test
+    inputs: within ``chip_smoke.TOL_K3B`` of max|plain|, and of mean|plain|
+    at the twin shape (in a handful of outputs one value on the other side
+    of a bf16 tie moves the mean); counted as K3b, not K3; bit-equal
+    reruns; an empty receiver gives exactly 0."""
+    from chip_smoke import TOL_K3B
+
+    B, T, Aq, Ak = shape
+    gen = torch.Generator().manual_seed(sum(shape) + with_keep)
+    packed = K3.pack_aa_params(_aa_encoder(Ak, heads))
+    packed["w1"] = packed["w1"] + 0.1 * torch.randn(packed["w1"].shape, generator=gen)
+    ws = tuple(w.contiguous().to(cuda) for w in K3.weights_of(packed))
+    q = torch.randn((B, T, Aq, 64), generator=gen).to(cuda)
+    u = (5.0 * torch.randn((B, T, Aq, Ak, 4), generator=gen)).to(cuda)
+    mask = (torch.rand((B, T, Aq, Ak), generator=gen) < 0.6).float()
+    mask[0, 0, 0] = 0.0
+    mask[0, 0, -1, 0] = 1.0
+    mask = mask.to(cuda)
+    keep, p = None, 0.0
+    if with_keep:
+        keep, p = (torch.rand((B, T, Aq, Ak, heads), generator=gen) >= 0.1).float().to(cuda), 0.1
+    before = (K3.fused_pair_attention.launches, K3.fused_pair_attention.bf16_launches)
+    got = K3.fused_pair_attention(q, u, mask, keep, ws, heads, p, "bfloat16")
+    again = K3.fused_pair_attention(q, u, mask, keep, ws, heads, p, "bfloat16")
+    torch.cuda.synchronize()
+    assert (K3.fused_pair_attention.launches,
+            K3.fused_pair_attention.bf16_launches) == (before[0], before[1] + 2)
+    assert torch.equal(got, again)
+    assert torch.isfinite(got).all()
+    assert (got[0, 0, 0] == 0).all()
+    want = K3.fused_pair_attention_reference(q, u, mask, keep, ws, heads, p,
+                                             compute_dtype="bfloat16")
+    d = (got - want).abs()
+    assert (d.max() / want.abs().max()).item() <= TOL_K3B[0]
+    if shape[1:] == (21, 49, 48):
+        assert (d.mean() / want.abs().mean()).item() <= TOL_K3B[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", HEADS)
+@pytest.mark.parametrize("with_keep", [False, True])
+@pytest.mark.parametrize("shape", [(1, 1, 2, 1), (2, 3, 5, 4), (3, 2, 7, 70), (1, 21, 49, 48)])
+def test_aa_fused_bwd_bf16_kernel_matches_plain(cuda, shape, with_keep, heads):
+    """K4b vs autograd through the plain bf16 chain on K4's test inputs:
+    each output within ``chip_smoke.TOL_K4B`` of its max|plain| (plus 1e-6:
+    with one sender the exact dq is 0), and of its mean|plain| at the twin
+    shape; counted as K4b; bit-equal reruns; an empty receiver gets 0."""
+    from chip_smoke import TOL_K4B
+
+    q, u, mask, keep, ws, g, p = _k4_case(cuda, shape, with_keep, heads)
+    bf = dict(compute_dtype="bfloat16")
+    out, stats = K3.fused_pair_attention_fwd(q, u, mask, keep, ws, heads, p, **bf)
+    before = (K3.fused_pair_attention_bwd.launches, K3.fused_pair_attention_bwd.bf16_launches)
+    dq, dws = K3.fused_pair_attention_bwd(q, u, mask, keep, ws, g, heads, p, out=out,
+                                          stats=stats, **bf)
+    dq2, dws2 = K3.fused_pair_attention_bwd(q, u, mask, keep, ws, g, heads, p, out=out,
+                                            stats=stats, **bf)
+    torch.cuda.synchronize()
+    assert (K3.fused_pair_attention_bwd.launches,
+            K3.fused_pair_attention_bwd.bf16_launches) == (before[0], before[1] + 2)
+    assert torch.equal(dq, dq2) and all(torch.equal(a, b) for a, b in zip(dws, dws2))
+    assert (dq[0, 0, 0] == 0).all()
+    want_dq, want = K3.fused_pair_attention_bwd_reference(q, u, mask, keep, ws, g, heads, p, **bf)
+    assert torch.isfinite(dq).all() and all(torch.isfinite(d).all() for d in dws)
+    for name, got, w in zip(("dq", *K3.W_ORDER), (dq, *dws), (want_dq, *want)):
+        assert got.shape == w.shape, name
+        d = (got - w).abs()
+        assert d.max().item() <= TOL_K4B[0] * w.abs().max().item() + 1e-6, name
+        if shape[1:] == (21, 49, 48):
+            assert d.mean().item() <= TOL_K4B[1] * w.abs().mean().item() + 1e-6, name
+
+
 @functools.cache
 def _logit_copies():
     """Check copies of K3 and K4 built with ``AA_WRITE_LOGITS`` defined, so
@@ -296,22 +375,24 @@ def _logit_copies():
     return fwd, bwd
 
 
-def _logits_of_both(cuda, heads):
+def _logits_of_both(cuda, heads, compute_dtype="float32"):
     """With keep, at B = 8 of the flagship's training twin shape (8 heads)
     or of the baseline's (4 heads, Aq = Ak = 48): K3's logits, K4's
     recomputed ones, K3's output and statistics (from the check copies) and
-    the output of the shipped K3 on the same inputs."""
+    the output of the shipped K3 on the same inputs (K3b's and K4b's in
+    bf16)."""
     fwd, bwd = _logit_copies()
     shape = (8, 21, 49, 48) if heads == 8 else (8, 21, 48, 48)
     q, u, mask, keep, ws, g, p = _k4_case(cuda, shape, True, heads)
     rows = q.shape[0] * q.shape[1] * q.shape[2] * u.shape[3]
     lg3 = torch.full((rows, heads), float("nan"), device=cuda)
     lg4 = torch.full((rows, heads), float("nan"), device=cuda)
+    dt = dict(compute_dtype=compute_dtype)
     assert fwd.aa_fused_set_logits(lg3.data_ptr()) == 0
-    out, stats = K3.launch_fwd(fwd, q, u, mask, keep, ws, heads, p, with_stats=True)
+    out, stats = K3.launch_fwd(fwd, q, u, mask, keep, ws, heads, p, with_stats=True, **dt)
     assert bwd.aa_fused_bwd_set_logits(lg4.data_ptr()) == 0
-    K3.launch_bwd(bwd, q, u, mask, keep, ws, g, out, stats, heads, p)
-    shipped = K3.fused_pair_attention(q, u, mask, keep, ws, heads, p)
+    K3.launch_bwd(bwd, q, u, mask, keep, ws, g, out, stats, heads, p, **dt)
+    shipped = K3.fused_pair_attention(q, u, mask, keep, ws, heads, p, **dt)
     torch.cuda.synchronize()
     return lg3, lg4, out, stats, shipped
 
@@ -328,6 +409,19 @@ def test_aa_fused_bwd_recomputes_k3s_logits_bit_for_bit(cuda, heads):
     assert torch.isinf(lg3).any() and torch.isfinite(lg3).any()
     assert torch.equal(lg3, lg4)
     assert torch.equal(out, shipped)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", HEADS)
+def test_aa_fused_bwd_bf16_recomputes_k3bs_logits_bit_for_bit(cuda, heads):
+    """K4b's recompute takes K3b's bf16 products and epilogues, so its
+    logits are the ones K3b's softmax took, bit for bit, and K3b's softmax
+    max is their max."""
+    lg3, lg4, out, stats, shipped = _logits_of_both(cuda, heads, "bfloat16")
+    assert not torch.isnan(lg3).any() and not torch.isnan(lg4).any()
+    assert torch.equal(lg3, lg4)
+    assert torch.equal(out, shipped)
+    assert torch.equal(stats[0], lg4.view(stats.shape[1], -1, heads).amax(dim=1))
 
 
 @pytest.mark.gpu
@@ -936,8 +1030,8 @@ def test_fused_train_step_through_the_ops_is_the_direct_launchers_step(cuda, mon
                         lambda y0, w, t0s, dts, seed, n, noise=None, inc="gaussian":
                         K._launch(y0, w, t0s, dts, int(seed), n, noise, inc))
     monkeypatch.setattr(K3, "fused_pair_attention_fwd",
-                        lambda q, u, mask, keep, ws, heads, p=0.0:
-                        K3._launch(q, u, mask, keep, ws, heads, p, with_stats=True))
+                        lambda q, u, mask, keep, ws, heads, p=0.0, dt="float32", ln_mm=True:
+                        K3._launch(q, u, mask, keep, ws, heads, p, True, dt, ln_mm))
     loss_direct, grads_direct = step()
     assert torch.equal(loss_op, loss_direct)
     for n, g in grads_op.items():

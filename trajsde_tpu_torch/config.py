@@ -12,8 +12,10 @@ machine without PyYAML can build and train the flagship model;
 ``FLAGSHIP_TRAIN`` is the same model with ``decoder.fused: true``,
 whose rollout runs through kernels K1 and K2, and ``FLAGSHIP_FUSED`` the
 same model with ``encoder.fused: true``, whose AA pair chain runs through
-kernel K3 (the JAX package's TPU knobs of that path, ``rows_fwd``,
-``rows_bwd`` and ``ln_mm``, are dropped like the decoder's).
+kernel K3 (the JAX package's TPU tiling knobs of that path, ``rows_fwd`` and
+``rows_bwd``, are dropped like the decoder's; ``ln_mm``, default True as in
+the JAX package, reaches the encoder and changes the chain's LayerNorm
+statistics in bf16).
 ``FLAGSHIP_TRAIN_FUSED`` is ``FLAGSHIP_TRAIN`` with ``encoder.fused: true``
 as well: its training step runs K3 and K4 for the AA block and K1 and K2
 for the decoder rollout.  ``FLAGSHIP_H100`` is
@@ -31,6 +33,10 @@ f32).  ``FLAGSHIP_BF16_CAPPED`` is
 ``configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec_tpu_fast.yml`` as written (the
 same with ``neighbor_cap: 24`` on the dense AA block), and
 ``FLAGSHIP_CAPPED`` the same recipe with its three dtypes set to ``float32``.
+``FLAGSHIP_BF16_FUSED`` is ``FLAGSHIP_BF16`` with ``encoder.fused: true``, the
+memory-constrained fallback that ``_tpu.yml`` names: its AA pair chain runs
+in bf16 through kernels K3b (forward) and K4b (backward); the decoder is the
+YAML's.
 """
 from __future__ import annotations
 
@@ -145,6 +151,11 @@ for _sec in ("encoder", "aggregator", "decoder"):
 # receiver's 24 nearest in-radius senders on the dense AA path, in bf16
 FLAGSHIP_BF16_CAPPED: Dict[str, Any] = copy.deepcopy(FLAGSHIP_BF16)
 FLAGSHIP_BF16_CAPPED["encoder"]["kwargs"]["neighbor_cap"] = 24
+
+# configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec_tpu.yml with its fallback
+# encoder.fused: true: the AA pair chain in bf16 through K3b / K4b
+FLAGSHIP_BF16_FUSED: Dict[str, Any] = copy.deepcopy(FLAGSHIP_BF16)
+FLAGSHIP_BF16_FUSED["encoder"]["kwargs"]["fused"] = True
 
 # the _tpu_fast recipe in f32, the cap's f32 record beside the bf16 one
 FLAGSHIP_CAPPED: Dict[str, Any] = copy.deepcopy(FLAGSHIP_BF16_CAPPED)

@@ -5,9 +5,13 @@
 // chain's products.  K3, K4's recompute and K5 take each product on the
 // tensor cores through mma_tf32.cuh's mma_xwt_split and each epilogue
 // through these functions, so K4's logits are bit for bit the ones whose
-// softmax statistics K3 wrote.
+// softmax statistics K3 wrote.  The bf16 forms K3b and K4b take the same
+// epilogues with BF = true (each LayerNorm's output rounded to bf16, and
+// under ln_mm its statistics from bf16-rounded inputs) and their products
+// through mma_bf16.cuh.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -55,27 +59,53 @@ __device__ __forceinline__ float row_sum16(float v) {
   return v;
 }
 
+// x rounded to the nearest bf16 (ties to even), as an f32
+__device__ __forceinline__ float bf16r(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // LayerNorm of one 64-wide row held as 4 values by each of 16 lanes (columns
 // c0 .. c0+3 of that lane), two-pass variance; optional ReLU.  When xhat is
 // given it receives the normalised values and *inv the row's 1/std.
-__device__ __forceinline__ void ln_row(float x[4], const float* __restrict__ scale,
-                                       const float* __restrict__ bias, int c0, bool relu,
-                                       float* xhat = nullptr, float* inv_out = nullptr) {
-  const float mean = row_sum16((x[0] + x[1]) + (x[2] + x[3])) * (1.0f / D);
+// BF (K3b, K4b): the output is rounded to bf16, as pair_chain's LayerNorms
+// emit the compute dtype; with stats16 (JAX's ln_mm, _ln_mm in
+// trajsde_tpu/ops/pallas/aa_fused.py) the mean is taken over the
+// bf16-rounded inputs and the variance over the bf16-rounded squares
+// (x - mean)^2, in f32 sums, as its averaging matmuls do.
+template <bool BF>
+__device__ __forceinline__ void ln_row_t(float x[4], const float* __restrict__ scale,
+                                         const float* __restrict__ bias, int c0, bool relu,
+                                         bool stats16, float* xhat, float* inv_out) {
+  float mean;
+  if (BF && stats16)
+    mean = row_sum16((bf16r(x[0]) + bf16r(x[1])) + (bf16r(x[2]) + bf16r(x[3]))) * (1.0f / D);
+  else
+    mean = row_sum16((x[0] + x[1]) + (x[2] + x[3])) * (1.0f / D);
   float xc[4], ss = 0.0f;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     xc[j] = x[j] - mean;
-    ss = fmaf(xc[j], xc[j], ss);
+    if (BF && stats16)
+      ss += bf16r(xc[j] * xc[j]);
+    else
+      ss = fmaf(xc[j], xc[j], ss);
   }
   const float inv = 1.0f / sqrtf(row_sum16(ss) * (1.0f / D) + LN_EPS);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     if (xhat != nullptr) xhat[j] = xc[j] * inv;
-    const float y = fmaf(xc[j] * inv, scale[c0 + j], bias[c0 + j]);
+    float y = fmaf(xc[j] * inv, scale[c0 + j], bias[c0 + j]);
+    if (BF) y = bf16r(y);
     x[j] = relu ? fmaxf(y, 0.0f) : y;
   }
   if (inv_out != nullptr) *inv_out = inv;
+}
+
+// the f32 LayerNorm (K3, K4, K5)
+__device__ __forceinline__ void ln_row(float x[4], const float* __restrict__ scale,
+                                       const float* __restrict__ bias, int c0, bool relu,
+                                       float* xhat = nullptr, float* inv_out = nullptr) {
+  ln_row_t<false>(x, scale, bias, c0, relu, false, xhat, inv_out);
 }
 
 __device__ __forceinline__ void store4(float* dst, const float v[4]) {
@@ -117,24 +147,31 @@ struct SwzAt {  // (row, col) -> float index in a swizzled tile, for tc::store_c
 // as pair_chain does.  w1 comes folded: z1[:D] + z1[D:] = a0 w1f + b1f with
 // w1f = w1[:, :D] + w1[:, D:] and b1f = b1[:D] + b1[D:] summed once in f32
 // when the weights are staged (exact for the model's block-diagonal w1).
-// a1 = relu(LN(a0 w1f + b1f))
+// In the bf16 forms w1 is not folded (a sum of two bf16 weights is not a
+// bf16 value in general): x holds [a0 | a0] . [w1[:, :D]; w1[:, D:]], one
+// product over K = 4D, and b1f is still summed once in f32.
+// a1 = relu(LN(a0 w1f + b1f)); BF and stats16 as ln_row_t
+template <bool BF = false>
 __device__ __forceinline__ void epi_a1(float x[4], const float* __restrict__ b1f,
                                        const float* __restrict__ scale,
                                        const float* __restrict__ bias, int c0,
-                                       float* xhat = nullptr, float* inv = nullptr) {
+                                       float* xhat = nullptr, float* inv = nullptr,
+                                       bool stats16 = false) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) x[j] += b1f[c0 + j];
-  ln_row(x, scale, bias, c0, true, xhat, inv);
+  ln_row_t<BF>(x, scale, bias, c0, true, stats16, xhat, inv);
 }
 
 // nbr = LN(a1 wagg + bagg)
+template <bool BF = false>
 __device__ __forceinline__ void epi_nbr(float x[4], const float* __restrict__ bagg,
                                         const float* __restrict__ scale,
                                         const float* __restrict__ bias, int c0,
-                                        float* xhat = nullptr, float* inv = nullptr) {
+                                        float* xhat = nullptr, float* inv = nullptr,
+                                        bool stats16 = false) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) x[j] += bagg[c0 + j];
-  ln_row(x, scale, bias, c0, false, xhat, inv);
+  ln_row_t<BF>(x, scale, bias, c0, false, stats16, xhat, inv);
 }
 
 // k or v = nbr wkv + bkv, at columns c0.. of bkv

@@ -31,7 +31,9 @@ seeded with the call's seed, in the model's order, shapes and dtypes, so
 an artifact and the live scan engine at the same seed and counter give the
 same answers.  The HiVT baseline draws nothing in eval mode.  An adaptive
 SDE encoder draws a Brownian tree inside a loop whose length depends on
-the data, and is refused (ROADMAP.md Queue 1 item 11b).
+the data, and is refused (ROADMAP.md Queue 1 item 11b).  A fused AA encoder
+in bf16 runs kernel K3b, which has no registered op yet, and is refused
+(ROADMAP.md Queue 1 item 6c).
 
 Platforms: each program is exported on the model's device and keeps it;
 ``platforms`` lists the devices (``cpu``, ``cuda``) it may be loaded on,
@@ -163,6 +165,12 @@ def export_serving(model, example_scene, out_dir: str, *,
     if int(example_scene.x.shape[0]) != 1:
         raise ValueError(f"example_scene must be a packed B=1 batch, got "
                          f"B={int(example_scene.x.shape[0])}")
+    aa = getattr(model.encoder, "aa_encoder", None)
+    if aa is not None and aa.fused and aa.chain_dtype == "bfloat16":
+        raise NotImplementedError(
+            "export_serving of a fused AA encoder in bf16 (encoder.fused: true with dtype: "
+            "bfloat16): kernel K3b is not a registered op; this is ROADMAP.md Queue 1 item 6c "
+            "(serve it with the scan or kernel engine)")
     model.eval()
     schema = _leaf_schema(example_scene)
     draws = _draws(model, example_scene)

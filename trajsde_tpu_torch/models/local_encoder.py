@@ -6,7 +6,8 @@ Time is another batch axis of one dense masked attention, as in the JAX
 package.  The query and key sets may differ (Aq = A + 1 in the SDE
 encoder, whose focal-agent twin is a query row only).  ``fused=True``
 runs the AA block's pair chain through kernel K3, and its gradient through
-kernel K4 (:mod:`trajsde_tpu_torch.ops.aa_fused`), with the same parameters.
+kernel K4 (:mod:`trajsde_tpu_torch.ops.aa_fused`), with the same parameters;
+in bf16 through K3b and K4b, the chain in bf16 as the JAX package runs it.
 ``neighbor_cap=K`` gathers each receiver's K nearest in-radius senders
 before the dense pair chain, as the JAX package does.  ``dtype`` is the
 compute dtype of every Linear and LayerNorm (flax's mixed precision,
@@ -18,6 +19,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from trajsde_tpu_torch.data.scene import SceneBatch
@@ -38,8 +40,12 @@ class AAEncoder(nn.Module):
 
     ``fused=True`` keeps the parameter tree of the dense path (the
     ``nbr_embed`` / ``attn`` / ``norm1`` submodules), so weights and
-    checkpoints serve both paths.  ``input_diff=False`` keeps the centre
-    embedding where ``bos_q`` is set instead of substituting the bos token.
+    checkpoints serve both paths.  Under a bf16 ``dtype`` the fused pair
+    chain computes in bf16 (kernels K3b / K4b on the card) and ``ln_mm``
+    (the JAX module's default, True) takes its LayerNorm statistics from
+    bf16-rounded inputs, as JAX's ``_ln_mm``; in f32 ``ln_mm`` changes
+    nothing.  ``input_diff=False`` keeps the centre embedding where
+    ``bos_q`` is set instead of substituting the bos token.
 
     ``0 < neighbor_cap < Ak`` (dense path only) gathers each receiver's
     ``neighbor_cap`` nearest in-radius senders into [B, Th, Aq, K] before
@@ -55,17 +61,14 @@ class AAEncoder(nn.Module):
     def __init__(self, historical_steps: int, embed_dim: int, num_heads: int,
                  node_dim: int = 2, edge_dim: int = 2, dropout: float = 0.0,
                  fused: bool = False, neighbor_cap: int = 0, input_diff: bool = True,
-                 dtype=None):
+                 dtype=None, ln_mm: bool = True):
         super().__init__()
         if fused and neighbor_cap:
             raise NotImplementedError("neighbor_cap applies to the dense pair chain (fused=False)")
-        if fused and compute_dtype(dtype) is not None:
-            raise NotImplementedError(
-                f"fused=True with dtype={dtype!r}: kernels K3 / K4 compute in f32; bf16 in "
-                "the fused AA chain is ROADMAP.md Queue 1 item 6b (use fused=False)"
-            )
         D = embed_dim
         self.fused = fused
+        self.ln_mm = bool(ln_mm)
+        self.chain_dtype = "bfloat16" if compute_dtype(dtype) is torch.bfloat16 else "float32"
         self.neighbor_cap = int(neighbor_cap)
         self.aa_overflow_edges: Optional[torch.Tensor] = None
         self.input_diff = input_diff
@@ -121,11 +124,14 @@ class AAEncoder(nn.Module):
 
     def _fused_block(self, center, x_k, rot_q, mask, edge_vec, generator):
         """EdgeAttention with its pair stage (neighbour embedding -> k/v ->
-        masked softmax -> aggregate) in kernel K3 (backward K4); the q
-        projection, the gated update and ``out_proj`` stay node-wise."""
+        masked softmax -> aggregate) in kernel K3 (backward K4; K3b / K4b in
+        bf16); the q projection, the gated update and ``out_proj`` stay
+        node-wise.  As JAX's ``_fused_block``: q is the f32 product of the
+        normed centre (in either dtype), and the f32 aggregate is cast to
+        the compute dtype for the gated update and ``out_proj``."""
         attn = self.attn
         normed = self.norm1(center)
-        q = attn.lin_q(normed)
+        q = F.linear(normed.float(), attn.lin_q.weight, attn.lin_q.bias)
         keep = None
         if self.training and attn.rate > 0.0:
             keep = (torch.rand(mask.shape + (attn.num_heads,), generator=generator,
@@ -134,8 +140,9 @@ class AAEncoder(nn.Module):
         # plain backward on the CPU) reach every Linear and LayerNorm
         agg = fused_aa_aggregate(q, x_k, edge_vec, rot_q, mask,
                                  pack_aa_params(self, detach=False), attn.num_heads,
-                                 keep=keep, dropout_rate=attn.rate)
-        return attn.update(normed, agg, generator)
+                                 keep=keep, dropout_rate=attn.rate,
+                                 compute_dtype=self.chain_dtype, ln_mm=self.ln_mm)
+        return attn.update(normed, agg.to(normed.dtype), generator)
 
 
 class ALEncoder(nn.Module):
@@ -223,10 +230,11 @@ class LocalEncoder(nn.Module):
     temporal transformer over each actor's steps, then lane -> actor
     attention.  ``forward(scene)`` -> local_embed [B, A, D].
 
-    Of the JAX module's knobs, ``rows_fwd`` / ``rows_bwd`` / ``ln_mm``
-    (TPU tiling) and ``parallel`` (which means nothing there either) are
-    dropped by ``config.build``; a bf16 ``dtype`` with ``fused=True``
-    raises.  ``neighbor_cap`` caps the dense AA block (:class:`AAEncoder`).
+    Of the JAX module's knobs, ``rows_fwd`` / ``rows_bwd`` (TPU tiling) and
+    ``parallel`` (which means nothing there either) are dropped by
+    ``config.build``; ``ln_mm`` reaches the fused :class:`AAEncoder`, where
+    it changes the bf16 chain's LayerNorm statistics.  ``neighbor_cap`` caps
+    the dense AA block (:class:`AAEncoder`).
     ``remat=True`` rematerializes the AA and AL blocks in a training
     backward (:func:`~trajsde_tpu_torch.models.remat.call_block`), as JAX's
     ``nn.remat`` of both; the parameter names stay.  The output is f32 in
@@ -236,7 +244,7 @@ class LocalEncoder(nn.Module):
                  dropout: float = 0.1, num_temporal_layers: int = 4,
                  local_radius: float = 50.0, input_diff: bool = True, node_dim: int = 2,
                  edge_dim: int = 2, remat: bool = False, dtype=None, fused: bool = False,
-                 neighbor_cap: int = 0):
+                 neighbor_cap: int = 0, ln_mm: bool = True):
         super().__init__()
         self.remat = remat
         self.compute_dtype = compute_dtype(dtype)
@@ -244,7 +252,7 @@ class LocalEncoder(nn.Module):
         self.local_radius = float(local_radius)
         self.aa_encoder = AAEncoder(historical_steps, embed_dim, num_heads, node_dim, edge_dim,
                                     dropout, fused=fused, neighbor_cap=neighbor_cap,
-                                    input_diff=input_diff, dtype=dtype)
+                                    input_diff=input_diff, dtype=dtype, ln_mm=ln_mm)
         self.temporal_encoder = TemporalEncoder(historical_steps, embed_dim, num_heads,
                                                 num_temporal_layers, dropout, dtype)
         self.al_encoder = ALEncoder(embed_dim, num_heads, node_dim, edge_dim, dropout, dtype)

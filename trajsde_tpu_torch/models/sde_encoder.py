@@ -88,13 +88,13 @@ class LocalEncoderSDESep(nn.Module):
     Euler only (fixed grid, one step per segment, or ``adaptive`` step
     doubling), no adjoint, backwards ODE-RNN; anything else raises.
     ``fused=True`` runs the pair chain of both AA calls (the twin forward
-    and ``forward_ood``) through kernel K3; the registry drops the JAX
-    package's knobs of that kernel (``rows_fwd``, ``rows_bwd``, ``ln_mm``).
+    and ``forward_ood``) through kernel K3 (K3b in bf16); the registry
+    drops the JAX package's tiling knobs of that kernel (``rows_fwd``,
+    ``rows_bwd``) and passes ``ln_mm`` on to the :class:`AAEncoder`.
     ``remat=True`` rematerializes both AA calls and both AL calls in a
     training backward (:func:`~trajsde_tpu_torch.models.remat.call_block`),
     as JAX's ``nn.remat`` of both blocks; the ODE-RNN, and the adaptive
-    tree's nodes drawn in it, stay outside.  A bf16 ``dtype`` with
-    ``fused=True`` raises.
+    tree's nodes drawn in it, stay outside.
     """
 
     def __init__(
@@ -123,6 +123,7 @@ class LocalEncoderSDESep(nn.Module):
         fused: bool = False,
         ood_chunk: int = 0,
         neighbor_cap: int = 0,
+        ln_mm: bool = True,
     ):
         super().__init__()
         if method != "euler":
@@ -167,7 +168,7 @@ class LocalEncoderSDESep(nn.Module):
         self.ood_chunk = ood_chunk
         self.aa_encoder = AAEncoder(historical_steps, embed_dim, num_heads, node_dim,
                                     edge_dim, dropout, fused=fused, neighbor_cap=neighbor_cap,
-                                    dtype=dtype)
+                                    dtype=dtype, ln_mm=ln_mm)
         self.al_encoder = ALEncoder(embed_dim, num_heads, node_dim, edge_dim, dropout, dtype)
         self.adaptive = adaptive
         self.sde_rnn = SDEGRUStep(embed_dim, sde_layers, adaptive=adaptive, dtype=dtype,

@@ -20,6 +20,17 @@ the plain versions run, at any width.  Nothing falls back from one to
 the other.  Only ``q`` and the 14 packed weights get gradients: ``u``,
 ``mask_f`` and ``keep`` are constants of the scene and the dropout draw,
 as in the JAX op (whose zero cotangents for them this ``None`` matches).
+
+``compute_dtype="bfloat16"`` computes as the JAX op does with
+``FusedCfg(dtype="bfloat16")``: the three LayerNorm outputs and the three
+matrices of the chain's products rounded to bf16, each product summed in
+f32, and with ``ln_mm`` (the JAX encoders' default) each LayerNorm's
+statistics taken from bf16-rounded inputs.  On CUDA its forward is kernel
+K3b and its backward K4b, the bf16 forms of K3 and K4 (the same sources,
+entry points ``*_bf16_*``), counted in ``bf16_launches``; ``q``, ``u``,
+the masks, the weights and the output stay f32.  In f32 ``ln_mm`` changes
+nothing (it is an order of summation).  The bf16 forward is not the
+registered op ``trajsde::aa_fused_fwd`` (ROADMAP.md Queue 1 item 6c).
 """
 from __future__ import annotations
 
@@ -42,6 +53,8 @@ W_ORDER = (
 # HiVT baseline's 4, each with C entry points of its own
 KERNEL_DIM, KERNEL_HEADS = 64, 8
 KERNEL_HEAD_COUNTS = (8, 4)
+# the compute dtypes, each with entry points of its own (K3 / K4, K3b / K4b)
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
 # --------------------------------------------------------------------------
@@ -107,11 +120,38 @@ def build_pair_features(x_k: torch.Tensor, edge_vec: torch.Tensor,
 # --------------------------------------------------------------------------
 # plain version
 # --------------------------------------------------------------------------
-def _ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """LayerNorm over the last axis with a two-pass variance."""
-    m = x.mean(-1, keepdim=True)
+def _check_dtype(compute_dtype: str) -> bool:
+    """Whether ``compute_dtype`` is bf16; raises unless it is one of
+    ``COMPUTE_DTYPES``."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype={compute_dtype!r}: the fused AA chain computes in "
+                         f"{' or '.join(COMPUTE_DTYPES)}")
+    return compute_dtype == "bfloat16"
+
+
+class _RoundBF16(torch.autograd.Function):
+    """Rounds an f32 tensor to the nearest bf16 value, kept in f32; the
+    backward passes the cotangent through unrounded (JAX's ``astype`` VJP
+    returns it in the input's dtype, f32 here)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.to(torch.bfloat16).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def _ln(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+        stats16: bool = False) -> torch.Tensor:
+    """LayerNorm over the last axis with a two-pass variance.  ``stats16``
+    (JAX's ``_ln_mm`` in bf16): the mean of the bf16-rounded inputs and the
+    variance of the bf16-rounded squares, summed in f32."""
+    r = _RoundBF16.apply if stats16 else (lambda a: a)  # noqa: E731
+    m = r(x).mean(-1, keepdim=True)
     xc = x - m
-    v = (xc * xc).mean(-1, keepdim=True)
+    v = r(xc * xc).mean(-1, keepdim=True)
     return xc * torch.rsqrt(v + LN_EPS) * scale + bias
 
 
@@ -123,14 +163,27 @@ def _head_logits(qh: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
 
 def fused_pair_attention_reference(q, u, mask_f, keep, ws: Sequence[torch.Tensor],
                                    num_heads: int, dropout_rate: float = 0.0,
-                                   with_stats: bool = False):
+                                   with_stats: bool = False, compute_dtype: str = "float32",
+                                   ln_mm: bool = True):
     """``pair_chain`` over the whole batch as one tile: q [B, T, Aq, D],
     u [B, T, Aq, Ak, 4], mask_f [B, T, Aq, Ak] (0/1), keep
     [B, T, Aq, Ak, H] (0/1) or None -> the pre-gating aggregate
     [B, T, Aq, D].  Holds for any ``ws``, block-diagonal or not.
     ``with_stats`` returns ``(out, stats [2, B*T*Aq, H])`` as K3 writes
     them: each (receiver, head)'s largest unmasked logit (-inf without a
-    sender) and its sum of exp."""
+    sender) and its sum of exp.
+
+    ``compute_dtype="bfloat16"`` rounds to bf16 where ``pair_chain`` casts:
+    the LayerNorm outputs ``a0``, ``a1`` and ``nbr``, and ``w1``, ``wagg``
+    and ``wkv`` in its ``mm``; each product of bf16 values is summed in f32
+    (an f32 matmul of the rounded values: a bf16 matmul would round its
+    sum), and with ``ln_mm`` each LayerNorm's statistics come from
+    bf16-rounded inputs.  The rank-1 first layer, the logits, the softmax
+    and the aggregate stay f32.  A rounding's derivative is 1, as JAX's
+    ``astype`` VJP; in f32 ``ln_mm`` changes nothing."""
+    bf = _check_dtype(compute_dtype)
+    stats16 = bf and ln_mm
+    r = _RoundBF16.apply if bf else (lambda a: a)  # noqa: E731
     B, T, Aq, D = q.shape
     Ak, H = u.shape[3], num_heads
     hd = D // H
@@ -140,12 +193,12 @@ def fused_pair_attention_reference(q, u, mask_f, keep, ws: Sequence[torch.Tensor
 
     # four rank-1 products, then one LayerNorm per D-wide branch
     h = bu[0] + sum(uf[:, k:k + 1] * wu[k:k + 1, :] for k in range(4))
-    a0 = torch.relu(torch.cat([_ln(h[:, :D], ln0s[0, :D], ln0b[0, :D]),
-                               _ln(h[:, D:], ln0s[0, D:], ln0b[0, D:])], dim=-1))
-    z1 = a0 @ w1 + b1[0]
-    a1 = torch.relu(_ln(z1[:, :D] + z1[:, D:], lna0s[0], lna0b[0]))
-    nbr = _ln(a1 @ wagg + bagg[0], lna1s[0], lna1b[0])
-    kv = nbr @ wkv + bkv[0]                                   # [P, 2D]
+    a0 = torch.relu(r(torch.cat([_ln(h[:, :D], ln0s[0, :D], ln0b[0, :D], stats16),
+                                 _ln(h[:, D:], ln0s[0, D:], ln0b[0, D:], stats16)], dim=-1)))
+    z1 = a0 @ r(w1) + b1[0]
+    a1 = torch.relu(r(_ln(z1[:, :D] + z1[:, D:], lna0s[0], lna0b[0], stats16)))
+    nbr = r(_ln(a1 @ r(wagg) + bagg[0], lna1s[0], lna1b[0], stats16))
+    kv = nbr @ r(wkv) + bkv[0]                                # [P, 2D]
 
     k = kv[:, :D].reshape(R, Ak, H, hd)
     v = kv[:, D:].reshape(R, Ak, H, hd)
@@ -167,17 +220,20 @@ def fused_pair_attention_reference(q, u, mask_f, keep, ws: Sequence[torch.Tensor
 
 def fused_pair_attention_bwd_reference(q, u, mask_f, keep, ws: Sequence[torch.Tensor],
                                        g: torch.Tensor, num_heads: int,
-                                       dropout_rate: float = 0.0):
+                                       dropout_rate: float = 0.0,
+                                       compute_dtype: str = "float32", ln_mm: bool = True):
     """``(dq, dws)`` of :func:`fused_pair_attention_reference` for the
     cotangent ``g [B, T, Aq, D]``: autograd through the plain chain with
     ``u``, ``mask_f`` and ``keep`` held constant (``_bwd_kernel``'s
-    ``jax.vjp`` with them closed over).  ``dws`` is shaped like ``ws``."""
+    ``jax.vjp`` with them closed over).  ``dws`` is shaped like ``ws``.
+    In bf16 the cotangents stay f32 (each rounding passes them through)."""
     with torch.enable_grad():
         qd = q.detach().requires_grad_()
         wd = [w.detach().requires_grad_() for w in ws]
         out = fused_pair_attention_reference(qd, u.detach(), mask_f.detach(),
                                              None if keep is None else keep.detach(), wd,
-                                             num_heads, dropout_rate)
+                                             num_heads, dropout_rate,
+                                             compute_dtype=compute_dtype, ln_mm=ln_mm)
         grads = torch.autograd.grad(out, [qd, *wd], g)
     return grads[0], tuple(grads[1:])
 
@@ -185,41 +241,49 @@ def fused_pair_attention_bwd_reference(q, u, mask_f, keep, ws: Sequence[torch.Te
 # --------------------------------------------------------------------------
 # kernel
 # --------------------------------------------------------------------------
-def _entry_name(kernel: str, what: str, num_heads: int) -> str:
+def _entry_name(kernel: str, what: str, num_heads: int, compute_dtype: str = "float32") -> str:
     """The C function ``what`` of ``kernel`` (``"aa_fused"`` or
     ``"aa_fused_bwd"``) at ``num_heads`` heads: ``aa_fused_launch`` at 8,
-    ``aa_fused_h4_launch`` at 4."""
-    return f"{kernel}{'' if num_heads == KERNEL_HEADS else f'_h{num_heads}'}_{what}"
+    ``aa_fused_h4_launch`` at 4, and in bf16 ``aa_fused_bf16_launch`` and
+    ``aa_fused_bf16_h4_launch``."""
+    bf = "_bf16" if compute_dtype == "bfloat16" else ""
+    return f"{kernel}{bf}{'' if num_heads == KERNEL_HEADS else f'_h{num_heads}'}_{what}"
 
 
-def has_heads(lib: ctypes.CDLL, kernel: str, num_heads: int) -> bool:
+def has_heads(lib: ctypes.CDLL, kernel: str, num_heads: int,
+              compute_dtype: str = "float32") -> bool:
     """Whether a build of ``kernel``'s source has entry points for
-    ``num_heads`` (a build of an older source may have the 8 heads' only)."""
-    return hasattr(lib, _entry_name(kernel, "launch", num_heads))
+    ``num_heads`` in ``compute_dtype`` (a build of an older source may have
+    the 8 heads' in f32 only)."""
+    return hasattr(lib, _entry_name(kernel, "launch", num_heads, compute_dtype))
 
 
-def _entry(lib: ctypes.CDLL, kernel: str, what: str, num_heads: int):
-    if not has_heads(lib, kernel, num_heads):
+def _entry(lib: ctypes.CDLL, kernel: str, what: str, num_heads: int,
+           compute_dtype: str = "float32"):
+    if not has_heads(lib, kernel, num_heads, compute_dtype):
         raise ValueError(f"{lib._name} has no {num_heads}-head entry point "
-                         f"{_entry_name(kernel, 'launch', num_heads)}")
-    return getattr(lib, _entry_name(kernel, what, num_heads))
+                         f"{_entry_name(kernel, 'launch', num_heads, compute_dtype)}")
+    return getattr(lib, _entry_name(kernel, what, num_heads, compute_dtype))
 
 
 def _declare(lib: ctypes.CDLL, kernel: str, launch_pointers: int) -> ctypes.CDLL:
-    """Declares ``kernel``'s C interface, at every head count the build
-    has, on a loaded library and returns it."""
+    """Declares ``kernel``'s C interface, at every compute dtype and head
+    count the build has, on a loaded library and returns it.  The bf16
+    launches take ``ln_mm`` (an int) after ``keep_scale``."""
     getattr(lib, f"{kernel}_weight_floats").argtypes = []
     getattr(lib, f"{kernel}_weight_floats").restype = ctypes.c_int
-    for h in KERNEL_HEAD_COUNTS:
-        if not has_heads(lib, kernel, h):
-            continue
-        fn = getattr(lib, _entry_name(kernel, "launch", h))
-        fn.argtypes = [ctypes.c_void_p] * launch_pointers + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        fn = getattr(lib, _entry_name(kernel, "receivers_per_group", h))
-        fn.argtypes, fn.restype = [], ctypes.c_int
+    for dt in COMPUTE_DTYPES:
+        for h in KERNEL_HEAD_COUNTS:
+            if not has_heads(lib, kernel, h, dt):
+                continue
+            fn = getattr(lib, _entry_name(kernel, "launch", h, dt))
+            fn.argtypes = [ctypes.c_void_p] * launch_pointers + [
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
+                *([ctypes.c_int] if dt == "bfloat16" else []), ctypes.c_int, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, _entry_name(kernel, "receivers_per_group", h, dt))
+            fn.argtypes, fn.restype = [], ctypes.c_int
     return lib
 
 
@@ -290,40 +354,59 @@ def _grid(R: int, receivers_per_group: int, dev) -> int:
     return min(groups, torch.cuda.get_device_properties(dev).multi_processor_count)
 
 
+def _dtype_args(compute_dtype: str, ln_mm: bool) -> list:
+    """The launch's ``ln_mm`` argument, which only the bf16 entry points take."""
+    return [int(bool(ln_mm))] if _check_dtype(compute_dtype) else []
+
+
 def launch_fwd(lib: ctypes.CDLL, q, u, mask_f, keep, ws, num_heads, dropout_rate,
-               with_stats: bool = False):
+               with_stats: bool = False, compute_dtype: str = "float32", ln_mm: bool = True):
     """Runs ``lib``'s ``aa_fused_launch`` (K3, or another build of its
-    source configured by :func:`configure_fwd`) on the current stream ->
-    (out, stats): ``stats [2, R, H]`` holds each (receiver, head)'s softmax
-    max and sum of exp for K4 when ``with_stats``, else None.  Counts
-    nothing (see :func:`fused_pair_attention`)."""
+    source configured by :func:`configure_fwd`; ``aa_fused_bf16_launch``,
+    K3b, in bf16) on the current stream -> (out, stats): ``stats [2, R, H]``
+    holds each (receiver, head)'s softmax max and sum of exp for K4 when
+    ``with_stats``, else None.  Counts nothing (see
+    :func:`fused_pair_attention`)."""
+    extra = _dtype_args(compute_dtype, ln_mm)
     R, Ak, w = _common_checks(q, u, mask_f, keep, ws, num_heads, lib.aa_fused_weight_floats())
     dev = q.device
     out = torch.empty_like(q)
     stats = torch.empty((2, R, num_heads), device=dev) if with_stats else None
     if R == 0:
         return out, stats
-    grid = _grid(R, _entry(lib, "aa_fused", "receivers_per_group", num_heads)(), dev)
-    launch = _entry(lib, "aa_fused", "launch", num_heads)
+    grid = _grid(R, _entry(lib, "aa_fused", "receivers_per_group", num_heads, compute_dtype)(),
+                 dev)
+    launch = _entry(lib, "aa_fused", "launch", num_heads, compute_dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = launch(
             q.data_ptr(), u.data_ptr(), mask_f.data_ptr(),
             None if keep is None else keep.data_ptr(), w.data_ptr(), out.data_ptr(),
             None if stats is None else stats.data_ptr(),
-            R, Ak, _keep_scale(keep, dropout_rate), grid, stream,
+            R, Ak, _keep_scale(keep, dropout_rate), *extra, grid, stream,
         )
     if err != 0:
-        raise RuntimeError(f"aa_fused kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"aa_fused ({compute_dtype}) kernel launch failed: cudaError {err}")
     return out, stats
 
 
-def _launch(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats: bool = False):
-    """K3 -> (out, stats), counted in ``fused_pair_attention.launches``."""
+def _count(fn, compute_dtype: str) -> None:
+    """One launch of ``fn``'s kernel: K3 / K4 in ``fn.launches``, K3b / K4b
+    in ``fn.bf16_launches``."""
+    if compute_dtype == "bfloat16":
+        fn.bf16_launches += 1
+    else:
+        fn.launches += 1
+
+
+def _launch(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats: bool = False,
+            compute_dtype: str = "float32", ln_mm: bool = True):
+    """K3 (K3b in bf16) -> (out, stats), counted in
+    ``fused_pair_attention.launches`` (``.bf16_launches``)."""
     out, stats = launch_fwd(_library(), q, u, mask_f, keep, ws, num_heads, dropout_rate,
-                            with_stats)
+                            with_stats, compute_dtype, ln_mm)
     if q.numel():  # no receivers: nothing was launched
-        fused_pair_attention.launches += 1
+        _count(fused_pair_attention, compute_dtype)
     return out, stats
 
 
@@ -354,10 +437,12 @@ def _aa_fused_fake(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats):
 
 
 def launch_bwd(lib: ctypes.CDLL, q, u, mask_f, keep, ws, g, out, stats, num_heads,
-               dropout_rate):
+               dropout_rate, compute_dtype: str = "float32", ln_mm: bool = True):
     """Runs ``lib``'s ``aa_fused_bwd_launch`` (K4, or another build of its
-    source configured by :func:`configure_bwd`) on the current stream and
+    source configured by :func:`configure_bwd`; ``aa_fused_bwd_bf16_launch``,
+    K4b, in bf16, on ``out`` and ``stats`` of K3b) on the current stream and
     returns ``(dq, dws)``; counts nothing (see :func:`fused_pair_attention_bwd`)."""
+    extra = _dtype_args(compute_dtype, ln_mm)
     R, Ak, w = _common_checks(q, u, mask_f, keep, ws, num_heads,
                               lib.aa_fused_bwd_weight_floats())
     dev = q.device
@@ -372,8 +457,9 @@ def launch_bwd(lib: ctypes.CDLL, q, u, mask_f, keep, ws, g, out, stats, num_head
         # each block adds its groups' weight gradients into its own f64
         # slice; a second kernel sums the slices in block order (no
         # atomics, bit-equal reruns)
-        grid = _grid(R, _entry(lib, "aa_fused_bwd", "receivers_per_group", num_heads)(), dev)
-        launch = _entry(lib, "aa_fused_bwd", "launch", num_heads)
+        grid = _grid(R, _entry(lib, "aa_fused_bwd", "receivers_per_group", num_heads,
+                               compute_dtype)(), dev)
+        launch = _entry(lib, "aa_fused_bwd", "launch", num_heads, compute_dtype)
         partial = torch.empty((grid, w.numel()), device=dev, dtype=torch.float64)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
@@ -381,10 +467,11 @@ def launch_bwd(lib: ctypes.CDLL, q, u, mask_f, keep, ws, g, out, stats, num_head
                 q.data_ptr(), u.data_ptr(), mask_f.data_ptr(),
                 None if keep is None else keep.data_ptr(), w.data_ptr(), g.data_ptr(),
                 out.data_ptr(), stats.data_ptr(), dq.data_ptr(), dw.data_ptr(),
-                partial.data_ptr(), R, Ak, _keep_scale(keep, dropout_rate), grid, stream,
+                partial.data_ptr(), R, Ak, _keep_scale(keep, dropout_rate), *extra, grid, stream,
             )
         if err != 0:
-            raise RuntimeError(f"aa_fused_bwd kernel launch failed: cudaError {err}")
+            raise RuntimeError(f"aa_fused_bwd ({compute_dtype}) kernel launch failed: "
+                               f"cudaError {err}")
     dws, off = [], 0
     for x in ws:
         dws.append(dw[off:off + x.numel()].view(x.shape))
@@ -398,27 +485,45 @@ def _device_kind(x: torch.Tensor, what: str) -> str:
     return x.device.type
 
 
+def _forward_bf16(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats,
+                  ln_mm) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The bf16 forward -> (out, stats or None): K3b on CUDA, the plain
+    version on the CPU (not the registered op: ROADMAP.md item 6c)."""
+    if _device_kind(q, "fused_pair_attention") == "cuda":
+        return _launch(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats, "bfloat16",
+                       ln_mm)
+    got = fused_pair_attention_reference(q, u, mask_f, keep, ws, num_heads, dropout_rate,
+                                         with_stats, "bfloat16", ln_mm)
+    return got if with_stats else (got, None)
+
+
 def fused_pair_attention_fwd(q, u, mask_f, keep, ws: Sequence[torch.Tensor], num_heads: int,
-                             dropout_rate: float = 0.0):
+                             dropout_rate: float = 0.0, compute_dtype: str = "float32",
+                             ln_mm: bool = True):
     """``(out, stats)``: the forward that a backward needs, with the
-    softmax statistics ``stats [2, B*T*Aq, H]`` (K4's input): K3 on CUDA,
-    the plain version on the CPU, through :func:`aa_fused_op`."""
+    softmax statistics ``stats [2, B*T*Aq, H]`` (K4's input): K3 (K3b in
+    bf16) on CUDA, the plain version on the CPU; in f32 through
+    :func:`aa_fused_op`."""
     # checked here: on a meta tensor the op would run its fake and return
     _device_kind(q, "fused_pair_attention_fwd")
+    if _check_dtype(compute_dtype):
+        return _forward_bf16(q, u, mask_f, keep, ws, num_heads, dropout_rate, True, ln_mm)
     return aa_fused_op(q, u, mask_f, keep, list(ws), num_heads, dropout_rate, True)
 
 
 def fused_pair_attention_bwd(q, u, mask_f, keep, ws: Sequence[torch.Tensor], g: torch.Tensor,
                              num_heads: int, dropout_rate: float = 0.0,
                              out: Optional[torch.Tensor] = None,
-                             stats: Optional[torch.Tensor] = None):
+                             stats: Optional[torch.Tensor] = None,
+                             compute_dtype: str = "float32", ln_mm: bool = True):
     """``(dq, dws)`` for the cotangent ``g`` of :func:`fused_pair_attention`'s
     output, ``dws`` shaped like ``ws``; ``u``, ``mask_f`` and ``keep`` get
     none.
 
-    On CUDA kernel K4 runs on the current stream without synchronising,
-    reading ``out`` and ``stats`` of :func:`fused_pair_attention_fwd` on
-    the same inputs, and ``fused_pair_attention_bwd.launches`` counts its
+    On CUDA kernel K4 (K4b in bf16) runs on the current stream without
+    synchronising, reading ``out`` and ``stats`` of
+    :func:`fused_pair_attention_fwd` on the same inputs, and
+    ``fused_pair_attention_bwd.launches`` (``.bf16_launches``) counts its
     launches; its weight gradients are summed in a fixed order, so they
     are the same run after run.  On the CPU the plain version runs (and
     ``out`` / ``stats`` are not needed).
@@ -428,14 +533,16 @@ def fused_pair_attention_bwd(q, u, mask_f, keep, ws: Sequence[torch.Tensor], g: 
             raise ValueError("K4 reads the forward's output and softmax statistics: pass out "
                              "and stats of fused_pair_attention_fwd")
         dq, dws = launch_bwd(_bwd_library(), q, u, mask_f, keep, ws, g, out, stats, num_heads,
-                             dropout_rate)
+                             dropout_rate, compute_dtype, ln_mm)
         if q.numel():  # no receivers: nothing was launched
-            fused_pair_attention_bwd.launches += 1
+            _count(fused_pair_attention_bwd, compute_dtype)
         return dq, dws
-    return fused_pair_attention_bwd_reference(q, u, mask_f, keep, ws, g, num_heads, dropout_rate)
+    return fused_pair_attention_bwd_reference(q, u, mask_f, keep, ws, g, num_heads, dropout_rate,
+                                              compute_dtype, ln_mm)
 
 
 fused_pair_attention_bwd.launches = 0
+fused_pair_attention_bwd.bf16_launches = 0
 
 
 class FusedPairAttentionFn(torch.autograd.Function):
@@ -443,28 +550,33 @@ class FusedPairAttentionFn(torch.autograd.Function):
     ``fused_pair_attention``'s custom VJP); on the CPU the plain forward and
     the plain backward.
 
-    ``apply(q, u, mask_f, keep, num_heads, dropout_rate, *ws)``; only ``q``
-    and the 14 packed weights get gradients.
+    ``apply(q, u, mask_f, keep, num_heads, dropout_rate, compute_dtype,
+    ln_mm, *ws)``; only ``q`` and the 14 packed weights get gradients.  In
+    bf16 the forward is K3b and the backward K4b.
     """
 
     @staticmethod
-    def forward(ctx, q, u, mask_f, keep, num_heads, dropout_rate, *ws):
-        out, stats = fused_pair_attention_fwd(q, u, mask_f, keep, ws, num_heads, dropout_rate)
+    def forward(ctx, q, u, mask_f, keep, num_heads, dropout_rate, compute_dtype, ln_mm, *ws):
+        out, stats = fused_pair_attention_fwd(q, u, mask_f, keep, ws, num_heads, dropout_rate,
+                                              compute_dtype, ln_mm)
         ctx.save_for_backward(q, u, mask_f, keep, out, stats, *ws)
         ctx.num_heads, ctx.dropout_rate = num_heads, dropout_rate
+        ctx.compute_dtype, ctx.ln_mm = compute_dtype, ln_mm
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, u, mask_f, keep, out, stats, *ws = ctx.saved_tensors
         dq, dws = fused_pair_attention_bwd(q, u, mask_f, keep, ws, g.contiguous(), ctx.num_heads,
-                                           ctx.dropout_rate, out=out, stats=stats)
-        return (dq, None, None, None, None, None, *dws)
+                                           ctx.dropout_rate, out=out, stats=stats,
+                                           compute_dtype=ctx.compute_dtype, ln_mm=ctx.ln_mm)
+        return (dq, None, None, None, None, None, None, None, *dws)
 
 
 def fused_pair_attention(q: torch.Tensor, u: torch.Tensor, mask_f: torch.Tensor,
                          keep: Optional[torch.Tensor], ws: Sequence[torch.Tensor],
-                         num_heads: int, dropout_rate: float = 0.0) -> torch.Tensor:
+                         num_heads: int, dropout_rate: float = 0.0,
+                         compute_dtype: str = "float32", ln_mm: bool = True) -> torch.Tensor:
     """Pre-gating AA aggregate.
 
     q      [B, T, Aq, D] f32: projected queries (``lin_q`` of the normed centre)
@@ -478,27 +590,38 @@ def fused_pair_attention(q: torch.Tensor, u: torch.Tensor, mask_f: torch.Tensor,
     launches.  When autograd needs a gradient (of ``q`` or a weight) the
     call runs as :class:`FusedPairAttentionFn`: K3 also writes its softmax
     statistics, and the backward launches K4.  Otherwise nothing is saved.
-    On the CPU the plain versions run.
+    On the CPU the plain versions run.  ``compute_dtype="bfloat16"``: the
+    chain in bf16 (the module's docstring), K3b and K4b on CUDA, counted in
+    ``fused_pair_attention.bf16_launches`` and
+    ``fused_pair_attention_bwd.bf16_launches``; ``ln_mm`` takes each
+    LayerNorm's statistics from bf16-rounded inputs (nothing in f32).
     """
     _device_kind(q, "fused_pair_attention")
+    bf = _check_dtype(compute_dtype)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, *ws)):
-        return FusedPairAttentionFn.apply(q, u, mask_f, keep, num_heads, dropout_rate, *ws)
+        return FusedPairAttentionFn.apply(q, u, mask_f, keep, num_heads, dropout_rate,
+                                          compute_dtype, ln_mm, *ws)
+    if bf:
+        return _forward_bf16(q, u, mask_f, keep, ws, num_heads, dropout_rate, False, ln_mm)[0]
     return aa_fused_op(q, u, mask_f, keep, list(ws), num_heads, dropout_rate, False)[0]
 
 
 fused_pair_attention.launches = 0
+fused_pair_attention.bf16_launches = 0
 
 
 def fused_aa_aggregate(q: torch.Tensor, x_k: torch.Tensor, edge_vec: torch.Tensor,
                        rot: torch.Tensor, mask: torch.Tensor, packed: Dict[str, torch.Tensor],
                        num_heads: int, keep: Optional[torch.Tensor] = None,
-                       dropout_rate: float = 0.0) -> torch.Tensor:
+                       dropout_rate: float = 0.0, compute_dtype: str = "float32",
+                       ln_mm: bool = True) -> torch.Tensor:
     """The fused AA propagate stage behind the encoder's inputs: q
     [B, T, Aq, D], x_k [B, T, Ak, 2], edge_vec [B, T, Aq, Ak, 2], rot
     [B, Aq, 2, 2], mask [B, T, Aq, Ak] bool, ``packed`` from
-    :func:`pack_aa_params` -> [B, T, Aq, D] f32."""
+    :func:`pack_aa_params` -> [B, T, Aq, D] f32; the chain in
+    ``compute_dtype`` (see :func:`fused_pair_attention`), every input f32."""
     f32 = lambda x: x.to(torch.float32).contiguous()  # noqa: E731
     u = build_pair_features(f32(x_k), f32(edge_vec), f32(rot)).contiguous()
     ws = tuple(f32(w) for w in weights_of(packed))
     return fused_pair_attention(f32(q), u, f32(mask), None if keep is None else f32(keep),
-                                ws, num_heads, dropout_rate)
+                                ws, num_heads, dropout_rate, compute_dtype, ln_mm)
