@@ -294,6 +294,25 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      loss falls, K3b and K4b once a step and nothing else; then the step in
      turns beside dense ``FLAGSHIP_BF16``'s with peak memory, beside the
      card's name and power limit.
+  U. the chained train step (``train_torch.py --chain``; after S, on J's
+     files).  U1: K1 and K2 reading the rollout keys from device memory
+     equal the host-key launches bit for bit at 61,440 rows, and another
+     seed's keys draw other bits.  U2: ``FLAGSHIP_H100`` at TRAIN_BATCH,
+     dropout live: two graphed chains of CHAIN (update 1 runs uncaptured on
+     a side stream, then the update is captured; the rest replay) against
+     the uncaptured chained function from the same seeded state, every
+     chain's logs, weights, moments, counts and schedule bit for bit, K1-K4
+     once per update under replay; the same for a chain of 2 of each of
+     ``CHAIN_BUILDS``.  U3: the first chain against CHAIN eager steps:
+     update 1's logs bit-equal, every weight within ``chain_eager_bound``.
+     U4: a third chain with a NaN planted in update 2: one skip, the same
+     bits in both paths, the schedule one behind.  U5: ``train_torch.main
+     --chain CHAIN`` on J's files (one train record, the launches, its
+     weights within the bound of J's eager epoch), then ``--chain 1
+     --ckpt``.  U6: CHAIN eager updates against one graphed chain in
+     CHAIN_ROUNDS alternating rounds, ms per update by CUDA events and the
+     host clock, peak memory, the idle share under ``torch.profiler`` and
+     the capture's seconds, beside the card's name and power limit.
 Phases 4, B, C and 7 check that K4 never launches on their paths, and the
 serving and training phases that K5 and K6 never do.
 The last lines are the card, a JSON object per kernel and the device line.
@@ -342,8 +361,8 @@ from trajsde_tpu_torch.deploy import export_serving, load_serving
 from trajsde_tpu_torch.server import ServingEngine, align_scene, make_postprocess
 from trajsde_tpu_torch.serving import make_scan_fn, make_serving_fn
 from trajsde_tpu_torch.train.checkpoint import CheckpointManager, save_weights
-from trajsde_tpu_torch.train.loop import (Trainer, create_train_state, make_train_step,
-                                          micro_seeds)
+from trajsde_tpu_torch.train.loop import (Trainer, create_train_state, make_chained_step,
+                                          make_train_step, micro_seeds)
 from trajsde_tpu_torch.utils.convert import to_reference
 
 NUM_ACTORS, NUM_LANES = 48, 192
@@ -507,6 +526,27 @@ TOL_K3B = (5e-3, 1e-4)
 TOL_K4B = (1e-2, 2e-3)
 # T4's batch (the _tpu.yml recipe's memory-bound regime) and steps on it
 BF16_FUSED_BATCH, BF16_FUSED_STEPS = 64, 4
+# phase U: the chained train step (train_torch.py --chain): its chain length
+# (U2-U6), the builds beside FLAGSHIP_H100 whose graphed chain of 2 is held
+# to the uncaptured one and their batch (two copies of a build, each
+# with a graph, must fit beside nothing else: dense at 128 peaks at 30 GiB a
+# step), and the rounds of U6's turns
+CHAIN, CHAIN_ROUNDS = 4, 3
+CHAIN_BUILD_BATCH = 32
+CHAIN_BUILDS = {"FLAGSHIP_TRAIN": FLAGSHIP_TRAIN, "FLAGSHIP_FUSED": FLAGSHIP_FUSED,
+                "FLAGSHIP": FLAGSHIP}
+
+
+def chain_eager_bound(lr: float, updates: int) -> float:
+    """How far a weight of a chain of ``updates`` may lie from the eager
+    steps' (tests/test_torch_chain.py states and explains it; on the CPU
+    the distance is 0): update 1 is the eager update's bits; from update 2
+    on, an ulp of a weight where the chained AdamW rounds otherwise becomes,
+    through a gradient that is rounding noise (the attention key biases),
+    up to one Adam step of about lr, each way."""
+    return 3.0 * lr * (updates - 1)
+
+
 # H100 SXM published peaks (dense): f32 on CUDA cores, TF32, bf16 and f64
 # on the tensor cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
@@ -4179,6 +4219,337 @@ def phase_bf16_fused(card: str, checks: dict) -> tuple:
     return k3b, k4b, serve, train
 
 
+def _chain_keys() -> dict:
+    """U1. K1 and K2 reading the rollout keys from device memory (the
+    chained step's form) against the same launches with the host's keys,
+    at the training shape (61,440 rows x 60 steps): bit for bit; the keys
+    of another seed draw other bits."""
+    model = build_model(FLAGSHIP_TRAIN, device="cuda", seed=SEED)
+    dec, rows = model.decoder, train_rows(model)
+    T, D = dec.future_steps, dec.local_channels
+    w = K1.pack_params({k: v.contiguous()
+                        for k, v in K1.rollout_params_from_module(dec.sde_rollout).items()})
+    t0s, dts = dec.time_grid(device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    y0 = torch.relu(torch.randn((rows, D), generator=gen, device="cuda"))
+    ct = torch.randn((T, rows, D), generator=gen, device="cuda")
+    seeds = (K1.mix_seed(SEED, 3), 13)
+    zero_counts()
+    for seed in seeds:
+        keys = K1.rollout_keys(seed, "cuda")
+        ys = K1.sde_rollout_packed(y0, w, t0s, dts, seed, T)
+        ys_keys = K1.sde_rollout_packed(y0, w, t0s, dts, keys, T)
+        bwd = K1.sde_rollout_bwd(y0, ys, ct, w, t0s, dts, seed, T)
+        bwd_keys = K1.sde_rollout_bwd(y0, ys, ct, w, t0s, dts, keys, T)
+        torch.cuda.synchronize()
+        check(torch.equal(ys, ys_keys), f"K1 with the keys of seed {seed} in device memory "
+              "differs from K1 with the host's keys")
+        check(torch.equal(bwd[0], bwd_keys[0]) and torch.equal(bwd[1], bwd_keys[1]),
+              f"K2 with the keys of seed {seed} in device memory differs from K2 with the "
+              "host's keys")
+    other = K1.sde_rollout_packed(y0, w, t0s, dts, K1.rollout_keys(seeds[0] + 1, "cuda"), T)
+    check(not torch.equal(other, ys), "the keys of another seed drew the same increments")
+    launches = _counts()
+    check(launches["sde_rollout"] == 2 * len(seeds) + 1
+          and launches["sde_rollout_bwd"] == 2 * len(seeds), f"U1 launched {launches}")
+    print(f"[chain] U1: K1 and K2 with device keys equal the host-key launches bit for bit at "
+          f"{rows:,} rows x {T} steps, seeds {seeds} (keys "
+          + ", ".join(str(K1.seed_keys(s)) for s in seeds) + "); another seed's keys draw "
+          f"other increments; launches {launches}", flush=True)
+    return dict(rows=rows, seeds=list(seeds), launches=launches)
+
+
+def _state_bits(state) -> dict:
+    """The weights, AdamW's moments and counts, and the schedule of
+    ``state`` (copies)."""
+    return {"model": {k: v.clone() for k, v in state.model.state_dict().items()},
+            "optimizer": copy.deepcopy(state.optimizer.state_dict()),
+            "scheduler": state.scheduler.state_dict()}
+
+
+def _same_bits(a: dict, b: dict) -> list:
+    """The entries of two :func:`_state_bits` that differ."""
+    bad = [k for k in a["model"] if not torch.equal(a["model"][k], b["model"][k])]
+    sa, sb = a["optimizer"]["state"], b["optimizer"]["state"]
+    if sa.keys() != sb.keys():
+        return bad + ["optimizer state keys"]
+    bad += [f"state {i} {k}" for i in sa for k in sa[i]
+            if not torch.equal(sa[i][k].cpu(), sb[i][k].cpu())]
+    if a["optimizer"]["param_groups"] != b["optimizer"]["param_groups"]:
+        bad.append("param_groups")
+    if a["scheduler"] != b["scheduler"]:
+        bad.append("scheduler")
+    return bad
+
+
+def _logs_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return bool(torch.equal(torch.isnan(a), torch.isnan(b))
+                and torch.equal(a.nan_to_num(), b.nan_to_num()))
+
+
+def _chain_pair(cfg, batches: list, chains: int, tag: str, nan_at=None) -> dict:
+    """A graphed chained step and the uncaptured one (the same function run
+    as it is), each on its own copy of the seeded ``cfg`` model, over
+    ``chains`` chains of ``batches`` (the second with a NaN planted in
+    update ``nan_at``): every chain's logs and the states after it bit for
+    bit, and the graphed path's launches per update.  Returns both steps
+    and states, the launches and the skips."""
+    losses = build_losses(cfg)
+    out = {}
+    for mode in ("plain", "graphed"):
+        model = build_model(cfg, device="cuda", seed=SEED)
+        state = create_train_state(model, cfg["training_specific"], steps_per_epoch=64,
+                                   seed=SEED)
+        step = make_chained_step(model, state.optimizer, state.scheduler, losses,
+                                 torch.device("cuda"), accum_steps=1,
+                                 graphs=mode == "graphed")
+        out[mode] = dict(state=state, step=step, bits=[], logs=[], launches=[], skipped=[])
+    for c in range(chains):
+        chain = list(batches)
+        if nan_at is not None and c == chains - 1:
+            bad = dataclasses.replace(chain[nan_at], x=chain[nan_at].x.clone())
+            bad.x[0, 1, 3, 0] = float("nan")
+            chain[nan_at] = bad
+        for mode, r in out.items():
+            zero_counts()
+            logs = r["step"](chain, r["state"].step, r["state"].seed)
+            r["state"].step += len(chain)
+            r["launches"].append(_counts())
+            r["skipped"].append(logs["train/step_skipped"])
+            r["logs"].append(r["step"].chain_logs.clone())
+            r["bits"].append(_state_bits(r["state"]))
+        plain, graphed = out["plain"], out["graphed"]
+        bad = _same_bits(plain["bits"][-1], graphed["bits"][-1])
+        check(not bad, f"[chain {tag}] chain {c + 1}: the graphed chain's state differs from the "
+              f"uncaptured chain's at {bad[:5]} ({len(bad)} entries)")
+        check(_logs_equal(plain["logs"][-1], graphed["logs"][-1]),
+              f"[chain {tag}] chain {c + 1}: the graphed chain's logs differ from the "
+              "uncaptured chain's")
+    return out
+
+
+def _chain_graph(card: str, batches: list, small: list) -> dict:
+    """U2-U4 on ``FLAGSHIP_H100`` at TRAIN_BATCH, dropout live: U2 two
+    graphed chains of CHAIN (the first's update 1 runs uncaptured while the
+    graph is captured, the rest replay) against the uncaptured chained
+    function from the same state, bit for bit, K1-K4 once per update; U3 the
+    first chain against CHAIN eager steps within :func:`chain_eager_bound`;
+    U4 a third chain with a NaN planted in update 2: one skip, the same bits
+    in both paths.  First the other builds' graphed chain of 2 on ``small``
+    (two batches of CHAIN_BUILD_BATCH)."""
+    builds = {}
+    for name, other in CHAIN_BUILDS.items():
+        pair = _chain_pair(other, small, 2, name)
+        fused_aa = bool(other["encoder"]["kwargs"].get("fused"))
+        fused_dec = bool(other["decoder"]["kwargs"].get("fused"))
+        want = {"sde_rollout": 2 * fused_dec, "sde_rollout_bwd": 2 * fused_dec,
+                "aa_fused": 2 * fused_aa, "aa_fused_bwd": 2 * fused_aa, "aa_attention": 0,
+                "vpu_probe": 0}
+        check(pair["graphed"]["launches"] == [want, want],
+              f"[chain {name}] launched {pair['graphed']['launches']}, not {want} a chain")
+        builds[name] = dict(launches=pair["graphed"]["launches"][0],
+                            capture_s=pair["graphed"]["step"].capture_s[0])
+        print(f"[chain] U2 {name} at batch {CHAIN_BUILD_BATCH}: 2 graphed chains of 2 equal the "
+              f"uncaptured ones bit for bit; launches per chain {want}; capture "
+              f"{builds[name]['capture_s']:.2f} s", flush=True)
+        del pair
+        torch.cuda.empty_cache()
+    cfg = FLAGSHIP_H100
+    out = _chain_pair(cfg, batches, 3, "FLAGSHIP_H100", nan_at=1)
+    graphed = out["graphed"]
+    want = {"sde_rollout": CHAIN, "sde_rollout_bwd": CHAIN, "aa_fused": CHAIN,
+            "aa_fused_bwd": CHAIN, "aa_attention": 0, "vpu_probe": 0}
+    check(all(n == want for n in graphed["launches"]),
+          f"[chain] the graphed chains launched {graphed['launches']}, not K1-K4 once per "
+          f"update ({want})")
+    check(graphed["skipped"] == [0.0, 0.0, 1.0] == out["plain"]["skipped"],
+          f"[chain] skips {graphed['skipped']} / {out['plain']['skipped']}, not 0, 0, 1")
+    check(graphed["state"].scheduler.last_epoch == 3 * CHAIN - 1,
+          f"[chain] the schedule reads {graphed['state'].scheduler.last_epoch} after one skip")
+    check(len(graphed["step"].captured) == 1, "the chain captured more than one graph")
+    print(f"[chain] U2 FLAGSHIP_H100 batch {TRAIN_BATCH}: 2 graphed chains of {CHAIN} equal the "
+          f"uncaptured chained step bit for bit (weights, moments, counts, schedule, every "
+          f"update's logs); launches per chain {graphed['launches'][0]}; capture "
+          f"{graphed['step'].capture_s[0]:.2f} s (warm-up update included), the graph's pool "
+          f"{graphed['step'].pool_bytes / 2**30:.2f} GiB; U4: a NaN in "
+          f"update 2 of chain 3: skips {graphed['skipped']}, the same bits, schedule at "
+          f"{graphed['state'].scheduler.last_epoch}", flush=True)
+
+    # U3: the first chain against CHAIN eager steps from the same seeded state
+    model = build_model(cfg, device="cuda", seed=SEED)
+    state = create_train_state(model, cfg["training_specific"], steps_per_epoch=64, seed=SEED)
+    eager = make_train_step(model, state.optimizer, state.scheduler, build_losses(cfg),
+                            torch.device("cuda"))
+    eager_logs = torch.stack([torch.stack(list(eager(b, k, SEED).values())[:3])
+                              for k, b in enumerate(batches)])
+    first = graphed["bits"][0]["model"]
+    dist = max((first[k] - v).abs().max().item() for k, v in model.state_dict().items())
+    bound = chain_eager_bound(cfg["training_specific"]["lr"], CHAIN)
+    chain_logs = graphed["logs"][0][:, :3]
+    check(torch.equal(chain_logs[0], eager_logs[0]),
+          "[chain] U3: update 1's logs differ from the eager step's")
+    log_rel = ((chain_logs - eager_logs).abs() / eager_logs.abs()).max().item()
+    check(dist <= bound, f"[chain] U3: a weight lies {dist:.3e} from the eager steps' "
+          f"(bound {bound:.3e})")
+    print(f"[chain] U3: chain of {CHAIN} vs {CHAIN} eager steps: max |weight difference| "
+          f"{dist:.3e} (bound {bound:.3e} = chain_eager_bound(lr, {CHAIN})); update 1's logs "
+          f"bit-equal, the rest within {log_rel:.2e} relative", flush=True)
+    out["u3"] = dict(max_weight_diff=dist, bound=bound, log_rel=log_rel)
+    out["eager"] = dict(state=state, step=eager)
+    out["builds"] = builds
+    return out
+
+
+def _chain_cli(d: str) -> dict:
+    """U5. ``train_torch.main --chain CHAIN`` on phase I's npz files under
+    phase J's ``FLAGSHIP_H100`` config: one epoch (FILE_BATCHES updates, one
+    chain; K1-K4 once per update, K1 and K3 once per eval batch; one train
+    record), its weights after the epoch within :func:`chain_eager_bound`
+    of phase J's eager epoch on the same files and seed, then a resume
+    under ``--chain 1``."""
+    import train_torch
+
+    cfg_path = os.path.join(d, "h100.json")
+    logdir = os.path.join(d, "logs")
+    common = ["-c", cfg_path, "-n", "chain", "--logdir", logdir, "--epochs", "1", "--seed",
+              str(SEED)]
+    n_eval = -(-CLI_VAL_SCENES // TRAIN_BATCH)
+    want = {"sde_rollout": FILE_BATCHES + n_eval, "sde_rollout_bwd": FILE_BATCHES,
+            "aa_fused": FILE_BATCHES + n_eval, "aa_fused_bwd": FILE_BATCHES,
+            "aa_attention": 0, "vpu_probe": 0}
+    out = {}
+    for tag, extra in (("chain", ["--chain", str(CHAIN)]), ("resume", None)):
+        if extra is None:
+            board = CheckpointManager(os.path.join(logdir, "chain", "checkpoints"))
+            extra = ["--chain", "1", "--ckpt", board.latest()["path"]]
+        zero_counts()
+        t0 = time.perf_counter()
+        state, trainer = train_torch.main(common + extra)
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        steps = FILE_BATCHES * (2 if tag == "resume" else 1)
+        check(state.step == steps, f"[chain cli {tag}] ended at step {state.step}, not {steps}")
+        check(launches == want, f"[chain cli {tag}] launched {launches}, not {want}")
+        epoch = trainer.epoch_logs[-1]
+        check(epoch["train/steps_skipped"] == 0.0, f"[chain cli {tag}] a step was skipped")
+        vals = {k: v for k, v in epoch.items() if k.startswith("val/")}
+        check(vals and all(np.isfinite(v) for v in vals.values()),
+              f"[chain cli {tag}] non-finite val metrics {vals}")
+        with open(os.path.join(logdir, "chain", "metrics.jsonl")) as f:
+            records = [r["step"] for r in map(json.loads, f) if "train/total" in r]
+        out[tag] = dict(launches=launches, wall_s=wall, records=records, val=vals,
+                        ms_per_update=1e3 / epoch["perf/steps_per_s"])
+        print(f"[chain] U5 train_torch.py {' '.join(extra[:2])} {tag}: step {state.step}, "
+              f"launches {launches}, train records at steps {records}, "
+              f"{out[tag]['ms_per_update']:.1f} ms an update over the epoch (capture "
+              f"included on the first), val " + ", ".join(f"{k} {v:.4f}" for k, v in vals.items())
+              + f"; {wall:.1f} s", flush=True)
+        if tag == "chain":
+            check(records == [FILE_BATCHES], f"[chain cli] train records at {records}, not one "
+                  f"after the chain of {FILE_BATCHES}")
+            eager_path = os.path.join(logdir, "cli", "checkpoints", f"step_{FILE_BATCHES:08d}")
+            if os.path.isdir(eager_path):
+                eager = torch.load(os.path.join(eager_path, "state.pt"), map_location="cuda",
+                                   weights_only=True)["model"]
+                dist = max((v - eager[k]).abs().max().item()
+                           for k, v in state.model.state_dict().items())
+                bound = chain_eager_bound(FLAGSHIP_H100["training_specific"]["lr"],
+                                          FILE_BATCHES)
+                check(dist <= bound, f"[chain cli] the chained epoch's weights lie {dist:.3e} "
+                      f"from phase J's eager epoch (bound {bound:.3e})")
+                out["vs_eager_epoch"] = dict(max_weight_diff=dist, bound=bound)
+                print(f"[chain] U5: the chained epoch's weights vs phase J's eager epoch on the "
+                      f"same files and seed: max |difference| {dist:.3e} (bound {bound:.3e})",
+                      flush=True)
+    return out
+
+
+def _chain_turns(card: str, graph: dict, batches: list) -> dict:
+    """U6. In CHAIN_ROUNDS alternating rounds, CHAIN eager updates against
+    one graphed chain of CHAIN on the same batches: ms per update by CUDA
+    events and by the host clock (each synchronized), peak memory; then the
+    device's idle share under ``torch.profiler`` over each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state_g, chained = graph["graphed"]["state"], graph["graphed"]["step"]
+    state_e, eager = graph["eager"]["state"], graph["eager"]["step"]
+
+    def run_eager():
+        for b in batches:
+            eager(b, state_e.step, state_e.seed)
+            state_e.step += 1
+
+    def run_chain():
+        chained(batches, state_g.step, state_g.seed)
+        state_g.step += len(batches)
+
+    fns = {"eager": run_eager, "chained": run_chain}
+    times = {k: {"cuda": [], "host": [], "peak_gib": []} for k in fns}
+    for _ in range(CHAIN_ROUNDS):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms, host = _timed(fn)
+            times[k]["cuda"].append(ms / CHAIN)
+            times[k]["host"].append(host / CHAIN)
+            times[k]["peak_gib"].append(torch.cuda.max_memory_allocated() / 2**30)
+    out = {k: dict(v, cuda_median=statistics.median(v["cuda"]),
+                   host_median=statistics.median(v["host"])) for k, v in times.items()}
+    for k, fn in fns.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        out[k].update(profiled_wall_ms=wall, busy_ms=busy,
+                      idle_share=1.0 - busy / wall if busy > 0 else None)
+    out["capture_s"] = chained.capture_s[0]
+    out["pool_gib"] = chained.pool_bytes / 2**30
+    out["reserved_gib"] = torch.cuda.memory_reserved() / 2**30
+    print(f"[chain] U6 {card}: FLAGSHIP_H100 at batch {TRAIN_BATCH}, {CHAIN} updates a round, "
+          f"{CHAIN_ROUNDS} rounds in turns; ms per update (CUDA events / host clock): "
+          + "; ".join(f"{k} " + ", ".join(f"{c:.2f}/{h:.2f}" for c, h in zip(v["cuda"], v["host"]))
+                      + f" (medians {v['cuda_median']:.2f}/{v['host_median']:.2f}), peak "
+                      + ", ".join(f"{p:.2f}" for p in v["peak_gib"]) + " GiB"
+                      for k, v in ((k, out[k]) for k in fns))
+          + "; under torch.profiler: " + "; ".join(
+              f"{k} {out[k]['profiled_wall_ms']:.1f} ms, busy {out[k]['busy_ms']:.1f} ms, idle "
+              + (f"{out[k]['idle_share']:.3f}" if out[k]["idle_share"] is not None
+                 else "not measured (no device events)") for k in fns)
+          + f"; capture {out['capture_s']:.2f} s; the graph's pool {out['pool_gib']:.2f} GiB "
+          f"(the chained update's activations: replays allocate nothing else, so its peak "
+          f"reads low); reserved in all {out['reserved_gib']:.2f} GiB",
+          flush=True)
+    return out
+
+
+def phase_chain(d: str, card: str) -> dict:
+    """U. The chained train step (``train_torch.py --chain``): U1 the device
+    keys of K1 / K2, U2-U4 the graphed chain of ``FLAGSHIP_H100`` (and U2 of
+    the other builds), U5 the command line on J's files, U6 eager against
+    chained in turns."""
+    t_phase = time.perf_counter()
+    keys = _chain_keys()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED + 61)
+    batches = [_train_batch(rng, TRAIN_BATCH).to("cuda") for _ in range(CHAIN)]
+    small = [_train_batch(rng, CHAIN_BUILD_BATCH).to("cuda") for _ in range(2)]
+    graph = _chain_graph(card, batches, small)
+    torch.cuda.empty_cache()
+    cli = _chain_cli(d)
+    torch.cuda.empty_cache()
+    turns = _chain_turns(card, graph, batches)
+    out = dict(keys=keys, launches=graph["graphed"]["launches"][0], u3=graph["u3"],
+               builds=graph["builds"], cli=cli, turns=turns)
+    del graph, batches
+    torch.cuda.empty_cache()
+    print(f"[chain] phase U: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = phase_device()
@@ -4240,6 +4611,8 @@ def main() -> None:
         exported = phase_export(d, card)
         torch.cuda.empty_cache()
         converted = phase_converted(d, card)
+        torch.cuda.empty_cache()
+        chain = phase_chain(d, card)
         torch.cuda.empty_cache()
     k3b, k4b, bf16_serve, bf16_train = phase_bf16_fused(card, checks)
     torch.cuda.empty_cache()
@@ -4315,6 +4688,10 @@ def main() -> None:
         entry["launches_by_path"]["bf16_fused_serve"] = bf16_serve["launches"][name]
         entry["launches_by_path"]["bf16_fused_train"] = bf16_train["fused"]["launches"][name]
         entry["launches_by_path"]["bf16_dense_train"] = bf16_train["dense"]["launches"][name]
+        # phase U: a graphed chain of FLAGSHIP_H100 (its replays counted), and
+        # train_torch.py --chain's epoch
+        entry["launches_by_path"]["chain_train"] = chain["launches"][name]
+        entry["launches_by_path"]["chain_cli_train"] = chain["cli"]["chain"]["launches"][name]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches: {served} serving + "
           f"{served_fused} fused serving + {train['sde_rollout']} training + "
           f"{train_fused['sde_rollout']} fused-encoder training; K2 launches: "
@@ -4347,7 +4724,9 @@ def main() -> None:
           f"--ood on the converted checkpoint: {converted['launches']}; FLAGSHIP_BF16_FUSED "
           f"served at buckets 1 and {TRAIN_BATCH}: {bf16_serve['launches']}, "
           f"{bf16_serve['bf16_launches']}, and {BF16_FUSED_STEPS} train steps at "
-          f"{BF16_FUSED_BATCH}: {bf16_train['fused']['launches']}", flush=True)
+          f"{BF16_FUSED_BATCH}: {bf16_train['fused']['launches']}; a graphed chain of {CHAIN} "
+          f"FLAGSHIP_H100 updates: {chain['launches']}; train_torch.py --chain {CHAIN}'s "
+          f"epoch: {chain['cli']['chain']['launches']}", flush=True)
     print(card)
     print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6, k3b, k4b]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

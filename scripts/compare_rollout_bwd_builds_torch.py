@@ -4,7 +4,7 @@ turns on one card (needs a card and nvcc).
 
     git show HEAD~1:trajsde_tpu_torch/csrc/sde_rollout_bwd.cu > _checkouts/sde_rollout_bwd.base.cu
     python scripts/compare_rollout_bwd_builds_torch.py \\
-        --base parent=_checkouts/sde_rollout_bwd.base.cu [--base NAME=PATH ...]
+        --base parent=_checkouts/sde_rollout_bwd.base.cu [--base NAME=PATH ...] [--same-bits]
 
 Builds, in parallel, each ``--base`` (another version of
 ``trajsde_tpu_torch/csrc/sde_rollout_bwd.cu``, compiled where it lies, so
@@ -19,7 +19,9 @@ rows x 60 steps x 64) with the flagship decoder's rollout weights, a
 random cotangent, and gaussian (regenerated) and explicit increments, it
 holds dy0 and the 14 weight gradients of each build against the plain
 backward by ``chip_smoke.k2_tol``: the bases and change must pass and
-one-term must fail.  Then it times the builds in the order of the bases,
+one-term must fail; it also says whether each base's dy0 and dw are the
+change's bits (``--same-bits``: fail if not).  Then it times the builds
+in the order of the bases,
 change, no-products, then back (CUDA-event medians of
 ``chip_smoke.TIMED_RUNS``), for each kind of increments.  It prints
 ptxas's register and spill lines of each build, one line per timing and
@@ -117,6 +119,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--base", action="append", required=True, metavar="NAME=PATH",
                     help="another version of csrc/sde_rollout_bwd.cu and its name")
+    ap.add_argument("--same-bits", action="store_true",
+                    help="fail unless every base's dy0 and dw are the change's bits")
     args = ap.parse_args()
     bases = dict((name, Path(path)) for name, path in (b.split("=", 1) for b in args.base))
     if not torch.cuda.is_available():
@@ -142,7 +146,7 @@ def main() -> None:
     y0 = torch.relu(torch.randn((rows, D), generator=gen, device="cuda"))
     noise = torch.randn((T, rows, D), generator=gen, device="cuda")
     ct = torch.randn((T, rows, D), generator=gen, device="cuda")
-    errs, failures, times = {}, [], {}
+    errs, failures, times, same = {}, [], {}, {}
     for mode in MODES:
         kw = _increments(mode, noise)
         nz, inc = kw.get("noise"), kw["increments"]
@@ -156,6 +160,12 @@ def main() -> None:
             if name.endswith("no-products"):
                 continue
             dy0, dw = run(name)
+            if name == "change":
+                ref = (dy0, dw)
+            elif name in bases:
+                same[f"{name} {mode}"] = bool(torch.equal(dy0, ref[0]) and torch.equal(dw, ref[1]))
+                if args.same_bits and not same[f"{name} {mode}"]:
+                    failures.append(f"{name} {mode}: not the change's bits")
             rels, over = {}, []
             for leaf, a, b in [("dy0", dy0, want_dy0)] + [
                     (k, v, want[k]) for k, v in K1.unpack_params(dw, D).items()]:
@@ -169,9 +179,11 @@ def main() -> None:
                 failures.extend(f"{name} {mode} {o}" for o in over)
             print(f"[check] {name} {mode}: max|build - plain| / max|plain|: "
                   + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
-                  + f"; over the limit: {', '.join(over) or 'none'}", flush=True)
+                  + f"; over the limit: {', '.join(over) or 'none'}"
+                  + (f"; the change's bits: {same[f'{name} {mode}']}" if name in bases else ""),
+                  flush=True)
             del dy0, dw
-        del want_dy0, want
+        del want_dy0, want, ref
         torch.cuda.empty_cache()
         order = (*bases, "change", "no-products")
         order += order[::-1]
@@ -186,7 +198,7 @@ def main() -> None:
                       "bound_ms": bound, "bound_by": by, "route_bound_ms": route,
                       "route_bound_by": route_by,
                       "ptxas": {k: v[1] for k, v in libs.items()},
-                      "max_rel_err_vs_plain": errs}), flush=True)
+                      "max_rel_err_vs_plain": errs, "same_bits_as_change": same}), flush=True)
     if failures:
         raise SystemExit("checks failed: " + "; ".join(failures))
 

@@ -4,7 +4,7 @@ turns on one card (needs a card and nvcc).
 
     git show HEAD~1:trajsde_tpu_torch/csrc/sde_rollout.cu > _checkouts/sde_rollout.base.cu
     python scripts/compare_rollout_fwd_builds_torch.py \\
-        --base parent=_checkouts/sde_rollout.base.cu [--base NAME=PATH ...]
+        --base parent=_checkouts/sde_rollout.base.cu [--base NAME=PATH ...] [--same-bits]
 
 Builds, in parallel, each ``--base`` (another version of
 ``trajsde_tpu_torch/csrc/sde_rollout.cu``, compiled where it lies, so
@@ -19,7 +19,9 @@ y0, at the row counts of serving buckets 1, 8 and 128 (480, 3,840 and
 61,440 rows x 60 steps x 64) and with Rademacher, gaussian and explicit
 increments, it holds each build's ``ys`` against the plain version as
 max|build - plain| / max|plain|: the bases and change must be within
-``chip_smoke.TOL_K1_TIGHT`` and one-term must not.  Then it times the
+``chip_smoke.TOL_K1_TIGHT`` and one-term must not; it also says whether
+each base's ``ys`` are the change's bits (``--same-bits``: fail if not).
+Then it times the
 builds in the order of the bases, change, one-term, no-products, then
 back (CUDA-event medians of ``chip_smoke.TIMED_RUNS``), for each row count
 and kind of increments.  It prints the card's name and power limit,
@@ -69,10 +71,11 @@ MODES = ("rademacher", "gaussian", "explicit")
 
 def configure(lib: ctypes.CDLL) -> ctypes.CDLL:
     """The ctypes signatures of a library built from a K1 source (as
-    ``ops/sde_rollout.py`` sets them for the package's build)."""
+    ``ops/sde_rollout.py`` sets them for the package's build; a source
+    older than the trailing keys pointer ignores the null passed for it)."""
     lib.sde_rollout_launch.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.sde_rollout_launch.restype = ctypes.c_int
     return lib
@@ -85,7 +88,7 @@ def launch(lib, y0, w, tsc, seed, steps, noise, mode) -> torch.Tensor:
     err = lib.sde_rollout_launch(y0.data_ptr(), w.data_ptr(), tsc.data_ptr(),
                                  None if noise is None else noise.data_ptr(), ys.data_ptr(),
                                  y0.shape[0], steps, k1, k2, mode,
-                                 torch.cuda.current_stream().cuda_stream)
+                                 torch.cuda.current_stream().cuda_stream, None)
     if err != 0:
         raise RuntimeError(f"sde_rollout launch failed: cudaError {err}")
     return ys
@@ -121,6 +124,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--base", action="append", required=True, metavar="NAME=PATH",
                     help="another version of csrc/sde_rollout.cu and its name")
+    ap.add_argument("--same-bits", action="store_true",
+                    help="fail unless every base's ys are the change's bits")
     args = ap.parse_args()
     bases = dict((name, Path(path)) for name, path in (b.split("=", 1) for b in args.base))
     if not torch.cuda.is_available():
@@ -149,7 +154,7 @@ def main() -> None:
     noise = torch.randn((T, shapes[-1], D), generator=gen, device="cuda")
     order = (*bases, "change", "one-term", "no-products")
     order += order[::-1]
-    errs, failures, times = {}, [], {}
+    errs, failures, times, same = {}, [], {}, {}
     for n in shapes:
         y0_n, noise_n = y0[:n].contiguous(), noise[:, :n].contiguous()
         for mode in MODES:
@@ -161,6 +166,12 @@ def main() -> None:
                 if name.endswith("no-products"):
                     continue
                 got = launch(libs[name][0], y0_n, w, tsc, 11, T, nz, code)
+                if name == "change":
+                    ref = got
+                elif name in bases:
+                    same[f"{name} {n} {mode}"] = bool(torch.equal(got, ref))
+                    if args.same_bits and not same[f"{name} {n} {mode}"]:
+                        failures.append(f"{name} {n} rows {mode}: not the change's bits")
                 rel = ((got - want).abs().max() / want.abs().max()).item()
                 errs[f"{name} {n} {mode}"] = rel
                 if name == "one-term" and rel <= TOL_K1_TIGHT:
@@ -168,9 +179,11 @@ def main() -> None:
                 elif name != "one-term" and not rel <= TOL_K1_TIGHT:
                     failures.append(f"{name} {n} rows {mode}: {rel:.3e} > TOL_K1_TIGHT")
                 print(f"[check] {card}: {name} {n} rows {mode}: max|build - plain| / max|plain| "
-                      f"{rel:.3e} (TOL_K1_TIGHT {TOL_K1_TIGHT:g})", flush=True)
+                      f"{rel:.3e} (TOL_K1_TIGHT {TOL_K1_TIGHT:g})"
+                      + (f"; the change's bits: {same[f'{name} {n} {mode}']}"
+                         if name in bases else ""), flush=True)
                 del got
-            del want
+            del want, ref
             key = f"{n} {mode}"
             times[key] = []
             for name in order:
@@ -186,7 +199,7 @@ def main() -> None:
                          route_bound_by=route_by)
     print(json.dumps({"card": card, "rows": shapes, "steps": T, "times_ms": times,
                       "bounds": bounds, "ptxas": {k: v[1] for k, v in libs.items()},
-                      "max_rel_err_vs_plain": errs}), flush=True)
+                      "max_rel_err_vs_plain": errs, "same_bits_as_change": same}), flush=True)
     if failures:
         raise SystemExit("checks failed: " + "; ".join(failures))
 

@@ -1112,3 +1112,88 @@ def test_converted_checkpoint_loads_onto_the_card_bit_for_bit(cuda, tmp_path):
     got = model.state_dict()
     assert all(got[k].device.type == "cuda" and torch.equal(got[k].cpu(), v)
                for k, v in seeded.items())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("increments", ["rademacher", "gaussian"])
+def test_rollout_kernels_with_device_keys_are_the_host_key_launches_bit_for_bit(cuda,
+                                                                                increments):
+    """K1 and K2 reading their keys from a device ``rollout_keys`` buffer
+    (the chained step's form) give the host-key launches' bits at the
+    training shape (61,440 rows x 60 steps), and each launch counts once."""
+    kp, t0s, dts, y0, _ = _rollout_case(cuda, 61_440, 21)
+    w = K.pack_params(kp)
+    ct = torch.randn((60,) + tuple(y0.shape), device=cuda)
+    seed = K.mix_seed(7, 3)
+    keys = K.rollout_keys(seed, cuda)
+    before = (K.sde_rollout.launches, K.sde_rollout_bwd.launches)
+    ys = K.sde_rollout_packed(y0, w, t0s, dts, seed, 60, increments=increments)
+    ys_keys = K.sde_rollout_packed(y0, w, t0s, dts, keys, 60, increments=increments)
+    bwd = K.sde_rollout_bwd(y0, ys, ct, w, t0s, dts, seed, 60, increments=increments)
+    bwd_keys = K.sde_rollout_bwd(y0, ys, ct, w, t0s, dts, keys, 60, increments=increments)
+    torch.cuda.synchronize()
+    assert (K.sde_rollout.launches - before[0], K.sde_rollout_bwd.launches - before[1]) == (2, 2)
+    assert torch.equal(ys, ys_keys)
+    assert torch.equal(bwd[0], bwd_keys[0]) and torch.equal(bwd[1], bwd_keys[1])
+
+
+def _chained_states(cuda, cfg, chains, accum, graphs):
+    """``chains`` (a list of chains, each a list of groups) through one
+    chained step of a seeded ``cfg`` model: (each chain's logs, the
+    kernels' launches, weights, AdamW state, schedule)."""
+    from trajsde_tpu_torch.config import build_losses, build_model
+    from trajsde_tpu_torch.train.loop import create_train_state, make_chained_step
+
+    model = build_model(cfg, device=cuda, seed=6)
+    state = create_train_state(model, cfg["training_specific"], steps_per_epoch=8, seed=4)
+    step = make_chained_step(model, state.optimizer, state.scheduler, build_losses(cfg), cuda,
+                             accum_steps=accum, graphs=graphs)
+    counters = (K.sde_rollout, K.sde_rollout_bwd, K3.fused_pair_attention,
+                K3.fused_pair_attention_bwd)
+    before = [c.launches for c in counters]
+    logs = []
+    for chain in chains:
+        step(chain, state.step, state.seed)
+        state.step += len(chain)
+        logs.append(step.chain_logs.clone())
+    launches = [c.launches - b for c, b in zip(counters, before)]
+    return (logs, launches, {k: v.clone() for k, v in model.state_dict().items()},
+            state.optimizer.state_dict(), state.scheduler.state_dict(), len(step.captured))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("accum", [1, 2])
+def test_graphed_chain_is_the_uncaptured_chained_step_bit_for_bit(cuda, accum):
+    """``FLAGSHIP_TRAIN_FUSED`` (K1-K4, dropout live) at 48 actors: two
+    chains over two batch layouts (8 and 4 scenes; each layout's first
+    update runs uncaptured and is captured, the rest replay, the graphs
+    share a pool), the second with a NaN planted in its second update,
+    equal the uncaptured chained step's logs, weights, moments and
+    schedule bit for bit, and K1-K4 count once per micro-batch under
+    replay."""
+    import dataclasses
+
+    from trajsde_tpu_torch.config import FLAGSHIP_TRAIN_FUSED
+
+    big = [_packed(s, 8, 48, 192).to(cuda) for s in range(31, 35)]
+    small = [_packed(s, 4, 48, 192).to(cuda) for s in range(41, 45)]
+    bad = dataclasses.replace(big[3], x=big[3].x.clone())
+    bad.x[0, 1, 3, 0] = float("nan")
+    if accum == 1:
+        chains = [[[big[0]], [small[0]], [big[1]]], [[small[1]], [bad], [big[2]]]]
+    else:
+        chains = [[big[:2], small[:2], big[2:]], [small[2:], [big[0], bad], big[1:3]]]
+    got = _chained_states(cuda, FLAGSHIP_TRAIN_FUSED, chains, accum, True)
+    want = _chained_states(cuda, FLAGSHIP_TRAIN_FUSED, chains, accum, False)
+    logs, launches, weights, opt, sched, captured = got
+    assert captured == 2 and want[5] == 0
+    micro = sum(len(g) for c in chains for g in c)
+    assert launches == [micro] * 4 == want[1]
+    assert logs[1][1, -1].item() == 1.0 and logs[0][:, -1].sum().item() == 0.0
+    for a, b in zip(logs, want[0]):
+        assert torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())
+    assert all(torch.equal(weights[k], want[2][k]) for k in weights)
+    assert opt["state"].keys() == want[3]["state"].keys()
+    assert all(torch.equal(opt["state"][i][k], want[3]["state"][i][k])
+               for i in opt["state"] for k in opt["state"][i])
+    assert sched == want[4] and sched["last_epoch"] == sum(len(c) for c in chains) - 1

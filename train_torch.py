@@ -5,7 +5,7 @@
     python train_torch.py -c configs/nusargo/hivt_nuSArgo_sdesepenc_sdedec_h100.yml -n my_run \\
         [--ckpt STEP_DIR | --wonly STEP_DIR] [--epochs N] [--logdir logs] [--seed 0] \\
         [--num-actors A] [--num-lanes L] [--monitor ADE_T] [--profile STEP] [--log-every N] \\
-        [--accum K] [--async-ckpt] [--device cuda|cpu] [--multihost [--zero1]]
+        [--accum K] [--chain C] [--async-ckpt] [--device cuda|cpu] [--multihost [--zero1]]
 
     torchrun --nproc-per-node N train_torch.py --multihost [--zero1] -c ... -n my_run
 
@@ -17,9 +17,16 @@ latest), ``metrics.jsonl``, ``source_snapshot/`` and, with ``--profile``,
 the seed and the data stream; ``--wonly`` loads the weights alone.
 ``--accum K`` takes one optimizer update per K loader batches (the mean
 gradient; the schedule counts updates, ``ceil(batches / K)`` an epoch);
-``--async-ckpt`` writes each epoch's checkpoint on a thread while the next
-epoch trains.  SIGTERM or SIGINT saves an unscored checkpoint
-(synchronously) and exits cleanly.  The
+``--chain C`` runs C optimizer updates per read of the device: on the card
+each update is one replay of a CUDA graph of the train step (captured per
+batch layout), on the CPU the same chained update runs uncaptured; logs
+are the chain's means, written once per chain (``--log-every`` counts
+updates), and a preemption stops after the chain.  Its checkpoints resume
+with or without it.  It refuses ``--multihost``, ``encoder.remat``,
+``encoder.adaptive``, bf16, ``neighbor_cap`` and the HiVT baseline, each
+naming its ROADMAP.md Queue 1 item.  ``--async-ckpt`` writes each epoch's
+checkpoint on a thread while the next epoch trains.  SIGTERM or SIGINT
+saves an unscored checkpoint (synchronously) and exits cleanly.  The
 run is on the card unless ``--device cpu``.  Configs are YAML, or JSON
 (``*.json``, which needs no PyYAML).
 
@@ -39,10 +46,15 @@ import argparse
 import os
 from typing import Optional, Sequence
 
-# train.py flags of the JAX package that the port does not have yet, and
-# the ROADMAP.md Queue 1 item that ports each
+# what --chain C > 1 does not run with yet, and the ROADMAP.md Queue 1 item
+# that ports each
 NOT_PORTED = {
-    "chain": "item 5 (training leftovers)",
+    "--multihost": "item 5f (the update's collectives inside a CUDA graph)",
+    "encoder.remat": "item 5g (the remat blocks' generator state on the device)",
+    "encoder.adaptive": "item 5h (--chain on the other builds)",
+    "dtype bfloat16": "item 5h (--chain on the other builds)",
+    "encoder.neighbor_cap": "item 5h (--chain on the other builds)",
+    "the HiVT baseline": "item 5h (--chain on the other builds)",
 }
 
 
@@ -78,14 +90,35 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    "TRAJSDE_PROCESS_ID")
     p.add_argument("--zero1", action="store_true",
                    help="ZeRO-1: partition AdamW's moments over the --multihost ranks")
-    p.add_argument("--chain", type=int, default=None,
-                   help=f"not ported: ROADMAP.md Queue 1 {NOT_PORTED['chain']}")
+    p.add_argument("--chain", type=int, default=1,
+                   help="C optimizer updates per read of the device (on the card, each one "
+                   "replay of a CUDA graph of the step); logs and the stop flag once per chain")
     args = p.parse_args(argv)
-    for flag, item in NOT_PORTED.items():
-        if getattr(args, flag) not in (None, False):
-            raise SystemExit(f"--{flag.replace('_', '-')} is not ported to trajsde_tpu_torch "
-                             f"yet: ROADMAP.md Queue 1 {item}")
+    if args.chain > 1 and (args.multihost or args.zero1):
+        _refuse_chain("--multihost")
     return args
+
+
+def _refuse_chain(what: str) -> None:
+    raise SystemExit(f"--chain with {what} is not ported to trajsde_tpu_torch yet: "
+                     f"ROADMAP.md Queue 1 {NOT_PORTED[what]}")
+
+
+def check_chain(cfg: dict) -> None:
+    """Exit naming its ROADMAP item when ``cfg`` builds a model that
+    ``--chain`` does not run yet."""
+    from trajsde_tpu_torch.config import resolve
+    from trajsde_tpu_torch.models.prediction import PredictionModelSDENet
+
+    enc = cfg["encoder"].get("kwargs", {})
+    for key in ("remat", "adaptive", "neighbor_cap"):
+        if enc.get(key):
+            _refuse_chain(f"encoder.{key}")
+    if any(cfg[sec].get("kwargs", {}).get("dtype") == "bfloat16"
+           for sec in ("encoder", "aggregator", "decoder")):
+        _refuse_chain("dtype bfloat16")
+    if resolve(cfg["model_specific"]["module_name"]) is not PredictionModelSDENet:
+        _refuse_chain("the HiVT baseline")
 
 
 def ts_drop_rate(cfg: dict) -> float:
@@ -126,6 +159,8 @@ def main(argv: Optional[Sequence[str]] = None):
     from trajsde_tpu_torch.train.loop import Trainer, create_train_state
 
     cfg = load_config(args.config)
+    if args.chain > 1:
+        check_chain(cfg)
     rate = ts_drop_rate(cfg)
     device = resolve_device(mesh.local_device(args.device))
     # only rank 0 owns the run directory's side effects (train.py's rule)
@@ -161,7 +196,7 @@ def main(argv: Optional[Sequence[str]] = None):
         build_losses(cfg), build_metrics(cfg), device=device, logger=logger,
         checkpointer=checkpointer, monitor=args.monitor,
         is_gtabs=val_args.get("is_gtabs", True), log_every=max(1, args.log_every),
-        ts_drop_rate=rate, accum_steps=accum,
+        ts_drop_rate=rate, accum_steps=accum, chain_steps=max(1, args.chain),
         profiler=(ProfilerHook(run_dir, args.profile)
                   if args.profile is not None and primary else None),
     )

@@ -33,6 +33,18 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
+// The generator's two keys: the scalar arguments k1 / k2, or, when `keys` is
+// not null, the uint32[2] it points to.  A CUDA graph replays the scalar
+// arguments it captured, so a captured launch reads each replay's keys from
+// device memory; loaded once per thread, they feed the same hash.
+__device__ __forceinline__ void load_keys(const uint32_t* __restrict__ keys, uint32_t& k1,
+                                          uint32_t& k2) {
+  if (keys != nullptr) {
+    k1 = keys[0];
+    k2 = keys[1];
+  }
+}
+
 // 32 random bits for one (row, step, word) counter; k1/k2 derive from the seed
 __device__ __forceinline__ uint32_t draw_bits(uint32_t k1, uint32_t k2, uint64_t counter) {
   return fmix32(fmix32(static_cast<uint32_t>(counter) ^ k1) ^ k2);

@@ -138,8 +138,10 @@ template <int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 rollout_kernel(const float* __restrict__ y0, const float* __restrict__ w,
                const float* __restrict__ tsc, const float* __restrict__ noise,
-               float* __restrict__ ys, int N, int T, uint32_t k1, uint32_t k2) {
+               float* __restrict__ ys, int N, int T, uint32_t k1, uint32_t k2,
+               const uint32_t* __restrict__ keys) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  load_keys(keys, k1, k2);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
   const int mt = warp >> 2, jn = warp & 3;        // m-tile, n-tiles jn and jn + 4
   const int frow = 16 * mt + g, fcol = 8 * jn + 2 * t4;   // this thread's C-fragment places
@@ -288,7 +290,8 @@ rollout_kernel(const float* __restrict__ y0, const float* __restrict__ w,
 
 template <int MODE>
 cudaError_t launch(const float* y0, const float* w, const float* tsc, const float* noise,
-                   float* ys, int N, int T, uint32_t k1, uint32_t k2, cudaStream_t stream) {
+                   float* ys, int N, int T, uint32_t k1, uint32_t k2, const uint32_t* keys,
+                   cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(rollout_kernel<MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return err;
@@ -300,7 +303,8 @@ cudaError_t launch(const float* y0, const float* w, const float* tsc, const floa
   // at most one block per SM; each walks the row tiles blockIdx.x, + grid, ..
   const int tiles = (N + ROWS - 1) / ROWS;
   const int grid = tiles < sms ? tiles : sms;
-  rollout_kernel<MODE><<<grid, THREADS, SMEM_BYTES, stream>>>(y0, w, tsc, noise, ys, N, T, k1, k2);
+  rollout_kernel<MODE><<<grid, THREADS, SMEM_BYTES, stream>>>(y0, w, tsc, noise, ys, N, T, k1, k2,
+                                                                keys);
   return cudaGetLastError();
 }
 
@@ -312,20 +316,22 @@ extern "C" {
 int sde_rollout_weight_floats() { return W_FLOATS; }
 
 // ys [T, N, 64] from y0 [N, 64]; w packed as in rollout_common.cuh; tsc [T, 4];
-// noise [T, N, 64] for mode 0, else NULL.  Returns cudaGetLastError().
+// noise [T, N, 64] for mode 0, else NULL.  keys: NULL (the keys are k1, k2) or
+// a device uint32[2] holding them (last, so a caller of the older signature
+// passes the same arguments before it).  Returns cudaGetLastError().
 int sde_rollout_launch(const float* y0, const float* w, const float* tsc, const float* noise,
                        float* ys, int N, int T, unsigned int k1, unsigned int k2, int mode,
-                       void* stream) {
+                       void* stream, const unsigned int* keys) {
   if (N <= 0 || T <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case EXPLICIT:
       if (noise == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-      return static_cast<int>(launch<EXPLICIT>(y0, w, tsc, noise, ys, N, T, k1, k2, s));
+      return static_cast<int>(launch<EXPLICIT>(y0, w, tsc, noise, ys, N, T, k1, k2, keys, s));
     case RADEMACHER:
-      return static_cast<int>(launch<RADEMACHER>(y0, w, tsc, noise, ys, N, T, k1, k2, s));
+      return static_cast<int>(launch<RADEMACHER>(y0, w, tsc, noise, ys, N, T, k1, k2, keys, s));
     case GAUSSIAN:
-      return static_cast<int>(launch<GAUSSIAN>(y0, w, tsc, noise, ys, N, T, k1, k2, s));
+      return static_cast<int>(launch<GAUSSIAN>(y0, w, tsc, noise, ys, N, T, k1, k2, keys, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

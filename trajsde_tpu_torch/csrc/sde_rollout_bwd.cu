@@ -252,8 +252,9 @@ rollout_bwd_kernel(const float* __restrict__ y0, const float* __restrict__ ys,
                    const float* __restrict__ ct, const float* __restrict__ w,
                    const float* __restrict__ tsc, const float* __restrict__ noise,
                    float* __restrict__ dy0, double* __restrict__ partial,
-                   int N, int T, uint32_t k1, uint32_t k2) {
+                   int N, int T, uint32_t k1, uint32_t k2, const uint32_t* __restrict__ keys) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  load_keys(keys, k1, k2);
   double* sw = reinterpret_cast<double*>(smem_raw);                // weights, widened
   float* ssm = reinterpret_cast<float*>(smem_raw + 5 * MAT * 8);  // wf0t .. bgo
   float* sY = ssm + NSMALL;         // pre-step state y_t
@@ -562,12 +563,13 @@ __global__ void reduce_partials(const double* __restrict__ partial, int blocks,
 template <int MODE>
 cudaError_t launch(const float* y0, const float* ys, const float* ct, const float* w,
                    const float* tsc, const float* noise, float* dy0, float* dw, double* partial,
-                   int N, int T, uint32_t k1, uint32_t k2, int grid, cudaStream_t stream) {
+                   int N, int T, uint32_t k1, uint32_t k2, const uint32_t* keys, int grid,
+                   cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(rollout_bwd_kernel<MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return err;
   rollout_bwd_kernel<MODE><<<grid, THREADS, SMEM_BYTES, stream>>>(y0, ys, ct, w, tsc, noise, dy0,
-                                                                  partial, N, T, k1, k2);
+                                                                  partial, N, T, k1, k2, keys);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   reduce_partials<<<(W_FLOATS + 255) / 256, 256, 0, stream>>>(partial, grid, dw);
@@ -583,24 +585,28 @@ int sde_rollout_bwd_weight_floats() { return W_FLOATS; }
 // dy0 [N, 64] and dw [W_FLOATS] (packed as in rollout_common.cuh) from
 // y0 [N, 64], the forward's ys [T, N, 64], the cotangent ct [T, N, 64], w, tsc [T, 4] and, in
 // mode 0, noise [T, N, 64].  partial is a [grid, W_FLOATS] f64 workspace;
-// grid blocks walk the 32-row tiles.  Returns cudaGetLastError().
+// grid blocks walk the 32-row tiles.  keys: NULL or a device uint32[2] holding
+// k1, k2, as in sde_rollout_launch.  Returns cudaGetLastError().
 int sde_rollout_bwd_launch(const float* y0, const float* ys, const float* ct, const float* w,
                            const float* tsc, const float* noise, float* dy0, float* dw,
                            double* partial, int N, int T, unsigned int k1, unsigned int k2,
-                           int mode, int grid, void* stream) {
+                           int mode, int grid, void* stream, const unsigned int* keys) {
   if (N <= 0 || T <= 0 || grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case EXPLICIT:
       if (noise == nullptr) return static_cast<int>(cudaErrorInvalidValue);
       return static_cast<int>(
-          launch<EXPLICIT>(y0, ys, ct, w, tsc, noise, dy0, dw, partial, N, T, k1, k2, grid, s));
+          launch<EXPLICIT>(y0, ys, ct, w, tsc, noise, dy0, dw, partial, N, T, k1, k2, keys,
+                           grid, s));
     case RADEMACHER:
       return static_cast<int>(
-          launch<RADEMACHER>(y0, ys, ct, w, tsc, noise, dy0, dw, partial, N, T, k1, k2, grid, s));
+          launch<RADEMACHER>(y0, ys, ct, w, tsc, noise, dy0, dw, partial, N, T, k1, k2, keys,
+                             grid, s));
     case GAUSSIAN:
       return static_cast<int>(
-          launch<GAUSSIAN>(y0, ys, ct, w, tsc, noise, dy0, dw, partial, N, T, k1, k2, grid, s));
+          launch<GAUSSIAN>(y0, ys, ct, w, tsc, noise, dy0, dw, partial, N, T, k1, k2, keys,
+                           grid, s));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

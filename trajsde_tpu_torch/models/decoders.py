@@ -161,7 +161,8 @@ class SDEDecoder(nn.Module):
         """The rollout through the kernels: ``ys [Tf, *y0.shape]`` from the
         ``[B*F*A, D]`` rows in (B, F, A) order, with gaussian increments
         drawn in the kernel from ``seed`` (an int or a 0-d int64 host
-        tensor, the same draws for the same value) or explicit ``noise
+        tensor, the same draws for the same value, or the keys of
+        ``ops.sde_rollout.rollout_keys`` on the device) or explicit ``noise
         [Tf, B*F*A, D]``.  Gradients reach ``y0`` and every ``sde_rollout`` weight.  The
         kernels run in f32: a bf16 ``y0`` is cast up for them and ``ys``
         comes back in ``y0``'s dtype, as in the JAX decoder."""
@@ -180,7 +181,9 @@ class SDEDecoder(nn.Module):
         otherwise they are drawn from ``generator``.  With ``fused=True``
         the kernel draws them from ``rollout_seed``, which is required: a
         host integer or a 0-d int64 tensor on the host (an input, not a
-        constant, of an exported program)."""
+        constant, of an exported program), or the int32 [2] keys of
+        ``ops.sde_rollout.rollout_keys`` on the device (a captured train
+        step's)."""
         y0 = self.fuse(scene, local_embed, global_embed)
         if self.fused:
             if sde_noise is not None:

@@ -149,8 +149,10 @@ def encoder_time_grid(historical_steps: int, max_past_t: float, device=None):
     segment is [-0.01, 0] (dt = 0.01) at the newest step, then one segment
     per remaining historical step."""
     pts = -torch.linspace(-max_past_t, 0.0, historical_steps, device=device).flip(0)
-    t0s = torch.cat([torch.tensor([-0.01], device=device), pts[:-1]])
-    t1s = torch.cat([torch.tensor([0.0], device=device), pts[1:]])
+    # filled on the device (no copy from host memory, which a CUDA graph
+    # cannot capture)
+    t0s = torch.cat([pts.new_full((1,), -0.01), pts[:-1]])
+    t1s = torch.cat([pts.new_zeros(1), pts[1:]])
     return t0s, t1s - t0s
 
 

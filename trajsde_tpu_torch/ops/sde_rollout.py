@@ -18,6 +18,14 @@ reproduces the same 32-bit integers with int64 tensor ops, which holds
 the kernel's generator to it value for value.  The TPU's on-core PRNG
 bits cannot be reproduced: against JAX the generator is compared by
 statistics.
+
+A seed is a host integer (or the 0-d int64 host tensor of
+:func:`seed_tensor`), from which the host derives the generator's two keys
+and passes them as kernel arguments; or it is the keys themselves, the
+int32 [2] tensor of :func:`rollout_keys` on the rows' device, which K1
+and K2 read from memory.  A CUDA graph replays the arguments it captured,
+so the chained train step (``train/loop.py``) writes each update's keys
+into one such tensor before its replay.  Both forms draw the same bits.
 """
 from __future__ import annotations
 
@@ -96,6 +104,31 @@ def seed_keys(seed: int):
     return k1, _fmix32_int(k1 ^ 0x9E3779B9)
 
 
+def is_rollout_keys(seed) -> bool:
+    """Whether ``seed`` is the keys form of :func:`rollout_keys`."""
+    return isinstance(seed, torch.Tensor) and seed.dtype == torch.int32 and \
+        tuple(seed.shape) == (2,)
+
+
+def key_words(seed: int):
+    """:func:`seed_keys` of ``seed`` as two int32 values (their bit
+    patterns)."""
+    return [k - (1 << 32) if k >> 31 else k for k in seed_keys(seed)]
+
+
+def rollout_keys(seed: int, device=None) -> torch.Tensor:
+    """:func:`key_words` of ``seed`` as an int32 [2] tensor on ``device``,
+    the form in which K1 and K2 read the keys from memory."""
+    return torch.tensor(key_words(seed), dtype=torch.int32, device=device)
+
+
+def _host_keys(seed):
+    """The two keys of a seed in either form, as host integers."""
+    if is_rollout_keys(seed):
+        return tuple(int(k) & _M32 for k in seed.tolist())
+    return seed_keys(seed)
+
+
 def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
     """(a * b) mod 2**32 for int64 ``a`` in [0, 2**32): 16-bit halves keep
     every intermediate below 2**49."""
@@ -162,7 +195,7 @@ def sde_rollout_reference(y0, params, t0s, dts, seed, num_steps: int,
     kernel's own increments when ``noise`` is None."""
     N, D = y0.shape
     tsc = time_table(t0s, dts).to(y0.device)
-    keys = seed_keys(seed)
+    keys = _host_keys(seed)
     rows = torch.arange(N, device=y0.device)
     ys, y = [], y0
     for t in range(num_steps):
@@ -181,7 +214,7 @@ def sde_rollout_bwd_reference(y0, ys, ct, params, t0s, dts, seed, num_steps: int
     state (``y0`` or ``ys[t-1]``) and redraws its increments."""
     N, D = y0.shape
     tsc = time_table(t0s, dts).to(y0.device)
-    keys = seed_keys(seed)
+    keys = _host_keys(seed)
     rows = torch.arange(N, device=y0.device)
     p = params
     grads = {k: torch.zeros_like(v) for k, v in p.items()}
@@ -257,7 +290,7 @@ def _library():
     lib = build.load("sde_rollout")
     lib.sde_rollout_launch.argtypes = [ctypes.c_void_p] * 5 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.sde_rollout_launch.restype = ctypes.c_int
     lib.sde_rollout_weight_floats.argtypes = []
@@ -266,10 +299,12 @@ def _library():
 
 
 def configure_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Sets the ctypes signatures of a library built from a K2 source."""
+    """Sets the ctypes signatures of a library built from a K2 source (a
+    source older than the trailing keys pointer ignores the null passed for
+    it)."""
     lib.sde_rollout_bwd_launch.argtypes = [ctypes.c_void_p] * 9 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.sde_rollout_bwd_launch.restype = ctypes.c_int
     lib.sde_rollout_bwd_weight_floats.argtypes = []
@@ -317,19 +352,29 @@ def _common_checks(y0, w, t0s, dts, num_steps, noise, increments, weight_floats)
     return mode, tsc
 
 
+def _key_args(seed, device):
+    """(k1, k2, keys pointer) of a launch: the host's keys and a null
+    pointer, or zeros and the address of a :func:`rollout_keys` tensor."""
+    if not is_rollout_keys(seed):
+        return (*seed_keys(seed), None)
+    if seed.device != device or not seed.is_contiguous():
+        raise ValueError(f"the rollout keys must be contiguous on {device}, got {seed.device}")
+    return 0, 0, seed.data_ptr()
+
+
 def _launch(y0, w, t0s, dts, seed, num_steps, noise, increments) -> torch.Tensor:
     lib = _library()
     mode, tsc = _common_checks(y0, w, t0s, dts, num_steps, noise, increments,
                                lib.sde_rollout_weight_floats())
     N, D = y0.shape
     ys = torch.empty((num_steps, N, D), device=y0.device, dtype=torch.float32)
-    k1, k2 = seed_keys(seed)
+    k1, k2, keys = _key_args(seed, y0.device)
     with torch.cuda.device(y0.device):
         stream = torch.cuda.current_stream(y0.device).cuda_stream
         err = lib.sde_rollout_launch(
             y0.data_ptr(), w.data_ptr(), tsc.data_ptr(),
             None if noise is None else noise.data_ptr(), ys.data_ptr(),
-            N, num_steps, k1, k2, mode, stream,
+            N, num_steps, k1, k2, mode, stream, keys,
         )
     if err != 0:
         raise RuntimeError(f"sde_rollout kernel launch failed: cudaError {err}")
@@ -381,9 +426,11 @@ def sde_rollout(y0: torch.Tensor, params: Dict[str, torch.Tensor], t0s: torch.Te
     ``noise [T, N, D]`` gives explicit unit increments; otherwise they are
     drawn in the kernel (``'gaussian'`` Box-Muller or ``'rademacher'``
     +-1, one bit per lane) from ``seed``, an int or a 0-d int64 host
-    tensor.  On CUDA the kernel runs on the current stream without
-    synchronising and ``sde_rollout.launches`` counts its launches; on the
-    CPU the plain version runs.  Both go through :func:`rollout_op`.
+    tensor, or the keys of :func:`rollout_keys` on ``y0``'s device.  On
+    CUDA the kernel runs on the current stream without synchronising and
+    ``sde_rollout.launches`` counts its launches; on the CPU the plain
+    version runs.  Both go through :func:`rollout_op`, the keys form
+    (which no exported program takes) around it.
     """
     w = pack_params({k: v.to(y0.device) for k, v in params.items()})
     return sde_rollout_packed(y0, w, t0s, dts, seed, num_steps, noise, increments)
@@ -400,6 +447,11 @@ def sde_rollout_packed(y0: torch.Tensor, w: torch.Tensor, t0s: torch.Tensor, dts
     # checked here: on a meta tensor the op would run its fake and return
     if y0.device.type not in ("cuda", "cpu"):
         raise ValueError(f"sde_rollout runs on cuda (kernel) or cpu (plain), not {y0.device}")
+    if is_rollout_keys(seed):
+        if y0.device.type == "cuda":
+            return _launch(y0, w, t0s, dts, seed, num_steps, noise, increments)
+        return sde_rollout_reference(y0, unpack_params(w, y0.shape[1]), t0s, dts, seed,
+                                     num_steps, noise, increments)
     return rollout_op(y0, w, t0s, dts, seed_tensor(seed), num_steps, noise, increments)
 
 
@@ -423,13 +475,13 @@ def launch_bwd(lib: ctypes.CDLL, y0, ys, ct, w, t0s, dts, seed, num_steps, noise
     partial = torch.empty((grid, w.numel()), device=y0.device, dtype=torch.float64)
     dy0 = torch.empty_like(y0)
     dw = torch.empty_like(w)
-    k1, k2 = seed_keys(seed)
+    k1, k2, keys = _key_args(seed, y0.device)
     with torch.cuda.device(y0.device):
         stream = torch.cuda.current_stream(y0.device).cuda_stream
         err = lib.sde_rollout_bwd_launch(
             y0.data_ptr(), ys.data_ptr(), ct.data_ptr(), w.data_ptr(), tsc.data_ptr(),
             None if noise is None else noise.data_ptr(), dy0.data_ptr(), dw.data_ptr(),
-            partial.data_ptr(), N, num_steps, k1, k2, mode, grid, stream,
+            partial.data_ptr(), N, num_steps, k1, k2, mode, grid, stream, keys,
         )
     if err != 0:
         raise RuntimeError(f"sde_rollout_bwd kernel launch failed: cudaError {err}")
@@ -437,11 +489,11 @@ def launch_bwd(lib: ctypes.CDLL, y0, ys, ct, w, t0s, dts, seed, num_steps, noise
 
 
 def sde_rollout_bwd(y0: torch.Tensor, ys: torch.Tensor, ct: torch.Tensor, w: torch.Tensor,
-                    t0s: torch.Tensor, dts: torch.Tensor, seed: int, num_steps: int,
+                    t0s: torch.Tensor, dts: torch.Tensor, seed, num_steps: int,
                     noise: Optional[torch.Tensor] = None, increments: str = "gaussian"):
     """The reverse sweep: ``(dy0 [N, D], dw)`` (``dw`` packed like ``w``)
     for the cotangent ``ct [T, N, D]`` of the forward's ``ys``, with the
-    forward's own ``seed``/``increments`` or ``noise``.
+    forward's own ``seed`` (either form)/``increments`` or ``noise``.
 
     On CUDA kernel K2 runs on the current stream without synchronising and
     ``sde_rollout_bwd.launches`` counts its launches; its weight gradients
@@ -469,7 +521,9 @@ class SDERolloutFn(torch.autograd.Function):
 
     ``apply(y0, w, t0s, dts, seed, num_steps, noise, increments)``; only
     ``y0`` and the packed weights ``w`` get gradients: ``t0s``, ``dts``
-    and explicit ``noise`` are constants, as in the JAX package.
+    and explicit ``noise`` are constants, as in the JAX package.  A
+    :func:`rollout_keys` seed is read by both kernels from memory, so its
+    value at the backward must still be the forward's.
     """
 
     @staticmethod

@@ -23,6 +23,13 @@ computes what the JAX package's sharded step computes: the gradient of the
 global batch's loss, applied alike on every rank, and the global batch's
 logs and metrics.  Every seed a step derives has the rank folded in
 (``mesh.rank_seed``; nothing changes in a world of one).
+
+``Trainer(chain_steps=C)`` (``train.py --chain``) runs C optimizer updates
+per read of the device through :func:`make_chained_step`: each update
+reads nothing on the host (the NaN guard, AdamW and the schedule run on
+the device), and on a card each is one replay of a CUDA graph of the
+update.  The logs, the skip count and the schedule's position are read
+once, after the chain.
 """
 from __future__ import annotations
 
@@ -45,10 +52,11 @@ from trajsde_tpu_torch.device import resolve_device
 from trajsde_tpu_torch.losses import batch_counts
 from trajsde_tpu_torch.models.decoders import SDEDecoder
 from trajsde_tpu_torch.models.sde_encoder import LocalEncoderSDESep, gather_agent
-from trajsde_tpu_torch.ops.sde_rollout import mix_seed
+from trajsde_tpu_torch.ops import aa_attention, aa_fused, sde_rollout, vpu_probe
+from trajsde_tpu_torch.ops.sde_rollout import key_words, mix_seed
 from trajsde_tpu_torch.parallel import mesh
 from trajsde_tpu_torch.train.metrics import all_reduce_metrics
-from trajsde_tpu_torch.train.optim import build_optimizer
+from trajsde_tpu_torch.train.optim import DeviceAdamW, build_optimizer
 
 # eval draws derive from (EVAL_SEED, batch index), as the JAX package folds
 # its eval key key(12345) with the batch index
@@ -103,6 +111,25 @@ def micro_seeds(s: int, n: int) -> List[int]:
     return [s] if n == 1 else [mix_seed(s, 2 + i) for i in range(n)]
 
 
+def micro_loss(model: nn.Module, losses: List[Tuple[str, float, Callable]],
+               scene: SceneBatch, counts: torch.Tensor, generator: torch.Generator,
+               drop_generator: Optional[torch.Generator], rollout_seed,
+               ts_drop_rate: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A micro-batch's weighted loss and its logs' values (the losses, then
+    the total), with the model's draws from ``generator``, ``ts_drop``'s
+    from ``drop_generator`` and a fused decoder's from ``rollout_seed``;
+    its outputs are freed on return, before the backward."""
+    if ts_drop_rate:
+        scene = ts_drop(scene, ts_drop_rate, drop_generator)
+    out = model(scene, generator=generator, rollout_seed=rollout_seed)
+    total, values = 0.0, []
+    for _, weight, fn in losses:
+        value = fn(out["y"], out, counts=counts)
+        total = total + weight * value
+        values.append(value.detach())
+    return total, torch.stack(values + [total.detach()])
+
+
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, scheduler,
                     losses: List[Tuple[str, float, Callable]], device,
                     ts_drop_rate: float = 0.0, accum_steps: Optional[int] = None) -> Callable:
@@ -152,22 +179,6 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, schedule
     names = [f"train/{name}" for name, _, _ in losses] + ["train/total"]
     pinned = torch.device(device).type == "cuda"
 
-    def micro_loss(scene: SceneBatch, s: int, counts: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """The micro-batch's loss and its logs' values (its outputs are
-        freed on return, before the backward)."""
-        gen = torch.Generator(device=device).manual_seed(s)
-        if ts_drop_rate:
-            scene = ts_drop(scene, ts_drop_rate,
-                            torch.Generator(device=device).manual_seed(mix_seed(s, 1)))
-        out = model(scene, generator=gen, rollout_seed=s)
-        total, values = 0.0, []
-        for _, weight, fn in losses:
-            value = fn(out["y"], out, counts=counts)
-            total = total + weight * value
-            values.append(value.detach())
-        return total, torch.stack(values + [total.detach()])
-
     def train_step(scenes: Union[SceneBatch, Sequence[SceneBatch]], step: int, seed: int,
                    stop: bool = False) -> Optional[Dict[str, Any]]:
         micro = [scenes] if isinstance(scenes, SceneBatch) else list(scenes)
@@ -187,7 +198,12 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, schedule
         seeds = micro_seeds(mesh.rank_seed(mix_seed(seed, step)), len(micro))
         values = torch.zeros(len(names), device=device)
         for i in mine:
-            total, logged = micro_loss(micro[i], seeds[i], counts[i])
+            s = seeds[i]
+            drop = (torch.Generator(device=device).manual_seed(mix_seed(s, 1))
+                    if ts_drop_rate else None)
+            total, logged = micro_loss(model, losses, micro[i], counts[i],
+                                       torch.Generator(device=device).manual_seed(s), drop, s,
+                                       ts_drop_rate)
             total.backward()
             values = values + logged
         if slots > 1:
@@ -222,17 +238,261 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, schedule
     return train_step
 
 
-def group_microbatches(batches: Iterable[SceneBatch], k: int) -> Iterator[List[SceneBatch]]:
+def launch_counters() -> List[Tuple[Any, str]]:
+    """(function, attribute) of every kernel's launch count."""
+    return [(sde_rollout.sde_rollout, "launches"), (sde_rollout.sde_rollout_bwd, "launches"),
+            (aa_fused.fused_pair_attention, "launches"),
+            (aa_fused.fused_pair_attention, "bf16_launches"),
+            (aa_fused.fused_pair_attention_bwd, "launches"),
+            (aa_fused.fused_pair_attention_bwd, "bf16_launches"),
+            (aa_attention.aa_attention, "launches"), (vpu_probe.chained_tanh, "launches")]
+
+
+def _read_counts() -> List[int]:
+    return [getattr(fn, name) for fn, name in launch_counters()]
+
+
+def _add_counts(counts: Sequence[int]) -> None:
+    for (fn, name), n in zip(launch_counters(), counts):
+        setattr(fn, name, getattr(fn, name) + n)
+
+
+@dataclasses.dataclass
+class _Captured:
+    """One batch layout's CUDA graph of the update: its static inputs, its
+    log vector and the launches its capture recorded."""
+    graph: Any
+    inputs: List[SceneBatch]
+    out: torch.Tensor
+    launches: List[int]
+
+
+class ChainedStep:
+    """``chained(groups, step, seed, stop=False) -> logs``: one optimizer
+    update per group of ``groups`` (``trajsde_tpu/train/loop.py``'s
+    ``chained_step``; a group is a ``SceneBatch`` or a list of micro-batches,
+    as :func:`make_train_step` takes it), update ``j`` the eager step's
+    update at ``step + j``: the same draws from the same seeds
+    (``mix_seed``, ``mesh.rank_seed``, :func:`micro_seeds`), the same
+    forward, losses, backward and guard.
+
+    :meth:`update` is one update that reads nothing on the host: the
+    encoder's noise, the dropout masks and ``ts_drop`` draw from
+    generators kept for the step's life and reseeded before each update
+    (each draws what the eager step's fresh generator draws); a fused
+    decoder's rollout kernels read the update's keys from a device buffer
+    (``sde_rollout.rollout_keys``); the NaN guard, AdamW and the schedule
+    run on the device (:class:`~trajsde_tpu_torch.train.optim.DeviceAdamW`).
+    On the CPU, and with ``graphs=False``, the chain runs it as it is.
+
+    On a card (``graphs`` defaults to True there) the update is captured
+    as a ``torch.cuda.CUDAGraph`` once per batch layout (:func:`layout`),
+    after it has run once uncaptured on a side stream as that layout's
+    first update; every later update with that layout copies its batches
+    into the graph's inputs and replays it.  The graphs share one memory
+    pool: a replay writes everything it reads but the state, the inputs,
+    the keys and the generators' seeds, which live outside the pool, and
+    its log vector is copied out before the next replay.  A replay adds
+    the launches its capture recorded to the kernels' counts (the capture
+    itself launches nothing and counts nothing).  A capture that fails
+    raises; nothing falls back to the eager step.
+
+    The logs are the mean over the chain's updates (a skipped update's
+    NaN included), ``train/step_skipped`` their sum, ``scenes`` the
+    chain's scenes and ``stop`` the caller's flag; they, and the schedule's
+    position, are read from the device once, after the chain.  Single
+    process only: in a process group the update's all-reduces would have
+    to be captured (ROADMAP.md Queue 1 item 5f).
+    """
+
+    def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer, scheduler,
+                 losses: List[Tuple[str, float, Callable]], device,
+                 ts_drop_rate: float = 0.0, accum_steps: Optional[int] = None,
+                 graphs: Optional[bool] = None):
+        if mesh.world() > 1:
+            raise NotImplementedError("a chained train step in a process group: ROADMAP.md "
+                                      "Queue 1 item 5f")
+        self.model, self.optimizer, self.losses = model, optimizer, losses
+        self.device = torch.device(device)
+        self.graphs = self.device.type == "cuda" if graphs is None else bool(graphs)
+        if self.graphs and self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, not {self.device}")
+        self.ts_drop_rate = ts_drop_rate
+        self.accum_steps = accum_steps
+        self.params = [p for p in model.parameters() if p.requires_grad]
+        self.names = [f"train/{name}" for name, _, _ in losses] + ["train/total"]
+        self.adamw = DeviceAdamW(optimizer, scheduler, self.device)
+        self.gens: List[torch.Generator] = []        # micro-batch i's draws
+        self.drop_gens: List[torch.Generator] = []   # its ts_drop mask
+        self.keys = torch.zeros((max(1, accum_steps or 1), 2), dtype=torch.int32,
+                                device=self.device)
+        self.captured: Dict[tuple, _Captured] = {}
+        self.capture_s: List[float] = []   # seconds of each layout's warm-up and capture
+        self.pool_bytes = 0   # what the captures reserved on the card (the graphs' pool)
+        self.chain_logs: Optional[torch.Tensor] = None
+        self._pool = None
+
+    def _generators(self, n: int) -> None:
+        while len(self.gens) < n:
+            self.gens.append(torch.Generator(device=self.device))
+            self.drop_gens.append(torch.Generator(device=self.device))
+        if self.keys.shape[0] < n:
+            if self.captured:   # a graph reads the buffer it captured
+                raise ValueError(f"a group of {n} micro-batches after a capture with at most "
+                                 f"{self.keys.shape[0]}; build the step with accum_steps")
+            self.keys = torch.zeros((n, 2), dtype=torch.int32, device=self.device)
+
+    def seed(self, seeds: Sequence[int]) -> None:
+        """Seed micro-batch ``i``'s generators and rollout keys with
+        ``seeds[i]`` (host calls, no read of the device)."""
+        self._generators(len(seeds))
+        for i, s in enumerate(seeds):
+            self.gens[i].manual_seed(s)
+            self.drop_gens[i].manual_seed(mix_seed(s, 1))
+        keys = torch.tensor([key_words(s) for s in seeds], dtype=torch.int32,
+                            pin_memory=self.device.type == "cuda")
+        self.keys[:len(seeds)].copy_(keys, non_blocking=True)
+
+    def update(self, micro: Sequence[SceneBatch]) -> torch.Tensor:
+        """One optimizer update on ``micro`` with the generators and keys as
+        :meth:`seed` left them: ``[losses..., total, skipped]`` on the
+        device.  Reads nothing on the host (a CUDA graph captures it)."""
+        slots = self.accum_steps or len(micro)
+        if not 0 < len(micro) <= slots or not all(m.x.shape[0] for m in micro):
+            raise ValueError(f"a chained update takes 1 to {slots} micro-batches, each with a "
+                             f"scene; got {[m.x.shape[0] for m in micro]}")
+        self.model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        none = torch.zeros(2, device=self.device)
+        counts = torch.stack([batch_counts(m) for m in micro]
+                             + [none] * (slots - len(micro)))
+        values = torch.zeros(len(self.names), device=self.device)
+        for i, m in enumerate(micro):
+            total, logged = micro_loss(self.model, self.losses, m, counts[i], self.gens[i],
+                                       self.drop_gens[i], self.keys[i], self.ts_drop_rate)
+            total.backward()
+            values = values + logged
+        if slots > 1:
+            inv = 1.0 / (counts[:, 0] > 0).sum()
+            values = values * inv
+            for p in self.params:
+                if p.grad is not None:
+                    p.grad.mul_(inv)
+        grads = [p.grad for p in self.params if p.grad is not None]
+        finite = torch.stack([torch.isfinite(values[-1])]
+                             + [torch.isfinite(g).all() for g in grads]).all()
+        self.adamw.step(finite)
+        return torch.cat([values, (~finite).to(values.dtype)[None]])
+
+    def _capture(self, micro: List[SceneBatch]) -> torch.Tensor:
+        """Run ``micro``'s update on a side stream (the layout's warm-up),
+        then capture the update into a graph for its layout; returns the
+        update's logs."""
+        t0 = time.perf_counter()
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            out = self.update(micro)
+        current.wait_stream(side)
+        out.record_stream(current)
+        # the warm-up's activations go back to the card before the capture
+        # takes its own pool, so the peak is one update's, not two
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        inputs = [dataclasses.replace(m, **{f.name: v.clone() for f in dataclasses.fields(m)
+                                             if (v := getattr(m, f.name)) is not None})
+                  for m in micro]
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.gens[:len(micro)] + self.drop_gens[:len(micro)]:
+            graph.register_generator_state(gen)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        before = _read_counts()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool):
+                static = self.update(inputs)
+        except Exception as e:
+            raise RuntimeError(f"capturing the chained train step for the batch layout "
+                               f"{layout(micro)} failed: {e}") from e
+        finally:
+            recorded = [b - a for a, b in zip(before, _read_counts())]
+            for (fn, name), n in zip(launch_counters(), before):
+                setattr(fn, name, n)
+        self.captured[layout(micro)] = _Captured(graph, inputs, static, recorded)
+        self.capture_s.append(time.perf_counter() - t0)
+        self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
+        return out
+
+    def _run(self, micro: List[SceneBatch]) -> torch.Tensor:
+        if not self.graphs:
+            return self.update(micro)
+        entry = self.captured.get(layout(micro))
+        if entry is None:
+            return self._capture(micro)
+        for dst, src in zip(entry.inputs, micro):
+            for f in dataclasses.fields(dst):
+                if (v := getattr(dst, f.name)) is not None:
+                    v.copy_(getattr(src, f.name), non_blocking=True)
+        entry.graph.replay()
+        _add_counts(entry.launches)
+        return entry.out
+
+    def __call__(self, groups: Sequence[Union[SceneBatch, Sequence[SceneBatch]]], step: int,
+                 seed: int, stop: bool = False) -> Optional[Dict[str, Any]]:
+        chain = [[g] if isinstance(g, SceneBatch) else list(g) for g in groups]
+        if not chain:
+            return None
+        self.adamw.begin()
+        logs = torch.empty((len(chain), len(self.names) + 1), device=self.device)
+        scenes = 0
+        for j, micro in enumerate(chain):
+            self.seed(micro_seeds(mesh.rank_seed(mix_seed(seed, step + j)), len(micro)))
+            logs[j].copy_(self._run(micro))
+            scenes += sum(m.x.shape[0] for m in micro)
+        self.chain_logs = logs   # each update's logs, on the device
+        # the one read from the device a chain
+        *values, skipped, count = torch.cat([
+            logs[:, :-1].mean(0).double(), logs[:, -1].sum()[None].double(),
+            self.adamw.count[None]]).tolist()
+        self.adamw.finish(int(count))
+        out: Dict[str, Any] = dict(zip(self.names, values))
+        out.update({"train/step_skipped": skipped, "stop": stop, "scenes": scenes})
+        return out
+
+
+def make_chained_step(model: nn.Module, optimizer: torch.optim.Optimizer, scheduler,
+                      losses: List[Tuple[str, float, Callable]], device,
+                      ts_drop_rate: float = 0.0, accum_steps: Optional[int] = None,
+                      graphs: Optional[bool] = None) -> ChainedStep:
+    """The chained counterpart of :func:`make_train_step`
+    (:class:`ChainedStep`): ``chained(groups, step, seed, stop=False)``
+    runs one update per group and reads the device once."""
+    return ChainedStep(model, optimizer, scheduler, losses, device, ts_drop_rate=ts_drop_rate,
+                       accum_steps=accum_steps, graphs=graphs)
+
+
+def layout(item: Union[SceneBatch, Sequence]) -> tuple:
+    """The shape of every field of a ``SceneBatch``; of a group (a list),
+    its length and its first member's layout."""
+    if isinstance(item, SceneBatch):
+        return tuple(None if (v := getattr(item, f.name)) is None else tuple(v.shape)
+                     for f in dataclasses.fields(item))
+    return (len(item),) + layout(item[0])
+
+
+def group_microbatches(batches: Iterable, k: int) -> Iterator[list]:
     """``k`` batches of one layout at a time (``trajsde_tpu/train/loop.py``'s
     ``group_microbatches``): batches are buffered by the shape of every
     field, so a bucketing loader's mixed (A, L) shapes group with their own
     kind, and a group is yielded when it is full; at the end each partial
     group still trains.  The port keeps a group as a list (each micro-batch
-    runs its own forward), where JAX stacks it on a leading axis."""
-    buffers: Dict[tuple, List[SceneBatch]] = {}
+    runs its own forward), where JAX stacks it on a leading axis.  Groups
+    group again into chains the same way, keyed by :func:`layout` (a
+    partial group chains with its own kind, as JAX's stacked shapes do)."""
+    buffers: Dict[tuple, list] = {}
     for batch in batches:
-        key = tuple(None if (v := getattr(batch, f.name)) is None else tuple(v.shape)
-                    for f in dataclasses.fields(batch))
+        key = layout(batch)
         buffers.setdefault(key, []).append(batch)
         if len(buffers[key]) == k:
             yield buffers.pop(key)
@@ -345,6 +605,15 @@ class Trainer:
     (``CheckpointManager(async_save=True)``) has landed when ``fit``
     returns.
 
+    ``chain_steps = C > 1`` (``train.py --chain``) groups the groups again,
+    C of one layout at a time (axis order ``[chain,][micro,] batch``), and
+    runs each chain through :func:`make_chained_step`: C updates, on a card
+    C replays of a CUDA graph, and one read of the device.  ``state.step``
+    advances by the chain's length (a trailing partial chain still trains),
+    the logs are the chain's mean with ``train/step_skipped`` its sum, and
+    a record is written when the step crosses a multiple of ``log_every``;
+    the stop flag is read after each chain.  Single process only.
+
     Preemption: SIGTERM or SIGINT sets a flag; the
     update in flight finishes, then ``fit`` saves an unscored checkpoint,
     logs ``preempted`` and returns, so a ``--ckpt`` resume loses at most a
@@ -370,6 +639,7 @@ class Trainer:
     ts_drop_rate: float = 0.0
     profiler: Optional[Any] = None
     accum_steps: int = 1
+    chain_steps: int = 1
     epoch_logs: List[Dict[str, float]] = dataclasses.field(default_factory=list)
     preempted: bool = dataclasses.field(default=False, init=False)
 
@@ -447,9 +717,10 @@ class Trainer:
             raise ValueError(f"monitor {self.monitor!r} is not a registered metric "
                              f"({sorted(m.name for m in self.metrics)})")
         dev = resolve_device(self.device)
-        train_step = make_train_step(state.model, state.optimizer, state.scheduler,
-                                     self.losses, dev, ts_drop_rate=self.ts_drop_rate,
-                                     accum_steps=max(1, self.accum_steps))
+        chain = max(1, self.chain_steps)
+        make = make_chained_step if chain > 1 else make_train_step
+        train_step = make(state.model, state.optimizer, state.scheduler, self.losses, dev,
+                          ts_drop_rate=self.ts_drop_rate, accum_steps=max(1, self.accum_steps))
         if self.logger is not None:
             self.logger.log_scalars(state.step, self._nfe_logs(state.model))
         self.preempted = False   # a stale flag must not stop a resumed fit
@@ -461,6 +732,8 @@ class Trainer:
                 skipped = wait = 0.0
                 with contextlib.closing(device_prefetch(train_batches(), dev)) as feed:
                     groups = group_microbatches(self._feed(feed), max(1, self.accum_steps))
+                    if chain > 1:
+                        groups = group_microbatches(groups, chain)
                     while True:
                         t_wait = time.perf_counter()
                         group = next(groups, None)
@@ -473,11 +746,13 @@ class Trainer:
                         if logs is None:   # every rank's feed has ended
                             break
                         stop = logs.pop("stop")
-                        state.step += 1
-                        n_steps += 1
+                        n = len(group) if chain > 1 else 1
+                        state.step += n
+                        n_steps += n
                         scenes += logs.pop("scenes")
                         skipped += logs["train/step_skipped"]
-                        if self.logger is not None and state.step % self.log_every == 0:
+                        if (self.logger is not None and state.step // self.log_every
+                                > (state.step - n) // self.log_every):
                             self._log_step(state.step,
                                            logs | {"train/steps_skipped_cum": skipped})
                         # one rank has no one to agree with: a signal that came

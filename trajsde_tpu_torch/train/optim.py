@@ -5,11 +5,15 @@ AdamW (beta 0.9 / 0.999, eps 1e-8) with a per-step cosine decay from
 ``lr * ((1 - a) * (1 + cos(pi * min(k, K) / K)) / 2 + a)`` with
 ``a = eta_min / lr``: the curve of ``optax.cosine_decay_schedule``.
 (``CosineAnnealingLR`` computes it recursively and drifts from it.)
+
+:class:`DeviceAdamW` is the same update and schedule computed on the
+device from a device count of finite updates, for the chained train step,
+which reads nothing on the host between its updates.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 from torch import nn
@@ -35,6 +39,13 @@ def decay_mask(model: nn.Module) -> Dict[str, bool]:
 def cosine_factor(k: int, decay_steps: int, alpha: float) -> float:
     """The schedule's multiplier of ``lr`` at update ``k`` (0-based)."""
     cosine = 0.5 * (1.0 + math.cos(math.pi * min(k, decay_steps) / decay_steps))
+    return (1.0 - alpha) * cosine + alpha
+
+
+def cosine_factor_tensor(k: torch.Tensor, decay_steps: int, alpha: float) -> torch.Tensor:
+    """:func:`cosine_factor` of an f64 count ``k`` on its device, in the
+    same operations and order."""
+    cosine = 0.5 * (1.0 + torch.cos(math.pi * k.clamp(max=decay_steps) / decay_steps))
     return (1.0 - alpha) * cosine + alpha
 
 
@@ -66,7 +77,120 @@ def cosine_adamw(model: nn.Module, lr: float, weight_decay: float, t_max_epochs:
     alpha = eta_min / lr if lr else 0.0
     scheduler = torch.optim.lr_scheduler.LambdaLR(
         optimizer, lambda k: cosine_factor(k, decay_steps, alpha))
+    scheduler.cosine = (decay_steps, alpha)   # the curve, for DeviceAdamW
     return optimizer, scheduler
+
+
+class DeviceAdamW:
+    """``optimizer.step(); scheduler.step()`` of :func:`cosine_adamw`, with
+    the NaN guard, computed on the device: nothing is read on the host.
+
+    ``count`` (an f64 scalar on ``device``) is the number of finite updates,
+    the schedule's position; each update takes its learning rate from it by
+    :func:`cosine_factor_tensor` and AdamW's bias corrections from
+    ``count + 1``, in f64, then rounds each scalar to f32 where the eager
+    step's foreach kernels round the host's (optax keeps one count too).
+    The state is ``optimizer``'s own, ``exp_avg``, ``exp_avg_sq`` and
+    ``step`` of each parameter, so a checkpoint does not depend on which
+    path wrote it.  A parameter without a gradient is left alone, as AdamW
+    leaves it.
+
+    :meth:`step` takes the update's finite flag (a 0-d bool on the device):
+    where it is False the parameters, the moments, the step counts and
+    ``count`` keep their values (a snapshot and a masked copy, the JAX
+    package's guarded update).  :meth:`begin` sets ``count`` from the
+    schedule before a run of updates, :meth:`finish` moves the schedule and
+    the groups' ``lr`` to a count read back on the host.
+
+    torch's ``AdamW(capturable=True)`` refuses CPU tensors, and the chained
+    step is one function on the CPU and on the card; this class writes
+    AdamW's arithmetic in foreach operations that run on both.
+    """
+
+    def __init__(self, optimizer: torch.optim.Optimizer, scheduler, device):
+        if type(optimizer) is not torch.optim.AdamW or any(
+                g["amsgrad"] or g["maximize"] for g in optimizer.param_groups):
+            raise NotImplementedError("DeviceAdamW runs the plain AdamW of cosine_adamw "
+                                      f"(got {type(optimizer).__name__})")
+        self.optimizer, self.scheduler = optimizer, scheduler
+        self.decay_steps, self.alpha = scheduler.cosine
+        self.count = torch.zeros((), dtype=torch.float64, device=device)
+        # one snapshot buffer per state tensor, kept for the optimizer's life
+        # (a CUDA graph that captured a copy into it replays into it)
+        self._snapshots: Dict[int, torch.Tensor] = {}
+
+    def begin(self) -> None:
+        """``count`` from the schedule's position, and every ``step`` on its
+        parameter's device (eager AdamW keeps it on the host)."""
+        self.count.fill_(float(self.scheduler.last_epoch))
+        for p, st in self.optimizer.state.items():
+            if "step" in st and st["step"].device != p.device:
+                st["step"] = st["step"].to(p.device)
+
+    def finish(self, count: int) -> None:
+        """The schedule at ``count`` finite updates (read from ``count``),
+        with each group's ``lr`` the eager scheduler's after as many steps."""
+        sched = self.scheduler
+        sched._step_count += int(count) - sched.last_epoch
+        sched.last_epoch = int(count)
+        lrs = [base * lam(sched.last_epoch) for base, lam in zip(sched.base_lrs, sched.lr_lambdas)]
+        for group, lr in zip(self.optimizer.param_groups, lrs):
+            group["lr"] = lr
+        sched._last_lr = lrs
+
+    def _state(self, p: torch.Tensor) -> dict:
+        st = self.optimizer.state[p]
+        if not st:   # AdamW's lazy init
+            st["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+            st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+        return st
+
+    def _snapshot(self, live: List[torch.Tensor]) -> List[torch.Tensor]:
+        for t in live:
+            if id(t) not in self._snapshots:
+                self._snapshots[id(t)] = torch.empty_like(t)
+        return [self._snapshots[id(t)] for t in live]
+
+    @torch.no_grad()
+    def step(self, finite: torch.Tensor) -> None:
+        groups = []
+        for group, base_lr in zip(self.optimizer.param_groups, self.scheduler.base_lrs):
+            ps = [p for p in group["params"] if p.grad is not None]
+            states = [self._state(p) for p in ps]
+            if ps:
+                groups.append((group, base_lr, ps, [p.grad for p in ps],
+                               [st["exp_avg"] for st in states],
+                               [st["exp_avg_sq"] for st in states],
+                               [st["step"] for st in states]))
+        live = [t for g in groups for t in g[2] + g[4] + g[5] + g[6]]
+        snap = self._snapshot(live)
+        torch._foreach_copy_(snap, live)
+        factor = cosine_factor_tensor(self.count, self.decay_steps, self.alpha)
+        k = self.count + 1.0
+        for group, base_lr, ps, gs, ms, vs, steps in groups:
+            beta1, beta2 = group["betas"]
+            lr = base_lr * factor
+            torch._foreach_add_(steps, 1.0)
+            if group["weight_decay"] != 0:
+                torch._foreach_mul_(ps, (1.0 - lr * group["weight_decay"]).float())
+            torch._foreach_lerp_(ms, gs, 1.0 - beta1)
+            torch._foreach_mul_(vs, beta2)
+            torch._foreach_addcmul_(vs, gs, gs, 1.0 - beta2)
+            step_size = ((lr / (1.0 - beta1 ** k)) * -1.0).float()
+            denom = torch._foreach_sqrt(vs)
+            torch._foreach_div_(denom, torch.sqrt(1.0 - beta2 ** k).float())
+            torch._foreach_add_(denom, group["eps"])
+            if ps[0].device.type == "cpu":
+                # eager AdamW's addcdiv on the CPU: p + (s * m) / d
+                torch._foreach_addcdiv_(ps, torch._foreach_mul(ms, step_size), denom)
+            else:   # its foreach kernel: p + s * (m / d)
+                upd = torch._foreach_div(ms, denom)
+                torch._foreach_mul_(upd, step_size)
+                torch._foreach_add_(ps, upd)
+        for t, old in zip(live, snap):
+            torch.where(finite, t, old, out=t)
+        self.count.add_(finite.to(self.count.dtype))
 
 
 def build_optimizer(model: nn.Module, training_cfg: dict, steps_per_epoch: int,
