@@ -304,15 +304,20 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      chain's logs, weights, moments, counts and schedule bit for bit, K1-K4
      once per update under replay; the same for a chain of 2 of each of
      ``CHAIN_BUILDS``.  U3: the first chain against CHAIN eager steps:
-     update 1's logs bit-equal, every weight within ``chain_eager_bound``.
-     U4: a third chain with a NaN planted in update 2: one skip, the same
-     bits in both paths, the schedule one behind.  U5: ``train_torch.main
-     --chain CHAIN`` on J's files (one train record, the launches, its
-     weights within the bound of J's eager epoch), then ``--chain 1
-     --ckpt``.  U6: CHAIN eager updates against one graphed chain in
-     CHAIN_ROUNDS alternating rounds, ms per update by CUDA events and the
-     host clock, peak memory, the idle share under ``torch.profiler`` and
-     the capture's seconds, beside the card's name and power limit.
+     update 1's logs bit-equal, every weight outside the noise leaves (the
+     attention key biases, picked by their eager gradient) within
+     ``optim.chain_eager_bound``, which a leaf left unchanged and a chain of
+     the wrong sign fail.  U4: a third chain with a NaN planted in update
+     2: one skip, the same bits in both paths, the schedule one behind.
+     U5: ``train_torch.main --chain CHAIN`` on J's files (one train record,
+     the launches, its weights within the bound of J's eager epoch, whose
+     checkpoint must be there), then ``--chain 1 --ckpt``.  U6: CHAIN eager
+     updates against one graphed chain in CHAIN_ROUNDS alternating rounds,
+     ms per update by CUDA events and the host clock, peak memory, the idle
+     share under ``torch.profiler`` and the capture's seconds, beside the
+     card's name and power limit; in the profiled graphed chain, K1-K4's
+     kernels counted by name in the trace, once per update and equal to
+     the counters' replayed counts (the kernels line's ``chain_train``).
 Phases 4, B, C and 7 check that K4 never launches on their paths, and the
 serving and training phases that K5 and K6 never do.
 The last lines are the card, a JSON object per kernel and the device line.
@@ -326,6 +331,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -337,6 +343,7 @@ import urllib.request
 import numpy as np
 import torch
 
+from trajsde_tpu_torch import ops
 from trajsde_tpu_torch.config import (BASELINE, BASELINE_TRAIN, FLAGSHIP, FLAGSHIP_BF16,
                                       FLAGSHIP_BF16_CAPPED, FLAGSHIP_BF16_FUSED,
                                       FLAGSHIP_CAPPED, FLAGSHIP_FUSED,
@@ -361,8 +368,10 @@ from trajsde_tpu_torch.deploy import export_serving, load_serving
 from trajsde_tpu_torch.server import ServingEngine, align_scene, make_postprocess
 from trajsde_tpu_torch.serving import make_scan_fn, make_serving_fn
 from trajsde_tpu_torch.train.checkpoint import CheckpointManager, save_weights
-from trajsde_tpu_torch.train.loop import (Trainer, create_train_state, make_chained_step,
+from trajsde_tpu_torch.train.loop import (ChainedStep, Trainer, create_train_state,
                                           make_train_step, micro_seeds)
+from trajsde_tpu_torch.train.optim import (NOISE_NAMES, chain_eager_bound, largest_gap,
+                                           noise_leaves)
 from trajsde_tpu_torch.utils.convert import to_reference
 
 NUM_ACTORS, NUM_LANES = 48, 192
@@ -535,16 +544,10 @@ CHAIN, CHAIN_ROUNDS = 4, 3
 CHAIN_BUILD_BATCH = 32
 CHAIN_BUILDS = {"FLAGSHIP_TRAIN": FLAGSHIP_TRAIN, "FLAGSHIP_FUSED": FLAGSHIP_FUSED,
                 "FLAGSHIP": FLAGSHIP}
-
-
-def chain_eager_bound(lr: float, updates: int) -> float:
-    """How far a weight of a chain of ``updates`` may lie from the eager
-    steps' (tests/test_torch_chain.py states and explains it; on the CPU
-    the distance is 0): update 1 is the eager update's bits; from update 2
-    on, an ulp of a weight where the chained AdamW rounds otherwise becomes,
-    through a gradient that is rounding noise (the attention key biases),
-    up to one Adam step of about lr, each way."""
-    return 3.0 * lr * (updates - 1)
+# the kernel (its __global__ name) behind each of K1-K4's counters, counted
+# in U6's profiler trace of a graphed chain
+CHAIN_KERNELS = {"sde_rollout": "rollout_kernel", "sde_rollout_bwd": "rollout_bwd_kernel",
+                 "aa_fused": "aa_fused_kernel", "aa_fused_bwd": "aa_fused_bwd_kernel"}
 
 
 # H100 SXM published peaks (dense): f32 on CUDA cores, TF32, bf16 and f64
@@ -739,10 +742,7 @@ def _check_results(results, n, model):
 
 def zero_counts() -> None:
     """Every kernel's launch count to 0 (just before a path is driven)."""
-    K1.sde_rollout.launches = K1.sde_rollout_bwd.launches = 0
-    K3.fused_pair_attention.launches = K3.fused_pair_attention_bwd.launches = 0
-    K3.fused_pair_attention.bf16_launches = K3.fused_pair_attention_bwd.bf16_launches = 0
-    K5.aa_attention.launches = K6.chained_tanh.launches = 0
+    ops.zero_counts()
 
 
 def phase_serve(engine, model, tag: str = "serve"):
@@ -4300,9 +4300,8 @@ def _chain_pair(cfg, batches: list, chains: int, tag: str, nan_at=None) -> dict:
         model = build_model(cfg, device="cuda", seed=SEED)
         state = create_train_state(model, cfg["training_specific"], steps_per_epoch=64,
                                    seed=SEED)
-        step = make_chained_step(model, state.optimizer, state.scheduler, losses,
-                                 torch.device("cuda"), accum_steps=1,
-                                 graphs=mode == "graphed")
+        step = ChainedStep(model, state.optimizer, state.scheduler, losses,
+                           torch.device("cuda"), accum_steps=1, graphs=mode == "graphed")
         out[mode] = dict(state=state, step=step, bits=[], logs=[], launches=[], skipped=[])
     for c in range(chains):
         chain = list(batches)
@@ -4333,8 +4332,11 @@ def _chain_graph(card: str, batches: list, small: list) -> dict:
     graphed chains of CHAIN (the first's update 1 runs uncaptured while the
     graph is captured, the rest replay) against the uncaptured chained
     function from the same state, bit for bit, K1-K4 once per update; U3 the
-    first chain against CHAIN eager steps within :func:`chain_eager_bound`;
-    U4 a third chain with a NaN planted in update 2: one skip, the same bits
+    first chain against CHAIN eager steps: update 1's logs bit-equal, every
+    weight outside the noise leaves (``optim.noise_leaves`` of the eager
+    gradient, which must be the attention key biases) within
+    ``chain_eager_bound``, which a leaf left unchanged and a chain of the
+    wrong sign must fail; U4 a third chain with a NaN planted in update 2: one skip, the same bits
     in both paths.  First the other builds' graphed chain of 2 on ``small``
     (two batches of CHAIN_BUILD_BATCH)."""
     builds = {}
@@ -4382,31 +4384,52 @@ def _chain_graph(card: str, batches: list, small: list) -> dict:
                             torch.device("cuda"))
     eager_logs = torch.stack([torch.stack(list(eager(b, k, SEED).values())[:3])
                               for k, b in enumerate(batches)])
-    first = graphed["bits"][0]["model"]
-    dist = max((first[k] - v).abs().max().item() for k, v in model.state_dict().items())
+    noise = noise_leaves({n: p.grad for n, p in model.named_parameters()})
+    keys = sorted(n for n, _ in model.named_parameters() if re.search(NOISE_NAMES, n))
+    check(noise == keys, f"[chain] U3: the leaves whose eager gradient is rounding noise are "
+          f"{noise}, not the attention key biases {keys}")
+    first, after = graphed["bits"][0]["model"], model.state_dict()
+    start = build_model(cfg, device="cuda", seed=SEED).state_dict()
     bound = chain_eager_bound(cfg["training_specific"]["lr"], CHAIN)
+    dist, leaf = largest_gap(first, after, noise)
+    noise_dist = max(largest_gap({k: first[k]}, {k: after[k]})[0] for k in noise)
+    # the bar must fail a chain that left any one trained leaf where it
+    # started, or that stepped every weight the other way (a leaf whose
+    # gradient is 0, the scale head under these losses, does not move)
+    trained = [n for n, p in model.named_parameters()
+               if p.grad is not None and p.grad.abs().max() > 0 and n not in noise]
+    unchanged = min(largest_gap({k: start[k]}, {k: after[k]})[0] for k in trained)
+    flipped = largest_gap({k: 2 * v - after[k] for k, v in start.items()}, after, noise)[0]
     chain_logs = graphed["logs"][0][:, :3]
+    log_rel = ((chain_logs - eager_logs).abs() / eager_logs.abs()).max().item()
+    print(f"[chain] U3: chain of {CHAIN} vs {CHAIN} eager steps: max |weight difference| "
+          f"{dist:.3e} at {leaf} outside the {len(noise)} noise leaves (bound {bound:.3e} = "
+          f"chain_eager_bound(lr, {CHAIN})), {noise_dist:.3e} on them; a leaf left unchanged "
+          f"lies at least {unchanged:.3e} from the eager steps', a chain of the wrong sign "
+          f"{flipped:.3e}; update 1's logs bit-equal, the rest within {log_rel:.2e} relative",
+          flush=True)
     check(torch.equal(chain_logs[0], eager_logs[0]),
           "[chain] U3: update 1's logs differ from the eager step's")
-    log_rel = ((chain_logs - eager_logs).abs() / eager_logs.abs()).max().item()
-    check(dist <= bound, f"[chain] U3: a weight lies {dist:.3e} from the eager steps' "
+    check(dist <= bound, f"[chain] U3: {leaf} lies {dist:.3e} from the eager steps' "
           f"(bound {bound:.3e})")
-    print(f"[chain] U3: chain of {CHAIN} vs {CHAIN} eager steps: max |weight difference| "
-          f"{dist:.3e} (bound {bound:.3e} = chain_eager_bound(lr, {CHAIN})); update 1's logs "
-          f"bit-equal, the rest within {log_rel:.2e} relative", flush=True)
-    out["u3"] = dict(max_weight_diff=dist, bound=bound, log_rel=log_rel)
+    check(unchanged > bound and flipped > bound,
+          f"[chain] U3: the bound {bound:.3e} passes an unchanged leaf ({unchanged:.3e}) or a "
+          f"chain of the wrong sign ({flipped:.3e})")
+    out["u3"] = dict(max_weight_diff=dist, leaf=leaf, bound=bound, noise_leaves=noise,
+                     noise_diff=noise_dist, unchanged=unchanged, flipped=flipped,
+                     log_rel=log_rel)
     out["eager"] = dict(state=state, step=eager)
     out["builds"] = builds
     return out
 
 
-def _chain_cli(d: str) -> dict:
+def _chain_cli(d: str, noise: list) -> dict:
     """U5. ``train_torch.main --chain CHAIN`` on phase I's npz files under
     phase J's ``FLAGSHIP_H100`` config: one epoch (FILE_BATCHES updates, one
     chain; K1-K4 once per update, K1 and K3 once per eval batch; one train
-    record), its weights after the epoch within :func:`chain_eager_bound`
-    of phase J's eager epoch on the same files and seed, then a resume
-    under ``--chain 1``."""
+    record), its weights after the epoch within ``chain_eager_bound`` of
+    phase J's eager epoch on the same files and seed outside U3's
+    ``noise`` leaves, then a resume under ``--chain 1``."""
     import train_torch
 
     cfg_path = os.path.join(d, "h100.json")
@@ -4448,19 +4471,29 @@ def _chain_cli(d: str) -> dict:
             check(records == [FILE_BATCHES], f"[chain cli] train records at {records}, not one "
                   f"after the chain of {FILE_BATCHES}")
             eager_path = os.path.join(logdir, "cli", "checkpoints", f"step_{FILE_BATCHES:08d}")
-            if os.path.isdir(eager_path):
-                eager = torch.load(os.path.join(eager_path, "state.pt"), map_location="cuda",
-                                   weights_only=True)["model"]
-                dist = max((v - eager[k]).abs().max().item()
-                           for k, v in state.model.state_dict().items())
-                bound = chain_eager_bound(FLAGSHIP_H100["training_specific"]["lr"],
-                                          FILE_BATCHES)
-                check(dist <= bound, f"[chain cli] the chained epoch's weights lie {dist:.3e} "
-                      f"from phase J's eager epoch (bound {bound:.3e})")
-                out["vs_eager_epoch"] = dict(max_weight_diff=dist, bound=bound)
-                print(f"[chain] U5: the chained epoch's weights vs phase J's eager epoch on the "
-                      f"same files and seed: max |difference| {dist:.3e} (bound {bound:.3e})",
-                      flush=True)
+            check(os.path.isdir(eager_path), f"[chain cli] phase J's eager checkpoint "
+                  f"{eager_path} is missing: nothing to hold the chained epoch against")
+            eager = torch.load(os.path.join(eager_path, "state.pt"), map_location="cuda",
+                               weights_only=True)["model"]
+            chained = state.model.state_dict()
+            dist, leaf = largest_gap(chained, eager, noise)
+            noise_dist = max(largest_gap({k: chained[k]}, {k: eager[k]})[0] for k in noise)
+            bound = chain_eager_bound(FLAGSHIP_H100["training_specific"]["lr"], FILE_BATCHES)
+            # the chain's last gradient at the entry that lies furthest, beside
+            # its leaf's largest: whether that entry's gradient is rounding noise
+            grad = state.model.get_parameter(leaf).grad
+            at = (chained[leaf] - eager[leaf]).abs().argmax()
+            grads = ("not kept" if grad is None else
+                     f"{grad.flatten()[at].abs().item():.3e} there, {grad.abs().max().item():.3e} "
+                     f"its leaf's largest")
+            out["vs_eager_epoch"] = dict(max_weight_diff=dist, leaf=leaf, bound=bound,
+                                         noise_diff=noise_dist, grads=grads)
+            print(f"[chain] U5: the chained epoch's weights vs phase J's eager epoch on the "
+                  f"same files and seed: max |difference| {dist:.3e} at {leaf} outside the "
+                  f"noise leaves (bound {bound:.3e}), {noise_dist:.3e} on them; the chain's last "
+                  f"|gradient| {grads}", flush=True)
+            check(dist <= bound, f"[chain cli] {leaf} of the chained epoch lies {dist:.3e} "
+                  f"from phase J's eager epoch (bound {bound:.3e})")
     return out
 
 
@@ -4468,7 +4501,10 @@ def _chain_turns(card: str, graph: dict, batches: list) -> dict:
     """U6. In CHAIN_ROUNDS alternating rounds, CHAIN eager updates against
     one graphed chain of CHAIN on the same batches: ms per update by CUDA
     events and by the host clock (each synchronized), peak memory; then the
-    device's idle share under ``torch.profiler`` over each."""
+    device's idle share under ``torch.profiler`` over each, and K1-K4's
+    kernels counted by name in each trace: the graphed chain's must run
+    each once per update, as many times as its replays added to the
+    counters."""
     from torch.profiler import ProfilerActivity, profile
 
     state_g, chained = graph["graphed"]["state"], graph["graphed"]["step"]
@@ -4497,15 +4533,25 @@ def _chain_turns(card: str, graph: dict, batches: list) -> dict:
                    host_median=statistics.median(v["host"])) for k, v in times.items()}
     for k, fn in fns.items():
         torch.cuda.synchronize()
+        zero_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0)
+        counted = _counts()
         busy = sum(e.self_device_time_total for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        traced = {c: sum(bool(re.search(rf"\b{kernel}\b", n)) for n in names)
+                  for c, kernel in CHAIN_KERNELS.items()}
         out[k].update(profiled_wall_ms=wall, busy_ms=busy,
-                      idle_share=1.0 - busy / wall if busy > 0 else None)
+                      idle_share=1.0 - busy / wall if busy > 0 else None,
+                      traced=traced, counted=counted)
+    traced, counted = out["chained"]["traced"], out["chained"]["counted"]
+    check(all(n == CHAIN == counted[c] for c, n in traced.items()),
+          f"[chain] U6: the profiled graphed chain of {CHAIN} ran K1-K4's kernels {traced} times "
+          f"by the trace, and the counters added {counted}")
     out["capture_s"] = chained.capture_s[0]
     out["pool_gib"] = chained.pool_bytes / 2**30
     out["reserved_gib"] = torch.cuda.memory_reserved() / 2**30
@@ -4519,7 +4565,8 @@ def _chain_turns(card: str, graph: dict, batches: list) -> dict:
               f"{k} {out[k]['profiled_wall_ms']:.1f} ms, busy {out[k]['busy_ms']:.1f} ms, idle "
               + (f"{out[k]['idle_share']:.3f}" if out[k]["idle_share"] is not None
                  else "not measured (no device events)") for k in fns)
-          + f"; capture {out['capture_s']:.2f} s; the graph's pool {out['pool_gib']:.2f} GiB "
+          + f"; K1-K4's kernels in the profiled graphed chain's trace {traced}, the counters "
+          f"{ {c: counted[c] for c in traced} }; capture {out['capture_s']:.2f} s; the graph's pool {out['pool_gib']:.2f} GiB "
           f"(the chained update's activations: replays allocate nothing else, so its peak "
           f"reads low); reserved in all {out['reserved_gib']:.2f} GiB",
           flush=True)
@@ -4539,11 +4586,14 @@ def phase_chain(d: str, card: str) -> dict:
     small = [_train_batch(rng, CHAIN_BUILD_BATCH).to("cuda") for _ in range(2)]
     graph = _chain_graph(card, batches, small)
     torch.cuda.empty_cache()
-    cli = _chain_cli(d)
+    cli = _chain_cli(d, graph["u3"]["noise_leaves"])
     torch.cuda.empty_cache()
     turns = _chain_turns(card, graph, batches)
-    out = dict(keys=keys, launches=graph["graphed"]["launches"][0], u3=graph["u3"],
-               builds=graph["builds"], cli=cli, turns=turns)
+    # chain_train's launches: K1-K4 as the trace of a graphed chain saw them,
+    # K5 and K6 (on no training path) as the counters read them
+    launches = dict(graph["graphed"]["launches"][0], **turns["chained"]["traced"])
+    out = dict(keys=keys, launches=launches, u3=graph["u3"], builds=graph["builds"], cli=cli,
+               turns=turns)
     del graph, batches
     torch.cuda.empty_cache()
     print(f"[chain] phase U: {time.perf_counter() - t_phase:.1f} s", flush=True)

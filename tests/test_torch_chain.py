@@ -5,9 +5,12 @@ uncaptured (on a card each update is one replay of its CUDA graph).
 * a chain of 3 against three sequential ``jax.value_and_grad`` + optax
   AdamW / cosine updates with pinned noise (``tests/test_torch_accum.py``'s
   pattern): each update's loss rtol 2e-4, every leaf after the chain within
-  2e-3 x scale + 1e-6, with Adam's eps at ``EPS`` on both sides;
+  2e-3 x scale + 1e-6, with Adam's eps at ``EPS`` on both sides; and at the
+  configured eps (1e-8), every leaf but the rounding-noise ones
+  (``optim.noise_leaves`` of JAX's gradients: the attention key biases);
 * the chain against three eager (``--chain 1``) steps: bit for bit on the
-  CPU, within :func:`chain_eager_bound` anywhere;
+  CPU (on a card within ``optim.chain_eager_bound``, which an unchanged
+  state and an update of the wrong sign fail);
 * a NaN planted in update 2 of 3: ``train/step_skipped`` sums to 1, and the
   weights, the moments and the count are JAX's guarded update's;
 * the logs aggregated as JAX's ``chained_step`` aggregates them, and the
@@ -19,6 +22,7 @@ uncaptured (on a card each update is one replay of its CUDA graph).
 import copy
 import json
 import math
+import re
 
 import jax
 import jax.numpy as jnp
@@ -33,8 +37,10 @@ from trajsde_tpu.train.optim import decay_mask as jax_decay_mask
 from trajsde_tpu_torch.bridge import adamw_state_from_optax, params_from_flax
 from trajsde_tpu_torch.config import build_losses
 from trajsde_tpu_torch.train import logging as tlogging
-from trajsde_tpu_torch.train.loop import (Trainer, create_train_state, make_chained_step,
+from trajsde_tpu_torch.train.loop import (ChainedStep, Trainer, create_train_state,
                                           make_train_step)
+from trajsde_tpu_torch.train.optim import (NOISE_NAMES, chain_eager_bound, largest_gap,
+                                           noise_leaves)
 
 import train_torch
 from _torch_helpers import (check_leaves, model_pair, noise_for, scene_pair, small_cfg, t,
@@ -44,30 +50,15 @@ torch.set_num_threads(1)
 B, A, L = 2, 5, 6
 C = 3
 TRAINING = {"lr": 0.003, "weight_decay": 0.01, "T_max": 1, "nodecay": True}
-# Adam's eps in the comparison with JAX.  At the default 1e-8, Adam turns
-# the rounding noise of a gradient that is zero in exact arithmetic (every
-# attention key bias: the softmax does not see it; |g| ~ 1e-9 here) into a
-# step of up to lr, and JAX's noise is not the port's, so those leaves
-# would differ by a step whatever either side computes.  At 1e-4 such a
-# step is 1e-5 lr, while the other gradients (1e-3 to 1) still take steps
-# of about lr.
+# Adam's eps in the comparison with JAX of every leaf.  At the configured
+# 1e-8, Adam turns the rounding noise of a gradient that is zero in exact
+# arithmetic (every attention key bias: the softmax does not see it; |g|
+# ~ 1e-10 here, ``optim.NOISE_GRAD``) into a step of up to lr, and JAX's
+# noise is not the port's, so those leaves differ by a step whatever
+# either side computes.  At 1e-4 such a step is 1e-6 lr, while the other
+# gradients (2e-3 to 1) still take steps of about lr.
 EPS = 1e-4
-
-
-def chain_eager_bound(lr: float, updates: int) -> float:
-    """How far a weight of a chain of ``updates`` may lie from the eager
-    steps' on any device.  Update 1 sees the same weights and draws, so its
-    gradients are the eager step's bits.  The chained AdamW rounds its last
-    operations where the eager kernel may round otherwise (on the CPU it
-    runs eager AdamW's own order, and the learning rate, an f64 cosine on a
-    device count against the host's ``math.cos``, rounds to the same f32
-    there), so from update 2 on a weight may be an ulp off; a gradient that
-    is rounding noise (an attention key's bias, which the softmax does not
-    see) then turns that into up to a whole Adam step, lr times
-    |m_hat| / sqrt(v_hat) <= 1.01 at t <= 5.  Two runs apart by a step each
-    way per update after the first: 2 lr (updates - 1), and half as much
-    again for the weight decay and the moments' own drift."""
-    return 3.0 * lr * (updates - 1)
+CONFIGURED_EPS = 1e-8
 
 
 def _cfg(fused=False, drop=0.0):
@@ -92,10 +83,7 @@ class _Pinned(nn.Module):
         return self.model(scene, enc_noise=en, twin_noise=tw, dec_noise=de)
 
 
-def _jax_updates(jm, params, tx, batches, noises):
-    """Sequential ``value_and_grad`` + optax updates with JAX's NaN guard (a
-    non-finite loss or gradient leaves the parameters and the optimizer
-    state as they were): (losses, params, opt_state)."""
+def _jax_value_and_grad(jm):
     def jax_loss(p, js, en, tw, de):
         def fwd(m, scene):
             local, d_in, d_out, l_in, l_out = m.encoder(scene, True, en, tw)
@@ -107,18 +95,28 @@ def _jax_updates(jm, params, tx, batches, noises):
         out, y = jm.apply(p, js, method=fwd)
         return jlosses.l2_loss(y, out) + jlosses.diff_bce_loss(y, out)
 
-    vg = jax.jit(jax.value_and_grad(jax_loss))
+    return jax.jit(jax.value_and_grad(jax_loss))
+
+
+def _jax_updates(vg, params, tx, batches, noises):
+    """Sequential ``value_and_grad`` + optax updates with JAX's NaN guard (a
+    non-finite loss or gradient leaves the parameters and the optimizer
+    state as they were): (losses, params, opt_state, each leaf's largest
+    |gradient| over the updates, by the port's names)."""
     opt_state = tx.init(params)
-    losses = []
+    losses, largest = [], {}
     for js, n in zip(batches, noises):
         loss, grads = vg(params, js, *n)
         losses.append(float(loss))
+        for k, g in params_from_flax(jax.tree.map(np.asarray, grads)).items():
+            g = torch.as_tensor(g).abs().max() if g.size else torch.zeros(())
+            largest[k] = torch.maximum(largest.get(k, g), g)
         finite = np.isfinite(float(loss)) and all(
             bool(jnp.isfinite(g).all()) for g in jax.tree.leaves(grads))
         if finite:
             updates, opt_state = tx.update(grads, opt_state, params)
             params = optax.apply_updates(params, updates)
-    return losses, params, opt_state
+    return losses, params, opt_state, largest
 
 
 @pytest.fixture(scope="module")
@@ -131,30 +129,35 @@ def jax_chain():
     jm, params, tm = model_pair(cfg, pairs[0][0])
     noises = [noise_for(cfg, B, A, seed=s) for s in (71, 72, 73)]
     tr = cfg["training_specific"]
-    # trajsde_tpu/train/optim.py's cosine_adamw, with eps=EPS
-    tx = optax.adamw(optax.cosine_decay_schedule(tr["lr"], tr["T_max"] * C, 0.0),
-                     weight_decay=tr["weight_decay"], eps=EPS, mask=jax_decay_mask)
+
+    def tx(eps):   # trajsde_tpu/train/optim.py's cosine_adamw, at Adam's eps
+        return optax.adamw(optax.cosine_decay_schedule(tr["lr"], tr["T_max"] * C, 0.0),
+                           weight_decay=tr["weight_decay"], eps=eps, mask=jax_decay_mask)
+
+    vg = _jax_value_and_grad(jm)
     js = [j for j, _ in pairs]
-    clean = _jax_updates(jm, params, tx, js, noises)
+    clean = _jax_updates(vg, params, tx(EPS), js, noises)
+    configured = _jax_updates(vg, params, tx(CONFIGURED_EPS), js, noises)
     bad = copy.deepcopy(pairs[1][1])
     bad.y[0, 0, 0, 0] = float("nan")
     js_bad = list(js)
     js_bad[1] = js[1].replace(y=jnp.asarray(bad.y.numpy()))
-    guarded = _jax_updates(jm, params, tx, js_bad, noises)
+    guarded = _jax_updates(vg, params, tx(EPS), js_bad, noises)
     return dict(cfg=cfg, tm=tm, scenes=[s for _, s in pairs], bad=bad,
-                noise=[tuple(t(a) for a in n) for n in noises], clean=clean, guarded=guarded)
+                noise=[tuple(t(a) for a in n) for n in noises], clean=clean, guarded=guarded,
+                configured=configured)
 
 
-def _chain(jc, scenes):
-    """The port's chain of ``scenes`` on a copy of the bridged weights:
-    (model, state, chained step, logs)."""
+def _chain(jc, scenes, eps=EPS):
+    """The port's chain of ``scenes`` on a copy of the bridged weights, at
+    Adam's ``eps``: (model, state, chained step, logs)."""
     model = copy.deepcopy(jc["tm"])
     pinned = _Pinned(model, {id(s): n for s, n in zip(scenes, jc["noise"])})
     state = create_train_state(model, jc["cfg"]["training_specific"], steps_per_epoch=C)
     for group in state.optimizer.param_groups:
-        group["eps"] = EPS
-    chained = make_chained_step(pinned, state.optimizer, state.scheduler,
-                                build_losses(jc["cfg"]), "cpu", accum_steps=1)
+        group["eps"] = eps
+    chained = ChainedStep(pinned, state.optimizer, state.scheduler, build_losses(jc["cfg"]),
+                          "cpu", accum_steps=1)
     logs = chained(scenes, 0, 0)
     return model, state, chained, logs
 
@@ -162,12 +165,30 @@ def _chain(jc, scenes):
 def test_chain_of_3_meets_three_sequential_jax_updates(jax_chain):
     jc = jax_chain
     model, state, chained, logs = _chain(jc, jc["scenes"])
-    losses, params, _ = jc["clean"]
+    losses, params, _, _ = jc["clean"]
     per_update = chained.chain_logs[:, -2].tolist()   # train/total of each update
     np.testing.assert_allclose(per_update, losses, rtol=2e-4)
     check_leaves({n: p.detach() for n, p in model.named_parameters()},
                  params_from_flax(jax.tree.map(np.asarray, params)))
     assert logs["train/step_skipped"] == 0.0 and state.scheduler.last_epoch == C
+
+
+def test_chain_of_3_meets_jax_at_the_configured_eps_but_the_noise_leaves(jax_chain):
+    """At Adam's configured eps (1e-8) the losses meet JAX's at rtol 2e-4
+    and every leaf at 2e-3 x scale + 1e-6, but the leaves whose JAX
+    gradient is rounding noise (``noise_leaves``: 0 < max|g| < NOISE_GRAD
+    over the three updates), which are the attention key biases and
+    nothing else."""
+    jc = jax_chain
+    model, _, chained, _ = _chain(jc, jc["scenes"], eps=CONFIGURED_EPS)
+    losses, params, _, largest = jc["configured"]
+    np.testing.assert_allclose(chained.chain_logs[:, -2].tolist(), losses, rtol=2e-4)
+    noise = noise_leaves(largest)
+    names = [n for n, _ in model.named_parameters()]
+    assert noise and noise == sorted(n for n in names if re.search(NOISE_NAMES, n))
+    want = params_from_flax(jax.tree.map(np.asarray, params))
+    check_leaves({n: p.detach() for n, p in model.named_parameters() if n not in noise},
+                 {n: w for n, w in want.items() if n not in noise})
 
 
 def _moments(optimizer, model):
@@ -186,7 +207,7 @@ def test_a_nan_in_update_2_of_3_is_jax_guarded_update(jax_chain):
     model, state, chained, logs = _chain(jc, scenes)
     assert logs["train/step_skipped"] == 1.0 and math.isnan(logs["train/total"])
     assert chained.chain_logs[:, -1].tolist() == [0.0, 1.0, 0.0]
-    _, params, opt_state = jc["guarded"]
+    _, params, opt_state, _ = jc["guarded"]
     check_leaves({n: p.detach() for n, p in model.named_parameters()},
                  params_from_flax(jax.tree.map(np.asarray, params)))
     want, position = adamw_state_from_optax(opt_state, model, state.optimizer)
@@ -237,8 +258,9 @@ def test_chain_is_the_eager_steps_bit_for_bit_on_the_cpu(fused_model, enc_fused,
     keys read from the chain's buffer: three chained updates give the
     eager steps' weights, moments, schedule and logs bit for bit on the
     CPU (and with a NaN in update 2, the eager guard's), on each build the
-    chain runs; on a card the bar is :func:`chain_eager_bound`, which the
-    CPU's 0 meets."""
+    chain runs.  On a card the bar is ``chain_eager_bound`` outside the
+    noise leaves: the CPU's 0 meets it, the unchanged state and a chain
+    that stepped each weight the other way fail it."""
     cfg, base = fused_model
     if not (enc_fused and dec_fused):
         cfg = _cfg(fused=False, drop=0.1)
@@ -254,8 +276,8 @@ def test_chain_is_the_eager_steps_bit_for_bit_on_the_cpu(fused_model, enc_fused,
     eager = make_train_step(states[0].model, states[0].optimizer, states[0].scheduler, losses,
                             "cpu", ts_drop_rate=0.2)
     eager_logs = [eager(s, 4 + k, 9) for k, s in enumerate(scenes)]
-    chained = make_chained_step(states[1].model, states[1].optimizer, states[1].scheduler,
-                                losses, "cpu", ts_drop_rate=0.2, accum_steps=1)
+    chained = ChainedStep(states[1].model, states[1].optimizer, states[1].scheduler, losses,
+                          "cpu", ts_drop_rate=0.2, accum_steps=1)
     logs = chained(scenes, 4, 9)
     assert _states_equal(*states)
     want = torch.stack([torch.stack([*(l[n] for n in chained.names),
@@ -263,9 +285,12 @@ def test_chain_is_the_eager_steps_bit_for_bit_on_the_cpu(fused_model, enc_fused,
     torch.testing.assert_close(chained.chain_logs, want, rtol=0, atol=0, equal_nan=True)
     assert logs["train/step_skipped"] == (0.0 if nan_at is None else 1.0)
     assert logs["scenes"] == C * B and logs["stop"] is False
-    lr = cfg["training_specific"]["lr"]
-    for a, b in zip(states[0].model.parameters(), states[1].model.parameters()):
-        assert (a - b).abs().max() <= chain_eager_bound(lr, C)
+    bound = chain_eager_bound(cfg["training_specific"]["lr"], C)
+    noise = noise_leaves({n: p.grad for n, p in states[0].model.named_parameters()})
+    start, after = base.state_dict(), states[0].model.state_dict()
+    assert largest_gap(states[1].model.state_dict(), after, noise)[0] <= bound
+    assert largest_gap(start, after, noise)[0] > bound
+    assert largest_gap({k: 2 * v - after[k] for k, v in start.items()}, after, noise)[0] > bound
 
 
 def test_logs_are_aggregated_as_jax_chained_step_and_logged_on_its_cadence(fused_model):
@@ -291,8 +316,8 @@ def test_logs_are_aggregated_as_jax_chained_step_and_logged_on_its_cadence(fused
     assert rows[1][1]["train/step_skipped"] == 0.0 and rows[1][1]["train/steps_skipped_cum"] == 1.0
     assert trainer.epoch_logs[-1]["train/steps_skipped"] == 1.0
 
-    chained = make_chained_step(state.model, state.optimizer, state.scheduler,
-                                build_losses(cfg), "cpu", accum_steps=1)
+    chained = ChainedStep(state.model, state.optimizer, state.scheduler, build_losses(cfg),
+                          "cpu", accum_steps=1)
     logs = chained(scenes[:3], 7, 0)
     per = chained.chain_logs.numpy()
     logs_c = {n: jnp.asarray(per[:, i]) for i, n in enumerate(chained.names)}
@@ -378,7 +403,7 @@ def test_a_state_converted_from_optax_resumes_under_the_chain_as_under_eager(jax
     from scripts.orbax_to_torch import position_schedule
 
     jc = jax_chain
-    _, params, opt_state = jc["clean"]
+    _, params, opt_state, _ = jc["clean"]
     states = []
     for _ in range(2):
         model = copy.deepcopy(jc["tm"])
@@ -395,8 +420,8 @@ def test_a_state_converted_from_optax_resumes_under_the_chain_as_under_eager(jax
     eager = make_train_step(pinned[0], states[0].optimizer, states[0].scheduler, losses, "cpu")
     for k, scene in enumerate(scenes):
         eager(scene, C + k, 0)
-    chained = make_chained_step(pinned[1], states[1].optimizer, states[1].scheduler, losses,
-                                "cpu", accum_steps=1)
+    chained = ChainedStep(pinned[1], states[1].optimizer, states[1].scheduler, losses, "cpu",
+                          accum_steps=1)
     chained(scenes, C, 0)
     assert states[1].scheduler.last_epoch == C + 2
     assert _states_equal(*states)

@@ -1142,12 +1142,12 @@ def _chained_states(cuda, cfg, chains, accum, graphs):
     chained step of a seeded ``cfg`` model: (each chain's logs, the
     kernels' launches, weights, AdamW state, schedule)."""
     from trajsde_tpu_torch.config import build_losses, build_model
-    from trajsde_tpu_torch.train.loop import create_train_state, make_chained_step
+    from trajsde_tpu_torch.train.loop import ChainedStep, create_train_state
 
     model = build_model(cfg, device=cuda, seed=6)
     state = create_train_state(model, cfg["training_specific"], steps_per_epoch=8, seed=4)
-    step = make_chained_step(model, state.optimizer, state.scheduler, build_losses(cfg), cuda,
-                             accum_steps=accum, graphs=graphs)
+    step = ChainedStep(model, state.optimizer, state.scheduler, build_losses(cfg), cuda,
+                       accum_steps=accum, graphs=graphs)
     counters = (K.sde_rollout, K.sde_rollout_bwd, K3.fused_pair_attention,
                 K3.fused_pair_attention_bwd)
     before = [c.launches for c in counters]

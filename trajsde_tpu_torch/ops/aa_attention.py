@@ -25,6 +25,7 @@ from typing import Dict
 
 import torch
 
+from trajsde_tpu_torch.ops import counted
 from trajsde_tpu_torch.ops.aa_fused import (KERNEL_DIM, KERNEL_HEAD_COUNTS, W_ORDER, _check,
                                             _device_kind, _entry, _entry_name, _grid,
                                             build_pair_features, fused_pair_attention_reference,
@@ -148,4 +149,4 @@ def aa_attention(center_norm: torch.Tensor, x_k: torch.Tensor, pos_q: torch.Tens
     return aa_attention_reference(center_norm, x_k, pos_q, pos_k, rot, mask, packed, num_heads)
 
 
-aa_attention.launches = 0
+counted(aa_attention, "launches")

@@ -40,6 +40,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from trajsde_tpu_torch.ops import counted
+
 NEG = -1e9
 LN_EPS = 1e-5
 # packed weight order (aa_fused.py W_ORDER); matrices [in, out], vectors [1, n]
@@ -541,8 +543,7 @@ def fused_pair_attention_bwd(q, u, mask_f, keep, ws: Sequence[torch.Tensor], g: 
                                               compute_dtype, ln_mm)
 
 
-fused_pair_attention_bwd.launches = 0
-fused_pair_attention_bwd.bf16_launches = 0
+counted(fused_pair_attention_bwd, "launches", "bf16_launches")
 
 
 class FusedPairAttentionFn(torch.autograd.Function):
@@ -606,8 +607,7 @@ def fused_pair_attention(q: torch.Tensor, u: torch.Tensor, mask_f: torch.Tensor,
     return aa_fused_op(q, u, mask_f, keep, list(ws), num_heads, dropout_rate, False)[0]
 
 
-fused_pair_attention.launches = 0
-fused_pair_attention.bf16_launches = 0
+counted(fused_pair_attention, "launches", "bf16_launches")
 
 
 def fused_aa_aggregate(q: torch.Tensor, x_k: torch.Tensor, edge_vec: torch.Tensor,

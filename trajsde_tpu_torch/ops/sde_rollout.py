@@ -35,6 +35,8 @@ from typing import Dict, Optional
 
 import torch
 
+from trajsde_tpu_torch.ops import counted
+
 # the 14 rollout weights in the kernels' packed layout (csrc/rollout_common.cuh)
 PARAM_ORDER = ("wf0", "wf1", "wf2", "wg0", "wg1", "wf0t", "wg0t",
                "bf0", "bf1", "bf2", "bg0", "bg1", "wgo", "bgo")
@@ -436,7 +438,7 @@ def sde_rollout(y0: torch.Tensor, params: Dict[str, torch.Tensor], t0s: torch.Te
     return sde_rollout_packed(y0, w, t0s, dts, seed, num_steps, noise, increments)
 
 
-sde_rollout.launches = 0
+counted(sde_rollout, "launches")
 
 
 def sde_rollout_packed(y0: torch.Tensor, w: torch.Tensor, t0s: torch.Tensor, dts: torch.Tensor,
@@ -512,7 +514,7 @@ def sde_rollout_bwd(y0: torch.Tensor, ys: torch.Tensor, ct: torch.Tensor, w: tor
     raise ValueError(f"sde_rollout_bwd runs on cuda (kernel) or cpu (plain), not {y0.device}")
 
 
-sde_rollout_bwd.launches = 0
+counted(sde_rollout_bwd, "launches")
 
 
 class SDERolloutFn(torch.autograd.Function):

@@ -22,6 +22,8 @@ import functools
 
 import torch
 
+from trajsde_tpu_torch.ops import counted
+
 ROUNDS = 64  # fixed in the kernel, as in the JAX probe
 # values one thread loads as 16 bytes
 _PER_VECTOR = {torch.float32: 4, torch.bfloat16: 8}
@@ -139,4 +141,4 @@ def chained_tanh(x: torch.Tensor, approx_f32_tanh: bool = False) -> torch.Tensor
     return chained_tanh_reference(x)
 
 
-chained_tanh.launches = 0
+counted(chained_tanh, "launches")

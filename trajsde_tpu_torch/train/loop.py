@@ -25,7 +25,7 @@ logs and metrics.  Every seed a step derives has the rank folded in
 (``mesh.rank_seed``; nothing changes in a world of one).
 
 ``Trainer(chain_steps=C)`` (``train.py --chain``) runs C optimizer updates
-per read of the device through :func:`make_chained_step`: each update
+per read of the device through :class:`ChainedStep`: each update
 reads nothing on the host (the NaN guard, AdamW and the schedule run on
 the device), and on a card each is one replay of a CUDA graph of the
 update.  The logs, the skip count and the schedule's position are read
@@ -45,6 +45,7 @@ from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequ
 import torch
 from torch import nn
 
+from trajsde_tpu_torch import ops
 from trajsde_tpu_torch.data.scene import SceneBatch, strip_for_device
 from trajsde_tpu_torch.data.staging import PinnedStager, wait_for_copy
 from trajsde_tpu_torch.data.transforms import ts_drop
@@ -52,7 +53,6 @@ from trajsde_tpu_torch.device import resolve_device
 from trajsde_tpu_torch.losses import batch_counts
 from trajsde_tpu_torch.models.decoders import SDEDecoder
 from trajsde_tpu_torch.models.sde_encoder import LocalEncoderSDESep, gather_agent
-from trajsde_tpu_torch.ops import aa_attention, aa_fused, sde_rollout, vpu_probe
 from trajsde_tpu_torch.ops.sde_rollout import key_words, mix_seed
 from trajsde_tpu_torch.parallel import mesh
 from trajsde_tpu_torch.train.metrics import all_reduce_metrics
@@ -238,25 +238,6 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, schedule
     return train_step
 
 
-def launch_counters() -> List[Tuple[Any, str]]:
-    """(function, attribute) of every kernel's launch count."""
-    return [(sde_rollout.sde_rollout, "launches"), (sde_rollout.sde_rollout_bwd, "launches"),
-            (aa_fused.fused_pair_attention, "launches"),
-            (aa_fused.fused_pair_attention, "bf16_launches"),
-            (aa_fused.fused_pair_attention_bwd, "launches"),
-            (aa_fused.fused_pair_attention_bwd, "bf16_launches"),
-            (aa_attention.aa_attention, "launches"), (vpu_probe.chained_tanh, "launches")]
-
-
-def _read_counts() -> List[int]:
-    return [getattr(fn, name) for fn, name in launch_counters()]
-
-
-def _add_counts(counts: Sequence[int]) -> None:
-    for (fn, name), n in zip(launch_counters(), counts):
-        setattr(fn, name, getattr(fn, name) + n)
-
-
 @dataclasses.dataclass
 class _Captured:
     """One batch layout's CUDA graph of the update: its static inputs, its
@@ -408,7 +389,7 @@ class ChainedStep:
             graph.register_generator_state(gen)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        before = _read_counts()
+        before = ops.read_counts()
         try:
             with torch.cuda.graph(graph, pool=self._pool):
                 static = self.update(inputs)
@@ -416,9 +397,8 @@ class ChainedStep:
             raise RuntimeError(f"capturing the chained train step for the batch layout "
                                f"{layout(micro)} failed: {e}") from e
         finally:
-            recorded = [b - a for a, b in zip(before, _read_counts())]
-            for (fn, name), n in zip(launch_counters(), before):
-                setattr(fn, name, n)
+            recorded = [b - a for a, b in zip(before, ops.read_counts())]
+            ops.add_counts([-n for n in recorded])
         self.captured[layout(micro)] = _Captured(graph, inputs, static, recorded)
         self.capture_s.append(time.perf_counter() - t0)
         self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
@@ -435,7 +415,7 @@ class ChainedStep:
                 if (v := getattr(dst, f.name)) is not None:
                     v.copy_(getattr(src, f.name), non_blocking=True)
         entry.graph.replay()
-        _add_counts(entry.launches)
+        ops.add_counts(entry.launches)
         return entry.out
 
     def __call__(self, groups: Sequence[Union[SceneBatch, Sequence[SceneBatch]]], step: int,
@@ -459,17 +439,6 @@ class ChainedStep:
         out: Dict[str, Any] = dict(zip(self.names, values))
         out.update({"train/step_skipped": skipped, "stop": stop, "scenes": scenes})
         return out
-
-
-def make_chained_step(model: nn.Module, optimizer: torch.optim.Optimizer, scheduler,
-                      losses: List[Tuple[str, float, Callable]], device,
-                      ts_drop_rate: float = 0.0, accum_steps: Optional[int] = None,
-                      graphs: Optional[bool] = None) -> ChainedStep:
-    """The chained counterpart of :func:`make_train_step`
-    (:class:`ChainedStep`): ``chained(groups, step, seed, stop=False)``
-    runs one update per group and reads the device once."""
-    return ChainedStep(model, optimizer, scheduler, losses, device, ts_drop_rate=ts_drop_rate,
-                       accum_steps=accum_steps, graphs=graphs)
 
 
 def layout(item: Union[SceneBatch, Sequence]) -> tuple:
@@ -607,7 +576,7 @@ class Trainer:
 
     ``chain_steps = C > 1`` (``train.py --chain``) groups the groups again,
     C of one layout at a time (axis order ``[chain,][micro,] batch``), and
-    runs each chain through :func:`make_chained_step`: C updates, on a card
+    runs each chain through :class:`ChainedStep`: C updates, on a card
     C replays of a CUDA graph, and one read of the device.  ``state.step``
     advances by the chain's length (a trailing partial chain still trains),
     the logs are the chain's mean with ``train/step_skipped`` its sum, and
@@ -718,7 +687,7 @@ class Trainer:
                              f"({sorted(m.name for m in self.metrics)})")
         dev = resolve_device(self.device)
         chain = max(1, self.chain_steps)
-        make = make_chained_step if chain > 1 else make_train_step
+        make = ChainedStep if chain > 1 else make_train_step
         train_step = make(state.model, state.optimizer, state.scheduler, self.losses, dev,
                           ts_drop_rate=self.ts_drop_rate, accum_steps=max(1, self.accum_steps))
         if self.logger is not None:

@@ -13,7 +13,7 @@ which reads nothing on the host between its updates.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -104,7 +104,11 @@ class DeviceAdamW:
 
     torch's ``AdamW(capturable=True)`` refuses CPU tensors, and the chained
     step is one function on the CPU and on the card; this class writes
-    AdamW's arithmetic in foreach operations that run on both.
+    AdamW's arithmetic in foreach operations that run on both, in eager
+    AdamW's order on the CPU (so a chained update there is the eager
+    step's bits).  Eager AdamW on a card orders its last operations
+    otherwise, so there a weight may come out an ulp apart, and from the
+    next update on the runs part as :func:`chain_eager_bound` bounds.
     """
 
     def __init__(self, optimizer: torch.optim.Optimizer, scheduler, device):
@@ -181,16 +185,62 @@ class DeviceAdamW:
             denom = torch._foreach_sqrt(vs)
             torch._foreach_div_(denom, torch.sqrt(1.0 - beta2 ** k).float())
             torch._foreach_add_(denom, group["eps"])
-            if ps[0].device.type == "cpu":
-                # eager AdamW's addcdiv on the CPU: p + (s * m) / d
-                torch._foreach_addcdiv_(ps, torch._foreach_mul(ms, step_size), denom)
-            else:   # its foreach kernel: p + s * (m / d)
-                upd = torch._foreach_div(ms, denom)
-                torch._foreach_mul_(upd, step_size)
-                torch._foreach_add_(ps, upd)
+            # eager AdamW's order on the CPU, p + (s * m) / d, on every device
+            torch._foreach_addcdiv_(ps, torch._foreach_mul(ms, step_size), denom)
         for t, old in zip(live, snap):
             torch.where(finite, t, old, out=t)
         self.count.add_(finite.to(self.count.dtype))
+
+
+# A gradient leaf is rounding noise when its largest entry lies below
+# NOISE_GRAD and is not 0: every attention key's bias (a shift common to a
+# query's keys, which the softmax does not see; NOISE_NAMES), which reads
+# 3e-12 to 2e-10 on FLAGSHIP_H100 at batch 128 on an H100, where every
+# other leaf reads 7e-5 or more (scripts/chain_gap_torch.py).  At Adam's eps of 1e-8, Adam turns such noise into steps
+# of up to about lr, and two runs that round apart draw different noise,
+# so those leaves part by up to that much; the model's outputs do not see
+# them.
+NOISE_GRAD = 1e-6
+NOISE_NAMES = r"\.lin_k(_edge)?\.bias$"
+
+
+def noise_leaves(grads: Dict[str, Optional[torch.Tensor]],
+                 threshold: float = NOISE_GRAD) -> List[str]:
+    """The leaves of ``grads`` whose gradient is rounding noise,
+    0 < max|g| < ``threshold`` (a leaf without a gradient, or with a zero
+    one, is not noise: Adam leaves it where the other run does)."""
+    return sorted(n for n, g in grads.items()
+                  if g is not None and 0.0 < float(torch.as_tensor(g).abs().max()) < threshold)
+
+
+def largest_gap(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor],
+                skip: Iterable[str] = ()) -> Tuple[float, str]:
+    """The largest ``|got - want|`` over the floating leaves of ``want``
+    that are not in ``skip``, and its leaf."""
+    skip = set(skip)
+    return max(((got[k].double() - w.double()).abs().max().item(), k)
+               for k, w in want.items() if k not in skip and w.is_floating_point())
+
+
+def chain_eager_bound(lr: float, updates: int) -> float:
+    """How far a weight may lie from the eager steps' after ``updates``
+    chained updates on the card, outside the :func:`noise_leaves`: 0.2 lr,
+    for chains of up to 4 updates.  Update 1 sees the same weights and draws
+    as the eager step; the two AdamWs round their last operations apart,
+    and from update 2 on the gradients, and so the weights, part further
+    with each update.  Read on an H100 on FLAGSHIP_H100 at lr 1e-3 after 4
+    updates: 1.50e-5 (0.015 lr) on synthetic batches of 128, 8.60e-5
+    (0.086 lr) over an epoch of the command line on npz files
+    (``chip_smoke.py`` phases U3 and U5); 2.16e-4 after 8 and 3.11e-4 after
+    12 on the batches of 128 (``scripts/chain_gap_torch.py``), so longer
+    chains would need a bound of their own.  A leaf the eager steps train lies 1.2e-3 to
+    4.0e-3 from where it started, and an update of the wrong sign 8.0e-3
+    away: a chain that left one unchanged, or stepped the wrong way, fails
+    it."""
+    if updates > 4:
+        raise ValueError(f"chain_eager_bound is read for chains of up to 4 updates, "
+                         f"not {updates}")
+    return 0.2 * lr
 
 
 def build_optimizer(model: nn.Module, training_cfg: dict, steps_per_epoch: int,
