@@ -318,6 +318,27 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      card's name and power limit; in the profiled graphed chain, K1-K4's
      kernels counted by name in the trace, once per update and equal to
      the counters' replayed counts (the kernels line's ``chain_train``).
+     U7: every other shipped build at CHAIN_BUILD_BATCH (``CHAIN_MORE_BUILDS``:
+     ``FLAGSHIP_BF16``, it with the fused decoder, ``FLAGSHIP_BF16_CAPPED``,
+     ``FLAGSHIP_BF16_FUSED``, ``BASELINE``, ``BASELINE_TRAIN``), U2's check:
+     two graphed chains of 2 bit-equal to the uncaptured ones, K3b / K4b
+     twice a chain on the fused bf16 build, K3 / K4 at 4 heads twice on the
+     fused baseline, K1 / K2 twice with the fused decoder, nothing on the
+     dense builds; at cap 24 ``aa_overflow_edges`` after each chain is the
+     step's own buffer holding numpy's count for the chain's last batch;
+     each build's graphs released before the next, their pool printed.  U8:
+     the full-width bf16 paths ``CHAIN_WIDE`` (``FLAGSHIP_BF16_FUSED`` at
+     BF16_FUSED_BATCH, ``_tpu_fast.yml`` as written at TRAIN_BATCH): a
+     graphed chain of CHAIN against CHAIN eager steps (update 1's logs
+     bit-equal, every weight outside the key-bias entries within
+     ``chain_eager_bound`` in bf16, which an unchanged trained leaf and a
+     chain of the wrong sign fail), a planted NaN skipped in both paths,
+     then eager against chained in CHAIN_WIDE_ROUNDS rounds as U6, with
+     K3b / K4b counted by name in the profiled graphed chain's trace, equal
+     to the counters.  U9: ``train_torch.main`` on a JSON copy of
+     ``_tpu_fast.yml`` over J's files, a ``--chain 1`` epoch then a
+     ``--chain CHAIN`` epoch from the same seed: no kernel, finite val
+     metrics, the chained weights within the bf16 bar of the eager ones.
 Phases 4, B, C and 7 check that K4 never launches on their paths, and the
 serving and training phases that K5 and K6 never do.
 The last lines are the card, a JSON object per kernel and the device line.
@@ -370,8 +391,8 @@ from trajsde_tpu_torch.serving import make_scan_fn, make_serving_fn
 from trajsde_tpu_torch.train.checkpoint import CheckpointManager, save_weights
 from trajsde_tpu_torch.train.loop import (ChainedStep, Trainer, create_train_state,
                                           make_train_step, micro_seeds)
-from trajsde_tpu_torch.train.optim import (NOISE_NAMES, chain_eager_bound, largest_gap,
-                                           noise_leaves)
+from trajsde_tpu_torch.train.optim import (NOISE_GRAD, chain_eager_bound, chain_eager_gap,
+                                           grad_split, largest_gap, noise_entries)
 from trajsde_tpu_torch.utils.convert import to_reference
 
 NUM_ACTORS, NUM_LANES = 48, 192
@@ -544,10 +565,29 @@ CHAIN, CHAIN_ROUNDS = 4, 3
 CHAIN_BUILD_BATCH = 32
 CHAIN_BUILDS = {"FLAGSHIP_TRAIN": FLAGSHIP_TRAIN, "FLAGSHIP_FUSED": FLAGSHIP_FUSED,
                 "FLAGSHIP": FLAGSHIP}
+# U7: every other shipped build as written, and _tpu.yml with the fused
+# decoder (phase N2's build, K1 / K2 in a bf16 model), bits only at
+# CHAIN_BUILD_BATCH
+FLAGSHIP_BF16_TRAIN = copy.deepcopy(FLAGSHIP_BF16)
+FLAGSHIP_BF16_TRAIN["decoder"]["kwargs"]["fused"] = True
+CHAIN_MORE_BUILDS = {"FLAGSHIP_BF16": FLAGSHIP_BF16, "FLAGSHIP_BF16_TRAIN": FLAGSHIP_BF16_TRAIN,
+                     "FLAGSHIP_BF16_CAPPED": FLAGSHIP_BF16_CAPPED,
+                     "FLAGSHIP_BF16_FUSED": FLAGSHIP_BF16_FUSED, "BASELINE": BASELINE,
+                     "BASELINE_TRAIN": BASELINE_TRAIN}
+# U8: the full-width bf16 paths, (build, batch): the fused fallback at the
+# _tpu.yml recipe's memory-tight batch, _tpu_fast.yml as written at its own;
+# the rounds of their turns
+CHAIN_WIDE = {"FLAGSHIP_BF16_FUSED": (FLAGSHIP_BF16_FUSED, BF16_FUSED_BATCH),
+              "FLAGSHIP_BF16_CAPPED": (FLAGSHIP_BF16_CAPPED, TRAIN_BATCH)}
+CHAIN_WIDE_ROUNDS = 2
 # the kernel (its __global__ name) behind each of K1-K4's counters, counted
-# in U6's profiler trace of a graphed chain
-CHAIN_KERNELS = {"sde_rollout": "rollout_kernel", "sde_rollout_bwd": "rollout_bwd_kernel",
-                 "aa_fused": "aa_fused_kernel", "aa_fused_bwd": "aa_fused_bwd_kernel"}
+# in U6's profiler trace of a graphed chain; K3b and K4b are the BF = true
+# instantiations of K3's and K4's templates (<heads, BF>), counted in U8's
+CHAIN_KERNELS = {"sde_rollout": r"\brollout_kernel\b",
+                 "sde_rollout_bwd": r"\brollout_bwd_kernel\b",
+                 "aa_fused": r"\baa_fused_kernel\b", "aa_fused_bwd": r"\baa_fused_bwd_kernel\b"}
+CHAIN_BF16_KERNELS = {"aa_fused_bf16": r"\baa_fused_kernel<\d+, true>",
+                      "aa_fused_bwd_bf16": r"\baa_fused_bwd_kernel<\d+, true>"}
 
 
 # H100 SXM published peaks (dense): f32 on CUDA cores, TF32, bf16 and f64
@@ -4287,13 +4327,42 @@ def _logs_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
                 and torch.equal(a.nan_to_num(), b.nan_to_num()))
 
 
+def _all_counts() -> dict:
+    """Every kernel's launch count: K1-K6 (``_counts``), K3b and K4b."""
+    return dict(_counts(), **_bf16_counts())
+
+
+def _is_bf16(cfg) -> bool:
+    return any(cfg[sec].get("kwargs", {}).get("dtype") == "bfloat16"
+               for sec in ("encoder", "aggregator", "decoder"))
+
+
+def _chain_want(cfg, updates: int) -> dict:
+    """The launches of ``updates`` chained updates of ``cfg``: K1 and K2
+    once an update with a fused decoder, K3 and K4 (K3b and K4b in bf16)
+    with a fused AA encoder, nothing else."""
+    fused_aa = bool(cfg["encoder"]["kwargs"].get("fused"))
+    fused_dec = bool(cfg["decoder"]["kwargs"].get("fused"))
+    aa = updates * (fused_aa and not _is_bf16(cfg))
+    aab = updates * (fused_aa and _is_bf16(cfg))
+    return {"sde_rollout": updates * fused_dec, "sde_rollout_bwd": updates * fused_dec,
+            "aa_fused": aa, "aa_fused_bwd": aa, "aa_attention": 0, "vpu_probe": 0,
+            "aa_fused_bf16": aab, "aa_fused_bwd_bf16": aab}
+
+
+def _launched(launches: dict) -> dict:
+    """The kernels of ``launches`` that ran."""
+    return {k: v for k, v in launches.items() if v}
+
+
 def _chain_pair(cfg, batches: list, chains: int, tag: str, nan_at=None) -> dict:
     """A graphed chained step and the uncaptured one (the same function run
     as it is), each on its own copy of the seeded ``cfg`` model, over
     ``chains`` chains of ``batches`` (the second with a NaN planted in
-    update ``nan_at``): every chain's logs and the states after it bit for
-    bit, and the graphed path's launches per update.  Returns both steps
-    and states, the launches and the skips."""
+    update ``nan_at``): every chain's logs, the states after it and a
+    capped AA block's ``aa_overflow_edges`` bit for bit, and the graphed
+    path's launches per chain.  Returns both steps and states, the
+    launches, the skips and the overflow counts."""
     losses = build_losses(cfg)
     out = {}
     for mode in ("plain", "graphed"):
@@ -4302,7 +4371,8 @@ def _chain_pair(cfg, batches: list, chains: int, tag: str, nan_at=None) -> dict:
                                    seed=SEED)
         step = ChainedStep(model, state.optimizer, state.scheduler, losses,
                            torch.device("cuda"), accum_steps=1, graphs=mode == "graphed")
-        out[mode] = dict(state=state, step=step, bits=[], logs=[], launches=[], skipped=[])
+        out[mode] = dict(state=state, step=step, bits=[], logs=[], launches=[], skipped=[],
+                         overflow=[])
     for c in range(chains):
         chain = list(batches)
         if nan_at is not None and c == chains - 1:
@@ -4313,10 +4383,12 @@ def _chain_pair(cfg, batches: list, chains: int, tag: str, nan_at=None) -> dict:
             zero_counts()
             logs = r["step"](chain, r["state"].step, r["state"].seed)
             r["state"].step += len(chain)
-            r["launches"].append(_counts())
+            r["launches"].append(_all_counts())
             r["skipped"].append(logs["train/step_skipped"])
             r["logs"].append(r["step"].chain_logs.clone())
             r["bits"].append(_state_bits(r["state"]))
+            overflow = getattr(r["state"].model.encoder.aa_encoder, "aa_overflow_edges", None)
+            r["overflow"].append(None if overflow is None else int(overflow))
         plain, graphed = out["plain"], out["graphed"]
         bad = _same_bits(plain["bits"][-1], graphed["bits"][-1])
         check(not bad, f"[chain {tag}] chain {c + 1}: the graphed chain's state differs from the "
@@ -4324,7 +4396,70 @@ def _chain_pair(cfg, batches: list, chains: int, tag: str, nan_at=None) -> dict:
         check(_logs_equal(plain["logs"][-1], graphed["logs"][-1]),
               f"[chain {tag}] chain {c + 1}: the graphed chain's logs differ from the "
               "uncaptured chain's")
+        check(plain["overflow"] == graphed["overflow"],
+              f"[chain {tag}] aa_overflow_edges after the chains: graphed {graphed['overflow']}, "
+              f"uncaptured {plain['overflow']}")
     return out
+
+
+def _chain_builds(builds: dict, small: list, label: str) -> dict:
+    """U2 / U7: each build's graphed chain of 2 on ``small`` (two batches of
+    CHAIN_BUILD_BATCH) against the uncaptured one, twice, bit for bit, with
+    its launches a chain (:func:`_chain_want`); a capped build's
+    ``aa_overflow_edges`` after each chain is the graphed step's own
+    buffer, equal to numpy's count on the chain's last batch.  Each build's
+    steps, graphs and pool are released before the next."""
+    out = {}
+    for name, cfg in builds.items():
+        pair = _chain_pair(cfg, small, 2, name)
+        graphed = pair["graphed"]
+        want = _chain_want(cfg, 2)
+        check(graphed["launches"] == [want, want],
+              f"[chain {name}] launched {graphed['launches']}, not {want} a chain")
+        step = graphed["step"]
+        cap = cfg["encoder"]["kwargs"].get("neighbor_cap", 0)
+        note = ""
+        if cap:
+            enc = graphed["state"].model.encoder
+            expect = numpy_overflow(small[-1], enc.local_radius, cap)[0]
+            check(enc.aa_encoder.aa_overflow_edges is step.overflow[enc.aa_encoder]
+                  and graphed["overflow"] == [expect, expect] and expect > 0,
+                  f"[chain {name}] aa_overflow_edges after the chains read {graphed['overflow']}, "
+                  f"not the step's buffer holding numpy's {expect}")
+            note = (f"; aa_overflow_edges after each chain {graphed['overflow']} (numpy {expect}), "
+                    "in the step's buffer outside the pool")
+        out[name] = dict(launches=graphed["launches"][0], capture_s=step.capture_s[0],
+                         pool_gib=step.pool_bytes / 2**30, overflow=graphed["overflow"])
+        print(f"[chain] {label} {name} at batch {CHAIN_BUILD_BATCH}: 2 graphed chains of 2 equal "
+              f"the uncaptured ones bit for bit; launches per chain {_launched(want)}; capture "
+              f"{step.capture_s[0]:.2f} s, the graph's pool {out[name]['pool_gib']:.2f} GiB"
+              + note, flush=True)
+        del pair, graphed, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def _vs_eager(got: dict, after: dict, start: dict, grads: dict, dtype: str) -> dict:
+    """A chain's weights ``got`` against the eager steps' ``after`` (both
+    from ``start``): the largest difference outside the key-bias entries
+    (``optim.noise_entries``) and on them, and ``optim.chain_eager_gap`` in
+    ``dtype``'s measure beside the same measure of a chain that left a
+    trained leaf where it started (the least over the leaves that
+    ``grads``, the eager steps' last gradient, trains) and of an update of
+    the wrong sign."""
+    noise = noise_entries(after)
+    dist, leaf = largest_gap(got, after, noise)
+    gap, gap_leaf = chain_eager_gap(got, after, start, dtype)
+    trained = [n for n, g in grads.items() if g is not None and g.abs().max() > 0
+               and noise.get(n) != slice(None)]
+    unchanged = min(chain_eager_gap({k: start[k]}, {k: after[k]}, {k: start[k]}, dtype)[0]
+                    for k in trained)
+    flipped = chain_eager_gap({k: 2 * v - after[k] for k, v in start.items()}, after, start,
+                              dtype)[0]
+    return dict(max_weight_diff=dist, leaf=leaf,
+                noise_diff=largest_gap(got, after, noise, inside=True)[0], gap=gap,
+                gap_leaf=gap_leaf, unchanged=unchanged, flipped=flipped,
+                noise_entries=sorted(noise))
 
 
 def _chain_graph(card: str, batches: list, small: list) -> dict:
@@ -4333,34 +4468,18 @@ def _chain_graph(card: str, batches: list, small: list) -> dict:
     graph is captured, the rest replay) against the uncaptured chained
     function from the same state, bit for bit, K1-K4 once per update; U3 the
     first chain against CHAIN eager steps: update 1's logs bit-equal, every
-    weight outside the noise leaves (``optim.noise_leaves`` of the eager
-    gradient, which must be the attention key biases) within
-    ``chain_eager_bound``, which a leaf left unchanged and a chain of the
-    wrong sign must fail; U4 a third chain with a NaN planted in update 2: one skip, the same bits
-    in both paths.  First the other builds' graphed chain of 2 on ``small``
-    (two batches of CHAIN_BUILD_BATCH)."""
-    builds = {}
-    for name, other in CHAIN_BUILDS.items():
-        pair = _chain_pair(other, small, 2, name)
-        fused_aa = bool(other["encoder"]["kwargs"].get("fused"))
-        fused_dec = bool(other["decoder"]["kwargs"].get("fused"))
-        want = {"sde_rollout": 2 * fused_dec, "sde_rollout_bwd": 2 * fused_dec,
-                "aa_fused": 2 * fused_aa, "aa_fused_bwd": 2 * fused_aa, "aa_attention": 0,
-                "vpu_probe": 0}
-        check(pair["graphed"]["launches"] == [want, want],
-              f"[chain {name}] launched {pair['graphed']['launches']}, not {want} a chain")
-        builds[name] = dict(launches=pair["graphed"]["launches"][0],
-                            capture_s=pair["graphed"]["step"].capture_s[0])
-        print(f"[chain] U2 {name} at batch {CHAIN_BUILD_BATCH}: 2 graphed chains of 2 equal the "
-              f"uncaptured ones bit for bit; launches per chain {want}; capture "
-              f"{builds[name]['capture_s']:.2f} s", flush=True)
-        del pair
-        torch.cuda.empty_cache()
+    weight outside the key-bias entries (``optim.noise_entries``, whose
+    eager gradient must read below ``NOISE_GRAD`` and every other leaf's
+    above it) within ``chain_eager_bound``, which a leaf left unchanged and
+    a chain of the wrong sign must fail; U4 a third chain with a NaN planted
+    in update 2: one skip, the same bits in both paths.  First the other
+    f32 builds' graphed chain of 2 on ``small`` (two batches of
+    CHAIN_BUILD_BATCH)."""
+    builds = _chain_builds(CHAIN_BUILDS, small, "U2")
     cfg = FLAGSHIP_H100
     out = _chain_pair(cfg, batches, 3, "FLAGSHIP_H100", nan_at=1)
     graphed = out["graphed"]
-    want = {"sde_rollout": CHAIN, "sde_rollout_bwd": CHAIN, "aa_fused": CHAIN,
-            "aa_fused_bwd": CHAIN, "aa_attention": 0, "vpu_probe": 0}
+    want = _chain_want(cfg, CHAIN)
     check(all(n == want for n in graphed["launches"]),
           f"[chain] the graphed chains launched {graphed['launches']}, not K1-K4 once per "
           f"update ({want})")
@@ -4371,7 +4490,7 @@ def _chain_graph(card: str, batches: list, small: list) -> dict:
     check(len(graphed["step"].captured) == 1, "the chain captured more than one graph")
     print(f"[chain] U2 FLAGSHIP_H100 batch {TRAIN_BATCH}: 2 graphed chains of {CHAIN} equal the "
           f"uncaptured chained step bit for bit (weights, moments, counts, schedule, every "
-          f"update's logs); launches per chain {graphed['launches'][0]}; capture "
+          f"update's logs); launches per chain {_launched(graphed['launches'][0])}; capture "
           f"{graphed['step'].capture_s[0]:.2f} s (warm-up update included), the graph's pool "
           f"{graphed['step'].pool_bytes / 2**30:.2f} GiB; U4: a NaN in "
           f"update 2 of chain 3: skips {graphed['skipped']}, the same bits, schedule at "
@@ -4384,52 +4503,46 @@ def _chain_graph(card: str, batches: list, small: list) -> dict:
                             torch.device("cuda"))
     eager_logs = torch.stack([torch.stack(list(eager(b, k, SEED).values())[:3])
                               for k, b in enumerate(batches)])
-    noise = noise_leaves({n: p.grad for n, p in model.named_parameters()})
-    keys = sorted(n for n, _ in model.named_parameters() if re.search(NOISE_NAMES, n))
-    check(noise == keys, f"[chain] U3: the leaves whose eager gradient is rounding noise are "
-          f"{noise}, not the attention key biases {keys}")
-    first, after = graphed["bits"][0]["model"], model.state_dict()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    after = model.state_dict()
+    on_noise, least, least_leaf = grad_split(grads, noise_entries(after))
+    check(0.0 < on_noise < NOISE_GRAD <= least,
+          f"[chain] U3: the key-bias entries' eager gradient reads up to {on_noise:.3e} and the "
+          f"least leaf outside them ({least_leaf}) {least:.3e}: not below and above "
+          f"NOISE_GRAD {NOISE_GRAD}")
     start = build_model(cfg, device="cuda", seed=SEED).state_dict()
     bound = chain_eager_bound(cfg["training_specific"]["lr"], CHAIN)
-    dist, leaf = largest_gap(first, after, noise)
-    noise_dist = max(largest_gap({k: first[k]}, {k: after[k]})[0] for k in noise)
-    # the bar must fail a chain that left any one trained leaf where it
-    # started, or that stepped every weight the other way (a leaf whose
-    # gradient is 0, the scale head under these losses, does not move)
-    trained = [n for n, p in model.named_parameters()
-               if p.grad is not None and p.grad.abs().max() > 0 and n not in noise]
-    unchanged = min(largest_gap({k: start[k]}, {k: after[k]})[0] for k in trained)
-    flipped = largest_gap({k: 2 * v - after[k] for k, v in start.items()}, after, noise)[0]
+    r = _vs_eager(graphed["bits"][0]["model"], after, start, grads, "float32")
     chain_logs = graphed["logs"][0][:, :3]
     log_rel = ((chain_logs - eager_logs).abs() / eager_logs.abs()).max().item()
     print(f"[chain] U3: chain of {CHAIN} vs {CHAIN} eager steps: max |weight difference| "
-          f"{dist:.3e} at {leaf} outside the {len(noise)} noise leaves (bound {bound:.3e} = "
-          f"chain_eager_bound(lr, {CHAIN})), {noise_dist:.3e} on them; a leaf left unchanged "
-          f"lies at least {unchanged:.3e} from the eager steps', a chain of the wrong sign "
-          f"{flipped:.3e}; update 1's logs bit-equal, the rest within {log_rel:.2e} relative",
+          f"{r['max_weight_diff']:.3e} at {r['leaf']} outside the {len(r['noise_entries'])} "
+          f"key-bias entries (bound {bound:.3e} = chain_eager_bound(lr, {CHAIN})), "
+          f"{r['noise_diff']:.3e} on them; their eager |gradient| up to {on_noise:.3e}, the least "
+          f"leaf outside {least:.3e} ({least_leaf}); a leaf left unchanged lies at least "
+          f"{r['unchanged']:.3e} from the eager steps', a chain of the wrong sign "
+          f"{r['flipped']:.3e}; update 1's logs bit-equal, the rest within {log_rel:.2e} relative",
           flush=True)
     check(torch.equal(chain_logs[0], eager_logs[0]),
           "[chain] U3: update 1's logs differ from the eager step's")
-    check(dist <= bound, f"[chain] U3: {leaf} lies {dist:.3e} from the eager steps' "
-          f"(bound {bound:.3e})")
-    check(unchanged > bound and flipped > bound,
-          f"[chain] U3: the bound {bound:.3e} passes an unchanged leaf ({unchanged:.3e}) or a "
-          f"chain of the wrong sign ({flipped:.3e})")
-    out["u3"] = dict(max_weight_diff=dist, leaf=leaf, bound=bound, noise_leaves=noise,
-                     noise_diff=noise_dist, unchanged=unchanged, flipped=flipped,
-                     log_rel=log_rel)
+    check(r["max_weight_diff"] <= bound, f"[chain] U3: {r['leaf']} lies "
+          f"{r['max_weight_diff']:.3e} from the eager steps' (bound {bound:.3e})")
+    check(r["unchanged"] > bound and r["flipped"] > bound,
+          f"[chain] U3: the bound {bound:.3e} passes an unchanged leaf ({r['unchanged']:.3e}) or "
+          f"a chain of the wrong sign ({r['flipped']:.3e})")
+    out["u3"] = dict(r, bound=bound, grad_noise=on_noise, grad_least=least, log_rel=log_rel)
     out["eager"] = dict(state=state, step=eager)
     out["builds"] = builds
     return out
 
 
-def _chain_cli(d: str, noise: list) -> dict:
+def _chain_cli(d: str) -> dict:
     """U5. ``train_torch.main --chain CHAIN`` on phase I's npz files under
     phase J's ``FLAGSHIP_H100`` config: one epoch (FILE_BATCHES updates, one
     chain; K1-K4 once per update, K1 and K3 once per eval batch; one train
     record), its weights after the epoch within ``chain_eager_bound`` of
-    phase J's eager epoch on the same files and seed outside U3's
-    ``noise`` leaves, then a resume under ``--chain 1``."""
+    phase J's eager epoch on the same files and seed outside the key-bias
+    entries, then a resume under ``--chain 1``."""
     import train_torch
 
     cfg_path = os.path.join(d, "h100.json")
@@ -4437,9 +4550,8 @@ def _chain_cli(d: str, noise: list) -> dict:
     common = ["-c", cfg_path, "-n", "chain", "--logdir", logdir, "--epochs", "1", "--seed",
               str(SEED)]
     n_eval = -(-CLI_VAL_SCENES // TRAIN_BATCH)
-    want = {"sde_rollout": FILE_BATCHES + n_eval, "sde_rollout_bwd": FILE_BATCHES,
-            "aa_fused": FILE_BATCHES + n_eval, "aa_fused_bwd": FILE_BATCHES,
-            "aa_attention": 0, "vpu_probe": 0}
+    want = dict(_chain_want(FLAGSHIP_H100, FILE_BATCHES), sde_rollout=FILE_BATCHES + n_eval,
+                aa_fused=FILE_BATCHES + n_eval)
     out = {}
     for tag, extra in (("chain", ["--chain", str(CHAIN)]), ("resume", None)):
         if extra is None:
@@ -4449,7 +4561,7 @@ def _chain_cli(d: str, noise: list) -> dict:
         t0 = time.perf_counter()
         state, trainer = train_torch.main(common + extra)
         wall = time.perf_counter() - t0
-        launches = _counts()
+        launches = _all_counts()
         steps = FILE_BATCHES * (2 if tag == "resume" else 1)
         check(state.step == steps, f"[chain cli {tag}] ended at step {state.step}, not {steps}")
         check(launches == want, f"[chain cli {tag}] launched {launches}, not {want}")
@@ -4463,7 +4575,7 @@ def _chain_cli(d: str, noise: list) -> dict:
         out[tag] = dict(launches=launches, wall_s=wall, records=records, val=vals,
                         ms_per_update=1e3 / epoch["perf/steps_per_s"])
         print(f"[chain] U5 train_torch.py {' '.join(extra[:2])} {tag}: step {state.step}, "
-              f"launches {launches}, train records at steps {records}, "
+              f"launches {_launched(launches)}, train records at steps {records}, "
               f"{out[tag]['ms_per_update']:.1f} ms an update over the epoch (capture "
               f"included on the first), val " + ", ".join(f"{k} {v:.4f}" for k, v in vals.items())
               + f"; {wall:.1f} s", flush=True)
@@ -4476,8 +4588,9 @@ def _chain_cli(d: str, noise: list) -> dict:
             eager = torch.load(os.path.join(eager_path, "state.pt"), map_location="cuda",
                                weights_only=True)["model"]
             chained = state.model.state_dict()
+            noise = noise_entries(eager)
             dist, leaf = largest_gap(chained, eager, noise)
-            noise_dist = max(largest_gap({k: chained[k]}, {k: eager[k]})[0] for k in noise)
+            noise_dist = largest_gap(chained, eager, noise, inside=True)[0]
             bound = chain_eager_bound(FLAGSHIP_H100["training_specific"]["lr"], FILE_BATCHES)
             # the chain's last gradient at the entry that lies furthest, beside
             # its leaf's largest: whether that entry's gradient is rounding noise
@@ -4490,23 +4603,72 @@ def _chain_cli(d: str, noise: list) -> dict:
                                          noise_diff=noise_dist, grads=grads)
             print(f"[chain] U5: the chained epoch's weights vs phase J's eager epoch on the "
                   f"same files and seed: max |difference| {dist:.3e} at {leaf} outside the "
-                  f"noise leaves (bound {bound:.3e}), {noise_dist:.3e} on them; the chain's last "
-                  f"|gradient| {grads}", flush=True)
+                  f"key-bias entries (bound {bound:.3e}), {noise_dist:.3e} on them; the chain's "
+                  f"last |gradient| {grads}", flush=True)
             check(dist <= bound, f"[chain cli] {leaf} of the chained epoch lies {dist:.3e} "
                   f"from phase J's eager epoch (bound {bound:.3e})")
     return out
 
 
-def _chain_turns(card: str, graph: dict, batches: list) -> dict:
-    """U6. In CHAIN_ROUNDS alternating rounds, CHAIN eager updates against
-    one graphed chain of CHAIN on the same batches: ms per update by CUDA
-    events and by the host clock (each synchronized), peak memory; then the
-    device's idle share under ``torch.profiler`` over each, and K1-K4's
-    kernels counted by name in each trace: the graphed chain's must run
-    each once per update, as many times as its replays added to the
-    counters."""
+def _turns_and_trace(fns: dict, rounds: int, updates: int, kernels: dict) -> dict:
+    """In ``rounds`` alternating rounds, each of ``fns`` (``updates``
+    updates each): ms per update by CUDA events and by the host clock (each
+    synchronized) and peak memory; then the device's idle share under
+    ``torch.profiler`` over one call of each, and ``kernels`` (counter:
+    regex of the kernel's name) counted in each trace beside the counters."""
     from torch.profiler import ProfilerActivity, profile
 
+    times = {k: {"cuda": [], "host": [], "peak_gib": []} for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms, host = _timed(fn)
+            times[k]["cuda"].append(ms / updates)
+            times[k]["host"].append(host / updates)
+            times[k]["peak_gib"].append(torch.cuda.max_memory_allocated() / 2**30)
+    out = {k: dict(v, cuda_median=statistics.median(v["cuda"]),
+                   host_median=statistics.median(v["host"])) for k, v in times.items()}
+    for k, fn in fns.items():
+        torch.cuda.synchronize()
+        zero_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        counted = _all_counts()
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        traced = {c: sum(bool(re.search(rx, n)) for n in names) for c, rx in kernels.items()}
+        # each instantiation as the trace prints it, e.g. aa_fused_kernel<8, true>
+        seen = sorted({m.group(0) for n in names for rx in kernels.values()
+                       if re.search(rx, n) and (m := re.search(r"\w+<[^>]*>", n))})
+        out[k].update(profiled_wall_ms=wall, busy_ms=busy,
+                      idle_share=1.0 - busy / wall if busy > 0 else None,
+                      traced=traced, counted=counted, kernel_names=seen)
+    return out
+
+
+def _turns_line(out: dict, fns) -> str:
+    return ("ms per update (CUDA events / host clock): " + "; ".join(
+        f"{k} " + ", ".join(f"{c:.2f}/{h:.2f}" for c, h in zip(v["cuda"], v["host"]))
+        + f" (medians {v['cuda_median']:.2f}/{v['host_median']:.2f}), peak "
+        + ", ".join(f"{p:.2f}" for p in v["peak_gib"]) + " GiB"
+        for k, v in ((k, out[k]) for k in fns))
+        + "; under torch.profiler: " + "; ".join(
+            f"{k} {out[k]['profiled_wall_ms']:.1f} ms, busy {out[k]['busy_ms']:.1f} ms, idle "
+            + (f"{out[k]['idle_share']:.3f}" if out[k]["idle_share"] is not None
+               else "not measured (no device events)") for k in fns))
+
+
+def _chain_turns(card: str, graph: dict, batches: list) -> dict:
+    """U6. In CHAIN_ROUNDS alternating rounds, CHAIN eager updates against
+    one graphed chain of CHAIN on the same batches (:func:`_turns_and_trace`);
+    K1-K4's kernels counted by name in the profiled graphed chain's trace
+    must run each once per update, as many times as its replays added to
+    the counters."""
     state_g, chained = graph["graphed"]["state"], graph["graphed"]["step"]
     state_e, eager = graph["eager"]["state"], graph["eager"]["step"]
 
@@ -4520,34 +4682,7 @@ def _chain_turns(card: str, graph: dict, batches: list) -> dict:
         state_g.step += len(batches)
 
     fns = {"eager": run_eager, "chained": run_chain}
-    times = {k: {"cuda": [], "host": [], "peak_gib": []} for k in fns}
-    for _ in range(CHAIN_ROUNDS):
-        for k, fn in fns.items():
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            ms, host = _timed(fn)
-            times[k]["cuda"].append(ms / CHAIN)
-            times[k]["host"].append(host / CHAIN)
-            times[k]["peak_gib"].append(torch.cuda.max_memory_allocated() / 2**30)
-    out = {k: dict(v, cuda_median=statistics.median(v["cuda"]),
-                   host_median=statistics.median(v["host"])) for k, v in times.items()}
-    for k, fn in fns.items():
-        torch.cuda.synchronize()
-        zero_counts()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = 1e3 * (time.perf_counter() - t0)
-        counted = _counts()
-        busy = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        traced = {c: sum(bool(re.search(rf"\b{kernel}\b", n)) for n in names)
-                  for c, kernel in CHAIN_KERNELS.items()}
-        out[k].update(profiled_wall_ms=wall, busy_ms=busy,
-                      idle_share=1.0 - busy / wall if busy > 0 else None,
-                      traced=traced, counted=counted)
+    out = _turns_and_trace(fns, CHAIN_ROUNDS, CHAIN, CHAIN_KERNELS)
     traced, counted = out["chained"]["traced"], out["chained"]["counted"]
     check(all(n == CHAIN == counted[c] for c, n in traced.items()),
           f"[chain] U6: the profiled graphed chain of {CHAIN} ran K1-K4's kernels {traced} times "
@@ -4556,28 +4691,199 @@ def _chain_turns(card: str, graph: dict, batches: list) -> dict:
     out["pool_gib"] = chained.pool_bytes / 2**30
     out["reserved_gib"] = torch.cuda.memory_reserved() / 2**30
     print(f"[chain] U6 {card}: FLAGSHIP_H100 at batch {TRAIN_BATCH}, {CHAIN} updates a round, "
-          f"{CHAIN_ROUNDS} rounds in turns; ms per update (CUDA events / host clock): "
-          + "; ".join(f"{k} " + ", ".join(f"{c:.2f}/{h:.2f}" for c, h in zip(v["cuda"], v["host"]))
-                      + f" (medians {v['cuda_median']:.2f}/{v['host_median']:.2f}), peak "
-                      + ", ".join(f"{p:.2f}" for p in v["peak_gib"]) + " GiB"
-                      for k, v in ((k, out[k]) for k in fns))
-          + "; under torch.profiler: " + "; ".join(
-              f"{k} {out[k]['profiled_wall_ms']:.1f} ms, busy {out[k]['busy_ms']:.1f} ms, idle "
-              + (f"{out[k]['idle_share']:.3f}" if out[k]["idle_share"] is not None
-                 else "not measured (no device events)") for k in fns)
+          f"{CHAIN_ROUNDS} rounds in turns; " + _turns_line(out, fns)
           + f"; K1-K4's kernels in the profiled graphed chain's trace {traced}, the counters "
-          f"{ {c: counted[c] for c in traced} }; capture {out['capture_s']:.2f} s; the graph's pool {out['pool_gib']:.2f} GiB "
-          f"(the chained update's activations: replays allocate nothing else, so its peak "
-          f"reads low); reserved in all {out['reserved_gib']:.2f} GiB",
+          f"{ {c: counted[c] for c in traced} }; capture {out['capture_s']:.2f} s; the graph's "
+          f"pool {out['pool_gib']:.2f} GiB (the chained update's activations: replays allocate "
+          f"nothing else, so its peak reads low); reserved in all {out['reserved_gib']:.2f} GiB",
           flush=True)
+    return out
+
+
+def _chain_wide(card: str, full: list) -> dict:
+    """U8. Each of CHAIN_WIDE at full width with dropout live, from one seed:
+    a graphed chain of CHAIN against CHAIN eager steps on the same batches
+    (update 1's logs bit-equal, every weight outside the key-bias entries
+    within ``chain_eager_bound`` for the build's dtype, which a trained leaf
+    left unchanged and a chain of the wrong sign fail; the launches); then
+    a chain with a NaN planted in update 2, skipped in both paths; then the
+    two in CHAIN_WIDE_ROUNDS alternating rounds with the idle share, K3b and
+    K4b counted by name in the profiled graphed chain's trace, equal to the
+    counters, the graph's pool and the capture's seconds.  ``full``: U2's
+    CHAIN batches of TRAIN_BATCH, which a path at that batch reuses.  Each
+    build is released before the next."""
+    out = {}
+    for name, (cfg, batch) in CHAIN_WIDE.items():
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(SEED + 71)
+        batches = (list(full) if batch == TRAIN_BATCH else
+                   [_train_batch(rng, batch).to("cuda") for _ in range(CHAIN)])
+        losses, lr = build_losses(cfg), cfg["training_specific"]["lr"]
+        start = build_model(cfg, device="cuda", seed=SEED).state_dict()
+        states = [create_train_state(build_model(cfg, device="cuda", seed=SEED),
+                                     cfg["training_specific"], steps_per_epoch=64, seed=SEED)
+                  for _ in range(2)]
+        state_e, state_g = states
+        eager = make_train_step(state_e.model, state_e.optimizer, state_e.scheduler, losses,
+                                torch.device("cuda"))
+        chained = ChainedStep(state_g.model, state_g.optimizer, state_g.scheduler, losses,
+                              torch.device("cuda"), accum_steps=1)
+        want = _chain_want(cfg, CHAIN)
+        zero_counts()
+        eager_logs = torch.stack([torch.stack([logs[n] for n in chained.names]) for logs in
+                                  (eager(b, k, SEED) for k, b in enumerate(batches))])
+        check(_all_counts() == want, f"[chain {name}] {CHAIN} eager steps launched "
+              f"{_all_counts()}, not {want}")
+        grads = {n: p.grad for n, p in state_e.model.named_parameters()}
+        after = {k: v.clone() for k, v in state_e.model.state_dict().items()}
+        zero_counts()
+        chained(batches, 0, SEED)
+        launches = _all_counts()
+        check(launches == want, f"[chain {name}] the graphed chain launched {launches}, not "
+              f"{want}")
+        chain_logs = chained.chain_logs[:, :-1]
+        check(torch.equal(chain_logs[0], eager_logs[0]),
+              f"[chain {name}] U8: update 1's logs differ from the eager step's")
+        log_rel = ((chain_logs - eager_logs).abs() / eager_logs.abs()).max().item()
+        dtype = "bfloat16" if _is_bf16(cfg) else "float32"
+        r = _vs_eager(state_g.model.state_dict(), after, start, grads, dtype)
+        bound = chain_eager_bound(lr, CHAIN, dtype)
+        print(f"[chain] U8 {name} at batch {batch}: a graphed chain of {CHAIN} vs {CHAIN} eager "
+              f"steps: max |weight difference| {r['max_weight_diff']:.3e} "
+              f"({r['max_weight_diff'] / lr:.4f} lr) at {r['leaf']} outside the "
+              f"{len(r['noise_entries'])} key-bias entries, {r['noise_diff']:.3e} on them; "
+              f"chain_eager_gap ({dtype}) {r['gap']:.3e} at {r['gap_leaf']} (bound "
+              f"{bound:.3e}), a trained leaf left unchanged at least {r['unchanged']:.3e}, a "
+              f"chain of the wrong sign {r['flipped']:.3e}; update 1's logs bit-equal, the rest "
+              f"within {log_rel:.2e} relative; launches {_launched(launches)}", flush=True)
+        check(r["gap"] <= bound, f"[chain {name}] U8: {r['gap_leaf']} lies {r['gap']:.3e} from "
+              f"the eager steps' by chain_eager_gap (bound {bound:.3e})")
+        check(r["unchanged"] > bound and r["flipped"] > bound,
+              f"[chain {name}] U8: the bound {bound:.3e} passes an unchanged leaf "
+              f"({r['unchanged']:.3e}) or a chain of the wrong sign ({r['flipped']:.3e})")
+        # a NaN planted in update 2: skipped in both paths
+        bad = dataclasses.replace(batches[1], x=batches[1].x.clone())
+        bad.x[0, 1, 3, 0] = float("nan")
+        nan_chain = [batches[0], bad] + batches[2:]
+        chained(nan_chain, CHAIN, SEED)
+        skipped_e = [eager(b, CHAIN + k, SEED)["train/step_skipped"]
+                     for k, b in enumerate(nan_chain)]
+        skipped_g = chained.chain_logs[:, -1].tolist()
+        want_skips = [0.0, 1.0] + [0.0] * (CHAIN - 2)
+        check(skipped_g == skipped_e == want_skips
+              and state_g.scheduler.last_epoch == state_e.scheduler.last_epoch == 2 * CHAIN - 1,
+              f"[chain {name}] U8: the planted NaN: chained skips {skipped_g}, eager {skipped_e}, "
+              f"schedules {state_g.scheduler.last_epoch} / {state_e.scheduler.last_epoch}")
+        step = [2 * CHAIN, 2 * CHAIN]
+
+        def run_eager():
+            for b in batches:
+                eager(b, step[0], SEED)
+                step[0] += 1
+
+        def run_chain():
+            chained(batches, step[1], SEED)
+            step[1] += CHAIN
+
+        fns = {"eager": run_eager, "chained": run_chain}
+        turns = _turns_and_trace(fns, CHAIN_WIDE_ROUNDS, CHAIN, CHAIN_BF16_KERNELS)
+        traced, counted = turns["chained"]["traced"], turns["chained"]["counted"]
+        check(traced == {c: counted[c] for c in traced}
+              == {c: want[c] for c in CHAIN_BF16_KERNELS},
+              f"[chain {name}] U8: the profiled graphed chain ran K3b / K4b {traced} times by the "
+              f"trace; the counters added {counted}, the build launches {want} a chain")
+        out[name] = dict(batch=batch, launches=launches, traced=traced, u8=dict(r, bound=bound,
+                         log_rel=log_rel), skipped=skipped_g, turns=turns,
+                         capture_s=chained.capture_s[0], pool_gib=chained.pool_bytes / 2**30,
+                         seconds=time.perf_counter() - t0)
+        print(f"[chain] U8 {card}: {name} at batch {batch}, {CHAIN} updates a round, "
+              f"{CHAIN_WIDE_ROUNDS} rounds in turns; " + _turns_line(turns, fns)
+              + f"; K3b / K4b in the profiled graphed chain's trace {traced} (as "
+              f"{turns['chained']['kernel_names']}), the counters "
+              f"{ {c: counted[c] for c in traced} }; the NaN in update 2 skipped in both paths "
+              f"({skipped_g}); capture {chained.capture_s[0]:.2f} s, the graph's pool "
+              f"{out[name]['pool_gib']:.2f} GiB; {out[name]['seconds']:.1f} s", flush=True)
+        del states, state_e, state_g, eager, chained, batches, start, after, grads, fns
+        torch.cuda.empty_cache()
+    return out
+
+
+def _chain_cli_fast(d: str) -> dict:
+    """U9. ``train_torch.main`` on a JSON copy of ``_tpu_fast.yml``
+    (``FLAGSHIP_BF16_CAPPED``, its batch of 128) over phase I's npz files and
+    J's validation scenes: one epoch with ``--chain 1``, then one with
+    ``--chain CHAIN`` from the same seed (FILE_BATCHES updates, one chain):
+    no kernel launches (dense AA, scan decoder), no skip, finite val
+    metrics, one train record a chain, and the chained epoch's weights
+    within ``chain_eager_bound`` (bf16) of the eager epoch's outside the
+    key-bias entries."""
+    import train_torch
+
+    cfg = copy.deepcopy(FLAGSHIP_BF16_CAPPED)
+    kw = cfg["datamodule_specific"]["kwargs"]
+    kw.update(nu_dir=os.path.join(d, "npz", "nuScenes"),
+              Argo_dir=os.path.join(d, "npz", "Argoverse"), num_workers=2)
+    check(kw["train_batch_size"] == TRAIN_BATCH and _is_bf16(cfg)
+          and cfg["encoder"]["kwargs"]["neighbor_cap"] == CAP,
+          "FLAGSHIP_BF16_CAPPED is not the _tpu_fast recipe at batch 128")
+    path = os.path.join(d, "tpu_fast.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    logdir = os.path.join(d, "logs")
+    want = _chain_want(cfg, FILE_BATCHES)
+    out, weights = {}, {}
+    for tag, chain in (("eager", 1), ("chain", CHAIN)):
+        zero_counts()
+        t0 = time.perf_counter()
+        state, trainer = train_torch.main(["-c", path, "-n", f"fast_{tag}", "--logdir", logdir,
+                                           "--epochs", "1", "--seed", str(SEED), "--chain",
+                                           str(chain)])
+        wall = time.perf_counter() - t0
+        launches = _all_counts()
+        check(state.step == FILE_BATCHES, f"[chain fast {tag}] ended at step {state.step}")
+        check(launches == want, f"[chain fast {tag}] launched {launches}, not {want}")
+        epoch = trainer.epoch_logs[-1]
+        check(epoch["train/steps_skipped"] == 0.0, f"[chain fast {tag}] a step was skipped")
+        vals = {k: v for k, v in epoch.items() if k.startswith("val/")}
+        check(vals and all(np.isfinite(v) for v in vals.values()),
+              f"[chain fast {tag}] non-finite val metrics {vals}")
+        with open(os.path.join(logdir, f"fast_{tag}", "metrics.jsonl")) as f:
+            records = [r["step"] for r in map(json.loads, f) if "train/total" in r]
+        check(records == (list(range(1, FILE_BATCHES + 1)) if chain == 1 else [FILE_BATCHES]),
+              f"[chain fast {tag}] train records at {records}")
+        weights[tag] = {k: v.clone() for k, v in state.model.state_dict().items()}
+        out[tag] = dict(launches=launches, wall_s=wall, records=records, val=vals,
+                        ms_per_update=1e3 / epoch["perf/steps_per_s"])
+        print(f"[chain] U9 train_torch.py -c tpu_fast.json --chain {chain}: step {state.step}, "
+              f"launches {_launched(launches) or 'none'}, train records at {records}, "
+              f"{out[tag]['ms_per_update']:.1f} ms an update over the epoch, val "
+              + ", ".join(f"{k} {v:.4f}" for k, v in vals.items()) + f"; {wall:.1f} s",
+              flush=True)
+        del state, trainer
+    start = build_model(cfg, device="cuda", seed=SEED).state_dict()
+    noise = noise_entries(weights["eager"])
+    dist, leaf = largest_gap(weights["chain"], weights["eager"], noise)
+    gap, gap_leaf = chain_eager_gap(weights["chain"], weights["eager"], start, "bfloat16")
+    bound = chain_eager_bound(cfg["training_specific"]["lr"], FILE_BATCHES, "bfloat16")
+    out["vs_eager_epoch"] = dict(max_weight_diff=dist, leaf=leaf, gap=gap, gap_leaf=gap_leaf,
+                                 bound=bound,
+                                 noise_diff=largest_gap(weights["chain"], weights["eager"], noise,
+                                                        inside=True)[0])
+    print(f"[chain] U9: the chained epoch's weights vs the eager epoch's: max |difference| "
+          f"{dist:.3e} at {leaf} outside the key-bias entries, "
+          f"{out['vs_eager_epoch']['noise_diff']:.3e} on them; chain_eager_gap (bf16) {gap:.3e} "
+          f"at {gap_leaf} (bound {bound:.3e})", flush=True)
+    check(gap <= bound, f"[chain fast] {gap_leaf} of the chained epoch lies {gap:.3e} from the "
+          f"eager epoch's by chain_eager_gap (bound {bound:.3e})")
     return out
 
 
 def phase_chain(d: str, card: str) -> dict:
     """U. The chained train step (``train_torch.py --chain``): U1 the device
     keys of K1 / K2, U2-U4 the graphed chain of ``FLAGSHIP_H100`` (and U2 of
-    the other builds), U5 the command line on J's files, U6 eager against
-    chained in turns."""
+    the other f32 builds), U5 the command line on J's files, U6 eager
+    against chained in turns, U7 every other shipped build's graphed chain,
+    U8 the full-width bf16 paths, U9 ``_tpu_fast.yml``'s command line."""
     t_phase = time.perf_counter()
     keys = _chain_keys()
     torch.cuda.empty_cache()
@@ -4586,15 +4892,26 @@ def phase_chain(d: str, card: str) -> dict:
     small = [_train_batch(rng, CHAIN_BUILD_BATCH).to("cuda") for _ in range(2)]
     graph = _chain_graph(card, batches, small)
     torch.cuda.empty_cache()
-    cli = _chain_cli(d, graph["u3"]["noise_leaves"])
+    cli = _chain_cli(d)
     torch.cuda.empty_cache()
     turns = _chain_turns(card, graph, batches)
     # chain_train's launches: K1-K4 as the trace of a graphed chain saw them,
-    # K5 and K6 (on no training path) as the counters read them
+    # the others as the counters read them
     launches = dict(graph["graphed"]["launches"][0], **turns["chained"]["traced"])
-    out = dict(keys=keys, launches=launches, u3=graph["u3"], builds=graph["builds"], cli=cli,
-               turns=turns)
-    del graph, batches
+    out = dict(keys=keys, launches=launches, u3=graph["u3"], cli=cli, turns=turns)
+    builds = graph["builds"]
+    del graph
+    torch.cuda.empty_cache()
+    t_more = time.perf_counter()
+    builds.update(_chain_builds(CHAIN_MORE_BUILDS, small, "U7"))
+    print(f"[chain] U7: {time.perf_counter() - t_more:.1f} s", flush=True)
+    del small
+    torch.cuda.empty_cache()
+    out["wide"] = _chain_wide(card, batches)
+    del batches
+    torch.cuda.empty_cache()
+    out["fast_cli"] = _chain_cli_fast(d)
+    out["builds"] = builds
     torch.cuda.empty_cache()
     print(f"[chain] phase U: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
@@ -4738,10 +5055,21 @@ def main() -> None:
         entry["launches_by_path"]["bf16_fused_serve"] = bf16_serve["launches"][name]
         entry["launches_by_path"]["bf16_fused_train"] = bf16_train["fused"]["launches"][name]
         entry["launches_by_path"]["bf16_dense_train"] = bf16_train["dense"]["launches"][name]
-        # phase U: a graphed chain of FLAGSHIP_H100 (its replays counted), and
-        # train_torch.py --chain's epoch
-        entry["launches_by_path"]["chain_train"] = chain["launches"][name]
-        entry["launches_by_path"]["chain_cli_train"] = chain["cli"]["chain"]["launches"][name]
+    # phase U: a graphed chain of FLAGSHIP_H100 (its replays counted),
+    # train_torch.py --chain's epoch, each build's graphed chains of 2 (U2,
+    # U7), the full-width bf16 chains (U8; K3b / K4b as their traces saw
+    # them) and the _tpu_fast.yml --chain epoch (U9)
+    for entry, name in ((fwd, "sde_rollout"), (bwd, "sde_rollout_bwd"), (k3, "aa_fused"),
+                        (k4, "aa_fused_bwd"), (k5, "aa_attention"), (k6, "vpu_probe"),
+                        (k3b, "aa_fused_bf16"), (k4b, "aa_fused_bwd_bf16")):
+        paths = entry["launches_by_path"]
+        paths["chain_train"] = chain["launches"].get(name, 0)
+        paths["chain_cli_train"] = chain["cli"]["chain"]["launches"][name]
+        for build, b in chain["builds"].items():
+            paths[f"chain_{build.lower()}"] = b["launches"][name]
+        for build, w in chain["wide"].items():
+            paths[f"chain_wide_{build.lower()}"] = w["traced"].get(name, w["launches"][name])
+        paths["chain_fast_cli"] = chain["fast_cli"]["chain"]["launches"][name]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches: {served} serving + "
           f"{served_fused} fused serving + {train['sde_rollout']} training + "
           f"{train_fused['sde_rollout']} fused-encoder training; K2 launches: "
@@ -4775,8 +5103,15 @@ def main() -> None:
           f"served at buckets 1 and {TRAIN_BATCH}: {bf16_serve['launches']}, "
           f"{bf16_serve['bf16_launches']}, and {BF16_FUSED_STEPS} train steps at "
           f"{BF16_FUSED_BATCH}: {bf16_train['fused']['launches']}; a graphed chain of {CHAIN} "
-          f"FLAGSHIP_H100 updates: {chain['launches']}; train_torch.py --chain {CHAIN}'s "
-          f"epoch: {chain['cli']['chain']['launches']}", flush=True)
+          f"FLAGSHIP_H100 updates: {_launched(chain['launches'])}; train_torch.py --chain "
+          f"{CHAIN}'s epoch: {_launched(chain['cli']['chain']['launches'])}; graphed chains of 2 "
+          f"at {CHAIN_BUILD_BATCH}: " + ", ".join(f"{b} {_launched(r['launches']) or 'none'}"
+                                                  for b, r in chain["builds"].items())
+          + f"; graphed chains of {CHAIN} at full width: "
+          + ", ".join(f"{b} {_launched(r['launches']) or 'none'}"
+                      for b, r in chain["wide"].items())
+          + f"; the _tpu_fast.yml --chain {CHAIN} epoch: "
+          f"{_launched(chain['fast_cli']['chain']['launches']) or 'none'}", flush=True)
     print(card)
     print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6, k3b, k4b]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

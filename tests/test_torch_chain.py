@@ -6,8 +6,8 @@ uncaptured (on a card each update is one replay of its CUDA graph).
   AdamW / cosine updates with pinned noise (``tests/test_torch_accum.py``'s
   pattern): each update's loss rtol 2e-4, every leaf after the chain within
   2e-3 x scale + 1e-6, with Adam's eps at ``EPS`` on both sides; and at the
-  configured eps (1e-8), every leaf but the rounding-noise ones
-  (``optim.noise_leaves`` of JAX's gradients: the attention key biases);
+  configured eps (1e-8), every entry but the attention key biases
+  (``optim.noise_entries``), whose JAX gradient is rounding noise;
 * the chain against three eager (``--chain 1``) steps: bit for bit on the
   CPU (on a card within ``optim.chain_eager_bound``, which an unchanged
   state and an update of the wrong sign fail);
@@ -39,8 +39,8 @@ from trajsde_tpu_torch.config import build_losses
 from trajsde_tpu_torch.train import logging as tlogging
 from trajsde_tpu_torch.train.loop import (ChainedStep, Trainer, create_train_state,
                                           make_train_step)
-from trajsde_tpu_torch.train.optim import (NOISE_NAMES, chain_eager_bound, largest_gap,
-                                           noise_leaves)
+from trajsde_tpu_torch.train.optim import (NOISE_GRAD, chain_eager_bound, grad_split,
+                                           largest_gap, noise_entries)
 
 import train_torch
 from _torch_helpers import (check_leaves, model_pair, noise_for, scene_pair, small_cfg, t,
@@ -53,7 +53,7 @@ TRAINING = {"lr": 0.003, "weight_decay": 0.01, "T_max": 1, "nodecay": True}
 # Adam's eps in the comparison with JAX of every leaf.  At the configured
 # 1e-8, Adam turns the rounding noise of a gradient that is zero in exact
 # arithmetic (every attention key bias: the softmax does not see it; |g|
-# ~ 1e-10 here, ``optim.NOISE_GRAD``) into a step of up to lr, and JAX's
+# ~ 1e-10 here, ``optim.noise_entries``) into a step of up to lr, and JAX's
 # noise is not the port's, so those leaves differ by a step whatever
 # either side computes.  At 1e-4 such a step is 1e-6 lr, while the other
 # gradients (2e-3 to 1) still take steps of about lr.
@@ -175,17 +175,19 @@ def test_chain_of_3_meets_three_sequential_jax_updates(jax_chain):
 
 def test_chain_of_3_meets_jax_at_the_configured_eps_but_the_noise_leaves(jax_chain):
     """At Adam's configured eps (1e-8) the losses meet JAX's at rtol 2e-4
-    and every leaf at 2e-3 x scale + 1e-6, but the leaves whose JAX
-    gradient is rounding noise (``noise_leaves``: 0 < max|g| < NOISE_GRAD
-    over the three updates), which are the attention key biases and
-    nothing else."""
+    and every leaf at 2e-3 x scale + 1e-6, but the key-bias entries
+    (``noise_entries``, by structure: the attention key biases), whose JAX
+    gradient is rounding noise (max|g| over the three updates below
+    NOISE_GRAD, every other leaf's above it)."""
     jc = jax_chain
     model, _, chained, _ = _chain(jc, jc["scenes"], eps=CONFIGURED_EPS)
     losses, params, _, largest = jc["configured"]
     np.testing.assert_allclose(chained.chain_logs[:, -2].tolist(), losses, rtol=2e-4)
-    noise = noise_leaves(largest)
-    names = [n for n, _ in model.named_parameters()]
-    assert noise and noise == sorted(n for n in names if re.search(NOISE_NAMES, n))
+    noise = noise_entries(dict(model.named_parameters()))
+    assert noise and all(sl == slice(None) and re.search(r"\.lin_k(_edge)?\.bias$", n)
+                         for n, sl in noise.items())
+    on_noise, least, leaf = grad_split(largest, noise)
+    assert 0.0 < on_noise < NOISE_GRAD <= least, (on_noise, least, leaf)
     want = params_from_flax(jax.tree.map(np.asarray, params))
     check_leaves({n: p.detach() for n, p in model.named_parameters() if n not in noise},
                  {n: w for n, w in want.items() if n not in noise})
@@ -286,8 +288,8 @@ def test_chain_is_the_eager_steps_bit_for_bit_on_the_cpu(fused_model, enc_fused,
     assert logs["train/step_skipped"] == (0.0 if nan_at is None else 1.0)
     assert logs["scenes"] == C * B and logs["stop"] is False
     bound = chain_eager_bound(cfg["training_specific"]["lr"], C)
-    noise = noise_leaves({n: p.grad for n, p in states[0].model.named_parameters()})
     start, after = base.state_dict(), states[0].model.state_dict()
+    noise = noise_entries(after)
     assert largest_gap(states[1].model.state_dict(), after, noise)[0] <= bound
     assert largest_gap(start, after, noise)[0] > bound
     assert largest_gap({k: 2 * v - after[k] for k, v in start.items()}, after, noise)[0] > bound

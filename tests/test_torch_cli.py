@@ -362,9 +362,6 @@ CHAIN_REFUSED = [
     (["--multihost", "--zero1"], None, "item 5f"),
     ([], ("encoder", "remat", True), "item 5g"),
     ([], ("encoder", "adaptive", True), "item 5h"),
-    ([], ("decoder", "dtype", "bfloat16"), "item 5h"),
-    ([], ("encoder", "neighbor_cap", 24), "item 5h"),
-    ([], "baseline", "item 5h"),
 ]
 
 
@@ -372,15 +369,60 @@ CHAIN_REFUSED = [
 def test_flags_not_ported_exit_naming_their_item(flags, edit, item, tmp_path):
     path = "x.yml"
     if edit is not None:
-        cfg = small_baseline_cfg() if edit == "baseline" else small_cfg()
-        if edit != "baseline":
-            sec, key, value = edit
-            cfg[sec]["kwargs"][key] = value
+        cfg = small_cfg()
+        sec, key, value = edit
+        cfg[sec]["kwargs"][key] = value
         path = str(tmp_path / "cfg.json")
         with open(path, "w") as f:
             json.dump(cfg, f)
     with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {item}"):
         train_torch.main(["-c", path, "-n", "x", "--chain", "2", *flags])
+
+
+def _bf16(cap=0, fused=False):
+    """``_tpu.yml`` at the small size (cap: ``_tpu_fast.yml``; fused: the
+    ``encoder.fused: true`` fallback, plain K3b / K4b here)."""
+    cfg = _cfg(fused=False)
+    for sec in ("encoder", "aggregator", "decoder"):
+        cfg[sec]["kwargs"]["dtype"] = "bfloat16"
+    cfg["encoder"]["kwargs"].update(neighbor_cap=cap, fused=fused)
+    return cfg
+
+
+def _baseline(fused=False):
+    """The HiVT baseline at the small size (fused: plain K3 / K4 here)."""
+    cfg = small_baseline_cfg(Tf=60, fused=fused)
+    cfg["datamodule_specific"]["kwargs"].update(
+        train_batch_size=BATCH, val_batch_size=BATCH, num_actors=A, num_lanes=L, num_workers=1)
+    return cfg
+
+
+# the builds --chain once refused (ROADMAP.md Queue 1 item 5h), small
+CHAIN_BUILDS = {"tpu": lambda: _bf16(), "tpu_fast": lambda: _bf16(cap=3),
+                "tpu_fused": lambda: _bf16(fused=True), "baseline": lambda: _baseline(),
+                "baseline_fused": lambda: _baseline(fused=True)}
+
+
+@pytest.mark.parametrize("build", list(CHAIN_BUILDS))
+def test_chain_trains_every_shipped_build_from_files(build, data, tmp_path):
+    """``train_torch.main --chain 2`` from npz files on the small forms of
+    ``_tpu.yml``, ``_tpu_fast.yml``, the fused bf16 fallback and both
+    baselines: 3 batches chained 2 + 1 (the trailing chain trains), one
+    train record a chain, no skip, finite val metrics."""
+    cfg = CHAIN_BUILDS[build]()
+    cfg["datamodule_specific"]["kwargs"].update(nu_dir=str(data / "nuScenes"),
+                                                Argo_dir=str(data / "Argoverse"))
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(cfg))
+    state, trainer = train_torch.main(["-c", str(path), "-n", "x", "--chain", "2", "--device",
+                                       "cpu", "--epochs", "1", "--logdir", str(tmp_path)])
+    assert state.step == 3 and state.scheduler.last_epoch == 3 and trainer.chain_steps == 2
+    epoch = trainer.epoch_logs[-1]
+    assert epoch["train/steps_skipped"] == 0.0
+    vals = {k: v for k, v in epoch.items() if k.startswith("val/")}
+    assert vals and all(np.isfinite(v) for v in vals.values())
+    rows = [r for r in _records(tmp_path / "x") if "train/total" in r]
+    assert [r["step"] for r in rows] == [2, 3] and all(np.isfinite(r["train/total"]) for r in rows)
 
 
 @pytest.mark.parametrize("flags", [["--multihost"], ["--multihost", "--zero1"], ["--zero1"]])

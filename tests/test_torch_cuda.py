@@ -1197,3 +1197,55 @@ def test_graphed_chain_is_the_uncaptured_chained_step_bit_for_bit(cuda, accum):
     assert all(torch.equal(opt["state"][i][k], want[3]["state"][i][k])
                for i in opt["state"] for k in opt["state"][i])
     assert sched == want[4] and sched["last_epoch"] == sum(len(c) for c in chains) - 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["FLAGSHIP_BF16_CAPPED", "FLAGSHIP_BF16_FUSED", "BASELINE_TRAIN"])
+def test_graphed_chain_of_every_build_is_the_uncaptured_chain_bit_for_bit(cuda, name):
+    """``_tpu_fast.yml``, ``_tpu.yml``'s fused fallback (K3b / K4b) and the
+    fused baseline (K3 / K4 at 4 heads), dropout live, at 48 actors: a
+    chain over two batch layouts (8 and 4 scenes, each captured after its
+    first update, the graphs sharing a pool) equals the uncaptured chained
+    step's logs and weights bit for bit, its kernels count once per update
+    under replay, and the capped block's ``aa_overflow_edges`` after each
+    chain is the step's own buffer holding the chain's last batch's count,
+    whichever layout's graph ran last."""
+    from trajsde_tpu_torch import config
+    from trajsde_tpu_torch.config import build_losses, build_model
+    from trajsde_tpu_torch.train.loop import ChainedStep, create_train_state
+
+    cfg = getattr(config, name)
+    big = [_packed(s, 8, 48, 192).to(cuda) for s in range(51, 54)]
+    small = [_packed(s, 4, 48, 192).to(cuda) for s in range(61, 64)]
+    chains = [[big[0], small[0], big[1]], [small[1], big[2], small[2]]]
+    counters = (K3.fused_pair_attention, K3.fused_pair_attention_bwd)
+    runs = []
+    for graphs in (True, False):
+        model = build_model(cfg, device=cuda, seed=6)
+        state = create_train_state(model, cfg["training_specific"], steps_per_epoch=8, seed=4)
+        step = ChainedStep(model, state.optimizer, state.scheduler, build_losses(cfg), cuda,
+                           accum_steps=1, graphs=graphs)
+        before = [getattr(c, a) for c in counters for a in ("launches", "bf16_launches")]
+        logs, overflow = [], []
+        for chain in chains:
+            step(chain, state.step, state.seed)
+            state.step += len(chain)
+            logs.append(step.chain_logs.clone())
+            aa = model.encoder.aa_encoder
+            if aa.neighbor_cap:
+                assert aa.aa_overflow_edges is step.overflow[aa]
+                overflow.append(int(aa.aa_overflow_edges))
+                with torch.no_grad():   # the count of the chain's last batch, eagerly
+                    model.eval()(chain[-1])
+                assert int(aa.aa_overflow_edges) == overflow[-1] > 0
+        after = [getattr(c, a) for c in counters for a in ("launches", "bf16_launches")]
+        runs.append((logs, {k: v.clone() for k, v in model.state_dict().items()},
+                     [b - a for a, b in zip(before, after)], overflow, len(step.captured)))
+    (logs, weights, launches, overflow, captured), want = runs
+    assert captured == 2 and want[4] == 0 and overflow == want[3]
+    for a, b in zip(logs, want[0]):
+        assert torch.equal(a, b)
+    assert all(torch.equal(weights[k], want[1][k]) for k in weights)
+    fused, bf16 = bool(cfg["encoder"]["kwargs"].get("fused")), name.startswith("FLAGSHIP_BF16")
+    n = 6 * fused
+    assert launches == want[2] == [0 if bf16 else n, n if bf16 else 0] * 2

@@ -51,10 +51,7 @@ from typing import Optional, Sequence
 NOT_PORTED = {
     "--multihost": "item 5f (the update's collectives inside a CUDA graph)",
     "encoder.remat": "item 5g (the remat blocks' generator state on the device)",
-    "encoder.adaptive": "item 5h (--chain on the other builds)",
-    "dtype bfloat16": "item 5h (--chain on the other builds)",
-    "encoder.neighbor_cap": "item 5h (--chain on the other builds)",
-    "the HiVT baseline": "item 5h (--chain on the other builds)",
+    "encoder.adaptive": "item 5h (the adaptive solver's graph)",
 }
 
 
@@ -107,18 +104,10 @@ def _refuse_chain(what: str) -> None:
 def check_chain(cfg: dict) -> None:
     """Exit naming its ROADMAP item when ``cfg`` builds a model that
     ``--chain`` does not run yet."""
-    from trajsde_tpu_torch.config import resolve
-    from trajsde_tpu_torch.models.prediction import PredictionModelSDENet
-
     enc = cfg["encoder"].get("kwargs", {})
-    for key in ("remat", "adaptive", "neighbor_cap"):
+    for key in ("remat", "adaptive"):
         if enc.get(key):
             _refuse_chain(f"encoder.{key}")
-    if any(cfg[sec].get("kwargs", {}).get("dtype") == "bfloat16"
-           for sec in ("encoder", "aggregator", "decoder")):
-        _refuse_chain("dtype bfloat16")
-    if resolve(cfg["model_specific"]["module_name"]) is not PredictionModelSDENet:
-        _refuse_chain("the HiVT baseline")
 
 
 def ts_drop_rate(cfg: dict) -> float:

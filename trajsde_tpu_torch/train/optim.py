@@ -13,7 +13,8 @@ which reads nothing on the host between its updates.
 from __future__ import annotations
 
 import math
-from typing import Dict, Iterable, List, Optional, Tuple
+import re
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -192,55 +193,156 @@ class DeviceAdamW:
         self.count.add_(finite.to(self.count.dtype))
 
 
-# A gradient leaf is rounding noise when its largest entry lies below
-# NOISE_GRAD and is not 0: every attention key's bias (a shift common to a
-# query's keys, which the softmax does not see; NOISE_NAMES), which reads
-# 3e-12 to 2e-10 on FLAGSHIP_H100 at batch 128 on an H100, where every
-# other leaf reads 7e-5 or more (scripts/chain_gap_torch.py).  At Adam's eps of 1e-8, Adam turns such noise into steps
-# of up to about lr, and two runs that round apart draw different noise,
-# so those leaves part by up to that much; the model's outputs do not see
-# them.
+# The key-bias entries of every softmax attention: a shift common to a
+# query's keys, which the softmax does not see, so their exact gradient is
+# 0 and what the backward computes is rounding.  EdgeAttention's
+# ``lin_k.bias`` and ``lin_k_edge.bias`` are whole leaves;
+# MultiheadSelfAttention packs q, k and v into one ``in_proj``, whose key
+# bias is rows D:2D of ``in_proj.bias`` (the rest is the q and v biases,
+# which the output sees).  In f32 these entries read max|g| 3e-12 to 2e-10
+# on FLAGSHIP_H100 at batch 128 on an H100, where every other leaf reads
+# 7e-5 or more (scripts/chain_gap_torch.py), below NOISE_GRAD; in bf16 the
+# rounding of the backward is far larger.  At Adam's eps of 1e-8, Adam
+# turns such noise into steps of up to about lr, and two runs that round
+# apart draw different noise, so those entries part by up to that much;
+# the model's outputs do not see them.
 NOISE_GRAD = 1e-6
-NOISE_NAMES = r"\.lin_k(_edge)?\.bias$"
+KEY_BIAS = r"\.lin_k(_edge)?\.bias$"
+PACKED_QKV_BIAS = r"\.in_proj\.bias$"
 
 
-def noise_leaves(grads: Dict[str, Optional[torch.Tensor]],
-                 threshold: float = NOISE_GRAD) -> List[str]:
-    """The leaves of ``grads`` whose gradient is rounding noise,
-    0 < max|g| < ``threshold`` (a leaf without a gradient, or with a zero
-    one, is not noise: Adam leaves it where the other run does)."""
-    return sorted(n for n, g in grads.items()
-                  if g is not None and 0.0 < float(torch.as_tensor(g).abs().max()) < threshold)
+def noise_entries(params: Mapping[str, torch.Tensor]) -> Dict[str, slice]:
+    """The key-bias entries of ``params`` (a model's named parameters, a
+    state dict or a gradient dict, by the port's names): ``{name: the slice
+    of its first axis}``, the whole leaf for ``lin_k.bias`` /
+    ``lin_k_edge.bias`` and rows D:2D for a packed ``in_proj.bias`` [3D]."""
+    out = {}
+    for name, p in params.items():
+        if re.search(KEY_BIAS, name):
+            out[name] = slice(None)
+        elif re.search(PACKED_QKV_BIAS, name):
+            d = p.shape[0] // 3
+            out[name] = slice(d, 2 * d)
+    return dict(sorted(out.items()))
 
 
-def largest_gap(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor],
-                skip: Iterable[str] = ()) -> Tuple[float, str]:
+def _entries(t: torch.Tensor, sl: Optional[slice], inside: bool) -> torch.Tensor:
+    """``t``'s entries in the slice ``sl`` of its first axis (``inside``), or
+    the others (None: every entry)."""
+    if sl is None:   # no entry named: every entry is outside
+        return t.reshape(-1)[:0] if inside else t
+    if sl == slice(None):   # the whole leaf
+        return t if inside else t.reshape(-1)[:0]
+    if not inside:
+        keep = torch.ones(t.shape[0], dtype=torch.bool, device=t.device)
+        keep[sl] = False
+        return t[keep]
+    return t[sl]
+
+
+def largest_gap(got: Mapping[str, torch.Tensor], want: Mapping[str, torch.Tensor],
+                skip: Mapping[str, slice] = {}, inside: bool = False) -> Tuple[float, str]:
     """The largest ``|got - want|`` over the floating leaves of ``want``
-    that are not in ``skip``, and its leaf."""
-    skip = set(skip)
-    return max(((got[k].double() - w.double()).abs().max().item(), k)
-               for k, w in want.items() if k not in skip and w.is_floating_point())
+    outside the entries ``skip`` names (:func:`noise_entries`' form), and
+    its leaf; with ``inside=True`` over those entries only."""
+    gaps = []
+    for k, w in want.items():
+        if not w.is_floating_point() or (inside and k not in skip):
+            continue
+        d = _entries((got[k].double() - w.double()).abs(), skip.get(k), inside)
+        if d.numel():
+            gaps.append((d.max().item(), k))
+    return max(gaps)
 
 
-def chain_eager_bound(lr: float, updates: int) -> float:
-    """How far a weight may lie from the eager steps' after ``updates``
-    chained updates on the card, outside the :func:`noise_leaves`: 0.2 lr,
-    for chains of up to 4 updates.  Update 1 sees the same weights and draws
-    as the eager step; the two AdamWs round their last operations apart,
-    and from update 2 on the gradients, and so the weights, part further
-    with each update.  Read on an H100 on FLAGSHIP_H100 at lr 1e-3 after 4
+def leaf_rel_gaps(got: Mapping[str, torch.Tensor], want: Mapping[str, torch.Tensor],
+                  start: Mapping[str, torch.Tensor],
+                  skip: Mapping[str, slice] = {}) -> List[Tuple[float, str]]:
+    """``||got - want||_2 / ||want - start||_2`` of each floating leaf of
+    ``want`` that moved from ``start``, outside the entries ``skip`` names,
+    largest first: how far a chain's leaf lies from the eager steps', in
+    units of how far those steps moved it."""
+    gaps = []
+    for k, w in want.items():
+        if not w.is_floating_point():
+            continue
+        moved = _entries(w.double() - start[k].double(), skip.get(k), False)
+        off = _entries(got[k].double() - w.double(), skip.get(k), False)
+        den = float(moved.norm()) if moved.numel() else 0.0
+        if den > 0.0:
+            gaps.append((float(off.norm()) / den, k))
+    return sorted(gaps, reverse=True)
+
+
+def grad_split(grads: Mapping[str, Optional[torch.Tensor]],
+               entries: Mapping[str, slice]) -> Tuple[float, float, str]:
+    """(the largest |g| on ``entries``, the smallest max|g| of a leaf outside
+    them whose gradient is not 0, and that leaf): in f32 the first reads
+    below :data:`NOISE_GRAD` and the second above it, which is what makes
+    ``entries`` the rounding noise."""
+    noise, rest = 0.0, []
+    for k, g in grads.items():
+        if g is None:
+            continue
+        g = torch.as_tensor(g).abs()
+        if k in entries:
+            inner = _entries(g, entries[k], True)
+            noise = max(noise, float(inner.max()) if inner.numel() else 0.0)
+        outer = _entries(g, entries.get(k), False)
+        if outer.numel() and float(outer.max()) > 0.0:
+            rest.append((float(outer.max()), k))
+    least = min(rest)
+    return noise, least[0], least[1]
+
+
+def chain_eager_gap(got: Mapping[str, torch.Tensor], want: Mapping[str, torch.Tensor],
+                    start: Mapping[str, torch.Tensor], dtype: str = "float32"
+                    ) -> Tuple[float, str]:
+    """The distance that :func:`chain_eager_bound` bounds, of a chain's
+    weights ``got`` from the eager steps' ``want`` (both trained from
+    ``start``), outside the :func:`noise_entries`, and its leaf: in f32 the
+    largest ``|got - want|``; in bf16 the largest :func:`leaf_rel_gaps`."""
+    noise = noise_entries(want)
+    if dtype == "float32":
+        return largest_gap(got, want, noise)
+    return leaf_rel_gaps(got, want, start, noise)[0]
+
+
+def chain_eager_bound(lr: float, updates: int, dtype: str = "float32") -> float:
+    """How far a chain's weights may lie from the eager steps' after
+    ``updates`` chained updates on the card, by :func:`chain_eager_gap`,
+    for chains of up to 4 updates.  Update 1 sees the same weights and
+    draws as the eager step; the two AdamWs round their last operations
+    apart, and from update 2 on the gradients, and so the weights, part
+    further with each update.
+
+    f32: 0.2 lr.  Read on an H100 on FLAGSHIP_H100 at lr 1e-3 after 4
     updates: 1.50e-5 (0.015 lr) on synthetic batches of 128, 8.60e-5
     (0.086 lr) over an epoch of the command line on npz files
     (``chip_smoke.py`` phases U3 and U5); 2.16e-4 after 8 and 3.11e-4 after
     12 on the batches of 128 (``scripts/chain_gap_torch.py``), so longer
-    chains would need a bound of their own.  A leaf the eager steps train lies 1.2e-3 to
-    4.0e-3 from where it started, and an update of the wrong sign 8.0e-3
-    away: a chain that left one unchanged, or stepped the wrong way, fails
-    it."""
+    chains would need a bound of their own.  A leaf the eager steps train
+    lies 1.2e-3 to 4.0e-3 from where it started, and an update of the wrong
+    sign 8.0e-3 away: a chain that left one unchanged, or stepped the wrong
+    way, fails it.
+
+    bf16: no distance in lr separates.  Each weight is cast to bf16 at
+    every use, so once two runs' weights part by an ulp a cast can round
+    the other way, and an entry whose gradient lies near 0 then takes
+    Adam's step of about lr in the other direction: after 2 updates of
+    FLAGSHIP_BF16_FUSED at batch 64 one entry lies 1.59e-3 off at lr 1e-3,
+    above the 1.44e-3 that the least-moving trained leaf moved.  Such
+    entries are few, so the bar is on each leaf's L2 distance over how far
+    the eager steps moved it (:func:`leaf_rel_gaps`): 0.1, which a leaf left
+    unchanged (1) and the wrong sign (2) fail.  Read by
+    ``scripts/chain_gap_torch.py`` on an H100 at lr 1e-3, the largest leaf
+    after 2 / 4 updates: FLAGSHIP_BF16_FUSED at batch 64 0.015 / 0.024,
+    FLAGSHIP_BF16_CAPPED at 128 9.0e-6 / 0.0060, FLAGSHIP_BF16 at 64 0.040 /
+    0.033 (and after 8: 0.039, 0.016); FLAGSHIP_H100 in f32 3.1e-4 after 4."""
     if updates > 4:
         raise ValueError(f"chain_eager_bound is read for chains of up to 4 updates, "
                          f"not {updates}")
-    return 0.2 * lr
+    return 0.2 * lr if dtype == "float32" else 0.1
 
 
 def build_optimizer(model: nn.Module, training_cfg: dict, steps_per_epoch: int,
