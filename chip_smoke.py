@@ -303,30 +303,33 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      the uncaptured chained function from the same seeded state, every
      chain's logs, weights, moments, counts and schedule bit for bit, K1-K4
      once per update under replay; the same for a chain of 2 of each of
-     ``CHAIN_BUILDS``.  U3: the first chain against CHAIN eager steps:
-     update 1's logs bit-equal, every weight outside the noise leaves (the
-     attention key biases, picked by their eager gradient) within
-     ``optim.chain_eager_bound``, which a leaf left unchanged and a chain of
-     the wrong sign fail.  U4: a third chain with a NaN planted in update
-     2: one skip, the same bits in both paths, the schedule one behind.
+     ``CHAIN_BUILDS``, the second chain traced: each kernel as often in the
+     profiler's trace as its counter and as the build launches it.  U3: the
+     first chain against CHAIN eager steps: update 1's logs bit-equal,
+     every weight outside the noise leaves (the attention key biases,
+     picked by their eager gradient) within ``optim.chain_eager_bound``,
+     which a leaf left unchanged and a chain of the wrong sign fail.  U4: a
+     third chain with a NaN planted in update 2: one skip, the same bits in
+     both paths, the schedule one behind.
      U5: ``train_torch.main --chain CHAIN`` on J's files (one train record,
      the launches, its weights within the bound of J's eager epoch, whose
      checkpoint must be there), then ``--chain 1 --ckpt``.  U6: CHAIN eager
      updates against one graphed chain in CHAIN_ROUNDS alternating rounds,
      ms per update by CUDA events and the host clock, peak memory, the idle
-     share under ``torch.profiler`` and the capture's seconds, beside the
-     card's name and power limit; in the profiled graphed chain, K1-K4's
-     kernels counted by name in the trace, once per update and equal to
-     the counters' replayed counts (the kernels line's ``chain_train``).
+     share under ``torch.profiler`` (device activity only) and the
+     capture's seconds, beside the card's name and power limit; in the
+     profiled graphed chain, K1-K4's kernels counted by name in the trace,
+     once per update and equal to the counters' replayed counts (the
+     kernels line's ``chain_train``).
      U7: every other shipped build at CHAIN_BUILD_BATCH (``CHAIN_MORE_BUILDS``:
      ``FLAGSHIP_BF16``, it with the fused decoder, ``FLAGSHIP_BF16_CAPPED``,
      ``FLAGSHIP_BF16_FUSED``, ``BASELINE``, ``BASELINE_TRAIN``), U2's check:
      two graphed chains of 2 bit-equal to the uncaptured ones, K3b / K4b
      twice a chain on the fused bf16 build, K3 / K4 at 4 heads twice on the
      fused baseline, K1 / K2 twice with the fused decoder, nothing on the
-     dense builds; at cap 24 ``aa_overflow_edges`` after each chain is the
-     step's own buffer holding numpy's count for the chain's last batch;
-     each build's graphs released before the next, their pool printed.  U8:
+     dense builds, by the counters and the second chain's trace;
+     ``aa_overflow_edges`` None after each chain; each build's graphs
+     released before the next, their pool printed.  U8:
      the full-width bf16 paths ``CHAIN_WIDE`` (``FLAGSHIP_BF16_FUSED`` at
      BF16_FUSED_BATCH, ``_tpu_fast.yml`` as written at TRAIN_BATCH): a
      graphed chain of CHAIN against CHAIN eager steps (update 1's logs
@@ -335,8 +338,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      chain of the wrong sign fail), a planted NaN skipped in both paths,
      then eager against chained in CHAIN_WIDE_ROUNDS rounds as U6, with
      K3b / K4b counted by name in the profiled graphed chain's trace, equal
-     to the counters.  U9: ``train_torch.main`` on a JSON copy of
-     ``_tpu_fast.yml`` over J's files, a ``--chain 1`` epoch then a
+     to the counters, and each part's seconds.  U9: ``train_torch.main`` on
+     a JSON copy of ``_tpu_fast.yml`` over J's files, a ``--chain 1`` epoch then a
      ``--chain CHAIN`` epoch from the same seed: no kernel, finite val
      metrics, the chained weights within the bf16 bar of the eager ones.
 Phases 4, B, C and 7 check that K4 never launches on their paths, and the
@@ -369,7 +372,7 @@ from trajsde_tpu_torch.config import (BASELINE, BASELINE_TRAIN, FLAGSHIP, FLAGSH
                                       FLAGSHIP_BF16_CAPPED, FLAGSHIP_BF16_FUSED,
                                       FLAGSHIP_CAPPED, FLAGSHIP_FUSED,
                                       FLAGSHIP_H100, FLAGSHIP_TRAIN, FLAGSHIP_TRAIN_FUSED,
-                                      build_datamodule, build_losses, build_metrics,
+                                      build_datamodule, build_dtype, build_losses, build_metrics,
                                       build_model)
 from trajsde_tpu_torch.data.pack import pack_scenes, pick_bucket
 from trajsde_tpu_torch.data.preprocess import argoverse as argo_pre
@@ -580,14 +583,6 @@ CHAIN_MORE_BUILDS = {"FLAGSHIP_BF16": FLAGSHIP_BF16, "FLAGSHIP_BF16_TRAIN": FLAG
 CHAIN_WIDE = {"FLAGSHIP_BF16_FUSED": (FLAGSHIP_BF16_FUSED, BF16_FUSED_BATCH),
               "FLAGSHIP_BF16_CAPPED": (FLAGSHIP_BF16_CAPPED, TRAIN_BATCH)}
 CHAIN_WIDE_ROUNDS = 2
-# the kernel (its __global__ name) behind each of K1-K4's counters, counted
-# in U6's profiler trace of a graphed chain; K3b and K4b are the BF = true
-# instantiations of K3's and K4's templates (<heads, BF>), counted in U8's
-CHAIN_KERNELS = {"sde_rollout": r"\brollout_kernel\b",
-                 "sde_rollout_bwd": r"\brollout_bwd_kernel\b",
-                 "aa_fused": r"\baa_fused_kernel\b", "aa_fused_bwd": r"\baa_fused_bwd_kernel\b"}
-CHAIN_BF16_KERNELS = {"aa_fused_bf16": r"\baa_fused_kernel<\d+, true>",
-                      "aa_fused_bwd_bf16": r"\baa_fused_bwd_kernel<\d+, true>"}
 
 
 # H100 SXM published peaks (dense): f32 on CUDA cores, TF32, bf16 and f64
@@ -4332,19 +4327,15 @@ def _all_counts() -> dict:
     return dict(_counts(), **_bf16_counts())
 
 
-def _is_bf16(cfg) -> bool:
-    return any(cfg[sec].get("kwargs", {}).get("dtype") == "bfloat16"
-               for sec in ("encoder", "aggregator", "decoder"))
-
-
 def _chain_want(cfg, updates: int) -> dict:
     """The launches of ``updates`` chained updates of ``cfg``: K1 and K2
     once an update with a fused decoder, K3 and K4 (K3b and K4b in bf16)
     with a fused AA encoder, nothing else."""
     fused_aa = bool(cfg["encoder"]["kwargs"].get("fused"))
     fused_dec = bool(cfg["decoder"]["kwargs"].get("fused"))
-    aa = updates * (fused_aa and not _is_bf16(cfg))
-    aab = updates * (fused_aa and _is_bf16(cfg))
+    bf16 = build_dtype(cfg) == "bfloat16"
+    aa = updates * (fused_aa and not bf16)
+    aab = updates * (fused_aa and bf16)
     return {"sde_rollout": updates * fused_dec, "sde_rollout_bwd": updates * fused_dec,
             "aa_fused": aa, "aa_fused_bwd": aa, "aa_attention": 0, "vpu_probe": 0,
             "aa_fused_bf16": aab, "aa_fused_bwd_bf16": aab}
@@ -4355,14 +4346,52 @@ def _launched(launches: dict) -> dict:
     return {k: v for k, v in launches.items() if v}
 
 
-def _chain_pair(cfg, batches: list, chains: int, tag: str, nan_at=None) -> dict:
+def _traced(fn) -> dict:
+    """``fn`` run once under ``torch.profiler``, device activity only (CPU
+    op events doubled an eager step's profiled time): its host ms, the
+    device's busy ms, each kernel's runs in the trace
+    (``ops.traced_launches``), the kernel instantiations it names (e.g.
+    ``aa_fused_kernel<8, true>``), the counters' launches in that call, and
+    the seconds the whole took.  The device events are read from the raw
+    kineto results in one pass: ``prof.events()`` and ``key_averages()``
+    give the same busy time and names, but took 20-60 s on an eager bf16
+    chain's 72,000 device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t_all = time.perf_counter()
+    torch.cuda.synchronize()
+    zero_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    counted = _all_counts()
+    busy_ns, names = 0, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            names.append(e.name())
+            busy_ns += 0 if e.is_async() else e.duration_ns()
+    busy = busy_ns / 1e6
+    seen = sorted({m.group(0) for n in set(names) for rx in ops.TRACE_NAMES.values()
+                   if re.search(rx, n) and (m := re.search(r"\w+<[^>]*>", n))})
+    return dict(profiled_wall_ms=wall, busy_ms=busy,
+                idle_share=1.0 - busy / wall if busy > 0 else None,
+                traced=ops.traced_launches(names), counted=counted, kernel_names=seen,
+                seconds=time.perf_counter() - t_all)
+
+
+def _chain_pair(cfg, batches: list, chains: int, tag: str, nan_at=None,
+                trace: bool = False) -> dict:
     """A graphed chained step and the uncaptured one (the same function run
     as it is), each on its own copy of the seeded ``cfg`` model, over
     ``chains`` chains of ``batches`` (the second with a NaN planted in
-    update ``nan_at``): every chain's logs, the states after it and a
-    capped AA block's ``aa_overflow_edges`` bit for bit, and the graphed
-    path's launches per chain.  Returns both steps and states, the
-    launches, the skips and the overflow counts."""
+    update ``nan_at``): every chain's logs and the states after it bit for
+    bit, a capped AA block's ``aa_overflow_edges`` None after each, and the
+    graphed path's launches per chain; with ``trace`` the graphed path's
+    last chain (replays only) runs under the profiler (:func:`_traced`).
+    Returns both steps and states, the launches, the skips and the
+    trace."""
     losses = build_losses(cfg)
     out = {}
     for mode in ("plain", "graphed"):
@@ -4371,8 +4400,7 @@ def _chain_pair(cfg, batches: list, chains: int, tag: str, nan_at=None) -> dict:
                                    seed=SEED)
         step = ChainedStep(model, state.optimizer, state.scheduler, losses,
                            torch.device("cuda"), accum_steps=1, graphs=mode == "graphed")
-        out[mode] = dict(state=state, step=step, bits=[], logs=[], launches=[], skipped=[],
-                         overflow=[])
+        out[mode] = dict(state=state, step=step, bits=[], logs=[], launches=[], skipped=[])
     for c in range(chains):
         chain = list(batches)
         if nan_at is not None and c == chains - 1:
@@ -4380,15 +4408,21 @@ def _chain_pair(cfg, batches: list, chains: int, tag: str, nan_at=None) -> dict:
             bad.x[0, 1, 3, 0] = float("nan")
             chain[nan_at] = bad
         for mode, r in out.items():
-            zero_counts()
-            logs = r["step"](chain, r["state"].step, r["state"].seed)
+            def run():
+                r["skipped"].append(r["step"](chain, r["state"].step,
+                                              r["state"].seed)["train/step_skipped"])
+            if trace and mode == "graphed" and c == chains - 1:
+                r["trace"] = _traced(run)
+            else:
+                zero_counts()
+                run()
             r["state"].step += len(chain)
             r["launches"].append(_all_counts())
-            r["skipped"].append(logs["train/step_skipped"])
             r["logs"].append(r["step"].chain_logs.clone())
             r["bits"].append(_state_bits(r["state"]))
-            overflow = getattr(r["state"].model.encoder.aa_encoder, "aa_overflow_edges", None)
-            r["overflow"].append(None if overflow is None else int(overflow))
+            aa = getattr(r["state"].model.encoder, "aa_encoder", None)
+            check(getattr(aa, "aa_overflow_edges", None) is None,
+                  f"[chain {tag}] {mode}: aa_overflow_edges is not None after chain {c + 1}")
         plain, graphed = out["plain"], out["graphed"]
         bad = _same_bits(plain["bits"][-1], graphed["bits"][-1])
         check(not bad, f"[chain {tag}] chain {c + 1}: the graphed chain's state differs from the "
@@ -4396,44 +4430,40 @@ def _chain_pair(cfg, batches: list, chains: int, tag: str, nan_at=None) -> dict:
         check(_logs_equal(plain["logs"][-1], graphed["logs"][-1]),
               f"[chain {tag}] chain {c + 1}: the graphed chain's logs differ from the "
               "uncaptured chain's")
-        check(plain["overflow"] == graphed["overflow"],
-              f"[chain {tag}] aa_overflow_edges after the chains: graphed {graphed['overflow']}, "
-              f"uncaptured {plain['overflow']}")
     return out
 
 
 def _chain_builds(builds: dict, small: list, label: str) -> dict:
     """U2 / U7: each build's graphed chain of 2 on ``small`` (two batches of
     CHAIN_BUILD_BATCH) against the uncaptured one, twice, bit for bit, with
-    its launches a chain (:func:`_chain_want`); a capped build's
-    ``aa_overflow_edges`` after each chain is the graphed step's own
-    buffer, equal to numpy's count on the chain's last batch.  Each build's
-    steps, graphs and pool are released before the next."""
+    its launches a chain (:func:`_chain_want`), and the second graphed
+    chain, replays only, traced: each kernel as often in the trace as its
+    counter, as the build launches it.  A capped block's
+    ``aa_overflow_edges`` is None after each chain.  Each build's steps,
+    graphs and pool are released before the next."""
     out = {}
     for name, cfg in builds.items():
-        pair = _chain_pair(cfg, small, 2, name)
+        t0 = time.perf_counter()
+        pair = _chain_pair(cfg, small, 2, name, trace=True)
         graphed = pair["graphed"]
         want = _chain_want(cfg, 2)
         check(graphed["launches"] == [want, want],
               f"[chain {name}] launched {graphed['launches']}, not {want} a chain")
+        traced = graphed["trace"]["traced"]
+        check(traced == graphed["launches"][-1] == want,
+              f"[chain {name}] the traced graphed chain ran {traced} by the trace, the counters "
+              f"added {graphed['launches'][-1]}, the build launches {want}")
         step = graphed["step"]
-        cap = cfg["encoder"]["kwargs"].get("neighbor_cap", 0)
-        note = ""
-        if cap:
-            enc = graphed["state"].model.encoder
-            expect = numpy_overflow(small[-1], enc.local_radius, cap)[0]
-            check(enc.aa_encoder.aa_overflow_edges is step.overflow[enc.aa_encoder]
-                  and graphed["overflow"] == [expect, expect] and expect > 0,
-                  f"[chain {name}] aa_overflow_edges after the chains read {graphed['overflow']}, "
-                  f"not the step's buffer holding numpy's {expect}")
-            note = (f"; aa_overflow_edges after each chain {graphed['overflow']} (numpy {expect}), "
-                    "in the step's buffer outside the pool")
-        out[name] = dict(launches=graphed["launches"][0], capture_s=step.capture_s[0],
-                         pool_gib=step.pool_bytes / 2**30, overflow=graphed["overflow"])
+        out[name] = dict(launches=graphed["launches"][0], traced=traced,
+                         kernel_names=graphed["trace"]["kernel_names"],
+                         capture_s=step.capture_s[0], pool_gib=step.pool_bytes / 2**30,
+                         seconds=time.perf_counter() - t0)
         print(f"[chain] {label} {name} at batch {CHAIN_BUILD_BATCH}: 2 graphed chains of 2 equal "
-              f"the uncaptured ones bit for bit; launches per chain {_launched(want)}; capture "
-              f"{step.capture_s[0]:.2f} s, the graph's pool {out[name]['pool_gib']:.2f} GiB"
-              + note, flush=True)
+              f"the uncaptured ones bit for bit; launches per chain {_launched(want) or 'none'}, "
+              f"the second chain's trace {_launched(traced) or 'none'} (as "
+              f"{graphed['trace']['kernel_names']}); aa_overflow_edges None after each; capture "
+              f"{step.capture_s[0]:.2f} s, the graph's pool {out[name]['pool_gib']:.2f} GiB; "
+              f"{out[name]['seconds']:.1f} s", flush=True)
         del pair, graphed, step
         torch.cuda.empty_cache()
     return out
@@ -4512,7 +4542,7 @@ def _chain_graph(card: str, batches: list, small: list) -> dict:
           f"NOISE_GRAD {NOISE_GRAD}")
     start = build_model(cfg, device="cuda", seed=SEED).state_dict()
     bound = chain_eager_bound(cfg["training_specific"]["lr"], CHAIN)
-    r = _vs_eager(graphed["bits"][0]["model"], after, start, grads, "float32")
+    r = _vs_eager(graphed["bits"][0]["model"], after, start, grads, build_dtype(cfg))
     chain_logs = graphed["logs"][0][:, :3]
     log_rel = ((chain_logs - eager_logs).abs() / eager_logs.abs()).max().item()
     print(f"[chain] U3: chain of {CHAIN} vs {CHAIN} eager steps: max |weight difference| "
@@ -4610,14 +4640,12 @@ def _chain_cli(d: str) -> dict:
     return out
 
 
-def _turns_and_trace(fns: dict, rounds: int, updates: int, kernels: dict) -> dict:
+def _turns_and_trace(fns: dict, rounds: int, updates: int) -> dict:
     """In ``rounds`` alternating rounds, each of ``fns`` (``updates``
     updates each): ms per update by CUDA events and by the host clock (each
-    synchronized) and peak memory; then the device's idle share under
-    ``torch.profiler`` over one call of each, and ``kernels`` (counter:
-    regex of the kernel's name) counted in each trace beside the counters."""
-    from torch.profiler import ProfilerActivity, profile
-
+    synchronized) and peak memory; then one call of each under the
+    profiler (:func:`_traced`: the idle share, the kernels in the trace
+    beside the counters)."""
     times = {k: {"cuda": [], "host": [], "peak_gib": []} for k in fns}
     for _ in range(rounds):
         for k, fn in fns.items():
@@ -4630,24 +4658,7 @@ def _turns_and_trace(fns: dict, rounds: int, updates: int, kernels: dict) -> dic
     out = {k: dict(v, cuda_median=statistics.median(v["cuda"]),
                    host_median=statistics.median(v["host"])) for k, v in times.items()}
     for k, fn in fns.items():
-        torch.cuda.synchronize()
-        zero_counts()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = 1e3 * (time.perf_counter() - t0)
-        counted = _all_counts()
-        busy = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        traced = {c: sum(bool(re.search(rx, n)) for n in names) for c, rx in kernels.items()}
-        # each instantiation as the trace prints it, e.g. aa_fused_kernel<8, true>
-        seen = sorted({m.group(0) for n in names for rx in kernels.values()
-                       if re.search(rx, n) and (m := re.search(r"\w+<[^>]*>", n))})
-        out[k].update(profiled_wall_ms=wall, busy_ms=busy,
-                      idle_share=1.0 - busy / wall if busy > 0 else None,
-                      traced=traced, counted=counted, kernel_names=seen)
+        out[k].update(_traced(fn))
     return out
 
 
@@ -4682,18 +4693,19 @@ def _chain_turns(card: str, graph: dict, batches: list) -> dict:
         state_g.step += len(batches)
 
     fns = {"eager": run_eager, "chained": run_chain}
-    out = _turns_and_trace(fns, CHAIN_ROUNDS, CHAIN, CHAIN_KERNELS)
+    out = _turns_and_trace(fns, CHAIN_ROUNDS, CHAIN)
     traced, counted = out["chained"]["traced"], out["chained"]["counted"]
-    check(all(n == CHAIN == counted[c] for c, n in traced.items()),
-          f"[chain] U6: the profiled graphed chain of {CHAIN} ran K1-K4's kernels {traced} times "
-          f"by the trace, and the counters added {counted}")
+    check(traced == counted == _chain_want(FLAGSHIP_H100, CHAIN),
+          f"[chain] U6: the profiled graphed chain of {CHAIN} ran {traced} by the trace, and the "
+          f"counters added {counted}: not K1-K4 once an update")
     out["capture_s"] = chained.capture_s[0]
     out["pool_gib"] = chained.pool_bytes / 2**30
     out["reserved_gib"] = torch.cuda.memory_reserved() / 2**30
     print(f"[chain] U6 {card}: FLAGSHIP_H100 at batch {TRAIN_BATCH}, {CHAIN} updates a round, "
           f"{CHAIN_ROUNDS} rounds in turns; " + _turns_line(out, fns)
-          + f"; K1-K4's kernels in the profiled graphed chain's trace {traced}, the counters "
-          f"{ {c: counted[c] for c in traced} }; capture {out['capture_s']:.2f} s; the graph's "
+          + f"; in the profiled graphed chain's trace {_launched(traced)} (as "
+          f"{out['chained']['kernel_names']}), the counters {_launched(counted)}; capture "
+          f"{out['capture_s']:.2f} s; the graph's "
           f"pool {out['pool_gib']:.2f} GiB (the chained update's activations: replays allocate "
           f"nothing else, so its peak reads low); reserved in all {out['reserved_gib']:.2f} GiB",
           flush=True)
@@ -4709,26 +4721,33 @@ def _chain_wide(card: str, full: list) -> dict:
     a chain with a NaN planted in update 2, skipped in both paths; then the
     two in CHAIN_WIDE_ROUNDS alternating rounds with the idle share, K3b and
     K4b counted by name in the profiled graphed chain's trace, equal to the
-    counters, the graph's pool and the capture's seconds.  ``full``: U2's
-    CHAIN batches of TRAIN_BATCH, which a path at that batch reuses.  Each
-    build is released before the next."""
+    counters, the graph's pool and the capture's seconds; each part's
+    seconds.  ``full``: U2's CHAIN batches of TRAIN_BATCH, which a path at
+    that batch reuses.  Each build is released before the next."""
     out = {}
     for name, (cfg, batch) in CHAIN_WIDE.items():
         t0 = time.perf_counter()
+        split = {}
+
+        def lap(part):
+            torch.cuda.synchronize()
+            split[part] = time.perf_counter() - t0 - sum(split.values())
+
         rng = np.random.default_rng(SEED + 71)
         batches = (list(full) if batch == TRAIN_BATCH else
                    [_train_batch(rng, batch).to("cuda") for _ in range(CHAIN)])
         losses, lr = build_losses(cfg), cfg["training_specific"]["lr"]
-        start = build_model(cfg, device="cuda", seed=SEED).state_dict()
         states = [create_train_state(build_model(cfg, device="cuda", seed=SEED),
                                      cfg["training_specific"], steps_per_epoch=64, seed=SEED)
                   for _ in range(2)]
         state_e, state_g = states
+        start = {k: v.clone() for k, v in state_e.model.state_dict().items()}
         eager = make_train_step(state_e.model, state_e.optimizer, state_e.scheduler, losses,
                                 torch.device("cuda"))
         chained = ChainedStep(state_g.model, state_g.optimizer, state_g.scheduler, losses,
                               torch.device("cuda"), accum_steps=1)
         want = _chain_want(cfg, CHAIN)
+        lap("models and batches")
         zero_counts()
         eager_logs = torch.stack([torch.stack([logs[n] for n in chained.names]) for logs in
                                   (eager(b, k, SEED) for k, b in enumerate(batches))])
@@ -4736,17 +4755,20 @@ def _chain_wide(card: str, full: list) -> dict:
               f"{_all_counts()}, not {want}")
         grads = {n: p.grad for n, p in state_e.model.named_parameters()}
         after = {k: v.clone() for k, v in state_e.model.state_dict().items()}
+        lap(f"{CHAIN} eager steps")
         zero_counts()
         chained(batches, 0, SEED)
         launches = _all_counts()
+        lap("the graphed chain (capture included)")
         check(launches == want, f"[chain {name}] the graphed chain launched {launches}, not "
               f"{want}")
         chain_logs = chained.chain_logs[:, :-1]
         check(torch.equal(chain_logs[0], eager_logs[0]),
               f"[chain {name}] U8: update 1's logs differ from the eager step's")
         log_rel = ((chain_logs - eager_logs).abs() / eager_logs.abs()).max().item()
-        dtype = "bfloat16" if _is_bf16(cfg) else "float32"
+        dtype = build_dtype(cfg)
         r = _vs_eager(state_g.model.state_dict(), after, start, grads, dtype)
+        lap("the weights' comparison")
         bound = chain_eager_bound(lr, CHAIN, dtype)
         print(f"[chain] U8 {name} at batch {batch}: a graphed chain of {CHAIN} vs {CHAIN} eager "
               f"steps: max |weight difference| {r['max_weight_diff']:.3e} "
@@ -4774,6 +4796,7 @@ def _chain_wide(card: str, full: list) -> dict:
               and state_g.scheduler.last_epoch == state_e.scheduler.last_epoch == 2 * CHAIN - 1,
               f"[chain {name}] U8: the planted NaN: chained skips {skipped_g}, eager {skipped_e}, "
               f"schedules {state_g.scheduler.last_epoch} / {state_e.scheduler.last_epoch}")
+        lap("the planted NaN, both paths")
         step = [2 * CHAIN, 2 * CHAIN]
 
         def run_eager():
@@ -4786,23 +4809,27 @@ def _chain_wide(card: str, full: list) -> dict:
             step[1] += CHAIN
 
         fns = {"eager": run_eager, "chained": run_chain}
-        turns = _turns_and_trace(fns, CHAIN_WIDE_ROUNDS, CHAIN, CHAIN_BF16_KERNELS)
+        turns = _turns_and_trace(fns, CHAIN_WIDE_ROUNDS, CHAIN)
         traced, counted = turns["chained"]["traced"], turns["chained"]["counted"]
-        check(traced == {c: counted[c] for c in traced}
-              == {c: want[c] for c in CHAIN_BF16_KERNELS},
-              f"[chain {name}] U8: the profiled graphed chain ran K3b / K4b {traced} times by the "
-              f"trace; the counters added {counted}, the build launches {want} a chain")
+        check(traced == counted == want,
+              f"[chain {name}] U8: the profiled graphed chain ran {traced} by the trace; the "
+              f"counters added {counted}, the build launches {want} a chain")
+        profiled = {k: turns[k]["seconds"] for k in fns}
+        lap(f"{CHAIN_WIDE_ROUNDS} rounds in turns and one profiled call of each")
         out[name] = dict(batch=batch, launches=launches, traced=traced, u8=dict(r, bound=bound,
                          log_rel=log_rel), skipped=skipped_g, turns=turns,
                          capture_s=chained.capture_s[0], pool_gib=chained.pool_bytes / 2**30,
-                         seconds=time.perf_counter() - t0)
+                         seconds=time.perf_counter() - t0, split_s=split, profiled_s=profiled)
         print(f"[chain] U8 {card}: {name} at batch {batch}, {CHAIN} updates a round, "
               f"{CHAIN_WIDE_ROUNDS} rounds in turns; " + _turns_line(turns, fns)
-              + f"; K3b / K4b in the profiled graphed chain's trace {traced} (as "
-              f"{turns['chained']['kernel_names']}), the counters "
-              f"{ {c: counted[c] for c in traced} }; the NaN in update 2 skipped in both paths "
-              f"({skipped_g}); capture {chained.capture_s[0]:.2f} s, the graph's pool "
-              f"{out[name]['pool_gib']:.2f} GiB; {out[name]['seconds']:.1f} s", flush=True)
+              + f"; in the profiled graphed chain's trace {_launched(traced) or 'none'} (as "
+              f"{turns['chained']['kernel_names']}), the counters {_launched(counted) or 'none'}; "
+              f"the NaN in update 2 skipped in both paths ({skipped_g}); capture "
+              f"{chained.capture_s[0]:.2f} s, the graph's pool {out[name]['pool_gib']:.2f} GiB; "
+              f"{out[name]['seconds']:.1f} s: " + ", ".join(f"{k} {v:.1f} s"
+                                                          for k, v in split.items())
+              + " (the profiled calls, trace processing included: "
+              + ", ".join(f"{k} {v:.1f} s" for k, v in profiled.items()) + ")", flush=True)
         del states, state_e, state_g, eager, chained, batches, start, after, grads, fns
         torch.cuda.empty_cache()
     return out
@@ -4823,7 +4850,7 @@ def _chain_cli_fast(d: str) -> dict:
     kw = cfg["datamodule_specific"]["kwargs"]
     kw.update(nu_dir=os.path.join(d, "npz", "nuScenes"),
               Argo_dir=os.path.join(d, "npz", "Argoverse"), num_workers=2)
-    check(kw["train_batch_size"] == TRAIN_BATCH and _is_bf16(cfg)
+    check(kw["train_batch_size"] == TRAIN_BATCH and build_dtype(cfg) == "bfloat16"
           and cfg["encoder"]["kwargs"]["neighbor_cap"] == CAP,
           "FLAGSHIP_BF16_CAPPED is not the _tpu_fast recipe at batch 128")
     path = os.path.join(d, "tpu_fast.json")
@@ -4863,8 +4890,8 @@ def _chain_cli_fast(d: str) -> dict:
     start = build_model(cfg, device="cuda", seed=SEED).state_dict()
     noise = noise_entries(weights["eager"])
     dist, leaf = largest_gap(weights["chain"], weights["eager"], noise)
-    gap, gap_leaf = chain_eager_gap(weights["chain"], weights["eager"], start, "bfloat16")
-    bound = chain_eager_bound(cfg["training_specific"]["lr"], FILE_BATCHES, "bfloat16")
+    gap, gap_leaf = chain_eager_gap(weights["chain"], weights["eager"], start, build_dtype(cfg))
+    bound = chain_eager_bound(cfg["training_specific"]["lr"], FILE_BATCHES, build_dtype(cfg))
     out["vs_eager_epoch"] = dict(max_weight_diff=dist, leaf=leaf, gap=gap, gap_leaf=gap_leaf,
                                  bound=bound,
                                  noise_diff=largest_gap(weights["chain"], weights["eager"], noise,
@@ -4895,9 +4922,8 @@ def phase_chain(d: str, card: str) -> dict:
     cli = _chain_cli(d)
     torch.cuda.empty_cache()
     turns = _chain_turns(card, graph, batches)
-    # chain_train's launches: K1-K4 as the trace of a graphed chain saw them,
-    # the others as the counters read them
-    launches = dict(graph["graphed"]["launches"][0], **turns["chained"]["traced"])
+    # chain_train's launches: as the trace of a graphed chain saw them
+    launches = turns["chained"]["traced"]
     out = dict(keys=keys, launches=launches, u3=graph["u3"], cli=cli, turns=turns)
     builds = graph["builds"]
     del graph
@@ -5055,10 +5081,10 @@ def main() -> None:
         entry["launches_by_path"]["bf16_fused_serve"] = bf16_serve["launches"][name]
         entry["launches_by_path"]["bf16_fused_train"] = bf16_train["fused"]["launches"][name]
         entry["launches_by_path"]["bf16_dense_train"] = bf16_train["dense"]["launches"][name]
-    # phase U: a graphed chain of FLAGSHIP_H100 (its replays counted),
-    # train_torch.py --chain's epoch, each build's graphed chains of 2 (U2,
-    # U7), the full-width bf16 chains (U8; K3b / K4b as their traces saw
-    # them) and the _tpu_fast.yml --chain epoch (U9)
+    # phase U: a graphed chain of FLAGSHIP_H100, each build's graphed chain
+    # of 2 (U2, U7) and the full-width bf16 chains (U8), each as its trace
+    # saw it; train_torch.py --chain's epoch and the _tpu_fast.yml --chain
+    # epoch (U9) by the counters
     for entry, name in ((fwd, "sde_rollout"), (bwd, "sde_rollout_bwd"), (k3, "aa_fused"),
                         (k4, "aa_fused_bwd"), (k5, "aa_attention"), (k6, "vpu_probe"),
                         (k3b, "aa_fused_bf16"), (k4b, "aa_fused_bwd_bf16")):
@@ -5066,9 +5092,9 @@ def main() -> None:
         paths["chain_train"] = chain["launches"].get(name, 0)
         paths["chain_cli_train"] = chain["cli"]["chain"]["launches"][name]
         for build, b in chain["builds"].items():
-            paths[f"chain_{build.lower()}"] = b["launches"][name]
+            paths[f"chain_{build.lower()}"] = b["traced"][name]
         for build, w in chain["wide"].items():
-            paths[f"chain_wide_{build.lower()}"] = w["traced"].get(name, w["launches"][name])
+            paths[f"chain_wide_{build.lower()}"] = w["traced"][name]
         paths["chain_fast_cli"] = chain["fast_cli"]["chain"]["launches"][name]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches: {served} serving + "
           f"{served_fused} fused serving + {train['sde_rollout']} training + "

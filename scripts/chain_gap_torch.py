@@ -40,7 +40,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from trajsde_tpu_torch import config as tconfig  # noqa: E402
-from trajsde_tpu_torch.config import build_losses, build_model  # noqa: E402
+from trajsde_tpu_torch import ops  # noqa: E402
+from trajsde_tpu_torch.config import build_dtype, build_losses, build_model  # noqa: E402
 from trajsde_tpu_torch.data.pack import pack_scenes  # noqa: E402
 from trajsde_tpu_torch.data.synthetic import make_raw_scene  # noqa: E402
 from trajsde_tpu_torch.server import align_scene  # noqa: E402
@@ -52,14 +53,6 @@ from trajsde_tpu_torch.train.optim import (chain_eager_bound, chain_eager_gap,  
 
 # the flagship's full width: 48 actors, 192 lanes a scene
 NUM_ACTORS, NUM_LANES = 48, 192
-# the hand-written kernels' __global__ names
-KERNELS = ("rollout_kernel", "rollout_bwd_kernel", "aa_fused_kernel", "aa_fused_bwd_kernel")
-
-
-def build_dtype(cfg: dict) -> str:
-    """The compute dtype of a build: ``bfloat16`` when any component sets it."""
-    return ("bfloat16" if any(cfg[s].get("kwargs", {}).get("dtype") == "bfloat16"
-                              for s in ("encoder", "aggregator", "decoder")) else "float32")
 
 
 def full_width_batches(n: int, batch: int, seed: int, device) -> list:
@@ -152,7 +145,7 @@ def main() -> None:
         torch.cuda.synchronize()
     names = Counter(e.name for e in prof.events()
                     if e.device_type == torch.autograd.DeviceType.CUDA
-                    and any(re.search(rf"\b{k}\b", e.name) for k in KERNELS))
+                    and any(re.search(rx, e.name) for rx in ops.TRACE_NAMES.values()))
     print(f"a profiled graphed chain of {ends[0]}: " + "; ".join(
         f"{n} x{c}" for n, c in sorted(names.items())) + f"; pool "
         f"{chained.pool_bytes / 2**30:.2f} GiB, capture {chained.capture_s[0]:.2f} s", flush=True)

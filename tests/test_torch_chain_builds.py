@@ -14,8 +14,7 @@ heads), each at a small size.
   chain of the wrong sign fail; the key-bias entries
   (``optim.noise_entries``) are every softmax attention's key bias, rows
   D:2D of the baseline's packed ``in_proj.bias`` included, and nothing else;
-* a capped build's ``aa_overflow_edges`` after a chained update: the
-  update's count, in the step's own buffer;
+* a capped build's ``aa_overflow_edges`` after a chained update: None;
 * against JAX in f32, the baseline and the capped flagship: a chain of 3
   against three sequential ``jax.value_and_grad`` + optax updates with
   pinned noise and dropout 0, at ``tests/test_torch_chain.py``'s bars
@@ -45,7 +44,7 @@ from trajsde_tpu import losses as jlosses
 from trajsde_tpu.config import ExperimentConfig, build_model as jax_build_model
 from trajsde_tpu.train.optim import decay_mask as jax_decay_mask
 from trajsde_tpu_torch.bridge import params_from_flax
-from trajsde_tpu_torch.config import build_losses
+from trajsde_tpu_torch.config import build_dtype, build_losses
 from trajsde_tpu_torch.models.layers import EdgeAttention, MultiheadSelfAttention
 from trajsde_tpu_torch.train.loop import ChainedStep, create_train_state, make_train_step
 from trajsde_tpu_torch.train.optim import (NOISE_GRAD, chain_eager_bound, chain_eager_gap,
@@ -161,7 +160,7 @@ def test_chain_of_2_is_two_eager_steps_bit_for_bit(build):
     # the card's bar in the build's measure: the CPU's 0 meets it; a chain
     # that left every weight where it started, or stepped each the other
     # way, fails it
-    dtype = "float32" if build.startswith("BASELINE") else "bfloat16"
+    dtype = build_dtype(cfg)
     bound = chain_eager_bound(cfg["training_specific"]["lr"], 2, dtype)
     start, after = base.state_dict(), states[0].model.state_dict()
     assert chain_eager_gap(states[1].model.state_dict(), after, start, dtype)[0] == 0.0
@@ -171,32 +170,23 @@ def test_chain_of_2_is_two_eager_steps_bit_for_bit(build):
 
 
 def test_aa_overflow_edges_after_a_chained_update_is_that_updates_count():
-    """``_tpu_fast.yml``'s small form: after each chained update the capped
-    block's ``aa_overflow_edges`` is the step's own buffer (outside a CUDA
-    graph's pool on the card), holding that update's count, which the eager
-    step's forward on the same batch gives; a batch whose sender count is
-    within the cap leaves it None, as eager."""
+    """``_tpu_fast.yml``'s small form: the eager step's forward leaves the
+    capped block's ``aa_overflow_edges`` set to its batch's count; after a
+    chained update it is None (JAX's train step does not log it, and on
+    the card a count written under a CUDA graph would lie in its pool),
+    however it read before the chain."""
     cfg = _sde(cap=CAP)
     model = torch_build_model(cfg, device="cpu", seed=5)
     state = create_train_state(model, cfg["training_specific"], steps_per_epoch=4)
     chained = ChainedStep(model, state.optimizer, state.scheduler, build_losses(cfg), "cpu",
                           accum_steps=1)
     aa = model.encoder.aa_encoder
-    (buf,) = chained.overflow.values()
-    assert list(chained.overflow) == [aa]
-    counts = []
-    for seed in (81, 82):
+    for k, seed in enumerate((81, 82)):
         scene = scene_pair(seed, B, A, L)[1]
-        chained([scene], 0, 0)
-        assert aa.aa_overflow_edges is buf and buf.dtype == torch.int64
-        counts.append(int(buf))
-        eager = copy.deepcopy(model).train()
-        eager(scene, generator=torch.Generator().manual_seed(0), rollout_seed=0)
-        assert int(eager.encoder.aa_encoder.aa_overflow_edges) == counts[-1]
-    assert counts[0] > 0 and counts[1] > 0 and counts[0] != counts[1]
-    few = scene_pair(85, B, CAP, L)[1]   # as many senders as the cap
-    chained([few], 2, 0)
-    assert aa.aa_overflow_edges is None
+        model(scene, generator=torch.Generator().manual_seed(0), rollout_seed=0)
+        assert int(aa.aa_overflow_edges) > 0
+        chained([scene], k, 0)
+        assert aa.aa_overflow_edges is None
 
 
 # ---------------------------------------------------------------------------

@@ -283,6 +283,13 @@ def build_model(cfg: Dict[str, Any] = FLAGSHIP, device="cuda", seed: int = 0) ->
     return init_weights(model, seed).to(dev).eval()
 
 
+def build_dtype(cfg: Dict[str, Any]) -> str:
+    """``"bfloat16"`` when the config's encoder, aggregator or decoder
+    computes in bf16, else ``"float32"``."""
+    return ("bfloat16" if any(cfg[sec].get("kwargs", {}).get("dtype") == "bfloat16"
+                              for sec in ("encoder", "aggregator", "decoder")) else "float32")
+
+
 def build_datamodule(cfg: Dict[str, Any], seed: int = 0, **overrides) -> DataModuleNuArgoMix:
     """The port's ``DataModuleNuArgoMix`` of the config's
     ``datamodule_specific.kwargs``, with ``train.py``'s precedence: an

@@ -55,10 +55,9 @@ class AAEncoder(nn.Module):
     forward sets ``aa_overflow_edges``, the dropped edges as a 0-dim
     tensor on the device (JAX sows it to ``diagnostics``); an uncapped
     forward leaves it None.  Nothing reads it on the host unless the
-    caller does.  After an update of the chained train step
-    (``train.loop.ChainedStep``) it is that update's count, copied into a
-    buffer that the step keeps outside its CUDA graphs' memory pool, so a
-    replay leaves it defined; JAX's train step does not log it.
+    caller does.  After a chain of the chained train step
+    (``train.loop.ChainedStep``) it is None: JAX's train step does not log
+    it, and a count written under a CUDA graph would lie in its memory pool.
     """
 
     def __init__(self, historical_steps: int, embed_dim: int, num_heads: int,

@@ -6,7 +6,9 @@ registered here by :func:`counted` when its module is imported, so that a
 caller that replays captured launches (a CUDA graph) adds what they
 recorded without knowing which kernels there are.
 """
-from typing import Any, Callable, List, Sequence, Tuple
+import re
+from collections import Counter
+from typing import Any, Callable, Dict, Iterable, List, Sequence, Tuple
 
 # (wrapper, attribute) of every launch count, in the order of registration
 COUNTERS: List[Tuple[Any, str]] = []
@@ -35,3 +37,26 @@ def zero_counts() -> None:
     """Every registered count to 0."""
     for fn, name in COUNTERS:
         setattr(fn, name, 0)
+
+
+# Each kernel's __global__ name as torch.profiler's trace prints it, by the
+# name its launch count goes by: K1-K6, and K3b / K4b, the BF = true forms
+# of K3's and K4's templates (``aa_fused_kernel<heads, BF>``)
+TRACE_NAMES: Dict[str, str] = {
+    "sde_rollout": r"\brollout_kernel\b",
+    "sde_rollout_bwd": r"\brollout_bwd_kernel\b",
+    "aa_fused": r"\baa_fused_kernel<\d+, false>",
+    "aa_fused_bwd": r"\baa_fused_bwd_kernel<\d+, false>",
+    "aa_attention": r"\baa_attention_kernel\b",
+    "vpu_probe": r"\bchained_tanh_(f32|bf16)\b",
+    "aa_fused_bf16": r"\baa_fused_kernel<\d+, true>",
+    "aa_fused_bwd_bf16": r"\baa_fused_bwd_kernel<\d+, true>",
+}
+
+
+def traced_launches(names: Iterable[str]) -> Dict[str, int]:
+    """How often each kernel of :data:`TRACE_NAMES` ran, from the names of
+    a trace's device events."""
+    counts = Counter(names)
+    return {k: sum(c for n, c in counts.items() if re.search(rx, n))
+            for k, rx in TRACE_NAMES.items()}

@@ -241,13 +241,11 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, schedule
 @dataclasses.dataclass
 class _Captured:
     """One batch layout's CUDA graph of the update: its static inputs, its
-    log vector, the launches its capture recorded and each capped AA
-    block's ``aa_overflow_edges`` after it (the step's buffer, or None)."""
+    log vector and the launches its capture recorded."""
     graph: Any
     inputs: List[SceneBatch]
     out: torch.Tensor
     launches: List[int]
-    overflow: Dict[nn.Module, Optional[torch.Tensor]]
 
 
 class ChainedStep:
@@ -276,9 +274,9 @@ class ChainedStep:
     pool: a replay writes everything it reads but the state, the inputs,
     the keys and the generators' seeds, which live outside the pool, and
     its log vector is copied out before the next replay.  A capped AA
-    block's ``aa_overflow_edges`` is, after each chained update, that
-    update's count in a buffer the step keeps outside the pool (captured or
-    not: a replay writes it).  A replay adds
+    block's ``aa_overflow_edges`` is None after a chain, captured or not:
+    JAX's train step does not keep the count either, and a captured one
+    would point into the pool.  A replay adds
     the launches its capture recorded to the kernels' counts (the capture
     itself launches nothing and counts nothing).  A capture that fails
     raises; nothing falls back to the eager step.
@@ -317,11 +315,7 @@ class ChainedStep:
         self.pool_bytes = 0   # what the captures reserved on the card (the graphs' pool)
         self.chain_logs: Optional[torch.Tensor] = None
         self._pool = None
-        # each capped AA block's aa_overflow_edges, copied after every update
-        # into a buffer of its own outside the graphs' pool
-        self.overflow = {m: torch.zeros((), dtype=torch.int64, device=self.device)
-                         for m in model.modules() if getattr(m, "neighbor_cap", 0)
-                         and hasattr(m, "aa_overflow_edges")}
+        self._sown = [m for m in model.modules() if hasattr(m, "aa_overflow_edges")]
 
     def _generators(self, n: int) -> None:
         while len(self.gens) < n:
@@ -369,9 +363,6 @@ class ChainedStep:
             for p in self.params:
                 if p.grad is not None:
                     p.grad.mul_(inv)
-        for m, buf in self.overflow.items():
-            if m.aa_overflow_edges is not None:   # the last micro-batch's, as eager's
-                m.aa_overflow_edges = buf.copy_(m.aa_overflow_edges)
         grads = [p.grad for p in self.params if p.grad is not None]
         finite = torch.stack([torch.isfinite(values[-1])]
                              + [torch.isfinite(g).all() for g in grads]).all()
@@ -412,8 +403,7 @@ class ChainedStep:
         finally:
             recorded = [b - a for a, b in zip(before, ops.read_counts())]
             ops.add_counts([-n for n in recorded])
-        self.captured[layout(micro)] = _Captured(
-            graph, inputs, static, recorded, {m: m.aa_overflow_edges for m in self.overflow})
+        self.captured[layout(micro)] = _Captured(graph, inputs, static, recorded)
         self.capture_s.append(time.perf_counter() - t0)
         self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
         return out
@@ -430,8 +420,6 @@ class ChainedStep:
                     v.copy_(getattr(src, f.name), non_blocking=True)
         entry.graph.replay()
         ops.add_counts(entry.launches)
-        for m, value in entry.overflow.items():   # the replayed update's, whatever ran since
-            m.aa_overflow_edges = value
         return entry.out
 
     def __call__(self, groups: Sequence[Union[SceneBatch, Sequence[SceneBatch]]], step: int,
@@ -447,6 +435,8 @@ class ChainedStep:
             logs[j].copy_(self._run(micro))
             scenes += sum(m.x.shape[0] for m in micro)
         self.chain_logs = logs   # each update's logs, on the device
+        for m in self._sown:
+            m.aa_overflow_edges = None
         # the one read from the device a chain
         *values, skipped, count = torch.cat([
             logs[:, :-1].mean(0).double(), logs[:, -1].sum()[None].double(),
