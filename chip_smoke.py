@@ -195,11 +195,12 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      within ``TOL_ADAPTIVE_CPU`` of max|CPU|.  O4: ``ServingEngine.predict``
      at bucket 128 over the adaptive ``FLAGSHIP_FUSED`` launches K3 and K1
      once and the rest never, finite answers; the served bucket and the
-     encoder alone, adaptive and fixed grid, in turns (CUDA events, peak
-     memory).  O5: ``FLAGSHIP_TRAIN_FUSED`` with ``adaptive: true`` takes
-     ADAPTIVE_STEPS train steps at batch 128: K1-K4 once per step, finite
-     losses, finite non-zero gradients on ``f_func``, ``g_nus`` and
-     ``g_argo``; the step in turns against the fixed grid's.
+     encoder alone, adaptive and fixed grid, in turns (CUDA events, one run
+     a round, peak memory).  O5: ``FLAGSHIP_TRAIN_FUSED`` with ``adaptive:
+     true`` takes ADAPTIVE_STEPS train steps at batch 128: K1-K4 once per
+     step, finite losses, finite non-zero gradients on ``f_func``,
+     ``g_nus`` and ``g_argo``; the step in turns against the fixed grid's
+     (one run a round).
   P. rematerialization (after O; ``encoder.remat: true``: the AA and AL
      blocks run again in the backward, no kernel of its own).  For each of
      ``FLAGSHIP_TRAIN`` (dense AA, K1 + K2), ``FLAGSHIP_TRAIN_FUSED`` (K1-K4),
@@ -342,6 +343,21 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      a JSON copy of ``_tpu_fast.yml`` over J's files, a ``--chain 1`` epoch then a
      ``--chain CHAIN`` epoch from the same seed: no kernel, finite val
      metrics, the chained weights within the bf16 bar of the eager ones.
+     U10: ``encoder.remat: true`` on each of CHAIN_REMAT_BUILDS
+     (``FLAGSHIP_TRAIN``, ``FLAGSHIP_TRAIN_FUSED``, both baselines,
+     ``FLAGSHIP_BF16``, ``FLAGSHIP_BF16_FUSED``), U2's check at
+     CHAIN_BUILD_BATCH with K3 (K3b) twice an update (forward and the
+     recompute's replay) and K4 (K4b) once, by the trace and the counters,
+     and each graphed chain bit for bit the same build's graphed chain
+     without remat; then ``FLAGSHIP_H100`` with remat at TRAIN_BATCH as U8
+     (a graphed chain of CHAIN against eager within ``chain_eager_bound``,
+     then CHAIN_WIDE_ROUNDS rounds in turns, the idle share, the peak, the
+     graph's nodes and pool, the capture's seconds).  U11, after U10's
+     graphs are freed: the adaptive ``FLAGSHIP_H100`` at TRAIN_BATCH the same
+     way with chains of ADAPTIVE_CHAIN, its graphed chain also bit for bit
+     its uncaptured chain; then ``encoder.adaptive: true`` on each of
+     CHAIN_ADAPTIVE_BUILDS (``FLAGSHIP_TRAIN``, and ``FLAGSHIP_TRAIN_FUSED``
+     with remat as well) as U10's builds.
 Phases 4, B, C and 7 check that K4 never launches on their paths, and the
 serving and training phases that K5 and K6 never do.
 The last lines are the card, a JSON object per kernel and the device line.
@@ -583,6 +599,22 @@ CHAIN_MORE_BUILDS = {"FLAGSHIP_BF16": FLAGSHIP_BF16, "FLAGSHIP_BF16_TRAIN": FLAG
 CHAIN_WIDE = {"FLAGSHIP_BF16_FUSED": (FLAGSHIP_BF16_FUSED, BF16_FUSED_BATCH),
               "FLAGSHIP_BF16_CAPPED": (FLAGSHIP_BF16_CAPPED, TRAIN_BATCH)}
 CHAIN_WIDE_ROUNDS = 2
+# U10: the builds that chain with encoder.remat: true at CHAIN_BUILD_BATCH,
+# each held to its uncaptured chain and to the same build's graphed chain
+# without remat (phase P's four and the two bf16 AA paths); then
+# FLAGSHIP_H100 with remat at TRAIN_BATCH (a chain of CHAIN in
+# CHAIN_WIDE_ROUNDS rounds).  U11: FLAGSHIP_H100 adaptive at TRAIN_BATCH,
+# against its uncaptured chain too, chains of ADAPTIVE_CHAIN (an eager
+# adaptive update launches about 64,000 kernels on the host, 2 s); then
+# the other builds that chain with encoder.adaptive: true at
+# CHAIN_BUILD_BATCH, one with remat as well
+CHAIN_REMAT_BUILDS = {"FLAGSHIP_TRAIN": FLAGSHIP_TRAIN,
+                      "FLAGSHIP_TRAIN_FUSED": FLAGSHIP_TRAIN_FUSED, "BASELINE": BASELINE,
+                      "BASELINE_TRAIN": BASELINE_TRAIN, "FLAGSHIP_BF16": FLAGSHIP_BF16,
+                      "FLAGSHIP_BF16_FUSED": FLAGSHIP_BF16_FUSED}
+CHAIN_ADAPTIVE_BUILDS = {"FLAGSHIP_TRAIN": FLAGSHIP_TRAIN,
+                         "FLAGSHIP_TRAIN_FUSED+remat": FLAGSHIP_TRAIN_FUSED}
+ADAPTIVE_CHAIN = 2
 
 
 # H100 SXM published peaks (dense): f32 on CUDA cores, TF32, bf16 and f64
@@ -2817,11 +2849,12 @@ def _in_turns(fns: dict, runs: int = 3) -> tuple:
     return times, peaks
 
 
-def _print_turns(card: str, what: str, times: dict, peaks: dict, tag: str = "bf16") -> None:
+def _print_turns(card: str, what: str, times: dict, peaks: dict, tag: str = "bf16",
+                 runs: int = 3) -> None:
     print(f"[{tag}] {card}: {what}: " + "; ".join(
         f"{k} " + ", ".join(f"{t:.2f}" for t in v) + f" ms, peak {peaks[k]:.2f} GiB"
-        for k, v in times.items()) + f" (CUDA events, medians of 3, {BF16_ROUNDS} rounds in "
-        "turns)", flush=True)
+        for k, v in times.items()) + f" (CUDA events, medians of {runs}, {BF16_ROUNDS} rounds "
+        "in turns)", flush=True)
 
 
 def _all_f32(model, optimizer) -> bool:
@@ -3156,12 +3189,13 @@ def phase_adaptive(card: str) -> dict:
         with torch.inference_mode():
             m.encoder(scene)
 
+    # one run a round: an adaptive call takes 0.6-0.8 s, most of it the host
     times, peaks = _in_turns({"adaptive": lambda: serve_a(scene, SEED),
                               "fixed": lambda: serve_f(scene, SEED),
                               "adaptive encoder": lambda: encode(ada),
-                              "fixed encoder": lambda: encode(fix)})
+                              "fixed encoder": lambda: encode(fix)}, runs=1)
     _print_turns(card, f"served bucket {TRAIN_BATCH} (FLAGSHIP_FUSED, adaptive vs fixed grid, "
-                 "K3 + K1) and its encoder alone", times, peaks, "adaptive")
+                 "K3 + K1) and its encoder alone", times, peaks, "adaptive", runs=1)
     out["serve"] = dict(launches=served, ms=times, peak_gib=peaks)
     del engine, ada, fix, serve_a, serve_f
     torch.cuda.empty_cache()
@@ -3173,9 +3207,10 @@ def phase_adaptive(card: str) -> dict:
     batch = _train_batch(np.random.default_rng(SEED + 3), TRAIN_BATCH).to("cuda")
     launches, losses, step_a = _adaptive_steps("adaptive train", cfg_a, ada, batch)
     _, fixed_losses, step_f = _adaptive_steps("fixed train", FLAGSHIP_TRAIN_FUSED, fix, batch)
-    times, peaks = _in_turns({"adaptive": step_a, "fixed": step_f})
+    # one run a round (an adaptive step takes about 2 s; U11 times it against its graph)
+    times, peaks = _in_turns({"adaptive": step_a, "fixed": step_f}, runs=1)
     _print_turns(card, f"train step at batch {TRAIN_BATCH} (FLAGSHIP_TRAIN_FUSED, adaptive vs "
-                 "fixed grid, K1-K4)", times, peaks, "adaptive")
+                 "fixed grid, K1-K4)", times, peaks, "adaptive", runs=1)
     out["train"] = dict(launches=launches, losses=losses, fixed_losses=fixed_losses, ms=times,
                         peak_gib=peaks)
     del ada, fix, step_a, step_f
@@ -4328,17 +4363,20 @@ def _all_counts() -> dict:
 
 
 def _chain_want(cfg, updates: int) -> dict:
-    """The launches of ``updates`` chained updates of ``cfg``: K1 and K2
-    once an update with a fused decoder, K3 and K4 (K3b and K4b in bf16)
-    with a fused AA encoder, nothing else."""
-    fused_aa = bool(cfg["encoder"]["kwargs"].get("fused"))
+    """The launches of ``updates`` chained (or eager) updates of ``cfg``: K1
+    and K2 once an update with a fused decoder, K3 and K4 (K3b and K4b in
+    bf16) with a fused AA encoder, K3 (K3b) twice under ``encoder.remat``
+    (forward and recompute), nothing else."""
+    enc = cfg["encoder"]["kwargs"]
+    fused_aa = bool(enc.get("fused"))
     fused_dec = bool(cfg["decoder"]["kwargs"].get("fused"))
     bf16 = build_dtype(cfg) == "bfloat16"
     aa = updates * (fused_aa and not bf16)
     aab = updates * (fused_aa and bf16)
+    fwd = 2 if enc.get("remat") else 1
     return {"sde_rollout": updates * fused_dec, "sde_rollout_bwd": updates * fused_dec,
-            "aa_fused": aa, "aa_fused_bwd": aa, "aa_attention": 0, "vpu_probe": 0,
-            "aa_fused_bf16": aab, "aa_fused_bwd_bf16": aab}
+            "aa_fused": fwd * aa, "aa_fused_bwd": aa, "aa_attention": 0, "vpu_probe": 0,
+            "aa_fused_bf16": fwd * aab, "aa_fused_bwd_bf16": aab}
 
 
 def _launched(launches: dict) -> dict:
@@ -4382,7 +4420,7 @@ def _traced(fn) -> dict:
 
 
 def _chain_pair(cfg, batches: list, chains: int, tag: str, nan_at=None,
-                trace: bool = False) -> dict:
+                trace: bool = False, twin=None) -> dict:
     """A graphed chained step and the uncaptured one (the same function run
     as it is), each on its own copy of the seeded ``cfg`` model, over
     ``chains`` chains of ``batches`` (the second with a NaN planted in
@@ -4390,16 +4428,17 @@ def _chain_pair(cfg, batches: list, chains: int, tag: str, nan_at=None,
     bit, a capped AA block's ``aa_overflow_edges`` None after each, and the
     graphed path's launches per chain; with ``trace`` the graphed path's
     last chain (replays only) runs under the profiler (:func:`_traced`).
-    Returns both steps and states, the launches, the skips and the
-    trace."""
+    ``twin``: a config of the same weights (e.g. ``cfg`` without remat)
+    whose graphed chain must give the graphed chain's bits too.  Returns
+    the steps and states, the launches, the skips and the trace."""
     losses = build_losses(cfg)
     out = {}
-    for mode in ("plain", "graphed"):
-        model = build_model(cfg, device="cuda", seed=SEED)
+    for mode in ("plain", "graphed") + (("twin",) if twin is not None else ()):
+        model = build_model(twin if mode == "twin" else cfg, device="cuda", seed=SEED)
         state = create_train_state(model, cfg["training_specific"], steps_per_epoch=64,
                                    seed=SEED)
         step = ChainedStep(model, state.optimizer, state.scheduler, losses,
-                           torch.device("cuda"), accum_steps=1, graphs=mode == "graphed")
+                           torch.device("cuda"), accum_steps=1, graphs=mode != "plain")
         out[mode] = dict(state=state, step=step, bits=[], logs=[], launches=[], skipped=[])
     for c in range(chains):
         chain = list(batches)
@@ -4430,21 +4469,27 @@ def _chain_pair(cfg, batches: list, chains: int, tag: str, nan_at=None,
         check(_logs_equal(plain["logs"][-1], graphed["logs"][-1]),
               f"[chain {tag}] chain {c + 1}: the graphed chain's logs differ from the "
               "uncaptured chain's")
+        if twin is not None:
+            bad = _same_bits(out["twin"]["bits"][-1], graphed["bits"][-1])
+            check(not bad and _logs_equal(out["twin"]["logs"][-1], graphed["logs"][-1]),
+                  f"[chain {tag}] chain {c + 1}: the graphed chain differs from the twin "
+                  f"build's graphed chain at {bad[:5]} ({len(bad)} entries) or in its logs")
     return out
 
 
-def _chain_builds(builds: dict, small: list, label: str) -> dict:
-    """U2 / U7: each build's graphed chain of 2 on ``small`` (two batches of
-    CHAIN_BUILD_BATCH) against the uncaptured one, twice, bit for bit, with
-    its launches a chain (:func:`_chain_want`), and the second graphed
-    chain, replays only, traced: each kernel as often in the trace as its
-    counter, as the build launches it.  A capped block's
+def _chain_builds(builds: dict, small: list, label: str, twins: dict = None) -> dict:
+    """U2 / U7 / U10 / U11: each build's graphed chain of 2 on ``small`` (two
+    batches of CHAIN_BUILD_BATCH) against the uncaptured one, twice, bit for
+    bit (and against the graphed chain of its twin build in ``twins``, if
+    any), with its launches a chain (:func:`_chain_want`), and the second
+    graphed chain, replays only, traced: each kernel as often in the trace
+    as its counter, as the build launches it.  A capped block's
     ``aa_overflow_edges`` is None after each chain.  Each build's steps,
     graphs and pool are released before the next."""
     out = {}
     for name, cfg in builds.items():
         t0 = time.perf_counter()
-        pair = _chain_pair(cfg, small, 2, name, trace=True)
+        pair = _chain_pair(cfg, small, 2, name, trace=True, twin=(twins or {}).get(name))
         graphed = pair["graphed"]
         want = _chain_want(cfg, 2)
         check(graphed["launches"] == [want, want],
@@ -4457,13 +4502,15 @@ def _chain_builds(builds: dict, small: list, label: str) -> dict:
         out[name] = dict(launches=graphed["launches"][0], traced=traced,
                          kernel_names=graphed["trace"]["kernel_names"],
                          capture_s=step.capture_s[0], pool_gib=step.pool_bytes / 2**30,
-                         seconds=time.perf_counter() - t0)
+                         graph_nodes=step.graph_nodes[0], seconds=time.perf_counter() - t0)
+        twin = " and the twin build's graphed chains" if name in (twins or {}) else ""
         print(f"[chain] {label} {name} at batch {CHAIN_BUILD_BATCH}: 2 graphed chains of 2 equal "
-              f"the uncaptured ones bit for bit; launches per chain {_launched(want) or 'none'}, "
+              f"the uncaptured ones{twin} bit for bit; launches per chain "
+              f"{_launched(want) or 'none'}, "
               f"the second chain's trace {_launched(traced) or 'none'} (as "
               f"{graphed['trace']['kernel_names']}); aa_overflow_edges None after each; capture "
-              f"{step.capture_s[0]:.2f} s, the graph's pool {out[name]['pool_gib']:.2f} GiB; "
-              f"{out[name]['seconds']:.1f} s", flush=True)
+              f"{step.capture_s[0]:.2f} s, the graph's nodes {step.graph_nodes[0]}, its pool "
+              f"{out[name]['pool_gib']:.2f} GiB; {out[name]['seconds']:.1f} s", flush=True)
         del pair, graphed, step
         torch.cuda.empty_cache()
     return out
@@ -4712,20 +4759,26 @@ def _chain_turns(card: str, graph: dict, batches: list) -> dict:
     return out
 
 
-def _chain_wide(card: str, full: list) -> dict:
-    """U8. Each of CHAIN_WIDE at full width with dropout live, from one seed:
-    a graphed chain of CHAIN against CHAIN eager steps on the same batches
-    (update 1's logs bit-equal, every weight outside the key-bias entries
-    within ``chain_eager_bound`` for the build's dtype, which a trained leaf
-    left unchanged and a chain of the wrong sign fail; the launches); then
-    a chain with a NaN planted in update 2, skipped in both paths; then the
-    two in CHAIN_WIDE_ROUNDS alternating rounds with the idle share, K3b and
-    K4b counted by name in the profiled graphed chain's trace, equal to the
-    counters, the graph's pool and the capture's seconds; each part's
-    seconds.  ``full``: U2's CHAIN batches of TRAIN_BATCH, which a path at
-    that batch reuses.  Each build is released before the next."""
+def _chain_wide(card: str, full: list, builds: dict = None, label: str = "U8",
+                chain: int = CHAIN, rounds: int = CHAIN_WIDE_ROUNDS, nan: bool = True,
+                uncaptured: bool = False) -> dict:
+    """U8 (and U10 / U11 at full width). Each of ``builds`` (CHAIN_WIDE:
+    name -> (config, batch)) with dropout live, from one seed:
+    a graphed chain of ``chain`` against ``chain`` eager steps on the same
+    batches (update 1's logs bit-equal, every weight outside the key-bias
+    entries within ``chain_eager_bound`` for the build's dtype, which a
+    trained leaf left unchanged and a chain of the wrong sign fail; the
+    launches; with ``uncaptured``, also the same chain run uncaptured, whose
+    logs and state the graphed chain's must equal bit for bit); with
+    ``nan`` then a chain with a NaN planted in update 2,
+    skipped in both paths; then the two in ``rounds`` alternating rounds
+    with the idle share, the build's kernels counted by name in the
+    profiled graphed chain's trace, equal to the counters, the graph's
+    nodes and pool and the capture's seconds; each part's seconds.
+    ``full``: U2's CHAIN batches of TRAIN_BATCH, which a path at that batch
+    reuses.  Each build is released before the next."""
     out = {}
-    for name, (cfg, batch) in CHAIN_WIDE.items():
+    for name, (cfg, batch) in (builds or CHAIN_WIDE).items():
         t0 = time.perf_counter()
         split = {}
 
@@ -4734,70 +4787,86 @@ def _chain_wide(card: str, full: list) -> dict:
             split[part] = time.perf_counter() - t0 - sum(split.values())
 
         rng = np.random.default_rng(SEED + 71)
-        batches = (list(full) if batch == TRAIN_BATCH else
-                   [_train_batch(rng, batch).to("cuda") for _ in range(CHAIN)])
+        batches = (list(full[:chain]) if batch == TRAIN_BATCH else
+                   [_train_batch(rng, batch).to("cuda") for _ in range(chain)])
         losses, lr = build_losses(cfg), cfg["training_specific"]["lr"]
         states = [create_train_state(build_model(cfg, device="cuda", seed=SEED),
                                      cfg["training_specific"], steps_per_epoch=64, seed=SEED)
-                  for _ in range(2)]
-        state_e, state_g = states
+                  for _ in range(3 if uncaptured else 2)]
+        state_e, state_g = states[:2]
         start = {k: v.clone() for k, v in state_e.model.state_dict().items()}
         eager = make_train_step(state_e.model, state_e.optimizer, state_e.scheduler, losses,
                                 torch.device("cuda"))
         chained = ChainedStep(state_g.model, state_g.optimizer, state_g.scheduler, losses,
                               torch.device("cuda"), accum_steps=1)
-        want = _chain_want(cfg, CHAIN)
+        want = _chain_want(cfg, chain)
         lap("models and batches")
         zero_counts()
         eager_logs = torch.stack([torch.stack([logs[n] for n in chained.names]) for logs in
                                   (eager(b, k, SEED) for k, b in enumerate(batches))])
-        check(_all_counts() == want, f"[chain {name}] {CHAIN} eager steps launched "
+        check(_all_counts() == want, f"[chain {name}] {chain} eager steps launched "
               f"{_all_counts()}, not {want}")
         grads = {n: p.grad for n, p in state_e.model.named_parameters()}
         after = {k: v.clone() for k, v in state_e.model.state_dict().items()}
-        lap(f"{CHAIN} eager steps")
+        lap(f"{chain} eager steps")
         zero_counts()
         chained(batches, 0, SEED)
         launches = _all_counts()
         lap("the graphed chain (capture included)")
         check(launches == want, f"[chain {name}] the graphed chain launched {launches}, not "
               f"{want}")
+        if uncaptured:
+            state_u = states[2]
+            plain = ChainedStep(state_u.model, state_u.optimizer, state_u.scheduler, losses,
+                                torch.device("cuda"), accum_steps=1, graphs=False)
+            plain(batches, 0, SEED)
+            bad = _same_bits(_state_bits(state_u), _state_bits(state_g))
+            check(not bad and _logs_equal(plain.chain_logs, chained.chain_logs),
+                  f"[chain {name}] {label}: the graphed chain differs from the uncaptured one at "
+                  f"{bad[:5]} ({len(bad)} entries) or in its logs")
+            print(f"[chain] {label} {name} at batch {batch}: the graphed chain of {chain} equals "
+                  "the uncaptured one bit for bit (weights, moments, counts, schedule, logs)",
+                  flush=True)
+            del plain, state_u, states[2]
+            lap("the uncaptured chain")
         chain_logs = chained.chain_logs[:, :-1]
         check(torch.equal(chain_logs[0], eager_logs[0]),
-              f"[chain {name}] U8: update 1's logs differ from the eager step's")
+              f"[chain {name}] {label}: update 1's logs differ from the eager step's")
         log_rel = ((chain_logs - eager_logs).abs() / eager_logs.abs()).max().item()
         dtype = build_dtype(cfg)
         r = _vs_eager(state_g.model.state_dict(), after, start, grads, dtype)
         lap("the weights' comparison")
-        bound = chain_eager_bound(lr, CHAIN, dtype)
-        print(f"[chain] U8 {name} at batch {batch}: a graphed chain of {CHAIN} vs {CHAIN} eager "
-              f"steps: max |weight difference| {r['max_weight_diff']:.3e} "
+        bound = chain_eager_bound(lr, chain, dtype)
+        print(f"[chain] {label} {name} at batch {batch}: a graphed chain of {chain} vs {chain} "
+              f"eager steps: max |weight difference| {r['max_weight_diff']:.3e} "
               f"({r['max_weight_diff'] / lr:.4f} lr) at {r['leaf']} outside the "
               f"{len(r['noise_entries'])} key-bias entries, {r['noise_diff']:.3e} on them; "
               f"chain_eager_gap ({dtype}) {r['gap']:.3e} at {r['gap_leaf']} (bound "
               f"{bound:.3e}), a trained leaf left unchanged at least {r['unchanged']:.3e}, a "
               f"chain of the wrong sign {r['flipped']:.3e}; update 1's logs bit-equal, the rest "
               f"within {log_rel:.2e} relative; launches {_launched(launches)}", flush=True)
-        check(r["gap"] <= bound, f"[chain {name}] U8: {r['gap_leaf']} lies {r['gap']:.3e} from "
-              f"the eager steps' by chain_eager_gap (bound {bound:.3e})")
+        check(r["gap"] <= bound, f"[chain {name}] {label}: {r['gap_leaf']} lies {r['gap']:.3e} "
+              f"from the eager steps' by chain_eager_gap (bound {bound:.3e})")
         check(r["unchanged"] > bound and r["flipped"] > bound,
-              f"[chain {name}] U8: the bound {bound:.3e} passes an unchanged leaf "
+              f"[chain {name}] {label}: the bound {bound:.3e} passes an unchanged leaf "
               f"({r['unchanged']:.3e}) or a chain of the wrong sign ({r['flipped']:.3e})")
-        # a NaN planted in update 2: skipped in both paths
-        bad = dataclasses.replace(batches[1], x=batches[1].x.clone())
-        bad.x[0, 1, 3, 0] = float("nan")
-        nan_chain = [batches[0], bad] + batches[2:]
-        chained(nan_chain, CHAIN, SEED)
-        skipped_e = [eager(b, CHAIN + k, SEED)["train/step_skipped"]
-                     for k, b in enumerate(nan_chain)]
-        skipped_g = chained.chain_logs[:, -1].tolist()
-        want_skips = [0.0, 1.0] + [0.0] * (CHAIN - 2)
-        check(skipped_g == skipped_e == want_skips
-              and state_g.scheduler.last_epoch == state_e.scheduler.last_epoch == 2 * CHAIN - 1,
-              f"[chain {name}] U8: the planted NaN: chained skips {skipped_g}, eager {skipped_e}, "
-              f"schedules {state_g.scheduler.last_epoch} / {state_e.scheduler.last_epoch}")
-        lap("the planted NaN, both paths")
-        step = [2 * CHAIN, 2 * CHAIN]
+        skipped_g, step = None, [chain, chain]
+        if nan:   # a NaN planted in update 2: skipped in both paths
+            bad = dataclasses.replace(batches[1], x=batches[1].x.clone())
+            bad.x[0, 1, 3, 0] = float("nan")
+            nan_chain = [batches[0], bad] + batches[2:]
+            chained(nan_chain, chain, SEED)
+            skipped_e = [eager(b, chain + k, SEED)["train/step_skipped"]
+                         for k, b in enumerate(nan_chain)]
+            skipped_g = chained.chain_logs[:, -1].tolist()
+            want_skips = [0.0, 1.0] + [0.0] * (chain - 2)
+            check(skipped_g == skipped_e == want_skips and state_g.scheduler.last_epoch
+                  == state_e.scheduler.last_epoch == 2 * chain - 1,
+                  f"[chain {name}] {label}: the planted NaN: chained skips {skipped_g}, eager "
+                  f"{skipped_e}, schedules {state_g.scheduler.last_epoch} / "
+                  f"{state_e.scheduler.last_epoch}")
+            lap("the planted NaN, both paths")
+            step = [2 * chain, 2 * chain]
 
         def run_eager():
             for b in batches:
@@ -4806,26 +4875,29 @@ def _chain_wide(card: str, full: list) -> dict:
 
         def run_chain():
             chained(batches, step[1], SEED)
-            step[1] += CHAIN
+            step[1] += chain
 
         fns = {"eager": run_eager, "chained": run_chain}
-        turns = _turns_and_trace(fns, CHAIN_WIDE_ROUNDS, CHAIN)
+        turns = _turns_and_trace(fns, rounds, chain)
         traced, counted = turns["chained"]["traced"], turns["chained"]["counted"]
         check(traced == counted == want,
-              f"[chain {name}] U8: the profiled graphed chain ran {traced} by the trace; the "
+              f"[chain {name}] {label}: the profiled graphed chain ran {traced} by the trace; the "
               f"counters added {counted}, the build launches {want} a chain")
         profiled = {k: turns[k]["seconds"] for k in fns}
-        lap(f"{CHAIN_WIDE_ROUNDS} rounds in turns and one profiled call of each")
+        lap(f"{rounds} rounds in turns and one profiled call of each")
         out[name] = dict(batch=batch, launches=launches, traced=traced, u8=dict(r, bound=bound,
                          log_rel=log_rel), skipped=skipped_g, turns=turns,
                          capture_s=chained.capture_s[0], pool_gib=chained.pool_bytes / 2**30,
+                         graph_nodes=chained.graph_nodes[0], chain=chain,
                          seconds=time.perf_counter() - t0, split_s=split, profiled_s=profiled)
-        print(f"[chain] U8 {card}: {name} at batch {batch}, {CHAIN} updates a round, "
-              f"{CHAIN_WIDE_ROUNDS} rounds in turns; " + _turns_line(turns, fns)
+        print(f"[chain] {label} {card}: {name} at batch {batch}, {chain} updates a round, "
+              f"{rounds} rounds in turns; " + _turns_line(turns, fns)
               + f"; in the profiled graphed chain's trace {_launched(traced) or 'none'} (as "
               f"{turns['chained']['kernel_names']}), the counters {_launched(counted) or 'none'}; "
-              f"the NaN in update 2 skipped in both paths ({skipped_g}); capture "
-              f"{chained.capture_s[0]:.2f} s, the graph's pool {out[name]['pool_gib']:.2f} GiB; "
+              + (f"the NaN in update 2 skipped in both paths ({skipped_g}); " if nan
+                 else "")
+              + f"capture {chained.capture_s[0]:.2f} s, the graph's nodes "
+              f"{chained.graph_nodes[0]}, its pool {out[name]['pool_gib']:.2f} GiB; "
               f"{out[name]['seconds']:.1f} s: " + ", ".join(f"{k} {v:.1f} s"
                                                           for k, v in split.items())
               + " (the profiled calls, trace processing included: "
@@ -4931,16 +5003,50 @@ def phase_chain(d: str, card: str) -> dict:
     t_more = time.perf_counter()
     builds.update(_chain_builds(CHAIN_MORE_BUILDS, small, "U7"))
     print(f"[chain] U7: {time.perf_counter() - t_more:.1f} s", flush=True)
-    del small
     torch.cuda.empty_cache()
     out["wide"] = _chain_wide(card, batches)
-    del batches
     torch.cuda.empty_cache()
     out["fast_cli"] = _chain_cli_fast(d)
     out["builds"] = builds
     torch.cuda.empty_cache()
+    out["remat"], out["adaptive"] = _chain_options(card, batches, small)
     print(f"[chain] phase U: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
+
+
+def _chain_options(card: str, batches: list, small: list) -> tuple:
+    """U10 and U11: ``encoder.remat`` and ``encoder.adaptive`` under
+    ``--chain``.  U10: each of CHAIN_REMAT_BUILDS with remat, U2's check at
+    CHAIN_BUILD_BATCH (K3 / K3b twice an update, forward and recompute, in
+    the trace and the counters), its graphed chain also the graphed chain of
+    the same build without remat bit for bit; then ``FLAGSHIP_H100`` with
+    remat at TRAIN_BATCH as U8 (no NaN), a chain of CHAIN against eager in
+    CHAIN_WIDE_ROUNDS rounds.  U11, after U10's pools are freed: the
+    adaptive ``FLAGSHIP_H100`` at TRAIN_BATCH the same way, chains of
+    ADAPTIVE_CHAIN, its graphed chain also its uncaptured chain's bits; then
+    each of CHAIN_ADAPTIVE_BUILDS adaptive as U10's builds (no twin).  Each
+    graph's node count is printed."""
+    t0 = time.perf_counter()
+    remat = {n: _remat(c) for n, c in CHAIN_REMAT_BUILDS.items()}
+    out_r = dict(builds=_chain_builds(remat, small, "U10", twins=CHAIN_REMAT_BUILDS))
+    torch.cuda.empty_cache()
+    out_r["wide"] = _chain_wide(card, batches, {"FLAGSHIP_H100+remat": (
+        _remat(FLAGSHIP_H100), TRAIN_BATCH)}, "U10", nan=False)
+    out_r["seconds"] = time.perf_counter() - t0
+    print(f"[chain] U10: {out_r['seconds']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out_a = dict(wide=_chain_wide(card, batches, {"FLAGSHIP_H100+adaptive": (
+        _adaptive(FLAGSHIP_H100), TRAIN_BATCH)}, "U11", chain=ADAPTIVE_CHAIN, nan=False,
+        uncaptured=True))
+    torch.cuda.empty_cache()
+    adaptive = {n: _adaptive(_remat(c) if n.endswith("+remat") else c)
+                for n, c in CHAIN_ADAPTIVE_BUILDS.items()}
+    out_a["builds"] = _chain_builds(adaptive, small, "U11")
+    out_a["seconds"] = time.perf_counter() - t0
+    print(f"[chain] U11: {out_a['seconds']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    return out_r, out_a
 
 
 def main() -> None:
@@ -5096,6 +5202,13 @@ def main() -> None:
         for build, w in chain["wide"].items():
             paths[f"chain_wide_{build.lower()}"] = w["traced"][name]
         paths["chain_fast_cli"] = chain["fast_cli"]["chain"]["launches"][name]
+        # U10 / U11: the full-width remat and adaptive FLAGSHIP_H100 chains, and
+        # each small build's, as their traces saw them
+        for option in ("remat", "adaptive"):
+            (wide,) = chain[option]["wide"].values()
+            paths[f"chain_{option}"] = wide["traced"][name]
+            for build, b in chain[option]["builds"].items():
+                paths[f"chain_{option}_{build.lower().replace('+', '_')}"] = b["traced"][name]
     print(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches: {served} serving + "
           f"{served_fused} fused serving + {train['sde_rollout']} training + "
           f"{train_fused['sde_rollout']} fused-encoder training; K2 launches: "
@@ -5137,7 +5250,13 @@ def main() -> None:
           + ", ".join(f"{b} {_launched(r['launches']) or 'none'}"
                       for b, r in chain["wide"].items())
           + f"; the _tpu_fast.yml --chain {CHAIN} epoch: "
-          f"{_launched(chain['fast_cli']['chain']['launches']) or 'none'}", flush=True)
+          f"{_launched(chain['fast_cli']['chain']['launches']) or 'none'}; graphed chains of 2 "
+          f"at {CHAIN_BUILD_BATCH} with remat (U10) and adaptive (U11): "
+          + ", ".join(f"{b} {_launched(r['launches']) or 'none'}"
+                      for o in ("remat", "adaptive") for b, r in chain[o]["builds"].items())
+          + "; at full width: " + ", ".join(
+              f"{b} (a chain of {r['chain']}) {_launched(r['launches'])}"
+              for o in ("remat", "adaptive") for b, r in chain[o]["wide"].items()), flush=True)
     print(card)
     print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6, k3b, k4b]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

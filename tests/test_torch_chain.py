@@ -5,7 +5,8 @@ uncaptured (on a card each update is one replay of its CUDA graph).
 * a chain of 3 against three sequential ``jax.value_and_grad`` + optax
   AdamW / cosine updates with pinned noise (``tests/test_torch_accum.py``'s
   pattern): each update's loss rtol 2e-4, every leaf after the chain within
-  2e-3 x scale + 1e-6, with Adam's eps at ``EPS`` on both sides; and at the
+  2e-3 x scale + 1e-6, with Adam's eps at ``EPS`` on both sides, and the
+  same with the port's ``encoder.remat`` on; and at the
   configured eps (1e-8), every entry but the attention key biases
   (``optim.noise_entries``), whose JAX gradient is rounding noise;
 * the chain against three eager (``--chain 1``) steps: bit for bit on the
@@ -148,10 +149,12 @@ def jax_chain():
                 configured=configured)
 
 
-def _chain(jc, scenes, eps=EPS):
+def _chain(jc, scenes, eps=EPS, remat=False):
     """The port's chain of ``scenes`` on a copy of the bridged weights, at
-    Adam's ``eps``: (model, state, chained step, logs)."""
+    Adam's ``eps``, its encoder's AA and AL blocks rematerialized with
+    ``remat``: (model, state, chained step, logs)."""
     model = copy.deepcopy(jc["tm"])
+    model.encoder.remat = remat
     pinned = _Pinned(model, {id(s): n for s, n in zip(scenes, jc["noise"])})
     state = create_train_state(model, jc["cfg"]["training_specific"], steps_per_epoch=C)
     for group in state.optimizer.param_groups:
@@ -162,9 +165,13 @@ def _chain(jc, scenes, eps=EPS):
     return model, state, chained, logs
 
 
-def test_chain_of_3_meets_three_sequential_jax_updates(jax_chain):
+@pytest.mark.parametrize("remat", [False, True])
+def test_chain_of_3_meets_three_sequential_jax_updates(jax_chain, remat):
+    """With ``encoder.remat`` too (JAX's ``nn.remat`` computes the plain
+    model's math; ``tests/test_torch_remat.py`` holds both JAX forms to the
+    port): the same JAX updates, the same bars."""
     jc = jax_chain
-    model, state, chained, logs = _chain(jc, jc["scenes"])
+    model, state, chained, logs = _chain(jc, jc["scenes"], remat=remat)
     losses, params, _, _ = jc["clean"]
     per_update = chained.chain_logs[:, -2].tolist()   # train/total of each update
     np.testing.assert_allclose(per_update, losses, rtol=2e-4)

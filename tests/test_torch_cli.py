@@ -356,27 +356,49 @@ def test_train_torch_wonly_and_config_guards(data, tmp_path):
 
 
 # what ``--chain 2`` does not run with yet, each naming its ROADMAP.md Queue 1
-# item: flags (refused before any file is read), or an edit of a small config
+# item (refused before any file is read)
 CHAIN_REFUSED = [
-    (["--multihost"], None, "item 5f"),
-    (["--multihost", "--zero1"], None, "item 5f"),
-    ([], ("encoder", "remat", True), "item 5g"),
-    ([], ("encoder", "adaptive", True), "item 5h"),
+    (["--multihost"], "item 5f"),
+    (["--multihost", "--zero1"], "item 5f"),
 ]
 
 
-@pytest.mark.parametrize("flags,edit,item", CHAIN_REFUSED)
-def test_flags_not_ported_exit_naming_their_item(flags, edit, item, tmp_path):
-    path = "x.yml"
-    if edit is not None:
-        cfg = small_cfg()
-        sec, key, value = edit
-        cfg[sec]["kwargs"][key] = value
-        path = str(tmp_path / "cfg.json")
-        with open(path, "w") as f:
-            json.dump(cfg, f)
+@pytest.mark.parametrize("flags,item", CHAIN_REFUSED)
+def test_flags_not_ported_exit_naming_their_item(flags, item):
+    assert list(train_torch.NOT_PORTED) == ["--multihost"]
     with pytest.raises(SystemExit, match=f"ROADMAP.md Queue 1 {item}"):
-        train_torch.main(["-c", path, "-n", "x", "--chain", "2", *flags])
+        train_torch.main(["-c", "x.yml", "-n", "x", "--chain", "2", *flags])
+
+
+@pytest.mark.parametrize("option", ["remat", "adaptive"])
+def test_chain_trains_with_each_encoder_option_and_resumes_under_chain_1(option, data,
+                                                                         tmp_path):
+    """``encoder.remat: true`` or ``encoder.adaptive: true`` on the small
+    H100 config (both fused paths, the plain K1-K4 here): ``--chain 2``
+    trains 3 batches chained 2 + 1 (one train record a chain), writes its
+    checkpoint at step 3, and ``--chain 1 --ckpt`` resumes it to step 6."""
+    cfg = _cfg()
+    cfg["encoder"]["kwargs"][option] = True
+    cfg["datamodule_specific"]["kwargs"].update(nu_dir=str(data / "nuScenes"),
+                                                Argo_dir=str(data / "Argoverse"))
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(cfg))
+    state, trainer = _train(str(path), tmp_path, "x", "--chain", "2", "--epochs", "1")
+    assert getattr(state.model.encoder, option) is True
+    assert state.step == 3 and state.scheduler.last_epoch == 3 and trainer.chain_steps == 2
+    epoch = trainer.epoch_logs[-1]
+    assert epoch["train/steps_skipped"] == 0.0
+    vals = {k: v for k, v in epoch.items() if k.startswith("val/")}
+    assert vals and all(np.isfinite(v) for v in vals.values())
+    latest = _latest(tmp_path / "x")
+    assert latest["step"] == 3 and os.path.isdir(latest["path"])
+    resumed, trainer = _train(str(path), tmp_path, "x", "--chain", "1", "--epochs", "1",
+                              "--ckpt", latest["path"])
+    assert resumed.step == 6 and resumed.scheduler.last_epoch == 6 and trainer.chain_steps == 1
+    rows = [r for r in _records(tmp_path / "x") if "train/total" in r]
+    assert [r["step"] for r in rows] == [2, 3, 4, 5, 6]
+    assert all(np.isfinite(r["train/total"]) for r in rows)
+    assert _latest(tmp_path / "x")["step"] == 6
 
 
 def _bf16(cap=0, fused=False):

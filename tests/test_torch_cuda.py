@@ -1248,3 +1248,56 @@ def test_graphed_chain_of_every_build_is_the_uncaptured_chain_bit_for_bit(cuda, 
     bf16 = config.build_dtype(cfg) == "bfloat16"
     n = 6 * fused
     assert launches == want[2] == [0 if bf16 else n, n if bf16 else 0] * 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,options", [("FLAGSHIP_TRAIN_FUSED", ("remat",)),
+                                          ("FLAGSHIP_BF16_FUSED", ("remat",)),
+                                          ("FLAGSHIP_H100", ("adaptive",)),
+                                          ("FLAGSHIP_TRAIN_FUSED", ("remat", "adaptive"))])
+def test_graphed_chain_with_remat_or_adaptive_is_the_uncaptured_chain_bit_for_bit(cuda, name,
+                                                                                    options):
+    """``encoder.remat`` (the recompute's dropout from a replay state of its
+    own, ``remat.ReplayTape``) and ``encoder.adaptive`` (the tree nodes from
+    the chain's generators), dropout live, at 48 actors: a chain over two
+    batch layouts (8 and 4 scenes, each captured after its first update)
+    equals the uncaptured chained step's logs and weights bit for bit, with
+    K3 (K3b) twice an update under remat and K4 (K4b) once, under replay;
+    under remat each graph's tape holds the AA and the AL block."""
+    import copy
+
+    from trajsde_tpu_torch import config
+    from trajsde_tpu_torch.config import build_losses, build_model
+    from trajsde_tpu_torch.train.loop import ChainedStep, create_train_state
+
+    cfg = copy.deepcopy(getattr(config, name))
+    for option in options:
+        cfg["encoder"]["kwargs"][option] = True
+    big = [_packed(s, 8, 48, 192).to(cuda) for s in range(71, 74)]
+    small = [_packed(s, 4, 48, 192).to(cuda) for s in range(81, 84)]
+    chains = [[big[0], small[0], big[1]], [small[1], big[2], small[2]]]
+    counters = (K3.fused_pair_attention, K3.fused_pair_attention_bwd)
+    runs = []
+    for graphs in (True, False):
+        model = build_model(cfg, device=cuda, seed=6)
+        state = create_train_state(model, cfg["training_specific"], steps_per_epoch=8, seed=4)
+        step = ChainedStep(model, state.optimizer, state.scheduler, build_losses(cfg), cuda,
+                           accum_steps=1, graphs=graphs)
+        before = [getattr(c, a) for c in counters for a in ("launches", "bf16_launches")]
+        logs = []
+        for chain in chains:
+            step(chain, state.step, state.seed)
+            state.step += len(chain)
+            logs.append(step.chain_logs.clone())
+        after = [getattr(c, a) for c in counters for a in ("launches", "bf16_launches")]
+        runs.append((logs, {k: v.clone() for k, v in model.state_dict().items()},
+                     [b - a for a, b in zip(before, after)], step))
+    (logs, weights, launches, step), want = runs
+    assert len(step.captured) == 2 and len(step.graph_nodes) == 2 and not want[3].captured
+    assert all(len(e.tape.blocks) == 2 * ("remat" in options) for e in step.captured.values())
+    for a, b in zip(logs, want[0]):
+        assert torch.equal(a, b)
+    assert all(torch.equal(weights[k], want[1][k]) for k in weights)
+    bf16 = config.build_dtype(cfg) == "bfloat16"
+    fwd, bwd = (12 if "remat" in options else 6), 6
+    assert launches == want[2] == ([0, fwd, 0, bwd] if bf16 else [fwd, 0, bwd, 0])

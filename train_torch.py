@@ -22,9 +22,9 @@ each update is one replay of a CUDA graph of the train step (captured per
 batch layout), on the CPU the same chained update runs uncaptured; logs
 are the chain's means, written once per chain (``--log-every`` counts
 updates), and a preemption stops after the chain.  Its checkpoints resume
-with or without it.  It refuses ``--multihost``, ``encoder.remat``,
-``encoder.adaptive``, bf16, ``neighbor_cap`` and the HiVT baseline, each
-naming its ROADMAP.md Queue 1 item.  ``--async-ckpt`` writes each epoch's
+with or without it.  It trains every config the eager step trains
+(``encoder.remat`` and ``encoder.adaptive`` included) and refuses
+``--multihost``, naming its ROADMAP.md Queue 1 item.  ``--async-ckpt`` writes each epoch's
 checkpoint on a thread while the next epoch trains.  SIGTERM or SIGINT
 saves an unscored checkpoint (synchronously) and exits cleanly.  The
 run is on the card unless ``--device cpu``.  Configs are YAML, or JSON
@@ -47,11 +47,9 @@ import os
 from typing import Optional, Sequence
 
 # what --chain C > 1 does not run with yet, and the ROADMAP.md Queue 1 item
-# that ports each
+# that ports it
 NOT_PORTED = {
     "--multihost": "item 5f (the update's collectives inside a CUDA graph)",
-    "encoder.remat": "item 5g (the remat blocks' generator state on the device)",
-    "encoder.adaptive": "item 5h (the adaptive solver's graph)",
 }
 
 
@@ -101,15 +99,6 @@ def _refuse_chain(what: str) -> None:
                      f"ROADMAP.md Queue 1 {NOT_PORTED[what]}")
 
 
-def check_chain(cfg: dict) -> None:
-    """Exit naming its ROADMAP item when ``cfg`` builds a model that
-    ``--chain`` does not run yet."""
-    enc = cfg["encoder"].get("kwargs", {})
-    for key in ("remat", "adaptive"):
-        if enc.get(key):
-            _refuse_chain(f"encoder.{key}")
-
-
 def ts_drop_rate(cfg: dict) -> float:
     """The config's ``ts_drop`` as a rate in [0, 1) (absent or false: 0)."""
     value = cfg.get("model_specific", {}).get("kwargs", {}).get("ts_drop")
@@ -148,8 +137,6 @@ def main(argv: Optional[Sequence[str]] = None):
     from trajsde_tpu_torch.train.loop import Trainer, create_train_state
 
     cfg = load_config(args.config)
-    if args.chain > 1:
-        check_chain(cfg)
     rate = ts_drop_rate(cfg)
     device = resolve_device(mesh.local_device(args.device))
     # only rank 0 owns the run directory's side effects (train.py's rule)

@@ -30,8 +30,11 @@ int64 host tensor.  :class:`ExportedServing` draws them from a generator
 seeded with the call's seed, in the model's order, shapes and dtypes, so
 an artifact and the live scan engine at the same seed and counter give the
 same answers.  The HiVT baseline draws nothing in eval mode.  An adaptive
-SDE encoder draws a Brownian tree inside a loop whose length depends on
-the data, and is refused (ROADMAP.md Queue 1 item 11b).  A fused AA encoder
+SDE encoder is refused (ROADMAP.md Queue 1 item 11b): its step-doubling
+loop runs a fixed number of iterations, but each segment's Brownian tree
+draws 256 node normals of the state's shape, which as inputs would be
+21 x 256 x [B, A + 1, D] f32 a call (one tree a historical step; about 8.6 GB
+at bucket 128).  A fused AA encoder
 in bf16 runs kernel K3b, which has no registered op yet, and is refused
 (ROADMAP.md Queue 1 item 6c).
 
@@ -89,8 +92,9 @@ def _draws(model, scene) -> List[Dict[str, Any]]:
     if enc.adaptive:
         raise NotImplementedError(
             "export_serving of an adaptive SDE encoder (encoder.adaptive: true): its "
-            "Brownian-tree draws and step-doubling loop depend on the data; this is "
-            "ROADMAP.md Queue 1 item 11b (serve it with the scan or kernel engine)")
+            "Brownian trees' node normals would be inputs, 21 x 256 x [B, A+1, D] f32 a call "
+            "(about 8.6 GB at bucket 128); this is ROADMAP.md Queue 1 item 11b (serve it with "
+            "the scan or kernel engine)")
     name = lambda dt: str(dt).replace("torch.", "")  # noqa: E731
     Th, D, A = enc.historical_steps, enc.embed_dim, scene.x.shape[1]
     draws = [

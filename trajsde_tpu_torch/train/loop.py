@@ -51,6 +51,7 @@ from trajsde_tpu_torch.data.staging import PinnedStager, wait_for_copy
 from trajsde_tpu_torch.data.transforms import ts_drop
 from trajsde_tpu_torch.device import resolve_device
 from trajsde_tpu_torch.losses import batch_counts
+from trajsde_tpu_torch.models import remat
 from trajsde_tpu_torch.models.decoders import SDEDecoder
 from trajsde_tpu_torch.models.sde_encoder import LocalEncoderSDESep, gather_agent
 from trajsde_tpu_torch.ops.sde_rollout import key_words, mix_seed
@@ -241,11 +242,13 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, schedule
 @dataclasses.dataclass
 class _Captured:
     """One batch layout's CUDA graph of the update: its static inputs, its
-    log vector and the launches its capture recorded."""
+    log vector, the launches its capture recorded and its remat blocks'
+    replay states."""
     graph: Any
     inputs: List[SceneBatch]
     out: torch.Tensor
     launches: List[int]
+    tape: remat.ReplayTape
 
 
 class ChainedStep:
@@ -276,10 +279,17 @@ class ChainedStep:
     its log vector is copied out before the next replay.  A capped AA
     block's ``aa_overflow_edges`` is None after a chain, captured or not:
     JAX's train step does not keep the count either, and a captured one
-    would point into the pool.  A replay adds
+    would point into the pool.  A rematerialized block's recompute
+    (``encoder.remat``) draws its forward's masks again from a replay state
+    of its own (:class:`~trajsde_tpu_torch.models.remat.ReplayTape`: noted
+    in the uncaptured update, registered with the graph, set before each
+    replay); the adaptive solver (``encoder.adaptive``) runs a fixed number
+    of iterations and draws its tree nodes from the registered generators,
+    so it is captured as it runs.  A replay adds
     the launches its capture recorded to the kernels' counts (the capture
-    itself launches nothing and counts nothing).  A capture that fails
-    raises; nothing falls back to the eager step.
+    itself launches nothing and counts nothing; a remat recompute's K3 is
+    one of them).  ``graph_nodes`` holds each graph's node count.  A
+    capture that fails raises; nothing falls back to the eager step.
 
     The logs are the mean over the chain's updates (a skipped update's
     NaN included), ``train/step_skipped`` their sum, ``scenes`` the
@@ -312,6 +322,7 @@ class ChainedStep:
                                 device=self.device)
         self.captured: Dict[tuple, _Captured] = {}
         self.capture_s: List[float] = []   # seconds of each layout's warm-up and capture
+        self.graph_nodes: List[int] = []   # each layout's graph: its nodes
         self.pool_bytes = 0   # what the captures reserved on the card (the graphs' pool)
         self.chain_logs: Optional[torch.Tensor] = None
         self._pool = None
@@ -377,7 +388,8 @@ class ChainedStep:
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(current)
-        with torch.cuda.stream(side):
+        tape = remat.ReplayTape()
+        with torch.cuda.stream(side), remat.taping(tape):
             out = self.update(micro)
         current.wait_stream(side)
         out.record_stream(current)
@@ -388,14 +400,16 @@ class ChainedStep:
         inputs = [dataclasses.replace(m, **{f.name: v.clone() for f in dataclasses.fields(m)
                                              if (v := getattr(m, f.name)) is not None})
                   for m in micro]
-        graph = torch.cuda.CUDAGraph()
+        # kept until its nodes are counted, then instantiated
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         for gen in self.gens[:len(micro)] + self.drop_gens[:len(micro)]:
             graph.register_generator_state(gen)
+        tape.register(graph)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         before = ops.read_counts()
         try:
-            with torch.cuda.graph(graph, pool=self._pool):
+            with torch.cuda.graph(graph, pool=self._pool), remat.taping(tape):
                 static = self.update(inputs)
         except Exception as e:
             raise RuntimeError(f"capturing the chained train step for the batch layout "
@@ -403,7 +417,9 @@ class ChainedStep:
         finally:
             recorded = [b - a for a, b in zip(before, ops.read_counts())]
             ops.add_counts([-n for n in recorded])
-        self.captured[layout(micro)] = _Captured(graph, inputs, static, recorded)
+        self.graph_nodes.append(graph_nodes(graph))
+        graph.instantiate()
+        self.captured[layout(micro)] = _Captured(graph, inputs, static, recorded, tape)
         self.capture_s.append(time.perf_counter() - t0)
         self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
         return out
@@ -418,6 +434,7 @@ class ChainedStep:
             for f in dataclasses.fields(dst):
                 if (v := getattr(dst, f.name)) is not None:
                     v.copy_(getattr(src, f.name), non_blocking=True)
+        entry.tape.arm()
         entry.graph.replay()
         ops.add_counts(entry.launches)
         return entry.out
@@ -445,6 +462,19 @@ class ChainedStep:
         out: Dict[str, Any] = dict(zip(self.names, values))
         out.update({"train/step_skipped": skipped, "stop": stop, "scenes": scenes})
         return out
+
+
+def graph_nodes(graph) -> int:
+    """The nodes of a ``CUDAGraph(keep_graph=True)`` after its capture
+    (``cuGraphGetNodes`` from ``libcuda``)."""
+    import ctypes
+
+    count = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes returned CUresult {rc}")
+    return count.value
 
 
 def layout(item: Union[SceneBatch, Sequence]) -> tuple:
