@@ -66,17 +66,19 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      dense encoder), same weights, pinned noise; K3 and K4 launch once;
   G. ``aa_attention`` (K5, the AA chain from positions, with the q
      projection and the pair features in the kernel; K3's products and
-     softmax): its own path, one call at the twin shape (128 x 21 x 49 x
-     48, 8 heads) and one at the baseline's (128 x 21 x 48 x 48, 4 heads),
-     launches K5 twice; then K5 vs its plain version and vs K3 fed the
-     same q and u within ``TOL_K3_TIGHT``, which a copy of K5 with one
-     TF32 product per term must fail, at the ``test_aa_kernel.py`` shape,
-     a ragged one and the twin shape at 8 heads, and at the first two and
-     the baseline's shape at 4, for the model's packed weights (the
-     flagship's, the baseline's) and random ones, a mask with empty
-     receivers; two runs bit-equal; CUDA-event medians at the twin shape
-     and the baseline's, beside the bounds on K5's route and on the CUDA
-     cores;
+     softmax; K5b, its bf16 form at the JAX op's rounding points): its own
+     path, one call in f32 and one in bf16 at the twin shape (128 x 21 x 49
+     x 48, 8 heads) and at the baseline's (128 x 21 x 48 x 48, 4 heads),
+     launches K5 twice and K5b twice; then K5 vs its plain version and vs
+     K3 fed the same q and u within ``TOL_K3_TIGHT``, which a copy of K5
+     with one TF32 product per term must fail, and K5b vs its plain bf16
+     version within ``TOL_K5B`` (max and mean), which K5 must fail, at the
+     ``test_aa_kernel.py`` shape, a ragged one and the twin shape at 8
+     heads, and at the first two and the baseline's shape at 4, for the
+     model's packed weights (the flagship's, the baseline's) and random
+     ones, a mask with empty receivers; two runs bit-equal; CUDA-event
+     medians at the twin shape and the baseline's, beside the bounds on
+     each kernel's route and on the CUDA cores, K5b beside K5 and K3b;
   H. the elementwise-rate probe (K6, ``scripts/bench_vpu_dtype_torch.py``):
      the MUFU instructions per value and round of each variant, read from
      the built library's SASS (``scripts/vpu_probe_sass_torch.py``), equal
@@ -236,23 +238,38 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      that fails or outlives RANK_TIMEOUT_S fails the phase; the ZeRO-1
      step's times, marked as gloo on one card.
   R. the deployment artifact (after Q, on J's files;
-     ``trajsde_tpu_torch/deploy.py``, K1 and K3 as the registered ops
-     ``trajsde::sde_rollout`` and ``trajsde::aa_fused_fwd``).  R1:
+     ``trajsde_tpu_torch/deploy.py``, K1, K3 and K3b as the registered ops
+     ``trajsde::sde_rollout``, ``trajsde::aa_fused_fwd`` and
+     ``trajsde::aa_fused_fwd_bf16``).  R1:
      ``FLAGSHIP_H100`` at full width with seeded weights exported on the
      card for EXPORT_BUCKETS (1 and 128); the export's seconds and the size
-     on disk printed.  R2: a process of its own that imports no ``models``,
-     ``config`` or ``train`` module (``EXPORT_WORKER``) loads it with
-     ``ServingEngine.from_export`` and serves 1 scene, then 128: K1 and K3
-     once per batch, K2 and K4 never, and the answers within
-     ``TOL_PIPELINE`` of the live scan engine's at the same seed (bit-equal
-     or not printed).  R3: one served batch at buckets 1 and 128, exported
+     on disk printed.  R3: one served batch at buckets 1 and 128, exported
      against live, in EXPORT_ROUNDS alternating rounds of CUDA-event
      medians; nothing is claimed from them.  R4: the same model exported on
      the CPU for ``cpu`` and ``cuda`` and moved to the card at load: K1 and
      K3 once, within ``TOL_SPLICE`` of the CPU program on pinned encoder
      draws.  R5: ``serve_torch.py --export`` on J's checkpoint (bucket 1),
-     then ``--from-export`` over J's validation scenes: K1 and K3 once per
-     scene, the predictions checked.
+     then ``--from-export`` over EXPORT_CLI_SCENES of J's validation
+     scenes: K1 and K3 once per scene, the predictions checked.  R6:
+     ``FLAGSHIP_BF16_FUSED`` (``_tpu.yml`` with ``encoder.fused: true``,
+     seeded weights) exported for EXPORT_BUCKETS in a process of its own
+     (``BF16_EXPORTER``) that main starts before phase Q, so that it runs
+     beside Q and R1-R5: its ops
+     ``["trajsde::aa_fused_fwd_bf16"]``, its draws bf16 where the model
+     draws in bf16; its seconds and size on disk.  R2: a process of its
+     own that imports no ``models``, ``config`` or ``train`` module
+     (``EXPORT_WORKER``), started with the phase, loads each artifact as
+     soon as it is written (beside R1-R6), waits until R6 is done, then
+     times one served batch of each at each bucket (EXPORT_TIMED CUDA-event
+     runs, before anything there runs under the profiler) and serves 1
+     scene, then 128, through
+     ``ServingEngine``'s exported engine under the profiler: the
+     f32 one K1 and K3 once per batch, the bf16 one K3b once per batch,
+     nothing else, by the counters and the trace; the answers within
+     ``TOL_PIPELINE`` of the live scan engine's at the same seed (the bf16
+     ones bit for bit).  R7: the p50 of one served bf16 batch at each
+     bucket, exported (in R2's process) against the live scan engine
+     (here), EXPORT_TIMED CUDA-event runs each.
   S. a converted reference checkpoint over preprocessed scenes (after R, on
      J's files; ``trajsde_tpu_torch/utils/convert.py``,
      ``scripts/convert_checkpoint_torch.py``, ``data/preprocess``).  S1: the
@@ -489,6 +506,13 @@ def k4_tol(leaf: str) -> float:
 K5_SHAPES = {"test": (2, 5, 9, 8), "ragged": (3, 7, 13, 11), "twin": (128, 21, 49, 48)}
 # and at the HiVT baseline's 4 heads in place of the twin shape
 K5_BASELINE_SHAPE = (128, 21, 48, 48)
+# K5b vs its plain version (the same bf16 chain in f32 sums, at the JAX
+# op's bf16 rounding points; tests/test_torch_aa_attention.py holds the
+# plain one to JAX), max and mean as TOL_K3B below, for the same reason: on
+# an H100 K5b read 1.7e-7 to 1.7e-3 (max) and 7.4e-8 to 2.2e-5 (mean)
+# over K5_SHAPES at 8 and 4 heads, K5 (f32) on the same inputs 4.9e-3 to
+# 9.1e-3 and 3.5e-3 to 5.2e-3: K5 must fail the bar (its mean does)
+TOL_K5B = (5e-3, 1e-4)
 # fused train step (K1 + K2) vs autograd through the plain loop, full width:
 # loss relative; each gradient leaf max |diff| <= TOL * max |grad| + ATOL (the
 # atol covers leaves whose exact gradient is 0, such as the key biases under
@@ -503,7 +527,7 @@ TRAIN_SPLICE_BATCH = 8
 # phase K: scenes of each predict (4 batches of 128), timed rounds (the two
 # modes alternate), scenes submitted and the threads that submit them,
 # single requests, HTTP requests, and how long a future may take
-ENGINE_SCENES, ENGINE_ROUNDS = 512, 4
+ENGINE_SCENES, ENGINE_ROUNDS = 512, 2
 SUBMITTED, SUBMIT_THREADS, SINGLES, HTTP_POSTS = 256, 16, 20, 8
 FUTURE_TIMEOUT_S = 300
 # pipelined vs serial predict, max |pipelined - serial| / max |serial| per
@@ -527,7 +551,7 @@ CAPPED_ROUNDS, ACCUM_BATCH, SAVE_ROUNDS = 2, 64, 3
 # tests/test_models_forward.py), the train steps each bf16 path takes, and
 # the rounds of its turns against f32
 TOL_BF16_PI = 0.15
-BF16_STEPS, BF16_ROUNDS = 3, 3
+BF16_STEPS, BF16_ROUNDS = 3, 2
 # phase O: the tree's rows (bucket 128 x 49 twin-forward rows) and its
 # limits (f32 bridge arithmetic, the CUDA cores' FMA against the CPU's);
 # the encoder on the card vs the CPU, max|diff| / max|CPU| (21 segments of
@@ -546,9 +570,13 @@ REMAT_STEPS = 2
 # phase Q: Q2's global batch (half a rank), its AdamW updates, the timed
 # ZeRO-1 steps after them, the rounds of Q1's turns, and how long a rank or
 # a collective may take before the phase fails
-MULTI_BATCH, MULTI_STEPS, MULTI_TIMED, MULTI_ROUNDS = 128, 3, 6, 3
-# phase R: the artifact's buckets, the rounds of exported vs live timing
-EXPORT_BUCKETS, EXPORT_ROUNDS = (1, 128), 4
+MULTI_BATCH, MULTI_STEPS, MULTI_TIMED, MULTI_ROUNDS = 128, 3, 6, 2
+# phase R: the artifact's buckets, the rounds of exported vs live timing,
+# the CUDA-event runs of R7's p50 at each bucket, and the validation scenes
+# that R5's --from-export serves
+EXPORT_BUCKETS, EXPORT_ROUNDS, EXPORT_TIMED, EXPORT_CLI_SCENES = (1, 128), 2, 10, 16
+# the scenes that R serves (and R6's example, the first of them) are drawn from
+EXPORT_RNG_SEED = SEED + 71
 # phase S: the Argoverse test scenes that the port's preprocessor writes,
 # (actors, straight lanes) each; a lane 200 m long makes 19 segments, so the
 # first scene is above the actor capacity and the second above the lane
@@ -580,7 +608,7 @@ BF16_FUSED_BATCH, BF16_FUSED_STEPS = 64, 4
 # to the uncaptured one and their batch (two copies of a build, each
 # with a graph, must fit beside nothing else: dense at 128 peaks at 30 GiB a
 # step), and the rounds of U6's turns
-CHAIN, CHAIN_ROUNDS = 4, 3
+CHAIN, CHAIN_ROUNDS = 4, 2
 CHAIN_BUILD_BATCH = 32
 CHAIN_BUILDS = {"FLAGSHIP_TRAIN": FLAGSHIP_TRAIN, "FLAGSHIP_FUSED": FLAGSHIP_FUSED,
                 "FLAGSHIP": FLAGSHIP}
@@ -598,7 +626,7 @@ CHAIN_MORE_BUILDS = {"FLAGSHIP_BF16": FLAGSHIP_BF16, "FLAGSHIP_BF16_TRAIN": FLAG
 # the rounds of their turns
 CHAIN_WIDE = {"FLAGSHIP_BF16_FUSED": (FLAGSHIP_BF16_FUSED, BF16_FUSED_BATCH),
               "FLAGSHIP_BF16_CAPPED": (FLAGSHIP_BF16_CAPPED, TRAIN_BATCH)}
-CHAIN_WIDE_ROUNDS = 2
+CHAIN_WIDE_ROUNDS = 1
 # U10: the builds that chain with encoder.remat: true at CHAIN_BUILD_BATCH,
 # each held to its uncaptured chain and to the same build's graphed chain
 # without remat (phase P's four and the two bf16 AA paths); then
@@ -1999,7 +2027,8 @@ def phase_fused_train_splice() -> None:
     _check_step("fused-train-splice", "dense encoder", loss_f, loss_d, fused, dense)
 
 
-def aa_attention_bound(B: int, T: int, Aq: int, Ak: int, dim: int, heads: int):
+def aa_attention_bound(B: int, T: int, Aq: int, Ak: int, dim: int, heads: int,
+                       bf16: bool = False):
     """(bound_ms, bound_by, flops, bytes, route_ms, route_by) of one K5
     call: :func:`aa_pair_ops` per pair plus the pair features' 14 (two
     differences, eight products, four sums) and the q projection's
@@ -2009,13 +2038,15 @@ def aa_attention_bound(B: int, T: int, Aq: int, Ak: int, dim: int, heads: int):
     CUDA-core peak; ``route_ms`` is the bound on K5's route, K3's: its three
     chain products (``10 dim^2`` a pair) on the tensor cores at f32
     accuracy, the rest on the CUDA cores at the same time (see
-    :func:`_route_bounds`)."""
+    :func:`_route_bounds`).  ``bf16``: K5b's route, the products at the
+    bf16 tensor-core rate (``PEAK_BF16_FLOPS``)."""
     pairs, rows = B * T * Aq * Ak, B * T * Aq
     flops = pairs * (sum(aa_pair_ops(dim, heads)) + 14) + rows * (2 * dim * dim + dim)
     floats = (rows * dim + 2 * B * T * Ak * 2 + rows * 2 + B * Aq * 4
               + aa_weight_floats(dim) + dim * dim + dim + rows * dim)
     nbytes = 4 * floats + pairs
-    return _route_bounds(flops, pairs * 10 * dim * dim, nbytes)
+    return _route_bounds(flops, pairs * 10 * dim * dim, nbytes,
+                         PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS / 3)
 
 
 def vpu_probe_bound(n: int, rounds: int, variant: str):
@@ -2071,16 +2102,20 @@ def _k5_packed(model, gen) -> dict:
 
 
 @torch.inference_mode()
-def phase_aa_attention(model, one_term) -> dict:
-    """K5's own path (one ``aa_attention`` call at each head count), then
-    K5 vs its plain version and vs K3 on the same q and u within
-    ``TOL_K3_TIGHT``, which the ``one_term`` copy of K5 must fail, at every
-    shape of ``K5_SHAPES`` at 8 heads (the flagship's weights) and at 4
-    (the baseline's, ``K5_BASELINE_SHAPE`` for the twin), for the model's
-    packed weights and random ones; bit-equal reruns, empty receivers
-    exactly 0; timed at the twin shape (8 heads) and the baseline's (4)."""
+def phase_aa_attention(model, one_term) -> tuple:
+    """K5's and K5b's own path (one ``aa_attention`` call in f32 and one in
+    bf16 at each head count), then K5 vs its plain version and vs K3 on the
+    same q and u within ``TOL_K3_TIGHT``, which the ``one_term`` copy of K5
+    must fail, and K5b vs its plain bf16 version within ``TOL_K5B``, which
+    K5 (f32) must fail, at every shape of ``K5_SHAPES`` at 8 heads (the
+    flagship's weights) and at 4 (the baseline's, ``K5_BASELINE_SHAPE`` for
+    the twin), for the model's packed weights and random ones; bit-equal
+    reruns, empty receivers exactly 0; each timed at the twin shape (8
+    heads) and the baseline's (4), K5b beside K5 and K3b (fed the same q
+    and u) in the same call.  Returns K5's and K5b's kernels lines."""
     t0 = time.perf_counter()
     D = K3.KERNEL_DIM
+    bf = dict(compute_dtype="bfloat16")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
     baseline = build_model(BASELINE_TRAIN, device="cuda", seed=SEED)
     weights = {8: _k5_packed(model, gen), 4: _k5_packed(baseline, gen)}
@@ -2091,14 +2126,17 @@ def phase_aa_attention(model, one_term) -> dict:
     zero_counts()
     for h, args in timed.items():
         K5.aa_attention(*args, weights[h]["model"], h)
+        K5.aa_attention(*args, weights[h]["model"], h, **bf)
     torch.cuda.synchronize()
-    launches = _counts()
-    print(f"[aa-attention] launches of one aa_attention call at 8 and one at 4 heads: "
-          f"{launches}", flush=True)
-    check(launches == {k: 2 * int(k == "aa_attention") for k in launches},
-          "aa_attention did not launch K5 once a call, and nothing else")
+    launches = _all_counts()
+    print(f"[aa-attention] launches of one aa_attention call in f32 and one in bf16 at 8 and at "
+          f"4 heads: {launches}", flush=True)
+    check(launches == {k: 2 * int(k in ("aa_attention", "aa_attention_bf16")) for k in launches},
+          "aa_attention did not launch K5 once an f32 call and K5b once a bf16 call, and nothing "
+          "else")
 
     max_abs = {8: 0.0, 4: 0.0}
+    b_abs, b_worst = {8: 0.0, 4: 0.0}, {8: (0.0, 0.0), 4: (0.0, 0.0)}
     one_term_rel = {8: [], 4: []}
     for H, at_heads in shapes.items():
         for name, shape in at_heads.items():
@@ -2109,12 +2147,15 @@ def phase_aa_attention(model, one_term) -> dict:
                 got = K5.aa_attention(*args, ws, H)
                 again = K5.aa_attention(*args, ws, H)
                 coarse = K5.launch(one_term, *args, ws, H)
+                got_b = K5.aa_attention(*args, ws, H, **bf)
+                again_b = K5.aa_attention(*args, ws, H, **bf)
                 torch.cuda.synchronize()
-                check(bool(torch.isfinite(got).all()), f"aa_attention ({case}) is not finite")
-                check(torch.equal(got, again),
-                      f"aa_attention ({case}) is not bit-equal across two runs")
-                check(bool((got[:, :, ::7] == 0).all()), f"aa_attention ({case}): an empty "
-                      "receiver did not give exactly 0")
+                for what, a, b in (("aa_attention", got, again), ("aa_attention_bf16", got_b,
+                                                                  again_b)):
+                    check(bool(torch.isfinite(a).all()), f"{what} ({case}) is not finite")
+                    check(torch.equal(a, b), f"{what} ({case}) is not bit-equal across two runs")
+                    check(bool((a[:, :, ::7] == 0).all()), f"{what} ({case}): an empty "
+                          "receiver did not give exactly 0")
                 want = K5.aa_attention_reference(*args, ws, H)
                 q = (center @ ws["wq"] + ws["bq"][0]).contiguous()
                 u = K3.build_pair_features(x_k, pos_k[:, :, None] - pos_q[:, :, :, None],
@@ -2125,47 +2166,88 @@ def phase_aa_attention(model, one_term) -> dict:
                 rel, rel_k3 = diff / scale, (got - k3).abs().max().item() / scale
                 one_term_rel[H].append((coarse - want).abs().max().item() / scale)
                 max_abs[H] = max(max_abs[H], diff)
+                del k3, q, u
+                want_b = K5.aa_attention_reference(*args, ws, H, **bf)
+                dist, fdist = _bf16_dist(got_b, want_b), _bf16_dist(got, want_b)
+                b_abs[H] = max(b_abs[H], (got_b - want_b).abs().max().item())
+                b_worst[H] = tuple(max(a, b) for a, b in zip(b_worst[H], dist))
                 print(f"[aa-attention] aa_attention {case}: bit-equal reruns, max|kernel - "
                       f"plain| {diff:.3e} = {rel:.3e} of max|plain|, max|K5 - K3| {rel_k3:.3e} "
                       f"of it (tight {TOL_K3_TIGHT:g}); the one-term copy "
-                      f"{one_term_rel[H][-1]:.3e}", flush=True)
+                      f"{one_term_rel[H][-1]:.3e}; K5b bit-equal reruns, max / mean |K5b - "
+                      f"plain bf16| {dist[0]:.3e} / {dist[1]:.3e} of max / mean |plain| (tol "
+                      f"{TOL_K5B[0]:g} / {TOL_K5B[1]:g}), K5 (f32) {fdist[0]:.3e} / "
+                      f"{fdist[1]:.3e}", flush=True)
                 check(rel <= TOL_K3_TIGHT, f"aa_attention ({case}): {rel:.3e} > TOL_K3_TIGHT "
                       "against its plain version")
                 check(rel_k3 <= TOL_K3_TIGHT, f"aa_attention ({case}): {rel_k3:.3e} > "
                       "TOL_K3_TIGHT against K3 on the same q and u")
-                del got, again, coarse, want, q, u, k3
+                check(_within(dist, TOL_K5B), f"aa_attention_bf16 ({case}) disagrees with its "
+                      "plain version")
+                check(not _within(fdist, TOL_K5B), f"K5 (f32) passes TOL_K5B ({case}): the bar "
+                      "does not hold the kernel to bf16")
+                del got, again, coarse, want, got_b, again_b, want_b
         check(max(one_term_rel[H]) > TOL_K3_TIGHT, f"the one-term copy of K5 passes "
               f"TOL_K3_TIGHT at {H} heads ({max(one_term_rel[H]):.3e})")
         torch.cuda.empty_cache()
 
-    row = {}
+    row, row_b = {}, {}
     for H, args in timed.items():
         packed = weights[H]["model"]
+        center, x_k, pos_q, pos_k, rot, mask = args
+        q = (center @ packed["wq"] + packed["bq"][0]).contiguous()
+        u = K3.build_pair_features(x_k, pos_k[:, :, None] - pos_q[:, :, :, None],
+                                   rot).contiguous()
+        mask_f, ws = mask.float(), K3.weights_of(packed)
         ms = cuda_ms(lambda: K5.aa_attention(*args, packed, H))
+        ms_b = cuda_ms(lambda: K5.aa_attention(*args, packed, H, **bf))
+        k3b_ms = cuda_ms(lambda: K3.fused_pair_attention(q, u, mask_f, None, ws, H, 0.0,
+                                                         "bfloat16"))
         plain_ms = cuda_ms(lambda: K5.aa_attention_reference(*args, packed, H), runs=5, warmup=1)
+        plain_b = cuda_ms(lambda: K5.aa_attention_reference(*args, packed, H, **bf), runs=5,
+                          warmup=1)
+        del q, u, mask_f
         shape = shapes[H]["twin"]
         bound, by, flops, nbytes, route, route_by = aa_attention_bound(*shape, D, H)
+        _, _, _, _, route_b, route_b_by = aa_attention_bound(*shape, D, H, bf16=True)
         print(f"[aa-attention] aa_attention at {H} heads, {list(shape)}: {ms:.3f} ms (median of "
               f"{TIMED_RUNS}), bound {route:.3f} ms by {route_by} on its route (3xTF32 products "
               f"on the tensor cores) and {bound:.3f} ms by {by} on the CUDA cores ({flops:.3e} "
               f"flop, {nbytes:.3e} B), {flops / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.3f} ms "
               f"(median of 5)", flush=True)
+        print(f"[aa-attention] aa_attention_bf16 (K5b) at {H} heads, {list(shape)}: {ms_b:.3f} "
+              f"ms (median of {TIMED_RUNS}); K5 {ms:.3f} ms and K3b on the same q and u "
+              f"{k3b_ms:.3f} ms in this call; bound {route_b:.3f} ms by {route_b_by} on its "
+              f"route (bf16 products on the tensor cores) and {bound:.3f} ms on the CUDA cores; "
+              f"plain bf16 {plain_b:.3f} ms (median of 5)", flush=True)
         prefix = "" if H == 8 else "h4_"
         row.update({f"{prefix}max_abs_err": max_abs[H], f"{prefix}ms": ms,
                     f"{prefix}plain_ms": plain_ms, f"{prefix}bound_ms": route,
                     f"{prefix}bound_by": route_by, f"{prefix}cuda_core_bound_ms": bound,
                     f"{prefix}cuda_core_bound_by": by,
                     f"{prefix}one_term_max_rel_err": max(one_term_rel[H])})
+        row_b.update({f"{prefix}max_abs_err": b_abs[H], f"{prefix}max_rel_err": b_worst[H][0],
+                      f"{prefix}mean_rel_err": b_worst[H][1], f"{prefix}ms": ms_b,
+                      f"{prefix}plain_ms": plain_b, f"{prefix}bound_ms": route_b,
+                      f"{prefix}bound_by": route_b_by, f"{prefix}route_ms": route_b,
+                      f"{prefix}cuda_core_bound_ms": bound, f"{prefix}cuda_core_bound_by": by,
+                      f"{prefix}f32_kernel_ms": ms, f"{prefix}k3b_ms": k3b_ms})
         torch.cuda.empty_cache()
     del timed
     torch.cuda.empty_cache()
     print(f"[aa-attention] phase G took {time.perf_counter() - t0:.1f} s", flush=True)
     # bound_ms is the route's, cuda_core_bound_ms every operation on the CUDA
     # cores (8 heads, the twin shape); h4_* at 4 heads, the baseline's shape
-    return dict(name="aa_attention", route="cuda", source="trajsde_tpu_torch/csrc/aa_attention.cu",
-                replaces="trajsde_tpu/ops/pallas/aa_attention.py:201",
-                launches=launches["aa_attention"], library_ms=None,
-                h4_shape=list(K5_BASELINE_SHAPE), **row)
+    k5 = dict(name="aa_attention", route="cuda", source="trajsde_tpu_torch/csrc/aa_attention.cu",
+              replaces="trajsde_tpu/ops/pallas/aa_attention.py:201",
+              launches=launches["aa_attention"], library_ms=None,
+              h4_shape=list(K5_BASELINE_SHAPE), **row)
+    k5b = dict(name="aa_attention_bf16", route="cuda",
+               source="trajsde_tpu_torch/csrc/aa_attention.cu",
+               replaces="trajsde_tpu/ops/pallas/aa_attention.py:201", compute_dtype="bfloat16",
+               launches=launches["aa_attention_bf16"], library_ms=None,
+               h4_shape=list(K5_BASELINE_SHAPE), **row_b)
+    return k5, k5b
 
 
 def phase_vpu_probe() -> dict:
@@ -3630,26 +3712,97 @@ def phase_multigpu(d: str, card: str) -> dict:
 # generator seed, the scene count); it serves one scene, then the rest as
 # one batch, and prints its launches, load time and imported modules
 EXPORT_WORKER = r"""
-import json, sys, time
+import json, os, sys, time
 import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+from trajsde_tpu_torch import ops
+from trajsde_tpu_torch.data.pack import pack_scenes
 from trajsde_tpu_torch.data.synthetic import make_raw_scene
+from trajsde_tpu_torch.deploy import load_serving
 from trajsde_tpu_torch.ops import aa_fused as K3, sde_rollout as K1
-from trajsde_tpu_torch.server import ServingEngine
-art, out = sys.argv[1:3]
-seed, actors, lanes, rng_seed, n = map(int, sys.argv[3:8])
-t0 = time.perf_counter()
-eng = ServingEngine.from_export(art, device="cuda", seed=seed)
-load_s = time.perf_counter() - t0
+from trajsde_tpu_torch.server import ServingEngine, align_scene
+out, go = sys.argv[1:3]
+seed, actors, lanes, rng_seed, n, runs = map(int, sys.argv[3:9])
+arts = sys.argv[9:]
+
+
+def wait_for(path, timeout=900.0):
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(f"{path} did not appear in {timeout:.0f} s")
+        time.sleep(0.5)
+
+
 rng = np.random.default_rng(rng_seed)
 raws = [make_raw_scene(rng, i % 2, num_actors=actors, num_lanes=lanes) for i in range(n)]
-got = eng.predict(raws[:1]) + eng.predict(raws[1:])
-eng.close()
-np.savez(out, **{f"{i}/{k}": v for i, r in enumerate(got) for k, v in r.items()})
-print(json.dumps({"load_s": load_s, "launches": {
-    "sde_rollout": K1.sde_rollout.launches, "sde_rollout_bwd": K1.sde_rollout_bwd.launches,
-    "aa_fused": K3.fused_pair_attention.launches,
-    "aa_fused_bwd": K3.fused_pair_attention_bwd.launches},
-    "modules": sorted(m for m in sys.modules if m.startswith("trajsde"))}))
+report, loaded, answers = [], [], {}
+for art in arts:  # each as soon as its manifest (written last) is there
+    wait_for(os.path.join(art, "manifest.json"))
+    t0 = time.perf_counter()
+    loaded.append(load_serving(art, device="cuda"))
+    report.append({"load_s": time.perf_counter() - t0, "ms": {}})
+wait_for(go)  # the card is ours: nothing else runs on it from here
+# the p50 of one served batch (draws, program) at each bucket, CUDA events,
+# before anything runs under the profiler
+for exp, rep in zip(loaded, report):
+    for b in exp.buckets:
+        scene = pack_scenes([align_scene(x)[0] for x in raws[1:1 + b]], actors, lanes)
+        scene = scene.to("cuda")
+        times = []
+        for r in range(runs + 2):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            exp(scene, 7)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        rep["ms"][b] = float(np.median(times[2:]))
+for a, (exp, rep) in enumerate(zip(loaded, report)):
+    eng = ServingEngine(exp, num_actors=exp.num_actors, num_lanes=exp.num_lanes, device="cuda",
+                        engine="exported", batch_buckets=exp.buckets, is_gtabs=exp.is_gtabs,
+                        ref_time=exp.ref_time, seed=seed)
+    ops.zero_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = eng.predict(raws[:1]) + eng.predict(raws[1:])
+        torch.cuda.synchronize()
+    eng.close()
+    rep["launches"] = {"sde_rollout": K1.sde_rollout.launches,
+                       "sde_rollout_bwd": K1.sde_rollout_bwd.launches,
+                       "aa_fused": K3.fused_pair_attention.launches,
+                       "aa_fused_bwd": K3.fused_pair_attention_bwd.launches,
+                       "aa_fused_bf16": K3.fused_pair_attention.bf16_launches,
+                       "aa_fused_bwd_bf16": K3.fused_pair_attention_bwd.bf16_launches}
+    rep["traced"] = ops.traced_launches(e.name() for e in prof.profiler.kineto_results.events()
+                                        if e.device_type() == torch.autograd.DeviceType.CUDA)
+    answers.update({f"{a}/{i}/{k}": v for i, r in enumerate(got) for k, v in r.items()})
+np.savez(out, **answers)
+print(json.dumps({"artifacts": report,
+                  "modules": sorted(m for m in sys.modules if m.startswith("trajsde"))}))
+"""
+
+# R6: FLAGSHIP_BF16_FUSED exported in a process of its own, beside phase Q
+# and R1-R5
+BF16_EXPORTER = r"""
+import json, sys, time
+import numpy as np
+from trajsde_tpu_torch.config import FLAGSHIP_BF16_FUSED, build_model
+from trajsde_tpu_torch.data.pack import pack_scenes
+from trajsde_tpu_torch.data.synthetic import make_raw_scene
+from trajsde_tpu_torch.deploy import export_serving
+from trajsde_tpu_torch.server import align_scene
+art = sys.argv[1]
+seed, actors, lanes, rng_seed = map(int, sys.argv[2:6])
+buckets = [int(b) for b in sys.argv[6].split(",")]
+raw = make_raw_scene(np.random.default_rng(rng_seed), 0, num_actors=actors, num_lanes=lanes)
+example = pack_scenes([align_scene(raw)[0]], actors, lanes)
+model = build_model(FLAGSHIP_BF16_FUSED, device="cuda", seed=seed)
+t0 = time.perf_counter()
+manifest = export_serving(model, example, art, buckets=buckets)
+print(json.dumps({"export_s": time.perf_counter() - t0, "ops": manifest["ops"],
+                  "draws": [[d["name"], d["dtype"]] for d in manifest["draws"]]}))
 """
 
 
@@ -3657,14 +3810,76 @@ def _artifact_bytes(path: str) -> int:
     return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
 
 
-def phase_export(d: str, card: str) -> dict:
+def _python(code: str, log: str, *args):
+    """``code`` in a Python process of its own, from the repository root,
+    its standard error written to ``log`` (a pipe left unread while the
+    process runs beside other work could fill and stop it)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(log, "w") as err:
+        proc = subprocess.Popen([sys.executable, "-c", code, *map(str, args)], cwd=root,
+                                stdout=subprocess.PIPE, stderr=err, text=True,
+                                env=dict(os.environ, PYTHONPATH=root))
+    proc.log = log
+    return proc
+
+
+def _finished(proc, what: str, timeout: float) -> dict:
+    """The last stdout line of ``proc`` as JSON, once it exits 0 within
+    ``timeout`` seconds (killed and failed otherwise)."""
+    try:
+        stdout, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise RuntimeError(f"{what} outlived {timeout:.0f} s")
+    with open(proc.log) as f:
+        check(proc.returncode == 0, f"{what} failed:\n{f.read()[-4000:]}")
+    return json.loads(stdout.strip().splitlines()[-1])
+
+
+def start_bf16_export(d: str):
+    """R6's export of ``FLAGSHIP_BF16_FUSED`` into ``d/artifact_bf16``, in a
+    process of its own (about 90 s of one host core and little of the
+    card); main starts it before phase Q, and :func:`phase_export` waits
+    for it."""
+    return _python(BF16_EXPORTER, os.path.join(d, "bf16_exporter.log"),
+                   os.path.join(d, "artifact_bf16"), SEED, NUM_ACTORS, NUM_LANES,
+                   EXPORT_RNG_SEED, ",".join(map(str, EXPORT_BUCKETS)))
+
+
+def phase_export(d: str, card: str, exporter=None) -> dict:
     """R. The deployment artifact (``trajsde_tpu_torch/deploy.py``, after Q,
-    on J's files); see the module docstring."""
+    on J's files); see the module docstring.  ``exporter``: R6's process
+    (:func:`start_bf16_export`), started here if not given."""
+    t_phase = time.perf_counter()
+    exporter = exporter or start_bf16_export(d)
+    # R2's process starts now and loads each artifact once it is written
+    # (tens of seconds of host work each, beside R1-R6), then waits for the
+    # go file before it runs anything on the card
+    worker = _python(EXPORT_WORKER, os.path.join(d, "export_worker.log"),
+                     os.path.join(d, "exported_answers.npz"),
+                     os.path.join(d, "export_worker.go"), SEED, NUM_ACTORS, NUM_LANES,
+                     EXPORT_RNG_SEED, 1 + TRAIN_BATCH, EXPORT_TIMED,
+                     os.path.join(d, "artifact"), os.path.join(d, "artifact_bf16"))
+    try:
+        out = _export_phases(d, card, exporter, worker)
+    finally:
+        if worker.poll() is None:
+            worker.kill()
+            worker.wait()
+    out["s"] = time.perf_counter() - t_phase
+    print(f"[export] phase R: {out['s']:.1f} s", flush=True)
+    return out
+
+
+def _export_phases(d: str, card: str, exporter, worker) -> dict:
+    """R1-R7 of :func:`phase_export`, with R6's ``exporter`` and R2's
+    ``worker`` started."""
     import serve_torch
 
-    t_phase = time.perf_counter()
     out = {}
-    rng_seed, n = SEED + 71, 1 + TRAIN_BATCH
+    art, art16 = os.path.join(d, "artifact"), os.path.join(d, "artifact_bf16")
+    rng_seed, n = EXPORT_RNG_SEED, 1 + TRAIN_BATCH
     rng = np.random.default_rng(rng_seed)
     raws = [make_raw_scene(rng, i % 2, num_actors=NUM_ACTORS, num_lanes=NUM_LANES)
             for i in range(n)]
@@ -3672,7 +3887,6 @@ def phase_export(d: str, card: str) -> dict:
     model = build_model(FLAGSHIP_H100, device="cuda", seed=SEED)
 
     # R1: export at full width, buckets 1 and 128
-    art = os.path.join(d, "artifact")
     t0 = time.perf_counter()
     manifest = export_serving(model, example, art, buckets=EXPORT_BUCKETS)
     out["export_s"], out["artifact_bytes"] = time.perf_counter() - t0, _artifact_bytes(art)
@@ -3685,49 +3899,12 @@ def phase_export(d: str, card: str) -> dict:
           f"{out['export_s']:.1f} s; {out['artifact_bytes'] / 2**20:.1f} MiB on disk; ops "
           f"{manifest['ops']}", flush=True)
 
-    # R2: a process with no model code serves 1 then 128 scenes; the live
-    # scan engine of the same seed answers the same batches
-    live = ServingEngine(model, num_actors=NUM_ACTORS, num_lanes=NUM_LANES, device="cuda",
-                         engine="scan", batch_buckets=EXPORT_BUCKETS, seed=SEED)
-    try:
-        want = live.predict(raws[:1]) + live.predict(raws[1:])
-    finally:
-        live.close()
-    got_path = os.path.join(d, "exported_answers.npz")
-    root = os.path.dirname(os.path.abspath(__file__))
-    r = subprocess.run([sys.executable, "-c", EXPORT_WORKER, art, got_path, str(SEED),
-                        str(NUM_ACTORS), str(NUM_LANES), str(rng_seed), str(n)],
-                       cwd=root, capture_output=True, text=True, timeout=600,
-                       env=dict(os.environ, PYTHONPATH=root))
-    check(r.returncode == 0, f"the artifact's loader failed:\n{r.stderr[-4000:]}")
-    worker = json.loads(r.stdout.strip().splitlines()[-1])
-    bad = [m for m in worker["modules"] if m.startswith(("trajsde_tpu_torch.models",
-                                                         "trajsde_tpu_torch.config",
-                                                         "trajsde_tpu_torch.train"))]
-    check(not bad, f"the artifact's loader imported model code: {bad}")
-    launches = dict(worker["launches"], aa_attention=0, vpu_probe=0)
-    check(launches["sde_rollout"] == launches["aa_fused"] == 2
-          and launches["sde_rollout_bwd"] == launches["aa_fused_bwd"] == 0,
-          f"two exported batches launched {launches}, not K1 and K3 once each per batch")
-    with np.load(got_path) as z:
-        got = [{k: z[f"{i}/{k}"] for k in want[i]} for i in range(n)]
-    _check_results(got, n, model)
-    out["rel"], out["bit_equal"] = _results_distance(got, want)
-    check(out["rel"] <= TOL_PIPELINE, f"the exported answers are {out['rel']:.3e} of max from "
-          "the live scan engine's")
-    out["launches"], out["load_s"] = launches, worker["load_s"]
-    print(f"[export] R2 a process with no model code ({len(worker['modules'])} trajsde "
-          f"modules, none of models / config / train) loaded the artifact in "
-          f"{worker['load_s']:.1f} s and served 1 + {TRAIN_BATCH} scenes: launches {launches}; "
-          f"max |exported - live scan engine| / max |live| = {out['rel']:.3e} (tol "
-          f"{TOL_PIPELINE:g}); bit-equal: {out['bit_equal']}", flush=True)
-
     # R3: exported vs live, one served batch each, in turns (CUDA events)
     exp = load_serving(art, device="cuda")
     scan, post = make_scan_fn(model, "cuda"), make_postprocess(True, 20)
     seed = 7
 
-    def live_fn(scene):
+    def live_fn(scene, scan=scan):
         gen = torch.Generator(device="cuda").manual_seed(seed)
         with torch.inference_mode():
             return post(scene, scan(scene, seed, generator=gen))
@@ -3780,10 +3957,14 @@ def phase_export(d: str, card: str) -> dict:
     del cpu_model, on_cpu, on_card
 
     # R5: serve_torch.py --export, then --from-export, on J's checkpoint and
-    # validation scenes (bucket 1)
+    # EXPORT_CLI_SCENES of its validation scenes (bucket 1)
     run_dir = os.path.join(d, "logs", "cli")
     best = CheckpointManager(os.path.join(run_dir, "checkpoints")).best()["path"]
-    val_dir = os.path.join(d, "npz", "nuScenes", "val")
+    val_all = os.path.join(d, "npz", "nuScenes", "val")
+    val_dir = os.path.join(d, "export_val")
+    os.makedirs(val_dir, exist_ok=True)
+    for name in sorted(os.listdir(val_all))[:EXPORT_CLI_SCENES]:
+        os.symlink(os.path.join(val_all, name), os.path.join(val_dir, name))
     art_cli, preds = os.path.join(d, "artifact_cli"), os.path.join(d, "export_preds")
     t0 = time.perf_counter()
     done = serve_torch.main(["-c", os.path.join(d, "h100.json"), "--ckpt", best, "--export",
@@ -3796,22 +3977,126 @@ def phase_export(d: str, card: str) -> dict:
                               preds, "--max-batch", "1"])
     cli_s = time.perf_counter() - t0
     cli_launches = _counts()
-    check(stats["served"] == CLI_VAL_SCENES and cli_launches["sde_rollout"] == CLI_VAL_SCENES
-          and cli_launches["aa_fused"] == CLI_VAL_SCENES, f"--from-export served {stats} with "
-          f"{cli_launches}, not K1 and K3 once per scene")
+    check(stats["served"] == EXPORT_CLI_SCENES
+          and cli_launches["sde_rollout"] == EXPORT_CLI_SCENES
+          and cli_launches["aa_fused"] == EXPORT_CLI_SCENES, f"--from-export served {stats} "
+          f"with {cli_launches}, not K1 and K3 once per scene")
     written = []
     for name in sorted(os.listdir(preds)):
         with np.load(os.path.join(preds, name)) as z:
             written.append({k: z[k] for k in z.files})
-    _check_results(written, CLI_VAL_SCENES, model)
+    _check_results(written, EXPORT_CLI_SCENES, model)
     out["cli"] = dict(export_s=cli_export_s, s=cli_s, stats=stats, launches=cli_launches)
     print(f"[export] R5 serve_torch.py --export (phase J's checkpoint, bucket 1) in "
-          f"{cli_export_s:.1f} s, then --from-export over {CLI_VAL_SCENES} validation scenes in "
-          f"{cli_s:.1f} s: {stats}; launches {cli_launches}", flush=True)
-    del model
+          f"{cli_export_s:.1f} s, then --from-export over {EXPORT_CLI_SCENES} validation scenes "
+          f"in {cli_s:.1f} s: {stats}; launches {cli_launches}", flush=True)
+
+    # R6: the bf16 export, started before phase Q
+    t0 = time.perf_counter()
+    exported16 = _finished(exporter, "the FLAGSHIP_BF16_FUSED exporter", 900)
+    wait_s = time.perf_counter() - t0
+    out["bf16"] = dict(export_s=exported16["export_s"], artifact_bytes=_artifact_bytes(art16),
+                       wait_s=wait_s)
+    check(exported16["ops"] == ["trajsde::aa_fused_fwd_bf16"]
+          and exported16["draws"] == [["twin_noise", "float32"], ["enc_noise", "bfloat16"],
+                                      ["dec_noise", "bfloat16"]],
+          f"the bf16 artifact's ops {exported16['ops']} and draws {exported16['draws']}")
+    print(f"[export] R6 FLAGSHIP_BF16_FUSED ({NUM_ACTORS} actors, {NUM_LANES} lanes, seeded "
+          f"weights) exported for buckets {list(EXPORT_BUCKETS)} in a process of its own in "
+          f"{exported16['export_s']:.1f} s beside Q and R1-R5 (waited {wait_s:.1f} s for it "
+          f"here); "
+          f"{out['bf16']['artifact_bytes'] / 2**20:.1f} MiB on disk; ops {exported16['ops']}; "
+          f"draws {exported16['draws']}", flush=True)
+
+    # R2: the process with no model code, the artifacts loaded, times one
+    # served batch of each at each bucket, then serves 1 then 128 scenes from
+    # each under the profiler; the live scan engine of the same seed answers
+    # the same batches
+    t0 = time.perf_counter()
+    with open(os.path.join(d, "export_worker.go"), "w"):
+        pass
+    report = _finished(worker, "the artifacts' loader", 900)
+    out["worker_s"] = time.perf_counter() - t0
+    bad = [m for m in report["modules"] if m.startswith(("trajsde_tpu_torch.models",
+                                                         "trajsde_tpu_torch.config",
+                                                         "trajsde_tpu_torch.train"))]
+    check(not bad, f"the artifacts' loader imported model code: {bad}")
+    f32_rep, bf16_rep = report["artifacts"]
+    none = dict(aa_attention=0, vpu_probe=0, aa_attention_bf16=0)
+    launches = dict(f32_rep["launches"], **none)
+    check(launches == {"sde_rollout": 2, "sde_rollout_bwd": 0, "aa_fused": 2, "aa_fused_bwd": 0,
+                       "aa_fused_bf16": 0, "aa_fused_bwd_bf16": 0, **none}
+          and f32_rep["traced"] == launches,
+          f"two exported batches launched {launches} (traced {f32_rep['traced']}), not K1 and "
+          "K3 once each per batch")
+    launches16 = dict(bf16_rep["launches"], **none)
+    check(launches16 == {"sde_rollout": 0, "sde_rollout_bwd": 0, "aa_fused": 0,
+                         "aa_fused_bwd": 0, "aa_fused_bf16": 2, "aa_fused_bwd_bf16": 0, **none}
+          and bf16_rep["traced"] == launches16,
+          f"two exported bf16 batches launched {launches16} (traced {bf16_rep['traced']}), not "
+          "K3b once per batch")
+    live = ServingEngine(model, num_actors=NUM_ACTORS, num_lanes=NUM_LANES, device="cuda",
+                         engine="scan", batch_buckets=EXPORT_BUCKETS, seed=SEED)
+    try:
+        want = live.predict(raws[:1]) + live.predict(raws[1:])
+    finally:
+        live.close()
+    with np.load(os.path.join(d, "exported_answers.npz")) as z:
+        got = [{k: z[f"0/{i}/{k}"] for k in want[i]} for i in range(n)]
+        model16 = build_model(FLAGSHIP_BF16_FUSED, device="cuda", seed=SEED)
+        live16 = ServingEngine(model16, num_actors=NUM_ACTORS, num_lanes=NUM_LANES,
+                               device="cuda", engine="scan", batch_buckets=EXPORT_BUCKETS,
+                               seed=SEED)
+        try:
+            want16 = live16.predict(raws[:1]) + live16.predict(raws[1:])
+        finally:
+            live16.close()
+        got16 = [{k: z[f"1/{i}/{k}"] for k in want16[i]} for i in range(n)]
+    _check_results(got, n, model)
+    _check_results(got16, n, model16)
+    out["rel"], out["bit_equal"] = _results_distance(got, want)
+    check(out["rel"] <= TOL_PIPELINE, f"the exported answers are {out['rel']:.3e} of max from "
+          "the live scan engine's")
+    out["bf16"]["rel"], out["bf16"]["bit_equal"] = _results_distance(got16, want16)
+    check(out["bf16"]["bit_equal"], f"the exported bf16 answers are not the live scan engine's "
+          f"bits ({out['bf16']['rel']:.3e} of max)")
+    out["launches"], out["load_s"] = launches, f32_rep["load_s"]
+    out["bf16"].update(launches=launches16, load_s=bf16_rep["load_s"])
+    print(f"[export] R2 a process with no model code ({len(report['modules'])} trajsde "
+          f"modules, none of models / config / train), started before R1, loaded the artifact "
+          f"in {f32_rep['load_s']:.1f} s beside R3-R6, then ({out['worker_s']:.1f} s after the "
+          f"go) served 1 + {TRAIN_BATCH} scenes: launches {launches}, "
+          f"the same in its trace; max |exported - live scan engine| / max |live| = "
+          f"{out['rel']:.3e} (tol {TOL_PIPELINE:g}); bit-equal: {out['bit_equal']}", flush=True)
+    print(f"[export] R2 the same process loaded the FLAGSHIP_BF16_FUSED artifact in "
+          f"{bf16_rep['load_s']:.1f} s once R6 had written it and served 1 + {TRAIN_BATCH} "
+          f"scenes: launches "
+          f"{_launched(launches16)}, the same in its trace; bit for bit the live scan "
+          f"engine's; p50 of one served batch before the profiler ran there (CUDA events, "
+          f"{EXPORT_TIMED} runs): f32 " + ", ".join(
+              f"bucket {b} {v:.2f} ms" for b, v in f32_rep["ms"].items()) + "; bf16 "
+          + ", ".join(f"bucket {b} {v:.2f} ms" for b, v in bf16_rep["ms"].items()), flush=True)
+    out["worker_ms"] = {"float32": f32_rep["ms"], "bfloat16": bf16_rep["ms"]}
+    del got, want, got16, want16
+
+    # R7: the p50 of one served bf16 batch at each bucket, exported (R2's
+    # process, CUDA events) against the live scan engine (here), one after
+    # the other on this card; R3's f32 figures (in turns, here) and R2's
+    # (there) put the two processes side by side
+    scan16 = make_scan_fn(model16, "cuda")
+    live_ms = {}
+    for b in EXPORT_BUCKETS:
+        scene = pack_scenes([align_scene(x)[0] for x in raws[1:1 + b]], NUM_ACTORS,
+                            NUM_LANES).to("cuda")
+        live_ms[b] = cuda_ms(lambda: live_fn(scene, scan16), runs=EXPORT_TIMED, warmup=2)
+    out["bf16"]["ms"] = {b: {"exported": bf16_rep["ms"][str(b)], "live": live_ms[b]}
+                         for b in EXPORT_BUCKETS}
+    print(f"[export] R7 {card}: FLAGSHIP_BF16_FUSED, one served batch (draws, forward, "
+          f"projection), p50 of {EXPORT_TIMED} CUDA-event runs: " + "; ".join(
+              f"bucket {b} exported {v['exported']:.2f} ms, live scan engine {v['live']:.2f} ms"
+              for b, v in out["bf16"]["ms"].items()), flush=True)
+    del model, model16, scan16
     torch.cuda.empty_cache()
-    out["s"] = time.perf_counter() - t_phase
-    print(f"[export] phase R: {out['s']:.1f} s", flush=True)
     return out
 
 
@@ -3952,9 +4237,10 @@ def phase_converted(d: str, card: str) -> dict:
 
 
 def _bf16_counts() -> dict:
-    """K3b's and K4b's launch counts (``_counts`` holds K1-K6's)."""
+    """K3b's, K4b's and K5b's launch counts (``_counts`` holds K1-K6's)."""
     return {"aa_fused_bf16": K3.fused_pair_attention.bf16_launches,
-            "aa_fused_bwd_bf16": K3.fused_pair_attention_bwd.bf16_launches}
+            "aa_fused_bwd_bf16": K3.fused_pair_attention_bwd.bf16_launches,
+            "aa_attention_bf16": K5.aa_attention.bf16_launches}
 
 
 def _bf16_dist(got, want) -> tuple:
@@ -4174,7 +4460,8 @@ def _bf16_fused_serve(model, card: str) -> dict:
           f"{TRAIN_BATCH}: launches {served}, {served_bf16}", flush=True)
     check(served == {"sde_rollout": 2, "sde_rollout_bwd": 0, "aa_fused": 0, "aa_fused_bwd": 0,
                      "aa_attention": 0, "vpu_probe": 0}
-          and served_bf16 == {"aa_fused_bf16": 2, "aa_fused_bwd_bf16": 0},
+          and served_bf16 == {"aa_fused_bf16": 2, "aa_fused_bwd_bf16": 0,
+                              "aa_attention_bf16": 0},
           "the fused bf16 engine did not launch K3b and K1 once a batch and nothing else")
     f32 = build_model(FLAGSHIP, device="cuda", seed=SEED)
     dense = build_model(FLAGSHIP_BF16, device="cuda", seed=SEED)
@@ -4220,7 +4507,7 @@ def _bf16_fused_train(model, card: str) -> dict:
     peak memory."""
     batch = _train_batch(np.random.default_rng(SEED + 3), BF16_FUSED_BATCH).to("cuda")
     want = {"sde_rollout": 0, "sde_rollout_bwd": 0, "aa_fused": 0, "aa_fused_bwd": 0,
-            "aa_attention": 0, "vpu_probe": 0}
+            "aa_attention": 0, "vpu_probe": 0, "aa_attention_bf16": 0}
     steps, out = {}, {}
     for tag, cfg, m, bf in (("fused", FLAGSHIP_BF16_FUSED, model, 1),
                             ("dense", FLAGSHIP_BF16,
@@ -4358,7 +4645,7 @@ def _logs_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def _all_counts() -> dict:
-    """Every kernel's launch count: K1-K6 (``_counts``), K3b and K4b."""
+    """Every kernel's launch count: K1-K6 (``_counts``), K3b, K4b and K5b."""
     return dict(_counts(), **_bf16_counts())
 
 
@@ -4376,7 +4663,7 @@ def _chain_want(cfg, updates: int) -> dict:
     fwd = 2 if enc.get("remat") else 1
     return {"sde_rollout": updates * fused_dec, "sde_rollout_bwd": updates * fused_dec,
             "aa_fused": fwd * aa, "aa_fused_bwd": aa, "aa_attention": 0, "vpu_probe": 0,
-            "aa_fused_bf16": fwd * aab, "aa_fused_bwd_bf16": aab}
+            "aa_fused_bf16": fwd * aab, "aa_fused_bwd_bf16": aab, "aa_attention_bf16": 0}
 
 
 def _launched(launches: dict) -> dict:
@@ -5049,75 +5336,97 @@ def _chain_options(card: str, batches: list, small: list) -> tuple:
     return out_r, out_a
 
 
+# each phase's seconds, by the name main gives it (model builds between
+# phases are not counted)
+PHASE_SECONDS: dict = {}
+
+
+def _phase(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, its seconds kept in PHASE_SECONDS under ``name``."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args, **kw)
+    finally:
+        PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + time.perf_counter() - t0
+
+
 def main() -> None:
     t_start = time.perf_counter()
-    card = phase_device()
-    checks = phase_build()
+    card = _phase("1 device", phase_device)
+    checks = _phase("2 build", phase_build)
     model = build_model(FLAGSHIP, device="cuda", seed=SEED)
     engine = ServingEngine(model, num_actors=NUM_ACTORS, num_lanes=NUM_LANES, device="cuda",
                            seed=SEED)
-    fwd = phase_kernels(model, engine.buckets)
-    served, dense_k3, dense_k4, dense_ms = phase_serve(engine, model)
-    phase_splice(model)
+    fwd = _phase("3 kernels", phase_kernels, model, engine.buckets)
+    served, dense_k3, dense_k4, dense_ms = _phase("4 serve", phase_serve, engine, model)
+    _phase("5 splice", phase_splice, model)
     # the same seeded weights with encoder.fused: true (one parameter tree)
     fused_model = build_model(FLAGSHIP_FUSED, device="cuda", seed=SEED)
-    k3 = phase_fused_kernel(fused_model)
+    k3 = _phase("A fused kernel", phase_fused_kernel, fused_model)
     fused_engine = ServingEngine(fused_model, num_actors=NUM_ACTORS, num_lanes=NUM_LANES,
                                  device="cuda", seed=SEED)
-    served_fused, k3_served, fused_k4, fused_ms = phase_serve(fused_engine, fused_model,
-                                                              "serve-fused")
+    served_fused, k3_served, fused_k4, fused_ms = _phase("B fused serving", phase_serve,
+                                                         fused_engine, fused_model, "serve-fused")
     print("[serve-fused] second calls, fused vs dense encoder (phase 4, this run): "
           + "; ".join(f"batch {n} {fused_ms[n]:.1f} vs {dense_ms[n]:.1f} ms" for n in BATCHES),
           flush=True)
-    k3_ood, k4_ood = phase_fused_splice(model, fused_model)
-    k5 = phase_aa_attention(model, checks["one_term_k5"])
-    k6 = phase_vpu_probe()
+    k3_ood, k4_ood = _phase("C fused splice", phase_fused_splice, model, fused_model)
+    k5, k5b = _phase("G aa_attention", phase_aa_attention, model, checks["one_term_k5"])
+    k6 = _phase("H probe", phase_vpu_probe)
     engine.close()
     fused_engine.close()
     del engine, model, fused_engine, fused_model
     torch.cuda.empty_cache()
     train_model = build_model(FLAGSHIP_TRAIN, device="cuda", seed=SEED)
-    bwd = phase_backward(train_model, train_rows(train_model))
+    bwd = _phase("6 backward", phase_backward, train_model, train_rows(train_model))
     del train_model
     torch.cuda.empty_cache()
-    trained = phase_train(FLAGSHIP_TRAIN, TRAIN_BATCH)
-    phase_train_splice()
+    trained = _phase("7 train", phase_train, FLAGSHIP_TRAIN, TRAIN_BATCH)
+    _phase("8 train splice", phase_train_splice)
     torch.cuda.empty_cache()
-    k4 = phase_fused_backward()
-    trained_fused = phase_train(FLAGSHIP_TRAIN_FUSED, TRAIN_BATCH, "train-fused")
+    k4 = _phase("D fused backward", phase_fused_backward)
+    trained_fused = _phase("E fused train", phase_train, FLAGSHIP_TRAIN_FUSED, TRAIN_BATCH,
+                           "train-fused")
     print(f"[train-fused] fused vs dense AA encoder (phase 7, this run): "
           f"{trained_fused['ms']:.1f} vs {trained['ms']:.1f} ms/step, "
           f"{trained_fused['scenes_per_s']:.1f} vs {trained['scenes_per_s']:.1f} scenes/s, peak "
           f"{trained_fused['peak_gib']:.2f} vs {trained['peak_gib']:.2f} GiB", flush=True)
-    phase_fused_train_splice()
+    _phase("F fused train splice", phase_fused_train_splice)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as d:
-        from_files = phase_train_from_files(trained_fused["ms"], d)
+        from_files = _phase("I files", phase_train_from_files, trained_fused["ms"], d)
         torch.cuda.empty_cache()
-        cli = phase_cli(d, from_files, card)
+        cli = _phase("J cli", phase_cli, d, from_files, card)
         torch.cuda.empty_cache()
-        engine_k = phase_engine(d, card)
+        engine_k = _phase("K engine", phase_engine, d, card)
         torch.cuda.empty_cache()
-        baseline = phase_baseline(card, checks)
+        baseline = _phase("L baseline", phase_baseline, card, checks)
         torch.cuda.empty_cache()
-        capped = phase_capped(card)
-        accum = phase_accum(d, card)
+        capped = _phase("M1 capped", phase_capped, card)
+        accum = _phase("M2 accum", phase_accum, d, card)
         torch.cuda.empty_cache()
-        bf16 = phase_bf16(card, capped["overflow_edges"])
+        bf16 = _phase("N bf16", phase_bf16, card, capped["overflow_edges"])
         torch.cuda.empty_cache()
-        multi = phase_multigpu(d, card)
+        # R6's export runs beside Q and R1-R5 (and stops if either fails)
+        bf16_exporter = start_bf16_export(d)
+        try:
+            multi = _phase("Q data parallel", phase_multigpu, d, card)
+            torch.cuda.empty_cache()
+            exported = _phase("R export", phase_export, d, card, bf16_exporter)
+        finally:
+            if bf16_exporter.poll() is None:
+                bf16_exporter.kill()
+                bf16_exporter.wait()
         torch.cuda.empty_cache()
-        exported = phase_export(d, card)
+        converted = _phase("S converted", phase_converted, d, card)
         torch.cuda.empty_cache()
-        converted = phase_converted(d, card)
+        chain = _phase("U chain", phase_chain, d, card)
         torch.cuda.empty_cache()
-        chain = phase_chain(d, card)
-        torch.cuda.empty_cache()
-    k3b, k4b, bf16_serve, bf16_train = phase_bf16_fused(card, checks)
+    k3b, k4b, bf16_serve, bf16_train = _phase("T bf16 fused", phase_bf16_fused, card, checks)
     torch.cuda.empty_cache()
-    adaptive = phase_adaptive(card)
+    adaptive = _phase("O adaptive", phase_adaptive, card)
     torch.cuda.empty_cache()
-    remat = phase_remat(card)
+    remat = _phase("P remat", phase_remat, card)
     k3.update(baseline["k3"])
     k4.update(baseline["k4"])
     # launches: the count on the kernel's own main path (serving for K1,
@@ -5136,13 +5445,21 @@ def main() -> None:
     k4["launches_by_path"] = {"train_fused": train_fused["aa_fused_bwd"], "serve": dense_k4,
                               "serve_fused": fused_k4, "ood": k4_ood,
                               "train": train["aa_fused_bwd"]}
-    # K5 and K6 run on their own paths (the op, the probe); phases 4 and B
-    # checked that serving launches neither
+    # K5, K5b and K6 run on their own paths (the op, the probe); phases 4 and
+    # B checked that serving launches none of them
     k5["launches_by_path"] = {"aa_attention": k5["launches"], "serve": 0, "serve_fused": 0,
                               "train": train["aa_attention"],
                               "train_fused": train_fused["aa_attention"]}
     k6["launches_by_path"] = {"probe": k6["launches"], "serve": 0, "serve_fused": 0,
                               "train": train["vpu_probe"], "train_fused": train_fused["vpu_probe"]}
+    k5b["launches_by_path"] = {"aa_attention": k5b["launches"],
+                               "bf16_fused_serve": bf16_serve["bf16_launches"]["aa_attention_bf16"],
+                               "bf16_fused_train": bf16_train["fused"]["launches"][
+                                   "aa_attention_bf16"],
+                               "exported_bf16_serve": exported["bf16"]["launches"][
+                                   "aa_attention_bf16"]}
+    # phase R: K3b on the exported FLAGSHIP_BF16_FUSED (trajsde::aa_fused_fwd_bf16)
+    k3b["launches_by_path"]["exported_bf16_serve"] = exported["bf16"]["launches"]["aa_fused_bf16"]
     # phase J: the CLI's own paths (train_torch.py's first run, test_torch.py plain)
     for entry, name in ((fwd, "sde_rollout"), (bwd, "sde_rollout_bwd"), (k3, "aa_fused"),
                         (k4, "aa_fused_bwd"), (k5, "aa_attention"), (k6, "vpu_probe")):
@@ -5193,7 +5510,8 @@ def main() -> None:
     # epoch (U9) by the counters
     for entry, name in ((fwd, "sde_rollout"), (bwd, "sde_rollout_bwd"), (k3, "aa_fused"),
                         (k4, "aa_fused_bwd"), (k5, "aa_attention"), (k6, "vpu_probe"),
-                        (k3b, "aa_fused_bf16"), (k4b, "aa_fused_bwd_bf16")):
+                        (k3b, "aa_fused_bf16"), (k4b, "aa_fused_bwd_bf16"),
+                        (k5b, "aa_attention_bf16")):
         paths = entry["launches_by_path"]
         paths["chain_train"] = chain["launches"].get(name, 0)
         paths["chain_cli_train"] = chain["cli"]["chain"]["launches"][name]
@@ -5215,7 +5533,8 @@ def main() -> None:
           f"{bwd['launches']} training + {train_fused['sde_rollout_bwd']} fused-encoder training; "
           f"K3 launches: {k3_served} fused serving + {k3_ood} OOD + {train_fused['aa_fused']} "
           f"fused-encoder training; K4 launches: {k4['launches']} fused-encoder training; "
-          f"K5 launches: {k5['launches']} on its op's path; K6 launches: {k6['launches']} on "
+          f"K5 launches: {k5['launches']} and K5b launches: {k5b['launches']} on their op's "
+          f"path; K6 launches: {k6['launches']} on "
           f"the probe's path; K1-K4 launches training from files: "
           + ", ".join(f"{fmt} {r['launches']['aa_fused_bwd']} each"
                       for fmt, r in from_files.items())
@@ -5236,8 +5555,10 @@ def main() -> None:
           + f"; --multihost --zero1 on one rank: {multi['one_rank']['launches']}; each of two "
           f"ranks ({multi['two_ranks']['backend']}) over {2 * MULTI_STEPS} updates: "
           f"{multi['two_ranks']['launches']}; the exported FLAGSHIP_H100 over 1 + "
-          f"{TRAIN_BATCH} scenes and serve_torch.py --from-export over {CLI_VAL_SCENES}: "
-          f"{exported['launches']}, {exported['cli']['launches']}; test_torch.py --serving "
+          f"{TRAIN_BATCH} scenes and serve_torch.py --from-export over {EXPORT_CLI_SCENES}: "
+          f"{exported['launches']}, {exported['cli']['launches']}; the exported "
+          f"FLAGSHIP_BF16_FUSED over 1 + {TRAIN_BATCH} scenes: "
+          f"{_launched(exported['bf16']['launches'])}; test_torch.py --serving "
           f"--ood on the converted checkpoint: {converted['launches']}; FLAGSHIP_BF16_FUSED "
           f"served at buckets 1 and {TRAIN_BATCH}: {bf16_serve['launches']}, "
           f"{bf16_serve['bf16_launches']}, and {BF16_FUSED_STEPS} train steps at "
@@ -5257,8 +5578,11 @@ def main() -> None:
           + "; at full width: " + ", ".join(
               f"{b} (a chain of {r['chain']}) {_launched(r['launches'])}"
               for o in ("remat", "adaptive") for b, r in chain[o]["wide"].items()), flush=True)
+    PHASE_SECONDS["other"] = time.perf_counter() - t_start - sum(PHASE_SECONDS.values())
+    print("[phases] seconds: " + json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()}),
+          flush=True)
     print(card)
-    print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6, k3b, k4b]}))
+    print(json.dumps({"kernels": [fwd, bwd, k3, k4, k5, k6, k3b, k4b, k5b]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

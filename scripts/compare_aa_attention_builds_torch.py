@@ -6,7 +6,8 @@ builds, timed in turns on one card (needs a card and nvcc).
     git show HEAD~1:trajsde_tpu_torch/csrc/aa_attention.cu > _checkouts/parent/aa_attention.cu
     git show HEAD~1:trajsde_tpu_torch/csrc/aa_common.cuh > _checkouts/parent/aa_common.cuh
     python scripts/compare_aa_attention_builds_torch.py \\
-        --base parent=_checkouts/parent/aa_attention.cu [--base NAME=PATH ...] [--heads 8 4]
+        --base parent=_checkouts/parent/aa_attention.cu [--base NAME=PATH ...] [--heads 8 4] \\
+        [--same-bits]
 
 Builds, in parallel, each ``--base`` (another version of
 ``trajsde_tpu_torch/csrc/aa_attention.cu``, compiled where it lies, so
@@ -19,14 +20,16 @@ three chain products are skipped (a wrong output: it times the rest of
 the kernel), beside the current build (``change``).  A product is skipped
 where the source calls ``mm<`` (the f32 FMA tiles of an older K5, whose
 q projection goes with them) or ``tc::mma_xwt_split<`` (the tensor
-cores).  For each head count of ``--heads`` (8 at the twin shape, B 128,
+cores; the bf16 form's ``tc::mma_xwt_bf16<`` products stay).  For each head count of ``--heads`` (8 at the twin shape, B 128,
 T 21, Aq 49, Ak 48, with the flagship's packed AA weights; 4 at the HiVT
 baseline's, Aq = Ak = 48, with the baseline's) it holds the output of
 each build that has entry points for those heads against the plain
 version, as max|build - plain| / max|plain|, for the model's weights and
 for random ones (the w1 blocks off the diagonal filled in): the bases and
-change must be within ``chip_smoke.TOL_K3_TIGHT``, and one-term must not.
-Then it times those builds in the order of the bases, their no-products
+change must be within ``chip_smoke.TOL_K3_TIGHT``, and one-term must not;
+it says whether the change's output is each base's bit for bit, and with
+``--same-bits`` fails if not (K5's f32 entry points: a source that adds
+another form, as K5b's ``BF``, must not move them).  Then it times those builds in the order of the bases, their no-products
 copies, change, one-term, no-products, then back (CUDA-event medians of
 ``chip_smoke.TIMED_RUNS``) with the model's weights.  It prints ptxas's
 register and spill lines of each build (one set per head count the build
@@ -91,6 +94,8 @@ def main() -> None:
     ap.add_argument("--heads", type=int, nargs="+", choices=K3.KERNEL_HEAD_COUNTS,
                     default=list(K3.KERNEL_HEAD_COUNTS),
                     help="check and time at the flagship's 8 heads, the baseline's 4, or both")
+    ap.add_argument("--same-bits", action="store_true",
+                    help="fail unless the change's output is each base's bit for bit")
     args = ap.parse_args()
     bases = dict((name, Path(path)) for name, path in (b.split("=", 1) for b in args.base))
     if not torch.cuda.is_available():
@@ -115,13 +120,23 @@ def main() -> None:
         print(f"[check] builds with {H}-head entry points: {', '.join(at_heads)}", flush=True)
         checked = [n for n in at_heads if not n.endswith("no-products")]
         errs = {n: {} for n in checked}
+        bits = {b: {} for b in bases if b in checked}
         args_ = _k5_inputs(shape, gen)
         for wname, ws in weights.items():
             want = K5.aa_attention_reference(*args_, ws, H)
+            outs = {}
             for name in checked:
                 got = K5.launch(libs[name][0], *args_, ws, H)
                 errs[name][wname] = ((got - want).abs().max() / want.abs().max()).item()
-            del want, got
+                if name == "change" or name in bits:
+                    outs[name] = got
+            for b in bits:
+                bits[b][wname] = torch.equal(outs["change"], outs[b])
+            del want, got, outs
+        print(f"[bits] {H} heads, {list(shape)}: the change's output is each base's bits: "
+              f"{bits}", flush=True)
+        if args.same_bits and not all(all(v.values()) for v in bits.values()):
+            failures.append(f"the change's output is not each base's bits at {H} heads")
         for name, rels in errs.items():
             worst = max(rels.values())
             if name == "one-term":
@@ -144,7 +159,7 @@ def main() -> None:
             print(f"[time] {H} heads, {list(shape)}: {name}: {ms:.3f} ms", flush=True)
         bound = aa_attention_bound(*shape, D, H)
         report[H] = dict(shape=list(shape), times_ms=times, route_ms=bound[4],
-                         cuda_core_bound_ms=bound[0], max_rel_err_vs_plain=errs)
+                         cuda_core_bound_ms=bound[0], max_rel_err_vs_plain=errs, same_bits=bits)
         del args_, weights
         torch.cuda.empty_cache()
     print(json.dumps({"card": card, "heads": report,

@@ -37,6 +37,9 @@ follow the kernels' arithmetic (``trajsde_tpu/ops/pallas/``):
   in f32, the bool mask at 1 byte and the weights with wq / bq; it writes
   the aggregate.  Also ``tensor_route_bound_ms``: K3's three products on
   the tensor cores in 3xTF32, the rest on the CUDA cores, as K3's.
+  K5b, its bf16 form (``compute_dtype="bfloat16"``): the same function and
+  bytes; on its route the three products at the bf16 tensor-core rate
+  (989 TFLOP/s), the rest on the CUDA cores.
 * K6, the probe ``scripts/bench_vpu_dtype.py::run``:
   ``chip_smoke.vpu_probe_bound``, the longest of the multiply and add of
   each value and round at the f32 peak (twice it for packed bf16), the
@@ -87,9 +90,13 @@ def main() -> None:
                            bound_ms=bound, bound_by=by))
         if route:
             report[-1].update(tensor_route_bound_ms=route[0], tensor_route_bound_by=route[1])
-    for name, (aq, heads) in (("K5 aa_attention", (AQ, H)),
-                              ("K5 aa_attention, the HiVT baseline's 4 heads", (AK, 4))):
-        bound, by, flops, nbytes, route, route_by = aa_attention_bound(B, T, aq, AK, D, heads)
+    for name, (aq, heads), bf16 in (
+            ("K5 aa_attention", (AQ, H), False),
+            ("K5 aa_attention, the HiVT baseline's 4 heads", (AK, 4), False),
+            ("K5b aa_attention in bf16", (AQ, H), True),
+            ("K5b aa_attention in bf16, the HiVT baseline's 4 heads", (AK, 4), True)):
+        bound, by, flops, nbytes, route, route_by = aa_attention_bound(B, T, aq, AK, D, heads,
+                                                                       bf16)
         report.append(dict(kernel=name, shape=f"B={B} T={T} Aq={aq} Ak={AK} D={D} H={heads} "
                            f"({B * T * aq * AK} pairs)", flops=flops, bytes=nbytes,
                            bound_ms=bound, bound_by=by, tensor_route_bound_ms=route,

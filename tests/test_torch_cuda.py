@@ -28,6 +28,9 @@ CPU's assignments, and a converted reference checkpoint restores onto the
 card bit for bit.  K3b and K4b, the bf16 forms of K3 and K4, are held to
 their plain versions within ``chip_smoke.TOL_K3B`` / ``TOL_K4B`` (max, and
 mean at the twin shape), and K4b's recomputed logits to K3b's bit for bit.
+K5b, the bf16 form of K5, is held to its plain version within
+``chip_smoke.TOL_K5B``, which K5 fails; the registered op
+``trajsde::aa_fused_fwd_bf16`` gives K3b's launcher's bits.
 """
 import ctypes
 import functools
@@ -536,9 +539,41 @@ def test_aa_attention_wrapper_rejects(cuda):
         K5.aa_attention(*args, packed, 2)                  # H = 2: built for 8 and 4 only
     with pytest.raises(ValueError):
         K5.aa_attention(*bad["D 32"], packed, 4)           # D 32 at 4 heads
-    with pytest.raises(NotImplementedError):
-        K5.aa_attention(*args, packed, 8, compute_dtype="bfloat16")
+    with pytest.raises(ValueError):
+        K5.aa_attention(*args, packed, 8, compute_dtype="float16")
     assert K5.aa_attention.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", HEADS)
+@pytest.mark.parametrize("shape", [(1, 1, 2, 1), (2, 5, 9, 8), (3, 7, 13, 11), (2, 3, 5, 70),
+                                   (1, 21, 49, 48)])
+def test_aa_attention_bf16_kernel_matches_plain(cuda, shape, heads):
+    """K5b vs its plain bf16 version within ``chip_smoke.TOL_K5B`` (max, and
+    mean at the twin shape), a bar that K5 (f32) fails at the twin shape;
+    counted once a call as K5b, not K5; bit-equal reruns; empty receivers
+    exactly 0."""
+    from chip_smoke import TOL_K5B
+
+    args, packed = _k5_case(cuda, shape, sum(shape), heads)
+    before = (K5.aa_attention.launches, K5.aa_attention.bf16_launches)
+    got = K5.aa_attention(*args, packed, heads, compute_dtype="bfloat16")
+    again = K5.aa_attention(*args, packed, heads, compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    assert (K5.aa_attention.launches, K5.aa_attention.bf16_launches) == (before[0],
+                                                                         before[1] + 2)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, again)
+    assert torch.isfinite(got).all()
+    assert (got[:, :, ::7] == 0).all()
+    want = K5.aa_attention_reference(*args, packed, heads, "bfloat16")
+    d = (got - want).abs()
+    assert (d.max() / want.abs().max()).item() <= TOL_K5B[0]
+    if shape[1:] == (21, 49, 48):
+        assert (d.mean() / want.abs().mean()).item() <= TOL_K5B[1]
+        f32 = (K5.aa_attention(*args, packed, heads) - want).abs()
+        assert (f32.max() / want.abs().max()).item() > TOL_K5B[0] \
+            or (f32.mean() / want.abs().mean()).item() > TOL_K5B[1]
 
 
 @pytest.mark.gpu
@@ -997,6 +1032,29 @@ def test_aa_fused_op_on_cuda_is_the_direct_launcher_bit_for_bit(cuda, heads, wit
                                          with_stats)
     assert torch.equal(out, want_out)
     assert torch.equal(stats, want_stats) if with_stats else stats.numel() == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", HEADS)
+@pytest.mark.parametrize("with_stats", [False, True])
+@pytest.mark.parametrize("ln_mm", [True, False])
+def test_aa_fused_bf16_op_on_cuda_is_the_direct_launcher_bit_for_bit(cuda, heads, with_stats,
+                                                                     ln_mm):
+    """``trajsde::aa_fused_fwd_bf16`` on CUDA tensors launches K3b once
+    (counted as K3b, not K3) and gives the bits of ``_launch(...,
+    "bfloat16")``, which the live bf16 forward also takes."""
+    q, u, mask, keep, ws, _, p = _k4_case(cuda, (2, 3, 5, 4), True, heads)
+    before = (K3.fused_pair_attention.launches, K3.fused_pair_attention.bf16_launches)
+    out, stats = K3.aa_fused_bf16_op(q, u, mask, keep, list(ws), heads, p, with_stats, ln_mm)
+    torch.cuda.synchronize()
+    assert (K3.fused_pair_attention.launches,
+            K3.fused_pair_attention.bf16_launches) == (before[0], before[1] + 1)
+    want_out, want_stats = K3._launch(q, u, mask, keep, ws, heads, p, with_stats, "bfloat16",
+                                      ln_mm)
+    assert torch.equal(out, want_out)
+    assert torch.equal(stats, want_stats) if with_stats else stats.numel() == 0
+    live = K3.fused_pair_attention(q, u, mask, keep, ws, heads, p, "bfloat16", ln_mm)
+    assert torch.equal(live, want_out)
 
 
 @pytest.mark.gpu

@@ -15,8 +15,7 @@ actors, 8 lanes, buckets 1 and 2):
   1e-4;
 * the schema guards with JAX's messages, a JAX artifact refused, the
   stale delta-mode artifact, the platforms, the adaptive encoder (item
-  11b), a fused encoder in bf16 (item 6c), ``ood`` / ``slim`` with
-  ``engine="exported"``;
+  11b), ``ood`` / ``slim`` with ``engine="exported"``;
 * a process that loads and serves an artifact imports no model code;
 * the rollout seed is an input of the program, not a constant.
 """
@@ -258,18 +257,6 @@ def test_adaptive_encoder_export_is_refused_naming_item_11b(tmp_path):
     cfg["encoder"]["kwargs"]["adaptive"] = True
     model = torch_build_model(cfg, device="cpu", seed=1)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11b"):
-        export_serving(model, _example(_raws(1)[0]), str(tmp_path / "a"), buckets=(1,))
-    assert not os.path.exists(tmp_path / "a" / "manifest.json")
-
-
-@pytest.mark.parametrize("family", ["sde", "baseline"])
-def test_fused_bf16_encoder_export_is_refused_naming_item_6c(family, tmp_path):
-    """A fused AA encoder in bf16 runs K3b, which is not a registered op:
-    the export refuses it, naming its ROADMAP item, and writes nothing."""
-    cfg = small_cfg() if family == "sde" else small_baseline_cfg(fused=True)
-    cfg["encoder"]["kwargs"].update(fused=True, dtype="bfloat16")
-    model = torch_build_model(cfg, device="cpu", seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6c"):
         export_serving(model, _example(_raws(1)[0]), str(tmp_path / "a"), buckets=(1,))
     assert not os.path.exists(tmp_path / "a" / "manifest.json")
 

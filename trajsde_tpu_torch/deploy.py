@@ -5,9 +5,10 @@ The artifact is the scan engine's whole serving computation: the model's
 own forward in eval mode (:func:`~trajsde_tpu_torch.serving.make_scan_fn`)
 followed by the world-frame postprocess
 (:func:`~trajsde_tpu_torch.server.make_postprocess`), with the trained
-weights inside the program, exported once per batch bucket.  Kernels K1
-and K3 enter the program as the registered ops ``trajsde::sde_rollout``
-and ``trajsde::aa_fused_fwd`` (``ops/sde_rollout.py``, ``ops/aa_fused.py``),
+weights inside the program, exported once per batch bucket.  Kernels K1,
+K3 and K3b (K3 in bf16) enter the program as the registered ops
+``trajsde::sde_rollout``, ``trajsde::aa_fused_fwd`` and
+``trajsde::aa_fused_fwd_bf16`` (``ops/sde_rollout.py``, ``ops/aa_fused.py``),
 which launch the kernels on the card and run their plain versions on the
 CPU.  A deployment host needs torch, this module and the port's ops
 modules with ``csrc/`` (nvcc builds the kernels at first use on a card):
@@ -34,9 +35,7 @@ SDE encoder is refused (ROADMAP.md Queue 1 item 11b): its step-doubling
 loop runs a fixed number of iterations, but each segment's Brownian tree
 draws 256 node normals of the state's shape, which as inputs would be
 21 x 256 x [B, A + 1, D] f32 a call (one tree a historical step; about 8.6 GB
-at bucket 128).  A fused AA encoder
-in bf16 runs kernel K3b, which has no registered op yet, and is refused
-(ROADMAP.md Queue 1 item 6c).
+at bucket 128).
 
 Platforms: each program is exported on the model's device and keeps it;
 ``platforms`` lists the devices (``cpu``, ``cuda``) it may be loaded on,
@@ -169,12 +168,6 @@ def export_serving(model, example_scene, out_dir: str, *,
     if int(example_scene.x.shape[0]) != 1:
         raise ValueError(f"example_scene must be a packed B=1 batch, got "
                          f"B={int(example_scene.x.shape[0])}")
-    aa = getattr(model.encoder, "aa_encoder", None)
-    if aa is not None and aa.fused and aa.chain_dtype == "bfloat16":
-        raise NotImplementedError(
-            "export_serving of a fused AA encoder in bf16 (encoder.fused: true with dtype: "
-            "bfloat16): kernel K3b is not a registered op; this is ROADMAP.md Queue 1 item 6c "
-            "(serve it with the scan or kernel engine)")
     model.eval()
     schema = _leaf_schema(example_scene)
     draws = _draws(model, example_scene)

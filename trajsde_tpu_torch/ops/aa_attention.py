@@ -15,7 +15,9 @@ On a CUDA tensor :func:`aa_attention` launches the hand-written kernel in
 which takes D 64 at the flagship's 8 heads and the HiVT baseline's 4
 (``KERNEL_HEAD_COUNTS``, an entry point each) and raises on any other
 width; on a CPU tensor the plain version runs, at any width.  Nothing
-falls back from one to the other.
+falls back from one to the other.  ``compute_dtype="bfloat16"`` computes
+at the rounding points of the JAX kernel's bf16 form (not the fused
+chain's, K3b's): on CUDA kernel K5b, the ``BF`` form of the same source.
 """
 from __future__ import annotations
 
@@ -26,41 +28,70 @@ from typing import Dict
 import torch
 
 from trajsde_tpu_torch.ops import counted
-from trajsde_tpu_torch.ops.aa_fused import (KERNEL_DIM, KERNEL_HEAD_COUNTS, W_ORDER, _check,
-                                            _device_kind, _entry, _entry_name, _grid,
+from trajsde_tpu_torch.ops.aa_fused import (COMPUTE_DTYPES, KERNEL_DIM, KERNEL_HEAD_COUNTS,
+                                            W_ORDER, _check, _check_dtype, _device_kind, _entry,
+                                            _entry_name, _grid, _ln, _RoundBF16, attend,
                                             build_pair_features, fused_pair_attention_reference,
                                             has_heads, weights_of)
 
 
 def aa_attention_reference(center_norm, x_k, pos_q, pos_k, rot, mask,
-                           packed: Dict[str, torch.Tensor], num_heads: int) -> torch.Tensor:
+                           packed: Dict[str, torch.Tensor], num_heads: int,
+                           compute_dtype: str = "float32") -> torch.Tensor:
     """The plain version: q = ``center_norm . wq + bq``, the rotated pair
     features of ``x_k`` and ``pos_k - pos_q``, then K3's plain chain with
-    the 0/1 mask and no keep mask -> [B, T, Aq, D]."""
-    q = center_norm @ packed["wq"] + packed["bq"][0]
+    the 0/1 mask and no keep mask -> [B, T, Aq, D].
+
+    ``compute_dtype="bfloat16"`` rounds where ``_aa_kernel`` casts (not
+    where ``pair_chain`` does, as K3b): all 16 packed weights, ``u`` and
+    the centres; the first layer's output, each half of the second layer's
+    and their sum; each LayerNorm's output (its statistics f32, of the
+    bf16 inputs) and ``nbr`` before its LayerNorm.  Every product is an
+    f32 matmul of bf16 values (a bf16 matmul would round its sum); kv, q,
+    the logits, the softmax and the aggregate stay f32."""
     edge = pos_k[:, :, None, :, :] - pos_q[:, :, :, None, :]
     u = build_pair_features(x_k, edge, rot)
-    return fused_pair_attention_reference(q, u, mask.to(q.dtype), None, weights_of(packed),
-                                          num_heads)
+    mask_f = mask.to(center_norm.dtype)
+    if not _check_dtype(compute_dtype):
+        q = center_norm @ packed["wq"] + packed["bq"][0]
+        return fused_pair_attention_reference(q, u, mask_f, None, weights_of(packed), num_heads)
+    r = _RoundBF16.apply
+    w = {k: r(v) for k, v in packed.items()}
+    D = center_norm.shape[-1]
+    uf = r(u).reshape(-1, 4)
+
+    def ln(x, name):  # f32 statistics of the bf16 input, the output rounded
+        return r(_ln(x, w[f"{name}s"][0], w[f"{name}b"][0]))
+
+    h = r(sum(uf[:, k:k + 1] * w["wu"][k:k + 1, :] for k in range(4)) + w["bu"][0])
+    a0 = torch.relu(torch.cat([r(_ln(h[:, :D], w["ln0s"][0, :D], w["ln0b"][0, :D])),
+                               r(_ln(h[:, D:], w["ln0s"][0, D:], w["ln0b"][0, D:]))], dim=-1))
+    z1 = r(a0 @ w["w1"] + w["b1"][0])
+    a1 = torch.relu(ln(r(z1[:, :D] + z1[:, D:]), "lna0"))
+    nbr = ln(r(a1 @ w["wagg"] + w["bagg"][0]), "lna1")
+    kv = nbr @ w["wkv"] + w["bkv"][0]
+    q = r(center_norm) @ w["wq"] + w["bq"][0]
+    return attend(q, kv, mask_f, None, num_heads)
 
 
 def configure(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declares K5's C interface, at every head count the build has, on a
-    loaded library (``csrc/aa_attention.cu`` or a copy of it built
-    elsewhere) and returns it."""
+    """Declares K5's C interface, at every compute dtype and head count the
+    build has (K5b's entry points in bf16), on a loaded library
+    (``csrc/aa_attention.cu`` or a copy of it built elsewhere) and returns it."""
     lib.aa_attention_weight_floats.argtypes = []
     lib.aa_attention_weight_floats.restype = ctypes.c_int
-    for h in KERNEL_HEAD_COUNTS:
-        if not has_heads(lib, "aa_attention", h):
-            continue
-        fn = getattr(lib, _entry_name("aa_attention", "launch", h))
-        fn.argtypes = [ctypes.c_void_p] * 8 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        fn = getattr(lib, _entry_name("aa_attention", "receivers_per_group", h))
-        fn.argtypes, fn.restype = [], ctypes.c_int
+    for dt in COMPUTE_DTYPES:
+        for h in KERNEL_HEAD_COUNTS:
+            if not has_heads(lib, "aa_attention", h, dt):
+                continue
+            fn = getattr(lib, _entry_name("aa_attention", "launch", h, dt))
+            fn.argtypes = [ctypes.c_void_p] * 8 + [
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, _entry_name("aa_attention", "receivers_per_group", h, dt))
+            fn.argtypes, fn.restype = [], ctypes.c_int
     return lib
 
 
@@ -72,10 +103,11 @@ def _library():
 
 
 def launch(lib: ctypes.CDLL, center_norm, x_k, pos_q, pos_k, rot, mask, packed,
-           num_heads) -> torch.Tensor:
+           num_heads, compute_dtype: str = "float32") -> torch.Tensor:
     """Runs ``lib``'s K5 (``csrc/aa_attention.cu``, or another build of its
-    source configured by :func:`configure`) at ``num_heads`` on the current
-    stream; counts nothing (see :func:`aa_attention`)."""
+    source configured by :func:`configure`; K5b in bf16) at ``num_heads``
+    on the current stream; counts nothing (see :func:`aa_attention`)."""
+    _check_dtype(compute_dtype)
     B, T, Aq, D = center_norm.shape
     Ak = x_k.shape[2]
     if D != KERNEL_DIM or num_heads not in KERNEL_HEAD_COUNTS:
@@ -100,23 +132,30 @@ def launch(lib: ctypes.CDLL, center_norm, x_k, pos_q, pos_k, rot, mask, packed,
     R = B * T * Aq
     if R == 0:
         return out
-    grid = _grid(R, _entry(lib, "aa_attention", "receivers_per_group", num_heads)(), dev)
-    fn = _entry(lib, "aa_attention", "launch", num_heads)
+    grid = _grid(R, _entry(lib, "aa_attention", "receivers_per_group", num_heads,
+                           compute_dtype)(), dev)
+    fn = _entry(lib, "aa_attention", "launch", num_heads, compute_dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(center_norm.data_ptr(), x_k.data_ptr(), pos_q.data_ptr(), pos_k.data_ptr(),
                  rot.data_ptr(), mask.data_ptr(), w.data_ptr(), out.data_ptr(), R, T, Aq, Ak,
                  grid, stream)
     if err != 0:
-        raise RuntimeError(f"aa_attention kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"aa_attention ({compute_dtype}) kernel launch failed: cudaError {err}")
     return out
 
 
-def _launch(center_norm, x_k, pos_q, pos_k, rot, mask, packed, num_heads) -> torch.Tensor:
-    """K5, counted in ``aa_attention.launches``."""
-    out = launch(_library(), center_norm, x_k, pos_q, pos_k, rot, mask, packed, num_heads)
+def _launch(center_norm, x_k, pos_q, pos_k, rot, mask, packed, num_heads,
+            compute_dtype: str = "float32") -> torch.Tensor:
+    """K5, counted in ``aa_attention.launches``; K5b in bf16, counted in
+    ``aa_attention.bf16_launches``."""
+    out = launch(_library(), center_norm, x_k, pos_q, pos_k, rot, mask, packed, num_heads,
+                 compute_dtype)
     if center_norm.numel():  # no receivers: nothing was launched
-        aa_attention.launches += 1
+        if _check_dtype(compute_dtype):
+            aa_attention.bf16_launches += 1
+        else:
+            aa_attention.launches += 1
     return out
 
 
@@ -136,17 +175,18 @@ def aa_attention(center_norm: torch.Tensor, x_k: torch.Tensor, pos_q: torch.Tens
     ``t_chunk`` is the TPU kernel's tiling and is ignored.  On CUDA kernel
     K5 (D 64, ``num_heads`` 8 or 4) runs on the current stream without synchronising and
     ``aa_attention.launches`` counts its launches; on the CPU the plain
-    version runs.
+    version runs.  ``compute_dtype="bfloat16"`` computes at the JAX op's
+    bf16 rounding points (:func:`aa_attention_reference`): on CUDA kernel
+    K5b, counted in ``aa_attention.bf16_launches``; the inputs and the
+    output stay f32.
     """
     del t_chunk  # the TPU's tiling of T; the kernel walks receiver groups
-    if compute_dtype == "bfloat16":
-        raise NotImplementedError("aa_attention in bfloat16: bf16 inside the AA kernels is "
-                                  "ROADMAP.md Queue 1 item 6b; use compute_dtype='float32'")
-    if compute_dtype != "float32":
-        raise ValueError(f"compute_dtype must be 'float32', got {compute_dtype!r}")
+    _check_dtype(compute_dtype)
     if _device_kind(center_norm, "aa_attention") == "cuda":
-        return _launch(center_norm, x_k, pos_q, pos_k, rot, mask, packed, num_heads)
-    return aa_attention_reference(center_norm, x_k, pos_q, pos_k, rot, mask, packed, num_heads)
+        return _launch(center_norm, x_k, pos_q, pos_k, rot, mask, packed, num_heads,
+                       compute_dtype)
+    return aa_attention_reference(center_norm, x_k, pos_q, pos_k, rot, mask, packed, num_heads,
+                                  compute_dtype)
 
 
-counted(aa_attention, "launches")
+counted(aa_attention, "launches", "bf16_launches")

@@ -29,8 +29,9 @@ statistics taken from bf16-rounded inputs.  On CUDA its forward is kernel
 K3b and its backward K4b, the bf16 forms of K3 and K4 (the same sources,
 entry points ``*_bf16_*``), counted in ``bf16_launches``; ``q``, ``u``,
 the masks, the weights and the output stay f32.  In f32 ``ln_mm`` changes
-nothing (it is an order of summation).  The bf16 forward is not the
-registered op ``trajsde::aa_fused_fwd`` (ROADMAP.md Queue 1 item 6c).
+nothing (it is an order of summation).  The forward is a registered op in
+either type, so that ``torch.export`` records it as one call:
+``trajsde::aa_fused_fwd`` (K3) and ``trajsde::aa_fused_fwd_bf16`` (K3b).
 """
 from __future__ import annotations
 
@@ -187,8 +188,7 @@ def fused_pair_attention_reference(q, u, mask_f, keep, ws: Sequence[torch.Tensor
     stats16 = bf and ln_mm
     r = _RoundBF16.apply if bf else (lambda a: a)  # noqa: E731
     B, T, Aq, D = q.shape
-    Ak, H = u.shape[3], num_heads
-    hd = D // H
+    Ak = u.shape[3]
     wu, bu, ln0s, ln0b, w1, b1, lna0s, lna0b, wagg, bagg, lna1s, lna1b, wkv, bkv = ws
     R = B * T * Aq
     uf = u.reshape(R * Ak, 4)
@@ -201,7 +201,18 @@ def fused_pair_attention_reference(q, u, mask_f, keep, ws: Sequence[torch.Tensor
     a1 = torch.relu(r(_ln(z1[:, :D] + z1[:, D:], lna0s[0], lna0b[0], stats16)))
     nbr = r(_ln(a1 @ r(wagg) + bagg[0], lna1s[0], lna1b[0], stats16))
     kv = nbr @ r(wkv) + bkv[0]                                # [P, 2D]
+    return attend(q, kv, mask_f, keep, num_heads, dropout_rate, with_stats)
 
+
+def attend(q, kv, mask_f, keep, num_heads: int, dropout_rate: float = 0.0,
+           with_stats: bool = False):
+    """The chain's f32 tail from ``kv [B*T*Aq*Ak, 2D]`` = [k | v]: each
+    head's logit of ``q [B, T, Aq, D]`` against k, the masked softmax over
+    the senders, the keep mask and the aggregate of v -> [B, T, Aq, D]
+    (and the statistics, as :func:`fused_pair_attention_reference`)."""
+    B, T, Aq, D = q.shape
+    Ak, H = mask_f.shape[3], num_heads
+    hd, R = D // H, B * T * Aq
     k = kv[:, :D].reshape(R, Ak, H, hd)
     v = kv[:, D:].reshape(R, Ak, H, hd)
     lg = _head_logits(q.reshape(R, 1, H, hd), k)              # [R, Ak, H]
@@ -412,6 +423,23 @@ def _launch(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats: bool = 
     return out, stats
 
 
+def _op_forward(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats, compute_dtype,
+                ln_mm) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The registered ops' body: K3 / K3b on a CUDA tensor, the plain version
+    on a CPU tensor -> ``(out, stats or an empty tensor)``."""
+    if _device_kind(q, "fused_pair_attention") == "cuda":
+        out, stats = _launch(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats,
+                             compute_dtype, ln_mm)
+    elif with_stats:
+        out, stats = fused_pair_attention_reference(q, u, mask_f, keep, ws, num_heads,
+                                                    dropout_rate, True, compute_dtype, ln_mm)
+    else:
+        out, stats = fused_pair_attention_reference(q, u, mask_f, keep, ws, num_heads,
+                                                    dropout_rate, False, compute_dtype,
+                                                    ln_mm), None
+    return out, q.new_empty((0,)) if stats is None else stats
+
+
 @torch.library.custom_op("trajsde::aa_fused_fwd", mutates_args=())
 def aa_fused_op(q: torch.Tensor, u: torch.Tensor, mask_f: torch.Tensor,
                 keep: Optional[torch.Tensor], ws: List[torch.Tensor], num_heads: int,
@@ -421,15 +449,8 @@ def aa_fused_op(q: torch.Tensor, u: torch.Tensor, mask_f: torch.Tensor,
     otherwise.  On a CUDA tensor it launches K3 (counted in
     ``fused_pair_attention.launches``), on a CPU tensor it runs the plain
     version; ``torch.export`` records it as one opaque call."""
-    if _device_kind(q, "fused_pair_attention") == "cuda":
-        out, stats = _launch(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats)
-    elif with_stats:
-        out, stats = fused_pair_attention_reference(q, u, mask_f, keep, ws, num_heads,
-                                                    dropout_rate, with_stats=True)
-    else:
-        out, stats = fused_pair_attention_reference(q, u, mask_f, keep, ws, num_heads,
-                                                    dropout_rate), None
-    return out, q.new_empty((0,)) if stats is None else stats
+    return _op_forward(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats, "float32",
+                       True)
 
 
 @aa_fused_op.register_fake
@@ -487,16 +508,33 @@ def _device_kind(x: torch.Tensor, what: str) -> str:
     return x.device.type
 
 
-def _forward_bf16(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats,
-                  ln_mm) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The bf16 forward -> (out, stats or None): K3b on CUDA, the plain
-    version on the CPU (not the registered op: ROADMAP.md item 6c)."""
-    if _device_kind(q, "fused_pair_attention") == "cuda":
-        return _launch(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats, "bfloat16",
+@torch.library.custom_op("trajsde::aa_fused_fwd_bf16", mutates_args=())
+def aa_fused_bf16_op(q: torch.Tensor, u: torch.Tensor, mask_f: torch.Tensor,
+                     keep: Optional[torch.Tensor], ws: List[torch.Tensor], num_heads: int,
+                     dropout_rate: float, with_stats: bool,
+                     ln_mm: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``trajsde::aa_fused_fwd_bf16``, the registered op over K3b: as
+    :func:`aa_fused_op` with the chain in bf16 and ``ln_mm``.  On a CUDA
+    tensor it launches K3b (counted in ``fused_pair_attention.bf16_launches``),
+    on a CPU tensor it runs the plain bf16 version; ``out`` and ``stats``
+    are f32."""
+    return _op_forward(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats, "bfloat16",
                        ln_mm)
-    got = fused_pair_attention_reference(q, u, mask_f, keep, ws, num_heads, dropout_rate,
-                                         with_stats, "bfloat16", ln_mm)
-    return got if with_stats else (got, None)
+
+
+@aa_fused_bf16_op.register_fake
+def _aa_fused_bf16_fake(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats, ln_mm):
+    return _aa_fused_fake(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats)
+
+
+def _forward(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats, compute_dtype,
+             ln_mm) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward through the registered op of ``compute_dtype``:
+    :func:`aa_fused_op` (K3) or :func:`aa_fused_bf16_op` (K3b)."""
+    if _check_dtype(compute_dtype):
+        return aa_fused_bf16_op(q, u, mask_f, keep, list(ws), num_heads, dropout_rate,
+                                with_stats, ln_mm)
+    return aa_fused_op(q, u, mask_f, keep, list(ws), num_heads, dropout_rate, with_stats)
 
 
 def fused_pair_attention_fwd(q, u, mask_f, keep, ws: Sequence[torch.Tensor], num_heads: int,
@@ -504,13 +542,11 @@ def fused_pair_attention_fwd(q, u, mask_f, keep, ws: Sequence[torch.Tensor], num
                              ln_mm: bool = True):
     """``(out, stats)``: the forward that a backward needs, with the
     softmax statistics ``stats [2, B*T*Aq, H]`` (K4's input): K3 (K3b in
-    bf16) on CUDA, the plain version on the CPU; in f32 through
-    :func:`aa_fused_op`."""
+    bf16) on CUDA, the plain version on the CPU, through :func:`aa_fused_op`
+    (:func:`aa_fused_bf16_op` in bf16)."""
     # checked here: on a meta tensor the op would run its fake and return
     _device_kind(q, "fused_pair_attention_fwd")
-    if _check_dtype(compute_dtype):
-        return _forward_bf16(q, u, mask_f, keep, ws, num_heads, dropout_rate, True, ln_mm)
-    return aa_fused_op(q, u, mask_f, keep, list(ws), num_heads, dropout_rate, True)
+    return _forward(q, u, mask_f, keep, ws, num_heads, dropout_rate, True, compute_dtype, ln_mm)
 
 
 def fused_pair_attention_bwd(q, u, mask_f, keep, ws: Sequence[torch.Tensor], g: torch.Tensor,
@@ -598,13 +634,12 @@ def fused_pair_attention(q: torch.Tensor, u: torch.Tensor, mask_f: torch.Tensor,
     LayerNorm's statistics from bf16-rounded inputs (nothing in f32).
     """
     _device_kind(q, "fused_pair_attention")
-    bf = _check_dtype(compute_dtype)
+    _check_dtype(compute_dtype)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, *ws)):
         return FusedPairAttentionFn.apply(q, u, mask_f, keep, num_heads, dropout_rate,
                                           compute_dtype, ln_mm, *ws)
-    if bf:
-        return _forward_bf16(q, u, mask_f, keep, ws, num_heads, dropout_rate, False, ln_mm)[0]
-    return aa_fused_op(q, u, mask_f, keep, list(ws), num_heads, dropout_rate, False)[0]
+    return _forward(q, u, mask_f, keep, ws, num_heads, dropout_rate, False, compute_dtype,
+                    ln_mm)[0]
 
 
 counted(fused_pair_attention, "launches", "bf16_launches")
