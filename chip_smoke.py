@@ -288,8 +288,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      finite metrics and ``agent_std_mean``, equal bit for bit, K1 and K3
      once per batch, nothing else.  S5: the phase's and the conversion's
      seconds beside the card's name and power limit.
-  T. bf16 inside the fused AA kernels (after S; K3b and K4b, the bf16
-     forms of K3 and K4 in ``csrc/aa_fused.cu`` and ``csrc/aa_fused_bwd.cu``).
+  T. bf16 inside the fused AA kernels (after S; K3b, the bf16 form of K3
+     in ``csrc/aa_fused.cu``, and K4b, its VJP, ``csrc/aa_fused_bwd_bf16.cu``).
      T1: K3b against its plain version (``compute_dtype="bfloat16"``, with
      ``ln_mm``) at the bucket-128 twin shape and the OOD shape at 8 heads
      and the baseline's at 4, with and without keep, for the model's packed
@@ -300,9 +300,12 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      at bucket 128 beside K3 in the same call, its bound on its route (bf16
      products on the tensor cores) and on the CUDA cores.  T2: K4b against
      its plain version at the training twin shape at BF16_FUSED_BATCH with
-     keep, model and random weights, within ``TOL_K4B`` per output (K4
-     (f32) must fail it on some output), bit-equal reruns, its recomputed
-     logits K3b's bit for bit (the check copies), timed beside K4.  T3: a
+     keep, model and random weights, and at the baseline's 4 heads and
+     shape with its weights, within ``TOL_K4B`` per output (K4 (f32) must
+     fail it on some output), bit-equal reruns, empty receivers exactly 0,
+     its recomputed logits K3b's bit for bit (the check copies); timed
+     beside K4 at BF16_FUSED_BATCH and TRAIN_BATCH at 8 heads and at
+     BF16_FUSED_BATCH at 4, with its bounds and ptxas's registers.  T3: a
      ``ServingEngine`` over ``FLAGSHIP_BF16_FUSED`` (48 / 192, seeded
      weights) answers buckets 1 and 128: K3b and K1 once a batch, K3 never;
      loc and pi finite; mean|pi| within ``TOL_BF16_PI`` of ``FLAGSHIP``'s;
@@ -545,7 +548,7 @@ BASELINE_STEPS, BASELINE_SCENES, BASELINE_SINGLES = 3, 512, 20
 # and the rounds of its save timing
 CAP = 24
 TOL_CAPPED = 1e-5
-CAPPED_ROUNDS, ACCUM_BATCH, SAVE_ROUNDS = 2, 64, 3
+CAPPED_ROUNDS, ACCUM_BATCH, SAVE_ROUNDS = 2, 64, 2
 # phase N: bf16 mean|pi| against the f32 model's on the same weights and
 # scenes, relative (the JAX package's own statistic for its bf16 model,
 # tests/test_models_forward.py), the train steps each bf16 path takes, and
@@ -570,7 +573,7 @@ REMAT_STEPS = 2
 # phase Q: Q2's global batch (half a rank), its AdamW updates, the timed
 # ZeRO-1 steps after them, the rounds of Q1's turns, and how long a rank or
 # a collective may take before the phase fails
-MULTI_BATCH, MULTI_STEPS, MULTI_TIMED, MULTI_ROUNDS = 128, 3, 6, 2
+MULTI_BATCH, MULTI_STEPS, MULTI_TIMED, MULTI_ROUNDS = 128, 3, 4, 2
 # phase R: the artifact's buckets, the rounds of exported vs live timing,
 # the CUDA-event runs of R7's p50 at each bucket, and the validation scenes
 # that R5's --from-export serves
@@ -602,7 +605,7 @@ TOL_K3B = (5e-3, 1e-4)
 # the max up to 2.5e-3 (dq); K4 (f32) must fail it on some output
 TOL_K4B = (1e-2, 2e-3)
 # T4's batch (the _tpu.yml recipe's memory-bound regime) and steps on it
-BF16_FUSED_BATCH, BF16_FUSED_STEPS = 64, 4
+BF16_FUSED_BATCH, BF16_FUSED_STEPS = 64, 3
 # phase U: the chained train step (train_torch.py --chain): its chain length
 # (U2-U6), the builds beside FLAGSHIP_H100 whose graphed chain of 2 is held
 # to the uncaptured one and their batch (two copies of a build, each
@@ -712,13 +715,30 @@ def phase_device() -> str:
     return card
 
 
-KERNELS = ("sde_rollout", "sde_rollout_bwd", "aa_fused", "aa_fused_bwd", "aa_attention",
-           "vpu_probe")
+KERNELS = ("sde_rollout", "sde_rollout_bwd", "aa_fused", "aa_fused_bwd", "aa_fused_bwd_bf16",
+           "aa_attention", "vpu_probe")
+
+
+def ptxas_registers(log: str) -> dict:
+    """Registers of each ``__global__`` template instance (by its first
+    template argument, the head count) in ptxas's output ``log``."""
+    regs, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '[^']*kernelILi(\d+)E", line)
+        if m:
+            entry = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            regs[entry], entry = int(m.group(1)), None
+    return regs
 
 
 def phase_build() -> dict:
     """Builds every kernel and, at the same time, the check copies
-    (:func:`build_check_copies`), one nvcc per source; returns the copies."""
+    (:func:`build_check_copies`), one nvcc per source; returns the copies,
+    and under ``"registers"`` each kernel's registers by head count from
+    ptxas's output ("not built in this run" for a library that was already
+    built)."""
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         copies = pool.submit(build_check_copies)
@@ -726,11 +746,15 @@ def phase_build() -> dict:
         checks = copies.result()
     print(f"[build] {', '.join(KERNELS)} and the check copies {', '.join(checks)} ready in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    registers = {}
     for name in KERNELS:
-        for line in kernel_build.build_log.get(name, "").splitlines():
+        log = kernel_build.build_log.get(name)
+        registers[name] = ptxas_registers(log) if log else "not built in this run"
+        for line in (log or "").splitlines():
             if ("registers" in line or "spill" in line or line.startswith("built")
                     or "Compiling entry" in line):
                 print(f"[build]   {name}: {line.strip()}")
+    checks["registers"] = registers
     return checks
 
 
@@ -2327,11 +2351,12 @@ def baseline_train_steps(model, cfg, scene, steps: int):
 
 
 def build_check_copies() -> dict:
-    """The check copies of phases G and L, built in parallel under the build
-    directory's ``checks/``: ``logits_fwd`` and ``logits_bwd``, K3 and K4
-    with ``AA_WRITE_LOGITS`` defined (each writes every pair's head logits,
-    -inf where masked, to the buffer its ``*_set_logits`` names: K3 the ones
-    its softmax takes, K4 the ones its recompute gives), and ``one_term`` and
+    """The check copies of phases G, L and T, built in parallel under the
+    build directory's ``checks/``: ``logits_fwd``, ``logits_bwd`` and
+    ``logits_bwd_bf16``, K3, K4 and K4b with ``AA_WRITE_LOGITS`` defined
+    (each writes every pair's head logits, -inf where masked, to the buffer
+    its ``*_set_logits`` names: K3 the ones its softmax takes, K4 and K4b
+    the ones their recompute gives), and ``one_term`` and
     ``one_term_k5``, K3 and K5 with one TF32 product per term
     (``mma_tf32.cuh`` without its two small terms, beside the copies).
     Returns name -> configured library."""
@@ -2353,6 +2378,8 @@ def build_check_copies() -> dict:
                             logits + source("aa_fused.cu")),
         "logits_bwd": write(os.path.join(out_dir, "logits_bwd", "aa_fused_bwd.cu"),
                             logits + source("aa_fused_bwd.cu")),
+        "logits_bwd_bf16": write(os.path.join(out_dir, "logits_bwd", "aa_fused_bwd_bf16.cu"),
+                                 logits + source("aa_fused_bwd_bf16.cu")),
         "one_term": write(os.path.join(out_dir, "one_term", "aa_fused.cu"), source("aa_fused.cu")),
         "one_term_k5": write(os.path.join(out_dir, "one_term", "aa_attention.cu"),
                              source("aa_attention.cu")),
@@ -2362,9 +2389,12 @@ def build_check_copies() -> dict:
           one_term_header(source("mma_tf32.cuh")))
     libs = {name: lib for name, (lib, _) in kernel_build.build_copies(sources, out_dir).items()}
     fwd, bwd = K3.configure_fwd(libs["logits_fwd"]), K3.configure_bwd(libs["logits_bwd"])
+    bwd_bf16 = K3.configure_bwd(libs["logits_bwd_bf16"])
     fwd.aa_fused_set_logits.argtypes = [ctypes.c_void_p]
     bwd.aa_fused_bwd_set_logits.argtypes = [ctypes.c_void_p]
-    return {"logits_fwd": fwd, "logits_bwd": bwd, "one_term": K3.configure_fwd(libs["one_term"]),
+    bwd_bf16.aa_fused_bwd_bf16_set_logits.argtypes = [ctypes.c_void_p]
+    return {"logits_fwd": fwd, "logits_bwd": bwd, "logits_bwd_bf16": bwd_bf16,
+            "one_term": K3.configure_fwd(libs["one_term"]),
             "one_term_k5": K5.configure(libs["one_term_k5"])}
 
 
@@ -4342,19 +4372,23 @@ def _bf16_fused_fwd_kernel(ws8: tuple, ws4: tuple) -> dict:
                 h4_cuda_core_bound_ms=h4_cores, library_ms=None)
 
 
-def _bf16_fused_bwd_kernel(ws8: tuple, checks: dict) -> dict:
+def _bf16_fused_bwd_kernel(ws8: tuple, ws4: tuple, checks: dict) -> dict:
     """T2: K4b against its plain version at the training twin shape at
-    BF16_FUSED_BATCH, with keep; returns its kernels line."""
-    Th, A, D, H = (FLAGSHIP["encoder"]["kwargs"]["historical_steps"], NUM_ACTORS,
-                   K3.KERNEL_DIM, 8)
+    BF16_FUSED_BATCH with keep (model and random weights) and at the
+    baseline's 4 heads and shape (its weights); timed beside K4; returns its
+    kernels line."""
+    Th, A, D = FLAGSHIP["encoder"]["kwargs"]["historical_steps"], NUM_ACTORS, K3.KERNEL_DIM
     shape = (BF16_FUSED_BATCH, Th, A + 1, A)
+    shape4 = (BF16_FUSED_BATCH, Th, A, A)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 52)
     p, bf = K3_DROPOUT, dict(compute_dtype="bfloat16")
     max_abs, worst = 0.0, (0.0, 0.0)
-    for wname, ws in (("model", ws8), ("random", _random_aa_weights(gen, ws8))):
-        q, u, mask, keep = _k3_inputs(shape, True, gen)
+    cases = (("model", shape, 8, ws8), ("random", shape, 8, _random_aa_weights(gen, ws8)),
+             ("baseline", shape4, 4, ws4))
+    for wname, shp, H, ws in cases:
+        q, u, mask, keep = _k3_inputs(shp, True, gen, H)
         g = torch.randn(q.shape, generator=gen, device="cuda")
-        case = f"train {list(shape)}, {wname} weights, keep p={p:g}"
+        case = f"train {list(shp)}, {H} heads, {wname} weights, keep p={p:g}"
         out, stats = K3.fused_pair_attention_fwd(q, u, mask, keep, ws, H, p, **bf)
         with torch.no_grad():
             served = K3.fused_pair_attention(q, u, mask, keep, ws, H, p, **bf)
@@ -4379,8 +4413,10 @@ def _bf16_fused_bwd_kernel(ws8: tuple, checks: dict) -> dict:
         check(checks["logits_fwd"].aa_fused_set_logits(lg3.data_ptr()) == 0, "set_logits")
         out3, stats3 = K3.launch_fwd(checks["logits_fwd"], q, u, mask, keep, ws, H, p,
                                      with_stats=True, **bf)
-        check(checks["logits_bwd"].aa_fused_bwd_set_logits(lg4.data_ptr()) == 0, "set_logits")
-        K3.launch_bwd(checks["logits_bwd"], q, u, mask, keep, ws, g, out3, stats3, H, p, **bf)
+        check(checks["logits_bwd_bf16"].aa_fused_bwd_bf16_set_logits(lg4.data_ptr()) == 0,
+              "set_logits")
+        K3.launch_bwd(checks["logits_bwd_bf16"], q, u, mask, keep, ws, g, out3, stats3, H, p,
+                      **bf)
         torch.cuda.synchronize()
         check(not bool(torch.isnan(lg3).any()) and not bool(torch.isnan(lg4).any()),
               "a pair's logits were not written")
@@ -4412,34 +4448,46 @@ def _bf16_fused_bwd_kernel(ws8: tuple, checks: dict) -> dict:
         check(bool(f32_fails), f"K4 (f32) passes TOL_K4B on every output ({case})")
         del q, u, mask, g, dq, dws, dq32, dws32, want_dq, want
         torch.cuda.empty_cache()
-    # timed with keep and the model's weights, as a train step calls it; K4 in the same call
-    q, u, mask, keep = _k3_inputs(shape, True, gen)
-    g = torch.randn(q.shape, generator=gen, device="cuda")
-    out, stats = K3.fused_pair_attention_fwd(q, u, mask, keep, ws8, H, p, **bf)
-    out32, stats32 = K3.fused_pair_attention_fwd(q, u, mask, keep, ws8, H, p)
-    ms = cuda_ms(lambda: K3.fused_pair_attention_bwd(q, u, mask, keep, ws8, g, H, p, out=out,
-                                                     stats=stats, **bf))
-    f32_ms = cuda_ms(lambda: K3.fused_pair_attention_bwd(q, u, mask, keep, ws8, g, H, p,
-                                                         out=out32, stats=stats32))
-    del out, stats, out32, stats32
-    torch.cuda.empty_cache()
-    plain_ms = cuda_ms(lambda: K3.fused_pair_attention_bwd_reference(q, u, mask, keep, ws8, g, H,
-                                                                     p, **bf), runs=5, warmup=1)
-    cores, cores_by, flops, nbytes, route, route_by = aa_fused_bwd_bound(*shape, D, H, True, True)
-    print(f"[bf16-fused] T2 aa_fused_bwd_bf16 train {list(shape)}, keep p={p:g}: {ms:.3f} ms "
-          f"(median of {TIMED_RUNS}); K4 (f32) {f32_ms:.3f} ms in this call; bound {route:.3f} "
-          f"ms by {route_by} on its route (bf16 recompute, 2xTF32 backward products) and "
-          f"{cores:.3f} ms by {cores_by} on the CUDA cores ({flops:.3e} flop, {nbytes:.3e} B), "
-          f"{flops / ms / 1e9:.1f} TFLOP/s; plain {plain_ms:.3f} ms (median of 5)", flush=True)
-    del q, u, mask, keep, g
-    torch.cuda.empty_cache()
+    # timed with keep and the model's weights, as a train step calls it, at
+    # batch 64 and 128 (8 heads) and 64 (4 heads; these two at half the
+    # runs); K4 in the same call
+    times = {}
+    for tag, shp, H, ws in (("", shape, 8, ws8), ("b128_", (TRAIN_BATCH, Th, A + 1, A), 8, ws8),
+                            ("h4_", shape4, 4, ws4)):
+        runs = TIMED_RUNS if not tag else TIMED_RUNS // 2
+        q, u, mask, keep = _k3_inputs(shp, True, gen, H)
+        g = torch.randn(q.shape, generator=gen, device="cuda")
+        out, stats = K3.fused_pair_attention_fwd(q, u, mask, keep, ws, H, p, **bf)
+        out32, stats32 = K3.fused_pair_attention_fwd(q, u, mask, keep, ws, H, p)
+        ms = cuda_ms(lambda: K3.fused_pair_attention_bwd(q, u, mask, keep, ws, g, H, p, out=out,
+                                                         stats=stats, **bf), runs=runs)
+        f32_ms = cuda_ms(lambda: K3.fused_pair_attention_bwd(q, u, mask, keep, ws, g, H, p,
+                                                             out=out32, stats=stats32), runs=runs)
+        del out, stats, out32, stats32
+        torch.cuda.empty_cache()
+        if not tag:
+            times["plain_ms"] = cuda_ms(lambda: K3.fused_pair_attention_bwd_reference(
+                q, u, mask, keep, ws, g, H, p, **bf), runs=5, warmup=1)
+        cores, cores_by, flops, nbytes, route, route_by = aa_fused_bwd_bound(*shp, D, H, True,
+                                                                             True)
+        times.update({f"{tag}shape": list(shp), f"{tag}ms": ms, f"{tag}f32_kernel_ms": f32_ms,
+                      f"{tag}bound_ms": route, f"{tag}bound_by": route_by,
+                      f"{tag}cuda_core_bound_ms": cores, f"{tag}cuda_core_bound_by": cores_by})
+        print(f"[bf16-fused] T2 aa_fused_bwd_bf16 train {list(shp)}, {H} heads, keep p={p:g}: "
+              f"{ms:.3f} ms (median of {runs}); K4 (f32) {f32_ms:.3f} ms in this call; "
+              f"bound {route:.3f} ms by {route_by} on its route (bf16 recompute, 2xTF32 backward "
+              f"products) and {cores:.3f} ms by {cores_by} on the CUDA cores ({flops:.3e} flop, "
+              f"{nbytes:.3e} B), {flops / ms / 1e9:.1f} TFLOP/s", flush=True)
+        del q, u, mask, keep, g
+        torch.cuda.empty_cache()
+    regs = checks["registers"]["aa_fused_bwd_bf16"]
+    print(f"[bf16-fused] T2 aa_fused_bwd_bf16: plain {times['plain_ms']:.3f} ms (median of 5) at "
+          f"{list(shape)}; registers by head count {regs}", flush=True)
     return dict(name="aa_fused_bwd_bf16", route="cuda",
-                source="trajsde_tpu_torch/csrc/aa_fused_bwd.cu",
+                source="trajsde_tpu_torch/csrc/aa_fused_bwd_bf16.cu",
                 replaces="trajsde_tpu/ops/pallas/aa_fused.py:343", compute_dtype="bfloat16",
                 launches=None, max_abs_err=max_abs, max_rel_err=worst[0], mean_rel_err=worst[1],
-                ms=ms, plain_ms=plain_ms, bound_ms=route, bound_by=route_by, route_ms=route,
-                cuda_core_bound_ms=cores, cuda_core_bound_by=cores_by, f32_kernel_ms=f32_ms,
-                shape=list(shape), library_ms=None)
+                route_ms=times["bound_ms"], registers=regs, library_ms=None, **times)
 
 
 def _bf16_fused_serve(model, card: str) -> dict:
@@ -4558,8 +4606,8 @@ def phase_bf16_fused(card: str, checks: dict) -> tuple:
           "FLAGSHIP_BF16_FUSED's AA encoder is not fused in bf16 with ln_mm")
     base = build_model(BASELINE_TRAIN, device="cuda", seed=SEED)
     k3b = _bf16_fused_fwd_kernel(_packed(model), _packed(base))
+    k4b = _bf16_fused_bwd_kernel(_packed(model), _packed(base), checks)
     del base
-    k4b = _bf16_fused_bwd_kernel(_packed(model), checks)
     torch.cuda.empty_cache()
     serve = _bf16_fused_serve(model, card)
     torch.cuda.empty_cache()

@@ -1,39 +1,54 @@
 #!/usr/bin/env python3
-"""K4 (the fused AA backward) as it is against other builds, timed in turns
-on one card (needs a card and nvcc).
+"""K4 or K4b (the fused AA backward in f32 or bf16) against other builds.
+
+K4, or with ``--bf16`` K4b, as it is against other builds of its source,
+timed in turns on one card (needs a card and nvcc).
 
     mkdir -p _checkouts/parent
     git show HEAD~1:trajsde_tpu_torch/csrc/aa_fused_bwd.cu > _checkouts/parent/aa_fused_bwd.cu
     git show HEAD~1:trajsde_tpu_torch/csrc/aa_common.cuh > _checkouts/parent/aa_common.cuh
-    python scripts/compare_aa_bwd_builds_torch.py --base parent=_checkouts/parent/aa_fused_bwd.cu \
-        [--base NAME=PATH ...] [--heads 8|4] [--same-bits]
+    python scripts/compare_aa_bwd_builds_torch.py [--bf16] \
+        [--base parent=_checkouts/parent/aa_fused_bwd.cu ...] [--heads 8 4] [--same-bits] \
+        [--parts no-products no-recompute no-colsum ...]
 
-Builds, in parallel, each ``--base`` (another version of
-``trajsde_tpu_torch/csrc/aa_fused_bwd.cu``, compiled where it lies, so
-headers beside it come first, then this tree's: a base whose headers
-differ from this tree's needs them beside it) and four copies of the
-current source: ``no-swizzle``, whose tile swizzle (``aa_common.cuh``'s
-``swz``) is the identity (the swizzled chunk tiles read by plain rows);
-``one-term``, whose tensor-core products take one TF32 product per term
-(``mma_tf32.cuh`` without the two small terms); ``no-products``, whose six backward products are skipped, and
-``no-recompute``, whose recompute's three chain products are (calls to
-``mm<`` or ``tc::mma_xwt_split<``, as ``skip_products`` finds them; both
-give wrong gradients and time the rest of the kernel), beside the current
-build (``change``).  With ``--heads 8`` (the default) at the flagship's
-training twin shape (B 128, T 21, Aq 49, Ak 48, D 64, H 8), with
-``--heads 4`` at the HiVT baseline's (B 128, T 21, Aq = Ak = 48, H 4),
-with a dropout keep mask, the model's packed AA weights and a random
-cotangent, it holds the dq and weight gradients of each build that has
-entry points for those heads against the plain backward by
-``chip_smoke.k4_tol``: the bases, change and no-swizzle must pass and
-one-term must fail; no-swizzle must give the change's bits.  At 8 heads
-and the flagship's shape it also says whether the change gives each
-base's outputs bit for bit (with ``--heads 4`` also at 4 heads, for the
-bases that have them), and with ``--same-bits`` fails if not.  Then
-it times the builds in the order of the bases, change, no-swizzle,
-no-products, no-recompute, then back (CUDA-event medians of
-``chip_smoke.TIMED_RUNS``).  It prints ptxas's register and spill lines
-of each build (one set per head count the build has), one line per
+The change is this tree's source: ``csrc/aa_fused_bwd.cu`` (K4), or
+``csrc/aa_fused_bwd_bf16.cu`` with ``--bf16`` (K4b).  Each ``--base`` is
+another version of it, compiled where it lies, so headers beside it come
+first, then this tree's: a base whose headers differ from this tree's
+needs them beside it.  Before K4b had a file of its own it was the ``BF``
+form of ``aa_fused_bwd.cu``, so such a file is a K4b base too.  All build
+in parallel, each with a part-skipped copy per ``--parts`` (each gives
+wrong gradients and times the rest of the kernel):
+
+- ``no-products``: the six backward products (``tc::mma_xty<`` and
+  ``tc::mma_xwt<`` in K4, ``tc::mma_xty_exact_x<`` and
+  ``tc::mma_xwt_exact_w<`` in K4b);
+- ``no-recompute``: the recompute's three chain products
+  (``tc::mma_xwt_split<``, ``tc::mma_xwt_bf16<``);
+- ``no-colsum``: the vector-gradient and dq sums (``colsum`` and dq's pair
+  loop; ``reduce_cols``, ``dq_partials`` and ``dq_sums`` in K4b's file);
+- finer parts of K4b's file: ``no-weight-products`` and
+  ``no-input-products`` (the three of each kind), ``no-ln-vjp`` (the
+  LayerNorm VJPs pass the cotangent through), ``no-ln-fwd`` (the
+  recompute's LayerNorms left out).
+
+K4 also gets two check copies of the change: ``one-term``, whose
+tensor-core products take one TF32 product per term (``mma_tf32.cuh``
+without the two small terms), must fail ``chip_smoke.k4_tol``, and
+``no-swizzle``, whose tile swizzle (``aa_common.cuh``'s ``swz``) is the
+identity, must give the change's bits.
+
+At each ``--heads`` (the flagship's training twin shape at 8, B 128, T 21,
+Aq 49, Ak 48, D 64; the HiVT baseline's at 4, Aq = Ak = 48), with a
+dropout keep mask, the model's packed AA weights and a random cotangent,
+it holds each whole build that has entry points for those heads against
+the plain backward, K4 by ``chip_smoke.k4_tol``, K4b within
+``chip_smoke.TOL_K4B`` (max and mean); says whether the change gives each
+base's bits (``--same-bits`` fails if not); then times every build in
+turns, each source before its copies, the bases before the change, then
+back (CUDA-event medians of ``chip_smoke.TIMED_RUNS``): K4 at batch 128,
+K4b at 64 (``BF16_FUSED_BATCH``, where the check runs) and 128.  It prints
+ptxas's register and spill lines of each build, one line per check and
 timing and one JSON line with every number.  Exits non-zero if a check
 fails.
 """
@@ -51,7 +66,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import (K3_DROPOUT, NUM_ACTORS, SEED, TRAIN_BATCH, _k3_inputs,  # noqa: E402
+from chip_smoke import (BF16_FUSED_BATCH, K3_DROPOUT, NUM_ACTORS, SEED,  # noqa: E402
+                        TOL_K4B, TRAIN_BATCH, _bf16_dist, _k3_inputs, _within,
                         aa_fused_bwd_bound, cuda_ms, k4_tol, one_term_header)
 from trajsde_tpu_torch.config import (BASELINE_TRAIN, FLAGSHIP_TRAIN_FUSED,  # noqa: E402
                                       build_model)
@@ -59,17 +75,13 @@ from trajsde_tpu_torch.ops import aa_fused as K3  # noqa: E402
 from trajsde_tpu_torch.ops import build  # noqa: E402
 
 SOURCE = Path(build.CSRC_DIR) / "aa_fused_bwd.cu"
+BF16_SOURCE = Path(build.CSRC_DIR) / "aa_fused_bwd_bf16.cu"
 HEADER = Path(build.CSRC_DIR) / "mma_tf32.cuh"
 COMMON_HEADER = Path(build.CSRC_DIR) / "aa_common.cuh"
 OUT_DIR = Path(build.BUILD_DIR) / "compare"
 SWIZZLE_KEY = "  const int key = ((row & 3) << 1) | ((row >> 2) & 1);\n"
-# a stand-in for the two product helpers that does nothing
-SKIP = """
-namespace tc {
-template <int MT, int NT, int K, int U, class A, class B>
-__device__ __forceinline__ void skip(const A&, const B&, int, int, float (*)[NT][4]) {}
-}  // namespace tc
-"""
+# the batches each kernel is timed at; the first is where it is checked
+BATCHES = {False: (TRAIN_BATCH,), True: (BF16_FUSED_BATCH, TRAIN_BATCH)}
 
 COMMON = '#include "aa_common.cuh"\n'
 # stand-ins for the chain's product helpers (K3's, and K4's recompute) that
@@ -85,7 +97,7 @@ __device__ __forceinline__ void xwt_split(const A&, const B&, int, int, int, flo
 
 
 def skip_products(text: str, where) -> str:
-    """``text`` (a K3 or K4 source) with its chain products' calls to
+    """``text`` (a K3 or K5 source) with its chain products' calls to
     ``mm<`` and ``tc::mma_xwt_split<`` replaced by calls that do nothing."""
     if text.count(COMMON) != 1:
         raise RuntimeError(f"{COMMON!r} is not in {where} exactly once")
@@ -101,32 +113,81 @@ def ptxas_lines(text: str) -> list:
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
 
 
-def build_variants(bases: dict) -> dict:
-    """name -> (configured library, ptxas lines), built in parallel."""
-    current, header, common = SOURCE.read_text(), HEADER.read_text(), COMMON_HEADER.read_text()
+# the backward's part-skipped copies: stand-ins that take any arguments
+# and do nothing (or return 0), and per part the (pattern, replacement)
+# pairs that route its calls to them, K4's and K4b's names alike
+STUBS = """
+namespace skipped {
+template <int MT, int NT, int K, int U, class... A>
+__device__ __forceinline__ void skip(A&&...) {}
+template <class... A>
+__device__ __forceinline__ float colsum(A&&...) { return 0.0f; }
+template <int NV, int N, class V, class C>
+__device__ __forceinline__ void reduce_cols(float*, const int (&)[NV], const V&, C) {}
+template <int H, class... A>
+__device__ __forceinline__ void dq_partials(A&&...) {}
+template <int H, class... A>
+__device__ __forceinline__ void dq_sums(A&&...) {}
+template <int NV>
+__device__ __forceinline__ void ln_vjp(const float* dy, const float*, const float*, float,
+                                       float* dx) {
+  for (int m = 0; m < NV; ++m) dx[m] = dy[m];
+}
+template <class... A>
+__device__ __forceinline__ void ln_fwd(A&&...) {}
+}  // namespace skipped
+"""
+WEIGHT_PRODUCTS = ((r"\btc::mma_xty<", "skipped::skip<"),
+                   (r"\btc::mma_xty_exact_x<", "skipped::skip<"))
+INPUT_PRODUCTS = ((r"\btc::mma_xwt<", "skipped::skip<"),
+                  (r"\btc::mma_xwt_exact_w<", "skipped::skip<"))
+SKIPS = {
+    "no-products": WEIGHT_PRODUCTS + INPUT_PRODUCTS,
+    "no-recompute": ((r"\btc::mma_xwt_split<", "skipped::skip<"),
+                     (r"\btc::mma_xwt_bf16<", "skipped::skip<")),
+    "no-colsum": ((r"\+= colsum\(", "+= skipped::colsum("),
+                  (r"for \(int p = pa; p < pb; \+\+p\)", "for (int p = pa; p < pa; ++p)"),
+                  (r"(?<![\w:])reduce_cols<", "skipped::reduce_cols<"),
+                  (r"(?<![\w:])dq_partials<", "skipped::dq_partials<"),
+                  (r"(?<![\w:])dq_sums<", "skipped::dq_sums<")),
+    "no-weight-products": WEIGHT_PRODUCTS,
+    "no-input-products": INPUT_PRODUCTS,
+    "no-ln-vjp": ((r"\bln_vjp<4, true>\(", "skipped::ln_vjp<4>("),),
+    "no-ln-fwd": ((r"\b(ln_row_t|epi_a1|epi_nbr)<true>\(", "skipped::ln_fwd("),),
+}
+PARTS = ("no-products", "no-recompute", "no-colsum")
+
+
+def skip_part(text: str, what: str, where) -> str:
+    """``text`` (a K4 or K4b source) with the part ``what`` skipped."""
     include = '#include "mma_tf32.cuh"\n'
-    for text, key, where in ((common, SWIZZLE_KEY, COMMON_HEADER), (current, include, SOURCE)):
-        if text.count(key) != 1:
-            raise RuntimeError(f"{key!r} is not in {where} exactly once")
-    skipped = current.replace(include, include + SKIP)
-    skipped = skipped.replace("tc::mma_xty<", "tc::skip<").replace("tc::mma_xwt<", "tc::skip<")
-    # a copy's own header lies beside its source, so its include finds it first
+    if text.count(include) != 1:
+        raise RuntimeError(f"{include!r} is not in {where} exactly once")
+    out, hits = text.replace(include, include + STUBS), 0
+    for pattern, repl in SKIPS[what]:
+        out, n = re.subn(pattern, repl, out)
+        hits += n
+    if hits == 0:
+        raise RuntimeError(f"{where} has nothing to skip for {what}")
+    return out
+
+
+def k4_check_copies(out: Path) -> dict:
+    """K4's one-term and no-swizzle copies of the change: name -> source.
+    A copy's own header lies beside its source, so its include finds it
+    first."""
+    header, common = HEADER.read_text(), COMMON_HEADER.read_text()
+    if common.count(SWIZZLE_KEY) != 1:
+        raise RuntimeError(f"{SWIZZLE_KEY!r} is not in {COMMON_HEADER} exactly once")
+    copies = {}
     for name, path, text in (("one-term", HEADER, one_term_header(header)),
                              ("no-swizzle", COMMON_HEADER,
                               common.replace(SWIZZLE_KEY, "  const int key = 0;\n"))):
-        (OUT_DIR / name).mkdir(parents=True, exist_ok=True)
-        (OUT_DIR / name / path.name).write_text(text)
-    sources = {name: os.fspath(path) for name, path in bases.items()}
-    for name, text in (("no-swizzle", current), ("one-term", current), ("no-products", skipped),
-                       ("no-recompute", skip_products(current, SOURCE))):
-        cu = OUT_DIR / name / SOURCE.name
-        cu.parent.mkdir(parents=True, exist_ok=True)
-        cu.write_text(text)
-        sources[name] = os.fspath(cu)
-    libs = {"change": (K3._bwd_library(), ptxas_lines(build.build_log.get("aa_fused_bwd", "")))}
-    for name, (lib, out) in build.build_copies(sources, os.fspath(OUT_DIR)).items():
-        libs[name] = (K3.configure_bwd(lib), ptxas_lines(out))
-    return libs
+        (out / name).mkdir(parents=True, exist_ok=True)
+        (out / name / path.name).write_text(text)
+        (out / name / SOURCE.name).write_text(SOURCE.read_text())
+        copies[name] = os.fspath(out / name / SOURCE.name)
+    return copies
 
 
 def aa_weights(cfg) -> tuple:
@@ -137,113 +198,121 @@ def aa_weights(cfg) -> tuple:
         w.contiguous() for w in K3.weights_of(K3.pack_aa_params(enc.aa_encoder)))
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--base", action="append", required=True, metavar="NAME=PATH",
-                    help="another version of csrc/aa_fused_bwd.cu and its name")
-    ap.add_argument("--heads", type=int, choices=K3.KERNEL_HEAD_COUNTS, default=K3.KERNEL_HEADS,
-                    help="check and time at the flagship's 8 heads or the baseline's 4")
-    ap.add_argument("--same-bits", action="store_true",
-                    help="fail unless the change's 8-head outputs are each base's bits")
-    args = ap.parse_args()
-    bases = dict((name, Path(path)) for name, path in (b.split("=", 1) for b in args.base))
+def card_name() -> str:
+    """The card's name and power limit as nvidia-smi gives them (f32
+    matmuls in full precision from here on)."""
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the builds run on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
+    return smi.stdout.strip().splitlines()[0]
+
+
+def same_bits(a: tuple, b: tuple) -> bool:
+    return torch.equal(a[0], b[0]) and all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--base", action="append", default=[], metavar="NAME=PATH",
+                    help="another version of the change's source and its name")
+    ap.add_argument("--heads", type=int, nargs="+", choices=K3.KERNEL_HEAD_COUNTS,
+                    default=[K3.KERNEL_HEADS],
+                    help="check and time at each: the flagship's 8 heads, the baseline's 4")
+    ap.add_argument("--same-bits", action="store_true",
+                    help="fail unless the change's outputs are each base's bits")
+    ap.add_argument("--bf16", action="store_true", help="K4b instead of K4")
+    ap.add_argument("--parts", nargs="*", choices=list(SKIPS), default=list(PARTS),
+                    help="the part-skipped copies of each source (the finer ones apply to "
+                         "K4b's file)")
+    args = ap.parse_args()
+    card = card_name()
     print(card, flush=True)
-    libs = build_variants(bases)
-    for name, (_, lines) in libs.items():
-        for line in lines:
+    sources = {name: Path(path) for name, path in (b.split("=", 1) for b in args.base)}
+    sources["change"] = BF16_SOURCE if args.bf16 else SOURCE
+    out = OUT_DIR / ("bf16" if args.bf16 else "f32")
+    builds = {name: os.fspath(path) for name, path in sources.items()}
+    for name, path in sources.items():
+        text = path.read_text()
+        for what in args.parts:
+            cu = out / f"{name}-{what}" / path.name
+            cu.parent.mkdir(parents=True, exist_ok=True)
+            cu.write_text(skip_part(text, what, path))
+            builds[f"{name}-{what}"] = os.fspath(cu)
+    checks = {} if args.bf16 else k4_check_copies(out)
+    builds.update(checks)
+    libs = {name: (K3.configure_bwd(lib), ptxas_lines(log))
+            for name, (lib, log) in build.build_copies(builds, os.fspath(out)).items()}
+    for name in builds:
+        for line in libs[name][1]:
             print(f"[build] {name}: {line}", flush=True)
-    D, H = K3.KERNEL_DIM, args.heads
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
-    failures = []
 
-    # the change against each base at 8 heads, the flagship's shape, bit for bit
-    Th, ws = aa_weights(FLAGSHIP_TRAIN_FUSED)
-    shape = (TRAIN_BATCH, Th, NUM_ACTORS + 1, NUM_ACTORS)
-    q, u, mask, keep = _k3_inputs(shape, True, gen)
-    g = torch.randn(q.shape, generator=gen, device="cuda")
-    out, stats = K3.fused_pair_attention_fwd(q, u, mask, keep, ws, 8, K3_DROPOUT)
-    ref = K3.launch_bwd(libs["change"][0], q, u, mask, keep, ws, g, out, stats, 8, K3_DROPOUT)
-    same_bits = {}
-    for name in bases:
-        dq, dws = K3.launch_bwd(libs[name][0], q, u, mask, keep, ws, g, out, stats, 8, K3_DROPOUT)
-        same_bits[name] = (torch.equal(dq, ref[0])
-                           and all(torch.equal(a, b) for a, b in zip(dws, ref[1])))
-    print(f"[check] at 8 heads, {list(shape)}: the change's dq and weight gradients are each "
-          f"base's bits: {same_bits}", flush=True)
-    if args.same_bits and not all(same_bits.values()):
-        failures.append(f"the change's 8-head outputs differ from a base's: {same_bits}")
-    del q, u, mask, keep, g, out, stats, ref
-    torch.cuda.empty_cache()
+    dt = dict(compute_dtype="bfloat16") if args.bf16 else {}
+    whole = [*sources, *checks]
+    timed = [n for s in sources for n in (s, *(f"{s}-{w}" for w in args.parts))]
+    timed += [n for n in checks if n != "one-term"]
+    D, A, p = K3.KERNEL_DIM, NUM_ACTORS, K3_DROPOUT
+    gen = torch.Generator(device="cuda").manual_seed(SEED + (52 if args.bf16 else 12))
+    failures, report = [], {"card": card, "bf16": args.bf16, "keep_p": p, "cases": []}
+    for H in args.heads:
+        Th, ws = aa_weights(FLAGSHIP_TRAIN_FUSED if H == 8 else BASELINE_TRAIN)
+        at = [n for n in libs if K3.has_heads(libs[n][0], "aa_fused_bwd", H, **dt)]
+        print(f"[check] builds with {H}-head entry points: {', '.join(at)}", flush=True)
+        for i, batch in enumerate(BATCHES[args.bf16]):
+            shape = (batch, Th, A + 1 if H == 8 else A, A)
+            q, u, mask, keep = _k3_inputs(shape, True, gen, H)
+            g = torch.randn(q.shape, generator=gen, device="cuda")
+            fwd, stats = K3.fused_pair_attention_fwd(q, u, mask, keep, ws, H, p, **dt)
 
-    if H != 8:
-        Th, ws = aa_weights(BASELINE_TRAIN)
-        shape = (TRAIN_BATCH, Th, NUM_ACTORS, NUM_ACTORS)
-    q, u, mask, keep = _k3_inputs(shape, True, gen, H)
-    g = torch.randn(q.shape, generator=gen, device="cuda")
-    out, stats = K3.fused_pair_attention_fwd(q, u, mask, keep, ws, H, K3_DROPOUT)
-    at_heads = [n for n in libs if K3.has_heads(libs[n][0], "aa_fused_bwd", H)]
-    print(f"[check] builds with {H}-head entry points: {', '.join(at_heads)}", flush=True)
+            def run(name):
+                return K3.launch_bwd(libs[name][0], q, u, mask, keep, ws, g, fwd, stats, H, p,
+                                     **dt)
 
-    def run(name):
-        return K3.launch_bwd(libs[name][0], q, u, mask, keep, ws, g, out, stats, H, K3_DROPOUT)
-
-    got = {name: run(name) for name in at_heads if name not in ("no-products", "no-recompute")}
-    if H != 8:  # the change against each base that has these heads, bit for bit
-        for name in bases:
-            if name in got:
-                same_bits[f"{name} at {H} heads"] = (
-                    torch.equal(got[name][0], got["change"][0])
-                    and all(torch.equal(a, b) for a, b in zip(got[name][1], got["change"][1])))
-        print(f"[check] at {H} heads, {list(shape)}: the change's dq and weight gradients are "
-              f"each base's bits: {same_bits}", flush=True)
-        if args.same_bits and not all(same_bits.values()):
-            failures.append(f"the change's {H}-head outputs differ from a base's: {same_bits}")
-    want_dq, want = K3.fused_pair_attention_bwd_reference(q, u, mask, keep, ws, g, H, K3_DROPOUT)
-    errs = {}
-    for name, (dq, dws) in got.items():
-        rels = {}
-        over = []
-        for leaf, a, b in zip(("dq", *K3.W_ORDER), (dq, *dws), (want_dq, *want)):
-            rels[leaf] = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
-            if not rels[leaf] <= k4_tol(leaf):
-                over.append(f"{leaf} {rels[leaf]:.3e} > {k4_tol(leaf):g}")
-        errs[name] = rels
-        if name == "one-term" and not over:
-            failures.append("one-term passes K4's limits")
-        elif name != "one-term":
-            failures.extend(f"{name} {o}" for o in over)
-        print(f"[check] {name}: max|build - plain| / max|plain|: "
-              + ", ".join(f"{k} {v:.2e}" for k, v in rels.items())
-              + f"; over the limit: {', '.join(over) or 'none'}", flush=True)
-    same = (torch.equal(got["no-swizzle"][0], got["change"][0])
-            and all(torch.equal(a, b) for a, b in zip(got["no-swizzle"][1], got["change"][1])))
-    print(f"[check] no-swizzle gives the change's bits: {same}", flush=True)
-    if not same:
-        failures.append("no-swizzle differs from change")
-    del got, want_dq, want
-    torch.cuda.empty_cache()
-
-    order = tuple(n for n in (*bases, "change", "no-swizzle", "no-products", "no-recompute")
-                  if n in at_heads)
-    order += order[::-1]
-    times = []
-    for name in order:
-        ms = cuda_ms(lambda: run(name))
-        times.append((name, ms))
-        print(f"[time] {H} heads {list(shape)}: {name}: {ms:.3f} ms", flush=True)
-    bound = aa_fused_bwd_bound(*shape, D, H, True)
-    print(json.dumps({"card": card, "heads": H, "shape": list(shape), "keep_p": K3_DROPOUT,
-                      "times_ms": times, "bound_ms": bound[0], "tensor_route_bound_ms": bound[4],
-                      "tensor_route_bound_by": bound[5],
-                      "ptxas": {k: v[1] for k, v in libs.items()}, "max_rel_err_vs_plain": errs,
-                      "same_bits_at_8_heads": same_bits}),
-          flush=True)
+            case = {"heads": H, "shape": list(shape)}
+            if i == 0:  # each whole build against the plain version, the change against each
+                got = {name: run(name) for name in whole if name in at}
+                want_dq, want = K3.fused_pair_attention_bwd_reference(q, u, mask, keep, ws, g,
+                                                                      H, p, **dt)
+                dists = {}
+                for name, (dq, dws) in got.items():
+                    dists[name] = {k: _bf16_dist(a, b) for k, a, b in
+                                   zip(("dq", *K3.W_ORDER), (dq, *dws), (want_dq, *want))}
+                    over = [k for k, v in dists[name].items()
+                            if not (_within(v, TOL_K4B) if args.bf16 else v[0] <= k4_tol(k))]
+                    if name == "one-term":
+                        if not over:
+                            failures.append("one-term passes K4's limits")
+                    else:
+                        failures.extend(f"{name} at {H} heads: {k} past its limit" for k in over)
+                    print(f"[check] {H} heads {list(shape)}: {name}: max / mean |build - plain| "
+                          "over max / mean |plain|: " + ", ".join(
+                              f"{k} {v[0]:.2e} / {v[1]:.2e}" for k, v in dists[name].items())
+                          + f"; past the limit: {', '.join(over) or 'none'}", flush=True)
+                same = {name: same_bits(got[name], got["change"])
+                        for name in got if name not in ("change", "one-term")}
+                print(f"[check] {H} heads: the change gives each build's bits: {same}",
+                      flush=True)
+                failures.extend(f"{name}'s {H}-head outputs differ from the change's"
+                                for name, ok in same.items()
+                                if not ok and (name == "no-swizzle" or args.same_bits))
+                case.update(dist_vs_plain=dists, same_bits=same)
+                del got, want_dq, want
+            order = [n for n in timed if n in at]
+            order += order[::-1]
+            times = []
+            for name in order:
+                ms = cuda_ms(lambda: run(name))
+                times.append((name, ms))
+                print(f"[time] {H} heads {list(shape)}: {name}: {ms:.3f} ms", flush=True)
+            cores, _, _, _, route, route_by = aa_fused_bwd_bound(*shape, D, H, True, args.bf16)
+            case.update(times_ms=times, bound_ms=route, bound_by=route_by,
+                        cuda_core_bound_ms=cores)
+            report["cases"].append(case)
+            del q, u, mask, keep, g, fwd, stats
+            torch.cuda.empty_cache()
+    report["ptxas"] = {k: v[1] for k, v in libs.items()}
+    print(json.dumps(report), flush=True)
     if failures:
         raise SystemExit("checks failed: " + "; ".join(failures))
 

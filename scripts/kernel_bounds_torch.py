@@ -30,6 +30,12 @@ follow the kernels' arithmetic (``trajsde_tpu/ops/pallas/``):
   accuracy (3 TF32 products each, 495 / 3 TFLOP/s), the rest at the f32
   peak on the CUDA cores, the two at the same time (and
   ``tensor_route_bound_by``).
+  K4b, its bf16 form (``bf16=True``, the VJP of K3b): the same function
+  and bytes; on its route the recompute's three products (10 D^2) at the
+  bf16 tensor-core rate and the six backward products (20 D^2, an f32
+  cotangent against a bf16 operand) at half the TF32 rate, two TF32
+  products each; at the batch of ``FLAGSHIP_BF16_FUSED``'s train step (64)
+  and at 128, and at the HiVT baseline's 4 heads and shape.
 * K5 ``aa_attention``: ``chip_smoke.aa_attention_bound``, K3's chain plus
   the pair features' 14 operations per pair (the rotation of x_k and of
   pos_k - pos_q) and the q projection (2 D^2 + D per receiver); it reads
@@ -48,7 +54,7 @@ follow the kernels' arithmetic (``trajsde_tpu/ops/pallas/``):
   special-function units' 16 a clock per SM, and the tile read and
   written once.  Every run of ``scripts/bench_vpu_dtype_torch.py``: the
   JAX probe's [2048, 128] tile and the [65536, 128] one.
-K3-K5 are taken at the serving bucket-128 shape: B = 128, T = 21,
+K3-K5 (and K4b at 128) are taken at the serving bucket-128 shape: B = 128, T = 21,
 Aq = 49 (48 actors and the focal agent's twin), Ak = 48, D = 64, H = 8;
 K3 also at ``forward_ood``'s shape (Aq = Ak = 48), and K5 at the HiVT
 baseline's 4 heads and shape (Aq = Ak = 48).
@@ -61,8 +67,8 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import (aa_attention_bound, aa_fused_bound, aa_fused_bwd_bound,  # noqa: E402
-                        bwd_bound, rollout_bound, vpu_probe_bound)
+from chip_smoke import (BF16_FUSED_BATCH, aa_attention_bound, aa_fused_bound,  # noqa: E402
+                        aa_fused_bwd_bound, bwd_bound, rollout_bound, vpu_probe_bound)
 from scripts.bench_vpu_dtype_torch import RUNS as PROBE_RUNS  # noqa: E402
 from trajsde_tpu_torch.ops.vpu_probe import ROUNDS  # noqa: E402
 
@@ -79,13 +85,20 @@ def main() -> None:
                            bytes=nbytes, bound_ms=bound, bound_by=by))
         if route:
             report[-1].update(tensor_route_bound_ms=route[0], tensor_route_bound_by=route[1])
-    for name, fn, (b, t, aq, ak), keep in (
-            ("K3 aa_fused forward", aa_fused_bound, (B, T, AQ, AK), False),
-            ("K3 aa_fused forward, forward_ood", aa_fused_bound, (B, T, AK, AK), False),
+    k4b = "K4b aa_fused backward in bf16 (training, keep mask)"
+    for name, fn, (b, t, aq, ak), keep, heads, bf16 in (
+            ("K3 aa_fused forward", aa_fused_bound, (B, T, AQ, AK), False, H, False),
+            ("K3 aa_fused forward, forward_ood", aa_fused_bound, (B, T, AK, AK), False, H, False),
             ("K4 aa_fused backward (training, keep mask)", aa_fused_bwd_bound, (B, T, AQ, AK),
+             True, H, False),
+            (k4b, aa_fused_bwd_bound, (BF16_FUSED_BATCH, T, AQ, AK), True, H, True),
+            (k4b, aa_fused_bwd_bound, (B, T, AQ, AK), True, H, True),
+            (f"{k4b}, the HiVT baseline's 4 heads", aa_fused_bwd_bound,
+             (BF16_FUSED_BATCH, T, AK, AK), True, 4, True),
+            (f"{k4b}, the HiVT baseline's 4 heads", aa_fused_bwd_bound, (B, T, AK, AK), True, 4,
              True)):
-        bound, by, flops, nbytes, *route = fn(b, t, aq, ak, D, H, keep)
-        report.append(dict(kernel=name, shape=f"B={b} T={t} Aq={aq} Ak={ak} D={D} H={H} "
+        bound, by, flops, nbytes, *route = fn(b, t, aq, ak, D, heads, keep, bf16)
+        report.append(dict(kernel=name, shape=f"B={b} T={t} Aq={aq} Ak={ak} D={D} H={heads} "
                            f"({b * t * aq * ak} pairs)", flops=flops, bytes=nbytes,
                            bound_ms=bound, bound_by=by))
         if route:

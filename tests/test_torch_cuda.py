@@ -25,9 +25,11 @@ launchers' bits, a fused train step through them is the step through the
 launchers, and a ``FLAGSHIP_H100`` artifact exported on the card answers
 with the live scan engine's bits.  Endpoint K-means on the card gives the
 CPU's assignments, and a converted reference checkpoint restores onto the
-card bit for bit.  K3b and K4b, the bf16 forms of K3 and K4, are held to
-their plain versions within ``chip_smoke.TOL_K3B`` / ``TOL_K4B`` (max, and
-mean at the twin shape), and K4b's recomputed logits to K3b's bit for bit.
+card bit for bit.  K3b, the bf16 form of K3, and K4b, its VJP (a kernel
+of its own), are held to their plain versions within
+``chip_smoke.TOL_K3B`` / ``TOL_K4B`` (max, and mean at the twin shape and,
+for K4b, at the baseline's 4-head shape), and K4b's recomputed logits to
+K3b's bit for bit.
 K5b, the bf16 form of K5, is held to its plain version within
 ``chip_smoke.TOL_K5B``, which K5 fails; the registered op
 ``trajsde::aa_fused_fwd_bf16`` gives K3b's launcher's bits.
@@ -355,17 +357,41 @@ def test_aa_fused_bwd_bf16_kernel_matches_plain(cuda, shape, with_keep, heads):
             assert d.mean().item() <= TOL_K4B[1] * w.abs().mean().item() + 1e-6, name
 
 
+@pytest.mark.gpu
+def test_aa_fused_bwd_bf16_at_the_baselines_shape_matches_plain(cuda):
+    """K4b at the HiVT baseline's 4 heads and shape (Aq = Ak = 48), with
+    keep: each output within ``chip_smoke.TOL_K4B`` of its plain version,
+    max and mean; bit-equal reruns; an empty receiver gets 0."""
+    from chip_smoke import TOL_K4B
+
+    q, u, mask, keep, ws, g, p = _k4_case(cuda, (8, 21, 48, 48), True, 4)
+    bf = dict(compute_dtype="bfloat16")
+    out, stats = K3.fused_pair_attention_fwd(q, u, mask, keep, ws, 4, p, **bf)
+    dq, dws = K3.fused_pair_attention_bwd(q, u, mask, keep, ws, g, 4, p, out=out, stats=stats,
+                                          **bf)
+    dq2, dws2 = K3.fused_pair_attention_bwd(q, u, mask, keep, ws, g, 4, p, out=out, stats=stats,
+                                            **bf)
+    torch.cuda.synchronize()
+    assert torch.equal(dq, dq2) and all(torch.equal(a, b) for a, b in zip(dws, dws2))
+    assert (dq[0, 0, 0] == 0).all()
+    want_dq, want = K3.fused_pair_attention_bwd_reference(q, u, mask, keep, ws, g, 4, p, **bf)
+    for name, got, w in zip(("dq", *K3.W_ORDER), (dq, *dws), (want_dq, *want)):
+        d = (got - w).abs()
+        assert d.max().item() <= TOL_K4B[0] * w.abs().max().item() + 1e-6, name
+        assert d.mean().item() <= TOL_K4B[1] * w.abs().mean().item() + 1e-6, name
+
+
 @functools.cache
 def _logit_copies():
-    """Check copies of K3 and K4 built with ``AA_WRITE_LOGITS`` defined, so
-    that each writes every pair's head logits ``[R * Ak, H]`` (-inf where
-    masked) to a buffer: K3 the ones its softmax takes, K4 the ones its
-    recompute gives."""
+    """Check copies of K3, K4 and K4b built with ``AA_WRITE_LOGITS``
+    defined, so that each writes every pair's head logits ``[R * Ak, H]``
+    (-inf where masked) to a buffer: K3 the ones its softmax takes, K4 and
+    K4b the ones their recompute gives."""
     from trajsde_tpu_torch.ops import build
 
     out_dir = Path(build.BUILD_DIR) / "logits"
     sources = {}
-    for name in ("aa_fused", "aa_fused_bwd"):
+    for name in ("aa_fused", "aa_fused_bwd", "aa_fused_bwd_bf16"):
         cu = out_dir / name / f"{name}.cu"
         cu.parent.mkdir(parents=True, exist_ok=True)
         source = (Path(build.CSRC_DIR) / f"{name}.cu").read_text()
@@ -373,9 +399,11 @@ def _logit_copies():
         sources[name] = str(cu)
     libs = build.build_copies(sources, str(out_dir))
     fwd, bwd = K3.configure_fwd(libs["aa_fused"][0]), K3.configure_bwd(libs["aa_fused_bwd"][0])
+    bwd_bf16 = K3.configure_bwd(libs["aa_fused_bwd_bf16"][0])
     fwd.aa_fused_set_logits.argtypes = [ctypes.c_void_p]
     bwd.aa_fused_bwd_set_logits.argtypes = [ctypes.c_void_p]
-    return fwd, bwd
+    bwd_bf16.aa_fused_bwd_bf16_set_logits.argtypes = [ctypes.c_void_p]
+    return fwd, bwd, bwd_bf16
 
 
 def _logits_of_both(cuda, heads, compute_dtype="float32"):
@@ -384,7 +412,7 @@ def _logits_of_both(cuda, heads, compute_dtype="float32"):
     recomputed ones, K3's output and statistics (from the check copies) and
     the output of the shipped K3 on the same inputs (K3b's and K4b's in
     bf16)."""
-    fwd, bwd = _logit_copies()
+    fwd, bwd, bwd_bf16 = _logit_copies()
     shape = (8, 21, 49, 48) if heads == 8 else (8, 21, 48, 48)
     q, u, mask, keep, ws, g, p = _k4_case(cuda, shape, True, heads)
     rows = q.shape[0] * q.shape[1] * q.shape[2] * u.shape[3]
@@ -393,7 +421,11 @@ def _logits_of_both(cuda, heads, compute_dtype="float32"):
     dt = dict(compute_dtype=compute_dtype)
     assert fwd.aa_fused_set_logits(lg3.data_ptr()) == 0
     out, stats = K3.launch_fwd(fwd, q, u, mask, keep, ws, heads, p, with_stats=True, **dt)
-    assert bwd.aa_fused_bwd_set_logits(lg4.data_ptr()) == 0
+    if compute_dtype == "bfloat16":
+        bwd = bwd_bf16
+        assert bwd.aa_fused_bwd_bf16_set_logits(lg4.data_ptr()) == 0
+    else:
+        assert bwd.aa_fused_bwd_set_logits(lg4.data_ptr()) == 0
     K3.launch_bwd(bwd, q, u, mask, keep, ws, g, out, stats, heads, p, **dt)
     shipped = K3.fused_pair_attention(q, u, mask, keep, ws, heads, p, **dt)
     torch.cuda.synchronize()

@@ -1,5 +1,6 @@
 // Fused AA pair chain, backward (kernel K4): the VJP of K3 (aa_fused.cu)
-// for training with encoder.fused: true; its bf16 form K4b below.
+// for training with encoder.fused: true.  Its bf16 form K4b, the VJP of
+// K3b, is a kernel of its own (aa_fused_bwd_bf16.cu).
 //
 // Replaces the TPU kernel trajsde_tpu/ops/pallas/aa_fused.py::_bwd_call
 // (pallas_call body _bwd_kernel, which recomputes pair_chain under jax.vjp).
@@ -107,29 +108,6 @@
 //     f64 may fall on different sides, one element's whole contribution
 //     apart, which no summation order changes
 //     (scripts/check_aa_bwd_f64_torch.py counts such elements).
-// K4b, the bf16 form (template parameter BF; entry points
-// aa_fused_bwd_bf16_*), is the VJP of K3b, as _bwd_call's jax.vjp of
-// pair_chain with FusedCfg(dtype="bfloat16"), a rounding's derivative
-// taken as 1 (the VJP of astype).  It recomputes through K3b's products
-// (mma_bf16.cuh's mma_xwt_bf16, w1 unfolded: [a0 | a0] over K = 4D) and
-// epilogues (BF, ln_mm), so its logits are K3b's bit for bit.  Its weights
-// are staged as K3b stages them, bf16 and transposed, each in the space of
-// K4's f32 copy (the rest of the layout is K4's).  The six backward
-// products pair an f32 cotangent with a bf16 operand (a weight in the
-// input gradients, a LayerNorm output in the weight gradients), which is
-// exact in TF32: mma_bf16.cuh's two-term products split the cotangent into
-// two TF32 terms and take 2 products where 3xTF32 takes 3, at f32
-// accuracy (splitting the cotangent into two bf16 terms would keep 16 of
-// its bits, not 22).  da0 = [dz | dz] w1^T runs over K = 2D, w1's halves
-// apart.  The weight gradients sum as K4's, per group in f32, then in f64;
-// JAX's rounding of each tile's w1, wagg and wkv gradient to bf16 (the
-// VJP of w.astype(a.dtype) in its mm) is a product of its tiling and is not
-// copied.  The LayerNorm VJPs take xhat's row mean into account (ln_vjp),
-// which is not 0 when ln_mm took the mean from bf16-rounded inputs.
-// Bound on its route (chip_smoke.aa_fused_bwd_bound): the recompute's three
-// products (10 D^2 a pair) at the bf16 tensor-core rate, the six backward
-// products (20 D^2) at half the TF32 rate (two products each), the rest on
-// the CUDA cores at the same time.
 // Heads: as K3, a template on the head count H (8, the flagship's; 4, the
 // HiVT baseline's) with an entry point each; a head's HD = 64 / H columns
 // lie in HD / 4 lanes of a row, over which head_logit and g.v are summed
@@ -153,16 +131,13 @@
 
 #include "aa_common.cuh"
 #include "mma_tf32.cuh"
-#include "mma_bf16.cuh"
+#include "aa_bwd_common.cuh"
 
 namespace {
 
 using namespace aa;
+using namespace aa_bwd;
 
-constexpr int P = 32;          // pairs per chunk
-constexpr int RB = 8;          // receivers per group
-constexpr int THREADS = 256;   // 16 row groups (2 rows each) x 16 column groups
-constexpr int NR = 2;          // rows per thread
 constexpr int LW1 = D + 4;     // padded row strides of the staged matrices
 constexpr int LWKV = D2 + 4;
 constexpr int LWAGG = D + 4;
@@ -201,26 +176,6 @@ constexpr int T_DZ = T_DY + P * D;             // [P][D] dz
 constexpr int S_U = T_DZ + P * D;              // [P][4]
 constexpr int S_MASK = S_U + P * 4;            // [P]
 constexpr int T_AL = T_DZ;                     // [P][H] alpha, until dz is written
-// block-private vector gradients: wu, bu, ln0s, ln0b as packed, then the
-// shared half of b1, lna0s, lna0b, bagg, lna1s, lna1b, bkv
-constexpr int V_WU = 0, V_BU = OFF_BU, V_LN0S = OFF_LN0S, V_LN0B = OFF_LN0B;
-constexpr int V_B1 = OFF_LN0B + D2;
-constexpr int V_LNA0S = V_B1 + D, V_LNA0B = V_LNA0S + D;
-constexpr int V_BAGG = V_LNA0B + D, V_LNA1S = V_BAGG + D, V_LNA1B = V_LNA1S + D;
-constexpr int V_BKV = V_LNA1B + D;
-constexpr int V_FLOATS = V_BKV + D2;
-
-static_assert(OFF_WU == 0 && V_B1 == OFF_W1, "the packed layout starts wu bu ln0s ln0b");
-
-// K4b stages the three matrices as K3b does (bf16, transposed, rows padded
-// by 8 values), each in the space of K4's f32 copy, so the rest of the
-// layout is K4's: w1 as [w1[:, :D]; w1[:, D:]]^T [D][4D + 8] at S_W1,
-// wagg^T [D][D + 8] at S_WAGG, wkv^T [2D][D + 8] at S_WKV
-constexpr int LB_W1 = 2 * D2 + 8;
-constexpr int LB = D + 8;
-static_assert(D * LB_W1 <= 2 * D2 * LW1 && D * LB <= 2 * D * LWAGG && D2 * LB <= 2 * D * LWKV,
-              "K4b's bf16 matrices fit in K4's f32 ones");
-
 // the rest of the layout, per head count H
 template <int H>
 struct Smem {
@@ -255,10 +210,6 @@ __device__ __forceinline__ int staged(int i) {
   return S_BKV + (i - OFF_BKV);
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
 // *dst = v on a block's first group, else *dst += v, in f64 (dst: the
 // block's own slice of the workspace, written only by this thread)
 __device__ __forceinline__ void put(double* dst, float v, bool first) {
@@ -276,118 +227,21 @@ __device__ __forceinline__ void put2(double* dst, float v0, float v1, bool first
   *d = v;
 }
 
-// operand accessors for mma_tf32.cuh (swizzled tiles: aa_common.cuh's Swz)
-struct Plain {  // a row-major tile or staged matrix, (row, col) -> value
-  const float* p;
-  int ld;
-  __device__ __forceinline__ float operator()(int r, int c) const { return p[r * ld + c]; }
-};
-
 struct WFwd {  // B of x W from a staged W [K][N]: w(n, k) = W[k][n], split where read
   const float* p;
   int ld;
   __device__ __forceinline__ float operator()(int n, int k) const { return p[k * ld + n]; }
 };
 
-struct PadAt {  // (row, col) -> float index in a padded tile, for tc::store_c
-  int ld;
-  __device__ __forceinline__ int operator()(int r, int c) const { return r * ld + c; }
-};
-
-// K4b's accessors: A of its recompute's bf16 products from a padded f32
-// tile of bf16 values, (m, k even) -> the pair (mma_bf16.cuh)
-struct PlainBf {
-  const float* p;
-  int ld;
-  __device__ __forceinline__ uint32_t operator()(int m, int k) const {
-    const float2 v = *reinterpret_cast<const float2*>(p + m * ld + k);
-    return tc::pack_bf16x2(v.x, v.y);
-  }
-};
-
-struct PlainBfTwice {  // [a0 | a0] over K = 4D, for the unfolded w1
-  const float* p;
-  int ld;
-  __device__ __forceinline__ uint32_t operator()(int m, int k) const {
-    return PlainBf{p, ld}(m, k & (D2 - 1));
-  }
-};
-
-// W [N][K] of a backward product X W^T, read from a staged W^T [K][ld] in
-// bf16 as the f32 bits of the value: wkv (N = D, K = 2D) or wagg
-struct WBack {
-  const __nv_bfloat16* p;
-  int ld;
-  __device__ __forceinline__ uint32_t operator()(int n, int k) const {
-    return tc::bf16_bits(p[k * ld + n]);
-  }
-};
-
-// w1 [2D][2D] (N = K = 2D) from K3b's staged operand, where w1[n][k] lies
-// at row k mod D, depth (k / D) 2D + n
-struct W1Back {
-  const __nv_bfloat16* p;
-  __device__ __forceinline__ uint32_t operator()(int n, int k) const {
-    return tc::bf16_bits(p[(k % D) * LB_W1 + (k / D) * D2 + n]);
-  }
-};
-
-struct SwzTwice {  // dz1 = [dz | dz] over K = 2D from dz's swizzled tile
-  const float* p;
-  __device__ __forceinline__ float operator()(int m, int k) const {
-    return p[swz(m, k & (D - 1), D)];
-  }
-};
-
 #ifdef AA_WRITE_LOGITS
 __device__ float* g_logits;  // [R * Ak][H]
 #endif
-
-template <int MT, int NT>
-__device__ __forceinline__ void zero_tiles(float acc[MT][NT][4]) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-}
 
 // read a block-private gradient and zero it for the next group
 __device__ __forceinline__ float take(float* v) {
   const float x = *v;
   *v = 0.0f;
   return x;
-}
-
-// LayerNorm VJP of one row over the 16 lanes that hold it: this lane's NV
-// values dy (cotangent of the output), xhat (normalised input) and the
-// scale at its columns -> dx; inv is the row's 1/std.  BF (K4b): xhat's
-// row mean s3 is not 0 when the mean came from bf16-rounded inputs (ln_mm),
-// and dx = inv (dxhat - s1 - (xhat - s3) s2) is the exact VJP of
-// (x - m) inv with m and the variance differentiated as plain means (a
-// rounding's derivative taken as 1, as JAX's astype)
-template <int NV, bool BF = false>
-__device__ __forceinline__ void ln_vjp(const float dy[NV], const float xh[NV], const float sc[NV],
-                                       float inv, float dx[NV]) {
-  float s1 = 0.0f, s2 = 0.0f, s3 = 0.0f, dxh[NV];
-#pragma unroll
-  for (int m = 0; m < NV; ++m) {
-    dxh[m] = dy[m] * sc[m];
-    s1 += dxh[m];
-    s2 = fmaf(dxh[m], xh[m], s2);
-    if (BF) s3 += xh[m];
-  }
-  s1 = row_sum16(s1) * (1.0f / D);
-  s2 = row_sum16(s2) * (1.0f / D);
-  if (BF) {
-    s3 = row_sum16(s3) * (1.0f / D);
-#pragma unroll
-    for (int m = 0; m < NV; ++m) dx[m] = inv * (dxh[m] - s1 - (xh[m] - s3) * s2);
-  } else {
-#pragma unroll
-    for (int m = 0; m < NV; ++m) dx[m] = inv * (dxh[m] - s1 - xh[m] * s2);
-  }
 }
 
 // sum over the chunk's pairs of a(p, col) (times b(p, col))
@@ -407,15 +261,14 @@ __device__ __forceinline__ float colsum(const A& a, const B& b, int col) {
   return s;
 }
 
-// BF: K4b, the VJP of K3b (see the note above); ln_mm as K3b's
-template <int H, bool BF>
+template <int H>
 __global__ void __launch_bounds__(THREADS, 1)
 aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
                     const float* __restrict__ mask, const float* __restrict__ keep,
                     const float* __restrict__ w, const float* __restrict__ g,
                     const float* __restrict__ out, const float* __restrict__ stats,
                     float* __restrict__ dq, double* __restrict__ partial, long long R, int Ak,
-                    float keep_scale, int ln_mm) {
+                    float keep_scale) {
   using L = Smem<H>;
   constexpr int HD = Heads<H>::HD;
   constexpr int HL = Heads<H>::LANES;
@@ -447,11 +300,6 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
   float* sds = smem + L::S_DS;
   float* salpha = smem + T_AL;
   float* vg = smem + L::S_VG;
-  // K4b's bf16 matrices, in the space of K4's f32 ones
-  __nv_bfloat16* bw1 = reinterpret_cast<__nv_bfloat16*>(smem + S_W1);
-  __nv_bfloat16* bwagg = reinterpret_cast<__nv_bfloat16*>(smem + S_WAGG);
-  __nv_bfloat16* bwkv = reinterpret_cast<__nv_bfloat16*>(smem + S_WKV);
-  const bool stats16 = BF && ln_mm != 0;
 
   const int tid = threadIdx.x;
   const int cg = tid & 15;      // column group
@@ -460,27 +308,11 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
   const int r0 = rg * NR;
   const int warp = tid >> 5;    // tensor-core products: this warp's tiles
 
-  if constexpr (BF) {
-    // the vectors in f32, the matrices as K3b stages them
-    for (int i = tid; i < W_FLOATS; i += THREADS)
-      if (i < OFF_W1 || (i >= OFF_LNA0S && i < OFF_WAGG) || (i >= OFF_BAGG && i < OFF_WKV) ||
-          i >= OFF_BKV)
-        sw[staged(i)] = w[i];
-    for (int i = tid; i < D2 * D2; i += THREADS) {
-      const int r = i / D2, c = i % D2;
-      bw1[(c % D) * LB_W1 + (c / D) * D2 + r] = __float2bfloat16_rn(w[OFF_W1 + i]);
-    }
-    for (int i = tid; i < D * D; i += THREADS)
-      bwagg[(i % D) * LB + i / D] = __float2bfloat16_rn(w[OFF_WAGG + i]);
-    for (int i = tid; i < D * D2; i += THREADS)
-      bwkv[(i % D2) * LB + i / D2] = __float2bfloat16_rn(w[OFF_WKV + i]);
-  } else {
-    for (int i = tid; i < W_FLOATS; i += THREADS)
-      if (i < OFF_W1 || i >= OFF_LNA0S) sw[staged(i)] = w[i];
-    for (int i = tid; i < D2 * D; i += THREADS) {  // w1 folded, as K3 stages it
-      const int r = i / D, c = i % D;
-      sw[S_W1 + r * LW1 + c] = w[OFF_W1 + r * D2 + c] + w[OFF_W1 + r * D2 + D + c];
-    }
+  for (int i = tid; i < W_FLOATS; i += THREADS)
+    if (i < OFF_W1 || i >= OFF_LNA0S) sw[staged(i)] = w[i];
+  for (int i = tid; i < D2 * D; i += THREADS) {  // w1 folded, as K3 stages it
+    const int r = i / D, c = i % D;
+    sw[S_W1 + r * LW1 + c] = w[OFF_W1 + r * D2 + c] + w[OFF_W1 + r * D2 + D + c];
   }
   if (tid < D) sw[S_B1 + tid] = w[OFF_B1 + tid] + w[OFF_B1 + D + tid];
   for (int i = tid; i < V_FLOATS; i += THREADS) vg[i] = 0.0f;
@@ -550,9 +382,8 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
             s += up[3] * sw[S_WU + 3 * D2 + col];
             hv[half][j] = sw[S_BU + col] + s;
           }
-        ln_row_t<BF>(hv[0], sw + S_LN0S, sw + S_LN0B, c0, true, stats16, nullptr, nullptr);
-        ln_row_t<BF>(hv[1], sw + S_LN0S + D, sw + S_LN0B + D, c0, true, stats16, nullptr,
-                     nullptr);
+        ln_row(hv[0], sw + S_LN0S, sw + S_LN0B, c0, true);
+        ln_row(hv[1], sw + S_LN0S + D, sw + S_LN0B + D, c0, true);
         store4(a0t + (r0 + i) * LA0 + c0, hv[0]);
         store4(a0t + (r0 + i) * LA0 + D + c0, hv[1]);
       }
@@ -562,13 +393,8 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
       // (K3's product and epilogue: the same sums in the same order)
       {
         float acc[1][2][4] = {};
-        if constexpr (BF)
-          tc::mma_xwt_bf16<1, 2, 2 * D2, 2>(PlainBfTwice{a0t, LA0}, tc::WBf{bw1, LB_W1},
-                                            16 * (warp & 1), 16 * (warp >> 1), 8, acc);
-        else
-          tc::mma_xwt_split<1, 2, D2, 2>(Plain{a0t, LA0},
-                                         tc::SplitAtUse<WFwd>{WFwd{sw + S_W1, LW1}},
-                                         16 * (warp & 1), 16 * (warp >> 1), 8, acc);
+        tc::mma_xwt_split<1, 2, D2, 2>(Plain{a0t, LA0}, tc::SplitAtUse<WFwd>{WFwd{sw + S_W1, LW1}},
+                                       16 * (warp & 1), 16 * (warp >> 1), 8, acc);
         tc::store_c<2>(a1t, PadAt{LAC}, acc, 16 * (warp & 1), 16 * (warp >> 1));
       }
       __syncthreads();
@@ -576,7 +402,7 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
       for (int i = 0; i < NR; ++i) {
         float x[4], xh[4], inv;
         load4(x, a1t + (r0 + i) * LAC + c0);
-        epi_a1<BF>(x, sw + S_B1, sw + S_LNA0S, sw + S_LNA0B, c0, xh, &inv, stats16);
+        epi_a1(x, sw + S_B1, sw + S_LNA0S, sw + S_LNA0B, c0, xh, &inv);
         store4(a1t + (r0 + i) * LAC + c0, x);
         store4(xat + (r0 + i) * D + c0, xh);
         if (cg == 0) sinva[r0 + i] = inv;
@@ -586,13 +412,9 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
       // F3. a1 wagg -> nbt; nbr = LN(. + bagg) in place, its xhat -> xbt
       {
         float acc[1][2][4] = {};
-        if constexpr (BF)
-          tc::mma_xwt_bf16<1, 2, D, 2>(PlainBf{a1t, LAC}, tc::WBf{bwagg, LB}, 16 * (warp & 1),
-                                       16 * (warp >> 1), 8, acc);
-        else
-          tc::mma_xwt_split<1, 2, D, 2>(Plain{a1t, LAC},
-                                        tc::SplitAtUse<WFwd>{WFwd{sw + S_WAGG, LWAGG}},
-                                        16 * (warp & 1), 16 * (warp >> 1), 8, acc);
+        tc::mma_xwt_split<1, 2, D, 2>(Plain{a1t, LAC},
+                                      tc::SplitAtUse<WFwd>{WFwd{sw + S_WAGG, LWAGG}},
+                                      16 * (warp & 1), 16 * (warp >> 1), 8, acc);
         tc::store_c<2>(nbt, PadAt{LAC}, acc, 16 * (warp & 1), 16 * (warp >> 1));
       }
       __syncthreads();
@@ -600,7 +422,7 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
       for (int i = 0; i < NR; ++i) {
         float x[4], xh[4], inv;
         load4(x, nbt + (r0 + i) * LAC + c0);
-        epi_nbr<BF>(x, sw + S_BAGG, sw + S_LNA1S, sw + S_LNA1B, c0, xh, &inv, stats16);
+        epi_nbr(x, sw + S_BAGG, sw + S_LNA1S, sw + S_LNA1B, c0, xh, &inv);
         store4(nbt + (r0 + i) * LAC + c0, x);
         store4(xbt + (r0 + i) * D + c0, xh);
         if (cg == 0) sinvb[r0 + i] = inv;
@@ -612,13 +434,9 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
       // update has read k
       {
         float acc[1][4][4] = {};
-        if constexpr (BF)
-          tc::mma_xwt_bf16<1, 4, D, 2>(PlainBf{nbt, LAC}, tc::WBf{bwkv, LB}, 16 * (warp & 1),
-                                       32 * (warp >> 1), 8, acc);
-        else
-          tc::mma_xwt_split<1, 4, D, 2>(Plain{nbt, LAC},
-                                        tc::SplitAtUse<WFwd>{WFwd{sw + S_WKV, LWKV}},
-                                        16 * (warp & 1), 32 * (warp >> 1), 8, acc);
+        tc::mma_xwt_split<1, 4, D, 2>(Plain{nbt, LAC},
+                                      tc::SplitAtUse<WFwd>{WFwd{sw + S_WKV, LWKV}},
+                                      16 * (warp & 1), 32 * (warp >> 1), 8, acc);
         tc::store_c<4>(kvt, SwzAt{D2}, acc, 16 * (warp & 1), 32 * (warp >> 1));
       }
       __syncthreads();
@@ -701,16 +519,9 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
       {
         float dn[1][2][4];
         zero_tiles<1, 2>(dn);
-        if constexpr (BF) {
-          tc::mma_xty_exact_x<1, 8, P, 2>(Plain{nbt, LAC}, Swz{kvt, D2}, wm, 64 * (warp >> 2),
-                                          gkv);
-          tc::mma_xwt_exact_w<1, 2, D2, 2>(Swz{kvt, D2}, WBack{bwkv, LB}, 16 * (warp & 1),
-                                           16 * (warp >> 1), dn);
-        } else {
-          tc::mma_xty<1, 8, P, 2>(Plain{nbt, LAC}, Swz{kvt, D2}, wm, 64 * (warp >> 2), gkv);
-          tc::mma_xwt<1, 2, D2, 2>(Swz{kvt, D2}, Plain{sw + S_WKV, LWKV}, 16 * (warp & 1),
-                                   16 * (warp >> 1), dn);
-        }
+        tc::mma_xty<1, 8, P, 2>(Plain{nbt, LAC}, Swz{kvt, D2}, wm, 64 * (warp >> 2), gkv);
+        tc::mma_xwt<1, 2, D2, 2>(Swz{kvt, D2}, Plain{sw + S_WKV, LWKV}, 16 * (warp & 1),
+                                 16 * (warp >> 1), dn);
         tc::store_c<2>(dnt, SwzAt{D}, dn, 16 * (warp & 1), 16 * (warp >> 1));
       }
       __syncthreads();
@@ -724,7 +535,7 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
           xh[m] = xbt[p * D + cg + 16 * m];
           sc[m] = sw[S_LNA1S + cg + 16 * m];
         }
-        ln_vjp<4, BF>(dn, xh, sc, sinvb[p], dy);
+        ln_vjp<4>(dn, xh, sc, sinvb[p], dy);
 #pragma unroll
         for (int m = 0; m < 4; ++m) dyt[swz(p, cg + 16 * m, D)] = dy[m];
       }
@@ -738,16 +549,9 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
       {
         float da[1][2][4];
         zero_tiles<1, 2>(da);
-        if constexpr (BF) {
-          tc::mma_xty_exact_x<1, 4, P, 2>(Plain{a1t, LAC}, Swz{dyt, D}, wm, 32 * (warp >> 2),
-                                          gagg);
-          tc::mma_xwt_exact_w<1, 2, D, 2>(Swz{dyt, D}, WBack{bwagg, LB}, 16 * (warp & 1),
-                                          16 * (warp >> 1), da);
-        } else {
-          tc::mma_xty<1, 4, P, 2>(Plain{a1t, LAC}, Swz{dyt, D}, wm, 32 * (warp >> 2), gagg);
-          tc::mma_xwt<1, 2, D, 2>(Swz{dyt, D}, Plain{sw + S_WAGG, LWAGG}, 16 * (warp & 1),
-                                  16 * (warp >> 1), da);
-        }
+        tc::mma_xty<1, 4, P, 2>(Plain{a1t, LAC}, Swz{dyt, D}, wm, 32 * (warp >> 2), gagg);
+        tc::mma_xwt<1, 2, D, 2>(Swz{dyt, D}, Plain{sw + S_WAGG, LWAGG}, 16 * (warp & 1),
+                                16 * (warp >> 1), da);
         tc::store_c<2>(dzt, SwzAt{D}, da, 16 * (warp & 1), 16 * (warp >> 1));
       }
       __syncthreads();  // dnt is read above and rewritten below
@@ -762,7 +566,7 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
           xh[m] = xat[p * D + col];
           sc[m] = sw[S_LNA0S + col];
         }
-        ln_vjp<4, BF>(da1, xh, sc, sinva[p], dz);
+        ln_vjp<4>(da1, xh, sc, sinva[p], dz);
 #pragma unroll
         for (int m = 0; m < 4; ++m) {
           dnt[swz(p, cg + 16 * m, D)] = da1[m];
@@ -780,16 +584,9 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
       {
         float da[1][4][4];
         zero_tiles<1, 4>(da);
-        if constexpr (BF) {
-          // da0 = [dz | dz] w1^T over K = 2D: w1's two column halves apart
-          tc::mma_xty_exact_x<1, 8, P, 2>(Plain{a0t, LA0}, Swz{dzt, D}, 16 * warp, 0, gw1);
-          tc::mma_xwt_exact_w<1, 4, D2, 2>(SwzTwice{dzt}, W1Back{bw1}, 16 * (warp & 1),
-                                           32 * (warp >> 1), da);
-        } else {
-          tc::mma_xty<1, 8, P, 2>(Plain{a0t, LA0}, Swz{dzt, D}, 16 * warp, 0, gw1);
-          tc::mma_xwt<1, 4, D, 2>(Swz{dzt, D}, Plain{sw + S_W1, LW1}, 16 * (warp & 1),
-                                  32 * (warp >> 1), da);
-        }
+        tc::mma_xty<1, 8, P, 2>(Plain{a0t, LA0}, Swz{dzt, D}, 16 * warp, 0, gw1);
+        tc::mma_xwt<1, 4, D, 2>(Swz{dzt, D}, Plain{sw + S_W1, LW1}, 16 * (warp & 1),
+                                32 * (warp >> 1), da);
         tc::store_c<4>(kvt, SwzAt{D2}, da, 16 * (warp & 1), 32 * (warp >> 1));
       }
       __syncthreads();  // a0t is read above and rewritten below
@@ -808,16 +605,13 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
             s += up[2] * sw[S_WU + 2 * D2 + col];
             s += up[3] * sw[S_WU + 3 * D2 + col];
             xh[m] = sw[S_BU + col] + s;
-            sum += stats16 ? bf16r(xh[m]) : xh[m];
+            sum += xh[m];
           }
           const float mean = row_sum16(sum) * (1.0f / D);
 #pragma unroll
           for (int m = 0; m < 4; ++m) {
             xh[m] -= mean;
-            if (stats16)
-              ss += bf16r(xh[m] * xh[m]);
-            else
-              ss = fmaf(xh[m], xh[m], ss);
+            ss = fmaf(xh[m], xh[m], ss);
           }
           const float inv = 1.0f / sqrtf(row_sum16(ss) * (1.0f / D) + LN_EPS);
 #pragma unroll
@@ -827,7 +621,7 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
             sc[m] = sw[S_LN0S + col];
             dpre[m] = a0t[p * LA0 + col] > 0.0f ? kvt[swz(p, col, D2)] : 0.0f;
           }
-          ln_vjp<4, BF>(dpre, xh, sc, inv, dh);
+          ln_vjp<4>(dpre, xh, sc, inv, dh);
 #pragma unroll
           for (int m = 0; m < 4; ++m) {
             const int col = cg + 16 * (half * 4 + m);
@@ -902,32 +696,21 @@ aa_fused_bwd_kernel(const float* __restrict__ q, const float* __restrict__ u,
   }
 }
 
-// dw[i] = sum over blocks of partial[b][i], in block order, in f64
-__global__ void reduce_partials(const double* __restrict__ partial, int blocks,
-                                float* __restrict__ dw) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= W_FLOATS) return;
-  double s = 0.0;
-  for (int b = 0; b < blocks; ++b) s += partial[static_cast<size_t>(b) * W_FLOATS + i];
-  dw[i] = static_cast<float>(s);
-}
-
-// K4 (K4b with BF) at H heads, then the sum of the blocks' slices, on the
-// stream; returns cudaGetLastError()
-template <int H, bool BF>
+// K4 at H heads, then the sum of the blocks' slices, on the stream;
+// returns cudaGetLastError()
+template <int H>
 int launch(const float* q, const float* u, const float* mask, const float* keep, const float* w,
            const float* g, const float* out, const float* stats, float* dq, float* dw,
-           double* partial, long long R, int Ak, float keep_scale, int ln_mm, int grid,
-           void* stream) {
+           double* partial, long long R, int Ak, float keep_scale, int grid, void* stream) {
   if (R <= 0 || Ak <= 0 || grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = sizeof(float) * Smem<H>::S_FLOATS;
-  cudaError_t err = cudaFuncSetAttribute(aa_fused_bwd_kernel<H, BF>,
+  cudaError_t err = cudaFuncSetAttribute(aa_fused_bwd_kernel<H>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  aa_fused_bwd_kernel<H, BF><<<grid, THREADS, smem, s>>>(q, u, mask, keep, w, g, out, stats, dq,
-                                                          partial, R, Ak, keep_scale, ln_mm);
+  aa_fused_bwd_kernel<H><<<grid, THREADS, smem, s>>>(q, u, mask, keep, w, g, out, stats, dq,
+                                                      partial, R, Ak, keep_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   reduce_partials<<<(W_FLOATS + 255) / 256, 256, 0, s>>>(partial, grid, dw);
@@ -936,10 +719,10 @@ int launch(const float* q, const float* u, const float* mask, const float* keep,
 
 }  // namespace
 
-// One set of entry points per compute type and head count: aa_fused_bwd_*
-// at the flagship's 8 heads, aa_fused_bwd_h4_* at the HiVT baseline's 4, and
-// K4b's aa_fused_bwd_bf16_* and aa_fused_bwd_bf16_h4_* (ops/aa_fused.py
-// picks by the compute dtype and the head count and refuses any other).
+// One set of entry points per head count: aa_fused_bwd_* at the flagship's
+// 8 heads, aa_fused_bwd_h4_* at the HiVT baseline's 4 (ops/aa_fused.py picks
+// by the head count and refuses any other; K4b's are in
+// aa_fused_bwd_bf16.cu).
 extern "C" {
 
 // floats the packed weight buffer (and its gradient) holds
@@ -948,8 +731,6 @@ int aa_fused_bwd_weight_floats() { return W_FLOATS; }
 // receivers one block owns at a time (the wrapper sizes the grid with it)
 int aa_fused_bwd_receivers_per_group() { return RB; }
 int aa_fused_bwd_h4_receivers_per_group() { return RB; }
-int aa_fused_bwd_bf16_receivers_per_group() { return RB; }
-int aa_fused_bwd_bf16_h4_receivers_per_group() { return RB; }
 
 #ifdef AA_WRITE_LOGITS
 // where the next launches write each pair's recomputed head logits, [R * Ak][H]
@@ -968,36 +749,16 @@ int aa_fused_bwd_launch(const float* q, const float* u, const float* mask, const
                         const float* w, const float* g, const float* out, const float* stats,
                         float* dq, float* dw, double* partial, long long R, int Ak,
                         float keep_scale, int grid, void* stream) {
-  return launch<8, false>(q, u, mask, keep, w, g, out, stats, dq, dw, partial, R, Ak, keep_scale,
-                          0, grid, stream);
+  return launch<8>(q, u, mask, keep, w, g, out, stats, dq, dw, partial, R, Ak, keep_scale, grid,
+                   stream);
 }
 
 int aa_fused_bwd_h4_launch(const float* q, const float* u, const float* mask, const float* keep,
                            const float* w, const float* g, const float* out, const float* stats,
                            float* dq, float* dw, double* partial, long long R, int Ak,
                            float keep_scale, int grid, void* stream) {
-  return launch<4, false>(q, u, mask, keep, w, g, out, stats, dq, dw, partial, R, Ak, keep_scale,
-                          0, grid, stream);
-}
-
-// K4b: as aa_fused_bwd_launch, the VJP of K3b (aa_fused_bf16_launch) on
-// the same inputs, out and stats from it; ln_mm as K3b's
-int aa_fused_bwd_bf16_launch(const float* q, const float* u, const float* mask,
-                             const float* keep, const float* w, const float* g, const float* out,
-                             const float* stats, float* dq, float* dw, double* partial,
-                             long long R, int Ak, float keep_scale, int ln_mm, int grid,
-                             void* stream) {
-  return launch<8, true>(q, u, mask, keep, w, g, out, stats, dq, dw, partial, R, Ak, keep_scale,
-                         ln_mm, grid, stream);
-}
-
-int aa_fused_bwd_bf16_h4_launch(const float* q, const float* u, const float* mask,
-                                const float* keep, const float* w, const float* g,
-                                const float* out, const float* stats, float* dq, float* dw,
-                                double* partial, long long R, int Ak, float keep_scale,
-                                int ln_mm, int grid, void* stream) {
-  return launch<4, true>(q, u, mask, keep, w, g, out, stats, dq, dw, partial, R, Ak, keep_scale,
-                         ln_mm, grid, stream);
+  return launch<4>(q, u, mask, keep, w, g, out, stats, dq, dw, partial, R, Ak, keep_scale, grid,
+                   stream);
 }
 
 }  // extern "C"

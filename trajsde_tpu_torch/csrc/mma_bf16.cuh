@@ -1,5 +1,5 @@
 // Warp-level tensor-core products for the bf16 forms of the fused AA
-// kernels, K3b (aa_fused.cu) and K4b (aa_fused_bwd.cu), which compute as
+// kernels, K3b (aa_fused.cu) and K4b (aa_fused_bwd_bf16.cu), which compute as
 // the JAX package's pair_chain does with compute_dtype "bfloat16": the
 // chain's three products take bf16 operands (the LayerNorm outputs a0, a1
 // and nbr, and w1, wagg and wkv rounded to bf16) and sum in f32.  Include

@@ -26,8 +26,9 @@ as in the JAX op (whose zero cotangents for them this ``None`` matches).
 matrices of the chain's products rounded to bf16, each product summed in
 f32, and with ``ln_mm`` (the JAX encoders' default) each LayerNorm's
 statistics taken from bf16-rounded inputs.  On CUDA its forward is kernel
-K3b and its backward K4b, the bf16 forms of K3 and K4 (the same sources,
-entry points ``*_bf16_*``), counted in ``bf16_launches``; ``q``, ``u``,
+K3b, the bf16 form of K3 (the same source, entry points ``*_bf16_*``), and
+its backward K4b, a kernel of its own (``csrc/aa_fused_bwd_bf16.cu``, entry
+points ``aa_fused_bwd_bf16_*``), counted in ``bf16_launches``; ``q``, ``u``,
 the masks, the weights and the output stay f32.  In f32 ``ln_mm`` changes
 nothing (it is an order of summation).  The forward is a registered op in
 either type, so that ``torch.export`` records it as one call:
@@ -314,16 +315,19 @@ def _library():
 
 
 def configure_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declares K4's C interface on a loaded library (``csrc/aa_fused_bwd.cu``
-    or a copy of it built elsewhere) and returns it."""
+    """Declares K4's or K4b's C interface on a loaded library
+    (``csrc/aa_fused_bwd.cu``, ``csrc/aa_fused_bwd_bf16.cu`` or a copy of
+    either built elsewhere) and returns it."""
     return _declare(lib, "aa_fused_bwd", 11)
 
 
 @functools.cache
-def _bwd_library():
+def _bwd_library(compute_dtype: str = "float32"):
+    """K4's library, or K4b's in bf16."""
     from trajsde_tpu_torch.ops import build
 
-    return configure_bwd(build.load("aa_fused_bwd"))
+    bf = _check_dtype(compute_dtype)
+    return configure_bwd(build.load("aa_fused_bwd_bf16" if bf else "aa_fused_bwd"))
 
 
 def _check(name: str, x: torch.Tensor, shape, device) -> None:
@@ -570,8 +574,8 @@ def fused_pair_attention_bwd(q, u, mask_f, keep, ws: Sequence[torch.Tensor], g: 
         if out is None or stats is None:
             raise ValueError("K4 reads the forward's output and softmax statistics: pass out "
                              "and stats of fused_pair_attention_fwd")
-        dq, dws = launch_bwd(_bwd_library(), q, u, mask_f, keep, ws, g, out, stats, num_heads,
-                             dropout_rate, compute_dtype, ln_mm)
+        dq, dws = launch_bwd(_bwd_library(compute_dtype), q, u, mask_f, keep, ws, g, out, stats,
+                             num_heads, dropout_rate, compute_dtype, ln_mm)
         if q.numel():  # no receivers: nothing was launched
             _count(fused_pair_attention_bwd, compute_dtype)
         return dq, dws
