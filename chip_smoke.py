@@ -288,8 +288,8 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      finite metrics and ``agent_std_mean``, equal bit for bit, K1 and K3
      once per batch, nothing else.  S5: the phase's and the conversion's
      seconds beside the card's name and power limit.
-  T. bf16 inside the fused AA kernels (after S; K3b, the bf16 form of K3
-     in ``csrc/aa_fused.cu``, and K4b, its VJP, ``csrc/aa_fused_bwd_bf16.cu``).
+  T. bf16 inside the fused AA kernels (after S; K3b, the bf16 forward,
+     ``csrc/aa_fused_bf16.cu``, and K4b, its VJP, ``csrc/aa_fused_bwd_bf16.cu``).
      T1: K3b against its plain version (``compute_dtype="bfloat16"``, with
      ``ln_mm``) at the bucket-128 twin shape and the OOD shape at 8 heads
      and the baseline's at 4, with and without keep, for the model's packed
@@ -297,13 +297,16 @@ Phases (any failure raises and exits non-zero; nothing falls back):
      receivers exactly 0, within ``TOL_K3B`` (max and mean), which K3 (f32)
      on the same inputs must fail; bit-equal reruns; with ``ln_mm`` off
      against its own plain version, and apart from the ``ln_mm`` one; timed
-     at bucket 128 beside K3 in the same call, its bound on its route (bf16
-     products on the tensor cores) and on the CUDA cores.  T2: K4b against
+     at bucket 128 and at the baseline's 4 heads and shape beside K3 in the
+     same call, and at the training twin shape at BF16_FUSED_BATCH with
+     keep, each beside its bound on its route (bf16 products on the tensor
+     cores) and on the CUDA cores, with ptxas's registers and spills.  T2: K4b against
      its plain version at the training twin shape at BF16_FUSED_BATCH with
      keep, model and random weights, and at the baseline's 4 heads and
      shape with its weights, within ``TOL_K4B`` per output (K4 (f32) must
      fail it on some output), bit-equal reruns, empty receivers exactly 0,
-     its recomputed logits K3b's bit for bit (the check copies); timed
+     its recomputed logits K3b's bit for bit (the ``logits_fwd_bf16`` and
+     ``logits_bwd_bf16`` check copies); timed
      beside K4 at BF16_FUSED_BATCH and TRAIN_BATCH at 8 heads and at
      BF16_FUSED_BATCH at 4, with its bounds and ptxas's registers.  T3: a
      ``ServingEngine`` over ``FLAGSHIP_BF16_FUSED`` (48 / 192, seeded
@@ -715,8 +718,8 @@ def phase_device() -> str:
     return card
 
 
-KERNELS = ("sde_rollout", "sde_rollout_bwd", "aa_fused", "aa_fused_bwd", "aa_fused_bwd_bf16",
-           "aa_attention", "vpu_probe")
+KERNELS = ("sde_rollout", "sde_rollout_bwd", "aa_fused", "aa_fused_bf16", "aa_fused_bwd",
+           "aa_fused_bwd_bf16", "aa_attention", "vpu_probe")
 
 
 def ptxas_registers(log: str) -> dict:
@@ -733,6 +736,20 @@ def ptxas_registers(log: str) -> dict:
     return regs
 
 
+def ptxas_spills(log: str) -> dict:
+    """Spill stores and loads in bytes, ``[stores, loads]``, of each
+    ``__global__`` template instance (by its head count) in ptxas's output."""
+    spills, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '[^']*kernelILi(\d+)E", line)
+        if m:
+            entry = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and entry is not None:
+            spills[entry] = [int(m.group(1)), int(m.group(2))]
+    return spills
+
+
 def phase_build() -> dict:
     """Builds every kernel and, at the same time, the check copies
     (:func:`build_check_copies`), one nvcc per source; returns the copies,
@@ -746,15 +763,16 @@ def phase_build() -> dict:
         checks = copies.result()
     print(f"[build] {', '.join(KERNELS)} and the check copies {', '.join(checks)} ready in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    registers = {}
+    registers, spills = {}, {}
     for name in KERNELS:
         log = kernel_build.build_log.get(name)
         registers[name] = ptxas_registers(log) if log else "not built in this run"
+        spills[name] = ptxas_spills(log) if log else "not built in this run"
         for line in (log or "").splitlines():
             if ("registers" in line or "spill" in line or line.startswith("built")
                     or "Compiling entry" in line):
                 print(f"[build]   {name}: {line.strip()}")
-    checks["registers"] = registers
+    checks["registers"], checks["spills"] = registers, spills
     return checks
 
 
@@ -2352,11 +2370,12 @@ def baseline_train_steps(model, cfg, scene, steps: int):
 
 def build_check_copies() -> dict:
     """The check copies of phases G, L and T, built in parallel under the
-    build directory's ``checks/``: ``logits_fwd``, ``logits_bwd`` and
-    ``logits_bwd_bf16``, K3, K4 and K4b with ``AA_WRITE_LOGITS`` defined
-    (each writes every pair's head logits, -inf where masked, to the buffer
-    its ``*_set_logits`` names: K3 the ones its softmax takes, K4 and K4b
-    the ones their recompute gives), and ``one_term`` and
+    build directory's ``checks/``: ``logits_fwd``, ``logits_fwd_bf16``,
+    ``logits_bwd`` and ``logits_bwd_bf16``, K3, K3b, K4 and K4b with
+    ``AA_WRITE_LOGITS`` defined (each writes every pair's head logits, -inf
+    where masked, to the buffer its ``*_set_logits`` names: K3 and K3b the
+    ones their softmax takes, K4 and K4b the ones their recompute gives),
+    and ``one_term`` and
     ``one_term_k5``, K3 and K5 with one TF32 product per term
     (``mma_tf32.cuh`` without its two small terms, beside the copies).
     Returns name -> configured library."""
@@ -2376,6 +2395,8 @@ def build_check_copies() -> dict:
     sources = {
         "logits_fwd": write(os.path.join(out_dir, "logits_fwd", "aa_fused.cu"),
                             logits + source("aa_fused.cu")),
+        "logits_fwd_bf16": write(os.path.join(out_dir, "logits_fwd", "aa_fused_bf16.cu"),
+                                 logits + source("aa_fused_bf16.cu")),
         "logits_bwd": write(os.path.join(out_dir, "logits_bwd", "aa_fused_bwd.cu"),
                             logits + source("aa_fused_bwd.cu")),
         "logits_bwd_bf16": write(os.path.join(out_dir, "logits_bwd", "aa_fused_bwd_bf16.cu"),
@@ -2389,11 +2410,14 @@ def build_check_copies() -> dict:
           one_term_header(source("mma_tf32.cuh")))
     libs = {name: lib for name, (lib, _) in kernel_build.build_copies(sources, out_dir).items()}
     fwd, bwd = K3.configure_fwd(libs["logits_fwd"]), K3.configure_bwd(libs["logits_bwd"])
+    fwd_bf16 = K3.configure_fwd(libs["logits_fwd_bf16"])
     bwd_bf16 = K3.configure_bwd(libs["logits_bwd_bf16"])
     fwd.aa_fused_set_logits.argtypes = [ctypes.c_void_p]
+    fwd_bf16.aa_fused_bf16_set_logits.argtypes = [ctypes.c_void_p]
     bwd.aa_fused_bwd_set_logits.argtypes = [ctypes.c_void_p]
     bwd_bf16.aa_fused_bwd_bf16_set_logits.argtypes = [ctypes.c_void_p]
-    return {"logits_fwd": fwd, "logits_bwd": bwd, "logits_bwd_bf16": bwd_bf16,
+    return {"logits_fwd": fwd, "logits_fwd_bf16": fwd_bf16, "logits_bwd": bwd,
+            "logits_bwd_bf16": bwd_bf16,
             "one_term": K3.configure_fwd(libs["one_term"]),
             "one_term_k5": K5.configure(libs["one_term_k5"])}
 
@@ -4289,7 +4313,7 @@ def _packed(model) -> tuple:
 
 
 @torch.inference_mode()
-def _bf16_fused_fwd_kernel(ws8: tuple, ws4: tuple) -> dict:
+def _bf16_fused_fwd_kernel(ws8: tuple, ws4: tuple, checks: dict) -> dict:
     """T1: K3b against its plain version; returns its kernels line."""
     Th, A, D = FLAGSHIP["encoder"]["kwargs"]["historical_steps"], NUM_ACTORS, K3.KERNEL_DIM
     shapes = {"bucket 128": ((TRAIN_BATCH, Th, A + 1, A), 8, ws8),
@@ -4363,13 +4387,29 @@ def _bf16_fused_fwd_kernel(ws8: tuple, ws4: tuple) -> dict:
     print(f"[bf16-fused] T1 aa_fused_bf16 at 4 heads {list(shape4)}: {h4_ms:.3f} ms (median of "
           f"{TIMED_RUNS}); K3 (f32) {h4_f32:.3f} ms in this call; bound {h4_route:.3f} ms on its "
           f"route, {h4_cores:.3f} ms on the CUDA cores", flush=True)
-    return dict(name="aa_fused_bf16", route="cuda", source="trajsde_tpu_torch/csrc/aa_fused.cu",
+    # and at FLAGSHIP_BF16_FUSED's train shape, with keep and the statistics
+    # (as a train step calls it)
+    shape64 = (BF16_FUSED_BATCH, Th, A + 1, A)
+    q, u, mask, keep = _k3_inputs(shape64, True, gen)
+    t64_ms = cuda_ms(lambda: K3.fused_pair_attention_fwd(q, u, mask, keep, ws8, 8, K3_DROPOUT,
+                                                         "bfloat16"))
+    t64_cores, _, _, _, t64_route, t64_by = aa_fused_bound(*shape64, D, 8, True, True)
+    regs, spills = checks["registers"]["aa_fused_bf16"], checks["spills"]["aa_fused_bf16"]
+    print(f"[bf16-fused] T1 aa_fused_bf16 train {list(shape64)}, keep p={K3_DROPOUT:g}, with "
+          f"statistics: {t64_ms:.3f} ms (median of {TIMED_RUNS}); bound {t64_route:.3f} ms by "
+          f"{t64_by} on its route, {t64_cores:.3f} ms on the CUDA cores; registers by head count "
+          f"{regs}, spill stores / loads (bytes) {spills}", flush=True)
+    del q, u, mask, keep
+    return dict(name="aa_fused_bf16", route="cuda",
+                source="trajsde_tpu_torch/csrc/aa_fused_bf16.cu",
                 replaces="trajsde_tpu/ops/pallas/aa_fused.py:319", compute_dtype="bfloat16",
                 launches=None, max_abs_err=max_abs, max_rel_err=worst[0], mean_rel_err=worst[1],
                 ms=ms, plain_ms=plain_ms, bound_ms=route, bound_by=route_by, route_ms=route,
                 cuda_core_bound_ms=cores, cuda_core_bound_by=cores_by, f32_kernel_ms=f32_ms,
                 h4_shape=list(shape4), h4_ms=h4_ms, h4_f32_kernel_ms=h4_f32, h4_bound_ms=h4_route,
-                h4_cuda_core_bound_ms=h4_cores, library_ms=None)
+                h4_cuda_core_bound_ms=h4_cores, train_shape=list(shape64), train_ms=t64_ms,
+                train_bound_ms=t64_route, train_cuda_core_bound_ms=t64_cores, registers=regs,
+                spills=spills, library_ms=None)
 
 
 def _bf16_fused_bwd_kernel(ws8: tuple, ws4: tuple, checks: dict) -> dict:
@@ -4410,8 +4450,9 @@ def _bf16_fused_bwd_kernel(ws8: tuple, ws4: tuple, checks: dict) -> dict:
         rows = q.shape[0] * q.shape[1] * q.shape[2] * u.shape[3]
         lg3 = torch.full((rows, H), float("nan"), device="cuda")
         lg4 = torch.full((rows, H), float("nan"), device="cuda")
-        check(checks["logits_fwd"].aa_fused_set_logits(lg3.data_ptr()) == 0, "set_logits")
-        out3, stats3 = K3.launch_fwd(checks["logits_fwd"], q, u, mask, keep, ws, H, p,
+        check(checks["logits_fwd_bf16"].aa_fused_bf16_set_logits(lg3.data_ptr()) == 0,
+              "set_logits")
+        out3, stats3 = K3.launch_fwd(checks["logits_fwd_bf16"], q, u, mask, keep, ws, H, p,
                                      with_stats=True, **bf)
         check(checks["logits_bwd_bf16"].aa_fused_bwd_bf16_set_logits(lg4.data_ptr()) == 0,
               "set_logits")
@@ -4605,7 +4646,7 @@ def phase_bf16_fused(card: str, checks: dict) -> tuple:
     check(aa.fused and aa.chain_dtype == "bfloat16" and aa.ln_mm,
           "FLAGSHIP_BF16_FUSED's AA encoder is not fused in bf16 with ln_mm")
     base = build_model(BASELINE_TRAIN, device="cuda", seed=SEED)
-    k3b = _bf16_fused_fwd_kernel(_packed(model), _packed(base))
+    k3b = _bf16_fused_fwd_kernel(_packed(model), _packed(base), checks)
     k4b = _bf16_fused_bwd_kernel(_packed(model), _packed(base), checks)
     del base
     torch.cuda.empty_cache()
@@ -4724,7 +4765,7 @@ def _traced(fn) -> dict:
     op events doubled an eager step's profiled time): its host ms, the
     device's busy ms, each kernel's runs in the trace
     (``ops.traced_launches``), the kernel instantiations it names (e.g.
-    ``aa_fused_kernel<8, true>``), the counters' launches in that call, and
+    ``aa_fused_bf16_kernel<8>``), the counters' launches in that call, and
     the seconds the whole took.  The device events are read from the raw
     kineto results in one pass: ``prof.events()`` and ``key_averages()``
     give the same busy time and names, but took 20-60 s on an eager bf16

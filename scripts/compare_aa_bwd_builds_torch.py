@@ -84,26 +84,44 @@ SWIZZLE_KEY = "  const int key = ((row & 3) << 1) | ((row >> 2) & 1);\n"
 BATCHES = {False: (TRAIN_BATCH,), True: (BF16_FUSED_BATCH, TRAIN_BATCH)}
 
 COMMON = '#include "aa_common.cuh"\n'
-# stand-ins for the chain's product helpers (K3's, and K4's recompute) that
-# do nothing
+# stand-ins for the chain's product helpers (K3's, K3b's, K5's, and K4's
+# recompute) that do nothing; K3b's register-fed product (aa_fused_bf16.cu's
+# mma_rows) gives each accumulator the bits of an A register instead, so
+# that the chain before it stays live
 SKIP_CHAIN = """
 namespace skipped {
 template <int NR, int K, int LDA, int LDW, bool TWO>
 __device__ __forceinline__ void mm(const float*, const float*, int, int, float (*)[8]) {}
 template <int MT, int NT, int K, int U, class A, class B>
 __device__ __forceinline__ void xwt_split(const A&, const B&, int, int, int, float (*)[NT][4]) {}
+template <int MT, int NT, int K, int U, class A, class B>
+__device__ __forceinline__ void xwt_bf16(const A&, const B&, int, int, int, float (*)[NT][4]) {}
+template <int NT, int KS, int KMASK>
+__device__ __forceinline__ void rows(const uint32_t (*a)[4], const __nv_bfloat16*, int, int,
+                                     float (*acc)[4]) {
+  for (int j = 0; j < NT; ++j)
+    for (int e = 0; e < 4; ++e) acc[j][e] = __uint_as_float(a[j & KMASK][e]);
+}
 }  // namespace skipped
 """
+# (pattern, stand-in) of each product helper
+CHAIN_PRODUCTS = ((r"\bmm<", "skipped::mm<"),
+                  (r"\btc::mma_xwt_split<", "skipped::xwt_split<"),
+                  (r"\btc::mma_xwt_bf16<", "skipped::xwt_bf16<"),
+                  (r"(?<![\w:])mma_rows<(?=\d)", "skipped::rows<"))
 
 
 def skip_products(text: str, where) -> str:
-    """``text`` (a K3 or K5 source) with its chain products' calls to
-    ``mm<`` and ``tc::mma_xwt_split<`` replaced by calls that do nothing."""
+    """``text`` (a K3, K3b or K5 source) with its chain products' calls to
+    ``mm<``, ``tc::mma_xwt_split<``, ``tc::mma_xwt_bf16<`` and ``mma_rows<``
+    replaced by stand-ins that multiply nothing."""
     if text.count(COMMON) != 1:
         raise RuntimeError(f"{COMMON!r} is not in {where} exactly once")
-    out, n = re.subn(r"\bmm<", "skipped::mm<", text.replace(COMMON, COMMON + SKIP_CHAIN))
-    out, n2 = re.subn(r"\btc::mma_xwt_split<", "skipped::xwt_split<", out)
-    if n + n2 == 0:
+    out, hits = text.replace(COMMON, COMMON + SKIP_CHAIN), 0
+    for pattern, repl in CHAIN_PRODUCTS:
+        out, n = re.subn(pattern, repl, out)
+        hits += n
+    if hits == 0:
         raise RuntimeError(f"{where} calls no chain product to skip")
     return out
 

@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""K3 (the fused AA forward) as it is against other builds, timed in turns
+"""K3 or K3b (the fused AA forward in f32 or bf16) against other builds.
+
+K3, or with ``--bf16`` K3b, as it is against other builds, timed in turns
 on one card (needs a card and nvcc).
 
     mkdir -p _checkouts/parent
@@ -38,13 +40,39 @@ at 4 at the baseline's shape, with the model's weights and no keep mask.
 It prints ptxas's register and spill lines of each build (one set per
 head count the build has), one line per timing and one JSON line with
 every number.  Exits non-zero if a check fails.
+
+With ``--bf16`` the change is ``csrc/aa_fused_bf16.cu`` (K3b) and each
+``--base`` a K3b source: before K3b had a file of its own it was the ``BF``
+form of ``aa_fused.cu``, so the parent's ``aa_fused.cu`` (with its headers
+beside it) is a base::
+
+    git show HEAD~1:trajsde_tpu_torch/csrc/aa_fused.cu > _checkouts/parent/aa_fused.cu
+    python scripts/compare_aa_fwd_builds_torch.py --bf16 \\
+        --base parent=_checkouts/parent/aa_fused.cu [--same-bits]
+
+Each source (the bases and the change) builds whole, as a
+``NAME-no-products`` copy (its chain products skipped: ``skip_products``
+knows ``tc::mma_xwt_bf16<`` and K3b's ``mma_rows<``) and as a
+``NAME-logits`` copy with ``AA_WRITE_LOGITS`` defined, which writes every
+pair's masked head logits.  At 8 heads (the twin shape, B 16) and at 4 (the
+baseline's, B 16), with and without a keep mask, with ``ln_mm`` on and off,
+for the model's packed weights (``FLAGSHIP_BF16_FUSED``'s at 8,
+``BASELINE_TRAIN``'s at 4) and random ones (every other case): it says
+whether the change's logits and its statistics' max are each base's bits
+(``--same-bits`` fails if not), and holds each whole build's output to the
+plain bf16 chain within ``chip_smoke.TOL_K3B`` (max and mean).  Then it
+times the whole and no-products builds in turns, the bases first, then
+back (CUDA-event medians of ``chip_smoke.TIMED_RUNS``), at chip_smoke's T1
+shapes: bucket 128 at 8 heads, the baseline's 4 heads and shape (both the
+model's weights, no keep) and ``FLAGSHIP_BF16_FUSED``'s train shape at
+``BF16_FUSED_BATCH`` with keep and the statistics.
 """
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
-import subprocess
 import sys
 from pathlib import Path
 
@@ -52,16 +80,22 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import (K3_DROPOUT, NUM_ACTORS, SEED, TOL_K3_TIGHT, _k3_inputs,  # noqa: E402
-                        _random_aa_weights, aa_fused_bound, cuda_ms, one_term_header)
-from scripts.compare_aa_bwd_builds_torch import aa_weights, ptxas_lines, skip_products  # noqa: E402
-from trajsde_tpu_torch.config import BASELINE_TRAIN, FLAGSHIP_FUSED  # noqa: E402
+from chip_smoke import (BF16_FUSED_BATCH, K3_DROPOUT, NUM_ACTORS, SEED,  # noqa: E402
+                        TOL_K3_TIGHT, TOL_K3B, TRAIN_BATCH, _bf16_dist, _k3_inputs,
+                        _random_aa_weights, _within, aa_fused_bound, cuda_ms, one_term_header)
+from scripts.compare_aa_bwd_builds_torch import (aa_weights, card_name,  # noqa: E402
+                                                 ptxas_lines, skip_products)
+from trajsde_tpu_torch.config import (BASELINE_TRAIN, FLAGSHIP_BF16_FUSED,  # noqa: E402
+                                      FLAGSHIP_FUSED)
 from trajsde_tpu_torch.ops import aa_fused as K3  # noqa: E402
 from trajsde_tpu_torch.ops import build  # noqa: E402
 
 SOURCE = Path(build.CSRC_DIR) / "aa_fused.cu"
+BF16_SOURCE = Path(build.CSRC_DIR) / "aa_fused_bf16.cu"
 HEADER = Path(build.CSRC_DIR) / "mma_tf32.cuh"
 OUT_DIR = Path(build.BUILD_DIR) / "compare_fwd"
+LOGITS = "#define AA_WRITE_LOGITS\n"
+BF = dict(compute_dtype="bfloat16")
 
 
 def uses_tensor_cores(text: str) -> bool:
@@ -88,30 +122,150 @@ def build_variants(bases: dict) -> dict:
         cu.write_text(text)
         sources[name] = os.fspath(cu)
     tensor["change"] = tensor["one-term"] = uses_tensor_cores(current)
-    libs = {"change": (K3._library(),
+    libs = {"change": (K3._library("float32"),
                        ptxas_lines(build.build_log.get("aa_fused", "")), tensor["change"])}
     for name, (lib, out) in build.build_copies(sources, os.fspath(OUT_DIR)).items():
         libs[name] = (K3.configure_fwd(lib), ptxas_lines(out), tensor.get(name))
     return libs
 
 
+def build_bf16(bases: dict) -> dict:
+    """K3b's builds, in parallel: name -> (configured library, ptxas lines)
+    for each source (the bases and ``change``), its ``-no-products`` and its
+    ``-logits`` copy.  A base's copies lie beside it, so its own headers
+    come first."""
+    sources = {**bases, "change": BF16_SOURCE}
+    builds = {}
+    for name, path in sources.items():
+        builds[name] = os.fspath(path)
+        text = path.read_text()
+        if name == "change":
+            where = OUT_DIR / "bf16"
+            where.mkdir(parents=True, exist_ok=True)
+            skipped, logits = where / "no-products.cu", where / "logits.cu"
+        else:
+            skipped = path.with_name(f"{path.stem}.no-products{path.suffix}")
+            logits = path.with_name(f"{path.stem}.logits{path.suffix}")
+        skipped.write_text(skip_products(text, path))
+        logits.write_text(LOGITS + text)
+        builds[f"{name}-no-products"] = os.fspath(skipped)
+        builds[f"{name}-logits"] = os.fspath(logits)
+    libs = {name: (K3.configure_fwd(lib), ptxas_lines(out))
+            for name, (lib, out) in build.build_copies(builds, os.fspath(OUT_DIR / "bf16")).items()}
+    for name in sources:
+        lib = libs[f"{name}-logits"][0]
+        fn = getattr(lib, "aa_fused_bf16_set_logits", None) or lib.aa_fused_set_logits
+        fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+        libs[f"{name}-logits"] = (lib, libs[f"{name}-logits"][1], fn)
+    return {name: libs[name] for name in builds}
+
+
+def logits_of(lib, set_logits, q, u, mask, keep, ws, H, p, ln_mm):
+    """``lib``'s (a logits copy) masked logits [pairs, H], output and
+    statistics on these inputs."""
+    rows = q.shape[0] * q.shape[1] * q.shape[2] * u.shape[3]
+    lg = torch.full((rows, H), float("nan"), device="cuda")
+    if set_logits(lg.data_ptr()) != 0:
+        raise RuntimeError("set_logits failed")
+    out, stats = K3.launch_fwd(lib, q, u, mask, keep, ws, H, p, True, ln_mm=ln_mm, **BF)
+    torch.cuda.synchronize()
+    if torch.isnan(lg).any():
+        raise RuntimeError("a pair's logits were not written")
+    return lg, out, stats
+
+
+def main_bf16(args, bases: dict, card: str) -> None:
+    """K3b's checks and turns (see the module's docstring)."""
+    libs = build_bf16(bases)
+    for name, (_, lines, *_) in libs.items():
+        for line in lines:
+            print(f"[build] {name}: {line}", flush=True)
+    sources = [*bases, "change"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 53)
+    A, D, p = NUM_ACTORS, K3.KERNEL_DIM, K3_DROPOUT
+    Th, ws8 = aa_weights(FLAGSHIP_BF16_FUSED)
+    _, ws4 = aa_weights(BASELINE_TRAIN)
+    failures, report = [], {"card": card, "bf16": True, "checks": [], "times_ms": {}}
+    same = {name: True for name in bases}
+    for H, shape, model_ws in ((8, (16, Th, A + 1, A), ws8), (4, (16, Th, A, A), ws4)):
+        for with_keep in (False, True):
+            for ln_mm in (True, False):
+                ws = model_ws if with_keep is False and ln_mm else _random_aa_weights(gen, model_ws)
+                q, u, mask, keep = _k3_inputs(shape, with_keep, gen, H)
+                pk = p if with_keep else 0.0
+                case = (f"{H} heads {list(shape)}, keep {'p=%g' % pk if with_keep else 'None'}, "
+                        f"ln_mm {ln_mm}, {'model' if ws is model_ws else 'random'} weights")
+                got = {n: logits_of(libs[f"{n}-logits"][0], libs[f"{n}-logits"][2], q, u, mask,
+                                    keep, ws, H, pk, ln_mm) for n in sources}
+                want = K3.fused_pair_attention_reference(q, u, mask, keep, ws, H, pk,
+                                                         ln_mm=ln_mm, **BF)
+                entry = {"case": case, "same_logits": {}, "same_max": {}, "dist": {}}
+                for n in sources:
+                    whole = K3.launch_fwd(libs[n][0], q, u, mask, keep, ws, H, pk, True,
+                                          ln_mm=ln_mm, **BF)
+                    if not (torch.equal(whole[0], got[n][1]) and torch.equal(whole[1], got[n][2])):
+                        failures.append(f"{n}'s logits copy gave other outputs ({case})")
+                    dist = _bf16_dist(whole[0], want)
+                    entry["dist"][n] = dist
+                    if not _within(dist, TOL_K3B):
+                        failures.append(f"{n} {dist[0]:.3e} / {dist[1]:.3e} past TOL_K3B ({case})")
+                for n in bases:
+                    entry["same_logits"][n] = torch.equal(got[n][0], got["change"][0])
+                    entry["same_max"][n] = torch.equal(got[n][2][0], got["change"][2][0])
+                    same[n] = same[n] and entry["same_logits"][n] and entry["same_max"][n]
+                print(f"[check] {case}: the change's logits / statistics' max are each base's "
+                      f"bits: {entry['same_logits']} / {entry['same_max']}; max / mean |build - "
+                      "plain| over max / mean |plain|: " + ", ".join(
+                          f"{n} {d[0]:.3e} / {d[1]:.3e}" for n, d in entry["dist"].items())
+                      + f" (TOL_K3B {TOL_K3B[0]:g} / {TOL_K3B[1]:g})", flush=True)
+                report["checks"].append(entry)
+                del q, u, mask, keep, got, want
+                torch.cuda.empty_cache()
+    if args.same_bits and not all(same.values()):
+        failures.append(f"the change's logits differ from a base's: {same}")
+
+    order = [n for s in sources for n in (s, f"{s}-no-products")]
+    order += order[::-1]
+    for tag, shape, H, ws, with_keep in (
+            ("bucket 128", (TRAIN_BATCH, Th, A + 1, A), 8, ws8, False),
+            ("baseline 128", (TRAIN_BATCH, Th, A, A), 4, ws4, False),
+            (f"train {BF16_FUSED_BATCH}, keep", (BF16_FUSED_BATCH, Th, A + 1, A), 8, ws8, True)):
+        q, u, mask, keep = _k3_inputs(shape, with_keep, gen, H)
+        pk = p if with_keep else 0.0
+        times = []
+        for name in order:
+            ms = cuda_ms(lambda: K3.launch_fwd(libs[name][0], q, u, mask, keep, ws, H, pk,
+                                               with_keep, **BF))
+            times.append((name, ms))
+            print(f"[time] {H} heads, {tag} {list(shape)}: {name}: {ms:.3f} ms", flush=True)
+        route = aa_fused_bound(*shape, D, H, with_keep, True)[4]
+        report["times_ms"][tag] = {"shape": list(shape), "heads": H, "times": times,
+                                   "bound_ms": route}
+        del q, u, mask, keep
+        torch.cuda.empty_cache()
+    report["ptxas"] = {k: v[1] for k, v in libs.items()}
+    report["same_bits"] = same
+    print(json.dumps(report), flush=True)
+    if failures:
+        raise SystemExit("checks failed: " + "; ".join(failures))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--base", action="append", required=True, metavar="NAME=PATH",
-                    help="another version of csrc/aa_fused.cu and its name")
+                    help="another version of the change's source and its name")
+    ap.add_argument("--bf16", action="store_true", help="K3b instead of K3")
     ap.add_argument("--heads", type=int, choices=K3.KERNEL_HEAD_COUNTS, default=K3.KERNEL_HEADS,
                     help="check and time at the flagship's 8 heads or the baseline's 4")
     ap.add_argument("--same-bits", action="store_true",
                     help="fail unless the change's 8-head outputs are each base's bits")
     args = ap.parse_args()
     bases = dict((name, Path(path)) for name, path in (b.split("=", 1) for b in args.base))
-    if not torch.cuda.is_available():
-        raise SystemExit("no CUDA device: the builds run on the card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_name()
     print(card, flush=True)
+    if args.bf16:
+        main_bf16(args, bases, card)
+        return
     libs = build_variants(bases)
     for name, (_, lines, _) in libs.items():
         for line in lines:

@@ -20,6 +20,11 @@ follow the kernels' arithmetic (``trajsde_tpu/ops/pallas/``):
   [B,T,Aq,D], u [B,T*Aq,Ak,4] and the f32 mask; output the [B,T,Aq,D]
   aggregate.  Also ``tensor_route_bound_ms``: its three products (10 D^2
   a pair) on the tensor cores in 3xTF32, the rest on the CUDA cores.
+  K3b, its bf16 form (``bf16=True``): the same function and bytes; on its
+  route the three products at the bf16 tensor-core rate (989 TFLOP/s), the
+  rest on the CUDA cores; at bucket 128 (8 heads), at the batch of
+  ``FLAGSHIP_BF16_FUSED``'s train step (64) at the twin shape with a keep
+  mask, and at the HiVT baseline's 4 heads and shape.
 * K4 ``aa_fused._bwd_call``: ``chip_smoke.aa_fused_bwd_bound``, the
   forward recomputed, twice the matmul operations (input and weight
   gradients) and twice the elementwise ones; reads K3's inputs, the
@@ -89,6 +94,11 @@ def main() -> None:
     for name, fn, (b, t, aq, ak), keep, heads, bf16 in (
             ("K3 aa_fused forward", aa_fused_bound, (B, T, AQ, AK), False, H, False),
             ("K3 aa_fused forward, forward_ood", aa_fused_bound, (B, T, AK, AK), False, H, False),
+            ("K3b aa_fused forward in bf16", aa_fused_bound, (B, T, AQ, AK), False, H, True),
+            ("K3b aa_fused forward in bf16 (training, keep mask)", aa_fused_bound,
+             (BF16_FUSED_BATCH, T, AQ, AK), True, H, True),
+            ("K3b aa_fused forward in bf16, the HiVT baseline's 4 heads", aa_fused_bound,
+             (B, T, AK, AK), False, 4, True),
             ("K4 aa_fused backward (training, keep mask)", aa_fused_bwd_bound, (B, T, AQ, AK),
              True, H, False),
             (k4b, aa_fused_bwd_bound, (BF16_FUSED_BATCH, T, AQ, AK), True, H, True),

@@ -25,13 +25,16 @@ launchers' bits, a fused train step through them is the step through the
 launchers, and a ``FLAGSHIP_H100`` artifact exported on the card answers
 with the live scan engine's bits.  Endpoint K-means on the card gives the
 CPU's assignments, and a converted reference checkpoint restores onto the
-card bit for bit.  K3b, the bf16 form of K3, and K4b, its VJP (a kernel
-of its own), are held to their plain versions within
+card bit for bit.  K3b, K3's chain in bf16, and K4b, its VJP (each a
+kernel of its own), are held to their plain versions within
 ``chip_smoke.TOL_K3B`` / ``TOL_K4B`` (max, and mean at the twin shape and,
 for K4b, at the baseline's 4-head shape), and K4b's recomputed logits to
 K3b's bit for bit.
-K5b, the bf16 form of K5, is held to its plain version within
-``chip_smoke.TOL_K5B``, which K5 fails; the registered op
+K3b (``csrc/aa_fused_bf16.cu``) is also held to its plain version at
+ragged sender counts (1, 17 and 70: not multiples of its 16-row tiles),
+with receivers that have no live sender (exactly 0), its statistics
+written or not.  K5b, the bf16 form of K5, is held to its plain version
+within ``chip_smoke.TOL_K5B``, which K5 fails; the registered op
 ``trajsde::aa_fused_fwd_bf16`` gives K3b's launcher's bits.
 """
 import ctypes
@@ -325,6 +328,61 @@ def test_aa_fused_bf16_kernel_matches_plain(cuda, shape, with_keep, heads):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("heads", HEADS)
+@pytest.mark.parametrize("with_stats", [False, True])
+@pytest.mark.parametrize("Ak", [1, 17, 70])
+def test_aa_fused_bf16_kernel_at_ragged_sender_counts_matches_plain(cuda, Ak, with_stats, heads):
+    """K3b walks a receiver's senders in 16-row m-tiles; at Ak 1, 17 and 70
+    its last m-tile is ragged.  With keep, ``ln_mm`` on and off: within
+    ``chip_smoke.TOL_K3B`` of max|plain| (and the statistics: the max to
+    the plain logits' rounding, the sum of exp within TOL_K3B's max);
+    receivers with no live sender (every sender masked, or the one sender
+    of Ak 1) give exactly 0, max -inf and sum 0; writing the statistics
+    changes no output bit; reruns are bit-equal."""
+    from chip_smoke import TOL_K3B
+
+    B, T, Aq = 2, 3, 11
+    gen = torch.Generator().manual_seed(7 * Ak + heads + with_stats)
+    packed = K3.pack_aa_params(_aa_encoder(Ak + 2, heads))
+    packed["w1"] = packed["w1"] + 0.1 * torch.randn(packed["w1"].shape, generator=gen)
+    ws = tuple(w.contiguous().to(cuda) for w in K3.weights_of(packed))
+    q = torch.randn((B, T, Aq, 64), generator=gen).to(cuda)
+    u = (5.0 * torch.randn((B, T, Aq, Ak, 4), generator=gen)).to(cuda)
+    mask = (torch.rand((B, T, Aq, Ak), generator=gen) < 0.6).float()
+    mask[:, :, ::4] = 0.0             # receivers with no live sender
+    mask[:, :, 1] = 1.0               # and some with every sender live
+    mask = mask.to(cuda)
+    keep = (torch.rand((B, T, Aq, Ak, heads), generator=gen) >= 0.1).float().to(cuda)
+    empty = (mask.sum(-1) == 0).reshape(-1)
+    assert empty.any() and not empty.all()
+    for ln_mm in (True, False):
+        args = (q, u, mask, keep, ws, heads, 0.1)
+        bf = dict(compute_dtype="bfloat16", ln_mm=ln_mm)
+        out, stats = K3.launch_fwd(K3._library("bfloat16"), *args, with_stats, **bf)
+        again, stats2 = K3.launch_fwd(K3._library("bfloat16"), *args, with_stats, **bf)
+        bare = K3.fused_pair_attention(*args, **bf)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again) and torch.equal(out, bare)
+        assert torch.isfinite(out).all()
+        assert (out.reshape(-1, 64)[empty] == 0).all()
+        want, want_stats = K3.fused_pair_attention_reference(*args, with_stats=True, **bf)
+        d = (out - want).abs()
+        assert (d.max() / want.abs().max()).item() <= TOL_K3B[0], ln_mm
+        if not with_stats:
+            assert stats is None
+            continue
+        assert torch.equal(stats, stats2)
+        top, total = stats[0], stats[1]
+        assert torch.isneginf(top[empty]).all() and (total[empty] == 0).all()
+        live = ~empty
+        assert torch.isfinite(top[live]).all()
+        assert ((top[live] - want_stats[0][live]).abs().max() <= 1e-2 * want_stats[0][live]
+                .abs().max()).item()
+        assert ((total[live] - want_stats[1][live]).abs().max()
+                <= TOL_K3B[0] * want_stats[1][live].abs().max()).item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", HEADS)
 @pytest.mark.parametrize("with_keep", [False, True])
 @pytest.mark.parametrize("shape", [(1, 1, 2, 1), (2, 3, 5, 4), (3, 2, 7, 70), (1, 21, 49, 48)])
 def test_aa_fused_bwd_bf16_kernel_matches_plain(cuda, shape, with_keep, heads):
@@ -383,15 +441,16 @@ def test_aa_fused_bwd_bf16_at_the_baselines_shape_matches_plain(cuda):
 
 @functools.cache
 def _logit_copies():
-    """Check copies of K3, K4 and K4b built with ``AA_WRITE_LOGITS``
+    """Check copies of K3, K3b, K4 and K4b built with ``AA_WRITE_LOGITS``
     defined, so that each writes every pair's head logits ``[R * Ak, H]``
-    (-inf where masked) to a buffer: K3 the ones its softmax takes, K4 and
-    K4b the ones their recompute gives."""
+    (-inf where masked) to a buffer: K3 and K3b the ones their softmax
+    takes, K4 and K4b the ones their recompute gives -> (K3's, K4's, K3b's,
+    K4b's)."""
     from trajsde_tpu_torch.ops import build
 
     out_dir = Path(build.BUILD_DIR) / "logits"
     sources = {}
-    for name in ("aa_fused", "aa_fused_bwd", "aa_fused_bwd_bf16"):
+    for name in ("aa_fused", "aa_fused_bf16", "aa_fused_bwd", "aa_fused_bwd_bf16"):
         cu = out_dir / name / f"{name}.cu"
         cu.parent.mkdir(parents=True, exist_ok=True)
         source = (Path(build.CSRC_DIR) / f"{name}.cu").read_text()
@@ -399,11 +458,13 @@ def _logit_copies():
         sources[name] = str(cu)
     libs = build.build_copies(sources, str(out_dir))
     fwd, bwd = K3.configure_fwd(libs["aa_fused"][0]), K3.configure_bwd(libs["aa_fused_bwd"][0])
+    fwd_bf16 = K3.configure_fwd(libs["aa_fused_bf16"][0])
     bwd_bf16 = K3.configure_bwd(libs["aa_fused_bwd_bf16"][0])
     fwd.aa_fused_set_logits.argtypes = [ctypes.c_void_p]
+    fwd_bf16.aa_fused_bf16_set_logits.argtypes = [ctypes.c_void_p]
     bwd.aa_fused_bwd_set_logits.argtypes = [ctypes.c_void_p]
     bwd_bf16.aa_fused_bwd_bf16_set_logits.argtypes = [ctypes.c_void_p]
-    return fwd, bwd, bwd_bf16
+    return fwd, bwd, fwd_bf16, bwd_bf16
 
 
 def _logits_of_both(cuda, heads, compute_dtype="float32"):
@@ -412,17 +473,20 @@ def _logits_of_both(cuda, heads, compute_dtype="float32"):
     recomputed ones, K3's output and statistics (from the check copies) and
     the output of the shipped K3 on the same inputs (K3b's and K4b's in
     bf16)."""
-    fwd, bwd, bwd_bf16 = _logit_copies()
+    fwd, bwd, fwd_bf16, bwd_bf16 = _logit_copies()
     shape = (8, 21, 49, 48) if heads == 8 else (8, 21, 48, 48)
     q, u, mask, keep, ws, g, p = _k4_case(cuda, shape, True, heads)
     rows = q.shape[0] * q.shape[1] * q.shape[2] * u.shape[3]
     lg3 = torch.full((rows, heads), float("nan"), device=cuda)
     lg4 = torch.full((rows, heads), float("nan"), device=cuda)
     dt = dict(compute_dtype=compute_dtype)
-    assert fwd.aa_fused_set_logits(lg3.data_ptr()) == 0
+    if compute_dtype == "bfloat16":
+        fwd, bwd = fwd_bf16, bwd_bf16
+        assert fwd.aa_fused_bf16_set_logits(lg3.data_ptr()) == 0
+    else:
+        assert fwd.aa_fused_set_logits(lg3.data_ptr()) == 0
     out, stats = K3.launch_fwd(fwd, q, u, mask, keep, ws, heads, p, with_stats=True, **dt)
     if compute_dtype == "bfloat16":
-        bwd = bwd_bf16
         assert bwd.aa_fused_bwd_bf16_set_logits(lg4.data_ptr()) == 0
     else:
         assert bwd.aa_fused_bwd_set_logits(lg4.data_ptr()) == 0
@@ -449,9 +513,10 @@ def test_aa_fused_bwd_recomputes_k3s_logits_bit_for_bit(cuda, heads):
 @pytest.mark.gpu
 @pytest.mark.parametrize("heads", HEADS)
 def test_aa_fused_bwd_bf16_recomputes_k3bs_logits_bit_for_bit(cuda, heads):
-    """K4b's recompute takes K3b's bf16 products and epilogues, so its
-    logits are the ones K3b's softmax took, bit for bit, and K3b's softmax
-    max is their max."""
+    """K4b's recompute (mma_bf16.cuh's products, aa_common.cuh's BF
+    epilogues) gives the logits K3b's softmax took (K3b's own layout keeps
+    each element's order of arithmetic), bit for bit, and K3b's softmax max
+    is their max."""
     lg3, lg4, out, stats, shipped = _logits_of_both(cuda, heads, "bfloat16")
     assert not torch.isnan(lg3).any() and not torch.isnan(lg4).any()
     assert torch.equal(lg3, lg4)

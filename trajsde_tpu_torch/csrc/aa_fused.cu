@@ -1,4 +1,5 @@
-// Fused AA pair chain, forward (kernel K3; its bf16 form K3b below).
+// Fused AA pair chain, forward (kernel K3; its bf16 form K3b is
+// aa_fused_bf16.cu).
 //
 // Replaces the TPU kernel trajsde_tpu/ops/pallas/aa_fused.py::_fwd_call
 // (pallas_call body _fwd_kernel -> pair_chain).  For every receiver r and
@@ -88,25 +89,6 @@
 //   the FMA build's 14.6-15.2.  Loading the next chunk's u, mask and keep
 //   while a chunk runs (into registers, or by cp.async) took 10.9-11.1 ms
 //   but spilled 8-48 B at the 128-register cap, so it is not kept.
-// K3b, the bf16 form (template parameter BF; entry points aa_fused_bf16_*),
-// computes as _fwd_call does with FusedCfg(dtype="bfloat16"): pair_chain
-// rounds the three LayerNorm outputs a0, a1 and nbr to bf16, and w1, wagg
-// and wkv inside its mm, and sums each product in f32; the rank-1 first
-// layer, the biases, the logits, the softmax and the aggregate stay f32.
-// With ln_mm (a runtime argument; the JAX encoders' default) each
-// LayerNorm's mean is taken over its bf16-rounded inputs and its variance
-// over the bf16-rounded squares, as _ln_mm's averaging matmuls do.  It
-// differs from K3 in three places: the weights are staged once per block
-// as bf16, transposed (61,440 B instead of 163,840); the three products
-// run as one bf16 term each (mma_bf16.cuh: mma.sync m16n8k16 bf16, two
-// k-steps a fresh fragment added on the CUDA cores); and w1 is not folded,
-// since JAX rounds its two column halves apart and their sum is not a bf16
-// value in general: z1[:D] + z1[D:] is one K = 4D product
-// [a0 | a0] . [bf16(w1[:, :D]); bf16(w1[:, D:])], JAX's sum in another
-// order, for any w1.  The epilogues are K3's with aa_common.cuh's BF form.
-// Bound at bucket 128: the function's products (10 D^2 a pair) at the bf16
-// tensor-core rate (989 TFLOP/s) take 0.26 ms, the rest on the CUDA cores
-// 0.26 ms at the same time.  Shared memory 128,768 B at 8 heads.
 // The ragged last chunk and group are bounds-checked, and every output is
 // summed by one thread in a fixed order, so reruns are bit-equal.
 //
@@ -123,7 +105,6 @@
 
 #include "aa_common.cuh"
 #include "mma_tf32.cuh"
-#include "mma_bf16.cuh"
 
 namespace {
 
@@ -141,20 +122,6 @@ constexpr int W_W1 = 0;
 constexpr int W_AGG = W_W1 + D2 * D;
 constexpr int W_KV = W_AGG + D * D;
 constexpr int W_SLOTS = W_KV + D * D2;
-
-// K3b's bf16 weights, transposed ([N][K], a row padded by 8 values so that
-// the B fragments' 32-bit reads of 8 rows fall in 32 banks): w1 as the
-// K = 4D operand [w1[:, :D]; w1[:, D:]] [D][4D], wagg [D][D], wkv [2D][D]
-constexpr int LB_W1 = 2 * D2 + 8;
-constexpr int LB = D + 8;
-constexpr int B_W1 = 0;
-constexpr int B_AGG = B_W1 + D * LB_W1;
-constexpr int B_KV = B_AGG + D * LB;
-constexpr int B_VALUES = B_KV + D2 * LB;
-
-// the floats the staged weights take: K3's split pairs or K3b's bf16
-template <bool BF>
-constexpr int weight_floats() { return BF ? B_VALUES / 2 : 2 * W_SLOTS; }
 
 // f32 shared memory (floats), after the staged weights (relative offsets)
 constexpr int S_WU = 0;                        // wu, bu, ln0s, ln0b as packed
@@ -174,10 +141,10 @@ constexpr int T1 = T0 + P * D2;                // [P][D] a1, then k
 constexpr int S_U = T1 + P * D;                // [P][4]
 constexpr int S_MASK = S_U + P * 4;            // [P]
 
-// the rest of the layout, per head count H and compute type
-template <int H, bool BF>
+// the rest of the layout, per head count H
+template <int H>
 struct Smem {
-  static constexpr int S0 = weight_floats<BF>();  // where the f32 part starts
+  static constexpr int S0 = 2 * W_SLOTS;       // where the f32 part starts (after the split weights)
   static constexpr int S_LG = S_MASK + P;      // [P][H] masked logits (-inf: no edge), then e
   static constexpr int S_KEEP = S_LG + P * H;  // [P][H]
   static constexpr int S_EK = S_KEEP + P * H;  // [P][H] e * keep
@@ -189,8 +156,7 @@ struct Smem {
   static constexpr int S_CORR = S_MNEW + RB * H;  // [RB][H] exp(old max - new max)
   static constexpr int S_FLOATS = S0 + S_CORR + RB * H;
 
-  static_assert(S0 % 4 == 0 && T0 % 4 == 0 && S_Q % 4 == 0 && S_WU % 4 == 0 && B_VALUES % 8 == 0,
-                "float4 alignment");
+  static_assert(S0 % 4 == 0 && T0 % 4 == 0 && S_Q % 4 == 0 && S_WU % 4 == 0, "float4 alignment");
   static_assert(S_FLOATS * 4 <= 232448, "shared memory of one block");
   // S2 takes one (pair, head) a thread: all of them at 8 heads, half at 4
   static_assert(P * H <= THREADS && P * 4 <= THREADS && NR * 32 == P && RB * H * 8 <= THREADS,
@@ -204,24 +170,6 @@ struct WSplit {  // B of x W from a pre-split W [K][N]: w(n, k) = the pair of W[
   const uint2* p;
   int ld;
   __device__ __forceinline__ uint2 operator()(int n, int k) const { return p[w_at(k, n, ld)]; }
-};
-
-// operand accessors of K3b's bf16 products (mma_bf16.cuh's mma_xwt_bf16)
-struct SwzBf {  // A from a swizzled f32 tile of bf16 values: (m, k even) -> the pair
-  const float* p;
-  int ld;
-  __device__ __forceinline__ uint32_t operator()(int m, int k) const {
-    const float2 v = *reinterpret_cast<const float2*>(p + swz(m, k, ld));
-    return tc::pack_bf16x2(v.x, v.y);
-  }
-};
-
-struct SwzBfTwice {  // A = [X | X] over K = 2 ld (a0 twice, for the unfolded w1)
-  const float* p;
-  int ld;
-  __device__ __forceinline__ uint32_t operator()(int m, int k) const {
-    return SwzBf{p, ld}(m, k & (ld - 1));
-  }
 };
 
 #ifdef AA_WRITE_LOGITS
@@ -244,20 +192,17 @@ __device__ __forceinline__ void relu4(float x[4]) {
 }
 #endif
 
-// BF: K3b, the chain in bf16 (see the note above); ln_mm (BF only): each
-// LayerNorm's statistics from bf16-rounded inputs
-template <int H, bool BF>
+template <int H>
 __global__ void __launch_bounds__(THREADS, 1)
 aa_fused_kernel(const float* __restrict__ q, const float* __restrict__ u,
                 const float* __restrict__ mask, const float* __restrict__ keep,
                 const float* __restrict__ w, float* __restrict__ out,
-                float* __restrict__ stats, long long R, int Ak, float keep_scale, int ln_mm) {
-  using L = Smem<H, BF>;
+                float* __restrict__ stats, long long R, int Ak, float keep_scale) {
+  using L = Smem<H>;
   constexpr int HD = Heads<H>::HD;
   constexpr int HL = Heads<H>::LANES;
   extern __shared__ __align__(16) float smem[];
   uint2* sw2 = reinterpret_cast<uint2*>(smem);
-  __nv_bfloat16* swb = reinterpret_cast<__nv_bfloat16*>(smem);
   float* sw = smem + L::S0;
   float* t0 = sw + T0;
   float* t0b = sw + T0B;
@@ -273,7 +218,6 @@ aa_fused_kernel(const float* __restrict__ q, const float* __restrict__ u,
   float* sl = sw + L::S_L;
   float* smnew = sw + L::S_MNEW;
   float* scorr = sw + L::S_CORR;
-  const bool stats16 = BF && ln_mm != 0;
 
   const int tid = threadIdx.x;
   const int cg = tid & 15;      // epilogue column group: columns c0 .. c0+3 (and D + ...)
@@ -283,29 +227,15 @@ aa_fused_kernel(const float* __restrict__ q, const float* __restrict__ u,
   const int wm = 16 * (warp & 3);
   const int wn = warp >> 2;
 
-  if constexpr (BF) {
-    // stage the three matrices rounded to bf16 and transposed: w1 [r][c]
-    // to row c mod D, depth r (c < D) or 2D + r (c >= D)
-    for (int i = tid; i < D2 * D2; i += THREADS) {
-      const int r = i / D2, c = i % D2;
-      swb[B_W1 + (c % D) * LB_W1 + (c / D) * D2 + r] = __float2bfloat16_rn(w[OFF_W1 + i]);
-    }
-    for (int i = tid; i < D * D; i += THREADS)
-      swb[B_AGG + (i % D) * LB + i / D] = __float2bfloat16_rn(w[OFF_WAGG + i]);
-    for (int i = tid; i < D * D2; i += THREADS)
-      swb[B_KV + (i % D2) * LB + i / D2] = __float2bfloat16_rn(w[OFF_WKV + i]);
-  } else {
-    // stage the three matrices split (w1 folded)
-    for (int i = tid; i < D2 * D; i += THREADS) {
-      const int r = i / D, c = i % D;
-      sw2[W_W1 + w_at(r, c, D)] =
-          tc::split2(w[OFF_W1 + r * D2 + c] + w[OFF_W1 + r * D2 + D + c]);
-    }
-    for (int i = tid; i < D * D; i += THREADS)
-      sw2[W_AGG + w_at(i / D, i % D, D)] = tc::split2(w[OFF_WAGG + i]);
-    for (int i = tid; i < D * D2; i += THREADS)
-      sw2[W_KV + w_at(i / D2, i % D2, D2)] = tc::split2(w[OFF_WKV + i]);
+  // stage the three matrices split (w1 folded)
+  for (int i = tid; i < D2 * D; i += THREADS) {
+    const int r = i / D, c = i % D;
+    sw2[W_W1 + w_at(r, c, D)] = tc::split2(w[OFF_W1 + r * D2 + c] + w[OFF_W1 + r * D2 + D + c]);
   }
+  for (int i = tid; i < D * D; i += THREADS)
+    sw2[W_AGG + w_at(i / D, i % D, D)] = tc::split2(w[OFF_WAGG + i]);
+  for (int i = tid; i < D * D2; i += THREADS)
+    sw2[W_KV + w_at(i / D2, i % D2, D2)] = tc::split2(w[OFF_WKV + i]);
   // and the vectors in f32
   for (int i = tid; i < OFF_W1; i += THREADS) sw[S_WU + i] = w[OFF_WU + i];
   if (tid < D) {
@@ -363,33 +293,26 @@ aa_fused_kernel(const float* __restrict__ q, const float* __restrict__ u,
             hv[half][j] = sw[S_BU + col] + s;
           }
 #ifdef AA_WRITE_PRERELU
-        ln_row_t<BF>(hv[0], sw + S_LN0S, sw + S_LN0B, c0, false, stats16, nullptr, nullptr);
-        ln_row_t<BF>(hv[1], sw + S_LN0S + D, sw + S_LN0B + D, c0, false, stats16, nullptr,
-                     nullptr);
+        ln_row(hv[0], sw + S_LN0S, sw + S_LN0B, c0, false);
+        ln_row(hv[1], sw + S_LN0S + D, sw + S_LN0B + D, c0, false);
         write_prerelu(gp0, cp0, pend, r0 + i, c0, hv[0]);
         write_prerelu(gp0, cp0, pend, r0 + i, D + c0, hv[1]);
         relu4(hv[0]);
         relu4(hv[1]);
 #else
-        ln_row_t<BF>(hv[0], sw + S_LN0S, sw + S_LN0B, c0, true, stats16, nullptr, nullptr);
-        ln_row_t<BF>(hv[1], sw + S_LN0S + D, sw + S_LN0B + D, c0, true, stats16, nullptr,
-                     nullptr);
+        ln_row(hv[0], sw + S_LN0S, sw + S_LN0B, c0, true);
+        ln_row(hv[1], sw + S_LN0S + D, sw + S_LN0B + D, c0, true);
 #endif
         store4(t0 + swz(r0 + i, c0, D2), hv[0]);
         store4(t0 + swz(r0 + i, D + c0, D2), hv[1]);
       }
       __syncthreads();
 
-      // F2. a0 . w1f (K3b: [a0 | a0] . [w1[:, :D]; w1[:, D:]]) -> t1;
-      // a1 = relu(LN(. + b1f)) in place
+      // F2. a0 . w1f -> t1; a1 = relu(LN(. + b1f)) in place
       {
         float acc[1][2][4] = {};
-        if constexpr (BF)
-          tc::mma_xwt_bf16<1, 2, 2 * D2, UNROLL>(SwzBfTwice{t0, D2}, tc::WBf{swb + B_W1, LB_W1},
-                                                 wm, 16 * wn, 8, acc);
-        else
-          tc::mma_xwt_split<1, 2, D2, UNROLL>(Swz{t0, D2}, WSplit{sw2 + W_W1, D}, wm, 16 * wn, 8,
-                                              acc);
+        tc::mma_xwt_split<1, 2, D2, UNROLL>(Swz{t0, D2}, WSplit{sw2 + W_W1, D}, wm, 16 * wn, 8,
+                                            acc);
         tc::store_c<2>(t1, SwzAt{D}, acc, wm, 16 * wn);
       }
       __syncthreads();
@@ -401,11 +324,11 @@ aa_fused_kernel(const float* __restrict__ q, const float* __restrict__ u,
         // epi_a1 with the ReLU after the write
 #pragma unroll
         for (int j = 0; j < 4; ++j) x[j] += sw[S_B1F + c0 + j];
-        ln_row_t<BF>(x, sw + S_LNA0S, sw + S_LNA0B, c0, false, stats16, nullptr, nullptr);
+        ln_row(x, sw + S_LNA0S, sw + S_LNA0B, c0, false);
         write_prerelu(gp0, cp0, pend, r0 + i, D2 + c0, x);
         relu4(x);
 #else
-        epi_a1<BF>(x, sw + S_B1F, sw + S_LNA0S, sw + S_LNA0B, c0, nullptr, nullptr, stats16);
+        epi_a1(x, sw + S_B1F, sw + S_LNA0S, sw + S_LNA0B, c0);
 #endif
         store4(t1 + swz(r0 + i, c0, D), x);
       }
@@ -414,12 +337,8 @@ aa_fused_kernel(const float* __restrict__ q, const float* __restrict__ u,
       // F3. a1 . wagg -> t0 (a0 is read out); nbr = LN(. + bagg) in place
       {
         float acc[1][2][4] = {};
-        if constexpr (BF)
-          tc::mma_xwt_bf16<1, 2, D, UNROLL>(SwzBf{t1, D}, tc::WBf{swb + B_AGG, LB}, wm, 16 * wn,
-                                            8, acc);
-        else
-          tc::mma_xwt_split<1, 2, D, UNROLL>(Swz{t1, D}, WSplit{sw2 + W_AGG, D}, wm, 16 * wn, 8,
-                                             acc);
+        tc::mma_xwt_split<1, 2, D, UNROLL>(Swz{t1, D}, WSplit{sw2 + W_AGG, D}, wm, 16 * wn, 8,
+                                           acc);
         tc::store_c<2>(t0, SwzAt{D}, acc, wm, 16 * wn);
       }
       __syncthreads();
@@ -427,7 +346,7 @@ aa_fused_kernel(const float* __restrict__ q, const float* __restrict__ u,
       for (int i = 0; i < NR; ++i) {
         float x[4];
         load4(x, t0 + swz(r0 + i, c0, D));
-        epi_nbr<BF>(x, sw + S_BAGG, sw + S_LNA1S, sw + S_LNA1B, c0, nullptr, nullptr, stats16);
+        epi_nbr(x, sw + S_BAGG, sw + S_LNA1S, sw + S_LNA1B, c0);
         store4(t0 + swz(r0 + i, c0, D), x);
       }
       __syncthreads();
@@ -436,12 +355,8 @@ aa_fused_kernel(const float* __restrict__ q, const float* __restrict__ u,
       // head logits
       {
         float acc[1][4][4] = {};
-        if constexpr (BF)
-          tc::mma_xwt_bf16<1, 4, D, UNROLL_KV>(SwzBf{t0, D}, tc::WBf{swb + B_KV, LB}, wm, 32 * wn,
-                                               8, acc);
-        else
-          tc::mma_xwt_split<1, 4, D, UNROLL_KV>(Swz{t0, D}, WSplit{sw2 + W_KV, D2}, wm, 32 * wn,
-                                                8, acc);
+        tc::mma_xwt_split<1, 4, D, UNROLL_KV>(Swz{t0, D}, WSplit{sw2 + W_KV, D2}, wm, 32 * wn, 8,
+                                              acc);
         tc::store_c<4>(wn < 2 ? t1 : t0b, SwzAt{D}, acc, wm, 32 * (wn & 1));
       }
       __syncthreads();
@@ -551,28 +466,27 @@ aa_fused_kernel(const float* __restrict__ q, const float* __restrict__ u,
   }
 }
 
-// K3 (K3b with BF) at H heads on the stream; returns cudaGetLastError()
-template <int H, bool BF>
+// K3 at H heads on the stream; returns cudaGetLastError()
+template <int H>
 int launch(const float* q, const float* u, const float* mask, const float* keep, const float* w,
-           float* out, float* stats, long long R, int Ak, float keep_scale, int ln_mm, int grid,
+           float* out, float* stats, long long R, int Ak, float keep_scale, int grid,
            void* stream) {
   if (R <= 0 || Ak <= 0 || grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * Smem<H, BF>::S_FLOATS;
-  cudaError_t err = cudaFuncSetAttribute(aa_fused_kernel<H, BF>,
+  const size_t smem = sizeof(float) * Smem<H>::S_FLOATS;
+  cudaError_t err = cudaFuncSetAttribute(aa_fused_kernel<H>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  aa_fused_kernel<H, BF><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, u, mask, keep, w, out, stats, R, Ak, keep_scale, ln_mm);
+  aa_fused_kernel<H><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      q, u, mask, keep, w, out, stats, R, Ak, keep_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// One set of entry points per compute type and head count: aa_fused_* at the
-// flagship's 8 heads, aa_fused_h4_* at the HiVT baseline's 4, and K3b's
-// aa_fused_bf16_* and aa_fused_bf16_h4_* (ops/aa_fused.py picks by the
-// compute dtype and the head count and refuses any other).
+// One set of entry points per head count: aa_fused_* at the flagship's 8
+// heads, aa_fused_h4_* at the HiVT baseline's 4 (ops/aa_fused.py picks by
+// the head count and refuses any other).  K3b's are in aa_fused_bf16.cu.
 extern "C" {
 
 // floats the packed weight buffer must hold (W_ORDER, flattened)
@@ -581,8 +495,6 @@ int aa_fused_weight_floats() { return W_FLOATS; }
 // receivers one block owns at a time (the wrapper sizes the grid with it)
 int aa_fused_receivers_per_group() { return RB; }
 int aa_fused_h4_receivers_per_group() { return RB; }
-int aa_fused_bf16_receivers_per_group() { return RB; }
-int aa_fused_bf16_h4_receivers_per_group() { return RB; }
 
 #ifdef AA_WRITE_LOGITS
 // where the next launches write each pair's head logits, [R * Ak][H]
@@ -607,27 +519,13 @@ int aa_fused_set_prerelu(float* p) {
 int aa_fused_launch(const float* q, const float* u, const float* mask, const float* keep,
                     const float* w, float* out, float* stats, long long R, int Ak,
                     float keep_scale, int grid, void* stream) {
-  return launch<8, false>(q, u, mask, keep, w, out, stats, R, Ak, keep_scale, 0, grid, stream);
+  return launch<8>(q, u, mask, keep, w, out, stats, R, Ak, keep_scale, grid, stream);
 }
 
 int aa_fused_h4_launch(const float* q, const float* u, const float* mask, const float* keep,
                        const float* w, float* out, float* stats, long long R, int Ak,
                        float keep_scale, int grid, void* stream) {
-  return launch<4, false>(q, u, mask, keep, w, out, stats, R, Ak, keep_scale, 0, grid, stream);
-}
-
-// K3b: as aa_fused_launch, the chain in bf16; ln_mm != 0 takes each
-// LayerNorm's statistics from bf16-rounded inputs (JAX's ln_mm)
-int aa_fused_bf16_launch(const float* q, const float* u, const float* mask, const float* keep,
-                         const float* w, float* out, float* stats, long long R, int Ak,
-                         float keep_scale, int ln_mm, int grid, void* stream) {
-  return launch<8, true>(q, u, mask, keep, w, out, stats, R, Ak, keep_scale, ln_mm, grid, stream);
-}
-
-int aa_fused_bf16_h4_launch(const float* q, const float* u, const float* mask, const float* keep,
-                            const float* w, float* out, float* stats, long long R, int Ak,
-                            float keep_scale, int ln_mm, int grid, void* stream) {
-  return launch<4, true>(q, u, mask, keep, w, out, stats, R, Ak, keep_scale, ln_mm, grid, stream);
+  return launch<4>(q, u, mask, keep, w, out, stats, R, Ak, keep_scale, grid, stream);
 }
 
 }  // extern "C"

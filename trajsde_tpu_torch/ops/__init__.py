@@ -40,17 +40,18 @@ def zero_counts() -> None:
 
 
 # Each kernel's __global__ name as torch.profiler's trace prints it, by the
-# name its launch count goes by: K1-K6; K3b and K5b, the BF = true forms of
-# K3's and K5's templates (``aa_fused_kernel<heads, BF>``); K4b, a kernel of
-# its own (``aa_fused_bwd_bf16_kernel<heads>``, K4 ``aa_fused_bwd_kernel<heads>``)
+# name its launch count goes by: K1-K6; K5b, the BF = true form of K5's
+# template (``aa_attention_kernel<heads, BF>``); K3b and K4b, kernels of
+# their own (``aa_fused_bf16_kernel<heads>``, K3 ``aa_fused_kernel<heads>``;
+# ``aa_fused_bwd_bf16_kernel<heads>``, K4 ``aa_fused_bwd_kernel<heads>``)
 TRACE_NAMES: Dict[str, str] = {
     "sde_rollout": r"\brollout_kernel\b",
     "sde_rollout_bwd": r"\brollout_bwd_kernel\b",
-    "aa_fused": r"\baa_fused_kernel<\d+, false>",
+    "aa_fused": r"\baa_fused_kernel<\d+>",
     "aa_fused_bwd": r"\baa_fused_bwd_kernel<\d+>",
     "aa_attention": r"\baa_attention_kernel<\d+, false>",
     "vpu_probe": r"\bchained_tanh_(f32|bf16)\b",
-    "aa_fused_bf16": r"\baa_fused_kernel<\d+, true>",
+    "aa_fused_bf16": r"\baa_fused_bf16_kernel<\d+>",
     "aa_fused_bwd_bf16": r"\baa_fused_bwd_bf16_kernel<\d+>",
     "aa_attention_bf16": r"\baa_attention_kernel<\d+, true>",
 }

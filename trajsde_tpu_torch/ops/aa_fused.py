@@ -26,9 +26,10 @@ as in the JAX op (whose zero cotangents for them this ``None`` matches).
 matrices of the chain's products rounded to bf16, each product summed in
 f32, and with ``ln_mm`` (the JAX encoders' default) each LayerNorm's
 statistics taken from bf16-rounded inputs.  On CUDA its forward is kernel
-K3b, the bf16 form of K3 (the same source, entry points ``*_bf16_*``), and
-its backward K4b, a kernel of its own (``csrc/aa_fused_bwd_bf16.cu``, entry
-points ``aa_fused_bwd_bf16_*``), counted in ``bf16_launches``; ``q``, ``u``,
+K3b (``csrc/aa_fused_bf16.cu``, entry points ``aa_fused_bf16_*``) and its
+backward K4b (``csrc/aa_fused_bwd_bf16.cu``, entry points
+``aa_fused_bwd_bf16_*``), each a kernel of its own, counted in
+``bf16_launches``; ``q``, ``u``,
 the masks, the weights and the output stay f32.  In f32 ``ln_mm`` changes
 nothing (it is an order of summation).  The forward is a registered op in
 either type, so that ``torch.export`` records it as one call:
@@ -283,7 +284,8 @@ def _entry(lib: ctypes.CDLL, kernel: str, what: str, num_heads: int,
 def _declare(lib: ctypes.CDLL, kernel: str, launch_pointers: int) -> ctypes.CDLL:
     """Declares ``kernel``'s C interface, at every compute dtype and head
     count the build has, on a loaded library and returns it.  The bf16
-    launches take ``ln_mm`` (an int) after ``keep_scale``."""
+    launches take ``ln_mm`` (an int) after ``keep_scale``; a build may say
+    how many blocks an SM holds (``*_blocks_per_sm``, else one)."""
     getattr(lib, f"{kernel}_weight_floats").argtypes = []
     getattr(lib, f"{kernel}_weight_floats").restype = ctypes.c_int
     for dt in COMPUTE_DTYPES:
@@ -296,22 +298,28 @@ def _declare(lib: ctypes.CDLL, kernel: str, launch_pointers: int) -> ctypes.CDLL
                 *([ctypes.c_int] if dt == "bfloat16" else []), ctypes.c_int, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
-            fn = getattr(lib, _entry_name(kernel, "receivers_per_group", h, dt))
-            fn.argtypes, fn.restype = [], ctypes.c_int
+            for what in ("receivers_per_group", "blocks_per_sm"):
+                name = _entry_name(kernel, what, h, dt)
+                if what == "receivers_per_group" or hasattr(lib, name):
+                    fn = getattr(lib, name)
+                    fn.argtypes, fn.restype = [], ctypes.c_int
     return lib
 
 
 def configure_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declares K3's C interface on a loaded library (``csrc/aa_fused.cu``
-    or a copy of it built elsewhere) and returns it."""
+    """Declares K3's or K3b's C interface on a loaded library
+    (``csrc/aa_fused.cu``, ``csrc/aa_fused_bf16.cu`` or a copy of either
+    built elsewhere) and returns it."""
     return _declare(lib, "aa_fused", 7)
 
 
 @functools.cache
-def _library():
+def _library(compute_dtype: str = "float32"):
+    """K3's library, or K3b's in bf16."""
     from trajsde_tpu_torch.ops import build
 
-    return configure_fwd(build.load("aa_fused"))
+    bf = _check_dtype(compute_dtype)
+    return configure_fwd(build.load("aa_fused_bf16" if bf else "aa_fused"))
 
 
 def configure_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -365,10 +373,20 @@ def _keep_scale(keep, dropout_rate: float) -> float:
     return 1.0 / (1.0 - dropout_rate) if keep is not None else 1.0
 
 
-def _grid(R: int, receivers_per_group: int, dev) -> int:
-    """A persistent grid: at most one block per SM walks the receiver groups."""
+def _grid(R: int, receivers_per_group: int, dev, blocks_per_sm: int = 1) -> int:
+    """A persistent grid: at most ``blocks_per_sm`` blocks per SM walk the
+    receiver groups."""
     groups = -(-R // receivers_per_group)
-    return min(groups, torch.cuda.get_device_properties(dev).multi_processor_count)
+    return min(groups, blocks_per_sm * torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
+def _fwd_grid(lib: ctypes.CDLL, R: int, num_heads: int, compute_dtype: str, dev) -> int:
+    """The grid of a forward launch from the build's own sizes: receivers
+    a block walks at a time, and blocks an SM holds where the build says."""
+    per_sm = _entry_name("aa_fused", "blocks_per_sm", num_heads, compute_dtype)
+    blocks = getattr(lib, per_sm)() if hasattr(lib, per_sm) else 1
+    return _grid(R, _entry(lib, "aa_fused", "receivers_per_group", num_heads, compute_dtype)(),
+                 dev, blocks)
 
 
 def _dtype_args(compute_dtype: str, ln_mm: bool) -> list:
@@ -380,7 +398,8 @@ def launch_fwd(lib: ctypes.CDLL, q, u, mask_f, keep, ws, num_heads, dropout_rate
                with_stats: bool = False, compute_dtype: str = "float32", ln_mm: bool = True):
     """Runs ``lib``'s ``aa_fused_launch`` (K3, or another build of its
     source configured by :func:`configure_fwd`; ``aa_fused_bf16_launch``,
-    K3b, in bf16) on the current stream -> (out, stats): ``stats [2, R, H]``
+    K3b or a build that has it, in bf16) on the current stream -> (out,
+    stats): ``stats [2, R, H]``
     holds each (receiver, head)'s softmax max and sum of exp for K4 when
     ``with_stats``, else None.  Counts nothing (see
     :func:`fused_pair_attention`)."""
@@ -391,8 +410,7 @@ def launch_fwd(lib: ctypes.CDLL, q, u, mask_f, keep, ws, num_heads, dropout_rate
     stats = torch.empty((2, R, num_heads), device=dev) if with_stats else None
     if R == 0:
         return out, stats
-    grid = _grid(R, _entry(lib, "aa_fused", "receivers_per_group", num_heads, compute_dtype)(),
-                 dev)
+    grid = _fwd_grid(lib, R, num_heads, compute_dtype, dev)
     launch = _entry(lib, "aa_fused", "launch", num_heads, compute_dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -420,8 +438,8 @@ def _launch(q, u, mask_f, keep, ws, num_heads, dropout_rate, with_stats: bool = 
             compute_dtype: str = "float32", ln_mm: bool = True):
     """K3 (K3b in bf16) -> (out, stats), counted in
     ``fused_pair_attention.launches`` (``.bf16_launches``)."""
-    out, stats = launch_fwd(_library(), q, u, mask_f, keep, ws, num_heads, dropout_rate,
-                            with_stats, compute_dtype, ln_mm)
+    out, stats = launch_fwd(_library(compute_dtype), q, u, mask_f, keep, ws, num_heads,
+                            dropout_rate, with_stats, compute_dtype, ln_mm)
     if q.numel():  # no receivers: nothing was launched
         _count(fused_pair_attention, compute_dtype)
     return out, stats
